@@ -5,21 +5,30 @@ and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing one or more lines:
 
 0. the device: ``torch.cuda.get_device_name(0)`` and the card's name and
    power limit as ``nvidia-smi`` reports them;
-1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``;
-2. each kernel against its plain PyTorch version on the card, at the
-   main path's shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a
-   ragged 1000x904 image with a block of zero-flux sentinel pixels,
-   with the time per call of both;
+1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
+   compiler per source, all at once;
+2. each kernel against its plain PyTorch version on the card, with the
+   time per call of both: the fused scorer (K1, K2) at the main path's
+   shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
+   1000x904 image with a block of zero-flux sentinel pixels; the
+   patch-level scorer, unit gradient and Hessian action (K5, K6, K7) on
+   the rows of those two images (65,025 rows, the flux-error probe's
+   shape, and a ragged 56,025);
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``.
    The kernels' launch counts are set to zero just before and read just
    after; then a small run (4 x 128², 20 steps) on the card is held
-   against the same run on the CPU's plain path.
+   against the same run on the CPU's plain path;
+4. the flux-error path: the same deconvolution with
+   ``compute_error=True`` and 5 steps, so that the run ends with one
+   Hessian probe on the patch-level kernels; counts set to zero just
+   before and read just after; then the errors of a small run on the
+   card against the CPU's plain path.
 
 It then prints a JSON line with each kernel's numbers and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -38,7 +47,20 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SMALL_FLUX_RTOL = 1e-4
+# errors of the small run, card against CPU: float32 FFTs and sums in
+# other orders, at flux maps that differ by up to 4e-5 after 20 steps;
+# the errors moved far less than that on an H100 (9.7e-7), so the flux
+# maps' own bar holds with room to spare
+SMALL_ERROR_RTOL = 1e-4
 STEPS = 20
+ERROR_STEPS = 5
+# the main path's field and observation count, and the ragged image of
+# the kernel checks
+FIELD, N_OBS, RAGGED = 1024, 10, (1000, 904)
+MAIN = f"{FIELD}x{FIELD}"
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def check(condition, message):
@@ -74,15 +96,24 @@ def phase_device(torch):
 
 
 def phase_build():
-    from jolideco_torch.utils.cuda_build import BUILD_INFO, load_library
+    from jolideco_torch.utils.cuda_build import BUILD_INFO, load_libraries
 
     t0 = time.perf_counter()
-    load_library("gmm_fused")
+    names = ("gmm_fused", "gmm_patch")
+    load_libraries(*names)
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in BUILD_INFO["gmm_fused"]["ptxas"]
-             .splitlines() if "registers" in line or "spill" in line]
-    print(f"phase 1 build: gmm_fused in {seconds:.2f} s; "
-          + " | ".join(ptxas))
+    for name in names:
+        ptxas = [line.strip() for line in BUILD_INFO[name]["ptxas"]
+                 .splitlines() if "registers" in line or "spill" in line]
+        print(f"phase 1 build: {name} in {BUILD_INFO[name]['seconds']:.2f} s "
+              f"(both in {seconds:.2f} s); " + " | ".join(ptxas))
+
+
+def bound(flop, nbytes):
+    """Least time in ms on the card, and what sets it."""
+    t_ops, t_bytes = flop / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_kernels(torch, device):
@@ -94,11 +125,11 @@ def phase_kernels(torch, device):
     gmm = GaussianMixtureModel.from_registry("astro-snr-v1")
     bufs = gmm.kernel_buffers(device)
     rs = np.random.RandomState(0)
-    ragged = rs.uniform(0.1, 2.0, (1000, 904)).astype(np.float32)
+    ragged = rs.uniform(0.1, 2.0, RAGGED).astype(np.float32)
     ragged[96:160, 200:260] = 2.0 * ZERO_FLUX_SENTINEL
     cases = {
-        "1024x1024": rs.uniform(0.1, 2.0, (1024, 1024)).astype(np.float32),
-        "1000x904": ragged,
+        MAIN: rs.uniform(0.1, 2.0, (FIELD, FIELD)).astype(np.float32),
+        "{}x{}".format(*RAGGED): ragged,
     }
     stride, sentinel = 4, ZERO_FLUX_SENTINEL
     out = {}
@@ -141,7 +172,7 @@ def phase_kernels(torch, device):
             "argmax_flips": flips, "n_valid": n_valid,
             "grad_max_abs_err": grad_err, "grad_max_abs": grad_scale,
         }
-        if label == "1024x1024":
+        if label == MAIN:
             out["timing"] = {
                 "fwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_fwd_cuda(
                     image, bufs, stride, sentinel), 10),
@@ -152,18 +183,156 @@ def phase_kernels(torch, device):
                 "bwd_plain_ms": cuda_ms(torch, lambda: gf.fused_backward_plain(
                     xp, ap, valp, dv, bufs, img.shape, stride), 3),
             }
+            # K1: every patch against every component (the symmetric
+            # quadratic form and b . x); reads the image and the records,
+            # writes values, argmax, valid and the normalised patches
+            n, k = vp.numel(), bufs["rec"].shape[0]
+            out["fwd_bound"] = bound(
+                2.0 * n * k * (2080 + 64),
+                4 * (img.size + bufs["rec"].numel() + n * (3 + 64)))
+            # K2: A_{k*} x for each valid patch; reads the valid patches,
+            # argmax, valid, dv and the components they select, writes
+            # the image gradient
+            used = int(torch.unique(ap[m]).numel())
+            out["bwd_bound"] = bound(
+                2.0 * n_valid * 64 * 64,
+                4 * (n_valid * 64 + 3 * n + used * (64 * 64 + 64)
+                     + img.size))
         print(f"phase 2 kernels {label}: valid identical; "
               f"values max rel err {out[label]['value_max_rel_err']:.3g}; "
               f"argmax flips {flips}/{n_valid}; "
               f"grad max abs err {grad_err:.3g} (max {grad_scale:.3g})")
     t = out["timing"]
-    print(f"phase 2 timing 1024x1024 K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
+    print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
           f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernel {t['bwd_ms']:.3f} ms, "
           f"plain {t['bwd_plain_ms']:.3f} ms")
+    out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     return out
 
 
-def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS):
+def normalised_rows(torch, image, sentinel):
+    """The probe's rows of an image: grouped patches, masked, mean-free."""
+    from jolideco_torch.ops.patches import view_as_overlapping_patches_grouped
+
+    patches = view_as_overlapping_patches_grouped(image, (8, 8), 4)
+    valid = (patches > sentinel).all(dim=1)
+    patches = torch.where(valid[:, None], patches, torch.zeros_like(patches))
+    return (patches - patches.mean(dim=1, keepdim=True)).contiguous()
+
+
+def phase_patch_kernels(torch, device, bufs, cases):
+    """K5, K6 and K7 against their plain versions on the rows of the
+    phase's images: values rtol 1e-5 (float32 sums in other orders),
+    argmax flips at most 1e-4 of the rows, unit gradient and Hessian
+    action (on the plain argmax, random tangents) within 1e-4 of their
+    max-abs."""
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    out = {}
+    for label, img in cases.items():
+        x = normalised_rows(torch, torch.as_tensor(img, device=device),
+                            ZERO_FLUX_SENTINEL)
+        n = x.shape[0]
+        gen = torch.Generator(device=device).manual_seed(2)
+        t = torch.randn(x.shape, generator=gen, device=device)
+        errs = {}
+        for marginalize in (False, True):
+            vk, ak = gp.gmm_score_rows_cuda(x, bufs, marginalize)
+            vp, ap = gp.score_rows_plain(x, bufs, marginalize)
+            torch.cuda.synchronize()
+            rel = float(((vk - vp).abs() / vp.abs()).max())
+            check(rel <= 1e-5, f"{label}: K5 values (marginalize="
+                  f"{marginalize}) beyond rtol 1e-5 ({rel:.3g})")
+            flips = int((ak != ap).sum())
+            check(flips <= 1e-4 * n, f"{label}: K5 argmax flips {flips}/{n}")
+            errs[f"score_marg{int(marginalize)}"] = (
+                float((vk - vp).abs().max()), rel, flips)
+        _, ap = gp.score_rows_plain(x, bufs)
+        for name, kern, plain, arg in (
+                ("unit", gp.gmm_unit_map_cuda, gp.unit_map_plain, x),
+                ("hvp", gp.gmm_hvp_map_cuda, gp.hvp_map_plain, t)):
+            got, want = kern(arg, ap, bufs), plain(arg, ap, bufs)
+            torch.cuda.synchronize()
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            check(err <= 1e-4 * scale,
+                  f"{label}: K{'6' if name == 'unit' else '7'} error {err:.3g} "
+                  f"vs max {scale:.3g}")
+            errs[name] = (err, scale)
+        out[label] = errs
+        print(f"phase 2 patch kernels {label} ({n} rows): K5 values max rel "
+              f"err {errs['score_marg0'][1]:.3g} (logsumexp "
+              f"{errs['score_marg1'][1]:.3g}), argmax flips "
+              f"{errs['score_marg0'][2]}; K6 max abs err {errs['unit'][0]:.3g} "
+              f"(max {errs['unit'][1]:.3g}); K7 max abs err "
+              f"{errs['hvp'][0]:.3g} (max {errs['hvp'][1]:.3g})")
+        if label != MAIN:
+            continue
+        k = bufs["rec"].shape[0]
+        used = int(torch.unique(ap).numel())
+        row_bytes = 4 * (2 * n * 64 + n)
+        out["timing"] = {
+            "score_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_cuda(
+                x, bufs), 10),
+            "score_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
+                x, bufs), 3),
+            "unit_ms": cuda_ms(torch, lambda: gp.gmm_unit_map_cuda(
+                x, ap, bufs), 20),
+            "unit_plain_ms": cuda_ms(torch, lambda: gp.unit_map_plain(
+                x, ap, bufs), 3),
+            "hvp_ms": cuda_ms(torch, lambda: gp.gmm_hvp_map_cuda(
+                t, ap, bufs), 20),
+            "hvp_plain_ms": cuda_ms(torch, lambda: gp.hvp_map_plain(
+                t, ap, bufs), 3),
+        }
+        out["bounds"] = {
+            # every row against every component; reads rows and records,
+            # writes values and argmax
+            "score": bound(2.0 * n * k * (2080 + 64),
+                           4 * (n * 64 + bufs["rec"].numel() + 2 * n)),
+            # A_{k*} x per row; reads rows, argmax and the selected
+            # components, writes rows
+            "unit": bound(2.0 * n * 64 * 64,
+                          row_bytes + 4 * used * (64 * 64 + 64)),
+            "hvp": bound(2.0 * n * 64 * 64, row_bytes + 4 * used * 64 * 64),
+        }
+        tm = out["timing"]
+        print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
+              f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
+              f"K6 {tm['unit_ms']:.4f} ms (plain {tm['unit_plain_ms']:.3f}); "
+              f"K7 {tm['hvp_ms']:.4f} ms (plain {tm['hvp_plain_ms']:.3f}); "
+              f"{used} components selected")
+    return out
+
+
+def reset_counts():
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    gf.reset_counters()
+    gp.reset_counters()
+
+
+def counts():
+    """Kernel launches by name, and the plain versions' calls in all."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    launches = {
+        "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
+        "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
+        "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
+        "gmm_unit_map": gp.gmm_unit_map_cuda.launches,
+        "gmm_hvp_map": gp.gmm_hvp_map_cuda.launches,
+    }
+    plain = sum(fn.calls for fn in (
+        gf.fused_forward_plain, gf.fused_backward_plain, gf.score_plain,
+        gp.score_rows_plain, gp.unit_map_plain, gp.hvp_map_plain))
+    return launches, plain
+
+
+def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
+              compute_error=False):
     from jolideco_torch import (
         GMMPatchPrior,
         MAPDeconvolver,
@@ -178,6 +347,7 @@ def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS):
     deco = MAPDeconvolver(
         n_epochs=n_steps, learning_rate=0.1, update_strategy="joint",
         conv_mode="fft", trace_every=0, seed=0, device=device,
+        compute_error=compute_error,
     )
     return deco.run(datasets, components=component)
 
@@ -199,31 +369,25 @@ def data_term(datasets, flux, device):
 
 
 def phase_slice(torch, device):
-    from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
 
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
-    datasets = make_datasets(n_obs=10, size=1024, psf_size=33, seed=0)
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
     run_slice(datasets, astro, device, cycle_spin=True, n_steps=2)  # warm-up
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gf.reset_counters()
+    reset_counts()
     result = run_slice(datasets, astro, device, cycle_spin=True)
-    launches = {
-        "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
-        "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
-    }
-    plain_calls = (gf.fused_forward_plain.calls
-                   + gf.fused_backward_plain.calls + gf.score_plain.calls)
+    launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
 
     loss = result.loss_per_step
     flux = result.flux_upsampled_total
     check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
           f"non-finite loss: {loss}")
-    check(flux.shape == (1024, 1024), f"flux shape {flux.shape}")
+    check(flux.shape == (FIELD, FIELD), f"flux shape {flux.shape}")
     check(bool(np.isfinite(flux).all() and (flux > 0).all()),
           "flux not finite and positive")
     # The total loss is not a progress measure over 20 steps here: the
@@ -234,11 +398,12 @@ def phase_slice(torch, device):
     data_end = float(data_term(datasets, flux, device))
     check(data_end < data_start,
           f"Poisson data term did not fall: {data_start} -> {data_end}")
-    for name, count in launches.items():
-        check(count == STEPS, f"{name} launched {count} times, not {STEPS}")
-    check(plain_calls == 0, f"plain scorer ran {plain_calls} times")
+    expected = {"gmm_fused_fwd": STEPS, "gmm_fused_bwd": STEPS,
+                "gmm_score_rows": 0, "gmm_unit_map": 0, "gmm_hvp_map": 0}
+    check(launches == expected, f"launches {launches}, not {expected}")
+    check(plain_calls == 0, f"plain versions ran {plain_calls} times")
     steps_per_s = STEPS / result.train_seconds
-    print(f"phase 3 slice 10x1024^2 K=200: {STEPS} steps at "
+    print(f"phase 3 slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
           f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "
           f"data term {data_start:.6f} -> {data_end:.6f}; "
           f"launches {launches}; plain calls {plain_calls}; "
@@ -256,6 +421,59 @@ def phase_slice(torch, device):
     print(f"phase 3 small 4x128^2 card vs CPU plain path: flux max rel err "
           f"{rel:.3g} (limit {SMALL_FLUX_RTOL})")
     return {"launches": launches, "steps_per_s": steps_per_s,
+            "peak_bytes": peak}
+
+
+def phase_errors(torch, device):
+    """``compute_error=True`` through ``MAPDeconvolver``: the main path's
+    training, then one Hessian probe on K5, K6 and K7."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    run_slice(datasets, astro, device, cycle_spin=True, n_steps=1,
+              compute_error=True)  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, astro, device, cycle_spin=True,
+                       n_steps=ERROR_STEPS, compute_error=True)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    expected = {"gmm_fused_fwd": ERROR_STEPS, "gmm_fused_bwd": ERROR_STEPS,
+                "gmm_score_rows": 1, "gmm_unit_map": 1, "gmm_hvp_map": 1}
+    check(launches == expected, f"launches {launches}, not {expected}")
+    check(plain_calls == 0, f"plain versions ran {plain_calls} times")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD), f"error shape {errors.shape}")
+    # H . 1 is positive at every pixel of this data (the Poisson term's
+    # curvature; the prior adds nothing along ones), so every error
+    # must be finite and positive
+    check(bool(np.isfinite(errors).all() and (errors > 0).all()),
+          f"errors not finite and positive at "
+          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
+    print(f"phase 4 errors {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} steps in "
+          f"{result.train_seconds:.4f} s, probe {result.error_seconds:.4f} s; "
+          f"errors {float(errors.min()):.6g} .. {float(errors.max()):.6g}; "
+          f"launches {launches}; plain calls {plain_calls}; "
+          f"peak memory {peak} B")
+
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    on_card, on_cpu = (
+        run_slice(small, builtin, dev, cycle_spin=False, compute_error=True)
+        .components["flux"].flux_upsampled_error_numpy
+        for dev in (device, "cpu")
+    )
+    rel = float(np.max(np.abs(on_card - on_cpu) / np.abs(on_cpu)))
+    check(rel <= SMALL_ERROR_RTOL,
+          f"4x128^2 errors on the card vs CPU: max rel err {rel:.3g}")
+    print(f"phase 4 small 4x128^2 card vs CPU plain path: errors max rel err "
+          f"{rel:.3g} (limit {SMALL_ERROR_RTOL})")
+    return {"launches": launches, "error_seconds": result.error_seconds,
             "peak_bytes": peak}
 
 
@@ -279,21 +497,39 @@ def main():
     phase_build()
     kernels = phase_kernels(torch, device)
     slice_ = phase_slice(torch, device)
+    errors = phase_errors(torch, device)
 
-    timing = kernels["timing"]
+    timing, patch = kernels["timing"], kernels["patch"]
+    rows = patch[MAIN]
+    ptiming, pbounds = patch["timing"], patch["bounds"]
+    fused_src = "jolideco_torch/csrc/gmm_fused.cu"
+    patch_src = "jolideco_torch/csrc/gmm_patch.cu"
+    table = [
+        ("gmm_fused_fwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:309",
+         slice_, kernels[MAIN]["value_max_abs_err"],
+         timing["fwd_ms"], timing["fwd_plain_ms"], kernels["fwd_bound"]),
+        ("gmm_fused_bwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:405",
+         slice_, kernels[MAIN]["grad_max_abs_err"],
+         timing["bwd_ms"], timing["bwd_plain_ms"], kernels["bwd_bound"]),
+        ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
+         errors, rows["score_marg0"][0], ptiming["score_ms"],
+         ptiming["score_plain_ms"], pbounds["score"]),
+        ("gmm_unit_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:365",
+         errors, rows["unit"][0], ptiming["unit_ms"],
+         ptiming["unit_plain_ms"], pbounds["unit"]),
+        ("gmm_hvp_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:376",
+         errors, rows["hvp"][0], ptiming["hvp_ms"],
+         ptiming["hvp_plain_ms"], pbounds["hvp"]),
+    ]
+    # no single PyTorch call computes any of these functions (each needs
+    # a gather of per-row components, or a max over quadratic forms), so
+    # there is no library yardstick: library_ms is null
     print(json.dumps({"kernels": [
-        {"name": "gmm_fused_fwd", "route": "cuda",
-         "source": "jolideco_torch/csrc/gmm_fused.cu",
-         "replaces": "jolideco_tpu/ops/gmm_fused.py:309",
-         "launches": slice_["launches"]["gmm_fused_fwd"],
-         "max_abs_err": kernels["1024x1024"]["value_max_abs_err"],
-         "ms": timing["fwd_ms"], "plain_ms": timing["fwd_plain_ms"]},
-        {"name": "gmm_fused_bwd", "route": "cuda",
-         "source": "jolideco_torch/csrc/gmm_fused.cu",
-         "replaces": "jolideco_tpu/ops/gmm_fused.py:405",
-         "launches": slice_["launches"]["gmm_fused_bwd"],
-         "max_abs_err": kernels["1024x1024"]["grad_max_abs_err"],
-         "ms": timing["bwd_ms"], "plain_ms": timing["bwd_plain_ms"]},
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": path["launches"][name],
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
+         "library_ms": None}
+        for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -1,15 +1,20 @@
 """Runtime configuration: device resolution, kernel dispatch, precision.
 
-Counterpart of the JAX package's ``config.py``. Three things live here:
+Counterpart of the JAX package's ``config.py``. Four things live here:
 
 - :func:`resolve_device` turns a user's ``device`` argument into a
-  ``torch.device`` (``None`` picks the first CUDA card when there is
-  one, else the CPU). There is no global device: every entry point
+  ``torch.device``. ``None`` means the first CUDA card, and raises when
+  there is none: the CPU runs only when the caller asks for it
+  (``device="cpu"``). There is no global device: every entry point
   takes its own ``device`` argument.
 - :func:`dispatch` is the kernel dispatch rule. A tensor on a CUDA
   card goes to the hand-written kernel, a tensor on the CPU to the
   kernel's plain PyTorch version. Nothing falls back: a kernel that
   cannot build or launch raises.
+- The fused-scorer switch (``"auto" | "off"``, :func:`use_fused`,
+  :func:`force_fused`): ``"off"`` sends the GMM patch prior to its
+  patch-level scorer, which the Hessian probe needs because the fused
+  scorer has no second derivative.
 - The precision dial (``"highest" | "high" | "default"``, the names of
   the JAX package's ``config.set_gmm_precision``). The CUDA kernels compute
   in full float32 whatever the dial says, which meets the strictest
@@ -18,17 +23,22 @@ Counterpart of the JAX package's ``config.py``. Three things live here:
   in TF32 by default, which keeps only about three decimal digits.
 """
 
+from contextlib import contextmanager
+
 import torch
 
 __all__ = [
     "dispatch",
+    "force_fused",
     "gmm_precision",
     "resolve_device",
     "set_gmm_precision",
+    "use_fused",
 ]
 
 _PRECISIONS = ("highest", "high", "default")
 _GMM_PRECISION = "high"
+_USE_FUSED = "auto"
 
 
 def _pin_float32():
@@ -52,10 +62,41 @@ def gmm_precision():
 
 
 def resolve_device(device=None):
-    """``torch.device`` for a user's ``device`` argument."""
+    """``torch.device`` for a user's ``device`` argument.
+
+    ``None`` is the first CUDA card; without one it raises instead of
+    falling back to the CPU.
+    """
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "on the CPU"
+            )
+        device = "cuda"
     return torch.device(device)
+
+
+def use_fused():
+    """Current fused-scorer switch: ``"auto"`` or ``"off"``."""
+    return _USE_FUSED
+
+
+@contextmanager
+def force_fused(mode):
+    """Set the fused-scorer switch for the duration of a ``with`` block.
+
+    A process-wide setting, read when a prior is evaluated: not
+    thread-safe.
+    """
+    global _USE_FUSED
+    if mode not in ("auto", "off"):
+        raise ValueError(f"invalid fused mode {mode!r}")
+    saved, _USE_FUSED = _USE_FUSED, mode
+    try:
+        yield
+    finally:
+        _USE_FUSED = saved
 
 
 def dispatch(tensor):

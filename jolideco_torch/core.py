@@ -14,9 +14,15 @@ the same updates as the JAX package's ``optax.adam`` and ``optax.sgd``
 with ``seed``; it draws other numbers than JAX's keys from the same
 seed.
 
+With ``compute_error=True`` the run ends with one Hessian probe at the
+trained fluxes (``TotalLoss.fluxes_error``): flux errors
+``sqrt(1 / (H · 1))`` per component, on the patch-level GMM scorer's
+kernels.
+
 Ported: ``update_strategy="joint"``, ``trace_every=0``,
-``conv_mode="fft"``. The sequential strategy, the loss trace, early
-stopping, checkpoints and flux errors raise ``NotImplementedError``.
+``conv_mode="fft"``, ``compute_error``. The sequential strategy, the
+loss trace, early stopping and checkpoints raise
+``NotImplementedError``.
 """
 
 import logging
@@ -89,13 +95,16 @@ class MAPDeconvolver:
     seed : int
         Seed of the generator that draws the prior's cycle spins.
     device : str or torch.device, optional
-        Where the run happens; default the first CUDA card, else CPU.
+        Where the run happens; default the first CUDA card (and an error
+        without one). ``"cpu"`` runs the plain versions of the kernels.
     conv_mode : {"auto", "fft"}
         PSF convolution backend. ``"auto"`` is the FFT (cuFFT on the
         card) until the matmul-DFT kernel is ported and measured.
     fft_shape : tuple of int, optional
         Padded FFT shape (at least image + kernel - 1 per axis).
-    compute_error, stop_early, checkpoint_path :
+    compute_error : bool
+        Compute flux errors from the loss Hessian after training.
+    stop_early, checkpoint_path :
         Accepted for signature parity; anything but the defaults raises
         ``NotImplementedError``.
     """
@@ -109,7 +118,6 @@ class MAPDeconvolver:
                  trace_every=1, seed=0, device=None, conv_mode="auto",
                  fft_shape=None):
         unported = {
-            "compute_error": compute_error,
             "stop_early": stop_early,
             "checkpoint_path": checkpoint_path is not None,
             f"update_strategy={update_strategy!r}":
@@ -130,6 +138,7 @@ class MAPDeconvolver:
         self.n_epochs = int(n_epochs)
         self.beta = float(beta)
         self.learning_rate = float(learning_rate)
+        self.compute_error = bool(compute_error)
         self.optimizer_type = optimizer_type
         optimizer_kwargs = dict(optimizer_kwargs or {})
         if "lr" in optimizer_kwargs:
@@ -151,6 +160,7 @@ class MAPDeconvolver:
             "n_epochs": self.n_epochs,
             "beta": self.beta,
             "learning_rate": self.learning_rate,
+            "compute_error": self.compute_error,
             "optimizer_type": self.optimizer_type,
             "optimizer_kwargs": {
                 k: v for k, v in self.optimizer_kwargs.items()
@@ -179,10 +189,10 @@ class MAPDeconvolver:
     def make_step(self, datasets, components):
         """Build the loss, parameters and optimiser of a run.
 
-        Returns ``(step, params, components)``: ``step()`` takes one
-        optimiser step and returns the loss at the parameters it started
-        from (a device scalar, not fetched); ``params`` is the nested
-        dict of trainable tensors it updates in place.
+        Returns ``(step, params, components, total_loss)``: ``step()``
+        takes one optimiser step and returns the loss at the parameters
+        it started from (a device scalar, not fetched); ``params`` is
+        the nested dict of trainable tensors it updates in place.
         """
         device = resolve_device(self.device)
         if isinstance(components, SpatialFluxComponent):
@@ -206,7 +216,7 @@ class MAPDeconvolver:
             optimizer.step()
             return loss.detach()
 
-        return step, params, components
+        return step, params, components, total_loss
 
     def run(self, datasets, components):
         """Run the MAP deconvolution.
@@ -222,7 +232,8 @@ class MAPDeconvolver:
         -------
         result : `MAPDeconvolverResult`
         """
-        step, params, components = self.make_step(datasets, components)
+        step, params, components, total_loss = self.make_step(datasets,
+                                                              components)
         t0 = time.perf_counter()
         losses = [step() for _ in range(self.n_epochs)]
         # one host fetch at the end: no per-step synchronisation
@@ -239,11 +250,22 @@ class MAPDeconvolver:
                 "initialisation (strictly positive for log-flux "
                 "components), the learning rate, and the data."
             )
+
+        error_seconds = 0.0
+        if self.compute_error:
+            t1 = time.perf_counter()
+            fluxes = components.fluxes_from(params)
+            components.set_flux_errors(total_loss.fluxes_error(fluxes))
+            if fluxes and fluxes[0].is_cuda:
+                torch.cuda.synchronize(fluxes[0].device)
+            error_seconds = time.perf_counter() - t1
+
         return MAPDeconvolverResult(
             config=self.to_dict(),
             components=components,
             loss_per_step=loss_per_step,
             train_seconds=train_seconds,
+            error_seconds=error_seconds,
         )
 
 
@@ -259,13 +281,18 @@ class MAPDeconvolverResult:
     train_seconds : float
         Host wall time of the optimisation loop, ending with the fetch
         of the loss values (so it includes the device's work).
+    error_seconds : float
+        Host wall time of the flux-error probe, ending with a device
+        synchronisation (0 without ``compute_error``).
     """
 
-    def __init__(self, config, components, loss_per_step, train_seconds):
+    def __init__(self, config, components, loss_per_step, train_seconds,
+                 error_seconds=0.0):
         self.config = config
         self.components = components
         self.loss_per_step = np.asarray(loss_per_step)
         self.train_seconds = float(train_seconds)
+        self.error_seconds = float(error_seconds)
 
     @property
     def flux_upsampled_total(self):

@@ -39,7 +39,9 @@
 // multiply-adds (two patches). Component records (A_sym, b, c) are
 // staged through shared memory one at a time, double-buffered so that
 // one __syncthreads per component suffices. Four partial sums per row
-// and patch give the FMA pipe independent chains. At 1024², K = 200 on
+// and patch give the FMA pipe independent chains. The record layout and
+// the per-component logit loop live in gmm_logits.cuh, shared with the
+// patch-level scorer (gmm_patch.cu). At 1024², K = 200 on
 // an NVIDIA H100 80GB HBM3 (700 W limit) one patch per thread took 2.41
 // ms, two 1.62-1.65 ms, three (254 registers) 2.39 ms. No tensor cores
 // (wgmma) yet: this is the plain fp32 kernel that later PRs make fast.
@@ -62,24 +64,18 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "gmm_logits.cuh"
+
 namespace {
 
+using gmm::kD;
+using gmm::kRec;
+using gmm::load_record;
+
 constexpr int kP = 8;     // patch edge
-constexpr int kD = 64;    // features per patch
-constexpr int kSym = 2176;             // floats of the row-padded triangle
-constexpr int kRec = kSym + kD + 4;    // A_sym, b, c and 3 pad floats
 constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
 constexpr int kBwdThreads = 128;
-
-// Offset of row r in the row-padded upper triangle: rows come in groups
-// of four of equal length 64 - 4m, m = r / 4.
-__host__ __device__ constexpr int sym_row_offset(int r) {
-  return 4 * (64 * (r / 4) - 2 * (r / 4) * (r / 4 - 1)) +
-         (r % 4) * (64 - 4 * (r / 4));
-}
-static_assert(sym_row_offset(64) == kSym, "triangle size");
-static_assert(kRec % 4 == 0, "records are read as float4");
 
 struct PatchPos {
   int g, i, j, a, b;
@@ -99,14 +95,6 @@ __device__ __forceinline__ PatchPos patch_pos(int n, int H, int W, int stride,
   p.b = (p.g % groups_per_row) * stride;
   p.inside = p.i < (H - p.a) / kP && p.j < (W - p.b) / kP;
   return p;
-}
-
-__device__ __forceinline__ void load_record(float* dst,
-                                            const float* __restrict__ rec,
-                                            int k) {
-  const float4* src = reinterpret_cast<const float4*>(rec + (size_t)k * kRec);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int t = threadIdx.x; t < kRec / 4; t += blockDim.x) d4[t] = __ldg(src + t);
 }
 
 // Loads patch n (masked, mean-subtracted) into x, writes it to xtn and
@@ -189,54 +177,12 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
     const float* cur = smem[k & 1];
     if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
 
-    float q[kPPT];
-#pragma unroll
-    for (int p = 0; p < kPPT; ++p) q[p] = 0.f;
-#pragma unroll
-    for (int r = 0; r < kD; ++r) {
-      const int c0 = r & ~3;
-      const float4* row = reinterpret_cast<const float4*>(cur + sym_row_offset(r));
-      float t[kPPT][4];
-#pragma unroll
-      for (int p = 0; p < kPPT; ++p) t[p][0] = t[p][1] = t[p][2] = t[p][3] = 0.f;
-#pragma unroll
-      for (int c = c0; c < kD; c += 4) {
-        const float4 u = row[(c - c0) / 4];
-#pragma unroll
-        for (int p = 0; p < kPPT; ++p) {
-          t[p][0] = fmaf(u.x, x[p][c], t[p][0]);
-          t[p][1] = fmaf(u.y, x[p][c + 1], t[p][1]);
-          t[p][2] = fmaf(u.z, x[p][c + 2], t[p][2]);
-          t[p][3] = fmaf(u.w, x[p][c + 3], t[p][3]);
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < kPPT; ++p)
-        q[p] = fmaf(x[p][r], (t[p][0] + t[p][1]) + (t[p][2] + t[p][3]), q[p]);
-    }
-
-    const float4* bv = reinterpret_cast<const float4*>(cur + kSym);
-    float s[kPPT][4];
-#pragma unroll
-    for (int p = 0; p < kPPT; ++p) s[p][0] = s[p][1] = s[p][2] = s[p][3] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kD; c += 4) {
-      const float4 u = bv[c / 4];
-#pragma unroll
-      for (int p = 0; p < kPPT; ++p) {
-        s[p][0] = fmaf(u.x, x[p][c], s[p][0]);
-        s[p][1] = fmaf(u.y, x[p][c + 1], s[p][1]);
-        s[p][2] = fmaf(u.z, x[p][c + 2], s[p][2]);
-        s[p][3] = fmaf(u.w, x[p][c + 3], s[p][3]);
-      }
-    }
-    const float c_k = cur[kSym + kD];
+    float logit[kPPT];
+    gmm::component_logits<kPPT>(cur, x, logit);
 #pragma unroll
     for (int p = 0; p < kPPT; ++p) {
-      const float logit =
-          fmaf(-0.5f, q[p], ((s[p][0] + s[p][1]) + (s[p][2] + s[p][3])) + c_k);
-      if (logit > best[p]) {
-        best[p] = logit;
+      if (logit[p] > best[p]) {
+        best[p] = logit[p];
         best_k[p] = k;
       }
     }

@@ -1,8 +1,11 @@
 """Poisson likelihood, prior loss and total loss (the JAX package's ``loss.py``)."""
 
 import math
+from contextlib import nullcontext
 
 import torch
+
+from .config import force_fused
 
 __all__ = ["PriorLoss", "TotalLoss", "poisson_nll", "stirling_term_mean"]
 
@@ -45,20 +48,26 @@ class PriorLoss:
     def __init__(self, priors):
         self.priors = priors
 
-    def evaluate(self, fluxes, params=None, generator=None):
-        """Per-component log-prior values."""
+    def evaluate(self, fluxes, params=None, generator=None, shifts=None):
+        """Per-component log-prior values.
+
+        ``shifts`` maps component names to fixed cycle spins ``(sy, sx)``
+        (default: each prior draws its own).
+        """
         values = []
         for flux, (name, prior) in zip(fluxes, self.priors.items()):
             prior_params = None
             if params is not None and name in params:
                 prior_params = params[name].get("prior")
             values.append(prior(flux, params=prior_params,
-                                generator=generator))
+                                generator=generator,
+                                shifts=(shifts or {}).get(name)))
         return values
 
-    def __call__(self, fluxes, params=None, generator=None):
+    def __call__(self, fluxes, params=None, generator=None, shifts=None):
         """Summed log-prior."""
-        return sum(self.evaluate(fluxes, params=params, generator=generator))
+        return sum(self.evaluate(fluxes, params=params, generator=generator,
+                                 shifts=shifts))
 
 
 class TotalLoss:
@@ -69,10 +78,45 @@ class TotalLoss:
         self.prior_loss = prior_loss
         self.beta = float(beta)
 
-    def __call__(self, fluxes, params=None, generator=None):
+    def __call__(self, fluxes, params=None, generator=None, shifts=None):
         """Total loss as a function of the flux tuple (differentiable)."""
         losses = self.poisson_loss.evaluate(fluxes)
-        prior = self.prior_loss(fluxes, params=params, generator=generator)
+        prior = self.prior_loss(fluxes, params=params, generator=generator,
+                                shifts=shifts)
         return (
             torch.sum(losses * self.poisson_loss.weights) - self.beta * prior
         )
+
+    def hessian_diagonals(self, fluxes, generator=None, shifts=None):
+        """Hessian of the total loss times a ones vector, per component.
+
+        The same probe as the JAX package's (``H · 1`` at ``fluxes``,
+        the Poisson term included), taken reverse over reverse: the
+        gradient with ``create_graph=True``, then the gradient of its
+        dot product with ones. The Hessian is symmetric, so that is
+        ``H · 1``. A prior whose scorer has no second derivative at its
+        shape (the fused GMM scorer, ``second_order_ok``) makes the
+        probe turn the fused switch off, so that the patch-level scorer
+        runs instead. ``generator`` and ``shifts`` are passed to the
+        priors as in :meth:`__call__`.
+        """
+        fluxes = tuple(f.detach().requires_grad_(True) for f in fluxes)
+        second_order = all(
+            prior.second_order_ok(tuple(flux.shape))
+            for prior, flux in zip(self.prior_loss.priors.values(), fluxes)
+        )
+        with nullcontext() if second_order else force_fused("off"):
+            loss = self(fluxes, generator=generator, shifts=shifts)
+            grads = torch.autograd.grad(loss, fluxes, create_graph=True)
+            return torch.autograd.grad(
+                grads, fluxes, grad_outputs=[torch.ones_like(f) for f in fluxes]
+            )
+
+    def fluxes_error(self, fluxes, generator=None, shifts=None):
+        """Flux errors ``sqrt(1 / (H · 1))`` per component name."""
+        hessians = self.hessian_diagonals(fluxes, generator=generator,
+                                          shifts=shifts)
+        return {
+            name: torch.sqrt(1.0 / hessian)
+            for name, hessian in zip(self.prior_loss.priors, hessians)
+        }

@@ -57,6 +57,7 @@ class SpatialFluxComponent:
                     f"{tuple(flux.shape)} and {tuple(mask.shape)}"
                 )
         self._flux_upsampled = torch.log(flux) if use_log_flux else flux
+        self._flux_upsampled_error = None
         self.mask = mask
         self._use_log_flux = bool(use_log_flux)
         self.upsampling_factor = 1
@@ -108,6 +109,18 @@ class SpatialFluxComponent:
         """Upsampled flux as a 2-D numpy array."""
         return self.flux_upsampled.detach().cpu().numpy()[0, 0]
 
+    @property
+    def flux_upsampled_error(self):
+        """Flux error on the upsampled grid (``None`` until computed)."""
+        return self._flux_upsampled_error
+
+    @property
+    def flux_upsampled_error_numpy(self):
+        """Flux error as a 2-D numpy array (``None`` until computed)."""
+        if self._flux_upsampled_error is None:
+            return None
+        return self._flux_upsampled_error.detach().cpu().numpy()[0, 0]
+
     @classmethod
     def from_numpy(cls, flux, mask=None, **kwargs):
         """Build from a data-resolution 2-D numpy flux image."""
@@ -141,6 +154,11 @@ class FluxComponents(dict):
             )
             for name, component in self.items()
         )
+
+    def set_flux_errors(self, flux_errors):
+        """Attach flux errors ``{name: tensor}`` to their components."""
+        for name, flux_error in flux_errors.items():
+            self[name]._flux_upsampled_error = flux_error.detach()
 
     @property
     def priors(self):

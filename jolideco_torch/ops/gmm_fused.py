@@ -51,6 +51,7 @@ __all__ = [
     "fused_forward_plain",
     "gmm_score_fused_image",
     "kernel_buffers",
+    "logit_chunks",
     "reset_counters",
     "score_plain",
 ]
@@ -122,20 +123,22 @@ def kernel_buffers(packed, device):
     """Device tensors for both implementations from ``pack_gmm_buffers``.
 
     ``aq (d*d, K)``, ``bq (d, K)``, ``const2 (K,)`` feed the plain
-    scorer. For 8x8 patches also ``rec (K, REC)`` for the CUDA forward and
-    ``a_full (K, 64, 64)``, ``b_rows (K, 64)`` for both backwards.
+    scorers; ``a_full (K, d, d)``, ``b_rows (K, d)`` the backwards and
+    Hessian actions, plain and CUDA. For 8x8 patches also ``rec (K, REC)``
+    for the CUDA scorers (``csrc/gmm_logits.cuh``).
     """
     aq = np.asarray(packed["aq"], np.float32)
     bq = np.asarray(packed["bq"], np.float32)
     const2 = np.asarray(packed["const2"], np.float32).reshape(-1)
-    arrays = {"aq": aq, "bq": bq, "const2": const2}
     d, k = bq.shape
+    arrays = {"aq": aq, "bq": bq, "const2": const2,
+              "a_full": aq.T.reshape(k, d, d), "b_rows": bq.T}
     if d == D:
         rec = np.zeros((k, REC), np.float32)
         rec[:, :SYM] = _sym_rows(np.asarray(packed["a_quad"], np.float64))
         rec[:, SYM:SYM + D] = bq.T
         rec[:, SYM + D] = const2
-        arrays.update(rec=rec, a_full=aq.T.reshape(k, D, D), b_rows=bq.T)
+        arrays["rec"] = rec
     return {
         name: torch.as_tensor(np.ascontiguousarray(a)).to(device)
         for name, a in arrays.items()
@@ -159,21 +162,28 @@ def _group_slices(image, stride):
     return padded, torch.stack(masks)
 
 
-def score_plain(xtn, aq, bq, const2):
-    """MAP scores of normalised patches ``(n, d)``: values and argmax.
+def logit_chunks(xtn, aq, bq, const2):
+    """GMM logits ``(rows, K)`` of normalised patches ``(n, d)``, chunk by chunk.
 
-    The quadratic form runs as a chunked ``(n, d*d) @ (d*d, K)`` matmul
-    so that memory stays bounded; argmax is the lowest index among equal
-    maxima (``torch.max`` returns the first). Differentiable through
-    torch autograd.
+    The quadratic form runs as a ``(rows, d*d) @ (d*d, K)`` matmul over
+    chunks of ``PLAIN_CHUNK`` rows, so that memory stays bounded.
     """
-    score_plain.calls += 1
-    values, argmax = [], []
     d = xtn.shape[1]
     for start in range(0, xtn.shape[0], PLAIN_CHUNK):
         x = xtn[start:start + PLAIN_CHUNK]
         u = (x[:, :, None] * x[:, None, :]).reshape(x.shape[0], d * d)
-        logits = -0.5 * (u @ aq) + x @ bq + const2
+        yield -0.5 * (u @ aq) + x @ bq + const2
+
+
+def score_plain(xtn, aq, bq, const2):
+    """MAP scores of normalised patches ``(n, d)``: values and argmax.
+
+    Argmax is the lowest index among equal maxima (``torch.max`` returns
+    the first).
+    """
+    score_plain.calls += 1
+    values, argmax = [], []
+    for logits in logit_chunks(xtn, aq, bq, const2):
         v, k = torch.max(logits, dim=1)
         values.append(v)
         argmax.append(k.to(torch.int32))
@@ -267,9 +277,9 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on_error(lib, code, kernel):
+def _raise_on_error(error_string, code, kernel):
     if code != 0:
-        msg = lib.gmm_fused_error_string(code).decode()
+        msg = error_string(code).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({msg})")
 
 
@@ -311,7 +321,7 @@ def gmm_fused_fwd_cuda(image, bufs, stride, sentinel):
             float(sentinel), rec.data_ptr(), k, values.data_ptr(),
             argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
         )
-    _raise_on_error(lib, code, "gmm_fused_fwd")
+    _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_fwd")
     gmm_fused_fwd_cuda.launches += 1
     return values, argmax, valid, xtn
 
@@ -349,7 +359,7 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
             dvalues.data_ptr(), a_full.data_ptr(), b_rows.data_ptr(),
             h, w, int(stride), ny, nx, planes.data_ptr(), stream,
         )
-    _raise_on_error(lib, code, "gmm_fused_bwd")
+    _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_bwd")
     gmm_fused_bwd_cuda.launches += 1
     return planes.sum(dim=0)
 
@@ -390,7 +400,16 @@ def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
 
 
 class _FusedScore(torch.autograd.Function):
-    """Forward kernel; its backward is the backward kernel."""
+    """Forward kernel; its backward is the backward kernel.
+
+    The backward kernel's output carries no graph, so a backward that
+    builds one (``create_graph=True``, the first half of a second
+    derivative) raises instead of letting the second derivative come out
+    as zero. ``once_differentiable`` would not do: it only marks outputs
+    when the incoming cotangent itself requires grad, and the prior's
+    cotangent is a constant. Second order takes the patch-level scorer
+    (``ops.gmm_pallas``) under ``config.force_fused("off")``.
+    """
 
     @staticmethod
     def forward(ctx, image, bufs, stride, sentinel):
@@ -404,6 +423,12 @@ class _FusedScore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dvalues, _dargmax, _dvalid):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the fused GMM scorer has no second derivative: evaluate "
+                "the prior under jolideco_torch.config.force_fused('off') "
+                "(TotalLoss.hessian_diagonals does)"
+            )
         xtn, argmax, valid = ctx.saved_tensors
         dimage = _backward(xtn, argmax, valid, dvalues.contiguous(),
                            ctx.bufs, ctx.image_shape, ctx.stride)

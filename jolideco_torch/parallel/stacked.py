@@ -18,6 +18,7 @@ mesh paths are not.
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..loss import poisson_nll, stirling_term_mean
 from ..ops.fft import (
     build_kernel_stack,
@@ -73,8 +74,10 @@ class StackedPoissonLoss:
 
         ``datasets`` maps names to dicts of ``counts``, ``psf`` (array,
         or dict keyed by component), ``exposure`` and ``background``
-        2-D arrays.
+        2-D arrays. ``device`` as in ``config.resolve_device``: the
+        first CUDA card by default, the CPU only when asked.
         """
+        device = resolve_device(device)
         if conv_mode not in ("fft", "auto"):
             raise NotImplementedError(
                 f"conv_mode={conv_mode!r} is not ported yet; use 'fft'"

@@ -24,9 +24,14 @@ class Prior:
     def set_parameters(self, params):
         """Write back trained hyper-parameters."""
 
+    def second_order_ok(self, flux_shape):
+        """Whether the log-prior has a second derivative at this shape
+        under the current dispatch (default: yes)."""
+        return True
+
 
 class UniformPrior(Prior):
     """Flat prior: log-prior identically zero."""
 
-    def __call__(self, flux, params=None, generator=None):
+    def __call__(self, flux, params=None, generator=None, shifts=None):
         return torch.zeros((), dtype=flux.dtype, device=flux.device)

@@ -10,8 +10,12 @@ subtraction, then the best component's log-probability per patch
   subtraction and scoring in one pass, a CUDA kernel on the card and
   its plain version on the CPU;
 - the grouped branch for GMMs the fused scorer does not take (patches
-  other than 8x8): grouped extraction and the plain patch scorer, on the
-  CPU only until the patch-level kernel is ported.
+  other than 8x8), and for everything when the fused switch is off
+  (``config.force_fused("off")``): grouped extraction, masking and mean
+  subtraction in PyTorch, then the patch-level scorer
+  (``ops.gmm_pallas``), CUDA kernels for 8x8 patches on the card and
+  the plain versions on the CPU. It is twice differentiable, which the
+  fused branch is not: the Hessian probe of the flux errors takes it.
 
 Not ported yet, and raising ``NotImplementedError`` on every device:
 ``jitter``, ``patch_fraction < 1``, ``marginalize=True`` and
@@ -23,6 +27,7 @@ from math import sqrt
 import numpy as np
 import torch
 
+from ...config import use_fused
 from ...ops.gmm_fused import fused_supported, gmm_score_fused_image
 from ...ops.image import cycle_spin
 from ...ops.patches import view_as_overlapping_patches_grouped
@@ -95,10 +100,20 @@ class GMMPatchPrior(Prior):
 
     def _fused_ok(self, shape):
         return (
-            type(self.patch_norm) is SubtractMeanPatchNorm
+            use_fused() != "off"
+            and type(self.patch_norm) is SubtractMeanPatchNorm
             and fused_supported(shape, self.patch_shape, self.stride,
                                 self.gmm.n_features)
         )
+
+    def second_order_ok(self, flux_shape):
+        """Whether the log-prior is twice differentiable at this shape.
+
+        Not when the fused scorer would run: its backward kernel has no
+        derivative, so the Hessian probe turns the fused switch off
+        first. The image norm and the cycle spin keep the shape.
+        """
+        return not self._fused_ok(tuple(flux_shape))
 
     def _evaluate_log_like(self, flux, params=None, generator=None,
                            shifts=None):

@@ -3,9 +3,9 @@
 Counterpart of the JAX package's ``priors/patches/gmm.py``. The derived
 scoring arrays are computed once on the host in float64 with the same
 float32 roundings as the JAX package, so both packages pack identical
-quadratic-form buffers. The registry holds the two GMMs shipped in the
-JAX package's assets, read by path with ``np.load`` (importing the
-JAX package would import JAX).
+quadratic-form buffers. The registry holds the two GMMs the port ships
+in ``jolideco_torch/assets/`` (byte-for-byte copies of the JAX
+package's), read with ``np.load``.
 """
 
 from pathlib import Path
@@ -13,7 +13,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ...ops.gmm_fused import kernel_buffers, score_plain
+from ...ops.gmm_fused import kernel_buffers
+from ...ops.gmm_pallas import gmm_score_patches
 from ...ops.gmm_pack import pack_gmm_buffers
 from ...ops.linalg import compute_precision_cholesky
 from ...ops.patches import get_pixel_weights
@@ -21,7 +22,7 @@ from ...utils.norms import SubtractMeanPatchNorm
 
 __all__ = ["GMM_REGISTRY", "GaussianMixtureModel", "GaussianMixtureModelMeta"]
 
-ASSETS_DIR = Path(__file__).resolve().parents[3] / "jolideco_tpu" / "assets"
+ASSETS_DIR = Path(__file__).resolve().parents[2] / "assets"
 GMM_REGISTRY = {
     "builtin-8x8-v1": ASSETS_DIR / "gmm-builtin-8x8.npz",
     "astro-snr-v1": ASSETS_DIR / "gmm-astro-snr-8x8.npz",
@@ -95,19 +96,13 @@ class GaussianMixtureModel:
         return self._buffers[key]
 
     def score(self, x):
-        """MAP score of normalised patches ``(N, d)``: ``(values, argmax)``.
+        """MAP scores of normalised patches ``(N, d)``: ``(values, argmax)``.
 
-        The plain quadratic-form scorer, differentiable through torch
-        autograd. Its kernel (``ops/gmm_pallas.py::_score_kernel`` in the
-        JAX package) is not ported yet, so a CUDA tensor raises.
+        The patch-level scorer (``ops.gmm_pallas.gmm_score_patches``):
+        CUDA kernels for 8x8 patches on a card, the plain versions on
+        the CPU; twice differentiable.
         """
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "the patch-level GMM scoring kernel is not ported yet; "
-                "on a CUDA card only the fused image-level scorer runs"
-            )
-        bufs = self.kernel_buffers(x.device)
-        return score_plain(x, bufs["aq"], bufs["bq"], bufs["const2"])
+        return gmm_score_patches(x, self.kernel_buffers(x.device))
 
     @classmethod
     def from_numpy(cls, means, covariances, weights, meta=None):

@@ -17,7 +17,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "BUILD_INFO", "load_library"]
+__all__ = ["BUILD_DIR", "BUILD_INFO", "load_libraries", "load_library"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -47,35 +47,53 @@ def _nvcc():
     )
 
 
-def load_library(name):
-    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _target(name):
     source = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [source, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(path.read_bytes())
-    target = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return source, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
-    seconds, ptxas = 0.0, ""
-    if not target.exists():
-        nvcc = _nvcc()
+
+def load_libraries(*names):
+    """Build (if needed) and load ``csrc/<name>.cu`` for each name.
+
+    The builds that are needed run at the same time, one ``nvcc`` per
+    source. Returns the CDLLs in the order of ``names``.
+    """
+    builds = {}
+    for name in dict.fromkeys(names):
+        if name in _LOADED:
+            continue
+        source, target = _target(name)
+        if target.exists():
+            builds[name] = (target, None, None, 0.0)
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {source} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        ptxas = proc.stderr
-        os.replace(tmp, target)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        builds[name] = (target, tmp, proc, time.perf_counter())
 
-    lib = ctypes.CDLL(str(target))
-    BUILD_INFO[name] = {"path": str(target), "seconds": seconds,
-                        "ptxas": ptxas}
-    _LOADED[name] = lib
-    return lib
+    for name, (target, tmp, proc, t0) in builds.items():
+        seconds, ptxas = 0.0, ""
+        if proc is not None:
+            stdout, stderr = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed building {CSRC_DIR / name}.cu (exit "
+                    f"{proc.returncode}):\n{stdout}\n{stderr}"
+                )
+            ptxas = stderr
+            os.replace(tmp, target)
+        BUILD_INFO[name] = {"path": str(target), "seconds": seconds,
+                            "ptxas": ptxas}
+        _LOADED[name] = ctypes.CDLL(str(target))
+    return [_LOADED[name] for name in names]
+
+
+def load_library(name):
+    """Build (if needed) and load ``csrc/<name>.cu``; returns the CDLL."""
+    return load_libraries(name)[0]

@@ -1,13 +1,16 @@
-"""Where the time of one step of the PyTorch/CUDA port goes, on a card.
+"""Where the time of a step and of a flux-error probe goes, on a card.
 
 Builds the port's main path (joint MAP deconvolution of 10 observations
 of 1024² counts with 33² PSFs under the ``astro-snr-v1`` GMM patch
 prior, stride 4, cycle spin), runs a few warm-up steps, then traces
-``--steps`` steps with ``torch.profiler`` and reports:
+``--steps`` steps with ``torch.profiler``; then, at the fluxes those
+steps reached, the same for ``--steps`` Hessian probes
+(``TotalLoss.fluxes_error``, what ``compute_error=True`` runs once after
+training). For each it reports:
 
-- the wall time per step (host clock around synchronised steps, no
+- the wall time per call (host clock around synchronised calls, no
   profiler);
-- device time by kernel name, summed over the traced steps;
+- device time by kernel name, summed over the traced calls;
 - the device's busy share of the traced window (union of kernel
   intervals over the window's wall time) and so its idle share.
 
@@ -15,7 +18,7 @@ Run on a machine with a CUDA card:
 
     python -m jolideco_torch.utils.profile_step [--steps 10] [--out chiprun_out]
 
-The full table and a Chrome trace go to ``--out``.
+The full tables and Chrome traces go to ``--out``.
 """
 
 import argparse
@@ -28,7 +31,8 @@ import numpy as np
 
 
 def build(n_obs, size):
-    """``step()`` of the main path on the first card."""
+    """``step()`` of the main path on the first card, and ``probe()``,
+    the flux-error probe at the current parameters."""
     from .. import (
         GaussianMixtureModel,
         GMMPatchPrior,
@@ -44,8 +48,13 @@ def build(n_obs, size):
         np.ones((size, size), np.float32), prior=prior)
     deco = MAPDeconvolver(learning_rate=0.1, update_strategy="joint",
                           conv_mode="fft", trace_every=0, device="cuda")
-    step, _, _ = deco.make_step(datasets, component)
-    return step
+    step, params, components, total_loss = deco.make_step(datasets,
+                                                          component)
+
+    def probe():
+        return total_loss.fluxes_error(components.fluxes_from(params))
+
+    return step, probe
 
 
 def busy_share(events, window_us):
@@ -62,9 +71,57 @@ def busy_share(events, window_us):
     return busy / window_us
 
 
+def profile_calls(torch, fn, reps, out, tag):
+    """Wall and device time of ``reps`` calls of ``fn``; prints a summary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        traced_us = (time.perf_counter() - t1) * 1e6
+
+    trace = out / f"profile_{tag}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e["name"], [0.0, 0])
+        by_name[e["name"]][0] += e["dur"]
+        by_name[e["name"]][1] += 1
+    device_us = sum(v[0] for v in by_name.values())
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=40)
+    (out / f"profile_{tag}_table.txt").write_text(table)
+
+    share = busy_share(events, traced_us) if events else 0.0
+    traced_ms = traced_us / 1e3 / reps
+    busy_ms = device_us / 1e3 / reps
+    print(f"{tag}: wall {wall_ms:.3f} ms/call untraced; traced "
+          f"{traced_ms:.3f} ms/call; device busy {busy_ms:.3f} ms/call "
+          f"({100 * share:.1f}% of the traced window, "
+          f"idle {100 * (1 - share):.1f}%)")
+    for name, (us, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:15]:
+        print(f"{us / 1e3 / reps:9.4f} ms/call {count // reps:4d}x/call "
+              f"{100 * us / device_us:5.1f}%  {name[:110]}")
+
+
 def main():
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=10)
@@ -78,49 +135,9 @@ def main():
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
-    step = build(args.n_obs, args.size)
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        traced_us = (time.perf_counter() - t1) * 1e6
-
-    trace = out / "profile_step_trace.json"
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") == "kernel"]
-    by_name = {}
-    for e in events:
-        by_name.setdefault(e["name"], [0.0, 0])
-        by_name[e["name"]][0] += e["dur"]
-        by_name[e["name"]][1] += 1
-    device_us = sum(v[0] for v in by_name.values())
-    table = prof.key_averages().table(sort_by="self_cuda_time_total",
-                                      row_limit=40)
-    (out / "profile_step_table.txt").write_text(table)
-
-    share = busy_share(events, traced_us) if events else 0.0
-    traced_ms = traced_us / 1e3 / args.steps
-    busy_ms = device_us / 1e3 / args.steps
-    print(f"wall {wall_ms:.3f} ms/step untraced; traced {traced_ms:.3f} "
-          f"ms/step; device busy {busy_ms:.3f} ms/step "
-          f"({100 * share:.1f}% of the traced window, "
-          f"idle {100 * (1 - share):.1f}%)")
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"{us / 1e3 / args.steps:9.4f} ms/step {count // args.steps:4d}x/step "
-              f"{100 * us / device_us:5.1f}%  {name[:110]}")
+    step, probe = build(args.n_obs, args.size)
+    profile_calls(torch, step, args.steps, out, "step")
+    profile_calls(torch, probe, args.steps, out, "probe")
     return 0
 
 

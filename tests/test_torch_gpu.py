@@ -7,7 +7,9 @@ Marked ``gpu``; every test skips without a card. On a machine with one
 
 Tolerances: ``valid`` and the normalised patches exact to 1e-5; values
 to rtol 1e-5 (float32 sums in different orders); argmax identical; the
-image gradient to 1e-4 of its max-abs.
+image gradient, the unit gradient and the Hessian action to 1e-4 of
+their max-abs; the flux errors of the Hessian probe, card against CPU,
+to rtol 1e-4 (float32 FFTs and sums in other orders).
 """
 
 import numpy as np
@@ -85,3 +87,82 @@ def test_prior_on_card_matches_cpu(device, gmm):
     np.testing.assert_allclose(v_gpu, v_cpu, rtol=1e-5)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
                                atol=1e-4 * float(g_cpu.abs().max()))
+
+
+def make_rows(n, seed=0):
+    rs = np.random.RandomState(seed)
+    x = rs.uniform(-0.5, 0.5, size=(n, 64)).astype(np.float32)
+    x -= x.mean(axis=1, keepdims=True)
+    x[:3] = 0.0                       # masked patches score as zero rows
+    return x
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4097])
+def test_patch_kernels_match_plain(device, gmm, n):
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    bufs = gmm.kernel_buffers(device)
+    x = torch.as_tensor(make_rows(n), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    for marginalize in (False, True):
+        vk, ak = gp.gmm_score_rows_cuda(x, bufs, marginalize)
+        vp, ap = gp.score_rows_plain(x, bufs, marginalize)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vk, vp, rtol=1e-5, atol=0)
+        assert torch.equal(ak, ap)
+    for kern, plain, arg in ((gp.gmm_unit_map_cuda, gp.unit_map_plain, x),
+                             (gp.gmm_hvp_map_cuda, gp.hvp_map_plain, t)):
+        got, want = kern(arg, ap, bufs), plain(arg, ap, bufs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_patch_kernels_take_only_8x8_patches(device):
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    rs = np.random.RandomState(2)
+    covariances = np.stack([a @ a.T / 16 + 0.1 * np.eye(16)
+                            for a in rs.randn(3, 16, 16)])
+    gmm4 = gmm_from_arrays(rs.randn(3, 16), covariances, np.ones(3) / 3, 2)
+    x = torch.zeros((8, 16), device=device)
+    with pytest.raises(NotImplementedError):
+        gp.gmm_score_patches(x, gmm4.kernel_buffers(device))
+
+
+def test_probe_on_card_matches_cpu(device, gmm):
+    """``TotalLoss.fluxes_error`` at 64² (two observations, cycle spin
+    fixed), card against CPU, with K5, K6 and K7 launched once each."""
+    from jolideco_torch import FluxComponents, GMMPatchPrior, MAPDeconvolver
+    from jolideco_torch import SpatialFluxComponent
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    datasets = make_datasets(n_obs=2, size=64, psf_size=9, seed=3)
+    flux = np.random.RandomState(4).uniform(0.5, 2.0, (64, 64))
+    errors = {}
+    for dev in ("cpu", device):
+        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+            flux, prior=GMMPatchPrior(gmm=gmm, stride=4))})
+        deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
+                              device=dev, conv_mode="fft")
+        total = deco.build_loss(datasets, comps, torch.device(dev))
+        for comp in comps.values():
+            comp.to(dev)
+        gf.reset_counters()
+        gp.reset_counters()
+        out = total.fluxes_error(comps.fluxes_from(),
+                                 shifts={"flux": (1, -2)})
+        errors[str(dev)] = out["flux"].cpu()
+        if dev != "cpu":
+            launches = (gp.gmm_score_rows_cuda.launches,
+                        gp.gmm_unit_map_cuda.launches,
+                        gp.gmm_hvp_map_cuda.launches)
+            assert launches == (1, 1, 1)
+            assert gf.gmm_fused_fwd_cuda.launches == 0
+    err_cpu, err_gpu = errors.values()
+    assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
+    torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

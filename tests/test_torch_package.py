@@ -1,6 +1,7 @@
 """Package-level properties of the port: no JAX, dispatch, interop."""
 
 import ast
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -32,7 +33,7 @@ def test_imports_without_jax():
         "for name in ('jax', 'jaxlib', 'optax', 'jolideco_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import jolideco_torch\n"
-        "from jolideco_torch.ops import gmm_fused\n"
+        "from jolideco_torch.ops import gmm_fused, gmm_pallas\n"
         "from jolideco_torch.utils import interop, cuda_build\n"
         "print('ok')\n"
     )
@@ -56,6 +57,76 @@ def test_no_source_file_imports_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "optax", "jolideco_tpu"), path
+
+
+def _docstring_nodes(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                yield body[0].value
+
+
+def test_no_module_names_the_jax_package_outside_prose():
+    """Only comments and docstrings may name the JAX package: no import,
+    attribute, name or string (a path, say) of the code does."""
+    for path in PACKAGE.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        prose = {id(node) for node in _docstring_nodes(tree)}
+        for node in ast.walk(tree):
+            if id(node) in prose:
+                continue
+            words = []
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                words.append(node.value)
+            elif isinstance(node, ast.Name):
+                words.append(node.id)
+            elif isinstance(node, ast.Attribute):
+                words.append(node.attr)
+            elif isinstance(node, ast.alias):
+                words.append(node.name)
+            elif isinstance(node, ast.ImportFrom):
+                words.append(node.module or "")
+            for word in words:
+                assert "jolideco_tpu" not in word, (path, node.lineno)
+
+
+def test_gmm_assets_are_the_jax_packages_copies():
+    from jolideco_torch.priors.patches.gmm import ASSETS_DIR, GMM_REGISTRY
+
+    assert ASSETS_DIR == PACKAGE / "assets"
+    jax_assets = Path(jj.__file__).parent / "assets"
+    for path in GMM_REGISTRY.values():
+        assert path.parent == ASSETS_DIR
+        assert (hashlib.sha256(path.read_bytes()).hexdigest()
+                == hashlib.sha256((jax_assets / path.name).read_bytes())
+                .hexdigest()), path.name
+
+
+def test_no_card_no_default_device(monkeypatch):
+    """Without a card, ``device=None`` raises instead of taking the CPU;
+    ``device="cpu"`` still runs."""
+    from jolideco_torch.parallel.stacked import StackedPoissonLoss
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        jt.config.resolve_device(None)
+    assert jt.config.resolve_device("cpu") == torch.device("cpu")
+
+    ones = np.ones((16, 16), np.float32)
+    datasets = {"obs": {"counts": ones, "psf": np.ones((3, 3)) / 9,
+                        "exposure": ones, "background": ones}}
+    comps = jt.FluxComponents({"flux": jt.SpatialFluxComponent.from_numpy(ones)})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StackedPoissonLoss.from_datasets(datasets, comps)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jt.MAPDeconvolver(update_strategy="joint", trace_every=0).run(
+            datasets, comps["flux"])
+    loss = StackedPoissonLoss.from_datasets(datasets, comps, device="cpu")
+    assert loss.counts.device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_version():

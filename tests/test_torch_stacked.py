@@ -59,7 +59,8 @@ def test_losses_and_flux_gradient(n_obs):
     grad_j = np.asarray(jax.grad(lambda f: j_loss((f,)))(f_j))
 
     t_comps = TFluxComponents({"flux": TComponent.from_numpy(flux)})
-    t_loss = TStacked.from_datasets(datasets, t_comps, conv_mode="fft")
+    t_loss = TStacked.from_datasets(datasets, t_comps, conv_mode="fft",
+                                    device="cpu")
     f_t = torch.as_tensor(flux)[None, None].requires_grad_(True)
     losses_t = t_loss.evaluate((f_t,))
     t_loss((f_t,)).backward()
@@ -76,4 +77,5 @@ def test_unported_conv_modes_raise():
         {"flux": TComponent.from_numpy(np.ones((SIZE, SIZE), np.float32))}
     )
     with pytest.raises(NotImplementedError):
-        TStacked.from_datasets(datasets, comps, conv_mode="pfft")
+        TStacked.from_datasets(datasets, comps, conv_mode="pfft",
+                               device="cpu")
