@@ -28,7 +28,21 @@ Phases, each printing one or more lines:
    ``compute_error=True`` and 5 steps, so that the run ends with one
    Hessian probe on the patch-level kernels; counts set to zero just
    before and read just after; then the errors of a small run on the
-   card against the CPU's plain path.
+   card against the CPU's plain path;
+5. the marginalised path: phases 3 and 4 again under
+   ``GMMPatchPrior(marginalize=True)``, on the logsumexp forward (K1 in
+   its marginalise mode), the marginalise backward (K4) and, in the
+   probe, K5's logsumexp, the marginalise unit gradient (K8) and the
+   two stages of its Hessian action (K9a, K9b), each path with its own
+   counts; then a small run's flux and errors on the card against the
+   CPU's plain path.
+
+Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
+K9b) against their plain versions. Their softmax weights of logits of
+order 1e5 to 1e8 are ill-conditioned in float32, so K4, K8 and K9 are
+held against the plain version run in float64 on the same inputs: the
+kernel's max-abs error must be at most twice the float32 plain
+version's, plus 1e-6 of the result's max-abs.
 
 It then prints a JSON line with each kernel's numbers and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -38,6 +52,7 @@ beside it. It imports nothing of JAX.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,6 +69,9 @@ SMALL_FLUX_RTOL = 1e-4
 SMALL_ERROR_RTOL = 1e-4
 STEPS = 20
 ERROR_STEPS = 5
+# float64-anchored bar of the marginalise kernels: error <= 2 x the
+# float32 plain version's, plus this share of the result's max-abs
+MARG_ERR_FACTOR, MARG_ERR_FLOOR = 2.0, 1e-6
 # the main path's field and observation count, and the ragged image of
 # the kernel checks
 FIELD, N_OBS, RAGGED = 1024, 10, (1000, 904)
@@ -103,10 +121,24 @@ def phase_build():
     load_libraries(*names)
     seconds = time.perf_counter() - t0
     for name in names:
-        ptxas = [line.strip() for line in BUILD_INFO[name]["ptxas"]
-                 .splitlines() if "registers" in line or "spill" in line]
         print(f"phase 1 build: {name} in {BUILD_INFO[name]['seconds']:.2f} s "
-              f"(both in {seconds:.2f} s); " + " | ".join(ptxas))
+              f"(both in {seconds:.2f} s); "
+              + " | ".join(ptxas_summary(BUILD_INFO[name]["ptxas"])))
+
+
+def ptxas_summary(text):
+    """Per kernel of ``nvcc -Xptxas -v`` output: its registers, shared
+    memory and spills, under a readable name (``gmm_fwd_kernel<true>``)."""
+    out, kernel = [], None
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            m = re.search(r"\d+(gmm_\w+?_kernel)(?:ILb([01])E)?", line)
+            kernel = m.group(1) if m else line.split()[-1]
+            if m and m.group(2) is not None:
+                kernel += "<true>" if m.group(2) == "1" else "<false>"
+        elif kernel and ("spill" in line or "registers" in line):
+            out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def bound(flop, nbytes):
@@ -207,6 +239,7 @@ def phase_kernels(torch, device):
           f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernel {t['bwd_ms']:.3f} ms, "
           f"plain {t['bwd_plain_ms']:.3f} ms")
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
+    out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
     return out
 
 
@@ -305,6 +338,169 @@ def phase_patch_kernels(torch, device, bufs, cases):
     return out
 
 
+def anchored(label, name, got, plain32, plain64):
+    """The float64-anchored check; returns (kernel err, plain err, max)."""
+    err = float((got.double() - plain64).abs().max())
+    err32 = float((plain32.double() - plain64).abs().max())
+    scale = float(plain64.abs().max())
+    check(err <= MARG_ERR_FACTOR * err32 + MARG_ERR_FLOOR * scale,
+          f"{label}: {name} error {err:.3g} against float64, plain float32 "
+          f"{err32:.3g}, max {scale:.3g}")
+    return err, err32, scale
+
+
+def support(torch, x, lse, bufs):
+    """Row-component pairs with a nonzero softmax weight (float32 plain):
+    the pairs whose A_k x terms the marginalise kernels compute."""
+    from jolideco_torch.ops.gmm_fused import softmax_chunks
+
+    return sum(int((p > 0).sum()) for _, p in softmax_chunks(x, lse, bufs))
+
+
+def phase_marg_kernels(torch, device, bufs, cases):
+    """K1 (logsumexp), K4, K8, K9a and K9b against their plain versions:
+    K1's values rtol 1e-5, argmax flips at most 1e-4 of the valid
+    patches, patches to 1e-5; K4, K8 and K9 against float64 (anchored)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    b64 = {name: t.double() for name, t in bufs.items()}
+    stride, sentinel = 4, ZERO_FLUX_SENTINEL
+    k = bufs["rec"].shape[0]
+    out = {}
+    for label, img in cases.items():
+        image = torch.as_tensor(img, device=device)
+        vk, ak, valk, xk = gf.gmm_fused_fwd_marg_cuda(image, bufs, stride,
+                                                      sentinel)
+        vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride,
+                                                   sentinel, True)
+        torch.cuda.synchronize()
+        check(torch.equal(valk, valp), f"{label}: K1 logsumexp valid differs")
+        m = valp > 0.5
+        value_err = (vk - vp).abs()[m]
+        rel = float((value_err / vp.abs()[m]).max())
+        check(rel <= 1e-5, f"{label}: K1 logsumexp values beyond rtol 1e-5 "
+              f"({rel:.3g})")
+        n_valid = int(m.sum())
+        flips = int((ak != ap)[m].sum())
+        check(flips <= 1e-4 * n_valid,
+              f"{label}: K1 logsumexp argmax flips {flips} of {n_valid}")
+        xtn_err = float((xk - xp).abs().max())
+        check(xtn_err <= 1e-5, f"{label}: K1 logsumexp patches differ by "
+              f"{xtn_err:.3g}")
+        errs = {"fwd": (float(value_err.max()), rel, flips, n_valid)}
+
+        # K4 on the plain forward's outputs, random cotangents
+        gen = torch.Generator(device=device).manual_seed(3)
+        dv = torch.randn(vp.shape, generator=gen, device=device) * valp
+        args = (xp, vp, valp, dv)
+        gk = gf.gmm_fused_bwd_marg_cuda(*args, bufs, img.shape, stride)
+        g32 = gf.fused_backward_marg_plain(*args, bufs, img.shape, stride)
+        g64 = gf.fused_backward_marg_plain(*(a.double() for a in args), b64,
+                                           img.shape, stride)
+        torch.cuda.synchronize()
+        errs["bwd"] = anchored(label, "K4", gk, g32, g64)
+
+        # K8, K9a, K9b on the rows of the image, random tangents
+        x = normalised_rows(torch, image, sentinel)
+        n = x.shape[0]
+        lse, _ = gp.score_rows_plain(x, bufs, True)
+        t = torch.randn(x.shape, generator=gen, device=device)
+        x64, t64, lse64 = x.double(), t.double(), lse.double()
+        uk = gp.gmm_unit_marg_cuda(x, lse, bufs)
+        errs["unit"] = anchored(label, "K8", uk,
+                                gp.unit_marg_plain(x, lse, bufs),
+                                gp.unit_marg_plain(x64, lse64, b64))
+        pk, dpk = gp.gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
+        p32, dp32 = gp.hvp_marg_weights_plain(x, t, lse, bufs)
+        p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+        errs["weights_p"] = anchored(label, "K9a p", pk, p32, p64)
+        errs["weights_dp"] = anchored(label, "K9a dp", dpk, dp32, dp64)
+        # K9b on the float32 plain weights, against their float64 mixture
+        hk = gp.gmm_hvp_marg_mix_cuda(x, t, p32, dp32, bufs)
+        errs["mix"] = anchored(
+            label, "K9b", hk, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
+            gp.hvp_marg_mix_plain(x64, t64, p32.double(), dp32.double(), b64))
+        # K9 as the probe runs it: both kernels, against float64
+        h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
+        errs["hvp"] = anchored(
+            label, "K9", gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
+            gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs), h64)
+        out[label] = errs
+        print(f"phase 2 marginalise kernels {label}: K1 logsumexp values max "
+              f"rel err {rel:.3g}, argmax flips {flips}/{n_valid}; against "
+              f"float64 (kernel, plain float32, max): " + "; ".join(
+                  f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
+                  for name, e in errs.items() if name != "fwd"))
+        if label != MAIN:
+            continue
+
+        xtn_valid = xp[m]
+        nnz_fused = support(torch, xtn_valid, vp[m], bufs)
+        nnz_rows = support(torch, x, lse, bufs)
+        nnz_mix = int(((p32 != 0) | (dp32 != 0)).sum())
+        used = int(torch.unique(ap[m]).numel())
+        out["timing"] = {
+            "fwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_fwd_marg_cuda(
+                image, bufs, stride, sentinel), 10),
+            "fwd_plain_ms": cuda_ms(torch, lambda: gf.fused_forward_plain(
+                image, bufs, stride, sentinel, True), 3),
+            "bwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_marg_cuda(
+                *args, bufs, img.shape, stride), 10),
+            "bwd_plain_ms": cuda_ms(torch, lambda: gf.fused_backward_marg_plain(
+                *args, bufs, img.shape, stride), 3),
+            "unit_ms": cuda_ms(torch, lambda: gp.gmm_unit_marg_cuda(
+                x, lse, bufs), 10),
+            "unit_plain_ms": cuda_ms(torch, lambda: gp.unit_marg_plain(
+                x, lse, bufs), 3),
+            "weights_ms": cuda_ms(torch, lambda: gp.gmm_hvp_marg_weights_cuda(
+                x, t, lse, bufs), 10),
+            "weights_plain_ms": cuda_ms(
+                torch, lambda: gp.hvp_marg_weights_plain(x, t, lse, bufs), 3),
+            "mix_ms": cuda_ms(torch, lambda: gp.gmm_hvp_marg_mix_cuda(
+                x, t, pk, dpk, bufs), 10),
+            "mix_plain_ms": cuda_ms(torch, lambda: gp.hvp_marg_mix_plain(
+                x, t, pk, dpk, bufs), 3),
+        }
+        # Operations: every (row, component) logit over the symmetric
+        # triangle (2,080 + 64 multiply-adds), and, only for the pairs
+        # with a nonzero weight (the kernels skip the rest, exactly),
+        # A_k x or A_k t (4,096) and their dot products with b_k or t
+        # (64). Bytes: each input read once, each output written once,
+        # and of the A_k only those that some weight selects.
+        logit_flop = 2.0 * (2080 + 64) * k
+        rec_bytes = 4 * bufs["rec"].numel()
+        a_bytes = 4 * used * 64 * 64
+        n_img = img.size
+        out["bounds"] = {
+            "fwd": bound(logit_flop * vp.numel(),
+                         4 * (n_img + vp.numel() * (3 + 64)) + rec_bytes),
+            "bwd": bound(logit_flop * n_valid
+                         + 2.0 * (4096 + 64) * nnz_fused,
+                         4 * (n_valid * 64 + 3 * vp.numel() + n_img)
+                         + rec_bytes + a_bytes),
+            "unit": bound(logit_flop * n + 2.0 * (4096 + 64) * nnz_rows,
+                          4 * (2 * n * 64 + n) + rec_bytes + a_bytes),
+            "weights": bound(logit_flop * n + 2.0 * (4096 + 64) * nnz_rows,
+                             4 * (2 * n * 64 + n + 2 * k * n) + rec_bytes
+                             + a_bytes),
+            "mix": bound(2.0 * (4096 + 3 * 64) * nnz_mix,
+                         4 * (3 * n * 64 + 2 * k * n) + a_bytes),
+        }
+        out["support"] = {"fused": nnz_fused, "rows": nnz_rows,
+                          "mix": nnz_mix, "n_valid": n_valid, "n_rows": n}
+        tm = out["timing"]
+        print(f"phase 2 timing marginalise kernels {MAIN} K={k}: "
+              + "; ".join(f"{name} {tm[name + '_ms']:.3f} ms (plain "
+                          f"{tm[name + '_plain_ms']:.3f})"
+                          for name in ("fwd", "bwd", "unit", "weights",
+                                       "mix"))
+              + f"; nonzero weights: {nnz_fused} of {n_valid} x {k} "
+              f"patches, {nnz_rows} of {n} x {k} rows")
+    return out
+
+
 def reset_counts():
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
@@ -320,19 +516,32 @@ def counts():
 
     launches = {
         "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
+        "gmm_fused_fwd_marg": gf.gmm_fused_fwd_marg_cuda.launches,
         "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
+        "gmm_fused_bwd_marg": gf.gmm_fused_bwd_marg_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
         "gmm_unit_map": gp.gmm_unit_map_cuda.launches,
         "gmm_hvp_map": gp.gmm_hvp_map_cuda.launches,
+        "gmm_unit_marg": gp.gmm_unit_marg_cuda.launches,
+        "gmm_hvp_marg_weights": gp.gmm_hvp_marg_weights_cuda.launches,
+        "gmm_hvp_marg_mix": gp.gmm_hvp_marg_mix_cuda.launches,
     }
     plain = sum(fn.calls for fn in (
-        gf.fused_forward_plain, gf.fused_backward_plain, gf.score_plain,
-        gp.score_rows_plain, gp.unit_map_plain, gp.hvp_map_plain))
+        gf.fused_forward_plain, gf.fused_backward_plain,
+        gf.fused_backward_marg_plain, gf.score_plain, gp.score_rows_plain,
+        gp.unit_map_plain, gp.hvp_map_plain, gp.unit_marg_plain,
+        gp.hvp_marg_weights_plain, gp.hvp_marg_mix_plain))
     return launches, plain
 
 
+def expect(**nonzero):
+    """Expected launches: the given counts, every other kernel 0."""
+    launches, _ = counts()
+    return {name: nonzero.get(name, 0) for name in launches}
+
+
 def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
-              compute_error=False):
+              compute_error=False, marginalize=False):
     from jolideco_torch import (
         GMMPatchPrior,
         MAPDeconvolver,
@@ -340,7 +549,8 @@ def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
     )
 
     size = next(iter(datasets.values()))["counts"].shape
-    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=cycle_spin)
+    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=cycle_spin,
+                          marginalize=marginalize)
     component = SpatialFluxComponent.from_numpy(
         np.ones(size, np.float32), prior=prior
     )
@@ -398,8 +608,7 @@ def phase_slice(torch, device):
     data_end = float(data_term(datasets, flux, device))
     check(data_end < data_start,
           f"Poisson data term did not fall: {data_start} -> {data_end}")
-    expected = {"gmm_fused_fwd": STEPS, "gmm_fused_bwd": STEPS,
-                "gmm_score_rows": 0, "gmm_unit_map": 0, "gmm_hvp_map": 0}
+    expected = expect(gmm_fused_fwd=STEPS, gmm_fused_bwd=STEPS)
     check(launches == expected, f"launches {launches}, not {expected}")
     check(plain_calls == 0, f"plain versions ran {plain_calls} times")
     steps_per_s = STEPS / result.train_seconds
@@ -443,8 +652,8 @@ def phase_errors(torch, device):
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
 
-    expected = {"gmm_fused_fwd": ERROR_STEPS, "gmm_fused_bwd": ERROR_STEPS,
-                "gmm_score_rows": 1, "gmm_unit_map": 1, "gmm_hvp_map": 1}
+    expected = expect(gmm_fused_fwd=ERROR_STEPS, gmm_fused_bwd=ERROR_STEPS,
+                      gmm_score_rows=1, gmm_unit_map=1, gmm_hvp_map=1)
     check(launches == expected, f"launches {launches}, not {expected}")
     check(plain_calls == 0, f"plain versions ran {plain_calls} times")
     errors = result.components["flux"].flux_upsampled_error_numpy
@@ -477,6 +686,100 @@ def phase_errors(torch, device):
             "peak_bytes": peak}
 
 
+def phase_marginalised(torch, device):
+    """Phases 3 and 4 under ``GMMPatchPrior(marginalize=True)``: training
+    on K1 (logsumexp) and K4, then the probe on K5 (logsumexp), K8, K9a
+    and K9b; each path's counts set to zero just before and read just
+    after."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    run = dict(cycle_spin=True, marginalize=True)
+    run_slice(datasets, astro, device, n_steps=2, **run)  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, astro, device, **run)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
+          f"marginalised: non-finite loss: {loss}")
+    check(flux.shape == (FIELD, FIELD)
+          and bool(np.isfinite(flux).all() and (flux > 0).all()),
+          "marginalised: flux not finite and positive")
+    # the data term must fall, as in phase 3
+    data_start = float(data_term(datasets, np.ones_like(flux), device))
+    data_end = float(data_term(datasets, flux, device))
+    check(data_end < data_start, f"marginalised: Poisson data term did not "
+          f"fall: {data_start} -> {data_end}")
+    expected = expect(gmm_fused_fwd_marg=STEPS, gmm_fused_bwd_marg=STEPS)
+    check(launches == expected, f"marginalised: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"marginalised: plain versions ran "
+          f"{plain_calls} times")
+    steps_per_s = STEPS / result.train_seconds
+    print(f"phase 5 marginalised slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps "
+          f"at {steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> "
+          f"{loss[-1]:.6f}; data term {data_start:.6f} -> {data_end:.6f}; "
+          f"launches {launches}; plain calls {plain_calls}; peak memory "
+          f"{peak} B")
+    train = {"launches": launches, "steps_per_s": steps_per_s,
+             "peak_bytes": peak}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, astro, device, n_steps=ERROR_STEPS,
+                       compute_error=True, **run)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = expect(gmm_fused_fwd_marg=ERROR_STEPS,
+                      gmm_fused_bwd_marg=ERROR_STEPS, gmm_score_rows=1,
+                      gmm_unit_marg=1, gmm_hvp_marg_weights=1,
+                      gmm_hvp_marg_mix=1)
+    check(launches == expected, f"marginalised probe: launches {launches}, "
+          f"not {expected}")
+    check(plain_calls == 0, f"marginalised probe: plain versions ran "
+          f"{plain_calls} times")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD)
+          and bool(np.isfinite(errors).all() and (errors > 0).all()),
+          "marginalised probe: errors not finite and positive at "
+          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
+    print(f"phase 5 marginalised errors {N_OBS}x{FIELD}^2 K=200: "
+          f"{ERROR_STEPS} steps in {result.train_seconds:.4f} s, probe "
+          f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} .. "
+          f"{float(errors.max()):.6g}; launches {launches}; plain calls "
+          f"{plain_calls}; peak memory {peak} B")
+    probe = {"launches": launches, "error_seconds": result.error_seconds,
+             "peak_bytes": peak}
+
+    # small input, flux and errors: the card against the CPU's plain path
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    on_card, on_cpu = (
+        run_slice(small, builtin, dev, cycle_spin=False, compute_error=True,
+                  marginalize=True).components["flux"]
+        for dev in (device, "cpu")
+    )
+    rels = {}
+    for name, limit in (("flux_upsampled_numpy", SMALL_FLUX_RTOL),
+                        ("flux_upsampled_error_numpy", SMALL_ERROR_RTOL)):
+        a, b = getattr(on_card, name), getattr(on_cpu, name)
+        rels[name] = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(rels[name] <= limit, f"marginalised 4x128^2 {name} on the card "
+              f"vs CPU: max rel err {rels[name]:.3g}")
+    print(f"phase 5 small 4x128^2 card vs CPU plain path: flux max rel err "
+          f"{rels['flux_upsampled_numpy']:.3g} (limit {SMALL_FLUX_RTOL}), "
+          f"errors {rels['flux_upsampled_error_numpy']:.3g} (limit "
+          f"{SMALL_ERROR_RTOL})")
+    return train, probe
+
+
 def main():
     try:
         import torch
@@ -498,10 +801,13 @@ def main():
     kernels = phase_kernels(torch, device)
     slice_ = phase_slice(torch, device)
     errors = phase_errors(torch, device)
+    marg_train, marg_probe = phase_marginalised(torch, device)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
     ptiming, pbounds = patch["timing"], patch["bounds"]
+    marg = kernels["marg"]
+    mrows, mtiming, mbounds = marg[MAIN], marg["timing"], marg["bounds"]
     fused_src = "jolideco_torch/csrc/gmm_fused.cu"
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
     table = [
@@ -520,10 +826,30 @@ def main():
         ("gmm_hvp_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:376",
          errors, rows["hvp"][0], ptiming["hvp_ms"],
          ptiming["hvp_plain_ms"], pbounds["hvp"]),
+        ("gmm_fused_fwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:341",
+         marg_train, mrows["fwd"][0], mtiming["fwd_ms"],
+         mtiming["fwd_plain_ms"], mbounds["fwd"]),
+        ("gmm_fused_bwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:420",
+         marg_train, mrows["bwd"][0], mtiming["bwd_ms"],
+         mtiming["bwd_plain_ms"], mbounds["bwd"]),
+        ("gmm_unit_marg", patch_src, "jolideco_tpu/ops/gmm_pallas.py:384",
+         marg_probe, mrows["unit"][0], mtiming["unit_ms"],
+         mtiming["unit_plain_ms"], mbounds["unit"]),
+        ("gmm_hvp_marg_weights", patch_src,
+         "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe,
+         max(mrows["weights_p"][0], mrows["weights_dp"][0]),
+         mtiming["weights_ms"], mtiming["weights_plain_ms"],
+         mbounds["weights"]),
+        ("gmm_hvp_marg_mix", patch_src, "jolideco_tpu/ops/gmm_pallas.py:449",
+         marg_probe, mrows["mix"][0], mtiming["mix_ms"],
+         mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
     # no single PyTorch call computes any of these functions (each needs
-    # a gather of per-row components, or a max over quadratic forms), so
-    # there is no library yardstick: library_ms is null
+    # a gather of per-row components, or a max or softmax over quadratic
+    # forms), so there is no library yardstick: library_ms is null.
+    # max_abs_err: K1, K2, K5-K7 against the float32 plain version;
+    # K1 logsumexp its values against it; K4, K8, K9a, K9b against the
+    # float64 plain version (phase 2)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],

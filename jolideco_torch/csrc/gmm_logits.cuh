@@ -1,6 +1,7 @@
 // GMM logits of 8x8 patches held in registers, shared by the fused
-// image-level forward (gmm_fused.cu::gmm_fwd_kernel) and the patch-level
-// scorer (gmm_patch.cu::gmm_score_rows_kernel).
+// image-level forward (gmm_fused.cu::gmm_fwd_kernel), the patch-level
+// scorer (gmm_patch.cu::gmm_score_rows_kernel) and the marginalise
+// derivatives (gmm_marg.cuh).
 //
 // A component record is the row-padded upper triangle of the symmetric
 // A_k (kSym floats), then b_k (kD floats), then c_k and three pad floats.
@@ -31,6 +32,26 @@ __host__ __device__ constexpr int sym_row_offset(int r) {
 }
 static_assert(sym_row_offset(64) == kSym, "triangle size");
 static_assert(kRec % 4 == 0, "records are read as float4");
+
+// Loads row n of a contiguous (n_total, kD) array into x; a row past the
+// end gives x = 0.
+__device__ __forceinline__ void load_row(const float* __restrict__ src, int n,
+                                         int n_total, float (&x)[kD]) {
+  if (n >= n_total) {
+#pragma unroll
+    for (int c = 0; c < kD; ++c) x[c] = 0.f;
+    return;
+  }
+  const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)n * kD);
+#pragma unroll
+  for (int c = 0; c < kD; c += 4) {
+    const float4 v = __ldg(s4 + c / 4);
+    x[c] = v.x;
+    x[c + 1] = v.y;
+    x[c + 2] = v.z;
+    x[c + 3] = v.w;
+  }
+}
 
 // Copies component record k into shared memory (all threads of the block).
 __device__ __forceinline__ void load_record(float* dst,

@@ -1,10 +1,11 @@
-// Patch-level GMM scoring on Hopper (sm_90a): the scorer, its MAP unit
-// gradient and its MAP Hessian action, in full float32. Built by nvcc
-// into a shared library with a plain C interface and loaded with ctypes
-// (jolideco_torch/utils/cuda_build.py); the Python wrappers and the plain
-// PyTorch versions are in jolideco_torch/ops/gmm_pallas.py. Rows are
-// contiguous (N, 64) float32 arrays of already masked, mean-subtracted
-// 8x8 patches; the ragged tail of N is masked in each kernel.
+// Patch-level GMM scoring on Hopper (sm_90a): the scorer, its unit
+// gradient and its Hessian action, MAP and marginalise, in full float32.
+// Built by nvcc into a shared library with a plain C interface and loaded
+// with ctypes (jolideco_torch/utils/cuda_build.py); the Python wrappers
+// and the plain PyTorch versions are in jolideco_torch/ops/gmm_pallas.py.
+// Rows are contiguous (N, 64) float32 arrays of already masked,
+// mean-subtracted 8x8 patches; the ragged tail of N is masked in each
+// kernel.
 //
 // ---------------------------------------------------------------------
 // gmm_score_rows_kernel replaces the JAX package's
@@ -48,38 +49,63 @@
 // is 256 contiguous bytes, so a warp's loads and stores are not
 // coalesced (staging rows through shared memory is the next step).
 
+//
+// ---------------------------------------------------------------------
+// gmm_unit_marg_kernel (C entry gmm_unit_marg) replaces
+// ops/gmm_pallas.py::_unit_marg_kernel. Per row x with the forward's
+// logsumexp lse:
+//     w_k = exp(logit_k - lse),  unit = sum_k w_k (b_k - A_k x) / sum_k w_k
+// (the softmax renormalised against the recomputed logits, as the TPU
+// kernel does, so the result does not depend on the lse's rounding).
+// gmm_hvp_marg_weights_kernel (gmm_hvp_marg_weights) and
+// gmm_hvp_marg_mix_kernel (gmm_hvp_marg_mix) replace
+// ops/gmm_pallas.py::_hvp_marg_weights_kernel and ::_hvp_marg_mix_kernel,
+// the Hessian action of the marginalised score along a tangent t:
+//     p_k = w_k / sum_j w_j,   g_k = (b_k - A_k x) . t,
+//     dp_k = p_k (g_k - sum_j p_j g_j)                  (stage 1)
+//     H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)]     (stage 2)
+// p and dp are (K, N), component-major, so that a warp's stores and
+// loads for one component are contiguous.
+//
+// What bounds them on the H100: operations. The logits, 2,144
+// multiply-adds per row and component over the symmetric triangle, are
+// dense: 5.6e10 flop at 65,025 rows and K = 200, 0.83 ms at the fp32
+// peak. The A_k x and A_k t terms (4,096 multiply-adds each) are needed
+// only where w_k > 0, which for the shipped GMMs is about one component
+// per row (gmm_marg.cuh), so they add little. Design: K8 and stage 1 are
+// K5's loop at one row per thread (the row's gradient accumulator, or its
+// tangent, takes the registers of K5's second row), voting per warp on
+// the A_k x pass (gmm_marg.cuh). Stage 2 needs no logits: one thread per
+// row holds x, t and the 64 outputs in registers and walks the
+// components, skipping those with p_k = dp_k = 0 across the warp; A_k is
+// symmetric, so its row c is its column c, and each float4 of row c feeds
+// four independent output sums. The TPU split into two stages (for its
+// 16 MB VMEM) is kept because one pass would need the weights before the
+// A_k x and A_k t terms they scale: 256 live floats per row. On an NVIDIA
+// H100 80GB HBM3 (700 W limit), 65,025 rows, K = 200, exactly one
+// nonzero weight per row: K8 2.50-2.53 ms and stage 1 2.88-2.91 ms
+// (29-34% of the 0.84 ms bound; K5's loop at one row per thread, as K1
+// ran in 2.41 ms), stage 2 0.31 ms. ptxas: K8 255 registers with 44 bytes
+// spilled, stage 1 255 without spills, stage 2 254 with 64 bytes.
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "gmm_logits.cuh"
+#include "gmm_marg.cuh"
 
 namespace {
 
 using gmm::kD;
 using gmm::kRec;
+using gmm::kSym;
 using gmm::load_record;
+using gmm::load_row;
 
 constexpr int kScoreThreads = 128;
 constexpr int kRPT = 2;              // rows per scoring thread
 constexpr int kRowThreads = 128;
-
-__device__ __forceinline__ void load_row(const float* __restrict__ src, int n,
-                                         int n_total, float (&x)[kD]) {
-  if (n >= n_total) {
-#pragma unroll
-    for (int c = 0; c < kD; ++c) x[c] = 0.f;
-    return;
-  }
-  const float4* s4 = reinterpret_cast<const float4*>(src + (size_t)n * kD);
-#pragma unroll
-  for (int c = 0; c < kD; c += 4) {
-    const float4 v = __ldg(s4 + c / 4);
-    x[c] = v.x;
-    x[c + 1] = v.y;
-    x[c + 2] = v.z;
-    x[c + 3] = v.w;
-  }
-}
+constexpr int kMargThreads = 128;
 
 // Each thread scores kRPT rows, n = (blockIdx.x * kRPT + p) * blockDim.x +
 // threadIdx.x.
@@ -177,6 +203,153 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
   }
 }
 
+// unit = sum_k w_k (b_k - A_k x) / sum_k w_k, one row per thread.
+__global__ void __launch_bounds__(kMargThreads)
+gmm_unit_marg_kernel(const float* __restrict__ rows, const float* __restrict__ lse,
+                     const float* __restrict__ rec, const float* __restrict__ a_full,
+                     int n_total, int K, float* __restrict__ out) {
+  __shared__ __align__(16) float smem[2][kRec];
+
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  float x[1][kD];
+  load_row(rows, n, n_total, x[0]);
+  const float l = n < n_total ? __ldg(lse + n) : CUDART_INF_F;
+  float acc[kD];
+#pragma unroll
+  for (int c = 0; c < kD; ++c) acc[c] = 0.f;
+  float wsum = 0.f;
+
+  load_record(smem[0], rec, 0);
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    const float* cur = smem[k & 1];
+    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
+    gmm::marg_unit_step(cur, a_full + (size_t)k * kD * kD, x, l, wsum, acc);
+    __syncthreads();
+  }
+
+  if (n >= n_total) return;
+  const float inv = 1.f / wsum;
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
+#pragma unroll
+  for (int c = 0; c < kD; c += 4)
+    dst[c / 4] = make_float4(acc[c] * inv, acc[c + 1] * inv, acc[c + 2] * inv,
+                             acc[c + 3] * inv);
+}
+
+// Stage 1 of the marginalise Hessian action: p and dp, (K, N).
+__global__ void __launch_bounds__(kMargThreads)
+gmm_hvp_marg_weights_kernel(const float* __restrict__ rows,
+                            const float* __restrict__ tangents,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ rec,
+                            const float* __restrict__ a_full, int n_total, int K,
+                            float* __restrict__ p, float* __restrict__ dp) {
+  __shared__ __align__(16) float smem[2][kRec];
+
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = n < n_total;
+  float x[1][kD], t[kD];
+  load_row(rows, n, n_total, x[0]);
+  load_row(tangents, n, n_total, t);
+  const float l = live ? __ldg(lse + n) : CUDART_INF_F;
+  // g of the heaviest component so far: the deviations g_k - gbar are
+  // taken against it, so that a row whose weight sits on one component
+  // (p_k* = 1, the rest 0) gets dp = 0 exactly, not the rounding of
+  // g_k* - (w g_k*) / w
+  float w_ref = -1.f, g_ref = 0.f;
+
+  load_record(smem[0], rec, 0);
+  __syncthreads();
+  for (int k = 0; k < K; ++k) {
+    const float* cur = smem[k & 1];
+    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
+    const float w = gmm::component_weight(cur, x, l);
+    float g = 0.f;
+    if (__any_sync(gmm::kFullMask, w > 0.f)) {
+      const float* b = cur + kSym;
+      gmm::for_each_ax(a_full + (size_t)k * kD * kD, x[0], [&](int r, float ax) {
+        g = fmaf(t[r], b[r] - ax, g);
+      });
+    }
+    if (w > w_ref) {
+      w_ref = w;
+      g_ref = g;
+    }
+    if (live) {
+      // w and g for now; the loops below turn this row's entries into
+      // p and dp
+      p[(size_t)k * n_total + n] = w;
+      dp[(size_t)k * n_total + n] = g;
+    }
+    __syncthreads();
+  }
+
+  if (!live) return;
+  float wsum = 0.f, gsum = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const size_t i = (size_t)k * n_total + n;
+    const float w = p[i];
+    wsum += w;
+    gsum = fmaf(w, dp[i] - g_ref, gsum);
+  }
+  const float inv = 1.f / wsum;
+  const float gbar = gsum * inv;  // sum_k p_k g_k - g_ref
+  for (int k = 0; k < K; ++k) {
+    const size_t i = (size_t)k * n_total + n;
+    const float pk = p[i] * inv;
+    p[i] = pk;
+    dp[i] = pk * ((dp[i] - g_ref) - gbar);
+  }
+}
+
+// Stage 2: H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)].
+__global__ void __launch_bounds__(kMargThreads)
+gmm_hvp_marg_mix_kernel(const float* __restrict__ rows,
+                        const float* __restrict__ tangents,
+                        const float* __restrict__ p, const float* __restrict__ dp,
+                        const float* __restrict__ a_full,
+                        const float* __restrict__ b_rows, int n_total, int K,
+                        float* __restrict__ out) {
+  // no early return: every lane of a warp takes part in the vote below
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = n < n_total;
+  float x[kD], t[kD], acc[kD];
+  load_row(rows, n, n_total, x);
+  load_row(tangents, n, n_total, t);
+#pragma unroll
+  for (int c = 0; c < kD; ++c) acc[c] = 0.f;
+
+  for (int k = 0; k < K; ++k) {
+    const size_t i = (size_t)k * n_total + n;
+    const float pk = live ? __ldg(p + i) : 0.f;
+    const float dpk = live ? __ldg(dp + i) : 0.f;
+    if (!__any_sync(gmm::kFullMask, pk != 0.f || dpk != 0.f)) continue;
+    const float4* A = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
+    const float* bk = b_rows + (size_t)k * kD;
+#pragma unroll
+    for (int c = 0; c < kD; ++c) {
+      const float v = fmaf(dpk, x[c], pk * t[c]);
+#pragma unroll
+      for (int r = 0; r < kD; r += 4) {
+        const float4 a = __ldg(A + c * (kD / 4) + r / 4);
+        acc[r] = fmaf(-a.x, v, acc[r]);
+        acc[r + 1] = fmaf(-a.y, v, acc[r + 1]);
+        acc[r + 2] = fmaf(-a.z, v, acc[r + 2]);
+        acc[r + 3] = fmaf(-a.w, v, acc[r + 3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kD; ++r) acc[r] = fmaf(dpk, __ldg(bk + r), acc[r]);
+  }
+
+  if (!live) return;
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
+#pragma unroll
+  for (int c = 0; c < kD; c += 4)
+    dst[c / 4] = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+}
+
 int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
 
 }  // namespace
@@ -216,6 +389,40 @@ int gmm_hvp_map(const void* tangents, const void* argmax, const void* a_full,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tangents), static_cast<const int*>(argmax),
       static_cast<const float*>(a_full), nullptr, n, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gmm_unit_marg(const void* rows, const void* lse, const void* rec,
+                  const void* a_full, int n, int K, void* out, void* stream) {
+  gmm_unit_marg_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const float*>(lse),
+      static_cast<const float*>(rec), static_cast<const float*>(a_full), n, K,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gmm_hvp_marg_weights(const void* rows, const void* tangents,
+                         const void* lse, const void* rec, const void* a_full,
+                         int n, int K, void* p, void* dp, void* stream) {
+  gmm_hvp_marg_weights_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const float*>(tangents),
+      static_cast<const float*>(lse), static_cast<const float*>(rec),
+      static_cast<const float*>(a_full), n, K, static_cast<float*>(p),
+      static_cast<float*>(dp));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int gmm_hvp_marg_mix(const void* rows, const void* tangents, const void* p,
+                     const void* dp, const void* a_full, const void* b_rows,
+                     int n, int K, void* out, void* stream) {
+  gmm_hvp_marg_mix_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), static_cast<const float*>(tangents),
+      static_cast<const float*>(p), static_cast<const float*>(dp),
+      static_cast<const float*>(a_full), static_cast<const float*>(b_rows), n, K,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

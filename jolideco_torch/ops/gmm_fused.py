@@ -1,14 +1,17 @@
-"""Fused patch extraction + GMM MAP scoring, forward and backward.
+"""Fused patch extraction + GMM scoring, forward and backward.
 
 Counterpart of the JAX package's ``ops/gmm_fused.py``. One pass takes an
 image to per-patch GMM scores:
 
     image -> offset-group patches -> zero-flux mask -> mean subtraction
-          -> logits -1/2 x^T A_k x + b_k . x + c_k -> max / argmax (MAP)
+          -> logits -1/2 x^T A_k x + b_k . x + c_k
+          -> max / argmax (MAP) or logsumexp (marginalise)
 
 and the backward takes the per-patch cotangents back to the image:
-``dv (b_{k*} - A_{k*} x)``, the transpose of the mean subtraction and
-the mask, then back to image layout per offset group.
+``dv (b_{k*} - A_{k*} x)`` (MAP) or ``dv sum_k p_k (b_k - A_k x)``
+with ``p`` the softmax of the logits, recomputed from the saved patches
+(marginalise), then the transpose of the mean subtraction and the mask,
+and back to image layout per offset group.
 
 Each direction has two implementations with one contract:
 
@@ -31,8 +34,7 @@ every group on the common ``(H // 8, W // 8)`` grid. Patches outside the
 image come back ``valid == False`` in both, so ``values[valid]`` line
 up one to one. The TPU's layout tricks (one-hot permutation matmuls,
 bf16 splits, strip folding, 1024-lane chunks) are not part of the
-contract and are not ported. Only the MAP (max) reduction is ported;
-the marginalise backward is still to come.
+contract and are not ported.
 """
 
 import ctypes
@@ -46,14 +48,20 @@ __all__ = [
     "fused_patch_count",
     "fused_supported",
     "gmm_fused_bwd_cuda",
+    "gmm_fused_bwd_marg_cuda",
     "gmm_fused_fwd_cuda",
+    "gmm_fused_fwd_marg_cuda",
+    "fused_backward_marg_plain",
     "fused_backward_plain",
     "fused_forward_plain",
     "gmm_score_fused_image",
     "kernel_buffers",
     "logit_chunks",
+    "marg_unit_rows",
+    "mix_rows",
     "reset_counters",
     "score_plain",
+    "softmax_chunks",
 ]
 
 PATCH = 8
@@ -175,26 +183,63 @@ def logit_chunks(xtn, aq, bq, const2):
         yield -0.5 * (u @ aq) + x @ bq + const2
 
 
-def score_plain(xtn, aq, bq, const2):
-    """MAP scores of normalised patches ``(n, d)``: values and argmax.
+def softmax_chunks(x, lse, bufs):
+    """Per chunk of rows, ``(slice, p)`` with ``p (rows, K)`` the softmax
+    ``exp(logit - lse)`` renormalised against the recomputed logits (the
+    JAX package's rule: the result does not depend on the lse's
+    rounding)."""
+    chunks = logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"])
+    for start, logits in zip(range(0, x.shape[0], PLAIN_CHUNK), chunks):
+        sl = slice(start, start + PLAIN_CHUNK)
+        p = torch.exp(logits - lse[sl, None])
+        yield sl, p / p.sum(dim=1, keepdim=True)
 
-    Argmax is the lowest index among equal maxima (``torch.max`` returns
-    the first).
-    """
-    score_plain.calls += 1
-    values, argmax = [], []
-    for logits in logit_chunks(xtn, aq, bq, const2):
+
+def mix_rows(w, x, bufs):
+    """``sum_k w_k A_k x`` per row for weights ``w (rows, K)``: ``(rows, d)``."""
+    k, d = bufs["b_rows"].shape
+    a_mix = (w @ bufs["a_full"].reshape(k, d * d)).reshape(-1, d, d)
+    return torch.bmm(a_mix, x[:, :, None])[:, :, 0]
+
+
+def marg_unit_rows(x, lse, bufs):
+    """Marginalise unit gradient ``sum_k p_k (b_k - A_k x)`` of rows ``x``."""
+    out = [x.new_empty((0, x.shape[1]))]
+    for sl, p in softmax_chunks(x, lse, bufs):
+        out.append(p @ bufs["b_rows"] - mix_rows(p, x[sl], bufs))
+    return torch.cat(out)
+
+
+def _scores(x, aq, bq, const2, marginalize):
+    """Values and argmax of rows ``(n, d)``, chunk by chunk."""
+    values, argmax = [x.new_empty(0)], [x.new_empty(0, dtype=torch.int32)]
+    for logits in logit_chunks(x, aq, bq, const2):
         v, k = torch.max(logits, dim=1)
+        if marginalize:
+            v = torch.logsumexp(logits, dim=1)
         values.append(v)
         argmax.append(k.to(torch.int32))
     return torch.cat(values), torch.cat(argmax)
 
 
-def fused_forward_plain(image, bufs, stride, sentinel):
+def score_plain(xtn, aq, bq, const2, marginalize=False):
+    """Scores of normalised patches ``(n, d)``: values and argmax.
+
+    Values are the maximum (MAP) or the logsumexp (marginalise) over the
+    components; argmax is the lowest index among equal maxima
+    (``torch.max`` returns the first).
+    """
+    score_plain.calls += 1
+    return _scores(xtn, aq, bq, const2, marginalize)
+
+
+def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False):
     """Plain version of the forward kernel.
 
     Returns ``(values (N,), argmax (N,) int32, valid (N,) float32,
-    xtn (N, 64))`` with ``xtn`` the masked, mean-subtracted patches.
+    xtn (N, 64))`` with ``xtn`` the masked, mean-subtracted patches and
+    ``values`` the maximum (MAP) or logsumexp (``marginalize``) of the
+    logits.
     """
     fused_forward_plain.calls += 1
     h, w = image.shape
@@ -211,13 +256,14 @@ def fused_forward_plain(image, bufs, stride, sentinel):
     valid = masks.reshape(-1) & torch.all(patches > sentinel, dim=1)
     x = torch.where(valid[:, None], patches, torch.zeros_like(patches))
     xtn = x - x.mean(dim=1, keepdim=True)
-    values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"], bufs["const2"])
-    return values, argmax, valid.to(torch.float32), xtn
+    values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"], bufs["const2"],
+                                 marginalize)
+    return values, argmax, valid.to(image.dtype), xtn
 
 
 def fused_backward_plain(xtn, argmax, valid, dvalues, bufs, image_shape,
                          stride):
-    """Plain version of the backward kernel: the image gradient ``(H, W)``."""
+    """Plain version of the MAP backward kernel: the image gradient ``(H, W)``."""
     fused_backward_plain.calls += 1
     a_full, b_rows = bufs["a_full"], bufs["b_rows"]
     units = []
@@ -226,7 +272,22 @@ def fused_backward_plain(xtn, argmax, valid, dvalues, bufs, image_shape,
         k = argmax[sl].long()
         ax = torch.einsum("nrc,nc->nr", a_full[k], xtn[sl])
         units.append(dvalues[sl, None] * (b_rows[k] - ax))
-    u = torch.cat(units)
+    return _patches_to_image(torch.cat(units), valid, image_shape, stride)
+
+
+def fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs, image_shape,
+                              stride):
+    """Plain version of the marginalise backward kernel: the image
+    gradient ``(H, W)`` from the saved patches and the forward's
+    logsumexp ``lse``."""
+    fused_backward_marg_plain.calls += 1
+    u = dvalues[:, None] * marg_unit_rows(xtn, lse, bufs)
+    return _patches_to_image(u, valid, image_shape, stride)
+
+
+def _patches_to_image(u, valid, image_shape, stride):
+    """Both backwards' epilogue: the transpose of the mean subtraction and
+    the mask, then each offset group's patches back into the image."""
     u = (u - u.mean(dim=1, keepdim=True)) * valid[:, None]
 
     h, w = image_shape
@@ -254,11 +315,14 @@ def _library():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gmm_fused_fwd.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, ci,
-                                      vp, vp, vp, vp, vp]
+                                      ci, vp, vp, vp, vp, vp]
         lib.gmm_fused_fwd.restype = ci
         lib.gmm_fused_bwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                       ci, ci, vp, vp]
         lib.gmm_fused_bwd.restype = ci
+        lib.gmm_fused_bwd_marg.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, ci, ci, vp, vp]
+        lib.gmm_fused_bwd_marg.restype = ci
         lib.gmm_fused_error_string.argtypes = [ci]
         lib.gmm_fused_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -293,13 +357,27 @@ def _check_geometry(image, stride):
 
 
 def gmm_fused_fwd_cuda(image, bufs, stride, sentinel):
-    """Launch the forward kernel on ``image (H, W)`` float32 on a card.
+    """Launch the MAP forward kernel on ``image (H, W)`` float32 on a card.
 
     Same outputs as :func:`fused_forward_plain`.
     """
+    out = _launch_forward(image, bufs, stride, sentinel, False)
+    gmm_fused_fwd_cuda.launches += 1
+    return out
+
+
+def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
+    """Launch the marginalise (logsumexp) forward kernel; same outputs as
+    :func:`fused_forward_plain` with ``marginalize=True``."""
+    out = _launch_forward(image, bufs, stride, sentinel, True)
+    gmm_fused_fwd_marg_cuda.launches += 1
+    return out
+
+
+def _launch_forward(image, bufs, stride, sentinel, marginalize):
     device = image.device
     if device.type != "cuda":
-        raise ValueError(f"gmm_fused_fwd_cuda needs a CUDA tensor, got {device}")
+        raise ValueError(f"the forward kernel needs a CUDA tensor, got {device}")
     _check_geometry(image, stride)
     h, w = image.shape
     ny, nx = h // PATCH, w // PATCH
@@ -318,11 +396,11 @@ def gmm_fused_fwd_cuda(image, bufs, stride, sentinel):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_fwd(
             image.data_ptr(), h, w, int(stride), ny, nx,
-            float(sentinel), rec.data_ptr(), k, values.data_ptr(),
+            float(sentinel), rec.data_ptr(), k, int(bool(marginalize)),
+            values.data_ptr(),
             argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_fwd")
-    gmm_fused_fwd_cuda.launches += 1
     return values, argmax, valid, xtn
 
 
@@ -364,31 +442,63 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
     return planes.sum(dim=0)
 
 
+def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
+                            stride):
+    """Launch the marginalise backward kernel; returns the image gradient
+    ``(H, W)``. Same contract as :func:`fused_backward_marg_plain`; the
+    planes are those of :func:`gmm_fused_bwd_cuda`."""
+    device = xtn.device
+    if device.type != "cuda":
+        raise ValueError(
+            f"gmm_fused_bwd_marg_cuda needs a CUDA tensor, got {device}")
+    h, w = image_shape
+    ny, nx = h // PATCH, w // PATCH
+    n_groups = len(_offsets(stride))
+    n = n_groups * ny * nx
+    rec, a_full = bufs["rec"], bufs["a_full"]
+    k = rec.shape[0]
+    _check(xtn, "xtn", torch.float32, (n, D), device)
+    for name, t in (("lse", lse), ("valid", valid), ("dvalues", dvalues)):
+        _check(t, name, torch.float32, (n,), device)
+    _check(rec, "rec", torch.float32, (k, REC), device)
+    _check(a_full, "a_full", torch.float32, (k, D, D), device)
+
+    planes = torch.zeros((n_groups, h, w), dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.gmm_fused_bwd_marg(
+            xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
+            dvalues.data_ptr(), rec.data_ptr(), a_full.data_ptr(),
+            h, w, int(stride), ny, nx, k, planes.data_ptr(), stream,
+        )
+    _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_bwd_marg")
+    gmm_fused_bwd_marg_cuda.launches += 1
+    return planes.sum(dim=0)
+
+
 def reset_counters():
     """Set every launch and call count of this module to zero."""
-    for fn in (gmm_fused_fwd_cuda, gmm_fused_bwd_cuda, fused_forward_plain,
-               fused_backward_plain, score_plain):
-        if hasattr(fn, "launches"):
-            fn.launches = 0
-        else:
-            fn.calls = 0
+    for fn in (gmm_fused_fwd_cuda, gmm_fused_fwd_marg_cuda,
+               gmm_fused_bwd_cuda, gmm_fused_bwd_marg_cuda):
+        fn.launches = 0
+    for fn in (fused_forward_plain, fused_backward_plain,
+               fused_backward_marg_plain, score_plain):
+        fn.calls = 0
 
 
-gmm_fused_fwd_cuda.launches = 0
-gmm_fused_bwd_cuda.launches = 0
-fused_forward_plain.calls = 0
-fused_backward_plain.calls = 0
-score_plain.calls = 0
+reset_counters()
 
 
 # ----------------------------------------------------------------------
 # dispatch and autograd
 
 
-def _forward(image, bufs, stride, sentinel):
+def _forward(image, bufs, stride, sentinel, marginalize):
     if dispatch(image) == "kernel":
-        return gmm_fused_fwd_cuda(image, bufs, stride, sentinel)
-    return fused_forward_plain(image, bufs, stride, sentinel)
+        launch = gmm_fused_fwd_marg_cuda if marginalize else gmm_fused_fwd_cuda
+        return launch(image, bufs, stride, sentinel)
+    return fused_forward_plain(image, bufs, stride, sentinel, marginalize)
 
 
 def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
@@ -399,10 +509,19 @@ def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
                                 image_shape, stride)
 
 
-class _FusedScore(torch.autograd.Function):
-    """Forward kernel; its backward is the backward kernel.
+def _backward_marg(xtn, lse, valid, dvalues, bufs, image_shape, stride):
+    if dispatch(xtn) == "kernel":
+        return gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs,
+                                       image_shape, stride)
+    return fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs,
+                                     image_shape, stride)
 
-    The backward kernel's output carries no graph, so a backward that
+
+class _FusedScore(torch.autograd.Function):
+    """Forward kernel; its backward is the MAP or the marginalise backward
+    kernel.
+
+    The backward kernels' output carries no graph, so a backward that
     builds one (``create_graph=True``, the first half of a second
     derivative) raises instead of letting the second derivative come out
     as zero. ``once_differentiable`` would not do: it only marks outputs
@@ -412,11 +531,15 @@ class _FusedScore(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, image, bufs, stride, sentinel):
-        values, argmax, valid, xtn = _forward(image, bufs, stride, sentinel)
-        ctx.save_for_backward(xtn, argmax, valid)
+    def forward(ctx, image, bufs, stride, sentinel, marginalize):
+        values, argmax, valid, xtn = _forward(image, bufs, stride, sentinel,
+                                              marginalize)
+        # the marginalise backward recomputes the softmax against the
+        # forward's logsumexp (the values); the MAP one needs the argmax
+        ctx.save_for_backward(xtn, values if marginalize else argmax, valid)
         ctx.bufs = bufs
         ctx.stride = stride
+        ctx.marginalize = marginalize
         ctx.image_shape = tuple(image.shape)
         ctx.mark_non_differentiable(argmax, valid)
         return values, argmax, valid
@@ -429,14 +552,17 @@ class _FusedScore(torch.autograd.Function):
                 "the prior under jolideco_torch.config.force_fused('off') "
                 "(TotalLoss.hessian_diagonals does)"
             )
-        xtn, argmax, valid = ctx.saved_tensors
-        dimage = _backward(xtn, argmax, valid, dvalues.contiguous(),
-                           ctx.bufs, ctx.image_shape, ctx.stride)
-        return dimage, None, None, None
+        xtn, selector, valid = ctx.saved_tensors
+        run = _backward_marg if ctx.marginalize else _backward
+        dimage = run(xtn, selector, valid, dvalues.contiguous(), ctx.bufs,
+                     ctx.image_shape, ctx.stride)
+        return dimage, None, None, None, None
 
 
-def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel):
-    """Score all overlapping patches of ``normed`` (MAP max over K).
+def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
+                          marginalize=False):
+    """Score all overlapping patches of ``normed``: the maximum over the
+    components (MAP) or their logsumexp (``marginalize``).
 
     Parameters
     ----------
@@ -447,6 +573,9 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel):
         From :func:`kernel_buffers` on ``normed``'s device.
     sentinel : float
         Patches with a pixel at or below it are invalid.
+    marginalize : bool
+        Logsumexp instead of the maximum; the backward then mixes the
+        components' gradients by their softmax weights.
 
     Returns
     -------
@@ -459,5 +588,6 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel):
         raise ValueError("fused scorer does not support this shape")
     image = normed.reshape(h, w).contiguous()
     values, argmax, valid = _FusedScore.apply(image, bufs, int(stride),
-                                              float(sentinel))
+                                              float(sentinel),
+                                              bool(marginalize))
     return values, argmax, valid > 0.5

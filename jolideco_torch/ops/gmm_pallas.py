@@ -1,4 +1,4 @@
-"""Patch-level GMM scoring: the scorer, its MAP gradient and Hessian action.
+"""Patch-level GMM scoring: the scorer, its gradient and Hessian action.
 
 Counterpart of the JAX package's ``ops/gmm_pallas.py``. Rows are
 normalised patches ``x (N, d)`` (already masked and mean-subtracted);
@@ -8,20 +8,30 @@ per row, over the K components,
     values  = max_k logit_k (MAP) or logsumexp_k logit_k (marginalise)
     argmax  = the lowest index among equal maxima
 
-and, for the MAP reduction with the argmax held piecewise constant,
+For the MAP reduction, with the argmax held piecewise constant,
 
     d values / d x = b_{k*} - A_{k*} x        (the unit gradient)
     its derivative along t = -A_{k*} t        (the Hessian action)
 
-Each of the three has two implementations with one contract:
+and for the marginalise reduction, with ``p = softmax(logits)`` (taken
+against the forward's logsumexp and renormalised), ``r_k = b_k - A_k x``
+and ``g_k = r_k . t``,
+
+    d values / d x = sum_k p_k r_k
+    its derivative along t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)],
+        dp_k = p_k (g_k - sum_j p_j g_j)
+
+in two stages, ``(p, dp)`` and then the mixture, as in the JAX package.
+
+Each has two implementations with one contract:
 
 - a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``,
   whose header says what bounds each kernel and how it is built), run
   for a tensor on a CUDA card, for d = 64 (8x8 patches, both shipped
   GMMs; the JAX package's ``pallas_supported`` rule);
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU
-  for any d, and the reference the kernel is checked against on the
-  card.
+  for any d and in float32 or float64, and the reference the kernel is
+  checked against on the card.
 
 Nothing falls back from a kernel to its plain version
 (``config.dispatch``). Each wrapper counts its launches
@@ -30,13 +40,16 @@ Nothing falls back from a kernel to its plain version
 Derivatives: :func:`gmm_score_patches` is a ``torch.autograd.Function``
 whose backward is ``dvalues * unit`` with the unit gradient another
 ``autograd.Function``, and the unit gradient's backward is the Hessian
-action. ``A_k`` is symmetric, so the Hessian action is both the JVP and
-the VJP of the unit gradient, and a reverse-over-reverse probe (the flux
-errors of ``TotalLoss.hessian_diagonals``) runs on the three kernels.
-The Hessian action is linear and symmetric, so it is its own backward
-and the MAP scorer is differentiable to any order. The marginalise
-gradient (the JAX package's ``_unit_marg_kernel``) is not ported yet:
-its backward raises.
+action. ``A_k`` is symmetric and so is the Hessian of a scalar, so the
+Hessian action is both the JVP and the VJP of the unit gradient, and a
+reverse-over-reverse probe (the flux errors of
+``TotalLoss.hessian_diagonals``) runs on the kernels. The MAP Hessian
+action is linear and symmetric, so it is its own backward and the MAP
+scorer is differentiable to any order. The marginalise Hessian action
+has no derivative in either package: its backward raises. The
+marginalise unit gradient does not depend on the logsumexp it is given
+(the weights are renormalised), so it passes no gradient to it, the JAX
+package's rule.
 """
 
 import ctypes
@@ -50,18 +63,28 @@ from .gmm_fused import (
     REC,
     _check,
     _raise_on_error,
-    logit_chunks,
+    _scores,
+    marg_unit_rows,
+    mix_rows,
+    softmax_chunks,
 )
 
 __all__ = [
     "gmm_hvp_map_cuda",
+    "gmm_hvp_marg_mix_cuda",
+    "gmm_hvp_marg_weights_cuda",
     "gmm_score_patches",
     "gmm_score_rows_cuda",
     "gmm_unit_map_cuda",
+    "gmm_unit_marg_cuda",
     "hvp_map_plain",
+    "hvp_marg_mix_plain",
+    "hvp_marg_plain",
+    "hvp_marg_weights_plain",
     "reset_counters",
     "score_rows_plain",
     "unit_map_plain",
+    "unit_marg_plain",
 ]
 
 
@@ -72,14 +95,7 @@ __all__ = [
 def score_rows_plain(x, bufs, marginalize=False):
     """Plain version of the scorer: ``(values (N,), argmax (N,) int32)``."""
     score_rows_plain.calls += 1
-    values, argmax = [x.new_empty(0)], [x.new_empty(0, dtype=torch.int32)]
-    for logits in logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"]):
-        v, k = torch.max(logits, dim=1)
-        if marginalize:
-            v = torch.logsumexp(logits, dim=1)
-        values.append(v)
-        argmax.append(k.to(torch.int32))
-    return torch.cat(values), torch.cat(argmax)
+    return _scores(x, bufs["aq"], bufs["bq"], bufs["const2"], marginalize)
 
 
 def _select_rows(x, argmax, bufs, with_b):
@@ -106,6 +122,52 @@ def hvp_map_plain(t, argmax, bufs):
     return _select_rows(t, argmax, bufs, with_b=False)
 
 
+def unit_marg_plain(x, lse, bufs):
+    """Plain version of the marginalise unit gradient ``sum_k p_k r_k``."""
+    unit_marg_plain.calls += 1
+    return marg_unit_rows(x, lse, bufs)
+
+
+def hvp_marg_weights_plain(x, t, lse, bufs):
+    """Plain version of the marginalise Hessian action's first stage:
+    ``(p, dp)``, each ``(K, N)`` (component-major, the kernel's layout)."""
+    hvp_marg_weights_plain.calls += 1
+    aq, bq = bufs["aq"], bufs["bq"]
+    n, d = x.shape
+    ps, dps = [x.new_empty((0, aq.shape[1]))], [x.new_empty((0, aq.shape[1]))]
+    for sl, p in softmax_chunks(x, lse, bufs):
+        xs, ts = x[sl], t[sl]
+        # g_k = t . b_k - t^T A_k x, taken against g of the heaviest
+        # component, so that a row whose weight sits on one component
+        # gets dp = 0 exactly (the kernel's rule)
+        cross = (ts[:, :, None] * xs[:, None, :]).reshape(len(xs), d * d)
+        g = ts @ bq - cross @ aq
+        g = g - g.gather(1, p.argmax(dim=1, keepdim=True))
+        gbar = (p * g).sum(dim=1, keepdim=True)
+        ps.append(p)
+        dps.append(p * (g - gbar))
+    return torch.cat(ps).T.contiguous(), torch.cat(dps).T.contiguous()
+
+
+def hvp_marg_mix_plain(x, t, p, dp, bufs):
+    """Plain version of the second stage:
+    ``sum_k [dp_k b_k - A_k (p_k t + dp_k x)]`` per row, ``(N, d)``."""
+    hvp_marg_mix_plain.calls += 1
+    out = [x.new_empty((0, x.shape[1]))]
+    for start in range(0, x.shape[0], PLAIN_CHUNK):
+        sl = slice(start, start + PLAIN_CHUNK)
+        ps, dps = p[:, sl].T, dp[:, sl].T
+        out.append(dps @ bufs["b_rows"] - mix_rows(ps, t[sl], bufs)
+                   - mix_rows(dps, x[sl], bufs))
+    return torch.cat(out)
+
+
+def hvp_marg_plain(t, x, lse, bufs):
+    """The marginalise Hessian action along ``t``: both plain stages."""
+    p, dp = hvp_marg_weights_plain(x, t, lse, bufs)
+    return hvp_marg_mix_plain(x, t, p, dp, bufs)
+
+
 # ----------------------------------------------------------------------
 # CUDA kernels
 
@@ -122,6 +184,14 @@ def _library():
         lib.gmm_unit_map.restype = ci
         lib.gmm_hvp_map.argtypes = [vp, vp, vp, ci, vp, vp]
         lib.gmm_hvp_map.restype = ci
+        lib.gmm_unit_marg.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+        lib.gmm_unit_marg.restype = ci
+        lib.gmm_hvp_marg_weights.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp,
+                                             vp, vp]
+        lib.gmm_hvp_marg_weights.restype = ci
+        lib.gmm_hvp_marg_mix.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp,
+                                         vp]
+        lib.gmm_hvp_marg_mix.restype = ci
         lib.gmm_patch_error_string.argtypes = [ci]
         lib.gmm_patch_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -196,11 +266,66 @@ def gmm_hvp_map_cuda(t, argmax, bufs):
     return out
 
 
+def _check_marg(device, n, lse, bufs):
+    rec, a_full = bufs["rec"], bufs["a_full"]
+    k = rec.shape[0]
+    _check(lse, "lse", torch.float32, (n,), device)
+    _check(rec, "rec", torch.float32, (k, REC), device)
+    _check(a_full, "a_full", torch.float32, (k, D, D), device)
+    return rec, a_full, k
+
+
+def gmm_unit_marg_cuda(x, lse, bufs):
+    """Launch the marginalise unit gradient on rows ``x (N, 64)`` with the
+    forward's logsumexp ``lse (N,)``; ``(N, 64)``."""
+    device, n = _check_rows(x, "gmm_unit_marg_cuda")
+    rec, a_full, k = _check_marg(device, n, lse, bufs)
+    out = torch.empty((n, D), dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_unit_marg", x, lse, rec, a_full, n, k, out)
+        gmm_unit_marg_cuda.launches += 1
+    return out
+
+
+def gmm_hvp_marg_weights_cuda(x, t, lse, bufs):
+    """Launch the first stage of the marginalise Hessian action:
+    ``(p, dp)``, each ``(K, N)``."""
+    device, n = _check_rows(x, "gmm_hvp_marg_weights_cuda")
+    _check(t, "tangents", torch.float32, (n, D), device)
+    rec, a_full, k = _check_marg(device, n, lse, bufs)
+    p = torch.empty((k, n), dtype=torch.float32, device=device)
+    dp = torch.empty((k, n), dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_hvp_marg_weights", x, t, lse, rec, a_full, n, k, p, dp)
+        gmm_hvp_marg_weights_cuda.launches += 1
+    return p, dp
+
+
+def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
+    """Launch the second stage of the marginalise Hessian action; ``(N, 64)``."""
+    device, n = _check_rows(x, "gmm_hvp_marg_mix_cuda")
+    _check(t, "tangents", torch.float32, (n, D), device)
+    a_full, b_rows = bufs["a_full"], bufs["b_rows"]
+    k = a_full.shape[0]
+    _check(p, "p", torch.float32, (k, n), device)
+    _check(dp, "dp", torch.float32, (k, n), device)
+    _check(a_full, "a_full", torch.float32, (k, D, D), device)
+    _check(b_rows, "b_rows", torch.float32, (k, D), device)
+    out = torch.empty((n, D), dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_hvp_marg_mix", x, t, p, dp, a_full, b_rows, n, k, out)
+        gmm_hvp_marg_mix_cuda.launches += 1
+    return out
+
+
 def reset_counters():
     """Set every launch and call count of this module to zero."""
-    for fn in (gmm_score_rows_cuda, gmm_unit_map_cuda, gmm_hvp_map_cuda):
+    for fn in (gmm_score_rows_cuda, gmm_unit_map_cuda, gmm_hvp_map_cuda,
+               gmm_unit_marg_cuda, gmm_hvp_marg_weights_cuda,
+               gmm_hvp_marg_mix_cuda):
         fn.launches = 0
-    for fn in (score_rows_plain, unit_map_plain, hvp_map_plain):
+    for fn in (score_rows_plain, unit_map_plain, hvp_map_plain,
+               unit_marg_plain, hvp_marg_weights_plain, hvp_marg_mix_plain):
         fn.calls = 0
 
 
@@ -227,6 +352,19 @@ def _hvp(t, argmax, bufs):
     if dispatch(t) == "kernel":
         return gmm_hvp_map_cuda(t, argmax, bufs)
     return hvp_map_plain(t, argmax, bufs)
+
+
+def _unit_marg(x, lse, bufs):
+    if dispatch(x) == "kernel":
+        return gmm_unit_marg_cuda(x, lse, bufs)
+    return unit_marg_plain(x, lse, bufs)
+
+
+def _hvp_marg(t, x, lse, bufs):
+    if dispatch(t) == "kernel":
+        p, dp = gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
+        return gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs)
+    return hvp_marg_plain(t, x, lse, bufs)
 
 
 class _HvpMap(torch.autograd.Function):
@@ -260,13 +398,49 @@ class _UnitMap(torch.autograd.Function):
         return _HvpMap.apply(t.contiguous(), argmax, ctx.bufs), None, None
 
 
+class _HvpMarg(torch.autograd.Function):
+    """Marginalise Hessian action along ``t`` at ``x``. Neither package
+    has its derivative (a third order of the score), so its backward
+    raises rather than let one come out as zero."""
+
+    @staticmethod
+    def forward(ctx, t, x, lse, bufs):
+        return _hvp_marg(t, x, lse, bufs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "the marginalised GMM score has no third derivative: the "
+            "marginalise Hessian action is not differentiable"
+        )
+
+
+class _UnitMarg(torch.autograd.Function):
+    """Marginalise unit gradient; its backward is the Hessian action (the
+    Hessian of a scalar is symmetric). No gradient reaches ``lse``: the
+    renormalised weights do not depend on it."""
+
+    @staticmethod
+    def forward(ctx, x, lse, bufs):
+        ctx.save_for_backward(x, lse)
+        ctx.bufs = bufs
+        return _unit_marg(x, lse, bufs)
+
+    @staticmethod
+    def backward(ctx, t):
+        x, lse = ctx.saved_tensors
+        return _HvpMarg.apply(t.contiguous(), x, lse, ctx.bufs), None, None
+
+
 class _PatchScore(torch.autograd.Function):
     """Scorer; its backward is ``dvalues * unit``, itself differentiable."""
 
     @staticmethod
     def forward(ctx, x, bufs, marginalize):
         values, argmax = _score(x, bufs, marginalize)
-        ctx.save_for_backward(x, argmax)
+        # the marginalise unit gradient takes the logsumexp (the values),
+        # the MAP one the argmax
+        ctx.save_for_backward(x, values if marginalize else argmax)
         ctx.bufs = bufs
         ctx.marginalize = marginalize
         ctx.mark_non_differentiable(argmax)
@@ -274,13 +448,11 @@ class _PatchScore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dvalues, _dargmax):
+        x, selector = ctx.saved_tensors
         if ctx.marginalize:
-            raise NotImplementedError(
-                "the marginalise gradient of the patch scorer is not "
-                "ported yet"
-            )
-        x, argmax = ctx.saved_tensors
-        unit = _UnitMap.apply(x, argmax, ctx.bufs)
+            unit = _UnitMarg.apply(x, selector.detach(), ctx.bufs)
+        else:
+            unit = _UnitMap.apply(x, selector, ctx.bufs)
         return dvalues[:, None] * unit, None, None
 
 
@@ -294,13 +466,11 @@ def gmm_score_patches(x, bufs, marginalize=False):
     bufs : dict
         From ``ops.gmm_fused.kernel_buffers`` on ``x``'s device.
     marginalize : bool
-        Logsumexp instead of max over the components (forward only: its
-        gradient is not ported yet).
+        Logsumexp instead of max over the components.
 
     Returns
     -------
     values : ``(N,)`` float32, differentiable twice with respect to ``x``
-        (MAP)
     argmax : ``(N,)`` int32
     """
     if dispatch(x) == "kernel" and x.shape[1] != D:

@@ -3,8 +3,9 @@
 The log-prior of a flux image is the overlap-weighted mean of its patch
 scores under a GMM: image norm, integer cycle spin, overlapping patches
 (8x8 for the shipped GMMs), zero-flux patch masking, per-patch mean
-subtraction, then the best component's log-probability per patch
-(MAP). Two branches compute it, as in the JAX package:
+subtraction, then the best component's log-probability per patch (MAP)
+or the logsumexp over the components (``marginalize=True``). Two
+branches compute it, as in the JAX package:
 
 - the fused branch (``ops.gmm_fused``): extraction, masking, mean
   subtraction and scoring in one pass, a CUDA kernel on the card and
@@ -18,8 +19,7 @@ subtraction, then the best component's log-probability per patch
   fused branch is not: the Hessian probe of the flux errors takes it.
 
 Not ported yet, and raising ``NotImplementedError`` on every device:
-``jitter``, ``patch_fraction < 1``, ``marginalize=True`` and
-``cycle_spin_subpix``.
+``jitter``, ``patch_fraction < 1`` and ``cycle_spin_subpix``.
 """
 
 from math import sqrt
@@ -53,10 +53,13 @@ class GMMPatchPrior(Prior):
         Random integer roll each evaluation.
     norm : image norm, optional
         Defaults to the identity.
+    marginalize : bool
+        Score each patch by the logsumexp over the components instead of
+        the best component.
     seed : int
         Seed of the prior's own generator (used when a call passes
         none).
-    cycle_spin_subpix, jitter, marginalize, patch_fraction :
+    cycle_spin_subpix, jitter, patch_fraction :
         Accepted for signature parity; anything but the defaults raises
         ``NotImplementedError`` until ported.
     """
@@ -68,7 +71,6 @@ class GMMPatchPrior(Prior):
         unported = {
             "cycle_spin_subpix": cycle_spin_subpix,
             "jitter": jitter,
-            "marginalize": marginalize,
             "patch_fraction < 1": patch_fraction < 1.0,
         }
         for name, requested in unported.items():
@@ -81,6 +83,7 @@ class GMMPatchPrior(Prior):
         self.gmm = gmm
         self.stride = int(gmm.meta.stride if stride is None else stride)
         self.cycle_spin = bool(cycle_spin)
+        self.marginalize = bool(marginalize)
         self.norm = norm if norm is not None else IdentityImageNorm()
         self.patch_norm = gmm.meta.patch_norm
 
@@ -133,6 +136,7 @@ class GMMPatchPrior(Prior):
             values, argmax, valid = gmm_score_fused_image(
                 normed, self.patch_shape, self.stride,
                 self.gmm.kernel_buffers(normed.device), ZERO_FLUX_SENTINEL,
+                marginalize=self.marginalize,
             )
             return values, argmax, valid, applied
 
@@ -147,7 +151,8 @@ class GMMPatchPrior(Prior):
         valid = torch.all(patches > ZERO_FLUX_SENTINEL, dim=1)
         patches = torch.where(valid[:, None], patches,
                               torch.zeros_like(patches))
-        values, argmax = self.gmm.score(self.patch_norm(patches))
+        values, argmax = self.gmm.score(self.patch_norm(patches),
+                                        marginalize=self.marginalize)
         return values, argmax, valid, applied
 
     def __call__(self, flux, params=None, generator=None, shifts=None):

@@ -95,14 +95,17 @@ class GaussianMixtureModel:
             self._buffers[key] = kernel_buffers(self.packed, device)
         return self._buffers[key]
 
-    def score(self, x):
-        """MAP scores of normalised patches ``(N, d)``: ``(values, argmax)``.
+    def score(self, x, marginalize=False):
+        """Scores of normalised patches ``(N, d)``: ``(values, argmax)``.
 
-        The patch-level scorer (``ops.gmm_pallas.gmm_score_patches``):
-        CUDA kernels for 8x8 patches on a card, the plain versions on
-        the CPU; twice differentiable.
+        ``values`` is the best component's log-probability (MAP) or the
+        logsumexp over the components (``marginalize``). The patch-level
+        scorer (``ops.gmm_pallas.gmm_score_patches``): CUDA kernels for
+        8x8 patches on a card, the plain versions on the CPU; twice
+        differentiable.
         """
-        return gmm_score_patches(x, self.kernel_buffers(x.device))
+        return gmm_score_patches(x, self.kernel_buffers(x.device),
+                                 marginalize=marginalize)
 
     @classmethod
     def from_numpy(cls, means, covariances, weights, meta=None):

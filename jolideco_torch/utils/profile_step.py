@@ -2,7 +2,9 @@
 
 Builds the port's main path (joint MAP deconvolution of 10 observations
 of 1024² counts with 33² PSFs under the ``astro-snr-v1`` GMM patch
-prior, stride 4, cycle spin), runs a few warm-up steps, then traces
+prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
+each patch by the logsumexp over its components), runs a few warm-up
+steps, then traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes
 (``TotalLoss.fluxes_error``, what ``compute_error=True`` runs once after
@@ -16,9 +18,10 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--out chiprun_out]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--out chiprun_out]
 
-The full tables and Chrome traces go to ``--out``.
+The full tables and Chrome traces go to ``--out``, their names tagged
+``marg`` under ``--marginalize``.
 """
 
 import argparse
@@ -30,7 +33,7 @@ from pathlib import Path
 import numpy as np
 
 
-def build(n_obs, size):
+def build(n_obs, size, marginalize=False):
     """``step()`` of the main path on the first card, and ``probe()``,
     the flux-error probe at the current parameters."""
     from .. import (
@@ -42,8 +45,9 @@ def build(n_obs, size):
     from .bench_data import make_datasets
 
     datasets = make_datasets(n_obs=n_obs, size=size, psf_size=33, seed=0)
-    prior = GMMPatchPrior(gmm=GaussianMixtureModel.from_registry(
-        "astro-snr-v1"), stride=4, cycle_spin=True)
+    prior = GMMPatchPrior(
+        gmm=GaussianMixtureModel.from_registry("astro-snr-v1"), stride=4,
+        cycle_spin=True, marginalize=marginalize)
     component = SpatialFluxComponent.from_numpy(
         np.ones((size, size), np.float32), prior=prior)
     deco = MAPDeconvolver(learning_rate=0.1, update_strategy="joint",
@@ -127,6 +131,7 @@ def main():
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--n-obs", type=int, default=10)
     parser.add_argument("--size", type=int, default=1024)
+    parser.add_argument("--marginalize", action="store_true")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -135,9 +140,10 @@ def main():
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
-    step, probe = build(args.n_obs, args.size)
-    profile_calls(torch, step, args.steps, out, "step")
-    profile_calls(torch, probe, args.steps, out, "probe")
+    step, probe = build(args.n_obs, args.size, args.marginalize)
+    suffix = "_marg" if args.marginalize else ""
+    profile_calls(torch, step, args.steps, out, "step" + suffix)
+    profile_calls(torch, probe, args.steps, out, "probe" + suffix)
     return 0
 
 

@@ -47,10 +47,11 @@ def make_image(shape, seed=7):
     return img
 
 
-def jax_scores(gmm_j, img):
+def jax_scores(gmm_j, img, marginalize=False):
     values, argmax, valid = gmm_score_fused_image(
         jnp.asarray(img), (8, 8), STRIDE, gmm_j.packed, ZERO_FLUX_SENTINEL,
         interpret=True, precision=lax.Precision.HIGHEST,
+        marginalize=marginalize,
     )
     h, w = img.shape
     hp, wp, _ = _padded_dims(h, w)

@@ -139,7 +139,8 @@ def test_plain_unit_and_hvp_are_the_derivatives_of_the_logit(rows):
 def test_third_order_and_marginalise_gradient(rows):
     """The Hessian action is linear in its tangent: its derivative along
     the tangent is the Hessian action again (float32; 1e-5 of max-abs).
-    The marginalise gradient is not ported and raises."""
+    The marginalise gradient runs through the marginalise unit gradient
+    (its plain version here), with the forward's logsumexp."""
     bufs = TGMM.from_registry("builtin-8x8-v1").kernel_buffers("cpu")
     rs = np.random.RandomState(7)
     x = torch.as_tensor(rows[:64]).requires_grad_(True)
@@ -154,9 +155,13 @@ def test_third_order_and_marginalise_gradient(rows):
     assert_allclose(third.numpy(), want.numpy(), rtol=0,
                     atol=1e-5 * float(want.abs().max()))
 
+    tp.reset_counters()
     values, _ = tp.gmm_score_patches(x, bufs, marginalize=True)
-    with pytest.raises(NotImplementedError):
-        values.sum().backward()
+    values.sum().backward()
+    assert tp.unit_marg_plain.calls == 1
+    want = tp.unit_marg_plain(x.detach(), values.detach(), bufs)
+    assert_allclose(x.grad.numpy(), want.numpy(), rtol=0,
+                    atol=1e-6 * float(want.abs().max()))
 
 
 def test_empty_rows_and_cuda_wrappers_refuse_cpu_tensors():
@@ -165,8 +170,12 @@ def test_empty_rows_and_cuda_wrappers_refuse_cpu_tensors():
     assert values.shape == (0,) and argmax.shape == (0,)
     x = torch.zeros((4, 64))
     argmax = torch.zeros(4, dtype=torch.int32)
+    lse, p = torch.zeros(4), torch.zeros((bufs["rec"].shape[0], 4))
     for call in (lambda: tp.gmm_score_rows_cuda(x, bufs),
                  lambda: tp.gmm_unit_map_cuda(x, argmax, bufs),
-                 lambda: tp.gmm_hvp_map_cuda(x, argmax, bufs)):
+                 lambda: tp.gmm_hvp_map_cuda(x, argmax, bufs),
+                 lambda: tp.gmm_unit_marg_cuda(x, lse, bufs),
+                 lambda: tp.gmm_hvp_marg_weights_cuda(x, x, lse, bufs),
+                 lambda: tp.gmm_hvp_marg_mix_cuda(x, x, p, p, bufs)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()

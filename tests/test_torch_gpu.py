@@ -9,7 +9,13 @@ Tolerances: ``valid`` and the normalised patches exact to 1e-5; values
 to rtol 1e-5 (float32 sums in different orders); argmax identical; the
 image gradient, the unit gradient and the Hessian action to 1e-4 of
 their max-abs; the flux errors of the Hessian probe, card against CPU,
-to rtol 1e-4 (float32 FFTs and sums in other orders).
+to rtol 1e-4 (float32 FFTs and sums in other orders). The marginalise
+kernels (K4, K8, K9) are held against their plain versions run in
+float64 on the same inputs: at most twice the float32 plain version's
+max-abs error plus 1e-6 of the result's max-abs (softmax weights of
+logits of order 1e5 to 1e8 are ill-conditioned in float32); they run on
+the ``astro-snr-v1`` GMM, whose weights are nearly one-hot, and on a
+random SPD GMM, whose weights are not.
 """
 
 import numpy as np
@@ -163,6 +169,133 @@ def test_probe_on_card_matches_cpu(device, gmm):
                         gp.gmm_hvp_map_cuda.launches)
             assert launches == (1, 1, 1)
             assert gf.gmm_fused_fwd_cuda.launches == 0
+    err_cpu, err_gpu = errors.values()
+    assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
+    torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)
+
+
+def anchored(got, plain32, plain64):
+    err = float((got.double() - plain64).abs().max())
+    err32 = float((plain32.double() - plain64).abs().max())
+    assert err <= 2.0 * err32 + 1e-6 * float(plain64.abs().max()), (err, err32)
+
+
+@pytest.fixture(scope="module", params=["astro-snr-v1", "random-spd"])
+def marg_gmm(request):
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    if request.param == "random-spd":
+        rs = np.random.RandomState(1)
+        a = rs.randn(13, 64, 64) / 8.0
+        covariances = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(64)
+        return gmm_from_arrays(rs.rand(13, 64), covariances,
+                               rs.dirichlet(np.ones(13)), None)
+    return GaussianMixtureModel.from_registry(request.param)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4097])
+def test_marginalise_patch_kernels_match_float64(device, marg_gmm, n):
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    bufs = marg_gmm.kernel_buffers(device)
+    b64 = {k: v.double() for k, v in bufs.items()}
+    x = torch.as_tensor(make_rows(n), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    lse, _ = gp.score_rows_plain(x, bufs, True)
+    x64, t64, lse64 = x.double(), t.double(), lse.double()
+    anchored(gp.gmm_unit_marg_cuda(x, lse, bufs),
+             gp.unit_marg_plain(x, lse, bufs),
+             gp.unit_marg_plain(x64, lse64, b64))
+    pk, dpk = gp.gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
+    p32, dp32 = gp.hvp_marg_weights_plain(x, t, lse, bufs)
+    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+    anchored(pk, p32, p64)
+    anchored(dpk, dp32, dp64)
+    anchored(gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
+             gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
+             gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(37, 203), (64, 256)])
+def test_marginalise_fused_kernels_match_plain(device, marg_gmm, shape):
+    from jolideco_torch.ops import gmm_fused as gf
+
+    bufs = marg_gmm.kernel_buffers(device)
+    b64 = {k: v.double() for k, v in bufs.items()}
+    image = torch.as_tensor(make_image(shape), device=device)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_marg_cuda(image, bufs, 4, SENTINEL)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, 4, SENTINEL, True)
+    torch.cuda.synchronize()
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vk[m], vp[m], rtol=1e-5, atol=0)
+    assert torch.equal(ak[m], ap[m])
+
+    dv = torch.randn(vp.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    args = (xp, vp, valp, dv * valp)
+    anchored(gf.gmm_fused_bwd_marg_cuda(*args, bufs, shape, 4),
+             gf.fused_backward_marg_plain(*args, bufs, shape, 4),
+             gf.fused_backward_marg_plain(*(a.double() for a in args), b64,
+                                          shape, 4))
+
+
+def test_marginalised_prior_on_card_matches_cpu(device, gmm):
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GMMPatchPrior
+
+    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=True,
+                          marginalize=True)
+    flux = np.random.RandomState(1).uniform(0.1, 2.0, (1, 1, 96, 160))
+    results = {}
+    gf.reset_counters()
+    for dev in ("cpu", device):
+        x = torch.as_tensor(flux.astype(np.float32), device=dev)
+        x.requires_grad_(True)
+        value = prior(x, shifts=(1, -2))
+        value.backward()
+        results[str(dev)] = (value.item(), x.grad.cpu())
+    assert (gf.gmm_fused_fwd_marg_cuda.launches,
+            gf.gmm_fused_bwd_marg_cuda.launches) == (1, 1)
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
+    np.testing.assert_allclose(v_gpu, v_cpu, rtol=1e-5)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
+                               atol=1e-4 * float(g_cpu.abs().max()))
+
+
+def test_marginalised_probe_on_card_matches_cpu(device, gmm):
+    """The marginalised prior's ``fluxes_error`` at 64², card against
+    CPU, with K5, K8, K9a and K9b launched once each."""
+    from jolideco_torch import FluxComponents, GMMPatchPrior, MAPDeconvolver
+    from jolideco_torch import SpatialFluxComponent
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    datasets = make_datasets(n_obs=2, size=64, psf_size=9, seed=3)
+    flux = np.random.RandomState(4).uniform(0.5, 2.0, (64, 64))
+    errors = {}
+    for dev in ("cpu", device):
+        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+            flux, prior=GMMPatchPrior(gmm=gmm, stride=4, marginalize=True))})
+        deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
+                              device=dev, conv_mode="fft")
+        total = deco.build_loss(datasets, comps, torch.device(dev))
+        for comp in comps.values():
+            comp.to(dev)
+        gp.reset_counters()
+        out = total.fluxes_error(comps.fluxes_from(),
+                                 shifts={"flux": (1, -2)})
+        errors[str(dev)] = out["flux"].cpu()
+        if dev != "cpu":
+            launches = (gp.gmm_score_rows_cuda.launches,
+                        gp.gmm_unit_marg_cuda.launches,
+                        gp.gmm_hvp_marg_weights_cuda.launches,
+                        gp.gmm_hvp_marg_mix_cuda.launches)
+            assert launches == (1, 1, 1, 1)
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

@@ -150,14 +150,19 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
     bufs = gmm.kernel_buffers("cpu")
     image = torch.ones((16, 128))
-    with pytest.raises(ValueError):
-        gf.gmm_fused_fwd_cuda(image, bufs, 4, -1e5)
+    for launch in (gf.gmm_fused_fwd_cuda, gf.gmm_fused_fwd_marg_cuda):
+        with pytest.raises(ValueError):
+            launch(image, bufs, 4, -1e5)
     n = gf.fused_patch_count(image.shape, 4)
     with pytest.raises(ValueError):
         gf.gmm_fused_bwd_cuda(torch.zeros((n, 64)),
                               torch.zeros(n, dtype=torch.int32),
                               torch.zeros(n), torch.zeros(n), bufs,
                               image.shape, 4)
+    with pytest.raises(ValueError):
+        gf.gmm_fused_bwd_marg_cuda(torch.zeros((n, 64)), torch.zeros(n),
+                                   torch.zeros(n), torch.zeros(n), bufs,
+                                   image.shape, 4)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

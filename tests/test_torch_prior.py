@@ -92,7 +92,7 @@ def test_generator_draws_are_reproducible():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"jitter": True}, {"marginalize": True}, {"patch_fraction": 0.25},
+    {"jitter": True}, {"patch_fraction": 0.25},
     {"cycle_spin_subpix": True},
 ])
 def test_unported_options_raise(kwargs):
