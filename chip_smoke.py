@@ -42,9 +42,13 @@ K9b) against their plain versions. Their softmax weights of logits of
 order 1e5 to 1e8 are ill-conditioned in float32, so K4, K8 and K9 are
 held against the plain version run in float64 on the same inputs: the
 kernel's max-abs error must be at most twice the float32 plain
-version's, plus 1e-6 of the result's max-abs.
+version's, plus 1e-6 of the result's max-abs. Under ``astro-snr-v1``
+the weights are one-hot (dp is then exactly zero), so the same checks
+run once more on the 1024² image and its rows under a random SPD GMM
+with K = 200 whose weights are mixed; the run fails unless they are.
 
-It then prints a JSON line with each kernel's numbers and, last, the
+It then prints a JSON line with the mixed case's errors, times and
+bounds, a JSON line with each kernel's numbers and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -350,154 +354,237 @@ def anchored(label, name, got, plain32, plain64):
 
 
 def support(torch, x, lse, bufs):
-    """Row-component pairs with a nonzero softmax weight (float32 plain):
-    the pairs whose A_k x terms the marginalise kernels compute."""
+    """Row-component pairs with a nonzero softmax weight (float32 plain),
+    the pairs whose A_k x terms the marginalise kernels compute, and the
+    number of components that have one."""
     from jolideco_torch.ops.gmm_fused import softmax_chunks
 
-    return sum(int((p > 0).sum()) for _, p in softmax_chunks(x, lse, bufs))
+    nnz, hit = 0, torch.zeros(bufs["rec"].shape[0], dtype=torch.bool,
+                              device=x.device)
+    for _, p in softmax_chunks(x, lse, bufs):
+        nnz += int((p > 0).sum())
+        hit |= (p > 0).any(dim=0)
+    return nnz, int(hit.sum())
 
 
-def phase_marg_kernels(torch, device, bufs, cases):
-    """K1 (logsumexp), K4, K8, K9a and K9b against their plain versions:
-    K1's values rtol 1e-5, argmax flips at most 1e-4 of the valid
-    patches, patches to 1e-5; K4, K8 and K9 against float64 (anchored)."""
+def mixed_gmm():
+    """A random SPD GMM with the main path's K = 200 whose softmax weights
+    of the phase's images are mixed: about 200 nonzero weights per patch
+    and row (the largest near 0.3), where ``astro-snr-v1``'s are one-hot.
+    With it the marginalise kernels mix components for real."""
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    k = 200
+    rs = np.random.RandomState(1)
+    a = rs.randn(k, 64, 64) / 8.0
+    covariances = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(64)
+    return gmm_from_arrays(rs.rand(k, 64), covariances,
+                           rs.dirichlet(np.ones(k)), None)
+
+
+def marg_checks(torch, device, label, img, bufs):
+    """K1 (logsumexp), K5 (logsumexp), K4, K8, K9a and K9b against their
+    plain versions on one image and its rows: K1's and K5's values rtol
+    1e-5, argmax flips at most 1e-4 of the valid patches, patches to
+    1e-5; K4, K8 and K9 against float64 (anchored). Returns the errors
+    and the inputs, for timing."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     b64 = {name: t.double() for name, t in bufs.items()}
     stride, sentinel = 4, ZERO_FLUX_SENTINEL
+    image = torch.as_tensor(img, device=device)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_marg_cuda(image, bufs, stride,
+                                                  sentinel)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride, sentinel,
+                                               True)
+    torch.cuda.synchronize()
+    check(torch.equal(valk, valp), f"{label}: K1 logsumexp valid differs")
+    m = valp > 0.5
+    value_err = (vk - vp).abs()[m]
+    rel = float((value_err / vp.abs()[m]).max())
+    check(rel <= 1e-5, f"{label}: K1 logsumexp values beyond rtol 1e-5 "
+          f"({rel:.3g})")
+    n_valid = int(m.sum())
+    flips = int((ak != ap)[m].sum())
+    check(flips <= 1e-4 * n_valid,
+          f"{label}: K1 logsumexp argmax flips {flips} of {n_valid}")
+    xtn_err = float((xk - xp).abs().max())
+    check(xtn_err <= 1e-5, f"{label}: K1 logsumexp patches differ by "
+          f"{xtn_err:.3g}")
+    errs = {"fwd": (float(value_err.max()), rel, flips, n_valid)}
+
+    # K4 on the plain forward's outputs, random cotangents
+    gen = torch.Generator(device=device).manual_seed(3)
+    dv = torch.randn(vp.shape, generator=gen, device=device) * valp
+    args = (xp, vp, valp, dv)
+    gk = gf.gmm_fused_bwd_marg_cuda(*args, bufs, img.shape, stride)
+    g32 = gf.fused_backward_marg_plain(*args, bufs, img.shape, stride)
+    g64 = gf.fused_backward_marg_plain(*(a.double() for a in args), b64,
+                                       img.shape, stride)
+    torch.cuda.synchronize()
+    errs["bwd"] = anchored(label, "K4", gk, g32, g64)
+
+    # K5 (logsumexp), K8, K9a, K9b on the rows of the image, random
+    # tangents
+    x = normalised_rows(torch, image, sentinel)
+    n = x.shape[0]
+    lse_k, _ = gp.gmm_score_rows_cuda(x, bufs, True)
+    lse, _ = gp.score_rows_plain(x, bufs, True)
+    torch.cuda.synchronize()
+    rel_rows = float(((lse_k - lse).abs() / lse.abs()).max())
+    check(rel_rows <= 1e-5, f"{label}: K5 logsumexp values beyond rtol 1e-5 "
+          f"({rel_rows:.3g})")
+    t = torch.randn(x.shape, generator=gen, device=device)
+    x64, t64, lse64 = x.double(), t.double(), lse.double()
+    uk = gp.gmm_unit_marg_cuda(x, lse, bufs)
+    errs["unit"] = anchored(label, "K8", uk,
+                            gp.unit_marg_plain(x, lse, bufs),
+                            gp.unit_marg_plain(x64, lse64, b64))
+    pk, dpk = gp.gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
+    p32, dp32 = gp.hvp_marg_weights_plain(x, t, lse, bufs)
+    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+    errs["weights_p"] = anchored(label, "K9a p", pk, p32, p64)
+    errs["weights_dp"] = anchored(label, "K9a dp", dpk, dp32, dp64)
+    # K9b on the float32 plain weights, against their float64 mixture
+    hk = gp.gmm_hvp_marg_mix_cuda(x, t, p32, dp32, bufs)
+    errs["mix"] = anchored(
+        label, "K9b", hk, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
+        gp.hvp_marg_mix_plain(x64, t64, p32.double(), dp32.double(), b64))
+    # K9 as the probe runs it: both kernels, against float64
+    h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
+    errs["hvp"] = anchored(
+        label, "K9", gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
+        gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs), h64)
+    print(f"phase 2 marginalise kernels {label}: K1 logsumexp values max "
+          f"rel err {rel:.3g}, argmax flips {flips}/{n_valid}; K5 logsumexp "
+          f"{rel_rows:.3g}; against float64 (kernel, plain float32, max): "
+          + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
+                      for name, e in errs.items() if name != "fwd"))
+    nnz_fused, used_fused = support(torch, xp[m], vp[m], bufs)
+    nnz_rows, used_rows = support(torch, x, lse, bufs)
+    inputs = {
+        "image": image, "args": args, "x": x, "t": t, "lse": lse,
+        "pk": pk, "dpk": dpk, "n_valid": n_valid,
+        "nnz_fused": nnz_fused, "nnz_rows": nnz_rows,
+        "nnz_mix": int(((p32 != 0) | (dp32 != 0)).sum()),
+        "used": max(used_fused, used_rows),
+        "max_dp": float(dp64.abs().max()),
+        "median_p_max": float(p64.max(dim=0).values.median()),
+    }
+    return errs, inputs
+
+
+def marg_timing(torch, bufs, img, s, plain=True):
+    """Milliseconds per call of the marginalise kernels (and of their
+    plain versions) on a case's inputs, and each kernel's bound.
+
+    Operations: every (row, component) logit over the symmetric triangle
+    (2,080 + 64 multiply-adds), and, only for the pairs with a nonzero
+    weight (the kernels skip the rest, exactly), A_k x or A_k t (4,096)
+    and their dot products with b_k or t (64). Bytes: each input read
+    once, each output written once, and of the A_k only those that some
+    weight selects."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    stride, sentinel = 4, ZERO_FLUX_SENTINEL
+    image, args, x, t, lse = s["image"], s["args"], s["x"], s["t"], s["lse"]
+    pk, dpk = s["pk"], s["dpk"]
+    calls = {
+        "fwd": (lambda: gf.gmm_fused_fwd_marg_cuda(image, bufs, stride,
+                                                   sentinel),
+                lambda: gf.fused_forward_plain(image, bufs, stride, sentinel,
+                                               True)),
+        "bwd": (lambda: gf.gmm_fused_bwd_marg_cuda(*args, bufs, img.shape,
+                                                   stride),
+                lambda: gf.fused_backward_marg_plain(*args, bufs, img.shape,
+                                                     stride)),
+        "unit": (lambda: gp.gmm_unit_marg_cuda(x, lse, bufs),
+                 lambda: gp.unit_marg_plain(x, lse, bufs)),
+        "weights": (lambda: gp.gmm_hvp_marg_weights_cuda(x, t, lse, bufs),
+                    lambda: gp.hvp_marg_weights_plain(x, t, lse, bufs)),
+        "mix": (lambda: gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
+                lambda: gp.hvp_marg_mix_plain(x, t, pk, dpk, bufs)),
+    }
+    timing = {}
+    for name, (kernel, plain_fn) in calls.items():
+        timing[name + "_ms"] = cuda_ms(torch, kernel, 10)
+        if plain:
+            timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
+    k = bufs["rec"].shape[0]
+    n, n_valid, n_patches = x.shape[0], s["n_valid"], args[0].shape[0]
+    logit_flop = 2.0 * (2080 + 64) * k
+    rec_bytes = 4 * bufs["rec"].numel()
+    a_bytes = 4 * s["used"] * 64 * 64
+    bounds = {
+        "fwd": bound(logit_flop * n_patches,
+                     4 * (img.size + n_patches * (3 + 64)) + rec_bytes),
+        "bwd": bound(logit_flop * n_valid
+                     + 2.0 * (4096 + 64) * s["nnz_fused"],
+                     4 * (n_valid * 64 + 3 * n_patches + img.size)
+                     + rec_bytes + a_bytes),
+        "unit": bound(logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
+                      4 * (2 * n * 64 + n) + rec_bytes + a_bytes),
+        "weights": bound(logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
+                         4 * (2 * n * 64 + n + 2 * k * n) + rec_bytes
+                         + a_bytes),
+        "mix": bound(2.0 * (4096 + 3 * 64) * s["nnz_mix"],
+                     4 * (3 * n * 64 + 2 * k * n) + a_bytes),
+    }
+    return timing, bounds
+
+
+def phase_marg_kernels(torch, device, bufs, cases):
+    """The marginalise kernels against their plain versions on the
+    phase's images under ``astro-snr-v1``, whose weights are one-hot, and
+    on the 1024² image under :func:`mixed_gmm`, whose weights are not."""
     k = bufs["rec"].shape[0]
     out = {}
     for label, img in cases.items():
-        image = torch.as_tensor(img, device=device)
-        vk, ak, valk, xk = gf.gmm_fused_fwd_marg_cuda(image, bufs, stride,
-                                                      sentinel)
-        vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride,
-                                                   sentinel, True)
-        torch.cuda.synchronize()
-        check(torch.equal(valk, valp), f"{label}: K1 logsumexp valid differs")
-        m = valp > 0.5
-        value_err = (vk - vp).abs()[m]
-        rel = float((value_err / vp.abs()[m]).max())
-        check(rel <= 1e-5, f"{label}: K1 logsumexp values beyond rtol 1e-5 "
-              f"({rel:.3g})")
-        n_valid = int(m.sum())
-        flips = int((ak != ap)[m].sum())
-        check(flips <= 1e-4 * n_valid,
-              f"{label}: K1 logsumexp argmax flips {flips} of {n_valid}")
-        xtn_err = float((xk - xp).abs().max())
-        check(xtn_err <= 1e-5, f"{label}: K1 logsumexp patches differ by "
-              f"{xtn_err:.3g}")
-        errs = {"fwd": (float(value_err.max()), rel, flips, n_valid)}
-
-        # K4 on the plain forward's outputs, random cotangents
-        gen = torch.Generator(device=device).manual_seed(3)
-        dv = torch.randn(vp.shape, generator=gen, device=device) * valp
-        args = (xp, vp, valp, dv)
-        gk = gf.gmm_fused_bwd_marg_cuda(*args, bufs, img.shape, stride)
-        g32 = gf.fused_backward_marg_plain(*args, bufs, img.shape, stride)
-        g64 = gf.fused_backward_marg_plain(*(a.double() for a in args), b64,
-                                           img.shape, stride)
-        torch.cuda.synchronize()
-        errs["bwd"] = anchored(label, "K4", gk, g32, g64)
-
-        # K8, K9a, K9b on the rows of the image, random tangents
-        x = normalised_rows(torch, image, sentinel)
-        n = x.shape[0]
-        lse, _ = gp.score_rows_plain(x, bufs, True)
-        t = torch.randn(x.shape, generator=gen, device=device)
-        x64, t64, lse64 = x.double(), t.double(), lse.double()
-        uk = gp.gmm_unit_marg_cuda(x, lse, bufs)
-        errs["unit"] = anchored(label, "K8", uk,
-                                gp.unit_marg_plain(x, lse, bufs),
-                                gp.unit_marg_plain(x64, lse64, b64))
-        pk, dpk = gp.gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
-        p32, dp32 = gp.hvp_marg_weights_plain(x, t, lse, bufs)
-        p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
-        errs["weights_p"] = anchored(label, "K9a p", pk, p32, p64)
-        errs["weights_dp"] = anchored(label, "K9a dp", dpk, dp32, dp64)
-        # K9b on the float32 plain weights, against their float64 mixture
-        hk = gp.gmm_hvp_marg_mix_cuda(x, t, p32, dp32, bufs)
-        errs["mix"] = anchored(
-            label, "K9b", hk, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
-            gp.hvp_marg_mix_plain(x64, t64, p32.double(), dp32.double(), b64))
-        # K9 as the probe runs it: both kernels, against float64
-        h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
-        errs["hvp"] = anchored(
-            label, "K9", gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
-            gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs), h64)
-        out[label] = errs
-        print(f"phase 2 marginalise kernels {label}: K1 logsumexp values max "
-              f"rel err {rel:.3g}, argmax flips {flips}/{n_valid}; against "
-              f"float64 (kernel, plain float32, max): " + "; ".join(
-                  f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
-                  for name, e in errs.items() if name != "fwd"))
+        out[label], s = marg_checks(torch, device, label, img, bufs)
         if label != MAIN:
             continue
-
-        xtn_valid = xp[m]
-        nnz_fused = support(torch, xtn_valid, vp[m], bufs)
-        nnz_rows = support(torch, x, lse, bufs)
-        nnz_mix = int(((p32 != 0) | (dp32 != 0)).sum())
-        used = int(torch.unique(ap[m]).numel())
-        out["timing"] = {
-            "fwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_fwd_marg_cuda(
-                image, bufs, stride, sentinel), 10),
-            "fwd_plain_ms": cuda_ms(torch, lambda: gf.fused_forward_plain(
-                image, bufs, stride, sentinel, True), 3),
-            "bwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_marg_cuda(
-                *args, bufs, img.shape, stride), 10),
-            "bwd_plain_ms": cuda_ms(torch, lambda: gf.fused_backward_marg_plain(
-                *args, bufs, img.shape, stride), 3),
-            "unit_ms": cuda_ms(torch, lambda: gp.gmm_unit_marg_cuda(
-                x, lse, bufs), 10),
-            "unit_plain_ms": cuda_ms(torch, lambda: gp.unit_marg_plain(
-                x, lse, bufs), 3),
-            "weights_ms": cuda_ms(torch, lambda: gp.gmm_hvp_marg_weights_cuda(
-                x, t, lse, bufs), 10),
-            "weights_plain_ms": cuda_ms(
-                torch, lambda: gp.hvp_marg_weights_plain(x, t, lse, bufs), 3),
-            "mix_ms": cuda_ms(torch, lambda: gp.gmm_hvp_marg_mix_cuda(
-                x, t, pk, dpk, bufs), 10),
-            "mix_plain_ms": cuda_ms(torch, lambda: gp.hvp_marg_mix_plain(
-                x, t, pk, dpk, bufs), 3),
-        }
-        # Operations: every (row, component) logit over the symmetric
-        # triangle (2,080 + 64 multiply-adds), and, only for the pairs
-        # with a nonzero weight (the kernels skip the rest, exactly),
-        # A_k x or A_k t (4,096) and their dot products with b_k or t
-        # (64). Bytes: each input read once, each output written once,
-        # and of the A_k only those that some weight selects.
-        logit_flop = 2.0 * (2080 + 64) * k
-        rec_bytes = 4 * bufs["rec"].numel()
-        a_bytes = 4 * used * 64 * 64
-        n_img = img.size
-        out["bounds"] = {
-            "fwd": bound(logit_flop * vp.numel(),
-                         4 * (n_img + vp.numel() * (3 + 64)) + rec_bytes),
-            "bwd": bound(logit_flop * n_valid
-                         + 2.0 * (4096 + 64) * nnz_fused,
-                         4 * (n_valid * 64 + 3 * vp.numel() + n_img)
-                         + rec_bytes + a_bytes),
-            "unit": bound(logit_flop * n + 2.0 * (4096 + 64) * nnz_rows,
-                          4 * (2 * n * 64 + n) + rec_bytes + a_bytes),
-            "weights": bound(logit_flop * n + 2.0 * (4096 + 64) * nnz_rows,
-                             4 * (2 * n * 64 + n + 2 * k * n) + rec_bytes
-                             + a_bytes),
-            "mix": bound(2.0 * (4096 + 3 * 64) * nnz_mix,
-                         4 * (3 * n * 64 + 2 * k * n) + a_bytes),
-        }
-        out["support"] = {"fused": nnz_fused, "rows": nnz_rows,
-                          "mix": nnz_mix, "n_valid": n_valid, "n_rows": n}
+        out["timing"], out["bounds"] = marg_timing(torch, bufs, img, s)
+        out["support"] = {"fused": s["nnz_fused"], "rows": s["nnz_rows"],
+                          "mix": s["nnz_mix"], "n_valid": s["n_valid"],
+                          "n_rows": s["x"].shape[0]}
         tm = out["timing"]
         print(f"phase 2 timing marginalise kernels {MAIN} K={k}: "
               + "; ".join(f"{name} {tm[name + '_ms']:.3f} ms (plain "
                           f"{tm[name + '_plain_ms']:.3f})"
                           for name in ("fwd", "bwd", "unit", "weights",
                                        "mix"))
-              + f"; nonzero weights: {nnz_fused} of {n_valid} x {k} "
-              f"patches, {nnz_rows} of {n} x {k} rows")
+              + f"; nonzero weights: {s['nnz_fused']} of {s['n_valid']} x "
+              f"{k} patches, {s['nnz_rows']} of {s['x'].shape[0]} x {k} rows")
+
+    # the same checks where the weights are mixed: there the A_k x terms
+    # of many components meet in each row, and dp is not zero
+    label = f"{MAIN} mixed"
+    mbufs = mixed_gmm().kernel_buffers(device)
+    errs, s = marg_checks(torch, device, label, cases[MAIN], mbufs)
+    n = s["x"].shape[0]
+    check(s["nnz_fused"] >= 10 * s["n_valid"] and s["nnz_rows"] >= 10 * n,
+          f"{label}: weights not mixed ({s['nnz_fused']} nonzero of "
+          f"{s['n_valid']} patches, {s['nnz_rows']} of {n} rows)")
+    check(s["max_dp"] > 0.0, f"{label}: every dp is zero")
+    timing, bounds = marg_timing(torch, mbufs, cases[MAIN], s, plain=False)
+    out["mixed"] = {"errors": errs, "timing": timing, "bounds": bounds,
+                    "support": {"fused": s["nnz_fused"],
+                                "rows": s["nnz_rows"], "mix": s["nnz_mix"],
+                                "n_valid": s["n_valid"], "n_rows": n},
+                    "max_dp": s["max_dp"],
+                    "median_p_max": s["median_p_max"]}
+    print(f"phase 2 timing marginalise kernels {label} K="
+          f"{mbufs['rec'].shape[0]}: "
+          + "; ".join(f"{name} {timing[name + '_ms']:.3f} ms (bound "
+                      f"{bounds[name]['bound_ms']:.3f})" for name in bounds)
+          + f"; nonzero weights: {s['nnz_fused']} of {s['n_valid']} x "
+          f"{mbufs['rec'].shape[0]} patches, {s['nnz_rows']} of {n} rows; "
+          f"median largest weight {s['median_p_max']:.3g}; max |dp| "
+          f"{s['max_dp']:.3g}")
     return out
 
 
@@ -844,6 +931,32 @@ def main():
          marg_probe, mrows["mix"][0], mtiming["mix_ms"],
          mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
+    # the marginalise kernels where the weights are mixed (phase 2):
+    # errors against float64 beside the float32 plain version's, times
+    # and bounds at the 1024² image and its rows under mixed_gmm()
+    mixed = marg["mixed"]
+    print(json.dumps({"mixed_weights": {
+        "support": mixed["support"], "max_abs_dp": mixed["max_dp"],
+        "median_largest_weight": mixed["median_p_max"],
+        "kernels": [
+            {"name": name, "max_abs_err": mixed["errors"][key][0],
+             "float32_plain_err": mixed["errors"][key][1],
+             "max_abs": mixed["errors"][key][2],
+             "ms": mixed["timing"][step + "_ms"], **mixed["bounds"][step]}
+            for name, key, step in (
+                ("gmm_fused_bwd_marg", "bwd", "bwd"),
+                ("gmm_unit_marg", "unit", "unit"),
+                ("gmm_hvp_marg_weights", "weights_dp", "weights"),
+                ("gmm_hvp_marg_mix", "mix", "mix"),
+            )
+        ],
+        "gmm_hvp_marg_weights_p": mixed["errors"]["weights_p"],
+        "hvp_both_stages": mixed["errors"]["hvp"],
+        "gmm_fused_fwd_marg": {
+            "max_rel_err": mixed["errors"]["fwd"][1],
+            "argmax_flips": mixed["errors"]["fwd"][2],
+            "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
+    }}))
     # no single PyTorch call computes any of these functions (each needs
     # a gather of per-row components, or a max or softmax over quadratic
     # forms), so there is no library yardstick: library_ms is null.

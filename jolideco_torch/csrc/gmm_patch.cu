@@ -304,6 +304,13 @@ gmm_hvp_marg_weights_kernel(const float* __restrict__ rows,
 }
 
 // Stage 2: H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)].
+// Each component's y = A_k (p_k t + dp_k x) is summed afresh in registers
+// and dp_k b_k - y is then added to the row's running sum, which lives in
+// shared memory, one column of 64 floats per thread (conflict-free: a
+// warp's 32 threads touch 32 consecutive words). Every float32 sum is
+// then a chain of 64 terms per component and one of K over components;
+// one running sum in registers would be a chain of 64 K terms, several
+// times less exact when the weights are mixed.
 __global__ void __launch_bounds__(kMargThreads)
 gmm_hvp_marg_mix_kernel(const float* __restrict__ rows,
                         const float* __restrict__ tangents,
@@ -311,14 +318,16 @@ gmm_hvp_marg_mix_kernel(const float* __restrict__ rows,
                         const float* __restrict__ a_full,
                         const float* __restrict__ b_rows, int n_total, int K,
                         float* __restrict__ out) {
+  __shared__ float acc[kD][kMargThreads];
+
   // no early return: every lane of a warp takes part in the vote below
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = n < n_total;
-  float x[kD], t[kD], acc[kD];
+  float x[kD], t[kD], y[kD];
   load_row(rows, n, n_total, x);
   load_row(tangents, n, n_total, t);
 #pragma unroll
-  for (int c = 0; c < kD; ++c) acc[c] = 0.f;
+  for (int r = 0; r < kD; ++r) acc[r][threadIdx.x] = 0.f;
 
   for (int k = 0; k < K; ++k) {
     const size_t i = (size_t)k * n_total + n;
@@ -328,26 +337,30 @@ gmm_hvp_marg_mix_kernel(const float* __restrict__ rows,
     const float4* A = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
     const float* bk = b_rows + (size_t)k * kD;
 #pragma unroll
+    for (int r = 0; r < kD; ++r) y[r] = 0.f;
+#pragma unroll
     for (int c = 0; c < kD; ++c) {
       const float v = fmaf(dpk, x[c], pk * t[c]);
 #pragma unroll
       for (int r = 0; r < kD; r += 4) {
         const float4 a = __ldg(A + c * (kD / 4) + r / 4);
-        acc[r] = fmaf(-a.x, v, acc[r]);
-        acc[r + 1] = fmaf(-a.y, v, acc[r + 1]);
-        acc[r + 2] = fmaf(-a.z, v, acc[r + 2]);
-        acc[r + 3] = fmaf(-a.w, v, acc[r + 3]);
+        y[r] = fmaf(a.x, v, y[r]);
+        y[r + 1] = fmaf(a.y, v, y[r + 1]);
+        y[r + 2] = fmaf(a.z, v, y[r + 2]);
+        y[r + 3] = fmaf(a.w, v, y[r + 3]);
       }
     }
 #pragma unroll
-    for (int r = 0; r < kD; ++r) acc[r] = fmaf(dpk, __ldg(bk + r), acc[r]);
+    for (int r = 0; r < kD; ++r)
+      acc[r][threadIdx.x] += fmaf(dpk, __ldg(bk + r), -y[r]);
   }
 
   if (!live) return;
   float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
 #pragma unroll
   for (int c = 0; c < kD; c += 4)
-    dst[c / 4] = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+    dst[c / 4] = make_float4(acc[c][threadIdx.x], acc[c + 1][threadIdx.x],
+                             acc[c + 2][threadIdx.x], acc[c + 3][threadIdx.x]);
 }
 
 int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }

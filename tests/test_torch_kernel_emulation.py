@@ -108,14 +108,19 @@ def emulated(tmp_path_factory):
     return libs.__getitem__
 
 
-@pytest.fixture(params=["astro-snr-v1", "random-spd"])
+@pytest.fixture(params=["astro-snr-v1", "random-spd", "random-spd-200"])
 def bufs(request):
-    if request.param == "random-spd":
+    """The shipped GMM, whose softmax weights are one-hot, and random SPD
+    GMMs whose weights are mixed: K = 13, and K = 200 as in the main path
+    (``chip_smoke.py``'s mixed case; there a Hessian action that summed
+    all 200 components' terms in one float32 chain missed the bar)."""
+    if request.param.startswith("random-spd"):
+        k = 200 if request.param.endswith("200") else 13
         rs = np.random.RandomState(1)
-        a = rs.randn(13, 64, 64) / 8.0
-        gmm = gmm_from_arrays(rs.rand(13, 64),
+        a = rs.randn(k, 64, 64) / 8.0
+        gmm = gmm_from_arrays(rs.rand(k, 64),
                               a @ a.transpose(0, 2, 1) + 0.5 * np.eye(64),
-                              rs.dirichlet(np.ones(13)), None)
+                              rs.dirichlet(np.ones(k)), None)
     else:
         gmm = GaussianMixtureModel.from_registry(request.param)
     return gmm.kernel_buffers("cpu")
