@@ -76,17 +76,20 @@
 // K5's loop at one row per thread (the row's gradient accumulator, or its
 // tangent, takes the registers of K5's second row), voting per warp on
 // the A_k x pass (gmm_marg.cuh). Stage 2 needs no logits: one thread per
-// row holds x, t and the 64 outputs in registers and walks the
+// row holds x, t and one component's 64 sums in registers and walks the
 // components, skipping those with p_k = dp_k = 0 across the warp; A_k is
 // symmetric, so its row c is its column c, and each float4 of row c feeds
-// four independent output sums. The TPU split into two stages (for its
-// 16 MB VMEM) is kept because one pass would need the weights before the
+// four independent sums. The TPU split into two stages (for its 16 MB
+// VMEM) is kept because one pass would need the weights before the
 // A_k x and A_k t terms they scale: 256 live floats per row. On an NVIDIA
 // H100 80GB HBM3 (700 W limit), 65,025 rows, K = 200, exactly one
 // nonzero weight per row: K8 2.50-2.53 ms and stage 1 2.88-2.91 ms
 // (29-34% of the 0.84 ms bound; K5's loop at one row per thread, as K1
-// ran in 2.41 ms), stage 2 0.31 ms. ptxas: K8 255 registers with 44 bytes
-// spilled, stage 1 255 without spills, stage 2 254 with 64 bytes.
+// ran in 2.41 ms), stage 2 0.31 ms. With all 200 weights nonzero (a
+// random SPD GMM, chip_smoke.py's mixed case): K8 10.7 ms, stage 1
+// 15.3 ms, stage 2 12.5 ms, the A_k x passes at about 17% of the fp32
+// peak. ptxas: K8 255 registers with 44 bytes spilled, stage 1 255
+// without spills, stage 2 254 with 32 bytes and 32 KB of shared memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -112,8 +112,8 @@ def emulated(tmp_path_factory):
 def bufs(request):
     """The shipped GMM, whose softmax weights are one-hot, and random SPD
     GMMs whose weights are mixed: K = 13, and K = 200 as in the main path
-    (``chip_smoke.py``'s mixed case; there a Hessian action that summed
-    all 200 components' terms in one float32 chain missed the bar)."""
+    (``chip_smoke.py``'s mixed case, where a Hessian action that sums
+    all 200 components' terms in one float32 chain misses the bar)."""
     if request.param.startswith("random-spd"):
         k = 200 if request.param.endswith("200") else 13
         rs = np.random.RandomState(1)

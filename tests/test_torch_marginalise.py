@@ -36,7 +36,10 @@ gradient departs from the kernels' by several percent of its max-abs
   lies 1.6e-6 from it; 20 Adam steps amplify the difference to 2.7e-3
   in the flux and 2.8e-4 in the errors (``main()`` below prints these
   numbers). The test asserts that the port is the closer of the two to
-  float64.
+  float64;
+- the same run under a random SPD GMM whose weights are mixed, where
+  the builtin GMM's are one-hot (so that there marginalised and MAP
+  runs agree): flux and errors rtol 1e-4, as for MAP.
 """
 
 import numpy as np
@@ -351,39 +354,36 @@ def test_marginalised_prior_value_and_gradient(name, shape, fused, spin):
 # (e): the deconvolver
 
 
+def run_deconvolver(package, gmm, datasets, marginalize, **kwargs):
+    comp = package.SpatialFluxComponent.from_numpy(
+        np.ones((SIZE, SIZE), np.float32),
+        prior=package.GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=False,
+                                    marginalize=marginalize),
+    )
+    deco = package.MAPDeconvolver(
+        n_epochs=20, learning_rate=0.1, update_strategy="joint",
+        trace_every=0, seed=0, compute_error=True, **kwargs)
+    flux = deco.run(datasets, components=comp).components["flux"]
+    return flux.flux_upsampled_numpy, flux.flux_upsampled_error_numpy
+
+
 def test_map_deconvolver_marginalised_matches_jax():
     """20 joint Adam steps and the flux-error probe under the
     marginalised ``builtin-8x8-v1`` prior (3 observations of 128²)."""
     datasets = make_datasets(3)
     gmm_j = jj.GaussianMixtureModel.from_registry("builtin-8x8-v1")
-    comp_j = jj.SpatialFluxComponent.from_numpy(
-        np.ones((SIZE, SIZE), np.float32),
-        prior=jj.GMMPatchPrior(gmm=gmm_j, stride=4, cycle_spin=False,
-                               marginalize=True),
-    )
-    deco_j = jj.MAPDeconvolver(
-        n_epochs=20, learning_rate=0.1, update_strategy="joint",
-        scan_epochs=True, trace_every=0, display_progress=False, seed=0,
-        compute_error=True,
-    )
     gmm_t = gmm_from_arrays(np.asarray(gmm_j.means),
                             np.asarray(gmm_j.covariances),
                             np.asarray(gmm_j.weights), gmm_j.meta.stride)
-    comp_t = jt.SpatialFluxComponent.from_numpy(
-        np.ones((SIZE, SIZE), np.float32),
-        prior=jt.GMMPatchPrior(gmm=gmm_t, stride=4, cycle_spin=False,
-                               marginalize=True),
-    )
-    deco_t = jt.MAPDeconvolver(
-        n_epochs=20, learning_rate=0.1, update_strategy="joint",
-        trace_every=0, seed=0, device="cpu", compute_error=True,
-    )
 
     with j_force_pallas("interpret"):
-        result_j = deco_j.run(datasets, components=comp_j)
+        flux_j, errors_j = run_deconvolver(
+            jj, gmm_j, datasets, True, scan_epochs=True,
+            display_progress=False)
     tf.reset_counters()
     tp.reset_counters()
-    result_t = deco_t.run(datasets, components=comp_t)
+    flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
+                                       device="cpu")
     # training on the fused scorer, the probe on the patch-level one
     assert tf.fused_forward_plain.calls == 20
     assert tf.fused_backward_marg_plain.calls == 20
@@ -391,14 +391,9 @@ def test_map_deconvolver_marginalised_matches_jax():
             tp.hvp_marg_weights_plain.calls,
             tp.hvp_marg_mix_plain.calls) == (1, 1, 1, 1)
 
-    flux_t = result_t.components["flux"].flux_upsampled_numpy
-    flux_j = result_j.components["flux"].flux_upsampled_numpy
     assert_allclose(flux_t, flux_j, rtol=5e-3)
-    errors_t = result_t.components["flux"].flux_upsampled_error_numpy
     assert np.isfinite(errors_t).all() and (errors_t > 0).all()
-    assert_allclose(errors_t,
-                    result_j.components["flux"].flux_upsampled_error_numpy,
-                    rtol=1e-3)
+    assert_allclose(errors_t, errors_j, rtol=1e-3)
 
     # at the trained flux, the port's marginalise gradient is closer to
     # the float64 one than the JAX kernels' is
@@ -422,6 +417,58 @@ def test_map_deconvolver_marginalised_matches_jax():
     err_j = np.abs(np.asarray(jax.grad(scalar_j)(jnp.asarray(img)),
                               np.float64) - grad64).max()
     assert err_t <= err_j
+
+
+def mixed_gmm_arrays():
+    """A random SPD GMM (K = 8) whose softmax weights stay mixed along the
+    run below (the largest weight of a patch is near 0.2)."""
+    rs = np.random.RandomState(3)
+    a = rs.randn(8, 64, 64) / 2.0
+    covariances = a @ a.transpose(0, 2, 1) + 2.0 * np.eye(64)
+    return 0.3 * rs.randn(8, 64), covariances, rs.dirichlet(np.ones(8))
+
+
+def test_map_deconvolver_marginalised_mixed_weights_matches_jax():
+    """20 joint Adam steps and the flux-error probe under a GMM whose
+    weights are mixed (3 observations of 128²), where the marginalised
+    prior and the MAP one part: flux and errors rtol 1e-4 against the
+    JAX package (the bars of ``tests/test_torch_errors.py``), and the
+    marginalised flux stands apart from the MAP one by more than ten
+    times that, so that a prior that scored by the best component would
+    fail. The errors differ from MAP's only through the flux: the
+    probe's tangent, ones, is the zero patch after mean subtraction, so
+    the prior adds nothing to them (the op-level tests above hold the
+    Hessian action along random tangents)."""
+    datasets = make_datasets(3)
+    arrays = mixed_gmm_arrays()
+    gmm_j = JGMM.from_numpy(*arrays)
+    gmm_t = gmm_from_arrays(*arrays, None)
+    with j_force_pallas("interpret"):
+        flux_j, errors_j = run_deconvolver(
+            jj, gmm_j, datasets, True, scan_epochs=True,
+            display_progress=False)
+    tf.reset_counters()
+    tp.reset_counters()
+    flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
+                                       device="cpu")
+    assert tf.fused_backward_marg_plain.calls == 20
+    assert tp.hvp_marg_mix_plain.calls == 1
+    flux_map, errors_map = run_deconvolver(jt, gmm_t, datasets, False,
+                                           device="cpu")
+
+    # the weights at the trained flux are mixed
+    bufs = gmm_t.kernel_buffers("cpu")
+    lse, _, valid, xtn = tf.fused_forward_plain(
+        torch.as_tensor(flux_t), bufs, STRIDE, ZERO_FLUX_SENTINEL, True)
+    m = valid > 0.5
+    largest = torch.cat([p.max(dim=1).values for _, p in
+                         tf.softmax_chunks(xtn[m], lse[m], bufs)])
+    assert float(largest.max()) < 0.9
+
+    assert_allclose(flux_t, flux_j, rtol=1e-4)
+    assert_allclose(errors_t, errors_j, rtol=1e-4)
+    assert np.max(np.abs(flux_t - flux_map) / flux_map) > 1e-3
+    assert not np.array_equal(errors_t, errors_map)
 
 
 # ----------------------------------------------------------------------
@@ -488,25 +535,11 @@ def main():
     gmm_t = gmm_from_arrays(np.asarray(gmm_j.means),
                             np.asarray(gmm_j.covariances),
                             np.asarray(gmm_j.weights), gmm_j.meta.stride)
-    results = {}
-    for package, gmm in ((jj, gmm_j), (jt, gmm_t)):
-        comp = package.SpatialFluxComponent.from_numpy(
-            np.ones((SIZE, SIZE), np.float32),
-            prior=package.GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=False,
-                                        marginalize=True))
-        kwargs = dict(n_epochs=20, learning_rate=0.1, update_strategy="joint",
-                      trace_every=0, seed=0, compute_error=True)
-        if package is jj:
-            deco = jj.MAPDeconvolver(scan_epochs=True, display_progress=False,
-                                     **kwargs)
-            with j_force_pallas("interpret"):
-                result = deco.run(datasets, components=comp)
-        else:
-            result = jt.MAPDeconvolver(device="cpu", **kwargs).run(
-                datasets, components=comp)
-        results[package.__name__] = result.components["flux"]
-    flux_j, flux_t = (r.flux_upsampled_numpy for r in results.values())
-    err_j, err_t = (r.flux_upsampled_error_numpy for r in results.values())
+    with j_force_pallas("interpret"):
+        flux_j, err_j = run_deconvolver(jj, gmm_j, datasets, True,
+                                        scan_epochs=True,
+                                        display_progress=False)
+    flux_t, err_t = run_deconvolver(jt, gmm_t, datasets, True, device="cpu")
     print(f"20 steps, port against JAX: flux max rel "
           f"{np.max(np.abs(flux_t - flux_j) / flux_j):.3g}, errors "
           f"{np.max(np.abs(err_t - err_j) / err_j):.3g}")
