@@ -10,14 +10,20 @@ Phases, each printing one or more lines:
 0. the device: ``torch.cuda.get_device_name(0)`` and the card's name and
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
-   compiler per source, all at once;
+   compiler per source, all at once (the fused scorer, the patch-level
+   scorer and the matrix-DFT convolution);
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
    1000x904 image with a block of zero-flux sentinel pixels; the
    patch-level scorer, unit gradient and Hessian action (K5, K6, K7) on
    the rows of those two images (65,025 rows, the flux-error probe's
-   shape, and a ragged 56,025);
+   shape, and a ragged 56,025); the matrix-DFT convolution's three
+   kernels (K3), forward and adjoint, at the main path's batch (5 pairs
+   of 1024², n = 1152, the 33² PSFs) and at 5 pairs of 1024 x 896, each
+   pass and the whole pipeline against the plain version run in
+   float64, beside cuFFT's packed pair (the yardstick, timed with the
+   per-observation ``rfft2`` of the same 10 images);
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``.
@@ -35,7 +41,12 @@ Phases, each printing one or more lines:
    probe, K5's logsumexp, the marginalise unit gradient (K8) and the
    two stages of its Hessian action (K9a, K9b), each path with its own
    counts; then a small run's flux and errors on the card against the
-   CPU's plain path.
+   CPU's plain path;
+6. the matrix-DFT path: phases 3 and 4 again with
+   ``conv_mode="pfft"``, the convolution's forward and adjoint on K3's
+   three kernels (and, in the probe, the adjoint's adjoint); flux and
+   errors held against phases 3 and 4; then a small run's flux and
+   errors on the card against the CPU's plain path.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -47,8 +58,9 @@ the weights are one-hot (dp is then exactly zero), so the same checks
 run once more on the 1024² image and its rows under a random SPD GMM
 with K = 200 whose weights are mixed; the run fails unless they are.
 
-It then prints a JSON line with the mixed case's errors, times and
-bounds, a JSON line with each kernel's numbers and, last, the
+It then prints a JSON line with K3's errors and times, a JSON line with
+the mixed case's errors, times and bounds, a JSON line with each
+kernel's numbers and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -76,10 +88,21 @@ ERROR_STEPS = 5
 # float64-anchored bar of the marginalise kernels: error <= 2 x the
 # float32 plain version's, plus this share of the result's max-abs
 MARG_ERR_FACTOR, MARG_ERR_FLOOR = 2.0, 1e-6
+# K3 against the float64 plain version: the anchored bar above, and the
+# whole pipeline also within this share of the result's max-abs
+PFFT_ERR_SHARE = 1e-5
+# the pfft path against the fft path after the same steps: flux within
+# this share of its max-abs (the two convolutions differ by about 1e-6 of
+# their max-abs, which Adam's first step amplifies where a gradient is
+# near zero), errors within this relative tolerance
+PFFT_FLUX_SHARE, PFFT_ERROR_RTOL = 1e-4, 1e-4
 # the main path's field and observation count, and the ragged image of
 # the kernel checks
 FIELD, N_OBS, RAGGED = 1024, 10, (1000, 904)
 MAIN = f"{FIELD}x{FIELD}"
+# K3's rectangular batch: what an image of up to 1024 x 896 pads to, at
+# the main path's transform size
+PFFT_RECT = (1024, 896)
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -118,15 +141,18 @@ def phase_device(torch):
 
 
 def phase_build():
-    from jolideco_torch.utils.cuda_build import BUILD_INFO, load_libraries
+    from jolideco_torch.utils.cuda_build import (
+        BUILD_INFO,
+        LIBRARIES,
+        load_libraries,
+    )
 
     t0 = time.perf_counter()
-    names = ("gmm_fused", "gmm_patch")
-    load_libraries(*names)
+    load_libraries(*LIBRARIES)
     seconds = time.perf_counter() - t0
-    for name in names:
+    for name in LIBRARIES:
         print(f"phase 1 build: {name} in {BUILD_INFO[name]['seconds']:.2f} s "
-              f"(both in {seconds:.2f} s); "
+              f"(all in {seconds:.2f} s); "
               + " | ".join(ptxas_summary(BUILD_INFO[name]["ptxas"])))
 
 
@@ -136,7 +162,8 @@ def ptxas_summary(text):
     out, kernel = [], None
     for line in text.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"\d+(gmm_\w+?_kernel)(?:ILb([01])E)?", line)
+            m = re.search(r"\d+((?:gmm|pfft)_\w+?_kernel)(?:ILb([01])E)?",
+                          line)
             kernel = m.group(1) if m else line.split()[-1]
             if m and m.group(2) is not None:
                 kernel += "<true>" if m.group(2) == "1" else "<false>"
@@ -244,6 +271,7 @@ def phase_kernels(torch, device):
           f"plain {t['bwd_plain_ms']:.3f} ms")
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
+    out["pfft"] = phase_pfft_kernels(torch, device)
     return out
 
 
@@ -344,8 +372,8 @@ def phase_patch_kernels(torch, device, bufs, cases):
 
 def anchored(label, name, got, plain32, plain64):
     """The float64-anchored check; returns (kernel err, plain err, max)."""
-    err = float((got.double() - plain64).abs().max())
-    err32 = float((plain32.double() - plain64).abs().max())
+    err = float((got.to(plain64.dtype) - plain64).abs().max())
+    err32 = float((plain32.to(plain64.dtype) - plain64).abs().max())
     scale = float(plain64.abs().max())
     check(err <= MARG_ERR_FACTOR * err32 + MARG_ERR_FLOOR * scale,
           f"{label}: {name} error {err:.3g} against float64, plain float32 "
@@ -588,18 +616,196 @@ def phase_marg_kernels(torch, device, bufs, cases):
     return out
 
 
+def pfft_inputs(torch, device, shape, seed):
+    """5 pairs of ``shape`` images and the spectra of the main path's 33²
+    PSF pairs at n = 1152 (``bench_data``'s widening Gaussians)."""
+    from jolideco_torch.ops import pallas_fft as pf
+    from jolideco_torch.utils.kernels import gaussian_kernel_2d
+
+    psfs = torch.as_tensor(np.stack([
+        gaussian_kernel_2d(2.0 + 0.3 * i, x_size=33, y_size=33)
+        for i in range(N_OBS)]).astype(np.float32), device=device)
+    n = pf.pfft_size(max(shape) + 32)
+    planes = pf.pfft_pair_spectra_device(psfs[0::2], psfs[1::2], shape, n)
+    rs = np.random.RandomState(seed)
+    x0, x1 = (torch.as_tensor(rs.uniform(0.0, 2.0, (N_OBS // 2,) + shape)
+                              .astype(np.float32), device=device)
+              for _ in range(2))
+    return x0, x1, planes, psfs, n
+
+
+def pfft_checks(torch, device, label, shape, seed):
+    """K3's three kernels, and the pipeline, against the plain version in
+    float64 on one batch, forward and adjoint; cuFFT's packed pair beside
+    them. Returns the errors (kernel, float32 plain, max-abs) and the
+    inputs."""
+    from jolideco_torch.ops import pallas_fft as pf
+    from jolideco_torch.ops.fft import (
+        convolve_fft_packed_pair,
+        kernel_fft_pair,
+    )
+
+    x0, x1, planes, psfs, n = pfft_inputs(torch, device, shape, seed)
+    h = shape[0]
+    c128, f64 = torch.complex128, torch.float64
+    x64 = (x0.double(), x1.double())
+    fs = (shape[0] + 32, shape[1] + 32)
+    a, b = kernel_fft_pair(psfs[0::2], psfs[1::2], shape, fs)
+    errs = {}
+    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    errs["cols_fwd"] = anchored(label, "K3 cols_fwd", u,
+                                pf.cols_fwd_plain(x0, x1, n),
+                                pf.cols_fwd_plain(*x64, n, f64))
+    for conj in (False, True):
+        tag = "adjoint" if conj else "forward"
+        v = pf.pfft_rows_combine_cuda(u, *planes, conj)
+        v32 = pf.rows_combine_plain(u, *planes, conj)
+        v64 = pf.rows_combine_plain(u.to(c128), *planes, conj, f64)
+        errs[f"rows_{tag}"] = max(
+            (anchored(label, f"K3 rows {tag} V{i + 1}", *vs)
+             for i, vs in enumerate(zip(v, v32, v64))),
+            key=lambda e: e[0] / e[2])
+        y = pf.pfft_cols_inv_cuda(*v, h)
+        y32 = pf.cols_inv_plain(*v, h)
+        y64 = pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)
+        errs[f"cols_inv_{tag}"] = max(
+            (anchored(label, f"K3 cols_inv {tag} y{i}", *ys)
+             for i, ys in enumerate(zip(y, y32, y64))),
+            key=lambda e: e[0] / e[2])
+        # the whole pipeline and cuFFT's packed pair against float64
+        y = pf.pfft_conv_cuda(x0, x1, *planes, n, conj)
+        y32 = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj)
+        y64 = pf.conv_packed_pfft_plain(*x64, *planes, n, conj, f64)
+        spec = (a.conj(), b.conj()) if conj else (a, b)
+        yc = convolve_fft_packed_pair(x0, x1, *spec, fs)
+        torch.cuda.synchronize()
+        scale = max(float(t.abs().max()) for t in y64)
+        err = max(float((k.double() - r).abs().max()) for k, r in zip(y, y64))
+        err32 = max(float((k.double() - r).abs().max())
+                    for k, r in zip(y32, y64))
+        errc = max(float((k.double() - r).abs().max())
+                   for k, r in zip(yc, y64))
+        check(err <= PFFT_ERR_SHARE * scale
+              and err <= MARG_ERR_FACTOR * err32 + MARG_ERR_FLOOR * scale,
+              f"{label}: K3 {tag} error {err:.3g} against float64, plain "
+              f"float32 {err32:.3g}, cuFFT {errc:.3g}, max {scale:.3g}")
+        errs[f"pipeline_{tag}"] = (err, err32, scale, errc)
+    print(f"phase 2 K3 {label} (5 pairs, n = {n}): against float64 (kernel, "
+          "plain float32, max-abs): "
+          + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
+                      for name, e in errs.items())
+          + "; cuFFT packed pair "
+          + ", ".join(f"{errs[f'pipeline_{t}'][3]:.3g} ({t})"
+                      for t in ("forward", "adjoint")))
+    inputs = {"x0": x0, "x1": x1, "planes": planes, "psfs": psfs, "n": n,
+              "u": u, "v": pf.pfft_rows_combine_cuda(u, *planes),
+              "a": a, "b": b, "fs": fs}
+    return errs, inputs
+
+
+def pfft_bounds(p_, h, w, n):
+    """Bounds of K3's passes and of the whole convolution, one direction,
+    operations counted as the TPU kernel does them: 3 real products per
+    complex one, 98,304 flop per 128-vector and 128 x 128 matrix; m of
+    them per column (pass 1), 3 m per row (pass 2), 2 m per column (pass
+    3). Bytes: images, U, V1 and V2 as complex float32, the four spectrum
+    planes and the stage tables (mf, mi) read once."""
+    m = n // 128
+    vec = 98_304
+    tables = 8 * m * 128 * 128
+    flop = {"cols_fwd": p_ * m * vec * w, "rows": p_ * 3 * m * vec * n,
+            "cols_inv": p_ * 2 * m * vec * w}
+    nbytes = {"cols_fwd": 8 * p_ * h * w + 8 * p_ * n * w + tables,
+              "rows": 8 * p_ * n * w + 16 * p_ * n * n + 16 * p_ * n * w
+              + 2 * tables,
+              "cols_inv": 16 * p_ * n * w + 8 * p_ * h * w + tables}
+    out = {name: bound(flop[name], nbytes[name]) for name in flop}
+    out["pipeline"] = bound(sum(flop.values()),
+                            16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
+    return out
+
+
+def pfft_timing(torch, s):
+    """Milliseconds per call of K3's passes, the pipeline (both
+    directions), the plain version, cuFFT's packed pair and the
+    per-observation ``rfft2`` of the same 10 images, at the main path's
+    batch."""
+    from jolideco_torch.ops import pallas_fft as pf
+    from jolideco_torch.ops.fft import (
+        convolve_fft_packed_pair,
+        convolve_fft_precomputed,
+        kernel_fft,
+    )
+
+    x0, x1, planes, n, u, v = (s[k] for k in ("x0", "x1", "planes", "n",
+                                              "u", "v"))
+    h, w = x0.shape[1:]
+    fs, a, b = s["fs"], s["a"], s["b"]
+    images = torch.stack([x0, x1], dim=1).reshape(N_OBS, h, w)
+    kft = kernel_fft(s["psfs"], (h, w), fs)
+    calls = {
+        "cols_fwd": lambda: pf.pfft_cols_fwd_cuda(x0, x1, n),
+        "rows": lambda: pf.pfft_rows_combine_cuda(u, *planes),
+        "cols_inv": lambda: pf.pfft_cols_inv_cuda(*v, h),
+        "pipeline": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n),
+        "pipeline_adjoint": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
+                                                      True),
+        "cufft_pair": lambda: convolve_fft_packed_pair(x0, x1, a, b, fs),
+        "cufft_pair_adjoint": lambda: convolve_fft_packed_pair(
+            x0, x1, a.conj(), b.conj(), fs),
+        "cufft_rfft2": lambda: convolve_fft_precomputed(images, kft, fs),
+    }
+    timing = {name: cuda_ms(torch, fn, 10) for name, fn in calls.items()}
+    plain = {
+        "cols_fwd": lambda: pf.cols_fwd_plain(x0, x1, n),
+        "rows": lambda: pf.rows_combine_plain(u, *planes),
+        "cols_inv": lambda: pf.cols_inv_plain(*v, h),
+        "pipeline": lambda: pf.conv_packed_pfft_plain(x0, x1, *planes, n),
+    }
+    timing.update({name + "_plain": cuda_ms(torch, fn, 3)
+                   for name, fn in plain.items()})
+    return timing
+
+
+def phase_pfft_kernels(torch, device):
+    """K3 at the main path's batch and at a rectangular one, with the main
+    batch's times and bounds."""
+    out = {}
+    for label, shape, seed in ((MAIN, (FIELD, FIELD), 4),
+                               ("{}x{}".format(*PFFT_RECT), PFFT_RECT, 5)):
+        out[label], s = pfft_checks(torch, device, label, shape, seed)
+        if label == MAIN:
+            out["timing"] = pfft_timing(torch, s)
+            out["bounds"] = pfft_bounds(N_OBS // 2, FIELD, FIELD, s["n"])
+    tm, bd = out["timing"], out["bounds"]
+    print(f"phase 2 timing K3 {MAIN} (5 pairs, n = 1152): "
+          + "; ".join(f"{name} {tm[name]:.3f} ms (plain "
+                      f"{tm[name + '_plain']:.3f}, bound "
+                      f"{bd[name]['bound_ms']:.3f})"
+                      for name in ("cols_fwd", "rows", "cols_inv",
+                                   "pipeline"))
+          + f"; adjoint {tm['pipeline_adjoint']:.3f} ms; cuFFT packed pair "
+          f"{tm['cufft_pair']:.3f} ms (adjoint "
+          f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
+          f"{tm['cufft_rfft2']:.3f} ms")
+    return out
+
+
 def reset_counts():
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.ops import pallas_fft as pf
 
     gf.reset_counters()
     gp.reset_counters()
+    pf.reset_counters()
 
 
 def counts():
     """Kernel launches by name, and the plain versions' calls in all."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.ops import pallas_fft as pf
 
     launches = {
         "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
@@ -612,12 +818,16 @@ def counts():
         "gmm_unit_marg": gp.gmm_unit_marg_cuda.launches,
         "gmm_hvp_marg_weights": gp.gmm_hvp_marg_weights_cuda.launches,
         "gmm_hvp_marg_mix": gp.gmm_hvp_marg_mix_cuda.launches,
+        "pfft_cols_fwd": pf.pfft_cols_fwd_cuda.launches,
+        "pfft_rows_combine": pf.pfft_rows_combine_cuda.launches,
+        "pfft_cols_inv": pf.pfft_cols_inv_cuda.launches,
     }
     plain = sum(fn.calls for fn in (
         gf.fused_forward_plain, gf.fused_backward_plain,
         gf.fused_backward_marg_plain, gf.score_plain, gp.score_rows_plain,
         gp.unit_map_plain, gp.hvp_map_plain, gp.unit_marg_plain,
-        gp.hvp_marg_weights_plain, gp.hvp_marg_mix_plain))
+        gp.hvp_marg_weights_plain, gp.hvp_marg_mix_plain,
+        pf.conv_packed_pfft_plain))
     return launches, plain
 
 
@@ -628,7 +838,7 @@ def expect(**nonzero):
 
 
 def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
-              compute_error=False, marginalize=False):
+              compute_error=False, marginalize=False, conv_mode="fft"):
     from jolideco_torch import (
         GMMPatchPrior,
         MAPDeconvolver,
@@ -643,7 +853,7 @@ def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
     )
     deco = MAPDeconvolver(
         n_epochs=n_steps, learning_rate=0.1, update_strategy="joint",
-        conv_mode="fft", trace_every=0, seed=0, device=device,
+        conv_mode=conv_mode, trace_every=0, seed=0, device=device,
         compute_error=compute_error,
     )
     return deco.run(datasets, components=component)
@@ -717,7 +927,7 @@ def phase_slice(torch, device):
     print(f"phase 3 small 4x128^2 card vs CPU plain path: flux max rel err "
           f"{rel:.3g} (limit {SMALL_FLUX_RTOL})")
     return {"launches": launches, "steps_per_s": steps_per_s,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "flux": flux}
 
 
 def phase_errors(torch, device):
@@ -770,7 +980,7 @@ def phase_errors(torch, device):
     print(f"phase 4 small 4x128^2 card vs CPU plain path: errors max rel err "
           f"{rel:.3g} (limit {SMALL_ERROR_RTOL})")
     return {"launches": launches, "error_seconds": result.error_seconds,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "errors": errors}
 
 
 def phase_marginalised(torch, device):
@@ -867,6 +1077,107 @@ def phase_marginalised(torch, device):
     return train, probe
 
 
+def phase_pfft(torch, device, flux_fft, errors_fft):
+    """Phases 3 and 4 with ``conv_mode="pfft"``: the convolution's
+    forward and adjoint on K3's kernels, once each per step, and in the
+    probe the forward, the adjoint, then the adjoint's adjoint and the
+    adjoint again; flux and errors against the fft path's."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    run = dict(cycle_spin=True, conv_mode="pfft")
+    run_slice(datasets, astro, device, n_steps=2, **run)  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, astro, device, **run)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
+          f"pfft: non-finite loss: {loss}")
+    check(flux.shape == (FIELD, FIELD)
+          and bool(np.isfinite(flux).all() and (flux > 0).all()),
+          "pfft: flux not finite and positive")
+    data_start = float(data_term(datasets, np.ones_like(flux), device))
+    data_end = float(data_term(datasets, flux, device))
+    check(data_end < data_start, f"pfft: Poisson data term did not fall: "
+          f"{data_start} -> {data_end}")
+    k3 = ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv")
+    expected = expect(gmm_fused_fwd=STEPS, gmm_fused_bwd=STEPS,
+                      **{name: 2 * STEPS for name in k3})
+    check(launches == expected, f"pfft: launches {launches}, not {expected}")
+    check(plain_calls == 0, f"pfft: plain versions ran {plain_calls} times")
+    flux_diff = float(np.abs(flux - flux_fft).max() / np.abs(flux_fft).max())
+    flux_rel = float(np.max(np.abs(flux - flux_fft) / np.abs(flux_fft)))
+    check(flux_diff <= PFFT_FLUX_SHARE, f"pfft flux against fft: max-abs "
+          f"difference {flux_diff:.3g} of the max (elementwise {flux_rel:.3g})")
+    steps_per_s = STEPS / result.train_seconds
+    print(f"phase 6 pfft slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
+          f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "
+          f"data term {data_start:.6f} -> {data_end:.6f}; flux against "
+          f"phase 3: max-abs difference {flux_diff:.3g} of the max (limit "
+          f"{PFFT_FLUX_SHARE}), elementwise {flux_rel:.3g}; launches "
+          f"{launches}; plain calls {plain_calls}; peak memory {peak} B")
+    train = {"launches": launches, "steps_per_s": steps_per_s,
+             "peak_bytes": peak, "flux_diff": flux_diff,
+             "flux_rel": flux_rel}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, astro, device, n_steps=ERROR_STEPS,
+                       compute_error=True, **run)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = expect(gmm_fused_fwd=ERROR_STEPS, gmm_fused_bwd=ERROR_STEPS,
+                      gmm_score_rows=1, gmm_unit_map=1, gmm_hvp_map=1,
+                      **{name: 2 * ERROR_STEPS + 4 for name in k3})
+    check(launches == expected, f"pfft probe: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"pfft probe: plain versions ran {plain_calls} "
+          "times")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD)
+          and bool(np.isfinite(errors).all() and (errors > 0).all()),
+          "pfft probe: errors not finite and positive")
+    error_rel = float(np.max(np.abs(errors - errors_fft) / errors_fft))
+    check(error_rel <= PFFT_ERROR_RTOL, f"pfft errors against fft: max rel "
+          f"{error_rel:.3g}")
+    print(f"phase 6 pfft errors {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} steps "
+          f"in {result.train_seconds:.4f} s, probe "
+          f"{result.error_seconds:.4f} s; errors against phase 4: max rel "
+          f"{error_rel:.3g} (limit {PFFT_ERROR_RTOL}); launches {launches}; "
+          f"plain calls {plain_calls}; peak memory {peak} B")
+    probe = {"launches": launches, "error_seconds": result.error_seconds,
+             "peak_bytes": peak, "error_rel": error_rel}
+
+    # small input (n = 256, no padding): the card against the CPU's plain
+    # path, flux and errors
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    on_card, on_cpu = (
+        run_slice(small, builtin, dev, cycle_spin=False, compute_error=True,
+                  conv_mode="pfft").components["flux"]
+        for dev in (device, "cpu")
+    )
+    rels = {}
+    for name, limit in (("flux_upsampled_numpy", SMALL_FLUX_RTOL),
+                        ("flux_upsampled_error_numpy", SMALL_ERROR_RTOL)):
+        a, b = getattr(on_card, name), getattr(on_cpu, name)
+        rels[name] = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(rels[name] <= limit, f"pfft 4x128^2 {name} on the card vs "
+              f"CPU: max rel err {rels[name]:.3g}")
+    print(f"phase 6 small 4x128^2 card vs CPU plain path: flux max rel err "
+          f"{rels['flux_upsampled_numpy']:.3g} (limit {SMALL_FLUX_RTOL}), "
+          f"errors {rels['flux_upsampled_error_numpy']:.3g} (limit "
+          f"{SMALL_ERROR_RTOL})")
+    return train, probe
+
+
 def main():
     try:
         import torch
@@ -883,20 +1194,24 @@ def main():
     sys.path.insert(0, str(ROOT))
 
     device = torch.device("cuda", 0)
-    name = phase_device(torch)
+    device_name = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch, device)
     slice_ = phase_slice(torch, device)
     errors = phase_errors(torch, device)
     marg_train, marg_probe = phase_marginalised(torch, device)
+    pfft_train, pfft_probe = phase_pfft(torch, device, slice_["flux"],
+                                        errors["errors"])
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
-    ptiming, pbounds = patch["timing"], patch["bounds"]
+    rtiming, rbounds = patch["timing"], patch["bounds"]
     marg = kernels["marg"]
     mrows, mtiming, mbounds = marg[MAIN], marg["timing"], marg["bounds"]
     fused_src = "jolideco_torch/csrc/gmm_fused.cu"
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
+    pfft = kernels["pfft"]
+    pmain, ptiming, pbound = pfft[MAIN], pfft["timing"], pfft["bounds"]
     table = [
         ("gmm_fused_fwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:309",
          slice_, kernels[MAIN]["value_max_abs_err"],
@@ -905,14 +1220,14 @@ def main():
          slice_, kernels[MAIN]["grad_max_abs_err"],
          timing["bwd_ms"], timing["bwd_plain_ms"], kernels["bwd_bound"]),
         ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
-         errors, rows["score_marg0"][0], ptiming["score_ms"],
-         ptiming["score_plain_ms"], pbounds["score"]),
+         errors, rows["score_marg0"][0], rtiming["score_ms"],
+         rtiming["score_plain_ms"], rbounds["score"]),
         ("gmm_unit_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:365",
-         errors, rows["unit"][0], ptiming["unit_ms"],
-         ptiming["unit_plain_ms"], pbounds["unit"]),
+         errors, rows["unit"][0], rtiming["unit_ms"],
+         rtiming["unit_plain_ms"], rbounds["unit"]),
         ("gmm_hvp_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:376",
-         errors, rows["hvp"][0], ptiming["hvp_ms"],
-         ptiming["hvp_plain_ms"], pbounds["hvp"]),
+         errors, rows["hvp"][0], rtiming["hvp_ms"],
+         rtiming["hvp_plain_ms"], rbounds["hvp"]),
         ("gmm_fused_fwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:341",
          marg_train, mrows["fwd"][0], mtiming["fwd_ms"],
          mtiming["fwd_plain_ms"], mbounds["fwd"]),
@@ -931,6 +1246,41 @@ def main():
          marg_probe, mrows["mix"][0], mtiming["mix_ms"],
          mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
+    library = {name: None for name, *_ in table}
+    # K3's passes, forward direction at the main path's batch; their
+    # errors against float64, the rows pass's the larger of its two
+    # directions; library: cuFFT's packed pair computing the whole
+    # convolution that the three kernels compute together
+    pfft_src = "jolideco_torch/csrc/pfft_conv.cu"
+    for name, key, line, err in (
+            ("pfft_cols_fwd", "cols_fwd", 379, pmain["cols_fwd"][0]),
+            ("pfft_rows_combine", "rows", 398,
+             max(pmain["rows_forward"][0], pmain["rows_adjoint"][0])),
+            ("pfft_cols_inv", "cols_inv", 460,
+             max(pmain["cols_inv_forward"][0],
+                 pmain["cols_inv_adjoint"][0]))):
+        table.append((name, pfft_src, f"jolideco_tpu/ops/pallas_fft.py:{line}",
+                      pfft_train, err, ptiming[key], ptiming[key + "_plain"],
+                      pbound[key]))
+        library[name] = ptiming["cufft_pair"]
+    print(json.dumps({"pfft": {
+        "batch": "5 pairs of 1024^2, n = 1152",
+        "errors_against_float64": {
+            label: {name: dict(zip(("kernel", "plain_float32", "max_abs",
+                                    "cufft_pair"), e))
+                    for name, e in pfft[label].items()}
+            for label in pfft if label not in ("timing", "bounds")},
+        "ms": ptiming, "bounds": pbound,
+        "path": {"steps_per_s": pfft_train["steps_per_s"],
+                 "peak_bytes": pfft_train["peak_bytes"],
+                 "flux_against_fft": pfft_train["flux_diff"],
+                 "flux_against_fft_elementwise": pfft_train["flux_rel"],
+                 "probe_seconds": pfft_probe["error_seconds"],
+                 "probe_peak_bytes": pfft_probe["peak_bytes"],
+                 "errors_against_fft": pfft_probe["error_rel"],
+                 "fft_steps_per_s": slice_["steps_per_s"],
+                 "fft_probe_seconds": errors["error_seconds"]},
+    }}))
     # the marginalise kernels where the weights are mixed (phase 2):
     # errors against float64 beside the float32 plain version's, times
     # and bounds at the 1024² image and its rows under mixed_gmm()
@@ -957,21 +1307,22 @@ def main():
             "argmax_flips": mixed["errors"]["fwd"][2],
             "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
     }}))
-    # no single PyTorch call computes any of these functions (each needs
-    # a gather of per-row components, or a max or softmax over quadratic
-    # forms), so there is no library yardstick: library_ms is null.
+    # no single PyTorch call computes any of the GMM kernels' functions
+    # (each needs a gather of per-row components, or a max or softmax
+    # over quadratic forms), so their library_ms is null.
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version;
-    # K1 logsumexp its values against it; K4, K8, K9a, K9b against the
-    # float64 plain version (phase 2)
+    # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
+    # against the float64 plain version (phase 2)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-         "library_ms": None}
+         "library_ms": library[name]}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

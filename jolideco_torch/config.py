@@ -16,9 +16,10 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   patch-level scorer, which the Hessian probe needs because the fused
   scorer has no second derivative.
 - The precision dial (``"highest" | "high" | "default"``, the names of
-  the JAX package's ``config.set_gmm_precision``). The CUDA kernels compute
-  in full float32 whatever the dial says, which meets the strictest
-  bar. At import and on every dial change the float32 matmul and cuDNN
+  the JAX package's ``config.set_gmm_precision``), and the matmul-DFT
+  mode it names (:func:`pfft_mode`: ``"f32"``, ``"split"``, ``"bf16"``).
+  The CUDA kernels compute in full float32 whatever the dial says, which
+  meets the strictest bar. At import and on every dial change the float32 matmul and cuDNN
   paths are pinned to full float32: PyTorch lets cuDNN convolutions run
   in TF32 by default, which keeps only about three decimal digits.
 """
@@ -31,12 +32,17 @@ __all__ = [
     "dispatch",
     "force_fused",
     "gmm_precision",
+    "pfft_mode",
     "resolve_device",
     "set_gmm_precision",
     "use_fused",
 ]
 
 _PRECISIONS = ("highest", "high", "default")
+# the JAX package's modes of its matmul-DFT convolution per dial setting:
+# full float32, bf16 hi/lo splits (about 3.1e-5 of the result's max-abs),
+# single bf16 products
+_PFFT_MODES = {"highest": "f32", "high": "split", "default": "bf16"}
 _GMM_PRECISION = "high"
 _USE_FUSED = "auto"
 
@@ -59,6 +65,11 @@ def set_gmm_precision(mode):
 def gmm_precision():
     """Current precision dial setting (a name, not a torch object)."""
     return _GMM_PRECISION
+
+
+def pfft_mode():
+    """The matmul-DFT convolution's mode under the current dial."""
+    return _PFFT_MODES[_GMM_PRECISION]
 
 
 def resolve_device(device=None):

@@ -20,7 +20,7 @@ trained fluxes (``TotalLoss.fluxes_error``): flux errors
 kernels.
 
 Ported: ``update_strategy="joint"``, ``trace_every=0``,
-``conv_mode="fft"``, ``compute_error``. The sequential strategy, the
+``conv_mode`` ``"fft"`` and ``"pfft"``, ``compute_error``. The sequential strategy, the
 loss trace, early stopping and checkpoints raise
 ``NotImplementedError``.
 """
@@ -97,9 +97,11 @@ class MAPDeconvolver:
     device : str or torch.device, optional
         Where the run happens; default the first CUDA card (and an error
         without one). ``"cpu"`` runs the plain versions of the kernels.
-    conv_mode : {"auto", "fft"}
-        PSF convolution backend. ``"auto"`` is the FFT (cuFFT on the
-        card) until the matmul-DFT kernel is ported and measured.
+    conv_mode : {"auto", "fft", "pfft"}
+        PSF convolution backend: ``"fft"`` a batched ``rfft2`` (cuFFT on
+        the card), ``"pfft"`` the pair-packed matrix DFT
+        (``ops/pallas_fft.py``). ``"auto"`` takes the one that was faster
+        on the card at the main path's shape (see ``build_loss``).
     fft_shape : tuple of int, optional
         Padded FFT shape (at least image + kernel - 1 per axis).
     compute_error : bool
@@ -123,7 +125,8 @@ class MAPDeconvolver:
             f"update_strategy={update_strategy!r}":
                 update_strategy != "joint",
             f"trace_every={trace_every}": int(trace_every) != 0,
-            f"conv_mode={conv_mode!r}": conv_mode not in ("auto", "fft"),
+            f"conv_mode={conv_mode!r}":
+                conv_mode not in ("auto", "fft", "pfft"),
         }
         for name, requested in unported.items():
             if requested:
@@ -177,9 +180,14 @@ class MAPDeconvolver:
 
     def build_loss(self, datasets, components, device):
         """The joint strategy's total loss on ``device``."""
+        # "auto" is the rfft2 (cuFFT): at 5 pairs of 1024^2 (n = 1152) the
+        # matrix DFT's three kernels take AUTO_PFFT_MS per direction
+        # against cuFFT's AUTO_FFT_MS for the same packed convolution
+        # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
+        conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
         poisson = StackedPoissonLoss.from_datasets(
             datasets=datasets, components=components,
-            fft_shape=self.fft_shape, conv_mode=self.conv_mode,
+            fft_shape=self.fft_shape, conv_mode=conv_mode,
             device=device,
         )
         return TotalLoss(poisson_loss=poisson,

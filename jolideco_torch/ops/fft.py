@@ -8,18 +8,22 @@ computed once per dataset stack at build time. On a CUDA tensor the
 transforms are cuFFT's.
 
 The JAX package also packs observation pairs into one complex transform
-(``kernel_fft_pair``/``convolve_fft_packed_pair``); that is a
-throughput trick for the TPU's FFT and is not ported: a batched
-per-observation ``rfft2`` has the same semantics.
+(``kernel_fft_pair``/``convolve_fft_packed_pair``), a throughput trick
+for the TPU's FFT. The port keeps them as the reference and the cuFFT
+yardstick of the packed matrix-DFT convolution (``ops/pallas_fft.py``);
+``conv_mode="fft"`` trains on a batched per-observation ``rfft2``,
+which has the same semantics.
 """
 
 import torch
 
 __all__ = [
     "build_kernel_stack",
+    "convolve_fft_packed_pair",
     "convolve_fft_precomputed",
     "fft_conv_shape",
     "kernel_fft",
+    "kernel_fft_pair",
     "upsample_center_pad_kernels",
 ]
 
@@ -107,6 +111,50 @@ def convolve_fft_precomputed(image, kft, fft_shape):
     gradient.
     """
     return _ConvolveFFT.apply(image, kft, tuple(fft_shape))
+
+
+def kernel_fft_pair(kernel0, kernel1, image_shape, fft_shape):
+    """Full spectra ``(A, B) = ((K0 + K1)/2, (K0 - K1)/2)`` of an
+    origin-centered kernel pair at ``fft_shape``, for
+    :func:`convolve_fft_packed_pair`.
+
+    The kernels are ``(..., kh, kw)`` tensors; the transforms run in
+    float64 and the spectra come back as complex64 on the kernels'
+    device.
+    """
+    min0 = fft_conv_shape(image_shape, kernel0.shape)
+    min1 = fft_conv_shape(image_shape, kernel1.shape)
+    if (fft_shape[0] < max(min0[0], min1[0])
+            or fft_shape[1] < max(min0[1], min1[1])):
+        raise ValueError(
+            f"fft_shape {fft_shape} too small for linear convolution"
+        )
+    fft_shape = tuple(fft_shape)
+    f0, f1 = (
+        torch.fft.fft2(_origin_centered(k.to(torch.float64), fft_shape),
+                       s=fft_shape)
+        for k in (kernel0, kernel1)
+    )
+    return ((0.5 * (f0 + f1)).to(torch.complex64),
+            (0.5 * (f0 - f1)).to(torch.complex64))
+
+
+def convolve_fft_packed_pair(x0, x1, a, b, fft_shape):
+    """Convolve two real image stacks with two kernels via one complex FFT.
+
+    With ``Z = fft2(x0 + i x1)`` and ``Z~[m] = Z[-m]`` per axis,
+    ``ifft2(A Z + B conj(Z~)) = y0 + i y1``; returns ``(y0, y1) = (x0 *
+    k0, x1 * k1)`` cropped to the input shape. ``(a, b)`` come from
+    :func:`kernel_fft_pair`; ``(conj(a), conj(b))`` give the adjoint.
+    """
+    h, w = x0.shape[-2], x0.shape[-1]
+    pad = (0, fft_shape[1] - w, 0, fft_shape[0] - h)
+    z = torch.fft.fft2(torch.complex(torch.nn.functional.pad(x0, pad),
+                                     torch.nn.functional.pad(x1, pad)))
+    z_rev = torch.roll(torch.flip(z, dims=(-2, -1)), shifts=(1, 1),
+                       dims=(-2, -1))
+    y = torch.fft.ifft2(a * z + b * z_rev.conj())
+    return y.real[..., :h, :w], y.imag[..., :h, :w]
 
 
 def upsample_center_pad_kernels(kernels, *, factor, out_shape):

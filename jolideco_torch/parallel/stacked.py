@@ -1,4 +1,4 @@
-"""Stacked multi-observation Poisson loss, FFT convolution only.
+"""Stacked multi-observation Poisson loss.
 
 Counterpart of the JAX package's ``parallel/stacked.py``. Observations of one
 image shape stack on a leading ``obs`` axis; PSFs of different sizes are
@@ -9,10 +9,14 @@ computation:
     flux * exposure -> PSF convolution -> sum pool -> clip -> + background
     -> Poisson NLL with the precomputed Stirling term
 
-Ported: ``conv_mode="fft"`` (and ``"auto"``, which resolves to it on the
-card until the matmul-DFT kernel is ported), without calibrations and
-without energy redistribution. The other convolution backends and the
-mesh paths are not.
+Two convolution backends are ported: ``conv_mode="fft"``, a batched
+per-observation ``rfft2`` (cuFFT on the card), and ``conv_mode="pfft"``,
+the pair-packed matrix DFT (``ops/pallas_fft.py``): even and odd
+observations go pairwise through one complex transform, at a size that
+is a multiple of 128, with the images padded to multiples of 128; an
+odd last observation takes the ``rfft2`` path. Not ported: calibrations,
+energy redistribution, the other convolution backends and the mesh
+paths.
 """
 
 import numpy as np
@@ -26,6 +30,12 @@ from ..ops.fft import (
     upsample_center_pad_kernels,
 )
 from ..ops.image import sum_pool
+from ..ops.pallas_fft import (
+    conv_packed_pfft,
+    default_pfft_mode,
+    pfft_pair_spectra_device,
+    pfft_size,
+)
 
 __all__ = ["StackedPoissonLoss"]
 
@@ -39,10 +49,16 @@ class StackedPoissonLoss:
     exposures : dict of component name -> ``(N, 1, 1, H, W)``
     psf_ffts : dict of component name -> complex ``(N, 1, 1, fh, fw//2+1)``
     stirling : ``(N,)`` precomputed Stirling terms
+    conv_mode : ``"fft"`` or ``"pfft"``
+    pfft_pairs : dict of component name -> the four float32 spectrum
+        planes ``(N // 2, 1, 1, n, n)`` of the observation pairs, or None
+        (``"fft"``, or fewer than two observations)
+    pfft_ns : dict of component name -> transform size ``n``
     """
 
     def __init__(self, counts, background, exposures, psf_ffts, names_all,
-                 component_factors, fft_shape, component_names=None):
+                 component_factors, fft_shape, component_names=None,
+                 conv_mode="fft", pfft_pairs=None, pfft_ns=None):
         self.counts = counts
         self.background = background
         self.exposures = dict(exposures)
@@ -55,6 +71,9 @@ class StackedPoissonLoss:
             else tuple(exposures)
         )
         self.fft_shape = tuple(fft_shape)
+        self.conv_mode = conv_mode
+        self.pfft_pairs = pfft_pairs
+        self.pfft_ns = pfft_ns
 
     @property
     def n_datasets(self):
@@ -78,9 +97,10 @@ class StackedPoissonLoss:
         first CUDA card by default, the CPU only when asked.
         """
         device = resolve_device(device)
-        if conv_mode not in ("fft", "auto"):
+        if conv_mode not in ("fft", "pfft"):
             raise NotImplementedError(
-                f"conv_mode={conv_mode!r} is not ported yet; use 'fft'"
+                f"conv_mode={conv_mode!r} is not ported yet; use 'fft' or "
+                "'pfft'"
             )
         if calibrations:
             raise NotImplementedError("calibrations are not ported yet")
@@ -103,6 +123,8 @@ class StackedPoissonLoss:
         raw_exps = stack("exposure")
 
         exposures, psf_ffts, factors = {}, {}, []
+        pfft_pairs, pfft_ns = {}, {}
+        n_obs = len(datasets)
         common_fft_shape = None if fft_shape is None else tuple(fft_shape)
         for name, component in components.items():
             factor = component.upsampling_factor or 1
@@ -144,13 +166,26 @@ class StackedPoissonLoss:
                 )
                 for pos, idx in enumerate(idxs):
                     kernels[idx] = padded[pos]
+            kernels = torch.stack(kernels)
             kft, exp_stack = build_kernel_stack(
-                torch.stack(kernels), raw_exps, factor=factor,
+                kernels, raw_exps, factor=factor,
                 fft_shape=common_fft_shape,
                 correct_edges=correct_exposure_edges,
             )
             exposures[name] = exp_stack
             psf_ffts[name] = kft
+
+            if conv_mode == "pfft" and n_obs >= 2:
+                # spectra of the observation pairs at the 128-aligned
+                # transform size of the image padded to 128 multiples
+                padded = tuple(pfft_size(s) for s in image_shape)
+                n = pfft_size(max(padded[0] + kmax[0] - 1,
+                                  padded[1] + kmax[1] - 1))
+                n_even = 2 * (n_obs // 2)
+                pfft_pairs[name] = pfft_pair_spectra_device(
+                    kernels[0:n_even:2], kernels[1:n_even:2], padded, n
+                )
+                pfft_ns[name] = n
 
         return cls(
             counts=counts,
@@ -161,6 +196,9 @@ class StackedPoissonLoss:
             component_factors=factors,
             fft_shape=common_fft_shape,
             component_names=list(components),
+            conv_mode=conv_mode,
+            pfft_pairs=pfft_pairs or None,
+            pfft_ns=pfft_ns or None,
         )
 
     def _evaluate_batched(self, fluxes, conv_fn):
@@ -178,11 +216,45 @@ class StackedPoissonLoss:
 
     def evaluate(self, fluxes):
         """Per-observation mean Poisson NLL: ``(N,)`` tensor."""
-        def conv_fn(name, x):
-            return convolve_fft_precomputed(x, self.psf_ffts[name],
-                                            self.fft_shape)
+        if self.conv_mode == "pfft" and self.pfft_pairs is not None:
+            return self._evaluate_batched(fluxes, self._conv_packed_pfft)
+        return self._evaluate_batched(fluxes, self._conv_fft)
 
-        return self._evaluate_batched(fluxes, conv_fn)
+    def _conv_fft(self, name, x):
+        return convolve_fft_precomputed(x, self.psf_ffts[name],
+                                        self.fft_shape)
+
+    def _conv_packed_pfft(self, name, x):
+        """Observation pairs through the matrix DFT, an odd last one
+        through the ``rfft2``."""
+        n = x.shape[0]
+        n_pairs = n // 2
+        y0, y1 = self._conv_pfft_pair(name, x[0:2 * n_pairs:2],
+                                      x[1:2 * n_pairs:2])
+        y = torch.stack([y0, y1], dim=1).reshape((2 * n_pairs,)
+                                                 + y0.shape[1:])
+        if n % 2:
+            tail = convolve_fft_precomputed(x[-1], self.psf_ffts[name][-1],
+                                            self.fft_shape)
+            y = torch.cat([y, tail[None]])
+        return y
+
+    def _conv_pfft_pair(self, name, xe, xo):
+        """``xe``, ``xo`` ``(P, ..., H, W)`` padded to 128 multiples, the
+        leading dimensions flattened into the pair batch, convolved, and
+        cropped back."""
+        n = self.pfft_ns[name]
+        lead = xe.shape[:-2]
+        h, w = xe.shape[-2], xe.shape[-1]
+        hp, wp = pfft_size(h), pfft_size(w)
+        pad = (0, wp - w, 0, hp - h)
+        xe = torch.nn.functional.pad(xe, pad).reshape(-1, hp, wp)
+        xo = torch.nn.functional.pad(xo, pad).reshape(-1, hp, wp)
+        planes = [p.expand(lead + p.shape[-2:]).reshape(-1, n, n)
+                  for p in self.pfft_pairs[name]]
+        y0, y1 = conv_packed_pfft(xe, xo, *planes, n, default_pfft_mode())
+        return (y0[:, :h, :w].reshape(lead + (h, w)),
+                y1[:, :h, :w].reshape(lead + (h, w)))
 
     def __call__(self, fluxes):
         """Weighted sum of per-observation losses."""

@@ -17,8 +17,12 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "BUILD_INFO", "load_libraries", "load_library"]
+__all__ = ["BUILD_DIR", "BUILD_INFO", "LIBRARIES", "load_libraries",
+           "load_library"]
 
+# the package's kernel libraries: the fused GMM scorer (K1, K2, K4), the
+# patch-level scorer (K5-K9) and the matrix-DFT convolution (K3)
+LIBRARIES = ("gmm_fused", "gmm_patch", "pfft_conv")
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -3,8 +3,9 @@
 Builds the port's main path (joint MAP deconvolution of 10 observations
 of 1024² counts with 33² PSFs under the ``astro-snr-v1`` GMM patch
 prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
-each patch by the logsumexp over its components), runs a few warm-up
-steps, then traces
+each patch by the logsumexp over its components; ``--conv-mode pfft``
+convolves through the matrix-DFT kernels instead of cuFFT), runs a few
+warm-up steps, then traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes
 (``TotalLoss.fluxes_error``, what ``compute_error=True`` runs once after
@@ -18,10 +19,10 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--out chiprun_out]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--out chiprun_out]
 
 The full tables and Chrome traces go to ``--out``, their names tagged
-``marg`` under ``--marginalize``.
+``marg`` under ``--marginalize`` and ``pfft`` under ``--conv-mode pfft``.
 """
 
 import argparse
@@ -33,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 
-def build(n_obs, size, marginalize=False):
+def build(n_obs, size, marginalize=False, conv_mode="fft"):
     """``step()`` of the main path on the first card, and ``probe()``,
     the flux-error probe at the current parameters."""
     from .. import (
@@ -51,7 +52,7 @@ def build(n_obs, size, marginalize=False):
     component = SpatialFluxComponent.from_numpy(
         np.ones((size, size), np.float32), prior=prior)
     deco = MAPDeconvolver(learning_rate=0.1, update_strategy="joint",
-                          conv_mode="fft", trace_every=0, device="cuda")
+                          conv_mode=conv_mode, trace_every=0, device="cuda")
     step, params, components, total_loss = deco.make_step(datasets,
                                                           component)
 
@@ -132,6 +133,8 @@ def main():
     parser.add_argument("--n-obs", type=int, default=10)
     parser.add_argument("--size", type=int, default=1024)
     parser.add_argument("--marginalize", action="store_true")
+    parser.add_argument("--conv-mode", choices=("fft", "pfft"),
+                        default="fft")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -140,8 +143,10 @@ def main():
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
 
-    step, probe = build(args.n_obs, args.size, args.marginalize)
-    suffix = "_marg" if args.marginalize else ""
+    step, probe = build(args.n_obs, args.size, args.marginalize,
+                        args.conv_mode)
+    suffix = ("_marg" if args.marginalize else "") + (
+        "_pfft" if args.conv_mode == "pfft" else "")
     profile_calls(torch, step, args.steps, out, "step" + suffix)
     profile_calls(torch, probe, args.steps, out, "probe" + suffix)
     return 0

@@ -15,7 +15,11 @@ float64 on the same inputs: at most twice the float32 plain version's
 max-abs error plus 1e-6 of the result's max-abs (softmax weights of
 logits of order 1e5 to 1e8 are ill-conditioned in float32); they run on
 the ``astro-snr-v1`` GMM, whose weights are nearly one-hot, and on a
-random SPD GMM, whose weights are not.
+random SPD GMM, whose weights are not. The matrix-DFT convolution's
+three kernels (K3) are held the same way against their plain version in
+float64, and the whole pipeline also within 1e-5 of its max-abs; the
+pfft path's loss, gradient and flux errors, card against CPU, to rtol
+1e-5 and 1e-4.
 """
 
 import numpy as np
@@ -296,6 +300,106 @@ def test_marginalised_probe_on_card_matches_cpu(device, gmm):
                         gp.gmm_hvp_marg_weights_cuda.launches,
                         gp.gmm_hvp_marg_mix_cuda.launches)
             assert launches == (1, 1, 1, 1)
+    err_cpu, err_gpu = errors.values()
+    assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
+    torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)
+
+
+def pfft_anchored(got, plain32, plain64):
+    err = float((got.to(plain64.dtype) - plain64).abs().max())
+    err32 = float((plain32.to(plain64.dtype) - plain64).abs().max())
+    assert err <= 2.0 * err32 + 1e-6 * float(plain64.abs().max()), (err, err32)
+
+
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("p_,h,w,k", [
+    (1, 128, 128, 9), (2, 256, 128, 33), (3, 128, 384, 9), (2, 384, 256, 65),
+])
+def test_pfft_kernels_match_float64(device, p_, h, w, k, conj_spec):
+    from jolideco_torch.ops import pallas_fft as pf
+
+    rs = np.random.RandomState(h + w + k)
+    x0, x1 = (torch.as_tensor(rs.randn(p_, h, w).astype(np.float32),
+                              device=device) for _ in range(2))
+    n = pf.pfft_size(max(h, w) + k - 1)
+    planes = [pf.pfft_pair_spectra(rs.rand(k, k), rs.rand(k, k), (h, w), n)
+              for _ in range(p_)]
+    spectra = [torch.as_tensor(np.stack([q[j] for q in planes]),
+                               device=device) for j in range(4)]
+    c128, f64 = torch.complex128, torch.float64
+    pf.reset_counters()
+    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    pfft_anchored(u, pf.cols_fwd_plain(x0, x1, n),
+                  pf.cols_fwd_plain(x0.double(), x1.double(), n, f64))
+    v = pf.pfft_rows_combine_cuda(u, *spectra, conj_spec)
+    for got, want32, want64 in zip(
+            v, pf.rows_combine_plain(u, *spectra, conj_spec),
+            pf.rows_combine_plain(u.to(c128), *spectra, conj_spec, f64)):
+        pfft_anchored(got, want32, want64)
+    y = pf.pfft_cols_inv_cuda(*v, h)
+    for got, want32, want64 in zip(
+            y, pf.cols_inv_plain(*v, h),
+            pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)):
+        pfft_anchored(got, want32, want64)
+    ref = pf.conv_packed_pfft_plain(x0.double(), x1.double(), *spectra, n,
+                                    conj_spec, f64)
+    scale = max(float(r.abs().max()) for r in ref)
+    for got, want in zip(y, ref):
+        assert float((got.double() - want).abs().max()) <= 1e-5 * scale
+    torch.cuda.synchronize()
+    assert (pf.pfft_cols_fwd_cuda.launches, pf.pfft_rows_combine_cuda.launches,
+            pf.pfft_cols_inv_cuda.launches) == (1, 1, 1)
+
+
+def test_pfft_path_on_card_matches_cpu(device):
+    """``StackedPoissonLoss(conv_mode="pfft")`` at 3 × 100 × 72 (padded
+    to 128², a pair and an odd tail), then the Hessian probe at 2 × 64²:
+    card against CPU, with K3's kernels launched once per pipeline."""
+    from jolideco_torch import FluxComponents, MAPDeconvolver
+    from jolideco_torch import SpatialFluxComponent, UniformPrior
+    from jolideco_torch.ops import pallas_fft as pf
+    from jolideco_torch.parallel.stacked import StackedPoissonLoss
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    datasets = make_datasets(n_obs=3, size=100, psf_size=9, seed=5)
+    for d in datasets.values():
+        for key in ("counts", "exposure", "background"):
+            d[key] = d[key][:, :72]
+    flux = np.random.RandomState(6).uniform(0.5, 2.0, (100, 72))
+    results = {}
+    for dev in ("cpu", device):
+        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+            flux, device=dev)})
+        loss = StackedPoissonLoss.from_datasets(datasets, comps,
+                                                conv_mode="pfft", device=dev)
+        f = comps.fluxes_from()[0].detach().requires_grad_(True)
+        pf.reset_counters()
+        values = loss.evaluate((f,))
+        values.sum().backward()
+        if dev != "cpu":
+            assert pf.pfft_cols_fwd_cuda.launches == 2
+            assert pf.conv_packed_pfft_plain.calls == 0
+        results[str(dev)] = (values.detach().cpu(), f.grad.cpu())
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
+    torch.testing.assert_close(v_gpu, v_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
+                               atol=1e-5 * float(g_cpu.abs().max()))
+
+    datasets = make_datasets(n_obs=2, size=64, psf_size=9, seed=3)
+    errors = {}
+    for dev in ("cpu", device):
+        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+            np.random.RandomState(4).uniform(0.5, 2.0, (64, 64)),
+            prior=UniformPrior())})
+        deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
+                              device=dev, conv_mode="pfft")
+        total = deco.build_loss(datasets, comps, torch.device(dev))
+        for comp in comps.values():
+            comp.to(dev)
+        pf.reset_counters()
+        errors[str(dev)] = total.fluxes_error(comps.fluxes_from())["flux"].cpu()
+        if dev != "cpu":
+            assert pf.pfft_rows_combine_cuda.launches == 4
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

@@ -14,10 +14,14 @@ wrappers' own ``ctypes`` signatures) on small inputs. It says nothing of
 their speed, their register use or of anything only the card's compiler
 does; ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` check them there.
 
+Dynamic shared memory (``extern __shared__``) becomes a static buffer of
+the card's 227 KB per block.
+
 Tolerances are the card's (``chip_smoke.py`` phase 2): values rtol 1e-5,
 argmax identical, the MAP gradients within 1e-4 of their max-abs, the
-marginalise kernels within twice the float32 plain version's error
-against float64 plus 1e-6 of the max-abs.
+marginalise kernels and the matrix-DFT convolution's passes within
+twice the float32 plain version's error against float64 plus 1e-6 of
+the max-abs (the convolution's whole pipeline also within 1e-5 of it).
 """
 
 import ctypes
@@ -31,6 +35,7 @@ import torch
 
 from jolideco_torch.ops import gmm_fused as gf
 from jolideco_torch.ops import gmm_pallas as gp
+from jolideco_torch.ops import pallas_fft as pf
 from jolideco_torch.priors import GaussianMixtureModel
 from jolideco_torch.utils import cuda_build
 from jolideco_torch.utils.interop import gmm_from_arrays
@@ -54,6 +59,8 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct dim3_ { unsigned x, y, z; };
 extern dim3_ threadIdx, blockIdx, blockDim;
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -63,9 +70,16 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
 """
 MATH_STUB = "#pragma once\n#define CUDART_INF_F __builtin_inff()\n"
 LAUNCH = re.compile(r"([\w<>]+?)<<<\s*(.*?),\s*(\w+),.*?>>>\((.*?)\);", re.S)
+DYNAMIC_SMEM = re.compile(
+    r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
 
 
 def emulated_source(source):
@@ -76,7 +90,9 @@ def emulated_source(source):
                 f"{m.group(1)}({m.group(4)}); }}")
 
     body = LAUNCH.sub(launch, source)
-    assert "<<<" not in body
+    body = DYNAMIC_SMEM.sub(
+        r"alignas(16) static \1 \2[232448 / sizeof(\1)];", body)
+    assert "<<<" not in body and "extern __shared__" not in body
     return ("#include \"cuda_runtime.h\"\n"
             "dim3_ threadIdx{0, 0, 0}, blockIdx{0, 0, 0}, "
             "blockDim{1, 1, 1};\n" + body)
@@ -93,7 +109,7 @@ def emulated(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(STUB)
     (out / "math_constants.h").write_text(MATH_STUB)
     libs = {}
-    for name in ("gmm_fused", "gmm_patch"):
+    for name in cuda_build.LIBRARIES:
         src = out / f"{name}.cpp"
         src.write_text(emulated_source(
             (cuda_build.CSRC_DIR / f"{name}.cu").read_text()))
@@ -133,14 +149,21 @@ def libs(emulated, monkeypatch):
     return gf._library(), gp._library()
 
 
+@pytest.fixture
+def pfft_lib(emulated, monkeypatch):
+    """The matrix-DFT convolution's ctypes library, built for the CPU."""
+    monkeypatch.setattr(cuda_build, "load_library", emulated)
+    return pf._library()
+
+
 def ptr(t):
     assert t.is_contiguous()
     return t.data_ptr()
 
 
 def anchored(got, plain32, plain64):
-    err = float((got.double() - plain64).abs().max())
-    err32 = float((plain32.double() - plain64).abs().max())
+    err = float((got.to(plain64.dtype) - plain64).abs().max())
+    err32 = float((plain32.to(plain64.dtype) - plain64).abs().max())
     assert err <= 2.0 * err32 + 1e-6 * float(plain64.abs().max()), (err, err32)
 
 
@@ -249,3 +272,63 @@ def test_patch_kernels_match_plain(libs, bufs, n):
         ptr(bufs["b_rows"]), n, k, ptr(hvp), None) == 0
     anchored(hvp, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
              gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64))
+
+
+def pfft_case(p_, h, w, k, n, seed):
+    """Images, spectra and tables of one convolution case."""
+    rs = np.random.RandomState(seed)
+    x0 = torch.as_tensor(rs.randn(p_, h, w).astype(np.float32))
+    x1 = torch.as_tensor(rs.randn(p_, h, w).astype(np.float32))
+    planes = [pf.pfft_pair_spectra(rs.rand(k, k), rs.rand(k, k), (h, w), n)
+              for _ in range(p_)]
+    spectra = [torch.as_tensor(np.stack([q[j] for q in planes]))
+               for j in range(4)]
+    tables = {name: torch.view_as_real(torch.as_tensor(
+        t.astype(np.complex64))).contiguous()
+        for name, t in pf._stage_tables(n // pf.PFFT_LANE).items()}
+    return x0, x1, spectra, tables
+
+
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("p_,h,w,k,n", [
+    (1, 128, 128, 9, 256),        # the smallest transform
+    (2, 128, 256, 9, 384),        # rectangular, n above its minimum
+])
+def test_pfft_kernels_match_plain(pfft_lib, p_, h, w, k, n, conj_spec):
+    x0, x1, spectra, tab = pfft_case(p_, h, w, k, n, seed=n + w)
+    m = n // pf.PFFT_LANE
+    u = torch.empty((p_, n, w), dtype=torch.complex64)
+    assert pfft_lib.pfft_cols_fwd(ptr(x0), ptr(x1), p_, h, w, m,
+                                  ptr(tab["mf"]), ptr(tab["wf"]), ptr(u),
+                                  None) == 0
+    x64 = (x0.double(), x1.double())
+    anchored(u, pf.cols_fwd_plain(x0, x1, n),
+             pf.cols_fwd_plain(*x64, n, torch.float64))
+
+    v1, v2 = torch.empty_like(u), torch.empty_like(u)
+    assert pfft_lib.pfft_rows(
+        ptr(u), *map(ptr, spectra), p_, w, m, int(conj_spec),
+        ptr(tab["mf"]), ptr(tab["mi"]), ptr(tab["wf"]), ptr(tab["wi"]),
+        ptr(v1), ptr(v2), None) == 0
+    v32 = pf.rows_combine_plain(u, *spectra, conj_spec)
+    v64 = pf.rows_combine_plain(u.to(torch.complex128), *spectra, conj_spec,
+                                torch.float64)
+    for got, want32, want64 in zip((v1, v2), v32, v64):
+        anchored(got, want32, want64)
+
+    y0, y1 = torch.empty(p_, h, w), torch.empty(p_, h, w)
+    assert pfft_lib.pfft_cols_inv(ptr(v1), ptr(v2), p_, h, w, m,
+                                  ptr(tab["mi"]), ptr(tab["wi"]), ptr(y0),
+                                  ptr(y1), None) == 0
+    y32 = pf.cols_inv_plain(v1, v2, h)
+    y64 = pf.cols_inv_plain(v1.to(torch.complex128),
+                            v2.to(torch.complex128), h, torch.float64)
+    for got, want32, want64 in zip((y0, y1), y32, y64):
+        anchored(got, want32, want64)
+
+    # the whole pipeline against float64: within 1e-5 of its max-abs
+    ref = pf.conv_packed_pfft_plain(*x64, *spectra, n, conj_spec,
+                                    torch.float64)
+    scale = max(float(r.abs().max()) for r in ref)
+    for got, want in zip((y0, y1), ref):
+        assert float((got.double() - want).abs().max()) <= 1e-5 * scale

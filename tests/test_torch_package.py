@@ -33,7 +33,7 @@ def test_imports_without_jax():
         "for name in ('jax', 'jaxlib', 'optax', 'jolideco_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import jolideco_torch\n"
-        "from jolideco_torch.ops import gmm_fused, gmm_pallas\n"
+        "from jolideco_torch.ops import gmm_fused, gmm_pallas, pallas_fft\n"
         "from jolideco_torch.utils import interop, cuda_build\n"
         "print('ok')\n"
     )

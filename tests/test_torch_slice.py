@@ -186,7 +186,7 @@ def test_unported_options_raise():
     for kwargs in ({"update_strategy": "sequential", "trace_every": 0},
                    {"update_strategy": "joint", "trace_every": 1},
                    {"update_strategy": "joint", "trace_every": 0,
-                    "conv_mode": "pfft"},
+                    "conv_mode": "ct"},
                    {"update_strategy": "joint", "trace_every": 0,
                     "stop_early": True}):
         with pytest.raises(NotImplementedError):

@@ -77,5 +77,5 @@ def test_unported_conv_modes_raise():
         {"flux": TComponent.from_numpy(np.ones((SIZE, SIZE), np.float32))}
     )
     with pytest.raises(NotImplementedError):
-        TStacked.from_datasets(datasets, comps, conv_mode="pfft",
+        TStacked.from_datasets(datasets, comps, conv_mode="ct",
                                device="cpu")
