@@ -91,11 +91,13 @@ MARG_ERR_FACTOR, MARG_ERR_FLOOR = 2.0, 1e-6
 # K3 against the float64 plain version: the anchored bar above, and the
 # whole pipeline also within this share of the result's max-abs
 PFFT_ERR_SHARE = 1e-5
-# the pfft path against the fft path after the same steps: flux within
-# this share of its max-abs (the two convolutions differ by about 1e-6 of
-# their max-abs, which Adam's first step amplifies where a gradient is
-# near zero), errors within this relative tolerance
-PFFT_FLUX_SHARE, PFFT_ERROR_RTOL = 1e-4, 1e-4
+# the pfft path against the fft path after the same 20 steps: flux
+# within this share of its max-abs. The two convolutions differ by about
+# 2e-6 of their max-abs (phase 2), but Adam's first step, -lr g / (|g| +
+# eps), turns that into a different step wherever a pixel's gradient is
+# near zero: 3.3e-4 of the max-abs (4.5e-4 elementwise) on an H100, so
+# the bar is 1e-3. Errors within this relative tolerance.
+PFFT_FLUX_SHARE, PFFT_ERROR_RTOL = 1e-3, 1e-4
 # the main path's field and observation count, and the ragged image of
 # the kernel checks
 FIELD, N_OBS, RAGGED = 1024, 10, (1000, 904)
@@ -1114,7 +1116,8 @@ def phase_pfft(torch, device, flux_fft, errors_fft):
     flux_diff = float(np.abs(flux - flux_fft).max() / np.abs(flux_fft).max())
     flux_rel = float(np.max(np.abs(flux - flux_fft) / np.abs(flux_fft)))
     check(flux_diff <= PFFT_FLUX_SHARE, f"pfft flux against fft: max-abs "
-          f"difference {flux_diff:.3g} of the max (elementwise {flux_rel:.3g})")
+          f"difference {flux_diff:.3g} of the max (elementwise "
+          f"{flux_rel:.3g})")
     steps_per_s = STEPS / result.train_seconds
     print(f"phase 6 pfft slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
           f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "

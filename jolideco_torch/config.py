@@ -19,9 +19,10 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   the JAX package's ``config.set_gmm_precision``), and the matmul-DFT
   mode it names (:func:`pfft_mode`: ``"f32"``, ``"split"``, ``"bf16"``).
   The CUDA kernels compute in full float32 whatever the dial says, which
-  meets the strictest bar. At import and on every dial change the float32 matmul and cuDNN
-  paths are pinned to full float32: PyTorch lets cuDNN convolutions run
-  in TF32 by default, which keeps only about three decimal digits.
+  meets the strictest bar. At import and on every dial change the
+  float32 matmul and cuDNN paths are pinned to full float32: PyTorch
+  lets cuDNN convolutions run in TF32 by default, which keeps only about
+  three decimal digits.
 """
 
 from contextlib import contextmanager

@@ -19,9 +19,9 @@ trained fluxes (``TotalLoss.fluxes_error``): flux errors
 ``sqrt(1 / (H · 1))`` per component, on the patch-level GMM scorer's
 kernels.
 
-Ported: ``update_strategy="joint"``, ``trace_every=0``,
-``conv_mode`` ``"fft"`` and ``"pfft"``, ``compute_error``. The sequential strategy, the
-loss trace, early stopping and checkpoints raise
+Ported: ``update_strategy="joint"``, ``trace_every=0``, ``conv_mode``
+``"fft"`` and ``"pfft"``, ``compute_error``. The sequential strategy,
+the loss trace, early stopping and checkpoints raise
 ``NotImplementedError``.
 """
 
@@ -180,10 +180,11 @@ class MAPDeconvolver:
 
     def build_loss(self, datasets, components, device):
         """The joint strategy's total loss on ``device``."""
-        # "auto" is the rfft2 (cuFFT): at 5 pairs of 1024^2 (n = 1152) the
-        # matrix DFT's three kernels take AUTO_PFFT_MS per direction
-        # against cuFFT's AUTO_FFT_MS for the same packed convolution
-        # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
+        # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
+        # 1024^2 (n = 1152) the matrix DFT's three kernels took 3.92-3.94
+        # ms per direction, cuFFT's packed pair 0.57-0.58 ms and the
+        # batched rfft2 of the same 10 images 0.44-0.45 ms (chip_smoke.py
+        # phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
         poisson = StackedPoissonLoss.from_datasets(
             datasets=datasets, components=components,

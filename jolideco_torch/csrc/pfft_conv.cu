@@ -60,7 +60,10 @@
 // Tiles go to threads round-robin and no register state outlives a
 // barrier, so the result does not depend on the block size. The TPU's
 // 128-lane stage split is kept (it is the factorisation); its VMEM strip
-// scratch and chunk sizes are not.
+// scratch and chunk sizes are not. On an NVIDIA H100 80GB HBM3 (700 W
+// limit), 5 pairs of 1024^2, n = 1152 (chip_smoke.py phase 2): pass 1
+// 0.36 ms, pass 2 2.12 ms, pass 3 1.39 ms, a direction 3.92 ms (11% of
+// the bound; cuFFT's packed pair 0.57 ms); 72-77 registers, no spills.
 
 #include <cuda_runtime.h>
 
@@ -179,7 +182,9 @@ pfft_cols_fwd_kernel(const float* __restrict__ x0,
   float2* out = u + ((size_t)p * n + kLane * k2) * W + c0;
   cgemm128<4>(mat, kLane, opnd, kColsFwd, kLane, kColsFwd,
               [&](int i0, int jt, int cs, const float2 (&acc)[4][4]) {
+#pragma unroll
                 for (int i = 0; i < 4; ++i)
+#pragma unroll
                   for (int q = 0; q < 4; ++q)
                     out[(size_t)(i0 + i) * W + jt + q * cs] = acc[i][q];
               });
@@ -236,9 +241,11 @@ pfft_rows_kernel(const float2* __restrict__ u,
     // Z = S mf[k2]; then A . Z and conj(B2) . Z
     cgemm128<2>(st, kLdS, mat, kLane, kRows, kLane,
                 [&](int i0, int jt, int cs, const float2 (&acc)[2][4]) {
+#pragma unroll
                   for (int i = 0; i < 2; ++i) {
                     const int r = i0 + i;
                     const size_t spec = (row0 + r) * n + kLane * k2;
+#pragma unroll
                     for (int q = 0; q < 4; ++q) {
                       const int k1 = jt + q * cs;
                       const float2 a = make_float2(
@@ -257,11 +264,13 @@ pfft_rows_kernel(const float2* __restrict__ u,
     // G = [A.Z; conj(B2).Z] mi[k2]; V1 += w G, V2 += conj(w G)
     cgemm128<4>(ut, kLdU, mat, kLane, 2 * kRows, kLane,
                 [&](int i0, int jt, int cs, const float2 (&acc)[4][4]) {
+#pragma unroll
                   for (int i = 0; i < 4; ++i) {
                     const int row = i0 + i;
                     const bool second = row >= kRows;
                     float2* dst = second ? v2row + (size_t)(row - kRows) * W
                                          : v1row + (size_t)row * W;
+#pragma unroll
                     for (int q = 0; q < 4; ++q) {
                       const int b = jt + q * cs;
                       for (int a = 0; a < wb; ++a) {
@@ -319,8 +328,10 @@ pfft_cols_inv_kernel(const float2* __restrict__ v1,
 
     cgemm128<4>(mat, kLane, opnd, kLdB, kLane, kLdB,
                 [&](int i0, int jt, int cs, const float2 (&acc)[4][4]) {
+#pragma unroll
                   for (int i = 0; i < 4; ++i) {
                     const int b = i0 + i;
+#pragma unroll
                     for (int q = 0; q < 4; ++q) {
                       const int col = jt + q * cs;
                       const bool imag = col >= kColsInv;

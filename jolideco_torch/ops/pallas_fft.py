@@ -57,6 +57,8 @@ from .gmm_fused import _check, _raise_on_error
 
 __all__ = [
     "PFFT_LANE",
+    "cols_fwd_plain",
+    "cols_inv_plain",
     "conv_packed_pfft",
     "conv_packed_pfft_plain",
     "default_pfft_mode",
@@ -68,6 +70,7 @@ __all__ = [
     "pfft_rows_combine_cuda",
     "pfft_size",
     "reset_counters",
+    "rows_combine_plain",
 ]
 
 PFFT_LANE = 128  # stage-B block; transform sizes are multiples of this
@@ -353,7 +356,8 @@ def pfft_cols_fwd_cuda(x0, x1, n):
 
 def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
     """Launch pass 2 on ``U`` ``(P, n, W)`` complex64 and the spectra
-    ``(P, n, n)`` float32; returns ``(V1, V2)`` (:func:`rows_combine_plain`)."""
+    ``(P, n, n)`` float32; returns ``(V1, V2)``
+    (:func:`rows_combine_plain`)."""
     device = _cuda_device(u, "pfft_rows_combine_cuda")
     p_, n, w = u.shape
     if n % PFFT_LANE or w % PFFT_LANE or w > n:

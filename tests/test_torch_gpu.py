@@ -397,7 +397,8 @@ def test_pfft_path_on_card_matches_cpu(device):
         for comp in comps.values():
             comp.to(dev)
         pf.reset_counters()
-        errors[str(dev)] = total.fluxes_error(comps.fluxes_from())["flux"].cpu()
+        out = total.fluxes_error(comps.fluxes_from())
+        errors[str(dev)] = out["flux"].cpu()
         if dev != "cpu":
             assert pf.pfft_rows_combine_cuda.launches == 4
     err_cpu, err_gpu = errors.values()

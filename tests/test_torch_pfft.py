@@ -1,12 +1,13 @@
-"""The port's matrix-DFT convolution (``ops/pallas_fft.py``) against the JAX package's.
+"""The port's matrix-DFT convolution against the JAX package's.
 
 The JAX side runs its three Pallas kernels in the interpreter, in the
 ``"f32"`` mode, as ``tests/test_pallas_fft.py`` does; the port runs its
 plain version (CPU tensors). Inputs are made with numpy from a seed.
 Tolerances, each with its reason:
 
-- the stage tables reproduce numpy's DFT to float32 rounding (rtol 1e-5,
-  the JAX test's bar); the host spectra equal the JAX package's exactly
+- the stage tables (complex128) reproduce numpy's DFT and its inverse
+  to float64 rounding (rtol 1e-10), and their float32 planes equal the
+  JAX package's exactly; the host spectra equal the JAX package's exactly
   (the same float64 numpy); the device spectra (``torch.fft`` in float64)
   match them to float32 rounding (6e-8 of the max-abs);
 - the convolution, its gradient and its second derivative: within
