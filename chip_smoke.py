@@ -11,7 +11,9 @@ Phases, each printing one or more lines:
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
    compiler per source, all at once (the fused scorer, the patch-level
-   scorer and the matrix-DFT convolution);
+   scorer, the matrix-DFT convolution in float32 and its passes 2 and 3
+   on the tensor cores), each kernel's registers, spills and shared
+   memory as ``ptxas`` reports them;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
@@ -23,7 +25,9 @@ Phases, each printing one or more lines:
    of 1024², n = 1152, the 33² PSFs) and at 5 pairs of 1024 x 896, each
    pass and the whole pipeline against the plain version run in
    float64, beside cuFFT's packed pair (the yardstick, timed with the
-   per-observation ``rfft2`` of the same 10 images);
+   per-observation ``rfft2`` of the same 10 images); the same for the
+   tensor-core kernels of passes 2 and 3 and the ``"split"`` pipeline,
+   held to the split plain version's error and to 1e-4 of the max-abs;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``.
@@ -42,11 +46,14 @@ Phases, each printing one or more lines:
    two stages of its Hessian action (K9a, K9b), each path with its own
    counts; then a small run's flux and errors on the card against the
    CPU's plain path;
-6. the matrix-DFT path: phases 3 and 4 again with
-   ``conv_mode="pfft"``, the convolution's forward and adjoint on K3's
-   three kernels (and, in the probe, the adjoint's adjoint); flux and
-   errors held against phases 3 and 4; then a small run's flux and
-   errors on the card against the CPU's plain path.
+6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
+   the default dial (``"split"``: pass 1 on its float32 kernel, passes 2
+   and 3 on the tensor cores) and under ``"highest"`` (``"f32"``: the
+   three float32 kernels), each with its own exact counts; phase 4 again
+   under the default dial (in the probe, the adjoint's adjoint too);
+   flux and errors held against phases 3 and 4; then a small run's flux
+   and errors on the card against the CPU's plain path, ``"split"`` on
+   both.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -105,8 +112,18 @@ MAIN = f"{FIELD}x{FIELD}"
 # K3's rectangular batch: what an image of up to 1024 x 896 pads to, at
 # the main path's transform size
 PFFT_RECT = (1024, 896)
+# the tensor-core kernels of K3's "split" mode against the float64 plain
+# version: the anchored bar above (against the float32 split plain
+# version), and also within this share of the max-abs (split's own error
+# is about 3.1e-5; bf16 alone is 1.3e-2)
+PFFT_SPLIT_SHARE = 1e-4
+# the JAX package's documented error of its matmul-DFT convolution in
+# "split" mode against the float32 FFT (jolideco_tpu/ops/pallas_fft.py:
+# 86-102), printed beside the split pipeline's
+JAX_SPLIT_ERR = 3.1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -174,9 +191,9 @@ def ptxas_summary(text):
     return out
 
 
-def bound(flop, nbytes):
+def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
     """Least time in ms on the card, and what sets it."""
-    t_ops, t_bytes = flop / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
@@ -636,11 +653,29 @@ def pfft_inputs(torch, device, shape, seed):
     return x0, x1, planes, psfs, n
 
 
+def split_anchored(label, name, got, plain32, plain64):
+    """The tensor-core kernels' bar: :func:`anchored` against the float32
+    ``"split"`` plain version, and within ``PFFT_SPLIT_SHARE`` of the
+    max-abs."""
+    err, err32, scale = anchored(label, name, got, plain32, plain64)
+    check(err <= PFFT_SPLIT_SHARE * scale,
+          f"{label}: {name} error {err:.3g} beyond {PFFT_SPLIT_SHARE} of "
+          f"the max-abs {scale:.3g}")
+    return err, err32, scale
+
+
+def worst(errs):
+    """The error tuple whose share of its max-abs is the largest."""
+    return max(errs, key=lambda e: e[0] / e[2])
+
+
 def pfft_checks(torch, device, label, shape, seed):
-    """K3's three kernels, and the pipeline, against the plain version in
-    float64 on one batch, forward and adjoint; cuFFT's packed pair beside
-    them. Returns the errors (kernel, float32 plain, max-abs) and the
-    inputs."""
+    """K3's kernels, and the pipeline in each mode, against the plain
+    version in float64 on one batch, forward and adjoint; cuFFT's packed
+    pair beside them. The float32 kernels are held to the float32 plain
+    version's error, the tensor-core kernels of ``"split"`` to the split
+    plain version's. Returns the errors (kernel, float32 plain, max-abs)
+    and the inputs."""
     from jolideco_torch.ops import pallas_fft as pf
     from jolideco_torch.ops.fft import (
         convolve_fft_packed_pair,
@@ -674,6 +709,19 @@ def pfft_checks(torch, device, label, shape, seed):
             (anchored(label, f"K3 cols_inv {tag} y{i}", *ys)
              for i, ys in enumerate(zip(y, y32, y64))),
             key=lambda e: e[0] / e[2])
+        # the tensor-core kernels on the same U, against the split plain
+        # version and float64 (v64 is the float64 pass on U)
+        vt = pf.pfft_rows_combine_tc_cuda(u, *planes, conj)
+        vs = pf.rows_combine_plain(u, *planes, conj, mode="split")
+        errs[f"rows_tc_{tag}"] = worst(
+            split_anchored(label, f"K3 rows tc {tag} V{i + 1}", *vv)
+            for i, vv in enumerate(zip(vt, vs, v64)))
+        yt = pf.pfft_cols_inv_tc_cuda(*vt, h)
+        ys = pf.cols_inv_plain(*vt, h, mode="split")
+        yt64 = pf.cols_inv_plain(*(t.to(c128) for t in vt), h, f64)
+        errs[f"cols_inv_tc_{tag}"] = worst(
+            split_anchored(label, f"K3 cols_inv tc {tag} y{i}", *yy)
+            for i, yy in enumerate(zip(yt, ys, yt64)))
         # the whole pipeline and cuFFT's packed pair against float64
         y = pf.pfft_conv_cuda(x0, x1, *planes, n, conj)
         y32 = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj)
@@ -692,15 +740,31 @@ def pfft_checks(torch, device, label, shape, seed):
               f"{label}: K3 {tag} error {err:.3g} against float64, plain "
               f"float32 {err32:.3g}, cuFFT {errc:.3g}, max {scale:.3g}")
         errs[f"pipeline_{tag}"] = (err, err32, scale, errc)
+        # the split pipeline: pass 1, then the tensor-core kernels
+        yt = pf.pfft_conv_cuda(x0, x1, *planes, n, conj, "split")
+        ys = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj,
+                                       mode="split")
+        torch.cuda.synchronize()
+        e = [split_anchored(label, f"K3 split pipeline {tag} y{i}", *yy)
+             for i, yy in enumerate(zip(yt, ys, y64))]
+        errs[f"pipeline_split_{tag}"] = (max(t[0] for t in e),
+                                         max(t[1] for t in e), scale, errc)
     print(f"phase 2 K3 {label} (5 pairs, n = {n}): against float64 (kernel, "
-          "plain float32, max-abs): "
+          "plain float32 or split, max-abs): "
           + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
                       for name, e in errs.items())
           + "; cuFFT packed pair "
           + ", ".join(f"{errs[f'pipeline_{t}'][3]:.3g} ({t})"
                       for t in ("forward", "adjoint")))
+    split, f32 = (max(errs[f"{key}_{t}"][0] / errs[f"{key}_{t}"][2]
+                      for t in ("forward", "adjoint"))
+                  for key in ("pipeline_split", "pipeline"))
+    print(f"phase 2 K3 {label}: split pipeline error {split:.3g} of the "
+          f"max-abs (the JAX package documents {JAX_SPLIT_ERR} for its split "
+          f"mode); float32 kernels {f32:.3g}")
     inputs = {"x0": x0, "x1": x1, "planes": planes, "psfs": psfs, "n": n,
               "u": u, "v": pf.pfft_rows_combine_cuda(u, *planes),
+              "vt": pf.pfft_rows_combine_tc_cuda(u, *planes),
               "a": a, "b": b, "fs": fs}
     return errs, inputs
 
@@ -711,7 +775,15 @@ def pfft_bounds(p_, h, w, n):
     complex one, 98,304 flop per 128-vector and 128 x 128 matrix; m of
     them per column (pass 1), 3 m per row (pass 2), 2 m per column (pass
     3). Bytes: images, U, V1 and V2 as complex float32, the four spectrum
-    planes and the stage tables (mf, mi) read once."""
+    planes and the stage tables (mf, mi) read once.
+
+    The ``"split"`` rows (``*_split``) count the same operations three
+    times (three bf16 products each) at the bf16 tensor-core peak, and
+    the same bytes, the stage tables as their bf16 hi and lo planes;
+    their pipeline has pass 1 at its float32 bound. The operations are
+    counted as the TPU kernel does them, not as the kernels do (4 real
+    products per complex one), so that the yardstick does not move with
+    the design."""
     m = n // 128
     vec = 98_304
     tables = 8 * m * 128 * 128
@@ -724,6 +796,13 @@ def pfft_bounds(p_, h, w, n):
     out = {name: bound(flop[name], nbytes[name]) for name in flop}
     out["pipeline"] = bound(sum(flop.values()),
                             16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
+    for name in ("rows", "cols_inv"):
+        out[name + "_split"] = bound(3 * flop[name], nbytes[name],
+                                     PEAK_BF16_FLOPS)
+    out["pipeline_split"] = {
+        "bound_ms": out["cols_fwd"]["bound_ms"]
+        + out["rows_split"]["bound_ms"] + out["cols_inv_split"]["bound_ms"],
+        "bound_by": "operations (pass 1) and bytes"}
     return out
 
 
@@ -739,8 +818,8 @@ def pfft_timing(torch, s):
         kernel_fft,
     )
 
-    x0, x1, planes, n, u, v = (s[k] for k in ("x0", "x1", "planes", "n",
-                                              "u", "v"))
+    x0, x1, planes, n, u, v, vt = (s[k] for k in ("x0", "x1", "planes", "n",
+                                                  "u", "v", "vt"))
     h, w = x0.shape[1:]
     fs, a, b = s["fs"], s["a"], s["b"]
     images = torch.stack([x0, x1], dim=1).reshape(N_OBS, h, w)
@@ -752,6 +831,12 @@ def pfft_timing(torch, s):
         "pipeline": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n),
         "pipeline_adjoint": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
                                                       True),
+        "rows_split": lambda: pf.pfft_rows_combine_tc_cuda(u, *planes),
+        "cols_inv_split": lambda: pf.pfft_cols_inv_tc_cuda(*vt, h),
+        "pipeline_split": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
+                                                    False, "split"),
+        "pipeline_split_adjoint": lambda: pf.pfft_conv_cuda(
+            x0, x1, *planes, n, True, "split"),
         "cufft_pair": lambda: convolve_fft_packed_pair(x0, x1, a, b, fs),
         "cufft_pair_adjoint": lambda: convolve_fft_packed_pair(
             x0, x1, a.conj(), b.conj(), fs),
@@ -763,6 +848,11 @@ def pfft_timing(torch, s):
         "rows": lambda: pf.rows_combine_plain(u, *planes),
         "cols_inv": lambda: pf.cols_inv_plain(*v, h),
         "pipeline": lambda: pf.conv_packed_pfft_plain(x0, x1, *planes, n),
+        "rows_split": lambda: pf.rows_combine_plain(u, *planes,
+                                                    mode="split"),
+        "cols_inv_split": lambda: pf.cols_inv_plain(*vt, h, mode="split"),
+        "pipeline_split": lambda: pf.conv_packed_pfft_plain(
+            x0, x1, *planes, n, mode="split"),
     }
     timing.update({name + "_plain": cuda_ms(torch, fn, 3)
                    for name, fn in plain.items()})
@@ -785,7 +875,9 @@ def phase_pfft_kernels(torch, device):
                       f"{tm[name + '_plain']:.3f}, bound "
                       f"{bd[name]['bound_ms']:.3f})"
                       for name in ("cols_fwd", "rows", "cols_inv",
-                                   "pipeline"))
+                                   "pipeline", "rows_split", "cols_inv_split",
+                                   "pipeline_split"))
+          + f"; split adjoint {tm['pipeline_split_adjoint']:.3f} ms"
           + f"; adjoint {tm['pipeline_adjoint']:.3f} ms; cuFFT packed pair "
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
@@ -823,6 +915,8 @@ def counts():
         "pfft_cols_fwd": pf.pfft_cols_fwd_cuda.launches,
         "pfft_rows_combine": pf.pfft_rows_combine_cuda.launches,
         "pfft_cols_inv": pf.pfft_cols_inv_cuda.launches,
+        "pfft_rows_combine_tc": pf.pfft_rows_combine_tc_cuda.launches,
+        "pfft_cols_inv_tc": pf.pfft_cols_inv_tc_cuda.launches,
     }
     plain = sum(fn.calls for fn in (
         gf.fused_forward_plain, gf.fused_backward_plain,
@@ -1079,66 +1173,96 @@ def phase_marginalised(torch, device):
     return train, probe
 
 
-def phase_pfft(torch, device, flux_fft, errors_fft):
-    """Phases 3 and 4 with ``conv_mode="pfft"``: the convolution's
-    forward and adjoint on K3's kernels, once each per step, and in the
-    probe the forward, the adjoint, then the adjoint's adjoint and the
-    adjoint again; flux and errors against the fft path's."""
-    from jolideco_torch.priors import GaussianMixtureModel
-    from jolideco_torch.utils.bench_data import make_datasets
+# K3's kernels under each mode of the precision dial
+K3_KERNELS = {
+    "split": ("pfft_cols_fwd", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
+    "f32": ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv"),
+}
 
-    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
-    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    run = dict(cycle_spin=True, conv_mode="pfft")
-    run_slice(datasets, astro, device, n_steps=2, **run)  # warm-up
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    result = run_slice(datasets, astro, device, **run)
-    launches, plain_calls = counts()
-    peak = torch.cuda.max_memory_allocated()
+def pfft_training(torch, device, datasets, gmm, flux_fft, dial):
+    """20 pfft steps under the dial ``dial``, counts set to zero just
+    before and read just after: each K3 kernel of the dial's mode 40
+    times, the other mode's never, no plain call; flux against the fft
+    run of phase 3."""
+    from jolideco_torch import config
+
+    mode = {"high": "split", "highest": "f32"}[dial]
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        run = dict(cycle_spin=True, conv_mode="pfft")
+        run_slice(datasets, gmm, device, n_steps=2, **run)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, **run)
+        launches, plain_calls = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_gmm_precision(saved)
+    tag = f"pfft ({dial!r}, {mode})"
     loss, flux = result.loss_per_step, result.flux_upsampled_total
     check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
-          f"pfft: non-finite loss: {loss}")
+          f"{tag}: non-finite loss: {loss}")
     check(flux.shape == (FIELD, FIELD)
           and bool(np.isfinite(flux).all() and (flux > 0).all()),
-          "pfft: flux not finite and positive")
+          f"{tag}: flux not finite and positive")
     data_start = float(data_term(datasets, np.ones_like(flux), device))
     data_end = float(data_term(datasets, flux, device))
-    check(data_end < data_start, f"pfft: Poisson data term did not fall: "
+    check(data_end < data_start, f"{tag}: Poisson data term did not fall: "
           f"{data_start} -> {data_end}")
-    k3 = ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv")
     expected = expect(gmm_fused_fwd=STEPS, gmm_fused_bwd=STEPS,
-                      **{name: 2 * STEPS for name in k3})
-    check(launches == expected, f"pfft: launches {launches}, not {expected}")
-    check(plain_calls == 0, f"pfft: plain versions ran {plain_calls} times")
+                      **{name: 2 * STEPS for name in K3_KERNELS[mode]})
+    check(launches == expected, f"{tag}: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"{tag}: plain versions ran {plain_calls} times")
     flux_diff = float(np.abs(flux - flux_fft).max() / np.abs(flux_fft).max())
     flux_rel = float(np.max(np.abs(flux - flux_fft) / np.abs(flux_fft)))
-    check(flux_diff <= PFFT_FLUX_SHARE, f"pfft flux against fft: max-abs "
+    check(flux_diff <= PFFT_FLUX_SHARE, f"{tag} flux against fft: max-abs "
           f"difference {flux_diff:.3g} of the max (elementwise "
           f"{flux_rel:.3g})")
     steps_per_s = STEPS / result.train_seconds
-    print(f"phase 6 pfft slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
+    print(f"phase 6 {tag} slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
           f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "
           f"data term {data_start:.6f} -> {data_end:.6f}; flux against "
           f"phase 3: max-abs difference {flux_diff:.3g} of the max (limit "
           f"{PFFT_FLUX_SHARE}), elementwise {flux_rel:.3g}; launches "
           f"{launches}; plain calls {plain_calls}; peak memory {peak} B")
-    train = {"launches": launches, "steps_per_s": steps_per_s,
-             "peak_bytes": peak, "flux_diff": flux_diff,
-             "flux_rel": flux_rel}
+    return {"launches": launches, "steps_per_s": steps_per_s,
+            "peak_bytes": peak, "flux_diff": flux_diff,
+            "flux_rel": flux_rel}
+
+
+def phase_pfft(torch, device, flux_fft, errors_fft):
+    """Phases 3 and 4 with ``conv_mode="pfft"``: the convolution's
+    forward and adjoint on K3's kernels, once each per step, and in the
+    probe the forward, the adjoint, then the adjoint's adjoint and the
+    adjoint again. Training runs twice: under the default dial
+    (``"high"``, the ``"split"`` mode: pass 1 on its float32 kernel,
+    passes 2 and 3 on the tensor cores) and under ``"highest"`` (``"f32"``:
+    the three float32 kernels). The probe and the small run, card
+    against the CPU's plain path, run under the default dial."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    train = {dial: pfft_training(torch, device, datasets, astro, flux_fft,
+                                 dial)
+             for dial in ("high", "highest")}
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     result = run_slice(datasets, astro, device, n_steps=ERROR_STEPS,
-                       compute_error=True, **run)
+                       compute_error=True, cycle_spin=True, conv_mode="pfft")
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
     expected = expect(gmm_fused_fwd=ERROR_STEPS, gmm_fused_bwd=ERROR_STEPS,
                       gmm_score_rows=1, gmm_unit_map=1, gmm_hvp_map=1,
-                      **{name: 2 * ERROR_STEPS + 4 for name in k3})
+                      **{name: 2 * ERROR_STEPS + 4
+                         for name in K3_KERNELS["split"]})
     check(launches == expected, f"pfft probe: launches {launches}, not "
           f"{expected}")
     check(plain_calls == 0, f"pfft probe: plain versions ran {plain_calls} "
@@ -1150,23 +1274,30 @@ def phase_pfft(torch, device, flux_fft, errors_fft):
     error_rel = float(np.max(np.abs(errors - errors_fft) / errors_fft))
     check(error_rel <= PFFT_ERROR_RTOL, f"pfft errors against fft: max rel "
           f"{error_rel:.3g}")
-    print(f"phase 6 pfft errors {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} steps "
-          f"in {result.train_seconds:.4f} s, probe "
+    print(f"phase 6 pfft errors ('high', split) {N_OBS}x{FIELD}^2 K=200: "
+          f"{ERROR_STEPS} steps in {result.train_seconds:.4f} s, probe "
           f"{result.error_seconds:.4f} s; errors against phase 4: max rel "
           f"{error_rel:.3g} (limit {PFFT_ERROR_RTOL}); launches {launches}; "
           f"plain calls {plain_calls}; peak memory {peak} B")
     probe = {"launches": launches, "error_seconds": result.error_seconds,
              "peak_bytes": peak, "error_rel": error_rel}
 
-    # small input (n = 256, no padding): the card against the CPU's plain
-    # path, flux and errors
+    # small input (n = 256, m = 2, no padding) under the default dial:
+    # the card's split kernels against the CPU's split plain path, flux
+    # and errors
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
     small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
-    on_card, on_cpu = (
-        run_slice(small, builtin, dev, cycle_spin=False, compute_error=True,
-                  conv_mode="pfft").components["flux"]
-        for dev in (device, "cpu")
-    )
+    reset_counts()
+    on_card = run_slice(small, builtin, device, cycle_spin=False,
+                        compute_error=True, conv_mode="pfft")
+    launches, _ = counts()
+    check(launches["pfft_rows_combine_tc"] == 2 * STEPS + 4
+          and launches["pfft_rows_combine"] == 0,
+          f"pfft 4x128^2: launches {launches}")
+    on_card = on_card.components["flux"]
+    on_cpu = run_slice(small, builtin, "cpu", cycle_spin=False,
+                       compute_error=True,
+                       conv_mode="pfft").components["flux"]
     rels = {}
     for name, limit in (("flux_upsampled_numpy", SMALL_FLUX_RTOL),
                         ("flux_upsampled_error_numpy", SMALL_ERROR_RTOL)):
@@ -1174,9 +1305,10 @@ def phase_pfft(torch, device, flux_fft, errors_fft):
         rels[name] = float(np.max(np.abs(a - b) / np.abs(b)))
         check(rels[name] <= limit, f"pfft 4x128^2 {name} on the card vs "
               f"CPU: max rel err {rels[name]:.3g}")
-    print(f"phase 6 small 4x128^2 card vs CPU plain path: flux max rel err "
-          f"{rels['flux_upsampled_numpy']:.3g} (limit {SMALL_FLUX_RTOL}), "
-          f"errors {rels['flux_upsampled_error_numpy']:.3g} (limit "
+    print(f"phase 6 small 4x128^2 ('high', split) card vs CPU plain path: "
+          f"flux max rel err {rels['flux_upsampled_numpy']:.3g} (limit "
+          f"{SMALL_FLUX_RTOL}), errors "
+          f"{rels['flux_upsampled_error_numpy']:.3g} (limit "
           f"{SMALL_ERROR_RTOL})")
     return train, probe
 
@@ -1251,19 +1383,30 @@ def main():
     ]
     library = {name: None for name, *_ in table}
     # K3's passes, forward direction at the main path's batch; their
-    # errors against float64, the rows pass's the larger of its two
-    # directions; library: cuFFT's packed pair computing the whole
-    # convolution that the three kernels compute together
+    # errors against float64, the larger of the two directions; library:
+    # cuFFT's packed pair computing the whole convolution that the
+    # kernels compute together. The float32 kernels' launches are those
+    # of the "highest" run, the tensor-core kernels' (and the split
+    # bound) those of the default dial's "split" run.
     pfft_src = "jolideco_torch/csrc/pfft_conv.cu"
-    for name, key, line, err in (
-            ("pfft_cols_fwd", "cols_fwd", 379, pmain["cols_fwd"][0]),
-            ("pfft_rows_combine", "rows", 398,
-             max(pmain["rows_forward"][0], pmain["rows_adjoint"][0])),
-            ("pfft_cols_inv", "cols_inv", 460,
+    tc_src = "jolideco_torch/csrc/pfft_conv_tc.cu"
+    for name, source, key, line, err, path in (
+            ("pfft_cols_fwd", pfft_src, "cols_fwd", 379,
+             pmain["cols_fwd"][0], pfft_train["highest"]),
+            ("pfft_rows_combine", pfft_src, "rows", 398,
+             max(pmain["rows_forward"][0], pmain["rows_adjoint"][0]),
+             pfft_train["highest"]),
+            ("pfft_cols_inv", pfft_src, "cols_inv", 460,
              max(pmain["cols_inv_forward"][0],
-                 pmain["cols_inv_adjoint"][0]))):
-        table.append((name, pfft_src, f"jolideco_tpu/ops/pallas_fft.py:{line}",
-                      pfft_train, err, ptiming[key], ptiming[key + "_plain"],
+                 pmain["cols_inv_adjoint"][0]), pfft_train["highest"]),
+            ("pfft_rows_combine_tc", tc_src, "rows_split", 398,
+             max(pmain["rows_tc_forward"][0], pmain["rows_tc_adjoint"][0]),
+             pfft_train["high"]),
+            ("pfft_cols_inv_tc", tc_src, "cols_inv_split", 460,
+             max(pmain["cols_inv_tc_forward"][0],
+                 pmain["cols_inv_tc_adjoint"][0]), pfft_train["high"])):
+        table.append((name, source, f"jolideco_tpu/ops/pallas_fft.py:{line}",
+                      path, err, ptiming[key], ptiming[key + "_plain"],
                       pbound[key]))
         library[name] = ptiming["cufft_pair"]
     print(json.dumps({"pfft": {
@@ -1274,10 +1417,10 @@ def main():
                     for name, e in pfft[label].items()}
             for label in pfft if label not in ("timing", "bounds")},
         "ms": ptiming, "bounds": pbound,
-        "path": {"steps_per_s": pfft_train["steps_per_s"],
-                 "peak_bytes": pfft_train["peak_bytes"],
-                 "flux_against_fft": pfft_train["flux_diff"],
-                 "flux_against_fft_elementwise": pfft_train["flux_rel"],
+        "path": {**{f"{key}_{dial}": pfft_train[dial][key]
+                    for dial in ("high", "highest")
+                    for key in ("steps_per_s", "peak_bytes", "flux_diff",
+                                "flux_rel")},
                  "probe_seconds": pfft_probe["error_seconds"],
                  "probe_peak_bytes": pfft_probe["peak_bytes"],
                  "errors_against_fft": pfft_probe["error_rel"],

@@ -18,8 +18,11 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
 - The precision dial (``"highest" | "high" | "default"``, the names of
   the JAX package's ``config.set_gmm_precision``), and the matmul-DFT
   mode it names (:func:`pfft_mode`: ``"f32"``, ``"split"``, ``"bf16"``).
-  The CUDA kernels compute in full float32 whatever the dial says, which
-  meets the strictest bar. At import and on every dial change the
+  Under ``"split"`` (the default, ``"high"``) the matrix-DFT
+  convolution's passes 2 and 3 run on the tensor cores as bf16 hi/lo
+  products with float32 sums; every other kernel, and that convolution
+  in the other modes, computes in full float32, which meets the
+  strictest bar. At import and on every dial change the
   float32 matmul and cuDNN paths are pinned to full float32: PyTorch
   lets cuDNN convolutions run in TF32 by default, which keeps only about
   three decimal digits.

@@ -21,8 +21,11 @@ kernels.
 
 Ported: ``update_strategy="joint"``, ``trace_every=0``, ``conv_mode``
 ``"fft"`` and ``"pfft"``, ``compute_error``. The sequential strategy,
-the loss trace, early stopping and checkpoints raise
-``NotImplementedError``.
+the loss trace, early stopping, checkpoints, a device mesh, validation
+data, calibrations, resuming and a prebuilt loss raise
+``NotImplementedError``. Every keyword of the JAX package's signatures
+is accepted, so that a call written for it fails only on what is not
+ported.
 """
 
 import logging
@@ -106,22 +109,35 @@ class MAPDeconvolver:
         Padded FFT shape (at least image + kernel - 1 per axis).
     compute_error : bool
         Compute flux errors from the loss Hessian after training.
-    stop_early, checkpoint_path :
-        Accepted for signature parity; anything but the defaults raises
-        ``NotImplementedError``.
+    display_progress : bool
+        Log the run's step count, time and first and last loss at INFO
+        level when training ends (the JAX package shows a progress bar).
+    scan_epochs, scan_chunk :
+        How the JAX package compiles its loop; accepted and stored. The
+        port runs one eager step per epoch whatever they say, with the
+        same results.
+    shard_prior : bool
+        Accepted and stored: without a mesh it has no effect, in the JAX
+        package too.
+    stop_early, stop_early_n_average, checkpoint_path, mesh :
+        Accepted for signature parity; ``stop_early``, a checkpoint path
+        and a mesh raise ``NotImplementedError``.
     """
 
     _default_flux_component = "flux"
 
     def __init__(self, n_epochs=1_000, beta=1, learning_rate=0.1,
                  compute_error=False, stop_early=False,
+                 stop_early_n_average=10, display_progress=True,
                  optimizer_type="adam", optimizer_kwargs=None,
                  checkpoint_path=None, update_strategy="sequential",
-                 trace_every=1, seed=0, device=None, conv_mode="auto",
-                 fft_shape=None):
+                 scan_epochs=None, scan_chunk=None, trace_every=1, seed=0,
+                 device=None, mesh=None, conv_mode="auto", fft_shape=None,
+                 shard_prior=True):
         unported = {
             "stop_early": stop_early,
             "checkpoint_path": checkpoint_path is not None,
+            "mesh": mesh is not None,
             f"update_strategy={update_strategy!r}":
                 update_strategy != "joint",
             f"trace_every={trace_every}": int(trace_every) != 0,
@@ -142,6 +158,13 @@ class MAPDeconvolver:
         self.beta = float(beta)
         self.learning_rate = float(learning_rate)
         self.compute_error = bool(compute_error)
+        self.stop_early = False
+        self.stop_early_n_average = int(stop_early_n_average)
+        self.display_progress = bool(display_progress)
+        self.scan_epochs = scan_epochs
+        self.scan_chunk = None if scan_chunk is None else int(scan_chunk)
+        self.mesh = None
+        self.shard_prior = bool(shard_prior)
         self.optimizer_type = optimizer_type
         optimizer_kwargs = dict(optimizer_kwargs or {})
         if "lr" in optimizer_kwargs:
@@ -164,27 +187,35 @@ class MAPDeconvolver:
             "beta": self.beta,
             "learning_rate": self.learning_rate,
             "compute_error": self.compute_error,
+            "stop_early": self.stop_early,
+            "stop_early_n_average": self.stop_early_n_average,
+            "display_progress": self.display_progress,
             "optimizer_type": self.optimizer_type,
             "optimizer_kwargs": {
                 k: v for k, v in self.optimizer_kwargs.items()
                 if k != "learning_rate"
             },
             "update_strategy": self.update_strategy,
+            "scan_epochs": self.scan_epochs,
+            "scan_chunk": self.scan_chunk,
             "trace_every": self.trace_every,
             "seed": self.seed,
             "device": None if self.device is None else str(self.device),
             "conv_mode": self.conv_mode,
             "fft_shape": None if self.fft_shape is None
             else list(self.fft_shape),
+            "mesh": None,
+            "shard_prior": self.shard_prior,
         }
 
     def build_loss(self, datasets, components, device):
         """The joint strategy's total loss on ``device``."""
         # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
-        # 1024^2 (n = 1152) the matrix DFT's three kernels took 3.92-3.94
-        # ms per direction, cuFFT's packed pair 0.57-0.58 ms and the
-        # batched rfft2 of the same 10 images 0.44-0.45 ms (chip_smoke.py
-        # phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
+        # 1024^2 (n = 1152) the matrix DFT took 1.94 ms per direction
+        # under the default dial ("split": passes 2 and 3 on the tensor
+        # cores) and 3.94 ms under "highest" (float32), cuFFT's packed
+        # pair 0.58 ms and the batched rfft2 of the same 10 images 0.45 ms
+        # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
         poisson = StackedPoissonLoss.from_datasets(
             datasets=datasets, components=components,
@@ -227,7 +258,8 @@ class MAPDeconvolver:
 
         return step, params, components, total_loss
 
-    def run(self, datasets, components):
+    def run(self, datasets, datasets_validation=None, components=None,
+            calibrations=None, resume_from=None, total_loss=None):
         """Run the MAP deconvolution.
 
         Parameters
@@ -236,11 +268,26 @@ class MAPDeconvolver:
             Per-dataset dicts with ``counts``, ``psf``, ``exposure`` and
             ``background`` numpy arrays.
         components : `FluxComponents`, dict or `SpatialFluxComponent`
+            Required (the JAX package's default, ``None``, fails there
+            too).
+        datasets_validation, calibrations, resume_from, total_loss :
+            Accepted for signature parity; anything but ``None`` raises
+            ``NotImplementedError``.
 
         Returns
         -------
         result : `MAPDeconvolverResult`
         """
+        unported = {"datasets_validation": datasets_validation,
+                    "calibrations": calibrations, "resume_from": resume_from,
+                    "total_loss": total_loss}
+        for name, value in unported.items():
+            if value is not None:
+                raise NotImplementedError(
+                    f"MAPDeconvolver.run({name}=...) is not ported yet"
+                )
+        if components is None:
+            raise ValueError("MAPDeconvolver.run needs components")
         step, params, components, total_loss = self.make_step(datasets,
                                                               components)
         t0 = time.perf_counter()
@@ -251,6 +298,10 @@ class MAPDeconvolver:
             else np.zeros(0, np.float32)
         )
         train_seconds = time.perf_counter() - t0
+        if self.display_progress and len(loss_per_step):
+            log.info(f"MAPDeconvolver: {self.n_epochs} steps in "
+                     f"{train_seconds:.3f} s, loss {loss_per_step[0]:.6g} "
+                     f"-> {loss_per_step[-1]:.6g}")
 
         components.set_parameters(params)
         if not all(bool(torch.isfinite(p).all()) for p in _leaves(params)):

@@ -1,0 +1,529 @@
+// Passes 2 and 3 of the pair-packed matrix-DFT convolution on Hopper's
+// tensor cores (sm_90a), in the precision dial's "split" mode. Built by
+// nvcc into a shared library with a plain C interface and loaded with
+// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers, the
+// dispatch by mode and the plain PyTorch version (mode="split") are in
+// jolideco_torch/ops/pallas_fft.py. Pass 1 and the "f32" mode are the
+// float32 kernels of pfft_conv.cu, whose header states the algorithm.
+//
+// "split" is the JAX package's _dot in split mode: both operands of each
+// stage-B product split into bf16 high and low parts (hi = bf16(x), lo =
+// bf16(x - hi), round to nearest even) and three products hi.hi + hi.lo
+// + lo.hi summed in float32. A complex product x . M (x a row of 128
+// complex, M a 128 x 128 stage matrix) runs as the real product of the
+// row as it lies in memory, (re, im, re, im, ...), with the interleaved
+// real form R (256 x 256) of M: R[2k][2j] = Re M, R[2k][2j+1] = Im M,
+// R[2k+1][2j] = -Im M, R[2k+1][2j+1] = Re M. Then each accumulator pair
+// (c0, c1) of an m16n8k16 mma is one complex output, and the epilogues
+// work on whole complex values. That is 4 real products per complex one
+// where the TPU uses Karatsuba's 3; it rounds no re + im sums.
+//
+// ---------------------------------------------------------------------
+// Two kernels, one per pass over device memory:
+//
+// pfft_rows_tc_kernel replaces _k2_body (jolideco_tpu/ops/pallas_fft.py)
+//     under "split": per row of U, the lane forward Z = S . mf[k2] (stage
+//     A, S = sum_n2 wf U, folded into the operand load), the combine A . Z
+//     and conj(B2) . Z in that product's epilogue, then both rows times
+//     mi[k2] in one product of twice the rows, whose epilogue adds w G
+//     into V1 and conj(w G) into V2 for the output blocks a < W / 128.
+//     One block per (pair, 16 rows), a loop over k2 inside; V1 and V2 are
+//     read, added to and written once per k2 by the thread that owns each
+//     element, as in pfft_rows_kernel.
+// pfft_cols_inv_tc_kernel replaces _k3_body under "split": per column,
+//     y0 = Re(sum_k2 w_a,k2 mi[k2]^T (V1 + conj V2)) and y1 = Im(sum_k2
+//     w_a,k2 mi[k2]^T (V1 - conj V2)). The product from the left is run
+//     from the right: the columns of V1 +- conj V2 are loaded as operand
+//     rows (transposed into shared memory), times the same R(mi[k2]). One
+//     block per (pair, 16 columns), a loop over k2 inside.
+//
+// What bounds them on the H100: bytes. Counted as the TPU kernel counts
+// its work (3 real products per complex one, 3 bf16 products each), pass
+// 2 at 5 pairs of 1024^2, n = 1152 is 46 GFLOP (0.046 ms at 989 TFLOP/s
+// bf16) against 250 MB of traffic (0.075 ms at 3.35 TB/s); pass 3 27
+// GFLOP against 137.5 MB (0.041 ms). The design:
+// - the products run as warp-level mma.sync m16n8k16 (bf16 in, float32
+//   accumulate), 8 warps of a block each owning 32 of R's 256 columns;
+// - R is streamed in tiles of 32 of its rows (hi and lo, 32 KB) through
+//   two shared-memory stages with cp.async, the next tile (of the same
+//   product, of the next product or of the next k2) loading while the
+//   current one is multiplied; the tables are stored on the device tile
+//   by tile (pallas_fft.tensor_core_tables), so a stage is one contiguous
+//   copy, and transposed ([n][k]), the mma's column-major B;
+// - the operand is split once, as it is formed (stage A, the combine, or
+//   V1 +- conj V2), into bf16 hi and lo planes in shared memory, from the
+//   same float32 values that the plain version splits;
+// - fragments come from shared memory with ldmatrix; rows are padded
+//   (264 and 40 bf16) so that its eight 16-byte rows fall on distinct
+//   banks;
+// - the spectra, V1/V2 and y are read and written on the CUDA cores in
+//   float32, as in the float32 kernels: that read-add-write per k2 (and
+//   the re-read of U per k2), about 2 GB a call in pass 2, is what stays
+//   between these kernels and their bound;
+// - each epilogue's read-add-writes are batched: per output block a, a
+//   thread loads all the elements it owns, then stores them. One by one
+//   (each load waiting for the store before it) the passes took 1.60 and
+//   1.62 ms, batched 1.17 and 0.53 (32 rows or columns a block;
+//   chip_smoke.py);
+// - 16 rows (pass 2) or 16 columns (pass 3) per block, one block per SM
+//   (133 and 116 KB of shared memory; 171 and 130 registers, no spills):
+//   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
+//   traffic holds it, not the block count); two blocks per SM made pass
+//   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
+// On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
+// (chip_smoke.py phase 2): pass 2 1.10 ms, pass 3 0.48 ms, the split
+// pipeline 1.94 ms a direction (the float32 kernels 3.94, cuFFT's packed
+// pair 0.58); 7% and 9% of the split bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kLane = 128;                  // stage-B block
+constexpr int kK = 2 * kLane;               // R is kK x kK
+constexpr int kThreads = 256;               // 8 warps
+constexpr int kWarpCols = kK / 8;           // R's columns per warp: 32
+constexpr int kRows = 16;                   // pass 2: rows per block
+constexpr int kCols = 16;                   // pass 3: columns per block
+constexpr int kKTile = 32;                  // R's rows per stage
+constexpr int kTiles = kK / kKTile;         // stages per product
+constexpr int kLdB = kKTile + 8;            // padded stage row (80 B)
+constexpr int kLdA = kK + 8;                // padded operand row (528 B)
+constexpr int kTileElems = 2 * kK * kKTile; // hi and lo of one tile
+constexpr int kStageElems = 2 * kK * kLdB;  // the same, padded
+constexpr int kMtRows = kRows / 16;        // pass 2: m-tiles of S
+constexpr int kMtCols = kCols / 16;        // pass 3: m-tiles of V1 +- conj V2
+static_assert(kRows % 16 == 0 && kCols % 16 == 0, "whole m16 tiles");
+
+// pass 2: the stages, S (kRows rows) and [A.Z; conj(B2).Z] (2 kRows);
+// pass 3: the stages and [V1 + conj V2; V1 - conj V2]^T (2 kCols)
+constexpr int kSmemRows = (2 * kStageElems + 3 * 2 * kRows * kLdA) * 2;
+constexpr int kSmemColsInv = (2 * kStageElems + 2 * 2 * kCols * kLdA) * 2;
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b for one m16n8k16 tile, bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The complex value v into operand column pair (idx, idx + 1) of the hi
+// and lo planes: hi = bf16(v), lo = bf16(v - hi), real part first.
+__device__ __forceinline__ void put_split(bf16* hi, bf16* lo, int idx,
+                                          float2 v) {
+  const __nv_bfloat162 h = __float22bfloat162_rn(v);
+  const float2 hf = __bfloat1622float2(h);
+  *reinterpret_cast<__nv_bfloat162*>(hi + idx) = h;
+  *reinterpret_cast<__nv_bfloat162*>(lo + idx) =
+      __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y));
+}
+
+// One tile of R (hi and lo, [n][32] each, contiguous in device memory)
+// into a stage with padded rows, by the whole block.
+__device__ __forceinline__ void load_stage(bf16* dst,
+                                           const bf16* __restrict__ src) {
+  for (int c = threadIdx.x; c < kTileElems / 8; c += kThreads)
+    cp_async16(dst + (c >> 2) * kLdB + (c & 3) * 8, src + c * 8);
+}
+
+// acc += A[:, k0 : k0 + 32] . R[k0 : k0 + 32, warp's 32 columns] in the
+// three split products; A has MT * 16 rows (planes a_hi, a_lo), the
+// stage holds the tile as [n][k] (planes b_hi, b_lo).
+template <int MT>
+__device__ __forceinline__ void mma_tile(float (&acc)[MT][4][4],
+                                         const bf16* a_hi, const bf16* a_lo,
+                                         int k0, const bf16* b_hi,
+                                         const bf16* b_lo) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int ks = 0; ks < kKTile; ks += 16) {
+    // B fragments of the warp's 4 column tiles, two per ldmatrix.x4:
+    // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+    // (n 8-15, k 8-15)
+    uint32_t bh[2][4], bl[2][4];
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      const int nr = warp * kWarpCols + np * 16 + (lane & 7) +
+                     ((lane >> 4) << 3);
+      const int kc = ks + ((lane >> 3) & 1) * 8;
+      ldsm_x4(bh[np], b_hi + nr * kLdB + kc);
+      ldsm_x4(bl[np], b_lo + nr * kLdB + kc);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // A fragment: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+      // (rows 0-7, k 8-15), (rows 8-15, k 8-15)
+      uint32_t ah[4], al[4];
+      const int r = mt * 16 + (lane & 15);
+      const int kc = k0 + ks + (lane >> 4) * 8;
+      ldsm_x4(ah, a_hi + r * kLdA + kc);
+      ldsm_x4(al, a_lo + r * kLdA + kc);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint32_t* bhp = &bh[nt >> 1][(nt & 1) * 2];
+        const uint32_t* blp = &bl[nt >> 1][(nt & 1) * 2];
+        mma(acc[mt][nt], al, bhp);
+        mma(acc[mt][nt], ah, blp);
+        mma(acc[mt][nt], ah, bhp);
+      }
+    }
+  }
+}
+
+// One product A . R over the kTiles tiles t0 .. t0 + kTiles - 1 of the
+// block's stream of T tiles (src(t) is tile t's address): each tile's
+// successor is copied into the other stage while it is multiplied. The
+// caller has issued tile t0 (or the stream's first tile). On return
+// every warp is done with A and both stages.
+template <int MT, class Src>
+__device__ __forceinline__ void product(float (&acc)[MT][4][4],
+                                        const bf16* a_hi, const bf16* a_lo,
+                                        bf16* stages, int t0, int T,
+                                        Src src) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  for (int kt = 0; kt < kTiles; ++kt) {
+    const int t = t0 + kt;
+    if (t + 1 < T) {
+      load_stage(stages + ((t + 1) & 1) * kStageElems, src(t + 1));
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile t and the operand are visible to all
+    const bf16* b = stages + (t & 1) * kStageElems;
+    mma_tile<MT>(acc, a_hi, a_lo, kt * kKTile, b, b + kK * kLdB);
+    __syncthreads();  // stage t & 1 is free for tile t + 2
+  }
+}
+
+// ---------------------------------------------------------------------
+// pass 2: lane forward, spectrum combine, lane inverse and permuted
+// forward, columns cropped to W
+
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_rows_tc_kernel(const float2* __restrict__ u,
+                    const float* __restrict__ a_re,
+                    const float* __restrict__ a_im,
+                    const float* __restrict__ b_re,
+                    const float* __restrict__ b_im, int P, int W, int m,
+                    float asign, const bf16* __restrict__ rf,
+                    const bf16* __restrict__ ri,
+                    const float2* __restrict__ wf,
+                    const float2* __restrict__ wi, float2* __restrict__ v1,
+                    float2* __restrict__ v2) {
+  const int n = kLane * m;
+  const int strips = n / kRows;
+  const int bid = blockIdx.x;
+  if (bid >= P * strips) return;
+  const int r0 = (bid % strips) * kRows;
+  const int p = bid / strips;
+  const int wb = W / kLane;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  bf16* f_hi = stages + 2 * kStageElems;  // S: kRows rows
+  bf16* f_lo = f_hi + kRows * kLdA;
+  bf16* i_hi = f_lo + kRows * kLdA;       // [A.Z; conj(B2).Z]: 2 kRows
+  bf16* i_lo = i_hi + 2 * kRows * kLdA;
+
+  const size_t row0 = (size_t)p * n + r0;
+  const float2* urow = u + row0 * W;
+  float2* v1row = v1 + row0 * W;
+  float2* v2row = v2 + row0 * W;
+  // the stream: per k2, the 8 tiles of R(mf[k2]), then those of R(mi[k2])
+  const int T = 2 * kTiles * m;
+  auto src = [&](int t) {
+    const int k2 = t / (2 * kTiles), kt = t % kTiles;
+    const bf16* tab = (t / kTiles) % 2 ? ri : rf;
+    return tab + ((size_t)k2 * kTiles + kt) * kTileElems;
+  };
+  load_stage(stages, src(0));
+  cp_async_commit();
+
+  for (int k2 = 0; k2 < m; ++k2) {
+    // stage A of the lane forward, split into the operand: a thread's
+    // kStageA elements e = threadIdx.x + i kThreads, each block n2 of
+    // them loaded together
+    constexpr int kStageA = kRows * kLane / kThreads;
+    {
+      float2 s[kStageA];
+#pragma unroll
+      for (int i = 0; i < kStageA; ++i) s[i] = make_float2(0.f, 0.f);
+      for (int n2 = 0; n2 < wb; ++n2) {
+        const float2 w = wf[n2 * m + k2];
+        float2 x[kStageA];
+#pragma unroll
+        for (int i = 0; i < kStageA; ++i) {
+          const int e = threadIdx.x + i * kThreads;
+          x[i] = urow[(size_t)(e / kLane) * W + kLane * n2 + e % kLane];
+        }
+#pragma unroll
+        for (int i = 0; i < kStageA; ++i) {
+          s[i].x = fmaf(w.x, x[i].x, fmaf(-w.y, x[i].y, s[i].x));
+          s[i].y = fmaf(w.x, x[i].y, fmaf(w.y, x[i].x, s[i].y));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStageA; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        put_split(f_hi, f_lo, (e / kLane) * kLdA + 2 * (e % kLane), s[i]);
+      }
+    }
+
+    // Z = S mf[k2]; then A . Z and conj(B2) . Z into the next operand
+    {
+      float acc[kMtRows][4][4];
+      product<kMtRows>(acc, f_hi, f_lo, stages, 2 * kTiles * k2, T, src);
+#pragma unroll
+      for (int mt = 0; mt < kMtRows; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int r = mt * 16 + g + 8 * half;
+            const int j = warp * (kWarpCols / 2) + nt * 4 + tig;
+            const float2 z =
+                make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+            const size_t spec = (row0 + r) * n + kLane * k2 + j;
+            const float2 a = make_float2(a_re[spec], asign * a_im[spec]);
+            const float2 bc = make_float2(b_re[spec], -asign * b_im[spec]);
+            put_split(i_hi, i_lo, r * kLdA + 2 * j, cmul(a, z));
+            put_split(i_hi, i_lo, (kRows + r) * kLdA + 2 * j, cmul(bc, z));
+          }
+    }
+
+    // G = [A.Z; conj(B2).Z] mi[k2]; V1 += w G, V2 += conj(w G). Per
+    // output block a, a thread first loads all the elements it owns, then
+    // stores them, so that their loads are in flight together.
+    {
+      constexpr int MT = 2 * kMtRows;
+      float acc[MT][4][4];
+      product<MT>(acc, i_hi, i_lo, stages, 2 * kTiles * k2 + kTiles, T, src);
+      float2* dst[MT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = mt * 16 + g + 8 * half;
+          dst[mt][half] = (mt >= kMtRows ? v2row + (size_t)(r - kRows) * W
+                                         : v1row + (size_t)r * W) +
+                          warp * (kWarpCols / 2) + tig;
+        }
+      for (int a = 0; a < wb; ++a) {
+        const float2 w = wi[a * m + k2];
+        float2 old[MT][4][2];
+        if (k2 > 0) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                old[mt][nt][half] = dst[mt][half][kLane * a + nt * 4];
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              float2 val = cmul(w, make_float2(acc[mt][nt][2 * half],
+                                               acc[mt][nt][2 * half + 1]));
+              if (mt >= kMtRows) val.y = -val.y;
+              if (k2 > 0) {
+                val.x += old[mt][nt][half].x;
+                val.y += old[mt][nt][half].y;
+              }
+              dst[mt][half][kLane * a + nt * 4] = val;
+            }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// pass 3: axis-0 inverse (V1) plus permuted forward (V2), rows cropped
+// to H
+
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
+                        const float2* __restrict__ v2, int P, int H, int W,
+                        int m, const bf16* __restrict__ ri,
+                        const float2* __restrict__ wi,
+                        float* __restrict__ y0, float* __restrict__ y1) {
+  const int tiles = W / kCols;
+  const int bid = blockIdx.x;
+  if (bid >= P * tiles) return;
+  const int c0 = (bid % tiles) * kCols;
+  const int p = bid / tiles;
+  const int n = kLane * m;
+  const int hb = H / kLane;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  bf16* o_hi = stages + 2 * kStageElems;  // [V1 + conj V2; V1 - conj V2]^T
+  bf16* o_lo = o_hi + 2 * kCols * kLdA;
+
+  const int T = kTiles * m;
+  auto src = [&](int t) { return ri + (size_t)t * kTileElems; };
+  load_stage(stages, src(0));
+  cp_async_commit();
+  const size_t out0 = (size_t)p * H * W + c0;
+
+  for (int k2 = 0; k2 < m; ++k2) {
+    const size_t in0 = ((size_t)p * n + kLane * k2) * W + c0;
+    // a thread's elements e = threadIdx.x + i kThreads, loaded together
+    constexpr int kLoads = kLane * kCols / kThreads;
+    float2 va[kLoads], vb[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
+      va[i] = v1[at];
+      vb[i] = v2[at];
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int k1 = e / kCols, c = e % kCols;
+      const float2 a = va[i], b = vb[i];
+      put_split(o_hi, o_lo, c * kLdA + 2 * k1,
+                make_float2(a.x + b.x, a.y - b.y));
+      put_split(o_hi, o_lo, (kCols + c) * kLdA + 2 * k1,
+                make_float2(a.x - b.x, a.y + b.y));
+    }
+
+    constexpr int MT = 2 * kMtCols;
+    float acc[MT][4][4];
+    product<MT>(acc, o_hi, o_lo, stages, kTiles * k2, T, src);
+    // y0 += Re(w G+), y1 += Im(w G-); per output block a, all the loads
+    // of a thread first, then its stores, as in pfft_rows_tc_kernel
+    float* dst[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c = (mt % kMtCols) * 16 + g + 8 * half;
+        dst[mt][half] = (mt >= kMtCols ? y1 : y0) + out0 +
+                        (size_t)(warp * (kWarpCols / 2) + tig) * W + c;
+      }
+    for (int a = 0; a < hb; ++a) {
+      const float2 w = wi[a * m + k2];
+      const size_t row_a = (size_t)kLane * a * W;
+      float old[MT][4][2];
+      if (k2 > 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              old[mt][nt][half] =
+                  dst[mt][half][row_a + (size_t)nt * 4 * W];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 val = cmul(w, make_float2(acc[mt][nt][2 * half],
+                                                   acc[mt][nt][2 * half + 1]));
+            float part = mt >= kMtCols ? val.y : val.x;
+            if (k2 > 0) part += old[mt][nt][half];
+            dst[mt][half][row_a + (size_t)nt * 4 * W] = part;
+          }
+    }
+  }
+}
+
+int finish(cudaError_t attr) {
+  const cudaError_t launch = cudaGetLastError();
+  return (int)(attr != cudaSuccess ? attr : launch);
+}
+
+}  // namespace
+
+extern "C" {
+
+int pfft_rows_tc(const float2* u, const float* a_re, const float* a_im,
+                 const float* b_re, const float* b_im, int P, int W, int m,
+                 int conj_spec, const void* rf, const void* ri,
+                 const float2* wf, const float2* wi, float2* v1, float2* v2,
+                 cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      pfft_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemRows);
+  const int blocks = P * (kLane * m / kRows);
+  const float asign = conj_spec ? -1.f : 1.f;
+  pfft_rows_tc_kernel<<<blocks, kThreads, kSmemRows, stream>>>(
+      u, a_re, a_im, b_re, b_im, P, W, m, asign,
+      static_cast<const bf16*>(rf), static_cast<const bf16*>(ri), wf, wi, v1,
+      v2);
+  return finish(attr);
+}
+
+int pfft_cols_inv_tc(const float2* v1, const float2* v2, int P, int H, int W,
+                     int m, const void* ri, const float2* wi, float* y0,
+                     float* y1, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      pfft_cols_inv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemColsInv);
+  const int blocks = P * (W / kCols);
+  pfft_cols_inv_tc_kernel<<<blocks, kThreads, kSmemColsInv, stream>>>(
+      v1, v2, P, H, W, m, static_cast<const bf16*>(ri), wi, y0, y1);
+  return finish(attr);
+}
+
+const char* pfft_conv_tc_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -23,6 +23,8 @@ class SpatialFluxComponent:
     ----------
     flux_upsampled : array or tensor ``(1, 1, H, W)``
         Initial flux in linear units.
+    flux_upsampled_error : array ``(1, 1, H, W)``, optional
+        A known flux error (float32, on the flux's device).
     mask : bool array ``(1, 1, H, W)``, optional
         Pixels outside the mask carry zero flux.
     use_log_flux : bool
@@ -32,13 +34,16 @@ class SpatialFluxComponent:
     prior : `Prior`, optional
     frozen : bool
         Exclude from optimisation.
+    wcs : optional
+        World-coordinate object, stored and passed through as is.
     device : str or torch.device, optional
         Where the flux lives (default CPU; the deconvolver moves it to
         its own device).
     """
 
-    def __init__(self, flux_upsampled, mask=None, use_log_flux=True,
-                 upsampling_factor=1, prior=None, frozen=False, device=None):
+    def __init__(self, flux_upsampled, flux_upsampled_error=None, mask=None,
+                 use_log_flux=True, upsampling_factor=1, prior=None,
+                 frozen=False, wcs=None, device=None):
         flux = torch.as_tensor(np.asarray(flux_upsampled, np.float32),
                                device=device)
         if flux.ndim != 4:
@@ -57,16 +62,28 @@ class SpatialFluxComponent:
                     f"{tuple(flux.shape)} and {tuple(mask.shape)}"
                 )
         self._flux_upsampled = torch.log(flux) if use_log_flux else flux
-        self._flux_upsampled_error = None
+        self._flux_upsampled_error = (
+            None if flux_upsampled_error is None
+            else torch.as_tensor(np.asarray(flux_upsampled_error, np.float32),
+                                 device=flux.device)
+        )
         self.mask = mask
         self._use_log_flux = bool(use_log_flux)
         self.upsampling_factor = 1
         self.prior = prior if prior is not None else UniformPrior()
         self.frozen = bool(frozen)
+        self._wcs = wcs
+
+    @property
+    def wcs(self):
+        """World-coordinate object given at construction (or ``None``)."""
+        return self._wcs
 
     def to(self, device):
-        """Move the stored flux and mask to ``device`` (in place)."""
+        """Move the stored flux, error and mask to ``device`` (in place)."""
         self._flux_upsampled = self._flux_upsampled.to(device)
+        if self._flux_upsampled_error is not None:
+            self._flux_upsampled_error = self._flux_upsampled_error.to(device)
         if self.mask is not None:
             self.mask = self.mask.to(device)
         return self

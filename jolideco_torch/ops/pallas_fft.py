@@ -24,18 +24,33 @@ row the lane forward, the spectrum combine and the lane inverse; the
 axis-0 inverse, cropped to ``(H, W)``. Each pass has two implementations
 with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/pfft_conv.cu``, whose
-  header says what bounds it and how it is built), run for a tensor on a
-  CUDA card: :func:`pfft_cols_fwd_cuda`, :func:`pfft_rows_combine_cuda`,
-  :func:`pfft_cols_inv_cuda`;
+- a CUDA kernel written by hand for Hopper, run for a tensor on a CUDA
+  card. In ``"f32"`` mode (and in ``"bf16"``, which it computes more
+  accurately than asked) the three float32 kernels of
+  ``csrc/pfft_conv.cu``: :func:`pfft_cols_fwd_cuda`,
+  :func:`pfft_rows_combine_cuda`, :func:`pfft_cols_inv_cuda`. In
+  ``"split"`` mode (the default dial's) pass 1 stays on its float32
+  kernel and passes 2 and 3 run on the tensor cores
+  (``csrc/pfft_conv_tc.cu``): :func:`pfft_rows_combine_tc_cuda`,
+  :func:`pfft_cols_inv_tc_cuda`. Each header says what bounds the
+  kernel and how it is built;
 - a plain PyTorch version (einsums on the stage tables), run for a
   tensor on the CPU and the reference of the kernels on the card:
   :func:`conv_packed_pfft_plain`, in float32 or float64.
 
 The rule is ``config.dispatch``. Each wrapper counts its launches
 (``pfft_cols_fwd_cuda.launches``, ...) and the plain version its calls.
-The kernels compute in full float32 whatever ``mode`` says; ``mode`` is
-carried so that a later kernel can honour the precision dial.
+
+``"split"`` computes each stage-B product of passes 2 and 3 as the JAX
+package's ``_dot`` does: both operands split into bf16 high and low
+parts, three products ``hi.hi + hi.lo + lo.hi`` summed in float32. The
+complex product ``x . M`` runs as a real product of the interleaved row
+``(re, im, re, im, ...)`` with the interleaved real ``(256, 256)`` form
+of ``M`` (:func:`interleaved_stage_matrices`), 4 real products per
+complex one where the TPU takes Karatsuba's 3. The plain version in
+float32 computes the same products, so on the CPU the ``"pfft"`` path
+matches the card's split kernels to summation order. In float64 the
+mode is ignored: that is the anchor.
 
 The adjoint of the convolution is the correlation: the same pipeline
 with the imaginary parts of both spectra negated (``conj_spec``). The
@@ -57,20 +72,25 @@ from .gmm_fused import _check, _raise_on_error
 
 __all__ = [
     "PFFT_LANE",
+    "bf16_split",
     "cols_fwd_plain",
     "cols_inv_plain",
     "conv_packed_pfft",
     "conv_packed_pfft_plain",
     "default_pfft_mode",
+    "interleaved_stage_matrices",
     "pfft_cols_fwd_cuda",
     "pfft_cols_inv_cuda",
+    "pfft_cols_inv_tc_cuda",
     "pfft_conv_cuda",
     "pfft_pair_spectra",
     "pfft_pair_spectra_device",
     "pfft_rows_combine_cuda",
+    "pfft_rows_combine_tc_cuda",
     "pfft_size",
     "reset_counters",
     "rows_combine_plain",
+    "tensor_core_tables",
 ]
 
 PFFT_LANE = 128  # stage-B block; transform sizes are multiples of this
@@ -86,6 +106,37 @@ def default_pfft_mode():
 def pfft_size(n):
     """Smallest transform size ``128 m >= n``."""
     return -(-int(n) // PFFT_LANE) * PFFT_LANE
+
+
+@lru_cache(maxsize=8)
+def interleaved_stage_matrices(m):
+    """The stage-B matrices ``mf[k2]`` and ``mi[k2]`` in interleaved real
+    form, float32 ``(m, 256, 256)`` each.
+
+    For a complex ``M`` applied from the right (``x . M``),
+    ``R[2k, 2j] = Re M[k, j]``, ``R[2k, 2j + 1] = Im M[k, j]``,
+    ``R[2k + 1, 2j] = -Im M[k, j]`` and ``R[2k + 1, 2j + 1] = Re M[k, j]``:
+    a complex row as it lies in memory, ``(re, im, ...)``, times ``R`` is
+    ``x . M`` in the same layout.
+    """
+    t = _stage_tables(m)
+
+    def interleave(mat):
+        r = np.empty((m, 2 * PFFT_LANE, 2 * PFFT_LANE))
+        r[:, 0::2, 0::2] = mat.real
+        r[:, 0::2, 1::2] = mat.imag
+        r[:, 1::2, 0::2] = -mat.imag
+        r[:, 1::2, 1::2] = mat.real
+        return r.astype(np.float32)
+
+    return {"mf": interleave(t["mf"]), "mi": interleave(t["mi"])}
+
+
+def bf16_split(x):
+    """``(hi, lo)`` of a float32 tensor, each bf16-valued in float32:
+    ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (round to nearest even)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
 @lru_cache(maxsize=8)
@@ -203,6 +254,33 @@ def _plain_tables(m, dtype, device):
             for name, t in _stage_tables(m).items()}
 
 
+@lru_cache(maxsize=16)
+def _split_tables(m, device):
+    """:func:`interleaved_stage_matrices` split into bf16 hi and lo, as
+    float32 ``(m, 256, 256)`` tensors on ``device``."""
+    return {name: bf16_split(torch.as_tensor(r, device=device))
+            for name, r in interleaved_stage_matrices(m).items()}
+
+
+def _split_product(x, r):
+    """``x . M[k2]`` for complex64 ``x`` ``(..., m, rows, 128)`` and the
+    split interleaved ``M`` ``r = (hi, lo)`` ``(m, 256, 256)``: the three
+    bf16 products of ``"split"`` summed in float32."""
+    shape = x.shape
+    xr = torch.view_as_real(x.contiguous()).reshape(*shape[:-1], 2 * PFFT_LANE)
+    x_hi, x_lo = bf16_split(xr)
+    r_hi, r_lo = r
+    out = x_hi @ r_hi + x_hi @ r_lo + x_lo @ r_hi
+    return torch.view_as_complex(out.reshape(*shape, 2).contiguous())
+
+
+def _split(mode, dtype):
+    if mode not in MODES:
+        raise ValueError(f"invalid pfft mode {mode!r}, expected one of "
+                         f"{MODES}")
+    return mode == "split" and dtype == torch.float32
+
+
 def cols_fwd_plain(x0, x1, n, dtype=torch.float32):
     """Pass 1: the axis-0 forward of ``x0 + i x1`` ``(P, H, W)`` into
     permuted rows, ``U`` ``(P, n, W)`` complex."""
@@ -216,36 +294,63 @@ def cols_fwd_plain(x0, x1, n, dtype=torch.float32):
 
 
 def rows_combine_plain(u, a_re, a_im, b2_re, b2_im, conj_spec=False,
-                       dtype=torch.float32):
+                       dtype=torch.float32, mode="f32"):
     """Pass 2: per row of ``U``, the lane forward ``Z``, then
     ``V1 = IFFT(A . Z)`` and ``V2 = FWDP(B2 . conj(Z))`` along the lanes,
-    cropped to ``W`` columns: ``(P, n, W)`` complex each."""
+    cropped to ``W`` columns: ``(P, n, W)`` complex each. ``"split"`` in
+    float32 takes the stage-B products as the tensor-core kernel does,
+    with ``V2``'s inverse as ``conj((conj(B2) . Z) . mi)``."""
     p_, n, w = u.shape
     m, wb = n // PFFT_LANE, w // PFFT_LANE
     t = _plain_tables(m, dtype, u.device)
+    split = _split(mode, dtype)
     s = torch.einsum("qk,prqi->prki", t["wf"][:wb],
                      u.reshape(p_, n, wb, PFFT_LANE))
-    z = torch.einsum("prki,kij->prkj", s, t["mf"]).reshape(p_, n, n)
     sign = -1.0 if conj_spec else 1.0
     a = torch.complex(a_re.to(dtype), sign * a_im.to(dtype))
     b2 = torch.complex(b2_re.to(dtype), sign * b2_im.to(dtype))
-    g1 = torch.einsum("prki,kij->prkj",
-                      (a * z).reshape(p_, n, m, PFFT_LANE), t["mi"])
-    g2 = torch.einsum("prki,kij->prkj",
-                      (b2 * z.conj()).reshape(p_, n, m, PFFT_LANE),
-                      t["mi"].conj())
+    if split:
+        r = _split_tables(m, u.device)
+        # per k2 block: (P, m, n, 128)
+        z = _split_product(s.transpose(1, 2), r["mf"])
+        spec = (lambda x: x.reshape(p_, n, m, PFFT_LANE).transpose(1, 2))
+        g1 = _split_product(spec(a) * z, r["mi"]).transpose(1, 2)
+        g2 = _split_product(spec(b2).conj() * z, r["mi"]).conj().transpose(
+            1, 2)
+    else:
+        z = torch.einsum("prki,kij->prkj", s, t["mf"]).reshape(p_, n, n)
+        g1 = torch.einsum("prki,kij->prkj",
+                          (a * z).reshape(p_, n, m, PFFT_LANE), t["mi"])
+        g2 = torch.einsum("prki,kij->prkj",
+                          (b2 * z.conj()).reshape(p_, n, m, PFFT_LANE),
+                          t["mi"].conj())
     v1 = torch.einsum("ak,prkj->praj", t["wi"][:wb], g1)
     v2 = torch.einsum("ak,prkj->praj", t["wi"][:wb].conj(), g2)
     return v1.reshape(p_, n, w), v2.reshape(p_, n, w)
 
 
-def cols_inv_plain(v1, v2, h, dtype=torch.float32):
+def cols_inv_plain(v1, v2, h, dtype=torch.float32, mode="f32"):
     """Pass 3: the axis-0 inverse of ``V1`` plus the permuted forward of
     ``V2``, rows cropped to ``h``: ``(y0, y1)``, the real and imaginary
-    parts, ``(P, h, W)`` each."""
+    parts, ``(P, h, W)`` each. ``"split"`` in float32 takes the products
+    as the tensor-core kernel does: ``y0 = Re(sum_k2 wi mi^T (V1 +
+    conj V2))`` and ``y1 = Im(sum_k2 wi mi^T (V1 - conj V2))``, each
+    column of ``V1 +- conj V2`` a row times ``mi[k2]``."""
     p_, n, w = v1.shape
     m, hb = n // PFFT_LANE, h // PFFT_LANE
     t = _plain_tables(m, dtype, v1.device)
+    if _split(mode, dtype):
+        r = _split_tables(m, v1.device)["mi"]
+
+        def inverse(x):  # (P, n, W) -> (P, m, W, 128) -> (P, h, W)
+            g = _split_product(x.reshape(p_, m, PFFT_LANE, w)
+                               .transpose(-1, -2), r)
+            return torch.einsum("ak,pkwj->pajw", t["wi"][:hb],
+                                g).reshape(p_, h, w)
+
+        v2c = v2.conj()
+        return (inverse(v1 + v2c).real.contiguous(),
+                inverse(v1 - v2c).imag.contiguous())
     g1 = torch.einsum("kij,pkiw->pkjw", t["mi"],
                       v1.reshape(p_, m, PFFT_LANE, w))
     g2 = torch.einsum("kij,pkiw->pkjw", t["mi"].conj(),
@@ -257,16 +362,18 @@ def cols_inv_plain(v1, v2, h, dtype=torch.float32):
 
 
 def conv_packed_pfft_plain(x0, x1, a_re, a_im, b2_re, b2_im, n,
-                           conj_spec=False, dtype=torch.float32):
+                           conj_spec=False, dtype=torch.float32, mode="f32"):
     """The three passes in plain PyTorch, in ``dtype`` (float32 or
     float64); same contract as :func:`conv_packed_pfft` without the
-    autograd rule. Returns ``(y0, y1)`` in ``dtype``."""
+    autograd rule. ``mode`` acts in float32 only (``"split"``: passes 2
+    and 3 as the tensor-core kernels compute them; pass 1 stays float32,
+    as its kernel does). Returns ``(y0, y1)`` in ``dtype``."""
     conv_packed_pfft_plain.calls += 1
     _check_images(x0, x1, n)
     u = cols_fwd_plain(x0, x1, n, dtype)
     v1, v2 = rows_combine_plain(u, a_re, a_im, b2_re, b2_im, conj_spec,
-                                dtype)
-    return cols_inv_plain(v1, v2, x0.shape[1], dtype)
+                                dtype, mode)
+    return cols_inv_plain(v1, v2, x0.shape[1], dtype, mode)
 
 
 def _check_images(x0, x1, n):
@@ -287,38 +394,69 @@ def _check_images(x0, x1, n):
 # CUDA kernels
 
 
-def _library():
+def _library(name="pfft_conv"):
+    """``csrc/<name>.cu`` (``pfft_conv`` or ``pfft_conv_tc``) loaded, with
+    its C functions' argument types; the tensor-core entry points take
+    the same arguments as the float32 ones of their pass."""
     from ..utils.cuda_build import load_library
 
-    lib = load_library("pfft_conv")
+    lib = load_library(name)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.pfft_cols_fwd.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-        lib.pfft_cols_fwd.restype = ci
-        lib.pfft_rows.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp,
-                                  vp, vp, vp, vp, vp]
-        lib.pfft_rows.restype = ci
-        lib.pfft_cols_inv.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp,
-                                      vp]
-        lib.pfft_cols_inv.restype = ci
-        lib.pfft_conv_error_string.argtypes = [ci]
-        lib.pfft_conv_error_string.restype = ctypes.c_char_p
+        rows = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
+        cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+        if name == "pfft_conv":
+            signatures = {"pfft_cols_fwd": [vp, vp, ci, ci, ci, ci, vp, vp,
+                                            vp, vp],
+                          "pfft_rows": rows, "pfft_cols_inv": cols_inv}
+        else:
+            signatures = {"pfft_rows_tc": rows, "pfft_cols_inv_tc": cols_inv}
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ci
+        errors = getattr(lib, f"{name}_error_string")
+        errors.argtypes = [ci]
+        errors.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+TC_KTILE = 32  # rows of R per pipeline stage of the tensor-core kernels
+
+
+def tensor_core_tables(m):
+    """The tensor-core kernels' stage matrices, bfloat16 ``(m, 8, 2, 256,
+    32)`` for ``mf`` and for ``mi``: per ``k2`` and per tile of 32 rows of
+    ``R`` (:func:`interleaved_stage_matrices`), the hi and lo planes of
+    ``R``'s transpose (``[n][k]``, the mma's column-major B), so that one
+    pipeline stage is one contiguous 32 KB block."""
+    out = {}
+    for name, r in interleaved_stage_matrices(m).items():
+        rt = torch.as_tensor(r).transpose(-1, -2)  # [k2][n][k]
+        planes = torch.stack([p.to(torch.bfloat16) for p in bf16_split(rt)],
+                             dim=1)  # [k2][hl][n][k]
+        tiles = planes.reshape(m, 2, 2 * PFFT_LANE, -1, TC_KTILE)
+        out[name] = tiles.permute(0, 3, 1, 2, 4).contiguous()
+    return out
 
 
 _DEVICE_TABLES = {}
 
 
 def _device_tables(m, device):
-    """The stage tables as interleaved complex float32 on ``device``."""
+    """The stage tables on ``device``: ``wf``, ``wi``, ``mf``, ``mi`` as
+    interleaved complex float32, ``mf_tc``, ``mi_tc`` as
+    :func:`tensor_core_tables` (built once per size and device)."""
     key = (m, str(device))
     if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = {
+        tables = {
             name: torch.view_as_real(torch.as_tensor(
                 t.astype(np.complex64), device=device)).contiguous()
             for name, t in _stage_tables(m).items()
         }
+        tables.update({f"{name}_tc": t.to(device)
+                       for name, t in tensor_core_tables(m).items()})
+        _DEVICE_TABLES[key] = tables
     return _DEVICE_TABLES[key]
 
 
@@ -328,12 +466,12 @@ def _cuda_device(t, name):
     return t.device
 
 
-def _launch(fn, kernel, device, *args):
-    lib = _library()
+def _launch(fn, kernel, device, *args, library="pfft_conv"):
+    lib = _library(library)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = getattr(lib, fn)(*args, stream)
-    _raise_on_error(lib.pfft_conv_error_string, code, kernel)
+    _raise_on_error(getattr(lib, f"{library}_error_string"), code, kernel)
 
 
 def pfft_cols_fwd_cuda(x0, x1, n):
@@ -354,19 +492,34 @@ def pfft_cols_fwd_cuda(x0, x1, n):
     return u
 
 
-def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
-    """Launch pass 2 on ``U`` ``(P, n, W)`` complex64 and the spectra
-    ``(P, n, n)`` float32; returns ``(V1, V2)``
-    (:func:`rows_combine_plain`)."""
-    device = _cuda_device(u, "pfft_rows_combine_cuda")
+def _rows_args(u, planes, name):
+    device = _cuda_device(u, name)
     p_, n, w = u.shape
     if n % PFFT_LANE or w % PFFT_LANE or w > n:
         raise ValueError(f"pfft rows pass: bad U shape {tuple(u.shape)}")
     _check(u, "U", torch.complex64, (p_, n, w), device)
+    for label, t in zip(("a_re", "a_im", "b2_re", "b2_im"), planes):
+        _check(t, label, torch.float32, (p_, n, n), device)
+    return device, p_, n, w, n // PFFT_LANE
+
+
+def _cols_inv_args(v1, v2, h, name):
+    device = _cuda_device(v1, name)
+    p_, n, w = v1.shape
+    if h % PFFT_LANE or w % PFFT_LANE or max(h, w) > n or n % PFFT_LANE:
+        raise ValueError(f"pfft inverse pass: bad shapes {tuple(v1.shape)}, "
+                         f"h={h}")
+    for label, t in (("V1", v1), ("V2", v2)):
+        _check(t, label, torch.complex64, (p_, n, w), device)
+    return device, p_, n, w, n // PFFT_LANE
+
+
+def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
+    """Launch pass 2 on ``U`` ``(P, n, W)`` complex64 and the spectra
+    ``(P, n, n)`` float32; returns ``(V1, V2)``
+    (:func:`rows_combine_plain`)."""
     planes = (a_re, a_im, b2_re, b2_im)
-    for name, t in zip(("a_re", "a_im", "b2_re", "b2_im"), planes):
-        _check(t, name, torch.float32, (p_, n, n), device)
-    m = n // PFFT_LANE
+    device, p_, n, w, m = _rows_args(u, planes, "pfft_rows_combine_cuda")
     tab = _device_tables(m, device)
     v1 = torch.empty_like(u)
     v2 = torch.empty_like(u)
@@ -381,14 +534,7 @@ def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
 def pfft_cols_inv_cuda(v1, v2, h):
     """Launch pass 3 on ``V1``, ``V2`` ``(P, n, W)`` complex64; returns
     ``(y0, y1)`` ``(P, h, W)`` float32 (:func:`cols_inv_plain`)."""
-    device = _cuda_device(v1, "pfft_cols_inv_cuda")
-    p_, n, w = v1.shape
-    if h % PFFT_LANE or w % PFFT_LANE or max(h, w) > n or n % PFFT_LANE:
-        raise ValueError(f"pfft inverse pass: bad shapes {tuple(v1.shape)}, "
-                         f"h={h}")
-    for name, t in (("V1", v1), ("V2", v2)):
-        _check(t, name, torch.complex64, (p_, n, w), device)
-    m = n // PFFT_LANE
+    device, p_, n, w, m = _cols_inv_args(v1, v2, h, "pfft_cols_inv_cuda")
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)
@@ -399,18 +545,59 @@ def pfft_cols_inv_cuda(v1, v2, h):
     return y0, y1
 
 
-def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False):
-    """The three kernels in turn; same contract as
-    :func:`conv_packed_pfft_plain` in float32."""
+def pfft_rows_combine_tc_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
+    """Launch pass 2 on the tensor cores (``"split"``): same arguments
+    and results as :func:`pfft_rows_combine_cuda`, computed as
+    :func:`rows_combine_plain` with ``mode="split"``."""
+    planes = (a_re, a_im, b2_re, b2_im)
+    device, p_, n, w, m = _rows_args(u, planes, "pfft_rows_combine_tc_cuda")
+    tab = _device_tables(m, device)
+    v1 = torch.empty_like(u)
+    v2 = torch.empty_like(u)
+    _launch("pfft_rows_tc", "pfft_rows_tc_kernel", device, u.data_ptr(),
+            *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
+            tab["mf_tc"].data_ptr(), tab["mi_tc"].data_ptr(),
+            tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
+            v2.data_ptr(), library="pfft_conv_tc")
+    pfft_rows_combine_tc_cuda.launches += 1
+    return v1, v2
+
+
+def pfft_cols_inv_tc_cuda(v1, v2, h):
+    """Launch pass 3 on the tensor cores (``"split"``): same arguments
+    and results as :func:`pfft_cols_inv_cuda`, computed as
+    :func:`cols_inv_plain` with ``mode="split"``."""
+    device, p_, n, w, m = _cols_inv_args(v1, v2, h, "pfft_cols_inv_tc_cuda")
+    tab = _device_tables(m, device)
+    y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
+    y1 = torch.empty_like(y0)
+    _launch("pfft_cols_inv_tc", "pfft_cols_inv_tc_kernel", device,
+            v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
+            tab["mi_tc"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
+            y1.data_ptr(), library="pfft_conv_tc")
+    pfft_cols_inv_tc_cuda.launches += 1
+    return y0, y1
+
+
+def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
+                   mode="f32"):
+    """The kernels of ``mode`` in turn; same contract as
+    :func:`conv_packed_pfft_plain` in float32 and ``mode``: pass 1 on
+    its float32 kernel, then passes 2 and 3 on the tensor cores under
+    ``"split"``, on the float32 kernels otherwise."""
+    tc = _split(mode, torch.float32)
+    rows = pfft_rows_combine_tc_cuda if tc else pfft_rows_combine_cuda
+    cols_inv = pfft_cols_inv_tc_cuda if tc else pfft_cols_inv_cuda
     u = pfft_cols_fwd_cuda(x0, x1, n)
-    v1, v2 = pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec)
-    return pfft_cols_inv_cuda(v1, v2, x0.shape[1])
+    v1, v2 = rows(u, a_re, a_im, b2_re, b2_im, conj_spec)
+    return cols_inv(v1, v2, x0.shape[1])
 
 
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (pfft_cols_fwd_cuda, pfft_rows_combine_cuda,
-               pfft_cols_inv_cuda):
+               pfft_cols_inv_cuda, pfft_rows_combine_tc_cuda,
+               pfft_cols_inv_tc_cuda):
         fn.launches = 0
     conv_packed_pfft_plain.calls = 0
 
@@ -422,10 +609,11 @@ reset_counters()
 # dispatch and autograd
 
 
-def _apply(x0, x1, planes, n, conj_spec):
+def _apply(x0, x1, planes, n, mode, conj_spec):
     if dispatch(x0) == "kernel":
-        return pfft_conv_cuda(x0, x1, *planes, n, conj_spec)
-    return conv_packed_pfft_plain(x0, x1, *planes, n, conj_spec, x0.dtype)
+        return pfft_conv_cuda(x0, x1, *planes, n, conj_spec, mode)
+    return conv_packed_pfft_plain(x0, x1, *planes, n, conj_spec, x0.dtype,
+                                  mode)
 
 
 class _PfftConv(torch.autograd.Function):
@@ -438,7 +626,7 @@ class _PfftConv(torch.autograd.Function):
         ctx.save_for_backward(a_re, a_im, b2_re, b2_im)
         ctx.n, ctx.mode, ctx.conj_spec = n, mode, conj_spec
         return _apply(x0.contiguous(), x1.contiguous(),
-                      (a_re, a_im, b2_re, b2_im), n, conj_spec)
+                      (a_re, a_im, b2_re, b2_im), n, mode, conj_spec)
 
     @staticmethod
     def backward(ctx, g0, g1):
@@ -462,8 +650,10 @@ def conv_packed_pfft(x0, x1, a_re, a_im, b2_re, b2_im, n, mode="f32"):
         Transform size, a multiple of 128, at least the linear
         convolution's.
     mode : {"f32", "split", "bf16"}
-        The precision dial's mode (:func:`default_pfft_mode`); the
-        kernels compute in full float32 in every mode.
+        The precision dial's mode (:func:`default_pfft_mode`).
+        ``"split"`` runs passes 2 and 3 as three bf16 products with
+        float32 sums (the tensor-core kernels on a card); ``"f32"`` and
+        ``"bf16"`` compute in full float32.
 
     Returns
     -------

@@ -88,14 +88,19 @@ class StackedPoissonLoss:
     @classmethod
     def from_datasets(cls, datasets, components, calibrations=None,
                       fft_shape=None, conv_mode="fft",
-                      correct_exposure_edges=True, device=None):
+                      correct_exposure_edges=True, row_shards=None,
+                      device=None):
         """Stack homogeneous numpy datasets into batched tensors.
 
         ``datasets`` maps names to dicts of ``counts``, ``psf`` (array,
         or dict keyed by component), ``exposure`` and ``background``
         2-D arrays. ``device`` as in ``config.resolve_device``: the
         first CUDA card by default, the CPU only when asked.
+        ``row_shards`` (the JAX package's pencil-FFT mesh) is accepted for
+        signature parity; anything but ``None`` raises.
         """
+        if row_shards is not None:
+            raise NotImplementedError("row_shards is not ported yet")
         device = resolve_device(device)
         if conv_mode not in ("fft", "pfft"):
             raise NotImplementedError(

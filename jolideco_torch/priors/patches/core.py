@@ -46,7 +46,8 @@ class GMMPatchPrior(Prior):
     Parameters
     ----------
     gmm : `GaussianMixtureModel`, optional
-        Defaults to the registry's ``astro-snr-v1``.
+        Defaults to the registry's ``zoran-weiss``, which resolves to the
+        shipped ``astro-snr-v1`` with a warning, as in the JAX package.
     stride : int, optional
         Patch stride; defaults to the GMM's meta stride.
     cycle_spin : bool
@@ -59,17 +60,22 @@ class GMMPatchPrior(Prior):
     seed : int
         Seed of the prior's own generator (used when a call passes
         none).
+    patch_norm : `SubtractMeanPatchNorm`, optional
+        Defaults to the GMM's; only the mean subtraction is ported.
     cycle_spin_subpix, jitter, patch_fraction :
         Accepted for signature parity; anything but the defaults raises
         ``NotImplementedError`` until ported.
     """
 
     def __init__(self, gmm=None, stride=None, cycle_spin=True,
-                 cycle_spin_subpix=False, norm=None, jitter=False,
-                 marginalize=False, patch_fraction=1.0, seed=0):
+                 cycle_spin_subpix=False, norm=None, patch_norm=None,
+                 jitter=False, marginalize=False, patch_fraction=1.0,
+                 seed=0):
         super().__init__(seed=seed)
         unported = {
             "cycle_spin_subpix": cycle_spin_subpix,
+            f"patch_norm={patch_norm!r}": patch_norm is not None
+            and type(patch_norm) is not SubtractMeanPatchNorm,
             "jitter": jitter,
             "patch_fraction < 1": patch_fraction < 1.0,
         }
@@ -79,13 +85,14 @@ class GMMPatchPrior(Prior):
                     f"GMMPatchPrior({name}) is not ported yet"
                 )
         if gmm is None:
-            gmm = GaussianMixtureModel.from_registry("astro-snr-v1")
+            gmm = GaussianMixtureModel.from_registry("zoran-weiss")
         self.gmm = gmm
         self.stride = int(gmm.meta.stride if stride is None else stride)
         self.cycle_spin = bool(cycle_spin)
         self.marginalize = bool(marginalize)
         self.norm = norm if norm is not None else IdentityImageNorm()
-        self.patch_norm = gmm.meta.patch_norm
+        self.patch_norm = (gmm.meta.patch_norm if patch_norm is None
+                           else patch_norm)
 
     @property
     def patch_shape(self):

@@ -5,9 +5,13 @@ scoring arrays are computed once on the host in float64 with the same
 float32 roundings as the JAX package, so both packages pack identical
 quadratic-form buffers. The registry holds the two GMMs the port ships
 in ``jolideco_torch/assets/`` (byte-for-byte copies of the JAX
-package's), read with ``np.load``.
+package's), read with ``np.load``. The names of the reference's external
+GMM library (``zoran-weiss`` and three more) resolve to the shipped
+``astro-snr-v1`` with a warning, as in the JAX package when that library
+is not installed.
 """
 
+import logging
 from pathlib import Path
 
 import numpy as np
@@ -20,13 +24,25 @@ from ...ops.linalg import compute_precision_cholesky
 from ...ops.patches import get_pixel_weights
 from ...utils.norms import SubtractMeanPatchNorm
 
-__all__ = ["GMM_REGISTRY", "GaussianMixtureModel", "GaussianMixtureModelMeta"]
+__all__ = ["GMM_REGISTRY", "GaussianMixtureModel", "GaussianMixtureModelMeta",
+           "REFERENCE_LIBRARY_ALIASES"]
+
+log = logging.getLogger(__name__)
 
 ASSETS_DIR = Path(__file__).resolve().parents[2] / "assets"
 GMM_REGISTRY = {
     "builtin-8x8-v1": ASSETS_DIR / "gmm-builtin-8x8.npz",
     "astro-snr-v1": ASSETS_DIR / "gmm-astro-snr-8x8.npz",
 }
+# names of the reference's external GMM library; without it they
+# resolve to the shipped model closest to them, with a warning
+REFERENCE_LIBRARY_ALIASES = (
+    "zoran-weiss",
+    "gleam-v0.1",
+    "jwst-cas-a-v0.1",
+    "chandra-snrs-v0.1",
+)
+ALIAS_SUBSTITUTE = "astro-snr-v1"
 
 
 class GaussianMixtureModelMeta:
@@ -120,14 +136,27 @@ class GaussianMixtureModel:
 
     @classmethod
     def from_registry(cls, name):
-        """Build ``builtin-8x8-v1`` or ``astro-snr-v1`` from its asset."""
-        if name not in GMM_REGISTRY:
+        """Build ``builtin-8x8-v1`` or ``astro-snr-v1`` from its asset;
+        a name of :data:`REFERENCE_LIBRARY_ALIASES` builds
+        ``astro-snr-v1`` and logs a warning."""
+        if name in REFERENCE_LIBRARY_ALIASES:
+            log.warning(
+                f"GMM {name!r} refers to a model from the external "
+                "jolideco-gmm-prior-library, which is not installed "
+                "($JOLIDECO_GMM_LIBRARY unset or missing the entry); "
+                f"substituting the shipped {ALIAS_SUBSTITUTE!r} model. "
+                "Results will differ numerically from the reference "
+                "library model."
+            )
+            path = GMM_REGISTRY[ALIAS_SUBSTITUTE]
+        elif name in GMM_REGISTRY:
+            path = GMM_REGISTRY[name]
+        else:
             raise ValueError(
                 f"GMM {name!r} is not available in the port; choose from "
-                f"{list(GMM_REGISTRY)} (entries that need the external "
-                "GMM library are not ported)"
+                f"{list(GMM_REGISTRY) + list(REFERENCE_LIBRARY_ALIASES)}"
             )
-        with np.load(GMM_REGISTRY[name], allow_pickle=False) as data:
+        with np.load(path, allow_pickle=False) as data:
             means = data["means"]
             covariances = data["covariances"]
             weights = data["weights"]

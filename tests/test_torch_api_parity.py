@@ -1,0 +1,152 @@
+"""The port's public signatures against the JAX package's.
+
+Every keyword that the JAX package's deconvolver, its ``run``, the flux
+component, the GMM patch prior and the stacked loss accept is accepted
+by the port (``inspect.signature``). A keyword whose option is not
+ported raises ``NotImplementedError`` for anything but its default; the
+harmless ones are honoured. The names of the reference's external GMM
+library resolve to the shipped ``astro-snr-v1`` with the JAX package's
+warning.
+"""
+
+import inspect
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import jolideco_torch as jt
+import jolideco_tpu as jj
+from jolideco_torch.parallel.stacked import StackedPoissonLoss as TStacked
+from jolideco_torch.priors.patches.gmm import REFERENCE_LIBRARY_ALIASES
+from jolideco_tpu.parallel.stacked import StackedPoissonLoss as JStacked
+
+torch.set_num_threads(1)
+
+CALLABLES = {
+    "MAPDeconvolver": (jj.MAPDeconvolver.__init__, jt.MAPDeconvolver.__init__),
+    "MAPDeconvolver.run": (jj.MAPDeconvolver.run, jt.MAPDeconvolver.run),
+    "SpatialFluxComponent": (jj.SpatialFluxComponent.__init__,
+                             jt.SpatialFluxComponent.__init__),
+    "GMMPatchPrior": (jj.GMMPatchPrior.__init__, jt.GMMPatchPrior.__init__),
+    "StackedPoissonLoss.from_datasets": (JStacked.from_datasets,
+                                         TStacked.from_datasets),
+}
+
+
+def _params(fn):
+    return inspect.signature(fn).parameters
+
+
+@pytest.mark.parametrize("name", list(CALLABLES))
+def test_port_accepts_every_jax_keyword_with_its_default(name):
+    jax_fn, port_fn = CALLABLES[name]
+    jax_params, port_params = _params(jax_fn), _params(port_fn)
+    missing = [p for p in jax_params if p not in port_params]
+    assert not missing, f"{name} lacks {missing}"
+    # the JAX package's parameters come first, in its order, so that a
+    # positional call means the same in both
+    assert list(port_params)[:len(jax_params)] == list(jax_params)
+    for p, spec in jax_params.items():
+        if spec.default is not inspect.Parameter.empty:
+            assert port_params[p].default == spec.default, (name, p)
+
+
+def _datasets():
+    ones = np.ones((16, 16), np.float32)
+    return {"obs": {"counts": ones, "psf": np.ones((3, 3)) / 9,
+                    "exposure": ones, "background": ones}}
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": object()},
+    {"stop_early": True},
+    {"checkpoint_path": "checkpoints"},
+], ids=lambda kw: next(iter(kw)))
+def test_deconvolver_raises_on_unported_options(kwargs):
+    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
+        jt.MAPDeconvolver(update_strategy="joint", trace_every=0, **kwargs)
+
+
+@pytest.mark.parametrize("keyword", ["datasets_validation", "calibrations",
+                                     "resume_from", "total_loss"])
+def test_run_raises_on_unported_options(keyword):
+    deco = jt.MAPDeconvolver(n_epochs=1, update_strategy="joint",
+                             trace_every=0, device="cpu")
+    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
+    with pytest.raises(NotImplementedError, match=keyword):
+        deco.run(_datasets(), components=component, **{keyword: object()})
+    with pytest.raises(ValueError, match="components"):
+        deco.run(_datasets())
+
+
+def test_harmless_keywords_are_honoured(caplog):
+    deco = jt.MAPDeconvolver(
+        n_epochs=2, update_strategy="joint", trace_every=0, device="cpu",
+        stop_early_n_average=5, display_progress=True, scan_epochs=True,
+        scan_chunk=4, shard_prior=False)
+    config = deco.to_dict()
+    assert config["stop_early_n_average"] == 5
+    assert config["scan_epochs"] is True and config["scan_chunk"] == 4
+    assert config["shard_prior"] is False and config["mesh"] is None
+    wcs = {"CTYPE1": "RA---TAN"}
+    error = np.full((1, 1, 16, 16), 0.5, np.float32)
+    component = jt.SpatialFluxComponent(np.ones((1, 1, 16, 16)),
+                                        flux_upsampled_error=error, wcs=wcs)
+    assert component.wcs is wcs
+    np.testing.assert_array_equal(component.flux_upsampled_error_numpy,
+                                  error[0, 0])
+    with caplog.at_level(logging.INFO, logger="jolideco_torch.core"):
+        result = deco.run(_datasets(), components=component)
+    assert "2 steps" in caplog.text
+    assert result.loss_per_step.shape == (2,)
+    quiet = jt.MAPDeconvolver(n_epochs=1, update_strategy="joint",
+                              trace_every=0, device="cpu",
+                              display_progress=False)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="jolideco_torch.core"):
+        quiet.run(_datasets(), components=jt.SpatialFluxComponent.from_numpy(
+            np.ones((16, 16))))
+    assert "steps in" not in caplog.text
+
+
+def test_prior_and_loss_raise_on_unported_options():
+    from jolideco_torch.utils.norms import SubtractMeanPatchNorm
+
+    gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    prior = jt.GMMPatchPrior(gmm=gmm, patch_norm=SubtractMeanPatchNorm())
+    assert type(prior.patch_norm) is SubtractMeanPatchNorm
+    with pytest.raises(NotImplementedError, match="patch_norm"):
+        jt.GMMPatchPrior(gmm=gmm, patch_norm=object())
+    comps = jt.FluxComponents({"flux": jt.SpatialFluxComponent.from_numpy(
+        np.ones((16, 16)))})
+    with pytest.raises(NotImplementedError, match="row_shards"):
+        TStacked.from_datasets(_datasets(), comps, row_shards=2, device="cpu")
+
+
+@pytest.mark.parametrize("alias", REFERENCE_LIBRARY_ALIASES)
+def test_reference_library_aliases_give_astro_snr(alias, caplog):
+    assert set(REFERENCE_LIBRARY_ALIASES) == set(
+        jj.priors.patches.gmm.REFERENCE_LIBRARY_ALIASES)
+    with caplog.at_level(logging.WARNING):
+        got = jt.GaussianMixtureModel.from_registry(alias)
+    assert "substituting the shipped 'astro-snr-v1'" in caplog.text
+    astro = jt.GaussianMixtureModel.from_registry("astro-snr-v1")
+    jax_gmm = jj.GaussianMixtureModel.from_registry(alias)
+    for field in ("means", "covariances", "weights"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(astro, field))
+        np.testing.assert_array_equal(getattr(got, field),
+                                      np.asarray(getattr(jax_gmm, field)))
+    assert got.meta.stride == astro.meta.stride
+
+
+def test_default_prior_gmm_is_the_alias(caplog):
+    with caplog.at_level(logging.WARNING):
+        prior = jt.GMMPatchPrior()
+    assert "'zoran-weiss'" in caplog.text
+    astro = jt.GaussianMixtureModel.from_registry("astro-snr-v1")
+    np.testing.assert_array_equal(prior.gmm.means, astro.means)
+    np.testing.assert_array_equal(
+        prior.gmm.means, np.asarray(jj.GMMPatchPrior().gmm.means))

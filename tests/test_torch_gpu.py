@@ -16,10 +16,14 @@ max-abs error plus 1e-6 of the result's max-abs (softmax weights of
 logits of order 1e5 to 1e8 are ill-conditioned in float32); they run on
 the ``astro-snr-v1`` GMM, whose weights are nearly one-hot, and on a
 random SPD GMM, whose weights are not. The matrix-DFT convolution's
-three kernels (K3) are held the same way against their plain version in
-float64, and the whole pipeline also within 1e-5 of its max-abs; the
-pfft path's loss, gradient and flux errors, card against CPU, to rtol
-1e-5 and 1e-4.
+three float32 kernels (K3) are held the same way against their plain
+version in float64, and the whole pipeline also within 1e-5 of its
+max-abs; the tensor-core kernels of its ``"split"`` mode against the
+float64 plain version within twice the float32 split plain version's
+error plus 1e-6 of the max-abs, and within 1e-4 of it (split's own
+error is about 3e-5); the pfft path's loss, gradient and flux errors,
+card against CPU under the default dial (split on both), to rtol 1e-5
+and 1e-4.
 """
 
 import numpy as np
@@ -351,10 +355,114 @@ def test_pfft_kernels_match_float64(device, p_, h, w, k, conj_spec):
             pf.pfft_cols_inv_cuda.launches) == (1, 1, 1)
 
 
+def pfft_batch(device, p_, h, w, k, seed):
+    from jolideco_torch.ops import pallas_fft as pf
+
+    rs = np.random.RandomState(seed)
+    x0, x1 = (torch.as_tensor(rs.randn(p_, h, w).astype(np.float32),
+                              device=device) for _ in range(2))
+    n = pf.pfft_size(max(h, w) + k - 1)
+    planes = [pf.pfft_pair_spectra(rs.rand(k, k), rs.rand(k, k), (h, w), n)
+              for _ in range(p_)]
+    spectra = [torch.as_tensor(np.stack([q[j] for q in planes]),
+                               device=device) for j in range(4)]
+    return x0, x1, n, spectra
+
+
+def split_anchored(got, plain32, plain64):
+    """``chip_smoke.py``'s bar of the tensor-core kernels: at most twice
+    the float32 ``"split"`` plain version's error against float64 plus
+    1e-6 of the max-abs, and at most 1e-4 of the max-abs."""
+    pfft_anchored(got, plain32, plain64)
+    err = float((got.to(plain64.dtype) - plain64).abs().max())
+    assert err <= 1e-4 * float(plain64.abs().max()), err
+
+
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (2, 256, 128),
+                                    (5, 1024, 896)])
+def test_pfft_tensor_core_kernels_match_float64(device, p_, h, w,
+                                                conj_spec):
+    """Passes 2 and 3 on the tensor cores (``"split"``) and the split
+    pipeline, against the plain version in float64 on the same inputs;
+    33² kernels, so n = 256, 384 and 1152 (m = 2, 3, 9)."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    x0, x1, n, spectra = pfft_batch(device, p_, h, w, 33, h + w)
+    c128, f64 = torch.complex128, torch.float64
+    pf.reset_counters()
+    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    v = pf.pfft_rows_combine_tc_cuda(u, *spectra, conj_spec)
+    for got, want32, want64 in zip(
+            v, pf.rows_combine_plain(u, *spectra, conj_spec, mode="split"),
+            pf.rows_combine_plain(u.to(c128), *spectra, conj_spec, f64)):
+        split_anchored(got, want32, want64)
+    y = pf.pfft_cols_inv_tc_cuda(*v, h)
+    for got, want32, want64 in zip(
+            y, pf.cols_inv_plain(*v, h, mode="split"),
+            pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)):
+        split_anchored(got, want32, want64)
+    y = pf.pfft_conv_cuda(x0, x1, *spectra, n, conj_spec, "split")
+    for got, want32, want64 in zip(
+            y, pf.conv_packed_pfft_plain(x0, x1, *spectra, n, conj_spec,
+                                         mode="split"),
+            pf.conv_packed_pfft_plain(x0.double(), x1.double(), *spectra, n,
+                                      conj_spec, f64)):
+        split_anchored(got, want32, want64)
+    torch.cuda.synchronize()
+    assert (pf.pfft_rows_combine_tc_cuda.launches,
+            pf.pfft_cols_inv_tc_cuda.launches,
+            pf.pfft_rows_combine_cuda.launches,
+            pf.pfft_cols_inv_cuda.launches) == (2, 2, 0, 0)
+
+
+def test_pfft_split_adjoint_identity(device):
+    """``<conv(x), g> = <x, conv_adj(g)>`` on the tensor-core pipeline,
+    to split's error (3.1e-5 of the norms' product)."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    x0, x1, n, spectra = pfft_batch(device, 2, 256, 128, 33, 11)
+    gen = torch.Generator(device=device).manual_seed(0)
+    g = [torch.randn(x0.shape, generator=gen, device=device)
+         for _ in range(2)]
+    y = pf.pfft_conv_cuda(x0, x1, *spectra, n, False, "split")
+    d = pf.pfft_conv_cuda(*g, *spectra, n, True, "split")
+    lhs = sum(float((a.double() * b.double()).sum()) for a, b in zip(y, g))
+    rhs = sum(float((a.double() * b.double()).sum())
+              for a, b in zip((x0, x1), d))
+    norm = sum(float(a.double().norm() * b.double().norm())
+               for a, b in zip(y, g))
+    assert abs(lhs - rhs) <= 3.1e-5 * norm
+
+
+@pytest.mark.parametrize("mode,tc", [("split", True), ("f32", False),
+                                     ("bf16", False)])
+def test_pfft_launches_by_mode(device, mode, tc):
+    """``conv_packed_pfft`` forward and backward on the card: each mode's
+    kernels once per pipeline, the other mode's never, no plain call."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    x0, x1, n, spectra = pfft_batch(device, 1, 128, 128, 9, 3)
+    x0.requires_grad_(True)
+    pf.reset_counters()
+    y0, y1 = pf.conv_packed_pfft(x0, x1, *spectra, n, mode)
+    (y0 * y1).sum().backward()
+    torch.cuda.synchronize()
+    k32 = (pf.pfft_rows_combine_cuda.launches, pf.pfft_cols_inv_cuda.launches)
+    ktc = (pf.pfft_rows_combine_tc_cuda.launches,
+           pf.pfft_cols_inv_tc_cuda.launches)
+    assert pf.pfft_cols_fwd_cuda.launches == 2
+    assert ktc == ((2, 2) if tc else (0, 0))
+    assert k32 == ((0, 0) if tc else (2, 2))
+    assert pf.conv_packed_pfft_plain.calls == 0
+
+
 def test_pfft_path_on_card_matches_cpu(device):
     """``StackedPoissonLoss(conv_mode="pfft")`` at 3 × 100 × 72 (padded
     to 128², a pair and an odd tail), then the Hessian probe at 2 × 64²:
-    card against CPU, with K3's kernels launched once per pipeline."""
+    card against CPU under the default dial (``"split"``: the plain
+    version on the CPU computes what the tensor-core kernels compute),
+    with K3's kernels launched once per pipeline."""
     from jolideco_torch import FluxComponents, MAPDeconvolver
     from jolideco_torch import SpatialFluxComponent, UniformPrior
     from jolideco_torch.ops import pallas_fft as pf
@@ -378,6 +486,7 @@ def test_pfft_path_on_card_matches_cpu(device):
         values.sum().backward()
         if dev != "cpu":
             assert pf.pfft_cols_fwd_cuda.launches == 2
+            assert pf.pfft_rows_combine_tc_cuda.launches == 2
             assert pf.conv_packed_pfft_plain.calls == 0
         results[str(dev)] = (values.detach().cpu(), f.grad.cpu())
     (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
@@ -400,7 +509,12 @@ def test_pfft_path_on_card_matches_cpu(device):
         out = total.fluxes_error(comps.fluxes_from())
         errors[str(dev)] = out["flux"].cpu()
         if dev != "cpu":
-            assert pf.pfft_rows_combine_cuda.launches == 4
+            # the default dial's "split": passes 2 and 3 on the tensor
+            # cores, pass 1 on its float32 kernel
+            assert pf.pfft_rows_combine_tc_cuda.launches == 4
+            assert pf.pfft_cols_inv_tc_cuda.launches == 4
+            assert pf.pfft_cols_fwd_cuda.launches == 4
+            assert pf.pfft_rows_combine_cuda.launches == 0
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

@@ -17,6 +17,14 @@ does; ``tests/test_torch_gpu.py`` and ``chip_smoke.py`` check them there.
 Dynamic shared memory (``extern __shared__``) becomes a static buffer of
 the card's 227 KB per block.
 
+The libraries it emulates are :data:`EMULATED`. The others are
+:data:`CARD_ONLY`: ``pfft_conv_tc`` is built from warp-level tensor-core
+instructions (``mma.sync``, ``ldmatrix``, ``cp.async``) and bf16 types
+whose operands are spread over the 32 threads of a warp, so a block of
+one thread cannot run them; the card holds them instead
+(``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
+their plain version (``mode="split"``) is held against the JAX package.
+
 Tolerances are the card's (``chip_smoke.py`` phase 2): values rtol 1e-5,
 argmax identical, the MAP gradients within 1e-4 of their max-abs, the
 marginalise kernels and the matrix-DFT convolution's passes within
@@ -98,6 +106,18 @@ def emulated_source(source):
             "blockDim{1, 1, 1};\n" + body)
 
 
+# the libraries this file compiles for the CPU, and those it cannot
+EMULATED = ("gmm_fused", "gmm_patch", "pfft_conv")
+CARD_ONLY = ("pfft_conv_tc",)
+
+
+def test_every_library_is_emulated_or_card_only():
+    """Each of ``cuda_build.LIBRARIES`` is emulated here or named as
+    card-only, with the reason in the module docstring."""
+    assert sorted(EMULATED + CARD_ONLY) == sorted(cuda_build.LIBRARIES)
+    assert not set(EMULATED) & set(CARD_ONLY)
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """``load_library`` of ``jolideco_torch.utils.cuda_build`` for the
@@ -109,7 +129,7 @@ def emulated(tmp_path_factory):
     (out / "cuda_runtime.h").write_text(STUB)
     (out / "math_constants.h").write_text(MATH_STUB)
     libs = {}
-    for name in cuda_build.LIBRARIES:
+    for name in EMULATED:
         src = out / f"{name}.cpp"
         src.write_text(emulated_source(
             (cuda_build.CSRC_DIR / f"{name}.cu").read_text()))

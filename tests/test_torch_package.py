@@ -124,7 +124,7 @@ def test_no_card_no_default_device(monkeypatch):
         StackedPoissonLoss.from_datasets(datasets, comps)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         jt.MAPDeconvolver(update_strategy="joint", trace_every=0).run(
-            datasets, comps["flux"])
+            datasets, components=comps["flux"])
     loss = StackedPoissonLoss.from_datasets(datasets, comps, device="cpu")
     assert loss.counts.device.type == "cpu"
 

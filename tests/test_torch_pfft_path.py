@@ -5,7 +5,7 @@ The JAX package runs its matrix-DFT kernels in the Pallas interpreter
 (``"high"``), which gives them the ``"split"`` mode (bf16 hi/lo
 products, 3.1e-5 of the result's max-abs at the benchmark shape,
 ``jolideco_tpu/ops/pallas_fft.py:86-102``); the port runs its plain
-version in float32 (CPU tensors). 32² images pad to 128 (n = 256); 3
+version (CPU tensors) under its own default dial, also ``"split"``. 32² images pad to 128 (n = 256); 3
 observations are a pair and an odd tail, 4 are two pairs. Tolerances:
 
 - per-observation losses rtol 1e-5 (the ``"fft"`` test's bar, 2.1e-6
@@ -102,7 +102,7 @@ def test_deconvolver_with_errors_matches_jax_and_fft():
                                  update_strategy="joint", trace_every=0,
                                  conv_mode=mode, compute_error=True,
                                  device="cpu")
-        results[mode] = deco.run(datasets, build_components(jt)).components
+        results[mode] = deco.run(datasets, components=build_components(jt)).components
         # pfft: a forward and an adjoint per step; the probe's forward,
         # adjoint, and the adjoint's adjoint beside the adjoint again
         assert pf.conv_packed_pfft_plain.calls == (
@@ -142,7 +142,7 @@ def test_gmm_prior_run_matches_fft():
                                  update_strategy="joint", trace_every=0,
                                  conv_mode=mode, compute_error=True,
                                  device="cpu", seed=0)
-        results[mode] = deco.run(datasets, comp).components["flux"]
+        results[mode] = deco.run(datasets, components=comp).components["flux"]
     for name in ("flux_upsampled_numpy", "flux_upsampled_error_numpy"):
         assert_allclose(getattr(results["pfft"], name),
                         getattr(results["fft"], name), rtol=1e-4)
