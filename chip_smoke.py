@@ -10,14 +10,18 @@ Phases, each printing one or more lines:
 0. the device: ``torch.cuda.get_device_name(0)`` and the card's name and
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
-   compiler per source, all at once (the fused scorer, the patch-level
-   scorer, the matrix-DFT convolution in float32 and its passes 2 and 3
-   on the tensor cores), each kernel's registers, spills and shared
-   memory as ``ptxas`` reports them;
+   compiler per source, all at once (the fused scorer, its MAP forward
+   on the tensor cores, the patch-level scorer, the matrix-DFT
+   convolution in float32 and its passes 2 and 3 on the tensor cores),
+   each kernel's registers, spills and shared memory as ``ptxas``
+   reports them;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
-   1000x904 image with a block of zero-flux sentinel pixels; the
+   1000x904 image with a block of zero-flux sentinel pixels, then K1's
+   ``"split"`` kernel on the tensor cores on the same two images against
+   the split plain version and, with the float32 kernel beside it,
+   against the logits in float64; the
    patch-level scorer, unit gradient and Hessian action (K5, K6, K7) on
    the rows of those two images (65,025 rows, the flux-error probe's
    shape, and a ragged 56,025); the matrix-DFT convolution's three
@@ -30,10 +34,12 @@ Phases, each printing one or more lines:
    held to the split plain version's error and to 1e-4 of the max-abs;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
-   (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``.
-   The kernels' launch counts are set to zero just before and read just
-   after; then a small run (4 x 128², 20 steps) on the card is held
-   against the same run on the CPU's plain path;
+   (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
+   under the default dial (K1 on the tensor cores) and 20 under
+   ``"highest"`` (the float32 K1), their flux held together. The
+   kernels' launch counts are set to zero just before and read just
+   after each run; then a small run (4 x 128², 20 steps) on the card is
+   held against the same run on the CPU's plain path;
 4. the flux-error path: the same deconvolution with
    ``compute_error=True`` and 5 steps, so that the run ends with one
    Hessian probe on the patch-level kernels; counts set to zero just
@@ -66,8 +72,9 @@ run once more on the 1024² image and its rows under a random SPD GMM
 with K = 200 whose weights are mixed; the run fails unless they are.
 
 It then prints a JSON line with K3's errors and times, a JSON line with
-the mixed case's errors, times and bounds, a JSON line with each
-kernel's numbers and, last, the
+the mixed case's errors, times and bounds, a JSON line with K1's split
+kernel's errors, time and bound and the two dials' flux difference, a
+JSON line with each kernel's numbers and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -121,6 +128,31 @@ PFFT_SPLIT_SHARE = 1e-4
 # "split" mode against the float32 FFT (jolideco_tpu/ops/pallas_fft.py:
 # 86-102), printed beside the split pipeline's
 JAX_SPLIT_ERR = 3.1e-5
+# K1's "split" kernel against the split plain version: values within
+# rtol 2e-4, the JAX package's bar between two of its own split3 scorers
+# that sum the same bf16 products in other orders (its fused kernel
+# against the patch-level one, tests/test_gmm_fused.py:133). The
+# tensor cores' float32 sums are not IEEE sums: they put the kernel up
+# to 1.5e-5 (astro-snr-v1) and 4.7e-5 (builtin-8x8-v1) from the exact
+# sum of its products at 1024^2 on an H100, where cuBLAS's sums of the
+# split plain version are 3.6e-6 and 8.3e-6 off (python -m
+# jolideco_torch.utils.gmm_tc_variants), so rtol 1e-5 does not hold.
+# Argmax flips at most this share of the valid rows, the normalised
+# patches within 1e-5; against float64, the marginalise kernels' bar
+# (MARG_ERR_FACTOR x the split plain version's error plus MARG_ERR_FLOOR
+# of the max-abs): the split's own error, 6.4e-5 and 1.5e-4 of the
+# values there, is what both carry.
+K1_SPLIT_RTOL, K1_SPLIT_FLIPS = 2e-4, 1e-4
+# The MAP gradient reads the logits only through the argmax, so the
+# default dial ("split") and "highest" train alike until an argmax flips.
+# The JAX package's own HIGH and HIGHEST runs (its fused kernel in the
+# Pallas interpreter, 4 x 128^2, astro-snr-v1, cycle spin, 20 steps)
+# gave identical flux on the CPU
+# (tests/test_torch_gmm_fused_split.py::
+# test_dial_flux_difference_matches_jax), so phase 3 holds the card's
+# two runs to twice that: identical.
+JAX_DIAL_FLUX_SHARE = 0.0
+DIAL_FLUX_SHARE = 2 * JAX_DIAL_FLUX_SHARE
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -196,6 +228,12 @@ def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
     t_ops, t_bytes = flop / peak, nbytes / PEAK_BYTES_PER_S
     return {"bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def split_bound(flop, nbytes):
+    """:func:`bound` of the same work under the dial's ``"split"`` mode:
+    three bf16 products for each float32 one, at the bf16 peak."""
+    return bound(3 * flop, nbytes, PEAK_BF16_FLOPS)
 
 
 def phase_kernels(torch, device):
@@ -284,6 +322,8 @@ def phase_kernels(torch, device):
               f"values max rel err {out[label]['value_max_rel_err']:.3g}; "
               f"argmax flips {flips}/{n_valid}; "
               f"grad max abs err {grad_err:.3g} (max {grad_scale:.3g})")
+        out[label]["split"] = k1_split_checks(
+            torch, label, image, bufs, (vk, ak, valk, xk), (vp, ap, valp, xp))
     t = out["timing"]
     print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
           f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernel {t['bwd_ms']:.3f} ms, "
@@ -291,6 +331,98 @@ def phase_kernels(torch, device):
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
     out["pfft"] = phase_pfft_kernels(torch, device)
+    return out
+
+
+def max_logits64(torch, xtn, bufs):
+    """Maximum and argmax over the components of the logits of ``xtn``
+    (float32 rows) in float64, from the float32 buffers."""
+    aq, bq, c2 = (bufs[name].double() for name in ("aq", "bq", "const2"))
+    values, argmax = [], []
+    for start in range(0, xtn.shape[0], 4096):
+        x = xtn[start:start + 4096].double()
+        u = (x[:, :, None] * x[:, None, :]).reshape(x.shape[0], -1)
+        v, k = (-0.5 * (u @ aq) + x @ bq + c2).max(dim=1)
+        values.append(v)
+        argmax.append(k.to(torch.int32))
+    return torch.cat(values), torch.cat(argmax)
+
+
+def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain):
+    """K1's ``"split"`` kernel (tensor cores) on one image: against the
+    split plain version (values rtol 1e-5, argmax flips, the normalised
+    patches), then the errors of both and of the float32 kernel against
+    the logits in float64; at the main path's shape, times and bound."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+    from jolideco_torch.utils.cuda_build import BUILD_INFO
+
+    stride, sentinel = 4, ZERO_FLUX_SENTINEL
+    vt, at, valt, xt = gf.gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel)
+    vs, as_, vals, xs = gf.fused_forward_plain(image, bufs, stride, sentinel,
+                                               mode="split")
+    vk, ak, valk, _ = fp32
+    vp, ap, valp, xp = fp32_plain
+    torch.cuda.synchronize()
+    tag = f"{label} K1 split"
+    check(torch.equal(valt, valp) and torch.equal(vals, valp),
+          f"{tag}: valid differs")
+    m = valp > 0.5
+    n_valid = int(m.sum())
+    xtn_err = float((xt - xs).abs().max())
+    check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
+          f"{xtn_err:.3g}")
+    rel = float(((vt - vs).abs() / vs.abs())[m].max())
+    check(rel <= K1_SPLIT_RTOL, f"{tag}: values beyond rtol {K1_SPLIT_RTOL} "
+          f"(max rel {rel:.3g})")
+    flips = int((at != as_)[m].sum())
+    check(flips <= K1_SPLIT_FLIPS * n_valid,
+          f"{tag}: argmax flips {flips} of {n_valid}")
+    v64, a64 = max_logits64(torch, xp[m], bufs)
+    scale = float(v64.abs().max())
+    errs = {name: float((v[m].double() - v64).abs().max())
+            for name, v in (("tc", vt), ("split_plain", vs), ("fp32", vk),
+                            ("fp32_plain", vp))}
+    flips64 = {name: int((a[m] != a64).sum())
+               for name, a in (("tc", at), ("split_plain", as_),
+                               ("fp32", ak))}
+    limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
+    check(errs["tc"] <= limit, f"{tag}: error against float64 "
+          f"{errs['tc']:.3g} above {limit:.3g}")
+    out = {"value_max_rel_err": rel, "argmax_flips": flips,
+           "n_valid": n_valid, "xtn_max_abs_err": xtn_err,
+           "value_max_abs_err": float((vt - vs).abs()[m].max()),
+           "errors_against_float64": errs, "max_abs": scale,
+           "argmax_flips_against_float64": flips64}
+    line = (f"phase 2 {tag}: against the split plain version values max rel "
+            f"{rel:.3g} (limit {K1_SPLIT_RTOL}), argmax flips "
+            f"{flips}/{n_valid}, xtn {xtn_err:.3g}; against float64 "
+            f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, split plain "
+            f"{errs['split_plain']:.3g}, fp32 kernel {errs['fp32']:.3g}, "
+            f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
+            f"float64: tc {flips64['tc']}, split plain "
+            f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
+    if label == MAIN:
+        n, k = vs.numel(), bufs["rec"].shape[0]
+        out["ms"] = cuda_ms(torch, lambda: gf.gmm_fused_fwd_tc_cuda(
+            image, bufs, stride, sentinel), 10)
+        out["plain_ms"] = cuda_ms(torch, lambda: gf.fused_forward_plain(
+            image, bufs, stride, sentinel, mode="split"), 3)
+        # three bf16 products of every patch against every component (the
+        # 2,080 pairs and b . x) at the bf16 peak; reads the image and
+        # the split pairs, b and c, writes values, argmax, valid and xtn
+        out["bound"] = split_bound(
+            2.0 * n * k * (2080 + 64),
+            4 * (image.numel() + n * (3 + 64) + bufs["bc"].numel())
+            + 2 * bufs["pair_tc"].numel())
+        out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_fused_tc"]["ptxas"])
+        line += (f"; {out['ms']:.3f} ms per call (split plain "
+                 f"{out['plain_ms']:.3f} ms), split bound "
+                 f"{out['bound']['bound_ms']:.4f} ms "
+                 f"({out['bound']['bound_by']}, "
+                 f"{out['bound']['bound_ms'] / out['ms']:.1%}); "
+                 + " | ".join(out["ptxas"]))
+    print(line)
     return out
 
 
@@ -374,6 +506,9 @@ def phase_patch_kernels(torch, device, bufs, cases):
             # writes values and argmax
             "score": bound(2.0 * n * k * (2080 + 64),
                            4 * (n * 64 + bufs["rec"].numel() + 2 * n)),
+            "score_split": split_bound(
+                2.0 * n * k * (2080 + 64),
+                4 * (n * 64 + bufs["rec"].numel() + 2 * n)),
             # A_{k*} x per row; reads rows, argmax and the selected
             # components, writes rows
             "unit": bound(2.0 * n * 64 * 64,
@@ -566,21 +701,23 @@ def marg_timing(torch, bufs, img, s, plain=True):
     logit_flop = 2.0 * (2080 + 64) * k
     rec_bytes = 4 * bufs["rec"].numel()
     a_bytes = 4 * s["used"] * 64 * 64
-    bounds = {
-        "fwd": bound(logit_flop * n_patches,
-                     4 * (img.size + n_patches * (3 + 64)) + rec_bytes),
-        "bwd": bound(logit_flop * n_valid
-                     + 2.0 * (4096 + 64) * s["nnz_fused"],
-                     4 * (n_valid * 64 + 3 * n_patches + img.size)
-                     + rec_bytes + a_bytes),
-        "unit": bound(logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
-                      4 * (2 * n * 64 + n) + rec_bytes + a_bytes),
-        "weights": bound(logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
-                         4 * (2 * n * 64 + n + 2 * k * n) + rec_bytes
-                         + a_bytes),
-        "mix": bound(2.0 * (4096 + 3 * 64) * s["nnz_mix"],
-                     4 * (3 * n * 64 + 2 * k * n) + a_bytes),
+    work = {
+        "fwd": (logit_flop * n_patches,
+                4 * (img.size + n_patches * (3 + 64)) + rec_bytes),
+        "bwd": (logit_flop * n_valid + 2.0 * (4096 + 64) * s["nnz_fused"],
+                4 * (n_valid * 64 + 3 * n_patches + img.size)
+                + rec_bytes + a_bytes),
+        "unit": (logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
+                 4 * (2 * n * 64 + n) + rec_bytes + a_bytes),
+        "weights": (logit_flop * n + 2.0 * (4096 + 64) * s["nnz_rows"],
+                    4 * (2 * n * 64 + n + 2 * k * n) + rec_bytes + a_bytes),
+        "mix": (2.0 * (4096 + 3 * 64) * s["nnz_mix"],
+                4 * (3 * n * 64 + 2 * k * n) + a_bytes),
     }
+    bounds = {name: bound(*w) for name, w in work.items()}
+    # the same work under "split", for the ranking by the dial's bound
+    bounds.update({name + "_split": split_bound(*w)
+                   for name, w in work.items()})
     return timing, bounds
 
 
@@ -627,7 +764,8 @@ def phase_marg_kernels(torch, device, bufs, cases):
     print(f"phase 2 timing marginalise kernels {label} K="
           f"{mbufs['rec'].shape[0]}: "
           + "; ".join(f"{name} {timing[name + '_ms']:.3f} ms (bound "
-                      f"{bounds[name]['bound_ms']:.3f})" for name in bounds)
+                      f"{bounds[name]['bound_ms']:.3f})"
+                      for name in ("fwd", "bwd", "unit", "weights", "mix"))
           + f"; nonzero weights: {s['nnz_fused']} of {s['n_valid']} x "
           f"{mbufs['rec'].shape[0]} patches, {s['nnz_rows']} of {n} rows; "
           f"median largest weight {s['median_p_max']:.3g}; max |dp| "
@@ -904,6 +1042,7 @@ def counts():
     launches = {
         "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
         "gmm_fused_fwd_marg": gf.gmm_fused_fwd_marg_cuda.launches,
+        "gmm_fused_fwd_tc": gf.gmm_fused_fwd_tc_cuda.launches,
         "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
         "gmm_fused_bwd_marg": gf.gmm_fused_bwd_marg_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
@@ -920,7 +1059,8 @@ def counts():
     }
     plain = sum(fn.calls for fn in (
         gf.fused_forward_plain, gf.fused_backward_plain,
-        gf.fused_backward_marg_plain, gf.score_plain, gp.score_rows_plain,
+        gf.fused_backward_marg_plain, gf.score_plain, gf.score_split_plain,
+        gp.score_rows_plain,
         gp.unit_map_plain, gp.hvp_map_plain, gp.unit_marg_plain,
         gp.hvp_marg_weights_plain, gp.hvp_marg_mix_plain,
         pf.conv_packed_pfft_plain))
@@ -971,45 +1111,113 @@ def data_term(datasets, flux, device):
         return poisson(components.fluxes_from()).item()
 
 
-def phase_slice(torch, device):
-    from jolideco_torch.priors import GaussianMixtureModel
-    from jolideco_torch.utils.bench_data import make_datasets
+# K1's kernel under each mode of the precision dial
+K1_KERNELS = {"split": "gmm_fused_fwd_tc", "f32": "gmm_fused_fwd"}
+# K3's kernels under each mode of the precision dial
+K3_KERNELS = {
+    "split": ("pfft_cols_fwd", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
+    "f32": ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv"),
+}
 
-    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
-    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    run_slice(datasets, astro, device, cycle_spin=True, n_steps=2)  # warm-up
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    result = run_slice(datasets, astro, device, cycle_spin=True)
-    launches, plain_calls = counts()
-    peak = torch.cuda.max_memory_allocated()
+def dial_training(torch, device, datasets, gmm, dial, conv_mode="fft"):
+    """20 steps of the main path under the dial ``dial``, counts set to
+    zero just before and read just after: K1's kernel of the dial's mode
+    and K2 20 times, the convolution's K3 kernels 40 times (``"pfft"``),
+    every other kernel never, no plain call. The data term must fall."""
+    from jolideco_torch import config
 
-    loss = result.loss_per_step
-    flux = result.flux_upsampled_total
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        k1, k3 = config.gmm_mode(), config.pfft_mode()
+        run = dict(cycle_spin=True, conv_mode=conv_mode)
+        run_slice(datasets, gmm, device, n_steps=2, **run)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, **run)
+        launches, plain_calls = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_gmm_precision(saved)
+    tag = f"{conv_mode} ({dial!r}, K1 {k1}" + (
+        f", K3 {k3})" if conv_mode == "pfft" else ")")
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
     check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
-          f"non-finite loss: {loss}")
-    check(flux.shape == (FIELD, FIELD), f"flux shape {flux.shape}")
-    check(bool(np.isfinite(flux).all() and (flux > 0).all()),
-          "flux not finite and positive")
+          f"{tag}: non-finite loss: {loss}")
+    check(flux.shape == (FIELD, FIELD)
+          and bool(np.isfinite(flux).all() and (flux > 0).all()),
+          f"{tag}: flux not finite and positive")
     # The total loss is not a progress measure over 20 steps here: the
     # flat start is the mode of the patch prior (every mean-subtracted
     # patch is zero), so the first steps leave it and the total rises
     # in both packages. The data term is: it must fall.
     data_start = float(data_term(datasets, np.ones_like(flux), device))
     data_end = float(data_term(datasets, flux, device))
-    check(data_end < data_start,
-          f"Poisson data term did not fall: {data_start} -> {data_end}")
-    expected = expect(gmm_fused_fwd=STEPS, gmm_fused_bwd=STEPS)
-    check(launches == expected, f"launches {launches}, not {expected}")
-    check(plain_calls == 0, f"plain versions ran {plain_calls} times")
-    steps_per_s = STEPS / result.train_seconds
-    print(f"phase 3 slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
-          f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "
-          f"data term {data_start:.6f} -> {data_end:.6f}; "
-          f"launches {launches}; plain calls {plain_calls}; "
-          f"peak memory {peak} B")
+    check(data_end < data_start, f"{tag}: Poisson data term did not fall: "
+          f"{data_start} -> {data_end}")
+    k3_kernels = K3_KERNELS[k3] if conv_mode == "pfft" else ()
+    expected = expect(gmm_fused_bwd=STEPS, **{K1_KERNELS[k1]: STEPS},
+                      **{name: 2 * STEPS for name in k3_kernels})
+    check(launches == expected, f"{tag}: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"{tag}: plain versions ran {plain_calls} times")
+    return {"tag": tag, "launches": launches, "plain_calls": plain_calls,
+            "steps_per_s": STEPS / result.train_seconds, "peak_bytes": peak,
+            "loss": loss, "data": (data_start, data_end), "flux": flux}
+
+
+def training_line(run):
+    return (f"{STEPS} steps at {run['steps_per_s']:.3f} steps/s; loss "
+            f"{run['loss'][0]:.6f} -> {run['loss'][-1]:.6f}; data term "
+            f"{run['data'][0]:.6f} -> {run['data'][1]:.6f}; launches "
+            f"{run['launches']}; plain calls {run['plain_calls']}; peak "
+            f"memory {run['peak_bytes']} B")
+
+
+def argmax_flips(torch, device, flux, gmm):
+    """Patches whose argmax differs between K1's two kernels at ``flux``
+    (the prior's image norm is the identity, its spin left out), and the
+    valid patches."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
+                            device=device)
+    bufs = gmm.kernel_buffers(device)
+    _, a_tc, valid, _ = gf.gmm_fused_fwd_tc_cuda(image, bufs, 4,
+                                                 ZERO_FLUX_SENTINEL)
+    _, a_32, _, _ = gf.gmm_fused_fwd_cuda(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    m = valid > 0.5
+    return int((a_tc != a_32)[m].sum()), int(m.sum())
+
+
+def phase_slice(torch, device):
+    """The main path under the default dial (K1 on the tensor cores) and
+    under ``"highest"`` (the float32 K1); their flux held together."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    runs = {dial: dial_training(torch, device, datasets, astro, dial)
+            for dial in ("high", "highest")}
+    for run in runs.values():
+        print(f"phase 3 {run['tag']} slice {N_OBS}x{FIELD}^2 K=200: "
+              + training_line(run))
+    flux, flux_32 = runs["high"]["flux"], runs["highest"]["flux"]
+    dial_diff = float(np.abs(flux - flux_32).max() / np.abs(flux_32).max())
+    flips, n_valid = argmax_flips(torch, device, flux, astro)
+    check(dial_diff <= DIAL_FLUX_SHARE, f"flux under 'high' against "
+          f"'highest': max-abs difference {dial_diff:.3g} of the max "
+          f"(limit {DIAL_FLUX_SHARE}); argmax flips at the final flux "
+          f"{flips}/{n_valid}")
+    print(f"phase 3 dials: flux under 'high' against 'highest' max-abs "
+          f"difference {dial_diff:.3g} of the max (limit {DIAL_FLUX_SHARE}: "
+          f"twice the JAX package's own {JAX_DIAL_FLUX_SHARE}); K1's two "
+          f"kernels' argmax at the final flux: {flips} of {n_valid} valid "
+          f"patches differ")
 
     # small input: the card's run against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -1022,8 +1230,7 @@ def phase_slice(torch, device):
           f"4x128^2 flux on the card vs CPU: max rel err {rel:.3g}")
     print(f"phase 3 small 4x128^2 card vs CPU plain path: flux max rel err "
           f"{rel:.3g} (limit {SMALL_FLUX_RTOL})")
-    return {"launches": launches, "steps_per_s": steps_per_s,
-            "peak_bytes": peak, "flux": flux}
+    return {**runs, "dial_flux_diff": dial_diff, "final_flips": flips}
 
 
 def phase_errors(torch, device):
@@ -1045,8 +1252,9 @@ def phase_errors(torch, device):
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
 
-    expected = expect(gmm_fused_fwd=ERROR_STEPS, gmm_fused_bwd=ERROR_STEPS,
-                      gmm_score_rows=1, gmm_unit_map=1, gmm_hvp_map=1)
+    expected = expect(gmm_fused_fwd_tc=ERROR_STEPS,
+                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows=1,
+                      gmm_unit_map=1, gmm_hvp_map=1)
     check(launches == expected, f"launches {launches}, not {expected}")
     check(plain_calls == 0, f"plain versions ran {plain_calls} times")
     errors = result.components["flux"].flux_upsampled_error_numpy
@@ -1173,68 +1381,27 @@ def phase_marginalised(torch, device):
     return train, probe
 
 
-# K3's kernels under each mode of the precision dial
-K3_KERNELS = {
-    "split": ("pfft_cols_fwd", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
-    "f32": ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv"),
-}
-
-
 def pfft_training(torch, device, datasets, gmm, flux_fft, dial):
-    """20 pfft steps under the dial ``dial``, counts set to zero just
-    before and read just after: each K3 kernel of the dial's mode 40
-    times, the other mode's never, no plain call; flux against the fft
-    run of phase 3."""
-    from jolideco_torch import config
-
-    mode = {"high": "split", "highest": "f32"}[dial]
-    saved = config.gmm_precision()
-    config.set_gmm_precision(dial)
-    try:
-        run = dict(cycle_spin=True, conv_mode="pfft")
-        run_slice(datasets, gmm, device, n_steps=2, **run)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        result = run_slice(datasets, gmm, device, **run)
-        launches, plain_calls = counts()
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        config.set_gmm_precision(saved)
-    tag = f"pfft ({dial!r}, {mode})"
-    loss, flux = result.loss_per_step, result.flux_upsampled_total
-    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
-          f"{tag}: non-finite loss: {loss}")
-    check(flux.shape == (FIELD, FIELD)
-          and bool(np.isfinite(flux).all() and (flux > 0).all()),
-          f"{tag}: flux not finite and positive")
-    data_start = float(data_term(datasets, np.ones_like(flux), device))
-    data_end = float(data_term(datasets, flux, device))
-    check(data_end < data_start, f"{tag}: Poisson data term did not fall: "
-          f"{data_start} -> {data_end}")
-    expected = expect(gmm_fused_fwd=STEPS, gmm_fused_bwd=STEPS,
-                      **{name: 2 * STEPS for name in K3_KERNELS[mode]})
-    check(launches == expected, f"{tag}: launches {launches}, not "
-          f"{expected}")
-    check(plain_calls == 0, f"{tag}: plain versions ran {plain_calls} times")
+    """20 pfft steps under the dial ``dial`` (:func:`dial_training`: each
+    K3 kernel of the dial's mode 40 times, the other mode's never); flux
+    against phase 3's fft run under the same dial."""
+    run = dial_training(torch, device, datasets, gmm, dial, "pfft")
+    flux, tag = run["flux"], run["tag"]
     flux_diff = float(np.abs(flux - flux_fft).max() / np.abs(flux_fft).max())
     flux_rel = float(np.max(np.abs(flux - flux_fft) / np.abs(flux_fft)))
     check(flux_diff <= PFFT_FLUX_SHARE, f"{tag} flux against fft: max-abs "
           f"difference {flux_diff:.3g} of the max (elementwise "
           f"{flux_rel:.3g})")
-    steps_per_s = STEPS / result.train_seconds
-    print(f"phase 6 {tag} slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps at "
-          f"{steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> {loss[-1]:.6f}; "
-          f"data term {data_start:.6f} -> {data_end:.6f}; flux against "
-          f"phase 3: max-abs difference {flux_diff:.3g} of the max (limit "
-          f"{PFFT_FLUX_SHARE}), elementwise {flux_rel:.3g}; launches "
-          f"{launches}; plain calls {plain_calls}; peak memory {peak} B")
-    return {"launches": launches, "steps_per_s": steps_per_s,
-            "peak_bytes": peak, "flux_diff": flux_diff,
+    print(f"phase 6 {tag} slice {N_OBS}x{FIELD}^2 K=200: "
+          + training_line(run) + f"; flux against phase 3 ({dial!r}): "
+          f"max-abs difference {flux_diff:.3g} of the max (limit "
+          f"{PFFT_FLUX_SHARE}), elementwise {flux_rel:.3g}")
+    return {"launches": run["launches"], "steps_per_s": run["steps_per_s"],
+            "peak_bytes": run["peak_bytes"], "flux_diff": flux_diff,
             "flux_rel": flux_rel}
 
 
-def phase_pfft(torch, device, flux_fft, errors_fft):
+def phase_pfft(torch, device, slice_, errors_fft):
     """Phases 3 and 4 with ``conv_mode="pfft"``: the convolution's
     forward and adjoint on K3's kernels, once each per step, and in the
     probe the forward, the adjoint, then the adjoint's adjoint and the
@@ -1248,8 +1415,8 @@ def phase_pfft(torch, device, flux_fft, errors_fft):
 
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
     datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    train = {dial: pfft_training(torch, device, datasets, astro, flux_fft,
-                                 dial)
+    train = {dial: pfft_training(torch, device, datasets, astro,
+                                 slice_[dial]["flux"], dial)
              for dial in ("high", "highest")}
 
     torch.cuda.synchronize()
@@ -1259,8 +1426,9 @@ def phase_pfft(torch, device, flux_fft, errors_fft):
                        compute_error=True, cycle_spin=True, conv_mode="pfft")
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = expect(gmm_fused_fwd=ERROR_STEPS, gmm_fused_bwd=ERROR_STEPS,
-                      gmm_score_rows=1, gmm_unit_map=1, gmm_hvp_map=1,
+    expected = expect(gmm_fused_fwd_tc=ERROR_STEPS,
+                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows=1,
+                      gmm_unit_map=1, gmm_hvp_map=1,
                       **{name: 2 * ERROR_STEPS + 4
                          for name in K3_KERNELS["split"]})
     check(launches == expected, f"pfft probe: launches {launches}, not "
@@ -1335,7 +1503,7 @@ def main():
     slice_ = phase_slice(torch, device)
     errors = phase_errors(torch, device)
     marg_train, marg_probe = phase_marginalised(torch, device)
-    pfft_train, pfft_probe = phase_pfft(torch, device, slice_["flux"],
+    pfft_train, pfft_probe = phase_pfft(torch, device, slice_,
                                         errors["errors"])
 
     timing, patch = kernels["timing"], kernels["patch"]
@@ -1347,12 +1515,19 @@ def main():
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
     pfft = kernels["pfft"]
     pmain, ptiming, pbound = pfft[MAIN], pfft["timing"], pfft["bounds"]
+    split = kernels[MAIN]["split"]
+    # K1: the float32 kernel's launches are those of the "highest" run of
+    # phase 3, the tensor-core kernel's (and K2's) the default dial's
     table = [
         ("gmm_fused_fwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:309",
-         slice_, kernels[MAIN]["value_max_abs_err"],
+         slice_["highest"], kernels[MAIN]["value_max_abs_err"],
          timing["fwd_ms"], timing["fwd_plain_ms"], kernels["fwd_bound"]),
+        ("gmm_fused_fwd_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_fused.py:309", slice_["high"],
+         split["value_max_abs_err"], split["ms"], split["plain_ms"],
+         split["bound"]),
         ("gmm_fused_bwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:405",
-         slice_, kernels[MAIN]["grad_max_abs_err"],
+         slice_["high"], kernels[MAIN]["grad_max_abs_err"],
          timing["bwd_ms"], timing["bwd_plain_ms"], kernels["bwd_bound"]),
         ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
          errors, rows["score_marg0"][0], rtiming["score_ms"],
@@ -1424,7 +1599,7 @@ def main():
                  "probe_seconds": pfft_probe["error_seconds"],
                  "probe_peak_bytes": pfft_probe["peak_bytes"],
                  "errors_against_fft": pfft_probe["error_rel"],
-                 "fft_steps_per_s": slice_["steps_per_s"],
+                 "fft_steps_per_s": slice_["high"]["steps_per_s"],
                  "fft_probe_seconds": errors["error_seconds"]},
     }}))
     # the marginalise kernels where the weights are mixed (phase 2):
@@ -1453,10 +1628,31 @@ def main():
             "argmax_flips": mixed["errors"]["fwd"][2],
             "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
     }}))
+    # K1's "split" kernel on the tensor cores (phase 2) and the two dials'
+    # training (phase 3)
+    print(json.dumps({"k1_split": {
+        **{label: kernels[label]["split"] for label in (MAIN, "{}x{}".format(
+            *RAGGED))},
+        "dial_flux_diff": slice_["dial_flux_diff"],
+        "dial_flux_limit": DIAL_FLUX_SHARE,
+        "final_argmax_flips": slice_["final_flips"],
+        # the float32 GMM kernels' work under "split" (three bf16
+        # products each, at the bf16 peak): the dial's bound
+        "split_bound_ms": {
+            "gmm_fused_fwd_marg": mbounds["fwd_split"]["bound_ms"],
+            "gmm_fused_bwd_marg": mbounds["bwd_split"]["bound_ms"],
+            "gmm_score_rows": rbounds["score_split"]["bound_ms"],
+            "gmm_unit_marg": mbounds["unit_split"]["bound_ms"],
+            "gmm_hvp_marg_weights": mbounds["weights_split"]["bound_ms"],
+        },
+        "steps_per_s": {dial: slice_[dial]["steps_per_s"]
+                        for dial in ("high", "highest")},
+    }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax
     # over quadratic forms), so their library_ms is null.
-    # max_abs_err: K1, K2, K5-K7 against the float32 plain version;
+    # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
+    # split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
     # against the float64 plain version (phase 2)
     print(json.dumps({"kernels": [

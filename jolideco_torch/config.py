@@ -16,11 +16,15 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   patch-level scorer, which the Hessian probe needs because the fused
   scorer has no second derivative.
 - The precision dial (``"highest" | "high" | "default"``, the names of
-  the JAX package's ``config.set_gmm_precision``), and the matmul-DFT
-  mode it names (:func:`pfft_mode`: ``"f32"``, ``"split"``, ``"bf16"``).
-  Under ``"split"`` (the default, ``"high"``) the matrix-DFT
-  convolution's passes 2 and 3 run on the tensor cores as bf16 hi/lo
-  products with float32 sums; every other kernel, and that convolution
+  the JAX package's ``config.set_gmm_precision``), and the modes it
+  names: the matmul-DFT convolution's (:func:`pfft_mode`: ``"f32"``,
+  ``"split"``, ``"bf16"``) and the fused GMM scorer's (:func:`gmm_mode`:
+  ``"f32"`` or ``"split"``). Under ``"split"`` (the default dial,
+  ``"high"``) the matrix-DFT convolution's passes 2 and 3 and the fused
+  scorer's MAP forward run on the tensor cores as bf16 hi/lo products
+  with float32 sums; ``"default"`` also takes the scorer's ``"split"``
+  (a single-bf16 scorer is not ported). Every other kernel, the
+  scorer's logsumexp (marginalise) forward under every dial, and both
   in the other modes, computes in full float32, which meets the
   strictest bar. At import and on every dial change the
   float32 matmul and cuDNN paths are pinned to full float32: PyTorch
@@ -35,6 +39,7 @@ import torch
 __all__ = [
     "dispatch",
     "force_fused",
+    "gmm_mode",
     "gmm_precision",
     "pfft_mode",
     "resolve_device",
@@ -47,6 +52,10 @@ _PRECISIONS = ("highest", "high", "default")
 # full float32, bf16 hi/lo splits (about 3.1e-5 of the result's max-abs),
 # single bf16 products
 _PFFT_MODES = {"highest": "f32", "high": "split", "default": "bf16"}
+# the fused GMM scorer's MAP forward per dial setting: full float32, or
+# the JAX package's "split3" logits (bf16 hi/lo products, about 1e-5
+# relative); "default" stays "split" until a single-bf16 scorer exists
+_GMM_MODES = {"highest": "f32", "high": "split", "default": "split"}
 _GMM_PRECISION = "high"
 _USE_FUSED = "auto"
 
@@ -74,6 +83,11 @@ def gmm_precision():
 def pfft_mode():
     """The matmul-DFT convolution's mode under the current dial."""
     return _PFFT_MODES[_GMM_PRECISION]
+
+
+def gmm_mode():
+    """The fused GMM scorer's MAP mode under the current dial."""
+    return _GMM_MODES[_GMM_PRECISION]
 
 
 def resolve_device(device=None):

@@ -79,9 +79,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tc_frag.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using tc::bf16;
 
 constexpr int kLane = 128;                  // stage-B block
 constexpr int kK = 2 * kLane;               // R is kK x kK
@@ -108,52 +110,12 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile, bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The complex value v into operand column pair (idx, idx + 1) of the hi
-// and lo planes: hi = bf16(v), lo = bf16(v - hi), real part first.
-__device__ __forceinline__ void put_split(bf16* hi, bf16* lo, int idx,
-                                          float2 v) {
-  const __nv_bfloat162 h = __float22bfloat162_rn(v);
-  const float2 hf = __bfloat1622float2(h);
-  *reinterpret_cast<__nv_bfloat162*>(hi + idx) = h;
-  *reinterpret_cast<__nv_bfloat162*>(lo + idx) =
-      __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y));
-}
+using tc::cp_async16;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldsm_x4;
+using tc::mma;
+using tc::put_split;
 
 // One tile of R (hi and lo, [n][32] each, contiguous in device memory)
 // into a stage with padded rows, by the whole block.

@@ -21,6 +21,17 @@ Each direction has two implementations with one contract:
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
 
+The MAP forward has two modes, which the precision dial names
+(``config.gmm_mode``) and the caller passes down: ``"f32"``, full
+float32, and ``"split"``, the JAX package's logits at precision HIGH:
+the quadratic form as a product of the pair products ``x_a x_b`` (``a <=
+b``) with ``A`` (off-diagonals doubled), both split into bf16 hi and lo
+parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
+``b . x`` in float32. Its kernel runs on the tensor cores
+(``csrc/gmm_fused_tc.cu``), its plain version as three float32 matmuls
+of the bf16-valued parts. The logsumexp (marginalise) forward and both
+backwards are float32 in either mode.
+
 The rule is ``config.dispatch``: nothing falls back from the kernel to
 the plain version. Each wrapper keeps a plain integer count of its
 launches (``gmm_fused_fwd_cuda.launches``, ...), so a run can show that
@@ -43,6 +54,7 @@ import numpy as np
 import torch
 
 from ..config import dispatch
+from .linalg import bf16_split
 
 __all__ = [
     "fused_patch_count",
@@ -51,6 +63,7 @@ __all__ = [
     "gmm_fused_bwd_marg_cuda",
     "gmm_fused_fwd_cuda",
     "gmm_fused_fwd_marg_cuda",
+    "gmm_fused_fwd_tc_cuda",
     "fused_backward_marg_plain",
     "fused_backward_plain",
     "fused_forward_plain",
@@ -61,6 +74,7 @@ __all__ = [
     "mix_rows",
     "reset_counters",
     "score_plain",
+    "score_split_plain",
     "softmax_chunks",
 ]
 
@@ -73,6 +87,14 @@ REC = SYM + D + 4
 # patch rows per chunk of the plain versions' (n, 4096) outer products:
 # 64 MB of float32 per chunk
 PLAIN_CHUNK = 4096
+# the "split" mode's pair products x_a x_b, a <= b, row-major over a
+PAIR_A, PAIR_B = np.triu_indices(D)
+PAIRS = len(PAIR_A)
+# the tensor-core kernel (csrc/gmm_fused_tc.cu): components padded to
+# KP_TC, pairs in chunks of TC_CHUNK
+KP_TC = 208
+TC_CHUNK = 32
+MODES = ("f32", "split")
 
 
 def fused_supported(image_shape, patch_shape, stride, n_features):
@@ -127,13 +149,52 @@ def _sym_rows(a_quad):
     return out
 
 
+def _pair_rows(a_quad):
+    """``(PAIRS, K)`` pair-major ``A``: ``A_aa`` for the pair ``(a, a)``,
+    ``A_ab + A_ba`` for ``(a, b)``, ``a < b``, so that ``x^T A x =
+    sum_p (x_a x_b)_p U_p``. Summed in float64."""
+    sym = a_quad[:, PAIR_A, PAIR_B] + a_quad[:, PAIR_B, PAIR_A]
+    sym[:, PAIR_A == PAIR_B] *= 0.5
+    return np.ascontiguousarray(sym.T)
+
+
+def _split_buffers(a_quad, bq, const2):
+    """The ``"split"`` mode's buffers.
+
+    ``pair_hi``, ``pair_lo (PAIRS, K)``: the bf16 hi/lo split of the
+    pair-major ``A`` (float32 holding bf16 values), for the plain version.
+    For at most ``KP_TC`` components also the tensor-core kernel's:
+    ``pair_tc`` bf16 ``(PAIRS / TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same
+    parts chunk by chunk (hi then lo, each component's pairs of the
+    chunk contiguous, components padded with zeros), and ``bc (d + 1,
+    KP_TC)`` float32, ``b`` component-minor with ``c`` as its last row.
+    """
+    pair = torch.as_tensor(_pair_rows(a_quad).astype(np.float32))
+    hi, lo = bf16_split(pair)
+    out = {"pair_hi": hi, "pair_lo": lo}
+    d, k = bq.shape
+    if k <= KP_TC:
+        parts = torch.zeros((2, KP_TC, PAIRS))
+        parts[0, :k], parts[1, :k] = hi.T, lo.T
+        out["pair_tc"] = (
+            parts.reshape(2, KP_TC, PAIRS // TC_CHUNK, TC_CHUNK)
+            .permute(2, 0, 1, 3).contiguous().to(torch.bfloat16)
+        )
+        bc = torch.zeros((d + 1, KP_TC))
+        bc[:d, :k] = torch.as_tensor(bq)
+        bc[d, :k] = torch.as_tensor(const2)
+        out["bc"] = bc
+    return out
+
+
 def kernel_buffers(packed, device):
     """Device tensors for both implementations from ``pack_gmm_buffers``.
 
     ``aq (d*d, K)``, ``bq (d, K)``, ``const2 (K,)`` feed the plain
     scorers; ``a_full (K, d, d)``, ``b_rows (K, d)`` the backwards and
     Hessian actions, plain and CUDA. For 8x8 patches also ``rec (K, REC)``
-    for the CUDA scorers (``csrc/gmm_logits.cuh``).
+    for the CUDA scorers (``csrc/gmm_logits.cuh``) and the ``"split"``
+    mode's buffers (:func:`_split_buffers`).
     """
     aq = np.asarray(packed["aq"], np.float32)
     bq = np.asarray(packed["bq"], np.float32)
@@ -142,15 +203,17 @@ def kernel_buffers(packed, device):
     arrays = {"aq": aq, "bq": bq, "const2": const2,
               "a_full": aq.T.reshape(k, d, d), "b_rows": bq.T}
     if d == D:
+        a_quad = np.asarray(packed["a_quad"], np.float64)
         rec = np.zeros((k, REC), np.float32)
-        rec[:, :SYM] = _sym_rows(np.asarray(packed["a_quad"], np.float64))
+        rec[:, :SYM] = _sym_rows(a_quad)
         rec[:, SYM:SYM + D] = bq.T
         rec[:, SYM + D] = const2
         arrays["rec"] = rec
-    return {
-        name: torch.as_tensor(np.ascontiguousarray(a)).to(device)
-        for name, a in arrays.items()
-    }
+    out = {name: torch.as_tensor(np.ascontiguousarray(a))
+           for name, a in arrays.items()}
+    if d == D:
+        out.update(_split_buffers(a_quad, bq, const2))
+    return {name: t.to(device) for name, t in out.items()}
 
 
 # ----------------------------------------------------------------------
@@ -222,6 +285,34 @@ def _scores(x, aq, bq, const2, marginalize):
     return torch.cat(values), torch.cat(argmax)
 
 
+def split_logit_chunks(xtn, bufs):
+    """The ``"split"`` mode's logits ``(rows, K)`` of normalised patches
+    ``(n, d)``, chunk by chunk: the pair products and the pair-major
+    ``A`` split into bf16 hi and lo, three float32 matmuls of the
+    bf16-valued parts (``hi.hi + hi.lo + lo.hi``; TF32 stays off, as
+    ``config`` pins it), and ``b . x`` in float32."""
+    a_hi, a_lo = bufs["pair_hi"], bufs["pair_lo"]
+    pa = torch.as_tensor(PAIR_A, device=xtn.device)
+    pb = torch.as_tensor(PAIR_B, device=xtn.device)
+    for start in range(0, xtn.shape[0], PLAIN_CHUNK):
+        x = xtn[start:start + PLAIN_CHUNK]
+        u_hi, u_lo = bf16_split(x[:, pa] * x[:, pb])
+        q = (u_hi @ a_hi + u_hi @ a_lo) + u_lo @ a_hi
+        yield -0.5 * q + x @ bufs["bq"] + bufs["const2"]
+
+
+def score_split_plain(xtn, bufs):
+    """MAP scores of normalised patches ``(n, d)`` in the ``"split"``
+    mode: values and argmax (the lowest index among equal maxima)."""
+    score_split_plain.calls += 1
+    values, argmax = [xtn.new_empty(0)], [xtn.new_empty(0, dtype=torch.int32)]
+    for logits in split_logit_chunks(xtn, bufs):
+        v, k = torch.max(logits, dim=1)
+        values.append(v)
+        argmax.append(k.to(torch.int32))
+    return torch.cat(values), torch.cat(argmax)
+
+
 def score_plain(xtn, aq, bq, const2, marginalize=False):
     """Scores of normalised patches ``(n, d)``: values and argmax.
 
@@ -233,14 +324,17 @@ def score_plain(xtn, aq, bq, const2, marginalize=False):
     return _scores(xtn, aq, bq, const2, marginalize)
 
 
-def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False):
-    """Plain version of the forward kernel.
+def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
+                        mode="f32"):
+    """Plain version of the forward kernels.
 
     Returns ``(values (N,), argmax (N,) int32, valid (N,) float32,
     xtn (N, 64))`` with ``xtn`` the masked, mean-subtracted patches and
     ``values`` the maximum (MAP) or logsumexp (``marginalize``) of the
-    logits.
+    logits, in full float32 (``mode="f32"``) or, for MAP, the ``"split"``
+    mode's logits (:func:`split_logit_chunks`).
     """
+    _check_mode(mode, marginalize)
     fused_forward_plain.calls += 1
     h, w = image.shape
     ny, nx = h // PATCH, w // PATCH
@@ -256,8 +350,11 @@ def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False):
     valid = masks.reshape(-1) & torch.all(patches > sentinel, dim=1)
     x = torch.where(valid[:, None], patches, torch.zeros_like(patches))
     xtn = x - x.mean(dim=1, keepdim=True)
-    values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"], bufs["const2"],
-                                 marginalize)
+    if mode == "split":
+        values, argmax = score_split_plain(xtn, bufs)
+    else:
+        values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"],
+                                     bufs["const2"], marginalize)
     return values, argmax, valid.to(image.dtype), xtn
 
 
@@ -306,6 +403,28 @@ def _patches_to_image(u, valid, image_shape, stride):
 
 # ----------------------------------------------------------------------
 # CUDA kernels
+
+
+def _check_mode(mode, marginalize):
+    if mode not in MODES:
+        raise ValueError(f"invalid fused-scorer mode {mode!r}")
+    if mode == "split" and marginalize:
+        raise ValueError("the logsumexp forward has no \"split\" mode")
+
+
+def _tc_library():
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("gmm_fused_tc")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gmm_fused_fwd_tc.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, vp,
+                                         ci, vp, vp, vp, vp, vp]
+        lib.gmm_fused_fwd_tc.restype = ci
+        lib.gmm_fused_tc_error_string.argtypes = [ci]
+        lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
 
 
 def _library():
@@ -374,23 +493,58 @@ def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
     return out
 
 
-def _launch_forward(image, bufs, stride, sentinel, marginalize):
+def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
+    """Launch the MAP forward kernel of the ``"split"`` mode on the
+    tensor cores (``csrc/gmm_fused_tc.cu``); same outputs as
+    :func:`fused_forward_plain` with ``mode="split"``. At most ``KP_TC``
+    components."""
+    values, argmax, valid, xtn = _forward_outputs(image, stride)
+    device = image.device
+    h, w = image.shape
+    k = bufs["rec"].shape[0]
+    if "pair_tc" not in bufs:
+        raise ValueError(f"the tensor-core scorer takes at most {KP_TC} "
+                         f"components, got {k}")
+    _check(bufs["pair_tc"], "pair_tc", torch.bfloat16,
+           (PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
+    _check(bufs["bc"], "bc", torch.float32, (D + 1, KP_TC), device)
+    lib = _tc_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.gmm_fused_fwd_tc(
+            image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
+            float(sentinel), bufs["pair_tc"].data_ptr(),
+            bufs["bc"].data_ptr(), k, values.data_ptr(), argmax.data_ptr(),
+            valid.data_ptr(), xtn.data_ptr(), stream,
+        )
+    _raise_on_error(lib.gmm_fused_tc_error_string, code, "gmm_fused_fwd_tc")
+    gmm_fused_fwd_tc_cuda.launches += 1
+    return values, argmax, valid, xtn
+
+
+def _forward_outputs(image, stride):
+    """Checks a forward kernel's image; its four empty outputs."""
     device = image.device
     if device.type != "cuda":
         raise ValueError(f"the forward kernel needs a CUDA tensor, got {device}")
     _check_geometry(image, stride)
     h, w = image.shape
-    ny, nx = h // PATCH, w // PATCH
     n = fused_patch_count((h, w), stride)
+    _check(image, "image", torch.float32, (h, w), device)
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty((n, D), dtype=torch.float32, device=device))
+
+
+def _launch_forward(image, bufs, stride, sentinel, marginalize):
+    values, argmax, valid, xtn = _forward_outputs(image, stride)
+    device = image.device
+    h, w = image.shape
+    ny, nx = h // PATCH, w // PATCH
     rec = bufs["rec"]
     k = rec.shape[0]
-    _check(image, "image", torch.float32, (h, w), device)
     _check(rec, "rec", torch.float32, (k, REC), device)
-
-    values = torch.empty(n, dtype=torch.float32, device=device)
-    argmax = torch.empty(n, dtype=torch.int32, device=device)
-    valid = torch.empty(n, dtype=torch.float32, device=device)
-    xtn = torch.empty((n, D), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -480,10 +634,11 @@ def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (gmm_fused_fwd_cuda, gmm_fused_fwd_marg_cuda,
-               gmm_fused_bwd_cuda, gmm_fused_bwd_marg_cuda):
+               gmm_fused_fwd_tc_cuda, gmm_fused_bwd_cuda,
+               gmm_fused_bwd_marg_cuda):
         fn.launches = 0
     for fn in (fused_forward_plain, fused_backward_plain,
-               fused_backward_marg_plain, score_plain):
+               fused_backward_marg_plain, score_plain, score_split_plain):
         fn.calls = 0
 
 
@@ -494,11 +649,17 @@ reset_counters()
 # dispatch and autograd
 
 
-def _forward(image, bufs, stride, sentinel, marginalize):
+def _forward(image, bufs, stride, sentinel, marginalize, mode):
     if dispatch(image) == "kernel":
-        launch = gmm_fused_fwd_marg_cuda if marginalize else gmm_fused_fwd_cuda
+        if marginalize:
+            launch = gmm_fused_fwd_marg_cuda
+        elif mode == "split":
+            launch = gmm_fused_fwd_tc_cuda
+        else:
+            launch = gmm_fused_fwd_cuda
         return launch(image, bufs, stride, sentinel)
-    return fused_forward_plain(image, bufs, stride, sentinel, marginalize)
+    return fused_forward_plain(image, bufs, stride, sentinel, marginalize,
+                               mode)
 
 
 def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
@@ -531,9 +692,9 @@ class _FusedScore(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, image, bufs, stride, sentinel, marginalize):
+    def forward(ctx, image, bufs, stride, sentinel, marginalize, mode):
         values, argmax, valid, xtn = _forward(image, bufs, stride, sentinel,
-                                              marginalize)
+                                              marginalize, mode)
         # the marginalise backward recomputes the softmax against the
         # forward's logsumexp (the values); the MAP one needs the argmax
         ctx.save_for_backward(xtn, values if marginalize else argmax, valid)
@@ -556,11 +717,11 @@ class _FusedScore(torch.autograd.Function):
         run = _backward_marg if ctx.marginalize else _backward
         dimage = run(xtn, selector, valid, dvalues.contiguous(), ctx.bufs,
                      ctx.image_shape, ctx.stride)
-        return dimage, None, None, None, None
+        return dimage, None, None, None, None, None
 
 
 def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
-                          marginalize=False):
+                          marginalize=False, mode="f32"):
     """Score all overlapping patches of ``normed``: the maximum over the
     components (MAP) or their logsumexp (``marginalize``).
 
@@ -576,6 +737,9 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
     marginalize : bool
         Logsumexp instead of the maximum; the backward then mixes the
         components' gradients by their softmax weights.
+    mode : ``"f32"`` or ``"split"``
+        The MAP forward's logits (``config.gmm_mode()`` names the dial's);
+        the logsumexp forward is float32 in either.
 
     Returns
     -------
@@ -586,8 +750,9 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
     h, w = normed.shape[-2:]
     if not fused_supported(normed.shape, patch_shape, stride, D):
         raise ValueError("fused scorer does not support this shape")
+    _check_mode(mode, False)
     image = normed.reshape(h, w).contiguous()
-    values, argmax, valid = _FusedScore.apply(image, bufs, int(stride),
-                                              float(sentinel),
-                                              bool(marginalize))
+    values, argmax, valid = _FusedScore.apply(
+        image, bufs, int(stride), float(sentinel), bool(marginalize),
+        "f32" if marginalize else mode)
     return values, argmax, valid > 0.5

@@ -1,8 +1,18 @@
-"""Linear-algebra helpers for the GMM (the JAX package's ``ops/linalg.py``)."""
+"""Linear-algebra helpers: the GMM's precision factors (the JAX
+package's ``ops/linalg.py``) and the bf16 hi/lo split of the precision
+dial's ``"split"`` mode."""
 
 import numpy as np
+import torch
 
-__all__ = ["compute_precision_cholesky"]
+__all__ = ["bf16_split", "compute_precision_cholesky"]
+
+
+def bf16_split(x):
+    """``(hi, lo)`` of a float32 tensor, each bf16-valued in float32:
+    ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (round to nearest even)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
 def compute_precision_cholesky(covariances):

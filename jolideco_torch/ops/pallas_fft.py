@@ -69,6 +69,7 @@ import torch
 from ..config import dispatch, pfft_mode
 from .fft import _origin_centered, fft_conv_shape
 from .gmm_fused import _check, _raise_on_error
+from .linalg import bf16_split
 
 __all__ = [
     "PFFT_LANE",
@@ -130,13 +131,6 @@ def interleaved_stage_matrices(m):
         return r.astype(np.float32)
 
     return {"mf": interleave(t["mf"]), "mi": interleave(t["mi"])}
-
-
-def bf16_split(x):
-    """``(hi, lo)`` of a float32 tensor, each bf16-valued in float32:
-    ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (round to nearest even)."""
-    hi = x.to(torch.bfloat16).to(x.dtype)
-    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
 
 
 @lru_cache(maxsize=8)

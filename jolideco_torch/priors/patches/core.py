@@ -27,7 +27,7 @@ from math import sqrt
 import numpy as np
 import torch
 
-from ...config import use_fused
+from ...config import gmm_mode, use_fused
 from ...ops.gmm_fused import fused_supported, gmm_score_fused_image
 from ...ops.image import cycle_spin
 from ...ops.patches import view_as_overlapping_patches_grouped
@@ -143,7 +143,7 @@ class GMMPatchPrior(Prior):
             values, argmax, valid = gmm_score_fused_image(
                 normed, self.patch_shape, self.stride,
                 self.gmm.kernel_buffers(normed.device), ZERO_FLUX_SENTINEL,
-                marginalize=self.marginalize,
+                marginalize=self.marginalize, mode=gmm_mode(),
             )
             return values, argmax, valid, applied
 

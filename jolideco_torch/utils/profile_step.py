@@ -4,7 +4,10 @@ Builds the port's main path (joint MAP deconvolution of 10 observations
 of 1024² counts with 33² PSFs under the ``astro-snr-v1`` GMM patch
 prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
 each patch by the logsumexp over its components; ``--conv-mode pfft``
-convolves through the matrix-DFT kernels instead of cuFFT), runs a few
+convolves through the matrix-DFT kernels instead of cuFFT; ``--precision``
+sets the precision dial, whose default ``"high"`` runs the fused
+scorer's MAP forward and K3's passes 2 and 3 on the tensor cores), runs a
+few
 warm-up steps, then traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes
@@ -19,10 +22,11 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--out chiprun_out]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--out DIR]
 
 The full tables and Chrome traces go to ``--out``, their names tagged
-``marg`` under ``--marginalize`` and ``pfft`` under ``--conv-mode pfft``.
+``marg`` under ``--marginalize``, ``pfft`` under ``--conv-mode pfft``
+and with the dial's name when it is not ``"high"``.
 """
 
 import argparse
@@ -135,6 +139,8 @@ def main():
     parser.add_argument("--marginalize", action="store_true")
     parser.add_argument("--conv-mode", choices=("fft", "pfft"),
                         default="fft")
+    parser.add_argument("--precision", choices=("highest", "high", "default"),
+                        default="high")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -142,11 +148,15 @@ def main():
         return 1
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    from .. import config
+
+    config.set_gmm_precision(args.precision)
 
     step, probe = build(args.n_obs, args.size, args.marginalize,
                         args.conv_mode)
     suffix = ("_marg" if args.marginalize else "") + (
-        "_pfft" if args.conv_mode == "pfft" else "")
+        "_pfft" if args.conv_mode == "pfft" else "") + (
+        "" if args.precision == "high" else f"_{args.precision}")
     profile_calls(torch, step, args.steps, out, "step" + suffix)
     profile_calls(torch, probe, args.steps, out, "probe" + suffix)
     return 0

@@ -6,7 +6,10 @@ Marked ``gpu``; every test skips without a card. On a machine with one
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tolerances: ``valid`` and the normalised patches exact to 1e-5; values
-to rtol 1e-5 (float32 sums in different orders); argmax identical; the
+to rtol 1e-5 (float32 sums in different orders; the fused forward's
+tensor-core kernel, ``"split"`` mode, against the split plain version,
+which forms the same bf16 products, to rtol 2e-4: the tensor cores'
+sums are not IEEE sums); argmax identical; the
 image gradient, the unit gradient and the Hessian action to 1e-4 of
 their max-abs; the flux errors of the Hessian probe, card against CPU,
 to rtol 1e-4 (float32 FFTs and sums in other orders). The marginalise
@@ -83,6 +86,64 @@ def test_kernels_match_plain(device, gmm, shape, stride):
     torch.cuda.synchronize()
     torch.testing.assert_close(gk, gp, rtol=0,
                                atol=1e-4 * float(gp.abs().max()))
+
+
+@pytest.mark.parametrize("name,shape,stride", [
+    ("astro-snr-v1", (96, 160), 4), ("astro-snr-v1", (37, 203), 2),
+    ("builtin-8x8-v1", (64, 136), 4),
+])
+def test_tensor_core_forward_matches_split_plain(device, name, shape,
+                                                 stride):
+    """K1's ``"split"`` kernel against the split plain version: ``valid``
+    and the normalised patches as the float32 kernel's, values to rtol
+    2e-4 (the same bf16 products summed by the tensor cores, whose sums
+    are not IEEE sums, and by cuBLAS: ``chip_smoke.K1_SPLIT_RTOL``),
+    argmax identical; K = 64 leaves most of the kernel's 208 columns
+    padding."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    bufs = GaussianMixtureModel.from_registry(name).kernel_buffers(device)
+    image = torch.as_tensor(make_image(shape), device=device)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_tc_cuda(image, bufs, stride,
+                                                SENTINEL)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride, SENTINEL,
+                                              mode="split")
+    torch.cuda.synchronize()
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    assert 0 < int(m.sum()) < m.numel()
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vk[m], vp[m], rtol=2e-4, atol=0)
+    assert torch.equal(ak[m], ap[m])
+
+
+@pytest.mark.parametrize("dial,tc", [("highest", False), ("high", True),
+                                     ("default", True)])
+def test_fused_forward_launches_by_dial(device, gmm, dial, tc):
+    """The prior on the card under each dial: the tensor-core forward
+    under ``"high"`` and ``"default"``, the float32 one under
+    ``"highest"``, once each; K2 once; no plain call."""
+    from jolideco_torch import config
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GMMPatchPrior
+
+    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=False)
+    x = torch.as_tensor(make_image((96, 160))[None, None].clip(0.1),
+                        device=device).requires_grad_(True)
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        gf.reset_counters()
+        prior(x).backward()
+        torch.cuda.synchronize()
+    finally:
+        config.set_gmm_precision(saved)
+    assert (gf.gmm_fused_fwd_tc_cuda.launches,
+            gf.gmm_fused_fwd_cuda.launches) == ((1, 0) if tc else (0, 1))
+    assert gf.gmm_fused_bwd_cuda.launches == 1
+    assert (gf.fused_forward_plain.calls, gf.fused_backward_plain.calls) \
+        == (0, 0)
 
 
 def test_prior_on_card_matches_cpu(device, gmm):
