@@ -26,10 +26,12 @@
 // K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16
 // peak of 989 TFLOP/s; bytes are 4 MB in and 17 MB out (0.006 ms).
 // The design:
-// - one block of 8 warps owns 128 patches and all components, padded to
-//   kKP = 208 (the padding is masked out of the maximum); a warp owns
-//   32 patches x 104 components: 2 x 13 m16n8 tiles, 104 float32
-//   accumulators a thread;
+// - one block of 8 warps owns 128 patches and a tile of kKP = 208
+//   components (K = 200 padded; the padding is masked out of the
+//   maximum); a warp owns 32 patches x 104 components: 2 x 13 m16n8
+//   tiles, 104 float32 accumulators a thread. A GMM of more components
+//   runs its tiles one after another in the same block, each tile's
+//   maximum merged into the rows' running one in shared memory;
 // - the pair dimension runs in 65 chunks of 32 pairs. Per chunk the
 //   block forms u for its 128 patches in float32 from the patches in
 //   shared memory and splits it into bf16 hi and lo planes (double
@@ -45,11 +47,11 @@
 //   accumulators start at -2 (b . x + c), so that -1/2 of the sum is the
 //   logit (scaling by powers of two is exact);
 // - the maximum over each thread's 26 components, then over the four
-//   threads of a quad (shuffles), then over the two warps of a row
-//   (shared memory), ties to the lower index.
-// A's 1.7 MB is read from L2 once per block (512 blocks at 1024^2,
-// 0.89 GB); mma.sync, not wgmma, and no TMA: a first version that is
-// right, as the port's other tensor-core kernels.
+//   threads of a quad (shuffles), then over the two warps of a row and
+//   the earlier tiles (shared memory), ties to the lower index.
+// A's 1.7 MB a tile is read from L2 once per block (512 blocks at
+// 1024^2, 0.89 GB); mma.sync, not wgmma, and no TMA: a first version
+// that is right, as the port's other tensor-core kernels.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -72,7 +74,7 @@ using tc::mma;
 using tc::put_split;
 
 constexpr int kPairs = kD * (kD + 1) / 2;    // 2,080 pairs a <= b
-constexpr int kKP = 208;                     // components, padded
+constexpr int kKP = 208;                     // components a tile
 constexpr int kBlockRows = 128;              // patches per block
 constexpr int kThreads = 256;                // 8 warps: 4 (rows) x 2 (cols)
 constexpr int kWarpCols = kKP / 2;           // components per warp: 104
@@ -90,20 +92,21 @@ static_assert(kNT % 2 == 1, "pairs of n8 tiles and one more");
 
 // shared memory: the patches (float, padded rows), the pair table, A's
 // two stages (which hold b and c before the main loop), u's two
-// buffers, the maxima of the two warp columns
+// buffers, the maxima of the two warp columns and the rows' running one
 constexpr int kXBytes = kBlockRows * kXLd * 4;
 constexpr int kPairBytes = kPairs * 2;
 constexpr int kStageBytes = 2 * kStageElems * 2;
 constexpr int kUBytes = 2 * kUElems * 2;
-constexpr int kRedBytes = 2 * kBlockRows * 8;
+constexpr int kRedBytes = 3 * kBlockRows * 8;
 constexpr int kSmem = kXBytes + kPairBytes + kStageBytes + kUBytes + kRedBytes;
 static_assert(kXBytes % 16 == 0 && kPairBytes % 16 == 0 &&
                   kStageBytes % 16 == 0 && kUBytes % 16 == 0,
               "16-byte aligned regions");
 static_assert((kD + 1) * kKP * 4 <= kStageBytes, "b and c fit the stages");
 
-// A's chunk c (hi then lo, [component][32 pairs] each, contiguous on the
-// device) into a stage with padded rows, by the whole block.
+// A's chunk c of a tile (hi then lo, [component][32 pairs] each,
+// contiguous on the device) into a stage with padded rows, by the whole
+// block.
 __device__ __forceinline__ void load_stage(bf16* dst,
                                            const bf16* __restrict__ src) {
   for (int i = threadIdx.x; i < kTileElems / 8; i += kThreads)
@@ -139,10 +142,11 @@ __device__ __forceinline__ void form_u(bf16* u, const float* xs,
 // step the bias is gone (4.7e-8), and the largest difference stays 1.5e-5
 // (astro-snr-v1; builtin-8x8-v1 4.7e-5) at 1024^2, where cuBLAS's float32
 // sums of the split plain version are 3.6e-6 (8.3e-6) off. Flushing each
-// product, or k8 products, changed neither (python -m
-// jolideco_torch.utils.gmm_tc_variants). The split itself is 6.4e-5
-// (1.5e-4) off float64 there, and the kernel's error against float64 is
-// the plain version's (chip_smoke.py phase 2).
+// product, or k8 products, changed neither (a variant build of this file,
+// jolideco_torch/utils/gmm_tc_variants.py of commit 4a9e377). The split
+// itself is 6.4e-5 (1.5e-4) off float64 there, and the kernel's error
+// against float64 is the plain version's; chip_smoke.py phase 2 holds
+// the bias and the difference.
 __device__ __forceinline__ void add_split(float (&acc)[4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4],
@@ -227,12 +231,13 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
                                      kStageBytes);
   float* red_v = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
                                           kStageBytes + kUBytes);
-  int* red_k = reinterpret_cast<int*>(red_v + 2 * kBlockRows);
+  int* red_k = reinterpret_cast<int*>(red_v + 3 * kBlockRows);
   float* bcs = reinterpret_cast<float*>(stages);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int n0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (K + kKP - 1) / kKP;
 
   // the pair table: pair p = (a, b), a <= b, row-major over a
   if (tid < kD) {
@@ -250,113 +255,131 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
 #pragma unroll
     for (int c = 0; c < kD; ++c) xs[tid * kXLd + c] = x[c];
   }
-  // b (rows 0-63, [d][component]) and c (row 64) into the stages
-  {
-    const float4* src = reinterpret_cast<const float4*>(bc);
-    float4* dst = reinterpret_cast<float4*>(bcs);
-    for (int i = tid; i < (kD + 1) * kKP / 4; i += kThreads)
-      dst[i] = __ldg(src + i);
-  }
-  __syncthreads();
 
-  // accumulators: -2 (b . x + c), rows wm*32 + mt*16 + lane/4 (+ 8),
-  // components wn*104 + nt*8 + 2 (lane % 4) (+ 1)
   const int g = lane >> 2, tq = lane & 3;
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-  for (int d = 0; d < kD; ++d) {
-    float xr[kMT][2];
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const bf16* a_tile = a_pairs + (size_t)tile * kChunks * kTileElems;
+    const int k0 = tile * kKP;
+    // the patches and the pair table are written; the previous tile's
+    // last chunk is multiplied and its maxima merged
+    __syncthreads();
+    // b (rows 0-63, [d][component]) and c (row 64) into the stages
+    {
+      const float4* src =
+          reinterpret_cast<const float4*>(bc + (size_t)tile * (kD + 1) * kKP);
+      float4* dst = reinterpret_cast<float4*>(bcs);
+      for (int i = tid; i < (kD + 1) * kKP / 4; i += kThreads)
+        dst[i] = __ldg(src + i);
+    }
+    __syncthreads();
+
+    // accumulators: -2 (b . x + c), rows wm*32 + mt*16 + lane/4 (+ 8),
+    // components k0 + wn*104 + nt*8 + 2 (lane % 4) (+ 1)
+    float acc[kMT][kNT][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        xr[mt][h] = xs[(wm * 32 + mt * 16 + g + 8 * h) * kXLd + d];
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const float2 b = *reinterpret_cast<const float2*>(
-          bcs + d * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        acc[mt][nt][0] = fmaf(xr[mt][0], b.x, acc[mt][nt][0]);
-        acc[mt][nt][1] = fmaf(xr[mt][0], b.y, acc[mt][nt][1]);
-        acc[mt][nt][2] = fmaf(xr[mt][1], b.x, acc[mt][nt][2]);
-        acc[mt][nt][3] = fmaf(xr[mt][1], b.y, acc[mt][nt][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const float2 c = *reinterpret_cast<const float2*>(
-        bcs + kD * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      acc[mt][nt][0] = -2.f * (acc[mt][nt][0] + c.x);
-      acc[mt][nt][1] = -2.f * (acc[mt][nt][1] + c.y);
-      acc[mt][nt][2] = -2.f * (acc[mt][nt][2] + c.x);
-      acc[mt][nt][3] = -2.f * (acc[mt][nt][3] + c.y);
-    }
-  }
-  __syncthreads();  // b and c are read; the stages are free
-
-  // main loop over the pair chunks: A's chunk c + 1 streams in and u's
-  // chunk c + 1 is formed while chunk c is multiplied
-  load_stage(stages, a_pairs);
-  cp_async_commit();
-  form_u(us, xs, pairs, 0);
-  for (int c = 0; c < kChunks; ++c) {
-    cp_async_wait<0>();
-    __syncthreads();  // chunk c visible to all; chunk c - 1's buffers free
-    if (c + 1 < kChunks) {
-      load_stage(stages + ((c + 1) & 1) * kStageElems,
-                 a_pairs + (size_t)(c + 1) * kTileElems);
-      cp_async_commit();
-      form_u(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
-    }
-    mma_chunk(acc, us + (c & 1) * kUElems, stages + (c & 1) * kStageElems,
-              wm, wn, lane);
-  }
-
-  // maximum and argmax: over the thread's components, the quad, then
-  // the two warp columns
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float best = -CUDART_INF_F;
-      int best_k = kKP;
-#pragma unroll
       for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int k = wn * kWarpCols + nt * 8 + 2 * tq + e;
-          const float logit = -0.5f * acc[mt][nt][2 * h + e];
-          if (k < K && logit > best) {
-            best = logit;
-            best_k = k;
-          }
-        }
+        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+    for (int d = 0; d < kD; ++d) {
+      float xr[kMT][2];
 #pragma unroll
-      for (int m = 1; m < 4; m <<= 1)
-        take_max(best, best_k, __shfl_xor_sync(0xffffffffu, best, m),
-                 __shfl_xor_sync(0xffffffffu, best_k, m));
-      if (tq == 0) {
-        const int r = wm * 32 + mt * 16 + g + 8 * h;
-        red_v[wn * kBlockRows + r] = best;
-        red_k[wn * kBlockRows + r] = best_k;
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          xr[mt][h] = xs[(wm * 32 + mt * 16 + g + 8 * h) * kXLd + d];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const float2 b = *reinterpret_cast<const float2*>(
+            bcs + d * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) {
+          acc[mt][nt][0] = fmaf(xr[mt][0], b.x, acc[mt][nt][0]);
+          acc[mt][nt][1] = fmaf(xr[mt][0], b.y, acc[mt][nt][1]);
+          acc[mt][nt][2] = fmaf(xr[mt][1], b.x, acc[mt][nt][2]);
+          acc[mt][nt][3] = fmaf(xr[mt][1], b.y, acc[mt][nt][3]);
+        }
       }
     }
-  __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float2 c = *reinterpret_cast<const float2*>(
+          bcs + kD * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        acc[mt][nt][0] = -2.f * (acc[mt][nt][0] + c.x);
+        acc[mt][nt][1] = -2.f * (acc[mt][nt][1] + c.y);
+        acc[mt][nt][2] = -2.f * (acc[mt][nt][2] + c.x);
+        acc[mt][nt][3] = -2.f * (acc[mt][nt][3] + c.y);
+      }
+    }
+    __syncthreads();  // b and c are read; the stages are free
+
+    // main loop over the pair chunks: A's chunk c + 1 streams in and u's
+    // chunk c + 1 is formed while chunk c is multiplied
+    load_stage(stages, a_tile);
+    cp_async_commit();
+    form_u(us, xs, pairs, 0);
+    for (int c = 0; c < kChunks; ++c) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk c visible to all; chunk c - 1's buffers free
+      if (c + 1 < kChunks) {
+        load_stage(stages + ((c + 1) & 1) * kStageElems,
+                   a_tile + (size_t)(c + 1) * kTileElems);
+        cp_async_commit();
+        form_u(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
+      }
+      mma_chunk(acc, us + (c & 1) * kUElems, stages + (c & 1) * kStageElems,
+                wm, wn, lane);
+    }
+
+    // the tile's maximum and argmax: over the thread's components, the
+    // quad, then the two warp columns and the earlier tiles
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float best = -CUDART_INF_F;
+        int best_k = K;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = k0 + wn * kWarpCols + nt * 8 + 2 * tq + e;
+            const float logit = -0.5f * acc[mt][nt][2 * h + e];
+            if (k < K && logit > best) {
+              best = logit;
+              best_k = k;
+            }
+          }
+#pragma unroll
+        for (int m = 1; m < 4; m <<= 1)
+          take_max(best, best_k, __shfl_xor_sync(0xffffffffu, best, m),
+                   __shfl_xor_sync(0xffffffffu, best_k, m));
+        if (tq == 0) {
+          const int r = wm * 32 + mt * 16 + g + 8 * h;
+          red_v[wn * kBlockRows + r] = best;
+          red_k[wn * kBlockRows + r] = best_k;
+        }
+      }
+    __syncthreads();
+    if (tid < kBlockRows) {
+      float best = red_v[tid];
+      int best_k = red_k[tid];
+      take_max(best, best_k, red_v[kBlockRows + tid], red_k[kBlockRows + tid]);
+      if (tile > 0)
+        take_max(best, best_k, red_v[2 * kBlockRows + tid],
+                 red_k[2 * kBlockRows + tid]);
+      red_v[2 * kBlockRows + tid] = best;
+      red_k[2 * kBlockRows + tid] = best_k;
+    }
+  }
+  // the rows' maxima were merged by the threads that write them
   if (tid < kBlockRows && n0 + tid < n_total) {
-    float best = red_v[tid];
-    int best_k = red_k[tid];
-    take_max(best, best_k, red_v[kBlockRows + tid], red_k[kBlockRows + tid]);
-    values[n0 + tid] = best;
-    argmax[n0 + tid] = best_k == kKP ? 0 : best_k;
+    const int best_k = red_k[2 * kBlockRows + tid];
+    values[n0 + tid] = red_v[2 * kBlockRows + tid];
+    argmax[n0 + tid] = best_k >= K ? 0 : best_k;
   }
 }
 
@@ -364,13 +387,15 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
 
 extern "C" {
 
-// Returns the first CUDA error of setting the shared-memory size and the
-// launch (0 = cudaSuccess); 1 (cudaErrorInvalidValue) for K > 208.
+// a_pairs holds ceil(K / 208) tiles of A's chunks, bc as many tiles of b
+// and c (ops/gmm_fused.py::kernel_buffers). Returns the first CUDA error
+// of setting the shared-memory size and the launch (0 = cudaSuccess); 1
+// (cudaErrorInvalidValue) for K < 1.
 int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
                      int nx, float sentinel, const void* a_pairs,
                      const void* bc, int K, void* values, void* argmax,
                      void* valid, void* xtn, void* stream) {
-  if (K < 1 || K > kKP) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t attr = cudaFuncSetAttribute(
       gmm_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   const int groups = (gmm::kP / stride) * (gmm::kP / stride);

@@ -90,8 +90,8 @@ PLAIN_CHUNK = 4096
 # the "split" mode's pair products x_a x_b, a <= b, row-major over a
 PAIR_A, PAIR_B = np.triu_indices(D)
 PAIRS = len(PAIR_A)
-# the tensor-core kernel (csrc/gmm_fused_tc.cu): components padded to
-# KP_TC, pairs in chunks of TC_CHUNK
+# the tensor-core kernel (csrc/gmm_fused_tc.cu): components in tiles of
+# KP_TC (the last padded), pairs in chunks of TC_CHUNK
 KP_TC = 208
 TC_CHUNK = 32
 MODES = ("f32", "split")
@@ -163,28 +163,29 @@ def _split_buffers(a_quad, bq, const2):
 
     ``pair_hi``, ``pair_lo (PAIRS, K)``: the bf16 hi/lo split of the
     pair-major ``A`` (float32 holding bf16 values), for the plain version.
-    For at most ``KP_TC`` components also the tensor-core kernel's:
-    ``pair_tc`` bf16 ``(PAIRS / TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same
-    parts chunk by chunk (hi then lo, each component's pairs of the
-    chunk contiguous, components padded with zeros), and ``bc (d + 1,
-    KP_TC)`` float32, ``b`` component-minor with ``c`` as its last row.
+    For the tensor-core kernel, whose blocks take the components in
+    ``T = ceil(K / KP_TC)`` tiles: ``pair_tc`` bf16 ``(T, PAIRS /
+    TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same parts tile by tile and
+    chunk by chunk (hi then lo, each component's pairs of the chunk
+    contiguous, the last tile padded with zero components), and ``bc (T,
+    d + 1, KP_TC)`` float32, ``b`` component-minor with ``c`` as its
+    last row.
     """
     pair = torch.as_tensor(_pair_rows(a_quad).astype(np.float32))
     hi, lo = bf16_split(pair)
-    out = {"pair_hi": hi, "pair_lo": lo}
     d, k = bq.shape
-    if k <= KP_TC:
-        parts = torch.zeros((2, KP_TC, PAIRS))
-        parts[0, :k], parts[1, :k] = hi.T, lo.T
-        out["pair_tc"] = (
-            parts.reshape(2, KP_TC, PAIRS // TC_CHUNK, TC_CHUNK)
-            .permute(2, 0, 1, 3).contiguous().to(torch.bfloat16)
-        )
-        bc = torch.zeros((d + 1, KP_TC))
-        bc[:d, :k] = torch.as_tensor(bq)
-        bc[d, :k] = torch.as_tensor(const2)
-        out["bc"] = bc
-    return out
+    tiles = -(-k // KP_TC)
+    parts = torch.zeros((2, tiles * KP_TC, PAIRS))
+    parts[0, :k], parts[1, :k] = hi.T, lo.T
+    pair_tc = (
+        parts.reshape(2, tiles, KP_TC, PAIRS // TC_CHUNK, TC_CHUNK)
+        .permute(1, 3, 0, 2, 4).contiguous().to(torch.bfloat16)
+    )
+    bc = torch.zeros((d + 1, tiles * KP_TC))
+    bc[:d, :k] = torch.as_tensor(bq)
+    bc[d, :k] = torch.as_tensor(const2)
+    bc = bc.reshape(d + 1, tiles, KP_TC).permute(1, 0, 2).contiguous()
+    return {"pair_hi": hi, "pair_lo": lo, "pair_tc": pair_tc, "bc": bc}
 
 
 def kernel_buffers(packed, device):
@@ -496,18 +497,16 @@ def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
 def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
     """Launch the MAP forward kernel of the ``"split"`` mode on the
     tensor cores (``csrc/gmm_fused_tc.cu``); same outputs as
-    :func:`fused_forward_plain` with ``mode="split"``. At most ``KP_TC``
-    components."""
+    :func:`fused_forward_plain` with ``mode="split"``. Any number of
+    components, in tiles of ``KP_TC``."""
     values, argmax, valid, xtn = _forward_outputs(image, stride)
     device = image.device
     h, w = image.shape
     k = bufs["rec"].shape[0]
-    if "pair_tc" not in bufs:
-        raise ValueError(f"the tensor-core scorer takes at most {KP_TC} "
-                         f"components, got {k}")
+    tiles = -(-k // KP_TC)
     _check(bufs["pair_tc"], "pair_tc", torch.bfloat16,
-           (PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
-    _check(bufs["bc"], "bc", torch.float32, (D + 1, KP_TC), device)
+           (tiles, PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
+    _check(bufs["bc"], "bc", torch.float32, (tiles, D + 1, KP_TC), device)
     lib = _tc_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

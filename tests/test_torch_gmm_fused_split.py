@@ -26,12 +26,14 @@ same normalised patches. Tolerances:
   run within rtol 1e-4 (the ``BASELINE.md`` bar for flux maps, as
   ``tests/test_torch_slice.py``).
 
+The GMMs are the two of the registry and ``chip_smoke.wide_gmm``, 256
+components, two of the tensor-core kernel's tiles of 208.
+
 The MAP gradient depends on the logits only through the argmax, so two
 runs that differ only in the dial train alike until an argmax flips:
 :func:`test_dial_flux_difference_matches_jax` measures that difference
-in both packages on ``chip_smoke.py``'s small run, and
-``chip_smoke.py`` phase 3 holds the card's to twice the JAX package's
-(``DIAL_FLUX_SHARE``).
+in both packages on ``chip_smoke.py``'s small run (none: no flip), and
+``chip_smoke.py`` phase 3 prints the card's beside it.
 """
 
 import numpy as np
@@ -55,7 +57,7 @@ from jolideco_tpu.priors.patches.core import ZERO_FLUX_SENTINEL
 
 torch.set_num_threads(1)
 STRIDE = 4
-GMM_NAMES = ["builtin-8x8-v1", "astro-snr-v1"]
+GMM_NAMES = ["builtin-8x8-v1", "astro-snr-v1", "wide-256"]
 # a square image, and a ragged one with a block of sentinel pixels
 SHAPES = [(128, 128), (44, 136)]
 EPOCHS = 20
@@ -63,6 +65,14 @@ EPOCHS = 20
 
 @pytest.fixture(scope="module", params=GMM_NAMES)
 def gmms(request):
+    if request.param == "wide-256":
+        from chip_smoke import wide_gmm, wide_gmm_arrays
+        from jolideco_tpu.priors.patches.gmm import GaussianMixtureModelMeta
+
+        *arrays, stride = wide_gmm_arrays()
+        meta = GaussianMixtureModelMeta(stride=stride)
+        return (jj.GaussianMixtureModel.from_numpy(*arrays, meta=meta),
+                wide_gmm())
     return (jj.GaussianMixtureModel.from_registry(request.param),
             jt.GaussianMixtureModel.from_registry(request.param))
 
@@ -191,15 +201,38 @@ def test_split_buffers_reproduce_the_quadratic_form():
     assert bool(((pair32 - hi - lo).abs() <= 2.0**-17 * pair32.abs()).all())
 
     tc = bufs["pair_tc"].float()
-    assert tc.shape == (2080 // 32, 2, 208, 32)
-    parts = tc.permute(1, 2, 0, 3).reshape(2, 208, 2080)
+    assert tc.shape == (1, 2080 // 32, 2, 208, 32)
+    parts = tc[0].permute(1, 2, 0, 3).reshape(2, 208, 2080)
     assert torch.equal(parts[0, :k], hi.T)
     assert torch.equal(parts[1, :k], lo.T)
     assert not parts[:, k:].any()
     bc = bufs["bc"]
-    assert torch.equal(bc[:64, :k], bufs["bq"])
-    assert torch.equal(bc[64, :k], bufs["const2"])
-    assert not bc[:, k:].any()
+    assert bc.shape == (1, 65, 208)
+    assert torch.equal(bc[0, :64, :k], bufs["bq"])
+    assert torch.equal(bc[0, 64, :k], bufs["const2"])
+    assert not bc[0, :, k:].any()
+
+
+def test_split_buffers_tile_the_components():
+    """Past 208 components the kernel's copy holds tiles of 208, the
+    last padded with zero components: 256 take two."""
+    from chip_smoke import wide_gmm
+
+    bufs = wide_gmm().kernel_buffers("cpu")
+    hi, lo = bufs["pair_hi"], bufs["pair_lo"]
+    assert hi.shape == (2080, 256)
+    tc = bufs["pair_tc"].float()
+    assert tc.shape == (2, 2080 // 32, 2, 208, 32)
+    parts = tc.permute(2, 0, 3, 1, 4).reshape(2, 416, 2080)
+    assert torch.equal(parts[0, :256], hi.T)
+    assert torch.equal(parts[1, :256], lo.T)
+    assert not parts[:, 256:].any()
+    bc = bufs["bc"]
+    assert bc.shape == (2, 65, 208)
+    full = bc.permute(1, 0, 2).reshape(65, 416)
+    assert torch.equal(full[:64, :256], bufs["bq"])
+    assert torch.equal(full[64, :256], bufs["const2"])
+    assert not full[:, 256:].any()
 
 
 @pytest.mark.parametrize("dial,split", [("highest", False), ("high", True),
@@ -340,33 +373,16 @@ def test_dial_flux_difference_matches_jax():
     """``chip_smoke.py``'s small run at K = 200 with cycle spin (4 ×
     128², its data generator, ``astro-snr-v1``): the JAX package's own
     HIGH and HIGHEST runs differ by ``chip_smoke.JAX_DIAL_FLUX_SHARE`` of
-    the max-abs (no argmax flips: identical flux), phase 3's bar is
-    twice that, and the port's two dials on the CPU stay within it."""
+    the max-abs (no argmax flips: identical flux), the reading phase 3
+    prints beside the card's, and the port's two dials on the CPU stay
+    within twice it."""
     import chip_smoke
 
     datasets = bench_datasets(n_obs=4, size=128, psf_size=9, seed=1)
     diff_j = dial_flux_difference(jj, datasets)
     diff_t = dial_flux_difference(jt, datasets)
     assert diff_j == chip_smoke.JAX_DIAL_FLUX_SHARE
-    assert chip_smoke.DIAL_FLUX_SHARE == 2 * diff_j
-    assert diff_t <= chip_smoke.DIAL_FLUX_SHARE
-
-
-def test_accumulation_variants_rewrite_the_shipped_kernel():
-    """``utils.gmm_tc_variants`` finds the shipped ``add_split`` body and
-    swaps in each variant's; ``k16`` is the shipped kernel."""
-    from jolideco_torch.utils import cuda_build, gmm_tc_variants
-
-    text = (cuda_build.CSRC_DIR / "gmm_fused_tc.cu").read_text()
-    assert text.count(gmm_tc_variants.SHIPPED) == 1
-    sources = {name: gmm_tc_variants.variant_source(text, name)
-               for name in gmm_tc_variants.BODIES}
-    assert sources["k16"] == text.replace(
-        "__device__ __forceinline__ void add_split(",
-        gmm_tc_variants.MMA_K8 + "__device__ __forceinline__ void add_split(")
-    assert len(set(sources.values())) == len(sources)
-    with pytest.raises(RuntimeError, match="add_split"):
-        gmm_tc_variants.variant_source(sources["running"], "each")
+    assert diff_t <= 2 * diff_j
 
 
 def test_jax_default_cpu_dispatch_ignores_the_dial():
