@@ -10,9 +10,10 @@ Phases, each printing one or more lines:
 0. the device: ``torch.cuda.get_device_name(0)`` and the card's name and
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
-   compiler per source, all at once (the fused scorer, its MAP forward
-   on the tensor cores, the patch-level scorer, the matrix-DFT
-   convolution in float32 and its passes 2 and 3 on the tensor cores),
+   compiler per source, all at once (the fused scorer, its forwards and
+   marginalise backward on the tensor cores, the patch-level scorer, the
+   matrix-DFT convolution in float32 and its passes 2 and 3 on the
+   tensor cores),
    each kernel's registers, spills and shared memory as ``ptxas``
    reports them;
 2. each kernel against its plain PyTorch version on the card, with the
@@ -48,10 +49,15 @@ Phases, each printing one or more lines:
    before and read just after; then the errors of a small run on the
    card against the CPU's plain path;
 5. the marginalised path: phases 3 and 4 again under
-   ``GMMPatchPrior(marginalize=True)``, on the logsumexp forward (K1 in
-   its marginalise mode), the marginalise backward (K4) and, in the
-   probe, K5's logsumexp, the marginalise unit gradient (K8) and the
-   two stages of its Hessian action (K9a, K9b), each path with its own
+   ``GMMPatchPrior(marginalize=True)``: training under the default dial
+   on the logsumexp forward and the marginalise backward on the tensor
+   cores (K1 lse split, K4 split) and under ``"highest"`` on their
+   float32 kernels (K1 in its marginalise mode, K4), each with exact
+   counts, the two runs' flux difference and the argmax of K1 lse's two
+   kernels at the final flux (at most 1e-4 of the patches differ); then
+   the probe under the default dial (training on K1 lse split and K4
+   split; K5's logsumexp, the marginalise unit gradient (K8) and the two
+   stages of its Hessian action (K9a, K9b) in float32), with its own
    counts; then a small run's flux and errors on the card against the
    CPU's plain path;
 6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
@@ -72,11 +78,19 @@ version's, plus 1e-6 of the result's max-abs. Under ``astro-snr-v1``
 the weights are one-hot (dp is then exactly zero), so the same checks
 run once more on the 1024² image and its rows under a random SPD GMM
 with K = 200 whose weights are mixed; the run fails unless they are.
+Then the marginalise kernels of the ``"split"`` mode on the tensor
+cores, on both images under ``astro-snr-v1``, ``wide_gmm()`` and
+``mixed_gmm()``: K1 lse split against the split plain version (K1
+split's bars) and float64, K4 split as training runs it (fed K1 lse
+split's logsumexp) against the float64 pipeline, with times, bounds
+and registers beside the float32 kernels'.
 
 It then prints a JSON line with K3's errors and times, a JSON line with
-the mixed case's errors, times and bounds, a JSON line with K1's split
-kernel's errors, time and bound and the two dials' flux difference, a
-JSON line with each kernel's numbers and, last, the
+the mixed case's errors, times and bounds, a JSON line with the
+marginalise split kernels' errors, times and bounds and the two dials'
+marginalised training, a JSON line with K1's split kernel's errors,
+time and bound and the two dials' flux difference, a JSON line with
+each kernel's numbers (eighteen) and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -355,6 +369,8 @@ def phase_kernels(torch, device):
           f"plain {t['bwd_plain_ms']:.3f} ms")
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
+    out["marg_split"] = phase_marg_split_kernels(torch, device, bufs, cases,
+                                                 out["marg"])
     out["pfft"] = phase_pfft_kernels(torch, device)
     return out
 
@@ -616,26 +632,26 @@ def phase_patch_kernels(torch, device, bufs, cases):
     return out
 
 
-def anchored(label, name, got, plain32, plain64):
+def anchored(label, name, got, plain32, plain64, factor=MARG_ERR_FACTOR):
     """The float64-anchored check; returns (kernel err, plain err, max)."""
     err = float((got.to(plain64.dtype) - plain64).abs().max())
     err32 = float((plain32.to(plain64.dtype) - plain64).abs().max())
     scale = float(plain64.abs().max())
-    check(err <= MARG_ERR_FACTOR * err32 + MARG_ERR_FLOOR * scale,
+    check(err <= factor * err32 + MARG_ERR_FLOOR * scale,
           f"{label}: {name} error {err:.3g} against float64, plain float32 "
           f"{err32:.3g}, max {scale:.3g}")
     return err, err32, scale
 
 
-def support(torch, x, lse, bufs):
-    """Row-component pairs with a nonzero softmax weight (float32 plain),
-    the pairs whose A_k x terms the marginalise kernels compute, and the
-    number of components that have one."""
+def support(torch, x, lse, bufs, mode="f32"):
+    """Row-component pairs with a nonzero softmax weight (float32 plain,
+    the logits of ``mode``), the pairs whose A_k x terms the marginalise
+    kernels compute, and the number of components that have one."""
     from jolideco_torch.ops.gmm_fused import softmax_chunks
 
     nnz, hit = 0, torch.zeros(bufs["rec"].shape[0], dtype=torch.bool,
                               device=x.device)
-    for _, p in softmax_chunks(x, lse, bufs):
+    for _, p in softmax_chunks(x, lse, bufs, mode):
         nnz += int((p > 0).sum())
         hit |= (p > 0).any(dim=0)
     return nnz, int(hit.sum())
@@ -912,6 +928,220 @@ def phase_marg_kernels(torch, device, bufs, cases):
     return out
 
 
+# K4 split (the pipeline K1 lse split -> K4 split) is held against the
+# float64 pipeline by the anchored bar, its factor MARG_ERR_FACTOR times
+# split_lse_ratio. K4's weights are exp(logit - lse) of the tensor cores'
+# logits, whose float32 sums are not IEEE sums (K1_SPLIT_RTOL); where the
+# weights are mixed, the logits' rounding moves the weights and the
+# gradient inherits it. Under mixed_gmm() on an H100 the pipeline lay 3.5
+# and 3.4 times as far from float64 as the split plain pipeline (1024^2,
+# 1000 x 904; 1.2e-5 and 1.6e-5 of the max-abs), K1 lse split 2.3 times
+# as far; under astro-snr-v1 and wide_gmm() 1.06 to 1.37 times, the
+# logsumexp no further. The mixture itself is float32 in both, so the
+# factor 2 holds as far as the logits hold it; K1 lse split's own bar
+# caps the ratio (at 4.6 there).
+def split_lse_ratio(errs):
+    """How much further K1 lse split's logsumexp lies from float64 than
+    the split plain version's, at least 1."""
+    return max(1.0, errs["tc"] / errs["split_plain"])
+
+
+def marg_split_pipelines(torch, image, bufs, dv):
+    """The marginalised scorer in the ``"split"`` mode as training runs
+    it, forward then backward with cotangents ``dv``: by the tensor-core
+    kernels (K1 lse split, whose logsumexp K4 split takes) and by the
+    split plain versions; and the float64 pipeline, the exact logits of
+    the split plain version's patches (their logsumexp, argmax and the
+    float64 marginalise backward)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    stride, sentinel, shape = 4, ZERO_FLUX_SENTINEL, tuple(image.shape)
+    tc = gf.gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel)
+    g_tc = gf.gmm_fused_bwd_marg_tc_cuda(tc[3], tc[0], tc[2], dv, bufs,
+                                         shape, stride)
+    sp = gf.fused_forward_plain(image, bufs, stride, sentinel, True,
+                                mode="split")
+    g_sp = gf.fused_backward_marg_plain(sp[3], sp[0], sp[2], dv, bufs, shape,
+                                        stride, mode="split")
+    b64 = {name: t.double() for name, t in bufs.items()}
+    x64 = sp[3].double()
+    lse64, a64 = gf.score_plain(x64, b64["aq"], b64["bq"], b64["const2"],
+                                True)
+    g64 = gf.fused_backward_marg_plain(x64, lse64, sp[2].double(),
+                                       dv.double(), b64, shape, stride)
+    return tc, g_tc, sp, g_sp, (lse64, a64, g64)
+
+
+def marg_split_checks(torch, device, label, img, bufs):
+    """K1 lse split and K4 split (tensor cores) on one image: the
+    logsumexp against the split plain version (values rtol
+    ``K1_SPLIT_RTOL``, argmax flips at most ``K1_SPLIT_FLIPS`` of the
+    valid patches, patches to 1e-5) and against float64 (at most
+    ``MARG_ERR_FACTOR`` x the split plain version's error plus
+    ``MARG_ERR_FLOOR`` of the max-abs); the image gradient of the
+    pipeline K1 lse split -> K4 split against the float64 pipeline, the
+    same bar against the split plain pipeline's error, its factor scaled
+    by :func:`split_lse_ratio`. Returns the numbers and the inputs, for
+    timing."""
+    from jolideco_torch.ops.gmm_fused import fused_patch_count
+
+    image = torch.as_tensor(img, device=device)
+    n = fused_patch_count(img.shape, 4)
+    gen = torch.Generator(device=device).manual_seed(3)
+    dv = torch.randn(n, generator=gen, device=device)
+    tc, g_tc, sp, g_sp, (lse64, a64, g64) = marg_split_pipelines(
+        torch, image, bufs, dv)
+    torch.cuda.synchronize()
+    vt, at, valt, xt = tc
+    vs, as_, vals, xs = sp
+    tag = f"{label} marginalise split"
+    check(torch.equal(valt, vals), f"{tag}: valid differs")
+    m = vals > 0.5
+    n_valid = int(m.sum())
+    xtn_err = float((xt - xs).abs().max())
+    check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
+          f"{xtn_err:.3g}")
+    rel = float(((vt - vs).abs() / vs.abs())[m].max())
+    check(rel <= K1_SPLIT_RTOL, f"{tag}: K1 lse split values beyond rtol "
+          f"{K1_SPLIT_RTOL} (max rel {rel:.3g})")
+    flips = int((at != as_)[m].sum())
+    check(flips <= K1_SPLIT_FLIPS * n_valid,
+          f"{tag}: K1 lse split argmax flips {flips} of {n_valid}")
+    scale = float(lse64[m].abs().max())
+    errs = {name: float((v[m].double() - lse64[m]).abs().max())
+            for name, v in (("tc", vt), ("split_plain", vs))}
+    limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
+    check(errs["tc"] <= limit, f"{tag}: K1 lse split error against float64 "
+          f"{errs['tc']:.3g} above {limit:.3g}")
+    flips64 = {name: int((a[m] != a64[m]).sum())
+               for name, a in (("tc", at), ("split_plain", as_))}
+    factor = MARG_ERR_FACTOR * split_lse_ratio(errs)
+    bwd = anchored(tag, "K4 split (pipeline)", g_tc, g_sp, g64, factor)
+    nnz, used = support(torch, xs[m], vs[m], bufs, "split")
+    print(f"phase 2 {tag}: K1 lse split against the split plain version "
+          f"values max rel {rel:.3g} (limit {K1_SPLIT_RTOL}), argmax flips "
+          f"{flips}/{n_valid}, xtn {xtn_err:.3g}; against float64 (max-abs "
+          f"{scale:.6g}): tc {errs['tc']:.3g}, split plain "
+          f"{errs['split_plain']:.3g} (limit {limit:.3g}); argmax flips "
+          f"against float64: tc {flips64['tc']}, split plain "
+          f"{flips64['split_plain']}; K4 split pipeline against float64 "
+          f"{bwd[0]:.3g}, split plain {bwd[1]:.3g} (limit {factor:.3g} x "
+          f"it + {MARG_ERR_FLOOR} x max), max {bwd[2]:.3g}; "
+          f"nonzero weights {nnz} of {n_valid} x {bufs['rec'].shape[0]}")
+    out = {"value_max_rel_err": rel, "argmax_flips": flips,
+           "n_valid": n_valid, "xtn_max_abs_err": xtn_err,
+           "value_max_abs_err": float((vt - vs).abs()[m].max()),
+           "errors_against_float64": errs, "max_abs": scale,
+           "argmax_flips_against_float64": flips64,
+           "bwd_against_float64": dict(zip(("tc", "split_plain", "max_abs"),
+                                           bwd)),
+           "bwd_factor": factor,
+           "nonzero_weights": nnz}
+    inputs = {"image": image, "dv": dv, "tc": tc, "split": sp,
+              "n_valid": n_valid, "nnz": nnz, "used": used}
+    return out, inputs
+
+
+def marg_split_timing(torch, bufs, s, plain=True):
+    """Milliseconds per call of K1 lse split and K4 split (and of their
+    split plain versions) on a case's inputs, and their bounds: the
+    logits' three bf16 products at the bf16 peak (``split_bound``), K4's
+    float32 A_k x terms of the nonzero weights at the fp32 peak on top.
+    Bytes: each input read once, each output written once, of the A_k
+    only those that some weight selects."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    image, dv = s["image"], s["dv"]
+    shape = tuple(image.shape)
+    vt, _, valt, xt = s["tc"]
+    vs, _, vals, xs = s["split"]
+    calls = {
+        "fwd": (lambda: gf.gmm_fused_fwd_marg_tc_cuda(
+                    image, bufs, 4, ZERO_FLUX_SENTINEL),
+                lambda: gf.fused_forward_plain(
+                    image, bufs, 4, ZERO_FLUX_SENTINEL, True, mode="split")),
+        "bwd": (lambda: gf.gmm_fused_bwd_marg_tc_cuda(
+                    xt, vt, valt, dv, bufs, shape, 4),
+                lambda: gf.fused_backward_marg_plain(
+                    xs, vs, vals, dv, bufs, shape, 4, mode="split")),
+    }
+    timing = {}
+    for name, (kernel, plain_fn) in calls.items():
+        timing[name + "_ms"] = cuda_ms(torch, kernel, 10)
+        if plain:
+            timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
+    k = bufs["rec"].shape[0]
+    n, n_valid = xt.shape[0], s["n_valid"]
+    logit_flop = 2.0 * (2080 + 64) * k
+    split_bytes = 4 * bufs["bc"].numel() + 2 * bufs["pair_tc"].numel()
+    ax_flop = 2.0 * (4096 + 64) * s["nnz"]
+    bwd_bytes = (4 * (n_valid * 64 + 3 * n + image.numel())
+                 + split_bytes + 4 * s["used"] * (64 * 64 + 64))
+    t_ops = 3 * logit_flop * n_valid / PEAK_BF16_FLOPS + ax_flop / PEAK_FP32_FLOPS
+    t_bytes = bwd_bytes / PEAK_BYTES_PER_S
+    bounds = {
+        "fwd": split_bound(logit_flop * n,
+                           4 * (image.numel() + n * (3 + 64)) + split_bytes),
+        "bwd": {"bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"},
+    }
+    return timing, bounds
+
+
+def phase_marg_split_kernels(torch, device, bufs, cases, marg):
+    """K1 lse split and K4 split against their split plain versions and
+    float64 on the phase's two images under ``astro-snr-v1`` (one-hot
+    weights), ``wide_gmm()`` (K = 256, two tiles) and ``mixed_gmm()``
+    (mixed weights; the run fails unless they are); times at the main
+    path's shape beside the float32 kernels' (``marg``, this call), and
+    under ``mixed_gmm()``."""
+    from jolideco_torch.utils.cuda_build import BUILD_INFO
+
+    out = {}
+    for key, gmm_bufs in (("astro", bufs),
+                          ("wide", wide_gmm().kernel_buffers(device)),
+                          ("mixed", mixed_gmm().kernel_buffers(device))):
+        for label, img in cases.items():
+            k = gmm_bufs["rec"].shape[0]
+            res, s = marg_split_checks(torch, device, f"{label} K={k} {key}",
+                                       img, gmm_bufs)
+            out[f"{label} {key}"] = res
+            if key == "mixed":
+                check(res["nonzero_weights"] >= 10 * res["n_valid"],
+                      f"{label} mixed: weights not mixed "
+                      f"({res['nonzero_weights']} nonzero of "
+                      f"{res['n_valid']} patches)")
+            if label != MAIN or key == "wide":
+                continue
+            timing, bounds = marg_split_timing(torch, gmm_bufs, s,
+                                               plain=key == "astro")
+            out[f"timing_{key}"], out[f"bounds_{key}"] = timing, bounds
+            line = (f"phase 2 timing marginalise split {MAIN} K={k} {key}: "
+                    f"K1 lse split {timing['fwd_ms']:.3f} ms, K4 split "
+                    f"{timing['bwd_ms']:.3f} ms; split bounds "
+                    f"{bounds['fwd']['bound_ms']:.4f} "
+                    f"({bounds['fwd']['bound_ms'] / timing['fwd_ms']:.1%}), "
+                    f"{bounds['bwd']['bound_ms']:.4f} "
+                    f"({bounds['bwd']['bound_ms'] / timing['bwd_ms']:.1%})")
+            if key == "astro":
+                tm = marg["timing"]
+                line += (f"; split plain {timing['fwd_plain_ms']:.3f}, "
+                         f"{timing['bwd_plain_ms']:.3f} ms; float32 kernels "
+                         f"(this call) K1 lse {tm['fwd_ms']:.3f}, K4 "
+                         f"{tm['bwd_ms']:.3f} ms; "
+                         + " | ".join(ptxas_summary(
+                             BUILD_INFO["gmm_fused_tc"]["ptxas"])))
+            else:
+                tm = marg["mixed"]["timing"]
+                line += (f"; float32 kernels (this call) K1 lse "
+                         f"{tm['fwd_ms']:.3f}, K4 {tm['bwd_ms']:.3f} ms; "
+                         f"{s['nnz']} nonzero weights")
+            print(line)
+    return out
+
+
 def pfft_inputs(torch, device, shape, seed):
     """5 pairs of ``shape`` images and the spectra of the main path's 33²
     PSF pairs at n = 1152 (``bench_data``'s widening Gaussians)."""
@@ -1182,8 +1412,10 @@ def counts():
         "gmm_fused_fwd": gf.gmm_fused_fwd_cuda.launches,
         "gmm_fused_fwd_marg": gf.gmm_fused_fwd_marg_cuda.launches,
         "gmm_fused_fwd_tc": gf.gmm_fused_fwd_tc_cuda.launches,
+        "gmm_fused_fwd_marg_tc": gf.gmm_fused_fwd_marg_tc_cuda.launches,
         "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
         "gmm_fused_bwd_marg": gf.gmm_fused_bwd_marg_cuda.launches,
+        "gmm_fused_bwd_marg_tc": gf.gmm_fused_bwd_marg_tc_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
         "gmm_unit_map": gp.gmm_unit_map_cuda.launches,
         "gmm_hvp_map": gp.gmm_hvp_map_cuda.launches,
@@ -1199,6 +1431,7 @@ def counts():
     plain = sum(fn.calls for fn in (
         gf.fused_forward_plain, gf.fused_backward_plain,
         gf.fused_backward_marg_plain, gf.score_plain, gf.score_split_plain,
+        gf.score_split_marg_plain, gf.marg_unit_split_plain,
         gp.score_rows_plain,
         gp.unit_map_plain, gp.hvp_map_plain, gp.unit_marg_plain,
         gp.hvp_marg_weights_plain, gp.hvp_marg_mix_plain,
@@ -1252,6 +1485,9 @@ def data_term(datasets, flux, device):
 
 # K1's kernel under each mode of the precision dial
 K1_KERNELS = {"split": "gmm_fused_fwd_tc", "f32": "gmm_fused_fwd"}
+# the marginalised prior's K1 (logsumexp) and K4 under each mode
+MARG_KERNELS = {"split": ("gmm_fused_fwd_marg_tc", "gmm_fused_bwd_marg_tc"),
+                "f32": ("gmm_fused_fwd_marg", "gmm_fused_bwd_marg")}
 # K3's kernels under each mode of the precision dial
 K3_KERNELS = {
     "split": ("pfft_cols_fwd", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
@@ -1315,19 +1551,21 @@ def training_line(run):
             f"memory {run['peak_bytes']} B")
 
 
-def argmax_flips(torch, device, flux, gmm):
-    """Patches whose argmax differs between K1's two kernels at ``flux``
-    (the prior's image norm is the identity, its spin left out), and the
-    valid patches."""
+def argmax_flips(torch, device, flux, gmm, marginalize=False):
+    """Patches whose argmax differs between K1's two kernels (of the
+    logsumexp mode with ``marginalize``) at ``flux`` (the prior's image
+    norm is the identity, its spin left out), and the valid patches."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
                             device=device)
     bufs = gmm.kernel_buffers(device)
-    _, a_tc, valid, _ = gf.gmm_fused_fwd_tc_cuda(image, bufs, 4,
-                                                 ZERO_FLUX_SENTINEL)
-    _, a_32, _, _ = gf.gmm_fused_fwd_cuda(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    tc, f32 = ((gf.gmm_fused_fwd_marg_tc_cuda, gf.gmm_fused_fwd_marg_cuda)
+               if marginalize else (gf.gmm_fused_fwd_tc_cuda,
+                                    gf.gmm_fused_fwd_cuda))
+    _, a_tc, valid, _ = tc(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    _, a_32, _, _ = f32(image, bufs, 4, ZERO_FLUX_SENTINEL)
     m = valid > 0.5
     return int((a_tc != a_32)[m].sum()), int(m.sum())
 
@@ -1426,49 +1664,82 @@ def phase_errors(torch, device):
             "peak_bytes": peak, "errors": errors}
 
 
+def marg_training(torch, device, datasets, gmm, dial):
+    """20 marginalised steps of the main path under the dial ``dial``,
+    counts set to zero just before and read just after: K1 (logsumexp)
+    and K4 of the dial's mode 20 times each, every other kernel never, no
+    plain call. The data term must fall, as in phase 3."""
+    from jolideco_torch import config
+
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        mode = config.gmm_mode()
+        run = dict(cycle_spin=True, marginalize=True)
+        run_slice(datasets, gmm, device, n_steps=2, **run)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, **run)
+        launches, plain_calls = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_gmm_precision(saved)
+    tag = f"({dial!r}, {mode})"
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
+          f"marginalised {tag}: non-finite loss: {loss}")
+    check(flux.shape == (FIELD, FIELD)
+          and bool(np.isfinite(flux).all() and (flux > 0).all()),
+          f"marginalised {tag}: flux not finite and positive")
+    data_start = float(data_term(datasets, np.ones_like(flux), device))
+    data_end = float(data_term(datasets, flux, device))
+    check(data_end < data_start, f"marginalised {tag}: Poisson data term "
+          f"did not fall: {data_start} -> {data_end}")
+    expected = expect(**{name: STEPS for name in MARG_KERNELS[mode]})
+    check(launches == expected, f"marginalised {tag}: launches {launches}, "
+          f"not {expected}")
+    check(plain_calls == 0, f"marginalised {tag}: plain versions ran "
+          f"{plain_calls} times")
+    steps_per_s = STEPS / result.train_seconds
+    print(f"phase 5 marginalised {tag} slice {N_OBS}x{FIELD}^2 K=200: "
+          f"{STEPS} steps at {steps_per_s:.3f} steps/s; loss {loss[0]:.6f} "
+          f"-> {loss[-1]:.6f}; data term {data_start:.6f} -> "
+          f"{data_end:.6f}; launches {launches}; plain calls {plain_calls}; "
+          f"peak memory {peak} B")
+    return {"launches": launches, "steps_per_s": steps_per_s,
+            "peak_bytes": peak, "flux": flux}
+
+
 def phase_marginalised(torch, device):
     """Phases 3 and 4 under ``GMMPatchPrior(marginalize=True)``: training
-    on K1 (logsumexp) and K4, then the probe on K5 (logsumexp), K8, K9a
-    and K9b; each path's counts set to zero just before and read just
-    after."""
+    under the default dial (K1 lse split and K4 split on the tensor
+    cores) and under ``"highest"`` (the float32 K1 lse and K4), their
+    flux difference and the argmax of K1 lse's two kernels at the final
+    flux, then the probe on K5 (logsumexp), K8, K9a and K9b; each path's
+    counts set to zero just before and read just after."""
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
 
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
     datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
     run = dict(cycle_spin=True, marginalize=True)
-    run_slice(datasets, astro, device, n_steps=2, **run)  # warm-up
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    result = run_slice(datasets, astro, device, **run)
-    launches, plain_calls = counts()
-    peak = torch.cuda.max_memory_allocated()
-    loss, flux = result.loss_per_step, result.flux_upsampled_total
-    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all()),
-          f"marginalised: non-finite loss: {loss}")
-    check(flux.shape == (FIELD, FIELD)
-          and bool(np.isfinite(flux).all() and (flux > 0).all()),
-          "marginalised: flux not finite and positive")
-    # the data term must fall, as in phase 3
-    data_start = float(data_term(datasets, np.ones_like(flux), device))
-    data_end = float(data_term(datasets, flux, device))
-    check(data_end < data_start, f"marginalised: Poisson data term did not "
-          f"fall: {data_start} -> {data_end}")
-    expected = expect(gmm_fused_fwd_marg=STEPS, gmm_fused_bwd_marg=STEPS)
-    check(launches == expected, f"marginalised: launches {launches}, not "
-          f"{expected}")
-    check(plain_calls == 0, f"marginalised: plain versions ran "
-          f"{plain_calls} times")
-    steps_per_s = STEPS / result.train_seconds
-    print(f"phase 5 marginalised slice {N_OBS}x{FIELD}^2 K=200: {STEPS} steps "
-          f"at {steps_per_s:.3f} steps/s; loss {loss[0]:.6f} -> "
-          f"{loss[-1]:.6f}; data term {data_start:.6f} -> {data_end:.6f}; "
-          f"launches {launches}; plain calls {plain_calls}; peak memory "
-          f"{peak} B")
-    train = {"launches": launches, "steps_per_s": steps_per_s,
-             "peak_bytes": peak}
+    train = {dial: marg_training(torch, device, datasets, astro, dial)
+             for dial in ("high", "highest")}
+    flux, flux_32 = train["high"]["flux"], train["highest"]["flux"]
+    dial_diff = float(np.abs(flux - flux_32).max() / np.abs(flux_32).max())
+    flips, n_valid = argmax_flips(torch, device, flux, astro,
+                                  marginalize=True)
+    check(flips <= K1_SPLIT_FLIPS * n_valid, f"marginalised: K1 lse's two "
+          f"kernels' argmax at the final flux: {flips} of {n_valid} valid "
+          f"patches differ (limit {K1_SPLIT_FLIPS} of them); flux under "
+          f"'high' against 'highest': max-abs difference {dial_diff:.3g} "
+          f"of the max")
+    print(f"phase 5 dials: K1 lse's two kernels' argmax at the final flux: "
+          f"{flips} of {n_valid} valid patches differ (limit "
+          f"{K1_SPLIT_FLIPS} of them); flux under 'high' against 'highest' "
+          f"max-abs difference {dial_diff:.3g} of the max")
+    train["dial_flux_diff"], train["final_flips"] = dial_diff, flips
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1477,8 +1748,8 @@ def phase_marginalised(torch, device):
                        compute_error=True, **run)
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
-    expected = expect(gmm_fused_fwd_marg=ERROR_STEPS,
-                      gmm_fused_bwd_marg=ERROR_STEPS, gmm_score_rows=1,
+    expected = expect(gmm_fused_fwd_marg_tc=ERROR_STEPS,
+                      gmm_fused_bwd_marg_tc=ERROR_STEPS, gmm_score_rows=1,
                       gmm_unit_marg=1, gmm_hvp_marg_weights=1,
                       gmm_hvp_marg_mix=1)
     check(launches == expected, f"marginalised probe: launches {launches}, "
@@ -1650,6 +1921,9 @@ def main():
     rtiming, rbounds = patch["timing"], patch["bounds"]
     marg = kernels["marg"]
     mrows, mtiming, mbounds = marg[MAIN], marg["timing"], marg["bounds"]
+    msplit = kernels["marg_split"]
+    msmain = msplit[f"{MAIN} astro"]
+    mstiming, msbounds = msplit["timing_astro"], msplit["bounds_astro"]
     fused_src = "jolideco_torch/csrc/gmm_fused.cu"
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
     pfft = kernels["pfft"]
@@ -1678,11 +1952,19 @@ def main():
          errors, rows["hvp"][0], rtiming["hvp_ms"],
          rtiming["hvp_plain_ms"], rbounds["hvp"]),
         ("gmm_fused_fwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:341",
-         marg_train, mrows["fwd"][0], mtiming["fwd_ms"],
+         marg_train["highest"], mrows["fwd"][0], mtiming["fwd_ms"],
          mtiming["fwd_plain_ms"], mbounds["fwd"]),
+        ("gmm_fused_fwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_fused.py:341", marg_train["high"],
+         msmain["value_max_abs_err"], mstiming["fwd_ms"],
+         mstiming["fwd_plain_ms"], msbounds["fwd"]),
         ("gmm_fused_bwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:420",
-         marg_train, mrows["bwd"][0], mtiming["bwd_ms"],
+         marg_train["highest"], mrows["bwd"][0], mtiming["bwd_ms"],
          mtiming["bwd_plain_ms"], mbounds["bwd"]),
+        ("gmm_fused_bwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_fused.py:420", marg_train["high"],
+         msmain["bwd_against_float64"]["tc"], mstiming["bwd_ms"],
+         mstiming["bwd_plain_ms"], msbounds["bwd"]),
         ("gmm_unit_marg", patch_src, "jolideco_tpu/ops/gmm_pallas.py:384",
          marg_probe, mrows["unit"][0], mtiming["unit_ms"],
          mtiming["unit_plain_ms"], mbounds["unit"]),
@@ -1767,6 +2049,18 @@ def main():
             "argmax_flips": mixed["errors"]["fwd"][2],
             "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
     }}))
+    # the marginalised prior's kernels on the tensor cores (phase 2) and
+    # the two dials' marginalised training (phase 5)
+    print(json.dumps({"marg_split": {
+        **{label: res for label, res in msplit.items()},
+        "dial_flux_diff": marg_train["dial_flux_diff"],
+        "dial_flips_limit": K1_SPLIT_FLIPS,
+        "final_argmax_flips": marg_train["final_flips"],
+        "steps_per_s": {dial: marg_train[dial]["steps_per_s"]
+                        for dial in ("high", "highest")},
+        "peak_bytes": {dial: marg_train[dial]["peak_bytes"]
+                       for dial in ("high", "highest")},
+    }}))
     # K1's "split" kernel on the tensor cores (phase 2) and the two dials'
     # training (phase 3)
     print(json.dumps({"k1_split": {
@@ -1793,9 +2087,10 @@ def main():
     # (each needs a gather of per-row components, or a max or softmax
     # over quadratic forms), so their library_ms is null.
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
-    # split against the split plain version;
+    # split and K1 lse split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
-    # against the float64 plain version (phase 2)
+    # against the float64 plain version, K4 split (the pipeline from K1
+    # lse split) against the float64 pipeline (phase 2)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],

@@ -21,12 +21,13 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   ``"split"``, ``"bf16"``) and the fused GMM scorer's (:func:`gmm_mode`:
   ``"f32"`` or ``"split"``). Under ``"split"`` (the default dial,
   ``"high"``) the matrix-DFT convolution's passes 2 and 3 and the fused
-  scorer's MAP forward run on the tensor cores as bf16 hi/lo products
-  with float32 sums; ``"default"`` also takes the scorer's ``"split"``
-  (a single-bf16 scorer is not ported). Every other kernel, the
-  scorer's logsumexp (marginalise) forward under every dial, and both
-  in the other modes, computes in full float32, which meets the
-  strictest bar. At import and on every dial change the
+  scorer's logits (its MAP and logsumexp forwards and its marginalise
+  backward) run on the tensor cores as bf16 hi/lo products with float32
+  sums; ``"default"`` also takes the scorer's ``"split"`` (a
+  single-bf16 scorer is not ported). Every other kernel (the
+  patch-level scorer of the Hessian probe among them), and those in the
+  other modes, computes in full float32, which meets the strictest
+  bar. At import and on every dial change the
   float32 matmul and cuDNN paths are pinned to full float32: PyTorch
   lets cuDNN convolutions run in TF32 by default, which keeps only about
   three decimal digits.
@@ -52,7 +53,7 @@ _PRECISIONS = ("highest", "high", "default")
 # full float32, bf16 hi/lo splits (about 3.1e-5 of the result's max-abs),
 # single bf16 products
 _PFFT_MODES = {"highest": "f32", "high": "split", "default": "bf16"}
-# the fused GMM scorer's MAP forward per dial setting: full float32, or
+# the fused GMM scorer's logits per dial setting: full float32, or
 # the JAX package's "split3" logits (bf16 hi/lo products, about 1e-5
 # relative); "default" stays "split" until a single-bf16 scorer exists
 _GMM_MODES = {"highest": "f32", "high": "split", "default": "split"}
@@ -86,7 +87,8 @@ def pfft_mode():
 
 
 def gmm_mode():
-    """The fused GMM scorer's MAP mode under the current dial."""
+    """The fused GMM scorer's mode (of its logits, MAP or marginalise)
+    under the current dial."""
     return _GMM_MODES[_GMM_PRECISION]
 
 

@@ -1,6 +1,9 @@
 // Fused patch extraction + GMM scoring on Hopper (sm_90a), forward (MAP
-// and marginalise) and both backwards, in full float32. Built by nvcc
-// into a shared library with a plain C interface and loaded with ctypes
+// and marginalise) and both backwards, in full float32: the precision
+// dial's "f32" mode ("highest"), and the MAP backward, which reads no
+// logit, under every dial (the "split" mode's forwards and marginalise
+// backward are gmm_fused_tc.cu's). Built by nvcc into a shared library
+// with a plain C interface and loaded with ctypes
 // (jolideco_torch/utils/cuda_build.py); the Python wrappers and the plain
 // PyTorch versions of the kernels are in jolideco_torch/ops/gmm_fused.py.
 //
@@ -102,6 +105,7 @@ using gmm::load_row;
 using gmm::kP;
 using gmm::patch_pos;
 using gmm::PatchPos;
+using gmm::store_patch_gradient;
 
 constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
@@ -168,27 +172,6 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
       argmax[n[p]] = best_k[p];
       valid_out[n[p]] = valid[p];
     }
-  }
-}
-
-// Subtracts the mean of u (the transpose of the mean subtraction) and
-// stores it into patch n's place in its offset group's plane.
-__device__ __forceinline__ void store_patch_gradient(float (&u)[kD], int n, int H,
-                                                     int W, int stride, int ny,
-                                                     int nx,
-                                                     float* __restrict__ planes) {
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < kD; ++c) sum += u[c];
-  const float mean = sum * (1.f / kD);
-
-  const PatchPos p = patch_pos(n, H, W, stride, ny, nx);
-  float* dst = planes + (size_t)p.g * H * W + (size_t)(p.a + kP * p.i) * W +
-               (p.b + kP * p.j);
-#pragma unroll
-  for (int dy = 0; dy < kP; ++dy) {
-#pragma unroll
-    for (int dx = 0; dx < kP; ++dx) dst[(size_t)dy * W + dx] = u[dy * kP + dx] - mean;
   }
 }
 

@@ -1,19 +1,21 @@
-// The fused GMM scorer's MAP forward on Hopper's tensor cores (sm_90a),
-// in the precision dial's "split" mode. Built by nvcc into a shared
-// library with a plain C interface and loaded with ctypes
-// (jolideco_torch/utils/cuda_build.py); the wrapper, the dispatch by
-// mode and the plain PyTorch version (mode="split") are in
-// jolideco_torch/ops/gmm_fused.py. The float32 forward ("f32" mode, and
-// the logsumexp mode under every dial) is gmm_fused.cu's gmm_fwd_kernel,
-// whose header states the patch enumeration.
+// The fused GMM scorer on Hopper's tensor cores (sm_90a), in the
+// precision dial's "split" mode: the forward, MAP (maximum) and
+// marginalise (logsumexp), and the marginalise backward. Built by nvcc
+// into a shared library with a plain C interface and loaded with ctypes
+// (jolideco_torch/utils/cuda_build.py); the wrappers, the dispatch by
+// mode and the plain PyTorch versions (mode="split") are in
+// jolideco_torch/ops/gmm_fused.py. The float32 kernels ("f32" mode, the
+// "highest" dial) and the MAP backward, which reads no logit, are
+// gmm_fused.cu's, whose header states the patch enumeration.
 //
 // gmm_fwd_tc_kernel replaces the JAX package's ops/gmm_fused.py::
 // _fwd_kernel under precision HIGH ("split3"): per patch, load, mask,
 // subtract the mean (gmm_patches.cuh's load_patch, as the float32
 // kernel), write xtn and valid, then
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k
-// and the maximum with the LOWEST index among equal maxima. As in the
-// JAX kernel, the quadratic form is a matrix product of the pair
+// and the maximum with the LOWEST index among equal maxima (MAP,
+// <false>) or the logsumexp and that argmax (marginalise, <true>). As in
+// the JAX kernel, the quadratic form is a matrix product of the pair
 // products u = x (x) x with A, both operands split into bf16 high and
 // low parts (hi = bf16(v), lo = bf16(v - hi), round to nearest even),
 // three products hi.hi + hi.lo + lo.hi summed in float32, and b . x in
@@ -25,13 +27,13 @@
 // What bounds it on the H100: operations. At 1024^2 (65,536 patches),
 // K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16
 // peak of 989 TFLOP/s; bytes are 4 MB in and 17 MB out (0.006 ms).
-// The design:
+// The design (tile_logits, the one code of the logits in both kernels):
 // - one block of 8 warps owns 128 patches and a tile of kKP = 208
 //   components (K = 200 padded; the padding is masked out of the
-//   maximum); a warp owns 32 patches x 104 components: 2 x 13 m16n8
+//   reductions); a warp owns 32 patches x 104 components: 2 x 13 m16n8
 //   tiles, 104 float32 accumulators a thread. A GMM of more components
 //   runs its tiles one after another in the same block, each tile's
-//   maximum merged into the rows' running one in shared memory;
+//   reduction merged into the rows' running one in shared memory;
 // - the pair dimension runs in 65 chunks of 32 pairs. Per chunk the
 //   block forms u for its 128 patches in float32 from the patches in
 //   shared memory and splits it into bf16 hi and lo planes (double
@@ -48,11 +50,49 @@
 //   logit (scaling by powers of two is exact);
 // - the maximum over each thread's 26 components, then over the four
 //   threads of a quad (shuffles), then over the two warps of a row and
-//   the earlier tiles (shared memory), ties to the lower index.
+//   the earlier tiles (shared memory), ties to the lower index; the
+//   logsumexp keeps beside it the sum of exp(logit - maximum), rescaled
+//   whenever the maximum grows (gmm_fused.cu's rule), and merges the
+//   (maximum, sum) pairs in the same fixed order.
 // A's 1.7 MB a tile is read from L2 once per block (512 blocks at
 // 1024^2, 0.89 GB); mma.sync, not wgmma, and no TMA: a first version
 // that is right, as the port's other tensor-core kernels.
-
+//
+// gmm_bwd_marg_tc_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel
+// under precision HIGH: per valid patch with the forward's logsumexp
+// lse and cotangent dv,
+//     w_k = exp(logit_k - lse),  u = dv sum_k w_k (b_k - A_k x) / sum_k w_k
+// with the logits recomputed from the saved patches (xtn; no (N, K)
+// residual) by tile_logits in the forward's block geometry, chunk order
+// and add_split order: bit for bit the logits the forward's lse summed.
+// That matters: the shipped GMMs' logits are 1e5 to 1e8, and the split
+// logits differ from float32 ones by up to 6.4e-5 of their value,
+// hundreds of units in the exponent (gmm_marg.cuh). Then K2's epilogue
+// (gmm_patches.cuh's store_patch_gradient).
+//
+// What bounds it: the recomputed logits (the forward's 0.17 ms), plus
+// the A_k x terms of the nonzero weights in float32 (4,096
+// multiply-adds and 16 KB of A_k each). For the shipped GMMs nearly
+// every weight underflows to exactly 0 (about one nonzero a patch), and
+// skipping a zero term is exact. The design: after a tile's main loop
+// its weights go to shared memory (over the stages and u, 104 KB); each
+// warp owns 16 rows, finds their nonzero weights 32 components at a
+// time with one ballot per row, and runs each component's term for
+// those rows in turn, one warp per (row, component): lane l accumulates
+// entries 2l, 2l + 1 of A_k x while the warp reads A_k row by row,
+// coalesced, through the read-only path (A_k stays in L1 across the
+// rows that share it). The gradient rows (33 KB) stay in shared memory
+// across the tiles; each row is summed by its one warp, components in
+// ascending order, so the result is deterministic without atomics, for
+// any K and any number of nonzero weights.
+//
+// On an NVIDIA H100 80GB HBM3 (700 W limit) at 1024^2, K = 200,
+// astro-snr-v1 (chip_smoke.py phase 2): <false> 0.723 ms, <true> 0.769
+// ms (gmm_fused.cu's gmm_fwd_kernel<true> 1.762), gmm_bwd_marg_tc_kernel
+// 0.863 ms (gmm_bwd_marg_kernel 2.571), 22% and 20% of their split
+// bounds; 255 registers each, 32, 16 and 0 bytes spilled. Under a GMM
+// whose weights are mixed (about 200 nonzero a patch) the backward's
+// A_k x terms take it to 14.37 ms (the float32 kernel 11.76).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -64,6 +104,7 @@ namespace {
 
 using gmm::kD;
 using gmm::load_patch;
+using gmm::store_patch_gradient;
 using tc::bf16;
 using tc::cp_async16;
 using tc::cp_async_commit;
@@ -92,16 +133,31 @@ static_assert(kNT % 2 == 1, "pairs of n8 tiles and one more");
 
 // shared memory: the patches (float, padded rows), the pair table, A's
 // two stages (which hold b and c before the main loop), u's two
-// buffers, the maxima of the two warp columns and the rows' running one
+// buffers; the forward's reductions (maximum, argmax and the sum of
+// exponentials of the two warp columns and the rows' running ones), or
+// the backward's logsumexp and weight sums of the rows, then its
+// gradient rows (float, padded). The backward's weights of a tile
+// overlay the stages and u once the tile's main loop is done.
 constexpr int kXBytes = kBlockRows * kXLd * 4;
 constexpr int kPairBytes = kPairs * 2;
 constexpr int kStageBytes = 2 * kStageElems * 2;
 constexpr int kUBytes = 2 * kUElems * 2;
-constexpr int kRedBytes = 3 * kBlockRows * 8;
-constexpr int kSmem = kXBytes + kPairBytes + kStageBytes + kUBytes + kRedBytes;
+constexpr int kRedBytes = 3 * kBlockRows * 12;
+constexpr int kGLd = kD + 2;                 // padded gradient row
+constexpr int kGradBytes = kBlockRows * kGLd * 4;
+constexpr int kWLd = kKP;                    // weight row
+constexpr int kRowsPerWarp = kBlockRows / (kThreads / 32);  // 16
+constexpr int kSmemFwd =
+    kXBytes + kPairBytes + kStageBytes + kUBytes + kRedBytes;
+constexpr int kSmemBwd = kSmemFwd + kGradBytes;
 static_assert(kXBytes % 16 == 0 && kPairBytes % 16 == 0 &&
-                  kStageBytes % 16 == 0 && kUBytes % 16 == 0,
+                  kStageBytes % 16 == 0 && kUBytes % 16 == 0 &&
+                  kRedBytes % 16 == 0,
               "16-byte aligned regions");
+static_assert(kBlockRows * kWLd * 4 <= kStageBytes + kUBytes,
+              "a tile's weights fit the stages and u");
+static_assert(kRowsPerWarp <= 32 && kGLd % 2 == 0, "rows of a warp");
+static_assert(kSmemBwd <= 232448, "shared memory of a block");
 static_assert((kD + 1) * kKP * 4 <= kStageBytes, "b and c fit the stages");
 
 // A's chunk c of a tile (hi then lo, [component][32 pairs] each,
@@ -216,6 +272,112 @@ __device__ __forceinline__ void take_max(float& v, int& k, float ov, int ok) {
   }
 }
 
+// The pair table: pair p = (a, b), a <= b, row-major over a.
+__device__ __forceinline__ void build_pairs(uint16_t* pairs) {
+  if (threadIdx.x < kD) {
+    const int a = threadIdx.x, off = a * kD - a * (a - 1) / 2;
+    for (int b = a; b < kD; ++b)
+      pairs[off + b - a] = static_cast<uint16_t>(a | (b << 8));
+  }
+}
+
+// One tile's logits, times -2, for the block's patches in xs: acc holds
+// rows wm*32 + mt*16 + lane/4 (+ 8) and components wn*104 + nt*8 +
+// 2 (lane % 4) (+ 1) of the tile. The one code of both kernels, so that
+// the backward recomputes, bit for bit, the logits whose logsumexp the
+// forward saved. Starts with a __syncthreads (xs and the pair table
+// written; the previous tile's readers of the stages done); ends with
+// the last chunk multiplied, the stages and u's buffers still in use.
+__device__ __forceinline__ void tile_logits(float (&acc)[kMT][kNT][4],
+                                            const float* xs,
+                                            const uint16_t* pairs,
+                                            bf16* stages, bf16* us,
+                                            const bf16* __restrict__ a_tile,
+                                            const float* __restrict__ bc_tile,
+                                            int wm, int wn, int lane) {
+  const int tid = threadIdx.x, g = lane >> 2, tq = lane & 3;
+  float* bcs = reinterpret_cast<float*>(stages);
+  __syncthreads();
+  // b (rows 0-63, [d][component]) and c (row 64) into the stages
+  {
+    const float4* src = reinterpret_cast<const float4*>(bc_tile);
+    float4* dst = reinterpret_cast<float4*>(bcs);
+    for (int i = tid; i < (kD + 1) * kKP / 4; i += kThreads)
+      dst[i] = __ldg(src + i);
+  }
+  __syncthreads();
+
+  // accumulators: -2 (b . x + c)
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
+  for (int d = 0; d < kD; ++d) {
+    float xr[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xr[mt][h] = xs[(wm * 32 + mt * 16 + g + 8 * h) * kXLd + d];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          bcs + d * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        acc[mt][nt][0] = fmaf(xr[mt][0], b.x, acc[mt][nt][0]);
+        acc[mt][nt][1] = fmaf(xr[mt][0], b.y, acc[mt][nt][1]);
+        acc[mt][nt][2] = fmaf(xr[mt][1], b.x, acc[mt][nt][2]);
+        acc[mt][nt][3] = fmaf(xr[mt][1], b.y, acc[mt][nt][3]);
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const float2 c = *reinterpret_cast<const float2*>(
+        bcs + kD * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      acc[mt][nt][0] = -2.f * (acc[mt][nt][0] + c.x);
+      acc[mt][nt][1] = -2.f * (acc[mt][nt][1] + c.y);
+      acc[mt][nt][2] = -2.f * (acc[mt][nt][2] + c.x);
+      acc[mt][nt][3] = -2.f * (acc[mt][nt][3] + c.y);
+    }
+  }
+  __syncthreads();  // b and c are read; the stages are free
+
+  // main loop over the pair chunks: A's chunk c + 1 streams in and u's
+  // chunk c + 1 is formed while chunk c is multiplied
+  load_stage(stages, a_tile);
+  cp_async_commit();
+  form_u(us, xs, pairs, 0);
+  for (int c = 0; c < kChunks; ++c) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk c visible to all; chunk c - 1's buffers free
+    if (c + 1 < kChunks) {
+      load_stage(stages + ((c + 1) & 1) * kStageElems,
+                 a_tile + (size_t)(c + 1) * kTileElems);
+      cp_async_commit();
+      form_u(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
+    }
+    mma_chunk(acc, us + (c & 1) * kUElems, stages + (c & 1) * kStageElems,
+              wm, wn, lane);
+  }
+}
+
+// Merges the running logsumexp (v, s: the maximum and the sum of
+// exp(logit - v)) and argmax k with another's; ties to the lower index.
+// A part that has seen no component is (-inf, 0).
+__device__ __forceinline__ void take_lse(float& v, float& s, int& k, float ov,
+                                         float os, int ok) {
+  const float m = fmaxf(v, ov);
+  if (m > -CUDART_INF_F) s = fmaf(s, expf(v - m), os * expf(ov - m));
+  take_max(v, k, ov, ok);
+}
+
+template <bool kMarginalize>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
                   int ny, int nx, int n_total, float sentinel,
@@ -232,19 +394,14 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
   float* red_v = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
                                           kStageBytes + kUBytes);
   int* red_k = reinterpret_cast<int*>(red_v + 3 * kBlockRows);
-  float* bcs = reinterpret_cast<float*>(stages);
+  float* red_s = reinterpret_cast<float*>(red_k + 3 * kBlockRows);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int n0 = blockIdx.x * kBlockRows;
   const int n_tiles = (K + kKP - 1) / kKP;
 
-  // the pair table: pair p = (a, b), a <= b, row-major over a
-  if (tid < kD) {
-    const int a = tid, off = a * kD - a * (a - 1) / 2;
-    for (int b = a; b < kD; ++b)
-      pairs[off + b - a] = static_cast<uint16_t>(a | (b << 8));
-  }
+  build_pairs(pairs);
   // the block's patches: xtn and valid to device memory, x to shared
   if (tid < kBlockRows) {
     float x[kD];
@@ -258,89 +415,21 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
 
   const int g = lane >> 2, tq = lane & 3;
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const bf16* a_tile = a_pairs + (size_t)tile * kChunks * kTileElems;
     const int k0 = tile * kKP;
-    // the patches and the pair table are written; the previous tile's
-    // last chunk is multiplied and its maxima merged
-    __syncthreads();
-    // b (rows 0-63, [d][component]) and c (row 64) into the stages
-    {
-      const float4* src =
-          reinterpret_cast<const float4*>(bc + (size_t)tile * (kD + 1) * kKP);
-      float4* dst = reinterpret_cast<float4*>(bcs);
-      for (int i = tid; i < (kD + 1) * kKP / 4; i += kThreads)
-        dst[i] = __ldg(src + i);
-    }
-    __syncthreads();
-
-    // accumulators: -2 (b . x + c), rows wm*32 + mt*16 + lane/4 (+ 8),
-    // components k0 + wn*104 + nt*8 + 2 (lane % 4) (+ 1)
     float acc[kMT][kNT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-    for (int d = 0; d < kD; ++d) {
-      float xr[kMT][2];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          xr[mt][h] = xs[(wm * 32 + mt * 16 + g + 8 * h) * kXLd + d];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const float2 b = *reinterpret_cast<const float2*>(
-            bcs + d * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          acc[mt][nt][0] = fmaf(xr[mt][0], b.x, acc[mt][nt][0]);
-          acc[mt][nt][1] = fmaf(xr[mt][0], b.y, acc[mt][nt][1]);
-          acc[mt][nt][2] = fmaf(xr[mt][1], b.x, acc[mt][nt][2]);
-          acc[mt][nt][3] = fmaf(xr[mt][1], b.y, acc[mt][nt][3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const float2 c = *reinterpret_cast<const float2*>(
-          bcs + kD * kKP + wn * kWarpCols + nt * 8 + 2 * tq);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        acc[mt][nt][0] = -2.f * (acc[mt][nt][0] + c.x);
-        acc[mt][nt][1] = -2.f * (acc[mt][nt][1] + c.y);
-        acc[mt][nt][2] = -2.f * (acc[mt][nt][2] + c.x);
-        acc[mt][nt][3] = -2.f * (acc[mt][nt][3] + c.y);
-      }
-    }
-    __syncthreads();  // b and c are read; the stages are free
+    tile_logits(acc, xs, pairs, stages, us,
+                a_pairs + (size_t)tile * kChunks * kTileElems,
+                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
 
-    // main loop over the pair chunks: A's chunk c + 1 streams in and u's
-    // chunk c + 1 is formed while chunk c is multiplied
-    load_stage(stages, a_tile);
-    cp_async_commit();
-    form_u(us, xs, pairs, 0);
-    for (int c = 0; c < kChunks; ++c) {
-      cp_async_wait<0>();
-      __syncthreads();  // chunk c visible to all; chunk c - 1's buffers free
-      if (c + 1 < kChunks) {
-        load_stage(stages + ((c + 1) & 1) * kStageElems,
-                   a_tile + (size_t)(c + 1) * kTileElems);
-        cp_async_commit();
-        form_u(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
-      }
-      mma_chunk(acc, us + (c & 1) * kUElems, stages + (c & 1) * kStageElems,
-                wm, wn, lane);
-    }
-
-    // the tile's maximum and argmax: over the thread's components, the
-    // quad, then the two warp columns and the earlier tiles
+    // the tile's maximum and argmax (and, marginalising, the sum of
+    // exp(logit - maximum), rescaled whenever the maximum grows): over
+    // the thread's components, the quad, then the two warp columns and
+    // the earlier tiles
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float best = -CUDART_INF_F;
+        float best = -CUDART_INF_F, sum = 0.f;
         int best_k = K;
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt)
@@ -348,29 +437,57 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
           for (int e = 0; e < 2; ++e) {
             const int k = k0 + wn * kWarpCols + nt * 8 + 2 * tq + e;
             const float logit = -0.5f * acc[mt][nt][2 * h + e];
-            if (k < K && logit > best) {
-              best = logit;
-              best_k = k;
+            if (!kMarginalize) {
+              if (k < K && logit > best) {
+                best = logit;
+                best_k = k;
+              }
+            } else if (k < K) {
+              if (logit > best) {
+                sum = fmaf(sum, expf(best - logit), 1.f);
+                best = logit;
+                best_k = k;
+              } else {
+                sum += expf(logit - best);
+              }
             }
           }
 #pragma unroll
-        for (int m = 1; m < 4; m <<= 1)
-          take_max(best, best_k, __shfl_xor_sync(0xffffffffu, best, m),
-                   __shfl_xor_sync(0xffffffffu, best_k, m));
+        for (int m = 1; m < 4; m <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, best, m);
+          const int ok = __shfl_xor_sync(0xffffffffu, best_k, m);
+          if (kMarginalize)
+            take_lse(best, sum, best_k, ov,
+                     __shfl_xor_sync(0xffffffffu, sum, m), ok);
+          else
+            take_max(best, best_k, ov, ok);
+        }
         if (tq == 0) {
           const int r = wm * 32 + mt * 16 + g + 8 * h;
           red_v[wn * kBlockRows + r] = best;
           red_k[wn * kBlockRows + r] = best_k;
+          if (kMarginalize) red_s[wn * kBlockRows + r] = sum;
         }
       }
     __syncthreads();
     if (tid < kBlockRows) {
       float best = red_v[tid];
       int best_k = red_k[tid];
-      take_max(best, best_k, red_v[kBlockRows + tid], red_k[kBlockRows + tid]);
-      if (tile > 0)
-        take_max(best, best_k, red_v[2 * kBlockRows + tid],
-                 red_k[2 * kBlockRows + tid]);
+      if (kMarginalize) {
+        float sum = red_s[tid];
+        take_lse(best, sum, best_k, red_v[kBlockRows + tid],
+                 red_s[kBlockRows + tid], red_k[kBlockRows + tid]);
+        if (tile > 0)
+          take_lse(best, sum, best_k, red_v[2 * kBlockRows + tid],
+                   red_s[2 * kBlockRows + tid], red_k[2 * kBlockRows + tid]);
+        red_s[2 * kBlockRows + tid] = sum;
+      } else {
+        take_max(best, best_k, red_v[kBlockRows + tid],
+                 red_k[kBlockRows + tid]);
+        if (tile > 0)
+          take_max(best, best_k, red_v[2 * kBlockRows + tid],
+                   red_k[2 * kBlockRows + tid]);
+      }
       red_v[2 * kBlockRows + tid] = best;
       red_k[2 * kBlockRows + tid] = best_k;
     }
@@ -378,8 +495,178 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
   // the rows' maxima were merged by the threads that write them
   if (tid < kBlockRows && n0 + tid < n_total) {
     const int best_k = red_k[2 * kBlockRows + tid];
-    values[n0 + tid] = red_v[2 * kBlockRows + tid];
+    const float best = red_v[2 * kBlockRows + tid];
+    values[n0 + tid] =
+        kMarginalize ? best + logf(red_s[2 * kBlockRows + tid]) : best;
     argmax[n0 + tid] = best_k >= K ? 0 : best_k;
+  }
+}
+
+// One nonzero weight w of row x (shared memory) and component k:
+//     g += w (b_k - A_k x),
+// lane l taking entries 2l and 2l + 1. A_k is symmetric (the packing,
+// ops/gmm_pack.py, forms it as P diag(w) P^T; the shipped GMMs' float32
+// A_k are symmetric bit for bit), so (A_k x)_c = sum_r A_k[r][c] x_r: the
+// warp reads row r of A_k (256 bytes, from L2 or L1) coalesced.
+__device__ __forceinline__ void marg_entry(float* grow, const float* x,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           float w, int lane) {
+  const float2* A = reinterpret_cast<const float2*>(a) + lane;
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < kD; r += 2) {
+    const float2 a0 = __ldg(A + r * (kD / 2));
+    const float2 a1 = __ldg(A + (r + 1) * (kD / 2));
+    const float x0 = x[r], x1 = x[r + 1];
+    t0 = fmaf(a0.x, x0, t0);
+    t1 = fmaf(a0.y, x0, t1);
+    t2 = fmaf(a1.x, x1, t2);
+    t3 = fmaf(a1.y, x1, t3);
+  }
+  const float2 bk = __ldg(reinterpret_cast<const float2*>(b) + lane);
+  float2* gp = reinterpret_cast<float2*>(grow) + lane;
+  float2 gv = *gp;
+  gv.x = fmaf(w, bk.x - (t0 + t2), gv.x);
+  gv.y = fmaf(w, bk.y - (t1 + t3), gv.y);
+  *gp = gv;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ valid,
+                       const float* __restrict__ dvalues,
+                       const bf16* __restrict__ a_pairs,
+                       const float* __restrict__ bc,
+                       const float* __restrict__ a_full,
+                       const float* __restrict__ b_rows, int H, int W,
+                       int stride, int ny, int nx, int n_total, int K,
+                       float* __restrict__ planes) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* xs = reinterpret_cast<float*>(smem_raw);
+  uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw + kXBytes);
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes);
+  bf16* us = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes +
+                                     kStageBytes);
+  float* lse_s = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
+                                          kStageBytes + kUBytes);
+  float* wsum_s = lse_s + kBlockRows;
+  float* grad = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
+                                         kStageBytes + kUBytes + kRedBytes);
+  // after a tile's main loop, its weights overlay the stages and u
+  float* wts = reinterpret_cast<float*>(stages);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kBlockRows;
+  const int n_tiles = (K + kKP - 1) / kKP;
+
+  build_pairs(pairs);
+  // the block's saved patches (a row past the end is zero, as in the
+  // forward), their logsumexp (+inf for an invalid patch or a row past
+  // the end: its weights are 0) and the gradient rows
+  for (int i = tid; i < kBlockRows * kD; i += kThreads) {
+    const int r = i / kD, n = n0 + r;
+    xs[r * kXLd + i % kD] = n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD)
+                                        : 0.f;
+  }
+  if (tid < kBlockRows) {
+    const int n = n0 + tid;
+    lse_s[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
+                                                        : CUDART_INF_F;
+  }
+  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
+
+  // warp w owns rows 16 w .. 16 w + 15 in the mixture: their weight sum
+  // (lane i holds row 16 w + i's) and their gradient rows
+  const int r0 = warp * kRowsPerWarp;
+  float wsum = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kKP;
+    float acc[kMT][kNT][4];
+    tile_logits(acc, xs, pairs, stages, us,
+                a_pairs + (size_t)tile * kChunks * kTileElems,
+                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
+    __syncthreads();  // every warp's last chunk is multiplied
+
+    // the weights w = exp(logit - lse), 0 for the padding components
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        const float l = lse_s[r];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
+          float2 w;
+          w.x = k0 + col < K ? expf(-0.5f * acc[mt][nt][2 * h] - l) : 0.f;
+          w.y = k0 + col + 1 < K ? expf(-0.5f * acc[mt][nt][2 * h + 1] - l)
+                                 : 0.f;
+          *reinterpret_cast<float2*>(wts + r * kWLd + col) = w;
+        }
+      }
+    __syncthreads();
+
+    // each warp over its rows, 32 components at a time: a ballot per row
+    // finds the nonzero weights; the component's A_k x term then runs
+    // for each row that has one, rows in order, so that A_k stays in L1
+    // across them; each row takes its components in ascending order
+    float part[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) part[i] = 0.f;
+    for (int j = 0; j < kKP; j += 32) {
+      const int col = j + lane;
+      uint32_t nz[kRowsPerWarp];
+      uint32_t any = 0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float w = col < kKP ? wts[(r0 + i) * kWLd + col] : 0.f;
+        part[i] += w;
+        nz[i] = __ballot_sync(0xffffffffu, w > 0.f);
+        any |= nz[i];
+      }
+      while (any) {
+        const int bit = __ffs(any) - 1;
+        any &= any - 1;
+        const int k = k0 + j + bit;
+        uint32_t rows = 0;
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          rows |= ((nz[i] >> bit) & 1u) << i;
+        while (rows) {
+          const int r = r0 + __ffs(rows) - 1;
+          rows &= rows - 1;
+          marg_entry(grad + r * kGLd, xs + r * kXLd,
+                     a_full + (size_t)k * kD * kD, b_rows + (size_t)k * kD,
+                     wts[r * kWLd + j + bit], lane);
+        }
+      }
+    }
+    // the tile's weight sums: each lane's, then over the warp
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      float s = part[i];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+      if (lane == i) wsum += s;
+    }
+  }
+  if (lane < kRowsPerWarp) wsum_s[r0 + lane] = wsum;
+  __syncthreads();
+
+  // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
+  if (tid < kBlockRows) {
+    const int n = n0 + tid;
+    if (n < n_total && __ldg(valid + n) != 0.f) {
+      const float scale = __ldg(dvalues + n) / wsum_s[tid];
+      float u[kD];
+#pragma unroll
+      for (int c = 0; c < kD; ++c) u[c] = grad[tid * kGLd + c] * scale;
+      store_patch_gradient(u, n, H, W, stride, ny, nx, planes);
+    }
   }
 }
 
@@ -388,25 +675,55 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
 extern "C" {
 
 // a_pairs holds ceil(K / 208) tiles of A's chunks, bc as many tiles of b
-// and c (ops/gmm_fused.py::kernel_buffers). Returns the first CUDA error
-// of setting the shared-memory size and the launch (0 = cudaSuccess); 1
+// and c (ops/gmm_fused.py::kernel_buffers); values are the maxima (MAP)
+// or, with marginalize, the logsumexp. Returns the first CUDA error of
+// setting the shared-memory size and the launch (0 = cudaSuccess); 1
 // (cudaErrorInvalidValue) for K < 1.
 int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
                      int nx, float sentinel, const void* a_pairs,
-                     const void* bc, int K, void* values, void* argmax,
-                     void* valid, void* xtn, void* stream) {
+                     const void* bc, int K, int marginalize, void* values,
+                     void* argmax, void* valid, void* xtn, void* stream) {
   if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel =
+      marginalize ? gmm_fwd_tc_kernel<true> : gmm_fwd_tc_kernel<false>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
   const int groups = (gmm::kP / stride) * (gmm::kP / stride);
   const int n_total = groups * ny * nx;
   const int blocks = (n_total + kBlockRows - 1) / kBlockRows;
-  gmm_fwd_tc_kernel<<<blocks, kThreads, kSmem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, kSmemFwd, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), H, W, stride, ny, nx, n_total, sentinel,
       static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc), K,
       static_cast<float*>(values), static_cast<int*>(argmax),
       static_cast<float*>(valid), static_cast<float*>(xtn));
+  const cudaError_t launch = cudaGetLastError();
+  return static_cast<int>(attr != cudaSuccess ? attr : launch);
+}
+
+// The marginalise backward into the zero-filled (G, H, W) planes, from
+// the forward's xtn and logsumexp (which gmm_fused_fwd_tc with
+// marginalize must have computed: the weights are exp(logit - lse) of
+// the same logits), the buffers of gmm_fused_fwd_tc and A (K, 64, 64),
+// b (K, 64). Errors as gmm_fused_fwd_tc.
+int gmm_fused_bwd_marg_tc(const void* xtn, const void* lse, const void* valid,
+                          const void* dvalues, const void* a_pairs,
+                          const void* bc, const void* a_full,
+                          const void* b_rows, int H, int W, int stride,
+                          int ny, int nx, int K, void* planes, void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_bwd_marg_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBwd);
+  const int groups = (gmm::kP / stride) * (gmm::kP / stride);
+  const int n_total = groups * ny * nx;
+  const int blocks = (n_total + kBlockRows - 1) / kBlockRows;
+  gmm_bwd_marg_tc_kernel<<<blocks, kThreads, kSmemBwd,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xtn), static_cast<const float*>(lse),
+      static_cast<const float*>(valid), static_cast<const float*>(dvalues),
+      static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc),
+      static_cast<const float*>(a_full), static_cast<const float*>(b_rows), H,
+      W, stride, ny, nx, n_total, K, static_cast<float*>(planes));
   const cudaError_t launch = cudaGetLastError();
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }

@@ -1,7 +1,7 @@
 // Offset-group patches of an image, as the fused image-level scorers
-// read them: gmm_fused.cu (K1's float32 forward, both backwards) and
-// gmm_fused_tc.cu (K1's MAP forward on the tensor cores). The
-// enumeration is stated at the top of gmm_fused.cu.
+// read them and their backwards write them back: gmm_fused.cu (the
+// float32 kernels) and gmm_fused_tc.cu (the "split" mode's on the
+// tensor cores). The enumeration is stated at the top of gmm_fused.cu.
 
 #pragma once
 
@@ -76,6 +76,29 @@ __device__ __forceinline__ float load_patch(const float* __restrict__ img, int H
     dst[c / 4] = make_float4(x[c], x[c + 1], x[c + 2], x[c + 3]);
   }
   return ok ? 1.f : 0.f;
+}
+
+// Subtracts the mean of u (the transpose of the mean subtraction) and
+// stores it into patch n's place in its offset group's plane (the
+// backwards' epilogue).
+__device__ __forceinline__ void store_patch_gradient(float (&u)[kD], int n,
+                                                     int H, int W, int stride,
+                                                     int ny, int nx,
+                                                     float* __restrict__ planes) {
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kD; ++c) sum += u[c];
+  const float mean = sum * (1.f / kD);
+
+  const PatchPos p = patch_pos(n, H, W, stride, ny, nx);
+  float* dst = planes + (size_t)p.g * H * W + (size_t)(p.a + kP * p.i) * W +
+               (p.b + kP * p.j);
+#pragma unroll
+  for (int dy = 0; dy < kP; ++dy) {
+#pragma unroll
+    for (int dx = 0; dx < kP; ++dx)
+      dst[(size_t)dy * W + dx] = u[dy * kP + dx] - mean;
+  }
 }
 
 }  // namespace gmm

@@ -15,22 +15,26 @@ and back to image layout per offset group.
 
 Each direction has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu``,
-  whose header says what bounds it and how it is built), run for a
-  tensor on a CUDA card;
+- a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu`` and
+  ``csrc/gmm_fused_tc.cu``, whose headers say what bounds them and how
+  they are built), run for a tensor on a CUDA card;
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
 
-The MAP forward has two modes, which the precision dial names
+The logits have two modes, which the precision dial names
 (``config.gmm_mode``) and the caller passes down: ``"f32"``, full
 float32, and ``"split"``, the JAX package's logits at precision HIGH:
 the quadratic form as a product of the pair products ``x_a x_b`` (``a <=
 b``) with ``A`` (off-diagonals doubled), both split into bf16 hi and lo
 parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
-``b . x`` in float32. Its kernel runs on the tensor cores
-(``csrc/gmm_fused_tc.cu``), its plain version as three float32 matmuls
-of the bf16-valued parts. The logsumexp (marginalise) forward and both
-backwards are float32 in either mode.
+``b . x`` in float32. Its kernels run on the tensor cores
+(``csrc/gmm_fused_tc.cu``), its plain versions as three float32 matmuls
+of the bf16-valued parts. The mode reaches both forwards (maximum and
+logsumexp) and the marginalise backward, which recomputes the logits
+in the mode of the forward that saved their logsumexp: with logits of
+1e5 to 1e8, the softmax weights are only right against an lse of the
+same arithmetic. The mixture ``sum_k p_k (b_k - A_k x)`` and the MAP
+backward, which reads no logit, are float32 in either mode.
 
 The rule is ``config.dispatch``: nothing falls back from the kernel to
 the plain version. Each wrapper keeps a plain integer count of its
@@ -61,8 +65,10 @@ __all__ = [
     "fused_supported",
     "gmm_fused_bwd_cuda",
     "gmm_fused_bwd_marg_cuda",
+    "gmm_fused_bwd_marg_tc_cuda",
     "gmm_fused_fwd_cuda",
     "gmm_fused_fwd_marg_cuda",
+    "gmm_fused_fwd_marg_tc_cuda",
     "gmm_fused_fwd_tc_cuda",
     "fused_backward_marg_plain",
     "fused_backward_plain",
@@ -71,11 +77,14 @@ __all__ = [
     "kernel_buffers",
     "logit_chunks",
     "marg_unit_rows",
+    "marg_unit_split_plain",
     "mix_rows",
     "reset_counters",
     "score_plain",
+    "score_split_marg_plain",
     "score_split_plain",
     "softmax_chunks",
+    "split_logit_chunks",
 ]
 
 PATCH = 8
@@ -247,12 +256,14 @@ def logit_chunks(xtn, aq, bq, const2):
         yield -0.5 * (u @ aq) + x @ bq + const2
 
 
-def softmax_chunks(x, lse, bufs):
+def softmax_chunks(x, lse, bufs, mode="f32"):
     """Per chunk of rows, ``(slice, p)`` with ``p (rows, K)`` the softmax
     ``exp(logit - lse)`` renormalised against the recomputed logits (the
     JAX package's rule: the result does not depend on the lse's
-    rounding)."""
-    chunks = logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"])
+    rounding), the logits of ``mode`` (:func:`logit_chunks` or
+    :func:`split_logit_chunks`)."""
+    chunks = (split_logit_chunks(x, bufs) if mode == "split" else
+              logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"]))
     for start, logits in zip(range(0, x.shape[0], PLAIN_CHUNK), chunks):
         sl = slice(start, start + PLAIN_CHUNK)
         p = torch.exp(logits - lse[sl, None])
@@ -266,18 +277,30 @@ def mix_rows(w, x, bufs):
     return torch.bmm(a_mix, x[:, :, None])[:, :, 0]
 
 
-def marg_unit_rows(x, lse, bufs):
-    """Marginalise unit gradient ``sum_k p_k (b_k - A_k x)`` of rows ``x``."""
+def marg_unit_rows(x, lse, bufs, mode="f32"):
+    """Marginalise unit gradient ``sum_k p_k (b_k - A_k x)`` of rows ``x``,
+    the softmax over the logits of ``mode``, the mixture in the rows'
+    type."""
     out = [x.new_empty((0, x.shape[1]))]
-    for sl, p in softmax_chunks(x, lse, bufs):
+    for sl, p in softmax_chunks(x, lse, bufs, mode):
         out.append(p @ bufs["b_rows"] - mix_rows(p, x[sl], bufs))
     return torch.cat(out)
 
 
-def _scores(x, aq, bq, const2, marginalize):
-    """Values and argmax of rows ``(n, d)``, chunk by chunk."""
+def marg_unit_split_plain(x, lse, bufs):
+    """:func:`marg_unit_rows` in the ``"split"`` mode: the softmax over
+    the split logits against ``lse``, a logsumexp of the same logits
+    (:func:`score_split_marg_plain`), then the float32 mixture."""
+    marg_unit_split_plain.calls += 1
+    return marg_unit_rows(x, lse, bufs, "split")
+
+
+def _scores(x, chunks, marginalize):
+    """Values and argmax of rows ``x (n, d)`` from their logit chunks
+    ``(rows, K)``: the maximum or the logsumexp, and the lowest index
+    among equal maxima (``torch.max`` returns the first)."""
     values, argmax = [x.new_empty(0)], [x.new_empty(0, dtype=torch.int32)]
-    for logits in logit_chunks(x, aq, bq, const2):
+    for logits in chunks:
         v, k = torch.max(logits, dim=1)
         if marginalize:
             v = torch.logsumexp(logits, dim=1)
@@ -306,12 +329,15 @@ def score_split_plain(xtn, bufs):
     """MAP scores of normalised patches ``(n, d)`` in the ``"split"``
     mode: values and argmax (the lowest index among equal maxima)."""
     score_split_plain.calls += 1
-    values, argmax = [xtn.new_empty(0)], [xtn.new_empty(0, dtype=torch.int32)]
-    for logits in split_logit_chunks(xtn, bufs):
-        v, k = torch.max(logits, dim=1)
-        values.append(v)
-        argmax.append(k.to(torch.int32))
-    return torch.cat(values), torch.cat(argmax)
+    return _scores(xtn, split_logit_chunks(xtn, bufs), False)
+
+
+def score_split_marg_plain(xtn, bufs):
+    """Marginalise scores of normalised patches ``(n, d)`` in the
+    ``"split"`` mode: the logsumexp of the split logits, and their
+    argmax (the lowest index among equal maxima)."""
+    score_split_marg_plain.calls += 1
+    return _scores(xtn, split_logit_chunks(xtn, bufs), True)
 
 
 def score_plain(xtn, aq, bq, const2, marginalize=False):
@@ -322,7 +348,7 @@ def score_plain(xtn, aq, bq, const2, marginalize=False):
     (``torch.max`` returns the first).
     """
     score_plain.calls += 1
-    return _scores(xtn, aq, bq, const2, marginalize)
+    return _scores(xtn, logit_chunks(xtn, aq, bq, const2), marginalize)
 
 
 def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
@@ -332,10 +358,10 @@ def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
     Returns ``(values (N,), argmax (N,) int32, valid (N,) float32,
     xtn (N, 64))`` with ``xtn`` the masked, mean-subtracted patches and
     ``values`` the maximum (MAP) or logsumexp (``marginalize``) of the
-    logits, in full float32 (``mode="f32"``) or, for MAP, the ``"split"``
-    mode's logits (:func:`split_logit_chunks`).
+    logits, in full float32 (``mode="f32"``) or the ``"split"`` mode's
+    logits (:func:`split_logit_chunks`).
     """
-    _check_mode(mode, marginalize)
+    _check_mode(mode)
     fused_forward_plain.calls += 1
     h, w = image.shape
     ny, nx = h // PATCH, w // PATCH
@@ -352,7 +378,8 @@ def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
     x = torch.where(valid[:, None], patches, torch.zeros_like(patches))
     xtn = x - x.mean(dim=1, keepdim=True)
     if mode == "split":
-        values, argmax = score_split_plain(xtn, bufs)
+        score = score_split_marg_plain if marginalize else score_split_plain
+        values, argmax = score(xtn, bufs)
     else:
         values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"],
                                      bufs["const2"], marginalize)
@@ -374,12 +401,15 @@ def fused_backward_plain(xtn, argmax, valid, dvalues, bufs, image_shape,
 
 
 def fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs, image_shape,
-                              stride):
-    """Plain version of the marginalise backward kernel: the image
+                              stride, mode="f32"):
+    """Plain version of the marginalise backward kernels: the image
     gradient ``(H, W)`` from the saved patches and the forward's
-    logsumexp ``lse``."""
+    logsumexp ``lse``, whose logits (``mode``) the softmax recomputes."""
+    _check_mode(mode)
     fused_backward_marg_plain.calls += 1
-    u = dvalues[:, None] * marg_unit_rows(xtn, lse, bufs)
+    unit = (marg_unit_split_plain(xtn, lse, bufs) if mode == "split"
+            else marg_unit_rows(xtn, lse, bufs))
+    u = dvalues[:, None] * unit
     return _patches_to_image(u, valid, image_shape, stride)
 
 
@@ -406,11 +436,9 @@ def _patches_to_image(u, valid, image_shape, stride):
 # CUDA kernels
 
 
-def _check_mode(mode, marginalize):
+def _check_mode(mode):
     if mode not in MODES:
         raise ValueError(f"invalid fused-scorer mode {mode!r}")
-    if mode == "split" and marginalize:
-        raise ValueError("the logsumexp forward has no \"split\" mode")
 
 
 def _tc_library():
@@ -420,8 +448,11 @@ def _tc_library():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gmm_fused_fwd_tc.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, vp,
-                                         ci, vp, vp, vp, vp, vp]
+                                         ci, ci, vp, vp, vp, vp, vp]
         lib.gmm_fused_fwd_tc.restype = ci
+        lib.gmm_fused_bwd_marg_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                              ci, ci, ci, ci, ci, ci, vp, vp]
+        lib.gmm_fused_bwd_marg_tc.restype = ci
         lib.gmm_fused_tc_error_string.argtypes = [ci]
         lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -499,25 +530,46 @@ def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
     tensor cores (``csrc/gmm_fused_tc.cu``); same outputs as
     :func:`fused_forward_plain` with ``mode="split"``. Any number of
     components, in tiles of ``KP_TC``."""
-    values, argmax, valid, xtn = _forward_outputs(image, stride)
-    device = image.device
-    h, w = image.shape
+    out = _launch_forward_tc(image, bufs, stride, sentinel, False)
+    gmm_fused_fwd_tc_cuda.launches += 1
+    return out
+
+
+def gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel):
+    """Launch the marginalise (logsumexp) forward kernel of the
+    ``"split"`` mode on the tensor cores; same outputs as
+    :func:`fused_forward_plain` with ``marginalize=True, mode="split"``."""
+    out = _launch_forward_tc(image, bufs, stride, sentinel, True)
+    gmm_fused_fwd_marg_tc_cuda.launches += 1
+    return out
+
+
+def _split_tiles(bufs, device):
+    """Checks the tensor-core kernels' buffers; the component count."""
     k = bufs["rec"].shape[0]
     tiles = -(-k // KP_TC)
     _check(bufs["pair_tc"], "pair_tc", torch.bfloat16,
            (tiles, PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
     _check(bufs["bc"], "bc", torch.float32, (tiles, D + 1, KP_TC), device)
+    return k
+
+
+def _launch_forward_tc(image, bufs, stride, sentinel, marginalize):
+    values, argmax, valid, xtn = _forward_outputs(image, stride)
+    device = image.device
+    h, w = image.shape
+    k = _split_tiles(bufs, device)
     lib = _tc_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_fwd_tc(
             image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
             float(sentinel), bufs["pair_tc"].data_ptr(),
-            bufs["bc"].data_ptr(), k, values.data_ptr(), argmax.data_ptr(),
-            valid.data_ptr(), xtn.data_ptr(), stream,
+            bufs["bc"].data_ptr(), k, int(bool(marginalize)),
+            values.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
+            xtn.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_tc_error_string, code, "gmm_fused_fwd_tc")
-    gmm_fused_fwd_tc_cuda.launches += 1
     return values, argmax, valid, xtn
 
 
@@ -595,49 +647,91 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
     return planes.sum(dim=0)
 
 
+def _backward_marg_inputs(xtn, lse, valid, dvalues, bufs, image_shape,
+                          stride, kernel):
+    """Checks a marginalise backward kernel's inputs; its zero-filled
+    planes, one per offset group, and the component count."""
+    device = xtn.device
+    if device.type != "cuda":
+        raise ValueError(f"{kernel} needs a CUDA tensor, got {device}")
+    h, w = image_shape
+    n_groups = len(_offsets(stride))
+    n = n_groups * (h // PATCH) * (w // PATCH)
+    k = bufs["a_full"].shape[0]
+    _check(xtn, "xtn", torch.float32, (n, D), device)
+    for name, t in (("lse", lse), ("valid", valid), ("dvalues", dvalues)):
+        _check(t, name, torch.float32, (n,), device)
+    _check(bufs["a_full"], "a_full", torch.float32, (k, D, D), device)
+    planes = torch.zeros((n_groups, h, w), dtype=torch.float32, device=device)
+    return planes, k
+
+
 def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
                             stride):
     """Launch the marginalise backward kernel; returns the image gradient
     ``(H, W)``. Same contract as :func:`fused_backward_marg_plain`; the
     planes are those of :func:`gmm_fused_bwd_cuda`."""
+    planes, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
+                                      image_shape, stride,
+                                      "gmm_fused_bwd_marg_cuda")
     device = xtn.device
-    if device.type != "cuda":
-        raise ValueError(
-            f"gmm_fused_bwd_marg_cuda needs a CUDA tensor, got {device}")
     h, w = image_shape
-    ny, nx = h // PATCH, w // PATCH
-    n_groups = len(_offsets(stride))
-    n = n_groups * ny * nx
     rec, a_full = bufs["rec"], bufs["a_full"]
-    k = rec.shape[0]
-    _check(xtn, "xtn", torch.float32, (n, D), device)
-    for name, t in (("lse", lse), ("valid", valid), ("dvalues", dvalues)):
-        _check(t, name, torch.float32, (n,), device)
     _check(rec, "rec", torch.float32, (k, REC), device)
-    _check(a_full, "a_full", torch.float32, (k, D, D), device)
-
-    planes = torch.zeros((n_groups, h, w), dtype=torch.float32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_bwd_marg(
             xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
             dvalues.data_ptr(), rec.data_ptr(), a_full.data_ptr(),
-            h, w, int(stride), ny, nx, k, planes.data_ptr(), stream,
+            h, w, int(stride), h // PATCH, w // PATCH, k, planes.data_ptr(),
+            stream,
         )
     _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_bwd_marg")
     gmm_fused_bwd_marg_cuda.launches += 1
     return planes.sum(dim=0)
 
 
+def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
+                               stride):
+    """Launch the marginalise backward kernel of the ``"split"`` mode
+    (``csrc/gmm_fused_tc.cu``): its logits on the tensor cores, by the
+    code of :func:`gmm_fused_fwd_marg_tc_cuda`, whose logsumexp ``lse``
+    must be; returns the image gradient ``(H, W)``. Same contract as
+    :func:`fused_backward_marg_plain` with ``mode="split"``."""
+    planes, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
+                                      image_shape, stride,
+                                      "gmm_fused_bwd_marg_tc_cuda")
+    device = xtn.device
+    h, w = image_shape
+    _split_tiles(bufs, device)
+    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
+    lib = _tc_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.gmm_fused_bwd_marg_tc(
+            xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
+            dvalues.data_ptr(), bufs["pair_tc"].data_ptr(),
+            bufs["bc"].data_ptr(), bufs["a_full"].data_ptr(),
+            bufs["b_rows"].data_ptr(), h, w, int(stride), h // PATCH,
+            w // PATCH, k, planes.data_ptr(), stream,
+        )
+    _raise_on_error(lib.gmm_fused_tc_error_string, code,
+                    "gmm_fused_bwd_marg_tc")
+    gmm_fused_bwd_marg_tc_cuda.launches += 1
+    return planes.sum(dim=0)
+
+
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (gmm_fused_fwd_cuda, gmm_fused_fwd_marg_cuda,
-               gmm_fused_fwd_tc_cuda, gmm_fused_bwd_cuda,
-               gmm_fused_bwd_marg_cuda):
+               gmm_fused_fwd_tc_cuda, gmm_fused_fwd_marg_tc_cuda,
+               gmm_fused_bwd_cuda, gmm_fused_bwd_marg_cuda,
+               gmm_fused_bwd_marg_tc_cuda):
         fn.launches = 0
     for fn in (fused_forward_plain, fused_backward_plain,
-               fused_backward_marg_plain, score_plain, score_split_plain):
+               fused_backward_marg_plain, score_plain, score_split_plain,
+               score_split_marg_plain, marg_unit_split_plain):
         fn.calls = 0
 
 
@@ -648,14 +742,18 @@ reset_counters()
 # dispatch and autograd
 
 
+# the forward kernels by (marginalize, mode)
+_FORWARDS = {
+    (False, "f32"): gmm_fused_fwd_cuda,
+    (False, "split"): gmm_fused_fwd_tc_cuda,
+    (True, "f32"): gmm_fused_fwd_marg_cuda,
+    (True, "split"): gmm_fused_fwd_marg_tc_cuda,
+}
+
+
 def _forward(image, bufs, stride, sentinel, marginalize, mode):
     if dispatch(image) == "kernel":
-        if marginalize:
-            launch = gmm_fused_fwd_marg_cuda
-        elif mode == "split":
-            launch = gmm_fused_fwd_tc_cuda
-        else:
-            launch = gmm_fused_fwd_cuda
+        launch = _FORWARDS[marginalize, mode]
         return launch(image, bufs, stride, sentinel)
     return fused_forward_plain(image, bufs, stride, sentinel, marginalize,
                                mode)
@@ -669,12 +767,14 @@ def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
                                 image_shape, stride)
 
 
-def _backward_marg(xtn, lse, valid, dvalues, bufs, image_shape, stride):
+def _backward_marg(xtn, lse, valid, dvalues, bufs, image_shape, stride,
+                   mode):
     if dispatch(xtn) == "kernel":
-        return gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs,
-                                       image_shape, stride)
+        launch = (gmm_fused_bwd_marg_tc_cuda if mode == "split"
+                  else gmm_fused_bwd_marg_cuda)
+        return launch(xtn, lse, valid, dvalues, bufs, image_shape, stride)
     return fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs,
-                                     image_shape, stride)
+                                     image_shape, stride, mode)
 
 
 class _FusedScore(torch.autograd.Function):
@@ -695,11 +795,14 @@ class _FusedScore(torch.autograd.Function):
         values, argmax, valid, xtn = _forward(image, bufs, stride, sentinel,
                                               marginalize, mode)
         # the marginalise backward recomputes the softmax against the
-        # forward's logsumexp (the values); the MAP one needs the argmax
+        # forward's logsumexp (the values), in the forward's mode: the
+        # dial may change before the backward runs; the MAP one needs
+        # the argmax
         ctx.save_for_backward(xtn, values if marginalize else argmax, valid)
         ctx.bufs = bufs
         ctx.stride = stride
         ctx.marginalize = marginalize
+        ctx.mode = mode
         ctx.image_shape = tuple(image.shape)
         ctx.mark_non_differentiable(argmax, valid)
         return values, argmax, valid
@@ -713,9 +816,10 @@ class _FusedScore(torch.autograd.Function):
                 "(TotalLoss.hessian_diagonals does)"
             )
         xtn, selector, valid = ctx.saved_tensors
-        run = _backward_marg if ctx.marginalize else _backward
-        dimage = run(xtn, selector, valid, dvalues.contiguous(), ctx.bufs,
-                     ctx.image_shape, ctx.stride)
+        args = (xtn, selector, valid, dvalues.contiguous(), ctx.bufs,
+                ctx.image_shape, ctx.stride)
+        dimage = (_backward_marg(*args, ctx.mode) if ctx.marginalize
+                  else _backward(*args))
         return dimage, None, None, None, None, None
 
 
@@ -737,8 +841,8 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
         Logsumexp instead of the maximum; the backward then mixes the
         components' gradients by their softmax weights.
     mode : ``"f32"`` or ``"split"``
-        The MAP forward's logits (``config.gmm_mode()`` names the dial's);
-        the logsumexp forward is float32 in either.
+        The logits of the forward and of the marginalise backward
+        (``config.gmm_mode()`` names the dial's).
 
     Returns
     -------
@@ -749,9 +853,8 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
     h, w = normed.shape[-2:]
     if not fused_supported(normed.shape, patch_shape, stride, D):
         raise ValueError("fused scorer does not support this shape")
-    _check_mode(mode, False)
+    _check_mode(mode)
     image = normed.reshape(h, w).contiguous()
     values, argmax, valid = _FusedScore.apply(
-        image, bufs, int(stride), float(sentinel), bool(marginalize),
-        "f32" if marginalize else mode)
+        image, bufs, int(stride), float(sentinel), bool(marginalize), mode)
     return values, argmax, valid > 0.5

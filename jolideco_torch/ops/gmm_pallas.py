@@ -64,6 +64,7 @@ from .gmm_fused import (
     _check,
     _raise_on_error,
     _scores,
+    logit_chunks,
     marg_unit_rows,
     mix_rows,
     softmax_chunks,
@@ -95,7 +96,8 @@ __all__ = [
 def score_rows_plain(x, bufs, marginalize=False):
     """Plain version of the scorer: ``(values (N,), argmax (N,) int32)``."""
     score_rows_plain.calls += 1
-    return _scores(x, bufs["aq"], bufs["bq"], bufs["const2"], marginalize)
+    chunks = logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"])
+    return _scores(x, chunks, marginalize)
 
 
 def _select_rows(x, argmax, bufs, with_b):

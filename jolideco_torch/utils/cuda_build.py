@@ -21,7 +21,8 @@ __all__ = ["BUILD_DIR", "BUILD_INFO", "LIBRARIES", "load_libraries",
            "load_library"]
 
 # the package's kernel libraries: the fused GMM scorer (K1, K2, K4) and
-# its MAP forward on the tensor cores ("split" mode), the patch-level
+# its forwards and marginalise backward on the tensor cores ("split"
+# mode), the patch-level
 # scorer (K5-K9), the matrix-DFT convolution (K3) in float32 and its
 # passes 2 and 3 on the tensor cores ("split" mode)
 LIBRARIES = ("gmm_fused", "gmm_fused_tc", "gmm_patch", "pfft_conv",

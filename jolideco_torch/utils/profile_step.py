@@ -6,9 +6,9 @@ prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
 each patch by the logsumexp over its components; ``--conv-mode pfft``
 convolves through the matrix-DFT kernels instead of cuFFT; ``--precision``
 sets the precision dial, whose default ``"high"`` runs the fused
-scorer's MAP forward and K3's passes 2 and 3 on the tensor cores), runs a
-few
-warm-up steps, then traces
+scorer (its MAP and logsumexp forwards and its marginalise backward) and
+K3's passes 2 and 3 on the tensor cores), runs a few warm-up steps, then
+traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes
 (``TotalLoss.fluxes_error``, what ``compute_error=True`` runs once after

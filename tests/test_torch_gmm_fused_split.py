@@ -240,7 +240,8 @@ def test_split_buffers_tile_the_components():
 def test_dial_routes_the_map_forward(dial, split):
     """The prior passes the dial's mode down: ``"highest"`` takes the
     float32 plain version, ``"high"`` and ``"default"`` the split one;
-    the marginalised prior stays float32 under every dial."""
+    the marginalised prior follows the dial too, its logsumexp forward
+    and its backward's softmax both on the split logits."""
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
     flux = torch.as_tensor(np.random.RandomState(3).uniform(
         0.1, 2.0, (1, 1, 32, 40)).astype(np.float32))
@@ -254,9 +255,13 @@ def test_dial_routes_the_map_forward(dial, split):
             x = flux.clone().requires_grad_(True)
             tfused.reset_counters()
             prior(x).backward()
-            map_split = split and not marginalize
-            assert tfused.score_split_plain.calls == int(map_split)
-            assert tfused.score_plain.calls == int(not map_split)
+            assert tfused.score_split_plain.calls == int(
+                split and not marginalize)
+            assert tfused.score_split_marg_plain.calls == int(
+                split and marginalize)
+            assert tfused.marg_unit_split_plain.calls == int(
+                split and marginalize)
+            assert tfused.score_plain.calls == int(not split)
             assert tfused.fused_forward_plain.calls == 1
             assert (tfused.fused_backward_marg_plain.calls if marginalize
                     else tfused.fused_backward_plain.calls) == 1
@@ -264,13 +269,10 @@ def test_dial_routes_the_map_forward(dial, split):
         config.set_gmm_precision(saved)
 
 
-def test_split_mode_is_map_only():
+def test_invalid_mode_and_cpu_tensor_raise():
     bufs = jt.GaussianMixtureModel.from_registry(
         "builtin-8x8-v1").kernel_buffers("cpu")
     image = torch.as_tensor(make_image((16, 128)))
-    with pytest.raises(ValueError, match="split"):
-        tfused.fused_forward_plain(image, bufs, STRIDE, ZERO_FLUX_SENTINEL,
-                                   marginalize=True, mode="split")
     with pytest.raises(ValueError, match="mode"):
         tfused.gmm_score_fused_image(image, (8, 8), STRIDE, bufs,
                                      ZERO_FLUX_SENTINEL, mode="bf16")

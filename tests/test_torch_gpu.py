@@ -19,7 +19,13 @@ float64 on the same inputs: at most twice the float32 plain version's
 max-abs error plus 1e-6 of the result's max-abs (softmax weights of
 logits of order 1e5 to 1e8 are ill-conditioned in float32); they run on
 the ``astro-snr-v1`` GMM, whose weights are nearly one-hot, and on a
-random SPD GMM, whose weights are not. The matrix-DFT convolution's
+random SPD GMM, whose weights are not. Their ``"split"`` kernels on the
+tensor cores: the logsumexp as the MAP forward's against the split plain
+version, the backward fed by it against the float64 pipeline within
+twice the split plain pipeline's error, scaled by how much further the
+logsumexp lies from float64 than the split plain one
+(``chip_smoke.split_lse_ratio``), plus 1e-6 of the max-abs, and
+bitwise repeatable. The matrix-DFT convolution's
 three float32 kernels (K3) are held the same way against their plain
 version in float64, and the whole pipeline also within 1e-5 of its
 max-abs; the tensor-core kernels of its ``"split"`` mode against the
@@ -255,10 +261,11 @@ def test_probe_on_card_matches_cpu(device, gmm):
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)
 
 
-def anchored(got, plain32, plain64):
+def anchored(got, plain32, plain64, factor=2.0):
     err = float((got.double() - plain64).abs().max())
     err32 = float((plain32.double() - plain64).abs().max())
-    assert err <= 2.0 * err32 + 1e-6 * float(plain64.abs().max()), (err, err32)
+    assert err <= factor * err32 + 1e-6 * float(plain64.abs().max()), (
+        err, err32)
 
 
 @pytest.fixture(scope="module", params=["astro-snr-v1", "random-spd"])
@@ -325,7 +332,113 @@ def test_marginalise_fused_kernels_match_plain(device, marg_gmm, shape):
                                           shape, 4))
 
 
+@pytest.mark.parametrize("name,shape", [
+    ("astro-snr-v1", (96, 160)), ("astro-snr-v1", (37, 203)),
+    ("wide-256", (96, 160)), ("mixed-200", (96, 160)),
+    ("mixed-256", (37, 203)),
+])
+def test_marginalise_tensor_core_kernels_match_split_plain(device, name,
+                                                           shape):
+    """K1 lse split (``"split"`` mode, tensor cores) against the split
+    plain version: ``valid``, the normalised patches to 1e-5, values to
+    rtol 7e-5 (``chip_smoke.K1_SPLIT_RTOL``), argmax identical; K4 split,
+    fed K1 lse split's logsumexp as training feeds it, against the float64
+    pipeline within twice the split plain pipeline's error, times the
+    share by which K1 lse split's logsumexp lies further from float64
+    than the split plain version's (``chip_smoke.split_lse_ratio``: the
+    weights inherit the tensor cores' sums), plus 1e-6 of the max-abs.
+    One-hot weights (``astro-snr-v1``, K = 200), two tiles of
+    components (``chip_smoke.wide_gmm``, K = 256) and mixed weights (the
+    random SPD ``chip_smoke.mixed_gmm``, K = 200 and 256)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    import chip_smoke
+
+    gmm = {"wide-256": chip_smoke.wide_gmm,
+           "mixed-200": chip_smoke.mixed_gmm,
+           "mixed-256": lambda: chip_smoke.mixed_gmm(256)}.get(
+        name, lambda: GaussianMixtureModel.from_registry(name))()
+    bufs = gmm.kernel_buffers(device)
+    image = torch.as_tensor(make_image(shape), device=device)
+    dv = torch.randn(gf.fused_patch_count(shape, 4), device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    tc, g_tc, sp, g_sp, (lse64, _, g64) = chip_smoke.marg_split_pipelines(
+        torch, image, bufs, dv)
+    torch.cuda.synchronize()
+    (vk, ak, valk, xk), (vp, ap, valp, xp) = tc, sp
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    assert 0 < int(m.sum()) < m.numel()
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vk[m], vp[m], rtol=7e-5, atol=0)
+    assert torch.equal(ak[m], ap[m])
+    lse_errs = {key: float((v[m].double() - lse64[m]).abs().max())
+                for key, v in (("tc", vk), ("split_plain", vp))}
+    anchored(g_tc, g_sp, g64, 2.0 * chip_smoke.split_lse_ratio(lse_errs))
+    if name.startswith("mixed"):
+        nnz, _ = chip_smoke.support(torch, xp[m], vp[m], bufs, "split")
+        assert nnz >= 10 * int(m.sum())
+
+
+def test_marginalise_tensor_core_backward_is_repeatable(device):
+    """Two launches of K4 split on the same inputs give the same bits
+    (no float atomics), where the weights are mixed."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    import chip_smoke
+
+    bufs = chip_smoke.mixed_gmm().kernel_buffers(device)
+    shape = (96, 160)
+    image = torch.as_tensor(make_image(shape), device=device)
+    lse, _, valid, xtn = gf.gmm_fused_fwd_marg_tc_cuda(image, bufs, 4,
+                                                       SENTINEL)
+    dv = torch.randn(lse.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    first, second = (gf.gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dv, bufs,
+                                                   shape, 4)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(first).all()) and bool(first.abs().max() > 0)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dial,tc", [("highest", False), ("high", True),
+                                     ("default", True)])
+def test_marginalised_launches_by_dial(device, gmm, dial, tc):
+    """The marginalised prior on the card under each dial: K1 lse split
+    and K4 split under ``"high"`` and ``"default"``, the float32 K1 lse
+    and K4 under ``"highest"``, once each; no plain call."""
+    from jolideco_torch import config
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GMMPatchPrior
+
+    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=False,
+                          marginalize=True)
+    x = torch.as_tensor(make_image((96, 160))[None, None].clip(0.1),
+                        device=device).requires_grad_(True)
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        gf.reset_counters()
+        prior(x).backward()
+        torch.cuda.synchronize()
+    finally:
+        config.set_gmm_precision(saved)
+    launches = ((gf.gmm_fused_fwd_marg_tc_cuda.launches,
+                 gf.gmm_fused_bwd_marg_tc_cuda.launches),
+                (gf.gmm_fused_fwd_marg_cuda.launches,
+                 gf.gmm_fused_bwd_marg_cuda.launches))
+    assert launches == (((1, 1), (0, 0)) if tc else ((0, 0), (1, 1)))
+    assert (gf.gmm_fused_fwd_tc_cuda.launches, gf.gmm_fused_fwd_cuda.launches,
+            gf.gmm_fused_bwd_cuda.launches) == (0, 0, 0)
+    assert (gf.fused_forward_plain.calls,
+            gf.fused_backward_marg_plain.calls) == (0, 0)
+
+
 def test_marginalised_prior_on_card_matches_cpu(device, gmm):
+    """The marginalised prior under the default dial, card (K1 lse split
+    and K4 split) against CPU (their split plain versions)."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors import GMMPatchPrior
 
@@ -340,8 +453,8 @@ def test_marginalised_prior_on_card_matches_cpu(device, gmm):
         value = prior(x, shifts=(1, -2))
         value.backward()
         results[str(dev)] = (value.item(), x.grad.cpu())
-    assert (gf.gmm_fused_fwd_marg_cuda.launches,
-            gf.gmm_fused_bwd_marg_cuda.launches) == (1, 1)
+    assert (gf.gmm_fused_fwd_marg_tc_cuda.launches,
+            gf.gmm_fused_bwd_marg_tc_cuda.launches) == (1, 1)
     (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
     np.testing.assert_allclose(v_gpu, v_cpu, rtol=1e-5)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=0,

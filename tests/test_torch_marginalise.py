@@ -26,8 +26,11 @@ gradient departs from the kernels' by several percent of its max-abs
   builtin GMM (the JAX package's own bars, ``tests/test_gmm_pallas.py``);
 - the plain versions in float64 against torch autograd through the
   float64 logits: 1e-9 of the max-abs (float64 sums in other orders);
-- ``MAPDeconvolver`` after 20 joint steps: flux rtol 5e-3 and flux
-  errors rtol 1e-3, not the flux maps' 1e-4 (``BASELINE.md``). The JAX
+- ``MAPDeconvolver`` after 20 joint steps, the port under its default
+  dial (the fused scorer's ``"split"`` logits in the logsumexp forward
+  and the marginalise backward, as the JAX kernels' at HIGH): flux rtol
+  5e-3 and flux errors rtol 1e-3, not the flux maps' 1e-4
+  (``BASELINE.md``). The JAX
   kernels' marginalise backward mixes the components with the softmax
   weights and ``A`` split into bf16 hi/lo pairs whatever the precision
   dial says (its HIGH and HIGHEST runs give identical flux maps on the
@@ -384,9 +387,12 @@ def test_map_deconvolver_marginalised_matches_jax():
     tp.reset_counters()
     flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
                                        device="cpu")
-    # training on the fused scorer, the probe on the patch-level one
+    # training on the fused scorer, the probe on the patch-level one;
+    # the default dial's "split" logits in both directions
     assert tf.fused_forward_plain.calls == 20
     assert tf.fused_backward_marg_plain.calls == 20
+    assert tf.score_split_marg_plain.calls == 20
+    assert tf.marg_unit_split_plain.calls == 20
     assert (tp.score_rows_plain.calls, tp.unit_marg_plain.calls,
             tp.hvp_marg_weights_plain.calls,
             tp.hvp_marg_mix_plain.calls) == (1, 1, 1, 1)
@@ -452,6 +458,8 @@ def test_map_deconvolver_marginalised_mixed_weights_matches_jax():
     flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
                                        device="cpu")
     assert tf.fused_backward_marg_plain.calls == 20
+    assert tf.score_split_marg_plain.calls == 20
+    assert tf.marg_unit_split_plain.calls == 20
     assert tp.hvp_marg_mix_plain.calls == 1
     flux_map, errors_map = run_deconvolver(jt, gmm_t, datasets, False,
                                            device="cpu")
