@@ -32,14 +32,18 @@ Phases, each printing one or more lines:
    of 1024², n = 1152, the 33² PSFs) and at 5 pairs of 1024 x 896, each
    pass and the whole pipeline against the plain version run in
    float64, beside cuFFT's packed pair (the yardstick, timed with the
-   per-observation ``rfft2`` of the same 10 images); the same for the
-   tensor-core kernels of passes 2 and 3 and the ``"split"`` pipeline,
-   held to the split plain version's error and to 1e-4 of the max-abs;
+   per-observation ``rfft2`` of the same 10 images; pass 1 also beside
+   the one ``torch.fft.fft`` that computes its function); the same for
+   the tensor-core kernels of the three passes and the ``"split"``
+   pipeline, held to the split plain version's error and to 1e-4 of the
+   max-abs; K2 twice on the same inputs, the two gradients bitwise equal;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
    under the default dial (K1 on the tensor cores) and 20 under
-   ``"highest"`` (the float32 K1), their flux held together. The
+   ``"highest"`` (the float32 K1), their flux held together, and how
+   many distinct components the patches of one of K2's tiles select at
+   the final flux. The
    kernels' launch counts are set to zero just before and read just
    after each run; then a small run (4 x 128², 20 steps) on the card is
    held against the same run on the CPU's plain path;
@@ -61,8 +65,7 @@ Phases, each printing one or more lines:
    counts; then a small run's flux and errors on the card against the
    CPU's plain path;
 6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
-   the default dial (``"split"``: pass 1 on its float32 kernel, passes 2
-   and 3 on the tensor cores) and under ``"highest"`` (``"f32"``: the
+   the default dial (``"split"``: the three passes on the tensor cores) and under ``"highest"`` (``"f32"``: the
    three float32 kernels), each with its own exact counts; phase 4 again
    under the default dial (in the probe, the adjoint's adjoint too);
    flux and errors held against phases 3 and 4; then a small run's flux
@@ -90,7 +93,7 @@ the mixed case's errors, times and bounds, a JSON line with the
 marginalise split kernels' errors, times and bounds and the two dials'
 marginalised training, a JSON line with K1's split kernel's errors,
 time and bound and the two dials' flux difference, a JSON line with
-each kernel's numbers (eighteen) and, last, the
+each kernel's numbers (nineteen) and, last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -306,9 +309,12 @@ def phase_kernels(torch, device):
         gen = torch.Generator(device=device).manual_seed(1)
         dv = torch.randn(vp.shape, generator=gen, device=device) * valp
         gk = gf.gmm_fused_bwd_cuda(xp, ap, valp, dv, bufs, img.shape, stride)
+        gk2 = gf.gmm_fused_bwd_cuda(xp, ap, valp, dv, bufs, img.shape,
+                                    stride)
         gp = gf.fused_backward_plain(xp, ap, valp, dv, bufs, img.shape,
                                      stride)
         torch.cuda.synchronize()
+        check(torch.equal(gk, gk2), f"{label}: two K2 calls differ")
         grad_err = float((gk - gp).abs().max())
         grad_scale = float(gp.abs().max())
         check(grad_err <= 1e-4 * grad_scale,
@@ -348,7 +354,8 @@ def phase_kernels(torch, device):
         print(f"phase 2 kernels {label}: valid identical; "
               f"values max rel err {out[label]['value_max_rel_err']:.3g}; "
               f"argmax flips {flips}/{n_valid}; "
-              f"grad max abs err {grad_err:.3g} (max {grad_scale:.3g})")
+              f"grad max abs err {grad_err:.3g} (max {grad_scale:.3g}), "
+              "two K2 calls bitwise equal")
         out[label]["split"] = k1_split_checks(
             torch, label, image, bufs, (vk, ak, valk, xk), (vp, ap, valp, xp))
     # K1's "split" kernel past one tile of components: K = 256 on the
@@ -1197,9 +1204,12 @@ def pfft_checks(torch, device, label, shape, seed):
     a, b = kernel_fft_pair(psfs[0::2], psfs[1::2], shape, fs)
     errs = {}
     u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    u64 = pf.cols_fwd_plain(*x64, n, f64)
     errs["cols_fwd"] = anchored(label, "K3 cols_fwd", u,
-                                pf.cols_fwd_plain(x0, x1, n),
-                                pf.cols_fwd_plain(*x64, n, f64))
+                                pf.cols_fwd_plain(x0, x1, n), u64)
+    errs["cols_fwd_tc"] = split_anchored(
+        label, "K3 cols_fwd tc", pf.pfft_cols_fwd_tc_cuda(x0, x1, n),
+        pf.cols_fwd_plain(x0, x1, n, mode="split"), u64)
     for conj in (False, True):
         tag = "adjoint" if conj else "forward"
         v = pf.pfft_rows_combine_cuda(u, *planes, conj)
@@ -1247,7 +1257,7 @@ def pfft_checks(torch, device, label, shape, seed):
               f"{label}: K3 {tag} error {err:.3g} against float64, plain "
               f"float32 {err32:.3g}, cuFFT {errc:.3g}, max {scale:.3g}")
         errs[f"pipeline_{tag}"] = (err, err32, scale, errc)
-        # the split pipeline: pass 1, then the tensor-core kernels
+        # the split pipeline: the three tensor-core kernels
         yt = pf.pfft_conv_cuda(x0, x1, *planes, n, conj, "split")
         ys = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj,
                                        mode="split")
@@ -1287,7 +1297,7 @@ def pfft_bounds(p_, h, w, n):
     The ``"split"`` rows (``*_split``) count the same operations three
     times (three bf16 products each) at the bf16 tensor-core peak, and
     the same bytes, the stage tables as their bf16 hi and lo planes;
-    their pipeline has pass 1 at its float32 bound. The operations are
+    the three passes make their pipeline's. The operations are
     counted as the TPU kernel does them, not as the kernels do (4 real
     products per complex one), so that the yardstick does not move with
     the design."""
@@ -1303,13 +1313,13 @@ def pfft_bounds(p_, h, w, n):
     out = {name: bound(flop[name], nbytes[name]) for name in flop}
     out["pipeline"] = bound(sum(flop.values()),
                             16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
-    for name in ("rows", "cols_inv"):
+    for name in ("cols_fwd", "rows", "cols_inv"):
         out[name + "_split"] = bound(3 * flop[name], nbytes[name],
                                      PEAK_BF16_FLOPS)
     out["pipeline_split"] = {
-        "bound_ms": out["cols_fwd"]["bound_ms"]
-        + out["rows_split"]["bound_ms"] + out["cols_inv_split"]["bound_ms"],
-        "bound_by": "operations (pass 1) and bytes"}
+        "bound_ms": sum(out[name + "_split"]["bound_ms"]
+                        for name in ("cols_fwd", "rows", "cols_inv")),
+        "bound_by": "bytes"}
     return out
 
 
@@ -1338,6 +1348,7 @@ def pfft_timing(torch, s):
         "pipeline": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n),
         "pipeline_adjoint": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
                                                       True),
+        "cols_fwd_split": lambda: pf.pfft_cols_fwd_tc_cuda(x0, x1, n),
         "rows_split": lambda: pf.pfft_rows_combine_tc_cuda(u, *planes),
         "cols_inv_split": lambda: pf.pfft_cols_inv_tc_cuda(*vt, h),
         "pipeline_split": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
@@ -1348,6 +1359,10 @@ def pfft_timing(torch, s):
         "cufft_pair_adjoint": lambda: convolve_fft_packed_pair(
             x0, x1, a.conj(), b.conj(), fs),
         "cufft_rfft2": lambda: convolve_fft_precomputed(images, kft, fs),
+        # pass 1's function in one call: the axis-0 DFT of x0 + i x1
+        # zero-padded to n (in natural, not permuted, row order)
+        "torch_fft_cols": lambda: torch.fft.fft(torch.complex(x0, x1), n=n,
+                                                dim=1),
     }
     timing = {name: cuda_ms(torch, fn, 10) for name, fn in calls.items()}
     plain = {
@@ -1355,6 +1370,7 @@ def pfft_timing(torch, s):
         "rows": lambda: pf.rows_combine_plain(u, *planes),
         "cols_inv": lambda: pf.cols_inv_plain(*v, h),
         "pipeline": lambda: pf.conv_packed_pfft_plain(x0, x1, *planes, n),
+        "cols_fwd_split": lambda: pf.cols_fwd_plain(x0, x1, n, mode="split"),
         "rows_split": lambda: pf.rows_combine_plain(u, *planes,
                                                     mode="split"),
         "cols_inv_split": lambda: pf.cols_inv_plain(*vt, h, mode="split"),
@@ -1382,13 +1398,14 @@ def phase_pfft_kernels(torch, device):
                       f"{tm[name + '_plain']:.3f}, bound "
                       f"{bd[name]['bound_ms']:.3f})"
                       for name in ("cols_fwd", "rows", "cols_inv",
-                                   "pipeline", "rows_split", "cols_inv_split",
-                                   "pipeline_split"))
+                                   "pipeline", "cols_fwd_split", "rows_split",
+                                   "cols_inv_split", "pipeline_split"))
           + f"; split adjoint {tm['pipeline_split_adjoint']:.3f} ms"
           + f"; adjoint {tm['pipeline_adjoint']:.3f} ms; cuFFT packed pair "
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
-          f"{tm['cufft_rfft2']:.3f} ms")
+          f"{tm['cufft_rfft2']:.3f} ms; pass 1 as one torch.fft.fft "
+          f"{tm['torch_fft_cols']:.3f} ms")
     return out
 
 
@@ -1425,6 +1442,7 @@ def counts():
         "pfft_cols_fwd": pf.pfft_cols_fwd_cuda.launches,
         "pfft_rows_combine": pf.pfft_rows_combine_cuda.launches,
         "pfft_cols_inv": pf.pfft_cols_inv_cuda.launches,
+        "pfft_cols_fwd_tc": pf.pfft_cols_fwd_tc_cuda.launches,
         "pfft_rows_combine_tc": pf.pfft_rows_combine_tc_cuda.launches,
         "pfft_cols_inv_tc": pf.pfft_cols_inv_tc_cuda.launches,
     }
@@ -1490,7 +1508,7 @@ MARG_KERNELS = {"split": ("gmm_fused_fwd_marg_tc", "gmm_fused_bwd_marg_tc"),
                 "f32": ("gmm_fused_fwd_marg", "gmm_fused_bwd_marg")}
 # K3's kernels under each mode of the precision dial
 K3_KERNELS = {
-    "split": ("pfft_cols_fwd", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
+    "split": ("pfft_cols_fwd_tc", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
     "f32": ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv"),
 }
 
@@ -1570,6 +1588,42 @@ def argmax_flips(torch, device, flux, gmm, marginalize=False):
     return int((a_tc != a_32)[m].sum()), int(m.sum())
 
 
+# patches per block of K2's product kernel (csrc/gmm_fused.cu kBwdTile):
+# each block reads A_k once per distinct k* among its patches
+K2_TILE = 128
+
+
+def k2_tile_components(torch, device, flux, gmm):
+    """Distinct argmax components (K1 split's, unspun) per tile of K2's
+    patches at ``flux``: K2 reads one A_k (16 KB) per tile and distinct
+    component, ``pairs`` of them in all, and takes the runs of a tile
+    one after the other; K2's milliseconds on these patches."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
+                            device=device)
+    bufs = gmm.kernel_buffers(device)
+    _, argmax, valid, xtn = gf.gmm_fused_fwd_tc_cuda(image, bufs, 4,
+                                                     ZERO_FLUX_SENTINEL)
+    gen = torch.Generator(device=device).manual_seed(3)
+    dv = torch.randn(valid.shape, generator=gen, device=device) * valid
+    ms = cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
+        xtn, argmax, valid, dv, bufs, image.shape, 4), 20)
+    m = valid > 0.5
+    tile = torch.arange(argmax.numel(), device=device) // K2_TILE
+    n_tiles = int(tile[-1]) + 1
+    width = int(argmax.max()) + 1
+    pairs = torch.unique(tile[m] * width + argmax.long()[m])
+    per_tile = torch.bincount(pairs // width, minlength=n_tiles).float()
+    return {"tile": K2_TILE, "tiles": n_tiles, "valid": int(m.sum()),
+            "pairs": int(pairs.numel()),
+            "used_components": int(torch.unique(argmax[m]).numel()),
+            "mean": float(per_tile.mean()),
+            "median": float(per_tile.median()), "max": int(per_tile.max()),
+            "a_read_bytes": int(pairs.numel()) * 64 * 64 * 4, "k2_ms": ms}
+
+
 def phase_slice(torch, device):
     """The main path under the default dial (K1 on the tensor cores) and
     under ``"highest"`` (the float32 K1); their flux held together."""
@@ -1595,6 +1649,14 @@ def phase_slice(torch, device):
           f"{K1_SPLIT_FLIPS} of them); flux under 'high' against 'highest' "
           f"max-abs difference {dial_diff:.3g} of the max (the JAX "
           f"package's own at 4x128^2: {JAX_DIAL_FLUX_SHARE})")
+    tiles = k2_tile_components(torch, device, flux, astro)
+    print(f"phase 3 K2 tiles at the final flux: {tiles['valid']} valid "
+          f"patches in {tiles['tiles']} tiles of {tiles['tile']} select "
+          f"{tiles['used_components']} components; distinct per tile mean "
+          f"{tiles['mean']:.2f}, median {tiles['median']:.0f}, max "
+          f"{tiles['max']}; {tiles['pairs']} (tile, component) pairs, "
+          f"{tiles['a_read_bytes']} B of A_k read; K2 on them "
+          f"{tiles['k2_ms']:.4f} ms")
 
     # small input: the card's run against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -1607,7 +1669,8 @@ def phase_slice(torch, device):
           f"4x128^2 flux on the card vs CPU: max rel err {rel:.3g}")
     print(f"phase 3 small 4x128^2 card vs CPU plain path: flux max rel err "
           f"{rel:.3g} (limit {SMALL_FLUX_RTOL})")
-    return {**runs, "dial_flux_diff": dial_diff, "final_flips": flips}
+    return {**runs, "dial_flux_diff": dial_diff, "final_flips": flips,
+            "k2_tiles": tiles}
 
 
 def phase_errors(torch, device):
@@ -1816,8 +1879,8 @@ def phase_pfft(torch, device, slice_, errors_fft):
     forward and adjoint on K3's kernels, once each per step, and in the
     probe the forward, the adjoint, then the adjoint's adjoint and the
     adjoint again. Training runs twice: under the default dial
-    (``"high"``, the ``"split"`` mode: pass 1 on its float32 kernel,
-    passes 2 and 3 on the tensor cores) and under ``"highest"`` (``"f32"``:
+    (``"high"``, the ``"split"`` mode: the three passes on the tensor
+    cores) and under ``"highest"`` (``"f32"``:
     the three float32 kernels). The probe and the small run, card
     against the CPU's plain path, run under the default dial."""
     from jolideco_torch.priors import GaussianMixtureModel
@@ -1869,8 +1932,8 @@ def phase_pfft(torch, device, slice_, errors_fft):
     on_card = run_slice(small, builtin, device, cycle_spin=False,
                         compute_error=True, conv_mode="pfft")
     launches, _ = counts()
-    check(launches["pfft_rows_combine_tc"] == 2 * STEPS + 4
-          and launches["pfft_rows_combine"] == 0,
+    check(all(launches[name] == 2 * STEPS + 4 for name in K3_KERNELS["split"])
+          and not any(launches[name] for name in K3_KERNELS["f32"]),
           f"pfft 4x128^2: launches {launches}")
     on_card = on_card.components["flux"]
     on_cpu = run_slice(small, builtin, "cpu", cycle_spin=False,
@@ -1995,6 +2058,8 @@ def main():
             ("pfft_cols_inv", pfft_src, "cols_inv", 460,
              max(pmain["cols_inv_forward"][0],
                  pmain["cols_inv_adjoint"][0]), pfft_train["highest"]),
+            ("pfft_cols_fwd_tc", tc_src, "cols_fwd_split", 379,
+             pmain["cols_fwd_tc"][0], pfft_train["high"]),
             ("pfft_rows_combine_tc", tc_src, "rows_split", 398,
              max(pmain["rows_tc_forward"][0], pmain["rows_tc_adjoint"][0]),
              pfft_train["high"]),
@@ -2005,6 +2070,8 @@ def main():
                       path, err, ptiming[key], ptiming[key + "_plain"],
                       pbound[key]))
         library[name] = ptiming["cufft_pair"]
+    # pass 1 on the tensor cores: its own function is one torch.fft.fft
+    library["pfft_cols_fwd_tc"] = ptiming["torch_fft_cols"]
     print(json.dumps({"pfft": {
         "batch": "5 pairs of 1024^2, n = 1152",
         "errors_against_float64": {
@@ -2071,6 +2138,7 @@ def main():
         "dial_flux_diff": slice_["dial_flux_diff"],
         "dial_flips_limit": K1_SPLIT_FLIPS,
         "final_argmax_flips": slice_["final_flips"],
+        "k2_tile_components": slice_["k2_tiles"],
         # the float32 GMM kernels' work under "split" (three bf16
         # products each, at the bf16 peak): the dial's bound
         "split_bound_ms": {

@@ -53,20 +53,41 @@
 // (wgmma) yet: this is the plain fp32 kernel that later PRs make fast.
 //
 // ---------------------------------------------------------------------
-// gmm_bwd_kernel replaces the JAX package's ops/gmm_fused.py::_bwd_kernel.
-// Per valid patch with argmax k* and cotangent dv:
+// gmm_bwd_kernel and gmm_bwd_add_kernel replace the JAX package's
+// ops/gmm_fused.py::_bwd_kernel, two launches of one C entry point. Per
+// valid patch with argmax k* and cotangent dv:
 //     u = dv · (b_{k*} - A_{k*} x),  u -= mean(u)
 // (the transpose of the mean subtraction; invalid patches have zero
-// gradient), stored into its offset group's own (H, W) image plane.
+// gradient), then the overlap-add of every offset group's patches into
+// the (H, W) image gradient.
 //
-// What bounds it: reading the selected row block A_{k*} (16 KB per patch,
-// about 1 GB per call at 1024²), served from the caches: all K matrices
-// (3.3 MB at K = 200) fit in L2, and neighbouring patches often share
-// k*. Design: one thread per patch, x and u in
-// registers, A_{k*} read as float4 through the read-only path. Patches of
-// one group do not overlap, so every store is a plain store: no atomics,
-// deterministic. The wrapper zero-fills the G planes and sums them.
-//
+// What bounds it: operations, 64·64 multiply-adds per valid patch (0.0080
+// ms at 1024²); the bytes (xtn once, the components used once, the
+// gradient) are about as many. One thread per patch, each reading its
+// own A_{k*} (16 KB) at an address its neighbours do not share, read
+// about 1 GB a call from the caches; with the zero-filled planes and
+// their sum that took 0.113-0.121 ms on an NVIDIA H100 80GB HBM3 (700 W
+// limit). Design:
+// - gmm_bwd_kernel: one block per tile of kBwdTile consecutive patches.
+//   The tile's live patches are put in (k*, patch) order in shared
+//   memory (each patch's rank among the tile's keys: no sort, no
+//   atomics), their rows transposed into x^T by that order (coalesced
+//   reads). Per run of equal k*, A_{k*} is staged once, transposed, with
+//   its column means and the mean of b subtracted, so that
+//   dv ((b - mean b) - (A - colmean A) x) is u - mean(u) with no
+//   reduction over a patch's u; then a register-tiled product, each
+//   thread kMtP patches x kMtR rows, so that each value read from
+//   shared memory feeds several multiply-adds. u rows go straight to
+//   their patch's row of a scratch (N, 64), zero for an invalid patch;
+// - gmm_bwd_add_kernel: one thread per pixel sums the G groups' u
+//   entries that cover it, group by group in order (the order of the
+//   plain version's sum), and writes the gradient once: no zero-fill,
+//   no float atomics, the same bits every run.
+// No count goes back to the host: both grids follow from the shapes.
+// The tile's runs are taken one after the other by the whole block, so
+// a tile whose patches select many components takes longer; at the main
+// path's trained flux the tiles select one each (chip_smoke.py phase 3).
+
 // ---------------------------------------------------------------------
 // gmm_bwd_marg_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel, the
 // marginalise backward. Per valid patch with the forward's logsumexp lse
@@ -109,7 +130,21 @@ using gmm::store_patch_gradient;
 
 constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
-constexpr int kBwdThreads = 128;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdTile = 128;  // patches per backward block
+// a thread's micro-tile of u: kMtP patches x kMtR rows; the block's
+// kBwdThreads threads cover kBwdTile patches x 64 rows
+constexpr int kMtP = 4, kMtR = 8;
+constexpr int kRowGroups = kD / kMtR;
+constexpr int kLdX = kBwdTile + 5;  // x^T row: odd, and room for a micro-tile
+constexpr int kLdA = kD + 4;        // A'^T row: float4-aligned
+constexpr int kAddThreads = 256;
+// x^T (64, kLdX), A'^T (64, kLdA), b' and the column means (2 x 64 + 1),
+// then per patch its dv, key, rank, rank order and run end
+constexpr int kBwdSmem =
+    (kD * kLdX + kD * kLdA + 2 * kD + 4 + 5 * kBwdTile) * 4;
+static_assert(kBwdThreads * kMtP * kMtR == kBwdTile * kD,
+              "the micro-tiles cover the tile");
 constexpr int kBwdMargThreads = 128;
 
 // Each thread scores kPPT patches, n = (blockIdx.x * kPPT + p) *
@@ -179,33 +214,172 @@ __global__ void __launch_bounds__(kBwdThreads)
 gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
                const float* __restrict__ valid, const float* __restrict__ dvalues,
                const float* __restrict__ a_full, const float* __restrict__ b_rows,
-               int H, int W, int stride, int ny, int nx, int n_total,
-               float* __restrict__ planes) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_total || valid[n] == 0.f) return;
+               int n_total, float* __restrict__ units) {
+  extern __shared__ __align__(16) float smem[];
+  float* xt = smem;               // [c][rank]: the live patches, by rank
+  float* at = xt + kD * kLdX;     // [c][r]: A'_{k*} transposed
+  float* bs = at + kD * kLdA;     // b'_{k*}
+  float* abar = bs + kD;          // column means of A_{k*}, then mean b
+  float* dv = abar + kD + 4;
+  int* key = reinterpret_cast<int*>(dv + kBwdTile);  // k*, or -1: invalid
+  int* rank = key + kBwdTile;     // a live patch's place in (k*, q) order
+  int* order = rank + kBwdTile;   // the patch at each place
+  int* run_end = order + kBwdTile;  // at a run's first place, its end
 
-  const int k = argmax[n];
-  const float dv = dvalues[n];
-  float x[kD];
-  load_row(xtn, n, n_total, x);
-
-  const float4* A = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
-  const float* bk = b_rows + (size_t)k * kD;
-  float u[kD];
-#pragma unroll
-  for (int r = 0; r < kD; ++r) {
-    float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
-#pragma unroll
-    for (int c = 0; c < kD; c += 4) {
-      const float4 a = __ldg(A + r * (kD / 4) + c / 4);
-      t0 = fmaf(a.x, x[c], t0);
-      t1 = fmaf(a.y, x[c + 1], t1);
-      t2 = fmaf(a.z, x[c + 2], t2);
-      t3 = fmaf(a.w, x[c + 3], t3);
-    }
-    u[r] = dv * (__ldg(bk + r) - ((t0 + t1) + (t2 + t3)));
+  const int n0 = blockIdx.x * kBwdTile;
+  const int count = n_total - n0 < kBwdTile ? n_total - n0 : kBwdTile;
+  for (int q = threadIdx.x; q < kBwdTile; q += blockDim.x) {
+    const int n = n0 + (q < count ? q : 0);
+    const float ok = __ldg(valid + n);
+    const int k = __ldg(argmax + n);
+    const float d = __ldg(dvalues + n);
+    const bool live = q < count && ok != 0.f;
+    key[q] = live ? k : -1;
+    dv[q] = d;
   }
-  store_patch_gradient(u, n, H, W, stride, ny, nx, planes);
+  __syncthreads();
+
+  // each live patch's rank in (k*, q) order; the first of each run of
+  // equal k* records where the run ends
+  for (int q = threadIdx.x; q < kBwdTile; q += blockDim.x) {
+    const int k = key[q];
+    if (k < 0) continue;
+    int below = 0, upto = 0, place = 0;
+    for (int j = 0; j < kBwdTile; ++j) {
+      const int kj = key[j];
+      below += kj >= 0 && kj < k;
+      upto += kj >= 0 && kj <= k;
+      place += kj >= 0 && (kj < k || (kj == k && j < q));
+    }
+    rank[q] = place;
+    order[place] = q;
+    if (place == below) run_end[below] = upto;
+  }
+  __syncthreads();
+
+  // x^T of the live patches by rank, from coalesced float4 reads, kLoads
+  // of a thread in flight together; an invalid patch's u row is zero
+  constexpr int kLoads = 4;
+  const float4* x4 = reinterpret_cast<const float4*>(xtn + (size_t)n0 * kD);
+  float4* u4 = reinterpret_cast<float4*>(units + (size_t)n0 * kD);
+  for (int e0 = threadIdx.x; e0 < count * kD / 4;
+       e0 += kLoads * blockDim.x) {
+    float4 v[kLoads];
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e < count * kD / 4) v[i] = __ldg(x4 + e);
+    }
+#pragma unroll
+    for (int i = 0; i < kLoads; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e >= count * kD / 4) break;
+      const int q = e / (kD / 4), c = 4 * (e % (kD / 4));
+      if (key[q] < 0) {
+        u4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        continue;
+      }
+      float* dst = xt + c * kLdX + rank[q];
+      dst[0] = v[i].x;
+      dst[kLdX] = v[i].y;
+      dst[2 * kLdX] = v[i].z;
+      dst[3 * kLdX] = v[i].w;
+    }
+  }
+  int live = 0;
+  for (int j = 0; j < kBwdTile; ++j) live += key[j] >= 0;
+
+  for (int s = 0; s < live;) {
+    const int k = key[order[s]];
+    const int end = run_end[s];
+    __syncthreads();  // x^T is written; the last run is done with A'^T
+    // A_{k*} transposed, and b_{k*}
+    const float* ak = a_full + (size_t)k * kD * kD;
+    for (int e = threadIdx.x; e < kD * kD; e += blockDim.x)
+      at[(e % kD) * kLdA + e / kD] = __ldg(ak + e);
+    for (int r = threadIdx.x; r < kD; r += blockDim.x)
+      bs[r] = __ldg(b_rows + (size_t)k * kD + r);
+    __syncthreads();
+    // u - mean(u) = dv ((b - mean b) - (A - colmean A) x): centre A's
+    // columns and b once per run instead of each patch's u
+    for (int c = threadIdx.x; c <= kD; c += blockDim.x) {
+      const float* row = c < kD ? at + c * kLdA : bs;
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < kD; ++r) part[r % 4] += row[r];
+      abar[c] = ((part[0] + part[1]) + (part[2] + part[3])) * (1.f / kD);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < kD * kD; e += blockDim.x)
+      at[(e / kD) * kLdA + e % kD] -= abar[e / kD];
+    for (int r = threadIdx.x; r < kD; r += blockDim.x) bs[r] -= abar[kD];
+    __syncthreads();
+
+    // thread t: patches at places s + kMtP pg + i (i < kMtP), rows kMtR
+    // rg + rr (rr < kMtR); u rows straight to their patch's place
+    for (int t = threadIdx.x; t < kBwdThreads; t += blockDim.x) {
+      const int pg = t / kRowGroups, rg = t % kRowGroups;
+      const int j0 = s + kMtP * pg;
+      if (j0 >= end) continue;
+      float acc[kMtP][kMtR];
+#pragma unroll
+      for (int i = 0; i < kMtP; ++i)
+#pragma unroll
+        for (int rr = 0; rr < kMtR; ++rr) acc[i][rr] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < kD; ++c) {
+        const float4* a4 =
+            reinterpret_cast<const float4*>(at + c * kLdA + kMtR * rg);
+        const float4 a0 = a4[0], a1 = a4[1];
+        const float av[kMtR] = {a0.x, a0.y, a0.z, a0.w,
+                                a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int i = 0; i < kMtP; ++i) {
+          const float x = xt[c * kLdX + j0 + i];
+#pragma unroll
+          for (int rr = 0; rr < kMtR; ++rr)
+            acc[i][rr] = fmaf(av[rr], x, acc[i][rr]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMtP; ++i) {
+        if (j0 + i >= end) break;
+        const int q = order[j0 + i];
+        const float d = dv[q];
+        float u[kMtR];
+#pragma unroll
+        for (int rr = 0; rr < kMtR; ++rr)
+          u[rr] = d * (bs[kMtR * rg + rr] - acc[i][rr]);
+        float4* dst = reinterpret_cast<float4*>(
+            units + (size_t)(n0 + q) * kD + kMtR * rg);
+        dst[0] = make_float4(u[0], u[1], u[2], u[3]);
+        dst[1] = make_float4(u[4], u[5], u[6], u[7]);
+      }
+    }
+    s = end;
+  }
+}
+
+// One thread per pixel: the sum over the offset groups, in order, of the
+// u entry of the group's patch that covers it (the patches of one group
+// do not overlap).
+__global__ void __launch_bounds__(kAddThreads)
+gmm_bwd_add_kernel(const float* __restrict__ units, int H, int W, int stride,
+                   int ny, int nx, float* __restrict__ grad) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= H * W) return;
+  const int y = pix / W, x = pix - (pix / W) * W;
+  float sum = 0.f;
+  int g = 0;  // group (a / stride) (8 / stride) + b / stride
+  for (int a = 0; a < kP; a += stride) {
+    for (int b = 0; b < kP; b += stride, ++g) {
+      const int dy = y - a, dx = x - b;
+      if (dy < 0 || dx < 0 || dy >= kP * ny || dx >= kP * nx) continue;
+      const size_t n = ((size_t)g * ny + dy / kP) * nx + dx / kP;
+      sum += __ldg(units + n * kD + (dy % kP) * kP + dx % kP);
+    }
+  }
+  grad[pix] = sum;
 }
 
 // One patch per thread; every thread of the block runs the component loop
@@ -266,19 +440,29 @@ int gmm_fused_fwd(const void* img, int H, int W, int stride, int ny, int nx,
   return static_cast<int>(cudaGetLastError());
 }
 
+// units: scratch (N, 64) float32; grad: the (H, W) image gradient.
 int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                   const void* dvalues, const void* a_full, const void* b_rows,
-                  int H, int W, int stride, int ny, int nx, void* planes,
-                  void* stream) {
+                  int H, int W, int stride, int ny, int nx, void* units,
+                  void* grad, void* stream) {
   const int groups = (kP / stride) * (kP / stride);
   const int n_total = groups * ny * nx;
-  const int blocks = (n_total + kBwdThreads - 1) / kBwdThreads;
-  gmm_bwd_kernel<<<blocks, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+  const int blocks = (n_total + kBwdTile - 1) / kBwdTile;
+  gmm_bwd_kernel<<<blocks, kBwdThreads, kBwdSmem,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xtn), static_cast<const int*>(argmax),
       static_cast<const float*>(valid), static_cast<const float*>(dvalues),
-      static_cast<const float*>(a_full), static_cast<const float*>(b_rows), H, W,
-      stride, ny, nx, n_total, static_cast<float*>(planes));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(a_full), static_cast<const float*>(b_rows),
+      n_total, static_cast<float*>(units));
+  const int pixel_blocks = (H * W + kAddThreads - 1) / kAddThreads;
+  gmm_bwd_add_kernel<<<pixel_blocks, kAddThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(units), H, W, stride, ny, nx,
+      static_cast<float*>(grad));
+  const cudaError_t launch = cudaGetLastError();
+  return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
 int gmm_fused_bwd_marg(const void* xtn, const void* lse, const void* valid,

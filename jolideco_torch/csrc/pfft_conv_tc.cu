@@ -1,10 +1,10 @@
-// Passes 2 and 3 of the pair-packed matrix-DFT convolution on Hopper's
+// The three passes of the pair-packed matrix-DFT convolution on Hopper's
 // tensor cores (sm_90a), in the precision dial's "split" mode. Built by
 // nvcc into a shared library with a plain C interface and loaded with
 // ctypes (jolideco_torch/utils/cuda_build.py); the wrappers, the
 // dispatch by mode and the plain PyTorch version (mode="split") are in
-// jolideco_torch/ops/pallas_fft.py. Pass 1 and the "f32" mode are the
-// float32 kernels of pfft_conv.cu, whose header states the algorithm.
+// jolideco_torch/ops/pallas_fft.py. The "f32" mode is the float32
+// kernels of pfft_conv.cu, whose header states the algorithm.
 //
 // "split" is the JAX package's _dot in split mode: both operands of each
 // stage-B product split into bf16 high and low parts (hi = bf16(x), lo =
@@ -19,8 +19,18 @@
 // where the TPU uses Karatsuba's 3; it rounds no re + im sums.
 //
 // ---------------------------------------------------------------------
-// Two kernels, one per pass over device memory:
+// Three kernels, one per pass over device memory:
 //
+// pfft_cols_fwd_tc_kernel replaces _k1_body (jolideco_tpu/ops/
+//     pallas_fft.py) under "split": per column, stage A S_k2 = sum_n2
+//     wf[n2][k2] z[128 n2 + ., c] (z = x0 + i x1) in float32, then U[128
+//     k2 : 128 (k2 + 1), c] = mf[k2]^T S_k2, run from the right as in
+//     pass 3: the columns of S_k2 are the operand rows, times R(mf[k2]).
+//     One block per (pair, 16 columns), a loop over k2 inside; the
+//     block's columns of x0 and x1 are read from device memory once and
+//     kept in shared memory (128 KB at H = 1024), so that the input is
+//     read once and not once per k2, and R(mf) once per block and not
+//     once per (k2, 32 columns) as in pfft_cols_fwd_kernel.
 // pfft_rows_tc_kernel replaces _k2_body (jolideco_tpu/ops/pallas_fft.py)
 //     under "split": per row of U, the lane forward Z = S . mf[k2] (stage
 //     A, S = sum_n2 wf U, folded into the operand load), the combine A . Z
@@ -39,9 +49,10 @@
 //
 // What bounds them on the H100: bytes. Counted as the TPU kernel counts
 // its work (3 real products per complex one, 3 bf16 products each), pass
-// 2 at 5 pairs of 1024^2, n = 1152 is 46 GFLOP (0.046 ms at 989 TFLOP/s
-// bf16) against 250 MB of traffic (0.075 ms at 3.35 TB/s); pass 3 27
-// GFLOP against 137.5 MB (0.041 ms). The design:
+// 1 at 5 pairs of 1024^2, n = 1152 is 13.6 GFLOP (0.014 ms at 989
+// TFLOP/s bf16) against 90 MB of traffic (0.027 ms at 3.35 TB/s); pass
+// 2 46 GFLOP against 250 MB (0.075 ms); pass 3 27 GFLOP against 137.5
+// MB (0.041 ms). The design:
 // - the products run as warp-level mma.sync m16n8k16 (bf16 in, float32
 //   accumulate), 8 warps of a block each owning 32 of R's 256 columns;
 // - R is streamed in tiles of 32 of its rows (hi and lo, 32 KB) through
@@ -50,8 +61,8 @@
 //   current one is multiplied; the tables are stored on the device tile
 //   by tile (pallas_fft.tensor_core_tables), so a stage is one contiguous
 //   copy, and transposed ([n][k]), the mma's column-major B;
-// - the operand is split once, as it is formed (stage A, the combine, or
-//   V1 +- conj V2), into bf16 hi and lo planes in shared memory, from the
+// - the operand is split once, as it is formed (stage A of pass 1 or 2,
+//   the combine, or V1 +- conj V2), into bf16 hi and lo planes in shared memory, from the
 //   same float32 values that the plain version splits;
 // - fragments come from shared memory with ldmatrix; rows are padded
 //   (264 and 40 bf16) so that its eight 16-byte rows fall on distinct
@@ -446,6 +457,119 @@ pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
   }
 }
 
+// ---------------------------------------------------------------------
+// pass 1: axis-0 forward, natural rows -> permuted rows
+
+// The block's columns of x0 and x1 stay in shared memory for images of
+// up to kResidentRows rows (the stages and the operand take the rest of
+// the 227 KB); taller ones are re-read from device memory (L2) per k2.
+constexpr int kResidentRows = 1024;
+constexpr int kSmemColsFwd = (2 * kStageElems + 2 * kCols * kLdA) * 2;
+static_assert(kSmemColsFwd + 2 * kResidentRows * kCols * 4 <= 232448,
+              "pass 1's resident columns fit a block's shared memory");
+constexpr int kLoadBatch = 8;  // loads a thread keeps in flight
+
+template <bool kResident>
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
+                        const float* __restrict__ x1, int P, int H, int W,
+                        int m, const bf16* __restrict__ rf,
+                        const float2* __restrict__ wf,
+                        float2* __restrict__ u) {
+  const int tiles = W / kCols;
+  const int bid = blockIdx.x;
+  if (bid >= P * tiles) return;
+  const int c0 = (bid % tiles) * kCols;
+  const int p = bid / tiles;
+  const int n = kLane * m;
+  const int hb = H / kLane;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
+  bf16* s_hi = stages + 2 * kStageElems;  // S^T: kCols rows of 128 complex
+  bf16* s_lo = s_hi + kCols * kLdA;
+  float* z0 = reinterpret_cast<float*>(s_lo + kCols * kLdA);  // [row][c]
+  float* z1 = z0 + H * kCols;
+
+  const int T = kTiles * m;
+  auto src = [&](int t) { return rf + (size_t)t * kTileElems; };
+  load_stage(stages, src(0));
+  cp_async_commit();
+
+  // element e of the block's (H, kCols) columns: row e / kCols, column
+  // e % kCols, at x[in0 + row W + column]
+  const size_t in0 = (size_t)p * H * W + c0;
+  if (kResident) {
+    for (int e0 = threadIdx.x; e0 < H * kCols; e0 += kLoadBatch * kThreads) {
+      float a[kLoadBatch], b[kLoadBatch];
+#pragma unroll
+      for (int i = 0; i < kLoadBatch; ++i) {
+        const int e = e0 + i * kThreads;
+        const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
+        a[i] = x0[at];
+        b[i] = x1[at];
+      }
+#pragma unroll
+      for (int i = 0; i < kLoadBatch; ++i) {
+        z0[e0 + i * kThreads] = a[i];
+        z1[e0 + i * kThreads] = b[i];
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int k2 = 0; k2 < m; ++k2) {
+    // stage A, S[n1][c] = sum_n2 wf[n2][k2] z[128 n2 + n1][c], split into
+    // the operand's row c: a thread's elements e = threadIdx.x + i
+    // kThreads, e = n1 kCols + c
+    constexpr int kStageA = kLane * kCols / kThreads;
+    {
+      float2 s[kStageA];
+#pragma unroll
+      for (int i = 0; i < kStageA; ++i) s[i] = make_float2(0.f, 0.f);
+      for (int n2 = 0; n2 < hb; ++n2) {
+        const float2 w = wf[n2 * m + k2];
+#pragma unroll
+        for (int i = 0; i < kStageA; ++i) {
+          const int e = kLane * kCols * n2 + threadIdx.x + i * kThreads;
+          float xr, xi;
+          if (kResident) {
+            xr = z0[e];
+            xi = z1[e];
+          } else {
+            const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
+            xr = __ldg(x0 + at);
+            xi = __ldg(x1 + at);
+          }
+          s[i].x = fmaf(w.x, xr, fmaf(-w.y, xi, s[i].x));
+          s[i].y = fmaf(w.x, xi, fmaf(w.y, xr, s[i].y));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStageA; ++i) {
+        const int e = threadIdx.x + i * kThreads;
+        put_split(s_hi, s_lo, (e % kCols) * kLdA + 2 * (e / kCols), s[i]);
+      }
+    }
+
+    // U[128 k2 + k1][c] = (S^T R(mf[k2]))[c][k1]: a thread's accumulator
+    // pair (nt, half) is row c = g + 8 half, complex column k1
+    float acc[kMtCols][4][4];
+    product<kMtCols>(acc, s_hi, s_lo, stages, kTiles * k2, T, src);
+    float2* out = u + ((size_t)p * n + kLane * k2) * W + c0;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int k1 = warp * (kWarpCols / 2) + nt * 4 + tig;
+        out[(size_t)k1 * W + g + 8 * half] =
+            make_float2(acc[0][nt][2 * half], acc[0][nt][2 * half + 1]);
+      }
+  }
+}
+
 int finish(cudaError_t attr) {
   const cudaError_t launch = cudaGetLastError();
   return (int)(attr != cudaSuccess ? attr : launch);
@@ -454,6 +578,22 @@ int finish(cudaError_t attr) {
 }  // namespace
 
 extern "C" {
+
+int pfft_cols_fwd_tc(const float* x0, const float* x1, int P, int H,
+                     int W, int m, const void* rf, const float2* wf,
+                     float2* u, cudaStream_t stream) {
+  const bool resident = H <= kResidentRows;
+  const int smem =
+      kSmemColsFwd + (resident ? 2 * H * kCols * (int)sizeof(float) : 0);
+  auto kernel = resident ? pfft_cols_fwd_tc_kernel<true>
+                         : pfft_cols_fwd_tc_kernel<false>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int blocks = P * (W / kCols);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      x0, x1, P, H, W, m, static_cast<const bf16*>(rf), wf, u);
+  return finish(attr);
+}
 
 int pfft_rows_tc(const float2* u, const float* a_re, const float* a_im,
                  const float* b_re, const float* b_im, int P, int W, int m,

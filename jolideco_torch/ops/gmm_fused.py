@@ -469,7 +469,7 @@ def _library():
                                       ci, vp, vp, vp, vp, vp]
         lib.gmm_fused_fwd.restype = ci
         lib.gmm_fused_bwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                      ci, ci, vp, vp]
+                                      ci, ci, vp, vp, vp]
         lib.gmm_fused_bwd.restype = ci
         lib.gmm_fused_bwd_marg.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
                                            ci, ci, ci, ci, vp, vp]
@@ -613,9 +613,11 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
                        stride):
     """Launch the backward kernel; returns the image gradient ``(H, W)``.
 
-    The kernel writes each offset group into its own zero-filled
-    ``(H, W)`` plane (plain stores, deterministic); the planes are
-    summed here.
+    Two launches of one C entry point (``csrc/gmm_fused.cu``): the
+    patches' ``u`` rows into a scratch ``(N, 64)``, then their
+    overlap-add, group by group in order, into the gradient. Scratch and
+    gradient share one allocation; nothing is read back to the host and
+    the result is the same bits every run.
     """
     device = xtn.device
     if device.type != "cuda":
@@ -633,18 +635,20 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
     _check(a_full, "a_full", torch.float32, (k, D, D), device)
     _check(b_rows, "b_rows", torch.float32, (k, D), device)
 
-    planes = torch.zeros((n_groups, h, w), dtype=torch.float32, device=device)
+    buf = torch.empty(n * D + h * w, dtype=torch.float32, device=device)
+    units, grad = buf[:n * D], buf[n * D:].view(h, w)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_bwd(
             xtn.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
             dvalues.data_ptr(), a_full.data_ptr(), b_rows.data_ptr(),
-            h, w, int(stride), ny, nx, planes.data_ptr(), stream,
+            h, w, int(stride), ny, nx, units.data_ptr(), grad.data_ptr(),
+            stream,
         )
     _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_bwd")
     gmm_fused_bwd_cuda.launches += 1
-    return planes.sum(dim=0)
+    return grad
 
 
 def _backward_marg_inputs(xtn, lse, valid, dvalues, bufs, image_shape,

@@ -29,11 +29,10 @@ with one contract:
   accurately than asked) the three float32 kernels of
   ``csrc/pfft_conv.cu``: :func:`pfft_cols_fwd_cuda`,
   :func:`pfft_rows_combine_cuda`, :func:`pfft_cols_inv_cuda`. In
-  ``"split"`` mode (the default dial's) pass 1 stays on its float32
-  kernel and passes 2 and 3 run on the tensor cores
-  (``csrc/pfft_conv_tc.cu``): :func:`pfft_rows_combine_tc_cuda`,
-  :func:`pfft_cols_inv_tc_cuda`. Each header says what bounds the
-  kernel and how it is built;
+  ``"split"`` mode (the default dial's) the three passes run on the
+  tensor cores (``csrc/pfft_conv_tc.cu``): :func:`pfft_cols_fwd_tc_cuda`,
+  :func:`pfft_rows_combine_tc_cuda`, :func:`pfft_cols_inv_tc_cuda`.
+  Each header says what bounds the kernel and how it is built;
 - a plain PyTorch version (einsums on the stage tables), run for a
   tensor on the CPU and the reference of the kernels on the card:
   :func:`conv_packed_pfft_plain`, in float32 or float64.
@@ -41,8 +40,8 @@ with one contract:
 The rule is ``config.dispatch``. Each wrapper counts its launches
 (``pfft_cols_fwd_cuda.launches``, ...) and the plain version its calls.
 
-``"split"`` computes each stage-B product of passes 2 and 3 as the JAX
-package's ``_dot`` does: both operands split into bf16 high and low
+``"split"`` computes each stage-B product of the three passes as the
+JAX package's ``_dot`` does: both operands split into bf16 high and low
 parts, three products ``hi.hi + hi.lo + lo.hi`` summed in float32. The
 complex product ``x . M`` runs as a real product of the interleaved row
 ``(re, im, re, im, ...)`` with the interleaved real ``(256, 256)`` form
@@ -81,6 +80,7 @@ __all__ = [
     "default_pfft_mode",
     "interleaved_stage_matrices",
     "pfft_cols_fwd_cuda",
+    "pfft_cols_fwd_tc_cuda",
     "pfft_cols_inv_cuda",
     "pfft_cols_inv_tc_cuda",
     "pfft_conv_cuda",
@@ -275,15 +275,22 @@ def _split(mode, dtype):
     return mode == "split" and dtype == torch.float32
 
 
-def cols_fwd_plain(x0, x1, n, dtype=torch.float32):
+def cols_fwd_plain(x0, x1, n, dtype=torch.float32, mode="f32"):
     """Pass 1: the axis-0 forward of ``x0 + i x1`` ``(P, H, W)`` into
-    permuted rows, ``U`` ``(P, n, W)`` complex."""
+    permuted rows, ``U`` ``(P, n, W)`` complex. ``"split"`` in float32
+    takes the stage-B products as the tensor-core kernel does: stage A
+    in float32, then each column of ``S_k2`` a row times ``mf[k2]``."""
     p_, h, w = x0.shape
     m = n // PFFT_LANE
     t = _plain_tables(m, dtype, x0.device)
     z = torch.complex(x0.to(dtype), x1.to(dtype))
     s = torch.einsum("qk,pqiw->pkiw", t["wf"][:h // PFFT_LANE],
                      z.reshape(p_, h // PFFT_LANE, PFFT_LANE, w))
+    if _split(mode, dtype):
+        r = _split_tables(m, x0.device)["mf"]
+        # (P, m, W, 128) rows of S^T times mf[k2], back to (P, m, 128, W)
+        u = _split_product(s.transpose(-1, -2), r).transpose(-1, -2)
+        return u.reshape(p_, n, w)
     return torch.einsum("kij,pkiw->pkjw", t["mf"], s).reshape(p_, n, w)
 
 
@@ -359,12 +366,12 @@ def conv_packed_pfft_plain(x0, x1, a_re, a_im, b2_re, b2_im, n,
                            conj_spec=False, dtype=torch.float32, mode="f32"):
     """The three passes in plain PyTorch, in ``dtype`` (float32 or
     float64); same contract as :func:`conv_packed_pfft` without the
-    autograd rule. ``mode`` acts in float32 only (``"split"``: passes 2
-    and 3 as the tensor-core kernels compute them; pass 1 stays float32,
-    as its kernel does). Returns ``(y0, y1)`` in ``dtype``."""
+    autograd rule. ``mode`` acts in float32 only (``"split"``: the three
+    passes as the tensor-core kernels compute them). Returns ``(y0, y1)``
+    in ``dtype``."""
     conv_packed_pfft_plain.calls += 1
     _check_images(x0, x1, n)
-    u = cols_fwd_plain(x0, x1, n, dtype)
+    u = cols_fwd_plain(x0, x1, n, dtype, mode)
     v1, v2 = rows_combine_plain(u, a_re, a_im, b2_re, b2_im, conj_spec,
                                 dtype, mode)
     return cols_inv_plain(v1, v2, x0.shape[1], dtype, mode)
@@ -399,12 +406,13 @@ def _library(name="pfft_conv"):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         rows = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
         cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
+        cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
         if name == "pfft_conv":
-            signatures = {"pfft_cols_fwd": [vp, vp, ci, ci, ci, ci, vp, vp,
-                                            vp, vp],
-                          "pfft_rows": rows, "pfft_cols_inv": cols_inv}
+            signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
+                          "pfft_cols_inv": cols_inv}
         else:
-            signatures = {"pfft_rows_tc": rows, "pfft_cols_inv_tc": cols_inv}
+            signatures = {"pfft_cols_fwd_tc": cols_fwd, "pfft_rows_tc": rows,
+                          "pfft_cols_inv_tc": cols_inv}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
@@ -468,21 +476,41 @@ def _launch(fn, kernel, device, *args, library="pfft_conv"):
     _raise_on_error(getattr(lib, f"{library}_error_string"), code, kernel)
 
 
+def _cols_fwd_args(x0, x1, n, name):
+    device = _cuda_device(x0, name)
+    _check_images(x0, x1, n)
+    p_, h, w = x0.shape
+    for label, t in (("x0", x0), ("x1", x1)):
+        _check(t, label, torch.float32, (p_, h, w), device)
+    m = int(n) // PFFT_LANE
+    u = torch.empty((p_, int(n), w), dtype=torch.complex64, device=device)
+    return device, p_, h, w, m, u
+
+
 def pfft_cols_fwd_cuda(x0, x1, n):
     """Launch pass 1 on ``x0``, ``x1`` ``(P, H, W)`` float32; returns
     ``U`` ``(P, n, W)`` complex64 (:func:`cols_fwd_plain`)."""
-    device = _cuda_device(x0, "pfft_cols_fwd_cuda")
-    _check_images(x0, x1, n)
-    p_, h, w = x0.shape
-    for name, t in (("x0", x0), ("x1", x1)):
-        _check(t, name, torch.float32, (p_, h, w), device)
-    m = int(n) // PFFT_LANE
+    device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, "pfft_cols_fwd_cuda")
     tab = _device_tables(m, device)
-    u = torch.empty((p_, int(n), w), dtype=torch.complex64, device=device)
     _launch("pfft_cols_fwd", "pfft_cols_fwd_kernel", device,
             x0.data_ptr(), x1.data_ptr(), p_, h, w, m, tab["mf"].data_ptr(),
             tab["wf"].data_ptr(), u.data_ptr())
     pfft_cols_fwd_cuda.launches += 1
+    return u
+
+
+def pfft_cols_fwd_tc_cuda(x0, x1, n):
+    """Launch pass 1 on the tensor cores (``"split"``): same arguments
+    and results as :func:`pfft_cols_fwd_cuda`, computed as
+    :func:`cols_fwd_plain` with ``mode="split"``."""
+    device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n,
+                                            "pfft_cols_fwd_tc_cuda")
+    tab = _device_tables(m, device)
+    _launch("pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel", device,
+            x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
+            tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(), u.data_ptr(),
+            library="pfft_conv_tc")
+    pfft_cols_fwd_tc_cuda.launches += 1
     return u
 
 
@@ -576,13 +604,14 @@ def pfft_cols_inv_tc_cuda(v1, v2, h):
 def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
                    mode="f32"):
     """The kernels of ``mode`` in turn; same contract as
-    :func:`conv_packed_pfft_plain` in float32 and ``mode``: pass 1 on
-    its float32 kernel, then passes 2 and 3 on the tensor cores under
-    ``"split"``, on the float32 kernels otherwise."""
+    :func:`conv_packed_pfft_plain` in float32 and ``mode``: the three
+    passes on the tensor cores under ``"split"``, on the float32 kernels
+    otherwise."""
     tc = _split(mode, torch.float32)
+    cols_fwd = pfft_cols_fwd_tc_cuda if tc else pfft_cols_fwd_cuda
     rows = pfft_rows_combine_tc_cuda if tc else pfft_rows_combine_cuda
     cols_inv = pfft_cols_inv_tc_cuda if tc else pfft_cols_inv_cuda
-    u = pfft_cols_fwd_cuda(x0, x1, n)
+    u = cols_fwd(x0, x1, n)
     v1, v2 = rows(u, a_re, a_im, b2_re, b2_im, conj_spec)
     return cols_inv(v1, v2, x0.shape[1])
 
@@ -590,8 +619,8 @@ def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (pfft_cols_fwd_cuda, pfft_rows_combine_cuda,
-               pfft_cols_inv_cuda, pfft_rows_combine_tc_cuda,
-               pfft_cols_inv_tc_cuda):
+               pfft_cols_inv_cuda, pfft_cols_fwd_tc_cuda,
+               pfft_rows_combine_tc_cuda, pfft_cols_inv_tc_cuda):
         fn.launches = 0
     conv_packed_pfft_plain.calls = 0
 
@@ -645,8 +674,8 @@ def conv_packed_pfft(x0, x1, a_re, a_im, b2_re, b2_im, n, mode="f32"):
         convolution's.
     mode : {"f32", "split", "bf16"}
         The precision dial's mode (:func:`default_pfft_mode`).
-        ``"split"`` runs passes 2 and 3 as three bf16 products with
-        float32 sums (the tensor-core kernels on a card); ``"f32"`` and
+        ``"split"`` runs the stage-B products as three bf16 products
+        with float32 sums (the tensor-core kernels on a card); ``"f32"`` and
         ``"bf16"`` compute in full float32.
 
     Returns

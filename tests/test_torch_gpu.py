@@ -12,7 +12,8 @@ which forms the same bf16 products, to rtol 7e-5, ``chip_smoke.py``'s
 ``K1_SPLIT_RTOL``: the tensor cores' sums are not IEEE sums); argmax
 identical; the
 image gradient, the unit gradient and the Hessian action to 1e-4 of
-their max-abs; the flux errors of the Hessian probe, card against CPU,
+their max-abs, the image gradient (K2) also bitwise repeatable and free
+of host synchronisation; the flux errors of the Hessian probe, card against CPU,
 to rtol 1e-4 (float32 FFTs and sums in other orders). The marginalise
 kernels (K4, K8, K9) are held against their plain versions run in
 float64 on the same inputs: at most twice the float32 plain version's
@@ -381,6 +382,40 @@ def test_marginalise_tensor_core_kernels_match_split_plain(device, name,
         assert nnz >= 10 * int(m.sum())
 
 
+@pytest.mark.parametrize("shape,stride", [((1024, 1024), 4), ((37, 203), 2)])
+def test_map_backward_is_repeatable_and_needs_no_host(device, gmm, shape,
+                                                      stride):
+    """K2 twice on the same inputs gives the same bits (its sums have a
+    fixed order, no float atomics), and it reads nothing back to the
+    host: under ``set_sync_debug_mode("error")`` any synchronising call
+    inside it raises."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    bufs = gmm.kernel_buffers(device)
+    image = torch.as_tensor(make_image(shape), device=device)
+    _, argmax, valid, xtn = gf.gmm_fused_fwd_cuda(image, bufs, stride,
+                                                  SENTINEL)
+    dv = torch.randn(valid.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(2))
+    torch.cuda.synchronize()
+    gf.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first, second = (gf.gmm_fused_bwd_cuda(xtn, argmax, valid, dv, bufs,
+                                               shape, stride)
+                         for _ in range(2))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert gf.gmm_fused_bwd_cuda.launches == 2
+    assert bool(torch.isfinite(first).all()) and bool(first.abs().max() > 0)
+    assert torch.equal(first, second)
+    want = gf.fused_backward_plain(xtn, argmax, valid, dv, bufs, shape,
+                                   stride)
+    torch.testing.assert_close(first, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
 def test_marginalise_tensor_core_backward_is_repeatable(device):
     """Two launches of K4 split on the same inputs give the same bits
     (no float atomics), where the weights are mixed."""
@@ -602,6 +637,38 @@ def test_pfft_tensor_core_kernels_match_float64(device, p_, h, w,
             pf.pfft_cols_inv_cuda.launches) == (2, 2, 0, 0)
 
 
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (1, 384, 256),
+                                    (5, 1024, 896), (1, 1152, 128)])
+def test_pfft_tensor_core_pass1_matches_float64(device, p_, h, w, conj_spec):
+    """Pass 1 on the tensor cores (``"split"``) against the split plain
+    version and float64, beside the float32 kernel; 1152 rows exceed
+    what a block keeps in shared memory (1024), so that image takes the
+    kernel's variant that re-reads its columns per k2."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    x0, x1, n, spectra = pfft_batch(device, p_, h, w, 33, h + w + p_)
+    f64 = torch.float64
+    pf.reset_counters()
+    u = pf.pfft_cols_fwd_tc_cuda(x0, x1, n)
+    u64 = pf.cols_fwd_plain(x0.double(), x1.double(), n, f64)
+    split_anchored(u, pf.cols_fwd_plain(x0, x1, n, mode="split"), u64)
+    err32 = float((pf.pfft_cols_fwd_cuda(x0, x1, n).to(u64.dtype)
+                   - u64).abs().max())
+    err = float((u.to(u64.dtype) - u64).abs().max())
+    assert err >= err32  # the mode is honoured: bf16 products
+    y = pf.pfft_conv_cuda(x0, x1, *spectra, n, conj_spec, "split")
+    for got, want32, want64 in zip(
+            y, pf.conv_packed_pfft_plain(x0, x1, *spectra, n, conj_spec,
+                                         mode="split"),
+            pf.conv_packed_pfft_plain(x0.double(), x1.double(), *spectra, n,
+                                      conj_spec, f64)):
+        split_anchored(got, want32, want64)
+    torch.cuda.synchronize()
+    assert (pf.pfft_cols_fwd_tc_cuda.launches,
+            pf.pfft_cols_fwd_cuda.launches) == (2, 1)
+
+
 def test_pfft_split_adjoint_identity(device):
     """``<conv(x), g> = <x, conv_adj(g)>`` on the tensor-core pipeline,
     to split's error (3.1e-5 of the norms' product)."""
@@ -634,12 +701,13 @@ def test_pfft_launches_by_mode(device, mode, tc):
     y0, y1 = pf.conv_packed_pfft(x0, x1, *spectra, n, mode)
     (y0 * y1).sum().backward()
     torch.cuda.synchronize()
-    k32 = (pf.pfft_rows_combine_cuda.launches, pf.pfft_cols_inv_cuda.launches)
-    ktc = (pf.pfft_rows_combine_tc_cuda.launches,
+    k32 = (pf.pfft_cols_fwd_cuda.launches, pf.pfft_rows_combine_cuda.launches,
+           pf.pfft_cols_inv_cuda.launches)
+    ktc = (pf.pfft_cols_fwd_tc_cuda.launches,
+           pf.pfft_rows_combine_tc_cuda.launches,
            pf.pfft_cols_inv_tc_cuda.launches)
-    assert pf.pfft_cols_fwd_cuda.launches == 2
-    assert ktc == ((2, 2) if tc else (0, 0))
-    assert k32 == ((0, 0) if tc else (2, 2))
+    assert ktc == ((2, 2, 2) if tc else (0, 0, 0))
+    assert k32 == ((0, 0, 0) if tc else (2, 2, 2))
     assert pf.conv_packed_pfft_plain.calls == 0
 
 
@@ -671,7 +739,7 @@ def test_pfft_path_on_card_matches_cpu(device):
         values = loss.evaluate((f,))
         values.sum().backward()
         if dev != "cpu":
-            assert pf.pfft_cols_fwd_cuda.launches == 2
+            assert pf.pfft_cols_fwd_tc_cuda.launches == 2
             assert pf.pfft_rows_combine_tc_cuda.launches == 2
             assert pf.conv_packed_pfft_plain.calls == 0
         results[str(dev)] = (values.detach().cpu(), f.grad.cpu())
@@ -695,11 +763,12 @@ def test_pfft_path_on_card_matches_cpu(device):
         out = total.fluxes_error(comps.fluxes_from())
         errors[str(dev)] = out["flux"].cpu()
         if dev != "cpu":
-            # the default dial's "split": passes 2 and 3 on the tensor
-            # cores, pass 1 on its float32 kernel
+            # the default dial's "split": the three passes on the tensor
+            # cores
             assert pf.pfft_rows_combine_tc_cuda.launches == 4
             assert pf.pfft_cols_inv_tc_cuda.launches == 4
-            assert pf.pfft_cols_fwd_cuda.launches == 4
+            assert pf.pfft_cols_fwd_tc_cuda.launches == 4
+            assert pf.pfft_cols_fwd_cuda.launches == 0
             assert pf.pfft_rows_combine_cuda.launches == 0
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()

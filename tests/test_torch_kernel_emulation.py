@@ -232,13 +232,41 @@ def test_fused_kernels_match_plain(libs, bufs, marginalize, shape, stride):
                  gf.fused_backward_marg_plain(*(a.double() for a in args),
                                               b64, shape, stride))
     else:
-        assert fused.gmm_fused_bwd(
-            ptr(xp), ptr(ap), ptr(valp), ptr(dv), ptr(bufs["a_full"]),
-            ptr(bufs["b_rows"]), h, w, stride, ny, nx, ptr(planes),
-            None) == 0
+        grad = map_backward(fused, xp, ap, valp, dv, bufs, shape, stride)
         want = gf.fused_backward_plain(xp, ap, valp, dv, bufs, shape, stride)
-        torch.testing.assert_close(planes.sum(0), want, rtol=0,
+        torch.testing.assert_close(grad, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
+
+
+def map_backward(fused, xtn, argmax, valid, dv, bufs, shape, stride):
+    """K2 through its C entry point: the scratch ``u`` rows, then the
+    image gradient, from buffers filled with NaN (every entry written)."""
+    h, w = shape
+    units = torch.full((xtn.shape[0], 64), float("nan"))
+    grad = torch.full(shape, float("nan"))
+    assert fused.gmm_fused_bwd(
+        ptr(xtn), ptr(argmax), ptr(valid), ptr(dv), ptr(bufs["a_full"]),
+        ptr(bufs["b_rows"]), h, w, stride, h // 8, w // 8, ptr(units),
+        ptr(grad), None) == 0
+    return grad
+
+
+@pytest.mark.parametrize("shape,stride", [((37, 45), 4), ((24, 40), 2)])
+def test_map_backward_is_repeatable(libs, shape, stride):
+    """K2 twice on the same inputs gives the same bits: its sums have a
+    fixed order (no float atomics), whatever order the patches of a
+    component take inside a tile."""
+    fused, _ = libs
+    bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
+        "cpu")
+    image = make_image(shape, seed=3)
+    _, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride, SENTINEL)
+    dv = torch.as_tensor(np.random.RandomState(4).randn(len(valp)),
+                         dtype=torch.float32)
+    first, second = (map_backward(fused, xp, ap, valp, dv, bufs, shape,
+                                  stride) for _ in range(2))
+    assert bool(torch.isfinite(first).all()) and float(first.abs().max()) > 0
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("n", [1, 33, 130])

@@ -1,12 +1,12 @@
 """The matrix-DFT convolution's ``"split"`` mode against the JAX package's.
 
 ``"split"`` is the precision dial's default (``"high"``): each stage-B
-product of passes 2 and 3 as three bf16 products with float32 sums. The
-port's plain version computes them as its tensor-core kernels do, as a
-real product of interleaved complex rows with the interleaved real form
-``R`` of each stage matrix; the JAX package runs its Pallas kernels in
-the interpreter, in its ``"split"`` mode (Karatsuba's 3 complex
-products, pass 1 split too). Tolerances, each with its reason:
+product of the three passes as three bf16 products with float32 sums.
+The port's plain version computes them as its tensor-core kernels do, as
+a real product of interleaved complex rows with the interleaved real
+form ``R`` of each stage matrix; the JAX package runs its Pallas kernels
+in the interpreter, in its ``"split"`` mode (Karatsuba's 3 complex
+products). Tolerances, each with its reason:
 
 - ``R`` reproduces the complex product to float64 rounding (1e-12), and
   the tensor-core tables are ``R``'s bf16 hi and lo planes exactly;
@@ -242,7 +242,63 @@ def test_split_adjoint_identity():
 def test_tensor_core_wrappers_need_the_card():
     v = torch.zeros((1, 256, 128), dtype=torch.complex64)
     s = torch.zeros((1, 256, 256))
-    for launch in (lambda: pf.pfft_rows_combine_tc_cuda(v, s, s, s, s),
+    x = torch.zeros((1, 128, 128))
+    for launch in (lambda: pf.pfft_cols_fwd_tc_cuda(x, x, 256),
+                   lambda: pf.pfft_rows_combine_tc_cuda(v, s, s, s, s),
                    lambda: pf.pfft_cols_inv_tc_cuda(v, v, 128)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch()
+
+
+def jax_cols_fwd_split(x0, x1, n):
+    """The JAX package's pass 1 (``_k1_body``) in ``"split"`` mode, through
+    ``pl.pallas_call`` in the interpreter, called as its
+    ``_pfft_conv_impl`` calls it; returns ``(u_re, u_im)``."""
+    from functools import partial
+
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    p_, h, w = x0.shape
+    m = n // jpf.PFFT_LANE
+    t = jpf._stage_tables(m)
+    mf_t = tuple(jnp.asarray(x) for x in t["mf_t"])
+    cc = min(jpf._chunk_sizes(n)[0], w)
+    cols = pl.BlockSpec((1, h, cc), lambda p, i: (p, 0, i),
+                        memory_space=pltpu.VMEM)
+    out = pl.BlockSpec((1, n, cc), lambda p, i: (p, 0, i),
+                       memory_space=pltpu.VMEM)
+    u_re, u_im = pl.pallas_call(
+        partial(jpf._k1_body, m=m, h=h, wf=t["wf"], mode="split"),
+        grid=(p_, w // cc),
+        in_specs=[cols, cols, *[jpf._const_spec(x) for x in mf_t]],
+        out_specs=[out, out],
+        out_shape=[jax.ShapeDtypeStruct((p_, n, w), jnp.float32)] * 2,
+        interpret=True,
+    )(jnp.asarray(x0), jnp.asarray(x1), *mf_t)
+    return np.asarray(u_re), np.asarray(u_im)
+
+
+@pytest.mark.parametrize("p_,h,w,k", [(1, 128, 128, 9), (2, 256, 128, 33)])
+def test_split_pass1_matches_jax_k1_split(p_, h, w, k):
+    """Pass 1 under ``"split"`` against the JAX package's ``_k1_body`` in
+    its split mode (Karatsuba's 3 complex products where the port takes
+    4 real ones, so split's bar), and further from float64 than the
+    float32 plain version: the mode is honoured."""
+    x0, x1, n, _ = setup(6, p_, h, w, k)
+    j_re, j_im = jax_cols_fwd_split(x0, x1, n)
+    xs = [torch.as_tensor(v) for v in (x0, x1)]
+    u = pf.cols_fwd_plain(*xs, n, mode="split")
+    assert u.dtype == torch.complex64 and tuple(u.shape) == (p_, n, w)
+    scale = max(float(np.abs(j_re).max()), float(np.abs(j_im).max()))
+    assert_allclose(u.real.numpy(), j_re, rtol=0, atol=SPLIT_BAR * scale)
+    assert_allclose(u.imag.numpy(), j_im, rtol=0, atol=SPLIT_BAR * scale)
+
+    u64 = pf.cols_fwd_plain(*(v.double() for v in xs), n, torch.float64,
+                            mode="split")
+    assert torch.equal(u64, pf.cols_fwd_plain(*(v.double() for v in xs), n,
+                                              torch.float64))
+    u32 = pf.cols_fwd_plain(*xs, n)
+    e_split = float((u.to(u64.dtype) - u64).abs().max())
+    e32 = float((u32.to(u64.dtype) - u64).abs().max())
+    assert 3.0 * e32 <= e_split <= SPLIT_BAR * float(u64.abs().max())
