@@ -72,8 +72,9 @@
 //   The tile's live patches are put in (k*, patch) order in shared
 //   memory (each patch's rank among the tile's keys: no sort, no
 //   atomics), their rows transposed into x^T by that order (coalesced
-//   reads). Per run of equal k*, A_{k*} is staged once, transposed, with
-//   its column means and the mean of b subtracted, so that
+//   reads). Per run of equal k*, A_{k*} less its column means,
+//   transposed, and b less its mean (a_bwd, b_bwd, made once per GMM by
+//   ops/gmm_fused.py::kernel_buffers) are staged once, so that
 //   dv ((b - mean b) - (A - colmean A) x) is u - mean(u) with no
 //   reduction over a patch's u; then a register-tiled product, each
 //   thread kMtP patches x kMtR rows, so that each value read from
@@ -139,10 +140,9 @@ constexpr int kRowGroups = kD / kMtR;
 constexpr int kLdX = kBwdTile + 5;  // x^T row: odd, and room for a micro-tile
 constexpr int kLdA = kD + 4;        // A'^T row: float4-aligned
 constexpr int kAddThreads = 256;
-// x^T (64, kLdX), A'^T (64, kLdA), b' and the column means (2 x 64 + 1),
-// then per patch its dv, key, rank, rank order and run end
-constexpr int kBwdSmem =
-    (kD * kLdX + kD * kLdA + 2 * kD + 4 + 5 * kBwdTile) * 4;
+// x^T (64, kLdX), A'^T (64, kLdA), b', then per patch its dv, key,
+// rank, rank order and run end
+constexpr int kBwdSmem = (kD * kLdX + kD * kLdA + kD + 5 * kBwdTile) * 4;
 static_assert(kBwdThreads * kMtP * kMtR == kBwdTile * kD,
               "the micro-tiles cover the tile");
 constexpr int kBwdMargThreads = 128;
@@ -210,17 +210,19 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
   }
 }
 
+// a_bwd (K, 64, 64): A_k less its column means, transposed ([c][r]);
+// b_bwd (K, 64): b_k less its mean. Then dv (b_bwd - a_bwd^T x) is
+// u - mean(u), with no reduction over a patch's u.
 __global__ void __launch_bounds__(kBwdThreads)
 gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
                const float* __restrict__ valid, const float* __restrict__ dvalues,
-               const float* __restrict__ a_full, const float* __restrict__ b_rows,
+               const float* __restrict__ a_bwd, const float* __restrict__ b_bwd,
                int n_total, float* __restrict__ units) {
   extern __shared__ __align__(16) float smem[];
   float* xt = smem;               // [c][rank]: the live patches, by rank
-  float* at = xt + kD * kLdX;     // [c][r]: A'_{k*} transposed
-  float* bs = at + kD * kLdA;     // b'_{k*}
-  float* abar = bs + kD;          // column means of A_{k*}, then mean b
-  float* dv = abar + kD + 4;
+  float* at = xt + kD * kLdX;     // [c][r]: a_bwd of the run's k*
+  float* bs = at + kD * kLdA;     // b_bwd of the run's k*
+  float* dv = bs + kD;
   int* key = reinterpret_cast<int*>(dv + kBwdTile);  // k*, or -1: invalid
   int* rank = key + kBwdTile;     // a live patch's place in (k*, q) order
   int* order = rank + kBwdTile;   // the patch at each place
@@ -259,7 +261,7 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
 
   // x^T of the live patches by rank, from coalesced float4 reads, kLoads
   // of a thread in flight together; an invalid patch's u row is zero
-  constexpr int kLoads = 4;
+  constexpr int kLoads = kBwdTile * kD / 4 / kBwdThreads;
   const float4* x4 = reinterpret_cast<const float4*>(xtn + (size_t)n0 * kD);
   float4* u4 = reinterpret_cast<float4*>(units + (size_t)n0 * kD);
   for (int e0 = threadIdx.x; e0 < count * kD / 4;
@@ -292,27 +294,14 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
   for (int s = 0; s < live;) {
     const int k = key[order[s]];
     const int end = run_end[s];
-    __syncthreads();  // x^T is written; the last run is done with A'^T
-    // A_{k*} transposed, and b_{k*}
-    const float* ak = a_full + (size_t)k * kD * kD;
-    for (int e = threadIdx.x; e < kD * kD; e += blockDim.x)
-      at[(e % kD) * kLdA + e / kD] = __ldg(ak + e);
+    __syncthreads();  // x^T is written; the last run is done with at, bs
+    const float4* ak = reinterpret_cast<const float4*>(a_bwd) +
+                       (size_t)k * kD * kD / 4;
+    for (int e = threadIdx.x; e < kD * kD / 4; e += blockDim.x)
+      reinterpret_cast<float4*>(at + (e / (kD / 4)) * kLdA)[e % (kD / 4)] =
+          __ldg(ak + e);
     for (int r = threadIdx.x; r < kD; r += blockDim.x)
-      bs[r] = __ldg(b_rows + (size_t)k * kD + r);
-    __syncthreads();
-    // u - mean(u) = dv ((b - mean b) - (A - colmean A) x): centre A's
-    // columns and b once per run instead of each patch's u
-    for (int c = threadIdx.x; c <= kD; c += blockDim.x) {
-      const float* row = c < kD ? at + c * kLdA : bs;
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < kD; ++r) part[r % 4] += row[r];
-      abar[c] = ((part[0] + part[1]) + (part[2] + part[3])) * (1.f / kD);
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < kD * kD; e += blockDim.x)
-      at[(e / kD) * kLdA + e % kD] -= abar[e / kD];
-    for (int r = threadIdx.x; r < kD; r += blockDim.x) bs[r] -= abar[kD];
+      bs[r] = __ldg(b_bwd + (size_t)k * kD + r);
     __syncthreads();
 
     // thread t: patches at places s + kMtP pg + i (i < kMtP), rows kMtR
@@ -442,7 +431,7 @@ int gmm_fused_fwd(const void* img, int H, int W, int stride, int ny, int nx,
 
 // units: scratch (N, 64) float32; grad: the (H, W) image gradient.
 int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
-                  const void* dvalues, const void* a_full, const void* b_rows,
+                  const void* dvalues, const void* a_bwd, const void* b_bwd,
                   int H, int W, int stride, int ny, int nx, void* units,
                   void* grad, void* stream) {
   const int groups = (kP / stride) * (kP / stride);
@@ -454,7 +443,7 @@ int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xtn), static_cast<const int*>(argmax),
       static_cast<const float*>(valid), static_cast<const float*>(dvalues),
-      static_cast<const float*>(a_full), static_cast<const float*>(b_rows),
+      static_cast<const float*>(a_bwd), static_cast<const float*>(b_bwd),
       n_total, static_cast<float*>(units));
   const int pixel_blocks = (H * W + kAddThreads - 1) / kAddThreads;
   gmm_bwd_add_kernel<<<pixel_blocks, kAddThreads, 0,

@@ -81,10 +81,14 @@
 //   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
 //   traffic holds it, not the block count); two blocks per SM made pass
 //   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
+// - pass 1 keeps its block's input resident (225 KB of shared memory,
+//   72 registers, no spills), so it too runs one block per SM; what holds
+//   it is R(mf[k2]), read from L2 for every k2 by every block of 16
+//   columns (755 MB a call).
 // On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
-// (chip_smoke.py phase 2): pass 2 1.10 ms, pass 3 0.48 ms, the split
-// pipeline 1.94 ms a direction (the float32 kernels 3.94, cuFFT's packed
-// pair 0.58); 7% and 9% of the split bound.
+// (chip_smoke.py phase 2): pass 1 0.28 ms, pass 2 1.13 ms, pass 3 0.47
+// ms, the split pipeline 1.86 ms a direction (the float32 kernels 3.91,
+// cuFFT's packed pair 0.57); 9.5%, 7% and 9% of the split bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

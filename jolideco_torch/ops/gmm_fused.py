@@ -203,8 +203,11 @@ def kernel_buffers(packed, device):
     ``aq (d*d, K)``, ``bq (d, K)``, ``const2 (K,)`` feed the plain
     scorers; ``a_full (K, d, d)``, ``b_rows (K, d)`` the backwards and
     Hessian actions, plain and CUDA. For 8x8 patches also ``rec (K, REC)``
-    for the CUDA scorers (``csrc/gmm_logits.cuh``) and the ``"split"``
-    mode's buffers (:func:`_split_buffers`).
+    for the CUDA scorers (``csrc/gmm_logits.cuh``), ``a_bwd (K, d, d)``
+    and ``b_bwd (K, d)`` for the MAP backward kernel: ``A`` less its
+    column means, transposed (``[c][r]``), and ``b`` less its mean, so
+    that ``dv (b_bwd - a_bwd^T x)`` is ``u - mean(u)``, and the
+    ``"split"`` mode's buffers (:func:`_split_buffers`).
     """
     aq = np.asarray(packed["aq"], np.float32)
     bq = np.asarray(packed["bq"], np.float32)
@@ -219,6 +222,12 @@ def kernel_buffers(packed, device):
         rec[:, SYM:SYM + D] = bq.T
         rec[:, SYM + D] = const2
         arrays["rec"] = rec
+        a64 = aq.T.reshape(k, d, d).astype(np.float64)
+        arrays["a_bwd"] = (a64 - a64.mean(axis=1, keepdims=True)).transpose(
+            0, 2, 1).astype(np.float32)
+        b64 = bq.T.astype(np.float64)
+        arrays["b_bwd"] = (b64 - b64.mean(axis=1, keepdims=True)).astype(
+            np.float32)
     out = {name: torch.as_tensor(np.ascontiguousarray(a))
            for name, a in arrays.items()}
     if d == D:
@@ -626,14 +635,14 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
     ny, nx = h // PATCH, w // PATCH
     n_groups = len(_offsets(stride))
     n = n_groups * ny * nx
-    a_full, b_rows = bufs["a_full"], bufs["b_rows"]
-    k = a_full.shape[0]
+    a_bwd, b_bwd = bufs["a_bwd"], bufs["b_bwd"]
+    k = a_bwd.shape[0]
     _check(xtn, "xtn", torch.float32, (n, D), device)
     _check(argmax, "argmax", torch.int32, (n,), device)
     _check(valid, "valid", torch.float32, (n,), device)
     _check(dvalues, "dvalues", torch.float32, (n,), device)
-    _check(a_full, "a_full", torch.float32, (k, D, D), device)
-    _check(b_rows, "b_rows", torch.float32, (k, D), device)
+    _check(a_bwd, "a_bwd", torch.float32, (k, D, D), device)
+    _check(b_bwd, "b_bwd", torch.float32, (k, D), device)
 
     buf = torch.empty(n * D + h * w, dtype=torch.float32, device=device)
     units, grad = buf[:n * D], buf[n * D:].view(h, w)
@@ -642,7 +651,7 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_bwd(
             xtn.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
-            dvalues.data_ptr(), a_full.data_ptr(), b_rows.data_ptr(),
+            dvalues.data_ptr(), a_bwd.data_ptr(), b_bwd.data_ptr(),
             h, w, int(stride), ny, nx, units.data_ptr(), grad.data_ptr(),
             stream,
         )

@@ -245,8 +245,8 @@ def map_backward(fused, xtn, argmax, valid, dv, bufs, shape, stride):
     units = torch.full((xtn.shape[0], 64), float("nan"))
     grad = torch.full(shape, float("nan"))
     assert fused.gmm_fused_bwd(
-        ptr(xtn), ptr(argmax), ptr(valid), ptr(dv), ptr(bufs["a_full"]),
-        ptr(bufs["b_rows"]), h, w, stride, h // 8, w // 8, ptr(units),
+        ptr(xtn), ptr(argmax), ptr(valid), ptr(dv), ptr(bufs["a_bwd"]),
+        ptr(bufs["b_bwd"]), h, w, stride, h // 8, w // 8, ptr(units),
         ptr(grad), None) == 0
     return grad
 
