@@ -25,12 +25,12 @@
 //     pallas_fft.py) under "split": per column, stage A S_k2 = sum_n2
 //     wf[n2][k2] z[128 n2 + ., c] (z = x0 + i x1) in float32, then U[128
 //     k2 : 128 (k2 + 1), c] = mf[k2]^T S_k2, run from the right as in
-//     pass 3: the columns of S_k2 are the operand rows, times R(mf[k2]).
-//     One block per (pair, 16 columns), a loop over k2 inside; the
-//     block's columns of x0 and x1 are read from device memory once and
-//     kept in shared memory (128 KB at H = 1024), so that the input is
-//     read once and not once per k2, and R(mf) once per block and not
-//     once per (k2, 32 columns) as in pfft_cols_fwd_kernel.
+//     pass 3: the columns of S_k2 are the operand rows. Since mf[k2] is
+//     the 128-point DFT F = mf[0] after the twiddle Wn^(n1 k2) on its
+//     rows, stage A ends with that twiddle and every k2 multiplies R(F):
+//     three k2 share each streamed tile. One block per (pair, 16
+//     columns), a loop over the k2 inside; the block's columns of x0 and
+//     x1 are read from device memory once, into registers.
 // pfft_rows_tc_kernel replaces _k2_body (jolideco_tpu/ops/pallas_fft.py)
 //     under "split": per row of U, the lane forward Z = S . mf[k2] (stage
 //     A, S = sum_n2 wf U, folded into the operand load), the combine A . Z
@@ -81,14 +81,14 @@
 //   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
 //   traffic holds it, not the block count); two blocks per SM made pass
 //   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
-// - pass 1 keeps its block's input resident (225 KB of shared memory,
-//   72 registers, no spills), so it too runs one block per SM; what holds
-//   it is R(mf[k2]), read from L2 for every k2 by every block of 16
-//   columns (755 MB a call).
+// - pass 1 keeps its block's input in registers (179 of them, no spills;
+//   128 KB of shared memory would leave no room for its operand rows).
+//   With R(mf[k2]) streamed for each k2, every block of 16 columns read
+//   2.4 MB of tables from L2, 755 MB a call, and took 0.28 ms; one R(F)
+//   for three k2 at a time reads a third of that.
 // On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
-// (chip_smoke.py phase 2): pass 1 0.28 ms, pass 2 1.13 ms, pass 3 0.47
-// ms, the split pipeline 1.86 ms a direction (the float32 kernels 3.91,
-// cuFFT's packed pair 0.57); 9.5%, 7% and 9% of the split bound.
+// (chip_smoke.py phase 2): pass 1 0.16 ms, pass 2 1.13 ms, pass 3 0.47
+// ms; 17%, 7% and 9% of the split bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -464,14 +464,19 @@ pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
 // ---------------------------------------------------------------------
 // pass 1: axis-0 forward, natural rows -> permuted rows
 
-// The block's columns of x0 and x1 stay in shared memory for images of
-// up to kResidentRows rows (the stages and the operand take the rest of
-// the 227 KB); taller ones are re-read from device memory (L2) per k2.
-constexpr int kResidentRows = 1024;
-constexpr int kSmemColsFwd = (2 * kStageElems + 2 * kCols * kLdA) * 2;
-static_assert(kSmemColsFwd + 2 * kResidentRows * kCols * 4 <= 232448,
-              "pass 1's resident columns fit a block's shared memory");
-constexpr int kLoadBatch = 8;  // loads a thread keeps in flight
+// mf[k2][n1][k1] = W128^(n1 k1) Wn^(n1 k2): the stage matrix of k2 is
+// F = mf[0] (the 128-point DFT) after the twiddle tw[k2][n1] =
+// Wn^(n1 k2) on its rows. So stage A also applies the twiddle, and one
+// R(F) serves every k2: kChunk k2 at a time share each streamed tile of
+// it, as kChunk x kCols operand rows. A thread's share of the block's
+// columns of x0 and x1 stays in its registers for images of up to
+// kResidentBlocks 128-row blocks; taller ones are re-read from device
+// memory (L2) per k2.
+constexpr int kResidentBlocks = 8;
+constexpr int kChunk = 3;
+constexpr int kFwdElems = kLane * kCols / kThreads;  // (n1, c) of a thread
+constexpr int kSmemColsFwd = (2 * kStageElems + 2 * kChunk * kCols * kLdA) * 2;
+static_assert(kSmemColsFwd <= 232448, "pass 1 fits a block's shared memory");
 
 template <bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -479,6 +484,7 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
                         const float* __restrict__ x1, int P, int H, int W,
                         int m, const bf16* __restrict__ rf,
                         const float2* __restrict__ wf,
+                        const float2* __restrict__ tw,
                         float2* __restrict__ u) {
   const int tiles = W / kCols;
   const int bid = blockIdx.x;
@@ -492,85 +498,93 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-  bf16* s_hi = stages + 2 * kStageElems;  // S^T: kCols rows of 128 complex
-  bf16* s_lo = s_hi + kCols * kLdA;
-  float* z0 = reinterpret_cast<float*>(s_lo + kCols * kLdA);  // [row][c]
-  float* z1 = z0 + H * kCols;
+  bf16* s_hi = stages + 2 * kStageElems;  // [S'_k2^T, k2 of the chunk]
+  bf16* s_lo = s_hi + kChunk * kCols * kLdA;
 
-  const int T = kTiles * m;
-  auto src = [&](int t) { return rf + (size_t)t * kTileElems; };
+  // the stream: R(F)'s kTiles tiles once per chunk of k2
+  const int chunks = (m + kChunk - 1) / kChunk;
+  const int T = kTiles * chunks;
+  auto src = [&](int t) { return rf + (size_t)(t % kTiles) * kTileElems; };
   load_stage(stages, src(0));
   cp_async_commit();
 
-  // element e of the block's (H, kCols) columns: row e / kCols, column
-  // e % kCols, at x[in0 + row W + column]
+  // a thread's elements e = threadIdx.x + i kThreads of each 128-row
+  // block n2: row 128 n2 + e / kCols, column e % kCols
   const size_t in0 = (size_t)p * H * W + c0;
+  auto at = [&](int n2, int i) {
+    const int e = threadIdx.x + i * kThreads;
+    return in0 + (size_t)(kLane * n2 + e / kCols) * W + e % kCols;
+  };
+  float2 z[kResident ? kResidentBlocks : 1][kFwdElems];
   if (kResident) {
-    for (int e0 = threadIdx.x; e0 < H * kCols; e0 += kLoadBatch * kThreads) {
-      float a[kLoadBatch], b[kLoadBatch];
 #pragma unroll
-      for (int i = 0; i < kLoadBatch; ++i) {
-        const int e = e0 + i * kThreads;
-        const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
-        a[i] = x0[at];
-        b[i] = x1[at];
-      }
+    for (int n2 = 0; n2 < kResidentBlocks; ++n2)
 #pragma unroll
-      for (int i = 0; i < kLoadBatch; ++i) {
-        z0[e0 + i * kThreads] = a[i];
-        z1[e0 + i * kThreads] = b[i];
-      }
-    }
-    __syncthreads();
+      for (int i = 0; i < kFwdElems; ++i)
+        z[n2][i] = n2 < hb ? make_float2(x0[at(n2, i)], x1[at(n2, i)])
+                           : make_float2(0.f, 0.f);
   }
 
-  for (int k2 = 0; k2 < m; ++k2) {
-    // stage A, S[n1][c] = sum_n2 wf[n2][k2] z[128 n2 + n1][c], split into
-    // the operand's row c: a thread's elements e = threadIdx.x + i
-    // kThreads, e = n1 kCols + c
-    constexpr int kStageA = kLane * kCols / kThreads;
-    {
-      float2 s[kStageA];
+  for (int ch = 0; ch < chunks; ++ch) {
+    // stage A, S'[n1][c] = tw[k2][n1] sum_n2 wf[n2][k2] z[128 n2 + n1][c],
+    // split into operand row kk kCols + c (zero past the last k2)
+    for (int kk = 0; kk < kChunk; ++kk) {
+      const int k2 = kChunk * ch + kk;
+      float2 s[kFwdElems];
 #pragma unroll
-      for (int i = 0; i < kStageA; ++i) s[i] = make_float2(0.f, 0.f);
-      for (int n2 = 0; n2 < hb; ++n2) {
-        const float2 w = wf[n2 * m + k2];
+      for (int i = 0; i < kFwdElems; ++i) s[i] = make_float2(0.f, 0.f);
+      auto add = [&](float2 w, int i, float xr, float xi) {
+        s[i].x = fmaf(w.x, xr, fmaf(-w.y, xi, s[i].x));
+        s[i].y = fmaf(w.x, xi, fmaf(w.y, xr, s[i].y));
+      };
+      if (k2 < m) {
+        if (kResident) {
 #pragma unroll
-        for (int i = 0; i < kStageA; ++i) {
-          const int e = kLane * kCols * n2 + threadIdx.x + i * kThreads;
-          float xr, xi;
-          if (kResident) {
-            xr = z0[e];
-            xi = z1[e];
-          } else {
-            const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
-            xr = __ldg(x0 + at);
-            xi = __ldg(x1 + at);
+          for (int n2 = 0; n2 < kResidentBlocks; ++n2) {
+            if (n2 >= hb) break;
+            const float2 w = wf[n2 * m + k2];
+#pragma unroll
+            for (int i = 0; i < kFwdElems; ++i)
+              add(w, i, z[n2][i].x, z[n2][i].y);
           }
-          s[i].x = fmaf(w.x, xr, fmaf(-w.y, xi, s[i].x));
-          s[i].y = fmaf(w.x, xi, fmaf(w.y, xr, s[i].y));
+        } else {
+          for (int n2 = 0; n2 < hb; ++n2) {
+            const float2 w = wf[n2 * m + k2];
+#pragma unroll
+            for (int i = 0; i < kFwdElems; ++i)
+              add(w, i, __ldg(x0 + at(n2, i)), __ldg(x1 + at(n2, i)));
+          }
         }
       }
 #pragma unroll
-      for (int i = 0; i < kStageA; ++i) {
+      for (int i = 0; i < kFwdElems; ++i) {
         const int e = threadIdx.x + i * kThreads;
-        put_split(s_hi, s_lo, (e % kCols) * kLdA + 2 * (e / kCols), s[i]);
+        const int n1 = e / kCols;
+        const float2 t = k2 < m ? tw[k2 * kLane + n1] : make_float2(0.f, 0.f);
+        put_split(s_hi, s_lo, (kk * kCols + e % kCols) * kLdA + 2 * n1,
+                  cmul(t, s[i]));
       }
     }
 
-    // U[128 k2 + k1][c] = (S^T R(mf[k2]))[c][k1]: a thread's accumulator
-    // pair (nt, half) is row c = g + 8 half, complex column k1
-    float acc[kMtCols][4][4];
-    product<kMtCols>(acc, s_hi, s_lo, stages, kTiles * k2, T, src);
-    float2* out = u + ((size_t)p * n + kLane * k2) * W + c0;
+    // U[128 k2 + k1][c] = (S'_k2^T R(F))[c][k1]: a thread's accumulator
+    // pair (kk, nt, half) is k2 = kChunk ch + kk, row c = g + 8 half,
+    // complex column k1
+    float acc[kChunk][4][4];
+    product<kChunk>(acc, s_hi, s_lo, stages, kTiles * ch, T, src);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int kk = 0; kk < kChunk; ++kk) {
+      const int k2 = kChunk * ch + kk;
+      if (k2 >= m) break;
+      float2* out = u + ((size_t)p * n + kLane * k2) * W + c0;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int k1 = warp * (kWarpCols / 2) + nt * 4 + tig;
-        out[(size_t)k1 * W + g + 8 * half] =
-            make_float2(acc[0][nt][2 * half], acc[0][nt][2 * half + 1]);
-      }
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int k1 = warp * (kWarpCols / 2) + nt * 4 + tig;
+          out[(size_t)k1 * W + g + 8 * half] =
+              make_float2(acc[kk][nt][2 * half], acc[kk][nt][2 * half + 1]);
+        }
+    }
   }
 }
 
@@ -585,17 +599,14 @@ extern "C" {
 
 int pfft_cols_fwd_tc(const float* x0, const float* x1, int P, int H,
                      int W, int m, const void* rf, const float2* wf,
-                     float2* u, cudaStream_t stream) {
-  const bool resident = H <= kResidentRows;
-  const int smem =
-      kSmemColsFwd + (resident ? 2 * H * kCols * (int)sizeof(float) : 0);
-  auto kernel = resident ? pfft_cols_fwd_tc_kernel<true>
-                         : pfft_cols_fwd_tc_kernel<false>;
+                     const float2* tw, float2* u, cudaStream_t stream) {
+  auto kernel = H <= kLane * kResidentBlocks ? pfft_cols_fwd_tc_kernel<true>
+                                             : pfft_cols_fwd_tc_kernel<false>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemColsFwd);
   const int blocks = P * (W / kCols);
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      x0, x1, P, H, W, m, static_cast<const bf16*>(rf), wf, u);
+  kernel<<<blocks, kThreads, kSmemColsFwd, stream>>>(
+      x0, x1, P, H, W, m, static_cast<const bf16*>(rf), wf, tw, u);
   return finish(attr);
 }
 

@@ -278,8 +278,11 @@ def _split(mode, dtype):
 def cols_fwd_plain(x0, x1, n, dtype=torch.float32, mode="f32"):
     """Pass 1: the axis-0 forward of ``x0 + i x1`` ``(P, H, W)`` into
     permuted rows, ``U`` ``(P, n, W)`` complex. ``"split"`` in float32
-    takes the stage-B products as the tensor-core kernel does: stage A
-    in float32, then each column of ``S_k2`` a row times ``mf[k2]``."""
+    takes the stage-B products as the tensor-core kernel does: since
+    ``mf[k2][n1, k1] = W128^(n1 k1) Wn^(n1 k2)``, stage A in float32 ends
+    with the twiddle ``mf[k2][n1, 0] = Wn^(n1 k2)`` on the rows of
+    ``S_k2``, and each of its columns is a row times ``F = mf[0]``, the
+    128-point DFT, for every ``k2``."""
     p_, h, w = x0.shape
     m = n // PFFT_LANE
     t = _plain_tables(m, dtype, x0.device)
@@ -287,9 +290,11 @@ def cols_fwd_plain(x0, x1, n, dtype=torch.float32, mode="f32"):
     s = torch.einsum("qk,pqiw->pkiw", t["wf"][:h // PFFT_LANE],
                      z.reshape(p_, h // PFFT_LANE, PFFT_LANE, w))
     if _split(mode, dtype):
-        r = _split_tables(m, x0.device)["mf"]
-        # (P, m, W, 128) rows of S^T times mf[k2], back to (P, m, 128, W)
-        u = _split_product(s.transpose(-1, -2), r).transpose(-1, -2)
+        hi, lo = _split_tables(m, x0.device)["mf"]
+        f = (hi[:1].expand(m, -1, -1), lo[:1].expand(m, -1, -1))
+        # (P, m, W, 128) rows of (tw S)^T times F, back to (P, m, 128, W)
+        s = s * t["mf"][:, :, :1]
+        u = _split_product(s.transpose(-1, -2), f).transpose(-1, -2)
         return u.reshape(p_, n, w)
     return torch.einsum("kij,pkiw->pkjw", t["mf"], s).reshape(p_, n, w)
 
@@ -407,11 +412,12 @@ def _library(name="pfft_conv"):
         rows = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
         cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        cols_fwd_tc = cols_fwd + [vp]  # and the twiddles
         if name == "pfft_conv":
             signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
                           "pfft_cols_inv": cols_inv}
         else:
-            signatures = {"pfft_cols_fwd_tc": cols_fwd, "pfft_rows_tc": rows,
+            signatures = {"pfft_cols_fwd_tc": cols_fwd_tc, "pfft_rows_tc": rows,
                           "pfft_cols_inv_tc": cols_inv}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
@@ -446,15 +452,18 @@ _DEVICE_TABLES = {}
 
 
 def _device_tables(m, device):
-    """The stage tables on ``device``: ``wf``, ``wi``, ``mf``, ``mi`` as
-    interleaved complex float32, ``mf_tc``, ``mi_tc`` as
+    """The stage tables on ``device``: ``wf``, ``wi``, ``mf``, ``mi`` and
+    the twiddles ``tw[k2][n1] = mf[k2][n1, 0]`` (pass 1 on the tensor
+    cores) as interleaved complex float32, ``mf_tc``, ``mi_tc`` as
     :func:`tensor_core_tables` (built once per size and device)."""
     key = (m, str(device))
     if key not in _DEVICE_TABLES:
+        stage = dict(_stage_tables(m))
+        stage["tw"] = stage["mf"][:, :, 0]
         tables = {
             name: torch.view_as_real(torch.as_tensor(
                 t.astype(np.complex64), device=device)).contiguous()
-            for name, t in _stage_tables(m).items()
+            for name, t in stage.items()
         }
         tables.update({f"{name}_tc": t.to(device)
                        for name, t in tensor_core_tables(m).items()})
@@ -508,8 +517,8 @@ def pfft_cols_fwd_tc_cuda(x0, x1, n):
     tab = _device_tables(m, device)
     _launch("pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel", device,
             x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
-            tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(), u.data_ptr(),
-            library="pfft_conv_tc")
+            tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(),
+            tab["tw"].data_ptr(), u.data_ptr(), library="pfft_conv_tc")
     pfft_cols_fwd_tc_cuda.launches += 1
     return u
 
