@@ -81,13 +81,13 @@
 //   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
 //   traffic holds it, not the block count); two blocks per SM made pass
 //   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
-// - pass 1 keeps its block's input in registers (179 of them, no spills;
+// - pass 1 keeps its block's input in registers (244 of them, no spills;
 //   128 KB of shared memory would leave no room for its operand rows).
 //   With R(mf[k2]) streamed for each k2, every block of 16 columns read
 //   2.4 MB of tables from L2, 755 MB a call, and took 0.28 ms; one R(F)
 //   for three k2 at a time reads a third of that.
 // On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
-// (chip_smoke.py phase 2): pass 1 0.16 ms, pass 2 1.13 ms, pass 3 0.47
+// (chip_smoke.py phase 2): pass 1 0.16 ms, pass 2 1.13 ms, pass 3 0.48
 // ms; 17%, 7% and 9% of the split bound.
 
 #include <cuda_bf16.h>
