@@ -65,8 +65,9 @@ Phases, each printing one or more lines:
    counts; then a small run's flux and errors on the card against the
    CPU's plain path;
 6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
-   the default dial (``"split"``: the three passes on the tensor cores) and under ``"highest"`` (``"f32"``: the
-   three float32 kernels), each with its own exact counts; phase 4 again
+   the default dial (``"split"``: the three passes on the tensor cores)
+   and under ``"highest"`` (``"f32"``: the three float32 kernels), each
+   with its own exact counts; phase 4 again
    under the default dial (in the probe, the adjoint's adjoint too);
    flux and errors held against phases 3 and 4; then a small run's flux
    and errors on the card against the CPU's plain path, ``"split"`` on
@@ -208,6 +209,29 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, reps, *kernels):
+    """Mean device milliseconds per call of ``fn`` in the kernels whose
+    names contain one of ``kernels`` (torch.profiler): for a call whose
+    host side takes longer than its kernels, where CUDA events around a
+    run of calls time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if any(k in e.key for k in kernels))
+    check(us > 0, f"the profiler saw no device time in {kernels}")
+    return us / 1e3 / reps
+
+
+# K2's two kernels, by the names the profiler gives them
+K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
+
+
 def phase_device(torch):
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -331,7 +355,11 @@ def phase_kernels(torch, device):
                     image, bufs, stride, sentinel), 10),
                 "fwd_plain_ms": cuda_ms(torch, lambda: gf.fused_forward_plain(
                     image, bufs, stride, sentinel), 3),
-                "bwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
+                # K2's kernels take less time than its call's host side
+                "bwd_ms": device_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
+                    xp, ap, valp, dv, bufs, img.shape, stride), 10,
+                    *K2_KERNELS),
+                "bwd_call_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
                     xp, ap, valp, dv, bufs, img.shape, stride), 10),
                 "bwd_plain_ms": cuda_ms(torch, lambda: gf.fused_backward_plain(
                     xp, ap, valp, dv, bufs, img.shape, stride), 3),
@@ -372,8 +400,9 @@ def phase_kernels(torch, device):
             gf.fused_forward_plain(image, wbufs, stride, sentinel), relative)
     t = out["timing"]
     print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
-          f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernel {t['bwd_ms']:.3f} ms, "
-          f"plain {t['bwd_plain_ms']:.3f} ms")
+          f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernels {t['bwd_ms']:.4f} "
+          f"ms (device; a call {t['bwd_call_ms']:.4f} ms), plain "
+          f"{t['bwd_plain_ms']:.3f} ms")
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
     out["marg_split"] = phase_marg_split_kernels(torch, device, bufs, cases,
@@ -1608,8 +1637,8 @@ def k2_tile_components(torch, device, flux, gmm):
                                                      ZERO_FLUX_SENTINEL)
     gen = torch.Generator(device=device).manual_seed(3)
     dv = torch.randn(valid.shape, generator=gen, device=device) * valid
-    ms = cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
-        xtn, argmax, valid, dv, bufs, image.shape, 4), 20)
+    ms = device_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
+        xtn, argmax, valid, dv, bufs, image.shape, 4), 20, *K2_KERNELS)
     m = valid > 0.5
     tile = torch.arange(argmax.numel(), device=device) // K2_TILE
     n_tiles = int(tile[-1]) + 1
@@ -1655,8 +1684,8 @@ def phase_slice(torch, device):
           f"{tiles['used_components']} components; distinct per tile mean "
           f"{tiles['mean']:.2f}, median {tiles['median']:.0f}, max "
           f"{tiles['max']}; {tiles['pairs']} (tile, component) pairs, "
-          f"{tiles['a_read_bytes']} B of A_k read; K2 on them "
-          f"{tiles['k2_ms']:.4f} ms")
+          f"{tiles['a_read_bytes']} B of A_k read; K2's kernels on them "
+          f"{tiles['k2_ms']:.4f} ms (device)")
 
     # small input: the card's run against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -2153,7 +2182,9 @@ def main():
     }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax
-    # over quadratic forms), so their library_ms is null.
+    # over quadratic forms), so their library_ms is null. K2's ms is its
+    # two kernels' device time (the profiler's): its call's host side
+    # takes longer than they do, and CUDA events would time the host.
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
     # split and K1 lse split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3

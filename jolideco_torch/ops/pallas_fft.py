@@ -417,8 +417,8 @@ def _library(name="pfft_conv"):
             signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
                           "pfft_cols_inv": cols_inv}
         else:
-            signatures = {"pfft_cols_fwd_tc": cols_fwd_tc, "pfft_rows_tc": rows,
-                          "pfft_cols_inv_tc": cols_inv}
+            signatures = {"pfft_cols_fwd_tc": cols_fwd_tc,
+                          "pfft_rows_tc": rows, "pfft_cols_inv_tc": cols_inv}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
