@@ -210,10 +210,11 @@ def cuda_ms(torch, fn, reps):
 
 
 def device_ms(torch, fn, reps, *kernels):
-    """Mean device milliseconds per call of ``fn`` in the kernels whose
-    names contain one of ``kernels`` (torch.profiler): for a call whose
-    host side takes longer than its kernels, where CUDA events around a
-    run of calls time the host."""
+    """Mean device milliseconds per call of ``fn``: every kernel, memset
+    and copy it runs on the card (torch.profiler), so that a call whose
+    host side takes longer than its kernels is timed by its device work;
+    fails unless each kernel named by a substring in ``kernels`` ran
+    once per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -222,9 +223,13 @@ def device_ms(torch, fn, reps, *kernels):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if any(k in e.key for k in kernels))
-    check(us > 0, f"the profiler saw no device time in {kernels}")
+    events = prof.key_averages()
+    for name in kernels:
+        seen = sum(e.count for e in events if name in e.key)
+        check(seen == reps, f"the profiler saw {name} {seen} times in "
+              f"{reps} calls")
+    us = sum(e.self_device_time_total for e in events)
+    check(us > 0, "the profiler saw no device time")
     return us / 1e3 / reps
 
 
@@ -355,15 +360,26 @@ def phase_kernels(torch, device):
                     image, bufs, stride, sentinel), 10),
                 "fwd_plain_ms": cuda_ms(torch, lambda: gf.fused_forward_plain(
                     image, bufs, stride, sentinel), 3),
-                # K2's kernels take less time than its call's host side
-                "bwd_ms": device_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
-                    xp, ap, valp, dv, bufs, img.shape, stride), 10,
-                    *K2_KERNELS),
-                "bwd_call_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
+                "bwd_ms": cuda_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
                     xp, ap, valp, dv, bufs, img.shape, stride), 10),
+                # K2's call takes longer on the host than on the card
+                "bwd_device_ms": device_ms(
+                    torch, lambda: gf.gmm_fused_bwd_cuda(
+                        xp, ap, valp, dv, bufs, img.shape, stride), 10,
+                    *K2_KERNELS),
                 "bwd_plain_ms": cuda_ms(torch, lambda: gf.fused_backward_plain(
                     xp, ap, valp, dv, bufs, img.shape, stride), 3),
             }
+            # K2 where each tile's 128 patches select 128 components, one
+            # patch a run: its costliest argmax
+            every = (torch.arange(vp.numel(), device=device)
+                     % bufs["a_bwd"].shape[0]).to(torch.int32)
+            out["k2_many"] = k2_case(
+                torch, xp, every, torch.ones_like(valp),
+                torch.randn(vp.shape, generator=gen, device=device), bufs,
+                img.shape)
+            print(f"phase 2 K2 {label}, argmax = patch index mod K, every "
+                  f"patch valid: {k2_case_line(out['k2_many'])}")
             # K1: every patch against every component (the symmetric
             # quadratic form and b . x); reads the image and the records,
             # writes values, argmax, valid and the normalised patches
@@ -400,8 +416,8 @@ def phase_kernels(torch, device):
             gf.fused_forward_plain(image, wbufs, stride, sentinel), relative)
     t = out["timing"]
     print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
-          f"plain {t['fwd_plain_ms']:.3f} ms; bwd kernels {t['bwd_ms']:.4f} "
-          f"ms (device; a call {t['bwd_call_ms']:.4f} ms), plain "
+          f"plain {t['fwd_plain_ms']:.3f} ms; bwd {t['bwd_ms']:.4f} ms a "
+          f"call ({t['bwd_device_ms']:.4f} ms of device time), plain "
           f"{t['bwd_plain_ms']:.3f} ms")
     out["patch"] = phase_patch_kernels(torch, device, bufs, cases)
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
@@ -1618,15 +1634,54 @@ def argmax_flips(torch, device, flux, gmm, marginalize=False):
 
 
 # patches per block of K2's product kernel (csrc/gmm_fused.cu kBwdTile):
-# each block reads A_k once per distinct k* among its patches
+# each warp reads A_k once per run of k* among its patches
 K2_TILE = 128
 
 
+def k2_case(torch, xtn, argmax, valid, dv, bufs, shape, names=K2_KERNELS):
+    """K2 on the card at these inputs: the distinct components its tiles'
+    patches select, its ms a call and of device time (the kernels
+    ``names`` once a call), and its error against the float32 plain
+    version (1e-4 of the max-abs)."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    def call():
+        return gf.gmm_fused_bwd_cuda(xtn, argmax, valid, dv, bufs, shape, 4)
+
+    got = call()
+    want = gf.fused_backward_plain(xtn, argmax, valid, dv, bufs, shape, 4)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    check(err <= 1e-4 * scale, f"K2 at {argmax.numel()} patches: error "
+          f"{err:.3g} vs max {scale:.3g}")
+    m = valid > 0.5
+    tile = torch.arange(argmax.numel(), device=argmax.device) // K2_TILE
+    n_tiles = int(tile[-1]) + 1
+    width = int(argmax.max()) + 1
+    pairs = torch.unique(tile[m] * width + argmax.long()[m])
+    per_tile = torch.bincount(pairs // width, minlength=n_tiles).float()
+    return {"tile": K2_TILE, "tiles": n_tiles, "valid": int(m.sum()),
+            "pairs": int(pairs.numel()),
+            "used_components": int(torch.unique(argmax[m]).numel()),
+            "mean": float(per_tile.mean()),
+            "median": float(per_tile.median()), "max": int(per_tile.max()),
+            "grad_max_abs_err": err, "grad_max_abs": scale,
+            "k2_ms": cuda_ms(torch, call, 20),
+            "k2_device_ms": device_ms(torch, call, 20, *names)}
+
+
+def k2_case_line(tiles):
+    return (f"{tiles['valid']} valid patches in {tiles['tiles']} tiles of "
+            f"{tiles['tile']} select {tiles['used_components']} components; "
+            f"distinct per tile mean {tiles['mean']:.2f}, median "
+            f"{tiles['median']:.0f}, max {tiles['max']}; K2 "
+            f"{tiles['k2_ms']:.4f} ms a call, {tiles['k2_device_ms']:.4f} ms "
+            f"of device time, error {tiles['grad_max_abs_err']:.3g} (max "
+            f"{tiles['grad_max_abs']:.3g})")
+
+
 def k2_tile_components(torch, device, flux, gmm):
-    """Distinct argmax components (K1 split's, unspun) per tile of K2's
-    patches at ``flux``: K2 reads one A_k (16 KB) per tile and distinct
-    component, ``pairs`` of them in all, and takes the runs of a tile
-    one after the other; K2's milliseconds on these patches."""
+    """K2 (:func:`k2_case`) at the patches and argmax (K1 split's,
+    unspun) of ``flux``."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
@@ -1637,20 +1692,7 @@ def k2_tile_components(torch, device, flux, gmm):
                                                      ZERO_FLUX_SENTINEL)
     gen = torch.Generator(device=device).manual_seed(3)
     dv = torch.randn(valid.shape, generator=gen, device=device) * valid
-    ms = device_ms(torch, lambda: gf.gmm_fused_bwd_cuda(
-        xtn, argmax, valid, dv, bufs, image.shape, 4), 20, *K2_KERNELS)
-    m = valid > 0.5
-    tile = torch.arange(argmax.numel(), device=device) // K2_TILE
-    n_tiles = int(tile[-1]) + 1
-    width = int(argmax.max()) + 1
-    pairs = torch.unique(tile[m] * width + argmax.long()[m])
-    per_tile = torch.bincount(pairs // width, minlength=n_tiles).float()
-    return {"tile": K2_TILE, "tiles": n_tiles, "valid": int(m.sum()),
-            "pairs": int(pairs.numel()),
-            "used_components": int(torch.unique(argmax[m]).numel()),
-            "mean": float(per_tile.mean()),
-            "median": float(per_tile.median()), "max": int(per_tile.max()),
-            "a_read_bytes": int(pairs.numel()) * 64 * 64 * 4, "k2_ms": ms}
+    return k2_case(torch, xtn, argmax, valid, dv, bufs, image.shape)
 
 
 def phase_slice(torch, device):
@@ -1679,13 +1721,7 @@ def phase_slice(torch, device):
           f"max-abs difference {dial_diff:.3g} of the max (the JAX "
           f"package's own at 4x128^2: {JAX_DIAL_FLUX_SHARE})")
     tiles = k2_tile_components(torch, device, flux, astro)
-    print(f"phase 3 K2 tiles at the final flux: {tiles['valid']} valid "
-          f"patches in {tiles['tiles']} tiles of {tiles['tile']} select "
-          f"{tiles['used_components']} components; distinct per tile mean "
-          f"{tiles['mean']:.2f}, median {tiles['median']:.0f}, max "
-          f"{tiles['max']}; {tiles['pairs']} (tile, component) pairs, "
-          f"{tiles['a_read_bytes']} B of A_k read; K2's kernels on them "
-          f"{tiles['k2_ms']:.4f} ms (device)")
+    print(f"phase 3 K2 at the final flux: {k2_case_line(tiles)}")
 
     # small input: the card's run against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -2168,6 +2204,7 @@ def main():
         "dial_flips_limit": K1_SPLIT_FLIPS,
         "final_argmax_flips": slice_["final_flips"],
         "k2_tile_components": slice_["k2_tiles"],
+        "k2_many_components": kernels["k2_many"],
         # the float32 GMM kernels' work under "split" (three bf16
         # products each, at the bf16 peak): the dial's bound
         "split_bound_ms": {
@@ -2182,19 +2219,21 @@ def main():
     }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax
-    # over quadratic forms), so their library_ms is null. K2's ms is its
-    # two kernels' device time (the profiler's): its call's host side
-    # takes longer than they do, and CUDA events would time the host.
+    # over quadratic forms), so their library_ms is null. K2's call takes
+    # longer on the host than its kernels on the card: its row adds
+    # device_ms, the profiler's device time of a call, beside ms (CUDA
+    # events, as every row).
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
     # split and K1 lse split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
     # against the float64 plain version, K4 split (the pipeline from K1
     # lse split) against the float64 pipeline (phase 2)
+    extra = {"gmm_fused_bwd": {"device_ms": timing["bwd_device_ms"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
-         "library_ms": library[name]}
+         "library_ms": library[name], **extra.get(name, {})}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -72,22 +72,26 @@
 //   The tile's live patches are put in (k*, patch) order in shared
 //   memory (each patch's rank among the tile's keys: no sort, no
 //   atomics), their rows transposed into x^T by that order (coalesced
-//   reads). Per run of equal k*, A_{k*} less its column means,
-//   transposed, and b less its mean (a_bwd, b_bwd, made once per GMM by
-//   ops/gmm_fused.py::kernel_buffers) are staged once, so that
-//   dv ((b - mean b) - (A - colmean A) x) is u - mean(u) with no
-//   reduction over a patch's u; then a register-tiled product, each
-//   thread kMtP patches x kMtR rows, so that each value read from
-//   shared memory feeds several multiply-adds. u rows go straight to
-//   their patch's row of a scratch (N, 64), zero for an invalid patch;
+//   reads). A_{k*} less its column means, transposed, and b less its
+//   mean (a_bwd, b_bwd, made once per GMM by
+//   ops/gmm_fused.py::kernel_buffers) make dv ((b - mean b) - (A -
+//   colmean A) x) u - mean(u) with no reduction over a patch's u. Each
+//   warp takes 16 places of that order, run by run; each half-warp up
+//   to 8 patches of a run, each thread 4 rows of their u, reading its
+//   rows of A'^T as float4s (a warp reads a run's A' once, the block's
+//   other warps from L1) and each x^T value from shared memory for 4
+//   multiply-adds. u rows go straight to their patch's row of a scratch
+//   (N, 64), zero for an invalid patch;
 // - gmm_bwd_add_kernel: one thread per pixel sums the G groups' u
 //   entries that cover it, group by group in order (the order of the
 //   plain version's sum), and writes the gradient once: no zero-fill,
 //   no float atomics, the same bits every run.
 // No count goes back to the host: both grids follow from the shapes.
-// The tile's runs are taken one after the other by the whole block, so
-// a tile whose patches select many components takes longer; at the main
-// path's trained flux the tiles select one each (chip_smoke.py phase 3).
+// No barrier separates one run from the next, so a tile whose patches
+// select many components costs each warp one pass over A' per run: with
+// the runs staged in shared memory by the whole block, two barriers
+// each, a tile of 128 components took longer than the one-thread-per-
+// patch kernel (PERF.md).
 
 // ---------------------------------------------------------------------
 // gmm_bwd_marg_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel, the
@@ -133,18 +137,14 @@ constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
 constexpr int kBwdThreads = 256;
 constexpr int kBwdTile = 128;  // patches per backward block
-// a thread's micro-tile of u: kMtP patches x kMtR rows; the block's
-// kBwdThreads threads cover kBwdTile patches x 64 rows
-constexpr int kMtP = 4, kMtR = 8;
-constexpr int kRowGroups = kD / kMtR;
-constexpr int kLdX = kBwdTile + 5;  // x^T row: odd, and room for a micro-tile
-constexpr int kLdA = kD + 4;        // A'^T row: float4-aligned
+// warp w of the block takes places [kSeg w, kSeg (w + 1)) of the tile's
+// (k*, patch) order; a half-warp takes kSegHalf patches of a run, a
+// thread four rows of their u
+constexpr int kSeg = kBwdTile / (kBwdThreads / 32);
+constexpr int kSegHalf = kSeg / 2;
+constexpr int kLdX = kBwdTile + kSeg + 1;  // x^T row: odd, room past the last place
 constexpr int kAddThreads = 256;
-// x^T (64, kLdX), A'^T (64, kLdA), b', then per patch its dv, key,
-// rank, rank order and run end
-constexpr int kBwdSmem = (kD * kLdX + kD * kLdA + kD + 5 * kBwdTile) * 4;
-static_assert(kBwdThreads * kMtP * kMtR == kBwdTile * kD,
-              "the micro-tiles cover the tile");
+static_assert(kSeg == 16 && kD == 64, "a half-warp's 16 threads cover a u row");
 constexpr int kBwdMargThreads = 128;
 
 // Each thread scores kPPT patches, n = (blockIdx.x * kPPT + p) *
@@ -218,17 +218,15 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
                const float* __restrict__ valid, const float* __restrict__ dvalues,
                const float* __restrict__ a_bwd, const float* __restrict__ b_bwd,
                int n_total, float* __restrict__ units) {
-  extern __shared__ __align__(16) float smem[];
-  float* xt = smem;               // [c][rank]: the live patches, by rank
-  float* at = xt + kD * kLdX;     // [c][r]: a_bwd of the run's k*
-  float* bs = at + kD * kLdA;     // b_bwd of the run's k*
-  float* dv = bs + kD;
-  int* key = reinterpret_cast<int*>(dv + kBwdTile);  // k*, or -1: invalid
-  int* rank = key + kBwdTile;     // a live patch's place in (k*, q) order
-  int* order = rank + kBwdTile;   // the patch at each place
-  int* run_end = order + kBwdTile;  // at a run's first place, its end
+  __shared__ __align__(16) float xt[kD * kLdX];  // [c][place]: live patches
+  __shared__ float dv[kBwdTile];
+  __shared__ int key[kBwdTile];      // k*, or -1: invalid
+  __shared__ int rank[kBwdTile];     // a live patch's place in (k*, q) order
+  __shared__ int order[kBwdTile];    // the patch at each place
+  __shared__ int run_end[kBwdTile];  // the end of each place's run of k*
 
   const int n0 = blockIdx.x * kBwdTile;
+  if (n0 >= n_total) return;
   const int count = n_total - n0 < kBwdTile ? n_total - n0 : kBwdTile;
   for (int q = threadIdx.x; q < kBwdTile; q += blockDim.x) {
     const int n = n0 + (q < count ? q : 0);
@@ -241,21 +239,19 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
   }
   __syncthreads();
 
-  // each live patch's rank in (k*, q) order; the first of each run of
-  // equal k* records where the run ends
+  // each live patch's rank in (k*, q) order, and where its run ends
   for (int q = threadIdx.x; q < kBwdTile; q += blockDim.x) {
     const int k = key[q];
     if (k < 0) continue;
-    int below = 0, upto = 0, place = 0;
+    int upto = 0, place = 0;
     for (int j = 0; j < kBwdTile; ++j) {
       const int kj = key[j];
-      below += kj >= 0 && kj < k;
       upto += kj >= 0 && kj <= k;
       place += kj >= 0 && (kj < k || (kj == k && j < q));
     }
     rank[q] = place;
     order[place] = q;
-    if (place == below) run_end[below] = upto;
+    run_end[place] = upto;
   }
   __syncthreads();
 
@@ -290,62 +286,51 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
   }
   int live = 0;
   for (int j = 0; j < kBwdTile; ++j) live += key[j] >= 0;
+  __syncthreads();
 
-  for (int s = 0; s < live;) {
-    const int k = key[order[s]];
-    const int end = run_end[s];
-    __syncthreads();  // x^T is written; the last run is done with at, bs
-    const float4* ak = reinterpret_cast<const float4*>(a_bwd) +
-                       (size_t)k * kD * kD / 4;
-    for (int e = threadIdx.x; e < kD * kD / 4; e += blockDim.x)
-      reinterpret_cast<float4*>(at + (e / (kD / 4)) * kLdA)[e % (kD / 4)] =
-          __ldg(ak + e);
-    for (int r = threadIdx.x; r < kD; r += blockDim.x)
-      bs[r] = __ldg(b_bwd + (size_t)k * kD + r);
-    __syncthreads();
-
-    // thread t: patches at places s + kMtP pg + i (i < kMtP), rows kMtR
-    // rg + rr (rr < kMtR); u rows straight to their patch's place
-    for (int t = threadIdx.x; t < kBwdThreads; t += blockDim.x) {
-      const int pg = t / kRowGroups, rg = t % kRowGroups;
-      const int j0 = s + kMtP * pg;
+  // thread t: warp w = t / 32 takes the places of its segment run by run;
+  // half h of the warp the patches j0 + i (i < kSegHalf, j0 = j +
+  // kSegHalf h) of the run from place j, rows r0 .. r0 + 3 of their u
+  // (r0 = 4 (t % 16)), reading those rows of A_{k*}'^T from the caches.
+  // No barrier between runs: a warp's runs do not wait for the others'.
+  for (int t = threadIdx.x; t < kBwdThreads; t += blockDim.x) {
+    const int seg = t / 32, half = (t / 16) % 2, r0 = 4 * (t % 16);
+    const int seg_end = kSeg * (seg + 1) < live ? kSeg * (seg + 1) : live;
+    for (int j = kSeg * seg; j < seg_end;) {
+      const int k = key[order[j]];
+      const int end = run_end[j] < seg_end ? run_end[j] : seg_end;
+      const int j0 = j + kSegHalf * half;
+      j = end;
       if (j0 >= end) continue;
-      float acc[kMtP][kMtR];
+      const float* ak = a_bwd + (size_t)k * kD * kD + r0;
+      float acc[kSegHalf][4];
 #pragma unroll
-      for (int i = 0; i < kMtP; ++i)
-#pragma unroll
-        for (int rr = 0; rr < kMtR; ++rr) acc[i][rr] = 0.f;
-#pragma unroll 4
+      for (int i = 0; i < kSegHalf; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 8
       for (int c = 0; c < kD; ++c) {
-        const float4* a4 =
-            reinterpret_cast<const float4*>(at + c * kLdA + kMtR * rg);
-        const float4 a0 = a4[0], a1 = a4[1];
-        const float av[kMtR] = {a0.x, a0.y, a0.z, a0.w,
-                                a1.x, a1.y, a1.z, a1.w};
+        const float4 a = __ldg(reinterpret_cast<const float4*>(ak + c * kD));
 #pragma unroll
-        for (int i = 0; i < kMtP; ++i) {
+        for (int i = 0; i < kSegHalf; ++i) {
           const float x = xt[c * kLdX + j0 + i];
-#pragma unroll
-          for (int rr = 0; rr < kMtR; ++rr)
-            acc[i][rr] = fmaf(av[rr], x, acc[i][rr]);
+          acc[i][0] = fmaf(a.x, x, acc[i][0]);
+          acc[i][1] = fmaf(a.y, x, acc[i][1]);
+          acc[i][2] = fmaf(a.z, x, acc[i][2]);
+          acc[i][3] = fmaf(a.w, x, acc[i][3]);
         }
       }
+      const float4 b =
+          __ldg(reinterpret_cast<const float4*>(b_bwd + (size_t)k * kD + r0));
 #pragma unroll
-      for (int i = 0; i < kMtP; ++i) {
+      for (int i = 0; i < kSegHalf; ++i) {
         if (j0 + i >= end) break;
         const int q = order[j0 + i];
         const float d = dv[q];
-        float u[kMtR];
-#pragma unroll
-        for (int rr = 0; rr < kMtR; ++rr)
-          u[rr] = d * (bs[kMtR * rg + rr] - acc[i][rr]);
-        float4* dst = reinterpret_cast<float4*>(
-            units + (size_t)(n0 + q) * kD + kMtR * rg);
-        dst[0] = make_float4(u[0], u[1], u[2], u[3]);
-        dst[1] = make_float4(u[4], u[5], u[6], u[7]);
+        reinterpret_cast<float4*>(units + (size_t)(n0 + q) * kD + r0)[0] =
+            make_float4(d * (b.x - acc[i][0]), d * (b.y - acc[i][1]),
+                        d * (b.z - acc[i][2]), d * (b.w - acc[i][3]));
       }
     }
-    s = end;
   }
 }
 
@@ -436,10 +421,8 @@ int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                   void* grad, void* stream) {
   const int groups = (kP / stride) * (kP / stride);
   const int n_total = groups * ny * nx;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
   const int blocks = (n_total + kBwdTile - 1) / kBwdTile;
-  gmm_bwd_kernel<<<blocks, kBwdThreads, kBwdSmem,
+  gmm_bwd_kernel<<<blocks, kBwdThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xtn), static_cast<const int*>(argmax),
       static_cast<const float*>(valid), static_cast<const float*>(dvalues),
@@ -450,8 +433,7 @@ int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(units), H, W, stride, ny, nx,
       static_cast<float*>(grad));
-  const cudaError_t launch = cudaGetLastError();
-  return static_cast<int>(attr != cudaSuccess ? attr : launch);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int gmm_fused_bwd_marg(const void* xtn, const void* lse, const void* valid,
