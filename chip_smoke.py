@@ -374,12 +374,10 @@ def phase_kernels(torch, device):
             # patch a run: its costliest argmax
             every = (torch.arange(vp.numel(), device=device)
                      % bufs["a_bwd"].shape[0]).to(torch.int32)
-            out["k2_many"] = k2_case(
-                torch, xp, every, torch.ones_like(valp),
-                torch.randn(vp.shape, generator=gen, device=device), bufs,
-                img.shape)
-            print(f"phase 2 K2 {label}, argmax = patch index mod K, every "
-                  f"patch valid: {k2_case_line(out['k2_many'])}")
+            out["k2_many"] = k2_case(torch, xp, every, valp, dv, bufs,
+                                     img.shape)
+            print(f"phase 2 K2 {label}, argmax = patch index mod K: "
+                  f"{k2_case_line(out['k2_many'])}")
             # K1: every patch against every component (the symmetric
             # quadratic form and b . x); reads the image and the records,
             # writes values, argmax, valid and the normalised patches

@@ -76,11 +76,11 @@
 //   mean (a_bwd, b_bwd, made once per GMM by
 //   ops/gmm_fused.py::kernel_buffers) make dv ((b - mean b) - (A -
 //   colmean A) x) u - mean(u) with no reduction over a patch's u. Each
-//   warp takes 16 places of that order, run by run; each half-warp up
-//   to 8 patches of a run, each thread 4 rows of their u, reading its
-//   rows of A'^T as float4s (a warp reads a run's A' once, the block's
-//   other warps from L1) and each x^T value from shared memory for 4
-//   multiply-adds. u rows go straight to their patch's row of a scratch
+//   half-warp takes 8 places of that order, run by run, each thread 4
+//   rows of their u, reading its rows of A'^T as float4s (a half-warp
+//   reads a run's A' once, the block's others from L1) and each x^T
+//   value from shared memory for 4 multiply-adds. u rows go straight to
+//   their patch's row of a scratch
 //   (N, 64), zero for an invalid patch;
 // - gmm_bwd_add_kernel: one thread per pixel sums the G groups' u
 //   entries that cover it, group by group in order (the order of the
@@ -88,7 +88,7 @@
 //   no float atomics, the same bits every run.
 // No count goes back to the host: both grids follow from the shapes.
 // No barrier separates one run from the next, so a tile whose patches
-// select many components costs each warp one pass over A' per run: with
+// select many components costs each half-warp one pass over A' per run: with
 // the runs staged in shared memory by the whole block, two barriers
 // each, a tile of 128 components took longer than the one-thread-per-
 // patch kernel (PERF.md).
@@ -137,14 +137,12 @@ constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
 constexpr int kBwdThreads = 256;
 constexpr int kBwdTile = 128;  // patches per backward block
-// warp w of the block takes places [kSeg w, kSeg (w + 1)) of the tile's
-// (k*, patch) order; a half-warp takes kSegHalf patches of a run, a
-// thread four rows of their u
-constexpr int kSeg = kBwdTile / (kBwdThreads / 32);
-constexpr int kSegHalf = kSeg / 2;
+// half-warp h of the block takes places [kSeg h, kSeg (h + 1)) of the
+// tile's (k*, patch) order, a thread four rows of their u
+constexpr int kSeg = kBwdTile / (kBwdThreads / 16);
 constexpr int kLdX = kBwdTile + kSeg + 1;  // x^T row: odd, room past the last place
 constexpr int kAddThreads = 256;
-static_assert(kSeg == 16 && kD == 64, "a half-warp's 16 threads cover a u row");
+static_assert(kSeg == 8 && kD == 64, "a half-warp's 16 threads cover a u row");
 constexpr int kBwdMargThreads = 128;
 
 // Each thread scores kPPT patches, n = (blockIdx.x * kPPT + p) *
@@ -288,30 +286,29 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
   for (int j = 0; j < kBwdTile; ++j) live += key[j] >= 0;
   __syncthreads();
 
-  // thread t: warp w = t / 32 takes the places of its segment run by run;
-  // half h of the warp the patches j0 + i (i < kSegHalf, j0 = j +
-  // kSegHalf h) of the run from place j, rows r0 .. r0 + 3 of their u
-  // (r0 = 4 (t % 16)), reading those rows of A_{k*}'^T from the caches.
-  // No barrier between runs: a warp's runs do not wait for the others'.
+  // thread t: half-warp h = t / 16 takes the places of its segment run
+  // by run, the patches j + i (i < kSeg) of the run from place j, rows
+  // r0 .. r0 + 3 of their u (r0 = 4 (t % 16)), reading those rows of
+  // A_{k*}'^T from the caches. No barrier between runs: a half-warp's
+  // runs do not wait for the others'.
   for (int t = threadIdx.x; t < kBwdThreads; t += blockDim.x) {
-    const int seg = t / 32, half = (t / 16) % 2, r0 = 4 * (t % 16);
+    const int seg = t / 16, r0 = 4 * (t % 16);
     const int seg_end = kSeg * (seg + 1) < live ? kSeg * (seg + 1) : live;
     for (int j = kSeg * seg; j < seg_end;) {
       const int k = key[order[j]];
+      const int j0 = j;
       const int end = run_end[j] < seg_end ? run_end[j] : seg_end;
-      const int j0 = j + kSegHalf * half;
       j = end;
-      if (j0 >= end) continue;
       const float* ak = a_bwd + (size_t)k * kD * kD + r0;
-      float acc[kSegHalf][4];
+      float acc[kSeg][4];
 #pragma unroll
-      for (int i = 0; i < kSegHalf; ++i)
+      for (int i = 0; i < kSeg; ++i)
         acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll 8
       for (int c = 0; c < kD; ++c) {
         const float4 a = __ldg(reinterpret_cast<const float4*>(ak + c * kD));
 #pragma unroll
-        for (int i = 0; i < kSegHalf; ++i) {
+        for (int i = 0; i < kSeg; ++i) {
           const float x = xt[c * kLdX + j0 + i];
           acc[i][0] = fmaf(a.x, x, acc[i][0]);
           acc[i][1] = fmaf(a.y, x, acc[i][1]);
@@ -322,7 +319,7 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
       const float4 b =
           __ldg(reinterpret_cast<const float4*>(b_bwd + (size_t)k * kD + r0));
 #pragma unroll
-      for (int i = 0; i < kSegHalf; ++i) {
+      for (int i = 0; i < kSeg; ++i) {
         if (j0 + i >= end) break;
         const int q = order[j0 + i];
         const float d = dv[q];

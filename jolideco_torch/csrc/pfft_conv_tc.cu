@@ -30,7 +30,7 @@
 //     rows, stage A ends with that twiddle and every k2 multiplies R(F):
 //     three k2 share each streamed tile. One block per (pair, 16
 //     columns), a loop over the k2 inside; the block's columns of x0 and
-//     x1 are read from device memory once, and from L2 for the later k2.
+//     x1 are read from device memory once, into registers.
 // pfft_rows_tc_kernel replaces _k2_body (jolideco_tpu/ops/pallas_fft.py)
 //     under "split": per row of U, the lane forward Z = S . mf[k2] (stage
 //     A, S = sum_n2 wf U, folded into the operand load), the combine A . Z
@@ -81,9 +81,8 @@
 //   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
 //   traffic holds it, not the block count); two blocks per SM made pass
 //   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
-// - pass 1 reads its block's input again for each k2, from L2 after the
-//   first: held in registers (244 of them) for images of up to 1024
-//   rows, it was no faster (TIMING_PLACEHOLDER).
+// - pass 1 keeps its block's input in registers (244 of them, no spills;
+//   128 KB of shared memory would leave no room for its operand rows).
 //   With R(mf[k2]) streamed for each k2, every block of 16 columns read
 //   2.4 MB of tables from L2, 755 MB a call, and took 0.28 ms; one R(F)
 //   for three k2 at a time reads a third of that.
@@ -469,13 +468,17 @@ pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
 // F = mf[0] (the 128-point DFT) after the twiddle tw[k2][n1] =
 // Wn^(n1 k2) on its rows. So stage A also applies the twiddle, and one
 // R(F) serves every k2: kChunk k2 at a time share each streamed tile of
-// it, as kChunk x kCols operand rows. Each k2 reads the block's columns
-// of x0 and x1 again, from L2 after the first.
+// it, as kChunk x kCols operand rows. A thread's share of the block's
+// columns of x0 and x1 stays in its registers for images of up to
+// kResidentBlocks 128-row blocks; taller ones are re-read from device
+// memory (L2) per k2.
+constexpr int kResidentBlocks = 8;
 constexpr int kChunk = 3;
 constexpr int kFwdElems = kLane * kCols / kThreads;  // (n1, c) of a thread
 constexpr int kSmemColsFwd = (2 * kStageElems + 2 * kChunk * kCols * kLdA) * 2;
 static_assert(kSmemColsFwd <= 232448, "pass 1 fits a block's shared memory");
 
+template <bool kResident>
 __global__ void __launch_bounds__(kThreads, 1)
 pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
                         const float* __restrict__ x1, int P, int H, int W,
@@ -512,6 +515,16 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
     const int e = threadIdx.x + i * kThreads;
     return in0 + (size_t)(kLane * n2 + e / kCols) * W + e % kCols;
   };
+  float2 z[kResident ? kResidentBlocks : 1][kFwdElems];
+  if (kResident) {
+#pragma unroll
+    for (int n2 = 0; n2 < kResidentBlocks; ++n2)
+#pragma unroll
+      for (int i = 0; i < kFwdElems; ++i)
+        z[n2][i] = n2 < hb ? make_float2(x0[at(n2, i)], x1[at(n2, i)])
+                           : make_float2(0.f, 0.f);
+  }
+
   for (int ch = 0; ch < chunks; ++ch) {
     // stage A, S'[n1][c] = tw[k2][n1] sum_n2 wf[n2][k2] z[128 n2 + n1][c],
     // split into operand row kk kCols + c (zero past the last k2)
@@ -525,11 +538,22 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
         s[i].y = fmaf(w.x, xi, fmaf(w.y, xr, s[i].y));
       };
       if (k2 < m) {
-        for (int n2 = 0; n2 < hb; ++n2) {
-          const float2 w = wf[n2 * m + k2];
+        if (kResident) {
 #pragma unroll
-          for (int i = 0; i < kFwdElems; ++i)
-            add(w, i, __ldg(x0 + at(n2, i)), __ldg(x1 + at(n2, i)));
+          for (int n2 = 0; n2 < kResidentBlocks; ++n2) {
+            if (n2 >= hb) break;
+            const float2 w = wf[n2 * m + k2];
+#pragma unroll
+            for (int i = 0; i < kFwdElems; ++i)
+              add(w, i, z[n2][i].x, z[n2][i].y);
+          }
+        } else {
+          for (int n2 = 0; n2 < hb; ++n2) {
+            const float2 w = wf[n2 * m + k2];
+#pragma unroll
+            for (int i = 0; i < kFwdElems; ++i)
+              add(w, i, __ldg(x0 + at(n2, i)), __ldg(x1 + at(n2, i)));
+          }
         }
       }
 #pragma unroll
@@ -576,11 +600,12 @@ extern "C" {
 int pfft_cols_fwd_tc(const float* x0, const float* x1, int P, int H,
                      int W, int m, const void* rf, const float2* wf,
                      const float2* tw, float2* u, cudaStream_t stream) {
+  auto kernel = H <= kLane * kResidentBlocks ? pfft_cols_fwd_tc_kernel<true>
+                                             : pfft_cols_fwd_tc_kernel<false>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      pfft_cols_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemColsFwd);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemColsFwd);
   const int blocks = P * (W / kCols);
-  pfft_cols_fwd_tc_kernel<<<blocks, kThreads, kSmemColsFwd, stream>>>(
+  kernel<<<blocks, kThreads, kSmemColsFwd, stream>>>(
       x0, x1, P, H, W, m, static_cast<const bf16*>(rf), wf, tw, u);
   return finish(attr);
 }

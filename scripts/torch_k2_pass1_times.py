@@ -18,8 +18,8 @@ the first run (its K1 split, its ``MAPDeconvolver``) and saved to
 - ``step1``: the flux after one step of ``chip_smoke.py``'s main path;
 - ``trained``: after its 20 steps;
 - ``uniform``: ``chip_smoke.py`` phase 2's random 1024² image;
-- ``many``: the patches of ``uniform`` with argmax = patch index mod K,
-  every patch valid: 128 components in every tile of 128 patches.
+- ``many``: the patches of ``uniform`` with argmax = patch index mod K:
+  128 components in every tile of 128 patches.
 
 Each case gives the distinct components per tile of 128 patches, K2's ms
 a call (CUDA events) and of device time (``torch.profiler``: every kernel
@@ -80,11 +80,11 @@ def make_cases(torch, cs, device, gmm):
             image, bufs, 4, ZERO_FLUX_SENTINEL)
         dv = torch.randn(valid.shape, generator=gen, device=device) * valid
         cases[name] = (xtn, argmax, valid, dv)
-    xtn = cases["uniform"][0]
+    xtn, _, valid, _ = cases["uniform"]
     every = (torch.arange(xtn.shape[0], device=device)
              % bufs["rec"].shape[0]).to(torch.int32)
-    cases["many"] = (xtn, every, torch.ones_like(every, dtype=torch.float32),
-                     torch.randn(every.shape, generator=gen, device=device))
+    cases["many"] = (xtn, every, valid, torch.randn(
+        every.shape, generator=gen, device=device) * valid)
     return {name: tuple(t.cpu() for t in case)
             for name, case in cases.items()}
 

@@ -419,19 +419,20 @@ def test_map_backward_is_repeatable_and_needs_no_host(device, gmm, shape,
 @pytest.mark.parametrize("period", [1, 7, 200])
 def test_map_backward_any_components_per_tile(device, period):
     """K2 where the 128 patches of a tile select ``period`` components in
-    turn (one run of 128 patches, runs crossing the warps' places, one
-    patch a run), every patch valid, against the plain version."""
+    turn (one run of 128 patches, runs crossing the half-warps' places,
+    one patch a run), at the valid patches of a 256 x 192 image, against
+    the plain version."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors import GaussianMixtureModel
 
     bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
         device)
     shape, stride = (256, 192), 4
-    n = gf.fused_patch_count(shape, stride)
+    image = torch.as_tensor(make_image(shape), device=device)
+    _, _, valid, xtn = gf.gmm_fused_fwd_cuda(image, bufs, stride, SENTINEL)
+    n = valid.numel()
     gen = torch.Generator(device=device).manual_seed(period)
-    xtn = torch.randn(n, 64, generator=gen, device=device)
     argmax = (torch.arange(n, device=device) % period).to(torch.int32)
-    valid = torch.ones(n, device=device)
     dv = torch.randn(n, generator=gen, device=device)
     got = gf.gmm_fused_bwd_cuda(xtn, argmax, valid, dv, bufs, shape, stride)
     want = gf.fused_backward_plain(xtn, argmax, valid, dv, bufs, shape,
@@ -666,8 +667,9 @@ def test_pfft_tensor_core_kernels_match_float64(device, p_, h, w,
                                     (5, 1024, 896), (1, 1152, 128)])
 def test_pfft_tensor_core_pass1_matches_float64(device, p_, h, w, conj_spec):
     """Pass 1 on the tensor cores (``"split"``) against the split plain
-    version and float64, beside the float32 kernel; 1152 rows are
-    taller than the main path's images."""
+    version and float64, beside the float32 kernel; 1152 rows exceed
+    what a block keeps in shared memory (1024), so that image takes the
+    kernel's variant that re-reads its columns per k2."""
     from jolideco_torch.ops import pallas_fft as pf
 
     x0, x1, n, spectra = pfft_batch(device, p_, h, w, 33, h + w + p_)

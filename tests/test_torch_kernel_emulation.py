@@ -272,19 +272,19 @@ def test_map_backward_is_repeatable(libs, shape, stride):
 @pytest.mark.parametrize("period", [1, 3, 7, 19, 200])
 def test_map_backward_any_components_per_tile(libs, period):
     """K2 where the 128 patches of a tile select ``period`` components in
-    turn (runs from 128 patches down to one, crossing the warps' places),
-    every patch valid, against the plain version at the 1e-4 bar."""
+    turn (runs from 128 patches down to one, crossing the half-warps'
+    places), at the valid patches of an image, against the plain version
+    at the 1e-4 bar."""
     fused, _ = libs
     bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
         "cpu")
     shape, stride = (64, 48), 4
-    n = gf.fused_patch_count(shape, stride)
-    rs = np.random.RandomState(period)
-    xtn = torch.as_tensor(rs.randn(n, 64), dtype=torch.float32)
+    _, _, valid, xtn = gf.fused_forward_plain(make_image(shape, seed=period),
+                                              bufs, stride, SENTINEL)
+    n = valid.numel()
     argmax = torch.arange(n, dtype=torch.int32) % period
-    valid = torch.ones(n)
-    valid[5] = 0.0
-    dv = torch.as_tensor(rs.randn(n), dtype=torch.float32)
+    dv = torch.as_tensor(np.random.RandomState(period).randn(n),
+                         dtype=torch.float32)
     grad = map_backward(fused, xtn, argmax, valid, dv, bufs, shape, stride)
     want = gf.fused_backward_plain(xtn, argmax, valid, dv, bufs, shape, stride)
     torch.testing.assert_close(grad, want, rtol=0,
