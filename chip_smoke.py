@@ -1632,7 +1632,7 @@ def argmax_flips(torch, device, flux, gmm, marginalize=False):
 
 
 # patches per block of K2's product kernel (csrc/gmm_fused.cu kBwdTile):
-# each warp reads A_k once per run of k* among its patches
+# each half-warp reads A_k once per run of k* among its 8 places
 K2_TILE = 128
 
 

@@ -87,11 +87,15 @@
 //   plain version's sum), and writes the gradient once: no zero-fill,
 //   no float atomics, the same bits every run.
 // No count goes back to the host: both grids follow from the shapes.
-// No barrier separates one run from the next, so a tile whose patches
-// select many components costs each half-warp one pass over A' per run: with
-// the runs staged in shared memory by the whole block, two barriers
-// each, a tile of 128 components took longer than the one-thread-per-
-// patch kernel (PERF.md).
+// No barrier separates one run from the next: a run costs only its
+// half-warps a pass over A'. Runs staged in shared memory by the whole
+// block, two barriers a run, took 0.63 ms where every tile's patches
+// select 128 components (0.32 for the one-thread-per-patch kernel; 0.19
+// now), and 0.046 ms where they select one (now 0.043): device time at
+// 1024², NVIDIA H100 80GB HBM3 (700 W limit),
+// scripts/torch_k2_pass1_times.py. A run boundary inside a half-warp's
+// 8 places costs it a second pass, so a random image (1.09 components a
+// tile) takes 0.060 ms.
 
 // ---------------------------------------------------------------------
 // gmm_bwd_marg_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel, the

@@ -82,7 +82,10 @@
 //   traffic holds it, not the block count); two blocks per SM made pass
 //   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
 // - pass 1 keeps its block's input in registers (244 of them, no spills;
-//   128 KB of shared memory would leave no room for its operand rows).
+//   128 KB of shared memory would leave no room for its operand rows)
+//   for images of up to 1024 rows: 0.157 ms at 5 pairs of 1024², where
+//   the variant that re-reads it from L2 per k2 (taller images) takes
+//   0.196 (scripts/torch_k2_pass1_times.py).
 //   With R(mf[k2]) streamed for each k2, every block of 16 columns read
 //   2.4 MB of tables from L2, 755 MB a call, and took 0.28 ms; one R(F)
 //   for three k2 at a time reads a third of that.
