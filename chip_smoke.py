@@ -212,22 +212,26 @@ def cuda_ms(torch, fn, reps):
 def device_ms(torch, fn, reps, *kernels):
     """Mean device milliseconds per call of ``fn``: every kernel, memset
     and copy it runs on the card (torch.profiler), so that a call whose
-    host side takes longer than its kernels is timed by its device work;
-    fails unless each kernel named by a substring in ``kernels`` ran
-    once per call."""
+    host side takes longer than its kernels is timed by its device work.
+    The profiler now and then misses a kernel of a run: a record in which
+    a kernel named by a substring in ``kernels`` did not appear once per
+    call is taken again, at most twice more."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    for name in kernels:
-        seen = sum(e.count for e in events if name in e.key)
-        check(seen == reps, f"the profiler saw {name} {seen} times in "
-              f"{reps} calls")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        seen = {name: sum(e.count for e in events if name in e.key)
+                for name in kernels}
+        if all(n == reps for n in seen.values()):
+            break
+    check(all(n == reps for n in seen.values()),
+          f"the profiler saw {seen} in {reps} calls, three times")
     us = sum(e.self_device_time_total for e in events)
     check(us > 0, "the profiler saw no device time")
     return us / 1e3 / reps
