@@ -20,14 +20,15 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   names: the matmul-DFT convolution's (:func:`pfft_mode`: ``"f32"``,
   ``"split"``, ``"bf16"``) and the fused GMM scorer's (:func:`gmm_mode`:
   ``"f32"`` or ``"split"``). Under ``"split"`` (the default dial,
-  ``"high"``) the matrix-DFT convolution's passes 2 and 3 and the fused
+  ``"high"``) the matrix-DFT convolution's passes and the fused
   scorer's logits (its MAP and logsumexp forwards and its marginalise
-  backward) run on the tensor cores as bf16 hi/lo products with float32
-  sums; ``"default"`` also takes the scorer's ``"split"`` (a
+  backward), and the MAP logits of the patch-level scorer of the
+  Hessian probe, run on the tensor cores as bf16 hi/lo products with
+  float32 sums; ``"default"`` also takes the scorer's ``"split"`` (a
   single-bf16 scorer is not ported). Every other kernel (the
-  patch-level scorer of the Hessian probe among them), and those in the
-  other modes, computes in full float32, which meets the strictest
-  bar. At import and on every dial change the
+  marginalised probe's scorer, gradient and Hessian action among them),
+  and those in the other modes, computes in full float32, which meets
+  the strictest bar. At import and on every dial change the
   float32 matmul and cuDNN paths are pinned to full float32: PyTorch
   lets cuDNN convolutions run in TF32 by default, which keeps only about
   three decimal digits.

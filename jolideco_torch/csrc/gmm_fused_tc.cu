@@ -377,47 +377,55 @@ __device__ __forceinline__ void take_lse(float& v, float& s, int& k, float ov,
   take_max(v, k, ov, ok);
 }
 
-template <bool kMarginalize>
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
-                  int ny, int nx, int n_total, float sentinel,
-                  const bf16* __restrict__ a_pairs,
-                  const float* __restrict__ bc, int K,
-                  float* __restrict__ values, int* __restrict__ argmax,
-                  float* __restrict__ valid_out, float* __restrict__ xtn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw + kXBytes);
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes);
-  bf16* us = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes +
-                                     kStageBytes);
-  float* red_v = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
-                                          kStageBytes + kUBytes);
-  int* red_k = reinterpret_cast<int*>(red_v + 3 * kBlockRows);
-  float* red_s = reinterpret_cast<float*>(red_k + 3 * kBlockRows);
+// The forward's shared memory: the patches (float, padded rows), the
+// pair table, A's two stages, u's two buffers and the reductions.
+struct FwdSmem {
+  float* xs;
+  uint16_t* pairs;
+  bf16* stages;
+  bf16* us;
+  float* red_v;
+  int* red_k;
+  float* red_s;
+};
 
+__device__ __forceinline__ FwdSmem fwd_smem(unsigned char* raw) {
+  FwdSmem s;
+  s.xs = reinterpret_cast<float*>(raw);
+  s.pairs = reinterpret_cast<uint16_t*>(raw + kXBytes);
+  s.stages = reinterpret_cast<bf16*>(raw + kXBytes + kPairBytes);
+  s.us = reinterpret_cast<bf16*>(raw + kXBytes + kPairBytes + kStageBytes);
+  s.red_v = reinterpret_cast<float*>(raw + kXBytes + kPairBytes +
+                                     kStageBytes + kUBytes);
+  s.red_k = reinterpret_cast<int*>(s.red_v + 3 * kBlockRows);
+  s.red_s = reinterpret_cast<float*>(s.red_k + 3 * kBlockRows);
+  return s;
+}
+
+// The scores of the block's rows n0 .. n0 + 127 (their patches in s.xs,
+// the pair table built), over every tile of components: the maximum
+// (MAP, <false>) or the logsumexp (<true>) and the lowest index among
+// equal maxima, written for the rows below n_total. The one code of K1
+// split's and K5 split's reductions.
+template <bool kMarginalize>
+__device__ __forceinline__ void score_block(const FwdSmem& s,
+                                            const bf16* __restrict__ a_pairs,
+                                            const float* __restrict__ bc,
+                                            int K, int n0, int n_total,
+                                            float* __restrict__ values,
+                                            int* __restrict__ argmax) {
+  float* red_v = s.red_v;
+  int* red_k = s.red_k;
+  float* red_s = s.red_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
-  const int n0 = blockIdx.x * kBlockRows;
   const int n_tiles = (K + kKP - 1) / kKP;
-
-  build_pairs(pairs);
-  // the block's patches: xtn and valid to device memory, x to shared
-  if (tid < kBlockRows) {
-    float x[kD];
-    const int n = n0 + tid;
-    const float v = load_patch(img, H, W, stride, ny, nx, n, n_total,
-                               sentinel, xtn, x);
-    if (n < n_total) valid_out[n] = v;
-#pragma unroll
-    for (int c = 0; c < kD; ++c) xs[tid * kXLd + c] = x[c];
-  }
 
   const int g = lane >> 2, tq = lane & 3;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kKP;
     float acc[kMT][kNT][4];
-    tile_logits(acc, xs, pairs, stages, us,
+    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
                 a_pairs + (size_t)tile * kChunks * kTileElems,
                 bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
 
@@ -500,6 +508,63 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
         kMarginalize ? best + logf(red_s[2 * kBlockRows + tid]) : best;
     argmax[n0 + tid] = best_k >= K ? 0 : best_k;
   }
+}
+
+template <bool kMarginalize>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
+                  int ny, int nx, int n_total, float sentinel,
+                  const bf16* __restrict__ a_pairs,
+                  const float* __restrict__ bc, int K,
+                  float* __restrict__ values, int* __restrict__ argmax,
+                  float* __restrict__ valid_out, float* __restrict__ xtn) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FwdSmem s = fwd_smem(smem_raw);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBlockRows;
+
+  build_pairs(s.pairs);
+  // the block's patches: xtn and valid to device memory, x to shared
+  if (tid < kBlockRows) {
+    float x[kD];
+    const int n = n0 + tid;
+    const float v = load_patch(img, H, W, stride, ny, nx, n, n_total,
+                               sentinel, xtn, x);
+    if (n < n_total) valid_out[n] = v;
+#pragma unroll
+    for (int c = 0; c < kD; ++c) s.xs[tid * kXLd + c] = x[c];
+  }
+  score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
+}
+
+// K5 split: the scores of rows (n_total, 64) float32, already masked
+// and mean-subtracted. The block's 128 rows come in by coalesced float4
+// reads (a warp's 32 threads over 512 contiguous bytes) into the padded
+// patch tile; a row past the end is zero.
+template <bool kMarginalize>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
+                         const bf16* __restrict__ a_pairs,
+                         const float* __restrict__ bc, int K,
+                         float* __restrict__ values,
+                         int* __restrict__ argmax) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const FwdSmem s = fwd_smem(smem_raw);
+  const int n0 = blockIdx.x * kBlockRows;
+
+  build_pairs(s.pairs);
+  const float4* src = reinterpret_cast<const float4*>(rows);
+  for (int i = threadIdx.x; i < kBlockRows * kD / 4; i += kThreads) {
+    const int r = i / (kD / 4), c = 4 * (i % (kD / 4));
+    const float4 v = n0 + r < n_total ? __ldg(src + (size_t)n0 * (kD / 4) + i)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dst = s.xs + r * kXLd + c;
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
 }
 
 // One nonzero weight w of row x (shared memory) and component k:
@@ -696,6 +761,26 @@ int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
       static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc), K,
       static_cast<float*>(values), static_cast<int*>(argmax),
       static_cast<float*>(valid), static_cast<float*>(xtn));
+  const cudaError_t launch = cudaGetLastError();
+  return static_cast<int>(attr != cudaSuccess ? attr : launch);
+}
+
+// K5 split on rows (n, 64) float32: the buffers of gmm_fused_fwd_tc;
+// values are the maxima or, with marginalize, the logsumexp. Errors as
+// gmm_fused_fwd_tc; the wrapper never calls it with n = 0.
+int gmm_score_rows_tc(const void* rows, int n, const void* a_pairs,
+                      const void* bc, int K, int marginalize, void* values,
+                      void* argmax, void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = marginalize ? gmm_score_rows_tc_kernel<true>
+                            : gmm_score_rows_tc_kernel<false>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
+  const int blocks = (n + kBlockRows - 1) / kBlockRows;
+  kernel<<<blocks, kThreads, kSmemFwd, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), n, static_cast<const bf16*>(a_pairs),
+      static_cast<const float*>(bc), K, static_cast<float*>(values),
+      static_cast<int*>(argmax));
   const cudaError_t launch = cudaGetLastError();
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }

@@ -107,7 +107,14 @@ using gmm::load_row;
 
 constexpr int kScoreThreads = 128;
 constexpr int kRPT = 2;              // rows per scoring thread
-constexpr int kRowThreads = 128;
+// the row map: kMapTile rows a block; half-warp h of the block takes
+// places [kMapSeg h, kMapSeg (h + 1)) of the tile's (k*, row) order, a
+// thread four entries of their output rows
+constexpr int kMapTile = 128;
+constexpr int kMapThreads = 256;
+constexpr int kMapSeg = kMapTile / (kMapThreads / 16);
+constexpr int kMapLd = kMapTile + kMapSeg + 1;  // x^T row: odd, room past the last place
+static_assert(kMapSeg == 8 && kD == 64, "a half-warp's 16 threads cover a row");
 constexpr int kMargThreads = 128;
 
 // Each thread scores kRPT rows, n = (blockIdx.x * kRPT + p) * blockDim.x +
@@ -167,42 +174,112 @@ gmm_score_rows_kernel(const float* __restrict__ rows, int n_total,
   }
 }
 
-// out = b_{k*} - A_{k*} x (kUnit) or -A_{k*} x (the Hessian action, x = t).
+// out = b_{k*} - A_{k*} x (kUnit) or -A_{k*} x (the Hessian action, x = t)
+// for the block's kMapTile consecutive rows. A_k is symmetric, so row c
+// of A_k is its column c: (A_k x)_r = sum_c A_k[c][r] x_c, and a
+// half-warp reads row c as 16 float4s, one 256-byte line.
 template <bool kUnit>
-__global__ void __launch_bounds__(kRowThreads)
+__global__ void __launch_bounds__(kMapThreads)
 gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argmax,
                    const float* __restrict__ a_full,
                    const float* __restrict__ b_rows, int n_total,
                    float* __restrict__ out) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= n_total) return;
+  __shared__ __align__(16) float xt[kD * kMapLd];  // [c][place]
+  __shared__ int key[kMapTile];      // each row's k*
+  __shared__ int rank[kMapTile];     // a row's place in (k*, q) order
+  __shared__ int order[kMapTile];    // the row at each place
+  __shared__ int run_end[kMapTile];  // the end of each place's run of k*
 
-  const int k = argmax[n];
-  float x[kD];
-  load_row(rows, n, n_total, x);
+  const int n0 = blockIdx.x * kMapTile;
+  const int count = n_total - n0 < kMapTile ? n_total - n0 : kMapTile;
+  for (int q = threadIdx.x; q < count; q += blockDim.x)
+    key[q] = __ldg(argmax + n0 + q);
+  __syncthreads();
 
-  const float4* A = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
-  const float* bk = kUnit ? b_rows + (size_t)k * kD : nullptr;
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
-#pragma unroll
-  for (int r0 = 0; r0 < kD; r0 += 4) {
-    float o[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + i;
-      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
-#pragma unroll
-      for (int c = 0; c < kD; c += 4) {
-        const float4 a = __ldg(A + r * (kD / 4) + c / 4);
-        t0 = fmaf(a.x, x[c], t0);
-        t1 = fmaf(a.y, x[c + 1], t1);
-        t2 = fmaf(a.z, x[c + 2], t2);
-        t3 = fmaf(a.w, x[c + 3], t3);
-      }
-      const float ax = (t0 + t1) + (t2 + t3);
-      o[i] = kUnit ? __ldg(bk + r) - ax : -ax;
+  // each row's rank in (k*, q) order, and where its run ends
+  for (int q = threadIdx.x; q < count; q += blockDim.x) {
+    const int k = key[q];
+    int upto = 0, place = 0;
+    for (int j = 0; j < count; ++j) {
+      const int kj = key[j];
+      upto += kj <= k;
+      place += kj < k || (kj == k && j < q);
     }
-    dst[r0 / 4] = make_float4(o[0], o[1], o[2], o[3]);
+    rank[q] = place;
+    order[place] = q;
+    run_end[place] = upto;
+  }
+  __syncthreads();
+
+  // x^T by rank, from coalesced float4 reads, kMapLoads of a thread in
+  // flight together
+  constexpr int kMapLoads = kMapTile * kD / 4 / kMapThreads;
+  const float4* x4 = reinterpret_cast<const float4*>(rows + (size_t)n0 * kD);
+  for (int e0 = threadIdx.x; e0 < count * kD / 4;
+       e0 += kMapLoads * blockDim.x) {
+    float4 v[kMapLoads];
+#pragma unroll
+    for (int i = 0; i < kMapLoads; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e < count * kD / 4) v[i] = __ldg(x4 + e);
+    }
+#pragma unroll
+    for (int i = 0; i < kMapLoads; ++i) {
+      const int e = e0 + i * blockDim.x;
+      if (e >= count * kD / 4) break;
+      const int q = e / (kD / 4), c = 4 * (e % (kD / 4));
+      float* dst = xt + c * kMapLd + rank[q];
+      dst[0] = v[i].x;
+      dst[kMapLd] = v[i].y;
+      dst[2 * kMapLd] = v[i].z;
+      dst[3 * kMapLd] = v[i].w;
+    }
+  }
+  __syncthreads();
+
+  // thread t: half-warp h = t / 16 takes places kMapSeg h .. kMapSeg h +
+  // kMapSeg - 1, run by run, the rows j0 + i (i < kMapSeg) of the run
+  // from place j0, entries r0 .. r0 + 3 of their output (r0 = 4 (t %
+  // 16)); each output row is stored by its half-warp as one 256-byte
+  // line. No barrier between runs.
+  for (int t = threadIdx.x; t < kMapThreads; t += blockDim.x) {
+    const int seg = t / 16, r0 = 4 * (t % 16);
+    const int seg_end = kMapSeg * (seg + 1) < count ? kMapSeg * (seg + 1)
+                                                    : count;
+    for (int j = kMapSeg * seg; j < seg_end;) {
+      const int k = key[order[j]];
+      const int j0 = j;
+      const int end = run_end[j] < seg_end ? run_end[j] : seg_end;
+      j = end;
+      const float* ak = a_full + (size_t)k * kD * kD + r0;
+      float acc[kMapSeg][4];
+#pragma unroll
+      for (int i = 0; i < kMapSeg; ++i)
+        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < kD; ++c) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(ak + c * kD));
+#pragma unroll
+        for (int i = 0; i < kMapSeg; ++i) {
+          const float x = xt[c * kMapLd + j0 + i];
+          acc[i][0] = fmaf(a.x, x, acc[i][0]);
+          acc[i][1] = fmaf(a.y, x, acc[i][1]);
+          acc[i][2] = fmaf(a.z, x, acc[i][2]);
+          acc[i][3] = fmaf(a.w, x, acc[i][3]);
+        }
+      }
+      const float4 b =
+          kUnit ? __ldg(reinterpret_cast<const float4*>(b_rows + (size_t)k * kD + r0))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < kMapSeg; ++i) {
+        if (j0 + i >= end) break;
+        reinterpret_cast<float4*>(out + (size_t)(n0 + order[j0 + i]) * kD +
+                                  r0)[0] =
+            make_float4(b.x - acc[i][0], b.y - acc[i][1], b.z - acc[i][2],
+                        b.w - acc[i][3]);
+      }
+    }
   }
 }
 
@@ -391,7 +468,7 @@ int gmm_score_rows(const void* rows, int n, const void* rec, int K,
 
 int gmm_unit_map(const void* rows, const void* argmax, const void* a_full,
                  const void* b_rows, int n, void* out, void* stream) {
-  gmm_row_map_kernel<true><<<blocks_for(n, kRowThreads), kRowThreads, 0,
+  gmm_row_map_kernel<true><<<blocks_for(n, kMapTile), kMapThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const int*>(argmax),
       static_cast<const float*>(a_full), static_cast<const float*>(b_rows), n,
@@ -401,7 +478,7 @@ int gmm_unit_map(const void* rows, const void* argmax, const void* a_full,
 
 int gmm_hvp_map(const void* tangents, const void* argmax, const void* a_full,
                 int n, void* out, void* stream) {
-  gmm_row_map_kernel<false><<<blocks_for(n, kRowThreads), kRowThreads, 0,
+  gmm_row_map_kernel<false><<<blocks_for(n, kMapTile), kMapThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tangents), static_cast<const int*>(argmax),
       static_cast<const float*>(a_full), nullptr, n, static_cast<float*>(out));

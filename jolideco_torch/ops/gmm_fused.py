@@ -462,6 +462,8 @@ def _tc_library():
         lib.gmm_fused_bwd_marg_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                               ci, ci, ci, ci, ci, ci, vp, vp]
         lib.gmm_fused_bwd_marg_tc.restype = ci
+        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp]
+        lib.gmm_score_rows_tc.restype = ci
         lib.gmm_fused_tc_error_string.argtypes = [ci]
         lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True

@@ -23,6 +23,17 @@ and ``g_k = r_k . t``,
 
 in two stages, ``(p, dp)`` and then the mixture, as in the JAX package.
 
+The MAP scorer's logits have the two modes of the fused scorer
+(``ops.gmm_fused``), which the precision dial names (``config.gmm_mode``)
+and the caller passes down: ``"f32"``, full float32, and ``"split"``,
+the JAX package's logits at precision HIGH (bf16 hi/lo pair products,
+three products summed in float32). The marginalise scorer, and every
+derivative, computes in float32 under every dial: the marginalise
+gradient and Hessian action take the scorer's logsumexp as the
+stabiliser of ``exp(logit_k - lse)``, over logits of 1e5 to 1e8, so the
+lse must come from the logits they recompute themselves, which are
+float32. The MAP derivatives read only the argmax.
+
 Each has two implementations with one contract:
 
 - a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``,
@@ -62,11 +73,15 @@ from .gmm_fused import (
     PLAIN_CHUNK,
     REC,
     _check,
+    _check_mode,
     _raise_on_error,
     _scores,
+    _split_tiles,
+    _tc_library,
     logit_chunks,
     marg_unit_rows,
     mix_rows,
+    score_split_plain,
     softmax_chunks,
 )
 
@@ -76,6 +91,7 @@ __all__ = [
     "gmm_hvp_marg_weights_cuda",
     "gmm_score_patches",
     "gmm_score_rows_cuda",
+    "gmm_score_rows_tc_cuda",
     "gmm_unit_map_cuda",
     "gmm_unit_marg_cuda",
     "hvp_map_plain",
@@ -211,8 +227,8 @@ def _check_rows(x, name, argmax=None):
     return device, n
 
 
-def _launch(kernel, *args):
-    lib = _library()
+def _launch(kernel, *args, tc=False):
+    lib = _tc_library() if tc else _library()
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, kernel)(
@@ -220,7 +236,9 @@ def _launch(kernel, *args):
               for a in args],
             stream,
         )
-    _raise_on_error(lib.gmm_patch_error_string, code, kernel)
+    error_string = (lib.gmm_fused_tc_error_string if tc
+                    else lib.gmm_patch_error_string)
+    _raise_on_error(error_string, code, kernel)
 
 
 def gmm_score_rows_cuda(x, bufs, marginalize=False):
@@ -238,6 +256,33 @@ def gmm_score_rows_cuda(x, bufs, marginalize=False):
         _launch("gmm_score_rows", x, n, rec, k, int(bool(marginalize)),
                 values, argmax)
         gmm_score_rows_cuda.launches += 1
+    return values, argmax
+
+
+def gmm_score_rows_tc_cuda(x, bufs, marginalize=False):
+    """Launch the scorer of the ``"split"`` mode on the tensor cores
+    (``csrc/gmm_fused_tc.cu``, K1 split's logits) on rows ``x (N, 64)``
+    float32 on a card; any number of components, in tiles of
+    ``KP_TC``. Same outputs as ``score_split_plain`` or, with
+    ``marginalize``, ``score_split_marg_plain``; the buffers are the
+    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``).
+
+    No path launches the marginalise instance yet: the marginalised
+    probe's gradient and Hessian action (K8, K9a) take the scorer's
+    logsumexp as the stabiliser of ``exp(logit_k - lse)``, and the split
+    logits lie up to 6.4e-5 of their value (hundreds of units at the
+    shipped GMMs' 1e5 to 1e8) from their float32 ones, so a split lse
+    over their float32 logits would overflow or underflow every weight.
+    It moves with them.
+    """
+    device, n = _check_rows(x, "gmm_score_rows_tc_cuda")
+    k = _split_tiles(bufs, device)
+    values = torch.empty(n, dtype=torch.float32, device=device)
+    argmax = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
+                int(bool(marginalize)), values, argmax, tc=True)
+        gmm_score_rows_tc_cuda.launches += 1
     return values, argmax
 
 
@@ -322,7 +367,8 @@ def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
 
 def reset_counters():
     """Set every launch and call count of this module to zero."""
-    for fn in (gmm_score_rows_cuda, gmm_unit_map_cuda, gmm_hvp_map_cuda,
+    for fn in (gmm_score_rows_cuda, gmm_score_rows_tc_cuda,
+               gmm_unit_map_cuda, gmm_hvp_map_cuda,
                gmm_unit_marg_cuda, gmm_hvp_marg_weights_cuda,
                gmm_hvp_marg_mix_cuda):
         fn.launches = 0
@@ -338,9 +384,14 @@ reset_counters()
 # dispatch and autograd
 
 
-def _score(x, bufs, marginalize):
+def _score(x, bufs, marginalize, mode):
+    split = mode == "split" and not marginalize
     if dispatch(x) == "kernel":
+        if split:
+            return gmm_score_rows_tc_cuda(x, bufs)
         return gmm_score_rows_cuda(x, bufs, marginalize)
+    if split:
+        return score_split_plain(x, bufs)
     return score_rows_plain(x, bufs, marginalize)
 
 
@@ -438,8 +489,8 @@ class _PatchScore(torch.autograd.Function):
     """Scorer; its backward is ``dvalues * unit``, itself differentiable."""
 
     @staticmethod
-    def forward(ctx, x, bufs, marginalize):
-        values, argmax = _score(x, bufs, marginalize)
+    def forward(ctx, x, bufs, marginalize, mode):
+        values, argmax = _score(x, bufs, marginalize, mode)
         # the marginalise unit gradient takes the logsumexp (the values),
         # the MAP one the argmax
         ctx.save_for_backward(x, values if marginalize else argmax)
@@ -455,10 +506,10 @@ class _PatchScore(torch.autograd.Function):
             unit = _UnitMarg.apply(x, selector.detach(), ctx.bufs)
         else:
             unit = _UnitMap.apply(x, selector, ctx.bufs)
-        return dvalues[:, None] * unit, None, None
+        return dvalues[:, None] * unit, None, None, None
 
 
-def gmm_score_patches(x, bufs, marginalize=False):
+def gmm_score_patches(x, bufs, marginalize=False, mode="f32"):
     """GMM scores of normalised patch rows.
 
     Parameters
@@ -469,6 +520,11 @@ def gmm_score_patches(x, bufs, marginalize=False):
         From ``ops.gmm_fused.kernel_buffers`` on ``x``'s device.
     marginalize : bool
         Logsumexp instead of max over the components.
+    mode : ``"f32"`` or ``"split"``
+        The MAP scorer's logits (``config.gmm_mode()`` names the dial's).
+        The marginalise scorer computes in float32 in either mode, and
+        so do patches other than 8x8, for which ``kernel_buffers`` makes
+        no ``"split"`` buffers.
 
     Returns
     -------
@@ -480,4 +536,7 @@ def gmm_score_patches(x, bufs, marginalize=False):
             f"the patch scoring kernels take 8x8 patches (d = {D}), "
             f"got d = {x.shape[1]}"
         )
-    return _PatchScore.apply(x.contiguous(), bufs, bool(marginalize))
+    _check_mode(mode)
+    if x.shape[1] != D:
+        mode = "f32"
+    return _PatchScore.apply(x.contiguous(), bufs, bool(marginalize), mode)

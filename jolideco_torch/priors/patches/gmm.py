@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ...config import gmm_mode
 from ...ops.gmm_fused import kernel_buffers
 from ...ops.gmm_pallas import gmm_score_patches
 from ...ops.gmm_pack import pack_gmm_buffers
@@ -118,10 +119,12 @@ class GaussianMixtureModel:
         logsumexp over the components (``marginalize``). The patch-level
         scorer (``ops.gmm_pallas.gmm_score_patches``): CUDA kernels for
         8x8 patches on a card, the plain versions on the CPU; twice
-        differentiable.
+        differentiable. The MAP logits follow the precision dial
+        (``config.gmm_mode()``), as the JAX package's scorer follows
+        its ``gmm_precision()``.
         """
         return gmm_score_patches(x, self.kernel_buffers(x.device),
-                                 marginalize=marginalize)
+                                 marginalize=marginalize, mode=gmm_mode())
 
     @classmethod
     def from_numpy(cls, means, covariances, weights, meta=None):

@@ -7,7 +7,10 @@ tangent); the JAX package forward over reverse (``jax.jvp`` of
 ``jax.grad``). The loss Hessian is symmetric, so both give ``H · t``.
 The JAX prior runs its Pallas kernels in interpret mode with the fused
 scorer forced off, as its own probe runs it; the port runs the plain
-versions of its kernels (CPU tensors). Tolerances, each with its reason:
+versions of its kernels (CPU tensors). Under both packages' default
+dial the MAP scorer's logits are the ``"split"`` mode's (the JAX kernel
+at HIGH, the port's split plain version). Tolerances, each with its
+reason:
 
 - prior value rtol 1e-5 and gradient 1e-4 of its max-abs (float32 sums
   in different orders; the JAX backward reads ``A`` as a bf16 hi/lo
@@ -112,7 +115,10 @@ def test_prior_hvp_matches_jax(name):
         value_t, grad_t, hvp_t = torch_hvp(prior_t, flux, tangent)
         _, _, ones_t = torch_hvp(prior_t, flux, np.ones_like(flux))
     assert tf.fused_forward_plain.calls == 0
-    assert tp.score_rows_plain.calls == 2 and tp.hvp_map_plain.calls == 2
+    # the default dial's MAP scorer: the split plain version, as the JAX
+    # kernel runs at its default HIGH
+    assert tf.score_split_plain.calls == 2 and tp.score_rows_plain.calls == 0
+    assert tp.hvp_map_plain.calls == 2
 
     assert_allclose(value_t, value_j, rtol=1e-5)
     assert_allclose(grad_t, grad_j, rtol=0,
@@ -202,8 +208,8 @@ def test_hessian_diagonals_and_fluxes_error_match_jax():
     (hess_t,) = total_t.hessian_diagonals((torch.as_tensor(flux),))
     # the fused scorer applies at this shape, so the probe turned it off
     assert tf.fused_forward_plain.calls == 0
-    assert (tp.score_rows_plain.calls, tp.unit_map_plain.calls,
-            tp.hvp_map_plain.calls) == (1, 1, 1)
+    assert (tf.score_split_plain.calls, tp.score_rows_plain.calls,
+            tp.unit_map_plain.calls, tp.hvp_map_plain.calls) == (1, 0, 1, 1)
     errors_t = total_t.fluxes_error((torch.as_tensor(flux),))
     assert list(errors_t) == ["flux"]
     assert use_fused() == "auto"

@@ -6,14 +6,15 @@ Marked ``gpu``; every test skips without a card. On a machine with one
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tolerances: ``valid`` and the normalised patches exact to 1e-5; values
-to rtol 1e-5 (float32 sums in different orders; the fused forward's
-tensor-core kernel, ``"split"`` mode, against the split plain version,
+to rtol 1e-5 (float32 sums in different orders; the tensor-core
+scorers of the ``"split"`` mode, K1 split and K5 split, against the
+split plain version,
 which forms the same bf16 products, to rtol 7e-5, ``chip_smoke.py``'s
 ``K1_SPLIT_RTOL``: the tensor cores' sums are not IEEE sums); argmax
 identical; the
 image gradient, the unit gradient and the Hessian action to 1e-4 of
-their max-abs, the image gradient (K2) also bitwise repeatable and free
-of host synchronisation; the flux errors of the Hessian probe, card against CPU,
+their max-abs, the image gradient (K2) and the row map (K6, K7) also
+bitwise repeatable, K2 free of host synchronisation; the flux errors of the Hessian probe, card against CPU,
 to rtol 1e-4 (float32 FFTs and sums in other orders). The marginalise
 kernels (K4, K8, K9) are held against their plain versions run in
 float64 on the same inputs: at most twice the float32 plain version's
@@ -213,6 +214,65 @@ def test_patch_kernels_match_plain(device, gmm, n):
                                    atol=1e-4 * float(want.abs().max()))
 
 
+@pytest.mark.parametrize("name,n", [
+    ("astro-snr-v1", 1), ("astro-snr-v1", 257), ("astro-snr-v1", 4097),
+    ("builtin-8x8-v1", 1000), ("wide-256", 4097),
+])
+def test_tensor_core_row_scorer_matches_split_plain(device, name, n):
+    """K5 split (``gmm_score_rows_tc_kernel``, both instances) against the
+    split plain versions on rows: values to rtol 7e-5
+    (``chip_smoke.K1_SPLIT_RTOL``: K1 split's logits), argmax identical,
+    the ragged tail of a block masked; the 256 components of
+    ``chip_smoke.wide_gmm`` take two of the kernel's tiles, each winning
+    some rows."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    import chip_smoke
+
+    gmm = (chip_smoke.wide_gmm() if name == "wide-256"
+           else GaussianMixtureModel.from_registry(name))
+    bufs = gmm.kernel_buffers(device)
+    x = torch.as_tensor(make_rows(n), device=device)
+    for marginalize, plain in ((False, gf.score_split_plain),
+                               (True, gf.score_split_marg_plain)):
+        vk, ak = gp.gmm_score_rows_tc_cuda(x, bufs, marginalize)
+        vp, ap = plain(x, bufs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vk, vp, rtol=chip_smoke.K1_SPLIT_RTOL,
+                                   atol=0)
+        assert torch.equal(ak, ap)
+    if gmm.n_components > gf.KP_TC:
+        assert 0 < int((ap >= gf.KP_TC).sum()) < n
+
+
+@pytest.mark.parametrize("period", [1, 7, 200])
+def test_row_map_any_components_per_tile(device, period):
+    """K6 and K7 where the rows of a block select ``period`` components in
+    turn (one run of 128 rows, runs crossing the half-warps' places, one
+    row a run) over 4,097 rows against the plain versions at the 1e-4
+    bar; two calls give the same bits."""
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
+        device)
+    n = 4097
+    x = torch.as_tensor(make_rows(n, seed=period), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    argmax = (torch.arange(n, device=device) % period).to(torch.int32)
+    for kern, plain, arg in ((gp.gmm_unit_map_cuda, gp.unit_map_plain, x),
+                             (gp.gmm_hvp_map_cuda, gp.hvp_map_plain, t)):
+        got, again = kern(arg, argmax, bufs), kern(arg, argmax, bufs)
+        want = plain(arg, argmax, bufs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        assert torch.equal(got, again)
+
+
 def test_patch_kernels_take_only_8x8_patches(device):
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.utils.interop import gmm_from_arrays
@@ -226,11 +286,14 @@ def test_patch_kernels_take_only_8x8_patches(device):
         gp.gmm_score_patches(x, gmm4.kernel_buffers(device))
 
 
-def test_probe_on_card_matches_cpu(device, gmm):
+@pytest.mark.parametrize("dial,tc", [("high", True), ("highest", False)])
+def test_probe_on_card_matches_cpu(device, gmm, dial, tc):
     """``TotalLoss.fluxes_error`` at 64² (two observations, cycle spin
-    fixed), card against CPU, with K5, K6 and K7 launched once each."""
+    fixed) under each dial, card against CPU (the dial's plain scorer),
+    with the dial's K5 (K5 split under ``"high"``, the float32 K5 under
+    ``"highest"``), K6 and K7 launched once each."""
     from jolideco_torch import FluxComponents, GMMPatchPrior, MAPDeconvolver
-    from jolideco_torch import SpatialFluxComponent
+    from jolideco_torch import SpatialFluxComponent, config
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.utils.bench_data import make_datasets
@@ -238,25 +301,32 @@ def test_probe_on_card_matches_cpu(device, gmm):
     datasets = make_datasets(n_obs=2, size=64, psf_size=9, seed=3)
     flux = np.random.RandomState(4).uniform(0.5, 2.0, (64, 64))
     errors = {}
-    for dev in ("cpu", device):
-        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
-            flux, prior=GMMPatchPrior(gmm=gmm, stride=4))})
-        deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
-                              device=dev, conv_mode="fft")
-        total = deco.build_loss(datasets, comps, torch.device(dev))
-        for comp in comps.values():
-            comp.to(dev)
-        gf.reset_counters()
-        gp.reset_counters()
-        out = total.fluxes_error(comps.fluxes_from(),
-                                 shifts={"flux": (1, -2)})
-        errors[str(dev)] = out["flux"].cpu()
-        if dev != "cpu":
-            launches = (gp.gmm_score_rows_cuda.launches,
-                        gp.gmm_unit_map_cuda.launches,
-                        gp.gmm_hvp_map_cuda.launches)
-            assert launches == (1, 1, 1)
-            assert gf.gmm_fused_fwd_cuda.launches == 0
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        for dev in ("cpu", device):
+            comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+                flux, prior=GMMPatchPrior(gmm=gmm, stride=4))})
+            deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
+                                  device=dev, conv_mode="fft")
+            total = deco.build_loss(datasets, comps, torch.device(dev))
+            for comp in comps.values():
+                comp.to(dev)
+            gf.reset_counters()
+            gp.reset_counters()
+            out = total.fluxes_error(comps.fluxes_from(),
+                                     shifts={"flux": (1, -2)})
+            errors[str(dev)] = out["flux"].cpu()
+            if dev != "cpu":
+                launches = (gp.gmm_score_rows_tc_cuda.launches,
+                            gp.gmm_score_rows_cuda.launches,
+                            gp.gmm_unit_map_cuda.launches,
+                            gp.gmm_hvp_map_cuda.launches)
+                assert launches == ((1, 0, 1, 1) if tc else (0, 1, 1, 1))
+                assert gf.gmm_fused_fwd_cuda.launches == 0
+                assert gf.gmm_fused_fwd_tc_cuda.launches == 0
+    finally:
+        config.set_gmm_precision(saved)
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

@@ -344,6 +344,39 @@ def test_patch_kernels_match_plain(libs, bufs, n):
              gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64))
 
 
+@pytest.mark.parametrize("period", [1, 3, 7, 19, 200])
+def test_row_map_any_components_per_tile(libs, period):
+    """K6 and K7 where the rows of a block select ``period`` components in
+    turn (runs from a whole block of 128 rows down to one, crossing the
+    half-warps' places) over 300 rows, the last block ragged, against
+    the plain versions at the 1e-4 bar; two calls give the same bits."""
+    _, patch = libs
+    bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
+        "cpu")
+    n = 300
+    rs = np.random.RandomState(period)
+    x = torch.as_tensor(rs.uniform(-0.5, 0.5, (n, 64)).astype(np.float32))
+    t = torch.as_tensor(rs.randn(n, 64).astype(np.float32))
+    argmax = torch.arange(n, dtype=torch.int32) % period
+
+    def row_map(name, rows, *b_rows):
+        out = torch.full((n, 64), float("nan"))
+        assert getattr(patch, name)(ptr(rows), ptr(argmax),
+                                    ptr(bufs["a_full"]),
+                                    *map(ptr, b_rows), n, ptr(out),
+                                    None) == 0
+        return out
+
+    for name, rows, b_rows, plain in (
+            ("gmm_unit_map", x, (bufs["b_rows"],), gp.unit_map_plain),
+            ("gmm_hvp_map", t, (), gp.hvp_map_plain)):
+        got = row_map(name, rows, *b_rows)
+        want = plain(rows, argmax, bufs)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        assert torch.equal(got, row_map(name, rows, *b_rows))
+
+
 def pfft_case(p_, h, w, k, n, seed):
     """Images, spectra and tables of one convolution case."""
     rs = np.random.RandomState(seed)
