@@ -27,7 +27,10 @@ Phases, each printing one or more lines:
    logits of one of them much cancelled sums; the
    patch-level scorer, unit gradient and Hessian action (K5, K6, K7) on
    the rows of those two images (65,025 rows, the flux-error probe's
-   shape, and a ragged 56,025); the matrix-DFT convolution's three
+   shape, and a ragged 56,025), K5's ``"split"`` kernel on the tensor
+   cores (both instances) as K1's, also under the two GMMs of 256
+   components on the ragged rows, and K6 and K7 also where the rows of
+   each block select 128 components; the matrix-DFT convolution's three
    kernels (K3), forward and adjoint, at the main path's batch (5 pairs
    of 1024², n = 1152, the 33² PSFs) and at 5 pairs of 1024 x 896, each
    pass and the whole pipeline against the plain version run in
@@ -36,22 +39,23 @@ Phases, each printing one or more lines:
    the one ``torch.fft.fft`` that computes its function); the same for
    the tensor-core kernels of the three passes and the ``"split"``
    pipeline, held to the split plain version's error and to 1e-4 of the
-   max-abs; K2 twice on the same inputs, the two gradients bitwise equal;
+   max-abs; K2, K6 and K7 twice on the same inputs, bitwise equal;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
    under the default dial (K1 on the tensor cores) and 20 under
    ``"highest"`` (the float32 K1), their flux held together, and how
    many distinct components the patches of one of K2's tiles select at
-   the final flux. The
+   the final flux, with K2's, K6's and K7's times there. The
    kernels' launch counts are set to zero just before and read just
    after each run; then a small run (4 x 128², 20 steps) on the card is
    held against the same run on the CPU's plain path;
 4. the flux-error path: the same deconvolution with
    ``compute_error=True`` and 5 steps, so that the run ends with one
-   Hessian probe on the patch-level kernels; counts set to zero just
-   before and read just after; then the errors of a small run on the
-   card against the CPU's plain path;
+   Hessian probe on the patch-level kernels, under the default dial
+   (K5 split) and under ``"highest"`` (the float32 K5); counts set to
+   zero just before and read just after each; then the errors of a
+   small run on the card against the CPU's plain path;
 5. the marginalised path: phases 3 and 4 again under
    ``GMMPatchPrior(marginalize=True)``: training under the default dial
    on the logsumexp forward and the marginalise backward on the tensor
@@ -93,8 +97,10 @@ It then prints a JSON line with K3's errors and times, a JSON line with
 the mixed case's errors, times and bounds, a JSON line with the
 marginalise split kernels' errors, times and bounds and the two dials'
 marginalised training, a JSON line with K1's split kernel's errors,
-time and bound and the two dials' flux difference, a JSON line with
-each kernel's numbers (nineteen) and, last, the
+time and bound and the two dials' flux difference, a JSON line with K5
+split's errors, times and bound, the row map's cases and the probe
+under both dials, a JSON line with each kernel's numbers (twenty) and,
+last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
 non-zero when there is no CUDA device or no ``jolideco_torch`` package
@@ -432,25 +438,30 @@ def phase_kernels(torch, device):
     return out
 
 
-def max_logits64(torch, xtn, bufs):
-    """Maximum and argmax over the components of the logits of ``xtn``
-    (float32 rows) in float64, from the float32 buffers."""
+def max_logits64(torch, xtn, bufs, marginalize=False):
+    """Maximum (or, with ``marginalize``, logsumexp) and argmax over the
+    components of the logits of ``xtn`` (float32 rows) in float64, from
+    the float32 buffers."""
     aq, bq, c2 = (bufs[name].double() for name in ("aq", "bq", "const2"))
     values, argmax = [], []
     for start in range(0, xtn.shape[0], 4096):
         x = xtn[start:start + 4096].double()
         u = (x[:, :, None] * x[:, None, :]).reshape(x.shape[0], -1)
-        v, k = (-0.5 * (u @ aq) + x @ bq + c2).max(dim=1)
-        values.append(v)
+        logits = -0.5 * (u @ aq) + x @ bq + c2
+        v, k = logits.max(dim=1)
+        values.append(torch.logsumexp(logits, dim=1) if marginalize else v)
         argmax.append(k.to(torch.int32))
     return torch.cat(values), torch.cat(argmax)
 
 
-def exact_split_values(torch, xtn, bufs, argmax):
+def exact_split_values(torch, xtn, bufs, argmax, marginalize=False):
     """Float64 sums of the ``"split"`` mode's bf16 products (the logits
-    both the tensor-core kernel and the split plain version round) of
+    both the tensor-core kernels and the split plain version round) of
     rows ``xtn`` at the components ``argmax``, and the sums of the
-    products' magnitudes (what a float32 sum's rounding scales with)."""
+    products' magnitudes (what a float32 sum's rounding scales with).
+    With ``marginalize``, the logsumexp of those exact logits, and the
+    magnitudes averaged by their softmax weights (the logsumexp's
+    derivative in each logit)."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops.linalg import bf16_split
 
@@ -466,26 +477,105 @@ def exact_split_values(torch, xtn, bufs, argmax):
                       for p in bf16_split(xtn[start:start + 4096][:, pa]
                                           * xtn[start:start + 4096][:, pb]))
         logits = -0.5 * (u_hi @ a_hi + u_hi @ a_lo + u_lo @ a_hi) + x @ bq + c2
-        out.append(logits.gather(1, k)[:, 0])
         size = (0.5 * (u_hi.abs() @ (a_hi.abs() + a_lo.abs())
                        + u_lo.abs() @ a_hi.abs())
                 + x.abs() @ bq.abs() + c2.abs())
-        mag.append(size.gather(1, k)[:, 0])
+        if marginalize:
+            out.append(torch.logsumexp(logits, dim=1))
+            mag.append((torch.softmax(logits, dim=1) * size).sum(dim=1))
+        else:
+            out.append(logits.gather(1, k)[:, 0])
+            mag.append(size.gather(1, k)[:, 0])
     return torch.cat(out), torch.cat(mag)
+
+
+def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
+                       fp32_plain, relative=True, marginalize=False):
+    """A tensor-core scorer of the ``"split"`` mode (K1 split, K5 split)
+    on the normalised rows ``rows``: its ``(values, argmax)`` ``tc``
+    against the split plain version's (values rtol ``K1_SPLIT_RTOL``,
+    argmax flips at most ``K1_SPLIT_FLIPS`` of the rows), its mean signed
+    relative difference from the exact sum of its products
+    (``K1_SPLIT_BIAS``) and its largest difference over the products'
+    magnitudes (``K1_SPLIT_SUM_ERR``), then the errors of both and of the
+    float32 kernel and plain version against the logits in float64 (the
+    maximum, or with ``marginalize`` the logsumexp). Without ``relative``
+    the two bars relative to the values are printed, not held. Past one
+    tile of components (208), both tiles must hold winning rows.
+    Returns the numbers and the line to print."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    (vt, at), (vs, as_) = tc, split_plain
+    (vk, ak), (vp, _) = fp32, fp32_plain
+    n_rows = rows.shape[0]
+    rel = float(((vt - vs).abs() / vs.abs()).max())
+    check(not relative or rel <= K1_SPLIT_RTOL, f"{tag}: values beyond "
+          f"rtol {K1_SPLIT_RTOL} (max rel {rel:.3g})")
+    flips = int((at != as_).sum())
+    check(flips <= K1_SPLIT_FLIPS * n_rows,
+          f"{tag}: argmax flips {flips} of {n_rows}")
+    if bufs["rec"].shape[0] > gf.KP_TC:
+        tile1 = int((at >= gf.KP_TC).sum())
+        check(0 < tile1 < n_rows, f"{tag}: {tile1} of {n_rows} rows won in "
+              f"the second tile of components")
+        tag += f" ({tile1} of {n_rows} rows won in the second tile)"
+    exact, mag = exact_split_values(torch, rows, bufs, at, marginalize)
+    bias = {name: float(((v.double() - exact) / exact.abs()).mean())
+            for name, v in (("tc", vt), ("split_plain", vs))}
+    # the rounding of the sums against the size of what they sum
+    cancel = float((mag / exact.abs()).max())
+    sum_err = {name: float(((v.double() - exact).abs() / mag).max())
+               for name, v in (("tc", vt), ("split_plain", vs))}
+    check(sum_err["tc"] <= K1_SPLIT_SUM_ERR, f"{tag}: difference from the "
+          f"exact sum {sum_err['tc']:.3g} of the products' magnitudes, "
+          f"beyond {K1_SPLIT_SUM_ERR}")
+    check(not relative or abs(bias["tc"]) <= K1_SPLIT_BIAS,
+          f"{tag}: mean signed relative "
+          f"difference from the exact sum {bias['tc']:.3g} beyond "
+          f"{K1_SPLIT_BIAS}")
+    v64, a64 = max_logits64(torch, rows, bufs, marginalize)
+    scale = float(v64.abs().max())
+    errs = {name: float((v.double() - v64).abs().max())
+            for name, v in (("tc", vt), ("split_plain", vs), ("fp32", vk),
+                            ("fp32_plain", vp))}
+    flips64 = {name: int((a != a64).sum())
+               for name, a in (("tc", at), ("split_plain", as_),
+                               ("fp32", ak))}
+    limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
+    check(errs["tc"] <= limit, f"{tag}: error against float64 "
+          f"{errs['tc']:.3g} above {limit:.3g}")
+    out = {"value_max_rel_err": rel, "argmax_flips": flips,
+           "mean_rel_diff_from_exact": bias,
+           "max_diff_from_exact_over_magnitudes": sum_err,
+           "max_magnitudes_over_value": cancel, "n_valid": n_rows,
+           "value_max_abs_err": float((vt - vs).abs().max()),
+           "errors_against_float64": errs, "max_abs": scale,
+           "argmax_flips_against_float64": flips64}
+    line = (f"phase 2 {tag}: against the split plain version values max rel "
+            f"{rel:.3g} (limit {K1_SPLIT_RTOL if relative else None}), "
+            f"argmax flips {flips}/{n_rows}; mean signed rel "
+            f"difference from the exact sum of the products tc "
+            f"{bias['tc']:.3g} (limit {K1_SPLIT_BIAS if relative else None}), "
+            f"split plain "
+            f"{bias['split_plain']:.3g}; largest difference from it over "
+            f"the sum of the products' magnitudes tc {sum_err['tc']:.3g} "
+            f"(limit {K1_SPLIT_SUM_ERR}), split plain "
+            f"{sum_err['split_plain']:.3g} (magnitudes up to "
+            f"{cancel:.3g} x the value); against float64 "
+            f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, split plain "
+            f"{errs['split_plain']:.3g}, fp32 kernel {errs['fp32']:.3g}, "
+            f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
+            f"float64: tc {flips64['tc']}, split plain "
+            f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
+    return out, line
 
 
 def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
                     relative=True):
-    """K1's ``"split"`` kernel (tensor cores) on one image: against the
-    split plain version (values rtol ``K1_SPLIT_RTOL``, argmax flips, the
-    normalised patches), its mean signed relative difference from the
-    exact sum of its products (``K1_SPLIT_BIAS``) and its largest
-    difference over the products' magnitudes (``K1_SPLIT_SUM_ERR``),
-    then the errors of both and of the float32 kernel against the logits
-    in float64; at the main path's shape, times and bound. Without
-    ``relative`` the two bars relative to the values are printed, not
-    held. Past one tile of components (208), both tiles must hold
-    winning components."""
+    """K1's ``"split"`` kernel (tensor cores) on one image: ``valid`` and
+    the normalised patches against the split plain version's, then
+    :func:`split_value_checks` at the valid patches; at the main path's
+    shape, times and bound."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
     from jolideco_torch.utils.cuda_build import BUILD_INFO
@@ -501,74 +591,16 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     check(torch.equal(valt, valp) and torch.equal(vals, valp),
           f"{tag}: valid differs")
     m = valp > 0.5
-    n_valid = int(m.sum())
     xtn_err = float((xt - xs).abs().max())
     check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
           f"{xtn_err:.3g}")
-    rel = float(((vt - vs).abs() / vs.abs())[m].max())
-    check(not relative or rel <= K1_SPLIT_RTOL, f"{tag}: values beyond "
-          f"rtol {K1_SPLIT_RTOL} (max rel {rel:.3g})")
-    flips = int((at != as_)[m].sum())
-    check(flips <= K1_SPLIT_FLIPS * n_valid,
-          f"{tag}: argmax flips {flips} of {n_valid}")
-    k = bufs["rec"].shape[0]
-    if k > gf.KP_TC:
-        tile1 = int((at[m] >= gf.KP_TC).sum())
-        check(0 < tile1 < n_valid, f"{tag}: {tile1} of {n_valid} patches "
-              f"won in the second tile of components")
-        tag += f" ({tile1} of {n_valid} patches won in the second tile)"
-    exact, mag = exact_split_values(torch, xs[m], bufs, at[m])
-    bias = {name: float(((v[m].double() - exact) / exact.abs()).mean())
-            for name, v in (("tc", vt), ("split_plain", vs))}
-    # the rounding of the sums against the size of what they sum
-    cancel = float((mag / exact.abs()).max())
-    sum_err = {name: float(((v[m].double() - exact).abs() / mag).max())
-               for name, v in (("tc", vt), ("split_plain", vs))}
-    check(sum_err["tc"] <= K1_SPLIT_SUM_ERR, f"{tag}: difference from the "
-          f"exact sum {sum_err['tc']:.3g} of the products' magnitudes, "
-          f"beyond {K1_SPLIT_SUM_ERR}")
-    check(not relative or abs(bias["tc"]) <= K1_SPLIT_BIAS,
-          f"{tag}: mean signed relative "
-          f"difference from the exact sum {bias['tc']:.3g} beyond "
-          f"{K1_SPLIT_BIAS}")
-    v64, a64 = max_logits64(torch, xp[m], bufs)
-    scale = float(v64.abs().max())
-    errs = {name: float((v[m].double() - v64).abs().max())
-            for name, v in (("tc", vt), ("split_plain", vs), ("fp32", vk),
-                            ("fp32_plain", vp))}
-    flips64 = {name: int((a[m] != a64).sum())
-               for name, a in (("tc", at), ("split_plain", as_),
-                               ("fp32", ak))}
-    limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
-    check(errs["tc"] <= limit, f"{tag}: error against float64 "
-          f"{errs['tc']:.3g} above {limit:.3g}")
-    out = {"value_max_rel_err": rel, "argmax_flips": flips,
-           "mean_rel_diff_from_exact": bias,
-           "max_diff_from_exact_over_magnitudes": sum_err,
-           "max_magnitudes_over_value": cancel,
-           "n_valid": n_valid, "xtn_max_abs_err": xtn_err,
-           "value_max_abs_err": float((vt - vs).abs()[m].max()),
-           "errors_against_float64": errs, "max_abs": scale,
-           "argmax_flips_against_float64": flips64}
-    line = (f"phase 2 {tag}: against the split plain version values max rel "
-            f"{rel:.3g} (limit {K1_SPLIT_RTOL if relative else None}), "
-            f"argmax flips "
-            f"{flips}/{n_valid}, xtn {xtn_err:.3g}; mean signed rel "
-            f"difference from the exact sum of the products tc "
-            f"{bias['tc']:.3g} (limit {K1_SPLIT_BIAS if relative else None}), "
-            f"split plain "
-            f"{bias['split_plain']:.3g}; largest difference from it over "
-            f"the sum of the products' magnitudes tc {sum_err['tc']:.3g} "
-            f"(limit {K1_SPLIT_SUM_ERR}), split plain "
-            f"{sum_err['split_plain']:.3g} (magnitudes up to "
-            f"{cancel:.3g} x the value); against float64 "
-            f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, split plain "
-            f"{errs['split_plain']:.3g}, fp32 kernel {errs['fp32']:.3g}, "
-            f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
-            f"float64: tc {flips64['tc']}, split plain "
-            f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
+    out, line = split_value_checks(
+        torch, tag, xs[m], bufs, (vt[m], at[m]), (vs[m], as_[m]),
+        (vk[m], ak[m]), (vp[m], ap[m]), relative)
+    out["xtn_max_abs_err"] = xtn_err
+    line += f"; xtn {xtn_err:.3g}"
     if label == MAIN:
-        n = vs.numel()
+        n, k = vs.numel(), bufs["rec"].shape[0]
         out["ms"] = cuda_ms(torch, lambda: gf.gmm_fused_fwd_tc_cuda(
             image, bufs, stride, sentinel), 10)
         out["plain_ms"] = cuda_ms(torch, lambda: gf.fused_forward_plain(
@@ -601,22 +633,114 @@ def normalised_rows(torch, image, sentinel):
     return (patches - patches.mean(dim=1, keepdim=True)).contiguous()
 
 
+# rows a block of the row map (csrc/gmm_patch.cu kMapTile): each
+# half-warp reads A_k once per run of k* among its 8 places
+ROW_TILE = 128
+
+
+def k5_split_checks(torch, label, x, bufs, relative=True):
+    """K5 split (tensor cores), both instances, on rows ``x``:
+    :func:`split_value_checks` against the split plain versions, beside
+    the float32 K5 and its plain version."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    out = {}
+    for marginalize, plain, name in (
+            (False, gf.score_split_plain, "map"),
+            (True, gf.score_split_marg_plain, "lse")):
+        tc = gp.gmm_score_rows_tc_cuda(x, bufs, marginalize)
+        fp32 = gp.gmm_score_rows_cuda(x, bufs, marginalize)
+        split_plain, fp32_plain = (plain(x, bufs),
+                                   gp.score_rows_plain(x, bufs, marginalize))
+        torch.cuda.synchronize()
+        out[name], line = split_value_checks(
+            torch, f"{label} K5 split {name}", x, bufs, tc, split_plain,
+            fp32, fp32_plain, relative, marginalize)
+        print(line)
+    return out
+
+
+def row_map_case(torch, x, argmax, bufs, plain=False):
+    """K6 and K7 at rows ``x`` and ``argmax`` (K7 along a random tangent):
+    each within 1e-4 of the max-abs of its plain version, two calls
+    bitwise equal, its ms a call (CUDA events) and of device time
+    (:func:`device_ms`: a call's host side may outlast its kernel)
+    beside its bound (the rows in and out, the argmax and the selected
+    components' A, and b for K6); the distinct components per block of
+    ``ROW_TILE`` rows; with ``plain``, the plain versions' ms."""
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    n = x.shape[0]
+    gen = torch.Generator(device=x.device).manual_seed(2)
+    t = torch.randn(x.shape, generator=gen, device=x.device)
+    tile = torch.arange(n, device=x.device) // ROW_TILE
+    width = int(argmax.max()) + 1
+    pairs = torch.unique(tile * width + argmax.long())
+    per_tile = torch.bincount(pairs // width).float()
+    used = int(torch.unique(argmax).numel())
+    out = {"rows": n, "used_components": used,
+           "per_tile_mean": float(per_tile.mean()),
+           "per_tile_max": int(per_tile.max())}
+    for name, kern, fn, arg, b_floats, instance in (
+            ("unit", gp.gmm_unit_map_cuda, gp.unit_map_plain, x, 64, "true"),
+            ("hvp", gp.gmm_hvp_map_cuda, gp.hvp_map_plain, t, 0, "false")):
+        got, again = kern(arg, argmax, bufs), kern(arg, argmax, bufs)
+        want = fn(arg, argmax, bufs)
+        torch.cuda.synchronize()
+        tag = f"K{'6' if name == 'unit' else '7'} at {n} rows"
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        check(err <= 1e-4 * scale, f"{tag}: error {err:.3g} vs max "
+              f"{scale:.3g}")
+        check(torch.equal(got, again), f"{tag}: two calls differ")
+        out[name] = {
+            "max_abs_err": err, "max_abs": scale,
+            "ms": cuda_ms(torch, lambda: kern(arg, argmax, bufs), 20),
+            "device_ms": device_ms(torch, lambda: kern(arg, argmax, bufs), 20,
+                                   f"::gmm_row_map_kernel<{instance}>("),
+            **bound(2.0 * n * 64 * 64, 4 * (2 * n * 64 + n)
+                    + 4 * used * (64 * 64 + b_floats))}
+        if plain:
+            out[name]["plain_ms"] = cuda_ms(torch, lambda: fn(arg, argmax,
+                                                              bufs), 3)
+    return out
+
+
+def row_map_line(case):
+    return (f"{case['rows']} rows select {case['used_components']} "
+            f"components, per block of {ROW_TILE} mean "
+            f"{case['per_tile_mean']:.2f}, max {case['per_tile_max']}; "
+            + "; ".join(
+                f"K{k} {case[name]['ms']:.4f} ms a call, "
+                f"{case[name]['device_ms']:.4f} of device time (bound "
+                f"{case[name]['bound_ms']:.4f}, "
+                f"{case[name]['bound_ms'] / case[name]['device_ms']:.1%}), "
+                f"error "
+                f"{case[name]['max_abs_err']:.3g} (max "
+                f"{case[name]['max_abs']:.3g})"
+                for k, name in (("6", "unit"), ("7", "hvp")))
+            + ", two calls bitwise equal")
+
+
 def phase_patch_kernels(torch, device, bufs, cases):
     """K5, K6 and K7 against their plain versions on the rows of the
-    phase's images: values rtol 1e-5 (float32 sums in other orders),
-    argmax flips at most 1e-4 of the rows, unit gradient and Hessian
-    action (on the plain argmax, random tangents) within 1e-4 of their
-    max-abs."""
+    phase's images: the float32 K5's values rtol 1e-5 (float32 sums in
+    other orders), argmax flips at most 1e-4 of the rows; K5 split
+    (:func:`k5_split_checks`), also past one tile of components on the
+    ragged rows; K6 and K7 (:func:`row_map_case`) at the float32 plain
+    argmax and, on the main path's rows, at argmax = row index mod K
+    (128 components a block)."""
+    from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     out = {}
+    rows = {}
     for label, img in cases.items():
         x = normalised_rows(torch, torch.as_tensor(img, device=device),
                             ZERO_FLUX_SENTINEL)
+        rows[label] = x
         n = x.shape[0]
-        gen = torch.Generator(device=device).manual_seed(2)
-        t = torch.randn(x.shape, generator=gen, device=device)
         errs = {}
         for marginalize in (False, True):
             vk, ak = gp.gmm_score_rows_cuda(x, bufs, marginalize)
@@ -630,62 +754,71 @@ def phase_patch_kernels(torch, device, bufs, cases):
             errs[f"score_marg{int(marginalize)}"] = (
                 float((vk - vp).abs().max()), rel, flips)
         _, ap = gp.score_rows_plain(x, bufs)
-        for name, kern, plain, arg in (
-                ("unit", gp.gmm_unit_map_cuda, gp.unit_map_plain, x),
-                ("hvp", gp.gmm_hvp_map_cuda, gp.hvp_map_plain, t)):
-            got, want = kern(arg, ap, bufs), plain(arg, ap, bufs)
-            torch.cuda.synchronize()
-            err, scale = float((got - want).abs().max()), float(want.abs().max())
-            check(err <= 1e-4 * scale,
-                  f"{label}: K{'6' if name == 'unit' else '7'} error {err:.3g} "
-                  f"vs max {scale:.3g}")
-            errs[name] = (err, scale)
+        case = row_map_case(torch, x, ap, bufs, plain=label == MAIN)
+        for name in ("unit", "hvp"):
+            errs[name] = (case[name]["max_abs_err"], case[name]["max_abs"])
+        errs["row_map"] = case
         out[label] = errs
         print(f"phase 2 patch kernels {label} ({n} rows): K5 values max rel "
               f"err {errs['score_marg0'][1]:.3g} (logsumexp "
               f"{errs['score_marg1'][1]:.3g}), argmax flips "
-              f"{errs['score_marg0'][2]}; K6 max abs err {errs['unit'][0]:.3g} "
-              f"(max {errs['unit'][1]:.3g}); K7 max abs err "
-              f"{errs['hvp'][0]:.3g} (max {errs['hvp'][1]:.3g})")
+              f"{errs['score_marg0'][2]}; " + row_map_line(case))
+        errs["split"] = k5_split_checks(torch, label, x, bufs)
         if label != MAIN:
             continue
         k = bufs["rec"].shape[0]
-        used = int(torch.unique(ap).numel())
-        row_bytes = 4 * (2 * n * 64 + n)
+        every = (torch.arange(n, device=device) % k).to(torch.int32)
+        out["many"] = row_map_case(torch, x, every, bufs)
+        print(f"phase 2 K6/K7 {label}, argmax = row index mod K: "
+              + row_map_line(out["many"]))
         out["timing"] = {
             "score_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_cuda(
                 x, bufs), 10),
             "score_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
                 x, bufs), 3),
-            "unit_ms": cuda_ms(torch, lambda: gp.gmm_unit_map_cuda(
-                x, ap, bufs), 20),
-            "unit_plain_ms": cuda_ms(torch, lambda: gp.unit_map_plain(
-                x, ap, bufs), 3),
-            "hvp_ms": cuda_ms(torch, lambda: gp.gmm_hvp_map_cuda(
-                t, ap, bufs), 20),
-            "hvp_plain_ms": cuda_ms(torch, lambda: gp.hvp_map_plain(
-                t, ap, bufs), 3),
+            "split_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_tc_cuda(
+                x, bufs), 10),
+            "split_lse_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_tc_cuda(
+                x, bufs, True), 10),
+            "split_plain_ms": cuda_ms(torch, lambda: gf.score_split_plain(
+                x, bufs), 3),
+            **{f"{name}_{key}": case[name][key] for name in ("unit", "hvp")
+               for key in ("ms", "plain_ms")},
         }
+        work = (2.0 * n * k * (2080 + 64),
+                4 * (n * 64 + bufs["rec"].numel() + 2 * n))
         out["bounds"] = {
             # every row against every component; reads rows and records,
             # writes values and argmax
-            "score": bound(2.0 * n * k * (2080 + 64),
-                           4 * (n * 64 + bufs["rec"].numel() + 2 * n)),
+            "score": bound(*work),
+            # the same in three bf16 products; reads rows, the split
+            # pairs, b and c
             "score_split": split_bound(
-                2.0 * n * k * (2080 + 64),
-                4 * (n * 64 + bufs["rec"].numel() + 2 * n)),
-            # A_{k*} x per row; reads rows, argmax and the selected
-            # components, writes rows
-            "unit": bound(2.0 * n * 64 * 64,
-                          row_bytes + 4 * used * (64 * 64 + 64)),
-            "hvp": bound(2.0 * n * 64 * 64, row_bytes + 4 * used * 64 * 64),
+                work[0], 4 * (n * 64 + 2 * n + bufs["bc"].numel())
+                + 2 * bufs["pair_tc"].numel()),
+            "unit": {key: case["unit"][key]
+                     for key in ("bound_ms", "bound_by")},
+            "hvp": {key: case["hvp"][key]
+                    for key in ("bound_ms", "bound_by")},
         }
-        tm = out["timing"]
+        tm, sb = out["timing"], out["bounds"]["score_split"]
         print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
               f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
-              f"K6 {tm['unit_ms']:.4f} ms (plain {tm['unit_plain_ms']:.3f}); "
-              f"K7 {tm['hvp_ms']:.4f} ms (plain {tm['hvp_plain_ms']:.3f}); "
-              f"{used} components selected")
+              f"K5 split {tm['split_ms']:.3f} ms, logsumexp "
+              f"{tm['split_lse_ms']:.3f} (split plain "
+              f"{tm['split_plain_ms']:.3f}; split bound "
+              f"{sb['bound_ms']:.4f} ms, {sb['bound_ms'] / tm['split_ms']:.1%})"
+              f"; K6 plain {tm['unit_plain_ms']:.3f} ms, K7 plain "
+              f"{tm['hvp_plain_ms']:.3f} ms")
+    # K5 split past one tile of components: K = 256 on the ragged rows,
+    # and under a GMM whose logits are much cancelled sums (no relative
+    # bar)
+    label = "{}x{}".format(*RAGGED)
+    for key, gmm, relative in (("wide", wide_gmm(), True),
+                               ("cancelled", cancelled_gmm(), False)):
+        out[key] = k5_split_checks(torch, f"{label} K=256 {key}",
+                                   rows[label], gmm.kernel_buffers(device),
+                                   relative)
     return out
 
 
@@ -1484,6 +1617,7 @@ def counts():
         "gmm_fused_bwd_marg": gf.gmm_fused_bwd_marg_cuda.launches,
         "gmm_fused_bwd_marg_tc": gf.gmm_fused_bwd_marg_tc_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
+        "gmm_score_rows_tc": gp.gmm_score_rows_tc_cuda.launches,
         "gmm_unit_map": gp.gmm_unit_map_cuda.launches,
         "gmm_hvp_map": gp.gmm_hvp_map_cuda.launches,
         "gmm_unit_marg": gp.gmm_unit_marg_cuda.launches,
@@ -1700,6 +1834,20 @@ def k2_tile_components(torch, device, flux, gmm):
     return k2_case(torch, xtn, argmax, valid, dv, bufs, image.shape)
 
 
+def row_map_trained(torch, device, flux, gmm):
+    """K6 and K7 (:func:`row_map_case`) at the probe's rows of ``flux``
+    (its grouped patches, unspun) and K5 split's argmax of them."""
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
+                            device=device)
+    x = normalised_rows(torch, image, ZERO_FLUX_SENTINEL)
+    bufs = gmm.kernel_buffers(device)
+    _, argmax = gp.gmm_score_rows_tc_cuda(x, bufs)
+    return row_map_case(torch, x, argmax, bufs)
+
+
 def phase_slice(torch, device):
     """The main path under the default dial (K1 on the tensor cores) and
     under ``"highest"`` (the float32 K1); their flux held together."""
@@ -1727,6 +1875,8 @@ def phase_slice(torch, device):
           f"package's own at 4x128^2: {JAX_DIAL_FLUX_SHARE})")
     tiles = k2_tile_components(torch, device, flux, astro)
     print(f"phase 3 K2 at the final flux: {k2_case_line(tiles)}")
+    row_map = row_map_trained(torch, device, flux, astro)
+    print(f"phase 3 K6/K7 at the final flux: {row_map_line(row_map)}")
 
     # small input: the card's run against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -1740,46 +1890,78 @@ def phase_slice(torch, device):
     print(f"phase 3 small 4x128^2 card vs CPU plain path: flux max rel err "
           f"{rel:.3g} (limit {SMALL_FLUX_RTOL})")
     return {**runs, "dial_flux_diff": dial_diff, "final_flips": flips,
-            "k2_tiles": tiles}
+            "k2_tiles": tiles, "row_map": row_map}
+
+
+# the probe's MAP scorer (K5) under each mode of the precision dial
+K5_KERNELS = {"split": "gmm_score_rows_tc", "f32": "gmm_score_rows"}
+
+
+def probe_run(torch, device, datasets, gmm, dial):
+    """The main path's training, then one Hessian probe, under the dial
+    ``dial``, counts set to zero just before and read just after: K1 of
+    the dial's mode and K2 ``ERROR_STEPS`` times; K5 of the dial's mode,
+    K6 and K7 once; every other kernel never, no plain call."""
+    from jolideco_torch import config
+
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        mode = config.gmm_mode()
+        run_slice(datasets, gmm, device, cycle_spin=True, n_steps=1,
+                  compute_error=True)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, cycle_spin=True,
+                           n_steps=ERROR_STEPS, compute_error=True)
+        launches, plain_calls = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_gmm_precision(saved)
+    tag = f"({dial!r}, K1 and K5 {mode})"
+    expected = expect(gmm_fused_bwd=ERROR_STEPS, gmm_unit_map=1,
+                      gmm_hvp_map=1, **{K1_KERNELS[mode]: ERROR_STEPS,
+                                        K5_KERNELS[mode]: 1})
+    check(launches == expected, f"{tag}: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"{tag}: plain versions ran {plain_calls} times")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD), f"{tag}: error shape "
+          f"{errors.shape}")
+    # H . 1 is positive at every pixel of this data (the Poisson term's
+    # curvature; the prior adds nothing along ones), so every error
+    # must be finite and positive
+    check(bool(np.isfinite(errors).all() and (errors > 0).all()),
+          f"{tag}: errors not finite and positive at "
+          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
+    print(f"phase 4 errors {tag} {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} "
+          f"steps in {result.train_seconds:.4f} s, probe "
+          f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} "
+          f".. {float(errors.max()):.6g}; launches {launches}; plain calls "
+          f"{plain_calls}; peak memory {peak} B")
+    return {"launches": launches, "error_seconds": result.error_seconds,
+            "peak_bytes": peak, "errors": errors}
 
 
 def phase_errors(torch, device):
     """``compute_error=True`` through ``MAPDeconvolver``: the main path's
-    training, then one Hessian probe on K5, K6 and K7."""
+    training, then one Hessian probe on K5, K6 and K7, under the default
+    dial (K1 split, K5 split) and under ``"highest"`` (their float32
+    kernels); then a small run, card against the CPU's plain path."""
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
 
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
     datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    run_slice(datasets, astro, device, cycle_spin=True, n_steps=1,
-              compute_error=True)  # warm-up
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    result = run_slice(datasets, astro, device, cycle_spin=True,
-                       n_steps=ERROR_STEPS, compute_error=True)
-    launches, plain_calls = counts()
-    peak = torch.cuda.max_memory_allocated()
-
-    expected = expect(gmm_fused_fwd_tc=ERROR_STEPS,
-                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows=1,
-                      gmm_unit_map=1, gmm_hvp_map=1)
-    check(launches == expected, f"launches {launches}, not {expected}")
-    check(plain_calls == 0, f"plain versions ran {plain_calls} times")
-    errors = result.components["flux"].flux_upsampled_error_numpy
-    check(errors.shape == (FIELD, FIELD), f"error shape {errors.shape}")
-    # H . 1 is positive at every pixel of this data (the Poisson term's
-    # curvature; the prior adds nothing along ones), so every error
-    # must be finite and positive
-    check(bool(np.isfinite(errors).all() and (errors > 0).all()),
-          f"errors not finite and positive at "
-          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
-    print(f"phase 4 errors {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} steps in "
-          f"{result.train_seconds:.4f} s, probe {result.error_seconds:.4f} s; "
-          f"errors {float(errors.min()):.6g} .. {float(errors.max()):.6g}; "
-          f"launches {launches}; plain calls {plain_calls}; "
-          f"peak memory {peak} B")
+    runs = {dial: probe_run(torch, device, datasets, astro, dial)
+            for dial in ("high", "highest")}
+    # the probe reads the MAP scorer only through the argmax, so the two
+    # dials' errors differ where training or the probe flipped one
+    a, b = runs["high"]["errors"], runs["highest"]["errors"]
+    runs["dial_error_rel"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"phase 4 dials: errors under 'high' against 'highest' max rel "
+          f"difference {runs['dial_error_rel']:.3g}")
 
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
     small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
@@ -1793,8 +1975,7 @@ def phase_errors(torch, device):
           f"4x128^2 errors on the card vs CPU: max rel err {rel:.3g}")
     print(f"phase 4 small 4x128^2 card vs CPU plain path: errors max rel err "
           f"{rel:.3g} (limit {SMALL_ERROR_RTOL})")
-    return {"launches": launches, "error_seconds": result.error_seconds,
-            "peak_bytes": peak, "errors": errors}
+    return runs
 
 
 def marg_training(torch, device, datasets, gmm, dial):
@@ -1970,7 +2151,7 @@ def phase_pfft(torch, device, slice_, errors_fft):
     launches, plain_calls = counts()
     peak = torch.cuda.max_memory_allocated()
     expected = expect(gmm_fused_fwd_tc=ERROR_STEPS,
-                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows=1,
+                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows_tc=1,
                       gmm_unit_map=1, gmm_hvp_map=1,
                       **{name: 2 * ERROR_STEPS + 4
                          for name in K3_KERNELS["split"]})
@@ -2047,7 +2228,7 @@ def main():
     errors = phase_errors(torch, device)
     marg_train, marg_probe = phase_marginalised(torch, device)
     pfft_train, pfft_probe = phase_pfft(torch, device, slice_,
-                                        errors["errors"])
+                                        errors["high"]["errors"])
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -2076,13 +2257,17 @@ def main():
          slice_["high"], kernels[MAIN]["grad_max_abs_err"],
          timing["bwd_ms"], timing["bwd_plain_ms"], kernels["bwd_bound"]),
         ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
-         errors, rows["score_marg0"][0], rtiming["score_ms"],
+         errors["highest"], rows["score_marg0"][0], rtiming["score_ms"],
          rtiming["score_plain_ms"], rbounds["score"]),
+        ("gmm_score_rows_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_pallas.py:237", errors["high"],
+         rows["split"]["map"]["value_max_abs_err"], rtiming["split_ms"],
+         rtiming["split_plain_ms"], rbounds["score_split"]),
         ("gmm_unit_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:365",
-         errors, rows["unit"][0], rtiming["unit_ms"],
+         errors["high"], rows["unit"][0], rtiming["unit_ms"],
          rtiming["unit_plain_ms"], rbounds["unit"]),
         ("gmm_hvp_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:376",
-         errors, rows["hvp"][0], rtiming["hvp_ms"],
+         errors["high"], rows["hvp"][0], rtiming["hvp_ms"],
          rtiming["hvp_plain_ms"], rbounds["hvp"]),
         ("gmm_fused_fwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:341",
          marg_train["highest"], mrows["fwd"][0], mtiming["fwd_ms"],
@@ -2158,7 +2343,7 @@ def main():
                  "probe_peak_bytes": pfft_probe["peak_bytes"],
                  "errors_against_fft": pfft_probe["error_rel"],
                  "fft_steps_per_s": slice_["high"]["steps_per_s"],
-                 "fft_probe_seconds": errors["error_seconds"]},
+                 "fft_probe_seconds": errors["high"]["error_seconds"]},
     }}))
     # the marginalise kernels where the weights are mixed (phase 2):
     # errors against float64 beside the float32 plain version's, times
@@ -2222,18 +2407,42 @@ def main():
         "steps_per_s": {dial: slice_[dial]["steps_per_s"]
                         for dial in ("high", "highest")},
     }}))
+    # K5 split and the row map (phase 2, the trained flux of phase 3) and
+    # the probe under both dials (phase 4)
+    ragged = "{}x{}".format(*RAGGED)
+    print(json.dumps({"k5_split": {
+        **{label: patch[label]["split"] for label in (MAIN, ragged)},
+        **{f"{ragged} K=256 {key}": patch[key]
+           for key in ("wide", "cancelled")},
+        "ms": {key: rtiming[key] for key in ("split_ms", "split_lse_ms",
+                                             "split_plain_ms", "score_ms")},
+        "split_bound": rbounds["score_split"],
+        "row_map": {MAIN: rows["row_map"],
+                    ragged: patch[ragged]["row_map"],
+                    "row index mod K": patch["many"],
+                    "trained": slice_["row_map"]},
+        "probe": {dial: {key: errors[dial][key]
+                         for key in ("launches", "error_seconds",
+                                     "peak_bytes")}
+                  for dial in ("high", "highest")},
+        "probe_dial_error_rel": errors["dial_error_rel"],
+    }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax
-    # over quadratic forms), so their library_ms is null. K2's call takes
-    # longer on the host than its kernels on the card: its row adds
-    # device_ms, the profiler's device time of a call, beside ms (CUDA
-    # events, as every row).
+    # over quadratic forms), so their library_ms is null. K2's, K6's and
+    # K7's calls take longer on the host than their kernels on the card:
+    # their rows add device_ms, the profiler's device time of a call,
+    # beside ms (CUDA events, as every row).
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
-    # split and K1 lse split against the split plain version;
+    # split, K1 lse split and K5 split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
     # against the float64 plain version, K4 split (the pipeline from K1
     # lse split) against the float64 pipeline (phase 2)
-    extra = {"gmm_fused_bwd": {"device_ms": timing["bwd_device_ms"]}}
+    extra = {"gmm_fused_bwd": {"device_ms": timing["bwd_device_ms"]},
+             "gmm_unit_map": {"device_ms": rows["row_map"]["unit"][
+                 "device_ms"]},
+             "gmm_hvp_map": {"device_ms": rows["row_map"]["hvp"][
+                 "device_ms"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],

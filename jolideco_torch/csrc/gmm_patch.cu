@@ -113,7 +113,7 @@ constexpr int kRPT = 2;              // rows per scoring thread
 constexpr int kMapTile = 128;
 constexpr int kMapThreads = 256;
 constexpr int kMapSeg = kMapTile / (kMapThreads / 16);
-constexpr int kMapLd = kMapTile + kMapSeg + 1;  // x^T row: odd, room past the last place
+constexpr int kMapLd = kD + 4;  // a row in shared memory: float4-aligned
 static_assert(kMapSeg == 8 && kD == 64, "a half-warp's 16 threads cover a row");
 constexpr int kMargThreads = 128;
 
@@ -184,19 +184,25 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
                    const float* __restrict__ a_full,
                    const float* __restrict__ b_rows, int n_total,
                    float* __restrict__ out) {
-  __shared__ __align__(16) float xt[kD * kMapLd];  // [c][place]
+  __shared__ __align__(16) float xs[kMapTile * kMapLd];  // the rows
   __shared__ int key[kMapTile];      // each row's k*
-  __shared__ int rank[kMapTile];     // a row's place in (k*, q) order
-  __shared__ int order[kMapTile];    // the row at each place
+  __shared__ int order[kMapTile];    // the row at each place of (k*, q) order
   __shared__ int run_end[kMapTile];  // the end of each place's run of k*
 
+  // the block's rows and keys, from coalesced float4 reads (a warp over
+  // 512 contiguous bytes), all of a thread's in flight together
   const int n0 = blockIdx.x * kMapTile;
   const int count = n_total - n0 < kMapTile ? n_total - n0 : kMapTile;
+  const float4* x4 = reinterpret_cast<const float4*>(rows + (size_t)n0 * kD);
+  for (int e = threadIdx.x; e < count * kD / 4; e += blockDim.x) {
+    const int q = e / (kD / 4), c = 4 * (e % (kD / 4));
+    *reinterpret_cast<float4*>(xs + q * kMapLd + c) = __ldg(x4 + e);
+  }
   for (int q = threadIdx.x; q < count; q += blockDim.x)
     key[q] = __ldg(argmax + n0 + q);
   __syncthreads();
 
-  // each row's rank in (k*, q) order, and where its run ends
+  // each row's place in (k*, q) order, and where its run ends
   for (int q = threadIdx.x; q < count; q += blockDim.x) {
     const int k = key[q];
     int upto = 0, place = 0;
@@ -205,43 +211,18 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
       upto += kj <= k;
       place += kj < k || (kj == k && j < q);
     }
-    rank[q] = place;
     order[place] = q;
     run_end[place] = upto;
   }
   __syncthreads();
 
-  // x^T by rank, from coalesced float4 reads, kMapLoads of a thread in
-  // flight together
-  constexpr int kMapLoads = kMapTile * kD / 4 / kMapThreads;
-  const float4* x4 = reinterpret_cast<const float4*>(rows + (size_t)n0 * kD);
-  for (int e0 = threadIdx.x; e0 < count * kD / 4;
-       e0 += kMapLoads * blockDim.x) {
-    float4 v[kMapLoads];
-#pragma unroll
-    for (int i = 0; i < kMapLoads; ++i) {
-      const int e = e0 + i * blockDim.x;
-      if (e < count * kD / 4) v[i] = __ldg(x4 + e);
-    }
-#pragma unroll
-    for (int i = 0; i < kMapLoads; ++i) {
-      const int e = e0 + i * blockDim.x;
-      if (e >= count * kD / 4) break;
-      const int q = e / (kD / 4), c = 4 * (e % (kD / 4));
-      float* dst = xt + c * kMapLd + rank[q];
-      dst[0] = v[i].x;
-      dst[kMapLd] = v[i].y;
-      dst[2 * kMapLd] = v[i].z;
-      dst[3 * kMapLd] = v[i].w;
-    }
-  }
-  __syncthreads();
-
   // thread t: half-warp h = t / 16 takes places kMapSeg h .. kMapSeg h +
-  // kMapSeg - 1, run by run, the rows j0 + i (i < kMapSeg) of the run
-  // from place j0, entries r0 .. r0 + 3 of their output (r0 = 4 (t %
-  // 16)); each output row is stored by its half-warp as one 256-byte
-  // line. No barrier between runs.
+  // kMapSeg - 1, run by run, the rows at places j0 + i (i < kMapSeg) of
+  // the run from place j0 (a place past the run's end reads the run's
+  // first row and is not stored), entries r0 .. r0 + 3 of their output
+  // (r0 = 4 (t % 16)): per four columns c, four float4s of A_{k*} and a
+  // float4 of each row, 64 multiply-adds. Each output row is stored by
+  // its half-warp as one 256-byte line. No barrier between runs.
   for (int t = threadIdx.x; t < kMapThreads; t += blockDim.x) {
     const int seg = t / 16, r0 = 4 * (t % 16);
     const int seg_end = kMapSeg * (seg + 1) < count ? kMapSeg * (seg + 1)
@@ -251,21 +232,32 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
       const int j0 = j;
       const int end = run_end[j] < seg_end ? run_end[j] : seg_end;
       j = end;
+      int q[kMapSeg];
+#pragma unroll
+      for (int i = 0; i < kMapSeg; ++i) q[i] = order[j0 + i < end ? j0 + i : j0];
       const float* ak = a_full + (size_t)k * kD * kD + r0;
       float acc[kMapSeg][4];
 #pragma unroll
       for (int i = 0; i < kMapSeg; ++i)
         acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < kD; ++c) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(ak + c * kD));
+#pragma unroll 2
+      for (int c = 0; c < kD; c += 4) {
+        float4 a[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          a[m] = __ldg(reinterpret_cast<const float4*>(ak + (c + m) * kD));
 #pragma unroll
         for (int i = 0; i < kMapSeg; ++i) {
-          const float x = xt[c * kMapLd + j0 + i];
-          acc[i][0] = fmaf(a.x, x, acc[i][0]);
-          acc[i][1] = fmaf(a.y, x, acc[i][1]);
-          acc[i][2] = fmaf(a.z, x, acc[i][2]);
-          acc[i][3] = fmaf(a.w, x, acc[i][3]);
+          const float4 x =
+              *reinterpret_cast<const float4*>(xs + q[i] * kMapLd + c);
+          const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            acc[i][0] = fmaf(a[m].x, xv[m], acc[i][0]);
+            acc[i][1] = fmaf(a[m].y, xv[m], acc[i][1]);
+            acc[i][2] = fmaf(a[m].z, xv[m], acc[i][2]);
+            acc[i][3] = fmaf(a[m].w, xv[m], acc[i][3]);
+          }
         }
       }
       const float4 b =
@@ -274,8 +266,7 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
 #pragma unroll
       for (int i = 0; i < kMapSeg; ++i) {
         if (j0 + i >= end) break;
-        reinterpret_cast<float4*>(out + (size_t)(n0 + order[j0 + i]) * kD +
-                                  r0)[0] =
+        reinterpret_cast<float4*>(out + (size_t)(n0 + q[i]) * kD + r0)[0] =
             make_float4(b.x - acc[i][0], b.y - acc[i][1], b.z - acc[i][2],
                         b.w - acc[i][3]);
       }
