@@ -1,12 +1,15 @@
 // The fused GMM scorer on Hopper's tensor cores (sm_90a), in the
 // precision dial's "split" mode: the forward, MAP (maximum) and
-// marginalise (logsumexp), and the marginalise backward. Built by nvcc
+// marginalise (logsumexp), and the marginalise backward; and the
+// patch-level scorer of the flux-error probe on rows. Built by nvcc
 // into a shared library with a plain C interface and loaded with ctypes
 // (jolideco_torch/utils/cuda_build.py); the wrappers, the dispatch by
 // mode and the plain PyTorch versions (mode="split") are in
-// jolideco_torch/ops/gmm_fused.py. The float32 kernels ("f32" mode, the
-// "highest" dial) and the MAP backward, which reads no logit, are
-// gmm_fused.cu's, whose header states the patch enumeration.
+// jolideco_torch/ops/gmm_fused.py, the row scorer's wrapper in
+// jolideco_torch/ops/gmm_pallas.py. The float32 kernels ("f32" mode,
+// the "highest" dial) and the MAP backward, which reads no logit, are
+// gmm_fused.cu's, whose header states the patch enumeration, and
+// gmm_patch.cu's.
 //
 // gmm_fwd_tc_kernel replaces the JAX package's ops/gmm_fused.py::
 // _fwd_kernel under precision HIGH ("split3"): per patch, load, mask,
@@ -58,6 +61,20 @@
 // 1024^2, 0.89 GB); mma.sync, not wgmma, and no TMA: a first version
 // that is right, as the port's other tensor-core kernels.
 //
+// gmm_score_rows_tc_kernel (K5 split) replaces ops/gmm_pallas.py::
+// _score_kernel under precision HIGH: the same logits and reductions
+// (score_block, shared with gmm_fwd_tc_kernel: tile_logits and its
+// reduction are one code) for rows (N, 64) float32 that are already
+// masked and mean-subtracted. The block's 128 rows come in by coalesced
+// float4 reads into the padded patch tile; a row past the end is zero
+// and is not written. Operations bound it as K1 split: 0.169 ms at
+// 65,025 rows, K = 200. The flux-error probe launches the MAP instance
+// under the default dial. The logsumexp instance is built and checked
+// (chip_smoke.py phase 2) but no path launches it yet: the marginalised
+// probe's gradient and Hessian action (gmm_patch.cu's K8, K9a) take the
+// scorer's logsumexp as the stabiliser of exp(logit - lse), and are
+// float32, so their lse must be too until they move to this arithmetic.
+//
 // gmm_bwd_marg_tc_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel
 // under precision HIGH: per valid patch with the forward's logsumexp
 // lse and cotangent dv,
@@ -93,6 +110,10 @@
 // bounds; 255 registers each, 32, 16 and 0 bytes spilled. Under a GMM
 // whose weights are mixed (about 200 nonzero a patch) the backward's
 // A_k x terms take it to 14.37 ms (the float32 kernel 11.76).
+// gmm_score_rows_tc_kernel at 65,025 rows: <false> 0.701 ms, <true>
+// 0.747 ms (gmm_patch.cu's float32 K5 1.673), 24% of the split bound;
+// 255 registers, 16 bytes spilled each; the forward kernels' ptxas lines
+// did not change when score_block was factored out of gmm_fwd_tc_kernel.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>

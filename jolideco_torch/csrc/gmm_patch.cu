@@ -26,7 +26,11 @@
 // component. The TPU kernel's one-hot MXU tricks, bf16 hi/lo splits and
 // K padding to 128 are not carried over. At 65,025 rows, K = 200 on an
 // NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms, K1's loop 2-4%
-// slower than K1 itself.
+// slower than K1 itself. Under the default dial ("split") the MAP probe
+// scores on the tensor cores instead (gmm_fused_tc.cu's
+// gmm_score_rows_tc_kernel, 0.70-0.72 ms); this kernel scores under
+// "highest", and in logsumexp mode for the marginalised probe under
+// every dial (its K8 and K9a need the lse of their own float32 logits).
 //
 // ---------------------------------------------------------------------
 // gmm_row_map_kernel<true> (C entry gmm_unit_map) replaces
@@ -39,15 +43,35 @@
 // JVP and the VJP of the unit gradient.
 //
 // What bounds them: bytes. The rows in and out (16.6 MB each at 65,025
-// rows) and the K matrices (3.3 MB at K = 200) are about 37 MB, 11 µs at
-// 3.35 TB/s; the 0.53 GFLOP take 8 µs. Design (K2's per-patch step,
-// gmm_fused.cu::gmm_bwd_kernel, without its epilogue): one thread per
-// row, the row in registers, A_{k*} read as float4 through the read-only
-// path (all K matrices fit in L2, and neighbouring rows often share k*),
-// four output values stored as one float4. Plain stores, no atomics. On
-// the same card: 0.064-0.077 ms, 13-16% of the bound; each thread's row
-// is 256 contiguous bytes, so a warp's loads and stores are not
-// coalesced (staging rows through shared memory is the next step).
+// rows), the argmax and the selected components' A (16 KB each) are
+// about 33 MB, 0.010 ms at 3.35 TB/s; the 0.53 GFLOP take 8 µs. Design
+// (the product stage of K2, gmm_fused.cu::gmm_bwd_kernel, without its
+// overlap-add): one block of 256 threads per 128 consecutive rows. The
+// rows and their argmax come in by coalesced float4 reads (a warp over
+// 512 contiguous bytes) into shared memory, all of a thread's loads in
+// flight together; each row's place in (k*, row) order is its rank
+// among the block's keys (no sort, no atomics). Each half-warp then
+// takes 8 places of that order, run by run of equal k*: a thread four
+// entries of the 8 rows' outputs, reading row c of A_{k*} (its column c,
+// A symmetric) as float4s, so a half-warp reads a run's A_{k*} once,
+// whole 256-byte lines, and the block's other half-warps find it in L1;
+// each row comes from shared memory as a float4 per four columns. Each
+// output row is written by its half-warp as one 256-byte line, at the
+// row's own index: rows keep their order, and every entry is one fixed
+// sum, so two calls give the same bits. A run boundary inside a
+// half-warp's 8 places costs it a second pass.
+// The first kernel (one thread per row, the row in registers, A_{k*}
+// read through the read-only path, 256-byte rows per thread that no
+// warp access coalesced) took 0.059-0.082 ms of device time on an
+// NVIDIA H100 80GB HBM3 (700 W limit), 0.28-0.30 ms where every block's
+// rows select 128 components. This one (device time, the same card and
+// inputs, scripts/torch_probe_kernel_times.py): 0.027-0.028 ms at the
+// main path's trained flux (one component a block; 36% of the bound),
+// 0.031-0.032 ms at a random image, 0.029 ms at its ragged 56,025 rows,
+// 0.14 ms at 128 components a block (each row's A_k from L2); 106-108
+// registers, no spills. A version that kept the rows transposed by
+// rank in shared memory (scalar reads, 60-64 registers) took the same
+// at the trained flux and 0.034-0.038 ms at the random image.
 
 //
 // ---------------------------------------------------------------------

@@ -227,8 +227,8 @@ def _check_rows(x, name, argmax=None):
     return device, n
 
 
-def _launch(kernel, *args, tc=False):
-    lib = _tc_library() if tc else _library()
+def _launch(kernel, *args):
+    lib = _library()
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, kernel)(
@@ -236,9 +236,7 @@ def _launch(kernel, *args, tc=False):
               for a in args],
             stream,
         )
-    error_string = (lib.gmm_fused_tc_error_string if tc
-                    else lib.gmm_patch_error_string)
-    _raise_on_error(error_string, code, kernel)
+    _raise_on_error(lib.gmm_patch_error_string, code, kernel)
 
 
 def gmm_score_rows_cuda(x, bufs, marginalize=False):
@@ -280,8 +278,15 @@ def gmm_score_rows_tc_cuda(x, bufs, marginalize=False):
     values = torch.empty(n, dtype=torch.float32, device=device)
     argmax = torch.empty(n, dtype=torch.int32, device=device)
     if n:
-        _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
-                int(bool(marginalize)), values, argmax, tc=True)
+        lib = _tc_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.gmm_score_rows_tc(
+                x.data_ptr(), n, bufs["pair_tc"].data_ptr(),
+                bufs["bc"].data_ptr(), k, int(bool(marginalize)),
+                values.data_ptr(), argmax.data_ptr(), stream)
+        _raise_on_error(lib.gmm_fused_tc_error_string, code,
+                        "gmm_score_rows_tc")
         gmm_score_rows_tc_cuda.launches += 1
     return values, argmax
 

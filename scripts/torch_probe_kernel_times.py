@@ -24,12 +24,11 @@ first run and saved to ``--cases``, so that every run sees the same:
 - ``ragged``: phase 2's 1000 x 904 image (56,025 rows).
 
 For each case: the distinct components per block of 128 rows, and K6's
-and K7's ms a call (CUDA events, 50 calls after one) and of device
-time (``chip_smoke.device_ms``: the host side of a call outlasts the
-kernel) and their error
-against the plain versions over those versions' max-abs; at
-``uniform``, K5's ms in float32 and, where the checkout has it, on the
-tensor cores (``"split"``). The timing helpers are this repository's
+and K7's ms a call (CUDA events, 50 calls after one) and of device time
+(``chip_smoke.device_ms``: the host side of a call outlasts the kernel)
+and their error against the plain versions over those versions'
+max-abs; at ``uniform``, K5's ms in float32 and, where the checkout has
+it, on the tensor cores (``"split"``). The timing helpers are this repository's
 ``chip_smoke.py``. Prints one JSON line, with the card's name and power
 limit.
 """

@@ -205,3 +205,14 @@ def test_map_deconvolver_errors_match_jax_high():
     assert errors_t.shape == errors_j.shape == (128, 128)
     assert np.isfinite(errors_t).all() and (errors_t > 0).all()
     assert_allclose(errors_t, errors_j, rtol=1e-4)
+
+
+def test_tensor_core_row_scorer_refuses_cpu_tensors(rows):
+    """K5 split's wrapper launches on a card or raises: a CPU tensor
+    takes the split plain version only through the dispatch."""
+    bufs = jt.GaussianMixtureModel.from_registry(
+        "astro-snr-v1").kernel_buffers("cpu")
+    for marginalize in (False, True):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tp.gmm_score_rows_tc_cuda(torch.as_tensor(rows), bufs,
+                                      marginalize)

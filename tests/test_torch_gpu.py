@@ -8,13 +8,12 @@ Marked ``gpu``; every test skips without a card. On a machine with one
 Tolerances: ``valid`` and the normalised patches exact to 1e-5; values
 to rtol 1e-5 (float32 sums in different orders; the tensor-core
 scorers of the ``"split"`` mode, K1 split and K5 split, against the
-split plain version,
-which forms the same bf16 products, to rtol 7e-5, ``chip_smoke.py``'s
-``K1_SPLIT_RTOL``: the tensor cores' sums are not IEEE sums); argmax
-identical; the
-image gradient, the unit gradient and the Hessian action to 1e-4 of
-their max-abs, the image gradient (K2) and the row map (K6, K7) also
-bitwise repeatable, K2 free of host synchronisation; the flux errors of the Hessian probe, card against CPU,
+split plain version, which forms the same bf16 products, to rtol 7e-5,
+``chip_smoke.py``'s ``K1_SPLIT_RTOL``: the tensor cores' sums are not
+IEEE sums); argmax identical; the image gradient, the unit gradient and
+the Hessian action to 1e-4 of their max-abs, the image gradient (K2)
+and the row map (K6, K7) also bitwise repeatable, K2 free of host
+synchronisation; the flux errors of the Hessian probe, card against CPU,
 to rtol 1e-4 (float32 FFTs and sums in other orders). The marginalise
 kernels (K4, K8, K9) are held against their plain versions run in
 float64 on the same inputs: at most twice the float32 plain version's
