@@ -63,11 +63,14 @@ Phases, each printing one or more lines:
    float32 kernels (K1 in its marginalise mode, K4), each with exact
    counts, the two runs' flux difference and the argmax of K1 lse's two
    kernels at the final flux (at most 1e-4 of the patches differ); then
-   the probe under the default dial (training on K1 lse split and K4
-   split; K5's logsumexp, the marginalise unit gradient (K8) and the two
-   stages of its Hessian action (K9a, K9b) in float32), with its own
-   counts; then a small run's flux and errors on the card against the
-   CPU's plain path;
+   the probe under both dials: under the default dial (training on K1
+   lse split and K4 split) K5's logsumexp, the marginalise unit gradient
+   (K8) and the first stage of its Hessian action (K9a) on the tensor
+   cores (K5 lse split, K8 split, K9a split), under ``"highest"`` their
+   float32 kernels, the second stage (K9b) under both, each with its
+   own counts, and the two runs' errors against each other; then a
+   small run's flux and errors on the card against the CPU's plain
+   path;
 6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
    the default dial (``"split"``: the three passes on the tensor cores)
    and under ``"highest"`` (``"f32"``: the three float32 kernels), each
@@ -90,16 +93,21 @@ Then the marginalise kernels of the ``"split"`` mode on the tensor
 cores, on both images under ``astro-snr-v1``, ``wide_gmm()`` and
 ``mixed_gmm()``: K1 lse split against the split plain version (K1
 split's bars) and float64, K4 split as training runs it (fed K1 lse
-split's logsumexp) against the float64 pipeline, with times, bounds
-and registers beside the float32 kernels'.
+split's logsumexp) against the float64 pipeline, and on the images'
+rows K8 split and K9a split as the probe runs them (fed K5 lse split's
+logsumexp; K9a split's dp exactly 0 on every row whose weight is
+one-hot), with
+times, bounds and registers beside the float32 kernels'.
 
 It then prints a JSON line with K3's errors and times, a JSON line with
 the mixed case's errors, times and bounds, a JSON line with the
 marginalise split kernels' errors, times and bounds and the two dials'
-marginalised training, a JSON line with K1's split kernel's errors,
+marginalised training and probe, a JSON line with K1's split kernel's
+errors,
 time and bound and the two dials' flux difference, a JSON line with K5
 split's errors, times and bound, the row map's cases and the probe
-under both dials, a JSON line with each kernel's numbers (twenty) and,
+under both dials, a JSON line with each kernel's numbers (twenty-three)
+and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -778,10 +786,12 @@ def phase_patch_kernels(torch, device, bufs, cases):
                 x, bufs), 3),
             "split_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_tc_cuda(
                 x, bufs), 10),
-            "split_lse_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_tc_cuda(
-                x, bufs, True), 10),
+            "split_lse_ms": cuda_ms(
+                torch, lambda: gp.gmm_score_rows_marg_tc_cuda(x, bufs), 10),
             "split_plain_ms": cuda_ms(torch, lambda: gf.score_split_plain(
                 x, bufs), 3),
+            "split_lse_plain_ms": cuda_ms(
+                torch, lambda: gf.score_split_marg_plain(x, bufs), 3),
             **{f"{name}_{key}": case[name][key] for name in ("unit", "hvp")
                for key in ("ms", "plain_ms")},
         }
@@ -1280,6 +1290,116 @@ def marg_split_timing(torch, bufs, s, plain=True):
     return timing, bounds
 
 
+def probe_split_checks(torch, device, label, img, bufs):
+    """K8 split and K9a split (the marginalised probe's unit gradient and
+    first Hessian stage on the tensor cores) on the probe's rows of one
+    image, as the probe runs them: fed K5 lse split's logsumexp, along a
+    random tangent, against the float64 pipeline (the exact logits of
+    the rows, their logsumexp and the float64 plain versions): at most
+    ``MARG_ERR_FACTOR`` times :func:`split_lse_ratio` of K5 lse split's
+    error times the split plain pipeline's (``score_split_marg_plain``,
+    ``marg_unit_split_plain``, ``hvp_marg_weights_split_plain``), plus
+    ``MARG_ERR_FLOOR`` of the max-abs; K9b on K9a split's weights (the
+    Hessian action) the same. On every row whose weight sits on one
+    component (nearly all under ``astro-snr-v1``) dp must be exactly 0.
+    Returns the numbers and the inputs, for timing."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    x = normalised_rows(torch, torch.as_tensor(img, device=device),
+                        ZERO_FLUX_SENTINEL)
+    gen = torch.Generator(device=device).manual_seed(4)
+    t = torch.randn(x.shape, generator=gen, device=device)
+    lse_tc, _ = gp.gmm_score_rows_marg_tc_cuda(x, bufs)
+    ut = gp.gmm_unit_marg_tc_cuda(x, lse_tc, bufs)
+    pt, dpt = gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse_tc, bufs)
+    ht = gp.gmm_hvp_marg_mix_cuda(x, t, pt, dpt, bufs)
+    lse_sp, _ = gf.score_split_marg_plain(x, bufs)
+    us = gf.marg_unit_split_plain(x, lse_sp, bufs)
+    ps, dps = gp.hvp_marg_weights_split_plain(x, t, lse_sp, bufs)
+    hs = gp.hvp_marg_mix_plain(x, t, ps, dps, bufs)
+    b64 = {name: v.double() for name, v in bufs.items()}
+    x64, t64 = x.double(), t.double()
+    lse64, _ = gp.score_rows_plain(x64, b64, True)
+    u64 = gp.unit_marg_plain(x64, lse64, b64)
+    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+    h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
+    torch.cuda.synchronize()
+    tag = f"{label} marginalised probe split"
+    lse_errs = {name: float((v.double() - lse64).abs().max())
+                for name, v in (("tc", lse_tc), ("split_plain", lse_sp))}
+    factor = MARG_ERR_FACTOR * split_lse_ratio(lse_errs)
+    errs = {"unit": anchored(tag, "K8 split", ut, us, u64, factor),
+            "weights_p": anchored(tag, "K9a split p", pt, ps, p64, factor),
+            "weights_dp": anchored(tag, "K9a split dp", dpt, dps, dp64,
+                                   factor),
+            "hvp": anchored(tag, "K9 (K9a split, K9b)", ht, hs, h64,
+                            factor)}
+    one_hot = (pt != 0).sum(dim=0) == 1
+    n_one_hot = int(one_hot.sum())
+    dp_nonzero = int((dpt[:, one_hot] != 0).sum())
+    check(dp_nonzero == 0, f"{tag}: {dp_nonzero} entries of K9a split's dp "
+          f"are not 0 on the {n_one_hot} rows whose weight is one-hot")
+    nnz, used = support(torch, x, lse_sp, bufs, "split")
+    n = x.shape[0]
+    print(f"phase 2 {tag} ({n} rows): K5 lse split against float64 "
+          f"{lse_errs['tc']:.3g}, split plain {lse_errs['split_plain']:.3g}; "
+          f"against float64 (kernel, split plain, max; limit {factor:.3g} x "
+          f"split plain + {MARG_ERR_FLOOR} x max): "
+          + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
+                      for name, e in errs.items())
+          + f"; dp exactly 0 on the {n_one_hot} one-hot rows; nonzero "
+          f"weights {nnz} of {n} x {bufs['rec'].shape[0]}")
+    out = {"lse_against_float64": lse_errs, "factor": factor,
+           "errors_against_float64": {
+               name: dict(zip(("tc", "split_plain", "max_abs"), e))
+               for name, e in errs.items()},
+           "one_hot_rows": n_one_hot, "nonzero_weights": nnz, "n_rows": n}
+    inputs = {"x": x, "t": t, "lse": lse_tc, "nnz": nnz, "used": used}
+    return out, inputs
+
+
+def probe_split_timing(torch, bufs, s, plain=True):
+    """Milliseconds per call of K8 split and K9a split (and of their
+    split plain versions) on a case's rows, fed K5 lse split's
+    logsumexp, and their bounds: the logits' three bf16 products at the
+    bf16 peak, the float32 A_k x terms of the nonzero weights (and their
+    dot products with b_k or t) at the fp32 peak on top. Bytes: rows (and
+    tangents) and the logsumexp read once, the output written once (K9a:
+    p and dp, (K, N)), the split buffers, and of the A_k and b_k those
+    that some weight selects."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    x, t, lse = s["x"], s["t"], s["lse"]
+    calls = {
+        "unit": (lambda: gp.gmm_unit_marg_tc_cuda(x, lse, bufs),
+                 lambda: gf.marg_unit_split_plain(x, lse, bufs)),
+        "weights": (lambda: gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs),
+                    lambda: gp.hvp_marg_weights_split_plain(x, t, lse,
+                                                            bufs)),
+    }
+    timing = {}
+    for name, (kernel, plain_fn) in calls.items():
+        timing[name + "_ms"] = cuda_ms(torch, kernel, 10)
+        if plain:
+            timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
+    k, n = bufs["rec"].shape[0], x.shape[0]
+    t_ops = (3 * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
+             + 2.0 * (4096 + 64) * s["nnz"] / PEAK_FP32_FLOPS)
+    fixed = (4 * bufs["bc"].numel() + 2 * bufs["pair_tc"].numel()
+             + 4 * s["used"] * (64 * 64 + 64))
+    bounds = {}
+    for name, nbytes in (("unit", 4 * (2 * n * 64 + n)),
+                         ("weights", 4 * (2 * n * 64 + n + 2 * k * n))):
+        t_bytes = (nbytes + fixed) / PEAK_BYTES_PER_S
+        bounds[name] = {
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    return timing, bounds
+
+
 def phase_marg_split_kernels(torch, device, bufs, cases, marg):
     """K1 lse split and K4 split against their split plain versions and
     float64 on the phase's two images under ``astro-snr-v1`` (one-hot
@@ -1298,13 +1418,23 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg):
             res, s = marg_split_checks(torch, device, f"{label} K={k} {key}",
                                        img, gmm_bufs)
             out[f"{label} {key}"] = res
+            probe, rows = probe_split_checks(
+                torch, device, f"{label} K={k} {key}", img, gmm_bufs)
+            out[f"{label} {key} probe"] = probe
             if key == "mixed":
-                check(res["nonzero_weights"] >= 10 * res["n_valid"],
+                check(res["nonzero_weights"] >= 10 * res["n_valid"]
+                      and probe["nonzero_weights"] >= 10 * probe["n_rows"],
                       f"{label} mixed: weights not mixed "
                       f"({res['nonzero_weights']} nonzero of "
-                      f"{res['n_valid']} patches)")
+                      f"{res['n_valid']} patches, "
+                      f"{probe['nonzero_weights']} of {probe['n_rows']} "
+                      f"rows)")
             if label != MAIN or key == "wide":
                 continue
+            ptiming, pbounds = probe_split_timing(torch, gmm_bufs, rows,
+                                                  plain=key == "astro")
+            out[f"probe_timing_{key}"] = ptiming
+            out[f"probe_bounds_{key}"] = pbounds
             timing, bounds = marg_split_timing(torch, gmm_bufs, s,
                                                plain=key == "astro")
             out[f"timing_{key}"], out[f"bounds_{key}"] = timing, bounds
@@ -1315,19 +1445,28 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg):
                     f"({bounds['fwd']['bound_ms'] / timing['fwd_ms']:.1%}), "
                     f"{bounds['bwd']['bound_ms']:.4f} "
                     f"({bounds['bwd']['bound_ms'] / timing['bwd_ms']:.1%})")
+            tm = marg["timing"] if key == "astro" else marg["mixed"]["timing"]
+            line += (f"; K8 split {ptiming['unit_ms']:.3f} ms, K9a split "
+                     f"{ptiming['weights_ms']:.3f} ms; split bounds "
+                     + ", ".join(f"{pbounds[name]['bound_ms']:.4f} "
+                                 f"({pbounds[name]['bound_ms'] / ptiming[name + '_ms']:.1%})"
+                                 for name in ("unit", "weights")))
             if key == "astro":
-                tm = marg["timing"]
                 line += (f"; split plain {timing['fwd_plain_ms']:.3f}, "
-                         f"{timing['bwd_plain_ms']:.3f} ms; float32 kernels "
-                         f"(this call) K1 lse {tm['fwd_ms']:.3f}, K4 "
-                         f"{tm['bwd_ms']:.3f} ms; "
+                         f"{timing['bwd_plain_ms']:.3f}, "
+                         f"{ptiming['unit_plain_ms']:.3f}, "
+                         f"{ptiming['weights_plain_ms']:.3f} ms; float32 "
+                         f"kernels (this call) K1 lse {tm['fwd_ms']:.3f}, K4 "
+                         f"{tm['bwd_ms']:.3f}, K8 {tm['unit_ms']:.3f}, K9a "
+                         f"{tm['weights_ms']:.3f} ms; "
                          + " | ".join(ptxas_summary(
                              BUILD_INFO["gmm_fused_tc"]["ptxas"])))
             else:
-                tm = marg["mixed"]["timing"]
                 line += (f"; float32 kernels (this call) K1 lse "
-                         f"{tm['fwd_ms']:.3f}, K4 {tm['bwd_ms']:.3f} ms; "
-                         f"{s['nnz']} nonzero weights")
+                         f"{tm['fwd_ms']:.3f}, K4 {tm['bwd_ms']:.3f}, K8 "
+                         f"{tm['unit_ms']:.3f}, K9a {tm['weights_ms']:.3f} "
+                         f"ms; {s['nnz']} nonzero weights of the patches, "
+                         f"{rows['nnz']} of the rows")
             print(line)
     return out
 
@@ -2025,19 +2164,74 @@ def marg_training(torch, device, datasets, gmm, dial):
             "peak_bytes": peak, "flux": flux}
 
 
+# the marginalised probe's K5 (logsumexp), K8 and K9a under each mode of
+# the precision dial; K9b (no mode) under both
+MARG_PROBE_KERNELS = {
+    "split": ("gmm_score_rows_marg_tc", "gmm_unit_marg_tc",
+              "gmm_hvp_marg_weights_tc"),
+    "f32": ("gmm_score_rows", "gmm_unit_marg", "gmm_hvp_marg_weights"),
+}
+
+
+def marg_probe_run(torch, device, datasets, gmm, dial):
+    """The marginalised main path's training, then one Hessian probe,
+    under the dial ``dial`` (after a warm-up of one step and a probe),
+    counts set to zero just before and read just after: K1 lse and K4 of
+    the dial's mode ``ERROR_STEPS`` times; K5 lse, K8 and K9a of the
+    dial's mode and K9b once; every other kernel never, no plain call."""
+    from jolideco_torch import config
+
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        mode = config.gmm_mode()
+        run = dict(cycle_spin=True, marginalize=True, compute_error=True)
+        run_slice(datasets, gmm, device, n_steps=1, **run)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, n_steps=ERROR_STEPS, **run)
+        launches, plain_calls = counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        config.set_gmm_precision(saved)
+    tag = f"({dial!r}, {mode})"
+    expected = expect(gmm_hvp_marg_mix=1,
+                      **{name: ERROR_STEPS for name in MARG_KERNELS[mode]},
+                      **{name: 1 for name in MARG_PROBE_KERNELS[mode]})
+    check(launches == expected, f"marginalised probe {tag}: launches "
+          f"{launches}, not {expected}")
+    check(plain_calls == 0, f"marginalised probe {tag}: plain versions ran "
+          f"{plain_calls} times")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD)
+          and bool(np.isfinite(errors).all() and (errors > 0).all()),
+          f"marginalised probe {tag}: errors not finite and positive at "
+          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
+    print(f"phase 5 marginalised errors {tag} {N_OBS}x{FIELD}^2 K=200: "
+          f"{ERROR_STEPS} steps in {result.train_seconds:.4f} s, probe "
+          f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} .. "
+          f"{float(errors.max()):.6g}; launches {launches}; plain calls "
+          f"{plain_calls}; peak memory {peak} B")
+    return {"launches": launches, "error_seconds": result.error_seconds,
+            "peak_bytes": peak, "errors": errors}
+
+
 def phase_marginalised(torch, device):
     """Phases 3 and 4 under ``GMMPatchPrior(marginalize=True)``: training
     under the default dial (K1 lse split and K4 split on the tensor
     cores) and under ``"highest"`` (the float32 K1 lse and K4), their
     flux difference and the argmax of K1 lse's two kernels at the final
-    flux, then the probe on K5 (logsumexp), K8, K9a and K9b; each path's
-    counts set to zero just before and read just after."""
+    flux, then the probe (:func:`marg_probe_run`) under both dials: K5
+    lse split, K8 split and K9a split on the tensor cores under the
+    default dial, their float32 kernels under ``"highest"``, K9b under
+    both; each path's counts set to zero just before and read just
+    after."""
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
 
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
     datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    run = dict(cycle_spin=True, marginalize=True)
     train = {dial: marg_training(torch, device, datasets, astro, dial)
              for dial in ("high", "highest")}
     flux, flux_32 = train["high"]["flux"], train["highest"]["flux"]
@@ -2055,33 +2249,16 @@ def phase_marginalised(torch, device):
           f"max-abs difference {dial_diff:.3g} of the max")
     train["dial_flux_diff"], train["final_flips"] = dial_diff, flips
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    result = run_slice(datasets, astro, device, n_steps=ERROR_STEPS,
-                       compute_error=True, **run)
-    launches, plain_calls = counts()
-    peak = torch.cuda.max_memory_allocated()
-    expected = expect(gmm_fused_fwd_marg_tc=ERROR_STEPS,
-                      gmm_fused_bwd_marg_tc=ERROR_STEPS, gmm_score_rows=1,
-                      gmm_unit_marg=1, gmm_hvp_marg_weights=1,
-                      gmm_hvp_marg_mix=1)
-    check(launches == expected, f"marginalised probe: launches {launches}, "
-          f"not {expected}")
-    check(plain_calls == 0, f"marginalised probe: plain versions ran "
-          f"{plain_calls} times")
-    errors = result.components["flux"].flux_upsampled_error_numpy
-    check(errors.shape == (FIELD, FIELD)
-          and bool(np.isfinite(errors).all() and (errors > 0).all()),
-          "marginalised probe: errors not finite and positive at "
-          f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
-    print(f"phase 5 marginalised errors {N_OBS}x{FIELD}^2 K=200: "
-          f"{ERROR_STEPS} steps in {result.train_seconds:.4f} s, probe "
-          f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} .. "
-          f"{float(errors.max()):.6g}; launches {launches}; plain calls "
-          f"{plain_calls}; peak memory {peak} B")
-    probe = {"launches": launches, "error_seconds": result.error_seconds,
-             "peak_bytes": peak}
+    probe = {dial: marg_probe_run(torch, device, datasets, astro, dial)
+             for dial in ("high", "highest")}
+    a, b = probe["high"].pop("errors"), probe["highest"].pop("errors")
+    probe["dial_error_rel"] = float(np.max(np.abs(a - b) / np.abs(b)))
+    print(f"phase 5 dials: marginalised errors under 'high' against "
+          f"'highest' max rel difference {probe['dial_error_rel']:.3g}; "
+          f"probe {probe['high']['error_seconds']:.4f} s against "
+          f"{probe['highest']['error_seconds']:.4f} s, peak memory "
+          f"{probe['high']['peak_bytes']} B against "
+          f"{probe['highest']['peak_bytes']} B")
 
     # small input, flux and errors: the card against the CPU's plain path
     builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -2238,6 +2415,9 @@ def main():
     msplit = kernels["marg_split"]
     msmain = msplit[f"{MAIN} astro"]
     mstiming, msbounds = msplit["timing_astro"], msplit["bounds_astro"]
+    psmain = msplit[f"{MAIN} astro probe"]["errors_against_float64"]
+    pstiming = msplit["probe_timing_astro"]
+    psbounds = msplit["probe_bounds_astro"]
     fused_src = "jolideco_torch/csrc/gmm_fused.cu"
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
     pfft = kernels["pfft"]
@@ -2283,16 +2463,29 @@ def main():
          "jolideco_tpu/ops/gmm_fused.py:420", marg_train["high"],
          msmain["bwd_against_float64"]["tc"], mstiming["bwd_ms"],
          mstiming["bwd_plain_ms"], msbounds["bwd"]),
+        ("gmm_score_rows_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_pallas.py:237", marg_probe["high"],
+         rows["split"]["lse"]["value_max_abs_err"], rtiming["split_lse_ms"],
+         rtiming["split_lse_plain_ms"], rbounds["score_split"]),
         ("gmm_unit_marg", patch_src, "jolideco_tpu/ops/gmm_pallas.py:384",
-         marg_probe, mrows["unit"][0], mtiming["unit_ms"],
+         marg_probe["highest"], mrows["unit"][0], mtiming["unit_ms"],
          mtiming["unit_plain_ms"], mbounds["unit"]),
+        ("gmm_unit_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_pallas.py:384", marg_probe["high"],
+         psmain["unit"]["tc"], pstiming["unit_ms"],
+         pstiming["unit_plain_ms"], psbounds["unit"]),
         ("gmm_hvp_marg_weights", patch_src,
-         "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe,
+         "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["highest"],
          max(mrows["weights_p"][0], mrows["weights_dp"][0]),
          mtiming["weights_ms"], mtiming["weights_plain_ms"],
          mbounds["weights"]),
+        ("gmm_hvp_marg_weights_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+         "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["high"],
+         max(psmain["weights_p"]["tc"], psmain["weights_dp"]["tc"]),
+         pstiming["weights_ms"], pstiming["weights_plain_ms"],
+         psbounds["weights"]),
         ("gmm_hvp_marg_mix", patch_src, "jolideco_tpu/ops/gmm_pallas.py:449",
-         marg_probe, mrows["mix"][0], mtiming["mix_ms"],
+         marg_probe["high"], mrows["mix"][0], mtiming["mix_ms"],
          mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
     library = {name: None for name, *_ in table}
@@ -2371,10 +2564,11 @@ def main():
             "argmax_flips": mixed["errors"]["fwd"][2],
             "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
     }}))
-    # the marginalised prior's kernels on the tensor cores (phase 2) and
-    # the two dials' marginalised training (phase 5)
+    # the marginalised prior's kernels on the tensor cores (phase 2), the
+    # two dials' marginalised training and probe (phase 5)
     print(json.dumps({"marg_split": {
         **{label: res for label, res in msplit.items()},
+        "probe": marg_probe,
         "dial_flux_diff": marg_train["dial_flux_diff"],
         "dial_flips_limit": K1_SPLIT_FLIPS,
         "final_argmax_flips": marg_train["final_flips"],

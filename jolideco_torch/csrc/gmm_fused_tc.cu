@@ -1,11 +1,12 @@
 // The fused GMM scorer on Hopper's tensor cores (sm_90a), in the
 // precision dial's "split" mode: the forward, MAP (maximum) and
-// marginalise (logsumexp), and the marginalise backward; and the
-// patch-level scorer of the flux-error probe on rows. Built by nvcc
-// into a shared library with a plain C interface and loaded with ctypes
+// marginalise (logsumexp), and the marginalise backward; and on rows,
+// the flux-error probe's patch-level scorer and its marginalise unit
+// gradient and Hessian weights. Built by nvcc into a shared library with
+// a plain C interface and loaded with ctypes
 // (jolideco_torch/utils/cuda_build.py); the wrappers, the dispatch by
 // mode and the plain PyTorch versions (mode="split") are in
-// jolideco_torch/ops/gmm_fused.py, the row scorer's wrapper in
+// jolideco_torch/ops/gmm_fused.py, the row kernels' wrappers in
 // jolideco_torch/ops/gmm_pallas.py. The float32 kernels ("f32" mode,
 // the "highest" dial) and the MAP backward, which reads no logit, are
 // gmm_fused.cu's, whose header states the patch enumeration, and
@@ -69,11 +70,11 @@
 // float4 reads into the padded patch tile; a row past the end is zero
 // and is not written. Operations bound it as K1 split: 0.169 ms at
 // 65,025 rows, K = 200. The flux-error probe launches the MAP instance
-// under the default dial. The logsumexp instance is built and checked
-// (chip_smoke.py phase 2) but no path launches it yet: the marginalised
-// probe's gradient and Hessian action (gmm_patch.cu's K8, K9a) take the
-// scorer's logsumexp as the stabiliser of exp(logit - lse), and are
-// float32, so their lse must be too until they move to this arithmetic.
+// under the default dial, the marginalised probe the logsumexp
+// instance, whose lse K8 split and K9a split take as the stabiliser of
+// exp(logit - lse): they recompute the logits by the same code in the
+// same block geometry (128 rows a block from row 128 blockIdx.x, loaded
+// by load_rows), so they are, bit for bit, the logits that lse summed.
 //
 // gmm_bwd_marg_tc_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel
 // under precision HIGH: per valid patch with the forward's logsumexp
@@ -91,17 +92,41 @@
 // the A_k x terms of the nonzero weights in float32 (4,096
 // multiply-adds and 16 KB of A_k each). For the shipped GMMs nearly
 // every weight underflows to exactly 0 (about one nonzero a patch), and
-// skipping a zero term is exact. The design: after a tile's main loop
-// its weights go to shared memory (over the stages and u, 104 KB); each
-// warp owns 16 rows, finds their nonzero weights 32 components at a
-// time with one ballot per row, and runs each component's term for
-// those rows in turn, one warp per (row, component): lane l accumulates
-// entries 2l, 2l + 1 of A_k x while the warp reads A_k row by row,
-// coalesced, through the read-only path (A_k stays in L1 across the
-// rows that share it). The gradient rows (33 KB) stay in shared memory
-// across the tiles; each row is summed by its one warp, components in
-// ascending order, so the result is deterministic without atomics, for
-// any K and any number of nonzero weights.
+// skipping a zero term is exact. The design (marg_tile, marg_rows):
+// after a tile's main loop its weights go to shared memory (over the
+// stages and u, 104 KB); each warp owns 16 rows, finds their nonzero
+// weights 32 components at a time with one ballot per row, and runs
+// each component's term for those rows in turn, one warp per (row,
+// component): lane l accumulates entries 2l, 2l + 1 of A_k x while the
+// warp reads A_k row by row, coalesced, through the read-only path (A_k
+// stays in L1 across the rows that share it). The gradient rows (33 KB)
+// stay in shared memory across the tiles; each row is summed by its one
+// warp, components in ascending order, so the result is deterministic
+// without atomics, for any K and any number of nonzero weights.
+//
+// gmm_unit_marg_tc_kernel (K8 split) replaces ops/gmm_pallas.py::
+// _unit_marg_kernel under precision HIGH: the same mixture (marg_rows,
+// the one code of both) for rows (N, 64) with K5 lse split's logsumexp,
+// u = sum_k w_k (b_k - A_k x) / sum_k w_k written to (N, 64). The JAX
+// kernel mixes with p and A split into bf16 hi and lo; this one in
+// float32, as K4 split. Bound and design as K4 split's.
+//
+// gmm_hvp_marg_weights_tc_kernel (K9a split) replaces ops/gmm_pallas.py::
+// _hvp_marg_weights_kernel under precision HIGH: with the same weights,
+// p = w / sum w and dp_k = p_k (g_k - sum_j p_j g_j), g_k = t . (b_k -
+// A_k x), out (K, N) as gmm_patch.cu's K9a. The JAX kernel computes g by
+// a second split product, the cross form u(t, x) . A, for every (row,
+// component); this one computes g in float32 for the nonzero weights
+// only (marg_dot, one warp a term, as K4's A_k x), since g_k drops out
+// of dp where p_k = 0: for the shipped GMMs about one term a row. dp is
+// taken against the heaviest component's g, so that a row whose weight
+// sits on one component gets dp = 0 exactly. The normalisation needs
+// every tile's weights, so w and g go to the (K, N) outputs tile by tile
+// (a component's 128 rows of the block are one 512-byte line), and a
+// second pass over the block's rows, a thread a row, finishes p and dp
+// there. What bounds it: K8 split's work, with t . (b_k - A_k x) in
+// place of the mixture, and p and dp written (104 MB at 65,025 rows, K
+// = 200, 0.031 ms).
 //
 // On an NVIDIA H100 80GB HBM3 (700 W limit) at 1024^2, K = 200,
 // astro-snr-v1 (chip_smoke.py phase 2): <false> 0.723 ms, <true> 0.769
@@ -156,9 +181,10 @@ static_assert(kNT % 2 == 1, "pairs of n8 tiles and one more");
 // two stages (which hold b and c before the main loop), u's two
 // buffers; the forward's reductions (maximum, argmax and the sum of
 // exponentials of the two warp columns and the rows' running ones), or
-// the backward's logsumexp and weight sums of the rows, then its
-// gradient rows (float, padded). The backward's weights of a tile
-// overlay the stages and u once the tile's main loop is done.
+// the mixture kernels' logsumexp and weight sums of the rows, then
+// their gradient or tangent rows (float, padded: MargSmem). Their
+// weights of a tile overlay the stages and u once the tile's main loop
+// is done.
 constexpr int kXBytes = kBlockRows * kXLd * 4;
 constexpr int kPairBytes = kPairs * 2;
 constexpr int kStageBytes = 2 * kStageElems * 2;
@@ -558,10 +584,28 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
   score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
 }
 
+// The block's rows n0 .. n0 + 127 of a (n_total, 64) float32 array into
+// shared memory, rows ld floats apart, by coalesced float4 reads (a
+// warp's 32 threads over 512 contiguous bytes); a row past the end is
+// zero.
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const float* __restrict__ src,
+                                          int n0, int n_total) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int i = threadIdx.x; i < kBlockRows * kD / 4; i += kThreads) {
+    const int r = i / (kD / 4), c = 4 * (i % (kD / 4));
+    const float4 v = n0 + r < n_total ? __ldg(s4 + (size_t)n0 * (kD / 4) + i)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* d = dst + r * ld + c;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
 // K5 split: the scores of rows (n_total, 64) float32, already masked
-// and mean-subtracted. The block's 128 rows come in by coalesced float4
-// reads (a warp's 32 threads over 512 contiguous bytes) into the padded
-// patch tile; a row past the end is zero.
+// and mean-subtracted, their patch tile loaded by load_rows.
 template <bool kMarginalize>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
@@ -574,30 +618,18 @@ gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
   const int n0 = blockIdx.x * kBlockRows;
 
   build_pairs(s.pairs);
-  const float4* src = reinterpret_cast<const float4*>(rows);
-  for (int i = threadIdx.x; i < kBlockRows * kD / 4; i += kThreads) {
-    const int r = i / (kD / 4), c = 4 * (i % (kD / 4));
-    const float4 v = n0 + r < n_total ? __ldg(src + (size_t)n0 * (kD / 4) + i)
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    float* dst = s.xs + r * kXLd + c;
-    dst[0] = v.x;
-    dst[1] = v.y;
-    dst[2] = v.z;
-    dst[3] = v.w;
-  }
+  load_rows(s.xs, kXLd, rows, n0, n_total);
   score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
 }
 
-// One nonzero weight w of row x (shared memory) and component k:
-//     g += w (b_k - A_k x),
-// lane l taking entries 2l and 2l + 1. A_k is symmetric (the packing,
-// ops/gmm_pack.py, forms it as P diag(w) P^T; the shipped GMMs' float32
-// A_k are symmetric bit for bit), so (A_k x)_c = sum_r A_k[r][c] x_r: the
-// warp reads row r of A_k (256 bytes, from L2 or L1) coalesced.
-__device__ __forceinline__ void marg_entry(float* grow, const float* x,
-                                           const float* __restrict__ a,
-                                           const float* __restrict__ b,
-                                           float w, int lane) {
+// (A_k x) entries 2 lane and 2 lane + 1 of row x (shared memory). A_k is
+// symmetric (the packing, ops/gmm_pack.py, forms it as P diag(w) P^T; the
+// shipped GMMs' float32 A_k are symmetric bit for bit), so (A_k x)_c =
+// sum_r A_k[r][c] x_r: the warp reads row r of A_k (256 bytes, from L2 or
+// L1) coalesced.
+__device__ __forceinline__ float2 row_ax(const float* x,
+                                         const float* __restrict__ a,
+                                         int lane) {
   const float2* A = reinterpret_cast<const float2*>(a) + lane;
   float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
 #pragma unroll 8
@@ -610,12 +642,192 @@ __device__ __forceinline__ void marg_entry(float* grow, const float* x,
     t2 = fmaf(a1.x, x1, t2);
     t3 = fmaf(a1.y, x1, t3);
   }
+  return make_float2(t0 + t2, t1 + t3);
+}
+
+// One nonzero weight w of row x and component k: g += w (b_k - A_k x),
+// lane l taking entries 2l and 2l + 1.
+__device__ __forceinline__ void marg_entry(float* grow, const float* x,
+                                           const float* __restrict__ a,
+                                           const float* __restrict__ b,
+                                           float w, int lane) {
+  const float2 ax = row_ax(x, a, lane);
   const float2 bk = __ldg(reinterpret_cast<const float2*>(b) + lane);
   float2* gp = reinterpret_cast<float2*>(grow) + lane;
   float2 gv = *gp;
-  gv.x = fmaf(w, bk.x - (t0 + t2), gv.x);
-  gv.y = fmaf(w, bk.y - (t1 + t3), gv.y);
+  gv.x = fmaf(w, bk.x - ax.x, gv.x);
+  gv.y = fmaf(w, bk.y - ax.y, gv.y);
   *gp = gv;
+}
+
+// g_k = t . (b_k - A_k x) of row x and tangent t (shared memory, t's
+// rows 8-byte aligned), summed over the warp: every lane returns it.
+__device__ __forceinline__ float marg_dot(const float* t, const float* x,
+                                          const float* __restrict__ a,
+                                          const float* __restrict__ b,
+                                          int lane) {
+  const float2 ax = row_ax(x, a, lane);
+  const float2 bk = __ldg(reinterpret_cast<const float2*>(b) + lane);
+  const float2 tv = reinterpret_cast<const float2*>(t)[lane];
+  float s = fmaf(tv.x, bk.x - ax.x, tv.y * (bk.y - ax.y));
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+  return s;
+}
+
+// The mixture kernels' shared memory: the patches or rows (float, padded
+// rows), the pair table, A's two stages, u's two buffers (a tile's
+// weights overlay both once its main loop is done), the rows' logsumexp,
+// weight sums and one more float each, then 128 float rows of kGLd:
+// the gradient rows (K4 split, K8 split) or the tangents (K9a split).
+struct MargSmem {
+  float* xs;
+  uint16_t* pairs;
+  bf16* stages;
+  bf16* us;
+  float* lse;
+  float* wsum;
+  float* extra;
+  float* rows2;
+};
+
+__device__ __forceinline__ MargSmem marg_smem(unsigned char* raw) {
+  MargSmem s;
+  s.xs = reinterpret_cast<float*>(raw);
+  s.pairs = reinterpret_cast<uint16_t*>(raw + kXBytes);
+  s.stages = reinterpret_cast<bf16*>(raw + kXBytes + kPairBytes);
+  s.us = reinterpret_cast<bf16*>(raw + kXBytes + kPairBytes + kStageBytes);
+  s.lse = reinterpret_cast<float*>(raw + kXBytes + kPairBytes + kStageBytes +
+                                   kUBytes);
+  s.wsum = s.lse + kBlockRows;
+  s.extra = s.wsum + kBlockRows;
+  s.rows2 = reinterpret_cast<float*>(raw + kXBytes + kPairBytes +
+                                     kStageBytes + kUBytes + kRedBytes);
+  return s;
+}
+
+// The logsumexp of the block's rows into shared memory: +inf for a row
+// past the end (its weights are 0).
+__device__ __forceinline__ void load_lse(float* lse_s,
+                                         const float* __restrict__ lse,
+                                         int n0, int n_total) {
+  if (threadIdx.x < kBlockRows) {
+    const int n = n0 + threadIdx.x;
+    lse_s[threadIdx.x] = n < n_total ? __ldg(lse + n) : CUDART_INF_F;
+  }
+}
+
+// A tile's mixture phase, after its main loop (acc from tile_logits of
+// components k0 ..): the weights w = exp(logit - lse) into wts (0 for the
+// padding components); then each warp over its 16 rows r0 .. r0 + 15, 32
+// components at a time: a ballot per row finds the nonzero weights, and
+// entry(r, k, w) runs for each (row, component) that has one, the whole
+// warp together, rows in order (so that A_k stays in L1 across them),
+// each row's components in ascending order. Skipping a zero weight is
+// exact, and for the shipped GMMs nearly every weight underflows to 0.
+// The tile's weight sums are added to wsum, lane i holding row r0 + i's.
+// wts stays valid until the next tile_logits.
+template <typename Entry>
+__device__ __forceinline__ void marg_tile(const float (&acc)[kMT][kNT][4],
+                                          const float* lse_s, float* wts,
+                                          int k0, int K, float& wsum,
+                                          Entry&& entry) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r0 = warp * kRowsPerWarp;
+  __syncthreads();  // every warp's last chunk is multiplied
+
+  // the weights w = exp(logit - lse), 0 for the padding components
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wm * 32 + mt * 16 + g + 8 * h;
+      const float l = lse_s[r];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = wn * kWarpCols + nt * 8 + 2 * tq;
+        float2 w;
+        w.x = k0 + col < K ? expf(-0.5f * acc[mt][nt][2 * h] - l) : 0.f;
+        w.y = k0 + col + 1 < K ? expf(-0.5f * acc[mt][nt][2 * h + 1] - l)
+                               : 0.f;
+        *reinterpret_cast<float2*>(wts + r * kWLd + col) = w;
+      }
+    }
+  __syncthreads();
+
+  float part[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) part[i] = 0.f;
+  for (int j = 0; j < kKP; j += 32) {
+    const int col = j + lane;
+    uint32_t nz[kRowsPerWarp];
+    uint32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float w = col < kKP ? wts[(r0 + i) * kWLd + col] : 0.f;
+      part[i] += w;
+      nz[i] = __ballot_sync(0xffffffffu, w > 0.f);
+      any |= nz[i];
+    }
+    while (any) {
+      const int bit = __ffs(any) - 1;
+      any &= any - 1;
+      const int k = k0 + j + bit;
+      uint32_t rows = 0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i)
+        rows |= ((nz[i] >> bit) & 1u) << i;
+      while (rows) {
+        const int r = r0 + __ffs(rows) - 1;
+        rows &= rows - 1;
+        entry(r, k, wts[r * kWLd + j + bit]);
+      }
+    }
+  }
+  // the tile's weight sums: each lane's, then over the warp
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    float s = part[i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == i) wsum += s;
+  }
+}
+
+// The mixture sum_k w_k (b_k - A_k x) of the block's rows (s.xs, their
+// logsumexp in s.lse) into the zeroed gradient rows s.rows2, and
+// sum_k w_k into s.wsum, over every tile of components: each row summed
+// by its one warp, components in ascending order, so that the result is
+// deterministic without atomics, for any K and any number of nonzero
+// weights. The one code of K4 split and K8 split; ends with a
+// __syncthreads.
+__device__ __forceinline__ void marg_rows(const MargSmem& s,
+                                          const bf16* __restrict__ a_pairs,
+                                          const float* __restrict__ bc,
+                                          const float* __restrict__ a_full,
+                                          const float* __restrict__ b_rows,
+                                          int K) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n_tiles = (K + kKP - 1) / kKP;
+  float* wts = reinterpret_cast<float*>(s.stages);
+  float wsum = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    float acc[kMT][kNT][4];
+    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
+                a_pairs + (size_t)tile * kChunks * kTileElems,
+                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
+    marg_tile(acc, s.lse, wts, tile * kKP, K, wsum,
+              [&](int r, int k, float w) {
+                marg_entry(s.rows2 + r * kGLd, s.xs + r * kXLd,
+                           a_full + (size_t)k * kD * kD,
+                           b_rows + (size_t)k * kD, w, lane);
+              });
+  }
+  if (lane < kRowsPerWarp) s.wsum[warp * kRowsPerWarp + lane] = wsum;
+  __syncthreads();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -630,130 +842,179 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
                        int stride, int ny, int nx, int n_total, int K,
                        float* __restrict__ planes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  uint16_t* pairs = reinterpret_cast<uint16_t*>(smem_raw + kXBytes);
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes);
-  bf16* us = reinterpret_cast<bf16*>(smem_raw + kXBytes + kPairBytes +
-                                     kStageBytes);
-  float* lse_s = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
-                                          kStageBytes + kUBytes);
-  float* wsum_s = lse_s + kBlockRows;
-  float* grad = reinterpret_cast<float*>(smem_raw + kXBytes + kPairBytes +
-                                         kStageBytes + kUBytes + kRedBytes);
-  // after a tile's main loop, its weights overlay the stages and u
-  float* wts = reinterpret_cast<float*>(stages);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, tq = lane & 3;
+  const MargSmem s = marg_smem(smem_raw);
+  const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBlockRows;
-  const int n_tiles = (K + kKP - 1) / kKP;
 
-  build_pairs(pairs);
+  build_pairs(s.pairs);
   // the block's saved patches (a row past the end is zero, as in the
   // forward), their logsumexp (+inf for an invalid patch or a row past
   // the end: its weights are 0) and the gradient rows
   for (int i = tid; i < kBlockRows * kD; i += kThreads) {
     const int r = i / kD, n = n0 + r;
-    xs[r * kXLd + i % kD] = n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD)
-                                        : 0.f;
+    s.xs[r * kXLd + i % kD] =
+        n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD) : 0.f;
   }
   if (tid < kBlockRows) {
     const int n = n0 + tid;
-    lse_s[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
+    s.lse[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
                                                         : CUDART_INF_F;
   }
-  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
-
-  // warp w owns rows 16 w .. 16 w + 15 in the mixture: their weight sum
-  // (lane i holds row 16 w + i's) and their gradient rows
-  const int r0 = warp * kRowsPerWarp;
-  float wsum = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kKP;
-    float acc[kMT][kNT][4];
-    tile_logits(acc, xs, pairs, stages, us,
-                a_pairs + (size_t)tile * kChunks * kTileElems,
-                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
-    __syncthreads();  // every warp's last chunk is multiplied
-
-    // the weights w = exp(logit - lse), 0 for the padding components
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mt * 16 + g + 8 * h;
-        const float l = lse_s[r];
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
-          float2 w;
-          w.x = k0 + col < K ? expf(-0.5f * acc[mt][nt][2 * h] - l) : 0.f;
-          w.y = k0 + col + 1 < K ? expf(-0.5f * acc[mt][nt][2 * h + 1] - l)
-                                 : 0.f;
-          *reinterpret_cast<float2*>(wts + r * kWLd + col) = w;
-        }
-      }
-    __syncthreads();
-
-    // each warp over its rows, 32 components at a time: a ballot per row
-    // finds the nonzero weights; the component's A_k x term then runs
-    // for each row that has one, rows in order, so that A_k stays in L1
-    // across them; each row takes its components in ascending order
-    float part[kRowsPerWarp];
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) part[i] = 0.f;
-    for (int j = 0; j < kKP; j += 32) {
-      const int col = j + lane;
-      uint32_t nz[kRowsPerWarp];
-      uint32_t any = 0;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        const float w = col < kKP ? wts[(r0 + i) * kWLd + col] : 0.f;
-        part[i] += w;
-        nz[i] = __ballot_sync(0xffffffffu, w > 0.f);
-        any |= nz[i];
-      }
-      while (any) {
-        const int bit = __ffs(any) - 1;
-        any &= any - 1;
-        const int k = k0 + j + bit;
-        uint32_t rows = 0;
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          rows |= ((nz[i] >> bit) & 1u) << i;
-        while (rows) {
-          const int r = r0 + __ffs(rows) - 1;
-          rows &= rows - 1;
-          marg_entry(grad + r * kGLd, xs + r * kXLd,
-                     a_full + (size_t)k * kD * kD, b_rows + (size_t)k * kD,
-                     wts[r * kWLd + j + bit], lane);
-        }
-      }
-    }
-    // the tile's weight sums: each lane's, then over the warp
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      float s = part[i];
-#pragma unroll
-      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-      if (lane == i) wsum += s;
-    }
-  }
-  if (lane < kRowsPerWarp) wsum_s[r0 + lane] = wsum;
-  __syncthreads();
+  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
+  marg_rows(s, a_pairs, bc, a_full, b_rows, K);
 
   // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
   if (tid < kBlockRows) {
     const int n = n0 + tid;
     if (n < n_total && __ldg(valid + n) != 0.f) {
-      const float scale = __ldg(dvalues + n) / wsum_s[tid];
+      const float scale = __ldg(dvalues + n) / s.wsum[tid];
       float u[kD];
 #pragma unroll
-      for (int c = 0; c < kD; ++c) u[c] = grad[tid * kGLd + c] * scale;
+      for (int c = 0; c < kD; ++c) u[c] = s.rows2[tid * kGLd + c] * scale;
       store_patch_gradient(u, n, H, W, stride, ny, nx, planes);
     }
   }
+}
+
+// K8 split: the marginalise unit gradient of rows (n_total, 64) float32
+// with K5 lse split's logsumexp, written to (n_total, 64) as whole lines.
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
+                        const float* __restrict__ lse, int n_total,
+                        const bf16* __restrict__ a_pairs,
+                        const float* __restrict__ bc,
+                        const float* __restrict__ a_full,
+                        const float* __restrict__ b_rows, int K,
+                        float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MargSmem s = marg_smem(smem_raw);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * kBlockRows;
+
+  build_pairs(s.pairs);
+  load_rows(s.xs, kXLd, rows, n0, n_total);
+  load_lse(s.lse, lse, n0, n_total);
+  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
+  marg_rows(s, a_pairs, bc, a_full, b_rows, K);
+
+  // unit = (sum_k w_k (b_k - A_k x)) / sum_k w_k
+  for (int i = tid; i < kBlockRows * kD; i += kThreads) {
+    const int r = i / kD, c = i % kD;
+    if (n0 + r < n_total)
+      out[(size_t)(n0 + r) * kD + c] =
+          s.rows2[r * kGLd + c] * (1.f / s.wsum[r]);
+  }
+}
+
+// K9a split: the first stage of the marginalise Hessian action of rows
+// (n_total, 64) float32 along tangents (n_total, 64), with K5 lse
+// split's logsumexp: p and dp, (K, n_total). Per tile, w goes to p (a
+// thread its own entries of the weights, 8 rows of 4 components a warp
+// store) and, for the nonzero weights, g_k = t . (b_k - A_k x) to dp;
+// each row's heaviest component's g (the lowest index among equal
+// weights) is kept. Then a second pass over the block's rows, a thread a
+// row, turns them into p = w / sum w and dp = p (g - g_ref - gbar),
+// gbar = sum p (g - g_ref): a row whose weight sits on one component
+// gets dp = 0 exactly (gmm_patch.cu's rule). dp is read only where w is
+// nonzero, and written everywhere.
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
+                               const float* __restrict__ tangents,
+                               const float* __restrict__ lse, int n_total,
+                               const bf16* __restrict__ a_pairs,
+                               const float* __restrict__ bc,
+                               const float* __restrict__ a_full,
+                               const float* __restrict__ b_rows, int K,
+                               float* p, float* dp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MargSmem s = marg_smem(smem_raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int g = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * kBlockRows;
+  const int r0 = warp * kRowsPerWarp;
+  const int n_tiles = (K + kKP - 1) / kKP;
+  float* wts = reinterpret_cast<float*>(s.stages);
+
+  build_pairs(s.pairs);
+  load_rows(s.xs, kXLd, rows, n0, n_total);
+  load_rows(s.rows2, kGLd, tangents, n0, n_total);
+  load_lse(s.lse, lse, n0, n_total);
+
+  // lane i: row r0 + i's heaviest weight so far and its g
+  float w_ref = -1.f, g_ref = 0.f, wsum = 0.f;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kKP;
+    float acc[kMT][kNT][4];
+    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
+                a_pairs + (size_t)tile * kChunks * kTileElems,
+                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
+    marg_tile(acc, s.lse, wts, k0, K, wsum, [&](int r, int k, float w) {
+      const float gk = marg_dot(s.rows2 + r * kGLd, s.xs + r * kXLd,
+                                a_full + (size_t)k * kD * kD,
+                                b_rows + (size_t)k * kD, lane);
+      if (lane == r - r0 && w > w_ref) {
+        w_ref = w;
+        g_ref = gk;
+      }
+      if (lane == 0 && n0 + r < n_total)
+        dp[(size_t)k * n_total + n0 + r] = gk;
+    });
+    // the tile's weights to p
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        if (n0 + r >= n_total) continue;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
+          const float2 w = *reinterpret_cast<const float2*>(wts + r * kWLd +
+                                                            col);
+          const size_t i = (size_t)(k0 + col) * n_total + n0 + r;
+          if (k0 + col < K) p[i] = w.x;
+          if (k0 + col + 1 < K) p[i + n_total] = w.y;
+        }
+      }
+  }
+  if (lane < kRowsPerWarp) s.extra[r0 + lane] = g_ref;
+  __syncthreads();  // p, dp and the rows' g_ref written
+
+  if (tid >= kBlockRows || n0 + tid >= n_total) return;
+  const size_t n = n0 + tid;
+  const float gr = s.extra[tid];
+  float w_total = 0.f, gsum = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const size_t i = (size_t)k * n_total + n;
+    const float w = p[i];
+    w_total += w;
+    if (w != 0.f) gsum = fmaf(w, dp[i] - gr, gsum);
+  }
+  const float inv = 1.f / w_total;
+  const float gbar = gsum * inv;  // sum_k p_k g_k - g_ref
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const size_t i = (size_t)k * n_total + n;
+    const float w = p[i];
+    const float pk = w * inv;
+    p[i] = pk;
+    dp[i] = w != 0.f ? pk * ((dp[i] - gr) - gbar) : 0.f;
+  }
+}
+
+// Launches a mixture kernel on rows (n, 64) with the shared memory of
+// the marginalise backward. Errors as gmm_fused_fwd_tc.
+template <typename Kernel, typename... Args>
+int launch_rows(Kernel kernel, int n, void* stream, Args... args) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBwd);
+  const int blocks = (n + kBlockRows - 1) / kBlockRows;
+  kernel<<<blocks, kThreads, kSmemBwd, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  const cudaError_t launch = cudaGetLastError();
+  return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
 }  // namespace
@@ -832,6 +1093,44 @@ int gmm_fused_bwd_marg_tc(const void* xtn, const void* lse, const void* valid,
       W, stride, ny, nx, n_total, K, static_cast<float*>(planes));
   const cudaError_t launch = cudaGetLastError();
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
+}
+
+// K8 split on rows (n, 64) float32 with lse (n,), the logsumexp that
+// gmm_score_rows_tc with marginalize computed for them (the weights are
+// exp(logit - lse) of the same logits); the buffers of gmm_fused_fwd_tc
+// and A (K, 64, 64), b (K, 64); out (n, 64). Errors as
+// gmm_fused_fwd_tc; the wrapper never calls it with n = 0.
+int gmm_unit_marg_tc(const void* rows, const void* lse, int n,
+                     const void* a_pairs, const void* bc, const void* a_full,
+                     const void* b_rows, int K, void* out, void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(gmm_unit_marg_tc_kernel, n, stream,
+                     static_cast<const float*>(rows),
+                     static_cast<const float*>(lse), n,
+                     static_cast<const bf16*>(a_pairs),
+                     static_cast<const float*>(bc),
+                     static_cast<const float*>(a_full),
+                     static_cast<const float*>(b_rows), K,
+                     static_cast<float*>(out));
+}
+
+// K9a split on rows and tangents (n, 64) float32 with lse as
+// gmm_unit_marg_tc; p and dp (K, n). Errors as gmm_fused_fwd_tc.
+int gmm_hvp_marg_weights_tc(const void* rows, const void* tangents,
+                            const void* lse, int n, const void* a_pairs,
+                            const void* bc, const void* a_full,
+                            const void* b_rows, int K, void* p, void* dp,
+                            void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(gmm_hvp_marg_weights_tc_kernel, n, stream,
+                     static_cast<const float*>(rows),
+                     static_cast<const float*>(tangents),
+                     static_cast<const float*>(lse), n,
+                     static_cast<const bf16*>(a_pairs),
+                     static_cast<const float*>(bc),
+                     static_cast<const float*>(a_full),
+                     static_cast<const float*>(b_rows), K,
+                     static_cast<float*>(p), static_cast<float*>(dp));
 }
 
 const char* gmm_fused_tc_error_string(int code) {

@@ -464,6 +464,12 @@ def _tc_library():
         lib.gmm_fused_bwd_marg_tc.restype = ci
         lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp]
         lib.gmm_score_rows_tc.restype = ci
+        lib.gmm_unit_marg_tc.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, vp,
+                                         vp]
+        lib.gmm_unit_marg_tc.restype = ci
+        lib.gmm_hvp_marg_weights_tc.argtypes = [vp, vp, vp, ci, vp, vp, vp,
+                                                vp, ci, vp, vp, vp]
+        lib.gmm_hvp_marg_weights_tc.restype = ci
         lib.gmm_fused_tc_error_string.argtypes = [ci]
         lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True

@@ -23,21 +23,26 @@ and ``g_k = r_k . t``,
 
 in two stages, ``(p, dp)`` and then the mixture, as in the JAX package.
 
-The MAP scorer's logits have the two modes of the fused scorer
-(``ops.gmm_fused``), which the precision dial names (``config.gmm_mode``)
-and the caller passes down: ``"f32"``, full float32, and ``"split"``,
-the JAX package's logits at precision HIGH (bf16 hi/lo pair products,
-three products summed in float32). The marginalise scorer, and every
-derivative, computes in float32 under every dial: the marginalise
-gradient and Hessian action take the scorer's logsumexp as the
-stabiliser of ``exp(logit_k - lse)``, over logits of 1e5 to 1e8, so the
-lse must come from the logits they recompute themselves, which are
-float32. The MAP derivatives read only the argmax.
+The logits have the two modes of the fused scorer (``ops.gmm_fused``),
+which the precision dial names (``config.gmm_mode``) and the caller
+passes down: ``"f32"``, full float32, and ``"split"``, the JAX package's
+logits at precision HIGH (bf16 hi/lo pair products, three products
+summed in float32). The mode reaches the scorer (MAP and logsumexp) and
+the marginalise gradient and Hessian action, which recompute the logits
+in the scorer's mode: they take its logsumexp as the stabiliser of
+``exp(logit_k - lse)``, over logits of 1e5 to 1e8, so the lse must come
+from logits of the same arithmetic. The mixtures, ``g_k`` and the
+second stage of the Hessian action are float32 in either mode (the JAX
+package splits ``p`` and ``A`` into bf16 hi and lo there, and computes
+``g_k`` by a split cross form). The MAP derivatives read only the
+argmax.
 
 Each has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``,
-  whose header says what bounds each kernel and how it is built), run
+- a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``, and
+  ``csrc/gmm_fused_tc.cu`` for the ``"split"`` mode's scorer, unit
+  gradient and first Hessian stage on the tensor cores, whose headers
+  say what bounds each kernel and how it is built), run
   for a tensor on a CUDA card, for d = 64 (8x8 patches, both shipped
   GMMs; the JAX package's ``pallas_supported`` rule);
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU
@@ -80,7 +85,9 @@ from .gmm_fused import (
     _tc_library,
     logit_chunks,
     marg_unit_rows,
+    marg_unit_split_plain,
     mix_rows,
+    score_split_marg_plain,
     score_split_plain,
     softmax_chunks,
 )
@@ -89,15 +96,19 @@ __all__ = [
     "gmm_hvp_map_cuda",
     "gmm_hvp_marg_mix_cuda",
     "gmm_hvp_marg_weights_cuda",
+    "gmm_hvp_marg_weights_tc_cuda",
     "gmm_score_patches",
     "gmm_score_rows_cuda",
+    "gmm_score_rows_marg_tc_cuda",
     "gmm_score_rows_tc_cuda",
     "gmm_unit_map_cuda",
     "gmm_unit_marg_cuda",
+    "gmm_unit_marg_tc_cuda",
     "hvp_map_plain",
     "hvp_marg_mix_plain",
     "hvp_marg_plain",
     "hvp_marg_weights_plain",
+    "hvp_marg_weights_split_plain",
     "reset_counters",
     "score_rows_plain",
     "unit_map_plain",
@@ -146,14 +157,13 @@ def unit_marg_plain(x, lse, bufs):
     return marg_unit_rows(x, lse, bufs)
 
 
-def hvp_marg_weights_plain(x, t, lse, bufs):
-    """Plain version of the marginalise Hessian action's first stage:
-    ``(p, dp)``, each ``(K, N)`` (component-major, the kernel's layout)."""
-    hvp_marg_weights_plain.calls += 1
+def _marg_weights(x, t, lse, bufs, mode):
+    """``(p, dp)``, each ``(K, N)``, the softmax over the logits of
+    ``mode``, ``g`` in the rows' type."""
     aq, bq = bufs["aq"], bufs["bq"]
     n, d = x.shape
     ps, dps = [x.new_empty((0, aq.shape[1]))], [x.new_empty((0, aq.shape[1]))]
-    for sl, p in softmax_chunks(x, lse, bufs):
+    for sl, p in softmax_chunks(x, lse, bufs, mode):
         xs, ts = x[sl], t[sl]
         # g_k = t . b_k - t^T A_k x, taken against g of the heaviest
         # component, so that a row whose weight sits on one component
@@ -165,6 +175,21 @@ def hvp_marg_weights_plain(x, t, lse, bufs):
         ps.append(p)
         dps.append(p * (g - gbar))
     return torch.cat(ps).T.contiguous(), torch.cat(dps).T.contiguous()
+
+
+def hvp_marg_weights_plain(x, t, lse, bufs):
+    """Plain version of the marginalise Hessian action's first stage:
+    ``(p, dp)``, each ``(K, N)`` (component-major, the kernel's layout)."""
+    hvp_marg_weights_plain.calls += 1
+    return _marg_weights(x, t, lse, bufs, "f32")
+
+
+def hvp_marg_weights_split_plain(x, t, lse, bufs):
+    """:func:`hvp_marg_weights_plain` in the ``"split"`` mode: the softmax
+    over the split logits against ``lse``, a logsumexp of the same logits
+    (``score_split_marg_plain``), ``g`` as in the float32 version."""
+    hvp_marg_weights_split_plain.calls += 1
+    return _marg_weights(x, t, lse, bufs, "split")
 
 
 def hvp_marg_mix_plain(x, t, p, dp, bufs):
@@ -180,9 +205,12 @@ def hvp_marg_mix_plain(x, t, p, dp, bufs):
     return torch.cat(out)
 
 
-def hvp_marg_plain(t, x, lse, bufs):
-    """The marginalise Hessian action along ``t``: both plain stages."""
-    p, dp = hvp_marg_weights_plain(x, t, lse, bufs)
+def hvp_marg_plain(t, x, lse, bufs, mode="f32"):
+    """The marginalise Hessian action along ``t``: both plain stages, the
+    first of ``mode``."""
+    weights = (hvp_marg_weights_split_plain if mode == "split"
+               else hvp_marg_weights_plain)
+    p, dp = weights(x, t, lse, bufs)
     return hvp_marg_mix_plain(x, t, p, dp, bufs)
 
 
@@ -227,8 +255,11 @@ def _check_rows(x, name, argmax=None):
     return device, n
 
 
-def _launch(kernel, *args):
-    lib = _library()
+def _launch(kernel, *args, tc=False):
+    """The C entry ``kernel`` of ``csrc/gmm_patch.cu`` (of
+    ``csrc/gmm_fused_tc.cu`` with ``tc``) on tensors' pointers and ints,
+    on the current stream of the first argument's card."""
+    lib = _tc_library() if tc else _library()
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, kernel)(
@@ -236,7 +267,8 @@ def _launch(kernel, *args):
               for a in args],
             stream,
         )
-    _raise_on_error(lib.gmm_patch_error_string, code, kernel)
+    _raise_on_error(lib.gmm_fused_tc_error_string if tc
+                    else lib.gmm_patch_error_string, code, kernel)
 
 
 def gmm_score_rows_cuda(x, bufs, marginalize=False):
@@ -257,37 +289,47 @@ def gmm_score_rows_cuda(x, bufs, marginalize=False):
     return values, argmax
 
 
-def gmm_score_rows_tc_cuda(x, bufs, marginalize=False):
-    """Launch the scorer of the ``"split"`` mode on the tensor cores
-    (``csrc/gmm_fused_tc.cu``, K1 split's logits) on rows ``x (N, 64)``
-    float32 on a card; any number of components, in tiles of
-    ``KP_TC``. Same outputs as ``score_split_plain`` or, with
-    ``marginalize``, ``score_split_marg_plain``; the buffers are the
-    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``).
-
-    No path launches the marginalise instance yet: the marginalised
-    probe's gradient and Hessian action (K8, K9a) take the scorer's
-    logsumexp as the stabiliser of ``exp(logit_k - lse)``, and the split
-    logits lie up to 6.4e-5 of their value (hundreds of units at the
-    shipped GMMs' 1e5 to 1e8) from their float32 ones, so a split lse
-    over their float32 logits would overflow or underflow every weight.
-    It moves with them.
-    """
-    device, n = _check_rows(x, "gmm_score_rows_tc_cuda")
+def _score_rows_tc(x, bufs, marginalize, name):
+    """K5 split's launch (when there are rows); values, argmax and
+    whether it launched."""
+    device, n = _check_rows(x, name)
     k = _split_tiles(bufs, device)
     values = torch.empty(n, dtype=torch.float32, device=device)
     argmax = torch.empty(n, dtype=torch.int32, device=device)
     if n:
-        lib = _tc_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.gmm_score_rows_tc(
-                x.data_ptr(), n, bufs["pair_tc"].data_ptr(),
-                bufs["bc"].data_ptr(), k, int(bool(marginalize)),
-                values.data_ptr(), argmax.data_ptr(), stream)
-        _raise_on_error(lib.gmm_fused_tc_error_string, code,
-                        "gmm_score_rows_tc")
-        gmm_score_rows_tc_cuda.launches += 1
+        _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
+                int(bool(marginalize)), values, argmax, tc=True)
+    return values, argmax, bool(n)
+
+
+def gmm_score_rows_tc_cuda(x, bufs, marginalize=False):
+    """Launch the MAP scorer of the ``"split"`` mode on the tensor cores
+    (``csrc/gmm_fused_tc.cu``, K1 split's logits) on rows ``x (N, 64)``
+    float32 on a card; any number of components, in tiles of
+    ``KP_TC``. Same outputs as ``score_split_plain``; the buffers are the
+    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``). With
+    ``marginalize``, :func:`gmm_score_rows_marg_tc_cuda`, which counts
+    its own launches."""
+    if marginalize:
+        return gmm_score_rows_marg_tc_cuda(x, bufs)
+    values, argmax, launched = _score_rows_tc(x, bufs, False,
+                                              "gmm_score_rows_tc_cuda")
+    gmm_score_rows_tc_cuda.launches += launched
+    return values, argmax
+
+
+def gmm_score_rows_marg_tc_cuda(x, bufs):
+    """Launch the logsumexp instance of the ``"split"`` scorer (K5 lse
+    split); same outputs as ``score_split_marg_plain``. Its logsumexp is
+    what :func:`gmm_unit_marg_tc_cuda` and
+    :func:`gmm_hvp_marg_weights_tc_cuda` take: they recompute the same
+    logits bit for bit, and the split logits lie up to 6.4e-5 of their
+    value (hundreds of units at the shipped GMMs' 1e5 to 1e8) from the
+    float32 ones, so an lse of another arithmetic would overflow or
+    underflow every weight."""
+    values, argmax, launched = _score_rows_tc(
+        x, bufs, True, "gmm_score_rows_marg_tc_cuda")
+    gmm_score_rows_marg_tc_cuda.launches += launched
     return values, argmax
 
 
@@ -353,6 +395,48 @@ def gmm_hvp_marg_weights_cuda(x, t, lse, bufs):
     return p, dp
 
 
+def _check_marg_tc(device, n, lse, bufs):
+    k = _split_tiles(bufs, device)
+    _check(lse, "lse", torch.float32, (n,), device)
+    _check(bufs["a_full"], "a_full", torch.float32, (k, D, D), device)
+    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
+    return k
+
+
+def gmm_unit_marg_tc_cuda(x, lse, bufs):
+    """Launch the marginalise unit gradient of the ``"split"`` mode (K8
+    split: the logits on the tensor cores, the mixture in float32) on
+    rows ``x (N, 64)`` with the logsumexp ``lse (N,)`` of
+    :func:`gmm_score_rows_marg_tc_cuda`; ``(N, 64)``. Same contract as
+    ``marg_unit_split_plain``."""
+    device, n = _check_rows(x, "gmm_unit_marg_tc_cuda")
+    k = _check_marg_tc(device, n, lse, bufs)
+    out = torch.empty((n, D), dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_unit_marg_tc", x, lse, n, bufs["pair_tc"], bufs["bc"],
+                bufs["a_full"], bufs["b_rows"], k, out, tc=True)
+        gmm_unit_marg_tc_cuda.launches += 1
+    return out
+
+
+def gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs):
+    """Launch the first stage of the marginalise Hessian action of the
+    ``"split"`` mode (K9a split) with the logsumexp of
+    :func:`gmm_score_rows_marg_tc_cuda`: ``(p, dp)``, each ``(K, N)``.
+    Same contract as :func:`hvp_marg_weights_split_plain`."""
+    device, n = _check_rows(x, "gmm_hvp_marg_weights_tc_cuda")
+    _check(t, "tangents", torch.float32, (n, D), device)
+    k = _check_marg_tc(device, n, lse, bufs)
+    p = torch.empty((k, n), dtype=torch.float32, device=device)
+    dp = torch.empty((k, n), dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_hvp_marg_weights_tc", x, t, lse, n, bufs["pair_tc"],
+                bufs["bc"], bufs["a_full"], bufs["b_rows"], k, p, dp,
+                tc=True)
+        gmm_hvp_marg_weights_tc_cuda.launches += 1
+    return p, dp
+
+
 def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
     """Launch the second stage of the marginalise Hessian action; ``(N, 64)``."""
     device, n = _check_rows(x, "gmm_hvp_marg_mix_cuda")
@@ -373,12 +457,14 @@ def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (gmm_score_rows_cuda, gmm_score_rows_tc_cuda,
-               gmm_unit_map_cuda, gmm_hvp_map_cuda,
-               gmm_unit_marg_cuda, gmm_hvp_marg_weights_cuda,
+               gmm_score_rows_marg_tc_cuda, gmm_unit_map_cuda,
+               gmm_hvp_map_cuda, gmm_unit_marg_cuda, gmm_unit_marg_tc_cuda,
+               gmm_hvp_marg_weights_cuda, gmm_hvp_marg_weights_tc_cuda,
                gmm_hvp_marg_mix_cuda):
         fn.launches = 0
     for fn in (score_rows_plain, unit_map_plain, hvp_map_plain,
-               unit_marg_plain, hvp_marg_weights_plain, hvp_marg_mix_plain):
+               unit_marg_plain, hvp_marg_weights_plain,
+               hvp_marg_weights_split_plain, hvp_marg_mix_plain):
         fn.calls = 0
 
 
@@ -390,13 +476,13 @@ reset_counters()
 
 
 def _score(x, bufs, marginalize, mode):
-    split = mode == "split" and not marginalize
     if dispatch(x) == "kernel":
-        if split:
-            return gmm_score_rows_tc_cuda(x, bufs)
+        if mode == "split":
+            return gmm_score_rows_tc_cuda(x, bufs, marginalize)
         return gmm_score_rows_cuda(x, bufs, marginalize)
-    if split:
-        return score_split_plain(x, bufs)
+    if mode == "split":
+        score = score_split_marg_plain if marginalize else score_split_plain
+        return score(x, bufs)
     return score_rows_plain(x, bufs, marginalize)
 
 
@@ -412,17 +498,22 @@ def _hvp(t, argmax, bufs):
     return hvp_map_plain(t, argmax, bufs)
 
 
-def _unit_marg(x, lse, bufs):
+def _unit_marg(x, lse, bufs, mode):
+    split = mode == "split"
     if dispatch(x) == "kernel":
-        return gmm_unit_marg_cuda(x, lse, bufs)
-    return unit_marg_plain(x, lse, bufs)
+        unit = gmm_unit_marg_tc_cuda if split else gmm_unit_marg_cuda
+    else:
+        unit = marg_unit_split_plain if split else unit_marg_plain
+    return unit(x, lse, bufs)
 
 
-def _hvp_marg(t, x, lse, bufs):
+def _hvp_marg(t, x, lse, bufs, mode):
     if dispatch(t) == "kernel":
-        p, dp = gmm_hvp_marg_weights_cuda(x, t, lse, bufs)
+        weights = (gmm_hvp_marg_weights_tc_cuda if mode == "split"
+                   else gmm_hvp_marg_weights_cuda)
+        p, dp = weights(x, t, lse, bufs)
         return gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs)
-    return hvp_marg_plain(t, x, lse, bufs)
+    return hvp_marg_plain(t, x, lse, bufs, mode)
 
 
 class _HvpMap(torch.autograd.Function):
@@ -457,13 +548,14 @@ class _UnitMap(torch.autograd.Function):
 
 
 class _HvpMarg(torch.autograd.Function):
-    """Marginalise Hessian action along ``t`` at ``x``. Neither package
-    has its derivative (a third order of the score), so its backward
-    raises rather than let one come out as zero."""
+    """Marginalise Hessian action along ``t`` at ``x``, the first stage's
+    logits of ``mode``. Neither package has its derivative (a third order
+    of the score), so its backward raises rather than let one come out as
+    zero."""
 
     @staticmethod
-    def forward(ctx, t, x, lse, bufs):
-        return _hvp_marg(t, x, lse, bufs)
+    def forward(ctx, t, x, lse, bufs, mode):
+        return _hvp_marg(t, x, lse, bufs, mode)
 
     @staticmethod
     def backward(ctx, grad):
@@ -474,20 +566,24 @@ class _HvpMarg(torch.autograd.Function):
 
 
 class _UnitMarg(torch.autograd.Function):
-    """Marginalise unit gradient; its backward is the Hessian action (the
-    Hessian of a scalar is symmetric). No gradient reaches ``lse``: the
-    renormalised weights do not depend on it."""
+    """Marginalise unit gradient, the softmax over the logits of ``mode``
+    (the scorer's, whose logsumexp ``lse`` is); its backward is the
+    Hessian action in the same mode (the Hessian of a scalar is
+    symmetric). No gradient reaches ``lse``: the renormalised weights do
+    not depend on it."""
 
     @staticmethod
-    def forward(ctx, x, lse, bufs):
+    def forward(ctx, x, lse, bufs, mode):
         ctx.save_for_backward(x, lse)
         ctx.bufs = bufs
-        return _unit_marg(x, lse, bufs)
+        ctx.mode = mode
+        return _unit_marg(x, lse, bufs, mode)
 
     @staticmethod
     def backward(ctx, t):
         x, lse = ctx.saved_tensors
-        return _HvpMarg.apply(t.contiguous(), x, lse, ctx.bufs), None, None
+        hvp = _HvpMarg.apply(t.contiguous(), x, lse, ctx.bufs, ctx.mode)
+        return hvp, None, None, None
 
 
 class _PatchScore(torch.autograd.Function):
@@ -501,6 +597,7 @@ class _PatchScore(torch.autograd.Function):
         ctx.save_for_backward(x, values if marginalize else argmax)
         ctx.bufs = bufs
         ctx.marginalize = marginalize
+        ctx.mode = mode
         ctx.mark_non_differentiable(argmax)
         return values, argmax
 
@@ -508,7 +605,7 @@ class _PatchScore(torch.autograd.Function):
     def backward(ctx, dvalues, _dargmax):
         x, selector = ctx.saved_tensors
         if ctx.marginalize:
-            unit = _UnitMarg.apply(x, selector.detach(), ctx.bufs)
+            unit = _UnitMarg.apply(x, selector.detach(), ctx.bufs, ctx.mode)
         else:
             unit = _UnitMap.apply(x, selector, ctx.bufs)
         return dvalues[:, None] * unit, None, None, None
@@ -526,10 +623,11 @@ def gmm_score_patches(x, bufs, marginalize=False, mode="f32"):
     marginalize : bool
         Logsumexp instead of max over the components.
     mode : ``"f32"`` or ``"split"``
-        The MAP scorer's logits (``config.gmm_mode()`` names the dial's).
-        The marginalise scorer computes in float32 in either mode, and
-        so do patches other than 8x8, for which ``kernel_buffers`` makes
-        no ``"split"`` buffers.
+        The logits of the scorer and, marginalising, of its gradient and
+        Hessian action, which the forward's mode fixes
+        (``config.gmm_mode()`` names the dial's). Patches other than 8x8,
+        for which ``kernel_buffers`` makes no ``"split"`` buffers, take
+        ``"f32"`` in either mode.
 
     Returns
     -------

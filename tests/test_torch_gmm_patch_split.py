@@ -108,20 +108,23 @@ def test_split_plain_matches_jax_high(gmms, rows, marginalize):
 @pytest.mark.parametrize("marginalize", [False, True])
 @pytest.mark.parametrize("mode", tf.MODES)
 def test_gmm_score_patches_dispatches_by_mode(rows, mode, marginalize):
-    """On the CPU the MAP scorer of ``"split"`` is the split plain
-    version; the marginalise scorer, and every scorer of ``"f32"``, the
-    float32 one. Either way the values are those plain versions' own."""
+    """On the CPU the scorers of ``"split"``, MAP and marginalise, are the
+    split plain versions; those of ``"f32"`` the float32 one. Either way
+    the values are those plain versions' own."""
     bufs = jt.GaussianMixtureModel.from_registry(
         "astro-snr-v1").kernel_buffers("cpu")
     x = torch.as_tensor(rows)
     tp.reset_counters()
     tf.reset_counters()
     values, argmax = tp.gmm_score_patches(x, bufs, marginalize, mode)
-    split = mode == "split" and not marginalize
-    assert (tf.score_split_plain.calls, tp.score_rows_plain.calls) == (
+    split = mode == "split"
+    split_plain = (tf.score_split_marg_plain if marginalize
+                   else tf.score_split_plain)
+    assert (split_plain.calls, tp.score_rows_plain.calls) == (
         (1, 0) if split else (0, 1))
-    assert tf.score_split_marg_plain.calls == 0
-    want = (tf.score_split_plain(x, bufs) if split
+    assert (tf.score_split_plain.calls + tf.score_split_marg_plain.calls
+            == int(split))
+    want = (split_plain(x, bufs) if split
             else tp.score_rows_plain(x, bufs, marginalize))
     assert torch.equal(values, want[0]) and torch.equal(argmax, want[1])
     with pytest.raises(ValueError, match="mode"):
@@ -132,9 +135,9 @@ def test_gmm_score_patches_dispatches_by_mode(rows, mode, marginalize):
                                         ("highest", False)])
 def test_prior_probe_scorer_follows_the_dial(dial, split):
     """The patch prior's grouped branch (the probe's) scores by the dial's
-    mode: ``"high"`` and ``"default"`` the split plain version,
-    ``"highest"`` the float32 one; the marginalised prior float32 under
-    every dial. Its gradient reads the argmax only."""
+    mode: ``"high"`` and ``"default"`` the split plain versions,
+    ``"highest"`` the float32 one, MAP and marginalised alike; the
+    marginalised gradient's softmax takes the same logits."""
     flux = torch.as_tensor(np.random.RandomState(4).uniform(
         0.5, 2.0, (1, 1, 48, 64)).astype(np.float32)).requires_grad_(True)
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -147,9 +150,14 @@ def test_prior_probe_scorer_follows_the_dial(dial, split):
             tf.reset_counters()
             with force_fused("off"):
                 (grad,) = torch.autograd.grad(prior(flux), flux)
-            used = split and not marginalize
-            assert tf.score_split_plain.calls == int(used)
-            assert tp.score_rows_plain.calls == int(not used)
+            split_plain = (tf.score_split_marg_plain if marginalize
+                           else tf.score_split_plain)
+            assert split_plain.calls == int(split)
+            assert tp.score_rows_plain.calls == int(not split)
+            if marginalize:
+                assert (tf.marg_unit_split_plain.calls,
+                        tp.unit_marg_plain.calls) == (int(split),
+                                                      int(not split))
             assert tf.fused_forward_plain.calls == 0
             assert torch.isfinite(grad).all()
     finally:

@@ -26,7 +26,9 @@ version, the backward fed by it against the float64 pipeline within
 twice the split plain pipeline's error, scaled by how much further the
 logsumexp lies from float64 than the split plain one
 (``chip_smoke.split_lse_ratio``), plus 1e-6 of the max-abs, and
-bitwise repeatable. The matrix-DFT convolution's
+bitwise repeatable; the probe's K8 split and K9a split, fed K5 lse
+split's logsumexp, the same way against the float64 plain versions. The
+matrix-DFT convolution's
 three float32 kernels (K3) are held the same way against their plain
 version in float64, and the whole pipeline also within 1e-5 of its
 max-abs; the tensor-core kernels of its ``"split"`` mode against the
@@ -377,6 +379,70 @@ def test_marginalise_patch_kernels_match_float64(device, marg_gmm, n):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("name,n", [
+    ("astro-snr-v1", 1), ("astro-snr-v1", 257), ("astro-snr-v1", 4097),
+    ("random-spd", 1000), ("wide-256", 4097), ("mixed-200", 1000),
+    ("mixed-256", 257),
+])
+def test_marginalise_split_probe_kernels_match_float64(device, name, n):
+    """K8 split and K9a split (tensor cores, ``"split"``) fed K5 lse
+    split's logsumexp, as the probe runs them, against the plain versions
+    in float64 (the exact logits' logsumexp): within twice the split
+    plain pipeline's error, times ``chip_smoke.split_lse_ratio`` of the
+    two logsumexps' errors, plus 1e-6 of the max-abs; K9b on K9a split's
+    weights the same; dp exactly 0 on the rows whose weight is one-hot.
+    One-hot weights (``astro-snr-v1``), a random SPD GMM (K = 13), two
+    tiles of components (``chip_smoke.wide_gmm``, K = 256) and mixed
+    weights (``chip_smoke.mixed_gmm``, K = 200 and 256)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    import chip_smoke
+
+    def random_spd():
+        rs = np.random.RandomState(1)
+        a = rs.randn(13, 64, 64) / 8.0
+        covariances = a @ a.transpose(0, 2, 1) + 0.5 * np.eye(64)
+        return gmm_from_arrays(rs.rand(13, 64), covariances,
+                               rs.dirichlet(np.ones(13)), None)
+
+    gmm = {"wide-256": chip_smoke.wide_gmm,
+           "mixed-200": chip_smoke.mixed_gmm,
+           "mixed-256": lambda: chip_smoke.mixed_gmm(256),
+           "random-spd": random_spd}.get(
+        name, lambda: GaussianMixtureModel.from_registry(name))()
+    bufs = gmm.kernel_buffers(device)
+    b64 = {k: v.double() for k, v in bufs.items()}
+    x = torch.as_tensor(make_rows(n), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    lse_k, _ = gp.gmm_score_rows_marg_tc_cuda(x, bufs)
+    lse_p, _ = gf.score_split_marg_plain(x, bufs)
+    x64, t64 = x.double(), t.double()
+    lse64, _ = gp.score_rows_plain(x64, b64, True)
+    factor = 2.0 * chip_smoke.split_lse_ratio(
+        {key: float((v.double() - lse64).abs().max())
+         for key, v in (("tc", lse_k), ("split_plain", lse_p))})
+    anchored(gp.gmm_unit_marg_tc_cuda(x, lse_k, bufs),
+             gf.marg_unit_split_plain(x, lse_p, bufs),
+             gp.unit_marg_plain(x64, lse64, b64), factor)
+    pk, dpk = gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse_k, bufs)
+    pp, dpp = gp.hvp_marg_weights_split_plain(x, t, lse_p, bufs)
+    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+    anchored(pk, pp, p64, factor)
+    anchored(dpk, dpp, dp64, factor)
+    anchored(gp.gmm_hvp_marg_mix_cuda(x, t, pk, dpk, bufs),
+             gp.hvp_marg_mix_plain(x, t, pp, dpp, bufs),
+             gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64), factor)
+    torch.cuda.synchronize()
+    one_hot = (pk != 0).sum(dim=0) == 1
+    assert bool((dpk[:, one_hot] == 0).all())
+    if name == "astro-snr-v1":
+        assert int(one_hot.sum()) >= 0.9 * n
+
+
 @pytest.mark.parametrize("shape", [(37, 203), (64, 256)])
 def test_marginalise_fused_kernels_match_plain(device, marg_gmm, shape):
     from jolideco_torch.ops import gmm_fused as gf
@@ -590,35 +656,49 @@ def test_marginalised_prior_on_card_matches_cpu(device, gmm):
                                atol=1e-4 * float(g_cpu.abs().max()))
 
 
-def test_marginalised_probe_on_card_matches_cpu(device, gmm):
+@pytest.mark.parametrize("dial,tc", [("high", True), ("default", True),
+                                     ("highest", False)])
+def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, tc):
     """The marginalised prior's ``fluxes_error`` at 64², card against
-    CPU, with K5, K8, K9a and K9b launched once each."""
+    CPU, under each dial: K5 lse split, K8 split and K9a split under
+    ``"high"`` and ``"default"``, their float32 kernels under
+    ``"highest"``, once each, and K9b once."""
     from jolideco_torch import FluxComponents, GMMPatchPrior, MAPDeconvolver
-    from jolideco_torch import SpatialFluxComponent
+    from jolideco_torch import SpatialFluxComponent, config
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.utils.bench_data import make_datasets
 
     datasets = make_datasets(n_obs=2, size=64, psf_size=9, seed=3)
     flux = np.random.RandomState(4).uniform(0.5, 2.0, (64, 64))
     errors = {}
-    for dev in ("cpu", device):
-        comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
-            flux, prior=GMMPatchPrior(gmm=gmm, stride=4, marginalize=True))})
-        deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
-                              device=dev, conv_mode="fft")
-        total = deco.build_loss(datasets, comps, torch.device(dev))
-        for comp in comps.values():
-            comp.to(dev)
-        gp.reset_counters()
-        out = total.fluxes_error(comps.fluxes_from(),
-                                 shifts={"flux": (1, -2)})
-        errors[str(dev)] = out["flux"].cpu()
-        if dev != "cpu":
-            launches = (gp.gmm_score_rows_cuda.launches,
-                        gp.gmm_unit_marg_cuda.launches,
-                        gp.gmm_hvp_marg_weights_cuda.launches,
-                        gp.gmm_hvp_marg_mix_cuda.launches)
-            assert launches == (1, 1, 1, 1)
+    saved = config.gmm_precision()
+    config.set_gmm_precision(dial)
+    try:
+        for dev in ("cpu", device):
+            comps = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+                flux, prior=GMMPatchPrior(gmm=gmm, stride=4,
+                                          marginalize=True))})
+            deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
+                                  device=dev, conv_mode="fft")
+            total = deco.build_loss(datasets, comps, torch.device(dev))
+            for comp in comps.values():
+                comp.to(dev)
+            gp.reset_counters()
+            out = total.fluxes_error(comps.fluxes_from(),
+                                     shifts={"flux": (1, -2)})
+            errors[str(dev)] = out["flux"].cpu()
+            if dev != "cpu":
+                split = (gp.gmm_score_rows_marg_tc_cuda.launches,
+                         gp.gmm_unit_marg_tc_cuda.launches,
+                         gp.gmm_hvp_marg_weights_tc_cuda.launches)
+                f32 = (gp.gmm_score_rows_cuda.launches,
+                       gp.gmm_unit_marg_cuda.launches,
+                       gp.gmm_hvp_marg_weights_cuda.launches)
+                assert (split, f32) == (((1, 1, 1), (0, 0, 0)) if tc
+                                        else ((0, 0, 0), (1, 1, 1)))
+                assert gp.gmm_hvp_marg_mix_cuda.launches == 1
+    finally:
+        config.set_gmm_precision(saved)
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)

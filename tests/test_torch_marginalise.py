@@ -343,8 +343,11 @@ def test_marginalised_prior_value_and_gradient(name, shape, fused, spin):
         value_t = prior_t(x, shifts=shifts)
         value_t.backward()
     assert on_fused == (name != "random-4x4" and fused == "auto")
+    # the grouped branch follows the default dial ("split") where the GMM
+    # has split buffers (8x8 patches)
     marg_calls = (tf.fused_backward_marg_plain.calls if on_fused
-                  else tp.unit_marg_plain.calls)
+                  else tp.unit_marg_plain.calls if name == "random-4x4"
+                  else tf.marg_unit_split_plain.calls)
     assert marg_calls == 1
 
     assert_allclose(value_t.item(), float(value_j), rtol=1e-5)
@@ -388,14 +391,16 @@ def test_map_deconvolver_marginalised_matches_jax():
     flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
                                        device="cpu")
     # training on the fused scorer, the probe on the patch-level one;
-    # the default dial's "split" logits in both directions
+    # the default dial's "split" logits in both, and in both directions:
+    # 20 steps and one probe each, no float32 scorer
     assert tf.fused_forward_plain.calls == 20
     assert tf.fused_backward_marg_plain.calls == 20
-    assert tf.score_split_marg_plain.calls == 20
-    assert tf.marg_unit_split_plain.calls == 20
+    assert tf.score_split_marg_plain.calls == 21
+    assert tf.marg_unit_split_plain.calls == 21
+    assert (tp.hvp_marg_weights_split_plain.calls,
+            tp.hvp_marg_mix_plain.calls) == (1, 1)
     assert (tp.score_rows_plain.calls, tp.unit_marg_plain.calls,
-            tp.hvp_marg_weights_plain.calls,
-            tp.hvp_marg_mix_plain.calls) == (1, 1, 1, 1)
+            tp.hvp_marg_weights_plain.calls) == (0, 0, 0)
 
     assert_allclose(flux_t, flux_j, rtol=5e-3)
     assert np.isfinite(errors_t).all() and (errors_t > 0).all()
@@ -458,8 +463,9 @@ def test_map_deconvolver_marginalised_mixed_weights_matches_jax():
     flux_t, errors_t = run_deconvolver(jt, gmm_t, datasets, True,
                                        device="cpu")
     assert tf.fused_backward_marg_plain.calls == 20
-    assert tf.score_split_marg_plain.calls == 20
-    assert tf.marg_unit_split_plain.calls == 20
+    assert tf.score_split_marg_plain.calls == 21
+    assert tf.marg_unit_split_plain.calls == 21
+    assert tp.hvp_marg_weights_split_plain.calls == 1
     assert tp.hvp_marg_mix_plain.calls == 1
     flux_map, errors_map = run_deconvolver(jt, gmm_t, datasets, False,
                                            device="cpu")
