@@ -22,13 +22,13 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   ``"f32"`` or ``"split"``). Under ``"split"`` (the default dial,
   ``"high"``) the matrix-DFT convolution's passes and the fused
   scorer's logits (its MAP and logsumexp forwards and its marginalise
-  backward), and the MAP logits of the patch-level scorer of the
-  Hessian probe, run on the tensor cores as bf16 hi/lo products with
-  float32 sums; ``"default"`` also takes the scorer's ``"split"`` (a
-  single-bf16 scorer is not ported). Every other kernel (the
-  marginalised probe's scorer, gradient and Hessian action among them),
-  and those in the other modes, computes in full float32, which meets
-  the strictest bar. At import and on every dial change the
+  backward), and the logits of the Hessian probe's patch-level scorer,
+  MAP and logsumexp, and of its marginalise gradient and first Hessian
+  stage, run on the tensor cores as bf16 hi/lo products with float32
+  sums; ``"default"`` also takes the scorer's ``"split"`` (a
+  single-bf16 scorer is not ported). Every other kernel, and those in
+  the other modes, computes in full float32, which meets the strictest
+  bar. At import and on every dial change the
   float32 matmul and cuDNN paths are pinned to full float32: PyTorch
   lets cuDNN convolutions run in TF32 by default, which keeps only about
   three decimal digits.

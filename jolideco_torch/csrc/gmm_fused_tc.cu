@@ -92,7 +92,8 @@
 // the A_k x terms of the nonzero weights in float32 (4,096
 // multiply-adds and 16 KB of A_k each). For the shipped GMMs nearly
 // every weight underflows to exactly 0 (about one nonzero a patch), and
-// skipping a zero term is exact. The design (marg_tile, marg_rows):
+// skipping a zero term is exact. The design (marg_rows, with K8 split
+// and K9a split):
 // after a tile's main loop its weights go to shared memory (over the
 // stages and u, 104 KB); each warp owns 16 rows, finds their nonzero
 // weights 32 components at a time with one ballot per row, and runs
@@ -139,6 +140,14 @@
 // 0.747 ms (gmm_patch.cu's float32 K5 1.673), 24% of the split bound;
 // 255 registers, 16 bytes spilled each; the forward kernels' ptxas lines
 // did not change when score_block was factored out of gmm_fwd_tc_kernel.
+// gmm_unit_marg_tc_kernel 0.832-0.845 ms, gmm_hvp_marg_weights_tc_kernel
+// 0.943 (gmm_patch.cu's float32 K8 2.51-2.52, K9a 2.89-2.90), 21% and 19%
+// of their split bounds; 255 registers, 32 and 204 bytes spilled; mixed
+// weights 14.28 and 17.01 ms (float32 10.71-10.77, 15.27-15.30). K9a
+// split's first version, which sent the last tile's weights through p
+// too, took 1.066 ms. gmm_bwd_marg_tc_kernel's ptxas line (0 bytes
+// spilled) and time (0.860-0.871 ms) held when marg_rows was factored
+// out of it; a factoring with a separate per-tile function made it spill.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -204,6 +213,8 @@ static_assert(kXBytes % 16 == 0 && kPairBytes % 16 == 0 &&
 static_assert(kBlockRows * kWLd * 4 <= kStageBytes + kUBytes,
               "a tile's weights fit the stages and u");
 static_assert(kRowsPerWarp <= 32 && kGLd % 2 == 0, "rows of a warp");
+static_assert(kThreads == 2 * kBlockRows && 7 * kBlockRows * 4 <= kRedBytes,
+              "K9a split: two threads a row, sums beside lse, wsum, g_ref");
 static_assert(kSmemBwd <= 232448, "shared memory of a block");
 static_assert((kD + 1) * kKP * 4 <= kStageBytes, "b and c fit the stages");
 
@@ -717,116 +728,166 @@ __device__ __forceinline__ void load_lse(float* lse_s,
   }
 }
 
-// A tile's mixture phase, after its main loop (acc from tile_logits of
-// components k0 ..): the weights w = exp(logit - lse) into wts (0 for the
-// padding components); then each warp over its 16 rows r0 .. r0 + 15, 32
-// components at a time: a ballot per row finds the nonzero weights, and
-// entry(r, k, w) runs for each (row, component) that has one, the whole
-// warp together, rows in order (so that A_k stays in L1 across them),
-// each row's components in ascending order. Skipping a zero weight is
-// exact, and for the shipped GMMs nearly every weight underflows to 0.
-// The tile's weight sums are added to wsum, lane i holding row r0 + i's.
-// wts stays valid until the next tile_logits.
+// marg_rows' entry of K4 split and K8 split: row r's gradient row +=
+// w (b_k - A_k x); nothing at the end of a tile.
+struct MixEntry {
+  float* grad;
+  const float* xs;
+  const float* __restrict__ a_full;
+  const float* __restrict__ b_rows;
+  int lane;
+  __device__ __forceinline__ void operator()(int r, int k, float w) const {
+    marg_entry(grad + r * kGLd, xs + r * kXLd, a_full + (size_t)k * kD * kD,
+               b_rows + (size_t)k * kD, w, lane);
+  }
+  __device__ __forceinline__ void tile_done(const float*, int) const {}
+};
+
+// marg_rows' entry of K9a split: g_k = t . (b_k - A_k x) of row r to dp,
+// and the row's heaviest weight so far and its g to w_ref[r], g_ref[r]
+// (shared memory; components come in ascending order, so the lowest
+// index among equal weights is kept), all by lane 0 of the warp that
+// owns the row. At the end of a tile before the last (k0 < k_last) its
+// weights go to p, a thread its own entries of wts (8 rows of 4
+// components a warp store); the last tile's stay in wts.
+struct DotEntry {
+  const float* ts;
+  const float* xs;
+  const float* __restrict__ a_full;
+  const float* __restrict__ b_rows;
+  float* p;
+  float* dp;
+  float* w_ref;
+  float* g_ref;
+  int n0, n_total, K, k_last, lane;
+  __device__ __forceinline__ void operator()(int r, int k, float w) const {
+    const float gk = marg_dot(ts + r * kGLd, xs + r * kXLd,
+                              a_full + (size_t)k * kD * kD,
+                              b_rows + (size_t)k * kD, lane);
+    if (lane == 0) {
+      if (w > w_ref[r]) {
+        w_ref[r] = w;
+        g_ref[r] = gk;
+      }
+      if (n0 + r < n_total) dp[(size_t)k * n_total + n0 + r] = gk;
+    }
+  }
+  __device__ __forceinline__ void tile_done(const float* wts, int k0) const {
+    if (k0 == k_last) return;
+    const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        if (n0 + r >= n_total) continue;
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
+          const float2 w =
+              *reinterpret_cast<const float2*>(wts + r * kWLd + col);
+          const size_t i = (size_t)(k0 + col) * n_total + n0 + r;
+          if (k0 + col < K) p[i] = w.x;
+          if (k0 + col + 1 < K) p[i + n_total] = w.y;
+        }
+      }
+  }
+};
+
+// The mixture phase of the block's rows (xs, their logsumexp in lse_s)
+// over every tile of components, the one code of K4 split, K8 split and
+// K9a split. Per tile: its logits (tile_logits), then the weights w =
+// exp(logit - lse) into wts over the stages and u (0 for the padding
+// components); then each warp over its 16 rows, 32 components at a
+// time: a ballot per row finds the nonzero weights, and entry(r, k, w)
+// runs for each (row, component) that has one, the whole warp together,
+// rows in order (so that A_k stays in L1 across them), each row's
+// components in ascending order; then entry.tile_done(wts, k0). Each
+// row is summed by its one warp, so the result is deterministic without
+// atomics, for any K and any number of nonzero weights. Skipping a zero
+// weight is exact, and for the shipped GMMs nearly every weight
+// underflows to 0. The rows' weight sums go to wsum_s. Ends with a
+// __syncthreads.
 template <typename Entry>
-__device__ __forceinline__ void marg_tile(const float (&acc)[kMT][kNT][4],
-                                          const float* lse_s, float* wts,
-                                          int k0, int K, float& wsum,
-                                          Entry&& entry) {
+__device__ __forceinline__ void marg_rows(
+    const float* xs, const uint16_t* pairs, bf16* stages, bf16* us,
+    const float* lse_s, float* wsum_s, const bf16* __restrict__ a_pairs,
+    const float* __restrict__ bc, int K, const Entry& entry) {
+  float* wts = reinterpret_cast<float*>(stages);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * kRowsPerWarp;
-  __syncthreads();  // every warp's last chunk is multiplied
-
-  // the weights w = exp(logit - lse), 0 for the padding components
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = wm * 32 + mt * 16 + g + 8 * h;
-      const float l = lse_s[r];
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const int col = wn * kWarpCols + nt * 8 + 2 * tq;
-        float2 w;
-        w.x = k0 + col < K ? expf(-0.5f * acc[mt][nt][2 * h] - l) : 0.f;
-        w.y = k0 + col + 1 < K ? expf(-0.5f * acc[mt][nt][2 * h + 1] - l)
-                               : 0.f;
-        *reinterpret_cast<float2*>(wts + r * kWLd + col) = w;
-      }
-    }
-  __syncthreads();
-
-  float part[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) part[i] = 0.f;
-  for (int j = 0; j < kKP; j += 32) {
-    const int col = j + lane;
-    uint32_t nz[kRowsPerWarp];
-    uint32_t any = 0;
-#pragma unroll
-    for (int i = 0; i < kRowsPerWarp; ++i) {
-      const float w = col < kKP ? wts[(r0 + i) * kWLd + col] : 0.f;
-      part[i] += w;
-      nz[i] = __ballot_sync(0xffffffffu, w > 0.f);
-      any |= nz[i];
-    }
-    while (any) {
-      const int bit = __ffs(any) - 1;
-      any &= any - 1;
-      const int k = k0 + j + bit;
-      uint32_t rows = 0;
-#pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i)
-        rows |= ((nz[i] >> bit) & 1u) << i;
-      while (rows) {
-        const int r = r0 + __ffs(rows) - 1;
-        rows &= rows - 1;
-        entry(r, k, wts[r * kWLd + j + bit]);
-      }
-    }
-  }
-  // the tile's weight sums: each lane's, then over the warp
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    float s = part[i];
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-    if (lane == i) wsum += s;
-  }
-}
-
-// The mixture sum_k w_k (b_k - A_k x) of the block's rows (s.xs, their
-// logsumexp in s.lse) into the zeroed gradient rows s.rows2, and
-// sum_k w_k into s.wsum, over every tile of components: each row summed
-// by its one warp, components in ascending order, so that the result is
-// deterministic without atomics, for any K and any number of nonzero
-// weights. The one code of K4 split and K8 split; ends with a
-// __syncthreads.
-__device__ __forceinline__ void marg_rows(const MargSmem& s,
-                                          const bf16* __restrict__ a_pairs,
-                                          const float* __restrict__ bc,
-                                          const float* __restrict__ a_full,
-                                          const float* __restrict__ b_rows,
-                                          int K) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
   const int n_tiles = (K + kKP - 1) / kKP;
-  float* wts = reinterpret_cast<float*>(s.stages);
+  const int r0 = warp * kRowsPerWarp;
   float wsum = 0.f;
   for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * kKP;
     float acc[kMT][kNT][4];
-    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
+    tile_logits(acc, xs, pairs, stages, us,
                 a_pairs + (size_t)tile * kChunks * kTileElems,
                 bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
-    marg_tile(acc, s.lse, wts, tile * kKP, K, wsum,
-              [&](int r, int k, float w) {
-                marg_entry(s.rows2 + r * kGLd, s.xs + r * kXLd,
-                           a_full + (size_t)k * kD * kD,
-                           b_rows + (size_t)k * kD, w, lane);
-              });
+    __syncthreads();  // every warp's last chunk is multiplied
+
+    // the weights w = exp(logit - lse), 0 for the padding components
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + mt * 16 + g + 8 * h;
+        const float l = lse_s[r];
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
+          float2 w;
+          w.x = k0 + col < K ? expf(-0.5f * acc[mt][nt][2 * h] - l) : 0.f;
+          w.y = k0 + col + 1 < K ? expf(-0.5f * acc[mt][nt][2 * h + 1] - l)
+                                 : 0.f;
+          *reinterpret_cast<float2*>(wts + r * kWLd + col) = w;
+        }
+      }
+    __syncthreads();
+
+    float part[kRowsPerWarp];
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) part[i] = 0.f;
+    for (int j = 0; j < kKP; j += 32) {
+      const int col = j + lane;
+      uint32_t nz[kRowsPerWarp];
+      uint32_t any = 0;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        const float w = col < kKP ? wts[(r0 + i) * kWLd + col] : 0.f;
+        part[i] += w;
+        nz[i] = __ballot_sync(0xffffffffu, w > 0.f);
+        any |= nz[i];
+      }
+      while (any) {
+        const int bit = __ffs(any) - 1;
+        any &= any - 1;
+        const int k = k0 + j + bit;
+        uint32_t rows = 0;
+#pragma unroll
+        for (int i = 0; i < kRowsPerWarp; ++i)
+          rows |= ((nz[i] >> bit) & 1u) << i;
+        while (rows) {
+          const int r = r0 + __ffs(rows) - 1;
+          rows &= rows - 1;
+          entry(r, k, wts[r * kWLd + j + bit]);
+        }
+      }
+    }
+    // the tile's weight sums: each lane's, then over the warp
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      float s = part[i];
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+      if (lane == i) wsum += s;
+    }
+    entry.tile_done(wts, k0);
   }
-  if (lane < kRowsPerWarp) s.wsum[warp * kRowsPerWarp + lane] = wsum;
+  if (lane < kRowsPerWarp) wsum_s[r0 + lane] = wsum;
   __syncthreads();
 }
 
@@ -843,6 +904,9 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
                        float* __restrict__ planes) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MargSmem s = marg_smem(smem_raw);
+  float* xs = s.xs;
+  float* lse_s = s.lse;
+  float* grad = s.rows2;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBlockRows;
 
@@ -852,16 +916,17 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
   // the end: its weights are 0) and the gradient rows
   for (int i = tid; i < kBlockRows * kD; i += kThreads) {
     const int r = i / kD, n = n0 + r;
-    s.xs[r * kXLd + i % kD] =
-        n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD) : 0.f;
+    xs[r * kXLd + i % kD] = n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD)
+                                        : 0.f;
   }
   if (tid < kBlockRows) {
     const int n = n0 + tid;
-    s.lse[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
+    lse_s[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
                                                         : CUDART_INF_F;
   }
-  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
-  marg_rows(s, a_pairs, bc, a_full, b_rows, K);
+  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
+  marg_rows(xs, s.pairs, s.stages, s.us, lse_s, s.wsum, a_pairs, bc, K,
+            MixEntry{grad, xs, a_full, b_rows, tid & 31});
 
   // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
   if (tid < kBlockRows) {
@@ -870,7 +935,7 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
       const float scale = __ldg(dvalues + n) / s.wsum[tid];
       float u[kD];
 #pragma unroll
-      for (int c = 0; c < kD; ++c) u[c] = s.rows2[tid * kGLd + c] * scale;
+      for (int c = 0; c < kD; ++c) u[c] = grad[tid * kGLd + c] * scale;
       store_patch_gradient(u, n, H, W, stride, ny, nx, planes);
     }
   }
@@ -895,7 +960,8 @@ gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
   load_rows(s.xs, kXLd, rows, n0, n_total);
   load_lse(s.lse, lse, n0, n_total);
   for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
-  marg_rows(s, a_pairs, bc, a_full, b_rows, K);
+  marg_rows(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
+            MixEntry{s.rows2, s.xs, a_full, b_rows, tid & 31});
 
   // unit = (sum_k w_k (b_k - A_k x)) / sum_k w_k
   for (int i = tid; i < kBlockRows * kD; i += kThreads) {
@@ -908,15 +974,14 @@ gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
 
 // K9a split: the first stage of the marginalise Hessian action of rows
 // (n_total, 64) float32 along tangents (n_total, 64), with K5 lse
-// split's logsumexp: p and dp, (K, n_total). Per tile, w goes to p (a
-// thread its own entries of the weights, 8 rows of 4 components a warp
-// store) and, for the nonzero weights, g_k = t . (b_k - A_k x) to dp;
-// each row's heaviest component's g (the lowest index among equal
-// weights) is kept. Then a second pass over the block's rows, a thread a
-// row, turns them into p = w / sum w and dp = p (g - g_ref - gbar),
-// gbar = sum p (g - g_ref): a row whose weight sits on one component
-// gets dp = 0 exactly (gmm_patch.cu's rule). dp is read only where w is
-// nonzero, and written everywhere.
+// split's logsumexp: p and dp, (K, n_total). Per tile, for the nonzero
+// weights, g_k = t . (b_k - A_k x) goes to dp, and w to p (but for the
+// last tile, whose weights stay in shared memory) (DotEntry); each
+// row's heaviest component's g is kept. Then a finishing pass over the
+// block's rows, two threads a row, turns them into p = w / sum w and
+// dp = p (g - g_ref - gbar), gbar = sum p (g - g_ref): a row whose
+// weight sits on one component gets dp = 0 exactly (gmm_patch.cu's
+// rule). dp is read only where w is nonzero, and written everywhere.
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
                                const float* __restrict__ tangents,
@@ -928,76 +993,59 @@ gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
                                float* p, float* dp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MargSmem s = marg_smem(smem_raw);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int g = lane >> 2, tq = lane & 3;
+  const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBlockRows;
-  const int r0 = warp * kRowsPerWarp;
-  const int n_tiles = (K + kKP - 1) / kKP;
-  float* wts = reinterpret_cast<float*>(s.stages);
 
   build_pairs(s.pairs);
   load_rows(s.xs, kXLd, rows, n0, n_total);
   load_rows(s.rows2, kGLd, tangents, n0, n_total);
   load_lse(s.lse, lse, n0, n_total);
+  // each row's heaviest weight so far (s.wsum, then its weight sum) and
+  // its g (s.extra)
+  if (tid < kBlockRows) s.wsum[tid] = -1.f;
+  const int k_last = (K - 1) / kKP * kKP;
+  marg_rows(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
+            DotEntry{s.rows2, s.xs, a_full, b_rows, p, dp, s.wsum, s.extra,
+                     n0, n_total, K, k_last, tid & 31});
 
-  // lane i: row r0 + i's heaviest weight so far and its g
-  float w_ref = -1.f, g_ref = 0.f, wsum = 0.f;
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kKP;
-    float acc[kMT][kNT][4];
-    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
-                a_pairs + (size_t)tile * kChunks * kTileElems,
-                bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
-    marg_tile(acc, s.lse, wts, k0, K, wsum, [&](int r, int k, float w) {
-      const float gk = marg_dot(s.rows2 + r * kGLd, s.xs + r * kXLd,
-                                a_full + (size_t)k * kD * kD,
-                                b_rows + (size_t)k * kD, lane);
-      if (lane == r - r0 && w > w_ref) {
-        w_ref = w;
-        g_ref = gk;
-      }
-      if (lane == 0 && n0 + r < n_total)
-        dp[(size_t)k * n_total + n0 + r] = gk;
-    });
-    // the tile's weights to p
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * 32 + mt * 16 + g + 8 * h;
-        if (n0 + r >= n_total) continue;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int col = wn * kWarpCols + nt * 8 + 2 * tq;
-          const float2 w = *reinterpret_cast<const float2*>(wts + r * kWLd +
-                                                            col);
-          const size_t i = (size_t)(k0 + col) * n_total + n0 + r;
-          if (k0 + col < K) p[i] = w.x;
-          if (k0 + col + 1 < K) p[i + n_total] = w.y;
-        }
-      }
-  }
-  if (lane < kRowsPerWarp) s.extra[r0 + lane] = g_ref;
-  __syncthreads();  // p, dp and the rows' g_ref written
-
-  if (tid >= kBlockRows || n0 + tid >= n_total) return;
-  const size_t n = n0 + tid;
-  const float gr = s.extra[tid];
+  // the finishing pass: row r by threads r and r + 128, even and odd
+  // components, the weights of the tiles before the last from p, of the
+  // last from wts (shared memory; a single tile for K <= 208 never goes
+  // through p); their partial sums meet in shared memory
+  const float* wts = reinterpret_cast<const float*>(s.stages);
+  float* part = s.extra + kBlockRows;
+  const int r = tid % kBlockRows, half = tid / kBlockRows;
+  const bool live = n0 + r < n_total;
+  const size_t n = n0 + r;
+  const float gr = s.extra[r];
   float w_total = 0.f, gsum = 0.f;
+  if (live) {
 #pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const size_t i = (size_t)k * n_total + n;
-    const float w = p[i];
-    w_total += w;
-    if (w != 0.f) gsum = fmaf(w, dp[i] - gr, gsum);
+    for (int k = half; k < K; k += 2) {
+      const size_t i = (size_t)k * n_total + n;
+      const float w = k >= k_last ? wts[r * kWLd + k - k_last] : p[i];
+      w_total += w;
+      if (w != 0.f) gsum = fmaf(w, dp[i] - gr, gsum);
+    }
   }
-  const float inv = 1.f / w_total;
-  const float gbar = gsum * inv;  // sum_k p_k g_k - g_ref
+  if (half) {
+    part[r] = w_total;
+    part[kBlockRows + r] = gsum;
+  }
+  __syncthreads();
+  if (!half) {
+    const float inv = 1.f / (w_total + part[r]);
+    part[2 * kBlockRows + r] = inv;
+    part[3 * kBlockRows + r] = (gsum + part[kBlockRows + r]) * inv;
+  }
+  __syncthreads();
+  if (!live) return;
+  const float inv = part[2 * kBlockRows + r];
+  const float gbar = part[3 * kBlockRows + r];  // sum_k p_k g_k - g_ref
 #pragma unroll 4
-  for (int k = 0; k < K; ++k) {
+  for (int k = half; k < K; k += 2) {
     const size_t i = (size_t)k * n_total + n;
-    const float w = p[i];
+    const float w = k >= k_last ? wts[r * kWLd + k - k_last] : p[i];
     const float pk = w * inv;
     p[i] = pk;
     dp[i] = w != 0.f ? pk * ((dp[i] - gr) - gbar) : 0.f;

@@ -26,11 +26,13 @@
 // component. The TPU kernel's one-hot MXU tricks, bf16 hi/lo splits and
 // K padding to 128 are not carried over. At 65,025 rows, K = 200 on an
 // NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms, K1's loop 2-4%
-// slower than K1 itself. Under the default dial ("split") the MAP probe
+// slower than K1 itself. Under the default dial ("split") the probe
 // scores on the tensor cores instead (gmm_fused_tc.cu's
-// gmm_score_rows_tc_kernel, 0.70-0.72 ms); this kernel scores under
-// "highest", and in logsumexp mode for the marginalised probe under
-// every dial (its K8 and K9a need the lse of their own float32 logits).
+// gmm_score_rows_tc_kernel, 0.70-0.76 ms), and so do its marginalise
+// unit gradient and first Hessian stage (gmm_unit_marg_tc_kernel,
+// gmm_hvp_marg_weights_tc_kernel); this kernel, K8 and K9a below score
+// and differentiate under "highest" (K8 and K9a need the lse of their
+// own float32 logits).
 //
 // ---------------------------------------------------------------------
 // gmm_row_map_kernel<true> (C entry gmm_unit_map) replaces

@@ -302,16 +302,12 @@ def _score_rows_tc(x, bufs, marginalize, name):
     return values, argmax, bool(n)
 
 
-def gmm_score_rows_tc_cuda(x, bufs, marginalize=False):
+def gmm_score_rows_tc_cuda(x, bufs):
     """Launch the MAP scorer of the ``"split"`` mode on the tensor cores
     (``csrc/gmm_fused_tc.cu``, K1 split's logits) on rows ``x (N, 64)``
     float32 on a card; any number of components, in tiles of
     ``KP_TC``. Same outputs as ``score_split_plain``; the buffers are the
-    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``). With
-    ``marginalize``, :func:`gmm_score_rows_marg_tc_cuda`, which counts
-    its own launches."""
-    if marginalize:
-        return gmm_score_rows_marg_tc_cuda(x, bufs)
+    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``)."""
     values, argmax, launched = _score_rows_tc(x, bufs, False,
                                               "gmm_score_rows_tc_cuda")
     gmm_score_rows_tc_cuda.launches += launched
@@ -478,7 +474,9 @@ reset_counters()
 def _score(x, bufs, marginalize, mode):
     if dispatch(x) == "kernel":
         if mode == "split":
-            return gmm_score_rows_tc_cuda(x, bufs, marginalize)
+            score = (gmm_score_rows_marg_tc_cuda if marginalize
+                     else gmm_score_rows_tc_cuda)
+            return score(x, bufs)
         return gmm_score_rows_cuda(x, bufs, marginalize)
     if mode == "split":
         score = score_split_marg_plain if marginalize else score_split_plain

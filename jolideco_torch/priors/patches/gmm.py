@@ -119,7 +119,8 @@ class GaussianMixtureModel:
         logsumexp over the components (``marginalize``). The patch-level
         scorer (``ops.gmm_pallas.gmm_score_patches``): CUDA kernels for
         8x8 patches on a card, the plain versions on the CPU; twice
-        differentiable. The MAP logits follow the precision dial
+        differentiable. The logits, MAP and marginalised, and those the
+        marginalised derivatives recompute, follow the precision dial
         (``config.gmm_mode()``), as the JAX package's scorer follows
         its ``gmm_precision()``.
         """

@@ -6,8 +6,9 @@ prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
 each patch by the logsumexp over its components; ``--conv-mode pfft``
 convolves through the matrix-DFT kernels instead of cuFFT; ``--precision``
 sets the precision dial, whose default ``"high"`` runs the fused
-scorer (its MAP and logsumexp forwards and its marginalise backward) and
-K3's passes 2 and 3 on the tensor cores), runs a few warm-up steps, then
+scorer (its MAP and logsumexp forwards and its marginalise backward),
+the probe's patch-level scorer and marginalise kernels (K5, K8, K9a) and
+K3's three passes on the tensor cores), runs a few warm-up steps, then
 traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes

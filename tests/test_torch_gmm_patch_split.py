@@ -216,11 +216,11 @@ def test_map_deconvolver_errors_match_jax_high():
 
 
 def test_tensor_core_row_scorer_refuses_cpu_tensors(rows):
-    """K5 split's wrapper launches on a card or raises: a CPU tensor
-    takes the split plain version only through the dispatch."""
+    """K5 split's wrappers (MAP and logsumexp) launch on a card or raise:
+    a CPU tensor takes the split plain versions only through the
+    dispatch."""
     bufs = jt.GaussianMixtureModel.from_registry(
         "astro-snr-v1").kernel_buffers("cpu")
-    for marginalize in (False, True):
+    for wrapper in (tp.gmm_score_rows_tc_cuda, tp.gmm_score_rows_marg_tc_cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
-            tp.gmm_score_rows_tc_cuda(torch.as_tensor(rows), bufs,
-                                      marginalize)
+            wrapper(torch.as_tensor(rows), bufs)

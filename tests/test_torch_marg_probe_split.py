@@ -181,15 +181,14 @@ def test_split_hessian_action_has_no_derivative(rows):
 
 
 def test_split_probe_wrappers_refuse_cpu_tensors(rows):
-    """K5 lse split's, K8 split's and K9a split's wrappers launch on a
-    card or raise: a CPU tensor takes the split plain versions only
-    through the dispatch."""
+    """K8 split's and K9a split's wrappers launch on a card or raise: a
+    CPU tensor takes the split plain versions only through the
+    dispatch."""
     bufs = jt.GaussianMixtureModel.from_registry(
         "astro-snr-v1").kernel_buffers("cpu")
     x = torch.as_tensor(rows)
     lse = torch.zeros(len(rows))
-    for call in (lambda: tp.gmm_score_rows_marg_tc_cuda(x, bufs),
-                 lambda: tp.gmm_unit_marg_tc_cuda(x, lse, bufs),
+    for call in (lambda: tp.gmm_unit_marg_tc_cuda(x, lse, bufs),
                  lambda: tp.gmm_hvp_marg_weights_tc_cuda(x, x, lse, bufs)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             call()
