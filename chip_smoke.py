@@ -833,18 +833,14 @@ def phase_patch_kernels(torch, device, bufs, cases):
     return out
 
 
-def anchored(label, name, got, plain32, plain64, factor=MARG_ERR_FACTOR,
-             scale=None):
-    """The float64-anchored check, its floor ``MARG_ERR_FLOOR`` of
-    ``scale`` (by default the result's max-abs); returns (kernel err,
-    plain err, scale)."""
+def anchored(label, name, got, plain32, plain64, factor=MARG_ERR_FACTOR):
+    """The float64-anchored check; returns (kernel err, plain err, max)."""
     err = float((got.to(plain64.dtype) - plain64).abs().max())
     err32 = float((plain32.to(plain64.dtype) - plain64).abs().max())
-    if scale is None:
-        scale = float(plain64.abs().max())
+    scale = float(plain64.abs().max())
     check(err <= factor * err32 + MARG_ERR_FLOOR * scale,
           f"{label}: {name} error {err:.3g} against float64, plain float32 "
-          f"{err32:.3g}, scale {scale:.3g}")
+          f"{err32:.3g}, max {scale:.3g}")
     return err, err32, scale
 
 
@@ -1154,20 +1150,44 @@ def split_lse_ratio(errs):
     return max(1.0, errs["tc"] / errs["split_plain"])
 
 
-# K8 split and K9a split (fed K5 lse split's logsumexp) scale the same bar
-# by split_logit_ratio, the larger of split_lse_ratio and the same ratio
-# of K5 split's maxima. Their weights p_k = exp(logit_k - lse) carry the
-# spread of the logits' rounding, which the logsumexp, a softmax average
-# of it, understates: on the card tests' rows of uniform noise (1,000
-# rows under a random SPD GMM of 13 components and under mixed_gmm(),
-# 257 rows under mixed_gmm(256); 20,000 rows under mixed_gmm()) on an
-# H100, K8 split and K9a split lay 6.9 to 12.1 times as far from float64
-# as the split plain pipeline, the logsumexp 3.9 to 6.1 times, the maxima
-# 8.6 to 10.4 times (scripts/torch_probe_split_ratios.py).
-def split_logit_ratio(lse_errs, max_errs):
-    """The larger of :func:`split_lse_ratio` of the logsumexps' errors
-    against float64 and of the maxima's."""
-    return max(split_lse_ratio(lse_errs), split_lse_ratio(max_errs))
+# K8 split, K9a split and K9 (K9b on K9a split's weights), fed K5 lse
+# split's logsumexp as the probe runs them, are held against the float64
+# pipeline within MARG_SPLIT_FACTOR times the split plain pipeline's
+# error plus MARG_ERR_FLOOR of the max-abs. Their weights p_k =
+# exp(logit_k - lse) carry the tensor cores' logit sums, which are not
+# IEEE sums (K1_SPLIT_RTOL), and no single number of K5 split (the
+# logsumexp, a softmax average of the logits' rounding, or the maxima)
+# says how far: on an H100 the kernels lay 1.5 to 3.9 times as far from
+# float64 as the split plain pipeline on phase 2's image rows (dp under
+# wide_gmm() aside: see LOGIT_SPACINGS), and up to 12.9 times on the
+# card tests' rows of uniform noise under a random SPD GMM and mixed
+# weights (tests/test_torch_gpu.py::
+# test_marginalise_split_probe_kernels_match_float64 prints them). The
+# factor is fixed above the largest reading. The control of
+# probe_split_compare, the same pipeline with the logits of single bf16
+# products, must fail it wherever the weights are mixed: there it lay 22
+# to 39 times above it.
+MARG_SPLIT_FACTOR = 16.0
+# dp_k = p_k (g_k - gbar) also inherits, entry by entry, the float32
+# rounding of the logits (dp_rounding), which the split plain pipeline
+# shares only on average. A float32 logit of magnitude L stands within
+# a spacing (at most 2^-23 L) of the sum it rounds: a half for its own
+# rounding, a half for the sums before it. With each logit within d, every
+# p_k moves by a factor within exp(+-2 d), and dp_k by at most expm1(2 d)
+# (|dp_k| + exp(2 d) p_k sum_j |dp_j|): 1.6e-2 of dp at logits of 1e5,
+# more than dp itself beyond about 4e6, where no float32 logit resolves a
+# shared weight. dp's max-abs may sit on such a row, where dp is a
+# residue far below the g_k: under wide_gmm() at 1024^2 on an H100 the
+# largest |dp|, 5.1e-10, is on a row with logits near 6.5e5 (spacing
+# 0.077) and a second weight of 9.8e-16 (component 48 and its copy 248).
+# There the kernel's logit difference lay 0.83 spacings from float64's
+# and its dp 6.2% from float64's, the split plain pipeline's 0.023
+# spacings and 0.18%; over that image's 8 rows with two weights the
+# kernel's logit differences lay within 0.87 spacings, the split plain
+# version's within 1.1. g_k, float32 in both, lay within 1.4e-7 of
+# float64's g differences there. d is LOGIT_SPACINGS spacings of the
+# row's largest logit that has a weight.
+LOGIT_SPACINGS = 1.0
 
 
 def marg_split_pipelines(torch, image, bufs, dv):
@@ -1314,100 +1334,265 @@ def marg_split_timing(torch, bufs, s, plain=True):
     return timing, bounds
 
 
-# dp_k = p_k (g_k - gbar) is a difference of the float32 dot products
-# g_k = t . (b_k - A_k x), whose rounding scales with |g| (at most about
-# max |u . t| over the rows, u the unit gradient: the heaviest
-# component's g on a one-hot row), not with dp. On nearly one-hot rows
-# dp is a residue far below it: under wide_gmm() at 1024^2 on an H100,
-# 8 of the 65,025 rows have more than one nonzero weight, max |dp| is
-# 5.1e-10, and K9a split lay 3.2e-11 from float64 where the split plain
-# version lay 9.0e-13, 35 times closer. So dp's floor is MARG_ERR_FLOOR
-# of max |u . t|.
-def dp_scale(torch, u64, t64):
-    """The scale of the g_k that dp is a difference of: max |u . t| over
-    the rows, u the unit gradient."""
-    return float((u64 * t64).sum(dim=1).abs().max())
+def dp_rounding(torch, x64, b64, p64, dp64):
+    """Per entry (K, N) of dp, how far the logits' float32 rounding may
+    move it (see ``LOGIT_SPACINGS``): ``expm1(2 d) (|dp_k| + exp(2 d) p_k
+    sum_j |dp_j|)`` of the float64 p and dp, d LOGIT_SPACINGS spacings
+    of the row's largest logit that has a weight. Also returns that
+    logit's magnitude per row."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    logits = torch.cat(list(gf.logit_chunks(x64, b64["aq"], b64["bq"],
+                                            b64["const2"])))
+    big = torch.where(p64.T > 0, logits.abs(),
+                      torch.zeros_like(logits)).amax(dim=1)
+    d = LOGIT_SPACINGS * 2.0 ** -23 * big
+    total = dp64.abs().sum(dim=0)
+    return (torch.expm1(2 * d) * (dp64.abs() + torch.exp(2 * d) * p64 * total),
+            big)
+
+
+def control_pipeline(torch, x, t, bufs, logits="split", g_with_b=True):
+    """The split plain pipeline of the probe (unit gradient, p, dp, the
+    Hessian action) with one part changed, a control that the kernels'
+    bar must refuse: ``logits="bf16"`` takes the logits of single bf16
+    products (the hi parts of the pair products and of A alone),
+    ``g_with_b=False`` drops t . b_k from g_k. Float32, chunk by chunk;
+    p and dp (K, N) as the kernels'."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    pa = torch.as_tensor(gf.PAIR_A, device=x.device)
+    pb = torch.as_tensor(gf.PAIR_B, device=x.device)
+    units, ps, dps = [], [], []
+    for start in range(0, x.shape[0], gf.PLAIN_CHUNK):
+        xs = x[start:start + gf.PLAIN_CHUNK]
+        ts = t[start:start + gf.PLAIN_CHUNK]
+        if logits == "bf16":
+            u_hi, _ = gf.bf16_split(xs[:, pa] * xs[:, pb])
+            lg = (-0.5 * (u_hi @ bufs["pair_hi"]) + xs @ bufs["bq"]
+                  + bufs["const2"])
+        else:
+            lg = next(gf.split_logit_chunks(xs, bufs))
+        p = torch.softmax(lg, dim=1)
+        units.append(p @ bufs["b_rows"] - gf.mix_rows(p, xs, bufs))
+        cross = (ts[:, :, None] * xs[:, None, :]).reshape(len(xs), -1)
+        g = -(cross @ bufs["aq"])
+        if g_with_b:
+            g = g + ts @ bufs["bq"]
+        g = g - g.gather(1, p.argmax(dim=1, keepdim=True))
+        ps.append(p)
+        dps.append(p * (g - (p * g).sum(dim=1, keepdim=True)))
+    p, dp = torch.cat(ps).T.contiguous(), torch.cat(dps).T.contiguous()
+    return {"unit": torch.cat(units), "weights_p": p, "weights_dp": dp,
+            "hvp": gp.hvp_marg_mix_plain(x, t, p, dp, bufs)}
+
+
+def multi_weight_rows(torch, pipelines, x64, t64, b64, p64, dp64, big):
+    """On the rows where a pipeline has more than one nonzero weight, how
+    far each pipeline's (name -> (p, dp)) logit differences log(p_k /
+    p_ref) and g differences dp_k / p_k - dp_ref / p_ref (ref the float64
+    pipeline's heaviest component) lie from float64's: the largest over
+    the rows, the logits' in spacings (2^-23 of the row's largest
+    logit), g's relative; and the same on the row of the largest |dp|,
+    with its second weight, that component's g difference and the
+    largest |g_k| of the row."""
+    rows = torch.zeros(p64.shape[1], dtype=torch.bool, device=p64.device)
+    for p, _ in pipelines.values():
+        rows |= (p != 0).sum(dim=0) > 1
+    idx = rows.nonzero()[:, 0]
+    out = {"rows": int(idx.numel())}
+    if not out["rows"]:
+        return out
+    p64, dp64 = p64[:, idx], dp64[:, idx]
+    ref = p64.argmax(dim=0, keepdim=True)
+    spacing = 2.0 ** -23 * big[idx]
+    worst = int(dp64.abs().amax(dim=0).argmax())
+
+    def diffs(p, dp):
+        ld = p.log() - p.gather(0, ref).log()
+        gd = dp / p - (dp / p).gather(0, ref)
+        return ld, gd
+
+    ld64, gd64 = diffs(p64, dp64)
+    r = int(idx[worst])
+    g = t64[r] @ b64["bq"] - torch.outer(t64[r], x64[r]).reshape(-1) @ b64["aq"]
+    second = int(p64[:, worst].clone().scatter_(0, ref[:, worst], 0.0).argmax())
+    out["worst"] = {"row": r, "logit": float(big[idx][worst]),
+                    "max_dp": float(dp64[:, worst].abs().max()),
+                    "p_second": float(p64[second, worst]),
+                    "g_diff": float(gd64[second, worst].abs()),
+                    "g_abs": float(g[p64[:, worst] > 0].abs().max())}
+    for name, (p, dp) in pipelines.items():
+        p, dp = p[:, idx].double(), dp[:, idx].double()
+        ld, gd = diffs(p, dp)
+        m = (p > 0) & (p64 > 0)
+        m.scatter_(0, ref, False)
+        lerr = torch.where(m, (ld - ld64).abs() / spacing, 0.0)
+        gerr = torch.where(m, (gd - gd64).abs() / gd64.abs(), 0.0)
+        derr = (dp - dp64).abs()
+        out[name] = {"logit_spacings": float(lerr.max()),
+                     "g_rel": float(gerr.max()),
+                     "worst_logit_spacings": float(lerr[:, worst].max()),
+                     "worst_g_rel": float(gerr[:, worst].max()),
+                     "worst_dp_rel": float(derr[:, worst].max()
+                                           / out["worst"]["max_dp"])}
+    return out
+
+
+def probe_split_compare(torch, x, t, bufs):
+    """K8 split and K9a split (the marginalised probe's unit gradient and
+    first Hessian stage on the tensor cores) on rows ``x`` along tangents
+    ``t``, as the probe runs them, fed K5 lse split's logsumexp, against
+    the float64 pipeline (the exact logits, their logsumexp and the
+    float64 plain versions; K4 split's reference): every entry within
+    ``MARG_SPLIT_FACTOR`` times the split plain pipeline's max-abs error
+    (``score_split_marg_plain``, ``marg_unit_split_plain``,
+    ``hvp_marg_weights_split_plain``) plus ``MARG_ERR_FLOOR`` of the
+    max-abs, dp's also within its own float32 rounding
+    (:func:`dp_rounding`); K9b on K9a split's weights (the Hessian action)
+    the same. On every row whose weight sits on one component dp must be
+    exactly 0. Two controls must fail the bar: the logits of single bf16
+    products where the weights are mixed (at least 10 nonzero a row), and
+    g without t . b_k where a row has more than one weight and dp is not
+    0. Returns the numbers, K5 lse split's logsumexp and the one-hot rows;
+    raises AssertionError on a failure."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    lse_tc, _ = gp.gmm_score_rows_marg_tc_cuda(x, bufs)
+    pt, dpt = gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse_tc, bufs)
+    kernel = {"unit": gp.gmm_unit_marg_tc_cuda(x, lse_tc, bufs),
+              "weights_p": pt, "weights_dp": dpt,
+              "hvp": gp.gmm_hvp_marg_mix_cuda(x, t, pt, dpt, bufs)}
+    lse_sp, _ = gf.score_split_marg_plain(x, bufs)
+    ps, dps = gp.hvp_marg_weights_split_plain(x, t, lse_sp, bufs)
+    plain = {"unit": gf.marg_unit_split_plain(x, lse_sp, bufs),
+             "weights_p": ps, "weights_dp": dps,
+             "hvp": gp.hvp_marg_mix_plain(x, t, ps, dps, bufs)}
+    b64 = {name: v.double() for name, v in bufs.items()}
+    x64, t64 = x.double(), t.double()
+    lse64, _ = gp.score_rows_plain(x64, b64, True)
+    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+    ref = {"unit": gp.unit_marg_plain(x64, lse64, b64), "weights_p": p64,
+           "weights_dp": dp64,
+           "hvp": gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)}
+    floor, big = dp_rounding(torch, x64, b64, p64, dp64)
+    nnz, used = support(torch, x, lse_sp, bufs, "split")
+    n = x.shape[0]
+
+    def bars(got):
+        out = {}
+        for name, want in ref.items():
+            err = (got[name].double() - want).abs()
+            net = (err - floor).clamp(min=0.0) if name == "weights_dp" else err
+            err32 = float((plain[name].double() - want).abs().max())
+            scale = float(want.abs().max())
+            out[name] = {"err": float(err.max()), "net": float(net.max()),
+                         "split_plain": err32, "scale": scale,
+                         "limit": MARG_SPLIT_FACTOR * err32
+                         + MARG_ERR_FLOOR * scale}
+        return out
+
+    errs = bars(kernel)
+    controls = {"bf16_logits": bars(control_pipeline(torch, x, t, bufs,
+                                                     "bf16")),
+                "g_without_b": bars(control_pipeline(torch, x, t, bufs,
+                                                     g_with_b=False))}
+    rows = multi_weight_rows(torch, {"tc": (pt, dpt), "split_plain":
+                                     (ps, dps)}, x64, t64, b64, p64, dp64,
+                             big)
+    one_hot = (pt != 0).sum(dim=0) == 1
+    dp_nonzero = int((dpt[:, one_hot] != 0).sum())
+    lse_errs = {name: float((v.double() - lse64).abs().max())
+                for name, v in (("tc", lse_tc), ("split_plain", lse_sp))}
+    out = {"lse_against_float64": lse_errs, "errors_against_float64": errs,
+           "controls": controls, "multi_weight_rows": rows,
+           "one_hot_rows": int(one_hot.sum()), "nonzero_weights": nnz,
+           "components_used": used, "n_rows": n, "max_dp": float(dp64.abs().max()),
+           "dp_rounding_max": float(floor.max())}
+    refused = {name: any(e["net"] > e["limit"] for e in c.values())
+               for name, c in controls.items()}
+    faults = [f"{name} error {e['net']:.3g} against float64 above "
+              f"{e['limit']:.3g}" for name, e in errs.items()
+              if e["net"] > e["limit"]]
+    if dp_nonzero:
+        faults.append(f"{dp_nonzero} entries of K9a split's dp are not 0 "
+                      f"on the {out['one_hot_rows']} rows whose weight is "
+                      f"one-hot")
+    if not refused["bf16_logits"] and nnz >= 10 * n:
+        faults.append("the control with single bf16 logits passed the "
+                      "bar under mixed weights")
+    if not (refused["g_without_b"] or not rows["rows"]
+            or out["max_dp"] == 0.0):
+        faults.append("the control with g without t . b passed dp's bar")
+    check(not faults, "; ".join(faults) + " | " + describe_probe_split(out))
+    return out, lse_tc, one_hot
+
+
+def over_limit(e):
+    """An error's share of its limit (inf above a limit of 0)."""
+    if e["limit"] > 0:
+        return e["net"] / e["limit"]
+    return float("inf") if e["net"] > 0 else 0.0
+
+
+def describe_probe_split(out):
+    """One line of :func:`probe_split_compare`'s numbers."""
+    errs, rows = out["errors_against_float64"], out["multi_weight_rows"]
+    text = (f"K5 lse split against float64 {out['lse_against_float64']['tc']:.3g}"
+            f", split plain {out['lse_against_float64']['split_plain']:.3g}; "
+            f"against float64 (kernel, split plain, ratio, limit): "
+            + "; ".join(f"{name} {e['err']:.3g}, {e['split_plain']:.3g}, "
+                        f"{e['err'] / max(e['split_plain'], 1e-300):.3g}, "
+                        f"{e['limit']:.3g}" for name, e in errs.items())
+            + f" (dp net of its rounding {errs['weights_dp']['net']:.3g}, "
+            f"the rounding up to {out['dp_rounding_max']:.3g}); controls, "
+            f"largest error over its limit: "
+            + ", ".join(f"{name} "
+                        f"{max(over_limit(e) for e in c.values()):.3g}"
+                        for name, c in out["controls"].items())
+            + f"; max |dp| {out['max_dp']:.3g}, exactly 0 on the "
+            f"{out['one_hot_rows']} one-hot rows; nonzero weights "
+            f"{out['nonzero_weights']} of {out['n_rows']} rows; "
+            f"{rows['rows']} rows with more than one weight")
+    if rows["rows"]:
+        w = rows["worst"]
+        text += (f" (logit differences against float64 in spacings, g "
+                 f"differences relative: "
+                 + ", ".join(f"{name} {rows[name]['logit_spacings']:.3g}, "
+                             f"{rows[name]['g_rel']:.3g}"
+                             for name in ("tc", "split_plain"))
+                 + f"; on row {w['row']}, logit {w['logit']:.6g}, |dp| "
+                 f"{w['max_dp']:.3g}, second weight {w['p_second']:.3g}, its "
+                 f"g difference {w['g_diff']:.3g}, |g| up to "
+                 f"{w['g_abs']:.3g}: "
+                 + ", ".join(f"{name} {rows[name]['worst_logit_spacings']:.3g}"
+                             f", {rows[name]['worst_g_rel']:.3g}, dp "
+                             f"{rows[name]['worst_dp_rel']:.3g} of |dp|"
+                             for name in ("tc", "split_plain"))
+                 + ")")
+    return text
 
 
 def probe_split_checks(torch, device, label, img, bufs):
-    """K8 split and K9a split (the marginalised probe's unit gradient and
-    first Hessian stage on the tensor cores) on the probe's rows of one
-    image, as the probe runs them: fed K5 lse split's logsumexp, along a
-    random tangent, against the float64 pipeline (K4 split's reference:
-    the exact logits of the rows, their logsumexp and the float64 plain
-    versions), at most ``MARG_ERR_FACTOR`` times :func:`split_logit_ratio`
-    times the split plain pipeline's
-    (``score_split_marg_plain``, ``marg_unit_split_plain``,
-    ``hvp_marg_weights_split_plain``), plus ``MARG_ERR_FLOOR`` of the
-    max-abs; K9b on K9a split's weights (the Hessian action) the same.
-    dp's floor is taken of the scale of the g_k it is a difference of
-    (:func:`dp_scale`). On every row whose weight sits on one
-    component (nearly all under ``astro-snr-v1``) dp must be exactly 0.
-    Returns the numbers and the inputs, for timing."""
-    from jolideco_torch.ops import gmm_fused as gf
-    from jolideco_torch.ops import gmm_pallas as gp
+    """:func:`probe_split_compare` on the probe's rows of one image along
+    a random tangent. Returns the numbers and the inputs, for timing."""
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     x = normalised_rows(torch, torch.as_tensor(img, device=device),
                         ZERO_FLUX_SENTINEL)
     gen = torch.Generator(device=device).manual_seed(4)
     t = torch.randn(x.shape, generator=gen, device=device)
-    lse_tc, _ = gp.gmm_score_rows_marg_tc_cuda(x, bufs)
-    ut = gp.gmm_unit_marg_tc_cuda(x, lse_tc, bufs)
-    pt, dpt = gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse_tc, bufs)
-    ht = gp.gmm_hvp_marg_mix_cuda(x, t, pt, dpt, bufs)
-    max_tc, _ = gp.gmm_score_rows_tc_cuda(x, bufs)
-    lse_sp, _ = gf.score_split_marg_plain(x, bufs)
-    max_sp, _ = gf.score_split_plain(x, bufs)
-    us = gf.marg_unit_split_plain(x, lse_sp, bufs)
-    ps, dps = gp.hvp_marg_weights_split_plain(x, t, lse_sp, bufs)
-    hs = gp.hvp_marg_mix_plain(x, t, ps, dps, bufs)
-    b64 = {name: v.double() for name, v in bufs.items()}
-    x64, t64 = x.double(), t.double()
-    lse64, _ = gp.score_rows_plain(x64, b64, True)
-    max64, _ = gp.score_rows_plain(x64, b64)
-    u64 = gp.unit_marg_plain(x64, lse64, b64)
-    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
-    h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
-    torch.cuda.synchronize()
     tag = f"{label} marginalised probe split"
-    lse_errs = {name: float((v.double() - lse64).abs().max())
-                for name, v in (("tc", lse_tc), ("split_plain", lse_sp))}
-    max_errs = {name: float((v.double() - max64).abs().max())
-                for name, v in (("tc", max_tc), ("split_plain", max_sp))}
-    factor = MARG_ERR_FACTOR * split_logit_ratio(lse_errs, max_errs)
-    errs = {"unit": anchored(tag, "K8 split", ut, us, u64, factor),
-            "weights_p": anchored(tag, "K9a split p", pt, ps, p64, factor),
-            "weights_dp": anchored(tag, "K9a split dp", dpt, dps, dp64,
-                                   factor, dp_scale(torch, u64, t64)),
-            "hvp": anchored(tag, "K9 (K9a split, K9b)", ht, hs, h64,
-                            factor)}
-    one_hot = (pt != 0).sum(dim=0) == 1
-    n_one_hot = int(one_hot.sum())
-    dp_nonzero = int((dpt[:, one_hot] != 0).sum())
-    check(dp_nonzero == 0, f"{tag}: {dp_nonzero} entries of K9a split's dp "
-          f"are not 0 on the {n_one_hot} rows whose weight is one-hot")
-    nnz, used = support(torch, x, lse_sp, bufs, "split")
-    n = x.shape[0]
-    print(f"phase 2 {tag} ({n} rows): K5 lse split against float64 "
-          f"{lse_errs['tc']:.3g}, split plain {lse_errs['split_plain']:.3g}, "
-          f"K5 split {max_errs['tc']:.3g}, split plain "
-          f"{max_errs['split_plain']:.3g}; "
-          f"against float64 (kernel, split plain, scale; limit {factor:.3g} "
-          f"x split plain + {MARG_ERR_FLOOR} x scale): "
-          + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
-                      for name, e in errs.items())
-          + f"; max |dp| {float(dp64.abs().max()):.3g}, exactly 0 on the "
-          f"{n_one_hot} one-hot rows; nonzero weights {nnz} of {n} x "
-          f"{bufs['rec'].shape[0]}")
-    out = {"lse_against_float64": lse_errs,
-           "maxima_against_float64": max_errs, "factor": factor,
-           "errors_against_float64": {
-               name: dict(zip(("tc", "split_plain", "scale"), e))
-               for name, e in errs.items()},
-           "one_hot_rows": n_one_hot, "nonzero_weights": nnz, "n_rows": n}
-    inputs = {"x": x, "t": t, "lse": lse_tc, "nnz": nnz, "used": used}
-    return out, inputs
+    try:
+        out, lse_tc, _ = probe_split_compare(torch, x, t, bufs)
+    except AssertionError as exc:
+        raise AssertionError(f"{tag}: {exc}") from None
+    print(f"phase 2 {tag} ({x.shape[0]} rows): {describe_probe_split(out)}")
+    return out, {"x": x, "t": t, "lse": lse_tc,
+                 "nnz": out["nonzero_weights"],
+                 "used": out["components_used"]}
 
 
 def probe_split_timing(torch, bufs, s, plain=True):
@@ -2528,7 +2713,7 @@ def main():
          mtiming["unit_plain_ms"], mbounds["unit"]),
         ("gmm_unit_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_pallas.py:384", marg_probe["high"],
-         psmain["unit"]["tc"], pstiming["unit_ms"],
+         psmain["unit"]["err"], pstiming["unit_ms"],
          pstiming["unit_plain_ms"], psbounds["unit"]),
         ("gmm_hvp_marg_weights", patch_src,
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["highest"],
@@ -2537,7 +2722,7 @@ def main():
          mbounds["weights"]),
         ("gmm_hvp_marg_weights_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["high"],
-         max(psmain["weights_p"]["tc"], psmain["weights_dp"]["tc"]),
+         max(psmain["weights_p"]["err"], psmain["weights_dp"]["err"]),
          pstiming["weights_ms"], pstiming["weights_plain_ms"],
          psbounds["weights"]),
         ("gmm_hvp_marg_mix", patch_src, "jolideco_tpu/ops/gmm_pallas.py:449",
