@@ -1165,7 +1165,7 @@ def split_lse_ratio(errs):
 # test_marginalise_split_probe_kernels_match_float64 prints them). The
 # factor is fixed above the largest reading. The control of
 # probe_split_compare, the same pipeline with the logits of single bf16
-# products, must fail it wherever the weights are mixed: there it lay 22
+# products, must fail it wherever the weights are mixed: there it lay 23
 # to 39 times above it.
 MARG_SPLIT_FACTOR = 16.0
 # dp_k = p_k (g_k - gbar) also inherits, entry by entry, the float32
