@@ -162,6 +162,15 @@ PFFT_SPLIT_SHARE = 1e-4
 # "split" mode against the float32 FFT (jolideco_tpu/ops/pallas_fft.py:
 # 86-102), printed beside the split pipeline's
 JAX_SPLIT_ERR = 3.1e-5
+# K3's "bf16" kernels against the float64 plain version: within the
+# anchored bar (MARG_ERR_FACTOR x the bf16 plain version's error plus
+# MARG_ERR_FLOOR of the max-abs), the pipeline also within the JAX
+# package's documented error of the mode, 1.3e-2 of the max-abs; and at
+# least BF16_HONOURED x the bf16 plain version's error, so that a kernel
+# of another mode (the split pipeline, the control, lies some 100 times
+# closer to float64) is refused: the kernels round the same bf16
+# operands as the plain version, so their errors nearly coincide.
+PFFT_BF16_SHARE, BF16_HONOURED = 1.3e-2, 0.5
 # K1's "split" kernel against the split plain version, which sums the
 # same bf16 products with cuBLAS. The tensor cores' float32 sums are not
 # IEEE sums: at 1024^2 on an H100 the shipped kernel's values lie up to
@@ -289,15 +298,19 @@ def phase_build():
 
 def ptxas_summary(text):
     """Per kernel of ``nvcc -Xptxas -v`` output: its registers, shared
-    memory and spills, under a readable name (``gmm_fwd_kernel<true>``)."""
+    memory and spills, under a readable name (``gmm_fwd_kernel<true>``,
+    ``gmm_fwd_tc_kernel<false, 1>``)."""
     out, kernel = [], None
     for line in text.splitlines():
         if "Function properties for" in line:
-            m = re.search(r"\d+((?:gmm|pfft)_\w+?_kernel)(?:ILb([01])E)?",
+            m = re.search(r"\d+((?:gmm|pfft)_\w+?_kernel)((?:I|L[bi]\d+E)*)",
                           line)
             kernel = m.group(1) if m else line.split()[-1]
-            if m and m.group(2) is not None:
-                kernel += "<true>" if m.group(2) == "1" else "<false>"
+            args = re.findall(r"L([bi])(\d+)E", m.group(2)) if m else []
+            if args:
+                kernel += "<" + ", ".join(
+                    ("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in args) + ">"
         elif kernel and ("spill" in line or "registers" in line):
             out.append(f"{kernel}: {line.split(':', 1)[-1].strip()}")
     return out
@@ -310,10 +323,15 @@ def bound(flop, nbytes, peak=PEAK_FP32_FLOPS):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def split_bound(flop, nbytes):
+def split_bound(flop, nbytes, products=3):
     """:func:`bound` of the same work under the dial's ``"split"`` mode:
-    three bf16 products for each float32 one, at the bf16 peak."""
-    return bound(3 * flop, nbytes, PEAK_BF16_FLOPS)
+    three bf16 products for each float32 one, at the bf16 peak; with
+    ``products=1``, under ``"bf16"`` (one product each)."""
+    return bound(products * flop, nbytes, PEAK_BF16_FLOPS)
+
+
+# bf16 products a k16 step of the tensor-core kernels, by mode
+PRODUCTS = {"split": 3, "bf16": 1}
 
 
 def phase_kernels(torch, device):
@@ -419,8 +437,10 @@ def phase_kernels(torch, device):
               f"argmax flips {flips}/{n_valid}; "
               f"grad max abs err {grad_err:.3g} (max {grad_scale:.3g}), "
               "two K2 calls bitwise equal")
-        out[label]["split"] = k1_split_checks(
-            torch, label, image, bufs, (vk, ak, valk, xk), (vp, ap, valp, xp))
+        for mode in ("split", "bf16"):
+            out[label][mode] = k1_split_checks(
+                torch, label, image, bufs, (vk, ak, valk, xk),
+                (vp, ap, valp, xp), mode=mode)
     # K1's "split" kernel past one tile of components: K = 256 on the
     # ragged image, and under a GMM whose logits are much cancelled sums
     # (no relative bar)
@@ -429,10 +449,13 @@ def phase_kernels(torch, device):
     for key, gmm, relative in (("wide", wide_gmm(), True),
                                ("cancelled", cancelled_gmm(), False)):
         wbufs = gmm.kernel_buffers(device)
-        out[key] = k1_split_checks(
-            torch, f"{label} K=256 {key}", image, wbufs,
-            gf.gmm_fused_fwd_cuda(image, wbufs, stride, sentinel),
-            gf.fused_forward_plain(image, wbufs, stride, sentinel), relative)
+        fp32 = (gf.gmm_fused_fwd_cuda(image, wbufs, stride, sentinel),
+                gf.fused_forward_plain(image, wbufs, stride, sentinel))
+        out[key] = k1_split_checks(torch, f"{label} K=256 {key}", image,
+                                   wbufs, *fp32, relative)
+        out[f"{key}_bf16"] = k1_split_checks(
+            torch, f"{label} K=256 {key}", image, wbufs, *fp32, relative,
+            mode="bf16")
     t = out["timing"]
     print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
           f"plain {t['fwd_plain_ms']:.3f} ms; bwd {t['bwd_ms']:.4f} ms a "
@@ -442,6 +465,8 @@ def phase_kernels(torch, device):
     out["marg"] = phase_marg_kernels(torch, device, bufs, cases)
     out["marg_split"] = phase_marg_split_kernels(torch, device, bufs, cases,
                                                  out["marg"])
+    out["marg_bf16"] = phase_marg_split_kernels(torch, device, bufs, cases,
+                                                out["marg"], "bf16")
     out["pfft"] = phase_pfft_kernels(torch, device)
     return out
 
@@ -462,14 +487,13 @@ def max_logits64(torch, xtn, bufs, marginalize=False):
     return torch.cat(values), torch.cat(argmax)
 
 
-def exact_split_values(torch, xtn, bufs, argmax, marginalize=False):
-    """Float64 sums of the ``"split"`` mode's bf16 products (the logits
-    both the tensor-core kernels and the split plain version round) of
-    rows ``xtn`` at the components ``argmax``, and the sums of the
-    products' magnitudes (what a float32 sum's rounding scales with).
-    With ``marginalize``, the logsumexp of those exact logits, and the
-    magnitudes averaged by their softmax weights (the logsumexp's
-    derivative in each logit)."""
+def exact_chunks(torch, xtn, bufs, mode="split"):
+    """Per chunk of 4096 rows of ``xtn`` (float32), ``(slice, logits,
+    size)``: the float64 sums of the bf16 products of ``mode`` (the
+    logits both the tensor-core kernels and the plain version of the mode
+    round: the pair products formed in float32 and split, or rounded, to
+    bf16), and the sums of the products' magnitudes (what a float32
+    sum's rounding scales with)."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops.linalg import bf16_split
 
@@ -477,17 +501,31 @@ def exact_split_values(torch, xtn, bufs, argmax, marginalize=False):
     pb = torch.as_tensor(gf.PAIR_B, device=xtn.device)
     a_hi, a_lo = bufs["pair_hi"].double(), bufs["pair_lo"].double()
     bq, c2 = bufs["bq"].double(), bufs["const2"].double()
-    out, mag = [], []
     for start in range(0, xtn.shape[0], 4096):
-        x = xtn[start:start + 4096].double()
-        k = argmax[start:start + 4096].long()[:, None]
-        u_hi, u_lo = (p.double()
-                      for p in bf16_split(xtn[start:start + 4096][:, pa]
-                                          * xtn[start:start + 4096][:, pb]))
-        logits = -0.5 * (u_hi @ a_hi + u_hi @ a_lo + u_lo @ a_hi) + x @ bq + c2
-        size = (0.5 * (u_hi.abs() @ (a_hi.abs() + a_lo.abs())
-                       + u_lo.abs() @ a_hi.abs())
-                + x.abs() @ bq.abs() + c2.abs())
+        sl = slice(start, start + 4096)
+        x = xtn[sl].double()
+        u_hi, u_lo = (p.double() for p in bf16_split(xtn[sl][:, pa]
+                                                     * xtn[sl][:, pb]))
+        if mode == "split":
+            quad = u_hi @ a_hi + u_hi @ a_lo + u_lo @ a_hi
+            qsize = (u_hi.abs() @ (a_hi.abs() + a_lo.abs())
+                     + u_lo.abs() @ a_hi.abs())
+        else:
+            quad, qsize = u_hi @ a_hi, u_hi.abs() @ a_hi.abs()
+        yield (sl, -0.5 * quad + x @ bq + c2,
+               0.5 * qsize + x.abs() @ bq.abs() + c2.abs())
+
+
+def exact_split_values(torch, xtn, bufs, argmax, marginalize=False,
+                       mode="split"):
+    """The exact logits of ``mode`` (:func:`exact_chunks`) of rows
+    ``xtn`` at the components ``argmax``, and the sums of the products'
+    magnitudes. With ``marginalize``, the logsumexp of those exact
+    logits, and the magnitudes averaged by their softmax weights (the
+    logsumexp's derivative in each logit)."""
+    out, mag = [], []
+    for sl, logits, size in exact_chunks(torch, xtn, bufs, mode):
+        k = argmax[sl].long()[:, None]
         if marginalize:
             out.append(torch.logsumexp(logits, dim=1))
             mag.append((torch.softmax(logits, dim=1) * size).sum(dim=1))
@@ -498,19 +536,23 @@ def exact_split_values(torch, xtn, bufs, argmax, marginalize=False):
 
 
 def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
-                       fp32_plain, relative=True, marginalize=False):
-    """A tensor-core scorer of the ``"split"`` mode (K1 split, K5 split)
-    on the normalised rows ``rows``: its ``(values, argmax)`` ``tc``
-    against the split plain version's (values rtol ``K1_SPLIT_RTOL``,
-    argmax flips at most ``K1_SPLIT_FLIPS`` of the rows), its mean signed
-    relative difference from the exact sum of its products
-    (``K1_SPLIT_BIAS``) and its largest difference over the products'
-    magnitudes (``K1_SPLIT_SUM_ERR``), then the errors of both and of the
-    float32 kernel and plain version against the logits in float64 (the
-    maximum, or with ``marginalize`` the logsumexp). Without ``relative``
-    the two bars relative to the values are printed, not held. Past one
-    tile of components (208), both tiles must hold winning rows.
-    Returns the numbers and the line to print."""
+                       fp32_plain, relative=True, marginalize=False,
+                       mode="split", control=None):
+    """A tensor-core scorer of the ``"split"`` mode (K1 split, K5 split),
+    or of ``"bf16"`` with ``mode``, on the normalised rows ``rows``: its
+    ``(values, argmax)`` ``tc`` against the plain version's of its mode
+    (``split_plain``; values rtol ``K1_SPLIT_RTOL``, argmax flips at most
+    ``K1_SPLIT_FLIPS`` of the rows), its mean signed relative difference
+    from the exact sum of its products (``K1_SPLIT_BIAS``) and its
+    largest difference over the products' magnitudes
+    (``K1_SPLIT_SUM_ERR``), then the errors of both and of the float32
+    kernel and plain version against the logits in float64 (the maximum,
+    or with ``marginalize`` the logsumexp). Without ``relative`` the two
+    bars relative to the values are printed, not held. Past one tile of
+    components (208), both tiles must hold winning rows. ``control``, the
+    ``(values, argmax)`` of another mode's plain version (the split ones
+    where the kernel is ``"bf16"``'s), must fail those bars. Returns the
+    numbers and the line to print."""
     from jolideco_torch.ops import gmm_fused as gf
 
     (vt, at), (vs, as_) = tc, split_plain
@@ -527,7 +569,8 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
         check(0 < tile1 < n_rows, f"{tag}: {tile1} of {n_rows} rows won in "
               f"the second tile of components")
         tag += f" ({tile1} of {n_rows} rows won in the second tile)"
-    exact, mag = exact_split_values(torch, rows, bufs, at, marginalize)
+    exact, mag = exact_split_values(torch, rows, bufs, at, marginalize,
+                                    mode)
     bias = {name: float(((v.double() - exact) / exact.abs()).mean())
             for name, v in (("tc", vt), ("split_plain", vs))}
     # the rounding of the sums against the size of what they sum
@@ -552,6 +595,23 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
     limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
     check(errs["tc"] <= limit, f"{tag}: error against float64 "
           f"{errs['tc']:.3g} above {limit:.3g}")
+    if control is not None:
+        # the other mode's values in place of the kernel's must fail the
+        # bars that the kernel passed
+        vc = control[0]
+        ctrl = {"value_max_rel_err": float(((vc - vs).abs() / vs.abs()).max()),
+                "mean_rel_diff_from_exact": float(
+                    ((vc.double() - exact) / exact.abs()).mean()),
+                "max_diff_from_exact_over_magnitudes": float(
+                    ((vc.double() - exact).abs() / mag).max())}
+        refused = (ctrl["max_diff_from_exact_over_magnitudes"]
+                   > K1_SPLIT_SUM_ERR
+                   or (relative and (
+                       ctrl["value_max_rel_err"] > K1_SPLIT_RTOL
+                       or abs(ctrl["mean_rel_diff_from_exact"])
+                       > K1_SPLIT_BIAS)))
+        check(refused, f"{tag}: the control (the other mode's values) "
+              f"passed the bars: {ctrl}")
     out = {"value_max_rel_err": rel, "argmax_flips": flips,
            "mean_rel_diff_from_exact": bias,
            "max_diff_from_exact_over_magnitudes": sum_err,
@@ -559,12 +619,14 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
            "value_max_abs_err": float((vt - vs).abs().max()),
            "errors_against_float64": errs, "max_abs": scale,
            "argmax_flips_against_float64": flips64}
-    line = (f"phase 2 {tag}: against the split plain version values max rel "
+    if control is not None:
+        out["control"] = ctrl
+    line = (f"phase 2 {tag}: against the {mode} plain version values max rel "
             f"{rel:.3g} (limit {K1_SPLIT_RTOL if relative else None}), "
             f"argmax flips {flips}/{n_rows}; mean signed rel "
             f"difference from the exact sum of the products tc "
             f"{bias['tc']:.3g} (limit {K1_SPLIT_BIAS if relative else None}), "
-            f"split plain "
+            f"{mode} plain "
             f"{bias['split_plain']:.3g}; largest difference from it over "
             f"the sum of the products' magnitudes tc {sum_err['tc']:.3g} "
             f"(limit {K1_SPLIT_SUM_ERR}), split plain "
@@ -575,60 +637,85 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
             f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
             f"float64: tc {flips64['tc']}, split plain "
             f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
+    if control is not None:
+        line += (f"; control (split plain values) refused: max rel "
+                 f"{ctrl['value_max_rel_err']:.3g}, mean rel diff "
+                 f"{ctrl['mean_rel_diff_from_exact']:.3g}, over magnitudes "
+                 f"{ctrl['max_diff_from_exact_over_magnitudes']:.3g}")
     return out, line
 
 
+# K1's tensor-core kernel (MAP) under each bf16 mode
+K1_TC = {"split": "gmm_fused_fwd_tc_cuda", "bf16": "gmm_fused_fwd_bf16_cuda"}
+
+
 def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
-                    relative=True):
-    """K1's ``"split"`` kernel (tensor cores) on one image: ``valid`` and
-    the normalised patches against the split plain version's, then
-    :func:`split_value_checks` at the valid patches; at the main path's
-    shape, times and bound."""
+                    relative=True, mode="split"):
+    """K1's ``"split"`` kernel (tensor cores), or its ``"bf16"`` kernel
+    with ``mode``, on one image: ``valid`` and the normalised patches
+    against the plain version's of the mode, then
+    :func:`split_value_checks` at the valid patches (under ``"bf16"`` with
+    the split plain values as the control); at the main path's shape,
+    times and bound."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
     from jolideco_torch.utils.cuda_build import BUILD_INFO
 
     stride, sentinel = 4, ZERO_FLUX_SENTINEL
-    vt, at, valt, xt = gf.gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel)
+    kernel = getattr(gf, K1_TC[mode])
+    vt, at, valt, xt = kernel(image, bufs, stride, sentinel)
     vs, as_, vals, xs = gf.fused_forward_plain(image, bufs, stride, sentinel,
-                                               mode="split")
+                                               mode=mode)
+    control = None
+    if mode == "bf16":
+        vc, ac, _, _ = gf.fused_forward_plain(image, bufs, stride, sentinel,
+                                              mode="split")
     vk, ak, valk, _ = fp32
     vp, ap, valp, xp = fp32_plain
     torch.cuda.synchronize()
-    tag = f"{label} K1 split"
+    tag = f"{label} K1 {mode}"
     check(torch.equal(valt, valp) and torch.equal(vals, valp),
           f"{tag}: valid differs")
     m = valp > 0.5
     xtn_err = float((xt - xs).abs().max())
     check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
           f"{xtn_err:.3g}")
+    if mode == "bf16":
+        control = (vc[m], ac[m])
     out, line = split_value_checks(
         torch, tag, xs[m], bufs, (vt[m], at[m]), (vs[m], as_[m]),
-        (vk[m], ak[m]), (vp[m], ap[m]), relative)
+        (vk[m], ak[m]), (vp[m], ap[m]), relative, mode=mode, control=control)
     out["xtn_max_abs_err"] = xtn_err
     line += f"; xtn {xtn_err:.3g}"
     if label == MAIN:
         n, k = vs.numel(), bufs["rec"].shape[0]
-        out["ms"] = cuda_ms(torch, lambda: gf.gmm_fused_fwd_tc_cuda(
+        out["ms"] = cuda_ms(torch, lambda: kernel(
             image, bufs, stride, sentinel), 10)
         out["plain_ms"] = cuda_ms(torch, lambda: gf.fused_forward_plain(
-            image, bufs, stride, sentinel, mode="split"), 3)
-        # three bf16 products of every patch against every component (the
-        # 2,080 pairs and b . x) at the bf16 peak; reads the image and
-        # the split pairs, b and c, writes values, argmax, valid and xtn
+            image, bufs, stride, sentinel, mode=mode), 3)
+        # three bf16 products (one under "bf16") of every patch against
+        # every component (the 2,080 pairs and b . x) at the bf16 peak;
+        # reads the image and the pairs' bf16 planes, b and c, writes
+        # values, argmax, valid and xtn
         out["bound"] = split_bound(
             2.0 * n * k * (2080 + 64),
             4 * (image.numel() + n * (3 + 64) + bufs["bc"].numel())
-            + 2 * bufs["pair_tc"].numel())
+            + pair_bytes(bufs, mode), PRODUCTS[mode])
         out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_fused_tc"]["ptxas"])
-        line += (f"; {out['ms']:.3f} ms per call (split plain "
-                 f"{out['plain_ms']:.3f} ms), split bound "
+        line += (f"; {out['ms']:.3f} ms per call ({mode} plain "
+                 f"{out['plain_ms']:.3f} ms), {mode} bound "
                  f"{out['bound']['bound_ms']:.4f} ms "
                  f"({out['bound']['bound_by']}, "
                  f"{out['bound']['bound_ms'] / out['ms']:.1%}); "
                  + " | ".join(out["ptxas"]))
     print(line)
     return out
+
+
+def pair_bytes(bufs, mode):
+    """Bytes of ``A``'s bf16 planes that a tensor-core kernel of ``mode``
+    reads: hi and lo under ``"split"``, hi under ``"bf16"``."""
+    return 2 * bufs["pair_tc"].numel() // (2 if mode == "bf16" else 1)
 
 
 def normalised_rows(torch, image, sentinel):
@@ -646,26 +733,33 @@ def normalised_rows(torch, image, sentinel):
 ROW_TILE = 128
 
 
-def k5_split_checks(torch, label, x, bufs, relative=True):
-    """K5 split (tensor cores), both instances, on rows ``x``:
-    :func:`split_value_checks` against the split plain versions, beside
-    the float32 K5 and its plain version."""
+# K5's tensor-core kernels by (mode, marginalize)
+K5_TC = {("split", False): "gmm_score_rows_tc_cuda",
+         ("split", True): "gmm_score_rows_marg_tc_cuda",
+         ("bf16", False): "gmm_score_rows_bf16_cuda",
+         ("bf16", True): "gmm_score_rows_marg_bf16_cuda"}
+
+
+def k5_split_checks(torch, label, x, bufs, relative=True, mode="split"):
+    """K5 split (tensor cores), or K5 bf16 with ``mode``, both instances,
+    on rows ``x``: :func:`split_value_checks` against the plain versions
+    of the mode (under ``"bf16"`` with the split plain values as the
+    control), beside the float32 K5 and its plain version."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
     out = {}
-    for marginalize, plain, name in (
-            (False, gf.score_split_plain, "map"),
-            (True, gf.score_split_marg_plain, "lse")):
-        tc = (gp.gmm_score_rows_marg_tc_cuda if marginalize
-              else gp.gmm_score_rows_tc_cuda)(x, bufs)
+    for marginalize, name in ((False, "map"), (True, "lse")):
+        tc = getattr(gp, K5_TC[mode, marginalize])(x, bufs)
         fp32 = gp.gmm_score_rows_cuda(x, bufs, marginalize)
-        split_plain, fp32_plain = (plain(x, bufs),
-                                   gp.score_rows_plain(x, bufs, marginalize))
+        split_plain = gf.PLAIN_SCORES[mode, marginalize](x, bufs)
+        fp32_plain = gp.score_rows_plain(x, bufs, marginalize)
+        control = (gf.PLAIN_SCORES["split", marginalize](x, bufs)
+                   if mode == "bf16" else None)
         torch.cuda.synchronize()
         out[name], line = split_value_checks(
-            torch, f"{label} K5 split {name}", x, bufs, tc, split_plain,
-            fp32, fp32_plain, relative, marginalize)
+            torch, f"{label} K5 {mode} {name}", x, bufs, tc, split_plain,
+            fp32, fp32_plain, relative, marginalize, mode, control)
         print(line)
     return out
 
@@ -773,6 +867,7 @@ def phase_patch_kernels(torch, device, bufs, cases):
               f"{errs['score_marg1'][1]:.3g}), argmax flips "
               f"{errs['score_marg0'][2]}; " + row_map_line(case))
         errs["split"] = k5_split_checks(torch, label, x, bufs)
+        errs["bf16"] = k5_split_checks(torch, label, x, bufs, mode="bf16")
         if label != MAIN:
             continue
         k = bufs["rec"].shape[0]
@@ -793,6 +888,14 @@ def phase_patch_kernels(torch, device, bufs, cases):
                 x, bufs), 3),
             "split_lse_plain_ms": cuda_ms(
                 torch, lambda: gf.score_split_marg_plain(x, bufs), 3),
+            "bf16_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_bf16_cuda(
+                x, bufs), 10),
+            "bf16_lse_ms": cuda_ms(
+                torch, lambda: gp.gmm_score_rows_marg_bf16_cuda(x, bufs), 10),
+            "bf16_plain_ms": cuda_ms(torch, lambda: gf.score_bf16_plain(
+                x, bufs), 3),
+            "bf16_lse_plain_ms": cuda_ms(
+                torch, lambda: gf.score_bf16_marg_plain(x, bufs), 3),
             **{f"{name}_{key}": case[name][key] for name in ("unit", "hvp")
                for key in ("ms", "plain_ms")},
         }
@@ -807,18 +910,28 @@ def phase_patch_kernels(torch, device, bufs, cases):
             "score_split": split_bound(
                 work[0], 4 * (n * 64 + 2 * n + bufs["bc"].numel())
                 + 2 * bufs["pair_tc"].numel()),
+            # one product under "bf16", reading the hi planes
+            "score_bf16": split_bound(
+                work[0], 4 * (n * 64 + 2 * n + bufs["bc"].numel())
+                + pair_bytes(bufs, "bf16"), 1),
             "unit": {key: case["unit"][key]
                      for key in ("bound_ms", "bound_by")},
             "hvp": {key: case["hvp"][key]
                     for key in ("bound_ms", "bound_by")},
         }
         tm, sb = out["timing"], out["bounds"]["score_split"]
+        bb = out["bounds"]["score_bf16"]
         print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
               f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
               f"K5 split {tm['split_ms']:.3f} ms, logsumexp "
               f"{tm['split_lse_ms']:.3f} (split plain "
               f"{tm['split_plain_ms']:.3f}; split bound "
               f"{sb['bound_ms']:.4f} ms, {sb['bound_ms'] / tm['split_ms']:.1%})"
+              f"; K5 bf16 {tm['bf16_ms']:.3f} ms, logsumexp "
+              f"{tm['bf16_lse_ms']:.3f} (bf16 plain "
+              f"{tm['bf16_plain_ms']:.3f}, {tm['bf16_lse_plain_ms']:.3f}; "
+              f"one-product bound {bb['bound_ms']:.4f} ms, "
+              f"{bb['bound_ms'] / tm['bf16_ms']:.1%})"
               f"; K6 plain {tm['unit_plain_ms']:.3f} ms, K7 plain "
               f"{tm['hvp_plain_ms']:.3f} ms")
     # K5 split past one tile of components: K = 256 on the ragged rows,
@@ -827,9 +940,12 @@ def phase_patch_kernels(torch, device, bufs, cases):
     label = "{}x{}".format(*RAGGED)
     for key, gmm, relative in (("wide", wide_gmm(), True),
                                ("cancelled", cancelled_gmm(), False)):
+        wbufs = gmm.kernel_buffers(device)
         out[key] = k5_split_checks(torch, f"{label} K=256 {key}",
-                                   rows[label], gmm.kernel_buffers(device),
-                                   relative)
+                                   rows[label], wbufs, relative)
+        out[f"{key}_bf16"] = k5_split_checks(
+            torch, f"{label} K=256 {key}", rows[label], wbufs, relative,
+            mode="bf16")
     return out
 
 
@@ -1191,26 +1307,73 @@ MARG_SPLIT_FACTOR = 16.0
 LOGIT_SPACINGS = 1.0
 
 
-def marg_split_pipelines(torch, image, bufs, dv):
-    """The marginalised scorer in the ``"split"`` mode as training runs
-    it, forward then backward with cotangents ``dv``: by the tensor-core
-    kernels (K1 lse split, whose logsumexp K4 split takes) and by the
-    split plain versions; and the float64 pipeline, the exact logits of
-    the split plain version's patches (their logsumexp, argmax and the
-    float64 marginalise backward)."""
+# the marginalised prior's tensor-core kernels (K1 lse, K4) by mode
+MARG_TC = {"split": ("gmm_fused_fwd_marg_tc_cuda", "gmm_fused_bwd_marg_tc_cuda"),
+           "bf16": ("gmm_fused_fwd_marg_bf16_cuda",
+                    "gmm_fused_bwd_marg_bf16_cuda")}
+
+
+def bf16_reference(torch, x, bufs, t=None):
+    """The float64 pipeline of the ``"bf16"`` mode on float32 rows ``x``:
+    the exact sums of the same bf16-rounded operands
+    (:func:`exact_chunks`), their logsumexp and argmax, the softmax
+    weights and the unit gradient; with tangents ``t`` also p and dp (K,
+    N; g taken against the heaviest component's, as the kernels take it)
+    and the Hessian action (the float64 K9b)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    b64 = {name: v.double() for name, v in bufs.items()}
+    out = {"lse": [], "argmax": [], "unit": [], "p": [], "dp": []}
+    for sl, logits, _ in exact_chunks(torch, x, bufs, "bf16"):
+        x64 = x[sl].double()
+        p = torch.softmax(logits, dim=1)
+        out["lse"].append(torch.logsumexp(logits, dim=1))
+        out["argmax"].append(logits.argmax(dim=1).to(torch.int32))
+        out["unit"].append(p @ b64["b_rows"] - gf.mix_rows(p, x64, b64))
+        if t is not None:
+            t64 = t[sl].double()
+            cross = (t64[:, :, None] * x64[:, None, :]).reshape(len(x64), -1)
+            g = t64 @ b64["bq"] - cross @ b64["aq"]
+            g = g - g.gather(1, p.argmax(dim=1, keepdim=True))
+            out["p"].append(p)
+            out["dp"].append(p * (g - (p * g).sum(dim=1, keepdim=True)))
+    ref = {name: torch.cat(v) for name, v in out.items() if v}
+    if t is not None:
+        ref["p"], ref["dp"] = (ref[name].T.contiguous() for name in ("p", "dp"))
+        ref["hvp"] = gp.hvp_marg_mix_plain(x.double(), t.double(), ref["p"],
+                                           ref["dp"], b64)
+    return ref
+
+
+def marg_split_pipelines(torch, image, bufs, dv, mode="split"):
+    """The marginalised scorer in the ``"split"`` mode (or ``mode``) as
+    training runs it, forward then backward with cotangents ``dv``: by
+    the tensor-core kernels (K1 lse split, whose logsumexp K4 split takes)
+    and by the plain versions of the mode; and the float64 pipeline, the
+    exact logits of the plain version's patches (their logsumexp, argmax
+    and the float64 marginalise backward): under ``"split"`` the logits of
+    the float32 buffers, under ``"bf16"`` those of the same bf16-rounded
+    operands (:func:`bf16_reference`)."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     stride, sentinel, shape = 4, ZERO_FLUX_SENTINEL, tuple(image.shape)
-    tc = gf.gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel)
-    g_tc = gf.gmm_fused_bwd_marg_tc_cuda(tc[3], tc[0], tc[2], dv, bufs,
-                                         shape, stride)
+    fwd, bwd = (getattr(gf, name) for name in MARG_TC[mode])
+    tc = fwd(image, bufs, stride, sentinel)
+    g_tc = bwd(tc[3], tc[0], tc[2], dv, bufs, shape, stride)
     sp = gf.fused_forward_plain(image, bufs, stride, sentinel, True,
-                                mode="split")
+                                mode=mode)
     g_sp = gf.fused_backward_marg_plain(sp[3], sp[0], sp[2], dv, bufs, shape,
-                                        stride, mode="split")
+                                        stride, mode=mode)
     b64 = {name: t.double() for name, t in bufs.items()}
     x64 = sp[3].double()
+    if mode == "bf16":
+        ref = bf16_reference(torch, sp[3], bufs)
+        lse64, a64 = ref["lse"], ref["argmax"]
+        g64 = gf._patches_to_image(ref["unit"] * dv.double()[:, None],
+                                   sp[2].double(), shape, stride)
+        return tc, g_tc, sp, g_sp, (lse64, a64, g64)
     lse64, a64 = gf.score_plain(x64, b64["aq"], b64["bq"], b64["const2"],
                                 True)
     g64 = gf.fused_backward_marg_plain(x64, lse64, sp[2].double(),
@@ -1218,29 +1381,33 @@ def marg_split_pipelines(torch, image, bufs, dv):
     return tc, g_tc, sp, g_sp, (lse64, a64, g64)
 
 
-def marg_split_checks(torch, device, label, img, bufs):
-    """K1 lse split and K4 split (tensor cores) on one image: the
-    logsumexp against the split plain version (values rtol
-    ``K1_SPLIT_RTOL``, argmax flips at most ``K1_SPLIT_FLIPS`` of the
-    valid patches, patches to 1e-5) and against float64 (at most
-    ``MARG_ERR_FACTOR`` x the split plain version's error plus
-    ``MARG_ERR_FLOOR`` of the max-abs); the image gradient of the
-    pipeline K1 lse split -> K4 split against the float64 pipeline, the
-    same bar against the split plain pipeline's error, its factor scaled
-    by :func:`split_lse_ratio`. Returns the numbers and the inputs, for
-    timing."""
-    from jolideco_torch.ops.gmm_fused import fused_patch_count
+def marg_split_checks(torch, device, label, img, bufs, mode="split"):
+    """K1 lse split and K4 split (tensor cores), or their ``"bf16"``
+    kernels with ``mode``, on one image: the logsumexp against the plain
+    version of the mode (values rtol ``K1_SPLIT_RTOL``, argmax flips at
+    most ``K1_SPLIT_FLIPS`` of the valid patches, patches to 1e-5) and
+    against float64 (at most ``MARG_ERR_FACTOR`` x the plain version's
+    error plus ``MARG_ERR_FLOOR`` of the max-abs); the image gradient of
+    the pipeline K1 lse -> K4 against the float64 pipeline
+    (:func:`marg_split_pipelines`), within the plain pipeline's error
+    times ``MARG_ERR_FACTOR`` scaled by :func:`split_lse_ratio` under
+    ``"split"``, times ``MARG_SPLIT_FACTOR`` under ``"bf16"``, plus
+    ``MARG_ERR_FLOOR`` of the max-abs. Under ``"bf16"`` the split plain
+    pipeline's gradient, the control, must fail that bar wherever the
+    weights are mixed. Returns the numbers and the inputs, for timing."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     image = torch.as_tensor(img, device=device)
-    n = fused_patch_count(img.shape, 4)
+    n = gf.fused_patch_count(img.shape, 4)
     gen = torch.Generator(device=device).manual_seed(3)
     dv = torch.randn(n, generator=gen, device=device)
     tc, g_tc, sp, g_sp, (lse64, a64, g64) = marg_split_pipelines(
-        torch, image, bufs, dv)
+        torch, image, bufs, dv, mode)
     torch.cuda.synchronize()
     vt, at, valt, xt = tc
     vs, as_, vals, xs = sp
-    tag = f"{label} marginalise split"
+    tag = f"{label} marginalise {mode}"
     check(torch.equal(valt, vals), f"{tag}: valid differs")
     m = vals > 0.5
     n_valid = int(m.sum())
@@ -1248,31 +1415,46 @@ def marg_split_checks(torch, device, label, img, bufs):
     check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
           f"{xtn_err:.3g}")
     rel = float(((vt - vs).abs() / vs.abs())[m].max())
-    check(rel <= K1_SPLIT_RTOL, f"{tag}: K1 lse split values beyond rtol "
+    check(rel <= K1_SPLIT_RTOL, f"{tag}: K1 lse values beyond rtol "
           f"{K1_SPLIT_RTOL} (max rel {rel:.3g})")
     flips = int((at != as_)[m].sum())
     check(flips <= K1_SPLIT_FLIPS * n_valid,
-          f"{tag}: K1 lse split argmax flips {flips} of {n_valid}")
+          f"{tag}: K1 lse argmax flips {flips} of {n_valid}")
     scale = float(lse64[m].abs().max())
     errs = {name: float((v[m].double() - lse64[m]).abs().max())
             for name, v in (("tc", vt), ("split_plain", vs))}
     limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
-    check(errs["tc"] <= limit, f"{tag}: K1 lse split error against float64 "
+    check(errs["tc"] <= limit, f"{tag}: K1 lse error against float64 "
           f"{errs['tc']:.3g} above {limit:.3g}")
     flips64 = {name: int((a[m] != a64[m]).sum())
                for name, a in (("tc", at), ("split_plain", as_))}
-    factor = MARG_ERR_FACTOR * split_lse_ratio(errs)
-    bwd = anchored(tag, "K4 split (pipeline)", g_tc, g_sp, g64, factor)
-    nnz, used = support(torch, xs[m], vs[m], bufs, "split")
-    print(f"phase 2 {tag}: K1 lse split against the split plain version "
+    factor = (MARG_SPLIT_FACTOR if mode == "bf16"
+              else MARG_ERR_FACTOR * split_lse_ratio(errs))
+    bwd = anchored(tag, f"K4 {mode} (pipeline)", g_tc, g_sp, g64, factor)
+    nnz, used = support(torch, xs[m], vs[m], bufs, mode)
+    control = ""
+    if mode == "bf16":
+        sc = gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL, True,
+                                    mode="split")
+        g_c = gf.fused_backward_marg_plain(sc[3], sc[0], sc[2], dv, bufs,
+                                           tuple(image.shape), 4,
+                                           mode="split")
+        err_c = float((g_c.double() - g64).abs().max())
+        limit_c = factor * bwd[1] + MARG_ERR_FLOOR * bwd[2]
+        check(err_c > limit_c or nnz < 10 * n_valid,
+              f"{tag}: the control (the split plain pipeline) passed the "
+              f"bar under mixed weights ({err_c:.3g} within {limit_c:.3g})")
+        control = (f"; control (split plain pipeline) {err_c:.3g}, "
+                   f"{err_c / limit_c:.3g} x the limit")
+    print(f"phase 2 {tag}: K1 lse {mode} against the {mode} plain version "
           f"values max rel {rel:.3g} (limit {K1_SPLIT_RTOL}), argmax flips "
           f"{flips}/{n_valid}, xtn {xtn_err:.3g}; against float64 (max-abs "
-          f"{scale:.6g}): tc {errs['tc']:.3g}, split plain "
+          f"{scale:.6g}): tc {errs['tc']:.3g}, {mode} plain "
           f"{errs['split_plain']:.3g} (limit {limit:.3g}); argmax flips "
-          f"against float64: tc {flips64['tc']}, split plain "
-          f"{flips64['split_plain']}; K4 split pipeline against float64 "
-          f"{bwd[0]:.3g}, split plain {bwd[1]:.3g} (limit {factor:.3g} x "
-          f"it + {MARG_ERR_FLOOR} x max), max {bwd[2]:.3g}; "
+          f"against float64: tc {flips64['tc']}, {mode} plain "
+          f"{flips64['split_plain']}; K4 {mode} pipeline against float64 "
+          f"{bwd[0]:.3g}, {mode} plain {bwd[1]:.3g} (limit {factor:.3g} x "
+          f"it + {MARG_ERR_FLOOR} x max), max {bwd[2]:.3g}{control}; "
           f"nonzero weights {nnz} of {n_valid} x {bufs['rec'].shape[0]}")
     out = {"value_max_rel_err": rel, "argmax_flips": flips,
            "n_valid": n_valid, "xtn_max_abs_err": xtn_err,
@@ -1288,13 +1470,14 @@ def marg_split_checks(torch, device, label, img, bufs):
     return out, inputs
 
 
-def marg_split_timing(torch, bufs, s, plain=True):
-    """Milliseconds per call of K1 lse split and K4 split (and of their
-    split plain versions) on a case's inputs, and their bounds: the
-    logits' three bf16 products at the bf16 peak (``split_bound``), K4's
-    float32 A_k x terms of the nonzero weights at the fp32 peak on top.
-    Bytes: each input read once, each output written once, of the A_k
-    only those that some weight selects."""
+def marg_split_timing(torch, bufs, s, plain=True, mode="split"):
+    """Milliseconds per call of K1 lse split and K4 split, or their
+    ``"bf16"`` kernels with ``mode`` (and of their plain versions) on a
+    case's inputs, and their bounds: the logits' three bf16 products (one
+    under ``"bf16"``) at the bf16 peak (``split_bound``), K4's float32
+    A_k x terms of the nonzero weights at the fp32 peak on top. Bytes:
+    each input read once, each output written once, of the A_k only
+    those that some weight selects."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
@@ -1302,15 +1485,14 @@ def marg_split_timing(torch, bufs, s, plain=True):
     shape = tuple(image.shape)
     vt, _, valt, xt = s["tc"]
     vs, _, vals, xs = s["split"]
+    fwd, bwd = (getattr(gf, name) for name in MARG_TC[mode])
     calls = {
-        "fwd": (lambda: gf.gmm_fused_fwd_marg_tc_cuda(
-                    image, bufs, 4, ZERO_FLUX_SENTINEL),
+        "fwd": (lambda: fwd(image, bufs, 4, ZERO_FLUX_SENTINEL),
                 lambda: gf.fused_forward_plain(
-                    image, bufs, 4, ZERO_FLUX_SENTINEL, True, mode="split")),
-        "bwd": (lambda: gf.gmm_fused_bwd_marg_tc_cuda(
-                    xt, vt, valt, dv, bufs, shape, 4),
+                    image, bufs, 4, ZERO_FLUX_SENTINEL, True, mode=mode)),
+        "bwd": (lambda: bwd(xt, vt, valt, dv, bufs, shape, 4),
                 lambda: gf.fused_backward_marg_plain(
-                    xs, vs, vals, dv, bufs, shape, 4, mode="split")),
+                    xs, vs, vals, dv, bufs, shape, 4, mode=mode)),
     }
     timing = {}
     for name, (kernel, plain_fn) in calls.items():
@@ -1320,15 +1502,17 @@ def marg_split_timing(torch, bufs, s, plain=True):
     k = bufs["rec"].shape[0]
     n, n_valid = xt.shape[0], s["n_valid"]
     logit_flop = 2.0 * (2080 + 64) * k
-    split_bytes = 4 * bufs["bc"].numel() + 2 * bufs["pair_tc"].numel()
+    split_bytes = 4 * bufs["bc"].numel() + pair_bytes(bufs, mode)
     ax_flop = 2.0 * (4096 + 64) * s["nnz"]
     bwd_bytes = (4 * (n_valid * 64 + 3 * n + image.numel())
                  + split_bytes + 4 * s["used"] * (64 * 64 + 64))
-    t_ops = 3 * logit_flop * n_valid / PEAK_BF16_FLOPS + ax_flop / PEAK_FP32_FLOPS
+    t_ops = (PRODUCTS[mode] * logit_flop * n_valid / PEAK_BF16_FLOPS
+             + ax_flop / PEAK_FP32_FLOPS)
     t_bytes = bwd_bytes / PEAK_BYTES_PER_S
     bounds = {
         "fwd": split_bound(logit_flop * n,
-                           4 * (image.numel() + n * (3 + 64)) + split_bytes),
+                           4 * (image.numel() + n * (3 + 64)) + split_bytes,
+                           PRODUCTS[mode]),
         "bwd": {"bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"},
     }
@@ -1354,27 +1538,21 @@ def dp_rounding(torch, x64, b64, p64, dp64):
 
 
 def control_pipeline(torch, x, t, bufs, logits="split", g_with_b=True):
-    """The split plain pipeline of the probe (unit gradient, p, dp, the
-    Hessian action) with one part changed, a control that the kernels'
-    bar must refuse: ``logits="bf16"`` takes the logits of single bf16
-    products (the hi parts of the pair products and of A alone),
-    ``g_with_b=False`` drops t . b_k from g_k. Float32, chunk by chunk;
-    p and dp (K, N) as the kernels'."""
+    """A plain pipeline of the probe (unit gradient, p, dp, the Hessian
+    action) with one part changed, a control that the kernels' bar must
+    refuse: the logits of ``logits`` (``"split"``, or ``"bf16"``, the
+    single bf16 products of ``gf.bf16_logit_chunks``) where the kernels
+    take the other mode's, or ``g_with_b=False``, which drops t . b_k
+    from g_k. Float32, chunk by chunk; p and dp (K, N) as the
+    kernels'."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
-    pa = torch.as_tensor(gf.PAIR_A, device=x.device)
-    pb = torch.as_tensor(gf.PAIR_B, device=x.device)
     units, ps, dps = [], [], []
     for start in range(0, x.shape[0], gf.PLAIN_CHUNK):
         xs = x[start:start + gf.PLAIN_CHUNK]
         ts = t[start:start + gf.PLAIN_CHUNK]
-        if logits == "bf16":
-            u_hi, _ = gf.bf16_split(xs[:, pa] * xs[:, pb])
-            lg = (-0.5 * (u_hi @ bufs["pair_hi"]) + xs @ bufs["bq"]
-                  + bufs["const2"])
-        else:
-            lg = next(gf.split_logit_chunks(xs, bufs))
+        lg = next(gf.mode_logit_chunks(xs, bufs, logits))
         p = torch.softmax(lg, dim=1)
         units.append(p @ bufs["b_rows"] - gf.mix_rows(p, xs, bufs))
         cross = (ts[:, :, None] * xs[:, None, :]).reshape(len(xs), -1)
@@ -1441,45 +1619,64 @@ def multi_weight_rows(torch, pipelines, x64, t64, b64, p64, dp64, big):
     return out
 
 
-def probe_split_compare(torch, x, t, bufs):
+# the marginalised probe's tensor-core kernels (K5 lse, K8, K9a) by mode
+PROBE_TC = {
+    "split": ("gmm_score_rows_marg_tc_cuda", "gmm_unit_marg_tc_cuda",
+              "gmm_hvp_marg_weights_tc_cuda"),
+    "bf16": ("gmm_score_rows_marg_bf16_cuda", "gmm_unit_marg_bf16_cuda",
+             "gmm_hvp_marg_weights_bf16_cuda"),
+}
+
+
+def probe_split_compare(torch, x, t, bufs, mode="split"):
     """K8 split and K9a split (the marginalised probe's unit gradient and
-    first Hessian stage on the tensor cores) on rows ``x`` along tangents
-    ``t``, as the probe runs them, fed K5 lse split's logsumexp, against
-    the float64 pipeline (the exact logits, their logsumexp and the
-    float64 plain versions; K4 split's reference): every entry within
-    ``MARG_SPLIT_FACTOR`` times the split plain pipeline's max-abs error
+    first Hessian stage on the tensor cores), or their ``"bf16"`` kernels
+    with ``mode``, on rows ``x`` along tangents ``t``, as the probe runs
+    them, fed K5 lse's logsumexp of the same mode, against the float64
+    pipeline (the exact logits, their logsumexp and the float64 plain
+    versions, K4's reference; under ``"bf16"`` the exact sums of the same
+    bf16-rounded operands, :func:`bf16_reference`): every entry within
+    ``MARG_SPLIT_FACTOR`` times the plain pipeline's max-abs error
     (``score_split_marg_plain``, ``marg_unit_split_plain``,
-    ``hvp_marg_weights_split_plain``) plus ``MARG_ERR_FLOOR`` of the
-    max-abs, or for dp within its own float32 rounding
-    (:func:`dp_rounding`); K9b on K9a split's weights (the Hessian action)
-    the same. On every row whose weight sits on one component dp must be
-    exactly 0. Two controls must fail the bar: the logits of single bf16
-    products where the weights are mixed (at least 10 nonzero a row), and
-    g without t . b_k where a row has more than one weight and dp is not
-    0. Returns the numbers, K5 lse split's logsumexp and the one-hot rows;
-    raises AssertionError on a failure."""
+    ``hvp_marg_weights_split_plain``, or the ``"bf16"`` ones) plus
+    ``MARG_ERR_FLOOR`` of the max-abs, or for dp within its own float32
+    rounding (:func:`dp_rounding`); K9b on K9a's weights (the Hessian
+    action) the same. On every row whose weight sits on one component dp
+    must be exactly 0. Two controls must fail the bar: the logits of the
+    other mode (single bf16 products where the kernels are split, split
+    ones where they are bf16) where the weights are mixed (at least 10
+    nonzero a row), and g without t . b_k where a row has more than one
+    weight and dp is not 0. Returns the numbers, K5 lse's logsumexp and
+    the one-hot rows; raises AssertionError on a failure."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
-    lse_tc, _ = gp.gmm_score_rows_marg_tc_cuda(x, bufs)
-    pt, dpt = gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse_tc, bufs)
-    kernel = {"unit": gp.gmm_unit_marg_tc_cuda(x, lse_tc, bufs),
+    score, unit, weights = (getattr(gp, name) for name in PROBE_TC[mode])
+    lse_tc, _ = score(x, bufs)
+    pt, dpt = weights(x, t, lse_tc, bufs)
+    kernel = {"unit": unit(x, lse_tc, bufs),
               "weights_p": pt, "weights_dp": dpt,
               "hvp": gp.gmm_hvp_marg_mix_cuda(x, t, pt, dpt, bufs)}
-    lse_sp, _ = gf.score_split_marg_plain(x, bufs)
-    ps, dps = gp.hvp_marg_weights_split_plain(x, t, lse_sp, bufs)
-    plain = {"unit": gf.marg_unit_split_plain(x, lse_sp, bufs),
+    lse_sp, _ = gf.PLAIN_SCORES[mode, True](x, bufs)
+    ps, dps = gp.PLAIN_WEIGHTS[mode](x, t, lse_sp, bufs)
+    plain = {"unit": gf.PLAIN_UNITS[mode](x, lse_sp, bufs),
              "weights_p": ps, "weights_dp": dps,
              "hvp": gp.hvp_marg_mix_plain(x, t, ps, dps, bufs)}
     b64 = {name: v.double() for name, v in bufs.items()}
     x64, t64 = x.double(), t.double()
-    lse64, _ = gp.score_rows_plain(x64, b64, True)
-    p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
-    ref = {"unit": gp.unit_marg_plain(x64, lse64, b64), "weights_p": p64,
-           "weights_dp": dp64,
-           "hvp": gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)}
+    if mode == "bf16":
+        r = bf16_reference(torch, x, bufs, t)
+        lse64, p64, dp64 = r["lse"], r["p"], r["dp"]
+        ref = {"unit": r["unit"], "weights_p": p64, "weights_dp": dp64,
+               "hvp": r["hvp"]}
+    else:
+        lse64, _ = gp.score_rows_plain(x64, b64, True)
+        p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
+        ref = {"unit": gp.unit_marg_plain(x64, lse64, b64),
+               "weights_p": p64, "weights_dp": dp64,
+               "hvp": gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)}
     floor, big = dp_rounding(torch, x64, b64, p64, dp64)
-    nnz, used = support(torch, x, lse_sp, bufs, "split")
+    nnz, used = support(torch, x, lse_sp, bufs, mode)
     n = x.shape[0]
 
     def bars(got):
@@ -1497,13 +1694,16 @@ def probe_split_compare(torch, x, t, bufs):
         return out
 
     errs = bars(kernel)
-    controls = {"bf16_logits": bars(control_pipeline(torch, x, t, bufs,
-                                                     "bf16")),
-                "g_without_b": bars(control_pipeline(torch, x, t, bufs,
+    other = "bf16" if mode == "split" else "split"
+    logits_control = f"{other}_logits"
+    controls = {logits_control: bars(control_pipeline(torch, x, t, bufs,
+                                                      other)),
+                "g_without_b": bars(control_pipeline(torch, x, t, bufs, mode,
                                                      g_with_b=False))}
     rows = multi_weight_rows(torch, {"tc": (pt, dpt), "split_plain":
                                      (ps, dps)}, x64, t64, b64, p64, dp64,
                              big)
+    rows["mode"] = mode
     one_hot = (pt != 0).sum(dim=0) == 1
     dp_nonzero = int((dpt[:, one_hot] != 0).sum())
     lse_errs = {name: float((v.double() - lse64).abs().max())
@@ -1519,12 +1719,12 @@ def probe_split_compare(torch, x, t, bufs):
               f"{e['limit']:.3g}" for name, e in errs.items()
               if e["net"] > e["limit"]]
     if dp_nonzero:
-        faults.append(f"{dp_nonzero} entries of K9a split's dp are not 0 "
+        faults.append(f"{dp_nonzero} entries of K9a {mode}'s dp are not 0 "
                       f"on the {out['one_hot_rows']} rows whose weight is "
                       f"one-hot")
-    if not refused["bf16_logits"] and nnz >= 10 * n:
-        faults.append("the control with single bf16 logits passed the "
-                      "bar under mixed weights")
+    if not refused[logits_control] and nnz >= 10 * n:
+        faults.append(f"the control with {other} logits passed the bar "
+                      f"under mixed weights")
     if not (refused["g_without_b"] or not rows["rows"]
             or out["max_dp"] == 0.0):
         faults.append("the control with g without t . b passed dp's bar")
@@ -1542,9 +1742,11 @@ def over_limit(e):
 def describe_probe_split(out):
     """One line of :func:`probe_split_compare`'s numbers."""
     errs, rows = out["errors_against_float64"], out["multi_weight_rows"]
-    text = (f"K5 lse split against float64 {out['lse_against_float64']['tc']:.3g}"
-            f", split plain {out['lse_against_float64']['split_plain']:.3g}; "
-            f"against float64 (kernel, split plain, ratio, limit): "
+    mode = rows["mode"]
+    text = (f"K5 lse {mode} against float64 "
+            f"{out['lse_against_float64']['tc']:.3g}, {mode} plain "
+            f"{out['lse_against_float64']['split_plain']:.3g}; "
+            f"against float64 (kernel, {mode} plain, ratio, limit): "
             + "; ".join(f"{name} {e['err']:.3g}, {e['split_plain']:.3g}, "
                         f"{e['err'] / max(e['split_plain'], 1e-300):.3g}, "
                         f"{e['limit']:.3g}" for name, e in errs.items())
@@ -1577,7 +1779,7 @@ def describe_probe_split(out):
     return text
 
 
-def probe_split_checks(torch, device, label, img, bufs):
+def probe_split_checks(torch, device, label, img, bufs, mode="split"):
     """:func:`probe_split_compare` on the probe's rows of one image along
     a random tangent. Returns the numbers and the inputs, for timing."""
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
@@ -1586,9 +1788,9 @@ def probe_split_checks(torch, device, label, img, bufs):
                         ZERO_FLUX_SENTINEL)
     gen = torch.Generator(device=device).manual_seed(4)
     t = torch.randn(x.shape, generator=gen, device=device)
-    tag = f"{label} marginalised probe split"
+    tag = f"{label} marginalised probe {mode}"
     try:
-        out, lse_tc, _ = probe_split_compare(torch, x, t, bufs)
+        out, lse_tc, _ = probe_split_compare(torch, x, t, bufs, mode)
     except AssertionError as exc:
         raise AssertionError(f"{tag}: {exc}") from None
     print(f"phase 2 {tag} ({x.shape[0]} rows): {describe_probe_split(out)}")
@@ -1597,25 +1799,26 @@ def probe_split_checks(torch, device, label, img, bufs):
                  "used": out["components_used"]}
 
 
-def probe_split_timing(torch, bufs, s, plain=True):
-    """Milliseconds per call of K8 split and K9a split (and of their
-    split plain versions) on a case's rows, fed K5 lse split's
-    logsumexp, and their bounds: the logits' three bf16 products at the
-    bf16 peak, the float32 A_k x terms of the nonzero weights (and their
-    dot products with b_k or t) at the fp32 peak on top. Bytes: rows (and
+def probe_split_timing(torch, bufs, s, plain=True, mode="split"):
+    """Milliseconds per call of K8 split and K9a split, or their
+    ``"bf16"`` kernels with ``mode`` (and of their plain versions) on a
+    case's rows, fed K5 lse's logsumexp of the mode, and their bounds:
+    the logits' three bf16 products (one under ``"bf16"``) at the bf16
+    peak, the float32 A_k x terms of the nonzero weights (and their dot
+    products with b_k or t) at the fp32 peak on top. Bytes: rows (and
     tangents) and the logsumexp read once, the output written once (K9a:
-    p and dp, (K, N)), the split buffers, and of the A_k and b_k those
+    p and dp, (K, N)), the bf16 planes read, and of the A_k and b_k those
     that some weight selects."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
     x, t, lse = s["x"], s["t"], s["lse"]
+    _, unit, weights = (getattr(gp, name) for name in PROBE_TC[mode])
     calls = {
-        "unit": (lambda: gp.gmm_unit_marg_tc_cuda(x, lse, bufs),
-                 lambda: gf.marg_unit_split_plain(x, lse, bufs)),
-        "weights": (lambda: gp.gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs),
-                    lambda: gp.hvp_marg_weights_split_plain(x, t, lse,
-                                                            bufs)),
+        "unit": (lambda: unit(x, lse, bufs),
+                 lambda: gf.PLAIN_UNITS[mode](x, lse, bufs)),
+        "weights": (lambda: weights(x, t, lse, bufs),
+                    lambda: gp.PLAIN_WEIGHTS[mode](x, t, lse, bufs)),
     }
     timing = {}
     for name, (kernel, plain_fn) in calls.items():
@@ -1623,9 +1826,9 @@ def probe_split_timing(torch, bufs, s, plain=True):
         if plain:
             timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
     k, n = bufs["rec"].shape[0], x.shape[0]
-    t_ops = (3 * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
+    t_ops = (PRODUCTS[mode] * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
              + 2.0 * (4096 + 64) * s["nnz"] / PEAK_FP32_FLOPS)
-    fixed = (4 * bufs["bc"].numel() + 2 * bufs["pair_tc"].numel()
+    fixed = (4 * bufs["bc"].numel() + pair_bytes(bufs, mode)
              + 4 * s["used"] * (64 * 64 + 64))
     bounds = {}
     for name, nbytes in (("unit", 4 * (2 * n * 64 + n)),
@@ -1637,10 +1840,11 @@ def probe_split_timing(torch, bufs, s, plain=True):
     return timing, bounds
 
 
-def phase_marg_split_kernels(torch, device, bufs, cases, marg):
-    """K1 lse split and K4 split against their split plain versions and
-    float64 on the phase's two images, and K8 split and K9a split on their
-    rows (:func:`probe_split_checks`), under ``astro-snr-v1`` (one-hot
+def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
+    """K1 lse split and K4 split (or their ``"bf16"`` kernels with
+    ``mode``) against their plain versions and float64 on the phase's two
+    images, and K8 and K9a of the mode on their rows
+    (:func:`probe_split_checks`), under ``astro-snr-v1`` (one-hot
     weights), ``wide_gmm()`` (K = 256, two tiles) and ``mixed_gmm()``
     (mixed weights; the run fails unless they are); times at the main
     path's shape beside the float32 kernels' (``marg``, this call), and
@@ -1654,10 +1858,10 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg):
         for label, img in cases.items():
             k = gmm_bufs["rec"].shape[0]
             res, s = marg_split_checks(torch, device, f"{label} K={k} {key}",
-                                       img, gmm_bufs)
+                                       img, gmm_bufs, mode)
             out[f"{label} {key}"] = res
             probe, rows = probe_split_checks(
-                torch, device, f"{label} K={k} {key}", img, gmm_bufs)
+                torch, device, f"{label} K={k} {key}", img, gmm_bufs, mode)
             out[f"{label} {key} probe"] = probe
             if key == "mixed":
                 check(res["nonzero_weights"] >= 10 * res["n_valid"]
@@ -1670,28 +1874,30 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg):
             if label != MAIN or key == "wide":
                 continue
             ptiming, pbounds = probe_split_timing(torch, gmm_bufs, rows,
-                                                  plain=key == "astro")
+                                                  plain=key == "astro",
+                                                  mode=mode)
             out[f"probe_timing_{key}"] = ptiming
             out[f"probe_bounds_{key}"] = pbounds
             timing, bounds = marg_split_timing(torch, gmm_bufs, s,
-                                               plain=key == "astro")
+                                               plain=key == "astro",
+                                               mode=mode)
             out[f"timing_{key}"], out[f"bounds_{key}"] = timing, bounds
-            line = (f"phase 2 timing marginalise split {MAIN} K={k} {key}: "
-                    f"K1 lse split {timing['fwd_ms']:.3f} ms, K4 split "
-                    f"{timing['bwd_ms']:.3f} ms; split bounds "
+            line = (f"phase 2 timing marginalise {mode} {MAIN} K={k} {key}: "
+                    f"K1 lse {mode} {timing['fwd_ms']:.3f} ms, K4 {mode} "
+                    f"{timing['bwd_ms']:.3f} ms; {mode} bounds "
                     f"{bounds['fwd']['bound_ms']:.4f} "
                     f"({bounds['fwd']['bound_ms'] / timing['fwd_ms']:.1%}), "
                     f"{bounds['bwd']['bound_ms']:.4f} "
                     f"({bounds['bwd']['bound_ms'] / timing['bwd_ms']:.1%})")
             tm = marg["timing"] if key == "astro" else marg["mixed"]["timing"]
-            line += (f"; K8 split {ptiming['unit_ms']:.3f} ms, K9a split "
-                     f"{ptiming['weights_ms']:.3f} ms; split bounds "
+            line += (f"; K8 {mode} {ptiming['unit_ms']:.3f} ms, K9a {mode} "
+                     f"{ptiming['weights_ms']:.3f} ms; {mode} bounds "
                      + ", ".join(
                          f"{pbounds[name]['bound_ms']:.4f} ("
                          f"{pbounds[name]['bound_ms'] / ptiming[name + '_ms']:.1%})"
                          for name in ("unit", "weights")))
             if key == "astro":
-                line += (f"; split plain {timing['fwd_plain_ms']:.3f}, "
+                line += (f"; {mode} plain {timing['fwd_plain_ms']:.3f}, "
                          f"{timing['bwd_plain_ms']:.3f}, "
                          f"{ptiming['unit_plain_ms']:.3f}, "
                          f"{ptiming['weights_plain_ms']:.3f} ms; float32 "
@@ -1739,6 +1945,19 @@ def split_anchored(label, name, got, plain32, plain64):
     return err, err32, scale
 
 
+def bf16_anchored(label, name, got, plain32, plain64, share=None):
+    """The ``"bf16"`` kernels' bar: :func:`anchored` against the float32
+    bf16 plain version, at least ``BF16_HONOURED`` of that version's
+    error, and with ``share`` within that share of the max-abs."""
+    err, err32, scale = anchored(label, name, got, plain32, plain64)
+    check(err >= BF16_HONOURED * err32, f"{label}: {name} error {err:.3g} "
+          f"below {BF16_HONOURED} x the bf16 plain version's {err32:.3g}: "
+          f"not the bf16 mode's rounding")
+    check(share is None or err <= share * scale, f"{label}: {name} error "
+          f"{err:.3g} beyond {share} of the max-abs {scale:.3g}")
+    return err, err32, scale
+
+
 def worst(errs):
     """The error tuple whose share of its max-abs is the largest."""
     return max(errs, key=lambda e: e[0] / e[2])
@@ -1771,6 +1990,9 @@ def pfft_checks(torch, device, label, shape, seed):
     errs["cols_fwd_tc"] = split_anchored(
         label, "K3 cols_fwd tc", pf.pfft_cols_fwd_tc_cuda(x0, x1, n),
         pf.cols_fwd_plain(x0, x1, n, mode="split"), u64)
+    errs["cols_fwd_bf16"] = bf16_anchored(
+        label, "K3 cols_fwd bf16", pf.pfft_cols_fwd_bf16_cuda(x0, x1, n),
+        pf.cols_fwd_plain(x0, x1, n, mode="bf16"), u64)
     for conj in (False, True):
         tag = "adjoint" if conj else "forward"
         v = pf.pfft_rows_combine_cuda(u, *planes, conj)
@@ -1800,6 +2022,18 @@ def pfft_checks(torch, device, label, shape, seed):
         errs[f"cols_inv_tc_{tag}"] = worst(
             split_anchored(label, f"K3 cols_inv tc {tag} y{i}", *yy)
             for i, yy in enumerate(zip(yt, ys, yt64)))
+        # the bf16 kernels the same way, against the bf16 plain version
+        vb = pf.pfft_rows_combine_bf16_cuda(u, *planes, conj)
+        vbp = pf.rows_combine_plain(u, *planes, conj, mode="bf16")
+        errs[f"rows_bf16_{tag}"] = worst(
+            bf16_anchored(label, f"K3 rows bf16 {tag} V{i + 1}", *vv)
+            for i, vv in enumerate(zip(vb, vbp, v64)))
+        yb = pf.pfft_cols_inv_bf16_cuda(*vb, h)
+        ybp = pf.cols_inv_plain(*vb, h, mode="bf16")
+        yb64 = pf.cols_inv_plain(*(t.to(c128) for t in vb), h, f64)
+        errs[f"cols_inv_bf16_{tag}"] = worst(
+            bf16_anchored(label, f"K3 cols_inv bf16 {tag} y{i}", *yy)
+            for i, yy in enumerate(zip(yb, ybp, yb64)))
         # the whole pipeline and cuFFT's packed pair against float64
         y = pf.pfft_conv_cuda(x0, x1, *planes, n, conj)
         y32 = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj)
@@ -1827,6 +2061,26 @@ def pfft_checks(torch, device, label, shape, seed):
              for i, yy in enumerate(zip(yt, ys, y64))]
         errs[f"pipeline_split_{tag}"] = (max(t[0] for t in e),
                                          max(t[1] for t in e), scale, errc)
+        # the bf16 pipeline; its control, the split pipeline in its
+        # place, must be refused by the bar the bf16 pipeline passed
+        yb = pf.pfft_conv_cuda(x0, x1, *planes, n, conj, "bf16")
+        ybp = pf.conv_packed_pfft_plain(x0, x1, *planes, n, conj,
+                                        mode="bf16")
+        torch.cuda.synchronize()
+        e = [bf16_anchored(label, f"K3 bf16 pipeline {tag} y{i}", *yy,
+                           share=PFFT_BF16_SHARE)
+             for i, yy in enumerate(zip(yb, ybp, y64))]
+        try:
+            for i, yy in enumerate(zip(yt, ybp, y64)):
+                bf16_anchored(label, f"control {tag} y{i}", *yy,
+                              share=PFFT_BF16_SHARE)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"{label}: K3 {tag}: the control (the "
+                                 f"split pipeline) passed the bf16 bar")
+        errs[f"pipeline_bf16_{tag}"] = (max(t[0] for t in e),
+                                        max(t[1] for t in e), scale, errc)
     print(f"phase 2 K3 {label} (5 pairs, n = {n}): against float64 (kernel, "
           "plain float32 or split, max-abs): "
           + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
@@ -1837,12 +2091,17 @@ def pfft_checks(torch, device, label, shape, seed):
     split, f32 = (max(errs[f"{key}_{t}"][0] / errs[f"{key}_{t}"][2]
                       for t in ("forward", "adjoint"))
                   for key in ("pipeline_split", "pipeline"))
+    bf16 = max(errs[f"pipeline_bf16_{t}"][0] / errs[f"pipeline_bf16_{t}"][2]
+               for t in ("forward", "adjoint"))
     print(f"phase 2 K3 {label}: split pipeline error {split:.3g} of the "
           f"max-abs (the JAX package documents {JAX_SPLIT_ERR} for its split "
-          f"mode); float32 kernels {f32:.3g}")
+          f"mode); bf16 pipeline {bf16:.3g} (documented {PFFT_BF16_SHARE}, "
+          f"the split pipeline as its control refused); float32 kernels "
+          f"{f32:.3g}")
     inputs = {"x0": x0, "x1": x1, "planes": planes, "psfs": psfs, "n": n,
               "u": u, "v": pf.pfft_rows_combine_cuda(u, *planes),
               "vt": pf.pfft_rows_combine_tc_cuda(u, *planes),
+              "vb": pf.pfft_rows_combine_bf16_cuda(u, *planes),
               "a": a, "b": b, "fs": fs}
     return errs, inputs
 
@@ -1881,6 +2140,14 @@ def pfft_bounds(p_, h, w, n):
         "bound_ms": sum(out[name + "_split"]["bound_ms"]
                         for name in ("cols_fwd", "rows", "cols_inv")),
         "bound_by": "bytes"}
+    # "bf16": one bf16 product each, the tables as their hi planes
+    for name in ("cols_fwd", "rows", "cols_inv"):
+        out[name + "_bf16"] = bound(flop[name], nbytes[name],
+                                    PEAK_BF16_FLOPS)
+    out["pipeline_bf16"] = {
+        "bound_ms": sum(out[name + "_bf16"]["bound_ms"]
+                        for name in ("cols_fwd", "rows", "cols_inv")),
+        "bound_by": "bytes"}
     return out
 
 
@@ -1896,8 +2163,8 @@ def pfft_timing(torch, s):
         kernel_fft,
     )
 
-    x0, x1, planes, n, u, v, vt = (s[k] for k in ("x0", "x1", "planes", "n",
-                                                  "u", "v", "vt"))
+    x0, x1, planes, n, u, v, vt, vb = (
+        s[k] for k in ("x0", "x1", "planes", "n", "u", "v", "vt", "vb"))
     h, w = x0.shape[1:]
     fs, a, b = s["fs"], s["a"], s["b"]
     images = torch.stack([x0, x1], dim=1).reshape(N_OBS, h, w)
@@ -1916,6 +2183,13 @@ def pfft_timing(torch, s):
                                                     False, "split"),
         "pipeline_split_adjoint": lambda: pf.pfft_conv_cuda(
             x0, x1, *planes, n, True, "split"),
+        "cols_fwd_bf16": lambda: pf.pfft_cols_fwd_bf16_cuda(x0, x1, n),
+        "rows_bf16": lambda: pf.pfft_rows_combine_bf16_cuda(u, *planes),
+        "cols_inv_bf16": lambda: pf.pfft_cols_inv_bf16_cuda(*vb, h),
+        "pipeline_bf16": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
+                                                   False, "bf16"),
+        "pipeline_bf16_adjoint": lambda: pf.pfft_conv_cuda(
+            x0, x1, *planes, n, True, "bf16"),
         "cufft_pair": lambda: convolve_fft_packed_pair(x0, x1, a, b, fs),
         "cufft_pair_adjoint": lambda: convolve_fft_packed_pair(
             x0, x1, a.conj(), b.conj(), fs),
@@ -1937,6 +2211,11 @@ def pfft_timing(torch, s):
         "cols_inv_split": lambda: pf.cols_inv_plain(*vt, h, mode="split"),
         "pipeline_split": lambda: pf.conv_packed_pfft_plain(
             x0, x1, *planes, n, mode="split"),
+        "cols_fwd_bf16": lambda: pf.cols_fwd_plain(x0, x1, n, mode="bf16"),
+        "rows_bf16": lambda: pf.rows_combine_plain(u, *planes, mode="bf16"),
+        "cols_inv_bf16": lambda: pf.cols_inv_plain(*vb, h, mode="bf16"),
+        "pipeline_bf16": lambda: pf.conv_packed_pfft_plain(
+            x0, x1, *planes, n, mode="bf16"),
     }
     timing.update({name + "_plain": cuda_ms(torch, fn, 3)
                    for name, fn in plain.items()})
@@ -1960,8 +2239,11 @@ def phase_pfft_kernels(torch, device):
                       f"{bd[name]['bound_ms']:.3f})"
                       for name in ("cols_fwd", "rows", "cols_inv",
                                    "pipeline", "cols_fwd_split", "rows_split",
-                                   "cols_inv_split", "pipeline_split"))
+                                   "cols_inv_split", "pipeline_split",
+                                   "cols_fwd_bf16", "rows_bf16",
+                                   "cols_inv_bf16", "pipeline_bf16"))
           + f"; split adjoint {tm['pipeline_split_adjoint']:.3f} ms"
+          + f"; bf16 adjoint {tm['pipeline_bf16_adjoint']:.3f} ms"
           + f"; adjoint {tm['pipeline_adjoint']:.3f} ms; cuFFT packed pair "
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
@@ -1991,18 +2273,26 @@ def counts():
         "gmm_fused_fwd_marg": gf.gmm_fused_fwd_marg_cuda.launches,
         "gmm_fused_fwd_tc": gf.gmm_fused_fwd_tc_cuda.launches,
         "gmm_fused_fwd_marg_tc": gf.gmm_fused_fwd_marg_tc_cuda.launches,
+        "gmm_fused_fwd_bf16": gf.gmm_fused_fwd_bf16_cuda.launches,
+        "gmm_fused_fwd_marg_bf16": gf.gmm_fused_fwd_marg_bf16_cuda.launches,
         "gmm_fused_bwd": gf.gmm_fused_bwd_cuda.launches,
         "gmm_fused_bwd_marg": gf.gmm_fused_bwd_marg_cuda.launches,
         "gmm_fused_bwd_marg_tc": gf.gmm_fused_bwd_marg_tc_cuda.launches,
+        "gmm_fused_bwd_marg_bf16": gf.gmm_fused_bwd_marg_bf16_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
         "gmm_score_rows_tc": gp.gmm_score_rows_tc_cuda.launches,
         "gmm_score_rows_marg_tc": gp.gmm_score_rows_marg_tc_cuda.launches,
+        "gmm_score_rows_bf16": gp.gmm_score_rows_bf16_cuda.launches,
+        "gmm_score_rows_marg_bf16": gp.gmm_score_rows_marg_bf16_cuda.launches,
         "gmm_unit_map": gp.gmm_unit_map_cuda.launches,
         "gmm_hvp_map": gp.gmm_hvp_map_cuda.launches,
         "gmm_unit_marg": gp.gmm_unit_marg_cuda.launches,
         "gmm_unit_marg_tc": gp.gmm_unit_marg_tc_cuda.launches,
+        "gmm_unit_marg_bf16": gp.gmm_unit_marg_bf16_cuda.launches,
         "gmm_hvp_marg_weights": gp.gmm_hvp_marg_weights_cuda.launches,
         "gmm_hvp_marg_weights_tc": gp.gmm_hvp_marg_weights_tc_cuda.launches,
+        "gmm_hvp_marg_weights_bf16":
+            gp.gmm_hvp_marg_weights_bf16_cuda.launches,
         "gmm_hvp_marg_mix": gp.gmm_hvp_marg_mix_cuda.launches,
         "pfft_cols_fwd": pf.pfft_cols_fwd_cuda.launches,
         "pfft_rows_combine": pf.pfft_rows_combine_cuda.launches,
@@ -2010,15 +2300,19 @@ def counts():
         "pfft_cols_fwd_tc": pf.pfft_cols_fwd_tc_cuda.launches,
         "pfft_rows_combine_tc": pf.pfft_rows_combine_tc_cuda.launches,
         "pfft_cols_inv_tc": pf.pfft_cols_inv_tc_cuda.launches,
+        "pfft_cols_fwd_bf16": pf.pfft_cols_fwd_bf16_cuda.launches,
+        "pfft_rows_combine_bf16": pf.pfft_rows_combine_bf16_cuda.launches,
+        "pfft_cols_inv_bf16": pf.pfft_cols_inv_bf16_cuda.launches,
     }
     plain = sum(fn.calls for fn in (
         gf.fused_forward_plain, gf.fused_backward_plain,
         gf.fused_backward_marg_plain, gf.score_plain, gf.score_split_plain,
         gf.score_split_marg_plain, gf.marg_unit_split_plain,
-        gp.score_rows_plain,
+        gf.score_bf16_plain, gf.score_bf16_marg_plain,
+        gf.marg_unit_bf16_plain, gp.score_rows_plain,
         gp.unit_map_plain, gp.hvp_map_plain, gp.unit_marg_plain,
         gp.hvp_marg_weights_plain, gp.hvp_marg_weights_split_plain,
-        gp.hvp_marg_mix_plain,
+        gp.hvp_marg_weights_bf16_plain, gp.hvp_marg_mix_plain,
         pf.conv_packed_pfft_plain))
     return launches, plain
 
@@ -2068,13 +2362,18 @@ def data_term(datasets, flux, device):
 
 
 # K1's kernel under each mode of the precision dial
-K1_KERNELS = {"split": "gmm_fused_fwd_tc", "f32": "gmm_fused_fwd"}
+K1_KERNELS = {"split": "gmm_fused_fwd_tc", "bf16": "gmm_fused_fwd_bf16",
+              "f32": "gmm_fused_fwd"}
 # the marginalised prior's K1 (logsumexp) and K4 under each mode
 MARG_KERNELS = {"split": ("gmm_fused_fwd_marg_tc", "gmm_fused_bwd_marg_tc"),
+                "bf16": ("gmm_fused_fwd_marg_bf16",
+                         "gmm_fused_bwd_marg_bf16"),
                 "f32": ("gmm_fused_fwd_marg", "gmm_fused_bwd_marg")}
 # K3's kernels under each mode of the precision dial
 K3_KERNELS = {
     "split": ("pfft_cols_fwd_tc", "pfft_rows_combine_tc", "pfft_cols_inv_tc"),
+    "bf16": ("pfft_cols_fwd_bf16", "pfft_rows_combine_bf16",
+             "pfft_cols_inv_bf16"),
     "f32": ("pfft_cols_fwd", "pfft_rows_combine", "pfft_cols_inv"),
 }
 
@@ -2135,19 +2434,21 @@ def training_line(run):
             f"memory {run['peak_bytes']} B")
 
 
-def argmax_flips(torch, device, flux, gmm, marginalize=False):
-    """Patches whose argmax differs between K1's two kernels (of the
-    logsumexp mode with ``marginalize``) at ``flux`` (the prior's image
-    norm is the identity, its spin left out), and the valid patches."""
+def argmax_flips(torch, device, flux, gmm, marginalize=False,
+                 modes=("split", "f32")):
+    """Patches whose argmax differs between K1's kernels of the two
+    ``modes`` (of the logsumexp mode with ``marginalize``) at ``flux``
+    (the prior's image norm is the identity, its spin left out), and the
+    valid patches."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
                             device=device)
     bufs = gmm.kernel_buffers(device)
-    tc, f32 = ((gf.gmm_fused_fwd_marg_tc_cuda, gf.gmm_fused_fwd_marg_cuda)
-               if marginalize else (gf.gmm_fused_fwd_tc_cuda,
-                                    gf.gmm_fused_fwd_cuda))
+    names = MARG_KERNELS if marginalize else K1_KERNELS
+    tc, f32 = (getattr(gf, (names[mode][0] if marginalize else names[mode])
+                       + "_cuda") for mode in modes)
     _, a_tc, valid, _ = tc(image, bufs, 4, ZERO_FLUX_SENTINEL)
     _, a_32, _, _ = f32(image, bufs, 4, ZERO_FLUX_SENTINEL)
     m = valid > 0.5
@@ -2276,10 +2577,11 @@ def phase_slice(torch, device):
 
 
 # the probe's MAP scorer (K5) under each mode of the precision dial
-K5_KERNELS = {"split": "gmm_score_rows_tc", "f32": "gmm_score_rows"}
+K5_KERNELS = {"split": "gmm_score_rows_tc", "bf16": "gmm_score_rows_bf16",
+              "f32": "gmm_score_rows"}
 
 
-def probe_run(torch, device, datasets, gmm, dial):
+def probe_run(torch, device, datasets, gmm, dial, phase=4):
     """The main path's training, then one Hessian probe, under the dial
     ``dial``, counts set to zero just before and read just after: K1 of
     the dial's mode and K2 ``ERROR_STEPS`` times; K5 of the dial's mode,
@@ -2317,7 +2619,7 @@ def probe_run(torch, device, datasets, gmm, dial):
     check(bool(np.isfinite(errors).all() and (errors > 0).all()),
           f"{tag}: errors not finite and positive at "
           f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
-    print(f"phase 4 errors {tag} {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} "
+    print(f"phase {phase} errors {tag} {N_OBS}x{FIELD}^2 K=200: {ERROR_STEPS} "
           f"steps in {result.train_seconds:.4f} s, probe "
           f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} "
           f".. {float(errors.max()):.6g}; launches {launches}; plain calls "
@@ -2360,7 +2662,7 @@ def phase_errors(torch, device):
     return runs
 
 
-def marg_training(torch, device, datasets, gmm, dial):
+def marg_training(torch, device, datasets, gmm, dial, phase=5):
     """20 marginalised steps of the main path under the dial ``dial``,
     counts set to zero just before and read just after: K1 (logsumexp)
     and K4 of the dial's mode 20 times each, every other kernel never, no
@@ -2398,7 +2700,7 @@ def marg_training(torch, device, datasets, gmm, dial):
     check(plain_calls == 0, f"marginalised {tag}: plain versions ran "
           f"{plain_calls} times")
     steps_per_s = STEPS / result.train_seconds
-    print(f"phase 5 marginalised {tag} slice {N_OBS}x{FIELD}^2 K=200: "
+    print(f"phase {phase} marginalised {tag} slice {N_OBS}x{FIELD}^2 K=200: "
           f"{STEPS} steps at {steps_per_s:.3f} steps/s; loss {loss[0]:.6f} "
           f"-> {loss[-1]:.6f}; data term {data_start:.6f} -> "
           f"{data_end:.6f}; launches {launches}; plain calls {plain_calls}; "
@@ -2412,11 +2714,13 @@ def marg_training(torch, device, datasets, gmm, dial):
 MARG_PROBE_KERNELS = {
     "split": ("gmm_score_rows_marg_tc", "gmm_unit_marg_tc",
               "gmm_hvp_marg_weights_tc"),
+    "bf16": ("gmm_score_rows_marg_bf16", "gmm_unit_marg_bf16",
+             "gmm_hvp_marg_weights_bf16"),
     "f32": ("gmm_score_rows", "gmm_unit_marg", "gmm_hvp_marg_weights"),
 }
 
 
-def marg_probe_run(torch, device, datasets, gmm, dial):
+def marg_probe_run(torch, device, datasets, gmm, dial, phase=5):
     """The marginalised main path's training, then one Hessian probe,
     under the dial ``dial`` (after a warm-up of one step and a probe),
     counts set to zero just before and read just after: K1 lse and K4 of
@@ -2451,7 +2755,8 @@ def marg_probe_run(torch, device, datasets, gmm, dial):
           and bool(np.isfinite(errors).all() and (errors > 0).all()),
           f"marginalised probe {tag}: errors not finite and positive at "
           f"{int((~(np.isfinite(errors) & (errors > 0))).sum())} pixels")
-    print(f"phase 5 marginalised errors {tag} {N_OBS}x{FIELD}^2 K=200: "
+    print(f"phase {phase} marginalised errors {tag} {N_OBS}x{FIELD}^2 "
+          f"K=200: "
           f"{ERROR_STEPS} steps in {result.train_seconds:.4f} s, probe "
           f"{result.error_seconds:.4f} s; errors {float(errors.min()):.6g} .. "
           f"{float(errors.max()):.6g}; launches {launches}; plain calls "
@@ -2495,6 +2800,7 @@ def phase_marginalised(torch, device):
     probe = {dial: marg_probe_run(torch, device, datasets, astro, dial)
              for dial in ("high", "highest")}
     a, b = probe["high"].pop("errors"), probe["highest"].pop("errors")
+    train["probe_errors_high"] = a
     probe["dial_error_rel"] = float(np.max(np.abs(a - b) / np.abs(b)))
     print(f"phase 5 dials: marginalised errors under 'high' against "
           f"'highest' max rel difference {probe['dial_error_rel']:.3g}; "
@@ -2625,6 +2931,122 @@ def phase_pfft(torch, device, slice_, errors_fft):
     return train, probe
 
 
+# the share of patches whose MAP argmax the JAX package documents as
+# flipping under its "default" setting on the TPU (jolideco_tpu/config.py:
+# "argmax flips on ~0.5% of patches"), printed beside phase 7's
+JAX_DEFAULT_FLIPS = 5e-3
+
+
+def flux_share(a, b):
+    """Max-abs difference of two maps as a share of the second's max."""
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def phase_default(torch, device, slice_, errors, marg_train, marg_probe):
+    """The dial's ``"default"`` setting (``"bf16"``: the GMM logits and
+    K3's products as single bf16 products on the tensor cores): the main
+    path (20 steps, fft), the marginalised path (20 steps), the pfft path
+    (20 steps) and the MAP and marginalised probes (5 steps), each with
+    exact counts (the bf16 kernels; the split and float32 GMM and K3
+    kernels and every plain version 0), its flux (or errors) against the
+    ``"high"`` run of phases 3-5 and the argmax flips of K1 bf16 against
+    K1 split at its final flux, printed beside the JAX package's
+    documented share; then a small run, card against the CPU's plain
+    path under ``"default"``."""
+    from jolideco_torch import config
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    out, fluxes = {}, {}
+    for name, marginalize, conv, ref in (
+            ("map", False, "fft", slice_["high"]["flux"]),
+            ("marginalised", True, "fft", marg_train["high"]["flux"]),
+            ("pfft", False, "pfft", slice_["high"]["flux"])):
+        if marginalize:
+            run = marg_training(torch, device, datasets, astro, "default",
+                                phase=7)
+            tag = "marginalised ('default', bf16)"
+        else:
+            run = dial_training(torch, device, datasets, astro, "default",
+                                conv)
+            tag = run["tag"]
+        fluxes[name] = run["flux"]
+        flips, n_valid = argmax_flips(torch, device, run["flux"], astro,
+                                      marginalize, ("bf16", "split"))
+        out[name] = {"launches": run["launches"],
+                     "steps_per_s": run["steps_per_s"],
+                     "peak_bytes": run["peak_bytes"],
+                     "flux_share_from_high": flux_share(run["flux"], ref),
+                     "argmax_flips": flips, "n_valid": n_valid}
+        # marg_training printed its run's line
+        line = (f"phase 7 {tag}" if marginalize else
+                f"phase 7 {tag} slice {N_OBS}x{FIELD}^2 K=200: "
+                + training_line(run))
+        print(line + f"; flux against the 'high' run: max-abs difference "
+              f"{out[name]['flux_share_from_high']:.3g} of the max; K1"
+              f"{' lse' if marginalize else ''} bf16 against split at the "
+              f"final flux: argmax differs on {flips} of {n_valid} valid "
+              f"patches ({flips / n_valid:.3%}; the JAX package documents "
+              f"about {JAX_DEFAULT_FLIPS:.1%} on the TPU)")
+    # the two convolutions under the same dial (phase 6's bar, which
+    # Adam's first step sets, holds for "high"; under "default" the
+    # argmax flips of the two runs differ, so it is printed)
+    out["pfft"]["flux_share_from_fft"] = flux_share(fluxes["pfft"],
+                                                    fluxes["map"])
+    print(f"phase 7 pfft ('default') flux against the fft run of the same "
+          f"dial: max-abs difference {out['pfft']['flux_share_from_fft']:.3g}"
+          f" of the max")
+    for name, probe, ref in (
+            ("map_probe", probe_run, errors["high"]["errors"]),
+            ("marginalised_probe", marg_probe_run,
+             marg_train["probe_errors_high"])):
+        res = probe(torch, device, datasets, astro, "default", phase=7)
+        errs = res.pop("errors")
+        res["error_rel_from_high"] = float(np.max(np.abs(errs - ref)
+                                                  / np.abs(ref)))
+        out[name] = res
+        print(f"phase 7 {name.replace('_', ' ')} ('default', bf16): errors "
+              f"against the 'high' run max rel difference "
+              f"{res['error_rel_from_high']:.3g}")
+
+    # small input: the card's bf16 kernels against the CPU's bf16 plain
+    # path, flux and errors
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    saved = config.gmm_precision()
+    config.set_gmm_precision("default")
+    try:
+        reset_counts()
+        on_card = run_slice(small, builtin, device, cycle_spin=False,
+                            compute_error=True)
+        launches, _ = counts()
+        on_cpu = run_slice(small, builtin, "cpu", cycle_spin=False,
+                           compute_error=True)
+    finally:
+        config.set_gmm_precision(saved)
+    check(launches["gmm_fused_fwd_bf16"] == STEPS
+          and launches["gmm_score_rows_bf16"] == 1
+          and not launches["gmm_fused_fwd_tc"], f"default 4x128^2: "
+          f"launches {launches}")
+    rels = {}
+    for name, limit in (("flux_upsampled_numpy", SMALL_FLUX_RTOL),
+                        ("flux_upsampled_error_numpy", SMALL_ERROR_RTOL)):
+        a = getattr(on_card.components["flux"], name)
+        b = getattr(on_cpu.components["flux"], name)
+        rels[name] = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(rels[name] <= limit, f"default 4x128^2 {name} on the card vs "
+              f"CPU: max rel err {rels[name]:.3g}")
+    out["small"] = rels
+    print(f"phase 7 small 4x128^2 ('default', bf16) card vs CPU plain path: "
+          f"flux max rel err {rels['flux_upsampled_numpy']:.3g} (limit "
+          f"{SMALL_FLUX_RTOL}), errors "
+          f"{rels['flux_upsampled_error_numpy']:.3g} (limit "
+          f"{SMALL_ERROR_RTOL})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2649,6 +3071,8 @@ def main():
     marg_train, marg_probe = phase_marginalised(torch, device)
     pfft_train, pfft_probe = phase_pfft(torch, device, slice_,
                                         errors["high"]["errors"])
+    default = phase_default(torch, device, slice_, errors, marg_train,
+                            marg_probe)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -2731,6 +3155,43 @@ def main():
          marg_probe["high"], mrows["mix"][0], mtiming["mix_ms"],
          mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
+    # the "bf16" kernels (the "default" setting), launched by phase 7
+    tc_src = "jolideco_torch/csrc/gmm_fused_tc.cu"
+    k1b = kernels[MAIN]["bf16"]
+    mb = kernels["marg_bf16"]
+    mbmain, pbmain = mb[f"{MAIN} astro"], mb[f"{MAIN} astro probe"]
+    pbe = pbmain["errors_against_float64"]
+    table += [
+        ("gmm_fused_fwd_bf16", tc_src, "jolideco_tpu/ops/gmm_fused.py:309",
+         default["map"], k1b["value_max_abs_err"], k1b["ms"], k1b["plain_ms"],
+         k1b["bound"]),
+        ("gmm_fused_fwd_marg_bf16", tc_src,
+         "jolideco_tpu/ops/gmm_fused.py:341", default["marginalised"],
+         mbmain["value_max_abs_err"], mb["timing_astro"]["fwd_ms"],
+         mb["timing_astro"]["fwd_plain_ms"], mb["bounds_astro"]["fwd"]),
+        ("gmm_fused_bwd_marg_bf16", tc_src,
+         "jolideco_tpu/ops/gmm_fused.py:420", default["marginalised"],
+         mbmain["bwd_against_float64"]["tc"], mb["timing_astro"]["bwd_ms"],
+         mb["timing_astro"]["bwd_plain_ms"], mb["bounds_astro"]["bwd"]),
+        ("gmm_score_rows_bf16", tc_src, "jolideco_tpu/ops/gmm_pallas.py:237",
+         default["map_probe"], rows["bf16"]["map"]["value_max_abs_err"],
+         rtiming["bf16_ms"], rtiming["bf16_plain_ms"], rbounds["score_bf16"]),
+        ("gmm_score_rows_marg_bf16", tc_src,
+         "jolideco_tpu/ops/gmm_pallas.py:237", default["marginalised_probe"],
+         rows["bf16"]["lse"]["value_max_abs_err"], rtiming["bf16_lse_ms"],
+         rtiming["bf16_lse_plain_ms"], rbounds["score_bf16"]),
+        ("gmm_unit_marg_bf16", tc_src, "jolideco_tpu/ops/gmm_pallas.py:384",
+         default["marginalised_probe"], pbe["unit"]["err"],
+         mb["probe_timing_astro"]["unit_ms"],
+         mb["probe_timing_astro"]["unit_plain_ms"],
+         mb["probe_bounds_astro"]["unit"]),
+        ("gmm_hvp_marg_weights_bf16", tc_src,
+         "jolideco_tpu/ops/gmm_pallas.py:406", default["marginalised_probe"],
+         max(pbe["weights_p"]["err"], pbe["weights_dp"]["err"]),
+         mb["probe_timing_astro"]["weights_ms"],
+         mb["probe_timing_astro"]["weights_plain_ms"],
+         mb["probe_bounds_astro"]["weights"]),
+    ]
     library = {name: None for name, *_ in table}
     # K3's passes, forward direction at the main path's batch; their
     # errors against float64, the larger of the two directions; library:
@@ -2756,13 +3217,22 @@ def main():
              pfft_train["high"]),
             ("pfft_cols_inv_tc", tc_src, "cols_inv_split", 460,
              max(pmain["cols_inv_tc_forward"][0],
-                 pmain["cols_inv_tc_adjoint"][0]), pfft_train["high"])):
+                 pmain["cols_inv_tc_adjoint"][0]), pfft_train["high"]),
+            ("pfft_cols_fwd_bf16", tc_src, "cols_fwd_bf16", 379,
+             pmain["cols_fwd_bf16"][0], default["pfft"]),
+            ("pfft_rows_combine_bf16", tc_src, "rows_bf16", 398,
+             max(pmain["rows_bf16_forward"][0],
+                 pmain["rows_bf16_adjoint"][0]), default["pfft"]),
+            ("pfft_cols_inv_bf16", tc_src, "cols_inv_bf16", 460,
+             max(pmain["cols_inv_bf16_forward"][0],
+                 pmain["cols_inv_bf16_adjoint"][0]), default["pfft"])):
         table.append((name, source, f"jolideco_tpu/ops/pallas_fft.py:{line}",
                       path, err, ptiming[key], ptiming[key + "_plain"],
                       pbound[key]))
         library[name] = ptiming["cufft_pair"]
     # pass 1 on the tensor cores: its own function is one torch.fft.fft
     library["pfft_cols_fwd_tc"] = ptiming["torch_fft_cols"]
+    library["pfft_cols_fwd_bf16"] = ptiming["torch_fft_cols"]
     print(json.dumps({"pfft": {
         "batch": "5 pairs of 1024^2, n = 1152",
         "errors_against_float64": {
@@ -2863,6 +3333,21 @@ def main():
                                      "peak_bytes")}
                   for dial in ("high", "highest")},
         "probe_dial_error_rel": errors["dial_error_rel"],
+    }}))
+    # the "default" setting: phase 2's bf16 kernels, phase 7's paths
+    print(json.dumps({"default_dial": {
+        "k1_bf16": {label: kernels[label]["bf16"]
+                    for label in (MAIN, "{}x{}".format(*RAGGED))},
+        **{"k1_bf16 {}x{} K=256 {}".format(*RAGGED, key): kernels[
+            f"{key}_bf16"] for key in ("wide", "cancelled")},
+        "k5_bf16": {label: patch[label]["bf16"]
+                    for label in (MAIN, "{}x{}".format(*RAGGED))},
+        **{"k5_bf16 {}x{} K=256 {}".format(*RAGGED, key): patch[
+            f"{key}_bf16"] for key in ("wide", "cancelled")},
+        "marg_bf16": mb,
+        "k3_bf16": {name: pmain[name] for name in pmain if "bf16" in name},
+        "paths": default,
+        "jax_documented_flips": JAX_DEFAULT_FLIPS,
     }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax

@@ -17,21 +17,21 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   scorer has no second derivative.
 - The precision dial (``"highest" | "high" | "default"``, the names of
   the JAX package's ``config.set_gmm_precision``), and the modes it
-  names: the matmul-DFT convolution's (:func:`pfft_mode`: ``"f32"``,
-  ``"split"``, ``"bf16"``) and the fused GMM scorer's (:func:`gmm_mode`:
-  ``"f32"`` or ``"split"``). Under ``"split"`` (the default dial,
-  ``"high"``) the matrix-DFT convolution's passes and the fused
-  scorer's logits (its MAP and logsumexp forwards and its marginalise
-  backward), and the logits of the Hessian probe's patch-level scorer,
-  MAP and logsumexp, and of its marginalise gradient and first Hessian
-  stage, run on the tensor cores as bf16 hi/lo products with float32
-  sums; ``"default"`` also takes the scorer's ``"split"`` (a
-  single-bf16 scorer is not ported). Every other kernel, and those in
-  the other modes, computes in full float32, which meets the strictest
-  bar. At import and on every dial change the
-  float32 matmul and cuDNN paths are pinned to full float32: PyTorch
-  lets cuDNN convolutions run in TF32 by default, which keeps only about
-  three decimal digits.
+  names: the matmul-DFT convolution's (:func:`pfft_mode`) and the GMM
+  scorers' (:func:`gmm_mode`), each ``"f32"``, ``"split"`` or
+  ``"bf16"``. Under ``"split"`` (the default dial, ``"high"``) the
+  matrix-DFT convolution's passes and the fused scorer's logits (its
+  MAP and logsumexp forwards and its marginalise backward), and the
+  logits of the Hessian probe's patch-level scorer, MAP and logsumexp,
+  and of its marginalise gradient and first Hessian stage, run on the
+  tensor cores as bf16 hi/lo products with float32 sums. Under
+  ``"bf16"`` (the ``"default"`` setting) the same kernels take one bf16
+  product each, with float32 sums: the JAX package's
+  ``Precision.DEFAULT`` on the TPU. Every other kernel, and those in
+  ``"f32"`` mode (``"highest"``), computes in full float32. At import
+  and on every dial change the float32 matmul and cuDNN paths are
+  pinned to full float32: PyTorch lets cuDNN convolutions run in TF32
+  by default, which keeps only about three decimal digits.
 """
 
 from contextlib import contextmanager
@@ -54,10 +54,10 @@ _PRECISIONS = ("highest", "high", "default")
 # full float32, bf16 hi/lo splits (about 3.1e-5 of the result's max-abs),
 # single bf16 products
 _PFFT_MODES = {"highest": "f32", "high": "split", "default": "bf16"}
-# the fused GMM scorer's logits per dial setting: full float32, or
-# the JAX package's "split3" logits (bf16 hi/lo products, about 1e-5
-# relative); "default" stays "split" until a single-bf16 scorer exists
-_GMM_MODES = {"highest": "f32", "high": "split", "default": "split"}
+# the GMM scorers' logits per dial setting: full float32, the JAX
+# package's "split3" logits (bf16 hi/lo products, about 1e-5 relative),
+# or its "default" ones (single bf16 products, about 4e-3)
+_GMM_MODES = {"highest": "f32", "high": "split", "default": "bf16"}
 _GMM_PRECISION = "high"
 _USE_FUSED = "auto"
 
@@ -88,8 +88,8 @@ def pfft_mode():
 
 
 def gmm_mode():
-    """The fused GMM scorer's mode (of its logits, MAP or marginalise)
-    under the current dial."""
+    """The GMM scorers' mode (of their logits, MAP or marginalise, fused
+    or patch-level) under the current dial."""
     return _GMM_MODES[_GMM_PRECISION]
 
 

@@ -1,5 +1,5 @@
 // The fused GMM scorer on Hopper's tensor cores (sm_90a), in the
-// precision dial's "split" mode: the forward, MAP (maximum) and
+// precision dial's "split" and "bf16" modes: the forward, MAP (maximum) and
 // marginalise (logsumexp), and the marginalise backward; and on rows,
 // the flux-error probe's patch-level scorer and its marginalise unit
 // gradient and Hessian weights. Built by nvcc into a shared library with
@@ -7,7 +7,10 @@
 // (jolideco_torch/utils/cuda_build.py); the wrappers, the dispatch by
 // mode and the plain PyTorch versions (mode="split") are in
 // jolideco_torch/ops/gmm_fused.py, the row kernels' wrappers in
-// jolideco_torch/ops/gmm_pallas.py. The float32 kernels ("f32" mode,
+// jolideco_torch/ops/gmm_pallas.py. Every kernel is a template over
+// kProd, the bf16 products a k16 step: 3 for "split" (precision HIGH,
+// described below), 1 for "bf16" (precision DEFAULT, at the end of this
+// header). The float32 kernels ("f32" mode,
 // the "highest" dial) and the MAP backward, which reads no logit, are
 // gmm_fused.cu's, whose header states the patch enumeration, and
 // gmm_patch.cu's.
@@ -148,6 +151,21 @@
 // too, took 1.066 ms. gmm_bwd_marg_tc_kernel's ptxas line (0 bytes
 // spilled) and time (0.860-0.871 ms) held when marg_rows was factored
 // out of it; a factoring with a separate per-tile function made it spill.
+//
+// The "bf16" instances (kProd = 1) replace the same JAX bodies under
+// precision DEFAULT, the dial's "default" setting, whose matrix unit
+// rounds each float32 operand to bf16 (round to nearest even),
+// multiplies exactly and sums in float32: u's chunk is rounded into the
+// hi plane only (put_operand), A's chunk stages its hi half only (13 KB;
+// pair_tc holds hi then lo per chunk, and hi = bf16(A), of the JAX
+// package's float32 A doubled off the diagonal: kernel_buffers' A is
+// symmetric bit for bit and bf16 doubles exactly, so u_ab (2 A_ab) is
+// the JAX form's u_ab A_ab + u_ba A_ba), and each k16 step issues one
+// mma into fresh accumulators (add_single), a third of the split's
+// tensor-core work: 0.057 ms at 1024^2, K = 200. b . x + c, the
+// reductions, the mixtures and K9a's float32 g are the split instances'
+// code. The JAX kernel's K9a computes g by the cross form at DEFAULT;
+// this one keeps g in float32, as under "split".
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -167,7 +185,7 @@ using tc::cp_async_wait;
 using tc::ldsm_x2;
 using tc::ldsm_x4;
 using tc::mma;
-using tc::put_split;
+using tc::put_operand;
 
 constexpr int kPairs = kD * (kD + 1) / 2;    // 2,080 pairs a <= b
 constexpr int kKP = 208;                     // components a tile
@@ -220,15 +238,19 @@ static_assert((kD + 1) * kKP * 4 <= kStageBytes, "b and c fit the stages");
 
 // A's chunk c of a tile (hi then lo, [component][32 pairs] each,
 // contiguous on the device) into a stage with padded rows, by the whole
-// block.
+// block: both halves for three products, the hi half for one.
+template <int kProd>
 __device__ __forceinline__ void load_stage(bf16* dst,
                                            const bf16* __restrict__ src) {
-  for (int i = threadIdx.x; i < kTileElems / 8; i += kThreads)
+  constexpr int kCopies = (kProd == 3 ? kTileElems : kTileElems / 2) / 8;
+  for (int i = threadIdx.x; i < kCopies; i += kThreads)
     cp_async16(dst + (i >> 2) * kLd + (i & 3) * 8, src + i * 8);
 }
 
-// u's chunk c for the block's patches into the hi and lo planes: thread
-// t forms pairs (2j, 2j + 1), j = t % 16, of rows t / 16 + 16 i.
+// u's chunk c for the block's patches into the hi and lo planes (hi
+// alone for one product): thread t forms pairs (2j, 2j + 1), j = t % 16,
+// of rows t / 16 + 16 i.
+template <int kProd>
 __device__ __forceinline__ void form_u(bf16* u, const float* xs,
                                        const uint16_t* pairs, int c) {
   const int j = threadIdx.x & 15;
@@ -242,8 +264,8 @@ __device__ __forceinline__ void form_u(bf16* u, const float* xs,
   for (int i = 0; i < kBlockRows / 16; ++i) {
     const int r = (threadIdx.x >> 4) + 16 * i;
     const float* x = xs + r * kXLd;
-    put_split(u_hi + r * kLd, u_lo + r * kLd, 2 * j,
-              make_float2(x[a0] * x[b0], x[a1] * x[b1]));
+    put_operand<kProd>(u_hi + r * kLd, u_lo + r * kLd, 2 * j,
+                       make_float2(x[a0] * x[b0], x[a1] * x[b1]));
   }
 }
 
@@ -274,6 +296,21 @@ __device__ __forceinline__ void add_split(float (&acc)[4],
   for (int q = 0; q < 4; ++q) acc[q] += t[q];
 }
 
+// The "bf16" mode's product hi.hi, into fresh accumulators added to acc
+// on the CUDA cores, as add_split's three.
+__device__ __forceinline__ void add_single(float (&acc)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t* bh) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, ah, bh);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] += t[q];
+}
+
+// acc += u[:, chunk] . A[chunk, warp's components]: add_split's three
+// products (kProd = 3) or add_single's one, whose lo planes are neither
+// read nor written.
+template <int kProd>
 __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
                                           const bf16* u, const bf16* stage,
                                           int wm, int wn, int lane) {
@@ -291,7 +328,7 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
       const int r = wm * 32 + mt * 16 + (lane & 15);
       const int kc = ks + (lane >> 4) * 8;
       ldsm_x4(ah[mt], u_hi + r * kLd + kc);
-      ldsm_x4(al[mt], u_lo + r * kLd + kc);
+      if constexpr (kProd == 3) ldsm_x4(al[mt], u_lo + r * kLd + kc);
     }
     // B fragments, two n8 tiles per ldmatrix.x4: matrices (n 0-7, k
     // 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15)
@@ -302,23 +339,31 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[kMT][kNT][4],
                      ((lane >> 4) << 3);
       const int kc = ks + ((lane >> 3) & 1) * 8;
       ldsm_x4(bh, b_hi + nr * kLd + kc);
-      ldsm_x4(bl, b_lo + nr * kLd + kc);
+      if constexpr (kProd == 3) ldsm_x4(bl, b_lo + nr * kLd + kc);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          add_split(acc[mt][2 * np + h], ah[mt], al[mt], bh + 2 * h,
-                    bl + 2 * h);
+        for (int mt = 0; mt < kMT; ++mt) {
+          if constexpr (kProd == 3)
+            add_split(acc[mt][2 * np + h], ah[mt], al[mt], bh + 2 * h,
+                      bl + 2 * h);
+          else
+            add_single(acc[mt][2 * np + h], ah[mt], bh + 2 * h);
+        }
     }
     // the last n8 tile: matrices (n 0-7, k 0-7), (n 0-7, k 8-15)
     uint32_t bh[2], bl[2];
     const int nr = wn * kWarpCols + (kNT - 1) * 8 + (lane & 7);
     const int kc = ks + ((lane >> 3) & 1) * 8;
     ldsm_x2(bh, b_hi + nr * kLd + kc);
-    ldsm_x2(bl, b_lo + nr * kLd + kc);
+    if constexpr (kProd == 3) ldsm_x2(bl, b_lo + nr * kLd + kc);
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-      add_split(acc[mt][kNT - 1], ah[mt], al[mt], bh, bl);
+    for (int mt = 0; mt < kMT; ++mt) {
+      if constexpr (kProd == 3)
+        add_split(acc[mt][kNT - 1], ah[mt], al[mt], bh, bl);
+      else
+        add_single(acc[mt][kNT - 1], ah[mt], bh);
+    }
   }
 }
 
@@ -343,9 +388,11 @@ __device__ __forceinline__ void build_pairs(uint16_t* pairs) {
 // rows wm*32 + mt*16 + lane/4 (+ 8) and components wn*104 + nt*8 +
 // 2 (lane % 4) (+ 1) of the tile. The one code of both kernels, so that
 // the backward recomputes, bit for bit, the logits whose logsumexp the
-// forward saved. Starts with a __syncthreads (xs and the pair table
-// written; the previous tile's readers of the stages done); ends with
-// the last chunk multiplied, the stages and u's buffers still in use.
+// forward saved; kProd products a k16 step (3 "split", 1 "bf16"). Starts
+// with a __syncthreads (xs and the pair table written; the previous
+// tile's readers of the stages done); ends with the last chunk
+// multiplied, the stages and u's buffers still in use.
+template <int kProd>
 __device__ __forceinline__ void tile_logits(float (&acc)[kMT][kNT][4],
                                             const float* xs,
                                             const uint16_t* pairs,
@@ -408,20 +455,20 @@ __device__ __forceinline__ void tile_logits(float (&acc)[kMT][kNT][4],
 
   // main loop over the pair chunks: A's chunk c + 1 streams in and u's
   // chunk c + 1 is formed while chunk c is multiplied
-  load_stage(stages, a_tile);
+  load_stage<kProd>(stages, a_tile);
   cp_async_commit();
-  form_u(us, xs, pairs, 0);
+  form_u<kProd>(us, xs, pairs, 0);
   for (int c = 0; c < kChunks; ++c) {
     cp_async_wait<0>();
     __syncthreads();  // chunk c visible to all; chunk c - 1's buffers free
     if (c + 1 < kChunks) {
-      load_stage(stages + ((c + 1) & 1) * kStageElems,
-                 a_tile + (size_t)(c + 1) * kTileElems);
+      load_stage<kProd>(stages + ((c + 1) & 1) * kStageElems,
+                        a_tile + (size_t)(c + 1) * kTileElems);
       cp_async_commit();
-      form_u(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
+      form_u<kProd>(us + ((c + 1) & 1) * kUElems, xs, pairs, c + 1);
     }
-    mma_chunk(acc, us + (c & 1) * kUElems, stages + (c & 1) * kStageElems,
-              wm, wn, lane);
+    mma_chunk<kProd>(acc, us + (c & 1) * kUElems,
+                     stages + (c & 1) * kStageElems, wm, wn, lane);
   }
 }
 
@@ -463,9 +510,9 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* raw) {
 // The scores of the block's rows n0 .. n0 + 127 (their patches in s.xs,
 // the pair table built), over every tile of components: the maximum
 // (MAP, <false>) or the logsumexp (<true>) and the lowest index among
-// equal maxima, written for the rows below n_total. The one code of K1
-// split's and K5 split's reductions.
-template <bool kMarginalize>
+// equal maxima, written for the rows below n_total. The one code of K1's
+// and K5's reductions on the tensor cores, kProd products a k16 step.
+template <bool kMarginalize, int kProd>
 __device__ __forceinline__ void score_block(const FwdSmem& s,
                                             const bf16* __restrict__ a_pairs,
                                             const float* __restrict__ bc,
@@ -483,7 +530,7 @@ __device__ __forceinline__ void score_block(const FwdSmem& s,
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kKP;
     float acc[kMT][kNT][4];
-    tile_logits(acc, s.xs, s.pairs, s.stages, s.us,
+    tile_logits<kProd>(acc, s.xs, s.pairs, s.stages, s.us,
                 a_pairs + (size_t)tile * kChunks * kTileElems,
                 bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
 
@@ -568,7 +615,7 @@ __device__ __forceinline__ void score_block(const FwdSmem& s,
   }
 }
 
-template <bool kMarginalize>
+template <bool kMarginalize, int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
                   int ny, int nx, int n_total, float sentinel,
@@ -592,7 +639,8 @@ gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
 #pragma unroll
     for (int c = 0; c < kD; ++c) s.xs[tid * kXLd + c] = x[c];
   }
-  score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
+  score_block<kMarginalize, kProd>(s, a_pairs, bc, K, n0, n_total, values,
+                                   argmax);
 }
 
 // The block's rows n0 .. n0 + 127 of a (n_total, 64) float32 array into
@@ -615,9 +663,10 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// K5 split: the scores of rows (n_total, 64) float32, already masked
-// and mean-subtracted, their patch tile loaded by load_rows.
-template <bool kMarginalize>
+// K5 split (K5 bf16 for kProd = 1): the scores of rows (n_total, 64)
+// float32, already masked and mean-subtracted, their patch tile loaded
+// by load_rows.
+template <bool kMarginalize, int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
                          const bf16* __restrict__ a_pairs,
@@ -630,7 +679,8 @@ gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
 
   build_pairs(s.pairs);
   load_rows(s.xs, kXLd, rows, n0, n_total);
-  score_block<kMarginalize>(s, a_pairs, bc, K, n0, n_total, values, argmax);
+  score_block<kMarginalize, kProd>(s, a_pairs, bc, K, n0, n_total, values,
+                                   argmax);
 }
 
 // (A_k x) entries 2 lane and 2 lane + 1 of row x (shared memory). A_k is
@@ -808,8 +858,8 @@ struct DotEntry {
 // atomics, for any K and any number of nonzero weights. Skipping a zero
 // weight is exact, and for the shipped GMMs nearly every weight
 // underflows to 0. The rows' weight sums go to wsum_s. Ends with a
-// __syncthreads.
-template <typename Entry>
+// __syncthreads. kProd products a k16 step in the logits.
+template <int kProd, typename Entry>
 __device__ __forceinline__ void marg_rows(
     const float* xs, const uint16_t* pairs, bf16* stages, bf16* us,
     const float* lse_s, float* wsum_s, const bf16* __restrict__ a_pairs,
@@ -824,7 +874,7 @@ __device__ __forceinline__ void marg_rows(
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kKP;
     float acc[kMT][kNT][4];
-    tile_logits(acc, xs, pairs, stages, us,
+    tile_logits<kProd>(acc, xs, pairs, stages, us,
                 a_pairs + (size_t)tile * kChunks * kTileElems,
                 bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
     __syncthreads();  // every warp's last chunk is multiplied
@@ -891,6 +941,7 @@ __device__ __forceinline__ void marg_rows(
   __syncthreads();
 }
 
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
                        const float* __restrict__ lse,
@@ -925,7 +976,7 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
                                                         : CUDART_INF_F;
   }
   for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
-  marg_rows(xs, s.pairs, s.stages, s.us, lse_s, s.wsum, a_pairs, bc, K,
+  marg_rows<kProd>(xs, s.pairs, s.stages, s.us, lse_s, s.wsum, a_pairs, bc, K,
             MixEntry{grad, xs, a_full, b_rows, tid & 31});
 
   // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
@@ -941,8 +992,10 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
   }
 }
 
-// K8 split: the marginalise unit gradient of rows (n_total, 64) float32
-// with K5 lse split's logsumexp, written to (n_total, 64) as whole lines.
+// K8 split (K8 bf16 for kProd = 1): the marginalise unit gradient of
+// rows (n_total, 64) float32 with K5 lse split's (bf16's) logsumexp,
+// written to (n_total, 64) as whole lines.
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
                         const float* __restrict__ lse, int n_total,
@@ -960,7 +1013,7 @@ gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
   load_rows(s.xs, kXLd, rows, n0, n_total);
   load_lse(s.lse, lse, n0, n_total);
   for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
-  marg_rows(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
+  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
             MixEntry{s.rows2, s.xs, a_full, b_rows, tid & 31});
 
   // unit = (sum_k w_k (b_k - A_k x)) / sum_k w_k
@@ -982,6 +1035,8 @@ gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
 // dp = p (g - g_ref - gbar), gbar = sum p (g - g_ref): a row whose
 // weight sits on one component gets dp = 0 exactly (gmm_patch.cu's
 // rule). dp is read only where w is nonzero, and written everywhere.
+// K9a bf16 (kProd = 1) is the same with single-bf16 logits.
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
                                const float* __restrict__ tangents,
@@ -1004,7 +1059,7 @@ gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
   // its g (s.extra)
   if (tid < kBlockRows) s.wsum[tid] = -1.f;
   const int k_last = (K - 1) / kKP * kKP;
-  marg_rows(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
+  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
             DotEntry{s.rows2, s.xs, a_full, b_rows, p, dp, s.wsum, s.extra,
                      n0, n_total, K, k_last, tid & 31});
 
@@ -1065,22 +1120,30 @@ int launch_rows(Kernel kernel, int n, void* stream, Args... args) {
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
+// The products a k16 step that the kernels are instantiated for.
+bool valid_products(int products) { return products == 1 || products == 3; }
+
 }  // namespace
 
 extern "C" {
 
 // a_pairs holds ceil(K / 208) tiles of A's chunks, bc as many tiles of b
 // and c (ops/gmm_fused.py::kernel_buffers); values are the maxima (MAP)
-// or, with marginalize, the logsumexp. Returns the first CUDA error of
-// setting the shared-memory size and the launch (0 = cudaSuccess); 1
-// (cudaErrorInvalidValue) for K < 1.
+// or, with marginalize, the logsumexp; products is 3 ("split") or 1
+// ("bf16"). Returns the first CUDA error of setting the shared-memory
+// size and the launch (0 = cudaSuccess); 1 (cudaErrorInvalidValue) for
+// K < 1 or another number of products.
 int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
                      int nx, float sentinel, const void* a_pairs,
-                     const void* bc, int K, int marginalize, void* values,
-                     void* argmax, void* valid, void* xtn, void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel =
-      marginalize ? gmm_fwd_tc_kernel<true> : gmm_fwd_tc_kernel<false>;
+                     const void* bc, int K, int marginalize, int products,
+                     void* values, void* argmax, void* valid, void* xtn,
+                     void* stream) {
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = products == 3 ? (marginalize ? gmm_fwd_tc_kernel<true, 3>
+                                             : gmm_fwd_tc_kernel<false, 3>)
+                              : (marginalize ? gmm_fwd_tc_kernel<true, 1>
+                                             : gmm_fwd_tc_kernel<false, 1>);
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
   const int groups = (gmm::kP / stride) * (gmm::kP / stride);
@@ -1095,15 +1158,20 @@ int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
-// K5 split on rows (n, 64) float32: the buffers of gmm_fused_fwd_tc;
-// values are the maxima or, with marginalize, the logsumexp. Errors as
-// gmm_fused_fwd_tc; the wrapper never calls it with n = 0.
+// K5 split or bf16 on rows (n, 64) float32: the buffers and products of
+// gmm_fused_fwd_tc; values are the maxima or, with marginalize, the
+// logsumexp. Errors as gmm_fused_fwd_tc; the wrapper never calls it with
+// n = 0.
 int gmm_score_rows_tc(const void* rows, int n, const void* a_pairs,
-                      const void* bc, int K, int marginalize, void* values,
-                      void* argmax, void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = marginalize ? gmm_score_rows_tc_kernel<true>
-                            : gmm_score_rows_tc_kernel<false>;
+                      const void* bc, int K, int marginalize, int products,
+                      void* values, void* argmax, void* stream) {
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel =
+      products == 3 ? (marginalize ? gmm_score_rows_tc_kernel<true, 3>
+                                   : gmm_score_rows_tc_kernel<false, 3>)
+                    : (marginalize ? gmm_score_rows_tc_kernel<true, 1>
+                                   : gmm_score_rows_tc_kernel<false, 1>);
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
   const int blocks = (n + kBlockRows - 1) / kBlockRows;
@@ -1119,21 +1187,23 @@ int gmm_score_rows_tc(const void* rows, int n, const void* a_pairs,
 // the forward's xtn and logsumexp (which gmm_fused_fwd_tc with
 // marginalize must have computed: the weights are exp(logit - lse) of
 // the same logits), the buffers of gmm_fused_fwd_tc and A (K, 64, 64),
-// b (K, 64). Errors as gmm_fused_fwd_tc.
+// b (K, 64), with the forward's products. Errors as gmm_fused_fwd_tc.
 int gmm_fused_bwd_marg_tc(const void* xtn, const void* lse, const void* valid,
                           const void* dvalues, const void* a_pairs,
                           const void* bc, const void* a_full,
                           const void* b_rows, int H, int W, int stride,
-                          int ny, int nx, int K, void* planes, void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+                          int ny, int nx, int K, int products, void* planes,
+                          void* stream) {
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = products == 3 ? gmm_bwd_marg_tc_kernel<3>
+                              : gmm_bwd_marg_tc_kernel<1>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      gmm_bwd_marg_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBwd);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBwd);
   const int groups = (gmm::kP / stride) * (gmm::kP / stride);
   const int n_total = groups * ny * nx;
   const int blocks = (n_total + kBlockRows - 1) / kBlockRows;
-  gmm_bwd_marg_tc_kernel<<<blocks, kThreads, kSmemBwd,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, kSmemBwd, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xtn), static_cast<const float*>(lse),
       static_cast<const float*>(valid), static_cast<const float*>(dvalues),
       static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc),
@@ -1146,13 +1216,17 @@ int gmm_fused_bwd_marg_tc(const void* xtn, const void* lse, const void* valid,
 // K8 split on rows (n, 64) float32 with lse (n,), the logsumexp that
 // gmm_score_rows_tc with marginalize computed for them (the weights are
 // exp(logit - lse) of the same logits); the buffers of gmm_fused_fwd_tc
-// and A (K, 64, 64), b (K, 64); out (n, 64). Errors as
+// and A (K, 64, 64), b (K, 64); out (n, 64); products as K5's. Errors as
 // gmm_fused_fwd_tc; the wrapper never calls it with n = 0.
 int gmm_unit_marg_tc(const void* rows, const void* lse, int n,
                      const void* a_pairs, const void* bc, const void* a_full,
-                     const void* b_rows, int K, void* out, void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_rows(gmm_unit_marg_tc_kernel, n, stream,
+                     const void* b_rows, int K, int products, void* out,
+                     void* stream) {
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(products == 3 ? gmm_unit_marg_tc_kernel<3>
+                                   : gmm_unit_marg_tc_kernel<1>,
+                     n, stream,
                      static_cast<const float*>(rows),
                      static_cast<const float*>(lse), n,
                      static_cast<const bf16*>(a_pairs),
@@ -1167,10 +1241,13 @@ int gmm_unit_marg_tc(const void* rows, const void* lse, int n,
 int gmm_hvp_marg_weights_tc(const void* rows, const void* tangents,
                             const void* lse, int n, const void* a_pairs,
                             const void* bc, const void* a_full,
-                            const void* b_rows, int K, void* p, void* dp,
-                            void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_rows(gmm_hvp_marg_weights_tc_kernel, n, stream,
+                            const void* b_rows, int K, int products, void* p,
+                            void* dp, void* stream) {
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(products == 3 ? gmm_hvp_marg_weights_tc_kernel<3>
+                                   : gmm_hvp_marg_weights_tc_kernel<1>,
+                     n, stream,
                      static_cast<const float*>(rows),
                      static_cast<const float*>(tangents),
                      static_cast<const float*>(lse), n,

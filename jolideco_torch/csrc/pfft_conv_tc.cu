@@ -1,10 +1,12 @@
 // The three passes of the pair-packed matrix-DFT convolution on Hopper's
-// tensor cores (sm_90a), in the precision dial's "split" mode. Built by
-// nvcc into a shared library with a plain C interface and loaded with
-// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers, the
-// dispatch by mode and the plain PyTorch version (mode="split") are in
-// jolideco_torch/ops/pallas_fft.py. The "f32" mode is the float32
-// kernels of pfft_conv.cu, whose header states the algorithm.
+// tensor cores (sm_90a), in the precision dial's "split" and "bf16"
+// modes. Built by nvcc into a shared library with a plain C interface
+// and loaded with ctypes (jolideco_torch/utils/cuda_build.py); the
+// wrappers, the dispatch by mode and the plain PyTorch version
+// (mode="split", mode="bf16") are in jolideco_torch/ops/pallas_fft.py.
+// The "f32" mode is the float32 kernels of pfft_conv.cu, whose header
+// states the algorithm. Every kernel is a template over kProd, the bf16
+// products a k16 step: 3 for "split", 1 for "bf16".
 //
 // "split" is the JAX package's _dot in split mode: both operands of each
 // stage-B product split into bf16 high and low parts (hi = bf16(x), lo =
@@ -17,6 +19,15 @@
 // (c0, c1) of an m16n8k16 mma is one complex output, and the epilogues
 // work on whole complex values. That is 4 real products per complex one
 // where the TPU uses Karatsuba's 3; it rounds no re + im sums.
+//
+// "bf16" is the JAX package's _dot in bf16 mode (the dial's "default"):
+// both operands rounded to bf16, one product summed in float32. Here the
+// operand is rounded into its hi plane only (put_operand), each stage
+// copies the hi half of R's tile (hi = bf16(R): the split tables' hi
+// planes), and each k16 step issues one mma where "split" issues three.
+// The JAX package also rounds Karatsuba's sr + si to bf16; the
+// interleaved form has no such sum, so its error is at most the JAX
+// package's (1.3e-2 of the result's max-abs, documented).
 //
 // ---------------------------------------------------------------------
 // Three kernels, one per pass over device memory:
@@ -133,20 +144,25 @@ using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::ldsm_x4;
 using tc::mma;
-using tc::put_split;
+using tc::put_operand;
 
 // One tile of R (hi and lo, [n][32] each, contiguous in device memory)
-// into a stage with padded rows, by the whole block.
+// into a stage with padded rows, by the whole block: both planes for
+// three products, the hi plane for one.
+template <int kProd>
 __device__ __forceinline__ void load_stage(bf16* dst,
                                            const bf16* __restrict__ src) {
-  for (int c = threadIdx.x; c < kTileElems / 8; c += kThreads)
+  constexpr int kCopies = (kProd == 3 ? kTileElems : kTileElems / 2) / 8;
+  for (int c = threadIdx.x; c < kCopies; c += kThreads)
     cp_async16(dst + (c >> 2) * kLdB + (c & 3) * 8, src + c * 8);
 }
 
 // acc += A[:, k0 : k0 + 32] . R[k0 : k0 + 32, warp's 32 columns] in the
-// three split products; A has MT * 16 rows (planes a_hi, a_lo), the
-// stage holds the tile as [n][k] (planes b_hi, b_lo).
-template <int MT>
+// three split products (kProd = 3) or the one product hi.hi (kProd = 1,
+// whose lo planes are neither read nor written); A has MT * 16 rows
+// (planes a_hi, a_lo), the stage holds the tile as [n][k] (planes b_hi,
+// b_lo).
+template <int MT, int kProd>
 __device__ __forceinline__ void mma_tile(float (&acc)[MT][4][4],
                                          const bf16* a_hi, const bf16* a_lo,
                                          int k0, const bf16* b_hi,
@@ -164,7 +180,7 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][4][4],
                      ((lane >> 4) << 3);
       const int kc = ks + ((lane >> 3) & 1) * 8;
       ldsm_x4(bh[np], b_hi + nr * kLdB + kc);
-      ldsm_x4(bl[np], b_lo + nr * kLdB + kc);
+      if constexpr (kProd == 3) ldsm_x4(bl[np], b_lo + nr * kLdB + kc);
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -174,13 +190,15 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][4][4],
       const int r = mt * 16 + (lane & 15);
       const int kc = k0 + ks + (lane >> 4) * 8;
       ldsm_x4(ah, a_hi + r * kLdA + kc);
-      ldsm_x4(al, a_lo + r * kLdA + kc);
+      if constexpr (kProd == 3) ldsm_x4(al, a_lo + r * kLdA + kc);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const uint32_t* bhp = &bh[nt >> 1][(nt & 1) * 2];
-        const uint32_t* blp = &bl[nt >> 1][(nt & 1) * 2];
-        mma(acc[mt][nt], al, bhp);
-        mma(acc[mt][nt], ah, blp);
+        if constexpr (kProd == 3) {
+          const uint32_t* blp = &bl[nt >> 1][(nt & 1) * 2];
+          mma(acc[mt][nt], al, bhp);
+          mma(acc[mt][nt], ah, blp);
+        }
         mma(acc[mt][nt], ah, bhp);
       }
     }
@@ -191,8 +209,8 @@ __device__ __forceinline__ void mma_tile(float (&acc)[MT][4][4],
 // block's stream of T tiles (src(t) is tile t's address): each tile's
 // successor is copied into the other stage while it is multiplied. The
 // caller has issued tile t0 (or the stream's first tile). On return
-// every warp is done with A and both stages.
-template <int MT, class Src>
+// every warp is done with A and both stages. kProd products a k16 step.
+template <int MT, int kProd, class Src>
 __device__ __forceinline__ void product(float (&acc)[MT][4][4],
                                         const bf16* a_hi, const bf16* a_lo,
                                         bf16* stages, int t0, int T,
@@ -206,7 +224,7 @@ __device__ __forceinline__ void product(float (&acc)[MT][4][4],
   for (int kt = 0; kt < kTiles; ++kt) {
     const int t = t0 + kt;
     if (t + 1 < T) {
-      load_stage(stages + ((t + 1) & 1) * kStageElems, src(t + 1));
+      load_stage<kProd>(stages + ((t + 1) & 1) * kStageElems, src(t + 1));
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -214,7 +232,7 @@ __device__ __forceinline__ void product(float (&acc)[MT][4][4],
     }
     __syncthreads();  // tile t and the operand are visible to all
     const bf16* b = stages + (t & 1) * kStageElems;
-    mma_tile<MT>(acc, a_hi, a_lo, kt * kKTile, b, b + kK * kLdB);
+    mma_tile<MT, kProd>(acc, a_hi, a_lo, kt * kKTile, b, b + kK * kLdB);
     __syncthreads();  // stage t & 1 is free for tile t + 2
   }
 }
@@ -223,6 +241,7 @@ __device__ __forceinline__ void product(float (&acc)[MT][4][4],
 // pass 2: lane forward, spectrum combine, lane inverse and permuted
 // forward, columns cropped to W
 
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 pfft_rows_tc_kernel(const float2* __restrict__ u,
                     const float* __restrict__ a_re,
@@ -262,7 +281,7 @@ pfft_rows_tc_kernel(const float2* __restrict__ u,
     const bf16* tab = (t / kTiles) % 2 ? ri : rf;
     return tab + ((size_t)k2 * kTiles + kt) * kTileElems;
   };
-  load_stage(stages, src(0));
+  load_stage<kProd>(stages, src(0));
   cp_async_commit();
 
   for (int k2 = 0; k2 < m; ++k2) {
@@ -291,14 +310,16 @@ pfft_rows_tc_kernel(const float2* __restrict__ u,
 #pragma unroll
       for (int i = 0; i < kStageA; ++i) {
         const int e = threadIdx.x + i * kThreads;
-        put_split(f_hi, f_lo, (e / kLane) * kLdA + 2 * (e % kLane), s[i]);
+        put_operand<kProd>(f_hi, f_lo, (e / kLane) * kLdA + 2 * (e % kLane),
+                           s[i]);
       }
     }
 
     // Z = S mf[k2]; then A . Z and conj(B2) . Z into the next operand
     {
       float acc[kMtRows][4][4];
-      product<kMtRows>(acc, f_hi, f_lo, stages, 2 * kTiles * k2, T, src);
+      product<kMtRows, kProd>(acc, f_hi, f_lo, stages, 2 * kTiles * k2, T,
+                              src);
 #pragma unroll
       for (int mt = 0; mt < kMtRows; ++mt)
 #pragma unroll
@@ -312,8 +333,9 @@ pfft_rows_tc_kernel(const float2* __restrict__ u,
             const size_t spec = (row0 + r) * n + kLane * k2 + j;
             const float2 a = make_float2(a_re[spec], asign * a_im[spec]);
             const float2 bc = make_float2(b_re[spec], -asign * b_im[spec]);
-            put_split(i_hi, i_lo, r * kLdA + 2 * j, cmul(a, z));
-            put_split(i_hi, i_lo, (kRows + r) * kLdA + 2 * j, cmul(bc, z));
+            put_operand<kProd>(i_hi, i_lo, r * kLdA + 2 * j, cmul(a, z));
+            put_operand<kProd>(i_hi, i_lo, (kRows + r) * kLdA + 2 * j,
+                               cmul(bc, z));
           }
     }
 
@@ -323,7 +345,8 @@ pfft_rows_tc_kernel(const float2* __restrict__ u,
     {
       constexpr int MT = 2 * kMtRows;
       float acc[MT][4][4];
-      product<MT>(acc, i_hi, i_lo, stages, 2 * kTiles * k2 + kTiles, T, src);
+      product<MT, kProd>(acc, i_hi, i_lo, stages, 2 * kTiles * k2 + kTiles,
+                         T, src);
       float2* dst[MT][2];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -370,6 +393,7 @@ pfft_rows_tc_kernel(const float2* __restrict__ u,
 // pass 3: axis-0 inverse (V1) plus permuted forward (V2), rows cropped
 // to H
 
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
                         const float2* __restrict__ v2, int P, int H, int W,
@@ -393,7 +417,7 @@ pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
 
   const int T = kTiles * m;
   auto src = [&](int t) { return ri + (size_t)t * kTileElems; };
-  load_stage(stages, src(0));
+  load_stage<kProd>(stages, src(0));
   cp_async_commit();
   const size_t out0 = (size_t)p * H * W + c0;
 
@@ -414,15 +438,15 @@ pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
       const int e = threadIdx.x + i * kThreads;
       const int k1 = e / kCols, c = e % kCols;
       const float2 a = va[i], b = vb[i];
-      put_split(o_hi, o_lo, c * kLdA + 2 * k1,
-                make_float2(a.x + b.x, a.y - b.y));
-      put_split(o_hi, o_lo, (kCols + c) * kLdA + 2 * k1,
-                make_float2(a.x - b.x, a.y + b.y));
+      put_operand<kProd>(o_hi, o_lo, c * kLdA + 2 * k1,
+                         make_float2(a.x + b.x, a.y - b.y));
+      put_operand<kProd>(o_hi, o_lo, (kCols + c) * kLdA + 2 * k1,
+                         make_float2(a.x - b.x, a.y + b.y));
     }
 
     constexpr int MT = 2 * kMtCols;
     float acc[MT][4][4];
-    product<MT>(acc, o_hi, o_lo, stages, kTiles * k2, T, src);
+    product<MT, kProd>(acc, o_hi, o_lo, stages, kTiles * k2, T, src);
     // y0 += Re(w G+), y1 += Im(w G-); per output block a, all the loads
     // of a thread first, then its stores, as in pfft_rows_tc_kernel
     float* dst[MT][2];
@@ -481,7 +505,7 @@ constexpr int kFwdElems = kLane * kCols / kThreads;  // (n1, c) of a thread
 constexpr int kSmemColsFwd = (2 * kStageElems + 2 * kChunk * kCols * kLdA) * 2;
 static_assert(kSmemColsFwd <= 232448, "pass 1 fits a block's shared memory");
 
-template <bool kResident>
+template <bool kResident, int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
                         const float* __restrict__ x1, int P, int H, int W,
@@ -508,7 +532,7 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
   const int chunks = (m + kChunk - 1) / kChunk;
   const int T = kTiles * chunks;
   auto src = [&](int t) { return rf + (size_t)(t % kTiles) * kTileElems; };
-  load_stage(stages, src(0));
+  load_stage<kProd>(stages, src(0));
   cp_async_commit();
 
   // a thread's elements e = threadIdx.x + i kThreads of each 128-row
@@ -564,8 +588,8 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
         const int e = threadIdx.x + i * kThreads;
         const int n1 = e / kCols;
         const float2 t = k2 < m ? tw[k2 * kLane + n1] : make_float2(0.f, 0.f);
-        put_split(s_hi, s_lo, (kk * kCols + e % kCols) * kLdA + 2 * n1,
-                  cmul(t, s[i]));
+        put_operand<kProd>(s_hi, s_lo, (kk * kCols + e % kCols) * kLdA + 2 * n1,
+                           cmul(t, s[i]));
       }
     }
 
@@ -573,7 +597,7 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
     // pair (kk, nt, half) is k2 = kChunk ch + kk, row c = g + 8 half,
     // complex column k1
     float acc[kChunk][4][4];
-    product<kChunk>(acc, s_hi, s_lo, stages, kTiles * ch, T, src);
+    product<kChunk, kProd>(acc, s_hi, s_lo, stages, kTiles * ch, T, src);
 #pragma unroll
     for (int kk = 0; kk < kChunk; ++kk) {
       const int k2 = kChunk * ch + kk;
@@ -596,15 +620,27 @@ int finish(cudaError_t attr) {
   return (int)(attr != cudaSuccess ? attr : launch);
 }
 
+// The products a k16 step that the kernels are instantiated for.
+bool valid_products(int products) { return products == 1 || products == 3; }
+
 }  // namespace
 
 extern "C" {
 
+// Each pass takes products, 3 ("split") or 1 ("bf16"), and returns the
+// first CUDA error of setting the shared-memory size and the launch (0 =
+// cudaSuccess); 1 (cudaErrorInvalidValue) for another number of
+// products.
 int pfft_cols_fwd_tc(const float* x0, const float* x1, int P, int H,
                      int W, int m, const void* rf, const float2* wf,
-                     const float2* tw, float2* u, cudaStream_t stream) {
-  auto kernel = H <= kLane * kResidentBlocks ? pfft_cols_fwd_tc_kernel<true>
-                                             : pfft_cols_fwd_tc_kernel<false>;
+                     const float2* tw, float2* u, int products,
+                     cudaStream_t stream) {
+  if (!valid_products(products)) return (int)cudaErrorInvalidValue;
+  const bool resident = H <= kLane * kResidentBlocks;
+  auto kernel = products == 3 ? (resident ? pfft_cols_fwd_tc_kernel<true, 3>
+                                          : pfft_cols_fwd_tc_kernel<false, 3>)
+                              : (resident ? pfft_cols_fwd_tc_kernel<true, 1>
+                                          : pfft_cols_fwd_tc_kernel<false, 1>);
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemColsFwd);
   const int blocks = P * (W / kCols);
@@ -617,13 +653,15 @@ int pfft_rows_tc(const float2* u, const float* a_re, const float* a_im,
                  const float* b_re, const float* b_im, int P, int W, int m,
                  int conj_spec, const void* rf, const void* ri,
                  const float2* wf, const float2* wi, float2* v1, float2* v2,
-                 cudaStream_t stream) {
+                 int products, cudaStream_t stream) {
+  if (!valid_products(products)) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      products == 3 ? pfft_rows_tc_kernel<3> : pfft_rows_tc_kernel<1>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      pfft_rows_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemRows);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemRows);
   const int blocks = P * (kLane * m / kRows);
   const float asign = conj_spec ? -1.f : 1.f;
-  pfft_rows_tc_kernel<<<blocks, kThreads, kSmemRows, stream>>>(
+  kernel<<<blocks, kThreads, kSmemRows, stream>>>(
       u, a_re, a_im, b_re, b_im, P, W, m, asign,
       static_cast<const bf16*>(rf), static_cast<const bf16*>(ri), wf, wi, v1,
       v2);
@@ -632,12 +670,14 @@ int pfft_rows_tc(const float2* u, const float* a_re, const float* a_im,
 
 int pfft_cols_inv_tc(const float2* v1, const float2* v2, int P, int H, int W,
                      int m, const void* ri, const float2* wi, float* y0,
-                     float* y1, cudaStream_t stream) {
+                     float* y1, int products, cudaStream_t stream) {
+  if (!valid_products(products)) return (int)cudaErrorInvalidValue;
+  auto kernel =
+      products == 3 ? pfft_cols_inv_tc_kernel<3> : pfft_cols_inv_tc_kernel<1>;
   const cudaError_t attr = cudaFuncSetAttribute(
-      pfft_cols_inv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemColsInv);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemColsInv);
   const int blocks = P * (W / kCols);
-  pfft_cols_inv_tc_kernel<<<blocks, kThreads, kSmemColsInv, stream>>>(
+  kernel<<<blocks, kThreads, kSmemColsInv, stream>>>(
       v1, v2, P, H, W, m, static_cast<const bf16*>(ri), wi, y0, y1);
   return finish(attr);
 }

@@ -1,9 +1,11 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a), shared by the
-// kernels of the precision dial's "split" mode: pfft_conv_tc.cu (K3's
-// passes 2 and 3) and gmm_fused_tc.cu (K1's MAP forward). Copies into
-// shared memory with cp.async, fragments from shared memory with
-// ldmatrix, the mma.sync m16n8k16 product (bf16 operands, float32
-// accumulators) and the bf16 hi/lo split of an operand pair.
+// kernels of the precision dial's "split" and "bf16" modes:
+// pfft_conv_tc.cu (K3's three passes) and gmm_fused_tc.cu (the GMM
+// logits). Copies into shared memory with cp.async, fragments from
+// shared memory with ldmatrix, the mma.sync m16n8k16 product (bf16
+// operands, float32 accumulators) and an operand pair put into the bf16
+// planes of either mode: its hi/lo split (three products) or its bf16
+// rounding (one product).
 
 #pragma once
 
@@ -70,6 +72,20 @@ __device__ __forceinline__ void put_split(bf16* hi, bf16* lo, int idx,
   *reinterpret_cast<__nv_bfloat162*>(hi + idx) = h;
   *reinterpret_cast<__nv_bfloat162*>(lo + idx) =
       __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y));
+}
+
+// The pair v into operand columns (idx, idx + 1) of the planes of a
+// mode of kProducts bf16 products a k16 step: split into hi and lo for
+// 3 ("split"), rounded to bf16 into hi alone for 1 ("bf16", the TPU's
+// Precision.DEFAULT: the same hi).
+template <int kProducts>
+__device__ __forceinline__ void put_operand(bf16* hi, bf16* lo, int idx,
+                                            float2 v) {
+  static_assert(kProducts == 1 || kProducts == 3, "one or three products");
+  if constexpr (kProducts == 3)
+    put_split(hi, lo, idx, v);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(hi + idx) = __float22bfloat162_rn(v);
 }
 
 }  // namespace tc

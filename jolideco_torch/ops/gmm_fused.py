@@ -21,15 +21,19 @@ Each direction has two implementations with one contract:
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
 
-The logits have two modes, which the precision dial names
+The logits have three modes, which the precision dial names
 (``config.gmm_mode``) and the caller passes down: ``"f32"``, full
-float32, and ``"split"``, the JAX package's logits at precision HIGH:
-the quadratic form as a product of the pair products ``x_a x_b`` (``a <=
+float32; ``"split"``, the JAX package's logits at precision HIGH: the
+quadratic form as a product of the pair products ``x_a x_b`` (``a <=
 b``) with ``A`` (off-diagonals doubled), both split into bf16 hi and lo
 parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
-``b . x`` in float32. Its kernels run on the tensor cores
-(``csrc/gmm_fused_tc.cu``), its plain versions as three float32 matmuls
-of the bf16-valued parts. The mode reaches both forwards (maximum and
+``b . x`` in float32; and ``"bf16"``, its logits at precision DEFAULT
+(what the TPU's matrix unit does with float32 operands): the same
+operands rounded to bf16, one product hi.hi summed in float32, ``b . x``
+in float32. The two bf16 modes' kernels run on the tensor cores
+(``csrc/gmm_fused_tc.cu``, one code with three products or one), their
+plain versions as float32 matmuls of the bf16-valued parts. The mode
+reaches both forwards (maximum and
 logsumexp) and the marginalise backward, which recomputes the logits
 in the mode of the forward that saved their logsumexp: with logits of
 1e5 to 1e8, the softmax weights are only right against an lse of the
@@ -58,15 +62,19 @@ import numpy as np
 import torch
 
 from ..config import dispatch
-from .linalg import bf16_split
+from .linalg import bf16_round, bf16_split
 
 __all__ = [
     "fused_patch_count",
     "fused_supported",
+    "bf16_logit_chunks",
     "gmm_fused_bwd_cuda",
+    "gmm_fused_bwd_marg_bf16_cuda",
     "gmm_fused_bwd_marg_cuda",
     "gmm_fused_bwd_marg_tc_cuda",
+    "gmm_fused_fwd_bf16_cuda",
     "gmm_fused_fwd_cuda",
+    "gmm_fused_fwd_marg_bf16_cuda",
     "gmm_fused_fwd_marg_cuda",
     "gmm_fused_fwd_marg_tc_cuda",
     "gmm_fused_fwd_tc_cuda",
@@ -76,10 +84,14 @@ __all__ = [
     "gmm_score_fused_image",
     "kernel_buffers",
     "logit_chunks",
+    "marg_unit_bf16_plain",
     "marg_unit_rows",
     "marg_unit_split_plain",
     "mix_rows",
+    "mode_logit_chunks",
     "reset_counters",
+    "score_bf16_marg_plain",
+    "score_bf16_plain",
     "score_plain",
     "score_split_marg_plain",
     "score_split_plain",
@@ -103,7 +115,9 @@ PAIRS = len(PAIR_A)
 # KP_TC (the last padded), pairs in chunks of TC_CHUNK
 KP_TC = 208
 TC_CHUNK = 32
-MODES = ("f32", "split")
+MODES = ("f32", "split", "bf16")
+# bf16 products per k16 step of the tensor-core kernels, by mode
+TC_PRODUCTS = {"split": 3, "bf16": 1}
 
 
 def fused_supported(image_shape, patch_shape, stride, n_features):
@@ -168,15 +182,19 @@ def _pair_rows(a_quad):
 
 
 def _split_buffers(a_quad, bq, const2):
-    """The ``"split"`` mode's buffers.
+    """The buffers of the ``"split"`` and ``"bf16"`` modes.
 
     ``pair_hi``, ``pair_lo (PAIRS, K)``: the bf16 hi/lo split of the
-    pair-major ``A`` (float32 holding bf16 values), for the plain version.
-    For the tensor-core kernel, whose blocks take the components in
+    pair-major ``A`` (float32 holding bf16 values), for the plain
+    versions; ``pair_hi`` alone is the ``"bf16"`` mode's operand, bf16
+    of the JAX package's float32 ``A`` (doubled off the diagonal, which
+    bf16 does exactly).
+    For the tensor-core kernels, whose blocks take the components in
     ``T = ceil(K / KP_TC)`` tiles: ``pair_tc`` bf16 ``(T, PAIRS /
     TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same parts tile by tile and
     chunk by chunk (hi then lo, each component's pairs of the chunk
-    contiguous, the last tile padded with zero components), and ``bc (T,
+    contiguous, the last tile padded with zero components; the
+    ``"bf16"`` kernels read the hi half of each chunk), and ``bc (T,
     d + 1, KP_TC)`` float32, ``b`` component-minor with ``c`` as its
     last row.
     """
@@ -207,7 +225,10 @@ def kernel_buffers(packed, device):
     and ``b_bwd (K, d)`` for the MAP backward kernel: ``A`` less its
     column means, transposed (``[c][r]``), and ``b`` less its mean, so
     that ``dv (b_bwd - a_bwd^T x)`` is ``u - mean(u)``, and the
-    ``"split"`` mode's buffers (:func:`_split_buffers`).
+    buffers of the ``"split"`` and ``"bf16"`` modes
+    (:func:`_split_buffers`). ``a_full`` is symmetric bit for bit (the
+    packing forms it as ``P diag(w) P^T``), which the pair form's
+    doubled off-diagonals rely on.
     """
     aq = np.asarray(packed["aq"], np.float32)
     bq = np.asarray(packed["bq"], np.float32)
@@ -265,14 +286,22 @@ def logit_chunks(xtn, aq, bq, const2):
         yield -0.5 * (u @ aq) + x @ bq + const2
 
 
+def mode_logit_chunks(x, bufs, mode):
+    """The logit chunks of ``mode``: :func:`logit_chunks`,
+    :func:`split_logit_chunks` or :func:`bf16_logit_chunks`."""
+    if mode == "split":
+        return split_logit_chunks(x, bufs)
+    if mode == "bf16":
+        return bf16_logit_chunks(x, bufs)
+    return logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"])
+
+
 def softmax_chunks(x, lse, bufs, mode="f32"):
     """Per chunk of rows, ``(slice, p)`` with ``p (rows, K)`` the softmax
     ``exp(logit - lse)`` renormalised against the recomputed logits (the
     JAX package's rule: the result does not depend on the lse's
-    rounding), the logits of ``mode`` (:func:`logit_chunks` or
-    :func:`split_logit_chunks`)."""
-    chunks = (split_logit_chunks(x, bufs) if mode == "split" else
-              logit_chunks(x, bufs["aq"], bufs["bq"], bufs["const2"]))
+    rounding), the logits of ``mode`` (:func:`mode_logit_chunks`)."""
+    chunks = mode_logit_chunks(x, bufs, mode)
     for start, logits in zip(range(0, x.shape[0], PLAIN_CHUNK), chunks):
         sl = slice(start, start + PLAIN_CHUNK)
         p = torch.exp(logits - lse[sl, None])
@@ -304,6 +333,14 @@ def marg_unit_split_plain(x, lse, bufs):
     return marg_unit_rows(x, lse, bufs, "split")
 
 
+def marg_unit_bf16_plain(x, lse, bufs):
+    """:func:`marg_unit_rows` in the ``"bf16"`` mode: the softmax over
+    the single-bf16 logits against ``lse``, a logsumexp of the same
+    logits (:func:`score_bf16_marg_plain`), then the float32 mixture."""
+    marg_unit_bf16_plain.calls += 1
+    return marg_unit_rows(x, lse, bufs, "bf16")
+
+
 def _scores(x, chunks, marginalize):
     """Values and argmax of rows ``x (n, d)`` from their logit chunks
     ``(rows, K)``: the maximum or the logsumexp, and the lowest index
@@ -332,6 +369,42 @@ def split_logit_chunks(xtn, bufs):
         u_hi, u_lo = bf16_split(x[:, pa] * x[:, pb])
         q = (u_hi @ a_hi + u_hi @ a_lo) + u_lo @ a_hi
         yield -0.5 * q + x @ bufs["bq"] + bufs["const2"]
+
+
+def bf16_logit_chunks(xtn, bufs):
+    """The ``"bf16"`` mode's logits ``(rows, K)`` of normalised patches
+    ``(n, d)``, chunk by chunk: the JAX package's logits at precision
+    DEFAULT on the TPU, whose matrix unit rounds each float32 operand to
+    bf16 (round to nearest even), multiplies exactly and sums in float32.
+    The pair products ``x_a x_b`` (formed in float32) and the pair-major
+    ``A`` (``pair_hi``) rounded to bf16, one float32 matmul of the
+    bf16-valued operands (TF32 stays off, as ``config`` pins it), and
+    ``b . x`` in float32 (the JAX package's HIGHEST). Off the diagonal the
+    pair form holds ``A_ab + A_ba = 2 A_ab`` (``A`` is symmetric bit for
+    bit, and bf16 doubles exactly), so each pair's product is the sum of
+    the JAX package's two products ``u_ab A_ab`` and ``u_ba A_ba``."""
+    a_hi = bufs["pair_hi"]
+    pa = torch.as_tensor(PAIR_A, device=xtn.device)
+    pb = torch.as_tensor(PAIR_B, device=xtn.device)
+    for start in range(0, xtn.shape[0], PLAIN_CHUNK):
+        x = xtn[start:start + PLAIN_CHUNK]
+        u_hi = bf16_round(x[:, pa] * x[:, pb])
+        yield -0.5 * (u_hi @ a_hi) + x @ bufs["bq"] + bufs["const2"]
+
+
+def score_bf16_plain(xtn, bufs):
+    """MAP scores of normalised patches ``(n, d)`` in the ``"bf16"``
+    mode: values and argmax (the lowest index among equal maxima)."""
+    score_bf16_plain.calls += 1
+    return _scores(xtn, bf16_logit_chunks(xtn, bufs), False)
+
+
+def score_bf16_marg_plain(xtn, bufs):
+    """Marginalise scores of normalised patches ``(n, d)`` in the
+    ``"bf16"`` mode: the logsumexp of the single-bf16 logits, and their
+    argmax (the lowest index among equal maxima)."""
+    score_bf16_marg_plain.calls += 1
+    return _scores(xtn, bf16_logit_chunks(xtn, bufs), True)
 
 
 def score_split_plain(xtn, bufs):
@@ -367,8 +440,9 @@ def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
     Returns ``(values (N,), argmax (N,) int32, valid (N,) float32,
     xtn (N, 64))`` with ``xtn`` the masked, mean-subtracted patches and
     ``values`` the maximum (MAP) or logsumexp (``marginalize``) of the
-    logits, in full float32 (``mode="f32"``) or the ``"split"`` mode's
-    logits (:func:`split_logit_chunks`).
+    logits, in full float32 (``mode="f32"``) or the logits of the
+    ``"split"`` or ``"bf16"`` mode (:func:`split_logit_chunks`,
+    :func:`bf16_logit_chunks`).
     """
     _check_mode(mode)
     fused_forward_plain.calls += 1
@@ -386,12 +460,11 @@ def fused_forward_plain(image, bufs, stride, sentinel, marginalize=False,
     valid = masks.reshape(-1) & torch.all(patches > sentinel, dim=1)
     x = torch.where(valid[:, None], patches, torch.zeros_like(patches))
     xtn = x - x.mean(dim=1, keepdim=True)
-    if mode == "split":
-        score = score_split_marg_plain if marginalize else score_split_plain
-        values, argmax = score(xtn, bufs)
-    else:
+    if mode == "f32":
         values, argmax = score_plain(xtn, bufs["aq"], bufs["bq"],
                                      bufs["const2"], marginalize)
+    else:
+        values, argmax = PLAIN_SCORES[mode, marginalize](xtn, bufs)
     return values, argmax, valid.to(image.dtype), xtn
 
 
@@ -416,10 +489,21 @@ def fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs, image_shape,
     logsumexp ``lse``, whose logits (``mode``) the softmax recomputes."""
     _check_mode(mode)
     fused_backward_marg_plain.calls += 1
-    unit = (marg_unit_split_plain(xtn, lse, bufs) if mode == "split"
-            else marg_unit_rows(xtn, lse, bufs))
+    unit = (marg_unit_rows(xtn, lse, bufs) if mode == "f32"
+            else PLAIN_UNITS[mode](xtn, lse, bufs))
     u = dvalues[:, None] * unit
     return _patches_to_image(u, valid, image_shape, stride)
+
+
+# the plain scorers of the bf16 modes by (mode, marginalize), and their
+# marginalise unit gradients by mode
+PLAIN_SCORES = {
+    ("split", False): score_split_plain,
+    ("split", True): score_split_marg_plain,
+    ("bf16", False): score_bf16_plain,
+    ("bf16", True): score_bf16_marg_plain,
+}
+PLAIN_UNITS = {"split": marg_unit_split_plain, "bf16": marg_unit_bf16_plain}
 
 
 def _patches_to_image(u, valid, image_shape, stride):
@@ -457,18 +541,20 @@ def _tc_library():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gmm_fused_fwd_tc.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, vp,
-                                         ci, ci, vp, vp, vp, vp, vp]
+                                         ci, ci, ci, vp, vp, vp, vp, vp]
         lib.gmm_fused_fwd_tc.restype = ci
         lib.gmm_fused_bwd_marg_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                              ci, ci, ci, ci, ci, ci, vp, vp]
+                                              ci, ci, ci, ci, ci, ci, ci, vp,
+                                              vp]
         lib.gmm_fused_bwd_marg_tc.restype = ci
-        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp]
+        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp,
+                                          vp]
         lib.gmm_score_rows_tc.restype = ci
-        lib.gmm_unit_marg_tc.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, vp,
-                                         vp]
+        lib.gmm_unit_marg_tc.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
+                                         vp, vp]
         lib.gmm_unit_marg_tc.restype = ci
         lib.gmm_hvp_marg_weights_tc.argtypes = [vp, vp, vp, ci, vp, vp, vp,
-                                                vp, ci, vp, vp, vp]
+                                                vp, ci, ci, vp, vp, vp]
         lib.gmm_hvp_marg_weights_tc.restype = ci
         lib.gmm_fused_tc_error_string.argtypes = [ci]
         lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
@@ -547,7 +633,7 @@ def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
     tensor cores (``csrc/gmm_fused_tc.cu``); same outputs as
     :func:`fused_forward_plain` with ``mode="split"``. Any number of
     components, in tiles of ``KP_TC``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, False)
+    out = _launch_forward_tc(image, bufs, stride, sentinel, False, "split")
     gmm_fused_fwd_tc_cuda.launches += 1
     return out
 
@@ -556,13 +642,32 @@ def gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel):
     """Launch the marginalise (logsumexp) forward kernel of the
     ``"split"`` mode on the tensor cores; same outputs as
     :func:`fused_forward_plain` with ``marginalize=True, mode="split"``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, True)
+    out = _launch_forward_tc(image, bufs, stride, sentinel, True, "split")
     gmm_fused_fwd_marg_tc_cuda.launches += 1
     return out
 
 
+def gmm_fused_fwd_bf16_cuda(image, bufs, stride, sentinel):
+    """Launch the MAP forward kernel of the ``"bf16"`` mode on the tensor
+    cores (``csrc/gmm_fused_tc.cu``, one product a k16 step); same
+    outputs as :func:`fused_forward_plain` with ``mode="bf16"``."""
+    out = _launch_forward_tc(image, bufs, stride, sentinel, False, "bf16")
+    gmm_fused_fwd_bf16_cuda.launches += 1
+    return out
+
+
+def gmm_fused_fwd_marg_bf16_cuda(image, bufs, stride, sentinel):
+    """Launch the marginalise (logsumexp) forward kernel of the
+    ``"bf16"`` mode on the tensor cores; same outputs as
+    :func:`fused_forward_plain` with ``marginalize=True, mode="bf16"``."""
+    out = _launch_forward_tc(image, bufs, stride, sentinel, True, "bf16")
+    gmm_fused_fwd_marg_bf16_cuda.launches += 1
+    return out
+
+
 def _split_tiles(bufs, device):
-    """Checks the tensor-core kernels' buffers; the component count."""
+    """Checks the tensor-core kernels' buffers (both modes read
+    ``pair_tc``: ``"bf16"`` its hi planes); the component count."""
     k = bufs["rec"].shape[0]
     tiles = -(-k // KP_TC)
     _check(bufs["pair_tc"], "pair_tc", torch.bfloat16,
@@ -571,7 +676,7 @@ def _split_tiles(bufs, device):
     return k
 
 
-def _launch_forward_tc(image, bufs, stride, sentinel, marginalize):
+def _launch_forward_tc(image, bufs, stride, sentinel, marginalize, mode):
     values, argmax, valid, xtn = _forward_outputs(image, stride)
     device = image.device
     h, w = image.shape
@@ -583,7 +688,7 @@ def _launch_forward_tc(image, bufs, stride, sentinel, marginalize):
             image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
             float(sentinel), bufs["pair_tc"].data_ptr(),
             bufs["bc"].data_ptr(), k, int(bool(marginalize)),
-            values.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
+            TC_PRODUCTS[mode], values.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
             xtn.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_tc_error_string, code, "gmm_fused_fwd_tc")
@@ -720,9 +825,30 @@ def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
     code of :func:`gmm_fused_fwd_marg_tc_cuda`, whose logsumexp ``lse``
     must be; returns the image gradient ``(H, W)``. Same contract as
     :func:`fused_backward_marg_plain` with ``mode="split"``."""
+    grad = _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs,
+                                    image_shape, stride, "split",
+                                    "gmm_fused_bwd_marg_tc_cuda")
+    gmm_fused_bwd_marg_tc_cuda.launches += 1
+    return grad
+
+
+def gmm_fused_bwd_marg_bf16_cuda(xtn, lse, valid, dvalues, bufs,
+                                 image_shape, stride):
+    """Launch the marginalise backward kernel of the ``"bf16"`` mode: its
+    logits by the code of :func:`gmm_fused_fwd_marg_bf16_cuda`, whose
+    logsumexp ``lse`` must be. Same contract as
+    :func:`fused_backward_marg_plain` with ``mode="bf16"``."""
+    grad = _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs,
+                                    image_shape, stride, "bf16",
+                                    "gmm_fused_bwd_marg_bf16_cuda")
+    gmm_fused_bwd_marg_bf16_cuda.launches += 1
+    return grad
+
+
+def _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs, image_shape,
+                             stride, mode, name):
     planes, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
-                                      image_shape, stride,
-                                      "gmm_fused_bwd_marg_tc_cuda")
+                                      image_shape, stride, name)
     device = xtn.device
     h, w = image_shape
     _split_tiles(bufs, device)
@@ -735,11 +861,10 @@ def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
             dvalues.data_ptr(), bufs["pair_tc"].data_ptr(),
             bufs["bc"].data_ptr(), bufs["a_full"].data_ptr(),
             bufs["b_rows"].data_ptr(), h, w, int(stride), h // PATCH,
-            w // PATCH, k, planes.data_ptr(), stream,
+            w // PATCH, k, TC_PRODUCTS[mode], planes.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_tc_error_string, code,
                     "gmm_fused_bwd_marg_tc")
-    gmm_fused_bwd_marg_tc_cuda.launches += 1
     return planes.sum(dim=0)
 
 
@@ -747,12 +872,15 @@ def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (gmm_fused_fwd_cuda, gmm_fused_fwd_marg_cuda,
                gmm_fused_fwd_tc_cuda, gmm_fused_fwd_marg_tc_cuda,
+               gmm_fused_fwd_bf16_cuda, gmm_fused_fwd_marg_bf16_cuda,
                gmm_fused_bwd_cuda, gmm_fused_bwd_marg_cuda,
-               gmm_fused_bwd_marg_tc_cuda):
+               gmm_fused_bwd_marg_tc_cuda, gmm_fused_bwd_marg_bf16_cuda):
         fn.launches = 0
     for fn in (fused_forward_plain, fused_backward_plain,
                fused_backward_marg_plain, score_plain, score_split_plain,
-               score_split_marg_plain, marg_unit_split_plain):
+               score_split_marg_plain, marg_unit_split_plain,
+               score_bf16_plain, score_bf16_marg_plain,
+               marg_unit_bf16_plain):
         fn.calls = 0
 
 
@@ -769,6 +897,14 @@ _FORWARDS = {
     (False, "split"): gmm_fused_fwd_tc_cuda,
     (True, "f32"): gmm_fused_fwd_marg_cuda,
     (True, "split"): gmm_fused_fwd_marg_tc_cuda,
+    (False, "bf16"): gmm_fused_fwd_bf16_cuda,
+    (True, "bf16"): gmm_fused_fwd_marg_bf16_cuda,
+}
+# the marginalise backward kernels by mode
+_BACKWARDS_MARG = {
+    "f32": gmm_fused_bwd_marg_cuda,
+    "split": gmm_fused_bwd_marg_tc_cuda,
+    "bf16": gmm_fused_bwd_marg_bf16_cuda,
 }
 
 
@@ -791,9 +927,8 @@ def _backward(xtn, argmax, valid, dvalues, bufs, image_shape, stride):
 def _backward_marg(xtn, lse, valid, dvalues, bufs, image_shape, stride,
                    mode):
     if dispatch(xtn) == "kernel":
-        launch = (gmm_fused_bwd_marg_tc_cuda if mode == "split"
-                  else gmm_fused_bwd_marg_cuda)
-        return launch(xtn, lse, valid, dvalues, bufs, image_shape, stride)
+        return _BACKWARDS_MARG[mode](xtn, lse, valid, dvalues, bufs,
+                                     image_shape, stride)
     return fused_backward_marg_plain(xtn, lse, valid, dvalues, bufs,
                                      image_shape, stride, mode)
 
@@ -861,7 +996,7 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
     marginalize : bool
         Logsumexp instead of the maximum; the backward then mixes the
         components' gradients by their softmax weights.
-    mode : ``"f32"`` or ``"split"``
+    mode : ``"f32"``, ``"split"`` or ``"bf16"``
         The logits of the forward and of the marginalise backward
         (``config.gmm_mode()`` names the dial's).
 

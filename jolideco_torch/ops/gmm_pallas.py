@@ -23,11 +23,13 @@ and ``g_k = r_k . t``,
 
 in two stages, ``(p, dp)`` and then the mixture, as in the JAX package.
 
-The logits have the two modes of the fused scorer (``ops.gmm_fused``),
-which the precision dial names (``config.gmm_mode``) and the caller
-passes down: ``"f32"``, full float32, and ``"split"``, the JAX package's
-logits at precision HIGH (bf16 hi/lo pair products, three products
-summed in float32). The mode reaches the scorer (MAP and logsumexp) and
+The logits have the three modes of the fused scorer
+(``ops.gmm_fused``), which the precision dial names (``config.gmm_mode``)
+and the caller passes down: ``"f32"``, full float32; ``"split"``, the
+JAX package's logits at precision HIGH (bf16 hi/lo pair products, three
+products summed in float32); ``"bf16"``, its logits at precision DEFAULT
+(the pair products and ``A`` rounded to bf16, one product summed in
+float32). The mode reaches the scorer (MAP and logsumexp) and
 the marginalise gradient and Hessian action, which recompute the logits
 in the scorer's mode: they take its logsumexp as the stabiliser of
 ``exp(logit_k - lse)``, over logits of 1e5 to 1e8, so the lse must come
@@ -40,8 +42,9 @@ argmax.
 Each has two implementations with one contract:
 
 - a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``, and
-  ``csrc/gmm_fused_tc.cu`` for the ``"split"`` mode's scorer, unit
-  gradient and first Hessian stage on the tensor cores, whose headers
+  ``csrc/gmm_fused_tc.cu`` for the scorer, unit gradient and first
+  Hessian stage of the ``"split"`` and ``"bf16"`` modes on the tensor
+  cores, whose headers
   say what bounds each kernel and how it is built), run
   for a tensor on a CUDA card, for d = 64 (8x8 patches, both shipped
   GMMs; the JAX package's ``pallas_supported`` rule);
@@ -82,31 +85,36 @@ from .gmm_fused import (
     _raise_on_error,
     _scores,
     _split_tiles,
+    PLAIN_SCORES,
+    PLAIN_UNITS,
+    TC_PRODUCTS,
     _tc_library,
     logit_chunks,
     marg_unit_rows,
-    marg_unit_split_plain,
     mix_rows,
-    score_split_marg_plain,
-    score_split_plain,
     softmax_chunks,
 )
 
 __all__ = [
     "gmm_hvp_map_cuda",
     "gmm_hvp_marg_mix_cuda",
+    "gmm_hvp_marg_weights_bf16_cuda",
     "gmm_hvp_marg_weights_cuda",
     "gmm_hvp_marg_weights_tc_cuda",
     "gmm_score_patches",
+    "gmm_score_rows_bf16_cuda",
     "gmm_score_rows_cuda",
+    "gmm_score_rows_marg_bf16_cuda",
     "gmm_score_rows_marg_tc_cuda",
     "gmm_score_rows_tc_cuda",
     "gmm_unit_map_cuda",
+    "gmm_unit_marg_bf16_cuda",
     "gmm_unit_marg_cuda",
     "gmm_unit_marg_tc_cuda",
     "hvp_map_plain",
     "hvp_marg_mix_plain",
     "hvp_marg_plain",
+    "hvp_marg_weights_bf16_plain",
     "hvp_marg_weights_plain",
     "hvp_marg_weights_split_plain",
     "reset_counters",
@@ -192,6 +200,22 @@ def hvp_marg_weights_split_plain(x, t, lse, bufs):
     return _marg_weights(x, t, lse, bufs, "split")
 
 
+def hvp_marg_weights_bf16_plain(x, t, lse, bufs):
+    """:func:`hvp_marg_weights_plain` in the ``"bf16"`` mode: the softmax
+    over the single-bf16 logits against ``lse``, a logsumexp of the same
+    logits (``score_bf16_marg_plain``), ``g`` as in the float32 version
+    (the JAX package computes ``g`` through the cross form at DEFAULT;
+    the port keeps it in float32, as under ``"split"``)."""
+    hvp_marg_weights_bf16_plain.calls += 1
+    return _marg_weights(x, t, lse, bufs, "bf16")
+
+
+# the first stage's plain versions by mode
+PLAIN_WEIGHTS = {"f32": hvp_marg_weights_plain,
+                 "split": hvp_marg_weights_split_plain,
+                 "bf16": hvp_marg_weights_bf16_plain}
+
+
 def hvp_marg_mix_plain(x, t, p, dp, bufs):
     """Plain version of the second stage:
     ``sum_k [dp_k b_k - A_k (p_k t + dp_k x)]`` per row, ``(N, d)``."""
@@ -208,9 +232,7 @@ def hvp_marg_mix_plain(x, t, p, dp, bufs):
 def hvp_marg_plain(t, x, lse, bufs, mode="f32"):
     """The marginalise Hessian action along ``t``: both plain stages, the
     first of ``mode``."""
-    weights = (hvp_marg_weights_split_plain if mode == "split"
-               else hvp_marg_weights_plain)
-    p, dp = weights(x, t, lse, bufs)
+    p, dp = PLAIN_WEIGHTS[mode](x, t, lse, bufs)
     return hvp_marg_mix_plain(x, t, p, dp, bufs)
 
 
@@ -289,16 +311,17 @@ def gmm_score_rows_cuda(x, bufs, marginalize=False):
     return values, argmax
 
 
-def _score_rows_tc(x, bufs, marginalize, name):
-    """K5 split's launch (when there are rows); values, argmax and
-    whether it launched."""
+def _score_rows_tc(x, bufs, marginalize, mode, name):
+    """The launch of K5 split or K5 bf16 (when there are rows); values,
+    argmax and whether it launched."""
     device, n = _check_rows(x, name)
     k = _split_tiles(bufs, device)
     values = torch.empty(n, dtype=torch.float32, device=device)
     argmax = torch.empty(n, dtype=torch.int32, device=device)
     if n:
         _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
-                int(bool(marginalize)), values, argmax, tc=True)
+                int(bool(marginalize)), TC_PRODUCTS[mode], values, argmax,
+                tc=True)
     return values, argmax, bool(n)
 
 
@@ -308,7 +331,7 @@ def gmm_score_rows_tc_cuda(x, bufs):
     float32 on a card; any number of components, in tiles of
     ``KP_TC``. Same outputs as ``score_split_plain``; the buffers are the
     ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``)."""
-    values, argmax, launched = _score_rows_tc(x, bufs, False,
+    values, argmax, launched = _score_rows_tc(x, bufs, False, "split",
                                               "gmm_score_rows_tc_cuda")
     gmm_score_rows_tc_cuda.launches += launched
     return values, argmax
@@ -324,8 +347,29 @@ def gmm_score_rows_marg_tc_cuda(x, bufs):
     float32 ones, so an lse of another arithmetic would overflow or
     underflow every weight."""
     values, argmax, launched = _score_rows_tc(
-        x, bufs, True, "gmm_score_rows_marg_tc_cuda")
+        x, bufs, True, "split", "gmm_score_rows_marg_tc_cuda")
     gmm_score_rows_marg_tc_cuda.launches += launched
+    return values, argmax
+
+
+def gmm_score_rows_bf16_cuda(x, bufs):
+    """Launch the MAP scorer of the ``"bf16"`` mode on the tensor cores
+    (K5 bf16: K1 bf16's logits, one product a k16 step) on rows ``x (N,
+    64)`` float32 on a card. Same outputs as ``score_bf16_plain``."""
+    values, argmax, launched = _score_rows_tc(x, bufs, False, "bf16",
+                                              "gmm_score_rows_bf16_cuda")
+    gmm_score_rows_bf16_cuda.launches += launched
+    return values, argmax
+
+
+def gmm_score_rows_marg_bf16_cuda(x, bufs):
+    """Launch the logsumexp instance of the ``"bf16"`` scorer (K5 lse
+    bf16); same outputs as ``score_bf16_marg_plain``. Its logsumexp is
+    what :func:`gmm_unit_marg_bf16_cuda` and
+    :func:`gmm_hvp_marg_weights_bf16_cuda` take, as under ``"split"``."""
+    values, argmax, launched = _score_rows_tc(
+        x, bufs, True, "bf16", "gmm_score_rows_marg_bf16_cuda")
+    gmm_score_rows_marg_bf16_cuda.launches += launched
     return values, argmax
 
 
@@ -405,14 +449,31 @@ def gmm_unit_marg_tc_cuda(x, lse, bufs):
     rows ``x (N, 64)`` with the logsumexp ``lse (N,)`` of
     :func:`gmm_score_rows_marg_tc_cuda`; ``(N, 64)``. Same contract as
     ``marg_unit_split_plain``."""
-    device, n = _check_rows(x, "gmm_unit_marg_tc_cuda")
+    out, launched = _unit_marg_tc(x, lse, bufs, "split",
+                                  "gmm_unit_marg_tc_cuda")
+    gmm_unit_marg_tc_cuda.launches += launched
+    return out
+
+
+def gmm_unit_marg_bf16_cuda(x, lse, bufs):
+    """Launch the marginalise unit gradient of the ``"bf16"`` mode (K8
+    bf16) with the logsumexp of :func:`gmm_score_rows_marg_bf16_cuda`;
+    ``(N, 64)``. Same contract as ``marg_unit_bf16_plain``."""
+    out, launched = _unit_marg_tc(x, lse, bufs, "bf16",
+                                  "gmm_unit_marg_bf16_cuda")
+    gmm_unit_marg_bf16_cuda.launches += launched
+    return out
+
+
+def _unit_marg_tc(x, lse, bufs, mode, name):
+    device, n = _check_rows(x, name)
     k = _check_marg_tc(device, n, lse, bufs)
     out = torch.empty((n, D), dtype=torch.float32, device=device)
     if n:
         _launch("gmm_unit_marg_tc", x, lse, n, bufs["pair_tc"], bufs["bc"],
-                bufs["a_full"], bufs["b_rows"], k, out, tc=True)
-        gmm_unit_marg_tc_cuda.launches += 1
-    return out
+                bufs["a_full"], bufs["b_rows"], k, TC_PRODUCTS[mode], out,
+                tc=True)
+    return out, bool(n)
 
 
 def gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs):
@@ -420,17 +481,35 @@ def gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs):
     ``"split"`` mode (K9a split) with the logsumexp of
     :func:`gmm_score_rows_marg_tc_cuda`: ``(p, dp)``, each ``(K, N)``.
     Same contract as :func:`hvp_marg_weights_split_plain`."""
-    device, n = _check_rows(x, "gmm_hvp_marg_weights_tc_cuda")
+    p, dp, launched = _hvp_marg_weights_tc(x, t, lse, bufs, "split",
+                                           "gmm_hvp_marg_weights_tc_cuda")
+    gmm_hvp_marg_weights_tc_cuda.launches += launched
+    return p, dp
+
+
+def gmm_hvp_marg_weights_bf16_cuda(x, t, lse, bufs):
+    """Launch the first stage of the marginalise Hessian action of the
+    ``"bf16"`` mode (K9a bf16: single-bf16 logits, ``g`` in float32) with
+    the logsumexp of :func:`gmm_score_rows_marg_bf16_cuda`: ``(p, dp)``,
+    each ``(K, N)``. Same contract as
+    :func:`hvp_marg_weights_bf16_plain`."""
+    p, dp, launched = _hvp_marg_weights_tc(x, t, lse, bufs, "bf16",
+                                           "gmm_hvp_marg_weights_bf16_cuda")
+    gmm_hvp_marg_weights_bf16_cuda.launches += launched
+    return p, dp
+
+
+def _hvp_marg_weights_tc(x, t, lse, bufs, mode, name):
+    device, n = _check_rows(x, name)
     _check(t, "tangents", torch.float32, (n, D), device)
     k = _check_marg_tc(device, n, lse, bufs)
     p = torch.empty((k, n), dtype=torch.float32, device=device)
     dp = torch.empty((k, n), dtype=torch.float32, device=device)
     if n:
         _launch("gmm_hvp_marg_weights_tc", x, t, lse, n, bufs["pair_tc"],
-                bufs["bc"], bufs["a_full"], bufs["b_rows"], k, p, dp,
-                tc=True)
-        gmm_hvp_marg_weights_tc_cuda.launches += 1
-    return p, dp
+                bufs["bc"], bufs["a_full"], bufs["b_rows"], k,
+                TC_PRODUCTS[mode], p, dp, tc=True)
+    return p, dp, bool(n)
 
 
 def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
@@ -453,14 +532,17 @@ def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
 def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (gmm_score_rows_cuda, gmm_score_rows_tc_cuda,
-               gmm_score_rows_marg_tc_cuda, gmm_unit_map_cuda,
+               gmm_score_rows_marg_tc_cuda, gmm_score_rows_bf16_cuda,
+               gmm_score_rows_marg_bf16_cuda, gmm_unit_map_cuda,
                gmm_hvp_map_cuda, gmm_unit_marg_cuda, gmm_unit_marg_tc_cuda,
-               gmm_hvp_marg_weights_cuda, gmm_hvp_marg_weights_tc_cuda,
+               gmm_unit_marg_bf16_cuda, gmm_hvp_marg_weights_cuda,
+               gmm_hvp_marg_weights_tc_cuda, gmm_hvp_marg_weights_bf16_cuda,
                gmm_hvp_marg_mix_cuda):
         fn.launches = 0
     for fn in (score_rows_plain, unit_map_plain, hvp_map_plain,
                unit_marg_plain, hvp_marg_weights_plain,
-               hvp_marg_weights_split_plain, hvp_marg_mix_plain):
+               hvp_marg_weights_split_plain, hvp_marg_weights_bf16_plain,
+               hvp_marg_mix_plain):
         fn.calls = 0
 
 
@@ -471,17 +553,30 @@ reset_counters()
 # dispatch and autograd
 
 
+# the tensor-core kernels of the bf16 modes: the scorers by (mode,
+# marginalize), the marginalise unit gradients and first Hessian stages
+# by mode
+_SCORES_TC = {
+    ("split", False): gmm_score_rows_tc_cuda,
+    ("split", True): gmm_score_rows_marg_tc_cuda,
+    ("bf16", False): gmm_score_rows_bf16_cuda,
+    ("bf16", True): gmm_score_rows_marg_bf16_cuda,
+}
+_UNITS_MARG = {"f32": gmm_unit_marg_cuda, "split": gmm_unit_marg_tc_cuda,
+               "bf16": gmm_unit_marg_bf16_cuda}
+_WEIGHTS_MARG = {"f32": gmm_hvp_marg_weights_cuda,
+                 "split": gmm_hvp_marg_weights_tc_cuda,
+                 "bf16": gmm_hvp_marg_weights_bf16_cuda}
+
+
 def _score(x, bufs, marginalize, mode):
-    if dispatch(x) == "kernel":
-        if mode == "split":
-            score = (gmm_score_rows_marg_tc_cuda if marginalize
-                     else gmm_score_rows_tc_cuda)
-            return score(x, bufs)
-        return gmm_score_rows_cuda(x, bufs, marginalize)
-    if mode == "split":
-        score = score_split_marg_plain if marginalize else score_split_plain
-        return score(x, bufs)
-    return score_rows_plain(x, bufs, marginalize)
+    if mode == "f32":
+        score = (gmm_score_rows_cuda if dispatch(x) == "kernel"
+                 else score_rows_plain)
+        return score(x, bufs, marginalize)
+    score = (_SCORES_TC if dispatch(x) == "kernel"
+             else PLAIN_SCORES)[mode, marginalize]
+    return score(x, bufs)
 
 
 def _unit(x, argmax, bufs):
@@ -497,19 +592,16 @@ def _hvp(t, argmax, bufs):
 
 
 def _unit_marg(x, lse, bufs, mode):
-    split = mode == "split"
     if dispatch(x) == "kernel":
-        unit = gmm_unit_marg_tc_cuda if split else gmm_unit_marg_cuda
+        unit = _UNITS_MARG[mode]
     else:
-        unit = marg_unit_split_plain if split else unit_marg_plain
+        unit = unit_marg_plain if mode == "f32" else PLAIN_UNITS[mode]
     return unit(x, lse, bufs)
 
 
 def _hvp_marg(t, x, lse, bufs, mode):
     if dispatch(t) == "kernel":
-        weights = (gmm_hvp_marg_weights_tc_cuda if mode == "split"
-                   else gmm_hvp_marg_weights_cuda)
-        p, dp = weights(x, t, lse, bufs)
+        p, dp = _WEIGHTS_MARG[mode](x, t, lse, bufs)
         return gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs)
     return hvp_marg_plain(t, x, lse, bufs, mode)
 
@@ -620,12 +712,12 @@ def gmm_score_patches(x, bufs, marginalize=False, mode="f32"):
         From ``ops.gmm_fused.kernel_buffers`` on ``x``'s device.
     marginalize : bool
         Logsumexp instead of max over the components.
-    mode : ``"f32"`` or ``"split"``
+    mode : ``"f32"``, ``"split"`` or ``"bf16"``
         The logits of the scorer and, marginalising, of its gradient and
         Hessian action, which the forward's mode fixes
         (``config.gmm_mode()`` names the dial's). Patches other than 8x8,
-        for which ``kernel_buffers`` makes no ``"split"`` buffers, take
-        ``"f32"`` in either mode.
+        for which ``kernel_buffers`` makes no bf16 buffers, take ``"f32"``
+        in every mode.
 
     Returns
     -------

@@ -1,18 +1,24 @@
 """Linear-algebra helpers: the GMM's precision factors (the JAX
-package's ``ops/linalg.py``) and the bf16 hi/lo split of the precision
-dial's ``"split"`` mode."""
+package's ``ops/linalg.py``), the bf16 rounding of the precision dial's
+``"bf16"`` mode and the bf16 hi/lo split of its ``"split"`` mode."""
 
 import numpy as np
 import torch
 
-__all__ = ["bf16_split", "compute_precision_cholesky"]
+__all__ = ["bf16_round", "bf16_split", "compute_precision_cholesky"]
+
+
+def bf16_round(x):
+    """``bf16(x)`` of a float32 tensor, bf16-valued in float32 (round to
+    nearest even): what the TPU's ``Precision.DEFAULT`` feeds its MXU."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def bf16_split(x):
     """``(hi, lo)`` of a float32 tensor, each bf16-valued in float32:
     ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (round to nearest even)."""
-    hi = x.to(torch.bfloat16).to(x.dtype)
-    return hi, (x - hi).to(torch.bfloat16).to(x.dtype)
+    hi = bf16_round(x)
+    return hi, bf16_round(x - hi)
 
 
 def compute_precision_cholesky(covariances):

@@ -25,13 +25,15 @@ axis-0 inverse, cropped to ``(H, W)``. Each pass has two implementations
 with one contract:
 
 - a CUDA kernel written by hand for Hopper, run for a tensor on a CUDA
-  card. In ``"f32"`` mode (and in ``"bf16"``, which it computes more
-  accurately than asked) the three float32 kernels of
+  card. In ``"f32"`` mode the three float32 kernels of
   ``csrc/pfft_conv.cu``: :func:`pfft_cols_fwd_cuda`,
   :func:`pfft_rows_combine_cuda`, :func:`pfft_cols_inv_cuda`. In
   ``"split"`` mode (the default dial's) the three passes run on the
   tensor cores (``csrc/pfft_conv_tc.cu``): :func:`pfft_cols_fwd_tc_cuda`,
-  :func:`pfft_rows_combine_tc_cuda`, :func:`pfft_cols_inv_tc_cuda`.
+  :func:`pfft_rows_combine_tc_cuda`, :func:`pfft_cols_inv_tc_cuda`; in
+  ``"bf16"`` mode (the ``"default"`` setting's) the same kernels with one
+  product a step: :func:`pfft_cols_fwd_bf16_cuda`,
+  :func:`pfft_rows_combine_bf16_cuda`, :func:`pfft_cols_inv_bf16_cuda`.
   Each header says what bounds the kernel and how it is built;
 - a plain PyTorch version (einsums on the stage tables), run for a
   tensor on the CPU and the reference of the kernels on the card:
@@ -42,14 +44,16 @@ The rule is ``config.dispatch``. Each wrapper counts its launches
 
 ``"split"`` computes each stage-B product of the three passes as the
 JAX package's ``_dot`` does: both operands split into bf16 high and low
-parts, three products ``hi.hi + hi.lo + lo.hi`` summed in float32. The
-complex product ``x . M`` runs as a real product of the interleaved row
-``(re, im, re, im, ...)`` with the interleaved real ``(256, 256)`` form
-of ``M`` (:func:`interleaved_stage_matrices`), 4 real products per
-complex one where the TPU takes Karatsuba's 3. The plain version in
-float32 computes the same products, so on the CPU the ``"pfft"`` path
-matches the card's split kernels to summation order. In float64 the
-mode is ignored: that is the anchor.
+parts, three products ``hi.hi + hi.lo + lo.hi`` summed in float32.
+``"bf16"`` likewise: both operands rounded to bf16, one product summed
+in float32. The complex product ``x . M`` runs as a real product of the
+interleaved row ``(re, im, re, im, ...)`` with the interleaved real
+``(256, 256)`` form of ``M`` (:func:`interleaved_stage_matrices`), 4
+real products per complex one where the TPU takes Karatsuba's 3 (and,
+in ``"bf16"``, also rounds their ``re + im`` sums to bf16). The plain
+version in float32 computes the same products, so on the CPU the
+``"pfft"`` path matches the card's kernels of either mode to summation
+order. In float64 the mode is ignored: that is the anchor.
 
 The adjoint of the convolution is the correlation: the same pipeline
 with the imaginary parts of both spectra negated (``conj_spec``). The
@@ -68,7 +72,7 @@ import torch
 from ..config import dispatch, pfft_mode
 from .fft import _origin_centered, fft_conv_shape
 from .gmm_fused import _check, _raise_on_error
-from .linalg import bf16_split
+from .linalg import bf16_round, bf16_split
 
 __all__ = [
     "PFFT_LANE",
@@ -79,13 +83,16 @@ __all__ = [
     "conv_packed_pfft_plain",
     "default_pfft_mode",
     "interleaved_stage_matrices",
+    "pfft_cols_fwd_bf16_cuda",
     "pfft_cols_fwd_cuda",
     "pfft_cols_fwd_tc_cuda",
+    "pfft_cols_inv_bf16_cuda",
     "pfft_cols_inv_cuda",
     "pfft_cols_inv_tc_cuda",
     "pfft_conv_cuda",
     "pfft_pair_spectra",
     "pfft_pair_spectra_device",
+    "pfft_rows_combine_bf16_cuda",
     "pfft_rows_combine_cuda",
     "pfft_rows_combine_tc_cuda",
     "pfft_size",
@@ -96,6 +103,8 @@ __all__ = [
 
 PFFT_LANE = 128  # stage-B block; transform sizes are multiples of this
 MODES = ("f32", "split", "bf16")
+# bf16 products per k16 step of the tensor-core kernels, by mode
+TC_PRODUCTS = {"split": 3, "bf16": 1}
 
 
 def default_pfft_mode():
@@ -256,29 +265,47 @@ def _split_tables(m, device):
             for name, r in interleaved_stage_matrices(m).items()}
 
 
-def _split_product(x, r):
+def _mode_tables(m, device, mode):
+    """The interleaved stage matrices as the bf16 mode ``mode`` takes
+    them: ``(hi, lo)`` for ``"split"``, ``(hi,)`` (their bf16 rounding)
+    for ``"bf16"``."""
+    tables = _split_tables(m, device)
+    if mode == "split":
+        return tables
+    return {name: parts[:1] for name, parts in tables.items()}
+
+
+def _tc_product(x, r):
     """``x . M[k2]`` for complex64 ``x`` ``(..., m, rows, 128)`` and the
-    split interleaved ``M`` ``r = (hi, lo)`` ``(m, 256, 256)``: the three
-    bf16 products of ``"split"`` summed in float32."""
+    interleaved ``M`` in the planes ``r`` of :func:`_mode_tables`
+    ``(m, 256, 256)``: ``(hi, lo)``, the three bf16 products of
+    ``"split"``, or ``(hi,)``, the one of ``"bf16"``, summed in
+    float32."""
     shape = x.shape
     xr = torch.view_as_real(x.contiguous()).reshape(*shape[:-1], 2 * PFFT_LANE)
-    x_hi, x_lo = bf16_split(xr)
-    r_hi, r_lo = r
-    out = x_hi @ r_hi + x_hi @ r_lo + x_lo @ r_hi
+    if len(r) == 2:
+        x_hi, x_lo = bf16_split(xr)
+        r_hi, r_lo = r
+        out = x_hi @ r_hi + x_hi @ r_lo + x_lo @ r_hi
+    else:
+        out = bf16_round(xr) @ r[0]
     return torch.view_as_complex(out.reshape(*shape, 2).contiguous())
 
 
-def _split(mode, dtype):
+def _tc_mode(mode, dtype):
+    """The bf16 mode (``"split"`` or ``"bf16"``) that ``mode`` computes in
+    ``dtype``, or None (``"f32"``, and every mode in float64)."""
     if mode not in MODES:
         raise ValueError(f"invalid pfft mode {mode!r}, expected one of "
                          f"{MODES}")
-    return mode == "split" and dtype == torch.float32
+    return mode if mode != "f32" and dtype == torch.float32 else None
 
 
 def cols_fwd_plain(x0, x1, n, dtype=torch.float32, mode="f32"):
     """Pass 1: the axis-0 forward of ``x0 + i x1`` ``(P, H, W)`` into
-    permuted rows, ``U`` ``(P, n, W)`` complex. ``"split"`` in float32
-    takes the stage-B products as the tensor-core kernel does: since
+    permuted rows, ``U`` ``(P, n, W)`` complex. ``"split"`` and
+    ``"bf16"`` in float32 take the stage-B products as the tensor-core
+    kernels do: since
     ``mf[k2][n1, k1] = W128^(n1 k1) Wn^(n1 k2)``, stage A in float32 ends
     with the twiddle ``mf[k2][n1, 0] = Wn^(n1 k2)`` on the rows of
     ``S_k2``, and each of its columns is a row times ``F = mf[0]``, the
@@ -289,12 +316,13 @@ def cols_fwd_plain(x0, x1, n, dtype=torch.float32, mode="f32"):
     z = torch.complex(x0.to(dtype), x1.to(dtype))
     s = torch.einsum("qk,pqiw->pkiw", t["wf"][:h // PFFT_LANE],
                      z.reshape(p_, h // PFFT_LANE, PFFT_LANE, w))
-    if _split(mode, dtype):
-        hi, lo = _split_tables(m, x0.device)["mf"]
-        f = (hi[:1].expand(m, -1, -1), lo[:1].expand(m, -1, -1))
+    tc = _tc_mode(mode, dtype)
+    if tc:
+        f = tuple(part[:1].expand(m, -1, -1)
+                  for part in _mode_tables(m, x0.device, tc)["mf"])
         # (P, m, W, 128) rows of (tw S)^T times F, back to (P, m, 128, W)
         s = s * t["mf"][:, :, :1]
-        u = _split_product(s.transpose(-1, -2), f).transpose(-1, -2)
+        u = _tc_product(s.transpose(-1, -2), f).transpose(-1, -2)
         return u.reshape(p_, n, w)
     return torch.einsum("kij,pkiw->pkjw", t["mf"], s).reshape(p_, n, w)
 
@@ -303,25 +331,25 @@ def rows_combine_plain(u, a_re, a_im, b2_re, b2_im, conj_spec=False,
                        dtype=torch.float32, mode="f32"):
     """Pass 2: per row of ``U``, the lane forward ``Z``, then
     ``V1 = IFFT(A . Z)`` and ``V2 = FWDP(B2 . conj(Z))`` along the lanes,
-    cropped to ``W`` columns: ``(P, n, W)`` complex each. ``"split"`` in
-    float32 takes the stage-B products as the tensor-core kernel does,
-    with ``V2``'s inverse as ``conj((conj(B2) . Z) . mi)``."""
+    cropped to ``W`` columns: ``(P, n, W)`` complex each. ``"split"`` and
+    ``"bf16"`` in float32 take the stage-B products as the tensor-core
+    kernels do, with ``V2``'s inverse as ``conj((conj(B2) . Z) . mi)``."""
     p_, n, w = u.shape
     m, wb = n // PFFT_LANE, w // PFFT_LANE
     t = _plain_tables(m, dtype, u.device)
-    split = _split(mode, dtype)
+    tc = _tc_mode(mode, dtype)
     s = torch.einsum("qk,prqi->prki", t["wf"][:wb],
                      u.reshape(p_, n, wb, PFFT_LANE))
     sign = -1.0 if conj_spec else 1.0
     a = torch.complex(a_re.to(dtype), sign * a_im.to(dtype))
     b2 = torch.complex(b2_re.to(dtype), sign * b2_im.to(dtype))
-    if split:
-        r = _split_tables(m, u.device)
+    if tc:
+        r = _mode_tables(m, u.device, tc)
         # per k2 block: (P, m, n, 128)
-        z = _split_product(s.transpose(1, 2), r["mf"])
+        z = _tc_product(s.transpose(1, 2), r["mf"])
         spec = (lambda x: x.reshape(p_, n, m, PFFT_LANE).transpose(1, 2))
-        g1 = _split_product(spec(a) * z, r["mi"]).transpose(1, 2)
-        g2 = _split_product(spec(b2).conj() * z, r["mi"]).conj().transpose(
+        g1 = _tc_product(spec(a) * z, r["mi"]).transpose(1, 2)
+        g2 = _tc_product(spec(b2).conj() * z, r["mi"]).conj().transpose(
             1, 2)
     else:
         z = torch.einsum("prki,kij->prkj", s, t["mf"]).reshape(p_, n, n)
@@ -338,19 +366,20 @@ def rows_combine_plain(u, a_re, a_im, b2_re, b2_im, conj_spec=False,
 def cols_inv_plain(v1, v2, h, dtype=torch.float32, mode="f32"):
     """Pass 3: the axis-0 inverse of ``V1`` plus the permuted forward of
     ``V2``, rows cropped to ``h``: ``(y0, y1)``, the real and imaginary
-    parts, ``(P, h, W)`` each. ``"split"`` in float32 takes the products
-    as the tensor-core kernel does: ``y0 = Re(sum_k2 wi mi^T (V1 +
-    conj V2))`` and ``y1 = Im(sum_k2 wi mi^T (V1 - conj V2))``, each
-    column of ``V1 +- conj V2`` a row times ``mi[k2]``."""
+    parts, ``(P, h, W)`` each. ``"split"`` and ``"bf16"`` in float32 take
+    the products as the tensor-core kernels do: ``y0 = Re(sum_k2 wi mi^T
+    (V1 + conj V2))`` and ``y1 = Im(sum_k2 wi mi^T (V1 - conj V2))``,
+    each column of ``V1 +- conj V2`` a row times ``mi[k2]``."""
     p_, n, w = v1.shape
     m, hb = n // PFFT_LANE, h // PFFT_LANE
     t = _plain_tables(m, dtype, v1.device)
-    if _split(mode, dtype):
-        r = _split_tables(m, v1.device)["mi"]
+    tc = _tc_mode(mode, dtype)
+    if tc:
+        r = _mode_tables(m, v1.device, tc)["mi"]
 
         def inverse(x):  # (P, n, W) -> (P, m, W, 128) -> (P, h, W)
-            g = _split_product(x.reshape(p_, m, PFFT_LANE, w)
-                               .transpose(-1, -2), r)
+            g = _tc_product(x.reshape(p_, m, PFFT_LANE, w)
+                            .transpose(-1, -2), r)
             return torch.einsum("ak,pkwj->pajw", t["wi"][:hb],
                                 g).reshape(p_, h, w)
 
@@ -371,9 +400,9 @@ def conv_packed_pfft_plain(x0, x1, a_re, a_im, b2_re, b2_im, n,
                            conj_spec=False, dtype=torch.float32, mode="f32"):
     """The three passes in plain PyTorch, in ``dtype`` (float32 or
     float64); same contract as :func:`conv_packed_pfft` without the
-    autograd rule. ``mode`` acts in float32 only (``"split"``: the three
-    passes as the tensor-core kernels compute them). Returns ``(y0, y1)``
-    in ``dtype``."""
+    autograd rule. ``mode`` acts in float32 only (``"split"``, ``"bf16"``:
+    the three passes as the tensor-core kernels compute them). Returns
+    ``(y0, y1)`` in ``dtype``."""
     conv_packed_pfft_plain.calls += 1
     _check_images(x0, x1, n)
     u = cols_fwd_plain(x0, x1, n, dtype, mode)
@@ -403,7 +432,8 @@ def _check_images(x0, x1, n):
 def _library(name="pfft_conv"):
     """``csrc/<name>.cu`` (``pfft_conv`` or ``pfft_conv_tc``) loaded, with
     its C functions' argument types; the tensor-core entry points take
-    the same arguments as the float32 ones of their pass."""
+    the same arguments as the float32 ones of their pass, and the number
+    of bf16 products a step before the stream."""
     from ..utils.cuda_build import load_library
 
     lib = load_library(name)
@@ -412,13 +442,15 @@ def _library(name="pfft_conv"):
         rows = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
         cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-        cols_fwd_tc = cols_fwd + [vp]  # and the twiddles
         if name == "pfft_conv":
             signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
                           "pfft_cols_inv": cols_inv}
         else:
-            signatures = {"pfft_cols_fwd_tc": cols_fwd_tc,
-                          "pfft_rows_tc": rows, "pfft_cols_inv_tc": cols_inv}
+            # pass 1 also takes the twiddles; each takes the products
+            signatures = {
+                "pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, vp, ci, vp],
+                "pfft_rows_tc": rows[:-1] + [ci, vp],
+                "pfft_cols_inv_tc": cols_inv[:-1] + [ci, vp]}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
@@ -437,7 +469,8 @@ def tensor_core_tables(m):
     32)`` for ``mf`` and for ``mi``: per ``k2`` and per tile of 32 rows of
     ``R`` (:func:`interleaved_stage_matrices`), the hi and lo planes of
     ``R``'s transpose (``[n][k]``, the mma's column-major B), so that one
-    pipeline stage is one contiguous 32 KB block."""
+    pipeline stage is one contiguous 32 KB block. The ``"bf16"`` kernels
+    read each tile's hi plane, ``bf16(R)``."""
     out = {}
     for name, r in interleaved_stage_matrices(m).items():
         rt = torch.as_tensor(r).transpose(-1, -2)  # [k2][n][k]
@@ -512,14 +545,27 @@ def pfft_cols_fwd_tc_cuda(x0, x1, n):
     """Launch pass 1 on the tensor cores (``"split"``): same arguments
     and results as :func:`pfft_cols_fwd_cuda`, computed as
     :func:`cols_fwd_plain` with ``mode="split"``."""
-    device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n,
-                                            "pfft_cols_fwd_tc_cuda")
+    u = _cols_fwd_tc(x0, x1, n, "split", "pfft_cols_fwd_tc_cuda")
+    pfft_cols_fwd_tc_cuda.launches += 1
+    return u
+
+
+def pfft_cols_fwd_bf16_cuda(x0, x1, n):
+    """Launch pass 1 on the tensor cores in ``"bf16"`` mode (one product
+    a step): computed as :func:`cols_fwd_plain` with ``mode="bf16"``."""
+    u = _cols_fwd_tc(x0, x1, n, "bf16", "pfft_cols_fwd_bf16_cuda")
+    pfft_cols_fwd_bf16_cuda.launches += 1
+    return u
+
+
+def _cols_fwd_tc(x0, x1, n, mode, name):
+    device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, name)
     tab = _device_tables(m, device)
     _launch("pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel", device,
             x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
             tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(),
-            tab["tw"].data_ptr(), u.data_ptr(), library="pfft_conv_tc")
-    pfft_cols_fwd_tc_cuda.launches += 1
+            tab["tw"].data_ptr(), u.data_ptr(), TC_PRODUCTS[mode],
+            library="pfft_conv_tc")
     return u
 
 
@@ -580,8 +626,24 @@ def pfft_rows_combine_tc_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
     """Launch pass 2 on the tensor cores (``"split"``): same arguments
     and results as :func:`pfft_rows_combine_cuda`, computed as
     :func:`rows_combine_plain` with ``mode="split"``."""
-    planes = (a_re, a_im, b2_re, b2_im)
-    device, p_, n, w, m = _rows_args(u, planes, "pfft_rows_combine_tc_cuda")
+    out = _rows_tc(u, (a_re, a_im, b2_re, b2_im), conj_spec, "split",
+                   "pfft_rows_combine_tc_cuda")
+    pfft_rows_combine_tc_cuda.launches += 1
+    return out
+
+
+def pfft_rows_combine_bf16_cuda(u, a_re, a_im, b2_re, b2_im,
+                                conj_spec=False):
+    """Launch pass 2 on the tensor cores in ``"bf16"`` mode: computed as
+    :func:`rows_combine_plain` with ``mode="bf16"``."""
+    out = _rows_tc(u, (a_re, a_im, b2_re, b2_im), conj_spec, "bf16",
+                   "pfft_rows_combine_bf16_cuda")
+    pfft_rows_combine_bf16_cuda.launches += 1
+    return out
+
+
+def _rows_tc(u, planes, conj_spec, mode, name):
+    device, p_, n, w, m = _rows_args(u, planes, name)
     tab = _device_tables(m, device)
     v1 = torch.empty_like(u)
     v2 = torch.empty_like(u)
@@ -589,8 +651,7 @@ def pfft_rows_combine_tc_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
             *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
             tab["mf_tc"].data_ptr(), tab["mi_tc"].data_ptr(),
             tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
-            v2.data_ptr(), library="pfft_conv_tc")
-    pfft_rows_combine_tc_cuda.launches += 1
+            v2.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_tc")
     return v1, v2
 
 
@@ -598,28 +659,48 @@ def pfft_cols_inv_tc_cuda(v1, v2, h):
     """Launch pass 3 on the tensor cores (``"split"``): same arguments
     and results as :func:`pfft_cols_inv_cuda`, computed as
     :func:`cols_inv_plain` with ``mode="split"``."""
-    device, p_, n, w, m = _cols_inv_args(v1, v2, h, "pfft_cols_inv_tc_cuda")
+    out = _cols_inv_tc(v1, v2, h, "split", "pfft_cols_inv_tc_cuda")
+    pfft_cols_inv_tc_cuda.launches += 1
+    return out
+
+
+def pfft_cols_inv_bf16_cuda(v1, v2, h):
+    """Launch pass 3 on the tensor cores in ``"bf16"`` mode: computed as
+    :func:`cols_inv_plain` with ``mode="bf16"``."""
+    out = _cols_inv_tc(v1, v2, h, "bf16", "pfft_cols_inv_bf16_cuda")
+    pfft_cols_inv_bf16_cuda.launches += 1
+    return out
+
+
+def _cols_inv_tc(v1, v2, h, mode, name):
+    device, p_, n, w, m = _cols_inv_args(v1, v2, h, name)
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)
     _launch("pfft_cols_inv_tc", "pfft_cols_inv_tc_kernel", device,
             v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
             tab["mi_tc"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
-            y1.data_ptr(), library="pfft_conv_tc")
-    pfft_cols_inv_tc_cuda.launches += 1
+            y1.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_tc")
     return y0, y1
+
+
+# the three passes' kernels by mode
+PASSES = {
+    "f32": (pfft_cols_fwd_cuda, pfft_rows_combine_cuda, pfft_cols_inv_cuda),
+    "split": (pfft_cols_fwd_tc_cuda, pfft_rows_combine_tc_cuda,
+              pfft_cols_inv_tc_cuda),
+    "bf16": (pfft_cols_fwd_bf16_cuda, pfft_rows_combine_bf16_cuda,
+             pfft_cols_inv_bf16_cuda),
+}
 
 
 def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
                    mode="f32"):
     """The kernels of ``mode`` in turn; same contract as
     :func:`conv_packed_pfft_plain` in float32 and ``mode``: the three
-    passes on the tensor cores under ``"split"``, on the float32 kernels
-    otherwise."""
-    tc = _split(mode, torch.float32)
-    cols_fwd = pfft_cols_fwd_tc_cuda if tc else pfft_cols_fwd_cuda
-    rows = pfft_rows_combine_tc_cuda if tc else pfft_rows_combine_cuda
-    cols_inv = pfft_cols_inv_tc_cuda if tc else pfft_cols_inv_cuda
+    passes on the tensor cores under ``"split"`` (three products a step)
+    and ``"bf16"`` (one), on the float32 kernels under ``"f32"``."""
+    cols_fwd, rows, cols_inv = PASSES[_tc_mode(mode, torch.float32) or "f32"]
     u = cols_fwd(x0, x1, n)
     v1, v2 = rows(u, a_re, a_im, b2_re, b2_im, conj_spec)
     return cols_inv(v1, v2, x0.shape[1])
@@ -629,7 +710,9 @@ def reset_counters():
     """Set every launch and call count of this module to zero."""
     for fn in (pfft_cols_fwd_cuda, pfft_rows_combine_cuda,
                pfft_cols_inv_cuda, pfft_cols_fwd_tc_cuda,
-               pfft_rows_combine_tc_cuda, pfft_cols_inv_tc_cuda):
+               pfft_rows_combine_tc_cuda, pfft_cols_inv_tc_cuda,
+               pfft_cols_fwd_bf16_cuda, pfft_rows_combine_bf16_cuda,
+               pfft_cols_inv_bf16_cuda):
         fn.launches = 0
     conv_packed_pfft_plain.calls = 0
 
@@ -684,8 +767,8 @@ def conv_packed_pfft(x0, x1, a_re, a_im, b2_re, b2_im, n, mode="f32"):
     mode : {"f32", "split", "bf16"}
         The precision dial's mode (:func:`default_pfft_mode`).
         ``"split"`` runs the stage-B products as three bf16 products
-        with float32 sums (the tensor-core kernels on a card); ``"f32"`` and
-        ``"bf16"`` compute in full float32.
+        with float32 sums, ``"bf16"`` as one (the tensor-core kernels on
+        a card); ``"f32"`` computes in full float32.
 
     Returns
     -------

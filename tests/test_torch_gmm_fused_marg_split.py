@@ -181,19 +181,21 @@ def routing_case():
     return gmm, flux
 
 
-@pytest.mark.parametrize("dial,split", [("highest", False), ("high", True),
-                                        ("default", True)])
-def test_dial_routes_the_marginalised_prior(routing_case, dial, split):
-    """``"high"`` and ``"default"`` take the split plain versions of the
-    logsumexp forward and of the marginalise backward, once each;
-    ``"highest"`` the float32 ones."""
+@pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),
+                                       ("default", "bf16")])
+def test_dial_routes_the_marginalised_prior(routing_case, dial, mode):
+    """``"high"`` takes the split plain versions of the logsumexp forward
+    and of the marginalise backward, once each, ``"default"`` the
+    single-bf16 ones; ``"highest"`` the float32 ones."""
     gmm, flux = routing_case
     tfused.reset_counters()
     prior_gradient(gmm, flux, dial, dial)
-    assert (tfused.score_split_marg_plain.calls,
-            tfused.marg_unit_split_plain.calls) == (int(split), int(split))
-    assert tfused.score_plain.calls == int(not split)
-    assert tfused.score_split_plain.calls == 0
+    for m in ("split", "bf16"):
+        assert (tfused.PLAIN_SCORES[m, True].calls,
+                tfused.PLAIN_UNITS[m].calls) == (int(m == mode),
+                                                 int(m == mode))
+        assert tfused.PLAIN_SCORES[m, False].calls == 0
+    assert tfused.score_plain.calls == int(mode == "f32")
     assert (tfused.fused_forward_plain.calls,
             tfused.fused_backward_marg_plain.calls,
             tfused.fused_backward_plain.calls) == (1, 1, 0)

@@ -235,33 +235,35 @@ def test_split_buffers_tile_the_components():
     assert not full[:, 256:].any()
 
 
-@pytest.mark.parametrize("dial,split", [("highest", False), ("high", True),
-                                        ("default", True)])
-def test_dial_routes_the_map_forward(dial, split):
+@pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),
+                                       ("default", "bf16")])
+def test_dial_routes_the_map_forward(dial, mode):
     """The prior passes the dial's mode down: ``"highest"`` takes the
-    float32 plain version, ``"high"`` and ``"default"`` the split one;
-    the marginalised prior follows the dial too, its logsumexp forward
-    and its backward's softmax both on the split logits."""
+    float32 plain version, ``"high"`` the split one, ``"default"`` the
+    single-bf16 one; the marginalised prior follows the dial too, its
+    logsumexp forward and its backward's softmax both on the logits of
+    the dial's mode."""
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
     flux = torch.as_tensor(np.random.RandomState(3).uniform(
         0.1, 2.0, (1, 1, 32, 40)).astype(np.float32))
     saved = config.gmm_precision()
     config.set_gmm_precision(dial)
     try:
-        assert config.gmm_mode() == ("split" if split else "f32")
+        assert config.gmm_mode() == mode
         for marginalize in (False, True):
             prior = jt.GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=False,
                                      marginalize=marginalize)
             x = flux.clone().requires_grad_(True)
             tfused.reset_counters()
             prior(x).backward()
-            assert tfused.score_split_plain.calls == int(
-                split and not marginalize)
-            assert tfused.score_split_marg_plain.calls == int(
-                split and marginalize)
-            assert tfused.marg_unit_split_plain.calls == int(
-                split and marginalize)
-            assert tfused.score_plain.calls == int(not split)
+            for m in ("split", "bf16"):
+                assert tfused.PLAIN_SCORES[m, False].calls == int(
+                    m == mode and not marginalize)
+                assert tfused.PLAIN_SCORES[m, True].calls == int(
+                    m == mode and marginalize)
+                assert tfused.PLAIN_UNITS[m].calls == int(
+                    m == mode and marginalize)
+            assert tfused.score_plain.calls == int(mode == "f32")
             assert tfused.fused_forward_plain.calls == 1
             assert (tfused.fused_backward_marg_plain.calls if marginalize
                     else tfused.fused_backward_plain.calls) == 1
@@ -275,9 +277,11 @@ def test_invalid_mode_and_cpu_tensor_raise():
     image = torch.as_tensor(make_image((16, 128)))
     with pytest.raises(ValueError, match="mode"):
         tfused.gmm_score_fused_image(image, (8, 8), STRIDE, bufs,
-                                     ZERO_FLUX_SENTINEL, mode="bf16")
-    with pytest.raises(ValueError, match="CUDA"):
-        tfused.gmm_fused_fwd_tc_cuda(image, bufs, STRIDE, ZERO_FLUX_SENTINEL)
+                                     ZERO_FLUX_SENTINEL, mode="bf8")
+    for launch in (tfused.gmm_fused_fwd_tc_cuda,
+                   tfused.gmm_fused_fwd_bf16_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(image, bufs, STRIDE, ZERO_FLUX_SENTINEL)
 
 
 def slice_datasets(n_obs=4, size=128, seed=1):

@@ -108,36 +108,35 @@ def test_split_plain_matches_jax_high(gmms, rows, marginalize):
 @pytest.mark.parametrize("marginalize", [False, True])
 @pytest.mark.parametrize("mode", tf.MODES)
 def test_gmm_score_patches_dispatches_by_mode(rows, mode, marginalize):
-    """On the CPU the scorers of ``"split"``, MAP and marginalise, are the
-    split plain versions; those of ``"f32"`` the float32 one. Either way
-    the values are those plain versions' own."""
+    """On the CPU the scorers of ``"split"`` and ``"bf16"``, MAP and
+    marginalise, are those modes' plain versions; those of ``"f32"`` the
+    float32 one. Each way the values are that plain version's own."""
     bufs = jt.GaussianMixtureModel.from_registry(
         "astro-snr-v1").kernel_buffers("cpu")
     x = torch.as_tensor(rows)
     tp.reset_counters()
     tf.reset_counters()
     values, argmax = tp.gmm_score_patches(x, bufs, marginalize, mode)
-    split = mode == "split"
-    split_plain = (tf.score_split_marg_plain if marginalize
-                   else tf.score_split_plain)
-    assert (split_plain.calls, tp.score_rows_plain.calls) == (
-        (1, 0) if split else (0, 1))
-    assert (tf.score_split_plain.calls + tf.score_split_marg_plain.calls
-            == int(split))
-    want = (split_plain(x, bufs) if split
-            else tp.score_rows_plain(x, bufs, marginalize))
+    calls = {m: tf.PLAIN_SCORES[m, marginalize].calls
+             for m in ("split", "bf16")}
+    calls["f32"] = tp.score_rows_plain.calls
+    assert calls == {m: int(m == mode) for m in tf.MODES}
+    assert sum(fn.calls for fn in tf.PLAIN_SCORES.values()) == int(
+        mode != "f32")
+    want = (tp.score_rows_plain(x, bufs, marginalize) if mode == "f32"
+            else tf.PLAIN_SCORES[mode, marginalize](x, bufs))
     assert torch.equal(values, want[0]) and torch.equal(argmax, want[1])
     with pytest.raises(ValueError, match="mode"):
-        tp.gmm_score_patches(x, bufs, marginalize, "bf16")
+        tp.gmm_score_patches(x, bufs, marginalize, "bf8")
 
 
-@pytest.mark.parametrize("dial,split", [("high", True), ("default", True),
-                                        ("highest", False)])
-def test_prior_probe_scorer_follows_the_dial(dial, split):
+@pytest.mark.parametrize("dial,mode", [("high", "split"), ("default", "bf16"),
+                                       ("highest", "f32")])
+def test_prior_probe_scorer_follows_the_dial(dial, mode):
     """The patch prior's grouped branch (the probe's) scores by the dial's
-    mode: ``"high"`` and ``"default"`` the split plain versions,
-    ``"highest"`` the float32 one, MAP and marginalised alike; the
-    marginalised gradient's softmax takes the same logits."""
+    mode: ``"high"`` the split plain versions, ``"default"`` the
+    single-bf16 ones, ``"highest"`` the float32 one, MAP and marginalised
+    alike; the marginalised gradient's softmax takes the same logits."""
     flux = torch.as_tensor(np.random.RandomState(4).uniform(
         0.5, 2.0, (1, 1, 48, 64)).astype(np.float32)).requires_grad_(True)
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
@@ -150,14 +149,14 @@ def test_prior_probe_scorer_follows_the_dial(dial, split):
             tf.reset_counters()
             with force_fused("off"):
                 (grad,) = torch.autograd.grad(prior(flux), flux)
-            split_plain = (tf.score_split_marg_plain if marginalize
-                           else tf.score_split_plain)
-            assert split_plain.calls == int(split)
-            assert tp.score_rows_plain.calls == int(not split)
+            for m in ("split", "bf16"):
+                assert tf.PLAIN_SCORES[m, marginalize].calls == int(m == mode)
+                assert tf.PLAIN_SCORES[m, not marginalize].calls == 0
+                assert tf.PLAIN_UNITS[m].calls == int(
+                    marginalize and m == mode)
+            assert tp.score_rows_plain.calls == int(mode == "f32")
             if marginalize:
-                assert (tf.marg_unit_split_plain.calls,
-                        tp.unit_marg_plain.calls) == (int(split),
-                                                      int(not split))
+                assert tp.unit_marg_plain.calls == int(mode == "f32")
             assert tf.fused_forward_plain.calls == 0
             assert torch.isfinite(grad).all()
     finally:

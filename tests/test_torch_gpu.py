@@ -39,7 +39,12 @@ float64 plain version within twice the float32 split plain version's
 error plus 1e-6 of the max-abs, and within 1e-4 of it (split's own
 error is about 3e-5); the pfft path's loss, gradient and flux errors,
 card against CPU under the default dial (split on both), to rtol 1e-5
-and 1e-4.
+and 1e-4. The ``"bf16"`` kernels (the ``"default"`` setting: one bf16
+product a step) are held to the same bars against the bf16 plain
+versions, the probe's and the marginalise backward's against the float64
+sums of the same bf16-rounded operands (``chip_smoke.bf16_reference``),
+K3's within the anchored bar and at least half the bf16 plain version's
+error against float64 (``chip_smoke.bf16_anchored``).
 """
 
 import numpy as np
@@ -142,12 +147,60 @@ def test_tensor_core_forward_matches_split_plain(device, name, shape,
         assert 0 < int((ap[m] >= gf.KP_TC).sum()) < int(m.sum())
 
 
-@pytest.mark.parametrize("dial,tc", [("highest", False), ("high", True),
-                                     ("default", True)])
-def test_fused_forward_launches_by_dial(device, gmm, dial, tc):
+@pytest.mark.parametrize("name,shape,stride", [
+    ("astro-snr-v1", (96, 160), 4), ("builtin-8x8-v1", (64, 136), 4),
+    ("wide-256", (37, 203), 2),
+])
+def test_bf16_forward_and_row_scorer_match_bf16_plain(device, name, shape,
+                                                      stride):
+    """K1 bf16 (MAP and logsumexp) and K5 bf16 (both instances) against
+    the bf16 plain versions: ``valid`` and the normalised patches as the
+    float32 kernel's, values to rtol 7e-5 (``chip_smoke.K1_SPLIT_RTOL``:
+    the same bf16 products, summed by the tensor cores and by cuBLAS),
+    argmax identical."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    import chip_smoke
+
+    gmm = (chip_smoke.wide_gmm() if name == "wide-256"
+           else GaussianMixtureModel.from_registry(name))
+    bufs = gmm.kernel_buffers(device)
+    image = torch.as_tensor(make_image(shape), device=device)
+    for marginalize in (False, True):
+        kernel = (gf.gmm_fused_fwd_marg_bf16_cuda if marginalize
+                  else gf.gmm_fused_fwd_bf16_cuda)
+        vk, ak, valk, xk = kernel(image, bufs, stride, SENTINEL)
+        vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride,
+                                                  SENTINEL, marginalize,
+                                                  mode="bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(valk, valp)
+        m = valp > 0.5
+        torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+        torch.testing.assert_close(vk[m], vp[m], rtol=chip_smoke.K1_SPLIT_RTOL,
+                                   atol=0)
+        assert torch.equal(ak[m], ap[m])
+    x = torch.as_tensor(make_rows(1000), device=device)
+    for kernel, plain in ((gp.gmm_score_rows_bf16_cuda, gf.score_bf16_plain),
+                          (gp.gmm_score_rows_marg_bf16_cuda,
+                           gf.score_bf16_marg_plain)):
+        vk, ak = kernel(x, bufs)
+        vp, ap = plain(x, bufs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(vk, vp, rtol=chip_smoke.K1_SPLIT_RTOL,
+                                   atol=0)
+        assert torch.equal(ak, ap)
+
+
+@pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),
+                                       ("default", "bf16")])
+def test_fused_forward_launches_by_dial(device, gmm, dial, mode):
     """The prior on the card under each dial: the tensor-core forward
-    under ``"high"`` and ``"default"``, the float32 one under
-    ``"highest"``, once each; K2 once; no plain call."""
+    under ``"high"`` (three products a step) and ``"default"`` (one), the
+    float32 one under ``"highest"``, once each; K2 once; no plain
+    call."""
     from jolideco_torch import config
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors import GMMPatchPrior
@@ -163,8 +216,10 @@ def test_fused_forward_launches_by_dial(device, gmm, dial, tc):
         torch.cuda.synchronize()
     finally:
         config.set_gmm_precision(saved)
-    assert (gf.gmm_fused_fwd_tc_cuda.launches,
-            gf.gmm_fused_fwd_cuda.launches) == ((1, 0) if tc else (0, 1))
+    launches = {"f32": gf.gmm_fused_fwd_cuda.launches,
+                "split": gf.gmm_fused_fwd_tc_cuda.launches,
+                "bf16": gf.gmm_fused_fwd_bf16_cuda.launches}
+    assert launches == {m: int(m == mode) for m in launches}
     assert gf.gmm_fused_bwd_cuda.launches == 1
     assert (gf.fused_forward_plain.calls, gf.fused_backward_plain.calls) \
         == (0, 0)
@@ -430,6 +485,36 @@ def test_marginalise_split_probe_kernels_match_float64(device, name, n):
         assert int(one_hot[nonzero].sum()) >= 0.9 * int(nonzero.sum())
 
 
+@pytest.mark.parametrize("name,n", [
+    ("astro-snr-v1", 1000), ("wide-256", 1000), ("mixed-200", 1000),
+])
+def test_marginalise_bf16_kernels_match_float64(device, name, n):
+    """K1 lse bf16 -> K4 bf16 on an image (``chip_smoke.marg_split_checks``
+    with ``"bf16"``) and K8 bf16 and K9a bf16 fed K5 lse bf16's logsumexp
+    on rows (``chip_smoke.probe_split_compare`` with ``"bf16"``), against
+    the float64 sums of the same bf16-rounded operands: within
+    ``chip_smoke.MARG_SPLIT_FACTOR`` times the bf16 plain pipeline's
+    error plus 1e-6 of the max-abs, dp also within its own float32
+    rounding; dp exactly 0 on one-hot rows; the controls (split logits, g
+    without t . b) refused. Prints the errors."""
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    import chip_smoke
+
+    gmm = {"wide-256": chip_smoke.wide_gmm,
+           "mixed-200": chip_smoke.mixed_gmm}.get(
+        name, lambda: GaussianMixtureModel.from_registry(name))()
+    bufs = gmm.kernel_buffers(device)
+    chip_smoke.marg_split_checks(torch, device, f"card test {name}",
+                                 make_image((96, 160)).clip(0.1), bufs,
+                                 "bf16")
+    x = torch.as_tensor(make_rows(n), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    out, _, _ = chip_smoke.probe_split_compare(torch, x, t, bufs, "bf16")
+    print(f"{name}, {n} rows: {chip_smoke.describe_probe_split(out)}")
+
+
 @pytest.mark.parametrize("shape", [(37, 203), (64, 256)])
 def test_marginalise_fused_kernels_match_plain(device, marg_gmm, shape):
     from jolideco_torch.ops import gmm_fused as gf
@@ -585,12 +670,13 @@ def test_marginalise_tensor_core_backward_is_repeatable(device):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("dial,tc", [("highest", False), ("high", True),
-                                     ("default", True)])
-def test_marginalised_launches_by_dial(device, gmm, dial, tc):
+@pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),
+                                       ("default", "bf16")])
+def test_marginalised_launches_by_dial(device, gmm, dial, mode):
     """The marginalised prior on the card under each dial: K1 lse split
-    and K4 split under ``"high"`` and ``"default"``, the float32 K1 lse
-    and K4 under ``"highest"``, once each; no plain call."""
+    and K4 split under ``"high"``, K1 lse bf16 and K4 bf16 under
+    ``"default"``, the float32 K1 lse and K4 under ``"highest"``, once
+    each; no plain call."""
     from jolideco_torch import config
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors import GMMPatchPrior
@@ -607,13 +693,16 @@ def test_marginalised_launches_by_dial(device, gmm, dial, tc):
         torch.cuda.synchronize()
     finally:
         config.set_gmm_precision(saved)
-    launches = ((gf.gmm_fused_fwd_marg_tc_cuda.launches,
-                 gf.gmm_fused_bwd_marg_tc_cuda.launches),
-                (gf.gmm_fused_fwd_marg_cuda.launches,
-                 gf.gmm_fused_bwd_marg_cuda.launches))
-    assert launches == (((1, 1), (0, 0)) if tc else ((0, 0), (1, 1)))
+    launches = {"split": (gf.gmm_fused_fwd_marg_tc_cuda.launches,
+                          gf.gmm_fused_bwd_marg_tc_cuda.launches),
+                "bf16": (gf.gmm_fused_fwd_marg_bf16_cuda.launches,
+                         gf.gmm_fused_bwd_marg_bf16_cuda.launches),
+                "f32": (gf.gmm_fused_fwd_marg_cuda.launches,
+                        gf.gmm_fused_bwd_marg_cuda.launches)}
+    assert launches == {m: (int(m == mode),) * 2 for m in launches}
     assert (gf.gmm_fused_fwd_tc_cuda.launches, gf.gmm_fused_fwd_cuda.launches,
-            gf.gmm_fused_bwd_cuda.launches) == (0, 0, 0)
+            gf.gmm_fused_fwd_bf16_cuda.launches,
+            gf.gmm_fused_bwd_cuda.launches) == (0, 0, 0, 0)
     assert (gf.fused_forward_plain.calls,
             gf.fused_backward_marg_plain.calls) == (0, 0)
 
@@ -643,13 +732,13 @@ def test_marginalised_prior_on_card_matches_cpu(device, gmm):
                                atol=1e-4 * float(g_cpu.abs().max()))
 
 
-@pytest.mark.parametrize("dial,tc", [("high", True), ("default", True),
-                                     ("highest", False)])
-def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, tc):
+@pytest.mark.parametrize("dial,mode", [("high", "split"), ("default", "bf16"),
+                                       ("highest", "f32")])
+def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, mode):
     """The marginalised prior's ``fluxes_error`` at 64², card against
     CPU, under each dial: K5 lse split, K8 split and K9a split under
-    ``"high"`` and ``"default"``, their float32 kernels under
-    ``"highest"``, once each, and K9b once."""
+    ``"high"``, their bf16 kernels under ``"default"``, their float32
+    kernels under ``"highest"``, once each, and K9b once."""
     from jolideco_torch import FluxComponents, GMMPatchPrior, MAPDeconvolver
     from jolideco_torch import SpatialFluxComponent, config
     from jolideco_torch.ops import gmm_pallas as gp
@@ -675,14 +764,18 @@ def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, tc):
                                      shifts={"flux": (1, -2)})
             errors[str(dev)] = out["flux"].cpu()
             if dev != "cpu":
-                split = (gp.gmm_score_rows_marg_tc_cuda.launches,
-                         gp.gmm_unit_marg_tc_cuda.launches,
-                         gp.gmm_hvp_marg_weights_tc_cuda.launches)
-                f32 = (gp.gmm_score_rows_cuda.launches,
-                       gp.gmm_unit_marg_cuda.launches,
-                       gp.gmm_hvp_marg_weights_cuda.launches)
-                assert (split, f32) == (((1, 1, 1), (0, 0, 0)) if tc
-                                        else ((0, 0, 0), (1, 1, 1)))
+                launches = {
+                    "split": (gp.gmm_score_rows_marg_tc_cuda.launches,
+                              gp.gmm_unit_marg_tc_cuda.launches,
+                              gp.gmm_hvp_marg_weights_tc_cuda.launches),
+                    "bf16": (gp.gmm_score_rows_marg_bf16_cuda.launches,
+                             gp.gmm_unit_marg_bf16_cuda.launches,
+                             gp.gmm_hvp_marg_weights_bf16_cuda.launches),
+                    "f32": (gp.gmm_score_rows_cuda.launches,
+                            gp.gmm_unit_marg_cuda.launches,
+                            gp.gmm_hvp_marg_weights_cuda.launches)}
+                assert launches == {m: (int(m == mode),) * 3
+                                    for m in launches}
                 assert gp.gmm_hvp_marg_mix_cuda.launches == 1
     finally:
         config.set_gmm_precision(saved)
@@ -849,11 +942,10 @@ def test_pfft_split_adjoint_identity(device):
     assert abs(lhs - rhs) <= 3.1e-5 * norm
 
 
-@pytest.mark.parametrize("mode,tc", [("split", True), ("f32", False),
-                                     ("bf16", False)])
-def test_pfft_launches_by_mode(device, mode, tc):
+@pytest.mark.parametrize("mode", ["split", "f32", "bf16"])
+def test_pfft_launches_by_mode(device, mode):
     """``conv_packed_pfft`` forward and backward on the card: each mode's
-    kernels once per pipeline, the other mode's never, no plain call."""
+    kernels once per pipeline, the other modes' never, no plain call."""
     from jolideco_torch.ops import pallas_fft as pf
 
     x0, x1, n, spectra = pfft_batch(device, 1, 128, 128, 9, 3)
@@ -862,14 +954,52 @@ def test_pfft_launches_by_mode(device, mode, tc):
     y0, y1 = pf.conv_packed_pfft(x0, x1, *spectra, n, mode)
     (y0 * y1).sum().backward()
     torch.cuda.synchronize()
-    k32 = (pf.pfft_cols_fwd_cuda.launches, pf.pfft_rows_combine_cuda.launches,
-           pf.pfft_cols_inv_cuda.launches)
-    ktc = (pf.pfft_cols_fwd_tc_cuda.launches,
-           pf.pfft_rows_combine_tc_cuda.launches,
-           pf.pfft_cols_inv_tc_cuda.launches)
-    assert ktc == ((2, 2, 2) if tc else (0, 0, 0))
-    assert k32 == ((0, 0, 0) if tc else (2, 2, 2))
+    launches = {m: tuple(fn.launches for fn in passes)
+                for m, passes in pf.PASSES.items()}
+    assert launches == {m: (2, 2, 2) if m == mode else (0, 0, 0)
+                        for m in pf.PASSES}
     assert pf.conv_packed_pfft_plain.calls == 0
+
+
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (2, 256, 128)])
+def test_pfft_bf16_kernels_match_float64(device, p_, h, w, conj_spec):
+    """K3's three passes in ``"bf16"`` mode and their pipeline against
+    the plain version in float64 on the same inputs
+    (``chip_smoke.bf16_anchored``: within twice the bf16 plain version's
+    error plus 1e-6 of the max-abs, and at least half of it; the pipeline
+    within 1.3e-2 of the max-abs)."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    import chip_smoke
+
+    x0, x1, n, spectra = pfft_batch(device, p_, h, w, 33, h + w)
+    c128, f64 = torch.complex128, torch.float64
+    u = pf.pfft_cols_fwd_bf16_cuda(x0, x1, n)
+    chip_smoke.bf16_anchored("card test", "cols_fwd bf16", u,
+                             pf.cols_fwd_plain(x0, x1, n, mode="bf16"),
+                             pf.cols_fwd_plain(x0.double(), x1.double(), n,
+                                               f64))
+    v = pf.pfft_rows_combine_bf16_cuda(u, *spectra, conj_spec)
+    for got, want32, want64 in zip(
+            v, pf.rows_combine_plain(u, *spectra, conj_spec, mode="bf16"),
+            pf.rows_combine_plain(u.to(c128), *spectra, conj_spec, f64)):
+        chip_smoke.bf16_anchored("card test", "rows bf16", got, want32,
+                                 want64)
+    y = pf.pfft_cols_inv_bf16_cuda(*v, h)
+    for got, want32, want64 in zip(
+            y, pf.cols_inv_plain(*v, h, mode="bf16"),
+            pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)):
+        chip_smoke.bf16_anchored("card test", "cols_inv bf16", got, want32,
+                                 want64)
+    y = pf.pfft_conv_cuda(x0, x1, *spectra, n, conj_spec, "bf16")
+    for got, want32, want64 in zip(
+            y, pf.conv_packed_pfft_plain(x0, x1, *spectra, n, conj_spec,
+                                         mode="bf16"),
+            pf.conv_packed_pfft_plain(x0.double(), x1.double(), *spectra, n,
+                                      conj_spec, f64)):
+        chip_smoke.bf16_anchored("card test", "pipeline bf16", got, want32,
+                                 want64, chip_smoke.PFFT_BF16_SHARE)
 
 
 def test_pfft_path_on_card_matches_cpu(device):
