@@ -78,7 +78,16 @@ Phases, each printing one or more lines:
    under the default dial (in the probe, the adjoint's adjoint too);
    flux and errors held against phases 3 and 4; then a small run's flux
    and errors on the card against the CPU's plain path, ``"split"`` on
-   both.
+   both;
+7. the dial's ``"default"`` setting (``"bf16"``: single bf16 products on
+   the tensor cores): the main path (20 steps, fft), the marginalised
+   path (20 steps), the pfft path (20 steps) and the MAP and
+   marginalised probes (5 steps), each with exact counts (the bf16
+   kernels launched, the split and float32 ones never), its flux or
+   errors against the ``"high"`` run and K1 bf16's argmax flips against
+   K1 split at its final flux (printed beside the JAX package's
+   documented 0.5%); then a small run, card against the CPU's plain path
+   under ``"default"``.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -97,7 +106,16 @@ split's logsumexp) against the float64 pipeline, and on the images'
 rows K8 split and K9a split as the probe runs them (fed K5 lse split's
 logsumexp; K9a split's dp exactly 0 on every row whose weight is
 one-hot), with
-times, bounds and registers beside the float32 kernels'.
+times, bounds and registers beside the float32 kernels'. The same again
+for the ``"bf16"`` kernels (the one-product instances of the same
+code): K1 bf16 and K5 bf16 (both instances) against the bf16 plain
+versions by K1 split's bars, with the split plain values as a control
+that must fail them; K4 bf16 (fed K1 lse bf16), K8 bf16 and K9a bf16
+(fed K5 lse bf16) against the float64 sums of the same bf16-rounded
+operands within ``MARG_SPLIT_FACTOR`` times the bf16 plain pipeline's
+error, with the split plain pipeline as a control refused wherever the
+weights are mixed; K3's bf16 passes and pipeline by
+:func:`bf16_anchored`, with the split pipeline as a control refused.
 
 It then prints a JSON line with K3's errors and times, a JSON line with
 the mixed case's errors, times and bounds, a JSON line with the
@@ -106,8 +124,9 @@ marginalised training and probe, a JSON line with K1's split kernel's
 errors,
 time and bound and the two dials' flux difference, a JSON line with K5
 split's errors, times and bound, the row map's cases and the probe
-under both dials, a JSON line with each kernel's numbers (twenty-three)
-and,
+under both dials, a ``{"default_dial": ...}`` JSON line with the bf16
+kernels' checks and phase 7's paths, a JSON line with each kernel's
+numbers (thirty-three) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -330,8 +349,16 @@ def split_bound(flop, nbytes, products=3):
     return bound(products * flop, nbytes, PEAK_BF16_FLOPS)
 
 
-# bf16 products a k16 step of the tensor-core kernels, by mode
-PRODUCTS = {"split": 3, "bf16": 1}
+def products(mode):
+    """bf16 products a k16 step of the tensor-core kernels of ``mode``."""
+    from jolideco_torch.ops.gmm_fused import TC_PRODUCTS
+
+    return TC_PRODUCTS[mode]
+
+
+def launcher(module, name):
+    """The wrapper of the kernel counted as ``name`` (``counts()``)."""
+    return getattr(module, name + "_cuda")
 
 
 def phase_kernels(torch, device):
@@ -629,13 +656,13 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
             f"{mode} plain "
             f"{bias['split_plain']:.3g}; largest difference from it over "
             f"the sum of the products' magnitudes tc {sum_err['tc']:.3g} "
-            f"(limit {K1_SPLIT_SUM_ERR}), split plain "
+            f"(limit {K1_SPLIT_SUM_ERR}), {mode} plain "
             f"{sum_err['split_plain']:.3g} (magnitudes up to "
             f"{cancel:.3g} x the value); against float64 "
-            f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, split plain "
+            f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, {mode} plain "
             f"{errs['split_plain']:.3g}, fp32 kernel {errs['fp32']:.3g}, "
             f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
-            f"float64: tc {flips64['tc']}, split plain "
+            f"float64: tc {flips64['tc']}, {mode} plain "
             f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
     if control is not None:
         line += (f"; control (split plain values) refused: max rel "
@@ -643,10 +670,6 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
                  f"{ctrl['mean_rel_diff_from_exact']:.3g}, over magnitudes "
                  f"{ctrl['max_diff_from_exact_over_magnitudes']:.3g}")
     return out, line
-
-
-# K1's tensor-core kernel (MAP) under each bf16 mode
-K1_TC = {"split": "gmm_fused_fwd_tc_cuda", "bf16": "gmm_fused_fwd_bf16_cuda"}
 
 
 def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
@@ -662,14 +685,10 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     from jolideco_torch.utils.cuda_build import BUILD_INFO
 
     stride, sentinel = 4, ZERO_FLUX_SENTINEL
-    kernel = getattr(gf, K1_TC[mode])
+    kernel = launcher(gf, K1_KERNELS[mode])
     vt, at, valt, xt = kernel(image, bufs, stride, sentinel)
     vs, as_, vals, xs = gf.fused_forward_plain(image, bufs, stride, sentinel,
                                                mode=mode)
-    control = None
-    if mode == "bf16":
-        vc, ac, _, _ = gf.fused_forward_plain(image, bufs, stride, sentinel,
-                                              mode="split")
     vk, ak, valk, _ = fp32
     vp, ap, valp, xp = fp32_plain
     torch.cuda.synchronize()
@@ -680,11 +699,20 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     xtn_err = float((xt - xs).abs().max())
     check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
           f"{xtn_err:.3g}")
+    rows, plain, control = xs[m], (vs[m], as_[m]), None
     if mode == "bf16":
-        control = (vc[m], ac[m])
+        # a single bf16 rounding is not continuous: the kernel's
+        # normalised patches (within 1e-5 of the plain version's, held
+        # above; they differ in the last bits of the mean) flip the
+        # rounding of a pair product now and then, which moves its logit
+        # by up to about 1e-3 of itself. So the bf16 plain scorer, and the
+        # split one as the control, score the kernel's own patches.
+        rows = xt[m]
+        plain = gf.score_bf16_plain(rows, bufs)
+        control = gf.score_split_plain(rows, bufs)
     out, line = split_value_checks(
-        torch, tag, xs[m], bufs, (vt[m], at[m]), (vs[m], as_[m]),
-        (vk[m], ak[m]), (vp[m], ap[m]), relative, mode=mode, control=control)
+        torch, tag, rows, bufs, (vt[m], at[m]), plain, (vk[m], ak[m]),
+        (vp[m], ap[m]), relative, mode=mode, control=control)
     out["xtn_max_abs_err"] = xtn_err
     line += f"; xtn {xtn_err:.3g}"
     if label == MAIN:
@@ -700,7 +728,7 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
         out["bound"] = split_bound(
             2.0 * n * k * (2080 + 64),
             4 * (image.numel() + n * (3 + 64) + bufs["bc"].numel())
-            + pair_bytes(bufs, mode), PRODUCTS[mode])
+            + pair_bytes(bufs, mode), products(mode))
         out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_fused_tc"]["ptxas"])
         line += (f"; {out['ms']:.3f} ms per call ({mode} plain "
                  f"{out['plain_ms']:.3f} ms), {mode} bound "
@@ -733,13 +761,6 @@ def normalised_rows(torch, image, sentinel):
 ROW_TILE = 128
 
 
-# K5's tensor-core kernels by (mode, marginalize)
-K5_TC = {("split", False): "gmm_score_rows_tc_cuda",
-         ("split", True): "gmm_score_rows_marg_tc_cuda",
-         ("bf16", False): "gmm_score_rows_bf16_cuda",
-         ("bf16", True): "gmm_score_rows_marg_bf16_cuda"}
-
-
 def k5_split_checks(torch, label, x, bufs, relative=True, mode="split"):
     """K5 split (tensor cores), or K5 bf16 with ``mode``, both instances,
     on rows ``x``: :func:`split_value_checks` against the plain versions
@@ -750,7 +771,8 @@ def k5_split_checks(torch, label, x, bufs, relative=True, mode="split"):
 
     out = {}
     for marginalize, name in ((False, "map"), (True, "lse")):
-        tc = getattr(gp, K5_TC[mode, marginalize])(x, bufs)
+        tc = launcher(gp, MARG_PROBE_KERNELS[mode][0] if marginalize
+                      else K5_KERNELS[mode])(x, bufs)
         fp32 = gp.gmm_score_rows_cuda(x, bufs, marginalize)
         split_plain = gf.PLAIN_SCORES[mode, marginalize](x, bufs)
         fp32_plain = gp.score_rows_plain(x, bufs, marginalize)
@@ -1307,12 +1329,6 @@ MARG_SPLIT_FACTOR = 16.0
 LOGIT_SPACINGS = 1.0
 
 
-# the marginalised prior's tensor-core kernels (K1 lse, K4) by mode
-MARG_TC = {"split": ("gmm_fused_fwd_marg_tc_cuda", "gmm_fused_bwd_marg_tc_cuda"),
-           "bf16": ("gmm_fused_fwd_marg_bf16_cuda",
-                    "gmm_fused_bwd_marg_bf16_cuda")}
-
-
 def bf16_reference(torch, x, bufs, t=None):
     """The float64 pipeline of the ``"bf16"`` mode on float32 rows ``x``:
     the exact sums of the same bf16-rounded operands
@@ -1340,7 +1356,8 @@ def bf16_reference(torch, x, bufs, t=None):
             out["dp"].append(p * (g - (p * g).sum(dim=1, keepdim=True)))
     ref = {name: torch.cat(v) for name, v in out.items() if v}
     if t is not None:
-        ref["p"], ref["dp"] = (ref[name].T.contiguous() for name in ("p", "dp"))
+        ref["p"], ref["dp"] = (ref[name].T.contiguous()
+                               for name in ("p", "dp"))
         ref["hvp"] = gp.hvp_marg_mix_plain(x.double(), t.double(), ref["p"],
                                            ref["dp"], b64)
     return ref
@@ -1359,11 +1376,16 @@ def marg_split_pipelines(torch, image, bufs, dv, mode="split"):
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     stride, sentinel, shape = 4, ZERO_FLUX_SENTINEL, tuple(image.shape)
-    fwd, bwd = (getattr(gf, name) for name in MARG_TC[mode])
+    fwd, bwd = (launcher(gf, name) for name in MARG_KERNELS[mode])
     tc = fwd(image, bufs, stride, sentinel)
     g_tc = bwd(tc[3], tc[0], tc[2], dv, bufs, shape, stride)
-    sp = gf.fused_forward_plain(image, bufs, stride, sentinel, True,
-                                mode=mode)
+    if mode == "bf16":
+        # the plain pipeline and the float64 one on the kernel's own
+        # normalised patches (k1_split_checks says why)
+        sp = (*gf.score_bf16_marg_plain(tc[3], bufs), tc[2], tc[3])
+    else:
+        sp = gf.fused_forward_plain(image, bufs, stride, sentinel, True,
+                                    mode=mode)
     g_sp = gf.fused_backward_marg_plain(sp[3], sp[0], sp[2], dv, bufs, shape,
                                         stride, mode=mode)
     b64 = {name: t.double() for name, t in bufs.items()}
@@ -1392,11 +1414,12 @@ def marg_split_checks(torch, device, label, img, bufs, mode="split"):
     (:func:`marg_split_pipelines`), within the plain pipeline's error
     times ``MARG_ERR_FACTOR`` scaled by :func:`split_lse_ratio` under
     ``"split"``, times ``MARG_SPLIT_FACTOR`` under ``"bf16"``, plus
-    ``MARG_ERR_FLOOR`` of the max-abs. Under ``"bf16"`` the split plain
+    ``MARG_ERR_FLOOR`` of the max-abs. Under ``"bf16"`` the plain and
+    float64 pipelines take the kernel's own normalised patches, which
+    K1 bf16's check holds to the plain version's, and the split plain
     pipeline's gradient, the control, must fail that bar wherever the
     weights are mixed. Returns the numbers and the inputs, for timing."""
     from jolideco_torch.ops import gmm_fused as gf
-    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
     image = torch.as_tensor(img, device=device)
     n = gf.fused_patch_count(img.shape, 4)
@@ -1434,9 +1457,8 @@ def marg_split_checks(torch, device, label, img, bufs, mode="split"):
     nnz, used = support(torch, xs[m], vs[m], bufs, mode)
     control = ""
     if mode == "bf16":
-        sc = gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL, True,
-                                    mode="split")
-        g_c = gf.fused_backward_marg_plain(sc[3], sc[0], sc[2], dv, bufs,
+        lse_c, _ = gf.score_split_marg_plain(xs, bufs)
+        g_c = gf.fused_backward_marg_plain(xs, lse_c, vals, dv, bufs,
                                            tuple(image.shape), 4,
                                            mode="split")
         err_c = float((g_c.double() - g64).abs().max())
@@ -1485,7 +1507,7 @@ def marg_split_timing(torch, bufs, s, plain=True, mode="split"):
     shape = tuple(image.shape)
     vt, _, valt, xt = s["tc"]
     vs, _, vals, xs = s["split"]
-    fwd, bwd = (getattr(gf, name) for name in MARG_TC[mode])
+    fwd, bwd = (launcher(gf, name) for name in MARG_KERNELS[mode])
     calls = {
         "fwd": (lambda: fwd(image, bufs, 4, ZERO_FLUX_SENTINEL),
                 lambda: gf.fused_forward_plain(
@@ -1506,13 +1528,13 @@ def marg_split_timing(torch, bufs, s, plain=True, mode="split"):
     ax_flop = 2.0 * (4096 + 64) * s["nnz"]
     bwd_bytes = (4 * (n_valid * 64 + 3 * n + image.numel())
                  + split_bytes + 4 * s["used"] * (64 * 64 + 64))
-    t_ops = (PRODUCTS[mode] * logit_flop * n_valid / PEAK_BF16_FLOPS
+    t_ops = (products(mode) * logit_flop * n_valid / PEAK_BF16_FLOPS
              + ax_flop / PEAK_FP32_FLOPS)
     t_bytes = bwd_bytes / PEAK_BYTES_PER_S
     bounds = {
         "fwd": split_bound(logit_flop * n,
                            4 * (image.numel() + n * (3 + 64)) + split_bytes,
-                           PRODUCTS[mode]),
+                           products(mode)),
         "bwd": {"bound_ms": 1e3 * max(t_ops, t_bytes),
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"},
     }
@@ -1619,15 +1641,6 @@ def multi_weight_rows(torch, pipelines, x64, t64, b64, p64, dp64, big):
     return out
 
 
-# the marginalised probe's tensor-core kernels (K5 lse, K8, K9a) by mode
-PROBE_TC = {
-    "split": ("gmm_score_rows_marg_tc_cuda", "gmm_unit_marg_tc_cuda",
-              "gmm_hvp_marg_weights_tc_cuda"),
-    "bf16": ("gmm_score_rows_marg_bf16_cuda", "gmm_unit_marg_bf16_cuda",
-             "gmm_hvp_marg_weights_bf16_cuda"),
-}
-
-
 def probe_split_compare(torch, x, t, bufs, mode="split"):
     """K8 split and K9a split (the marginalised probe's unit gradient and
     first Hessian stage on the tensor cores), or their ``"bf16"`` kernels
@@ -1651,7 +1664,8 @@ def probe_split_compare(torch, x, t, bufs, mode="split"):
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
-    score, unit, weights = (getattr(gp, name) for name in PROBE_TC[mode])
+    score, unit, weights = (launcher(gp, name)
+                            for name in MARG_PROBE_KERNELS[mode])
     lse_tc, _ = score(x, bufs)
     pt, dpt = weights(x, t, lse_tc, bufs)
     kernel = {"unit": unit(x, lse_tc, bufs),
@@ -1813,7 +1827,8 @@ def probe_split_timing(torch, bufs, s, plain=True, mode="split"):
     from jolideco_torch.ops import gmm_pallas as gp
 
     x, t, lse = s["x"], s["t"], s["lse"]
-    _, unit, weights = (getattr(gp, name) for name in PROBE_TC[mode])
+    _, unit, weights = (launcher(gp, name)
+                        for name in MARG_PROBE_KERNELS[mode])
     calls = {
         "unit": (lambda: unit(x, lse, bufs),
                  lambda: gf.PLAIN_UNITS[mode](x, lse, bufs)),
@@ -1826,7 +1841,7 @@ def probe_split_timing(torch, bufs, s, plain=True, mode="split"):
         if plain:
             timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
     k, n = bufs["rec"].shape[0], x.shape[0]
-    t_ops = (PRODUCTS[mode] * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
+    t_ops = (products(mode) * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
              + 2.0 * (4096 + 64) * s["nnz"] / PEAK_FP32_FLOPS)
     fixed = (4 * bufs["bc"].numel() + pair_bytes(bufs, mode)
              + 4 * s["used"] * (64 * 64 + 64))
@@ -2446,9 +2461,8 @@ def argmax_flips(torch, device, flux, gmm, marginalize=False,
     image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
                             device=device)
     bufs = gmm.kernel_buffers(device)
-    names = MARG_KERNELS if marginalize else K1_KERNELS
-    tc, f32 = (getattr(gf, (names[mode][0] if marginalize else names[mode])
-                       + "_cuda") for mode in modes)
+    tc, f32 = (launcher(gf, MARG_KERNELS[mode][0] if marginalize
+                        else K1_KERNELS[mode]) for mode in modes)
     _, a_tc, valid, _ = tc(image, bufs, 4, ZERO_FLUX_SENTINEL)
     _, a_32, _, _ = f32(image, bufs, 4, ZERO_FLUX_SENTINEL)
     m = valid > 0.5

@@ -165,7 +165,16 @@
 // tensor-core work: 0.057 ms at 1024^2, K = 200. b . x + c, the
 // reductions, the mixtures and K9a's float32 g are the split instances'
 // code. The JAX kernel's K9a computes g by the cross form at DEFAULT;
-// this one keeps g in float32, as under "split".
+// this one keeps g in float32, as under "split". On the H100 (700 W) at
+// 1024^2 (65,536 patches, 65,025 rows), K = 200: <false, 1> 0.418-0.420
+// ms, <true, 1> 0.446-0.455, gmm_bwd_marg_tc_kernel<1> 0.558-0.569,
+// gmm_score_rows_tc_kernel<false, 1> 0.397-0.400, <true, 1> 0.423-0.428,
+// gmm_unit_marg_tc_kernel<1> 0.512-0.515, gmm_hvp_marg_weights_tc_kernel
+// <1> 0.587-0.592 (chip_smoke.py phase 2), 11-14% of their one-product
+// bounds (0.056-0.064 ms); 252-255 registers, 0 bytes spilled; the split
+// instances kept their ptxas lines. Outside the mma (b . x, forming u,
+// the reductions, the mixtures) the two modes do the same work, which is
+// why one product takes 56-66% of three's time, not a third.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -977,7 +986,7 @@ gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
   }
   for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
   marg_rows<kProd>(xs, s.pairs, s.stages, s.us, lse_s, s.wsum, a_pairs, bc, K,
-            MixEntry{grad, xs, a_full, b_rows, tid & 31});
+                   MixEntry{grad, xs, a_full, b_rows, tid & 31});
 
   // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
   if (tid < kBlockRows) {
@@ -1013,8 +1022,8 @@ gmm_unit_marg_tc_kernel(const float* __restrict__ rows,
   load_rows(s.xs, kXLd, rows, n0, n_total);
   load_lse(s.lse, lse, n0, n_total);
   for (int i = tid; i < kBlockRows * kGLd; i += kThreads) s.rows2[i] = 0.f;
-  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
-            MixEntry{s.rows2, s.xs, a_full, b_rows, tid & 31});
+  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc,
+                   K, MixEntry{s.rows2, s.xs, a_full, b_rows, tid & 31});
 
   // unit = (sum_k w_k (b_k - A_k x)) / sum_k w_k
   for (int i = tid; i < kBlockRows * kD; i += kThreads) {
@@ -1059,9 +1068,10 @@ gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
   // its g (s.extra)
   if (tid < kBlockRows) s.wsum[tid] = -1.f;
   const int k_last = (K - 1) / kKP * kKP;
-  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc, K,
-            DotEntry{s.rows2, s.xs, a_full, b_rows, p, dp, s.wsum, s.extra,
-                     n0, n_total, K, k_last, tid & 31});
+  marg_rows<kProd>(s.xs, s.pairs, s.stages, s.us, s.lse, s.wsum, a_pairs, bc,
+                   K,
+                   DotEntry{s.rows2, s.xs, a_full, b_rows, p, dp, s.wsum,
+                            s.extra, n0, n_total, K, k_last, tid & 31});
 
   // the finishing pass: row r by threads r and r + 128, even and odd
   // components, the weights of the tiles before the last from p, of the

@@ -102,7 +102,11 @@
 //   for three k2 at a time reads a third of that.
 // On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
 // (chip_smoke.py phase 2): pass 1 0.16 ms, pass 2 1.13 ms, pass 3 0.48
-// ms; 17%, 7% and 9% of the split bound.
+// ms; 17%, 7% and 9% of the split bound. The "bf16" instances: pass 1
+// 0.12 ms, pass 2 1.00 ms, pass 3 0.65 ms: pass 3 is slower with one
+// product than with three, although the SASS of both instances has the
+// same global loads and stores in the same order (cuobjdump); why is not
+// known (PERF.md section 7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -588,7 +592,8 @@ pfft_cols_fwd_tc_kernel(const float* __restrict__ x0,
         const int e = threadIdx.x + i * kThreads;
         const int n1 = e / kCols;
         const float2 t = k2 < m ? tw[k2 * kLane + n1] : make_float2(0.f, 0.f);
-        put_operand<kProd>(s_hi, s_lo, (kk * kCols + e % kCols) * kLdA + 2 * n1,
+        put_operand<kProd>(s_hi, s_lo,
+                           (kk * kCols + e % kCols) * kLdA + 2 * n1,
                            cmul(t, s[i]));
       }
     }

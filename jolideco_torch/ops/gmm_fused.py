@@ -688,8 +688,8 @@ def _launch_forward_tc(image, bufs, stride, sentinel, marginalize, mode):
             image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
             float(sentinel), bufs["pair_tc"].data_ptr(),
             bufs["bc"].data_ptr(), k, int(bool(marginalize)),
-            TC_PRODUCTS[mode], values.data_ptr(), argmax.data_ptr(), valid.data_ptr(),
-            xtn.data_ptr(), stream,
+            TC_PRODUCTS[mode], values.data_ptr(), argmax.data_ptr(),
+            valid.data_ptr(), xtn.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_tc_error_string, code, "gmm_fused_fwd_tc")
     return values, argmax, valid, xtn

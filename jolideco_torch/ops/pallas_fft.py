@@ -71,7 +71,7 @@ import torch
 
 from ..config import dispatch, pfft_mode
 from .fft import _origin_centered, fft_conv_shape
-from .gmm_fused import _check, _raise_on_error
+from .gmm_fused import TC_PRODUCTS, _check, _raise_on_error
 from .linalg import bf16_round, bf16_split
 
 __all__ = [
@@ -103,8 +103,6 @@ __all__ = [
 
 PFFT_LANE = 128  # stage-B block; transform sizes are multiples of this
 MODES = ("f32", "split", "bf16")
-# bf16 products per k16 step of the tensor-core kernels, by mode
-TC_PRODUCTS = {"split": 3, "bf16": 1}
 
 
 def default_pfft_mode():
@@ -448,7 +446,7 @@ def _library(name="pfft_conv"):
         else:
             # pass 1 also takes the twiddles; each takes the products
             signatures = {
-                "pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, vp, ci, vp],
+                "pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, ci, vp],
                 "pfft_rows_tc": rows[:-1] + [ci, vp],
                 "pfft_cols_inv_tc": cols_inv[:-1] + [ci, vp]}
         for fn, argtypes in signatures.items():

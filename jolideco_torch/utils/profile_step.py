@@ -8,7 +8,9 @@ convolves through the matrix-DFT kernels instead of cuFFT; ``--precision``
 sets the precision dial, whose default ``"high"`` runs the fused
 scorer (its MAP and logsumexp forwards and its marginalise backward),
 the probe's patch-level scorer and marginalise kernels (K5, K8, K9a) and
-K3's three passes on the tensor cores), runs a few warm-up steps, then
+K3's three passes on the tensor cores with three bf16 products a step,
+and whose ``"default"`` runs the same kernels with one), runs a few
+warm-up steps, then
 traces
 ``--steps`` steps with ``torch.profiler``; then, at the fluxes those
 steps reached, the same for ``--steps`` Hessian probes
