@@ -94,10 +94,12 @@ K9b) against their plain versions. Their softmax weights of logits of
 order 1e5 to 1e8 are ill-conditioned in float32, so K4, K8 and K9 are
 held against the plain version run in float64 on the same inputs: the
 kernel's max-abs error must be at most twice the float32 plain
-version's, plus 1e-6 of the result's max-abs. Under ``astro-snr-v1``
-the weights are one-hot (dp is then exactly zero), so the same checks
-run once more on the 1024² image and its rows under a random SPD GMM
-with K = 200 whose weights are mixed; the run fails unless they are.
+version's, plus 1e-6 of the result's max-abs; K9b also gives the same
+bits on two calls, and is timed by its device time too. Under
+``astro-snr-v1`` the weights are one-hot (dp is then exactly zero), so
+the same checks run once more on the 1024² image and its rows under a
+random SPD GMM with K = 200 whose weights are mixed; the run fails
+unless they are.
 Then the marginalise kernels of the ``"split"`` mode on the tensor
 cores, on both images under ``astro-snr-v1``, ``wide_gmm()`` and
 ``mixed_gmm()``: K1 lse split against the split plain version (K1
@@ -284,6 +286,8 @@ def device_ms(torch, fn, reps, *kernels):
 
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
+# K9b's kernel, by the name the profiler gives it
+K9B_KERNEL = "::gmm_hvp_marg_mix_kernel("
 
 
 def phase_device(torch):
@@ -1123,11 +1127,14 @@ def marg_checks(torch, device, label, img, bufs):
     p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
     errs["weights_p"] = anchored(label, "K9a p", pk, p32, p64)
     errs["weights_dp"] = anchored(label, "K9a dp", dpk, dp32, dp64)
-    # K9b on the float32 plain weights, against their float64 mixture
+    # K9b on the float32 plain weights, against their float64 mixture;
+    # a second call gives the same bits (no atomics, a fixed order)
     hk = gp.gmm_hvp_marg_mix_cuda(x, t, p32, dp32, bufs)
     errs["mix"] = anchored(
         label, "K9b", hk, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
         gp.hvp_marg_mix_plain(x64, t64, p32.double(), dp32.double(), b64))
+    check(torch.equal(hk, gp.gmm_hvp_marg_mix_cuda(x, t, p32, dp32, bufs)),
+          f"{label}: K9b differs between two calls on the same inputs")
     # K9 as the probe runs it: both kernels, against float64
     h64 = gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64)
     errs["hvp"] = anchored(
@@ -1190,6 +1197,10 @@ def marg_timing(torch, bufs, img, s, plain=True):
         timing[name + "_ms"] = cuda_ms(torch, kernel, 10)
         if plain:
             timing[name + "_plain_ms"] = cuda_ms(torch, plain_fn, 3)
+    # K9b's host side (checks, an allocation, the launch) may outlast its
+    # kernel at one-hot weights: its device time too
+    timing["mix_device_ms"] = device_ms(torch, calls["mix"][0], 20,
+                                        K9B_KERNEL)
     k = bufs["rec"].shape[0]
     n, n_valid, n_patches = x.shape[0], s["n_valid"], args[0].shape[0]
     logit_flop = 2.0 * (2080 + 64) * k
@@ -1235,6 +1246,7 @@ def phase_marg_kernels(torch, device, bufs, cases):
                           f"{tm[name + '_plain_ms']:.3f})"
                           for name in ("fwd", "bwd", "unit", "weights",
                                        "mix"))
+          + f"; mix device {tm['mix_device_ms']:.4f} ms"
               + f"; nonzero weights: {s['nnz_fused']} of {s['n_valid']} x "
               f"{k} patches, {s['nnz_rows']} of {s['x'].shape[0]} x {k} rows")
 
@@ -1260,6 +1272,7 @@ def phase_marg_kernels(torch, device, bufs, cases):
           + "; ".join(f"{name} {timing[name + '_ms']:.3f} ms (bound "
                       f"{bounds[name]['bound_ms']:.3f})"
                       for name in ("fwd", "bwd", "unit", "weights", "mix"))
+          + f"; mix device {timing['mix_device_ms']:.3f} ms"
           + f"; nonzero weights: {s['nnz_fused']} of {s['n_valid']} x "
           f"{mbufs['rec'].shape[0]} patches, {s['nnz_rows']} of {n} rows; "
           f"median largest weight {s['median_p_max']:.3g}; max |dp| "
@@ -3276,7 +3289,9 @@ def main():
             {"name": name, "max_abs_err": mixed["errors"][key][0],
              "float32_plain_err": mixed["errors"][key][1],
              "max_abs": mixed["errors"][key][2],
-             "ms": mixed["timing"][step + "_ms"], **mixed["bounds"][step]}
+             "ms": mixed["timing"][step + "_ms"], **mixed["bounds"][step],
+             **({"device_ms": mixed["timing"]["mix_device_ms"]}
+                if step == "mix" else {})}
             for name, key, step in (
                 ("gmm_fused_bwd_marg", "bwd", "bwd"),
                 ("gmm_unit_marg", "unit", "unit"),
@@ -3365,10 +3380,10 @@ def main():
     }}))
     # no single PyTorch call computes any of the GMM kernels' functions
     # (each needs a gather of per-row components, or a max or softmax
-    # over quadratic forms), so their library_ms is null. K2's, K6's and
-    # K7's calls take longer on the host than their kernels on the card:
-    # their rows add device_ms, the profiler's device time of a call,
-    # beside ms (CUDA events, as every row).
+    # over quadratic forms), so their library_ms is null. K2's, K6's,
+    # K7's and K9b's calls take longer on the host than their kernels on
+    # the card: their rows add device_ms, the profiler's device time of a
+    # call, beside ms (CUDA events, as every row).
     # max_abs_err: K1, K2, K5-K7 against the float32 plain version, K1
     # split, K1 lse split and K5 split against the split plain version;
     # K1 logsumexp its values against it; K4, K8, K9a, K9b and K3
@@ -3378,7 +3393,8 @@ def main():
              "gmm_unit_map": {"device_ms": rows["row_map"]["unit"][
                  "device_ms"]},
              "gmm_hvp_map": {"device_ms": rows["row_map"]["hvp"][
-                 "device_ms"]}}
+                 "device_ms"]},
+             "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],

@@ -101,22 +101,32 @@
 // per row (gmm_marg.cuh), so they add little. Design: K8 and stage 1 are
 // K5's loop at one row per thread (the row's gradient accumulator, or its
 // tangent, takes the registers of K5's second row), voting per warp on
-// the A_k x pass (gmm_marg.cuh). Stage 2 needs no logits: one thread per
-// row holds x, t and one component's 64 sums in registers and walks the
-// components, skipping those with p_k = dp_k = 0 across the warp; A_k is
-// symmetric, so its row c is its column c, and each float4 of row c feeds
-// four independent sums. The TPU split into two stages (for its 16 MB
-// VMEM) is kept because one pass would need the weights before the
+// the A_k x pass (gmm_marg.cuh). The TPU split into two stages (for its
+// 16 MB VMEM) is kept because one pass would need the weights before the
 // A_k x and A_k t terms they scale: 256 live floats per row. On an NVIDIA
 // H100 80GB HBM3 (700 W limit), 65,025 rows, K = 200, exactly one
 // nonzero weight per row: K8 2.50-2.53 ms and stage 1 2.88-2.91 ms
 // (29-34% of the 0.84 ms bound; K5's loop at one row per thread, as K1
-// ran in 2.41 ms), stage 2 0.31 ms. With all 200 weights nonzero (a
-// random SPD GMM, chip_smoke.py's mixed case): K8 10.7 ms, stage 1
-// 15.3 ms, stage 2 12.5 ms, the A_k x passes at about 17% of the fp32
-// peak. ptxas: K8 255 registers with 44 bytes spilled, stage 1 255
-// without spills, stage 2 254 with 32 bytes and 32 KB of shared memory.
+// ran in 2.41 ms). With all 200 weights nonzero (a random SPD GMM,
+// chip_smoke.py's mixed case): K8 10.7 ms, stage 1 15.3 ms, the A_k x
+// passes at about 17% of the fp32 peak. ptxas: K8 255 registers with 44
+// bytes spilled, stage 1 255 without spills.
+//
+// Stage 2 (K9b) needs no logits. What bounds it: bytes where the weights
+// are one-hot (p and dp, 104 MB of the 154 MB read and written at 65,025
+// rows and K = 200: 0.046 ms at 3.35 TB/s), operations where they are
+// mixed (4,288 multiply-adds a nonzero entry: 1.66 ms with all 200
+// nonzero). Its first kernel took a row a thread, walking all K
+// components with a warp vote each and running every product for the
+// whole warp where any lane had a nonzero weight, A_k through L1 one
+// float4 per four multiply-adds: 0.27-0.31 ms one-hot (0.69 ms on a
+// ragged image whose tiles select up to 22 components), 12.5-12.6 ms
+// mixed. The kernel below reads p and dp once, coalesced, ranks each
+// component's nonzero entries per tile of rows, does each entry's
+// product once and reads A_k from shared memory: see its comment for the
+// design and scripts/torch_k9b_times.py for its times.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -400,64 +410,289 @@ gmm_hvp_marg_weights_kernel(const float* __restrict__ rows,
   }
 }
 
-// Stage 2: H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)].
-// Each component's y = A_k (p_k t + dp_k x) is summed afresh in registers
-// and dp_k b_k - y is then added to the row's running sum, which lives in
-// shared memory, one column of 64 floats per thread (conflict-free: a
-// warp's 32 threads touch 32 consecutive words). Every float32 sum is
-// then a chain of 64 terms per component and one of K over components;
-// one running sum in registers would be a chain of 64 K terms, several
-// times less exact when the weights are mixed.
-__global__ void __launch_bounds__(kMargThreads)
+// Stage 2: H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)], a block per
+// tile of kMixTile rows. The tile's x, t and running sums stay in shared
+// memory. The components come in chunks of kMixChunk: the block reads
+// the chunk's (component, row) slabs of p and dp once, coalesced along N,
+// and keeps a mask of the rows with p_k or dp_k nonzero for each
+// component (zero terms are skipped, exactly, as before). Then, for each
+// component with rows in ascending order, A_k and that component's p and
+// dp come into shared memory by cp.async, double-buffered (the next
+// component's while this one multiplies); the rows of the mask are ranked
+// by row into a list, with v = p_k t + dp_k x staged for each; and each
+// entry's y = A_k v is summed by a half-warp, a thread four entries of y,
+// R entries at a time (R = 1, 2 or 4, the fewest that give every entry a
+// half-warp). dp_k b_k - y is then added to the entry's running sum.
+// Every float32 sum is the first kernel's: a chain of 64 terms per
+// component, then one over the components in ascending order, each row's
+// entries one after the other (a barrier between components), so the
+// output is the first kernel's bit for bit, and two calls give the same
+// bits, with no atomics. A tile of 64 rows keeps the shared memory at
+// 105 KB, two blocks an SM, so that one block's loads overlap the
+// other's products (scripts/torch_k9b_variants.py: 128 rows a block, one
+// an SM, took 0.104 and 4.39 ms where 64 took 0.087 and 3.87). On an
+// NVIDIA H100 80GB HBM3 (700 W limit), 65,025 rows, K = 200, device time
+// (scripts/torch_k9b_times.py): 0.087-0.088 ms at one-hot weights (53% of
+// the byte bound; 0.272-0.297 before), 0.098-0.099 ms at a ragged image
+// of 56,025 rows whose tiles select up to 22 components (0.71 before),
+// 3.86 ms with all 200 weights nonzero (43% of the operation bound; 12.55
+// before), held there by the two barriers and the v staging of each
+// component of a tile and by the shared-memory reads (eight float4s per
+// 64 multiply-adds). ptxas: 90 registers, 0 spilled.
+constexpr int kMixTile = 64;    // rows a block
+constexpr int kMixBlocks = 2;   // blocks an SM (the shared memory's share)
+constexpr int kMixThreads = 256;
+constexpr int kMixChunk = 64;   // components a chunk of the masks
+constexpr int kMixLoads = 16;   // (component, row) slab entries of a thread in flight
+constexpr int kMixUnroll = 16;  // four-column steps of a product unrolled
+constexpr int kMixWords = kMixTile / 32;  // mask words a component
+constexpr int kMixHalves = kMixThreads / 16;  // half-warps a block
+constexpr int kMixMaxR = kMixTile > 4 * kMixHalves ? 8 : 4;  // entries a half-warp
+constexpr int kMixLdV = kD + 4; // a staged v: entries e, e + 1 four banks apart
+static_assert(kMixTile % 32 == 0 && kMixTile <= 256 && kMixChunk % 4 == 0 &&
+                  kMixChunk <= 64,
+              "whole mask words; a row's index in a byte; the chunk's "
+              "components in a 64-bit mask");
+static_assert(kMixTile <= 8 * kMixHalves, "at most eight entries a half-warp");
+// the dynamic shared memory, in floats: x, t, the running sums, the
+// staged v, A_k, p_k and dp_k of two stages, the chunk's masks, then
+// bytes: a flag per (component, row) of the chunk, a component's entry
+// list and the chunk's active components
+constexpr int kMixX = 0;
+constexpr int kMixT = kMixX + kMixTile * kD;
+constexpr int kMixAcc = kMixT + kMixTile * kD;
+constexpr int kMixV = kMixAcc + kMixTile * kD;
+constexpr int kMixA = kMixV + kMixTile * kMixLdV;
+constexpr int kMixP = kMixA + 2 * kD * kD;
+constexpr int kMixDp = kMixP + 2 * kMixTile;
+constexpr int kMixMask = kMixDp + 2 * kMixTile;
+constexpr int kMixFlags = kMixMask + kMixWords * kMixChunk;
+constexpr int kMixRows = kMixFlags + kMixChunk * kMixTile / 4;
+constexpr int kMixActive = kMixRows + kMixTile / 4;
+constexpr int kMixSmem = 4 * (kMixActive + kMixChunk / 4);
+
+// The four bits 0, 8, 16, 24 of v (flags of 0 or 1, one a byte) as bits
+// 0 .. 3.
+__device__ __forceinline__ unsigned pack_flags(unsigned v) {
+  return (v | v >> 7 | v >> 14 | v >> 21) & 0xFu;
+}
+
+// Issues the copies of A_k and of p_k, dp_k over the tile's rows into a
+// stage, as one cp.async group.
+__device__ __forceinline__ void mix_stage(float* a_dst, float* p_dst,
+                                          float* dp_dst,
+                                          const float* __restrict__ a_full,
+                                          const float* __restrict__ p,
+                                          const float* __restrict__ dp,
+                                          int k, int n_total, int n0,
+                                          int count) {
+  const float4* a4 = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
+  for (int e = threadIdx.x; e < kD * kD / 4; e += blockDim.x)
+    __pipeline_memcpy_async(a_dst + 4 * e, a4 + e, 16);
+  const size_t g = (size_t)k * n_total + n0;
+  for (int q = threadIdx.x; q < count; q += blockDim.x) {
+    __pipeline_memcpy_async(p_dst + q, p + g + q, 4);
+    __pipeline_memcpy_async(dp_dst + q, dp + g + q, 4);
+  }
+  __pipeline_commit();
+}
+
+// y = A_k v for the m staged entries and acc[row] += dp_k b_k - y: half-
+// warp h takes entries h, h + H, ..., h + H (R - 1), H = kMixHalves (an
+// entry past m reads entry h and is not stored), a thread entries
+// r0 .. r0 + 3 of their y (r0 = 4 (t % 16)). A_k is symmetric, so row c of A_k is its
+// column c, and per four columns c a thread reads four float4s of A_k
+// (the half-warp a 256-byte line of each row, the warp's other half-warp
+// the same) and a float4 of each entry's v, 16 R multiply-adds.
+template <int R>
+__device__ __forceinline__ void mix_product(const float* a, const float* vs,
+                                            const unsigned char* rows,
+                                            const float* dps,
+                                            const float* __restrict__ bk,
+                                            float* acc, int m) {
+  for (int u = threadIdx.x; u < kMixThreads; u += blockDim.x) {
+    const int h = u / 16, r0 = 4 * (u % 16);
+    if (h >= m) continue;
+    float y[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i) y[i][0] = y[i][1] = y[i][2] = y[i][3] = 0.f;
+#pragma unroll kMixUnroll
+    for (int c = 0; c < kD; c += 4) {
+      float4 av[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        av[j] = *reinterpret_cast<const float4*>(a + (c + j) * kD + r0);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int e = h + kMixHalves * i < m ? h + kMixHalves * i : h;
+        const float4 v = *reinterpret_cast<const float4*>(vs + e * kMixLdV + c);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          y[i][0] = fmaf(av[j].x, vv[j], y[i][0]);
+          y[i][1] = fmaf(av[j].y, vv[j], y[i][1]);
+          y[i][2] = fmaf(av[j].z, vv[j], y[i][2]);
+          y[i][3] = fmaf(av[j].w, vv[j], y[i][3]);
+        }
+      }
+    }
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bk + r0));
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int e = h + kMixHalves * i;
+      if (e >= m) break;
+      const int q = rows[e];
+      const float d = dps[q];
+      float4* dst = reinterpret_cast<float4*>(acc + q * kD + r0);
+      float4 o = *dst;
+      o.x += fmaf(d, b.x, -y[i][0]);
+      o.y += fmaf(d, b.y, -y[i][1]);
+      o.z += fmaf(d, b.z, -y[i][2]);
+      o.w += fmaf(d, b.w, -y[i][3]);
+      *dst = o;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMixThreads, kMixBlocks)
 gmm_hvp_marg_mix_kernel(const float* __restrict__ rows,
                         const float* __restrict__ tangents,
                         const float* __restrict__ p, const float* __restrict__ dp,
                         const float* __restrict__ a_full,
                         const float* __restrict__ b_rows, int n_total, int K,
                         float* __restrict__ out) {
-  __shared__ float acc[kD][kMargThreads];
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem + kMixX;
+  float* ts = smem + kMixT;
+  float* acc = smem + kMixAcc;
+  float* vs = smem + kMixV;
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + kMixMask);
+  unsigned char* flags = reinterpret_cast<unsigned char*>(smem + kMixFlags);
+  unsigned char* list = reinterpret_cast<unsigned char*>(smem + kMixRows);
+  unsigned char* active = reinterpret_cast<unsigned char*>(smem + kMixActive);
 
-  // no early return: every lane of a warp takes part in the vote below
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = n < n_total;
-  float x[kD], t[kD], y[kD];
-  load_row(rows, n, n_total, x);
-  load_row(tangents, n, n_total, t);
-#pragma unroll
-  for (int r = 0; r < kD; ++r) acc[r][threadIdx.x] = 0.f;
+  const int n0 = blockIdx.x * kMixTile;
+  const int count = n_total - n0 < kMixTile ? n_total - n0 : kMixTile;
+  if (count <= 0) return;  // the whole block: no barrier is skipped
 
-  for (int k = 0; k < K; ++k) {
-    const size_t i = (size_t)k * n_total + n;
-    const float pk = live ? __ldg(p + i) : 0.f;
-    const float dpk = live ? __ldg(dp + i) : 0.f;
-    if (!__any_sync(gmm::kFullMask, pk != 0.f || dpk != 0.f)) continue;
-    const float4* A = reinterpret_cast<const float4*>(a_full + (size_t)k * kD * kD);
-    const float* bk = b_rows + (size_t)k * kD;
+  // the tile's x and t by cp.async (waited for with the first stage)
+  const float4* x4 = reinterpret_cast<const float4*>(rows + (size_t)n0 * kD);
+  const float4* t4 = reinterpret_cast<const float4*>(tangents + (size_t)n0 * kD);
+  for (int e = threadIdx.x; e < count * kD / 4; e += blockDim.x) {
+    __pipeline_memcpy_async(xs + 4 * e, x4 + e, 16);
+    __pipeline_memcpy_async(ts + 4 * e, t4 + e, 16);
+  }
+  __pipeline_commit();
+  for (int e = threadIdx.x; e < kMixTile * kD / 4; e += blockDim.x)
+    reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int s = 0;  // the stage of the next component
+  for (int c0 = 0; c0 < K; c0 += kMixChunk) {
+    const int kc = K - c0 < kMixChunk ? K - c0 : kMixChunk;
+    // the chunk's flags: a (component, row) entry's p and dp, read by a
+    // warp as 32 consecutive rows of one component, kMixLoads entries of
+    // a thread in flight together
+    const int items = kc * kMixTile;
+    for (int base = threadIdx.x; base < items; base += kMixLoads * blockDim.x) {
+      float pv[kMixLoads], dv[kMixLoads];
 #pragma unroll
-    for (int r = 0; r < kD; ++r) y[r] = 0.f;
+      for (int i = 0; i < kMixLoads; ++i) {
+        const int e = base + i * blockDim.x;
+        const int q = e % kMixTile;
+        const size_t g = (size_t)(c0 + e / kMixTile) * n_total + n0 + q;
+        const bool live = e < items && q < count;
+        pv[i] = live ? __ldg(p + g) : 0.f;
+        dv[i] = live ? __ldg(dp + g) : 0.f;
+      }
 #pragma unroll
-    for (int c = 0; c < kD; ++c) {
-      const float v = fmaf(dpk, x[c], pk * t[c]);
-#pragma unroll
-      for (int r = 0; r < kD; r += 4) {
-        const float4 a = __ldg(A + c * (kD / 4) + r / 4);
-        y[r] = fmaf(a.x, v, y[r]);
-        y[r + 1] = fmaf(a.y, v, y[r + 1]);
-        y[r + 2] = fmaf(a.z, v, y[r + 2]);
-        y[r + 3] = fmaf(a.w, v, y[r + 3]);
+      for (int i = 0; i < kMixLoads; ++i) {
+        const int e = base + i * blockDim.x;
+        if (e < items) flags[e] = pv[i] != 0.f || dv[i] != 0.f;
       }
     }
+    __syncthreads();
+    // each component's mask of rows (kMixWords words) and whether it has
+    // any
+    for (int j = threadIdx.x; j < kMixChunk; j += blockDim.x) {
+      unsigned any = 0;
+      if (j < kc) {
+        const unsigned* f = reinterpret_cast<const unsigned*>(flags + j * kMixTile);
+        for (int w = 0; w < kMixWords; ++w) {
+          unsigned bits = 0;
 #pragma unroll
-    for (int r = 0; r < kD; ++r)
-      acc[r][threadIdx.x] += fmaf(dpk, __ldg(bk + r), -y[r]);
+          for (int i = 0; i < 8; ++i) bits |= pack_flags(f[8 * w + i]) << (4 * i);
+          mask[kMixWords * j + w] = bits;
+          any |= bits;
+        }
+      }
+      active[j] = any != 0;
+    }
+    __syncthreads();
+    unsigned long long todo = 0;  // the chunk's components with entries
+#pragma unroll
+    for (int i = 0; i < kMixChunk / 4; ++i)
+      todo |= (unsigned long long)pack_flags(
+                  reinterpret_cast<const unsigned*>(active)[i]) << (4 * i);
+    if (todo)
+      mix_stage(smem + kMixA + s * kD * kD, smem + kMixP + s * kMixTile,
+                smem + kMixDp + s * kMixTile, a_full, p, dp,
+                c0 + __ffsll((long long)todo) - 1, n_total, n0, count);
+    while (todo) {
+      const int j = __ffsll((long long)todo) - 1;
+      todo &= todo - 1;
+      const int k = c0 + j;
+      const float* ak = smem + kMixA + s * kD * kD;
+      const float* ps = smem + kMixP + s * kMixTile;
+      const float* dps = smem + kMixDp + s * kMixTile;
+      __pipeline_wait_prior(0);
+      // the stage is in for every thread, and every thread is done with
+      // the last component's list, v and stage
+      __syncthreads();
+      if (todo)
+        mix_stage(smem + kMixA + (s ^ 1) * kD * kD,
+                  smem + kMixP + (s ^ 1) * kMixTile,
+                  smem + kMixDp + (s ^ 1) * kMixTile, a_full, p, dp,
+                  c0 + __ffsll((long long)todo) - 1, n_total, n0, count);
+      // v = p_k t + dp_k x for each row of the mask, at its rank (the
+      // entries before it in row order)
+      const unsigned* mk = mask + kMixWords * j;
+      int ones[kMixWords], m = 0;
+#pragma unroll
+      for (int w = 0; w < kMixWords; ++w) m += ones[w] = __popc(mk[w]);
+      for (int e = threadIdx.x; e < kMixTile * kD / 4; e += blockDim.x) {
+        const int q = e / (kD / 4), c = 4 * (e % (kD / 4));
+        const unsigned word = mk[q / 32];
+        const unsigned bit = 1u << (q % 32);
+        if (!(word & bit)) continue;
+        int rank = __popc(word & (bit - 1u));
+#pragma unroll
+        for (int w = 0; w < kMixWords; ++w) rank += w < q / 32 ? ones[w] : 0;
+        const float pk = ps[q], dpk = dps[q];
+        const float4 xv = *reinterpret_cast<const float4*>(xs + q * kD + c);
+        const float4 tv = *reinterpret_cast<const float4*>(ts + q * kD + c);
+        *reinterpret_cast<float4*>(vs + rank * kMixLdV + c) =
+            make_float4(fmaf(dpk, xv.x, pk * tv.x), fmaf(dpk, xv.y, pk * tv.y),
+                        fmaf(dpk, xv.z, pk * tv.z), fmaf(dpk, xv.w, pk * tv.w));
+        if (c == 0) list[rank] = static_cast<unsigned char>(q);
+      }
+      __syncthreads();
+      const float* bk = b_rows + (size_t)k * kD;
+      if (m <= kMixHalves)
+        mix_product<1>(ak, vs, list, dps, bk, acc, m);
+      else if (m <= 2 * kMixHalves)
+        mix_product<2>(ak, vs, list, dps, bk, acc, m);
+      else if (m <= 4 * kMixHalves || kMixMaxR == 4)
+        mix_product<4>(ak, vs, list, dps, bk, acc, m);
+      else
+        mix_product<kMixMaxR>(ak, vs, list, dps, bk, acc, m);
+      s ^= 1;
+    }
   }
-
-  if (!live) return;
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
-#pragma unroll
-  for (int c = 0; c < kD; c += 4)
-    dst[c / 4] = make_float4(acc[c][threadIdx.x], acc[c + 1][threadIdx.x],
-                             acc[c + 2][threadIdx.x], acc[c + 3][threadIdx.x]);
+  __pipeline_wait_prior(0);  // a tile without entries never waited
+  __syncthreads();
+  float4* dst = reinterpret_cast<float4*>(out + (size_t)n0 * kD);
+  for (int e = threadIdx.x; e < count * kD / 4; e += blockDim.x)
+    dst[e] = reinterpret_cast<const float4*>(acc)[e];
 }
 
 int blocks_for(int n, int per_block) { return (n + per_block - 1) / per_block; }
@@ -527,13 +762,17 @@ int gmm_hvp_marg_weights(const void* rows, const void* tangents,
 int gmm_hvp_marg_mix(const void* rows, const void* tangents, const void* p,
                      const void* dp, const void* a_full, const void* b_rows,
                      int n, int K, void* out, void* stream) {
-  gmm_hvp_marg_mix_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_hvp_marg_mix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMixSmem);
+  gmm_hvp_marg_mix_kernel<<<blocks_for(n, kMixTile), kMixThreads, kMixSmem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(rows), static_cast<const float*>(tangents),
       static_cast<const float*>(p), static_cast<const float*>(dp),
       static_cast<const float*>(a_full), static_cast<const float*>(b_rows), n, K,
       static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t launch = cudaGetLastError();
+  return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
 const char* gmm_patch_error_string(int code) {

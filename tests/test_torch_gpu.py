@@ -20,7 +20,8 @@ float64 on the same inputs: at most twice the float32 plain version's
 max-abs error plus 1e-6 of the result's max-abs (softmax weights of
 logits of order 1e5 to 1e8 are ill-conditioned in float32); they run on
 the ``astro-snr-v1`` GMM, whose weights are nearly one-hot, and on a
-random SPD GMM, whose weights are not. Their ``"split"`` kernels on the
+random SPD GMM, whose weights are not; K9b also at 65,025 rows on
+one-hot, mixed and made-up weights, bitwise repeatable. Their ``"split"`` kernels on the
 tensor cores: the logsumexp as the MAP forward's against the split plain
 version, the backward fed by it against the float64 pipeline within
 twice the split plain pipeline's error, scaled by how much further the
@@ -439,6 +440,67 @@ def test_marginalise_patch_kernels_match_float64(device, marg_gmm, n):
              gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
              gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64))
     torch.cuda.synchronize()
+
+
+def mix_weights(case, x, t, device):
+    """The GMM's buffers and the weights ``p``, ``dp`` ``(K, N)`` of a K9b
+    case at ``x``'s rows (see :func:`test_hvp_marg_mix_cases`)."""
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    import chip_smoke
+
+    if case == "mixed":
+        gmm = chip_smoke.mixed_gmm()
+    else:
+        gmm = GaussianMixtureModel.from_registry("astro-snr-v1")
+    bufs = gmm.kernel_buffers(device)
+    if case in ("one-hot", "mixed"):
+        lse, _ = gp.score_rows_plain(x, bufs, True)
+        p, dp = gp.hvp_marg_weights_plain(x, t, lse, bufs)
+        return bufs, p, dp
+    n, k = x.shape[0], bufs["rec"].shape[0]
+    rs = np.random.RandomState(len(case))
+    rows = np.arange(n)
+    if case == "chunks":
+        picks = [rows % 7, 64 + rows % 5, 150 + rows % 3,
+                 np.where(rows % 4 == 0, 199, 150 + rows % 3)]
+    else:
+        picks = [rows % int(case)]
+    p = np.zeros((k, n), np.float32)
+    dp = np.zeros((k, n), np.float32)
+    for pick in picks:
+        p[pick, rows] = rs.uniform(0.1, 1.0, n)
+        dp[pick, rows] = rs.randn(n)
+    dp[picks[0][::5], rows[::5]] = 0.0
+    return bufs, torch.as_tensor(p, device=device), torch.as_tensor(
+        dp, device=device)
+
+
+@pytest.mark.parametrize("case", ["one-hot", "mixed", "chunks", "1", "3",
+                                  "7", "19", "200"])
+def test_hvp_marg_mix_cases(device, case):
+    """K9b at the main path's 65,025 rows (the last tile of 128 rows holds
+    one) against the plain version in float32 and float64 (the anchored
+    bar), and twice on the same inputs with the same bits: the float32
+    plain first stage's weights under ``astro-snr-v1`` (one-hot) and
+    ``chip_smoke.mixed_gmm()`` (mixed, K = 200), entries of each row in
+    three chunks of 64 components, and one component a row at row index
+    mod 1, 3, 7, 19 and 200."""
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    n = 65025
+    x = torch.as_tensor(make_rows(n), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    bufs, p, dp = mix_weights(case, x, t, device)
+    b64 = {k: v.double() for k, v in bufs.items()}
+    got = gp.gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs)
+    assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+    anchored(got, gp.hvp_marg_mix_plain(x, t, p, dp, bufs),
+             gp.hvp_marg_mix_plain(x.double(), t.double(), p.double(),
+                                   dp.double(), b64))
+    assert torch.equal(got, gp.gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs))
 
 
 @pytest.mark.parametrize("name,n", [

@@ -8,6 +8,10 @@ the kernel once per thread, as a block of one thread (``blockDim.x =
 1``). A block of one thread reads and writes its own shared memory and
 passes its barriers alone, and a warp vote (``__any_sync``) returns the
 thread's own vote, which can only skip work whose terms are zero. The
+other stubs mean for one thread what they mean on the card: the bit
+counts ``__popc`` and ``__ffsll``, and the asynchronous copies of
+``cuda_pipeline_primitives.h`` (``__pipeline_memcpy_async`` copies at
+once, so committing and waiting have nothing left to do). The
 kernels' results do not depend on how threads are grouped, so this runs
 their arithmetic, indexing, masking and C entry points (through the
 wrappers' own ``ctypes`` signatures) on small inputs. It says nothing of
@@ -59,7 +63,7 @@ STUB = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(x)
 #define __restrict__
@@ -73,6 +77,8 @@ struct dim3_ { unsigned x, y, z; };
 extern dim3_ threadIdx, blockIdx, blockDim;
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline bool __any_sync(unsigned, bool vote) { return vote; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffsll(long long v) { return __builtin_ffsll(v); }
 inline void __syncthreads() {}
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0 };
@@ -85,6 +91,17 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 """
 MATH_STUB = "#pragma once\n#define CUDART_INF_F __builtin_inff()\n"
+PIPELINE_STUB = r"""
+#pragma once
+#include <cstddef>
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t = 0) {
+  std::memcpy(dst, src, size);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+"""
 LAUNCH = re.compile(r"([\w<>]+?)<<<\s*(.*?),\s*(\w+),.*?>>>\((.*?)\);", re.S)
 DYNAMIC_SMEM = re.compile(
     r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];")
@@ -128,6 +145,7 @@ def emulated(tmp_path_factory):
     out = tmp_path_factory.mktemp("emulated")
     (out / "cuda_runtime.h").write_text(STUB)
     (out / "math_constants.h").write_text(MATH_STUB)
+    (out / "cuda_pipeline_primitives.h").write_text(PIPELINE_STUB)
     libs = {}
     for name in EMULATED:
         src = out / f"{name}.cpp"
@@ -375,6 +393,88 @@ def test_row_map_any_components_per_tile(libs, period):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
         assert torch.equal(got, row_map(name, rows, *b_rows))
+
+
+def mix_case(case):
+    """Rows ``x``, tangents ``t``, weights ``p`` and ``dp`` ``(K, N)`` and
+    the GMM's buffers of one K9b case (see
+    :func:`test_hvp_marg_mix_cases`)."""
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    n = {"ragged": 129, "chunks": 300}.get(case, 300)
+    rs = np.random.RandomState(len(case))
+    x = rs.uniform(-0.5, 0.5, (n, 64)).astype(np.float32)
+    x = torch.as_tensor(x - x.mean(axis=1, keepdims=True))
+    t = torch.as_tensor(rs.randn(n, 64).astype(np.float32))
+    if case in ("one-hot", "mixed", "ragged"):
+        # the probe's weights: the float32 plain first stage
+        if case == "mixed":
+            from test_torch_marginalise import mixed_gmm_arrays
+
+            gmm = gmm_from_arrays(*mixed_gmm_arrays(), None)
+        elif case == "ragged":
+            # K = 200, every weight of every row nonzero: runs of a whole
+            # tile, then a tile of one row
+            a = rs.randn(200, 64, 64) / 8.0
+            gmm = gmm_from_arrays(rs.rand(200, 64),
+                                  a @ a.transpose(0, 2, 1) + 0.5 * np.eye(64),
+                                  rs.dirichlet(np.ones(200)), None)
+        else:
+            gmm = astro
+        bufs = gmm.kernel_buffers("cpu")
+        lse, _ = gp.score_rows_plain(x, bufs, True)
+        p, dp = gp.hvp_marg_weights_plain(x, t, lse, bufs)
+        return x, t, p, dp, bufs
+    bufs = astro.kernel_buffers("cpu")
+    k = bufs["rec"].shape[0]
+    rows = np.arange(n)
+    if case == "chunks":
+        # three to four components a row in three chunks of 64, runs of
+        # 14 to 75 rows a tile
+        picks = [rows % 7, 64 + rows % 5, 150 + rows % 3,
+                 np.where(rows % 4 == 0, 199, 150 + rows % 3)]
+    else:
+        # one component a row, row index mod the period
+        picks = [rows % int(case)]
+    p = np.zeros((k, n), np.float32)
+    dp = np.zeros((k, n), np.float32)
+    for pick in picks:
+        p[pick, rows] = rs.uniform(0.1, 1.0, n)
+        dp[pick, rows] = rs.randn(n)
+    dp[picks[0][::5], rows[::5]] = 0.0    # entries with p alone
+    return x, t, torch.as_tensor(p), torch.as_tensor(dp), bufs
+
+
+@pytest.mark.parametrize("case", ["one-hot", "mixed", "chunks", "ragged",
+                                  "1", "3", "7", "19", "200"])
+def test_hvp_marg_mix_cases(libs, case):
+    """K9b against the plain version in float32 and float64 (the anchored
+    bar), twice on the same inputs with the same bits: the probe's
+    one-hot weights (``astro-snr-v1``) and mixed weights
+    (``mixed_gmm_arrays``, K = 8), rows whose entries span three chunks
+    of components (``chunks``), every weight of K = 200 nonzero over 129
+    rows (a ragged last tile of one row), and one component a row at row
+    index mod 1, 3, 7, 19 and 200 (runs of a whole tile down to one row,
+    the tile's rows in 128 components), over 300 rows."""
+    _, patch = libs
+    x, t, p, dp, bufs = mix_case(case)
+    n, k = x.shape[0], p.shape[0]
+    b64 = {name: v.double() for name, v in bufs.items()}
+
+    def mix():
+        out = torch.full((n, 64), float("nan"))
+        assert patch.gmm_hvp_marg_mix(
+            ptr(x), ptr(t), ptr(p), ptr(dp), ptr(bufs["a_full"]),
+            ptr(bufs["b_rows"]), n, k, ptr(out), None) == 0
+        return out
+
+    got = mix()
+    assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+    anchored(got, gp.hvp_marg_mix_plain(x, t, p, dp, bufs),
+             gp.hvp_marg_mix_plain(x.double(), t.double(), p.double(),
+                                   dp.double(), b64))
+    assert torch.equal(got, mix())
 
 
 def pfft_case(p_, h, w, k, n, seed):
