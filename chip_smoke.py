@@ -87,7 +87,20 @@ Phases, each printing one or more lines:
    errors against the ``"high"`` run and K1 bf16's argmax flips against
    K1 split at its final flux (printed beside the JAX package's
    documented 0.5%); then a small run, card against the CPU's plain path
-   under ``"default"``.
+   under ``"default"``;
+8. the default entry point: ``MAPDeconvolver(n_epochs=20)`` with every
+   other keyword at its default (``update_strategy="sequential"``,
+   ``trace_every=1``, ``display_progress=True``, the card) at the main
+   path under the default dial, with exact counts (K1 split 20 x (10 +
+   1): a step per observation and the trace row's forward each epoch;
+   K2 20 x 10), twenty finite trace rows whose data term falls, and its
+   epochs/s and optimiser steps/s beside the card's name and power
+   limit; then a small run (4 x 128², cycle spin) with ``trace_every=3``,
+   validation data and ``stop_early``, resumed from its result for 5
+   more epochs with ``compute_error=True``: trace and errors on the card
+   against the CPU's plain path within phase 3's bars, the flux within
+   1e-3 of its max-abs (phase 6's bar, for the same reason: Adam's
+   steps), both stopped after the same epoch.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -127,7 +140,8 @@ errors,
 time and bound and the two dials' flux difference, a JSON line with K5
 split's errors, times and bound, the row map's cases and the probe
 under both dials, a ``{"default_dial": ...}`` JSON line with the bf16
-kernels' checks and phase 7's paths, a JSON line with each kernel's
+kernels' checks and phase 7's paths, a ``{"default_entry": ...}`` JSON
+line with phase 8's numbers, a JSON line with each kernel's
 numbers (thirty-three) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
@@ -300,7 +314,7 @@ def phase_device(torch):
     print(f"phase 0 device: {name}; count {torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -3074,6 +3088,190 @@ def phase_default(torch, device, slice_, errors, marg_train, marg_probe):
     return out
 
 
+# phase 8: the default deconvolver's epochs at the main path, and the
+# small run's stop: 20 epochs asked; the flat start lies above the
+# small run's flux, which falls, so the validation data's total (twice
+# the counts of other observations of the field) rises from the start
+SEQ_EPOCHS, SMALL_STOP_EPOCHS, SMALL_N_AVERAGE, SMALL_RESUME = 20, 20, 3, 5
+SMALL_TRACE_EVERY = 3
+# The small run's flux on the card against the CPU, as a share of the
+# max-abs (phase 6's bar, PFFT_FLUX_SHARE, for the same reason). Adam's
+# steps, m / (sqrt(v) + eps), turn the float32 differences of the two
+# paths (cuFFT against pocketfft, K2's sums against the plain version's)
+# into different steps wherever a pixel's gradient nearly vanishes, and
+# the sequential strategy's per-observation gradients cross zero more
+# often than the joint one's: on an NVIDIA H100 80GB HBM3 (700 W) the
+# flux parted by 1.2e-4 (elementwise) after one epoch at 4 x 128^2,
+# 1.43e-4 (9.8e-5 of the max-abs) after nine, the same under every
+# dial, while the trace stayed within 4.6e-5 and the errors 5.1e-6:
+# those keep phase 3's bars, the flux is held here and its elementwise
+# difference printed.
+SEQ_FLUX_SHARE = 1e-3
+
+
+def brighter(datasets, factor, seed):
+    """The datasets with Poisson counts of ``factor`` times theirs."""
+    rs = np.random.RandomState(seed)
+    return {name: {**d, "counts": rs.poisson(factor * d["counts"])
+                   .astype(np.float32)} for name, d in datasets.items()}
+
+
+def small_default_runs(device):
+    """Phase 8's small run on ``device``: the default deconvolver at 4 x
+    128^2 (``builtin-8x8-v1``, cycle spin) with ``trace_every=3``,
+    validation data and ``stop_early``, then ``resume_from`` its result
+    for 5 more epochs with ``compute_error=True``."""
+    from jolideco_torch import (
+        GMMPatchPrior,
+        MAPDeconvolver,
+        SpatialFluxComponent,
+    )
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    validation = brighter(make_datasets(n_obs=2, size=128, psf_size=9,
+                                        seed=2), 2.0, seed=3)
+    component = SpatialFluxComponent.from_numpy(
+        np.ones((128, 128), np.float32),
+        prior=GMMPatchPrior(gmm=builtin, stride=4, cycle_spin=True))
+    first = MAPDeconvolver(
+        n_epochs=SMALL_STOP_EPOCHS, trace_every=SMALL_TRACE_EVERY,
+        stop_early=True, stop_early_n_average=SMALL_N_AVERAGE, device=device,
+    ).run(small, datasets_validation=validation, components=component)
+    second = MAPDeconvolver(
+        n_epochs=SMALL_RESUME, trace_every=SMALL_TRACE_EVERY,
+        compute_error=True, device=device,
+    ).run(small, datasets_validation=validation,
+          components=first.components.copy(), resume_from=first)
+    return first, second
+
+
+def max_rel(a, b):
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_default_entry(torch, device, card):
+    """Phase 8, the default entry point: ``MAPDeconvolver(n_epochs=20)``
+    with every other keyword at its default (``"sequential"``,
+    ``trace_every=1``, ``display_progress=True``, the card) at the main
+    path, counts set to zero just before and read just after: K1 split
+    20 x (10 + 1) times (a step per observation and the trace row's
+    forward each epoch), K2 20 x 10 times, every other kernel and plain
+    version never; twenty finite trace rows, the data term lower at the
+    last than at the first. Then the small run on the card against the
+    CPU's plain path: the same stop, trace and errors within phase 3's
+    bars, flux within ``SEQ_FLUX_SHARE`` of its max-abs."""
+    from jolideco_torch import (
+        GMMPatchPrior,
+        MAPDeconvolver,
+        SpatialFluxComponent,
+        config,
+    )
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    check(config.gmm_precision() == "high", "phase 8 runs the default dial")
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+
+    def component():
+        prior = GMMPatchPrior(gmm=astro, stride=4, cycle_spin=True)
+        return SpatialFluxComponent.from_numpy(
+            np.ones((FIELD, FIELD), np.float32), prior=prior)
+
+    MAPDeconvolver(n_epochs=1).run(datasets, components=component())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = MAPDeconvolver(n_epochs=SEQ_EPOCHS).run(datasets,
+                                                     components=component())
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(result.config["update_strategy"] == "sequential"
+          and result.config["trace_every"] == 1
+          and result.config["display_progress"], "phase 8: not the defaults")
+    n_steps = SEQ_EPOCHS * N_OBS
+    expected = expect(**{K1_KERNELS[config.gmm_mode()]: SEQ_EPOCHS
+                         * (N_OBS + 1), "gmm_fused_bwd": n_steps})
+    check(launches == expected, f"phase 8: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"phase 8: plain versions ran {plain_calls} "
+          "times")
+    trace = result.trace_loss
+    names = trace.colnames[:-1]
+    rows = np.array([trace[name] for name in names]).T
+    data = trace["datasets-total"]
+    check(rows.shape == (SEQ_EPOCHS, 3 + 1 + N_OBS)
+          and bool(np.isfinite(rows).all()), f"phase 8: trace {rows.shape}"
+          f" not {SEQ_EPOCHS} finite rows")
+    check(data[-1] < data[0], f"phase 8: data term did not fall: "
+          f"{data[0]} -> {data[-1]}")
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    check(loss.shape == (n_steps,) and bool(np.isfinite(loss).all()),
+          "phase 8: non-finite step losses")
+    check(bool(np.isfinite(flux).all() and (flux > 0).all()),
+          "phase 8: flux not finite and positive")
+    out = {"epochs_per_s": SEQ_EPOCHS / result.train_seconds,
+           "steps_per_s": n_steps / result.train_seconds,
+           "train_seconds": result.train_seconds, "launches": launches,
+           "plain_calls": plain_calls, "peak_bytes": peak,
+           "total": [float(trace["total"][0]), float(trace["total"][-1])],
+           "data_term": [float(data[0]), float(data[-1])], "card": card}
+    print(f"phase 8 MAPDeconvolver(n_epochs={SEQ_EPOCHS}) defaults "
+          f"(sequential, trace_every=1) {N_OBS}x{FIELD}^2 K=200 on {card}: "
+          f"{out['epochs_per_s']:.3f} epochs/s, {out['steps_per_s']:.3f} "
+          f"optimiser steps/s ({result.train_seconds:.4f} s); trace total "
+          f"{out['total'][0]:.6f} -> {out['total'][1]:.6f}, data term "
+          f"{data[0]:.6f} -> {data[-1]:.6f}; launches {launches}; plain "
+          f"calls {plain_calls}; peak memory {peak} B")
+
+    reset_counts()
+    on_card = small_default_runs(device)
+    launches, _ = counts()
+    on_cpu = small_default_runs("cpu")
+    check(launches[K1_KERNELS[config.gmm_mode()]] > 0
+          and launches["gmm_score_rows_tc"] == 1, f"phase 8 small: "
+          f"launches {launches}")
+    stops = [run[0].n_epochs for run in (on_card, on_cpu)]
+    check(stops[0] == stops[1] < SMALL_STOP_EPOCHS, f"phase 8 small: "
+          f"stopped after {stops} epochs (card, CPU) of {SMALL_STOP_EPOCHS}")
+    shares = {tag: flux_share(on_card[i].flux_upsampled_total,
+                              on_cpu[i].flux_upsampled_total)
+              for i, tag in enumerate(("flux_stop", "flux_resumed"))}
+    for tag, share in shares.items():
+        check(share <= SEQ_FLUX_SHARE, f"phase 8 small {tag} on the card vs "
+              f"CPU: max-abs difference {share:.3g} of the max (limit "
+              f"{SEQ_FLUX_SHARE})")
+    rels = {tag: max_rel(on_card[i].flux_upsampled_total,
+                         on_cpu[i].flux_upsampled_total)
+            for i, tag in enumerate(("flux_stop", "flux_resumed"))}
+    for i, tag in enumerate(("trace_stop", "trace_resumed")):
+        a, b = on_card[i].trace_loss, on_cpu[i].trace_loss
+        check(a.colnames == b.colnames and len(a) == len(b) > 0,
+              f"phase 8 small {tag}: traces differ in shape")
+        rels[tag] = max(max_rel(a[n], b[n]) for n in a.colnames[:-1])
+    rels["errors"] = max_rel(
+        on_card[1].components["flux"].flux_upsampled_error_numpy,
+        on_cpu[1].components["flux"].flux_upsampled_error_numpy)
+    for tag, rel in rels.items():
+        limit = SMALL_ERROR_RTOL if tag == "errors" else SMALL_FLUX_RTOL
+        check(tag.startswith("flux") or rel <= limit, f"phase 8 small {tag} "
+              f"on the card vs CPU: max rel err {rel:.3g} (limit {limit})")
+    out["small"] = {**rels, **{f"{k}_share": v for k, v in shares.items()},
+                    "stopped_after": stops[0]}
+    print(f"phase 8 small 4x128^2 (trace_every={SMALL_TRACE_EVERY}, "
+          f"stop_early, then {SMALL_RESUME} epochs resumed with "
+          f"compute_error) card vs CPU plain path: both stopped after "
+          f"{stops[0]} of {SMALL_STOP_EPOCHS} epochs; flux max-abs "
+          "difference " + ", ".join(f"{k} {v:.3g}" for k, v in shares.items())
+          + f" of the max (limit {SEQ_FLUX_SHARE}); max rel err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rels.items())
+          + f" (trace limit {SMALL_FLUX_RTOL}, errors {SMALL_ERROR_RTOL})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3090,7 +3288,7 @@ def main():
     sys.path.insert(0, str(ROOT))
 
     device = torch.device("cuda", 0)
-    device_name = phase_device(torch)
+    device_name, card = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch, device)
     slice_ = phase_slice(torch, device)
@@ -3100,6 +3298,7 @@ def main():
                                         errors["high"]["errors"])
     default = phase_default(torch, device, slice_, errors, marg_train,
                             marg_probe)
+    entry = phase_default_entry(torch, device, card)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -3395,6 +3594,7 @@ def main():
              "gmm_hvp_map": {"device_ms": rows["row_map"]["hvp"][
                  "device_ms"]},
              "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
+    print(json.dumps({"default_entry": entry}))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],

@@ -1,31 +1,59 @@
-"""MAP deconvolution driver (the JAX package's ``core.py``), joint strategy.
+"""MAP deconvolution driver (the JAX package's ``core.py``).
 
-One step of the joint strategy is
+Two update strategies, as in the JAX package:
 
-    flux = exp(log_flux) -> stacked Poisson NLL (FFT convolution)
+- ``"sequential"`` (the default): each epoch takes one optimiser step
+  per dataset, in the datasets' order, on
+  ``weight_i · NLL_i − β · log_prior / n_datasets``, all steps sharing
+  one optimiser state; each dataset has its own forward model
+  (``models/npred.py``, FFT convolution);
+- ``"joint"``: one step per epoch on the weighted sum of every
+  dataset's NLL minus ``β · log_prior``, the observations stacked
+  (``parallel/stacked.py``; ``conv_mode`` ``"fft"`` or ``"pfft"``).
+
+A step is
+
+    flux = exp(log_flux) -> Poisson NLL (FFT convolution)
          -> minus beta times the log-prior (GMM patch prior)
          -> backward -> one optimiser step,
 
-run eagerly, one Python iteration per epoch (no CUDA graph yet). The
+run eagerly, one Python iteration per step (no CUDA graph yet). The
 optimisers are ``torch.optim.Adam`` and ``torch.optim.SGD``, which make
 the same updates as the JAX package's ``optax.adam`` and ``optax.sgd``
-(bias-corrected moments, ``eps`` outside the square root). Randomness
-(the prior's cycle spins) comes from one CPU ``torch.Generator`` seeded
-with ``seed``; it draws other numbers than JAX's keys from the same
-seed.
+(bias-corrected moments, ``eps`` outside the square root).
+
+After an epoch's steps, a trace row is computed at the epoch's end
+parameters (``trace_every=1``: every epoch; ``k > 1``: epochs with
+``epoch % k == 0``; ``0``: none): the total loss, the summed data and
+prior terms, each prior and each dataset's raw NLL, and, with
+validation data, their summed NLL. Rows stay on the device and are
+fetched once, at the end of the run, into ``result.trace_loss``. With
+``stop_early`` a row is computed every epoch and its validation total
+fetched (one synchronisation an epoch): training stops after the first
+epoch, past the first ``stop_early_n_average``, whose validation total
+exceeds the mean of the last ``stop_early_n_average`` (itself included).
+
+Randomness (the prior's cycle spins) comes from one CPU
+``torch.Generator`` seeded with ``seed``. Each epoch draws the shifts of
+its steps in order, then those of its trace row whenever the run traces
+at all (``trace_every > 0`` or ``stop_early``), whether or not that
+epoch's row is computed, so that ``trace_every`` changes no training
+result. The generator draws other numbers than JAX's keys from the same
+seed. A run resumes (``run(resume_from=)``) from a result or from a
+directory written by ``MAPDeconvolverResult.save_state`` with the
+optimiser's moments and the generator's state, so ``n`` epochs and then
+``m`` more give the bits of ``n + m`` epochs in one run.
 
 With ``compute_error=True`` the run ends with one Hessian probe at the
 trained fluxes (``TotalLoss.fluxes_error``): flux errors
 ``sqrt(1 / (H · 1))`` per component, on the patch-level GMM scorer's
-kernels.
+kernels, after either strategy.
 
-Ported: ``update_strategy="joint"``, ``trace_every=0``, ``conv_mode``
-``"fft"`` and ``"pfft"``, ``compute_error``. The sequential strategy,
-the loss trace, early stopping, checkpoints, a device mesh, validation
-data, calibrations, resuming and a prebuilt loss raise
-``NotImplementedError``. Every keyword of the JAX package's signatures
-is accepted, so that a call written for it fails only on what is not
-ported.
+Not ported, raising ``NotImplementedError``: ``checkpoint_path`` (the
+per-epoch result files), a device ``mesh``, ``calibrations`` and
+``conv_mode`` values other than ``"auto"``, ``"fft"`` and ``"pfft"``.
+Every keyword of the JAX package's signatures is accepted, so that a
+call written for it fails only on what is not ported.
 """
 
 import logging
@@ -38,6 +66,8 @@ from .config import resolve_device
 from .loss import PriorLoss, TotalLoss
 from .models import FluxComponents, SpatialFluxComponent
 from .parallel.stacked import StackedPoissonLoss
+from .utils.checkpoint import restore_train_state, save_train_state
+from .utils.table import Table
 
 log = logging.getLogger(__name__)
 
@@ -77,51 +107,178 @@ def _trainable(params, device):
     }
 
 
+def _load_params(params, values):
+    """Copy the nested numpy ``values`` into the nested tensors ``params``."""
+    with torch.no_grad():
+        for name, leaf in params.items():
+            if isinstance(leaf, dict):
+                _load_params(leaf, values[name])
+            else:
+                leaf.copy_(torch.as_tensor(np.asarray(values[name])))
+
+
+def _load_opt_state(optimizer, opt_state):
+    """Load the moments and step counts of ``opt_state`` (a state dict),
+    cloned, keeping the optimiser's own hyper-parameters."""
+    current = optimizer.state_dict()
+    current["state"] = {
+        index: {k: v.clone() if torch.is_tensor(v) else v
+                for k, v in entry.items()}
+        for index, entry in opt_state["state"].items()
+    }
+    optimizer.load_state_dict(current)
+
+
+def _validate_component_shapes(datasets, components):
+    """Fail the build with a clear message on a flux/data shape mismatch."""
+    for ds_name, dataset in datasets.items():
+        data_shape = tuple(np.asarray(dataset["counts"]).shape[-2:])
+        for name, component in components.items():
+            factor = component.upsampling_factor or 1
+            expected = (data_shape[0] * factor, data_shape[1] * factor)
+            got = tuple(component.flux_upsampled.shape[-2:])
+            if got != expected:
+                raise ValueError(
+                    f"Flux component {name!r} has shape {got} but dataset "
+                    f"{ds_name!r} counts are {data_shape} with upsampling "
+                    f"factor {factor} (expected flux shape {expected}). "
+                    "Note SpatialFluxComponent.from_numpy takes the flux "
+                    "at data resolution and upsamples it by "
+                    "upsampling_factor itself."
+                )
+
+
+class Trainer:
+    """The optimisation state of one run and its epoch.
+
+    Built by :meth:`MAPDeconvolver.make_trainer`. ``epoch(index)`` runs
+    one epoch in place and returns ``(losses, row)``: the device scalar
+    losses of its steps (each at the parameters its step started from)
+    and its trace row (a dict of device scalars), ``None`` on an epoch
+    that computes none.
+    """
+
+    def __init__(self, deconvolver, components, total_loss, params,
+                 optimizer, generator):
+        self.components = components
+        self.total_loss = total_loss
+        self.params = params
+        self.optimizer = optimizer
+        self.generator = generator
+        self.beta = deconvolver.beta
+        self.sequential = deconvolver.update_strategy == "sequential"
+        self.trace_every = deconvolver.trace_every
+        self.stop_early = deconvolver.stop_early
+        # early stopping reads the validation total off a row every epoch
+        self.traced = self.trace_every != 0 or self.stop_early
+        self.n_datasets = total_loss.poisson_loss.n_datasets
+        self.weights = total_loss.poisson_loss.weights
+
+    def _step(self, loss_fn):
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def _loss_for_dataset(self, idx, shifts):
+        fluxes = self.components.fluxes_from(self.params)
+        loss = self.total_loss.poisson_loss.evaluate_dataset(idx, fluxes)
+        prior = self.total_loss.prior_loss(fluxes, params=self.params,
+                                           shifts=shifts)
+        return self.weights[idx] * loss - self.beta * prior / self.n_datasets
+
+    def _loss_joint(self, shifts):
+        return self.total_loss(self.components.fluxes_from(self.params),
+                               params=self.params, shifts=shifts)
+
+    def computes_row(self, epoch):
+        """Whether ``epoch`` computes a trace row."""
+        if self.trace_every == 1 or self.stop_early:
+            return True
+        return self.trace_every > 0 and epoch % self.trace_every == 0
+
+    def records_row(self, epoch):
+        """Whether ``epoch``'s row goes into the trace table."""
+        return self.trace_every > 0 and epoch % self.trace_every == 0
+
+    def epoch(self, epoch):
+        prior_loss = self.total_loss.prior_loss
+        if self.sequential:
+            losses = []
+            for idx in range(self.n_datasets):
+                shifts = prior_loss.draw_shifts(self.generator)
+                losses.append(self._step(
+                    lambda: self._loss_for_dataset(idx, shifts)))
+        else:
+            shifts = prior_loss.draw_shifts(self.generator)
+            losses = [self._step(lambda: self._loss_joint(shifts))]
+        row = None
+        if self.traced:
+            shifts = prior_loss.draw_shifts(self.generator)
+            if self.computes_row(epoch):
+                with torch.no_grad():
+                    row = self.total_loss.trace_row_values(
+                        self.components.fluxes_from(self.params),
+                        params=self.params, shifts=shifts,
+                    )
+        return losses, row
+
+
 class MAPDeconvolver:
     """Maximum a-posteriori deconvolver.
 
     Parameters
     ----------
     n_epochs : int
-        Number of optimiser steps (one per epoch in the joint strategy).
+        Number of training epochs.
     beta : float
         Prior scale factor.
     learning_rate : float
+    compute_error : bool
+        Compute flux errors from the loss Hessian after training.
+    stop_early : bool
+        Stop when the validation loss stops improving (needs
+        ``datasets_validation``).
+    stop_early_n_average : int
+        Moving-average window of early stopping.
+    display_progress : bool
+        Log the run's epochs, steps, time and first and last loss at INFO
+        level when training ends (the JAX package shows a progress bar).
     optimizer_type : {"adam", "sgd"}
     optimizer_kwargs : dict, optional
         Torch-style keys: ``lr``, ``betas``, ``eps``, ``momentum``,
         ``nesterov``.
-    update_strategy : {"joint"}
-        ``"sequential"`` is not ported yet.
+    checkpoint_path : str, optional
+        Not ported: anything but ``None`` raises ``NotImplementedError``.
+    update_strategy : {"sequential", "joint"}
+        ``"sequential"``: one optimiser step per dataset per epoch;
+        ``"joint"``: one step per epoch on the summed loss.
+    scan_epochs, scan_chunk :
+        How the JAX package compiles its loop; accepted and stored. The
+        port runs one eager step at a time whatever they say, with the
+        same results.
     trace_every : int
-        Only 0 (no loss trace) is ported.
+        Record the loss trace every N epochs (0: no trace).
     seed : int
         Seed of the generator that draws the prior's cycle spins.
     device : str or torch.device, optional
         Where the run happens; default the first CUDA card (and an error
         without one). ``"cpu"`` runs the plain versions of the kernels.
+    mesh :
+        Not ported: anything but ``None`` raises ``NotImplementedError``.
     conv_mode : {"auto", "fft", "pfft"}
-        PSF convolution backend: ``"fft"`` a batched ``rfft2`` (cuFFT on
-        the card), ``"pfft"`` the pair-packed matrix DFT
-        (``ops/pallas_fft.py``). ``"auto"`` takes the one that was faster
-        on the card at the main path's shape (see ``build_loss``).
+        PSF convolution backend of the joint strategy: ``"fft"`` a
+        batched ``rfft2`` (cuFFT on the card), ``"pfft"`` the pair-packed
+        matrix DFT (``ops/pallas_fft.py``). ``"auto"`` takes the one that
+        was faster on the card at the main path's shape (see
+        ``build_loss``). The sequential strategy's per-dataset models
+        always use the FFT.
     fft_shape : tuple of int, optional
         Padded FFT shape (at least image + kernel - 1 per axis).
-    compute_error : bool
-        Compute flux errors from the loss Hessian after training.
-    display_progress : bool
-        Log the run's step count, time and first and last loss at INFO
-        level when training ends (the JAX package shows a progress bar).
-    scan_epochs, scan_chunk :
-        How the JAX package compiles its loop; accepted and stored. The
-        port runs one eager step per epoch whatever they say, with the
-        same results.
     shard_prior : bool
         Accepted and stored: without a mesh it has no effect, in the JAX
         package too.
-    stop_early, stop_early_n_average, checkpoint_path, mesh :
-        Accepted for signature parity; ``stop_early``, a checkpoint path
-        and a mesh raise ``NotImplementedError``.
     """
 
     _default_flux_component = "flux"
@@ -135,12 +292,8 @@ class MAPDeconvolver:
                  device=None, mesh=None, conv_mode="auto", fft_shape=None,
                  shard_prior=True):
         unported = {
-            "stop_early": stop_early,
             "checkpoint_path": checkpoint_path is not None,
             "mesh": mesh is not None,
-            f"update_strategy={update_strategy!r}":
-                update_strategy != "joint",
-            f"trace_every={trace_every}": int(trace_every) != 0,
             f"conv_mode={conv_mode!r}":
                 conv_mode not in ("auto", "fft", "pfft"),
         }
@@ -154,16 +307,22 @@ class MAPDeconvolver:
                 f"Unknown optimizer: {optimizer_type}, must be one of "
                 f"{list(OPTIMIZER)}"
             )
+        if update_strategy not in ("sequential", "joint"):
+            raise ValueError(
+                f"Unknown update strategy {update_strategy!r}, choose from "
+                "'sequential' or 'joint'"
+            )
         self.n_epochs = int(n_epochs)
         self.beta = float(beta)
         self.learning_rate = float(learning_rate)
         self.compute_error = bool(compute_error)
-        self.stop_early = False
+        self.stop_early = bool(stop_early)
         self.stop_early_n_average = int(stop_early_n_average)
         self.display_progress = bool(display_progress)
         self.scan_epochs = scan_epochs
         self.scan_chunk = None if scan_chunk is None else int(scan_chunk)
         self.mesh = None
+        self.checkpoint_path = None
         self.shard_prior = bool(shard_prior)
         self.optimizer_type = optimizer_type
         optimizer_kwargs = dict(optimizer_kwargs or {})
@@ -206,10 +365,46 @@ class MAPDeconvolver:
             else list(self.fft_shape),
             "mesh": None,
             "shard_prior": self.shard_prior,
+            "checkpoint_path": None,
         }
 
-    def build_loss(self, datasets, components, device):
-        """The joint strategy's total loss on ``device``."""
+    def _flux_components(self, components):
+        if isinstance(components, SpatialFluxComponent):
+            components = {self._default_flux_component: components}
+        return FluxComponents(components)
+
+    def build_loss(self, datasets, datasets_validation=None, components=None,
+                   calibrations=None, device=None):
+        """Build the total loss once, for reuse across ``run`` calls
+        (``run(total_loss=...)``): stacked observations for ``"joint"``,
+        per-dataset forward models for ``"sequential"``, and with
+        ``datasets_validation`` a validation loss of the same kind.
+
+        ``device`` defaults to the deconvolver's (the first CUDA card
+        unless it says otherwise). ``calibrations`` raise
+        ``NotImplementedError``.
+        """
+        if calibrations is not None:
+            raise NotImplementedError("calibrations are not ported yet")
+        components = self._flux_components(components)
+        device = resolve_device(self.device if device is None else device)
+        _validate_component_shapes(datasets, components)
+        if datasets_validation:
+            _validate_component_shapes(datasets_validation, components)
+
+        if self.update_strategy == "sequential":
+            if self.conv_mode not in ("fft", "auto"):
+                log.warning(
+                    f"conv_mode={self.conv_mode!r} only applies to the "
+                    "stacked joint path; the per-dataset forward models "
+                    "always convolve via FFT"
+                )
+            return TotalLoss.from_datasets_and_components(
+                datasets=datasets, datasets_validation=datasets_validation,
+                components=components, beta=self.beta,
+                fft_shape=self.fft_shape, device=device,
+            )
+
         # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
         # 1024^2 (n = 1152) the matrix DFT took 1.94 ms per direction
         # under the default dial ("split": passes 2 and 3 on the tensor
@@ -217,46 +412,76 @@ class MAPDeconvolver:
         # pair 0.58 ms and the batched rfft2 of the same 10 images 0.45 ms
         # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
-        poisson = StackedPoissonLoss.from_datasets(
-            datasets=datasets, components=components,
-            fft_shape=self.fft_shape, conv_mode=conv_mode,
-            device=device,
+
+        def stacked(data):
+            return StackedPoissonLoss.from_datasets(
+                datasets=data, components=components,
+                fft_shape=self.fft_shape, conv_mode=conv_mode,
+                device=device,
+            )
+
+        return TotalLoss(
+            poisson_loss=stacked(datasets),
+            prior_loss=PriorLoss(components.priors),
+            poisson_loss_validation=(stacked(datasets_validation)
+                                     if datasets_validation else None),
+            beta=self.beta,
         )
-        return TotalLoss(poisson_loss=poisson,
-                         prior_loss=PriorLoss(components.priors),
-                         beta=self.beta)
 
-    def make_step(self, datasets, components):
-        """Build the loss, parameters and optimiser of a run.
+    def make_trainer(self, datasets, components, datasets_validation=None,
+                     total_loss=None, resume_from=None):
+        """Build (or take) the loss, the parameters, the optimiser and the
+        generator of a run, and return its `Trainer`.
 
-        Returns ``(step, params, components, total_loss)``: ``step()``
-        takes one optimiser step and returns the loss at the parameters
-        it started from (a device scalar, not fetched); ``params`` is
-        the nested dict of trainable tensors it updates in place.
+        ``components`` are moved to the run's device; the trainer's
+        ``params`` is the nested dict of trainable tensors its epochs
+        update in place. ``resume_from`` as in :meth:`run`.
         """
         device = resolve_device(self.device)
-        if isinstance(components, SpatialFluxComponent):
-            components = {self._default_flux_component: components}
-        components = FluxComponents(components)
+        components = self._flux_components(components)
         for component in components.values():
             component.to(device)
-        total_loss = self.build_loss(datasets, components, device)
+        if total_loss is None:
+            total_loss = self.build_loss(
+                datasets, datasets_validation=datasets_validation,
+                components=components, device=device,
+            )
+        else:
+            total_loss.reset_trace()
+            if (datasets_validation is not None
+                    and total_loss.poisson_loss_validation is None):
+                log.warning(
+                    "datasets_validation is ignored when a prebuilt "
+                    "total_loss is supplied; pass it to build_loss() "
+                    "instead"
+                )
+        if self.stop_early and total_loss.poisson_loss_validation is None:
+            raise ValueError(
+                "Early stopping requires a loss with validation datasets; "
+                "the supplied total_loss was built without them"
+            )
 
         params = _trainable(components.parameters(), device)
+        generator = torch.Generator().manual_seed(self.seed)
+        opt_state = None
+        if isinstance(resume_from, MAPDeconvolverResult):
+            opt_state = resume_from.opt_state
+            if resume_from.generator_state is not None:
+                generator.set_state(resume_from.generator_state)
+        elif resume_from is not None:
+            values, opt_state, generator_state, _ = restore_train_state(
+                resume_from
+            )
+            _load_params(params, values)
+            if generator_state is not None:
+                generator.set_state(generator_state)
         optimizer = OPTIMIZER[self.optimizer_type](
             list(_leaves(params)), **self.optimizer_kwargs
         )
-        generator = torch.Generator().manual_seed(self.seed)
-
-        def step():
-            optimizer.zero_grad(set_to_none=True)
-            loss = total_loss(components.fluxes_from(params), params=params,
-                              generator=generator)
-            loss.backward()
-            optimizer.step()
-            return loss.detach()
-
-        return step, params, components, total_loss
+        if opt_state is not None:
+            _load_opt_state(optimizer, opt_state)
+        return Trainer(self, components, total_loss, params, optimizer,
+                       generator)
 
     def run(self, datasets, datasets_validation=None, components=None,
             calibrations=None, resume_from=None, total_loss=None):
@@ -266,42 +491,77 @@ class MAPDeconvolver:
         ----------
         datasets : dict of [str, dict]
             Per-dataset dicts with ``counts``, ``psf``, ``exposure`` and
-            ``background`` numpy arrays.
+            ``background`` numpy arrays (``psf`` may be a dict keyed by
+            component).
+        datasets_validation : dict of [str, dict], optional
+            Validation data: traced as ``datasets-validation-total`` and
+            read by early stopping.
         components : `FluxComponents`, dict or `SpatialFluxComponent`
             Required (the JAX package's default, ``None``, fails there
             too).
-        datasets_validation, calibrations, resume_from, total_loss :
-            Accepted for signature parity; anything but ``None`` raises
+        calibrations :
+            Not ported: anything but ``None`` raises
             ``NotImplementedError``.
+        resume_from : `MAPDeconvolverResult`, str or Path, optional
+            Continue a run: a result (pass its ``components`` too, to go
+            on from its parameters; its optimiser state and generator
+            state are restored) or a directory written by
+            :meth:`MAPDeconvolverResult.save_state` (parameters,
+            optimiser state and generator state all restored from it).
+        total_loss : `TotalLoss`, optional
+            Prebuilt by :meth:`build_loss`; each run gets a fresh trace.
 
         Returns
         -------
         result : `MAPDeconvolverResult`
         """
-        unported = {"datasets_validation": datasets_validation,
-                    "calibrations": calibrations, "resume_from": resume_from,
-                    "total_loss": total_loss}
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"MAPDeconvolver.run({name}=...) is not ported yet"
-                )
+        if calibrations is not None:
+            raise NotImplementedError(
+                "MAPDeconvolver.run(calibrations=...) is not ported yet"
+            )
+        if self.stop_early and datasets_validation is None:
+            raise ValueError("Early stopping requires providing test datasets")
         if components is None:
             raise ValueError("MAPDeconvolver.run needs components")
-        step, params, components, total_loss = self.make_step(datasets,
-                                                              components)
-        t0 = time.perf_counter()
-        losses = [step() for _ in range(self.n_epochs)]
-        # one host fetch at the end: no per-step synchronisation
-        loss_per_step = (
-            torch.stack(losses).cpu().numpy() if losses
-            else np.zeros(0, np.float32)
+        components = self._flux_components(components)
+        components_init = components.copy()
+        trainer = self.make_trainer(
+            datasets, components, datasets_validation=datasets_validation,
+            total_loss=total_loss, resume_from=resume_from,
         )
+        total_loss, params = trainer.total_loss, trainer.params
+
+        t0 = time.perf_counter()
+        losses, rows, val_hist = [], [], []
+        n_average = self.stop_early_n_average
+        n_epochs = 0
+        for epoch in range(self.n_epochs):
+            step_losses, row = trainer.epoch(epoch)
+            losses += step_losses
+            n_epochs += 1
+            if row is not None and trainer.records_row(epoch):
+                rows.append(torch.stack(list(row.values())))
+            if self.stop_early:
+                val_hist.append(float(row["datasets-validation-total"]))
+                if (len(val_hist) > n_average
+                        and val_hist[-1] > np.mean(val_hist[-n_average:])):
+                    break
+        # one host fetch of the losses and one of the trace: no
+        # per-step synchronisation (but stop_early's, one an epoch)
+        loss_per_step = (torch.stack(losses).cpu().numpy() if losses
+                         else np.zeros(0, np.float32))
+        trace = torch.stack(rows).cpu().numpy() if rows else []
         train_seconds = time.perf_counter() - t0
+
+        names = [name for name in total_loss.trace.colnames
+                 if name != "filename"]
+        for values in trace:
+            total_loss.append_trace_device_row(dict(zip(names, values)))
         if self.display_progress and len(loss_per_step):
-            log.info(f"MAPDeconvolver: {self.n_epochs} steps in "
-                     f"{train_seconds:.3f} s, loss {loss_per_step[0]:.6g} "
-                     f"-> {loss_per_step[-1]:.6g}")
+            log.info(f"MAPDeconvolver: {n_epochs} epochs, "
+                     f"{len(loss_per_step)} steps in {train_seconds:.3f} s, "
+                     f"loss {loss_per_step[0]:.6g} -> "
+                     f"{loss_per_step[-1]:.6g}")
 
         components.set_parameters(params)
         if not all(bool(torch.isfinite(p).all()) for p in _leaves(params)):
@@ -323,6 +583,11 @@ class MAPDeconvolver:
         return MAPDeconvolverResult(
             config=self.to_dict(),
             components=components,
+            trace_loss=total_loss.trace,
+            components_init=components_init,
+            opt_state=trainer.optimizer.state_dict(),
+            generator_state=trainer.generator.get_state(),
+            n_epochs=n_epochs,
             loss_per_step=loss_per_step,
             train_seconds=train_seconds,
             error_seconds=error_seconds,
@@ -336,23 +601,53 @@ class MAPDeconvolverResult:
     ----------
     config : dict
     components : `FluxComponents`
-    loss_per_step : numpy array ``(n_epochs,)``
-        Total loss at the parameters each step started from.
+    trace_loss : `Table`, optional
+        The loss trace, one row per recorded epoch.
+    components_init : `FluxComponents`, optional
+        The components as the run received them.
+    opt_state : dict, optional
+        The optimiser's ``state_dict()`` at the end (for resuming).
+    generator_state : tensor, optional
+        The cycle spins' generator state at the end (for resuming; the
+        JAX package keeps a PRNG key, ``final_key``).
+    n_epochs : int
+        Epochs the run took (fewer than asked after an early stop).
+    loss_per_step : numpy array ``(n_steps,)``
+        Total loss at the parameters each optimiser step started from
+        (``n_datasets`` steps an epoch under ``"sequential"``; their
+        objective carries ``1 / n_datasets`` of the prior).
     train_seconds : float
         Host wall time of the optimisation loop, ending with the fetch
-        of the loss values (so it includes the device's work).
+        of the losses and the trace (so it includes the device's work).
     error_seconds : float
         Host wall time of the flux-error probe, ending with a device
         synchronisation (0 without ``compute_error``).
     """
 
-    def __init__(self, config, components, loss_per_step, train_seconds,
+    def __init__(self, config, components, trace_loss=None,
+                 components_init=None, opt_state=None, generator_state=None,
+                 n_epochs=0, loss_per_step=(), train_seconds=0.0,
                  error_seconds=0.0):
         self.config = config
         self.components = components
-        self.loss_per_step = np.asarray(loss_per_step)
+        self.trace_loss = trace_loss if trace_loss is not None else Table()
+        self.components_init = components_init
+        self.opt_state = opt_state
+        self.generator_state = generator_state
+        self.n_epochs = int(n_epochs)
+        self.loss_per_step = np.asarray(loss_per_step, np.float32)
         self.train_seconds = float(train_seconds)
         self.error_seconds = float(error_seconds)
+
+    def save_state(self, path):
+        """Save the train state (parameters, optimiser state, generator
+        state, epochs) into the directory ``path``, for
+        ``MAPDeconvolver.run(resume_from=path)`` (``utils/checkpoint.py``:
+        host tensors, so a state saved on the card resumes on the CPU)."""
+        save_train_state(path, params=self.components.parameters(),
+                         opt_state=self.opt_state,
+                         generator_state=self.generator_state,
+                         epoch=self.n_epochs)
 
     @property
     def flux_upsampled_total(self):

@@ -1,13 +1,26 @@
-"""Poisson likelihood, prior loss and total loss (the JAX package's ``loss.py``)."""
+"""Poisson likelihood, prior loss and total loss (the JAX package's ``loss.py``).
+
+`PoissonLoss` holds per-dataset forward models (``models/npred.py``),
+the sequential strategy's loss; the joint strategy's is the stacked
+``parallel.stacked.StackedPoissonLoss``. `TotalLoss` takes either, and
+keeps the loss trace: one row per recorded epoch with the total, the
+summed data and prior terms, each prior and each dataset, and the
+validation data's total when there is a validation loss. The trace
+records raw, unweighted NLLs, under the JAX package's column names and
+in its order.
+"""
 
 import math
 from contextlib import nullcontext
 
 import torch
 
-from .config import force_fused
+from .config import force_fused, resolve_device
+from .models.npred import NPredModels, as_image
+from .utils.table import Table
 
-__all__ = ["PriorLoss", "TotalLoss", "poisson_nll", "stirling_term_mean"]
+__all__ = ["PoissonLoss", "PriorLoss", "TotalLoss", "poisson_nll",
+           "stirling_term_mean"]
 
 
 def stirling_term_mean(counts):
@@ -42,11 +55,86 @@ def poisson_nll(npred, counts, eps=1e-25, full=True, stirling=None):
     return loss
 
 
+class PoissonLoss:
+    """Per-dataset Poisson likelihood terms over per-dataset forward models.
+
+    Parameters
+    ----------
+    counts_all : sequence of tensors ``(1, 1, H, W)``
+    npred_models_all : sequence of `NPredModels`
+    names_all : sequence of str
+    """
+
+    def __init__(self, counts_all, npred_models_all, names_all):
+        if not len(counts_all) == len(npred_models_all) == len(names_all):
+            raise ValueError(
+                "counts_all, npred_models_all and names_all must have "
+                f"the same length, got {len(counts_all)}/"
+                f"{len(npred_models_all)}/{len(names_all)}"
+            )
+        self.counts_all = tuple(counts_all)
+        self.npred_models_all = tuple(npred_models_all)
+        self.names_all = tuple(names_all)
+        # the Stirling term of the full NLL does not depend on the fluxes
+        self.stirling_all = tuple(stirling_term_mean(c)
+                                  for c in self.counts_all)
+
+    @property
+    def n_datasets(self):
+        return len(self.counts_all)
+
+    @property
+    def weights(self):
+        """Per-dataset likelihood weights (1 without calibrations)."""
+        return torch.ones(self.n_datasets, dtype=torch.float32,
+                          device=self.counts_all[0].device)
+
+    def evaluate_dataset(self, idx, fluxes):
+        """Mean Poisson NLL of dataset ``idx`` (differentiable)."""
+        npred = self.npred_models_all[idx].evaluate(fluxes)
+        return poisson_nll(npred, self.counts_all[idx],
+                           stirling=self.stirling_all[idx])
+
+    def evaluate(self, fluxes):
+        """Per-dataset losses: ``(N,)`` tensor."""
+        return torch.stack([self.evaluate_dataset(idx, fluxes)
+                            for idx in range(self.n_datasets)])
+
+    def __call__(self, fluxes):
+        """Weighted sum of the dataset losses."""
+        return torch.sum(self.evaluate(fluxes) * self.weights)
+
+    @classmethod
+    def from_datasets(cls, datasets, components, calibrations=None,
+                      fft_shape=None, device=None):
+        """Per-dataset models from numpy dataset dicts (``counts``,
+        ``psf``, ``exposure``, ``background``) on ``device`` (default the
+        first CUDA card). Calibrations raise ``NotImplementedError``."""
+        if calibrations:
+            raise NotImplementedError("calibrations are not ported yet")
+        device = resolve_device(device)
+        npred_models_all, counts_all = [], []
+        for dataset in datasets.values():
+            npred_models_all.append(NPredModels.from_dataset_numpy(
+                dataset=dataset, components=components,
+                fft_shape=fft_shape, device=device,
+            ))
+            counts_all.append(as_image(dataset["counts"], device))
+        return cls(counts_all=counts_all, npred_models_all=npred_models_all,
+                   names_all=list(datasets))
+
+
 class PriorLoss:
     """Sum of per-component prior terms."""
 
     def __init__(self, priors):
         self.priors = priors
+
+    def draw_shifts(self, generator=None):
+        """The random shifts of one evaluation of every prior, drawn in
+        the priors' order: ``{name: shifts}`` for ``shifts=``."""
+        return {name: prior.draw_shifts(generator)
+                for name, prior in self.priors.items()}
 
     def evaluate(self, fluxes, params=None, generator=None, shifts=None):
         """Per-component log-prior values.
@@ -71,12 +159,98 @@ class PriorLoss:
 
 
 class TotalLoss:
-    """Weighted Poisson terms minus the beta-weighted log-prior."""
+    """Weighted Poisson terms minus the beta-weighted log-prior, with the
+    loss trace.
 
-    def __init__(self, poisson_loss, prior_loss, beta=1):
+    Parameters
+    ----------
+    poisson_loss : `PoissonLoss` or `StackedPoissonLoss`
+    prior_loss : `PriorLoss`
+    poisson_loss_validation : optional
+        The validation data's loss (same kind), traced as
+        ``datasets-validation-total``; early stopping reads it.
+    beta : float
+    """
+
+    def __init__(self, poisson_loss, prior_loss, poisson_loss_validation=None,
+                 beta=1):
         self.poisson_loss = poisson_loss
+        self.poisson_loss_validation = poisson_loss_validation
         self.prior_loss = prior_loss
         self.beta = float(beta)
+        self._trace = None
+
+    @property
+    def trace(self):
+        """Loss trace `Table` (built on first use)."""
+        if self._trace is None:
+            names = ["total", "datasets-total", "priors-total"]
+            names += [f"prior-{name}" for name in self.prior_loss.priors]
+            names += [f"dataset-{name}"
+                      for name in self.poisson_loss.names_all]
+            if self.poisson_loss_validation:
+                names += ["datasets-validation-total"]
+            names += ["filename"]
+            dtypes = [float] * (len(names) - 1) + [str]
+            self._trace = Table(names=names, dtype=dtypes)
+        return self._trace
+
+    def reset_trace(self):
+        """Start a fresh trace (a reused loss gets one per run)."""
+        self._trace = None
+
+    def trace_row_values(self, fluxes, params=None, generator=None,
+                         shifts=None):
+        """One trace row as a dict of device scalars, in the trace's
+        column order (without ``filename``). Raw, unweighted NLLs."""
+        loss_datasets = self.poisson_loss.evaluate(fluxes)
+        loss_priors = self.prior_loss.evaluate(
+            fluxes, params=params, generator=generator, shifts=shifts
+        )
+        loss_datasets_total = torch.sum(loss_datasets)
+        loss_priors_total = self.beta * sum(loss_priors)
+        row = {
+            "total": loss_datasets_total - loss_priors_total,
+            "datasets-total": loss_datasets_total,
+            "priors-total": -loss_priors_total,
+        }
+        for name, value in zip(self.prior_loss.priors, loss_priors):
+            row[f"prior-{name}"] = -self.beta * value
+        for name, value in zip(self.poisson_loss.names_all, loss_datasets):
+            row[f"dataset-{name}"] = value
+        if self.poisson_loss_validation:
+            row["datasets-validation-total"] = torch.sum(
+                self.poisson_loss_validation.evaluate(fluxes)
+            )
+        return row
+
+    def append_trace_device_row(self, row, filename=""):
+        """Append a row of computed scalars (fetched here, one by one)."""
+        host_row = {k: float(v) for k, v in row.items()}
+        host_row["filename"] = str(filename)
+        self.trace.add_row(host_row)
+
+    @classmethod
+    def from_datasets_and_components(cls, datasets, components,
+                                     datasets_validation=None, beta=1,
+                                     calibrations=None, fft_shape=None,
+                                     device=None):
+        """The per-dataset total loss (the sequential strategy's)."""
+        poisson_loss = PoissonLoss.from_datasets(
+            datasets=datasets, components=components,
+            calibrations=calibrations, fft_shape=fft_shape, device=device,
+        )
+        poisson_loss_validation = None
+        if datasets_validation:
+            poisson_loss_validation = PoissonLoss.from_datasets(
+                datasets=datasets_validation, components=components,
+                calibrations=calibrations, fft_shape=fft_shape,
+                device=device,
+            )
+        return cls(poisson_loss=poisson_loss,
+                   prior_loss=PriorLoss(components.priors),
+                   poisson_loss_validation=poisson_loss_validation,
+                   beta=beta)
 
     def __call__(self, fluxes, params=None, generator=None, shifts=None):
         """Total loss as a function of the flux tuple (differentiable)."""

@@ -8,6 +8,8 @@ nothing and their stored tensor is used. Only upsampling factor 1 is
 ported.
 """
 
+import copy
+
 import numpy as np
 import torch
 
@@ -88,6 +90,16 @@ class SpatialFluxComponent:
             self.mask = self.mask.to(device)
         return self
 
+    def copy(self):
+        """A copy whose flux and error are cloned; prior and mask shared."""
+        other = copy.copy(self)
+        other._flux_upsampled = self._flux_upsampled.detach().clone()
+        if self._flux_upsampled_error is not None:
+            other._flux_upsampled_error = (
+                self._flux_upsampled_error.detach().clone()
+            )
+        return other
+
     def parameters(self):
         """Trainable leaves; empty when frozen."""
         if self.frozen:
@@ -158,6 +170,11 @@ class FluxComponents(dict):
             if component_params:
                 params[name] = component_params
         return params
+
+    def copy(self):
+        """The components' copies (see `SpatialFluxComponent.copy`)."""
+        return FluxComponents({name: component.copy()
+                               for name, component in self.items()})
 
     def set_parameters(self, params):
         for name, component_params in (params or {}).items():

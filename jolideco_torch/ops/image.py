@@ -2,7 +2,7 @@
 
 import torch
 
-__all__ = ["cycle_spin", "sum_pool"]
+__all__ = ["cycle_spin", "draw_cycle_spin", "sum_pool"]
 
 
 def sum_pool(image, factor):
@@ -13,6 +13,18 @@ def sum_pool(image, factor):
     lead = image.shape[:-2]
     x = image.reshape(lead + (h // factor, factor, w // factor, factor))
     return x.sum(dim=(-3, -1))
+
+
+def draw_cycle_spin(patch_shape, generator=None):
+    """The ``(shift_y, shift_x)`` of one cycle spin, drawn uniformly from
+    ``[-p//4, p//4]`` per axis with ``generator`` (x first, then y)."""
+    x_max, y_max = patch_shape
+    x_width, y_width = x_max // 4, y_max // 4
+    shift_x = int(torch.randint(-x_width, x_width + 1, (),
+                                generator=generator))
+    shift_y = int(torch.randint(-y_width, y_width + 1, (),
+                                generator=generator))
+    return shift_y, shift_x
 
 
 def cycle_spin(image, patch_shape, generator=None, shifts=None):
@@ -31,12 +43,6 @@ def cycle_spin(image, patch_shape, generator=None, shifts=None):
         The ``(shift_y, shift_x)`` applied.
     """
     if shifts is None:
-        x_max, y_max = patch_shape
-        x_width, y_width = x_max // 4, y_max // 4
-        shift_x = int(torch.randint(-x_width, x_width + 1, (),
-                                    generator=generator))
-        shift_y = int(torch.randint(-y_width, y_width + 1, (),
-                                    generator=generator))
-        shifts = (shift_y, shift_x)
+        shifts = draw_cycle_spin(patch_shape, generator)
     shifts = (int(shifts[0]), int(shifts[1]))
     return torch.roll(image, shifts=shifts, dims=(-2, -1)), shifts

@@ -24,6 +24,11 @@ class Prior:
     def set_parameters(self, params):
         """Write back trained hyper-parameters."""
 
+    def draw_shifts(self, generator=None):
+        """Draw the random shifts of one evaluation ahead of it, to pass
+        back as ``shifts=``; ``None`` for a prior that draws none."""
+        return None
+
     def second_order_ok(self, flux_shape):
         """Whether the log-prior has a second derivative at this shape
         under the current dispatch (default: yes)."""

@@ -29,7 +29,7 @@ import torch
 
 from ...config import gmm_mode, use_fused
 from ...ops.gmm_fused import fused_supported, gmm_score_fused_image
-from ...ops.image import cycle_spin
+from ...ops.image import cycle_spin, draw_cycle_spin
 from ...ops.patches import view_as_overlapping_patches_grouped
 from ...utils.norms import IdentityImageNorm, SubtractMeanPatchNorm
 from ..core import Prior
@@ -107,6 +107,16 @@ class GMMPatchPrior(Prior):
     def parameters(self):
         norm_params = self.norm.parameters()
         return {"norm": norm_params} if norm_params else {}
+
+    def draw_shifts(self, generator=None):
+        """The cycle spin ``(sy, sx)`` of one evaluation (``None`` without
+        cycle spin), drawn as :meth:`__call__` would draw it."""
+        if not self.cycle_spin:
+            return None
+        return draw_cycle_spin(
+            self.patch_shape,
+            self.generator if generator is None else generator,
+        )
 
     def _fused_ok(self, shape):
         return (

@@ -7,7 +7,8 @@ the caller converts the JAX arrays with ``np.asarray`` first.
 import numpy as np
 import torch
 
-__all__ = ["gmm_from_arrays", "params_from_jax", "params_to_numpy"]
+__all__ = ["adam_state_from_optax", "gmm_from_arrays", "params_from_jax",
+           "params_to_numpy"]
 
 
 def params_from_jax(params_np, components, device=None):
@@ -66,3 +67,53 @@ def gmm_from_arrays(means, covariances, weights, stride):
         np.asarray(means), np.asarray(covariances), np.asarray(weights),
         meta=meta,
     )
+
+
+def adam_state_from_optax(opt_state, params, **adam_kwargs):
+    """``torch.optim.Adam`` state dict of an optax Adam state.
+
+    Parameters
+    ----------
+    opt_state :
+        optax's ``ScaleByAdamState`` (the first state of ``optax.adam``'s
+        chain) with numpy leaves: ``count``, and ``mu`` and ``nu`` nested
+        like the JAX deconvolver's params,
+        ``{"components": {name: {"flux": ...}}}``.
+    params : dict
+        The port's nested params (``FluxComponents.parameters()``): the
+        state's entries follow its leaves in insertion order, the order
+        the deconvolver hands them to the optimiser.
+    adam_kwargs :
+        Hyper-parameters stored in the state dict's ``param_groups``
+        (``lr``, ``betas``, ``eps``); the deconvolver's resume keeps its
+        own and reads only ``"state"``.
+
+    Returns
+    -------
+    dict
+        ``state_dict()`` layout: per leaf ``step`` (the count, float32),
+        ``exp_avg`` (mu) and ``exp_avg_sq`` (nu) as CPU tensors.
+    """
+    count = opt_state.count
+    mu, nu = opt_state.mu["components"], opt_state.nu["components"]
+
+    def paired(tree, moments1, moments2):
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                yield from paired(value, moments1[name], moments2[name])
+            else:
+                yield value, moments1[name], moments2[name]
+
+    leaves = list(paired(params, mu, nu))
+    placeholders = [torch.zeros(tuple(np.shape(p))) for p, _, _ in leaves]
+    state = torch.optim.Adam(placeholders, **adam_kwargs).state_dict()
+    state["state"] = {
+        index: {
+            "step": torch.tensor(float(np.asarray(count)),
+                                 dtype=torch.float32),
+            "exp_avg": torch.as_tensor(np.array(m, np.float32)),
+            "exp_avg_sq": torch.as_tensor(np.array(v, np.float32)),
+        }
+        for index, (_, m, v) in enumerate(leaves)
+    }
+    return state

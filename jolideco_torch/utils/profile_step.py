@@ -25,9 +25,12 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--out DIR]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--out DIR]
 
-The full tables and Chrome traces go to ``--out``, their names tagged
+``--update-strategy sequential`` profiles the default deconvolver's
+epoch instead of the joint step: one step per observation, then the
+epoch's trace row (reported as ``epoch_sequential``, per epoch). The
+full tables and Chrome traces go to ``--out``, their names tagged
 ``marg`` under ``--marginalize``, ``pfft`` under ``--conv-mode pfft``
 and with the dial's name when it is not ``"high"``.
 """
@@ -41,9 +44,13 @@ from pathlib import Path
 import numpy as np
 
 
-def build(n_obs, size, marginalize=False, conv_mode="fft"):
+def build(n_obs, size, marginalize=False, conv_mode="fft",
+          update_strategy="joint"):
     """``step()`` of the main path on the first card, and ``probe()``,
-    the flux-error probe at the current parameters."""
+    the flux-error probe at the current parameters. Under
+    ``update_strategy="sequential"`` (with the JAX package's default
+    ``trace_every=1``) ``step()`` is one epoch: a step per observation,
+    then the epoch's trace row."""
     from .. import (
         GaussianMixtureModel,
         GMMPatchPrior,
@@ -58,13 +65,18 @@ def build(n_obs, size, marginalize=False, conv_mode="fft"):
         cycle_spin=True, marginalize=marginalize)
     component = SpatialFluxComponent.from_numpy(
         np.ones((size, size), np.float32), prior=prior)
-    deco = MAPDeconvolver(learning_rate=0.1, update_strategy="joint",
-                          conv_mode=conv_mode, trace_every=0, device="cuda")
-    step, params, components, total_loss = deco.make_step(datasets,
-                                                          component)
+    deco = MAPDeconvolver(
+        learning_rate=0.1, update_strategy=update_strategy,
+        conv_mode=conv_mode, trace_every=int(update_strategy != "joint"),
+        device="cuda")
+    trainer = deco.make_trainer(datasets, component)
+
+    def step():
+        return trainer.epoch(0)
 
     def probe():
-        return total_loss.fluxes_error(components.fluxes_from(params))
+        return trainer.total_loss.fluxes_error(
+            trainer.components.fluxes_from(trainer.params))
 
     return step, probe
 
@@ -144,6 +156,8 @@ def main():
                         default="fft")
     parser.add_argument("--precision", choices=("highest", "high", "default"),
                         default="high")
+    parser.add_argument("--update-strategy", choices=("joint", "sequential"),
+                        default="joint")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -156,11 +170,13 @@ def main():
     config.set_gmm_precision(args.precision)
 
     step, probe = build(args.n_obs, args.size, args.marginalize,
-                        args.conv_mode)
+                        args.conv_mode, args.update_strategy)
     suffix = ("_marg" if args.marginalize else "") + (
         "_pfft" if args.conv_mode == "pfft" else "") + (
         "" if args.precision == "high" else f"_{args.precision}")
-    profile_calls(torch, step, args.steps, out, "step" + suffix)
+    sequential = args.update_strategy == "sequential"
+    profile_calls(torch, step, args.steps, out,
+                  ("epoch_sequential" if sequential else "step") + suffix)
     profile_calls(torch, probe, args.steps, out, "probe" + suffix)
     return 0
 

@@ -4,7 +4,8 @@ Every keyword that the JAX package's deconvolver, its ``run``, the flux
 component, the GMM patch prior and the stacked loss accept is accepted
 by the port (``inspect.signature``). A keyword whose option is not
 ported raises ``NotImplementedError`` for anything but its default; the
-harmless ones are honoured. The names of the reference's external GMM
+harmless ones are honoured, and the ported options raise the JAX
+package's errors where it does. The names of the reference's external GMM
 library resolve to the shipped ``astro-snr-v1`` with the JAX package's
 warning.
 """
@@ -64,19 +65,59 @@ def _datasets():
     {"stop_early": True},
     {"checkpoint_path": "checkpoints"},
 ], ids=lambda kw: next(iter(kw)))
-def test_deconvolver_raises_on_unported_options(kwargs):
-    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-        jt.MAPDeconvolver(update_strategy="joint", trace_every=0, **kwargs)
+def test_deconvolver_raises_on_unported_options(kwargs, tmp_path):
+    """``mesh`` and ``checkpoint_path`` are not ported and raise
+    ``NotImplementedError``. ``stop_early`` is ported: the deconvolver
+    takes it, and its ``run`` without validation data raises the JAX
+    package's ``ValueError``."""
+    if "stop_early" not in kwargs:
+        with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
+            jt.MAPDeconvolver(**kwargs)
+        return
+    deco = jt.MAPDeconvolver(n_epochs=1, device="cpu", **kwargs)
+    assert deco.to_dict()["stop_early"] is True
+    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
+    with pytest.raises(ValueError, match="requires providing test datasets"):
+        deco.run(_datasets(), components=component)
+
+
+def _run_option_raises(keyword, tmp_path):
+    """What ``run(<keyword>=...)`` raises: ``calibrations`` are not
+    ported; the other three are, and raise the JAX package's errors on
+    what they cannot use."""
+    deco = jt.MAPDeconvolver(n_epochs=1, device="cpu")
+    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
+    if keyword == "calibrations":
+        with pytest.raises(NotImplementedError, match=keyword):
+            deco.run(_datasets(), components=component,
+                     calibrations=object())
+    elif keyword == "datasets_validation":
+        # early stopping needs validation data; with it, the trace
+        # carries its total
+        deco.stop_early = True
+        with pytest.raises(ValueError, match="test datasets"):
+            deco.run(_datasets(), components=component)
+        result = deco.run(_datasets(), components=component,
+                          datasets_validation=_datasets())
+        assert result.trace_loss.colnames[-2:] == [
+            "datasets-validation-total", "filename"]
+    elif keyword == "resume_from":
+        with pytest.raises(FileNotFoundError):
+            deco.run(_datasets(), components=component,
+                     resume_from=tmp_path / "no-state")
+    else:
+        loss = deco.build_loss(_datasets(), components=component)
+        deco.stop_early = True
+        with pytest.raises(ValueError, match="built without them"):
+            deco.run(_datasets(), components=component,
+                     datasets_validation=_datasets(), total_loss=loss)
 
 
 @pytest.mark.parametrize("keyword", ["datasets_validation", "calibrations",
                                      "resume_from", "total_loss"])
-def test_run_raises_on_unported_options(keyword):
-    deco = jt.MAPDeconvolver(n_epochs=1, update_strategy="joint",
-                             trace_every=0, device="cpu")
-    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
-    with pytest.raises(NotImplementedError, match=keyword):
-        deco.run(_datasets(), components=component, **{keyword: object()})
+def test_run_raises_on_unported_options(keyword, tmp_path):
+    _run_option_raises(keyword, tmp_path)
+    deco = jt.MAPDeconvolver(n_epochs=1, device="cpu")
     with pytest.raises(ValueError, match="components"):
         deco.run(_datasets())
 

@@ -191,7 +191,8 @@ def probe_setups(n_obs=2):
     )})
     deco_t = jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
                                device="cpu", conv_mode="fft")
-    total_t = deco_t.build_loss(datasets, comps_t, torch.device("cpu"))
+    total_t = deco_t.build_loss(datasets, components=comps_t,
+                                device=torch.device("cpu"))
     return total_j, total_t
 
 

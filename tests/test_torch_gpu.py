@@ -373,7 +373,8 @@ def test_probe_on_card_matches_cpu(device, gmm, dial, tc):
                 flux, prior=GMMPatchPrior(gmm=gmm, stride=4))})
             deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
                                   device=dev, conv_mode="fft")
-            total = deco.build_loss(datasets, comps, torch.device(dev))
+            total = deco.build_loss(datasets, components=comps,
+                                    device=torch.device(dev))
             for comp in comps.values():
                 comp.to(dev)
             gf.reset_counters()
@@ -821,7 +822,8 @@ def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, mode):
                                           marginalize=True))})
             deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
                                   device=dev, conv_mode="fft")
-            total = deco.build_loss(datasets, comps, torch.device(dev))
+            total = deco.build_loss(datasets, components=comps,
+                                    device=torch.device(dev))
             for comp in comps.values():
                 comp.to(dev)
             gp.reset_counters()
@@ -1112,7 +1114,8 @@ def test_pfft_path_on_card_matches_cpu(device):
             prior=UniformPrior())})
         deco = MAPDeconvolver(update_strategy="joint", trace_every=0,
                               device=dev, conv_mode="pfft")
-        total = deco.build_loss(datasets, comps, torch.device(dev))
+        total = deco.build_loss(datasets, components=comps,
+                                device=torch.device(dev))
         for comp in comps.values():
             comp.to(dev)
         pf.reset_counters()
@@ -1129,3 +1132,71 @@ def test_pfft_path_on_card_matches_cpu(device):
     err_cpu, err_gpu = errors.values()
     assert torch.isfinite(err_cpu).all() and (err_cpu > 0).all()
     torch.testing.assert_close(err_gpu, err_cpu, rtol=1e-4, atol=0)
+
+
+def _default_runs(dev, datasets, gmm, epochs, resume):
+    """The default deconvolver (sequential, ``trace_every=1``, cycle
+    spin) for ``epochs`` epochs, then ``resume`` more from its result."""
+    from jolideco_torch import (
+        GMMPatchPrior,
+        MAPDeconvolver,
+        SpatialFluxComponent,
+    )
+
+    size = next(iter(datasets.values()))["counts"].shape
+    component = SpatialFluxComponent.from_numpy(
+        np.ones(size, np.float32),
+        prior=GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=True))
+    first = MAPDeconvolver(n_epochs=epochs, device=dev).run(
+        datasets, components=component)
+    second = MAPDeconvolver(n_epochs=resume, device=dev).run(
+        datasets, components=first.components.copy(), resume_from=first)
+    return first, second
+
+
+def test_sequential_and_resumed_runs_on_card_match_cpu(device, gmm):
+    """The default deconvolver at 3 × 64², 4 epochs and 2 resumed, card
+    against CPU (the same cycle spins: the generator is the CPU's on
+    both): every trace column to rtol 1e-4, the flux within 1e-3 of its
+    max-abs (``chip_smoke.SEQ_FLUX_SHARE``: Adam's steps part the two
+    paths' float32 rounding where a pixel's gradient nearly vanishes)."""
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    datasets = make_datasets(n_obs=3, size=64, psf_size=9, seed=2)
+    runs = {str(dev): _default_runs(dev, datasets, gmm, 4, 2)
+            for dev in ("cpu", device)}
+    (cpu_first, cpu_second), (card_first, card_second) = runs.values()
+    for card, cpu in ((card_first, cpu_first), (card_second, cpu_second)):
+        a, b = card.flux_upsampled_total, cpu.flux_upsampled_total
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()
+        assert card.trace_loss.colnames == cpu.trace_loss.colnames
+        for name in cpu.trace_loss.colnames[:-1]:
+            np.testing.assert_allclose(card.trace_loss[name],
+                                       cpu.trace_loss[name], rtol=1e-4,
+                                       err_msg=name)
+    assert len(card_first.trace_loss) == 4
+    assert len(card_second.trace_loss) == 2
+    assert torch.equal(card_second.generator_state,
+                       cpu_second.generator_state)
+
+
+@pytest.mark.parametrize("n_obs", [1, 3])
+def test_sequential_epoch_launches(device, gmm, n_obs):
+    """One epoch of the default deconvolver: K1 split once per dataset
+    step and once for the trace row, K2 once per step, nothing else."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    datasets = make_datasets(n_obs=n_obs, size=96, psf_size=9, seed=1)
+    _default_runs(device, datasets, gmm, 1, 0)   # builds, warms up
+    gf.reset_counters()
+    gp.reset_counters()
+    _default_runs(device, datasets, gmm, 1, 0)
+    torch.cuda.synchronize()
+    assert gf.gmm_fused_fwd_tc_cuda.launches == n_obs + 1
+    assert gf.gmm_fused_bwd_cuda.launches == n_obs
+    assert (gf.gmm_fused_fwd_cuda.launches, gf.gmm_fused_fwd_bf16_cuda
+            .launches, gp.gmm_score_rows_tc_cuda.launches) == (0, 0, 0)
+    assert (gf.fused_forward_plain.calls, gf.fused_backward_plain.calls,
+            gf.score_split_plain.calls) == (0, 0, 0)

@@ -153,12 +153,14 @@ def test_auto_is_fft():
                              device="cpu")
     assert deco.conv_mode == "auto"
     comps = build_components(jt)
-    loss = deco.build_loss(make_datasets(2), comps, torch.device("cpu"))
+    loss = deco.build_loss(make_datasets(2), components=comps,
+                           device=torch.device("cpu"))
     assert loss.poisson_loss.conv_mode == "fft"
     assert loss.poisson_loss.pfft_pairs is None
     single = jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
                                device="cpu", conv_mode="pfft")
-    loss = single.build_loss(make_datasets(1), comps, torch.device("cpu"))
+    loss = single.build_loss(make_datasets(1), components=comps,
+                             device=torch.device("cpu"))
     # one observation has no pair: the rfft2 path
     assert loss.poisson_loss.conv_mode == "pfft"
     assert loss.poisson_loss.pfft_pairs is None

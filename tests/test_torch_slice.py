@@ -109,7 +109,8 @@ def test_joint_run_matches_jax(n_obs):
     grad_j = np.asarray(grad_j["flux"]["flux"])
 
     comps_t = jt.FluxComponents({"flux": comp_t})
-    total_t = deco_t.build_loss(datasets, comps_t, torch.device("cpu"))
+    total_t = deco_t.build_loss(datasets, components=comps_t,
+                               device=torch.device("cpu"))
     log_flux = comp_t.parameters()["flux"].clone().requires_grad_(True)
     params_t = {"flux": {"flux": log_flux}}
     value_t = total_t(comps_t.fluxes_from(params_t), params=params_t)
@@ -183,11 +184,20 @@ def test_sgd_steps_match_optax(momentum, nesterov):
 
 
 def test_unported_options_raise():
+    """The sequential strategy, the loss trace and early stopping are
+    ported: the deconvolver takes them. ``conv_mode="ct"``, a checkpoint
+    path and a mesh still raise ``NotImplementedError``; an unknown
+    strategy raises the JAX package's ``ValueError``."""
     for kwargs in ({"update_strategy": "sequential", "trace_every": 0},
                    {"update_strategy": "joint", "trace_every": 1},
                    {"update_strategy": "joint", "trace_every": 0,
-                    "conv_mode": "ct"},
-                   {"update_strategy": "joint", "trace_every": 0,
                     "stop_early": True}):
+        config = jt.MAPDeconvolver(**kwargs).to_dict()
+        assert {k: config[k] for k in kwargs} == kwargs
+    for kwargs in ({"conv_mode": "ct"}, {"checkpoint_path": "checkpoints"},
+                   {"mesh": object()}):
         with pytest.raises(NotImplementedError):
-            jt.MAPDeconvolver(**kwargs)
+            jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
+                              **kwargs)
+    with pytest.raises(ValueError, match="update strategy"):
+        jt.MAPDeconvolver(update_strategy="one at a time")
