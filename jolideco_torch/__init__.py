@@ -10,7 +10,12 @@ names follow the JAX package.
 from . import config  # noqa: F401
 from .core import MAPDeconvolver, MAPDeconvolverResult  # noqa: F401
 from .loss import PriorLoss, TotalLoss  # noqa: F401
-from .models import FluxComponents, SpatialFluxComponent  # noqa: F401
+from .models import (  # noqa: F401
+    FluxComponents,
+    NPredCalibration,
+    NPredCalibrations,
+    SpatialFluxComponent,
+)
 from .priors import (  # noqa: F401
     GaussianMixtureModel,
     GMMPatchPrior,

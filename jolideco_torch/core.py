@@ -47,11 +47,20 @@ optimiser's moments and the generator's state, so ``n`` epochs and then
 With ``compute_error=True`` the run ends with one Hessian probe at the
 trained fluxes (``TotalLoss.fluxes_error``): flux errors
 ``sqrt(1 / (H · 1))`` per component, on the patch-level GMM scorer's
-kernels, after either strategy.
+kernels, after either strategy, the calibrations held at their trained
+values.
+
+``run(calibrations=)`` takes an `NPredCalibrations` keyed like the
+datasets: their trainable shifts and log background norms join the flux
+in the one optimiser, with the same learning rate, and are written back
+into them at the end (``result.calibrations``; ``calibrations_init``
+keeps the values the run received). The optimiser's leaves are those
+of the JAX package's params pytree ``{"components": ..., "calibrations":
+...}``, in its order (keys sorted at every level).
 
 Not ported, raising ``NotImplementedError``: ``checkpoint_path`` (the
-per-epoch result files), a device ``mesh``, ``calibrations`` and
-``conv_mode`` values other than ``"auto"``, ``"fft"`` and ``"pfft"``.
+per-epoch result files), a device ``mesh`` and ``conv_mode`` values
+other than ``"auto"``, ``"fft"`` and ``"pfft"``.
 Every keyword of the JAX package's signatures is accepted, so that a
 call written for it fails only on what is not ported.
 """
@@ -64,9 +73,13 @@ import torch
 
 from .config import resolve_device
 from .loss import PriorLoss, TotalLoss
-from .models import FluxComponents, SpatialFluxComponent
+from .models import FluxComponents, NPredCalibrations, SpatialFluxComponent
 from .parallel.stacked import StackedPoissonLoss
-from .utils.checkpoint import restore_train_state, save_train_state
+from .utils.checkpoint import (
+    restore_calibration_params,
+    restore_train_state,
+    save_train_state,
+)
 from .utils.table import Table
 
 log = logging.getLogger(__name__)
@@ -88,12 +101,25 @@ OPTIMIZER = {"adam": _build_adam, "sgd": _build_sgd}
 
 
 def _leaves(params):
-    """Tensors of a nested params dict, in insertion order."""
-    for value in params.values():
+    """Tensors of a nested params dict, keys sorted at every level (the
+    order in which JAX flattens a dict pytree)."""
+    for key in sorted(params):
+        value = params[key]
         if isinstance(value, dict):
             yield from _leaves(value)
         else:
             yield value
+
+
+def optimizer_leaves(params, calibration_params=None):
+    """The optimiser's tensors: the leaves of the JAX package's params
+    pytree ``{"components": params, "calibrations":
+    calibration_params}`` (the latter only when it has leaves), in its
+    order."""
+    tree = {"components": params}
+    if calibration_params:
+        tree["calibrations"] = calibration_params
+    return list(_leaves(tree))
 
 
 def _trainable(params, device):
@@ -159,10 +185,13 @@ class Trainer:
     """
 
     def __init__(self, deconvolver, components, total_loss, params,
-                 optimizer, generator):
+                 optimizer, generator, calibration_params=None):
         self.components = components
         self.total_loss = total_loss
         self.params = params
+        # the calibrations' trainable leaves keyed by dataset name (None
+        # without calibrations or with every leaf frozen)
+        self.calibration_params = calibration_params or None
         self.optimizer = optimizer
         self.generator = generator
         self.beta = deconvolver.beta
@@ -178,19 +207,27 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn()
         loss.backward()
+        # a leaf this loss does not reach (another dataset's calibration
+        # in a sequential step) takes a zero gradient, as in optax: its
+        # moments decay and it moves, where torch would skip it
+        for leaf in self.optimizer.param_groups[0]["params"]:
+            if leaf.grad is None:
+                leaf.grad = torch.zeros_like(leaf)
         self.optimizer.step()
         return loss.detach()
 
     def _loss_for_dataset(self, idx, shifts):
         fluxes = self.components.fluxes_from(self.params)
-        loss = self.total_loss.poisson_loss.evaluate_dataset(idx, fluxes)
+        loss = self.total_loss.poisson_loss.evaluate_dataset(
+            idx, fluxes, self.calibration_params)
         prior = self.total_loss.prior_loss(fluxes, params=self.params,
                                            shifts=shifts)
         return self.weights[idx] * loss - self.beta * prior / self.n_datasets
 
     def _loss_joint(self, shifts):
         return self.total_loss(self.components.fluxes_from(self.params),
-                               params=self.params, shifts=shifts)
+                               params=self.params, shifts=shifts,
+                               calibration_params=self.calibration_params)
 
     def computes_row(self, epoch):
         """Whether ``epoch`` computes a trace row."""
@@ -221,6 +258,7 @@ class Trainer:
                     row = self.total_loss.trace_row_values(
                         self.components.fluxes_from(self.params),
                         params=self.params, shifts=shifts,
+                        calibration_params=self.calibration_params,
                     )
         return losses, row
 
@@ -381,11 +419,12 @@ class MAPDeconvolver:
         ``datasets_validation`` a validation loss of the same kind.
 
         ``device`` defaults to the deconvolver's (the first CUDA card
-        unless it says otherwise). ``calibrations`` raise
-        ``NotImplementedError``.
+        unless it says otherwise). ``calibrations`` (`NPredCalibrations`,
+        keyed like ``datasets``) shift, scale and weight the datasets;
+        the loss keeps their static values (``psf_scale``, ``weight``
+        and the leaves they do not train), the trained ones come from
+        ``run``.
         """
-        if calibrations is not None:
-            raise NotImplementedError("calibrations are not ported yet")
         components = self._flux_components(components)
         device = resolve_device(self.device if device is None else device)
         _validate_component_shapes(datasets, components)
@@ -402,7 +441,8 @@ class MAPDeconvolver:
             return TotalLoss.from_datasets_and_components(
                 datasets=datasets, datasets_validation=datasets_validation,
                 components=components, beta=self.beta,
-                fft_shape=self.fft_shape, device=device,
+                calibrations=calibrations, fft_shape=self.fft_shape,
+                device=device,
             )
 
         # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
@@ -414,11 +454,21 @@ class MAPDeconvolver:
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
 
         def stacked(data):
-            return StackedPoissonLoss.from_datasets(
-                datasets=data, components=components,
-                fft_shape=self.fft_shape, conv_mode=conv_mode,
-                device=device,
-            )
+            try:
+                return StackedPoissonLoss.from_datasets(
+                    datasets=data, components=components,
+                    calibrations=calibrations, fft_shape=self.fft_shape,
+                    conv_mode=conv_mode, device=device,
+                )
+            except ValueError as exc:
+                if self.fft_shape is not None:
+                    raise
+                # the JAX package falls back to per-dataset models here
+                raise NotImplementedError(
+                    f"Cannot stack observations ({exc}); the joint "
+                    "strategy's fallback to per-dataset forward models is "
+                    "not ported yet"
+                ) from exc
 
         return TotalLoss(
             poisson_loss=stacked(datasets),
@@ -429,22 +479,27 @@ class MAPDeconvolver:
         )
 
     def make_trainer(self, datasets, components, datasets_validation=None,
-                     total_loss=None, resume_from=None):
+                     total_loss=None, resume_from=None, calibrations=None):
         """Build (or take) the loss, the parameters, the optimiser and the
         generator of a run, and return its `Trainer`.
 
-        ``components`` are moved to the run's device; the trainer's
-        ``params`` is the nested dict of trainable tensors its epochs
-        update in place. ``resume_from`` as in :meth:`run`.
+        ``components`` (and ``calibrations``) are moved to the run's
+        device; the trainer's ``params`` is the nested dict of trainable
+        flux tensors its epochs update in place, ``calibration_params``
+        the calibrations' (keyed by dataset name). ``resume_from`` as in
+        :meth:`run`.
         """
         device = resolve_device(self.device)
         components = self._flux_components(components)
         for component in components.values():
             component.to(device)
+        if calibrations:
+            calibrations.to(device)
         if total_loss is None:
             total_loss = self.build_loss(
                 datasets, datasets_validation=datasets_validation,
-                components=components, device=device,
+                components=components, calibrations=calibrations,
+                device=device,
             )
         else:
             total_loss.reset_trace()
@@ -462,6 +517,8 @@ class MAPDeconvolver:
             )
 
         params = _trainable(components.parameters(), device)
+        calibration_params = _trainable(
+            calibrations.parameters() if calibrations else {}, device)
         generator = torch.Generator().manual_seed(self.seed)
         opt_state = None
         if isinstance(resume_from, MAPDeconvolverResult):
@@ -473,15 +530,18 @@ class MAPDeconvolver:
                 resume_from
             )
             _load_params(params, values)
+            _load_params(calibration_params,
+                         restore_calibration_params(resume_from))
             if generator_state is not None:
                 generator.set_state(generator_state)
         optimizer = OPTIMIZER[self.optimizer_type](
-            list(_leaves(params)), **self.optimizer_kwargs
+            optimizer_leaves(params, calibration_params),
+            **self.optimizer_kwargs
         )
         if opt_state is not None:
             _load_opt_state(optimizer, opt_state)
         return Trainer(self, components, total_loss, params, optimizer,
-                       generator)
+                       generator, calibration_params)
 
     def run(self, datasets, datasets_validation=None, components=None,
             calibrations=None, resume_from=None, total_loss=None):
@@ -499,15 +559,18 @@ class MAPDeconvolver:
         components : `FluxComponents`, dict or `SpatialFluxComponent`
             Required (the JAX package's default, ``None``, fails there
             too).
-        calibrations :
-            Not ported: anything but ``None`` raises
-            ``NotImplementedError``.
+        calibrations : `NPredCalibrations`, optional
+            Per-dataset calibrations, keyed like ``datasets``; their
+            trainable values are trained with the fluxes and written back
+            into them.
         resume_from : `MAPDeconvolverResult`, str or Path, optional
             Continue a run: a result (pass its ``components`` too, to go
-            on from its parameters; its optimiser state and generator
-            state are restored) or a directory written by
+            on from its parameters, and its ``calibrations``; its
+            optimiser state and generator state are restored) or a
+            directory written by
             :meth:`MAPDeconvolverResult.save_state` (parameters,
-            optimiser state and generator state all restored from it).
+            optimiser state and generator state all restored from it,
+            the calibrations' values too).
         total_loss : `TotalLoss`, optional
             Prebuilt by :meth:`build_loss`; each run gets a fresh trace.
 
@@ -515,19 +578,21 @@ class MAPDeconvolver:
         -------
         result : `MAPDeconvolverResult`
         """
-        if calibrations is not None:
-            raise NotImplementedError(
-                "MAPDeconvolver.run(calibrations=...) is not ported yet"
-            )
         if self.stop_early and datasets_validation is None:
             raise ValueError("Early stopping requires providing test datasets")
         if components is None:
             raise ValueError("MAPDeconvolver.run needs components")
         components = self._flux_components(components)
+        if calibrations is not None and not isinstance(calibrations,
+                                                       NPredCalibrations):
+            calibrations = NPredCalibrations(calibrations)
         components_init = components.copy()
+        calibrations_init = (calibrations.copy() if calibrations
+                             else calibrations)
         trainer = self.make_trainer(
             datasets, components, datasets_validation=datasets_validation,
             total_loss=total_loss, resume_from=resume_from,
+            calibrations=calibrations,
         )
         total_loss, params = trainer.total_loss, trainer.params
 
@@ -564,7 +629,10 @@ class MAPDeconvolver:
                      f"{loss_per_step[-1]:.6g}")
 
         components.set_parameters(params)
-        if not all(bool(torch.isfinite(p).all()) for p in _leaves(params)):
+        if calibrations and trainer.calibration_params:
+            calibrations.set_parameters(trainer.calibration_params)
+        if not all(bool(torch.isfinite(p).all())
+                   for p in trainer.optimizer.param_groups[0]["params"]):
             log.warning(
                 "Training produced non-finite parameters. Check the flux "
                 "initialisation (strictly positive for log-flux "
@@ -575,7 +643,8 @@ class MAPDeconvolver:
         if self.compute_error:
             t1 = time.perf_counter()
             fluxes = components.fluxes_from(params)
-            components.set_flux_errors(total_loss.fluxes_error(fluxes))
+            components.set_flux_errors(total_loss.fluxes_error(
+                fluxes, calibration_params=trainer.calibration_params))
             if fluxes and fluxes[0].is_cuda:
                 torch.cuda.synchronize(fluxes[0].device)
             error_seconds = time.perf_counter() - t1
@@ -585,6 +654,8 @@ class MAPDeconvolver:
             components=components,
             trace_loss=total_loss.trace,
             components_init=components_init,
+            calibrations=calibrations,
+            calibrations_init=calibrations_init,
             opt_state=trainer.optimizer.state_dict(),
             generator_state=trainer.generator.get_state(),
             n_epochs=n_epochs,
@@ -605,6 +676,9 @@ class MAPDeconvolverResult:
         The loss trace, one row per recorded epoch.
     components_init : `FluxComponents`, optional
         The components as the run received them.
+    calibrations, calibrations_init : `NPredCalibrations`, optional
+        The trained calibrations, and copies of them as the run
+        received them.
     opt_state : dict, optional
         The optimiser's ``state_dict()`` at the end (for resuming).
     generator_state : tensor, optional
@@ -627,11 +701,14 @@ class MAPDeconvolverResult:
     def __init__(self, config, components, trace_loss=None,
                  components_init=None, opt_state=None, generator_state=None,
                  n_epochs=0, loss_per_step=(), train_seconds=0.0,
-                 error_seconds=0.0):
+                 error_seconds=0.0, calibrations=None,
+                 calibrations_init=None):
         self.config = config
         self.components = components
         self.trace_loss = trace_loss if trace_loss is not None else Table()
         self.components_init = components_init
+        self.calibrations = calibrations
+        self.calibrations_init = calibrations_init
         self.opt_state = opt_state
         self.generator_state = generator_state
         self.n_epochs = int(n_epochs)
@@ -640,14 +717,17 @@ class MAPDeconvolverResult:
         self.error_seconds = float(error_seconds)
 
     def save_state(self, path):
-        """Save the train state (parameters, optimiser state, generator
-        state, epochs) into the directory ``path``, for
-        ``MAPDeconvolver.run(resume_from=path)`` (``utils/checkpoint.py``:
-        host tensors, so a state saved on the card resumes on the CPU)."""
-        save_train_state(path, params=self.components.parameters(),
-                         opt_state=self.opt_state,
-                         generator_state=self.generator_state,
-                         epoch=self.n_epochs)
+        """Save the train state (parameters, the calibrations' too,
+        optimiser state, generator state, epochs) into the directory
+        ``path``, for ``MAPDeconvolver.run(resume_from=path)``
+        (``utils/checkpoint.py``: host tensors, so a state saved on the
+        card resumes on the CPU)."""
+        save_train_state(
+            path, params=self.components.parameters(),
+            opt_state=self.opt_state, generator_state=self.generator_state,
+            epoch=self.n_epochs,
+            calibration_params=(self.calibrations.parameters()
+                                if self.calibrations else None))
 
     @property
     def flux_upsampled_total(self):

@@ -78,45 +78,50 @@ class PoissonLoss:
         # the Stirling term of the full NLL does not depend on the fluxes
         self.stirling_all = tuple(stirling_term_mean(c)
                                   for c in self.counts_all)
+        # the calibrations' static likelihood weights (1 without one)
+        self.weights = torch.tensor(
+            [1.0 if models.calibration is None
+             else models.calibration.weight
+             for models in self.npred_models_all],
+            dtype=torch.float32, device=self.counts_all[0].device)
 
     @property
     def n_datasets(self):
         return len(self.counts_all)
 
-    @property
-    def weights(self):
-        """Per-dataset likelihood weights (1 without calibrations)."""
-        return torch.ones(self.n_datasets, dtype=torch.float32,
-                          device=self.counts_all[0].device)
-
-    def evaluate_dataset(self, idx, fluxes):
-        """Mean Poisson NLL of dataset ``idx`` (differentiable)."""
-        npred = self.npred_models_all[idx].evaluate(fluxes)
+    def evaluate_dataset(self, idx, fluxes, calibration_params=None):
+        """Mean Poisson NLL of dataset ``idx`` (differentiable);
+        ``calibration_params`` is keyed by dataset name."""
+        params = None
+        if calibration_params is not None:
+            params = calibration_params.get(self.names_all[idx])
+        npred = self.npred_models_all[idx].evaluate(fluxes, params)
         return poisson_nll(npred, self.counts_all[idx],
                            stirling=self.stirling_all[idx])
 
-    def evaluate(self, fluxes):
+    def evaluate(self, fluxes, calibration_params=None):
         """Per-dataset losses: ``(N,)`` tensor."""
-        return torch.stack([self.evaluate_dataset(idx, fluxes)
-                            for idx in range(self.n_datasets)])
+        return torch.stack([
+            self.evaluate_dataset(idx, fluxes, calibration_params)
+            for idx in range(self.n_datasets)])
 
-    def __call__(self, fluxes):
+    def __call__(self, fluxes, calibration_params=None):
         """Weighted sum of the dataset losses."""
-        return torch.sum(self.evaluate(fluxes) * self.weights)
+        return torch.sum(self.evaluate(fluxes, calibration_params)
+                         * self.weights)
 
     @classmethod
     def from_datasets(cls, datasets, components, calibrations=None,
                       fft_shape=None, device=None):
         """Per-dataset models from numpy dataset dicts (``counts``,
         ``psf``, ``exposure``, ``background``) on ``device`` (default the
-        first CUDA card). Calibrations raise ``NotImplementedError``."""
-        if calibrations:
-            raise NotImplementedError("calibrations are not ported yet")
+        first CUDA card); ``calibrations`` keyed like ``datasets``."""
         device = resolve_device(device)
         npred_models_all, counts_all = [], []
-        for dataset in datasets.values():
+        for name, dataset in datasets.items():
             npred_models_all.append(NPredModels.from_dataset_numpy(
                 dataset=dataset, components=components,
+                calibration=calibrations[name] if calibrations else None,
                 fft_shape=fft_shape, device=device,
             ))
             counts_all.append(as_image(dataset["counts"], device))
@@ -200,10 +205,11 @@ class TotalLoss:
         self._trace = None
 
     def trace_row_values(self, fluxes, params=None, generator=None,
-                         shifts=None):
+                         shifts=None, calibration_params=None):
         """One trace row as a dict of device scalars, in the trace's
         column order (without ``filename``). Raw, unweighted NLLs."""
-        loss_datasets = self.poisson_loss.evaluate(fluxes)
+        loss_datasets = self.poisson_loss.evaluate(fluxes,
+                                                   calibration_params)
         loss_priors = self.prior_loss.evaluate(
             fluxes, params=params, generator=generator, shifts=shifts
         )
@@ -220,7 +226,8 @@ class TotalLoss:
             row[f"dataset-{name}"] = value
         if self.poisson_loss_validation:
             row["datasets-validation-total"] = torch.sum(
-                self.poisson_loss_validation.evaluate(fluxes)
+                self.poisson_loss_validation.evaluate(fluxes,
+                                                      calibration_params)
             )
         return row
 
@@ -252,16 +259,20 @@ class TotalLoss:
                    poisson_loss_validation=poisson_loss_validation,
                    beta=beta)
 
-    def __call__(self, fluxes, params=None, generator=None, shifts=None):
-        """Total loss as a function of the flux tuple (differentiable)."""
-        losses = self.poisson_loss.evaluate(fluxes)
+    def __call__(self, fluxes, params=None, generator=None, shifts=None,
+                 calibration_params=None):
+        """Total loss as a function of the flux tuple (differentiable):
+        the Poisson terms weighted by the calibrations' weights, minus
+        beta times the log-prior."""
+        losses = self.poisson_loss.evaluate(fluxes, calibration_params)
         prior = self.prior_loss(fluxes, params=params, generator=generator,
                                 shifts=shifts)
         return (
             torch.sum(losses * self.poisson_loss.weights) - self.beta * prior
         )
 
-    def hessian_diagonals(self, fluxes, generator=None, shifts=None):
+    def hessian_diagonals(self, fluxes, generator=None, shifts=None,
+                          calibration_params=None):
         """Hessian of the total loss times a ones vector, per component.
 
         The same probe as the JAX package's (``H · 1`` at ``fluxes``,
@@ -272,24 +283,33 @@ class TotalLoss:
         shape (the fused GMM scorer, ``second_order_ok``) makes the
         probe turn the fused switch off, so that the patch-level scorer
         runs instead. ``generator`` and ``shifts`` are passed to the
-        priors as in :meth:`__call__`.
+        priors as in :meth:`__call__`. The Hessian is taken with respect
+        to the fluxes, the calibrations held at ``calibration_params``
+        (their trained values).
         """
+        if calibration_params is not None:
+            calibration_params = {
+                name: {k: v.detach() for k, v in leaves.items()}
+                for name, leaves in calibration_params.items()}
         fluxes = tuple(f.detach().requires_grad_(True) for f in fluxes)
         second_order = all(
             prior.second_order_ok(tuple(flux.shape))
             for prior, flux in zip(self.prior_loss.priors.values(), fluxes)
         )
         with nullcontext() if second_order else force_fused("off"):
-            loss = self(fluxes, generator=generator, shifts=shifts)
+            loss = self(fluxes, generator=generator, shifts=shifts,
+                        calibration_params=calibration_params)
             grads = torch.autograd.grad(loss, fluxes, create_graph=True)
             return torch.autograd.grad(
                 grads, fluxes, grad_outputs=[torch.ones_like(f) for f in fluxes]
             )
 
-    def fluxes_error(self, fluxes, generator=None, shifts=None):
+    def fluxes_error(self, fluxes, generator=None, shifts=None,
+                     calibration_params=None):
         """Flux errors ``sqrt(1 / (H · 1))`` per component name."""
-        hessians = self.hessian_diagonals(fluxes, generator=generator,
-                                          shifts=shifts)
+        hessians = self.hessian_diagonals(
+            fluxes, generator=generator, shifts=shifts,
+            calibration_params=calibration_params)
         return {
             name: torch.sqrt(1.0 / hessian)
             for name, hessian in zip(self.prior_loss.priors, hessians)

@@ -1,4 +1,13 @@
 """Flux components (the learnable latent images) and forward models."""
 
-from .core import FluxComponents, SpatialFluxComponent  # noqa: F401
-from .npred import NPredModel, NPredModels  # noqa: F401
+from .core import (  # noqa: F401
+    FluxComponents,
+    SparseSpatialFluxComponent,
+    SpatialFluxComponent,
+)
+from .npred import (  # noqa: F401
+    NPredCalibration,
+    NPredCalibrations,
+    NPredModel,
+    NPredModels,
+)

@@ -4,8 +4,10 @@ Counterpart of the JAX package's ``models/core.py``. A component stores its
 flux (as a log when ``use_log_flux``) as a tensor; the trainable values
 are exported with :meth:`parameters` (a plain dict the optimiser owns)
 and evaluated with :meth:`flux_upsampled_from`. Frozen components export
-nothing and their stored tensor is used. Only upsampling factor 1 is
-ported.
+nothing and their stored tensor is used. A component with
+``upsampling_factor > 1`` lives on a grid that many times finer than the
+data's; its flux at data resolution is the sum over each block
+(:attr:`SpatialFluxComponent.flux`).
 """
 
 import copy
@@ -13,9 +15,11 @@ import copy
 import numpy as np
 import torch
 
+from ..ops.image import sum_pool, upsample_bilinear
 from ..priors.core import UniformPrior
 
-__all__ = ["FluxComponents", "SpatialFluxComponent"]
+__all__ = ["FluxComponents", "SparseSpatialFluxComponent",
+           "SpatialFluxComponent"]
 
 
 class SpatialFluxComponent:
@@ -32,7 +36,7 @@ class SpatialFluxComponent:
     use_log_flux : bool
         Optimise the log of the flux (positivity by construction).
     upsampling_factor : int
-        1 only for now.
+        Flux grid oversampling relative to the data grid.
     prior : `Prior`, optional
     frozen : bool
         Exclude from optimisation.
@@ -52,10 +56,6 @@ class SpatialFluxComponent:
             raise ValueError(
                 f"Flux tensor must be four dimensional. Got {flux.ndim}"
             )
-        if int(upsampling_factor or 1) != 1:
-            raise NotImplementedError(
-                "upsampling_factor > 1 is not ported yet"
-            )
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask), device=flux.device)
             if tuple(mask.shape) != tuple(flux.shape):
@@ -71,7 +71,7 @@ class SpatialFluxComponent:
         )
         self.mask = mask
         self._use_log_flux = bool(use_log_flux)
-        self.upsampling_factor = 1
+        self.upsampling_factor = int(upsampling_factor or 1)
         self.prior = prior if prior is not None else UniformPrior()
         self.frozen = bool(frozen)
         self._wcs = wcs
@@ -134,6 +134,16 @@ class SpatialFluxComponent:
         return self.flux_upsampled_from()
 
     @property
+    def flux(self):
+        """Flux at data resolution (flux-conserving sum pool)."""
+        return sum_pool(self.flux_upsampled, self.upsampling_factor)
+
+    @property
+    def flux_numpy(self):
+        """Flux at data resolution as a 2-D numpy array."""
+        return self.flux.detach().cpu().numpy()[0, 0]
+
+    @property
     def flux_upsampled_numpy(self):
         """Upsampled flux as a 2-D numpy array."""
         return self.flux_upsampled.detach().cpu().numpy()[0, 0]
@@ -152,11 +162,45 @@ class SpatialFluxComponent:
 
     @classmethod
     def from_numpy(cls, flux, mask=None, **kwargs):
-        """Build from a data-resolution 2-D numpy flux image."""
-        flux = np.asarray(flux, np.float32)[np.newaxis, np.newaxis]
+        """Build from a data-resolution 2-D numpy flux image.
+
+        The flux (and the mask, kept where its upsampled value exceeds
+        0.5) are upsampled bilinearly by ``upsampling_factor``.
+        """
+        factor = int(kwargs.get("upsampling_factor") or 1)
+        flux = torch.as_tensor(
+            np.asarray(flux, np.float32)[np.newaxis, np.newaxis])
+        flux = upsample_bilinear(flux, factor).numpy()
         if mask is not None:
-            mask = np.asarray(mask, bool)[np.newaxis, np.newaxis]
+            mask = torch.as_tensor(
+                np.asarray(mask, np.float32)[np.newaxis, np.newaxis])
+            mask = (upsample_bilinear(mask, factor) > 0.5).numpy()
         return cls(flux_upsampled=flux, mask=mask, **kwargs)
+
+    @classmethod
+    def from_flux_init_datasets(cls, datasets, **kwargs):
+        """Initial flux from the mean of ``counts / exposure -
+        background`` over ``datasets`` (a sequence of dataset dicts),
+        clipped below to its smallest positive value when the flux is a
+        log (so that the log is finite)."""
+        fluxes = [dataset["counts"] / dataset["exposure"]
+                  - dataset["background"] for dataset in datasets]
+        flux_init = np.nanmean(fluxes, axis=0)
+        if kwargs.get("use_log_flux", True):
+            positive = flux_init[flux_init > 0]
+            floor = positive.min() if positive.size else 1.0
+            flux_init = np.clip(flux_init, floor, None)
+        return cls.from_numpy(flux=flux_init, **kwargs)
+
+
+class SparseSpatialFluxComponent:
+    """Point sources at learnable positions: not ported yet (the JAX
+    package's ``SparseSpatialFluxComponent``); constructing one raises
+    ``NotImplementedError``."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SparseSpatialFluxComponent is not ported yet")
 
 
 class FluxComponents(dict):
@@ -198,6 +242,25 @@ class FluxComponents(dict):
     def priors(self):
         """Priors keyed like the components."""
         return {name: component.prior for name, component in self.items()}
+
+    @property
+    def flux_upsampled_total(self):
+        """Sum of the upsampled fluxes (a tensor)."""
+        values = list(self.values())
+        flux = torch.zeros_like(values[0].flux_upsampled)
+        for component in values:
+            flux = flux + component.flux_upsampled
+        return flux
+
+    @property
+    def fluxes_numpy(self):
+        """Data-resolution fluxes as a dict of 2-D numpy arrays."""
+        return {name: comp.flux_numpy for name, comp in self.items()}
+
+    @property
+    def flux_total_numpy(self):
+        """Summed data-resolution flux as a 2-D numpy array."""
+        return np.sum(list(self.fluxes_numpy.values()), axis=0)
 
     def to_numpy(self):
         """Upsampled fluxes as squeezed numpy arrays."""

@@ -1,9 +1,11 @@
-"""Predicted-counts forward models (the JAX package's ``models/npred.py``).
+"""Predicted-counts forward models and per-dataset calibrations (the JAX
+package's ``models/npred.py``).
 
 One `NPredModel` per (dataset, component) pair folds a flux image into
 predicted counts,
 
-    flux * exposure -> PSF convolution (precomputed rFFT) -> clip at 0,
+    flux * exposure -> PSF convolution (precomputed rFFT) -> sum pool
+    -> clip at 0,
 
 and `NPredModels`, one per dataset, sums its components' counts and the
 dataset background. These are the per-dataset models of the sequential
@@ -11,30 +13,46 @@ update strategy: each optimiser step evaluates one dataset. The joint
 strategy stacks the same forward over observations instead
 (``parallel/stacked.py``).
 
-The PSF spectrum is computed once at build time, on the model's device,
-at the minimal linear-convolution shape unless ``fft_shape`` is given.
-``from_numpy`` divides the exposure by the PSF's response to a unit
-image (the exposure edge correction). Upsampling > 1, an energy
-redistribution matrix (``rmf``) and calibrations are not ported yet and
-raise ``NotImplementedError``.
+A component with ``upsampling_factor > 1`` is folded on its own finer
+grid: ``from_numpy`` upsamples the exposure bilinearly and the PSF too,
+divided by ``factor²``, and the forward sums the counts back over each
+``factor²`` block. The PSF spectrum is computed once at build time, on
+the model's device, at the minimal linear-convolution shape unless
+``fft_shape`` is given. ``from_numpy`` divides the exposure by the PSF's
+response to a unit image (the exposure edge correction).
+
+An `NPredCalibration` per dataset shifts the flux by ``shift_xy`` data
+pixels (bilinear, ``ops.image.shift_image`` at ``scale=factor``) before
+the exposure, scales the background by ``exp(log_background_norm)``,
+zooms the PSF by its static ``psf_scale`` and weights the dataset's
+likelihood by its static ``weight``. The shift and the log norm are
+trainable leaves (``parameters()``) unless frozen.
+
+Not ported, raising ``NotImplementedError``: an energy redistribution
+matrix (``rmf``), band stacks, and reading or writing calibrations.
 """
+
+import copy
 
 import numpy as np
 import torch
 
 from ..config import resolve_device
 from ..ops.fft import convolve_fft_precomputed, fft_conv_shape, kernel_fft
+from ..ops.image import (
+    maybe_rescale_image,
+    shift_image,
+    sum_pool,
+    upsample_bilinear,
+)
 
-__all__ = ["NPredModel", "NPredModels", "as_image"]
+__all__ = ["NPredCalibration", "NPredCalibrations", "NPredModel",
+           "NPredModels", "as_image"]
 
 
-def _unported(upsampling_factor=None, rmf=None, calibration=None):
-    if int(upsampling_factor or 1) != 1:
-        raise NotImplementedError("upsampling_factor > 1 is not ported yet")
+def _unported_rmf(rmf):
     if rmf is not None:
         raise NotImplementedError("rmf is not ported yet")
-    if calibration is not None:
-        raise NotImplementedError("calibrations are not ported yet")
 
 
 def as_image(array, device):
@@ -57,13 +75,14 @@ class NPredModel:
     Parameters
     ----------
     exposure : tensor ``(1, 1, H, W)``
-        Exposure on the flux grid.
+        Exposure on the (possibly upsampled) flux grid.
     psf : tensor ``(1, 1, kh, kw)``, optional
-        Point spread function, flux-normalised.
+        Point spread function on the flux grid, flux-normalised.
     rmf : optional
         Not ported: anything but ``None`` raises.
     upsampling_factor : int, optional
-        1 (or ``None``) only.
+        Flux grid oversampling: the forward sums the counts over each
+        ``factor²`` block.
     fft_shape : tuple of int, optional
         FFT shape of the precomputed PSF transform (default: image +
         kernel - 1 per axis).
@@ -71,7 +90,7 @@ class NPredModel:
 
     def __init__(self, exposure, psf=None, rmf=None, upsampling_factor=None,
                  fft_shape=None):
-        _unported(upsampling_factor=upsampling_factor, rmf=rmf)
+        _unported_rmf(rmf)
         self.exposure = exposure
         self.psf = psf
         self.rmf = None
@@ -83,6 +102,8 @@ class NPredModel:
                 fft_shape = fft_conv_shape(image_shape, psf.shape)
             self.psf_fft = kernel_fft(psf, image_shape, tuple(fft_shape))
         self.fft_shape = None if fft_shape is None else tuple(fft_shape)
+        # spectra of the PSF zoomed by a static psf_scale, made at first use
+        self._scaled_psf_ffts = {}
 
     @classmethod
     def from_numpy(cls, exposure, psf, upsampling_factor,
@@ -91,13 +112,19 @@ class NPredModel:
         """Build from data-resolution numpy arrays on ``device`` (default
         the first CUDA card, as ``config.resolve_device``).
 
-        With ``correct_exposure_edges`` the exposure is divided by the
+        With ``upsampling_factor`` the exposure and the PSF are upsampled
+        bilinearly, the PSF divided by ``factor²``. With
+        ``correct_exposure_edges`` the exposure is then divided by the
         PSF's response to a unit image, which falls off at the edges.
         """
-        _unported(upsampling_factor=upsampling_factor, rmf=rmf)
+        _unported_rmf(rmf)
         device = resolve_device(device)
         exposure = as_image(exposure, device)
         psf = as_image(psf, device)
+        if upsampling_factor:
+            factor = int(upsampling_factor)
+            exposure = upsample_bilinear(exposure, factor)
+            psf = upsample_bilinear(psf, factor) / factor**2
         if correct_exposure_edges:
             ones = torch.ones_like(exposure)
             shape = fft_conv_shape(ones.shape, psf.shape)
@@ -108,34 +135,71 @@ class NPredModel:
         return cls(exposure=exposure, psf=psf,
                    upsampling_factor=upsampling_factor, fft_shape=fft_shape)
 
-    def __call__(self, flux):
-        return self.forward(flux)
+    @property
+    def shape_upsampled(self):
+        """Flux-grid shape."""
+        return tuple(self.exposure.shape)
 
-    def forward(self, flux):
-        """Predicted counts of ``flux`` (differentiable)."""
+    @property
+    def shape(self):
+        """Data-grid shape."""
+        shape = list(self.shape_upsampled)
+        if self.upsampling_factor:
+            shape[-1] //= self.upsampling_factor
+            shape[-2] //= self.upsampling_factor
+        return tuple(shape)
+
+    def _psf_fft(self, psf_scale):
+        """The PSF spectrum, zoomed by a static ``psf_scale`` (None or 1:
+        the unzoomed one). The zoomed spectrum is computed once."""
+        if psf_scale is None or float(psf_scale) == 1.0:
+            return self.psf_fft
+        key = float(psf_scale)
+        if key not in self._scaled_psf_ffts:
+            psf = maybe_rescale_image(self.psf, key)
+            self._scaled_psf_ffts[key] = kernel_fft(
+                psf, self.exposure.shape[-2:], self.fft_shape)
+        return self._scaled_psf_ffts[key]
+
+    def __call__(self, flux, psf_scale=None):
+        return self.forward(flux, psf_scale=psf_scale)
+
+    def forward(self, flux, psf_scale=None):
+        """Predicted counts of ``flux`` (differentiable), the PSF zoomed
+        by the static ``psf_scale`` when it is not None or 1."""
         npred = flux * self.exposure
         if self.psf is not None:
-            npred = convolve_fft_precomputed(npred, self.psf_fft,
-                                             self.fft_shape)
+            npred = convolve_fft_precomputed(
+                npred, self._psf_fft(psf_scale), self.fft_shape)
+        if self.upsampling_factor:
+            npred = sum_pool(npred, self.upsampling_factor)
         return torch.clamp(npred, min=0.0)
 
 
 class NPredModels(dict):
-    """One dataset's forward models, one per component, and its background.
+    """One dataset's forward models, one per component, its background and
+    its calibration.
 
     Parameters
     ----------
     background : tensor ``(1, 1, H, W)``
-    calibration : optional
-        Not ported: anything but ``None`` raises.
+    calibration : `NPredCalibration`, optional
+        Its shift and log norm are taken from ``calibration_params`` at
+        evaluation, else from the values it holds when the models are
+        built (those of a frozen calibration never change).
     values : iterable of ``(name, NPredModel)``
     """
 
     def __init__(self, background, calibration=None, values=()):
         super().__init__()
-        _unported(calibration=calibration)
         self.background = background
-        self.calibration = None
+        self.calibration = calibration
+        self._static_shift = self._static_log_norm = None
+        if calibration is not None:
+            self._static_shift = calibration.shift_xy.detach().to(
+                background.device)
+            self._static_log_norm = calibration._background_norm.detach().to(
+                background.device)
         for name, model in values:
             if name == "background":
                 raise ValueError(
@@ -144,17 +208,38 @@ class NPredModels(dict):
                 )
             self[name] = model
 
-    def evaluate_per_component(self, fluxes):
-        """Predicted counts per component name, and the background."""
-        npreds = {name: model(flux)
-                  for (name, model), flux in zip(self.items(), fluxes)}
-        npreds["background"] = self.background
+    def evaluate_per_component(self, fluxes, calibration_params=None):
+        """Predicted counts per component name, and the background.
+
+        ``calibration_params`` holds the trainable calibration values
+        (``shift_xy``, ``log_background_norm``); a missing one is the
+        stored value.
+        """
+        calibration = self.calibration
+        params = calibration_params or {}
+        npreds = {}
+        for (name, model), flux in zip(self.items(), fluxes):
+            if calibration is None:
+                npreds[name] = model(flux)
+                continue
+            shift = params.get("shift_xy", self._static_shift)
+            flux = shift_image(flux, shift,
+                               scale=model.upsampling_factor or 1)
+            npreds[name] = model(flux,
+                                 psf_scale=calibration.psf_scale_value)
+        if calibration is None:
+            npreds["background"] = self.background
+        else:
+            log_norm = params.get("log_background_norm",
+                                  self._static_log_norm)
+            npreds["background"] = self.background * torch.exp(log_norm)
         return npreds
 
-    def evaluate(self, fluxes):
+    def evaluate(self, fluxes, calibration_params=None):
         """Total predicted counts: the components' plus the background."""
         npred_total = torch.zeros_like(self.background)
-        for npred in self.evaluate_per_component(fluxes).values():
+        for npred in self.evaluate_per_component(
+                fluxes, calibration_params).values():
             npred_total = npred_total + npred
         return npred_total
 
@@ -163,7 +248,7 @@ class NPredModels(dict):
                            fft_shape=None, device=None):
         """Build one dataset's models from its dict (``exposure``,
         ``psf``, ``background``; ``psf`` may be keyed by component)."""
-        _unported(calibration=calibration, rmf=dataset.get("rmf"))
+        _unported_rmf(dataset.get("rmf"))
         device = resolve_device(device)
         values = []
         for name, component in components.items():
@@ -176,4 +261,178 @@ class NPredModels(dict):
                 fft_shape=fft_shape, device=device,
             )))
         background = as_image(dataset["background"], device)
-        return cls(background, values=values)
+        return cls(background, calibration=calibration, values=values)
+
+
+class NPredCalibration:
+    """Per-dataset nuisance parameters.
+
+    Trainable: the position shift ``shift_xy`` ``(1, 2)`` (x, y in data
+    pixels) and the log background norm ``(1,)``. Static: ``psf_scale``
+    (a zoom of the PSF) and the likelihood ``weight``.
+
+    Parameters
+    ----------
+    shift_x, shift_y : float
+    background_norm : float
+        Linear background norm (stored as its log).
+    psf_scale : float
+    frozen : bool
+        No trainable leaves.
+    frozen_shift : bool
+        The shift is no leaf; the background norm still trains.
+    weight : float
+        Multiplies the dataset's Poisson term.
+    device : str or torch.device, optional
+        Where the values live (default CPU; the deconvolver moves them
+        to its own device).
+    """
+
+    def __init__(self, shift_x=0.0, shift_y=0.0, background_norm=1.0,
+                 psf_scale=1.0, frozen=False, frozen_shift=False, weight=1.0,
+                 device=None):
+        self.shift_xy = torch.tensor([[shift_x, shift_y]],
+                                     dtype=torch.float32, device=device)
+        self._background_norm = torch.tensor(
+            [np.log(background_norm)], dtype=torch.float32, device=device)
+        self.psf_scale_value = float(psf_scale)
+        self.frozen = bool(frozen)
+        self.frozen_shift = bool(frozen_shift)
+        self.weight = float(weight)
+
+    def to(self, device):
+        """Move the stored values to ``device`` (in place)."""
+        self.shift_xy = self.shift_xy.to(device)
+        self._background_norm = self._background_norm.to(device)
+        return self
+
+    def copy(self):
+        """A copy with cloned values."""
+        other = copy.copy(self)
+        other.shift_xy = self.shift_xy.detach().clone()
+        other._background_norm = self._background_norm.detach().clone()
+        return other
+
+    def parameters(self):
+        """Trainable leaves; empty when frozen; no shift when the shift
+        is frozen."""
+        if self.frozen:
+            return {}
+        params = {"log_background_norm": self._background_norm}
+        if not self.frozen_shift:
+            params["shift_xy"] = self.shift_xy
+        return params
+
+    def set_parameters(self, params):
+        """Write back trained values."""
+        if not params:
+            return
+        if "shift_xy" in params:
+            self.shift_xy = params["shift_xy"].detach().clone()
+        if "log_background_norm" in params:
+            self._background_norm = (
+                params["log_background_norm"].detach().clone())
+
+    @property
+    def background_norm(self):
+        """Linear background norm."""
+        return torch.exp(self._background_norm)
+
+    def background_norm_from(self, params=None):
+        """Background norm evaluated from a params dict."""
+        value = (
+            params["log_background_norm"]
+            if params is not None and "log_background_norm" in params
+            else self._background_norm
+        )
+        return torch.exp(value)
+
+    @property
+    def psf_scale(self):
+        """PSF scale factor (static)."""
+        return self.psf_scale_value
+
+    def __call__(self, flux, scale, params=None):
+        """``flux`` shifted by the calibration's ``shift_xy`` (from
+        ``params`` when there) at ``scale`` image pixels a data pixel."""
+        shift_xy = (
+            params["shift_xy"]
+            if params is not None and "shift_xy" in params
+            else self.shift_xy
+        )
+        return shift_image(flux, shift_xy, scale=scale)
+
+    def to_dict(self):
+        """Calibration values with simple data types."""
+        shift_xy = self.shift_xy.detach().cpu().numpy()
+        return {
+            "shift_x": float(shift_xy[0, 0]),
+            "shift_y": float(shift_xy[0, 1]),
+            "background_norm": float(np.exp(
+                self._background_norm.detach().cpu().numpy())[0]),
+            "psf_scale": float(self.psf_scale_value),
+            "frozen": bool(self.frozen),
+            "frozen_shift": bool(self.frozen_shift),
+            "weight": float(self.weight),
+        }
+
+    @classmethod
+    def from_dict(cls, data):
+        """Build from :meth:`to_dict`'s output."""
+        return cls(**data)
+
+
+class NPredCalibrations(dict):
+    """Named collection of calibrations, keyed by dataset name."""
+
+    def __init__(self, calibrations=None):
+        super().__init__()
+        if calibrations:
+            for name, calibration in dict(calibrations).items():
+                self[name] = calibration
+
+    def parameters(self):
+        """Trainable params: ``{name: calibration params}``."""
+        params = {}
+        for name, model in self.items():
+            model_params = model.parameters()
+            if model_params:
+                params[name] = model_params
+        return params
+
+    def set_parameters(self, params):
+        """Write back trained values per calibration."""
+        for name, model_params in (params or {}).items():
+            self[name].set_parameters(model_params)
+
+    def to(self, device):
+        """Move every calibration's values to ``device`` (in place)."""
+        for calibration in self.values():
+            calibration.to(device)
+        return self
+
+    def copy(self):
+        """The calibrations' copies."""
+        return NPredCalibrations({name: calibration.copy()
+                                  for name, calibration in self.items()})
+
+    def to_dict(self):
+        """Every calibration's :meth:`NPredCalibration.to_dict`."""
+        return {name: model.to_dict() for name, model in self.items()}
+
+    @classmethod
+    def from_dict(cls, data):
+        """Build from :meth:`to_dict`'s output."""
+        return cls({name: NPredCalibration.from_dict(data=value)
+                    for name, value in data.items()})
+
+    @classmethod
+    def read(cls, filename, format=None):
+        """Not ported: raises ``NotImplementedError``."""
+        raise NotImplementedError(
+            "NPredCalibrations.read is not ported yet")
+
+    def write(self, filename, format=None, overwrite=False, **kwargs):
+        """Not ported: raises ``NotImplementedError``."""
+        raise NotImplementedError(
+            "NPredCalibrations.write is not ported yet")

@@ -17,6 +17,8 @@ which has the same semantics.
 
 import torch
 
+from .image import rescale_image, upsample_bilinear
+
 __all__ = [
     "build_kernel_stack",
     "convolve_fft_packed_pair",
@@ -157,17 +159,21 @@ def convolve_fft_packed_pair(x0, x1, a, b, fft_shape):
     return y.real[..., :h, :w], y.imag[..., :h, :w]
 
 
-def upsample_center_pad_kernels(kernels, *, factor, out_shape):
-    """Center-pad a same-size kernel stack to ``out_shape``.
+def upsample_center_pad_kernels(kernels, *, factor, out_shape, scales=None):
+    """Upsample a same-size kernel stack and center-pad it to ``out_shape``.
 
-    Each kernel's center pixel ``(k - 1) // 2`` lands on the center
-    pixel of ``out_shape``. Upsampling (``factor > 1``) is not ported
-    yet.
+    With ``factor > 1`` the kernels are upsampled bilinearly and divided
+    by ``factor²`` (flux conservation). ``scales`` (one per kernel,
+    optional) zooms each upsampled kernel about its centre by the static
+    ``psf_scale`` calibration, before the padding. Each kernel's center
+    pixel ``(k - 1) // 2`` then lands on the center pixel of
+    ``out_shape``.
     """
     if factor and factor > 1:
-        raise NotImplementedError(
-            "kernel upsampling (factor > 1) is not ported yet"
-        )
+        kernels = upsample_bilinear(kernels, factor) / factor**2
+    if scales is not None:
+        kernels = torch.stack([rescale_image(k, float(s))
+                               for k, s in zip(kernels, scales)])
     kh, kw = kernels.shape[-2], kernels.shape[-1]
     top = (out_shape[0] - 1) // 2 - (kh - 1) // 2
     left = (out_shape[1] - 1) // 2 - (kw - 1) // 2
@@ -178,33 +184,41 @@ def upsample_center_pad_kernels(kernels, *, factor, out_shape):
 
 
 def build_kernel_stack(kernels, exposures, *, factor, fft_shape,
-                       correct_edges):
+                       correct_edges, conv_kernels=None):
     """Stacked convolution operators for a dataset stack.
 
     Parameters
     ----------
     kernels : tensor ``(n, 1, 1, KH, KW)``
-        PSF stack, center-aligned to a common size.
+        PSF stack, upsampled and center-aligned to a common size
+        (:func:`upsample_center_pad_kernels`).
     exposures : tensor ``(n, 1, 1, h, w)``
+        Exposures at data resolution.
     factor : int
-        Component upsampling factor (1 only for now).
+        Component upsampling factor: the exposures are upsampled
+        bilinearly before the edge correction.
     fft_shape : tuple of int
-        Common FFT shape, at least image + kernel - 1.
+        Common FFT shape, at least upsampled image + kernel - 1.
     correct_edges : bool
         Divide exposures by ``ones * psf`` (the exposure edge
-        correction).
+        correction), always with the unscaled ``kernels``.
+    conv_kernels : tensor like ``kernels``, optional
+        Kernels of the convolution spectra where they differ from
+        ``kernels``: the ``psf_scale`` calibration's zoomed ones.
 
     Returns
     -------
     kft : complex tensor ``(n, 1, 1, fh, fw // 2 + 1)``
     exposures : tensor ``(n, 1, 1, H, W)``
     """
-    if factor and factor > 1:
-        raise NotImplementedError(
-            "exposure upsampling (factor > 1) is not ported yet"
-        )
     fft_shape = tuple(fft_shape)
-    kft = torch.fft.rfft2(_origin_centered(kernels, fft_shape), s=fft_shape)
+    if factor and factor > 1:
+        exposures = upsample_bilinear(exposures, factor)
+
+    def spectra(k):
+        return torch.fft.rfft2(_origin_centered(k, fft_shape), s=fft_shape)
+
+    kft = spectra(kernels if conv_kernels is None else conv_kernels)
     if correct_edges:
         h, w = exposures.shape[-2], exposures.shape[-1]
         ones_ft = torch.fft.rfft2(
@@ -212,6 +226,8 @@ def build_kernel_stack(kernels, exposures, *, factor, fft_shape,
                        device=exposures.device),
             s=fft_shape,
         )
-        weights = torch.fft.irfft2(ones_ft * kft, s=fft_shape)[..., :h, :w]
+        edge_kft = kft if conv_kernels is None else spectra(kernels)
+        weights = torch.fft.irfft2(ones_ft * edge_kft,
+                                   s=fft_shape)[..., :h, :w]
         exposures = exposures / weights
     return kft, exposures

@@ -1,8 +1,48 @@
-"""Image-space ops (the JAX package's ``ops/image.py``): sum pool, cycle spin."""
+"""Image-space ops (the JAX package's ``ops/image.py``): resampling, warps,
+sum pool, cycle spin.
+
+The warps (``shift_image``, ``rescale_image``) sample the input at
+coordinates that depend on the row alone and on the column alone, so
+each is a separable bilinear gather in pixel units: per axis ``floor``,
+two weights and two masked reads (zeros outside), the coordinates
+computed as the JAX package computes them (``arange + scale * shift``
+in float32). The value and both gradients therefore follow
+``jax.scipy.ndimage.map_coordinates(order=1, mode="constant")``: at an
+integer coordinate the gradient with respect to the shift is the
+forward difference, as there. ``F.grid_sample`` would go through
+normalised coordinates, where a shift of exactly 0 need not map back to
+the integer.
+"""
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["cycle_spin", "draw_cycle_spin", "sum_pool"]
+__all__ = [
+    "avg_pool",
+    "cycle_spin",
+    "draw_cycle_spin",
+    "maybe_rescale_image",
+    "rescale_image",
+    "shift_image",
+    "shift_images",
+    "sum_pool",
+    "upsample_bilinear",
+]
+
+
+def upsample_bilinear(image, factor):
+    """Bilinear upsampling of ``image (..., H, W)`` by an integer factor.
+
+    ``F.interpolate(mode="bilinear", align_corners=False)``: output
+    pixel centres sample the input at ``(i + 0.5) / factor - 0.5`` with
+    edge clamping, as the JAX package's ``jax.image.resize`` "linear".
+    """
+    if not factor or factor == 1:
+        return image
+    h, w = image.shape[-2], image.shape[-1]
+    out = F.interpolate(image.reshape(-1, 1, h, w), scale_factor=factor,
+                        mode="bilinear", align_corners=False)
+    return out.reshape(image.shape[:-2] + (h * factor, w * factor))
 
 
 def sum_pool(image, factor):
@@ -13,6 +53,101 @@ def sum_pool(image, factor):
     lead = image.shape[:-2]
     x = image.reshape(lead + (h // factor, factor, w // factor, factor))
     return x.sum(dim=(-3, -1))
+
+
+def avg_pool(image, factor):
+    """Mean over non-overlapping ``factor²`` blocks."""
+    if not factor or factor == 1:
+        return image
+    return sum_pool(image, factor) / (factor * factor)
+
+
+def _interp_axis(x, coords, dim):
+    """Linear interpolation of ``x (N, C, H, W)`` along ``dim`` (-2 or
+    -1) at ``coords (N, L)``, zeros outside."""
+    size = x.shape[dim]
+    lower = torch.floor(coords)
+    upper_weight = coords - lower
+    lower = lower.long()
+    out = None
+    for index, weight in ((lower, 1.0 - upper_weight),
+                          (lower + 1, upper_weight)):
+        valid = (index >= 0) & (index < size)
+        index = index.clamp(0, size - 1)
+        if dim == -2:
+            index = index[:, None, :, None].expand(
+                x.shape[0], x.shape[1], -1, x.shape[3])
+            weight = weight[:, None, :, None]
+            valid = valid[:, None, :, None]
+        else:
+            index = index[:, None, None, :].expand(
+                x.shape[0], x.shape[1], x.shape[2], -1)
+            weight = weight[:, None, None, :]
+            valid = valid[:, None, None, :]
+        part = torch.where(valid, torch.gather(x, dim, index), 0.0) * weight
+        out = part if out is None else out + part
+    return out
+
+
+def _sample(image, rows, cols):
+    """``image (..., H, W)`` sampled at rows ``(N, H)`` and columns
+    ``(N, W)``: an ``(N,) + image.shape`` stack."""
+    h, w = image.shape[-2], image.shape[-1]
+    n = rows.shape[0]
+    x = image.reshape(1, -1, h, w).expand(n, -1, h, w)
+    x = _interp_axis(x, rows, -2)
+    x = _interp_axis(x, cols, -1)
+    return x.reshape((n,) + tuple(image.shape))
+
+
+def shift_images(image, shifts, scale=1.0):
+    """``image (..., H, W)`` shifted by each of ``shifts (N, ..., 2)``
+    (x, y in data pixels): an ``(N,) + image.shape`` stack.
+
+    ``out[n, ..., y, x] = image[..., y + scale sy_n, x + scale sx_n]``,
+    bilinear, zeros outside, differentiable in the image and in the
+    shifts. ``scale`` is the upsampling factor that converts data
+    pixels into image pixels.
+    """
+    shifts = torch.as_tensor(shifts, dtype=image.dtype,
+                             device=image.device).reshape(-1, 2)
+    h, w = image.shape[-2], image.shape[-1]
+    rows = (torch.arange(h, dtype=image.dtype, device=image.device)[None, :]
+            + scale * shifts[:, 1:2])
+    cols = (torch.arange(w, dtype=image.dtype, device=image.device)[None, :]
+            + scale * shifts[:, 0:1])
+    return _sample(image, rows, cols)
+
+
+def shift_image(image, shift_xy, scale=1.0):
+    """Shift ``image (..., H, W)`` by ``shift_xy`` (``(2,)`` or
+    ``(1, 2)``, x then y, in data pixels); see :func:`shift_images`."""
+    return shift_images(image, shift_xy, scale=scale)[0]
+
+
+def rescale_image(image, factor):
+    """Zoom ``image (..., H, W)`` about its centre by ``factor``, keeping
+    its shape: output pixel ``x`` samples the input at ``(2x + 1 - W) /
+    (2 factor) + (W - 1) / 2`` (bilinear, zeros outside)."""
+    h, w = image.shape[-2], image.shape[-1]
+    factor = torch.as_tensor(factor, dtype=image.dtype,
+                             device=image.device).reshape(())
+
+    def coords(size):
+        grid = torch.arange(size, dtype=image.dtype, device=image.device)
+        return ((2.0 * grid + 1.0 - size) / (2.0 * factor)
+                + (size - 1) / 2.0)[None, :]
+
+    return _sample(image, coords(h), coords(w))[0]
+
+
+def maybe_rescale_image(image, factor):
+    """:func:`rescale_image`, skipped when ``factor`` is None or 1."""
+    if factor is None:
+        return image
+    if isinstance(factor, (int, float)) and float(factor) == 1.0:
+        return image
+    return rescale_image(image, factor)
 
 
 def draw_cycle_spin(patch_shape, generator=None):

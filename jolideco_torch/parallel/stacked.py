@@ -6,17 +6,26 @@ center-padded to a common size and their spectra precomputed at one
 common FFT shape, so the forward of every observation is one batched
 computation:
 
-    flux * exposure -> PSF convolution -> sum pool -> clip -> + background
-    -> Poisson NLL with the precomputed Stirling term
+    flux -> calibration shift -> * exposure -> PSF convolution -> sum pool
+    -> clip -> + background * norm -> Poisson NLL with the precomputed
+    Stirling term
+
+A component with ``upsampling_factor > 1`` is folded on its finer grid:
+its exposures are upsampled bilinearly and its PSFs too (divided by
+``factor²``) at build time, and the counts summed back over each
+``factor²`` block. Calibrations (``models/npred.py``) shift each
+observation's flux by its ``shift_xy`` at ``scale=factor`` and scale its
+background by ``exp(log_background_norm)``; their static ``psf_scale``
+zooms are baked into the precomputed spectra, and their static weights
+multiply the per-observation terms.
 
 Two convolution backends are ported: ``conv_mode="fft"``, a batched
 per-observation ``rfft2`` (cuFFT on the card), and ``conv_mode="pfft"``,
 the pair-packed matrix DFT (``ops/pallas_fft.py``): even and odd
 observations go pairwise through one complex transform, at a size that
 is a multiple of 128, with the images padded to multiples of 128; an
-odd last observation takes the ``rfft2`` path. Not ported: calibrations,
-energy redistribution, the other convolution backends and the mesh
-paths.
+odd last observation takes the ``rfft2`` path. Not ported: energy
+redistribution, the other convolution backends and the mesh paths.
 """
 
 import numpy as np
@@ -29,7 +38,7 @@ from ..ops.fft import (
     convolve_fft_precomputed,
     upsample_center_pad_kernels,
 )
-from ..ops.image import sum_pool
+from ..ops.image import shift_images, sum_pool
 from ..ops.pallas_fft import (
     conv_packed_pfft,
     default_pfft_mode,
@@ -54,11 +63,16 @@ class StackedPoissonLoss:
         planes ``(N // 2, 1, 1, n, n)`` of the observation pairs, or None
         (``"fft"``, or fewer than two observations)
     pfft_ns : dict of component name -> transform size ``n``
+    static_shifts, static_log_norms : ``(N, 1, 2)`` and ``(N, 1)``, or None
+        The calibrations' values at build time, used for the leaves a
+        (partly) frozen calibration does not train.
     """
 
     def __init__(self, counts, background, exposures, psf_ffts, names_all,
                  component_factors, fft_shape, component_names=None,
-                 conv_mode="fft", pfft_pairs=None, pfft_ns=None):
+                 conv_mode="fft", pfft_pairs=None, pfft_ns=None,
+                 weights=None, psf_scales=None, static_shifts=None,
+                 static_log_norms=None):
         self.counts = counts
         self.background = background
         self.exposures = dict(exposures)
@@ -74,16 +88,18 @@ class StackedPoissonLoss:
         self.conv_mode = conv_mode
         self.pfft_pairs = pfft_pairs
         self.pfft_ns = pfft_ns
+        self.has_calibration = static_shifts is not None
+        # per-dataset likelihood weights (1 without calibrations)
+        self.weights = torch.tensor(
+            [1.0] * len(self.names_all) if weights is None else weights,
+            dtype=torch.float32, device=counts.device)
+        self.psf_scales = None if psf_scales is None else tuple(psf_scales)
+        self.static_shifts = static_shifts
+        self.static_log_norms = static_log_norms
 
     @property
     def n_datasets(self):
         return len(self.names_all)
-
-    @property
-    def weights(self):
-        """Per-dataset likelihood weights (1 without calibrations)."""
-        return torch.ones(self.n_datasets, dtype=torch.float32,
-                          device=self.counts.device)
 
     @classmethod
     def from_datasets(cls, datasets, components, calibrations=None,
@@ -94,10 +110,15 @@ class StackedPoissonLoss:
 
         ``datasets`` maps names to dicts of ``counts``, ``psf`` (array,
         or dict keyed by component), ``exposure`` and ``background``
-        2-D arrays. ``device`` as in ``config.resolve_device``: the
-        first CUDA card by default, the CPU only when asked.
-        ``row_shards`` (the JAX package's pencil-FFT mesh) is accepted for
-        signature parity; anything but ``None`` raises.
+        2-D arrays; ``calibrations`` (`NPredCalibrations`, optional) is
+        keyed like them. Components may have different upsampling
+        factors when the first needs the largest FFT shape (the JAX
+        package falls back to per-dataset models otherwise, which the
+        joint strategy here does not: the build raises ``ValueError``).
+        ``device`` as in ``config.resolve_device``: the first CUDA card
+        by default, the CPU only when asked. ``row_shards`` (the JAX
+        package's pencil-FFT mesh) is accepted for signature parity;
+        anything but ``None`` raises.
         """
         if row_shards is not None:
             raise NotImplementedError("row_shards is not ported yet")
@@ -107,8 +128,6 @@ class StackedPoissonLoss:
                 f"conv_mode={conv_mode!r} is not ported yet; use 'fft' or "
                 "'pfft'"
             )
-        if calibrations:
-            raise NotImplementedError("calibrations are not ported yet")
         if any("rmf" in d for d in datasets.values()):
             raise NotImplementedError("rmf is not ported yet")
         shapes = {np.asarray(d["counts"]).shape for d in datasets.values()}
@@ -117,6 +136,23 @@ class StackedPoissonLoss:
                 f"Stacked observations need one common counts shape, got "
                 f"{shapes}"
             )
+        names = list(datasets)
+
+        # the calibrations' static values: the psf_scale zoom is baked
+        # into the spectra below, the shifts and log norms stand in for
+        # the leaves a frozen calibration does not train
+        weights = psf_scales = scale_values = None
+        static_shifts = static_log_norms = None
+        if calibrations:
+            weights = [calibrations[n].weight for n in names]
+            psf_scales = [calibrations[n].psf_scale_value for n in names]
+            if any(float(v) != 1.0 for v in psf_scales):
+                scale_values = psf_scales
+            static_shifts = torch.stack([
+                calibrations[n].shift_xy.detach().to(device) for n in names])
+            static_log_norms = torch.stack([
+                calibrations[n]._background_norm.detach().to(device)
+                for n in names])
 
         def stack(key):
             arr = np.stack([np.asarray(d[key], np.float32)
@@ -142,8 +178,8 @@ class StackedPoissonLoss:
                 raw_psfs.append(np.asarray(psf, np.float32))
 
             image_shape = tuple(factor * s for s in raw_exps.shape[-2:])
-            kmax = (max(p.shape[-2] for p in raw_psfs),
-                    max(p.shape[-1] for p in raw_psfs))
+            kmax = (max(factor * p.shape[-2] for p in raw_psfs),
+                    max(factor * p.shape[-1] for p in raw_psfs))
             min_shape = (image_shape[0] + kmax[0] - 1,
                          image_shape[1] + kmax[1] - 1)
             if common_fft_shape is None:
@@ -155,27 +191,38 @@ class StackedPoissonLoss:
                     f"{name!r} (needs at least {min_shape})"
                 )
 
-            # ragged PSF sizes: center-pad per shape group, then restore
-            # observation order
-            kernels = [None] * len(raw_psfs)
+            # ragged PSF sizes: upsample and center-pad per shape group,
+            # then restore observation order
             by_shape = {}
             for idx, psf in enumerate(raw_psfs):
                 by_shape.setdefault(psf.shape, []).append(idx)
-            for idxs in by_shape.values():
-                group = torch.as_tensor(
-                    np.stack([raw_psfs[i] for i in idxs])[:, None, None],
-                    device=device,
-                )
-                padded = upsample_center_pad_kernels(
-                    group, factor=factor, out_shape=kmax
-                )
-                for pos, idx in enumerate(idxs):
-                    kernels[idx] = padded[pos]
-            kernels = torch.stack(kernels)
+
+            def padded_stack(scales):
+                kernels = [None] * len(raw_psfs)
+                for idxs in by_shape.values():
+                    group = torch.as_tensor(
+                        np.stack([raw_psfs[i] for i in idxs])[:, None, None],
+                        device=device,
+                    )
+                    padded = upsample_center_pad_kernels(
+                        group, factor=factor, out_shape=kmax,
+                        scales=None if scales is None
+                        else [scales[i] for i in idxs],
+                    )
+                    for pos, idx in enumerate(idxs):
+                        kernels[idx] = padded[pos]
+                return torch.stack(kernels)
+
+            # the edge correction takes the unscaled kernels, the
+            # convolution the zoomed ones
+            kernels = padded_stack(None)
+            conv_kernels = (None if scale_values is None
+                            else padded_stack(scale_values))
             kft, exp_stack = build_kernel_stack(
                 kernels, raw_exps, factor=factor,
                 fft_shape=common_fft_shape,
                 correct_edges=correct_exposure_edges,
+                conv_kernels=conv_kernels,
             )
             exposures[name] = exp_stack
             psf_ffts[name] = kft
@@ -187,8 +234,9 @@ class StackedPoissonLoss:
                 n = pfft_size(max(padded[0] + kmax[0] - 1,
                                   padded[1] + kmax[1] - 1))
                 n_even = 2 * (n_obs // 2)
+                kstack = kernels if conv_kernels is None else conv_kernels
                 pfft_pairs[name] = pfft_pair_spectra_device(
-                    kernels[0:n_even:2], kernels[1:n_even:2], padded, n
+                    kstack[0:n_even:2], kstack[1:n_even:2], padded, n
                 )
                 pfft_ns[name] = n
 
@@ -197,33 +245,82 @@ class StackedPoissonLoss:
             background=background,
             exposures=exposures,
             psf_ffts=psf_ffts,
-            names_all=list(datasets),
+            names_all=names,
             component_factors=factors,
             fft_shape=common_fft_shape,
             component_names=list(components),
             conv_mode=conv_mode,
             pfft_pairs=pfft_pairs or None,
             pfft_ns=pfft_ns or None,
+            weights=weights,
+            psf_scales=psf_scales,
+            static_shifts=static_shifts,
+            static_log_norms=static_log_norms,
         )
 
-    def _evaluate_batched(self, fluxes, conv_fn):
+    def _stack_calibration_params(self, calibration_params):
+        """Calibration params keyed by dataset name -> ``(N, 1, 2)``
+        shifts and ``(N, 1)`` log norms. A leaf that a (partly) frozen
+        calibration does not train contributes its static value, not
+        zero."""
+        shifts, log_norms = [], []
+        for idx, name in enumerate(self.names_all):
+            cal = (calibration_params or {}).get(name) or {}
+            shifts.append(cal.get("shift_xy", self.static_shifts[idx]))
+            log_norms.append(cal.get("log_background_norm",
+                                     self.static_log_norms[idx]))
+        return torch.stack(shifts), torch.stack(log_norms)
+
+    def _evaluate_batched(self, fluxes, calibration_params, conv_fn,
+                          index=None):
         """Batched forward: ``conv_fn(name, x)`` convolves the
-        ``(N, 1, 1, H, W)`` stack ``x`` of component ``name``."""
-        npred = torch.zeros_like(self.background)
+        ``(N, 1, 1, H, W)`` stack ``x`` of component ``name``. With
+        ``index`` (a slice) only those observations are evaluated."""
+        sel = slice(None) if index is None else index
+        shifts = log_norms = None
+        if self.has_calibration:
+            shifts, log_norms = self._stack_calibration_params(
+                calibration_params)
+            shifts, log_norms = shifts[sel], log_norms[sel]
+        background = self.background[sel]
+        npred = torch.zeros_like(background)
         for idx, name in enumerate(self.component_names):
-            x = fluxes[idx][None] * self.exposures[name]
-            y = sum_pool(conv_fn(name, x), self.component_factors[idx])
+            factor = self.component_factors[idx]
+            if shifts is None:
+                x = fluxes[idx][None]
+            else:
+                x = shift_images(fluxes[idx], shifts, scale=factor)
+            x = x * self.exposures[name][sel]
+            y = sum_pool(conv_fn(name, x), factor)
             npred = npred + torch.clamp(y, min=0.0)
-        npred = npred + self.background
+        if log_norms is None:
+            npred = npred + background
+        else:
+            npred = npred + background * torch.exp(log_norms).reshape(
+                (-1,) + (1,) * (background.ndim - 1))
         return torch.vmap(
             lambda n, c, s: poisson_nll(n, c, stirling=s)
-        )(npred, self.counts, self.stirling)
+        )(npred, self.counts[sel], self.stirling[sel])
 
-    def evaluate(self, fluxes):
+    def evaluate(self, fluxes, calibration_params=None):
         """Per-observation mean Poisson NLL: ``(N,)`` tensor."""
         if self.conv_mode == "pfft" and self.pfft_pairs is not None:
-            return self._evaluate_batched(fluxes, self._conv_packed_pfft)
-        return self._evaluate_batched(fluxes, self._conv_fft)
+            conv_fn = self._conv_packed_pfft
+        else:
+            conv_fn = self._conv_fft
+        return self._evaluate_batched(fluxes, calibration_params, conv_fn)
+
+    def evaluate_dataset(self, idx, fluxes, calibration_params=None):
+        """Mean Poisson NLL of observation ``idx`` alone (its ``rfft2``
+        convolution): the work of one observation."""
+        index = slice(idx, idx + 1)
+
+        def conv_fn(name, x):
+            return convolve_fft_precomputed(x, self.psf_ffts[name][index],
+                                            self.fft_shape)
+
+        return self._evaluate_batched(fluxes, calibration_params, conv_fn,
+                                      index=index)[0]
 
     def _conv_fft(self, name, x):
         return convolve_fft_precomputed(x, self.psf_ffts[name],
@@ -261,6 +358,7 @@ class StackedPoissonLoss:
         return (y0[:, :h, :w].reshape(lead + (h, w)),
                 y1[:, :h, :w].reshape(lead + (h, w)))
 
-    def __call__(self, fluxes):
+    def __call__(self, fluxes, calibration_params=None):
         """Weighted sum of per-observation losses."""
-        return torch.sum(self.evaluate(fluxes) * self.weights)
+        return torch.sum(self.evaluate(fluxes, calibration_params)
+                         * self.weights)

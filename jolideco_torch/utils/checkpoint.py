@@ -1,4 +1,5 @@
-"""Training state on disk: parameters, optimiser state, generator, epoch.
+"""Training state on disk: parameters (the calibrations' too), optimiser
+state, generator, epoch.
 
 Counterpart of the JAX package's ``utils/checkpoint.py``, which writes
 through orbax. Here the state is fetched to the host first and written
@@ -19,7 +20,8 @@ import torch
 
 log = logging.getLogger(__name__)
 
-__all__ = ["restore_train_state", "save_train_state"]
+__all__ = ["restore_calibration_params", "restore_train_state",
+           "save_train_state"]
 
 FILENAME = "train_state.pt"
 
@@ -41,7 +43,8 @@ def _to_host(value):
     return value.detach().to("cpu", copy=True)
 
 
-def save_train_state(path, params, opt_state, generator_state, epoch):
+def save_train_state(path, params, opt_state, generator_state, epoch,
+                     calibration_params=None):
     """Write the train state into the directory ``path``.
 
     Parameters
@@ -56,6 +59,8 @@ def save_train_state(path, params, opt_state, generator_state, epoch):
         ``torch.Generator.get_state()`` of the cycle spins' generator.
     epoch : int
         Epochs the run took.
+    calibration_params : dict, optional
+        The calibrations' trainable leaves, keyed by dataset name.
     """
     path = Path(path).absolute()
     path.mkdir(parents=True, exist_ok=True)
@@ -64,6 +69,7 @@ def save_train_state(path, params, opt_state, generator_state, epoch):
         "opt_state": _map(opt_state, _to_host),
         "generator_state": _map(generator_state, _to_host),
         "epoch": int(epoch),
+        "calibration_params": _map(calibration_params or {}, _to_host),
     }
     torch.save(state, path / FILENAME)
     log.info(f"Saved train state to {path}")
@@ -81,8 +87,7 @@ def restore_train_state(path):
         None).
     """
     path = Path(path).absolute()
-    state = torch.load(path / FILENAME, map_location="cpu",
-                       weights_only=True)
+    state = _read(path)
     log.info(f"Restored train state from {path}")
     return (
         _map(state["params"], lambda t: t.numpy()),
@@ -90,3 +95,15 @@ def restore_train_state(path):
         state["generator_state"],
         int(state["epoch"]),
     )
+
+
+def restore_calibration_params(path):
+    """The calibrations' leaves of a train state written by
+    :func:`save_train_state`, keyed by dataset name, with numpy leaves
+    (empty when it has none)."""
+    state = _read(Path(path).absolute())
+    return _map(state.get("calibration_params", {}), lambda t: t.numpy())
+
+
+def _read(path):
+    return torch.load(path / FILENAME, map_location="cpu", weights_only=True)

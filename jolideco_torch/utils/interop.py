@@ -11,19 +11,25 @@ __all__ = ["adam_state_from_optax", "gmm_from_arrays", "params_from_jax",
            "params_to_numpy"]
 
 
-def params_from_jax(params_np, components, device=None):
-    """Load the JAX package's training ``params`` into ``components``.
+def params_from_jax(params_np, components, device=None, calibrations=None):
+    """Load the JAX package's training ``params`` into ``components`` (and
+    ``calibrations``).
 
     Parameters
     ----------
     params_np : dict
-        ``{"components": {name: {"flux": log_flux, ...}}}`` with numpy
-        leaves: the layout of ``FluxComponents.parameters()`` in
-        the JAX package, wrapped as the deconvolver's params are.
+        ``{"components": {name: {"flux": log_flux, ...}}, "calibrations":
+        {dataset: {"shift_xy": ..., "log_background_norm": ...}}}`` with
+        numpy leaves: the JAX deconvolver's params (``"calibrations"``
+        only when it trains some).
     components : `FluxComponents`
         The port's components, updated in place.
     device : str or torch.device, optional
-        Where the loaded tensors go (default: each component's own).
+        Where the loaded tensors go (default: each component's own, and
+        each calibration's).
+    calibrations : `NPredCalibrations`, optional
+        The port's calibrations, updated in place from
+        ``params_np["calibrations"]``.
 
     Returns
     -------
@@ -43,7 +49,16 @@ def params_from_jax(params_np, components, device=None):
             dev = components[name].parameters()["flux"].device
         loaded[name] = to_tensor(comp_params, dev)
         components[name].set_parameters(loaded[name])
-    return {"components": loaded}
+    out = {"components": loaded}
+    if "calibrations" in params_np:
+        out["calibrations"] = {}
+        for name, cal_params in params_np["calibrations"].items():
+            dev = device
+            if dev is None:
+                dev = calibrations[name].shift_xy.device
+            out["calibrations"][name] = to_tensor(cal_params, dev)
+            calibrations[name].set_parameters(out["calibrations"][name])
+    return out
 
 
 def params_to_numpy(params):
@@ -69,7 +84,8 @@ def gmm_from_arrays(means, covariances, weights, stride):
     )
 
 
-def adam_state_from_optax(opt_state, params, **adam_kwargs):
+def adam_state_from_optax(opt_state, params, calibration_params=None,
+                          **adam_kwargs):
     """``torch.optim.Adam`` state dict of an optax Adam state.
 
     Parameters
@@ -77,12 +93,13 @@ def adam_state_from_optax(opt_state, params, **adam_kwargs):
     opt_state :
         optax's ``ScaleByAdamState`` (the first state of ``optax.adam``'s
         chain) with numpy leaves: ``count``, and ``mu`` and ``nu`` nested
-        like the JAX deconvolver's params,
-        ``{"components": {name: {"flux": ...}}}``.
+        like the JAX deconvolver's params, ``{"components": {name:
+        {"flux": ...}}, "calibrations": {dataset: {...}}}``.
     params : dict
-        The port's nested params (``FluxComponents.parameters()``): the
-        state's entries follow its leaves in insertion order, the order
-        the deconvolver hands them to the optimiser.
+        The port's nested flux params (``FluxComponents.parameters()``).
+    calibration_params : dict, optional
+        The port's calibration params (``NPredCalibrations.parameters()``)
+        when the run trains calibrations.
     adam_kwargs :
         Hyper-parameters stored in the state dict's ``param_groups``
         (``lr``, ``betas``, ``eps``); the deconvolver's resume keeps its
@@ -91,20 +108,25 @@ def adam_state_from_optax(opt_state, params, **adam_kwargs):
     Returns
     -------
     dict
-        ``state_dict()`` layout: per leaf ``step`` (the count, float32),
-        ``exp_avg`` (mu) and ``exp_avg_sq`` (nu) as CPU tensors.
+        ``state_dict()`` layout: per leaf, in the deconvolver's optimiser
+        order (``core.optimizer_leaves``: the JAX pytree's), ``step``
+        (the count, float32), ``exp_avg`` (mu) and ``exp_avg_sq`` (nu) as
+        CPU tensors.
     """
-    count = opt_state.count
-    mu, nu = opt_state.mu["components"], opt_state.nu["components"]
+    tree = {"components": params}
+    if calibration_params:
+        tree["calibrations"] = calibration_params
 
     def paired(tree, moments1, moments2):
-        for name, value in tree.items():
+        for name in sorted(tree):
+            value = tree[name]
             if isinstance(value, dict):
                 yield from paired(value, moments1[name], moments2[name])
             else:
                 yield value, moments1[name], moments2[name]
 
-    leaves = list(paired(params, mu, nu))
+    count = opt_state.count
+    leaves = list(paired(tree, opt_state.mu, opt_state.nu))
     placeholders = [torch.zeros(tuple(np.shape(p))) for p, _, _ in leaves]
     state = torch.optim.Adam(placeholders, **adam_kwargs).state_dict()
     state["state"] = {

@@ -25,14 +25,20 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--out DIR]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--out DIR]
 
 ``--update-strategy sequential`` profiles the default deconvolver's
 epoch instead of the joint step: one step per observation, then the
-epoch's trace row (reported as ``epoch_sequential``, per epoch). The
-full tables and Chrome traces go to ``--out``, their names tagged
-``marg`` under ``--marginalize``, ``pfft`` under ``--conv-mode pfft``
-and with the dial's name when it is not ``"high"``.
+epoch's trace row (reported as ``epoch_sequential``, per epoch).
+``--upsampling N`` puts the flux on a grid ``N`` times finer than the
+data's (a 2048² flux at ``N = 2``) and ``--calibrations`` gives every
+observation an ``NPredCalibration`` (the first one's shift frozen); with
+either, the flux starts from the data's mean estimate
+(``SpatialFluxComponent.from_flux_init_datasets``), as ``chip_smoke.py``
+phase 9 runs it. The full tables and Chrome traces go to ``--out``,
+their names tagged ``marg`` under ``--marginalize``, ``pfft`` under
+``--conv-mode pfft``, ``upN`` and ``cal`` under the last two flags, and
+with the dial's name when it is not ``"high"``.
 """
 
 import argparse
@@ -45,16 +51,19 @@ import numpy as np
 
 
 def build(n_obs, size, marginalize=False, conv_mode="fft",
-          update_strategy="joint"):
+          update_strategy="joint", upsampling=1, calibrations=False):
     """``step()`` of the main path on the first card, and ``probe()``,
     the flux-error probe at the current parameters. Under
     ``update_strategy="sequential"`` (with the JAX package's default
     ``trace_every=1``) ``step()`` is one epoch: a step per observation,
-    then the epoch's trace row."""
+    then the epoch's trace row. ``upsampling`` and ``calibrations`` as
+    the module's flags."""
     from .. import (
         GaussianMixtureModel,
         GMMPatchPrior,
         MAPDeconvolver,
+        NPredCalibration,
+        NPredCalibrations,
         SpatialFluxComponent,
     )
     from .bench_data import make_datasets
@@ -63,20 +72,31 @@ def build(n_obs, size, marginalize=False, conv_mode="fft",
     prior = GMMPatchPrior(
         gmm=GaussianMixtureModel.from_registry("astro-snr-v1"), stride=4,
         cycle_spin=True, marginalize=marginalize)
-    component = SpatialFluxComponent.from_numpy(
-        np.ones((size, size), np.float32), prior=prior)
+    if upsampling > 1 or calibrations:
+        component = SpatialFluxComponent.from_flux_init_datasets(
+            list(datasets.values()), upsampling_factor=upsampling,
+            prior=prior)
+    else:
+        component = SpatialFluxComponent.from_numpy(
+            np.ones((size, size), np.float32), prior=prior)
+    cals = None
+    if calibrations:
+        cals = NPredCalibrations({
+            name: NPredCalibration(frozen_shift=idx == 0)
+            for idx, name in enumerate(datasets)})
     deco = MAPDeconvolver(
         learning_rate=0.1, update_strategy=update_strategy,
         conv_mode=conv_mode, trace_every=int(update_strategy != "joint"),
         device="cuda")
-    trainer = deco.make_trainer(datasets, component)
+    trainer = deco.make_trainer(datasets, component, calibrations=cals)
 
     def step():
         return trainer.epoch(0)
 
     def probe():
         return trainer.total_loss.fluxes_error(
-            trainer.components.fluxes_from(trainer.params))
+            trainer.components.fluxes_from(trainer.params),
+            calibration_params=trainer.calibration_params)
 
     return step, probe
 
@@ -158,6 +178,8 @@ def main():
                         default="high")
     parser.add_argument("--update-strategy", choices=("joint", "sequential"),
                         default="joint")
+    parser.add_argument("--upsampling", type=int, default=1)
+    parser.add_argument("--calibrations", action="store_true")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -170,9 +192,12 @@ def main():
     config.set_gmm_precision(args.precision)
 
     step, probe = build(args.n_obs, args.size, args.marginalize,
-                        args.conv_mode, args.update_strategy)
+                        args.conv_mode, args.update_strategy,
+                        args.upsampling, args.calibrations)
     suffix = ("_marg" if args.marginalize else "") + (
         "_pfft" if args.conv_mode == "pfft" else "") + (
+        f"_up{args.upsampling}" if args.upsampling > 1 else "") + (
+        "_cal" if args.calibrations else "") + (
         "" if args.precision == "high" else f"_{args.precision}")
     sequential = args.update_strategy == "sequential"
     profile_calls(torch, step, args.steps, out,

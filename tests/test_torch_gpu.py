@@ -1200,3 +1200,123 @@ def test_sequential_epoch_launches(device, gmm, n_obs):
             .launches, gp.gmm_score_rows_tc_cuda.launches) == (0, 0, 0)
     assert (gf.fused_forward_plain.calls, gf.fused_backward_plain.calls,
             gf.score_split_plain.calls) == (0, 0, 0)
+
+
+def test_image_ops_on_card_match_cpu(device):
+    """``upsample_bilinear`` and ``shift_image`` (value and both
+    gradients) on the card against the CPU: 1e-6 of the max-abs (the same
+    float32 coordinates and weights; interpolation and gathers need no
+    sum), the shift's gradient rtol 1e-4: a sum over 77,100 pixels of
+    terms of both signs, in another order on the card (1.3e-5 measured
+    on an H100)."""
+    from jolideco_torch.ops import image as ops
+
+    rs = np.random.RandomState(3)
+    x = rs.uniform(0.1, 1.0, (1, 1, 257, 300)).astype(np.float32)
+    weights = rs.normal(size=x.shape).astype(np.float32)
+    for factor in (2, 3):
+        cpu = ops.upsample_bilinear(torch.as_tensor(x), factor)
+        card = ops.upsample_bilinear(torch.as_tensor(x, device=device),
+                                     factor).cpu()
+        torch.testing.assert_close(card, cpu, rtol=0,
+                                   atol=1e-6 * float(cpu.abs().max()))
+    for shift in (0.0, 1.0, -0.37, 2.6):
+        for scale in (1, 2):
+            got = {}
+            for dev in ("cpu", device):
+                image = torch.tensor(x, device=dev, requires_grad=True)
+                s = torch.tensor([[shift, -0.5 * shift]], device=dev,
+                                 requires_grad=True)
+                out = ops.shift_image(image, s, scale=scale)
+                (out * torch.as_tensor(weights, device=dev)).sum().backward()
+                got[str(dev)] = [t.cpu() for t in (out.detach(), image.grad,
+                                                   s.grad)]
+            cpu, card = got["cpu"], got[str(device)]
+            for a, b in zip(card[:2], cpu[:2]):
+                torch.testing.assert_close(a, b, rtol=0,
+                                           atol=1e-6 * float(b.abs().max()))
+            torch.testing.assert_close(card[2], cpu[2], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["random", "estimate"])
+def test_split_forward_and_backward_at_a_2048_flux(device, gmm, kind):
+    """K1 split and K2 at the 262,144 patches of a 2048² flux (phase 9's
+    upsampled main path) against their plain versions, by phase 2's
+    bars: ``valid`` identical, the normalised patches to 1e-5, argmax
+    flips on at most 1e-4 of the valid patches; K2 to 1e-4 of its
+    max-abs, bitwise repeatable. On a random image the values to rtol
+    7e-5 (``chip_smoke.K1_SPLIT_RTOL``); on the x2 start flux of the main
+    path's data (``from_flux_init_datasets``), whose best logits are
+    often much cancelled sums, their difference from the exact sum of
+    the products within ``chip_smoke.K1_SPLIT_SUM_ERR_FLUX`` of the
+    products' magnitudes (the mma's own sums: its comment)."""
+    import chip_smoke
+    from jolideco_torch import SpatialFluxComponent
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    bufs = gmm.kernel_buffers(device)
+    if kind == "random":
+        img = make_image((2048, 2048))
+    else:
+        datasets = make_datasets(n_obs=10, size=1024, psf_size=33, seed=0)
+        img = SpatialFluxComponent.from_flux_init_datasets(
+            list(datasets.values()),
+            upsampling_factor=2).flux_upsampled_numpy
+    image = torch.as_tensor(img, device=device)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_tc_cuda(image, bufs, 4, SENTINEL)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, 4, SENTINEL,
+                                              mode="split")
+    torch.cuda.synchronize()
+    assert vk.numel() == 512 * 512
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    assert int((ak != ap)[m].sum()) <= 1e-4 * int(m.sum())
+    if kind == "random":
+        torch.testing.assert_close(vk[m], vp[m], rtol=7e-5, atol=0)
+    else:
+        exact, mag = chip_smoke.exact_split_values(torch, xp[m], bufs, ak[m])
+        err = float(((vk[m].double() - exact).abs() / mag).max())
+        assert err <= chip_smoke.K1_SPLIT_SUM_ERR_FLUX
+    dv = torch.randn(vp.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(4))
+    first, second = (gf.gmm_fused_bwd_cuda(xp, ap, valp, dv * valp, bufs,
+                                           image.shape, 4) for _ in range(2))
+    want = gf.fused_backward_plain(xp, ap, valp, dv * valp, bufs,
+                                   image.shape, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+def test_calibrated_upsampled_run_on_card_matches_cpu(device):
+    """A x2 component and calibrations (the first one's shift frozen),
+    joint, 10 epochs under cycle spin with the flux-error probe, at 4 x
+    64² counts seen at known sub-pixel offsets, card against CPU: the
+    flux within 1e-3 of its max-abs (``chip_smoke.SEQ_FLUX_SHARE``), the
+    errors rtol 1e-4, the trained shifts and log norms within 1e-4
+    (``chip_smoke.UPS_CAL_ATOL``); the frozen shift unmoved."""
+    import chip_smoke
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_shifted_datasets
+
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    datasets = make_shifted_datasets(size=64, psf_size=9, seed=1)
+    runs = {str(dev): chip_smoke.upsampled_run(datasets, builtin, dev, 10,
+                                               compute_error=True)
+            for dev in ("cpu", device)}
+    cpu, card = runs["cpu"], runs[str(device)]
+    a, b = card.flux_upsampled_total, cpu.flux_upsampled_total
+    assert a.shape == (128, 128)
+    assert np.abs(a - b).max() <= chip_smoke.SEQ_FLUX_SHARE * np.abs(b).max()
+    np.testing.assert_allclose(
+        card.components["flux"].flux_upsampled_error_numpy,
+        cpu.components["flux"].flux_upsampled_error_numpy, rtol=1e-4)
+    for x, y in zip(chip_smoke.calibration_arrays(card),
+                    chip_smoke.calibration_arrays(cpu)):
+        np.testing.assert_allclose(x, y, rtol=0,
+                                   atol=chip_smoke.UPS_CAL_ATOL)
+    assert torch.equal(card.calibrations["obs-0"].shift_xy.cpu(),
+                       torch.zeros(1, 2))

@@ -421,16 +421,45 @@ def test_npred_models_match_jax(datasets):
     ({"rmf": np.eye(1)}, "rmf"),
 ], ids=["upsampling_factor", "rmf"])
 def test_npred_model_raises_on_unported_options(kwargs, match):
+    """``rmf`` still raises; ``upsampling_factor`` and a calibration are
+    ported, and held against the JAX package (rtol 1e-5, float32 FFTs)."""
+    from jolideco_tpu.models import NPredCalibration as JNPredCalibration
+    from jolideco_tpu.models import NPredModel as JNPredModel
+    from jolideco_tpu.models import NPredModels as JNPredModels
+
     ones = np.ones((16, 16), np.float32)
+    psf = gaussian_kernel_2d(1.0, x_size=3, y_size=3).astype(np.float32)
     options = {"upsampling_factor": None, **kwargs}
-    with pytest.raises(NotImplementedError, match=match):
-        NPredModel.from_numpy(ones, ones[:3, :3] / 9, device="cpu",
-                              **options)
+    if match == "rmf":
+        with pytest.raises(NotImplementedError, match=match):
+            NPredModel.from_numpy(ones, psf, device="cpu", **options)
+    else:
+        flux = np.random.RandomState(0).uniform(
+            0.5, 2.0, (1, 1, 32, 32)).astype(np.float32)
+        got = NPredModel.from_numpy(ones, psf, device="cpu", **options)(
+            torch.as_tensor(flux))
+        want = JNPredModel.from_numpy(ones, psf, **options)(
+            jnp.asarray(flux))
+        assert tuple(got.shape) == want.shape == (1, 1, 16, 16)
+        assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
     with pytest.raises(NotImplementedError, match="2-D images"):
-        NPredModel.from_numpy(np.ones((2, 16, 16)), ones[:3, :3] / 9,
+        NPredModel.from_numpy(np.ones((2, 16, 16)), psf,
                               upsampling_factor=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="calibrations"):
-        NPredModels(torch.ones(1, 1, 16, 16), calibration=object())
+    # a calibration: the flux shifted, the background scaled
+    model_t = NPredModel.from_numpy(ones, psf, None, device="cpu")
+    model_j = JNPredModel.from_numpy(ones, psf, None)
+    cal_t = jt.NPredCalibration(shift_x=0.4, shift_y=-1.0,
+                                background_norm=1.5)
+    cal_j = JNPredCalibration(shift_x=0.4, shift_y=-1.0,
+                              background_norm=1.5)
+    flux = np.random.RandomState(1).uniform(
+        0.5, 2.0, (1, 1, 16, 16)).astype(np.float32)
+    got = NPredModels(torch.ones(1, 1, 16, 16), calibration=cal_t,
+                      values=[("flux", model_t)]).evaluate(
+        (torch.as_tensor(flux),))
+    want = JNPredModels(np.ones((1, 1, 16, 16)), cal_j,
+                        [("flux", model_j)]).evaluate((jnp.asarray(flux),))
+    assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
     with pytest.raises(ValueError, match="reserved"):
         NPredModels(torch.ones(1, 1, 16, 16), values=[("background", None)])
 
