@@ -120,7 +120,22 @@ Phases, each printing one or more lines:
    offsets, x2, cycle spin, the probe): joint, sequential and joint
    with ``conv_mode="pfft"``, card against the CPU's plain path, flux,
    calibrations and errors within the bars of ``UPS_CAL_ATOL``'s
-   comment.
+   comment;
+10. the rest of the prior layer at the main path, each run with exact
+   counts and every prior tensor on the card: (a) ``MultiScalePrior``
+   over three levels of the GMM prior under an asinh norm, 20 joint
+   steps (K1 split and K2 at 1024², 512² and 256² each step), its level
+   weights and the norm's alpha and beta trained and held by the
+   result's prior, then its probe (K5 split, K6, K7 once a level); (b)
+   jitter, 20 joint steps (K5 split and K6 a step, on the patch-level
+   branch); (c) one offset class of the marginalised prior
+   (``patch_fraction=0.25``), 20 joint steps (K5 lse split and K8 split a
+   step); (d) ``MAPDeconvolver(n_epochs=5)``'s defaults under the first
+   example's ``GMMPatchPrior(norm=MaxImageNorm(),
+   cycle_spin_subpix=True)`` (K1 split 55, K2 50); (e) the parametric
+   priors (smoothness, LIRA, inverse Gamma, exponential, image), 5 joint
+   steps each, no GMM kernel; (f) (a) and (b) at 4 x 128², card against
+   the CPU's plain path.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -162,8 +177,9 @@ split's errors, times and bound, the row map's cases and the probe
 under both dials, a ``{"default_dial": ...}`` JSON line with the bf16
 kernels' checks and phase 7's paths, a ``{"default_entry": ...}`` JSON
 line with phase 8's numbers, an ``{"upsampled": ...}`` JSON line with
-phase 9's, a JSON line with each kernel's numbers (thirty-three, each
-with its launches in phase 9's three runs at the 2048² flux) and,
+phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a JSON
+line with each kernel's numbers (thirty-three, each with its launches
+in phase 9's three runs at the 2048² flux and in phase 10's runs) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -2440,8 +2456,7 @@ def data_term(datasets, flux, device):
     from jolideco_torch.parallel.stacked import StackedPoissonLoss
 
     components = FluxComponents(
-        flux=SpatialFluxComponent.from_numpy(flux, device=device)
-    )
+        {"flux": SpatialFluxComponent.from_numpy(flux, device=device)})
     poisson = StackedPoissonLoss.from_datasets(datasets, components,
                                                device=device)
     with torch.no_grad():
@@ -3613,6 +3628,331 @@ def phase_upsampled(torch, device, card):
     return out
 
 
+# phase 10: the rest of the prior layer at the main path's width
+PRIOR_STEPS, PRIOR_WARMUP, PRIOR_EPOCHS, LEVELS = 20, 2, 5, 3
+# (f): the small runs' flux on the card against the CPU within
+# SEQ_FLUX_SHARE of its max-abs (phase 6's bar, for Adam's first step,
+# which turns float32 differences into other steps where a pixel's
+# gradient nearly vanishes; under jitter the card's patch gather adds
+# its gradient with atomics, in no fixed order), the trained prior
+# leaves (level log weights, the asinh norm's alpha and beta, of order
+# one) within PRIOR_LEAF_ATOL
+PRIOR_LEAF_ATOL = 1e-4
+PARAMETRIC = ("smooth", "lira", "inverse-gamma", "exponential", "image")
+
+
+def prior_leaf_values(prior):
+    """The prior's trainable leaves, flattened in the optimiser's order
+    (keys sorted at every level), as host numbers."""
+    def flat(tree):
+        for key in sorted(tree):
+            value = tree[key]
+            if isinstance(value, dict):
+                yield from flat(value)
+            else:
+                yield from value.detach().cpu().numpy().ravel().tolist()
+
+    return list(flat(prior.parameters()))
+
+
+def prior_run(datasets, prior, device, n_steps, compute_error=False,
+              estimate=False):
+    """``n_steps`` joint steps under ``prior`` from a flux of ones, or
+    with ``estimate`` from the data's mean estimate."""
+    from jolideco_torch import MAPDeconvolver, SpatialFluxComponent
+
+    size = next(iter(datasets.values()))["counts"].shape
+    if estimate:
+        component = SpatialFluxComponent.from_flux_init_datasets(
+            list(datasets.values()), prior=prior)
+    else:
+        component = SpatialFluxComponent.from_numpy(
+            np.ones(size, np.float32), prior=prior)
+    deco = MAPDeconvolver(
+        n_epochs=n_steps, learning_rate=0.1, update_strategy="joint",
+        trace_every=0, seed=0, device=device, compute_error=compute_error)
+    return deco.run(datasets, components=component)
+
+
+def device_tensors(obj, seen=None):
+    """Every tensor a prior holds (its norms', wrapped priors' and GMM
+    buffers' too), with where it was found."""
+    import torch
+
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        items = list(obj)
+    elif type(obj).__module__.startswith("jolideco_torch"):
+        items = list(vars(obj).values())
+    else:
+        return []
+    return [t for item in items for t in device_tensors(item, seen)]
+
+
+def check_prior_on(tag, prior, device):
+    tensors = device_tensors(prior)
+    off = [tuple(t.shape) for t in tensors if t.device != device]
+    check(not off, f"{tag}: prior tensors off {device}: {off}")
+    return len(tensors)
+
+
+def prior_training(torch, device, datasets, tag, prior, expected,
+                   n_steps=PRIOR_STEPS):
+    """A warm-up, then ``n_steps`` joint steps under a fresh ``prior()``,
+    counts set to zero just before and read just after; exact counts,
+    finite falling losses, every prior tensor on the card."""
+    prior_run(datasets, prior(), device, PRIOR_WARMUP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = prior()
+    before = prior_leaf_values(model)
+    reset_counts()
+    result = prior_run(datasets, model, device, n_steps)
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == expected, f"phase 10 {tag}: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"phase 10 {tag}: plain versions ran "
+          f"{plain_calls} times")
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    # the data term at the start and the end, printed: neither it nor
+    # the total need fall (a flat start is the GMM prior's most likely
+    # image, and a strong prior trades data fit for its own term)
+    data = (data_term(datasets, np.ones_like(flux), device),
+            data_term(datasets, flux, device))
+    check(loss.shape == (n_steps,) and bool(np.isfinite(loss).all())
+          and bool(np.isfinite(data).all()), f"phase 10 {tag}: losses "
+          f"{loss[0]} -> {loss[-1]}, data term {data[0]} -> {data[1]}")
+    check(bool(np.isfinite(flux).all() and (flux > 0).all()),
+          f"phase 10 {tag}: flux not finite and positive")
+    n_tensors = check_prior_on(f"phase 10 {tag}",
+                               result.components["flux"].prior, device)
+    return {"launches": launches, "plain_calls": plain_calls,
+            "steps_per_s": n_steps / result.train_seconds,
+            "peak_bytes": peak, "loss": [float(loss[0]), float(loss[-1])],
+            "data_term": list(data), "leaves_before": before,
+            "leaves_after": prior_leaf_values(result.components["flux"]
+                                              .prior),
+            "prior_tensors": n_tensors, "result": result}
+
+
+def prior_small_runs(device):
+    """(f): configurations (a) and (b) at 4 x 128^2, 20 joint steps from
+    the data's mean estimate. Not from a flat flux: its patches are flat,
+    and the multiscale smoothing's float32 rounding (cuFFT's against the
+    CPU's FFT) gives them a structure of 1e-7 that decides the MAP
+    argmaxes: on the CPU a perturbation of 1e-6 of a flat start parts
+    two runs by 0.31 (multiscale) and 0.43 (jitter) of the flux's max
+    within 5 steps, of the data estimate by 1.5e-6 and 1.4e-6
+    (``python tests/test_torch_multiscale.py``)."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+    from jolideco_torch.utils.profile_step import make_prior
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    small = make_datasets(n_obs=4, size=128, psf_size=9, seed=1)
+    runs = {}
+    for kind in ("multiscale", "jitter"):
+        result = prior_run(small, make_prior(kind, astro), device,
+                           PRIOR_STEPS, estimate=True)
+        runs[kind] = (result.flux_upsampled_total,
+                      np.array(prior_leaf_values(
+                          result.components["flux"].prior)))
+    return runs
+
+
+def phase_priors(torch, device, card):
+    """Phase 10: (a) MultiScalePrior over three levels under an asinh
+    norm, 20 joint steps (K1 split and K2 at 1024², 512² and 256² each
+    step) and its probe (K5 split, K6, K7 once a level); (b) jitter, 20
+    joint steps (K5 split and K6 a step); (c) one offset class of the
+    marginalised prior, 20 joint steps (K5 lse split and K8 split a
+    step); (d) the first example's prior under MAPDeconvolver()'s
+    defaults (K1 split 11 and K2 10 an epoch); (e) the parametric priors
+    (no GMM kernel); (f) (a) and (b) at 4 x 128^2, card against CPU."""
+    from jolideco_torch import (
+        GMMPatchPrior,
+        ImagePrior,
+        InverseGammaPrior,
+        LIRAPrior,
+        MAPDeconvolver,
+        MaxImageNorm,
+        SpatialFluxComponent,
+        config,
+    )
+    from jolideco_torch.priors import ExponentialPrior, GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+    from jolideco_torch.utils.profile_step import make_prior
+
+    check(config.gmm_precision() == "high", "phase 10 runs the default dial")
+    mode = config.gmm_mode()
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    label = f"{N_OBS}x{FIELD}^2 K=200"
+    out = {"card": card}
+
+    # (a) multiscale: training, then the probe
+    run = prior_training(
+        torch, device, datasets, "(a) multiscale",
+        lambda: make_prior("multiscale", astro),
+        expect(gmm_fused_bwd=LEVELS * PRIOR_STEPS,
+               **{K1_KERNELS[mode]: LEVELS * PRIOR_STEPS}))
+    prior = run.pop("result").components["flux"].prior
+    before, after = run["leaves_before"], run["leaves_after"]
+    moved = float(np.abs(np.subtract(after, before)).max())
+    # fault 2: the trained leaves are in the result's prior
+    held = [float(v) for v in prior._log_weights.cpu().numpy()] + [
+        prior.prior.norm.alpha, prior.prior.norm.beta]
+    check(moved > 1e-3 and np.allclose(held, after, rtol=0, atol=0),
+          f"phase 10 (a): leaves {before} -> {after}, prior holds {held}")
+    run["weights"] = prior.weights.cpu().numpy().tolist()
+    out["multiscale"] = run
+    print(f"phase 10 (a) MultiScalePrior({LEVELS} levels, asinh) joint "
+          f"{label} on {card}: {run['steps_per_s']:.3f} steps/s; loss "
+          f"{run['loss'][0]:.6f} -> {run['loss'][1]:.6f}, data term "
+          f"{run['data_term'][0]:.6f} -> {run['data_term'][1]:.6f}; level "
+          f"weights "
+          f"{np.round(np.exp(before[:LEVELS]) / np.exp(before[:LEVELS]).sum(), 6).tolist()} "
+          f"-> {np.round(run['weights'], 6).tolist()}, asinh alpha, beta "
+          f"{before[LEVELS:]} -> {after[LEVELS:]} (the result's prior holds "
+          f"them); launches {run['launches']}; plain calls "
+          f"{run['plain_calls']}; {run['prior_tensors']} prior tensors on "
+          f"the card; peak memory {run['peak_bytes']} B")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = prior_run(datasets, make_prior("multiscale", astro), device,
+                       ERROR_STEPS, compute_error=True)
+    launches, plain_calls = counts()
+    expected = expect(gmm_fused_bwd=LEVELS * ERROR_STEPS, gmm_unit_map=LEVELS,
+                      gmm_hvp_map=LEVELS,
+                      **{K1_KERNELS[mode]: LEVELS * ERROR_STEPS,
+                         K5_KERNELS[mode]: LEVELS})
+    check(launches == expected and plain_calls == 0, f"phase 10 (a) probe: "
+          f"launches {launches}, not {expected}; plain calls {plain_calls}")
+    # sqrt(1 / (H 1)): under the asinh norm the prior's part of H 1 is
+    # negative at some pixels (the norm's Jacobian varies over a patch,
+    # so the ones tangent is no longer a flat patch), where the error is
+    # NaN; the JAX package's H 1 is the same (tests/test_torch_multiscale
+    # .py::test_multiscale_probe). The others are finite and positive.
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    defined = errors[~np.isnan(errors)]
+    check(defined.size > 0 and bool(np.isfinite(defined).all()
+                                    and (defined > 0).all()),
+          "phase 10 (a) probe: errors not finite and positive where H 1 > 0")
+    out["multiscale_probe"] = {
+        "launches": launches, "error_seconds": result.error_seconds,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "errors": [float(defined.min()), float(defined.max())],
+        "nan_share": float(np.isnan(errors).mean())}
+    print(f"phase 10 (a) probe: {ERROR_STEPS} steps, probe "
+          f"{result.error_seconds:.4f} s over {LEVELS} levels; errors "
+          f"{defined.min():.6g} .. {defined.max():.6g} (NaN, where H 1 < 0, "
+          f"at {np.isnan(errors).mean():.4f} of the pixels); launches "
+          f"{launches}")
+
+    # (b) jitter and (c) one offset class, marginalised
+    for key, tag, kind, marginalize, expected in (
+            ("jitter", "(b) jitter", "jitter", False,
+             expect(gmm_unit_map=PRIOR_STEPS,
+                    **{K5_KERNELS[mode]: PRIOR_STEPS})),
+            ("group", "(c) patch_fraction=0.25 marginalised", "group", True,
+             expect(gmm_score_rows_marg_tc=PRIOR_STEPS,
+                    gmm_unit_marg_tc=PRIOR_STEPS))):
+        run = prior_training(
+            torch, device, datasets, tag,
+            lambda kind=kind, m=marginalize: make_prior(kind, astro, m),
+            expected)
+        run.pop("result")
+        out[key] = run
+        print(f"phase 10 {tag} joint {label} on {card}: "
+              f"{run['steps_per_s']:.3f} steps/s; loss {run['loss'][0]:.6f} "
+              f"-> {run['loss'][1]:.6f}, data term {run['data_term'][0]:.6f} "
+              f"-> {run['data_term'][1]:.6f}; launches {run['launches']}; plain "
+              f"calls {run['plain_calls']}; peak memory "
+              f"{run['peak_bytes']} B")
+
+    # (d) the first example's prior under the default deconvolver
+    def example_component():
+        prior = GMMPatchPrior(gmm=astro, norm=MaxImageNorm(),
+                              cycle_spin_subpix=True)
+        return SpatialFluxComponent.from_numpy(
+            np.ones((FIELD, FIELD), np.float32), prior=prior)
+
+    MAPDeconvolver(n_epochs=1).run(datasets, components=example_component())
+    torch.cuda.synchronize()
+    reset_counts()
+    result = MAPDeconvolver(n_epochs=PRIOR_EPOCHS).run(
+        datasets, components=example_component())
+    launches, plain_calls = counts()
+    expected = expect(**{K1_KERNELS[mode]: PRIOR_EPOCHS * (N_OBS + 1),
+                         "gmm_fused_bwd": PRIOR_EPOCHS * N_OBS})
+    check(launches == expected and plain_calls == 0, f"phase 10 (d): "
+          f"launches {launches}, not {expected}; plain calls {plain_calls}")
+    total = result.trace_loss["total"]
+    check(len(total) == PRIOR_EPOCHS and bool(np.isfinite(total).all()),
+          f"phase 10 (d): trace {list(total)}")
+    out["example"] = {"launches": launches,
+                      "epochs_per_s": PRIOR_EPOCHS / result.train_seconds,
+                      "total": [float(total[0]), float(total[-1])]}
+    print(f"phase 10 (d) MAPDeconvolver(n_epochs={PRIOR_EPOCHS}) defaults "
+          f"under GMMPatchPrior(norm=MaxImageNorm(), cycle_spin_subpix=True) "
+          f"{label} on {card}: {out['example']['epochs_per_s']:.3f} "
+          f"epochs/s; trace total {total[0]:.6f} -> {total[-1]:.6f}; "
+          f"launches {launches}")
+
+    # (e) the parametric priors: no GMM kernel, every tensor on the card
+    makers = {
+        "smooth": lambda: make_prior("smooth", astro),
+        "lira": lambda: LIRAPrior(alphas=(2.0, 2.0, 2.0)),
+        "inverse-gamma": InverseGammaPrior,
+        "exponential": ExponentialPrior,
+        "image": lambda: ImagePrior(np.ones((1, 1, FIELD, FIELD),
+                                            np.float32)),
+    }
+    out["parametric"] = {}
+    for name in PARAMETRIC:
+        run = prior_training(torch, device, datasets, f"(e) {name}",
+                             makers[name], expect(), n_steps=ERROR_STEPS)
+        run.pop("result")
+        out["parametric"][name] = run
+    print(f"phase 10 (e) parametric priors {label} on {card}, "
+          f"{ERROR_STEPS} joint steps each, no GMM kernel launched: " +
+          "; ".join(f"{name} {run['steps_per_s']:.3f} steps/s, loss "
+                    f"{run['loss'][0]:.6g} -> {run['loss'][1]:.6g}, "
+                    f"{run['prior_tensors']} prior tensors on the card"
+                    for name, run in out["parametric"].items()))
+
+    # (f) the small runs, card against the CPU's plain path
+    on_card, on_cpu = prior_small_runs(device), prior_small_runs("cpu")
+    out["small"] = {}
+    for kind in on_card:
+        (flux_a, leaves_a), (flux_b, leaves_b) = on_card[kind], on_cpu[kind]
+        res = {"flux_share": flux_share(flux_a, flux_b),
+               "flux_rel": max_rel(flux_a, flux_b),
+               "leaves_abs": float(np.abs(leaves_a - leaves_b).max())
+               if leaves_a.size else 0.0}
+        check(res["flux_share"] <= SEQ_FLUX_SHARE
+              and res["leaves_abs"] <= PRIOR_LEAF_ATOL,
+              f"phase 10 (f) {kind}: flux {res['flux_share']:.3g} of the max "
+              f"(limit {SEQ_FLUX_SHARE}), leaves {res['leaves_abs']:.3g} "
+              f"(limit {PRIOR_LEAF_ATOL})")
+        out["small"][kind] = res
+    print("phase 10 (f) small 4x128^2 card vs CPU plain path: " + "; ".join(
+        f"{kind} flux {r['flux_share']:.3g} of the max (elementwise "
+        f"{r['flux_rel']:.3g}), leaves {r['leaves_abs']:.3g}"
+        for kind, r in out["small"].items())
+        + f" (limits {SEQ_FLUX_SHARE} of the max, {PRIOR_LEAF_ATOL})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3641,6 +3981,7 @@ def main():
                             marg_probe)
     entry = phase_default_entry(torch, device, card)
     upsampled = phase_upsampled(torch, device, card)
+    priors = phase_priors(torch, device, card)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -3938,16 +4279,23 @@ def main():
              "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
+    print(json.dumps({"priors": priors}))
     # launches_phase9: each kernel's launches in phase 9's three runs at
-    # the 2048^2 flux (the joint run, the probe run, the quick start)
+    # the 2048^2 flux (the joint run, the probe run, the quick start);
+    # launches_phase10: in phase 10's runs
     phase9 = {run: upsampled[run]["launches"]
               for run in ("joint", "probe", "sequential")}
+    phase10 = {run: priors[run]["launches"] for run in (
+        "multiscale", "multiscale_probe", "jitter", "group", "example")}
+    phase10.update({name: run["launches"]
+                    for name, run in priors["parametric"].items()})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
          "library_ms": library[name], **extra.get(name, {}),
-         "launches_phase9": {run: n[name] for run, n in phase9.items()}}
+         "launches_phase9": {run: n[name] for run, n in phase9.items()},
+         "launches_phase10": {run: n[name] for run, n in phase10.items()}}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -33,13 +33,17 @@ fetched (one synchronisation an epoch): training stops after the first
 epoch, past the first ``stop_early_n_average``, whose validation total
 exceeds the mean of the last ``stop_early_n_average`` (itself included).
 
-Randomness (the prior's cycle spins) comes from one CPU
-``torch.Generator`` seeded with ``seed``. Each epoch draws the shifts of
-its steps in order, then those of its trace row whenever the run traces
-at all (``trace_every > 0`` or ``stop_early``), whether or not that
-epoch's row is computed, so that ``trace_every`` changes no training
-result. The generator draws other numbers than JAX's keys from the same
-seed. A run resumes (``run(resume_from=)``) from a result or from a
+Randomness (the priors' cycle spins, subpixel offsets, jitters and
+patch subsets) comes from one CPU ``torch.Generator`` seeded with
+``seed``. Each epoch draws every prior's draws of its steps in order
+(``PriorLoss.draw_shifts``, the priors in the components' order), then
+those of its trace row whenever the run traces at all (``trace_every >
+0`` or ``stop_early``), whether or not that epoch's row is computed, so
+that ``trace_every`` changes no training result. The priors' trainable
+parameters (image norms, ``MultiScalePrior``'s level weights) train with
+the fluxes and are written back into the priors at the end. The
+generator draws other numbers than JAX's keys from the same seed. A run
+resumes (``run(resume_from=)``) from a result or from a
 directory written by ``MAPDeconvolverResult.save_state`` with the
 optimiser's moments and the generator's state, so ``n`` epochs and then
 ``m`` more give the bits of ``n + m`` epochs in one run.
@@ -202,6 +206,8 @@ class Trainer:
         self.traced = self.trace_every != 0 or self.stop_early
         self.n_datasets = total_loss.poisson_loss.n_datasets
         self.weights = total_loss.poisson_loss.weights
+        # the fluxes' shapes, at which the priors draw (jitter, subsets)
+        self.shapes = tuple(c.shape for c in components.values())
 
     def _step(self, loss_fn):
         self.optimizer.zero_grad(set_to_none=True)
@@ -239,20 +245,24 @@ class Trainer:
         """Whether ``epoch``'s row goes into the trace table."""
         return self.trace_every > 0 and epoch % self.trace_every == 0
 
+    def _draw(self):
+        """The priors' draws of one evaluation, from the run's generator."""
+        return self.total_loss.prior_loss.draw_shifts(self.generator,
+                                                      self.shapes)
+
     def epoch(self, epoch):
-        prior_loss = self.total_loss.prior_loss
         if self.sequential:
             losses = []
             for idx in range(self.n_datasets):
-                shifts = prior_loss.draw_shifts(self.generator)
+                shifts = self._draw()
                 losses.append(self._step(
                     lambda: self._loss_for_dataset(idx, shifts)))
         else:
-            shifts = prior_loss.draw_shifts(self.generator)
+            shifts = self._draw()
             losses = [self._step(lambda: self._loss_joint(shifts))]
         row = None
         if self.traced:
-            shifts = prior_loss.draw_shifts(self.generator)
+            shifts = self._draw()
             if self.computes_row(epoch):
                 with torch.no_grad():
                     row = self.total_loss.trace_row_values(
@@ -732,4 +742,15 @@ class MAPDeconvolverResult:
     @property
     def flux_upsampled_total(self):
         """Summed upsampled flux as a 2-D numpy array."""
-        return np.sum(list(self.components.to_numpy().values()), axis=0)
+        return self.components.flux_upsampled_total_numpy
+
+    @property
+    def flux_total(self):
+        """Summed flux at data resolution as a 2-D numpy array."""
+        return self.components.flux_total_numpy
+
+    @property
+    def wcs(self):
+        """World-coordinate object of the reconstruction (the
+        components')."""
+        return self.components.wcs

@@ -89,6 +89,10 @@ class PoissonLoss:
     def n_datasets(self):
         return len(self.counts_all)
 
+    def iter_by_dataset(self):
+        """Iterate over ``(counts, npred_models)`` pairs."""
+        yield from zip(self.counts_all, self.npred_models_all)
+
     def evaluate_dataset(self, idx, fluxes, calibration_params=None):
         """Mean Poisson NLL of dataset ``idx`` (differentiable);
         ``calibration_params`` is keyed by dataset name."""
@@ -135,17 +139,19 @@ class PriorLoss:
     def __init__(self, priors):
         self.priors = priors
 
-    def draw_shifts(self, generator=None):
-        """The random shifts of one evaluation of every prior, drawn in
-        the priors' order: ``{name: shifts}`` for ``shifts=``."""
-        return {name: prior.draw_shifts(generator)
-                for name, prior in self.priors.items()}
+    def draw_shifts(self, generator=None, shapes=None):
+        """The random draws of one evaluation of every prior, made in the
+        priors' order at the matching flux ``shapes``: ``{name: draws}``
+        for ``shifts=``."""
+        shapes = shapes or [None] * len(self.priors)
+        return {name: prior.draw_shifts(generator, shape)
+                for (name, prior), shape in zip(self.priors.items(), shapes)}
 
     def evaluate(self, fluxes, params=None, generator=None, shifts=None):
         """Per-component log-prior values.
 
-        ``shifts`` maps component names to fixed cycle spins ``(sy, sx)``
-        (default: each prior draws its own).
+        ``shifts`` maps component names to their priors' draws (default:
+        each prior draws its own).
         """
         values = []
         for flux, (name, prior) in zip(fluxes, self.priors.items()):
@@ -199,6 +205,13 @@ class TotalLoss:
             dtypes = [float] * (len(names) - 1) + [str]
             self._trace = Table(names=names, dtype=dtypes)
         return self._trace
+
+    @property
+    def prior_weight(self):
+        """Prior normalisation: the number of datasets. As in the JAX
+        package (and upstream), ``__call__`` does not apply it: the
+        sequential step divides the prior by it."""
+        return self.poisson_loss.n_datasets
 
     def reset_trace(self):
         """Start a fresh trace (a reused loss gets one per run)."""

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.image import sum_pool, upsample_bilinear
-from ..priors.core import UniformPrior
+from ..priors.core import Priors, UniformPrior
 
 __all__ = ["FluxComponents", "SparseSpatialFluxComponent",
            "SpatialFluxComponent"]
@@ -46,6 +46,8 @@ class SpatialFluxComponent:
         Where the flux lives (default CPU; the deconvolver moves it to
         its own device).
     """
+
+    is_sparse = False
 
     def __init__(self, flux_upsampled, flux_upsampled_error=None, mask=None,
                  use_log_flux=True, upsampling_factor=1, prior=None,
@@ -81,13 +83,30 @@ class SpatialFluxComponent:
         """World-coordinate object given at construction (or ``None``)."""
         return self._wcs
 
+    @property
+    def shape(self):
+        """Full 4-D shape of the upsampled flux."""
+        return tuple(self._flux_upsampled.shape)
+
+    @property
+    def shape_image(self):
+        """Spatial shape of the upsampled flux."""
+        return self.shape[-2:]
+
+    @property
+    def use_log_flux(self):
+        """Whether the flux is optimised in log units."""
+        return self._use_log_flux
+
     def to(self, device):
-        """Move the stored flux, error and mask to ``device`` (in place)."""
+        """Move the stored flux, error and mask, and the prior's tensors
+        (``Prior.to``), to ``device`` (in place)."""
         self._flux_upsampled = self._flux_upsampled.to(device)
         if self._flux_upsampled_error is not None:
             self._flux_upsampled_error = self._flux_upsampled_error.to(device)
         if self.mask is not None:
             self.mask = self.mask.to(device)
+        self.prior.to(device)
         return self
 
     def copy(self):
@@ -111,9 +130,13 @@ class SpatialFluxComponent:
         return params
 
     def set_parameters(self, params):
-        """Write back trained values."""
-        if params and "flux" in params:
+        """Write back trained values, the prior's included."""
+        if not params:
+            return
+        if "flux" in params:
             self._flux_upsampled = params["flux"].detach().clone()
+        if "prior" in params:
+            self.prior.set_parameters(params["prior"])
 
     def flux_upsampled_from(self, params=None):
         """Upsampled flux evaluated from a params dict (differentiable)."""
@@ -198,13 +221,26 @@ class SparseSpatialFluxComponent:
     package's ``SparseSpatialFluxComponent``); constructing one raises
     ``NotImplementedError``."""
 
+    is_sparse = True
+
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             "SparseSpatialFluxComponent is not ported yet")
 
 
 class FluxComponents(dict):
-    """Ordered named collection of flux components."""
+    """Ordered named collection of flux components.
+
+    Parameters
+    ----------
+    components : dict, optional
+        Components keyed by name.
+    """
+
+    def __init__(self, components=None):
+        super().__init__()
+        for name, component in dict(components or {}).items():
+            self[name] = component
 
     def parameters(self):
         """Trainable params: ``{name: component params}``."""
@@ -233,6 +269,10 @@ class FluxComponents(dict):
             for name, component in self.items()
         )
 
+    def to_flux_tuple(self):
+        """Current fluxes as a tuple."""
+        return self.fluxes_from()
+
     def set_flux_errors(self, flux_errors):
         """Attach flux errors ``{name: tensor}`` to their components."""
         for name, flux_error in flux_errors.items():
@@ -241,7 +281,17 @@ class FluxComponents(dict):
     @property
     def priors(self):
         """Priors keyed like the components."""
-        return {name: component.prior for name, component in self.items()}
+        return Priors((name, component.prior)
+                      for name, component in self.items())
+
+    @property
+    def wcs(self):
+        """The first component's world-coordinate object that is not
+        ``None`` (``None`` without one)."""
+        for component in self.values():
+            if component.wcs is not None:
+                return component.wcs
+        return None
 
     @property
     def flux_upsampled_total(self):
@@ -256,6 +306,16 @@ class FluxComponents(dict):
     def fluxes_numpy(self):
         """Data-resolution fluxes as a dict of 2-D numpy arrays."""
         return {name: comp.flux_numpy for name, comp in self.items()}
+
+    @property
+    def fluxes_upsampled_numpy(self):
+        """Upsampled fluxes as a dict of 2-D numpy arrays."""
+        return self.to_numpy()
+
+    @property
+    def flux_upsampled_total_numpy(self):
+        """Summed upsampled flux as a 2-D numpy array."""
+        return np.sum(list(self.fluxes_upsampled_numpy.values()), axis=0)
 
     @property
     def flux_total_numpy(self):

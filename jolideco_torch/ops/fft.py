@@ -21,6 +21,7 @@ from .image import rescale_image, upsample_bilinear
 
 __all__ = [
     "build_kernel_stack",
+    "convolve_fft",
     "convolve_fft_packed_pair",
     "convolve_fft_precomputed",
     "fft_conv_shape",
@@ -113,6 +114,17 @@ def convolve_fft_precomputed(image, kft, fft_shape):
     gradient.
     """
     return _ConvolveFFT.apply(image, kft, tuple(fft_shape))
+
+
+def convolve_fft(image, kernel, kft=None):
+    """Linear convolution of ``image (..., H, W)`` with ``kernel``,
+    centred and cropped to the image's shape (``fftconvolve(mode="same")``
+    for odd kernels), at the minimal FFT shape. ``kft`` is the kernel's
+    spectrum there (:func:`kernel_fft`), to pass when it is cached."""
+    fft_shape = fft_conv_shape(image.shape, kernel.shape)
+    if kft is None:
+        kft = kernel_fft(kernel, image.shape[-2:], fft_shape)
+    return convolve_fft_precomputed(image, kft, fft_shape)
 
 
 def kernel_fft_pair(kernel0, kernel1, image_shape, fft_shape):

@@ -1,5 +1,5 @@
 """Image-space ops (the JAX package's ``ops/image.py``): resampling, warps,
-sum pool, cycle spin.
+sum pool, cycle spins, interpolation.
 
 The warps (``shift_image``, ``rescale_image``) sample the input at
 coordinates that depend on the row alone and on the column alone, so
@@ -14,13 +14,19 @@ normalised coordinates, where a shift of exactly 0 need not map back to
 the integer.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 __all__ = [
     "avg_pool",
     "cycle_spin",
+    "cycle_spin_interp",
+    "cycle_spin_subpixel",
     "draw_cycle_spin",
+    "draw_subpixel",
+    "grid_weights",
+    "interp1d",
     "maybe_rescale_image",
     "rescale_image",
     "shift_image",
@@ -181,3 +187,79 @@ def cycle_spin(image, patch_shape, generator=None, shifts=None):
         shifts = draw_cycle_spin(patch_shape, generator)
     shifts = (int(shifts[0]), int(shifts[1]))
     return torch.roll(image, shifts=shifts, dims=(-2, -1)), shifts
+
+
+def grid_weights(x, y, x0, y0):
+    """Bilinear splat weights ``max(0, 1 - |x - x0|) * max(0, 1 - |y -
+    y0|)`` (tensors or numpy arrays)."""
+    dx = abs(x - x0)
+    dy = abs(y - y0)
+    if torch.is_tensor(dx):
+        return (torch.where(dx < 1, 1 - dx, 0.0)
+                * torch.where(dy < 1, 1 - dy, 0.0))
+    return np.where(dx < 1, 1 - dx, 0.0) * np.where(dy < 1, 1 - dy, 0.0)
+
+
+def draw_subpixel(generator=None):
+    """The ``(x0, y0)`` offsets of one subpixel spin, each uniform in
+    ``[-0.5, 0.5)`` in float32, drawn with ``generator`` (x first)."""
+    x0 = torch.rand((), generator=generator) - 0.5
+    y0 = torch.rand((), generator=generator) - 0.5
+    return float(x0), float(y0)
+
+
+def cycle_spin_subpixel(image, x0, y0):
+    """Shift ``image (..., H, W)`` by the subpixel offsets ``(x0, y0)``.
+
+    The 3x3 kernel ``grid_weights`` of the offsets, computed in float32
+    on the host as the JAX package computes it on the device, is
+    cross-correlated with the image under zero padding ('same'): nine
+    shifted, scaled copies summed in the JAX package's order.
+    """
+    grid = np.arange(-1, 2, dtype=np.float32)
+    y, x = np.meshgrid(grid, grid, indexing="ij")
+    kernel = grid_weights(x, y, np.float32(x0), np.float32(y0))
+    kernel = kernel.astype(np.float32)
+    h, w = image.shape[-2], image.shape[-1]
+    padded = F.pad(image, (1, 1, 1, 1))
+    out = torch.zeros_like(image)
+    for dy in range(3):
+        for dx in range(3):
+            out = out + float(kernel[dy, dx]) * padded[..., dy:dy + h,
+                                                       dx:dx + w]
+    return out
+
+
+def cycle_spin_interp(image, patch_shape, generator=None, shifts=None,
+                      scale=1.0):
+    """Continuous cycle spin: uniform shifts of up to ``patch // 4``
+    pixels per axis applied with the bilinear :func:`shift_image`.
+
+    Draws ``(shift_x, shift_y)`` with ``generator`` (x first), or takes
+    them as ``shifts``. Returns the shifted image and the shifts times
+    ``scale``.
+    """
+    x_max, y_max = patch_shape
+    x_width, y_width = x_max // 4, y_max // 4
+    if shifts is None:
+        shift_x = (torch.rand((), generator=generator) * 2 - 1) * x_width
+        shift_y = (torch.rand((), generator=generator) * 2 - 1) * y_width
+        shifts = (float(shift_x), float(shift_y))
+    shifts = scale * torch.tensor(shifts, dtype=image.dtype,
+                                  device=image.device)
+    return shift_image(image, shifts, scale=1.0), shifts
+
+
+def interp1d(x, xp, fp):
+    """Piecewise-linear interpolation with the JAX package's arithmetic.
+
+    ``searchsorted`` clipped to ``[0, len(xp) - 2]``, then a lerp
+    between ``idx - 1`` and ``idx`` that extrapolates outside the table.
+    At or below ``xp[0]`` the index is 0, so the left point is
+    ``xp[-1]``, ``fp[-1]`` (a negative index wraps, in both packages).
+    """
+    idx = torch.clip(torch.searchsorted(xp, x.contiguous()), 0, len(xp) - 2)
+    y0, y1 = fp[idx - 1], fp[idx]
+    x0, x1 = xp[idx - 1], xp[idx]
+    weights = (x - x0) / (x1 - x0)
+    return y0 + weights * (y1 - y0)

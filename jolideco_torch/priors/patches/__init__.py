@@ -1,4 +1,4 @@
-"""GMM patch prior and its mixture model."""
+"""GMM patch prior, its multiscale wrapper and its mixture model."""
 
-from .core import GMMPatchPrior, ZERO_FLUX_SENTINEL  # noqa: F401
+from .core import GMMPatchPrior, MultiScalePrior, ZERO_FLUX_SENTINEL  # noqa: F401
 from .gmm import GaussianMixtureModel, GaussianMixtureModelMeta  # noqa: F401

@@ -23,7 +23,7 @@ from ...ops.gmm_pallas import gmm_score_patches
 from ...ops.gmm_pack import pack_gmm_buffers
 from ...ops.linalg import compute_precision_cholesky
 from ...ops.patches import get_pixel_weights
-from ...utils.norms import SubtractMeanPatchNorm
+from ...utils.norms import PatchNorm, SubtractMeanPatchNorm
 
 __all__ = ["GMM_REGISTRY", "GaussianMixtureModel", "GaussianMixtureModelMeta",
            "REFERENCE_LIBRARY_ALIASES"]
@@ -47,11 +47,19 @@ ALIAS_SUBSTITUTE = "astro-snr-v1"
 
 
 class GaussianMixtureModelMeta:
-    """GMM meta data: patch stride and patch normalisation."""
+    """GMM meta data: patch stride and patch normalisation (compared by
+    value)."""
 
     def __init__(self, stride=None, patch_norm=None):
         self.stride = stride
         self.patch_norm = patch_norm or SubtractMeanPatchNorm()
+
+    def __eq__(self, other):
+        return (type(other) is type(self) and other.stride == self.stride
+                and other.patch_norm == self.patch_norm)
+
+    def __hash__(self):
+        return hash((self.stride, self.patch_norm))
 
 
 class GaussianMixtureModel:
@@ -65,6 +73,9 @@ class GaussianMixtureModel:
     precisions_cholesky : array ``(K, d, d)``
     meta : `GaussianMixtureModelMeta`, optional
     """
+
+    # the registry name of a model built by from_registry (to_dict)
+    _registry_name = None
 
     def __init__(self, means, covariances, weights, precisions_cholesky,
                  meta=None):
@@ -168,7 +179,46 @@ class GaussianMixtureModel:
             norm = str(data["patch_norm"]) if "patch_norm" in data else (
                 "subtract-mean"
             )
-        if norm != "subtract-mean":
-            raise NotImplementedError(f"patch norm {norm!r} is not ported yet")
-        meta = GaussianMixtureModelMeta(stride=stride)
-        return cls.from_numpy(means, covariances, weights, meta=meta)
+        meta = GaussianMixtureModelMeta(
+            stride=stride, patch_norm=PatchNorm.from_dict({"type": norm}))
+        gmm = cls.from_numpy(means, covariances, weights, meta=meta)
+        gmm._registry_name = name
+        return gmm
+
+    @property
+    def eigen_images(self):
+        """Per-component eigen images ``(K, p, p)``: each covariance's
+        eigenvectors times its eigenvalues (``scipy.linalg.eigh``)."""
+        from scipy import linalg
+
+        images = []
+        for covariance in self.covariances:
+            w, v = linalg.eigh(covariance)
+            images.append((v @ w).reshape(self.patch_shape))
+        return np.stack(images)
+
+    def to_dict(self):
+        """A registry model as its name, any other inline (its arrays,
+        stride and patch norm), in the JAX package's format."""
+        if self._registry_name is not None:
+            return {"type": self._registry_name}
+        data = {"type": "inline", "means": self.means,
+                "covariances": self.covariances, "weights": self.weights}
+        if self.meta.stride is not None:
+            data["stride"] = int(self.meta.stride)
+        data["patch_norm"] = self.meta.patch_norm.to_dict()
+        return data
+
+    @classmethod
+    def from_dict(cls, data):
+        """Build from a registry-name or inline dict."""
+        if data["type"] != "inline":
+            return cls.from_registry(data["type"])
+        meta = GaussianMixtureModelMeta(
+            stride=data.get("stride"),
+            patch_norm=PatchNorm.from_dict(
+                dict(data.get("patch_norm", {"type": "subtract-mean"}))),
+        )
+        return cls.from_numpy(np.asarray(data["means"]),
+                              np.asarray(data["covariances"]),
+                              np.asarray(data["weights"]), meta=meta)

@@ -52,7 +52,8 @@ def save_train_state(path, params, opt_state, generator_state, epoch,
     path : str or Path
         Directory, made if missing; an earlier state there is replaced.
     params : dict
-        Nested dict of tensors or arrays (the components' parameters).
+        Nested dict of tensors or arrays (the components' parameters,
+        their priors' trainable leaves included).
     opt_state : dict
         ``torch.optim.Optimizer.state_dict()``.
     generator_state : tensor or None

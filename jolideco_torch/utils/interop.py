@@ -18,10 +18,13 @@ def params_from_jax(params_np, components, device=None, calibrations=None):
     Parameters
     ----------
     params_np : dict
-        ``{"components": {name: {"flux": log_flux, ...}}, "calibrations":
-        {dataset: {"shift_xy": ..., "log_background_norm": ...}}}`` with
-        numpy leaves: the JAX deconvolver's params (``"calibrations"``
-        only when it trains some).
+        ``{"components": {name: {"flux": log_flux, "prior": {...}}},
+        "calibrations": {dataset: {"shift_xy": ...,
+        "log_background_norm": ...}}}`` with numpy leaves: the JAX
+        deconvolver's params (``"prior"`` where the prior trains
+        parameters, an image norm's or ``MultiScalePrior``'s level
+        weights, which are written into the component's prior;
+        ``"calibrations"`` only when it trains some).
     components : `FluxComponents`
         The port's components, updated in place.
     device : str or torch.device, optional
@@ -94,9 +97,11 @@ def adam_state_from_optax(opt_state, params, calibration_params=None,
         optax's ``ScaleByAdamState`` (the first state of ``optax.adam``'s
         chain) with numpy leaves: ``count``, and ``mu`` and ``nu`` nested
         like the JAX deconvolver's params, ``{"components": {name:
-        {"flux": ...}}, "calibrations": {dataset: {...}}}``.
+        {"flux": ..., "prior": {...}}}, "calibrations": {dataset:
+        {...}}}``.
     params : dict
-        The port's nested flux params (``FluxComponents.parameters()``).
+        The port's nested component params (``FluxComponents.parameters()``,
+        the priors' trainable leaves included).
     calibration_params : dict, optional
         The port's calibration params (``NPredCalibrations.parameters()``)
         when the run trains calibrations.

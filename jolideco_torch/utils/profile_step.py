@@ -25,7 +25,18 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--out DIR]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--prior {gmm,multiscale,jitter,group,fraction,smooth}] [--out DIR]
+
+``--prior`` swaps the main path's prior (``gmm``) for another of
+:func:`make_prior`: ``multiscale`` (``MultiScalePrior`` over three
+levels of the GMM prior under an asinh image norm: the fused scorer at
+1024², 512² and 256²), ``jitter`` and ``group``/``fraction`` (the GMM
+prior on its patch-level branch: jittered patches; one offset class of
+patches, ``patch_fraction=0.25``; a random subset of half the patches,
+``patch_fraction=0.5``, whose indices are copied to the card each step)
+or ``smooth`` (``SmoothnessPrior(width=2)``, no GMM kernel); the
+``--marginalize`` flag applies to the GMM priors. Its tag joins the
+files' names.
 
 ``--update-strategy sequential`` profiles the default deconvolver's
 epoch instead of the joint step: one step per observation, then the
@@ -50,17 +61,45 @@ from pathlib import Path
 import numpy as np
 
 
+PRIORS = ("gmm", "multiscale", "jitter", "group", "fraction", "smooth")
+
+
+def make_prior(kind, gmm, marginalize=False):
+    """The prior ``kind`` of :data:`PRIORS` over ``gmm`` (stride 4, cycle
+    spins), as the module's ``--prior`` flag and ``chip_smoke.py`` phase
+    10 build it."""
+    from .. import (
+        ASinhImageNorm,
+        GMMPatchPrior,
+        MultiScalePrior,
+        SmoothnessPrior,
+    )
+
+    if kind == "smooth":
+        return SmoothnessPrior(width=2)
+    options = {"multiscale": {"norm": ASinhImageNorm()},
+               "jitter": {"jitter": True},
+               "group": {"patch_fraction": 0.25},
+               "fraction": {"patch_fraction": 0.5}}.get(kind, {})
+    prior = GMMPatchPrior(gmm=gmm, stride=4, cycle_spin=True,
+                          marginalize=marginalize, **options)
+    if kind == "multiscale":
+        prior = MultiScalePrior(prior, n_levels=3)
+    return prior
+
+
 def build(n_obs, size, marginalize=False, conv_mode="fft",
-          update_strategy="joint", upsampling=1, calibrations=False):
+          update_strategy="joint", upsampling=1, calibrations=False,
+          prior="gmm"):
     """``step()`` of the main path on the first card, and ``probe()``,
-    the flux-error probe at the current parameters. Under
+    the flux-error probe at the current parameters; ``prior`` a kind of
+    :data:`PRIORS`. Under
     ``update_strategy="sequential"`` (with the JAX package's default
     ``trace_every=1``) ``step()`` is one epoch: a step per observation,
     then the epoch's trace row. ``upsampling`` and ``calibrations`` as
     the module's flags."""
     from .. import (
         GaussianMixtureModel,
-        GMMPatchPrior,
         MAPDeconvolver,
         NPredCalibration,
         NPredCalibrations,
@@ -69,9 +108,8 @@ def build(n_obs, size, marginalize=False, conv_mode="fft",
     from .bench_data import make_datasets
 
     datasets = make_datasets(n_obs=n_obs, size=size, psf_size=33, seed=0)
-    prior = GMMPatchPrior(
-        gmm=GaussianMixtureModel.from_registry("astro-snr-v1"), stride=4,
-        cycle_spin=True, marginalize=marginalize)
+    prior = make_prior(prior, GaussianMixtureModel.from_registry(
+        "astro-snr-v1"), marginalize=marginalize)
     if upsampling > 1 or calibrations:
         component = SpatialFluxComponent.from_flux_init_datasets(
             list(datasets.values()), upsampling_factor=upsampling,
@@ -180,6 +218,7 @@ def main():
                         default="joint")
     parser.add_argument("--upsampling", type=int, default=1)
     parser.add_argument("--calibrations", action="store_true")
+    parser.add_argument("--prior", choices=PRIORS, default="gmm")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -193,11 +232,12 @@ def main():
 
     step, probe = build(args.n_obs, args.size, args.marginalize,
                         args.conv_mode, args.update_strategy,
-                        args.upsampling, args.calibrations)
+                        args.upsampling, args.calibrations, args.prior)
     suffix = ("_marg" if args.marginalize else "") + (
         "_pfft" if args.conv_mode == "pfft" else "") + (
         f"_up{args.upsampling}" if args.upsampling > 1 else "") + (
         "_cal" if args.calibrations else "") + (
+        "" if args.prior == "gmm" else f"_{args.prior}") + (
         "" if args.precision == "high" else f"_{args.precision}")
     sequential = args.update_strategy == "sequential"
     profile_calls(torch, step, args.steps, out,

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 import jolideco_torch as jt
+import jolideco_torch.utils.norms as tn
 import jolideco_tpu as jj
+import jolideco_tpu.utils.norms as jn
 from jolideco_torch.parallel.stacked import StackedPoissonLoss as TStacked
 from jolideco_torch.priors.patches.gmm import REFERENCE_LIBRARY_ALIASES
 from jolideco_tpu.parallel.stacked import StackedPoissonLoss as JStacked
@@ -33,7 +35,24 @@ CALLABLES = {
     "GMMPatchPrior": (jj.GMMPatchPrior.__init__, jt.GMMPatchPrior.__init__),
     "StackedPoissonLoss.from_datasets": (JStacked.from_datasets,
                                          TStacked.from_datasets),
+    "FluxComponents": (jj.FluxComponents.__init__,
+                       jt.FluxComponents.__init__),
 }
+# the priors and norms of the prior layer
+CALLABLES.update({
+    name: (getattr(jj, name).__init__, getattr(jt, name).__init__)
+    for name in ("MultiScalePrior", "LIRAPrior", "SmoothnessPrior",
+                 "InverseGammaPrior", "ExponentialPrior", "ImagePrior",
+                 "UniformPrior")
+})
+CALLABLES.update({
+    name: (getattr(jn, name).__init__, getattr(tn, name).__init__)
+    for name in ("IdentityImageNorm", "MaxImageNorm", "FixedMaxImageNorm",
+                 "SigmoidImageNorm", "ATanImageNorm", "InverseCDFImageNorm",
+                 "ASinhImageNorm", "LogImageNorm", "PowerImageNorm")
+})
+CALLABLES["InverseCDFImageNorm.from_image"] = (
+    jn.InverseCDFImageNorm.from_image, tn.InverseCDFImageNorm.from_image)
 
 
 def _params(fn):
@@ -180,8 +199,6 @@ def test_prior_and_loss_raise_on_unported_options():
     gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
     prior = jt.GMMPatchPrior(gmm=gmm, patch_norm=SubtractMeanPatchNorm())
     assert type(prior.patch_norm) is SubtractMeanPatchNorm
-    with pytest.raises(NotImplementedError, match="patch_norm"):
-        jt.GMMPatchPrior(gmm=gmm, patch_norm=object())
     comps = jt.FluxComponents({"flux": jt.SpatialFluxComponent.from_numpy(
         np.ones((16, 16)))})
     with pytest.raises(NotImplementedError, match="row_shards"):
@@ -213,3 +230,86 @@ def test_default_prior_gmm_is_the_alias(caplog):
     np.testing.assert_array_equal(prior.gmm.means, astro.means)
     np.testing.assert_array_equal(
         prior.gmm.means, np.asarray(jj.GMMPatchPrior().gmm.means))
+
+
+def test_flux_components_take_the_jax_signature():
+    """``FluxComponents(components=...)`` keys its entries by the dict's
+    names, as the JAX package's does; its priors are a ``Priors``."""
+    comp = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
+    for comps in (jt.FluxComponents(components={"flux": comp}),
+                  jt.FluxComponents({"flux": comp})):
+        assert list(comps) == ["flux"] and comps["flux"] is comp
+        assert isinstance(comps.priors, jt.Priors)
+        assert list(comps.priors) == ["flux"]
+    assert len(jt.FluxComponents()) == 0
+
+
+def test_public_names_of_the_jax_package_exist():
+    for name in jj.__dict__:
+        if not name.startswith("_") and name[0].isupper():
+            assert hasattr(jt, name), name
+    with pytest.raises(NotImplementedError):
+        jt.SparseSpatialFluxComponent(None)
+    assert jt.SparseSpatialFluxComponent.is_sparse is True
+    assert set(jt.priors.PRIOR_REGISTRY) == set(jj.priors.PRIOR_REGISTRY)
+
+    wcs = {"CTYPE1": "RA---TAN"}
+    flux = np.arange(1.0, 17.0, dtype=np.float32).reshape(4, 4)
+    comp_t = jt.SpatialFluxComponent.from_numpy(flux, upsampling_factor=2,
+                                                wcs=wcs)
+    comp_j = jj.SpatialFluxComponent.from_numpy(flux, upsampling_factor=2,
+                                                wcs=wcs)
+    for name in ("shape", "shape_image", "use_log_flux", "is_sparse"):
+        assert getattr(comp_t, name) == getattr(comp_j, name), name
+    comps_t = jt.FluxComponents({"flux": comp_t})
+    comps_j = jj.FluxComponents({"flux": comp_j})
+    assert comps_t.wcs is wcs and comps_j.wcs is wcs
+    fluxes = comps_t.to_flux_tuple()
+    assert len(fluxes) == 1 and tuple(fluxes[0].shape) == (1, 1, 8, 8)
+    np.testing.assert_allclose(
+        comps_t.fluxes_upsampled_numpy["flux"],
+        np.asarray(comps_j.fluxes_upsampled_numpy["flux"]), rtol=1e-6)
+    np.testing.assert_allclose(comps_t.flux_upsampled_total_numpy,
+                               np.asarray(comps_j.flux_upsampled_total_numpy),
+                               rtol=1e-6)
+
+    deco = jt.MAPDeconvolver(n_epochs=1, device="cpu")
+    loss = deco.build_loss(_datasets(), components=jt.FluxComponents(
+        {"flux": jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)),
+                                                    wcs=wcs)}))
+    assert loss.prior_weight == 1
+    pairs = list(loss.poisson_loss.iter_by_dataset())
+    assert len(pairs) == 1
+    assert pairs[0][1] is loss.poisson_loss.npred_models_all[0]
+    result = deco.run(_datasets(), components=jt.SpatialFluxComponent
+                      .from_numpy(np.ones((16, 16)), wcs=wcs))
+    assert result.wcs is wcs
+    np.testing.assert_array_equal(result.flux_total,
+                                  result.components.flux_total_numpy)
+
+
+def test_trained_prior_leaves_reach_the_result():
+    """The trained image-norm parameters are written back into the
+    result's prior, and they are the optimiser's final leaves."""
+    gmm = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    norm = jt.ASinhImageNorm(alpha=1.0, beta=2.0)
+    comp = jt.SpatialFluxComponent.from_numpy(
+        np.ones((16, 16)), prior=jt.GMMPatchPrior(gmm=gmm, norm=norm))
+    deco = jt.MAPDeconvolver(n_epochs=3, update_strategy="joint",
+                             trace_every=0, device="cpu")
+    trainer = deco.make_trainer(_datasets(), comp)
+    for epoch in range(3):
+        trainer.epoch(epoch)
+    leaves = {k: v.detach() for k, v in
+              trainer.params["flux"]["prior"]["norm"].items()}
+    comp.set_parameters(trainer.params["flux"])
+    assert norm.alpha == float(leaves["alpha"]) != 1.0
+    assert norm.beta == float(leaves["beta"]) != 2.0
+
+    norm = jt.ASinhImageNorm(alpha=1.0, beta=2.0)
+    comp = jt.SpatialFluxComponent.from_numpy(
+        np.ones((16, 16)), prior=jt.GMMPatchPrior(gmm=gmm, norm=norm))
+    result = deco.run(_datasets(), components=comp)
+    prior = result.components["flux"].prior
+    assert prior.norm is norm and (norm.alpha, norm.beta) == (
+        float(leaves["alpha"]), float(leaves["beta"]))

@@ -1320,3 +1320,112 @@ def test_calibrated_upsampled_run_on_card_matches_cpu(device):
                                    atol=chip_smoke.UPS_CAL_ATOL)
     assert torch.equal(card.calibrations["obs-0"].shift_xy.cpu(),
                        torch.zeros(1, 2))
+
+
+@pytest.mark.parametrize("kind,marginalize,kernels", [
+    ("jitter", False, {"gmm_score_rows_tc": 1, "gmm_unit_map": 1}),
+    ("fraction", False, {"gmm_score_rows_tc": 1, "gmm_unit_map": 1}),
+    ("group", True, {"gmm_score_rows_marg_tc": 1, "gmm_unit_marg_tc": 1}),
+])
+def test_grouped_training_step_on_card_matches_cpu(device, gmm, kind,
+                                                   marginalize, kernels):
+    """One training step's prior value and flux gradient on the
+    patch-level branch, card (K5 split, then K6, or K5 lse split, then K8
+    split, under the default dial) against CPU (the split plain
+    versions), the same draws on both: value rtol 7e-5 (K5 split's bar,
+    ``chip_smoke.K1_SPLIT_RTOL``), gradient 1e-4 of its max-abs (under
+    jitter the card's gather adds overlapping corners with atomics)."""
+    import chip_smoke
+    from jolideco_torch.utils.profile_step import make_prior
+
+    prior = make_prior(kind, gmm, marginalize=marginalize)
+    flux = np.random.RandomState(2).uniform(0.1, 2.0, (1, 1, 96, 160))
+    draws = prior.draw_shifts(torch.Generator().manual_seed(3), flux.shape)
+    results = {}
+    for dev in ("cpu", device):
+        x = torch.as_tensor(flux.astype(np.float32), device=dev)
+        x.requires_grad_(True)
+        chip_smoke.reset_counts()
+        value = prior(x, shifts=draws)
+        value.backward()
+        results[str(dev)] = (value.item(), x.grad.cpu())
+    launches, plain_calls = chip_smoke.counts()
+    assert launches == chip_smoke.expect(**kernels) and plain_calls == 0
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
+    np.testing.assert_allclose(v_gpu, v_cpu, rtol=chip_smoke.K1_SPLIT_RTOL)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0,
+                               atol=1e-4 * float(g_cpu.abs().max()))
+
+
+def test_multiscale_prior_launches_the_fused_kernels_per_level(device, gmm):
+    """``MultiScalePrior`` over three levels: K1 split and K2 once a level
+    (96 x 160, 48 x 80, 24 x 40), value and gradients (flux, level
+    weights, the asinh norm's alpha and beta) card against CPU, value
+    rtol 7e-5, gradients 1e-4 of their max-abs."""
+    import chip_smoke
+    from jolideco_torch.utils.profile_step import make_prior
+
+    prior = make_prior("multiscale", gmm)
+    flux = np.random.RandomState(4).uniform(0.1, 2.0, (1, 1, 96, 160))
+    draws = prior.draw_shifts(torch.Generator().manual_seed(5), flux.shape)
+    results = {}
+    for dev in ("cpu", device):
+        x = torch.as_tensor(flux.astype(np.float32), device=dev)
+        x.requires_grad_(True)
+        def leaf(value, dev=dev):
+            return value.detach().clone().to(dev).requires_grad_(True)
+
+        params = {"log_weights": leaf(prior.parameters()["log_weights"]),
+                  "prior": {"norm": {
+                      k: leaf(v) for k, v in
+                      prior.parameters()["prior"]["norm"].items()}}}
+        chip_smoke.reset_counts()
+        value = prior(x, params=params, shifts=draws)
+        value.backward()
+        leaves = [params["log_weights"]] + list(
+            params["prior"]["norm"].values())
+        results[str(dev)] = (value.item(), [x.grad.cpu()] + [
+            leaf.grad.cpu() for leaf in leaves])
+    launches, plain_calls = chip_smoke.counts()
+    assert launches == chip_smoke.expect(gmm_fused_fwd_tc=3,
+                                         gmm_fused_bwd=3)
+    assert plain_calls == 0
+    (v_cpu, g_cpu), (v_gpu, g_gpu) = results.values()
+    np.testing.assert_allclose(v_gpu, v_cpu, rtol=chip_smoke.K1_SPLIT_RTOL)
+    for got, want in zip(g_gpu, g_cpu):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_every_prior_holds_its_tensors_on_the_flux_device(device):
+    """After ``SpatialFluxComponent.to`` and an evaluation on the card,
+    every tensor a prior holds (kernels, their spectra, images, tables,
+    level weights, its norm's and its GMM's buffers) lies on the card:
+    no constant stays on the host to be copied each step."""
+    import chip_smoke
+    import jolideco_torch as jt
+    from jolideco_torch.utils.profile_step import make_prior
+
+    # a GMM of its own: the module's has CPU buffers from other tests
+    gmm = jt.GaussianMixtureModel.from_registry("astro-snr-v1")
+    table = np.linspace(0.0, 3.0, 20)
+    priors = {
+        "multiscale": make_prior("multiscale", gmm),
+        "inverse-cdf": jt.GMMPatchPrior(
+            gmm=gmm, norm=jt.InverseCDFImageNorm(table, table / 3.0)),
+        "fixed-max": jt.GMMPatchPrior(gmm=gmm,
+                                      norm=jt.FixedMaxImageNorm(3.0,
+                                                                frozen=True)),
+        "smooth": jt.SmoothnessPrior(width=2),
+        "image": jt.ImagePrior(np.ones((1, 1, 64, 64), np.float32)),
+        "lira": jt.LIRAPrior((2.0, 2.0)),
+        "inverse-gamma": jt.InverseGammaPrior(cycle_spin_subpix=True),
+        "exponential": jt.ExponentialPrior(),
+    }
+    for name, prior in priors.items():
+        component = jt.SpatialFluxComponent.from_numpy(
+            np.ones((64, 64), np.float32), prior=prior).to(device)
+        value = prior(component.flux_upsampled)
+        assert value.device == device and bool(torch.isfinite(value)), name
+        tensors = chip_smoke.device_tensors(prior)
+        assert all(t.device == device for t in tensors), name

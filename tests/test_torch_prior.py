@@ -90,11 +90,3 @@ def test_generator_draws_are_reproducible():
     b = prior(flux, generator=torch.Generator().manual_seed(4))
     assert a.item() == b.item()
 
-
-@pytest.mark.parametrize("kwargs", [
-    {"jitter": True}, {"patch_fraction": 0.25},
-    {"cycle_spin_subpix": True},
-])
-def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        TPrior(gmm=TGMM.from_registry("builtin-8x8-v1"), **kwargs)
