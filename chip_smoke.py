@@ -135,7 +135,23 @@ Phases, each printing one or more lines:
    cycle_spin_subpix=True)`` (K1 split 55, K2 50); (e) the parametric
    priors (smoothness, LIRA, inverse Gamma, exponential, image), 5 joint
    steps each, no GMM kernel; (f) (a) and (b) at 4 x 128², card against
-   the CPU's plain path.
+   the CPU's plain path;
+11. the rest of the forward model, each run with exact counts and every
+   component tensor on the card, each rate the median of three runs: (a)
+   four event classes of three-band stacks at 1024² with a 3x3 energy
+   redistribution matrix (King PSFs of 129² to 49²), one 2-D flux from
+   the data's estimate, 20 joint steps under ``conv_mode="fft"`` and
+   under ``"pfft"`` (K3's passes take the (pair, band) blocks in one
+   launch a direction), the probe (5 steps) and
+   ``MAPDeconvolver(n_epochs=5)``'s defaults, the band sums at the
+   trained flux against an identity matrix's; (b) the same data with one
+   class's matrix dropped: the joint strategy falls back to per-dataset
+   models (its warning logged each run); (c) the main path's data with
+   256 point sources, a ``SparseSpatialFluxComponent`` beside the
+   diffuse component, 20 joint steps (the median position error falls)
+   and the probe; (d) a GMM of 16x16 patches on the plain scorer, no
+   GMM kernel launched; (e) small runs of (a)-(d) and the sparse
+   example, card against the CPU's plain path.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -177,9 +193,10 @@ split's errors, times and bound, the row map's cases and the probe
 under both dials, a ``{"default_dial": ...}`` JSON line with the bf16
 kernels' checks and phase 7's paths, a ``{"default_entry": ...}`` JSON
 line with phase 8's numbers, an ``{"upsampled": ...}`` JSON line with
-phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a JSON
-line with each kernel's numbers (thirty-three, each with its launches
-in phase 9's three runs at the 2048² flux and in phase 10's runs) and,
+phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a
+``{"forward_model": ...}`` JSON line with phase 11's, a JSON line with
+each kernel's numbers (thirty-three, each with its launches in phase
+9's three runs at the 2048² flux and in phase 10's and 11's runs) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -3953,6 +3970,487 @@ def phase_priors(torch, device, card):
     return out
 
 
+# phase 11: the rest of the forward model at the main path's width
+FM_STEPS, FM_ERROR_STEPS, FM_EPOCHS, FM_REPEATS = 20, 5, 5, 3
+FM_CLASSES, FM_BANDS, FM_SOURCES, FM_SMALL_EPOCHS = 4, 3, 256, 50
+GMM16_K, GMM16_STRIDE = 20, 8
+# (e): the small runs' flux on the card against the CPU within
+# SEQ_FLUX_SHARE of its max-abs (phase 6's bar, for Adam's first step:
+# the runs start from the data's estimate, where float32 differences
+# become other steps at pixels whose gradient nearly vanishes), the
+# sources' positions within FM_POS_ATOL pixels and their fluxes within
+# FM_SOURCE_RTOL
+FM_POS_ATOL, FM_SOURCE_RTOL = 1e-3, 1e-3
+
+
+class LogCapture:
+    """The messages ``jolideco_torch.core`` logs at WARNING while in the
+    ``with`` block."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages = []
+        capture = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                capture.messages.append(record.getMessage())
+
+        self.handler = Handler(logging.WARNING)
+        self.logger = logging.getLogger("jolideco_torch.core")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def fm_joint(datasets, components, device, conv_mode="fft",
+             compute_error=False):
+    """``run(n)``: ``n`` joint steps (lr 0.1, no trace, seed 0) from
+    ``components()``."""
+    from jolideco_torch import MAPDeconvolver
+
+    def run(n_steps):
+        return MAPDeconvolver(
+            n_epochs=n_steps, learning_rate=0.1, update_strategy="joint",
+            conv_mode=conv_mode, trace_every=0, seed=0, device=device,
+            compute_error=compute_error).run(datasets,
+                                             components=components())
+    return run
+
+
+def fm_timed(torch, tag, run, expected, n_steps, plain=0,
+             repeats=FM_REPEATS, rate="steps"):
+    """A warm-up of 2 steps, then ``repeats`` runs of ``run(n_steps)``,
+    counts set to zero just before each and read just after: launches
+    exactly ``expected`` and the plain versions called ``plain`` times;
+    the median and spread of the rates and the peak memory."""
+    run(2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates, result = [], None
+    for _ in range(repeats):
+        reset_counts()
+        result = run(n_steps)
+        launches, plain_calls = counts()
+        check(launches == expected, f"phase 11 {tag}: launches {launches}, "
+              f"not {expected}")
+        check(plain_calls == plain, f"phase 11 {tag}: plain versions ran "
+              f"{plain_calls} times, not {plain}")
+        rates.append(n_steps / result.train_seconds)
+    return result, {
+        "launches": launches, "plain_calls": plain_calls,
+        f"{rate}_per_s": float(np.median(rates)),
+        f"{rate}_per_s_repeats": rates,
+        f"{rate}_per_s_spread": float(max(rates) - min(rates)),
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def nonzero(launches):
+    """The kernels a run launched, with their counts."""
+    return {name: n for name, n in launches.items() if n}
+
+
+def fm_rate_line(stats, rate="steps"):
+    rates = stats[f"{rate}_per_s_repeats"]
+    return (f"{stats[f'{rate}_per_s']:.3f} {rate}/s (median of "
+            f"{len(rates)}: {', '.join(f'{r:.3f}' for r in rates)}; spread "
+            f"{stats[f'{rate}_per_s_spread']:.3f}); peak memory "
+            f"{stats['peak_bytes']} B")
+
+
+def fm_check_result(torch, tag, result, device, n_steps, fall=True):
+    """Finite losses (falling with ``fall``), a finite positive flux of
+    every component, every tensor of the components on the card."""
+    loss = result.loss_per_step
+    check(loss.shape == (n_steps,) and bool(np.isfinite(loss).all())
+          and (not fall or loss[-1] < loss[0]), f"phase 11 {tag}: losses "
+          f"{loss[0]} -> {loss[-1]}")
+    flux = result.flux_upsampled_total
+    check(bool(np.isfinite(flux).all()) and bool((flux >= 0).all()),
+          f"phase 11 {tag}: flux not finite and non-negative")
+    off = [tuple(t.shape) for t in device_tensors(result.components)
+           if t.device != device]
+    check(not off, f"phase 11 {tag}: component tensors off the card: {off}")
+    return [float(loss[0]), float(loss[-1])]
+
+
+def gmm16(k=GMM16_K, stride=GMM16_STRIDE, seed=4):
+    """A random SPD GMM of 16x16 patches (d = 256)."""
+    from jolideco_torch.utils.interop import gmm_from_arrays
+
+    rs = np.random.RandomState(seed)
+    covariances = np.stack([a @ a.T / 256 + 0.1 * np.eye(256)
+                            for a in rs.randn(k, 256, 256)])
+    return gmm_from_arrays(0.1 * rs.randn(k, 256), covariances,
+                           rs.dirichlet(np.ones(k)), stride)
+
+
+def band_sums(torch, dataset, flux, device, rmf=None):
+    """The predicted counts of ``dataset`` at the 2-D ``flux``, summed
+    over each band (with ``rmf`` in place of the dataset's)."""
+    from jolideco_torch import FluxComponents, SpatialFluxComponent
+    from jolideco_torch.models import NPredModels
+
+    comps = FluxComponents({"flux": SpatialFluxComponent(
+        flux[None, None], use_log_flux=False, device=device)})
+    if rmf is not None:
+        dataset = dict(dataset, rmf=rmf)
+    models = NPredModels.from_dataset_numpy(dataset, comps, device=device)
+    with torch.no_grad():
+        npred = models.evaluate_per_component(comps.fluxes_from())["flux"]
+    return npred.sum(dim=(-2, -1))[0].double().cpu().numpy()
+
+
+def position_error(points, sources):
+    """Median distance of the fitted sources from the true ones (px)."""
+    return float(np.median(np.hypot(points.x_pos_numpy - sources["x_pos"],
+                                    points.y_pos_numpy - sources["y_pos"])))
+
+
+def fm_small_runs(device, data):
+    """(e): (a) at 4 x 64^2 x 3 bands under both conv modes, (b), (c) and
+    (d) at 4 x 128^2, 20 joint steps each, and the sparse example's own
+    data and components for 50 epochs of its deconvolver (sequential,
+    traced), on ``device``, from :func:`fm_small_data`'s ``data``."""
+    from jolideco_torch import (
+        FluxComponents,
+        GMMPatchPrior,
+        MAPDeconvolver,
+        SmoothnessPrior,
+        SparseSpatialFluxComponent,
+        SpatialFluxComponent,
+        UniformPrior,
+    )
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+
+    def prior():
+        return GMMPatchPrior(gmm=astro, stride=4, cycle_spin=True)
+
+    runs = {}
+    bands, estimate = data["bands"]
+    for mode in ("fft", "pfft"):
+        runs[f"multiband_{mode}"] = fm_joint(
+            bands, lambda: SpatialFluxComponent.from_numpy(
+                estimate, prior=prior()), device, conv_mode=mode)(FM_STEPS)
+    fallback, estimate = data["fallback"]
+    runs["fallback"] = fm_joint(fallback, lambda: SpatialFluxComponent
+                                .from_numpy(estimate, prior=prior()),
+                                device)(FM_STEPS)
+    sparse, _, components = data["sparse"]
+    runs["sparse"] = fm_joint(sparse, lambda: components(prior()),
+                              device)(FM_STEPS)
+    main = data["gmm16"]
+    runs["gmm16"] = fm_joint(main, lambda: SpatialFluxComponent.from_numpy(
+        np.ones((128, 128), np.float32), prior=GMMPatchPrior(
+            gmm=gmm16(), stride=GMM16_STRIDE, cycle_spin=True)),
+        device)(FM_STEPS)
+    example = data["example"]
+    comps = FluxComponents({
+        "diffuse": SpatialFluxComponent.from_numpy(
+            np.ones((32, 32)), prior=SmoothnessPrior(width=2)),
+        "points": SparseSpatialFluxComponent.from_numpy(
+            flux=np.array([500.0, 200.0, 80.0, 30.0]),
+            x_pos=np.array([16.0, 16.0, 26.0, 6.0]) + 0.5,
+            y_pos=np.array([26.0, 6.0, 16.0, 16.0]) - 0.5,
+            shape=(32, 32), prior=UniformPrior())})
+    runs["example"] = MAPDeconvolver(
+        n_epochs=FM_SMALL_EPOCHS, learning_rate=0.05, beta=1e-3,
+        device=device).run({"obs": example}, components=comps)
+    return runs
+
+
+def fm_small_data():
+    """The small runs' data, made on the CPU once for both devices."""
+    from jolideco_torch.data import gauss_and_point_sources_gauss_psf
+    from jolideco_torch.utils.bench_data import make_datasets
+    from jolideco_torch.utils.profile_step import (
+        multiband_setup,
+        sparse_setup,
+    )
+
+    data = gauss_and_point_sources_gauss_psf(
+        random_state=np.random.RandomState(642020))
+    example = {key: data[key] for key in ("counts", "psf", "exposure",
+                                          "background")}
+    example["psf"] = {"diffuse": example["psf"], "points": example["psf"]}
+    return {
+        "bands": multiband_setup(64, FM_BANDS, FM_CLASSES, psf_scale=0.125,
+                                 device="cpu"),
+        "fallback": multiband_setup(128, FM_BANDS, FM_CLASSES,
+                                    psf_scale=0.25, fallback=True,
+                                    device="cpu"),
+        "sparse": sparse_setup(4, 128, 9, n_sources=16, device="cpu"),
+        "gmm16": make_datasets(n_obs=4, size=128, psf_size=9, seed=1),
+        "example": example}
+
+
+def phase_forward_model(torch, device, card):
+    """Phase 11: (a) four event classes of three-band stacks with the RMF
+    at 1024^2, 20 joint steps under each conv mode, the probe (5 steps)
+    and MAPDeconvolver(n_epochs=5)'s defaults, the RMF moving counts
+    between bands; (b) the same data with one class's RMF dropped: the
+    fallback to per-dataset models, 20 joint steps; (c) the main path's
+    data with 256 point sources, a SparseSpatialFluxComponent beside the
+    diffuse one, 20 joint steps and the probe; (d) a GMM of 16x16 patches
+    on the plain scorer, 5 joint steps, no GMM kernel; (e) small runs,
+    card against the CPU's plain path."""
+    from jolideco_torch import (
+        GMMPatchPrior,
+        MAPDeconvolver,
+        SpatialFluxComponent,
+        config,
+    )
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import band_rmf, make_datasets
+    from jolideco_torch.utils.profile_step import (
+        multiband_setup,
+        sparse_setup,
+    )
+
+    check(config.gmm_precision() == "high", "phase 11 runs the default dial")
+    mode = config.gmm_mode()
+    k1, k5 = K1_KERNELS[mode], K5_KERNELS[mode]
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    out = {"card": card}
+
+    def prior():
+        return GMMPatchPrior(gmm=astro, stride=4, cycle_spin=True)
+
+    # (a) band stacks with the RMF
+    t0 = time.perf_counter()
+    datasets, estimate = multiband_setup(FIELD, FM_BANDS, FM_CLASSES,
+                                         device=device)
+    out["data_seconds"] = time.perf_counter() - t0
+    label = (f"{FM_CLASSES}x{FIELD}^2 x{FM_BANDS} bands (King PSFs 129^2 "
+             f"to 49^2, RMF {FM_BANDS}x{FM_BANDS}) K=200")
+
+    def component():
+        return SpatialFluxComponent.from_numpy(estimate, prior=prior())
+
+    train = expect(gmm_fused_bwd=FM_STEPS, **{k1: FM_STEPS})
+    probe = expect(gmm_fused_bwd=FM_ERROR_STEPS, gmm_unit_map=1,
+                   gmm_hvp_map=1, **{k1: FM_ERROR_STEPS, k5: 1})
+    results = {}
+    for conv_mode in ("fft", "pfft"):
+        expected = dict(train)
+        if conv_mode == "pfft":
+            # one launch of each pass a direction: the (pair, band)
+            # blocks of the four classes share it
+            expected.update({name: 2 * FM_STEPS
+                             for name in K3_KERNELS[mode]})
+        tag = f"(a) multiband {conv_mode}"
+        result, stats = fm_timed(torch, tag, fm_joint(
+            datasets, component, device, conv_mode), expected, FM_STEPS)
+        stats["loss"] = fm_check_result(torch, tag, result, device,
+                                        FM_STEPS)
+        results[conv_mode] = result.flux_upsampled_total
+        out[f"multiband_{conv_mode}"] = stats
+        print(f"phase 11 {tag} joint {label} on {card}: "
+              f"{fm_rate_line(stats)}; loss {stats['loss'][0]:.6f} -> "
+              f"{stats['loss'][1]:.6f}; launches {nonzero(stats['launches'])}")
+    share = flux_share(results["pfft"], results["fft"])
+    check(share <= PFFT_FLUX_SHARE, f"phase 11 (a): pfft flux against fft "
+          f"{share:.3g} of the max-abs (limit {PFFT_FLUX_SHARE})")
+    out["multiband_pfft"]["flux_share_vs_fft"] = share
+
+    # the RMF moves counts between bands: the band sums at the trained
+    # flux are the identity RMF's times the matrix
+    flux = results["fft"]
+    first = next(iter(datasets.values()))
+    with_rmf = band_sums(torch, first, flux, device)
+    identity = band_sums(torch, first, flux, device,
+                         rmf=np.eye(FM_BANDS, dtype=np.float32))
+    moved = float(np.abs(with_rmf / identity - 1).max())
+    folded = float(np.abs(with_rmf / (identity @ band_rmf(FM_BANDS)) - 1)
+                   .max())
+    check(moved > 0.05 and folded < 1e-5, f"phase 11 (a): band sums "
+          f"{with_rmf} against the identity RMF's {identity}")
+    out["rmf_band_sums"] = {"rmf": with_rmf.tolist(),
+                            "identity": identity.tolist(),
+                            "moved": moved, "folded_rel": folded}
+    print(f"phase 11 (a) RMF: band sums of the first class at the trained "
+          f"flux {np.round(with_rmf, 1).tolist()} against the identity "
+          f"RMF's {np.round(identity, 1).tolist()} (moved up to {moved:.4f} "
+          f"of a band; identity's times the RMF within {folded:.3g}); pfft "
+          f"flux against fft {share:.3g} of the max-abs (limit "
+          f"{PFFT_FLUX_SHARE})")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = fm_joint(datasets, component, device,
+                      compute_error=True)(FM_ERROR_STEPS)
+    launches, plain_calls = counts()
+    check(launches == probe and plain_calls == 0, f"phase 11 (a) probe: "
+          f"launches {launches}, not {probe}; plain calls {plain_calls}")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(bool(np.isfinite(errors).all() and (errors > 0).all()),
+          "phase 11 (a) probe: errors not finite and positive")
+    out["multiband_probe"] = {
+        "launches": launches, "error_seconds": result.error_seconds,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "errors": [float(errors.min()), float(errors.max())]}
+    print(f"phase 11 (a) probe: {FM_ERROR_STEPS} steps, probe "
+          f"{result.error_seconds:.4f} s; errors {errors.min():.6g} .. "
+          f"{errors.max():.6g}; peak memory "
+          f"{out['multiband_probe']['peak_bytes']} B; launches "
+          f"{nonzero(launches)}")
+
+    def defaults(n_epochs):
+        return MAPDeconvolver(n_epochs=n_epochs).run(
+            datasets, components=component())
+
+    result, stats = fm_timed(
+        torch, "(a) defaults", defaults,
+        expect(gmm_fused_bwd=FM_EPOCHS * FM_CLASSES,
+               **{k1: FM_EPOCHS * (FM_CLASSES + 1)}),
+        FM_EPOCHS, rate="epochs")
+    total = result.trace_loss["total"]
+    check(len(total) == FM_EPOCHS and bool(np.isfinite(total).all()),
+          f"phase 11 (a) defaults: trace {list(total)}")
+    stats["total"] = [float(total[0]), float(total[-1])]
+    out["multiband_sequential"] = stats
+    print(f"phase 11 (a) MAPDeconvolver(n_epochs={FM_EPOCHS}) defaults "
+          f"{label} on {card}: {fm_rate_line(stats, 'epochs')}; trace total "
+          f"{total[0]:.6f} -> {total[-1]:.6f}; launches "
+          f"{nonzero(stats['launches'])}")
+
+    # (b) the fallback: the first class without its RMF
+    fallback = {name: dict(d) for name, d in datasets.items()}
+    fallback[next(iter(fallback))].pop("rmf")
+    with LogCapture() as log:
+        result, stats = fm_timed(
+            torch, "(b) fallback", fm_joint(fallback, component, device),
+            train, FM_STEPS)
+    said = sum("Cannot stack observations" in m and "falling back to "
+               "per-dataset forward models" in m for m in log.messages)
+    check(said == FM_REPEATS + 1, f"phase 11 (b): the fallback logged "
+          f"{said} times: {log.messages}")
+    stats["loss"] = fm_check_result(torch, "(b) fallback", result, device,
+                                    FM_STEPS)
+    out["fallback"] = stats
+    print(f"phase 11 (b) fallback (the first class without its RMF: "
+          f"\"Cannot stack observations\" logged each run) joint {label} on "
+          f"{card}: {fm_rate_line(stats)}; loss {stats['loss'][0]:.6f} -> "
+          f"{stats['loss'][1]:.6f}; launches {nonzero(stats['launches'])}")
+    del datasets, fallback
+
+    # (c) point sources beside the diffuse component
+    t0 = time.perf_counter()
+    sparse, sources, components = sparse_setup(N_OBS, FIELD, 33, FM_SOURCES,
+                                               device=device)
+    out["sparse_data_seconds"] = time.perf_counter() - t0
+    start = components(prior())["points"]
+    label = (f"{N_OBS}x{FIELD}^2 K=200 + {FM_SOURCES} point sources "
+             f"(per-component 33^2 PSFs)")
+    result, stats = fm_timed(
+        torch, "(c) sparse", fm_joint(sparse, lambda: components(prior()),
+                                      device), train, FM_STEPS)
+    stats["loss"] = fm_check_result(torch, "(c) sparse", result, device,
+                                    FM_STEPS)
+    errors = [position_error(start, sources),
+              position_error(result.components["points"], sources)]
+    check(errors[1] < errors[0], f"phase 11 (c): median position error "
+          f"{errors[0]} -> {errors[1]}")
+    stats["position_error"] = errors
+    stats["flux_ratio"] = float(np.median(
+        result.components["points"].flux_values_numpy / sources["flux"]))
+    out["sparse"] = stats
+    print(f"phase 11 (c) sparse joint {label} on {card}: "
+          f"{fm_rate_line(stats)}; loss {stats['loss'][0]:.6f} -> "
+          f"{stats['loss'][1]:.6f}; median position error {errors[0]:.4f} "
+          f"-> {errors[1]:.4f} px, median flux ratio "
+          f"{stats['flux_ratio']:.4f}; launches {nonzero(stats['launches'])}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = fm_joint(sparse, lambda: components(prior()), device,
+                      compute_error=True)(FM_ERROR_STEPS)
+    launches, plain_calls = counts()
+    check(launches == probe and plain_calls == 0, f"phase 11 (c) probe: "
+          f"launches {launches}, not {probe}; plain calls {plain_calls}")
+    diffuse = result.components["diffuse"].flux_upsampled_error_numpy
+    points = result.components["points"]
+    at_sources = points.flux_upsampled_error_numpy[
+        np.round(points.y_pos_numpy).astype(int),
+        np.round(points.x_pos_numpy).astype(int)]
+    check(bool(np.isfinite(diffuse).all() and (diffuse > 0).all()
+               and np.isfinite(at_sources).all() and (at_sources > 0).all()),
+          "phase 11 (c) probe: errors not finite and positive")
+    out["sparse_probe"] = {
+        "launches": launches, "error_seconds": result.error_seconds,
+        "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"phase 11 (c) probe: {FM_ERROR_STEPS} steps, probe "
+          f"{result.error_seconds:.4f} s; diffuse errors "
+          f"{diffuse.min():.6g} .. {diffuse.max():.6g}, at the sources "
+          f"{at_sources.min():.6g} .. {at_sources.max():.6g}; peak memory "
+          f"{out['sparse_probe']['peak_bytes']} B; launches "
+          f"{nonzero(launches)}")
+    del sparse
+
+    # (d) a GMM of 16x16 patches: the plain scorer on the card, no kernel
+    main = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    gmm = gmm16()
+
+    def wide_component():
+        return SpatialFluxComponent.from_numpy(
+            np.ones((FIELD, FIELD), np.float32), prior=GMMPatchPrior(
+                gmm=gmm, stride=GMM16_STRIDE, cycle_spin=True))
+
+    result, stats = fm_timed(
+        torch, "(d) 16x16 GMM", fm_joint(main, wide_component, device),
+        expect(), FM_ERROR_STEPS, plain=2 * FM_ERROR_STEPS)
+    stats["loss"] = fm_check_result(torch, "(d) 16x16 GMM", result, device,
+                                    FM_ERROR_STEPS, fall=False)
+    out["gmm16"] = stats
+    print(f"phase 11 (d) GMM of 16x16 patches (K={GMM16_K}, stride "
+          f"{GMM16_STRIDE}, the plain scorer) joint {N_OBS}x{FIELD}^2 on "
+          f"{card}: {fm_rate_line(stats)}; loss {stats['loss'][0]:.6f} -> "
+          f"{stats['loss'][1]:.6f}; launches "
+          f"{nonzero(stats['launches'])} (none); "
+          f"plain calls {stats['plain_calls']}")
+    del main
+
+    # (e) the small runs, card against the CPU's plain path
+    small = fm_small_data()
+    on_card = fm_small_runs(device, small)
+    on_cpu = fm_small_runs("cpu", small)
+    out["small"] = {}
+    for run, card_result in on_card.items():
+        cpu_result = on_cpu[run]
+        res = {}
+        for name, comp in card_result.components.items():
+            a = comp.flux_upsampled_numpy
+            b = cpu_result.components[name].flux_upsampled_numpy
+            res[f"{name}_flux_share"] = flux_share(a, b)
+            if comp.is_sparse:
+                other = cpu_result.components[name]
+                res[f"{name}_position_abs"] = float(max(
+                    np.abs(comp.x_pos_numpy - other.x_pos_numpy).max(),
+                    np.abs(comp.y_pos_numpy - other.y_pos_numpy).max()))
+                res[f"{name}_source_flux_rel"] = max_rel(
+                    comp.flux_values_numpy, other.flux_values_numpy)
+        bad = {k: v for k, v in res.items() if
+               (k.endswith("flux_share") and v > SEQ_FLUX_SHARE)
+               or (k.endswith("position_abs") and v > FM_POS_ATOL)
+               or (k.endswith("source_flux_rel") and v > FM_SOURCE_RTOL)}
+        check(not bad, f"phase 11 (e) {run}: card against CPU {bad}")
+        out["small"][run] = res
+    print("phase 11 (e) small runs card vs CPU plain path (multiband "
+          "4x64^2 x3 bands fft and pfft, fallback, sparse and 16x16 GMM at "
+          f"4x128^2, the sparse example {FM_SMALL_EPOCHS} epochs): " +
+          "; ".join(f"{run} " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                          res.items())
+                    for run, res in out["small"].items())
+          + f" (limits {SEQ_FLUX_SHARE} of the max, {FM_POS_ATOL} px, "
+          f"{FM_SOURCE_RTOL})")
+    return out
+
+
 def main():
     try:
         import torch
@@ -3982,6 +4480,7 @@ def main():
     entry = phase_default_entry(torch, device, card)
     upsampled = phase_upsampled(torch, device, card)
     priors = phase_priors(torch, device, card)
+    forward_model = phase_forward_model(torch, device, card)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -4280,22 +4779,29 @@ def main():
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))
+    print(json.dumps({"forward_model": forward_model}))
     # launches_phase9: each kernel's launches in phase 9's three runs at
     # the 2048^2 flux (the joint run, the probe run, the quick start);
-    # launches_phase10: in phase 10's runs
+    # launches_phase10: in phase 10's runs; launches_phase11: in phase
+    # 11's (the last of each timed reading's repeats)
     phase9 = {run: upsampled[run]["launches"]
               for run in ("joint", "probe", "sequential")}
     phase10 = {run: priors[run]["launches"] for run in (
         "multiscale", "multiscale_probe", "jitter", "group", "example")}
     phase10.update({name: run["launches"]
                     for name, run in priors["parametric"].items()})
+    phase11 = {run: forward_model[run]["launches"] for run in (
+        "multiband_fft", "multiband_pfft", "multiband_probe",
+        "multiband_sequential", "fallback", "sparse", "sparse_probe",
+        "gmm16")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],
          "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd,
          "library_ms": library[name], **extra.get(name, {}),
          "launches_phase9": {run: n[name] for run, n in phase9.items()},
-         "launches_phase10": {run: n[name] for run, n in phase10.items()}}
+         "launches_phase10": {run: n[name] for run, n in phase10.items()},
+         "launches_phase11": {run: n[name] for run, n in phase11.items()}}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,16 @@ Two update strategies, as in the JAX package:
 - ``"joint"``: one step per epoch on the weighted sum of every
   dataset's NLL minus ``β · log_prior``, the observations stacked
   (``parallel/stacked.py``; ``conv_mode`` ``"fft"`` or ``"pfft"``).
+  Observations that cannot stack (image shapes or band counts that
+  differ, an ``rmf`` on some datasets only, components without a common
+  FFT shape) fall back to the per-dataset models with a warning, as in
+  the JAX package; data that neither path takes
+  (`parallel.DataValidationError`) and any failure under an explicit
+  ``fft_shape`` raise.
+
+Datasets may be band stacks with an energy redistribution matrix
+(``rmf``, ``models/npred.py``), and components may be
+`SparseSpatialFluxComponent` point-source lists beside dense ones.
 
 A step is
 
@@ -77,8 +87,13 @@ import torch
 
 from .config import resolve_device
 from .loss import PriorLoss, TotalLoss
-from .models import FluxComponents, NPredCalibrations, SpatialFluxComponent
-from .parallel.stacked import StackedPoissonLoss
+from .models import (
+    FluxComponents,
+    NPredCalibrations,
+    SparseSpatialFluxComponent,
+    SpatialFluxComponent,
+)
+from .parallel.stacked import DataValidationError, StackedPoissonLoss
 from .utils.checkpoint import (
     restore_calibration_params,
     restore_train_state,
@@ -160,13 +175,15 @@ def _load_opt_state(optimizer, opt_state):
 
 
 def _validate_component_shapes(datasets, components):
-    """Fail the build with a clear message on a flux/data shape mismatch."""
+    """Fail the build with a clear message on a flux/data shape mismatch
+    (a sparse component's grid included, at factor 1, as the JAX
+    package's check reads its splat)."""
     for ds_name, dataset in datasets.items():
         data_shape = tuple(np.asarray(dataset["counts"]).shape[-2:])
         for name, component in components.items():
             factor = component.upsampling_factor or 1
             expected = (data_shape[0] * factor, data_shape[1] * factor)
-            got = tuple(component.flux_upsampled.shape[-2:])
+            got = tuple(component.shape[-2:])
             if got != expected:
                 raise ValueError(
                     f"Flux component {name!r} has shape {got} but dataset "
@@ -417,7 +434,8 @@ class MAPDeconvolver:
         }
 
     def _flux_components(self, components):
-        if isinstance(components, SpatialFluxComponent):
+        if isinstance(components, (SpatialFluxComponent,
+                                   SparseSpatialFluxComponent)):
             components = {self._default_flux_component: components}
         return FluxComponents(components)
 
@@ -441,20 +459,41 @@ class MAPDeconvolver:
         if datasets_validation:
             _validate_component_shapes(datasets_validation, components)
 
-        if self.update_strategy == "sequential":
-            if self.conv_mode not in ("fft", "auto"):
-                log.warning(
-                    f"conv_mode={self.conv_mode!r} only applies to the "
-                    "stacked joint path; the per-dataset forward models "
-                    "always convolve via FFT"
+        if self.update_strategy == "joint":
+            poisson = self._stacked_losses(
+                datasets, datasets_validation, components, calibrations,
+                device)
+            if poisson is not None:
+                return TotalLoss(
+                    poisson_loss=poisson[0],
+                    prior_loss=PriorLoss(components.priors),
+                    poisson_loss_validation=poisson[1],
+                    beta=self.beta,
                 )
-            return TotalLoss.from_datasets_and_components(
-                datasets=datasets, datasets_validation=datasets_validation,
-                components=components, beta=self.beta,
-                calibrations=calibrations, fft_shape=self.fft_shape,
-                device=device,
-            )
 
+        if self.conv_mode not in ("fft", "auto"):
+            log.warning(
+                f"conv_mode={self.conv_mode!r} only applies to the "
+                "stacked joint path; the per-dataset forward models "
+                "always convolve via FFT"
+            )
+        return TotalLoss.from_datasets_and_components(
+            datasets=datasets, datasets_validation=datasets_validation,
+            components=components, beta=self.beta,
+            calibrations=calibrations, fft_shape=self.fft_shape,
+            device=device,
+        )
+
+    def _stacked_losses(self, datasets, datasets_validation, components,
+                        calibrations, device):
+        """The joint strategy's stacked losses ``(training, validation)``,
+        or None when the observations cannot stack (a plain
+        ``ValueError`` from the build, as for image shapes or band counts
+        that differ, an ``rmf`` on some datasets only, or components
+        without a common FFT shape): the JAX package's fallback to
+        per-dataset models, decided from the data before anything runs.
+        A `DataValidationError` (data neither path takes) and any error
+        under an explicit ``fft_shape`` propagate."""
         # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
         # 1024^2 (n = 1152) the matrix DFT took 1.94 ms per direction
         # under the default dial ("split": passes 2 and 3 on the tensor
@@ -464,29 +503,23 @@ class MAPDeconvolver:
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
 
         def stacked(data):
-            try:
-                return StackedPoissonLoss.from_datasets(
-                    datasets=data, components=components,
-                    calibrations=calibrations, fft_shape=self.fft_shape,
-                    conv_mode=conv_mode, device=device,
-                )
-            except ValueError as exc:
-                if self.fft_shape is not None:
-                    raise
-                # the JAX package falls back to per-dataset models here
-                raise NotImplementedError(
-                    f"Cannot stack observations ({exc}); the joint "
-                    "strategy's fallback to per-dataset forward models is "
-                    "not ported yet"
-                ) from exc
+            return StackedPoissonLoss.from_datasets(
+                datasets=data, components=components,
+                calibrations=calibrations, fft_shape=self.fft_shape,
+                conv_mode=conv_mode, device=device,
+            )
 
-        return TotalLoss(
-            poisson_loss=stacked(datasets),
-            prior_loss=PriorLoss(components.priors),
-            poisson_loss_validation=(stacked(datasets_validation)
-                                     if datasets_validation else None),
-            beta=self.beta,
-        )
+        try:
+            return (stacked(datasets), stacked(datasets_validation)
+                    if datasets_validation else None)
+        except DataValidationError:
+            raise
+        except ValueError as exc:
+            if self.fft_shape is not None:
+                raise
+            log.warning(f"Cannot stack observations ({exc}); falling back "
+                        "to per-dataset forward models")
+            return None
 
     def make_trainer(self, datasets, components, datasets_validation=None,
                      total_loss=None, resume_from=None, calibrations=None):
@@ -561,14 +594,16 @@ class MAPDeconvolver:
         ----------
         datasets : dict of [str, dict]
             Per-dataset dicts with ``counts``, ``psf``, ``exposure`` and
-            ``background`` numpy arrays (``psf`` may be a dict keyed by
-            component).
+            ``background`` numpy arrays, 2-D images or 3-D band stacks,
+            and optionally an ``rmf`` ``(C, K)`` (``psf`` and ``rmf`` may
+            be dicts keyed by component).
         datasets_validation : dict of [str, dict], optional
             Validation data: traced as ``datasets-validation-total`` and
             read by early stopping.
-        components : `FluxComponents`, dict or `SpatialFluxComponent`
-            Required (the JAX package's default, ``None``, fails there
-            too).
+        components : `FluxComponents`, dict or a component
+            A `SpatialFluxComponent` or `SparseSpatialFluxComponent`
+            alone is named ``"flux"``. Required (the JAX package's
+            default, ``None``, fails there too).
         calibrations : `NPredCalibrations`, optional
             Per-dataset calibrations, keyed like ``datasets``; their
             trainable values are trained with the fluxes and written back

@@ -5,7 +5,7 @@ One `NPredModel` per (dataset, component) pair folds a flux image into
 predicted counts,
 
     flux * exposure -> PSF convolution (precomputed rFFT) -> sum pool
-    -> clip at 0,
+    -> energy redistribution (RMF) -> clip at 0,
 
 and `NPredModels`, one per dataset, sums its components' counts and the
 dataset background. These are the per-dataset models of the sequential
@@ -28,8 +28,14 @@ zooms the PSF by its static ``psf_scale`` and weights the dataset's
 likelihood by its static ``weight``. The shift and the log norm are
 trainable leaves (``parameters()``) unless frozen.
 
-Not ported, raising ``NotImplementedError``: an energy redistribution
-matrix (``rmf``), band stacks, and reading or writing calibrations.
+Data may be band stacks: a 3-D ``(C, H, W)`` exposure, PSF, background
+or counts array is taken as ``(1, C, H, W)`` (a 2-D one as ``(1, 1, H,
+W)``), a single-channel PSF broadcasts over the bands, and an ``rmf``
+``(C, K)`` folds the ``C`` bands of the pooled counts into ``K``
+(``einsum("bchw,ck->bkhw")``) before the clip.
+
+Not ported, raising ``NotImplementedError``: reading or writing
+calibrations.
 """
 
 import copy
@@ -47,26 +53,35 @@ from ..ops.image import (
 )
 
 __all__ = ["NPredCalibration", "NPredCalibrations", "NPredModel",
-           "NPredModels", "as_image"]
+           "NPredModels", "as_bchw", "as_image"]
 
 
-def _unported_rmf(rmf):
-    if rmf is not None:
-        raise NotImplementedError("rmf is not ported yet")
+def as_bchw(array):
+    """A 2-D ``(H, W)`` image as ``(1, 1, H, W)``, a 3-D ``(C, H, W)``
+    band stack as ``(1, C, H, W)`` (float32 numpy)."""
+    array = np.asarray(array, np.float32)
+    if array.ndim not in (2, 3):
+        raise ValueError(
+            f"expected a 2-D image or 3-D band stack, got shape "
+            f"{array.shape}"
+        )
+    return array.reshape((1, -1) + array.shape[-2:])
 
 
 def as_image(array, device):
-    """A 2-D ``(H, W)`` numpy image as a float32 ``(1, 1, H, W)`` tensor.
+    """A 2-D image or 3-D band stack (:func:`as_bchw`) as a float32
+    tensor on ``device``."""
+    return torch.as_tensor(as_bchw(array), device=device)
 
-    Band stacks (3-D, the multiband data of an ``rmf``) are not ported
-    yet and raise ``NotImplementedError``.
-    """
-    array = np.asarray(array, np.float32)
-    if array.ndim != 2:
-        raise NotImplementedError(
-            f"only 2-D images are ported yet, got shape {array.shape}"
-        )
-    return torch.as_tensor(array[np.newaxis, np.newaxis], device=device)
+
+def as_rmf(rmf, device):
+    """An energy redistribution matrix ``(C, K)`` as a float32 tensor on
+    ``device`` (``None`` stays ``None``)."""
+    if rmf is None:
+        return None
+    if torch.is_tensor(rmf):
+        return rmf.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.array(rmf, np.float32), device=device)
 
 
 class NPredModel:
@@ -74,12 +89,13 @@ class NPredModel:
 
     Parameters
     ----------
-    exposure : tensor ``(1, 1, H, W)``
-        Exposure on the (possibly upsampled) flux grid.
-    psf : tensor ``(1, 1, kh, kw)``, optional
-        Point spread function on the flux grid, flux-normalised.
-    rmf : optional
-        Not ported: anything but ``None`` raises.
+    exposure : tensor ``(1, C, H, W)``
+        Exposure on the (possibly upsampled) flux grid, ``C`` bands.
+    psf : tensor ``(1, C, kh, kw)`` or ``(1, 1, kh, kw)``, optional
+        Point spread function on the flux grid, flux-normalised (one
+        channel broadcasts over the bands).
+    rmf : tensor or array ``(C, K)``, optional
+        Energy redistribution matrix, folded after the sum pool.
     upsampling_factor : int, optional
         Flux grid oversampling: the forward sums the counts over each
         ``factor²`` block.
@@ -90,10 +106,9 @@ class NPredModel:
 
     def __init__(self, exposure, psf=None, rmf=None, upsampling_factor=None,
                  fft_shape=None):
-        _unported_rmf(rmf)
         self.exposure = exposure
         self.psf = psf
-        self.rmf = None
+        self.rmf = as_rmf(rmf, exposure.device)
         self.upsampling_factor = upsampling_factor
         self.psf_fft = None
         if psf is not None:
@@ -116,8 +131,8 @@ class NPredModel:
         bilinearly, the PSF divided by ``factor²``. With
         ``correct_exposure_edges`` the exposure is then divided by the
         PSF's response to a unit image, which falls off at the edges.
+        2-D arrays are images, 3-D ones band stacks (:func:`as_bchw`).
         """
-        _unported_rmf(rmf)
         device = resolve_device(device)
         exposure = as_image(exposure, device)
         psf = as_image(psf, device)
@@ -132,7 +147,7 @@ class NPredModel:
                 ones, kernel_fft(psf, ones.shape[-2:], shape), shape
             )
             exposure = exposure / weights
-        return cls(exposure=exposure, psf=psf,
+        return cls(exposure=exposure, psf=psf, rmf=rmf,
                    upsampling_factor=upsampling_factor, fft_shape=fft_shape)
 
     @property
@@ -173,6 +188,8 @@ class NPredModel:
                 npred, self._psf_fft(psf_scale), self.fft_shape)
         if self.upsampling_factor:
             npred = sum_pool(npred, self.upsampling_factor)
+        if self.rmf is not None:
+            npred = torch.einsum("bchw,ck->bkhw", npred, self.rmf)
         return torch.clamp(npred, min=0.0)
 
 
@@ -182,7 +199,7 @@ class NPredModels(dict):
 
     Parameters
     ----------
-    background : tensor ``(1, 1, H, W)``
+    background : tensor ``(1, K, H, W)``
     calibration : `NPredCalibration`, optional
         Its shift and log norm are taken from ``calibration_params`` at
         evaluation, else from the values it holds when the models are
@@ -247,18 +264,26 @@ class NPredModels(dict):
     def from_dataset_numpy(cls, dataset, components, calibration=None,
                            fft_shape=None, device=None):
         """Build one dataset's models from its dict (``exposure``,
-        ``psf``, ``background``; ``psf`` may be keyed by component)."""
-        _unported_rmf(dataset.get("rmf"))
+        ``psf``, ``background``, optionally ``rmf``; ``psf`` and ``rmf``
+        may be keyed by component, and a dict ``rmf`` without a
+        component's key raises ``ValueError``)."""
         device = resolve_device(device)
         values = []
         for name, component in components.items():
             psf = dataset["psf"]
             if isinstance(psf, dict):
                 psf = psf[name]
+            rmf = dataset.get("rmf")
+            if isinstance(rmf, dict):
+                if name not in rmf:
+                    raise ValueError(
+                        f"dict-form 'rmf' is missing component {name!r}"
+                    )
+                rmf = rmf[name]
             values.append((name, NPredModel.from_numpy(
                 exposure=dataset["exposure"], psf=psf,
                 upsampling_factor=component.upsampling_factor,
-                fft_shape=fft_shape, device=device,
+                fft_shape=fft_shape, rmf=rmf, device=device,
             )))
         background = as_image(dataset["background"], device)
         return cls(background, calibration=calibration, values=values)

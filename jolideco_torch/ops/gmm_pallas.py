@@ -569,30 +569,44 @@ _WEIGHTS_MARG = {"f32": gmm_hvp_marg_weights_cuda,
                  "bf16": gmm_hvp_marg_weights_bf16_cuda}
 
 
+def route(x):
+    """``"kernel"`` for 8x8 patch rows on a card, ``"plain"`` otherwise.
+
+    The kernels take d = 64. Rows of other patch sizes take the plain
+    scorer on whatever device they lie, the card included, as the JAX
+    package sends such a GMM to its XLA scorer (neither package has a
+    kernel for them). The rule reads the rows' width, never a failure:
+    an 8x8 row on a card always launches its kernel.
+    """
+    if dispatch(x) == "kernel" and x.shape[-1] == D:
+        return "kernel"
+    return "plain"
+
+
 def _score(x, bufs, marginalize, mode):
     if mode == "f32":
-        score = (gmm_score_rows_cuda if dispatch(x) == "kernel"
+        score = (gmm_score_rows_cuda if route(x) == "kernel"
                  else score_rows_plain)
         return score(x, bufs, marginalize)
-    score = (_SCORES_TC if dispatch(x) == "kernel"
+    score = (_SCORES_TC if route(x) == "kernel"
              else PLAIN_SCORES)[mode, marginalize]
     return score(x, bufs)
 
 
 def _unit(x, argmax, bufs):
-    if dispatch(x) == "kernel":
+    if route(x) == "kernel":
         return gmm_unit_map_cuda(x, argmax, bufs)
     return unit_map_plain(x, argmax, bufs)
 
 
 def _hvp(t, argmax, bufs):
-    if dispatch(t) == "kernel":
+    if route(t) == "kernel":
         return gmm_hvp_map_cuda(t, argmax, bufs)
     return hvp_map_plain(t, argmax, bufs)
 
 
 def _unit_marg(x, lse, bufs, mode):
-    if dispatch(x) == "kernel":
+    if route(x) == "kernel":
         unit = _UNITS_MARG[mode]
     else:
         unit = unit_marg_plain if mode == "f32" else PLAIN_UNITS[mode]
@@ -600,7 +614,7 @@ def _unit_marg(x, lse, bufs, mode):
 
 
 def _hvp_marg(t, x, lse, bufs, mode):
-    if dispatch(t) == "kernel":
+    if route(t) == "kernel":
         p, dp = _WEIGHTS_MARG[mode](x, t, lse, bufs)
         return gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs)
     return hvp_marg_plain(t, x, lse, bufs, mode)
@@ -717,18 +731,14 @@ def gmm_score_patches(x, bufs, marginalize=False, mode="f32"):
         Hessian action, which the forward's mode fixes
         (``config.gmm_mode()`` names the dial's). Patches other than 8x8,
         for which ``kernel_buffers`` makes no bf16 buffers, take ``"f32"``
-        in every mode.
+        in every mode, and the plain scorer on every device
+        (:func:`route`).
 
     Returns
     -------
     values : ``(N,)`` float32, differentiable twice with respect to ``x``
     argmax : ``(N,)`` int32
     """
-    if dispatch(x) == "kernel" and x.shape[1] != D:
-        raise NotImplementedError(
-            f"the patch scoring kernels take 8x8 patches (d = {D}), "
-            f"got d = {x.shape[1]}"
-        )
     _check_mode(mode)
     if x.shape[1] != D:
         mode = "f32"

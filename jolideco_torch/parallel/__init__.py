@@ -1,3 +1,3 @@
 """Stacked multi-observation losses."""
 
-from .stacked import StackedPoissonLoss  # noqa: F401
+from .stacked import DataValidationError, StackedPoissonLoss  # noqa: F401

@@ -7,8 +7,8 @@ common FFT shape, so the forward of every observation is one batched
 computation:
 
     flux -> calibration shift -> * exposure -> PSF convolution -> sum pool
-    -> clip -> + background * norm -> Poisson NLL with the precomputed
-    Stirling term
+    -> energy redistribution (RMF) -> clip -> + background * norm
+    -> Poisson NLL with the precomputed Stirling term
 
 A component with ``upsampling_factor > 1`` is folded on its finer grid:
 its exposures are upsampled bilinearly and its PSFs too (divided by
@@ -19,13 +19,26 @@ background by ``exp(log_background_norm)``; their static ``psf_scale``
 zooms are baked into the precomputed spectra, and their static weights
 multiply the per-observation terms.
 
+Observations may be band stacks: their arrays stack to ``(N, 1, C, H,
+W)`` (``C = 1`` for 2-D images), a PSF is 2-D or a ``(C, kh, kw)`` stack
+(one channel broadcasts over the bands), and datasets that carry an
+``rmf`` ``(C, K)`` (an array, or a dict keyed by component) stack it to
+``(N, C, K)`` per component, folded after the sum pool and before the
+clip on every evaluate path. Data that cannot stack (image shapes or
+band counts that differ, an ``rmf`` on some datasets only, components
+without a common FFT shape) raises ``ValueError``, on which the joint
+strategy falls back to per-dataset models; data that neither path can
+take (an RMF whose channels do not match the data) raises
+`DataValidationError`.
+
 Two convolution backends are ported: ``conv_mode="fft"``, a batched
 per-observation ``rfft2`` (cuFFT on the card), and ``conv_mode="pfft"``,
 the pair-packed matrix DFT (``ops/pallas_fft.py``): even and odd
 observations go pairwise through one complex transform, at a size that
-is a multiple of 128, with the images padded to multiples of 128; an
-odd last observation takes the ``rfft2`` path. Not ported: energy
-redistribution, the other convolution backends and the mesh paths.
+is a multiple of 128, with the images padded to multiples of 128, the
+bands of each pair flattened into the kernels' batch; an odd last
+observation takes the ``rfft2`` path. Not ported: the other convolution
+backends and the mesh paths.
 """
 
 import numpy as np
@@ -33,6 +46,7 @@ import torch
 
 from ..config import resolve_device
 from ..loss import poisson_nll, stirling_term_mean
+from ..models.npred import as_bchw
 from ..ops.fft import (
     build_kernel_stack,
     convolve_fft_precomputed,
@@ -46,7 +60,18 @@ from ..ops.pallas_fft import (
     pfft_size,
 )
 
-__all__ = ["StackedPoissonLoss"]
+__all__ = ["DataValidationError", "StackedPoissonLoss"]
+
+
+class DataValidationError(ValueError):
+    """The data is invalid, not merely unstackable.
+
+    The joint strategy takes a plain ``ValueError`` from the stacked
+    build as "cannot stack" and falls back to per-dataset models. This
+    type means the data is invalid for either path (an RMF whose channel
+    counts do not match the data, a dict RMF without a component), so
+    the build re-raises it rather than fall back.
+    """
 
 
 class StackedPoissonLoss:
@@ -54,13 +79,15 @@ class StackedPoissonLoss:
 
     Attributes
     ----------
-    counts, background : tensors ``(N, 1, 1, H, W)``
-    exposures : dict of component name -> ``(N, 1, 1, H, W)``
-    psf_ffts : dict of component name -> complex ``(N, 1, 1, fh, fw//2+1)``
+    counts, background : tensors ``(N, 1, K, H, W)``
+    exposures : dict of component name -> ``(N, 1, C, H, W)``
+    psf_ffts : dict of component name -> complex ``(N, 1, C, fh, fw//2+1)``
+        (or one channel, broadcast over the bands)
+    rmfs : dict of component name -> ``(N, C, K)``, or None
     stirling : ``(N,)`` precomputed Stirling terms
     conv_mode : ``"fft"`` or ``"pfft"``
     pfft_pairs : dict of component name -> the four float32 spectrum
-        planes ``(N // 2, 1, 1, n, n)`` of the observation pairs, or None
+        planes ``(N // 2, 1, C, n, n)`` of the observation pairs, or None
         (``"fft"``, or fewer than two observations)
     pfft_ns : dict of component name -> transform size ``n``
     static_shifts, static_log_norms : ``(N, 1, 2)`` and ``(N, 1)``, or None
@@ -72,7 +99,7 @@ class StackedPoissonLoss:
                  component_factors, fft_shape, component_names=None,
                  conv_mode="fft", pfft_pairs=None, pfft_ns=None,
                  weights=None, psf_scales=None, static_shifts=None,
-                 static_log_norms=None):
+                 static_log_norms=None, rmfs=None):
         self.counts = counts
         self.background = background
         self.exposures = dict(exposures)
@@ -96,6 +123,7 @@ class StackedPoissonLoss:
         self.psf_scales = None if psf_scales is None else tuple(psf_scales)
         self.static_shifts = static_shifts
         self.static_log_norms = static_log_norms
+        self.rmfs = dict(rmfs) if rmfs else None
 
     @property
     def n_datasets(self):
@@ -110,11 +138,14 @@ class StackedPoissonLoss:
 
         ``datasets`` maps names to dicts of ``counts``, ``psf`` (array,
         or dict keyed by component), ``exposure`` and ``background``
-        2-D arrays; ``calibrations`` (`NPredCalibrations`, optional) is
-        keyed like them. Components may have different upsampling
-        factors when the first needs the largest FFT shape (the JAX
-        package falls back to per-dataset models otherwise, which the
-        joint strategy here does not: the build raises ``ValueError``).
+        arrays (2-D images or 3-D band stacks) and optionally ``rmf``
+        (array or dict keyed by component); ``calibrations``
+        (`NPredCalibrations`, optional) is keyed like them. Components
+        may have different upsampling factors when the first needs the
+        largest FFT shape; otherwise, and for data that does not stack,
+        the build raises ``ValueError`` (on which the joint strategy
+        falls back to per-dataset models), and for invalid RMFs
+        `DataValidationError`.
         ``device`` as in ``config.resolve_device``: the first CUDA card
         by default, the CPU only when asked. ``row_shards`` (the JAX
         package's pencil-FFT mesh) is accepted for signature parity;
@@ -128,8 +159,6 @@ class StackedPoissonLoss:
                 f"conv_mode={conv_mode!r} is not ported yet; use 'fft' or "
                 "'pfft'"
             )
-        if any("rmf" in d for d in datasets.values()):
-            raise NotImplementedError("rmf is not ported yet")
         shapes = {np.asarray(d["counts"]).shape for d in datasets.values()}
         if len(shapes) != 1:
             raise ValueError(
@@ -137,6 +166,7 @@ class StackedPoissonLoss:
                 f"{shapes}"
             )
         names = list(datasets)
+        rmfs = _stack_rmfs(datasets, components, next(iter(shapes)))
 
         # the calibrations' static values: the psf_scale zoom is baked
         # into the spectra below, the shifts and log norms stand in for
@@ -155,8 +185,7 @@ class StackedPoissonLoss:
                 for n in names])
 
         def stack(key):
-            arr = np.stack([np.asarray(d[key], np.float32)
-                            for d in datasets.values()])[:, None, None]
+            arr = np.stack([as_bchw(d[key]) for d in datasets.values()])
             return torch.as_tensor(arr, device=device)
 
         counts = stack("counts")
@@ -175,7 +204,7 @@ class StackedPoissonLoss:
                 psf = dataset["psf"]
                 if isinstance(psf, dict):
                     psf = psf[name]
-                raw_psfs.append(np.asarray(psf, np.float32))
+                raw_psfs.append(as_bchw(psf))
 
             image_shape = tuple(factor * s for s in raw_exps.shape[-2:])
             kmax = (max(factor * p.shape[-2] for p in raw_psfs),
@@ -201,9 +230,7 @@ class StackedPoissonLoss:
                 kernels = [None] * len(raw_psfs)
                 for idxs in by_shape.values():
                     group = torch.as_tensor(
-                        np.stack([raw_psfs[i] for i in idxs])[:, None, None],
-                        device=device,
-                    )
+                        np.stack([raw_psfs[i] for i in idxs]), device=device)
                     padded = upsample_center_pad_kernels(
                         group, factor=factor, out_shape=kmax,
                         scales=None if scales is None
@@ -240,6 +267,19 @@ class StackedPoissonLoss:
                 )
                 pfft_ns[name] = n
 
+        if rmfs is not None:
+            # the input channels must match the exposure stack's bands
+            for name, rmf in rmfs.items():
+                c_in, c_exp = rmf.shape[-2], exposures[name].shape[-3]
+                if c_in != c_exp:
+                    raise DataValidationError(
+                        f"rmf for component {name!r} has {c_in} input "
+                        f"channels but the exposure/counts stack has "
+                        f"{c_exp} channels"
+                    )
+            rmfs = {name: torch.as_tensor(rmf, device=device)
+                    for name, rmf in rmfs.items()}
+
         return cls(
             counts=counts,
             background=background,
@@ -256,6 +296,7 @@ class StackedPoissonLoss:
             psf_scales=psf_scales,
             static_shifts=static_shifts,
             static_log_norms=static_log_norms,
+            rmfs=rmfs,
         )
 
     def _stack_calibration_params(self, calibration_params):
@@ -274,7 +315,7 @@ class StackedPoissonLoss:
     def _evaluate_batched(self, fluxes, calibration_params, conv_fn,
                           index=None):
         """Batched forward: ``conv_fn(name, x)`` convolves the
-        ``(N, 1, 1, H, W)`` stack ``x`` of component ``name``. With
+        ``(N, 1, C, H, W)`` stack ``x`` of component ``name``. With
         ``index`` (a slice) only those observations are evaluated."""
         sel = slice(None) if index is None else index
         shifts = log_norms = None
@@ -292,6 +333,9 @@ class StackedPoissonLoss:
                 x = shift_images(fluxes[idx], shifts, scale=factor)
             x = x * self.exposures[name][sel]
             y = sum_pool(conv_fn(name, x), factor)
+            if self.rmfs is not None:
+                y = torch.einsum("n...chw,nck->n...khw", y,
+                                 self.rmfs[name][sel])
             npred = npred + torch.clamp(y, min=0.0)
         if log_norms is None:
             npred = npred + background
@@ -343,8 +387,8 @@ class StackedPoissonLoss:
 
     def _conv_pfft_pair(self, name, xe, xo):
         """``xe``, ``xo`` ``(P, ..., H, W)`` padded to 128 multiples, the
-        leading dimensions flattened into the pair batch, convolved, and
-        cropped back."""
+        leading dimensions (the bands) flattened into the pair batch of
+        one pipeline call, convolved, and cropped back."""
         n = self.pfft_ns[name]
         lead = xe.shape[:-2]
         h, w = xe.shape[-2], xe.shape[-1]
@@ -362,3 +406,50 @@ class StackedPoissonLoss:
         """Weighted sum of per-observation losses."""
         return torch.sum(self.evaluate(fluxes, calibration_params)
                          * self.weights)
+
+
+def _stack_rmfs(datasets, components, counts_shape):
+    """The datasets' RMFs as one float32 ``(N, C, K)`` numpy stack per
+    component, or None when no dataset has one.
+
+    An RMF on some datasets only, or RMFs of different shapes, cannot
+    stack (``ValueError``); a dict RMF without a component's key and an
+    output channel count other than the counts' are invalid for either
+    path (`DataValidationError`).
+    """
+    present = ["rmf" in d for d in datasets.values()]
+    if not any(present):
+        return None
+    if not all(present):
+        raise ValueError(
+            "some datasets carry an 'rmf' and others do not; the stacked "
+            "path needs a homogeneous stack"
+        )
+    rmfs = {}
+    for name in components:
+        mats = []
+        for ds_name, dataset in datasets.items():
+            rmf = dataset["rmf"]
+            if isinstance(rmf, dict):
+                if name not in rmf:
+                    raise DataValidationError(
+                        f"dataset {ds_name!r}: dict-form 'rmf' is missing "
+                        f"component {name!r}"
+                    )
+                rmf = rmf[name]
+            mats.append(np.asarray(rmf, np.float32))
+        rmf_shapes = {m.shape for m in mats}
+        if len(rmf_shapes) != 1 or mats[0].ndim != 2:
+            raise ValueError(
+                f"stacked observations need one common 2-D rmf shape per "
+                f"component, got {rmf_shapes} for component {name!r}"
+            )
+        rmfs[name] = np.stack(mats)
+    n_out = counts_shape[-3] if len(counts_shape) >= 3 else 1
+    k_out = {m.shape[-1] for m in rmfs.values()}
+    if k_out != {n_out}:
+        raise DataValidationError(
+            f"rmf output channels {k_out} do not match the counts channel "
+            f"axis ({n_out})"
+        )
+    return rmfs

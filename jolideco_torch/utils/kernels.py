@@ -1,16 +1,17 @@
 """Analytic 2-D kernels (numpy).
 
-Copy of the JAX package's ``utils/kernels.py::gaussian_kernel_2d``, which
-cannot be imported from here without pulling in JAX. Semantics follow
-astropy's ``Gaussian2DKernel``: the default size is ``8 * sigma``
-rounded up to the next odd integer, ``mode="center"`` evaluates the
-profile at pixel centers, ``mode="oversample"`` averages over an
-``oversample x oversample`` subpixel grid, and kernels sum to one.
+Copy of the JAX package's ``utils/kernels.py`` (``gaussian_kernel_2d``,
+``tophat_kernel_2d``), which cannot be imported from here without
+pulling in JAX. Semantics follow astropy's ``Gaussian2DKernel`` and
+``Tophat2DKernel``: the default Gaussian size is ``8 * sigma`` rounded
+up to the next odd integer, ``mode="center"`` evaluates the profile at
+pixel centers, ``mode="oversample"`` averages over an ``oversample x
+oversample`` subpixel grid, and kernels sum to one.
 """
 
 import numpy as np
 
-__all__ = ["gaussian_kernel_2d"]
+__all__ = ["gaussian_kernel_2d", "tophat_kernel_2d"]
 
 
 def _default_size(width):
@@ -61,4 +62,31 @@ def gaussian_kernel_2d(sigma, x_size=None, y_size=None, mode="center",
     gx = np.exp(-(dx**2) / (2 * sigma**2)).mean(axis=1)
     gy = np.exp(-(dy**2) / (2 * sigma**2)).mean(axis=1)
     kernel = gy[:, None] * gx[None, :]
+    return kernel / kernel.sum()
+
+
+def tophat_kernel_2d(radius, x_size=None, y_size=None, mode="oversample",
+                     oversample=10):
+    """Normalised 2-D tophat (disk) kernel.
+
+    The default size is ``2 * radius`` rounded up, then up to odd, so a
+    fractional radius keeps the disk's outer ring. ``mode="oversample"``
+    anti-aliases the disk edge by subpixel averaging.
+    """
+    if x_size is None:
+        x_size = int(np.ceil(2 * radius))
+        x_size += 1 - x_size % 2
+    y_size = y_size or x_size
+
+    factor = _mode_factor(mode, oversample)
+    cx = (x_size - 1) / 2
+    cy = (y_size - 1) / 2
+    step = 1.0 / factor
+    offsets = (np.arange(factor) + 0.5) * step - 0.5
+
+    xs = (np.arange(x_size)[:, None] + offsets[None, :] - cx).reshape(-1)
+    ys = (np.arange(y_size)[:, None] + offsets[None, :] - cy).reshape(-1)
+    dist2 = ys[:, None] ** 2 + xs[None, :] ** 2
+    inside = (dist2 <= radius**2).astype(np.float64)
+    kernel = inside.reshape(y_size, factor, x_size, factor).mean(axis=(1, 3))
     return kernel / kernel.sum()

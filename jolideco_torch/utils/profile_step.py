@@ -25,7 +25,17 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--prior {gmm,multiscale,jitter,group,fraction,smooth}] [--out DIR]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--prior {gmm,multiscale,jitter,group,fraction,smooth}] [--bands N [--fallback]] [--sparse] [--out DIR]
+
+``--bands N`` swaps the main path's data for four event classes of
+``N``-band stacks at 1024² with the energy redistribution
+(:func:`multiband_setup`: King PSFs of 129² to 49², one shared 2-D flux
+from the data's estimate); ``--fallback`` drops the first class's RMF, so
+that the joint strategy falls back to per-dataset models. ``--sparse``
+adds 256 point sources to the main path's data and fits them with a
+``SparseSpatialFluxComponent`` beside the diffuse one
+(:func:`sparse_setup`). These are ``chip_smoke.py`` phase 11's paths;
+their tags join the files' names (``bandsN``, ``fallback``, ``sparse``).
 
 ``--prior`` swaps the main path's prior (``gmm``) for another of
 :func:`make_prior`: ``multiscale`` (``MultiScalePrior`` over three
@@ -88,16 +98,77 @@ def make_prior(kind, gmm, marginalize=False):
     return prior
 
 
+def multiband_setup(size=1024, n_bands=3, n_classes=4, psf_scale=1.0,
+                    fallback=False, device="cuda"):
+    """``chip_smoke.py`` phase 11 (a) and (b): ``n_classes`` event
+    classes of ``n_bands``-band stacks with the energy redistribution
+    (``bench_data.make_multiband_datasets``, simulated on ``device``),
+    the first class's RMF dropped with ``fallback``; and the one shared
+    2-D flux of the data's estimate (``bench_data.band_flux_estimate``).
+    """
+    from .bench_data import band_flux_estimate, make_multiband_datasets
+
+    datasets, _ = make_multiband_datasets(
+        n_classes=n_classes, size=size, n_bands=n_bands, psf_scale=psf_scale,
+        device=device)
+    if fallback:
+        datasets[next(iter(datasets))].pop("rmf")
+    return datasets, band_flux_estimate(datasets)
+
+
+def sparse_setup(n_obs=10, size=1024, psf_size=33, n_sources=256, seed=0,
+                 device="cuda"):
+    """``chip_smoke.py`` phase 11 (c): the main path's data with
+    ``n_sources`` point sources injected (``bench_data.inject_point_sources``,
+    simulated on ``device``), a PSF per component, the true sources, and
+    ``components(prior)``: ``"diffuse"`` under ``prior`` from the mean
+    estimate of the data before the sources were added (a model of the
+    field without them), beside ``"points"``, the sources started up to
+    half a pixel off in each axis at half their flux, under
+    ``UniformPrior``."""
+    from .. import (
+        FluxComponents,
+        SparseSpatialFluxComponent,
+        SpatialFluxComponent,
+        UniformPrior,
+    )
+    from .bench_data import inject_point_sources, make_datasets
+
+    field = make_datasets(n_obs=n_obs, size=size, psf_size=psf_size,
+                          seed=seed)
+    diffuse = SpatialFluxComponent.from_flux_init_datasets(
+        list(field.values()))
+    datasets, sources = inject_point_sources(field, n_sources=n_sources,
+                                             seed=seed + 1, device=device)
+    for dataset in datasets.values():
+        dataset["psf"] = {"diffuse": dataset["psf"],
+                          "points": dataset["psf"]}
+    rng = np.random.RandomState(seed + 2)
+    start = {"flux": 0.5 * sources["flux"],
+             "x_pos": sources["x_pos"] + rng.uniform(-0.5, 0.5, n_sources),
+             "y_pos": sources["y_pos"] + rng.uniform(-0.5, 0.5, n_sources)}
+
+    def components(prior):
+        start_diffuse = diffuse.copy()
+        start_diffuse.prior = prior
+        return FluxComponents({
+            "diffuse": start_diffuse,
+            "points": SparseSpatialFluxComponent(
+                shape=(size, size), prior=UniformPrior(), **start)})
+
+    return datasets, sources, components
+
+
 def build(n_obs, size, marginalize=False, conv_mode="fft",
           update_strategy="joint", upsampling=1, calibrations=False,
-          prior="gmm"):
+          prior="gmm", bands=0, fallback=False, sparse=False):
     """``step()`` of the main path on the first card, and ``probe()``,
     the flux-error probe at the current parameters; ``prior`` a kind of
     :data:`PRIORS`. Under
     ``update_strategy="sequential"`` (with the JAX package's default
     ``trace_every=1``) ``step()`` is one epoch: a step per observation,
-    then the epoch's trace row. ``upsampling`` and ``calibrations`` as
-    the module's flags."""
+    then the epoch's trace row. ``upsampling``, ``calibrations``,
+    ``bands``, ``fallback`` and ``sparse`` as the module's flags."""
     from .. import (
         GaussianMixtureModel,
         MAPDeconvolver,
@@ -107,16 +178,24 @@ def build(n_obs, size, marginalize=False, conv_mode="fft",
     )
     from .bench_data import make_datasets
 
-    datasets = make_datasets(n_obs=n_obs, size=size, psf_size=33, seed=0)
     prior = make_prior(prior, GaussianMixtureModel.from_registry(
         "astro-snr-v1"), marginalize=marginalize)
-    if upsampling > 1 or calibrations:
-        component = SpatialFluxComponent.from_flux_init_datasets(
-            list(datasets.values()), upsampling_factor=upsampling,
-            prior=prior)
+    if bands:
+        datasets, estimate = multiband_setup(size, bands, fallback=fallback)
+        component = SpatialFluxComponent.from_numpy(estimate, prior=prior)
+    elif sparse:
+        datasets, _, components = sparse_setup(n_obs, size)
+        component = components(prior)
     else:
-        component = SpatialFluxComponent.from_numpy(
-            np.ones((size, size), np.float32), prior=prior)
+        datasets = make_datasets(n_obs=n_obs, size=size, psf_size=33,
+                                 seed=0)
+        if upsampling > 1 or calibrations:
+            component = SpatialFluxComponent.from_flux_init_datasets(
+                list(datasets.values()), upsampling_factor=upsampling,
+                prior=prior)
+        else:
+            component = SpatialFluxComponent.from_numpy(
+                np.ones((size, size), np.float32), prior=prior)
     cals = None
     if calibrations:
         cals = NPredCalibrations({
@@ -219,6 +298,9 @@ def main():
     parser.add_argument("--upsampling", type=int, default=1)
     parser.add_argument("--calibrations", action="store_true")
     parser.add_argument("--prior", choices=PRIORS, default="gmm")
+    parser.add_argument("--bands", type=int, default=0)
+    parser.add_argument("--fallback", action="store_true")
+    parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default="chiprun_out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -232,8 +314,12 @@ def main():
 
     step, probe = build(args.n_obs, args.size, args.marginalize,
                         args.conv_mode, args.update_strategy,
-                        args.upsampling, args.calibrations, args.prior)
-    suffix = ("_marg" if args.marginalize else "") + (
+                        args.upsampling, args.calibrations, args.prior,
+                        args.bands, args.fallback, args.sparse)
+    suffix = (f"_bands{args.bands}" if args.bands else "") + (
+        "_fallback" if args.fallback else "") + (
+        "_sparse" if args.sparse else "") + (
+        "_marg" if args.marginalize else "") + (
         "_pfft" if args.conv_mode == "pfft" else "") + (
         f"_up{args.upsampling}" if args.upsampling > 1 else "") + (
         "_cal" if args.calibrations else "") + (

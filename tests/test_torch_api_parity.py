@@ -248,9 +248,11 @@ def test_public_names_of_the_jax_package_exist():
     for name in jj.__dict__:
         if not name.startswith("_") and name[0].isupper():
             assert hasattr(jt, name), name
-    with pytest.raises(NotImplementedError):
-        jt.SparseSpatialFluxComponent(None)
+    sparse = jt.SparseSpatialFluxComponent([1.0], [2.0], [3.0], (4, 5))
+    assert sparse.shape == (1, 1, 4, 5)
     assert jt.SparseSpatialFluxComponent.is_sparse is True
+    assert jt.parallel.DataValidationError is \
+        jt.parallel.stacked.DataValidationError
     assert set(jt.priors.PRIOR_REGISTRY) == set(jj.priors.PRIOR_REGISTRY)
 
     wcs = {"CTYPE1": "RA---TAN"}

@@ -431,35 +431,11 @@ def test_interop_carries_a_jax_run_with_calibrations(datasets, jax_runs):
 
 
 def test_remaining_forward_model_options_raise():
-    """What the rest of the forward model's breadth still refuses: the
-    energy redistribution, band stacks, sparse components, the joint
-    strategy's per-dataset fallback and the calibrations' file I/O."""
-    ones = np.ones((16, 16), np.float32)
-    dataset = {"counts": ones, "psf": ones[:3, :3] / 9, "exposure": ones,
-               "background": ones}
-    comp = jt.SpatialFluxComponent.from_numpy(ones)
-    with pytest.raises(NotImplementedError, match="rmf"):
-        TStacked.from_datasets({"a": dict(dataset, rmf=np.eye(1))},
-                               jt.FluxComponents({"flux": comp}),
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="rmf"):
-        NPredModels.from_dataset_numpy(dict(dataset, rmf=np.eye(1)),
-                                       {"flux": comp}, device="cpu")
-    with pytest.raises(NotImplementedError, match="2-D images"):
-        PoissonLoss.from_datasets(
-            {"a": dict(dataset, counts=np.ones((2, 16, 16)))},
-            {"flux": comp}, device="cpu")
-    with pytest.raises(NotImplementedError, match="SparseSpatialFlux"):
-        jt.models.SparseSpatialFluxComponent(flux=ones, x_pos=[1],
-                                             y_pos=[1])
-    # components of factors 1 then 2 have no common FFT shape: the JAX
-    # package falls back to per-dataset models, the port refuses
-    comps = {"a": jt.SpatialFluxComponent.from_numpy(ones),
-             "b": jt.SpatialFluxComponent.from_numpy(ones,
-                                                     upsampling_factor=2)}
-    deco = jt.MAPDeconvolver(update_strategy="joint", device="cpu")
-    with pytest.raises(NotImplementedError, match="per-dataset"):
-        deco.build_loss({"a": dataset}, components=comps)
+    """What the forward model still refuses: the calibrations' file I/O
+    (M16). The energy redistribution, band stacks, sparse components and
+    the joint strategy's per-dataset fallback are ported
+    (``tests/test_torch_multiband.py``, ``tests/test_torch_sparse.py``,
+    ``tests/test_torch_fallback.py``)."""
     cals = jt.NPredCalibrations({"a": jt.NPredCalibration()})
     with pytest.raises(NotImplementedError, match="read"):
         jt.NPredCalibrations.read("calibrations.yaml")

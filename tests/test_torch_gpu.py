@@ -338,16 +338,35 @@ def test_row_map_any_components_per_tile(device, period):
 
 
 def test_patch_kernels_take_only_8x8_patches(device):
+    """A 16x16 GMM is scored on the card by the plain scorer: K5 (and
+    every patch kernel) never launched, its values and gradient the
+    CPU's."""
     from jolideco_torch.ops import gmm_pallas as gp
     from jolideco_torch.utils.interop import gmm_from_arrays
 
     rs = np.random.RandomState(2)
-    covariances = np.stack([a @ a.T / 16 + 0.1 * np.eye(16)
-                            for a in rs.randn(3, 16, 16)])
-    gmm4 = gmm_from_arrays(rs.randn(3, 16), covariances, np.ones(3) / 3, 2)
-    x = torch.zeros((8, 16), device=device)
-    with pytest.raises(NotImplementedError):
-        gp.gmm_score_patches(x, gmm4.kernel_buffers(device))
+    covariances = np.stack([a @ a.T / 256 + 0.1 * np.eye(256)
+                            for a in rs.randn(3, 256, 256)])
+    gmm16 = gmm_from_arrays(0.1 * rs.randn(3, 256), covariances,
+                            np.ones(3) / 3, 8)
+    rows = rs.randn(40, 256).astype(np.float32)
+    out = {}
+    for dev in (device, "cpu"):
+        x = torch.as_tensor(rows, device=dev).requires_grad_(True)
+        gp.reset_counters()
+        values, _ = gp.gmm_score_patches(x, gmm16.kernel_buffers(dev))
+        values.sum().backward()
+        launches = [fn.launches for fn in (
+            gp.gmm_score_rows_cuda, gp.gmm_score_rows_tc_cuda,
+            gp.gmm_unit_map_cuda, gp.gmm_hvp_map_cuda)]
+        out[str(dev)] = (values.detach().cpu(), x.grad.cpu(),
+                         gp.score_rows_plain.calls, launches)
+    card, cpu = out[str(device)], out["cpu"]
+    assert card[2] == cpu[2] == 1
+    assert card[3] == [0, 0, 0, 0]
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(card[1], cpu[1], rtol=0,
+                               atol=1e-5 * float(cpu[1].abs().max()))
 
 
 @pytest.mark.parametrize("dial,tc", [("high", True), ("highest", False)])

@@ -418,11 +418,13 @@ def test_npred_models_match_jax(datasets):
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"upsampling_factor": 2}, "upsampling_factor"),
-    ({"rmf": np.eye(1)}, "rmf"),
+    ({"rmf": np.array([[0.8, 0.2], [0.1, 0.9]], np.float32)}, "rmf"),
 ], ids=["upsampling_factor", "rmf"])
 def test_npred_model_raises_on_unported_options(kwargs, match):
-    """``rmf`` still raises; ``upsampling_factor`` and a calibration are
-    ported, and held against the JAX package (rtol 1e-5, float32 FFTs)."""
+    """``upsampling_factor``, an ``rmf`` (over a two-band stack), band
+    stacks and a calibration are ported, and held against the JAX
+    package (rtol 1e-5, float32 FFTs); a 4-D array raises the JAX
+    package's ``ValueError``."""
     from jolideco_tpu.models import NPredCalibration as JNPredCalibration
     from jolideco_tpu.models import NPredModel as JNPredModel
     from jolideco_tpu.models import NPredModels as JNPredModels
@@ -430,20 +432,29 @@ def test_npred_model_raises_on_unported_options(kwargs, match):
     ones = np.ones((16, 16), np.float32)
     psf = gaussian_kernel_2d(1.0, x_size=3, y_size=3).astype(np.float32)
     options = {"upsampling_factor": None, **kwargs}
+    rs = np.random.RandomState(0)
     if match == "rmf":
-        with pytest.raises(NotImplementedError, match=match):
-            NPredModel.from_numpy(ones, psf, device="cpu", **options)
+        exposure = rs.uniform(0.5, 1.5, (2, 16, 16)).astype(np.float32)
+        psf_bands = np.stack([psf, gaussian_kernel_2d(
+            1.5, x_size=5, y_size=5)[1:-1, 1:-1].astype(np.float32)])
+        flux = rs.uniform(0.5, 2.0, (1, 1, 16, 16)).astype(np.float32)
+        for psf_arg in (psf_bands, psf):
+            got = NPredModel.from_numpy(exposure, psf_arg, device="cpu",
+                                        **options)(torch.as_tensor(flux))
+            want = JNPredModel.from_numpy(exposure, psf_arg, **options)(
+                jnp.asarray(flux))
+            assert tuple(got.shape) == want.shape == (1, 2, 16, 16)
+            assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
     else:
-        flux = np.random.RandomState(0).uniform(
-            0.5, 2.0, (1, 1, 32, 32)).astype(np.float32)
+        flux = rs.uniform(0.5, 2.0, (1, 1, 32, 32)).astype(np.float32)
         got = NPredModel.from_numpy(ones, psf, device="cpu", **options)(
             torch.as_tensor(flux))
         want = JNPredModel.from_numpy(ones, psf, **options)(
             jnp.asarray(flux))
         assert tuple(got.shape) == want.shape == (1, 1, 16, 16)
         assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="2-D images"):
-        NPredModel.from_numpy(np.ones((2, 16, 16)), psf,
+    with pytest.raises(ValueError, match="band stack"):
+        NPredModel.from_numpy(np.ones((1, 2, 16, 16)), psf,
                               upsampling_factor=None, device="cpu")
     # a calibration: the flux shifted, the background scaled
     model_t = NPredModel.from_numpy(ones, psf, None, device="cpu")
