@@ -151,7 +151,16 @@ Phases, each printing one or more lines:
    diffuse component, 20 joint steps (the median position error falls)
    and the probe; (d) a GMM of 16x16 patches on the plain scorer, no
    GMM kernel launched; (e) small runs of (a)-(d) and the sparse
-   example, card against the CPU's plain path.
+   example, card against the CPU's plain path;
+12. the command line and the files: the main path's ten datasets
+   written to FITS, run through the body of ``jolideco-torch run``
+   (``jolideco_torch.cli.run_config``: joint, 20 epochs with a trace row
+   each, a checkpoint each epoch, ``compute_error``) with exact counts
+   (K1 split 40, K2 20, K5 split, K6 and K7 once), 20 checkpoint files
+   named in the trace, the FITS and ASDF outputs and the last checkpoint
+   holding the flux (and the error) bit for bit and reading back within
+   one unit in the last place, the click command in process on a YAML
+   configuration, and epochs/s with and without checkpoints.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -194,9 +203,10 @@ under both dials, a ``{"default_dial": ...}`` JSON line with the bf16
 kernels' checks and phase 7's paths, a ``{"default_entry": ...}`` JSON
 line with phase 8's numbers, an ``{"upsampled": ...}`` JSON line with
 phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a
-``{"forward_model": ...}`` JSON line with phase 11's, a JSON line with
-each kernel's numbers (thirty-three, each with its launches in phase
-9's three runs at the 2048² flux and in phase 10's and 11's runs) and,
+``{"forward_model": ...}`` JSON line with phase 11's, an ``{"io": ...}``
+JSON line with phase 12's, a JSON line with each kernel's numbers
+(thirty-three, each with its launches in phase 9's three runs at the
+2048² flux and in phase 10's, 11's and 12's runs) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -4451,6 +4461,241 @@ def phase_forward_model(torch, device, card):
     return out
 
 
+# Phase 12: the command line and the files. The main path as a run
+# configuration (its ten 1024^2 datasets in FITS files, the GMM prior of
+# phase 3), run through jolideco_torch.cli with a checkpoint each epoch and
+# the flux-error probe, its outputs read back. Each rate is the median of
+# IO_REPEATS runs.
+IO_EPOCHS, IO_REPEATS = 20, 3
+
+
+def io_run_config(folder, specs, component_config, checkpoint_path=None):
+    """The run configuration of phase 12: the joint strategy, ``IO_EPOCHS``
+    epochs each with a trace row, lr 0.1, the probe at the end, the card by
+    default; a checkpoint each epoch under ``checkpoint_path``."""
+    deconvolver = {"update_strategy": "joint", "n_epochs": IO_EPOCHS,
+                   "trace_every": 1, "learning_rate": 0.1,
+                   "compute_error": True}
+    if checkpoint_path is not None:
+        deconvolver["checkpoint_path"] = str(checkpoint_path)
+    return {"datasets": specs, "components": {"flux": component_config},
+            "deconvolver": deconvolver}
+
+
+def phase_io(torch, device, card):
+    """Phase 12: the CLI's ``run`` at the main path, the files it writes,
+    and what reading them gives back.
+
+    The ten datasets of ``bench_data.make_datasets`` (seed 0) go into FITS
+    files, one image HDU a key, and the initial flux into a component FITS
+    file; the run configuration names them. ``run_config`` (the body of
+    ``jolideco-torch run``) runs it with a checkpoint each epoch and
+    ``compute_error`` and writes the result to FITS (and to ASDF where
+    pyyaml is there), counts set to zero just before and read just after:
+    K1 split twice an epoch (the step and the trace row), K2 once, K5
+    split, K6 and K7 once in the probe, the plain versions never. Then: 20
+    checkpoint files, named in the trace's ``filename``; each output file
+    holds the in-memory flux (and, in ASDF, its error) bit for bit, and
+    reading it gives the flux within one unit in the last place (a log flux
+    comes back as ``exp(log(v))``), the error bit for bit, the
+    configuration as the format keeps it; ``read_checkpoint(19)`` the final
+    flux likewise. Where click is there, the ``run`` command itself, in
+    process, on a YAML configuration. Last, epochs/s with and without
+    checkpoints (median of ``IO_REPEATS`` runs each) and the write's ms per
+    epoch. Whether pyyaml and click are installed is decided once, before
+    anything runs; the ASDF and YAML parts are left out without pyyaml, the
+    command without click, and the line says so."""
+    import importlib.util
+    import shutil
+
+    from jolideco_torch import (
+        GMMPatchPrior,
+        MAPDeconvolver,
+        MAPDeconvolverResult,
+        SpatialFluxComponent,
+        config,
+    )
+    from jolideco_torch.cli import run_config
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+    from jolideco_torch.utils.io.fits import _config_from_hdu, _config_to_hdu
+    from jolideco_torch.utils.io.minifits import (
+        ImageHDU,
+        read_hdulist,
+        write_hdulist,
+    )
+
+    check(config.gmm_precision() == "high", "phase 12 runs the default dial")
+    has_yaml = importlib.util.find_spec("yaml") is not None
+    has_click = importlib.util.find_spec("click") is not None
+    left_out = []
+    if not has_yaml:
+        left_out.append("checkpoints, the ASDF output and the YAML "
+                        "configuration (pyyaml is not installed)")
+    if not has_click:
+        left_out.append("the click command (click is not installed)")
+    mode = config.gmm_mode()
+    k1, k5 = K1_KERNELS[mode], K5_KERNELS[mode]
+    folder = ROOT / "build" / "phase12"
+    shutil.rmtree(folder, ignore_errors=True)
+    (folder / "data").mkdir(parents=True)
+    out = {"card": card, "pyyaml": has_yaml, "click": has_click,
+           "left_out": left_out}
+
+    # 1. the inputs
+    t0 = time.perf_counter()
+    specs = {}
+    for name, dataset in make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33,
+                                       seed=0).items():
+        path = folder / "data" / f"{name}.fits"
+        write_hdulist([ImageHDU()] + [ImageHDU(data=value, name=key)
+                                      for key, value in dataset.items()],
+                      path)
+        specs[name] = {"filename": str(path)}
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    component = SpatialFluxComponent.from_numpy(
+        np.ones((FIELD, FIELD), np.float32),
+        prior=GMMPatchPrior(gmm=astro, stride=4, cycle_spin=True))
+    component.write(folder / "flux-init.fits")
+    component_config = component.to_dict()
+    component_config["flux_upsampled"] = str(folder / "flux-init.fits")
+    out["write_inputs_seconds"] = time.perf_counter() - t0
+
+    def checkpoints_at(tag):
+        return (folder / f"checkpoints-{tag}") if has_yaml else None
+
+    # 2. the counted run, through the CLI's body
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    checkpoints = checkpoints_at("main")
+    output = folder / "result.fits"
+    reset_counts()
+    result = run_config(io_run_config(folder, specs, component_config,
+                                      checkpoints), output=output)
+    launches, plain_calls = counts()
+    expected = expect(gmm_fused_bwd=IO_EPOCHS, gmm_unit_map=1,
+                      gmm_hvp_map=1, **{k1: 2 * IO_EPOCHS, k5: 1})
+    check(launches == expected, f"phase 12: launches {launches}, not "
+          f"{expected}")
+    check(plain_calls == 0, f"phase 12: plain versions ran {plain_calls} "
+          "times")
+    out.update(launches=launches, plain_calls=plain_calls,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    flux = result.components["flux"].flux_upsampled_numpy
+    error = result.components["flux"].flux_upsampled_error_numpy
+    check(bool(np.isfinite(flux).all() and (flux > 0).all()
+               and np.isfinite(error).all() and (error > 0).all()),
+          "phase 12: flux or errors not finite and positive")
+    off = [tuple(t.shape) for t in device_tensors(result.components)
+           if t.device != device]
+    check(not off, f"phase 12: component tensors off the card: {off}")
+    trace = result.trace_loss
+    names = [MAPDeconvolver._default_checkpoint_filename.format(epoch=e)
+             for e in range(IO_EPOCHS)] if has_yaml else [""] * IO_EPOCHS
+    check(len(trace) == IO_EPOCHS and list(trace["filename"]) == names,
+          f"phase 12: trace filenames {list(trace['filename'])}")
+    if has_yaml:
+        files = sorted(p.name for p in checkpoints.iterdir())
+        check(files == sorted(names), f"phase 12: checkpoint files {files}")
+
+    # 3. read back
+    def within_ulp(got, want):
+        return bool(np.all(np.abs(got - want) <= np.spacing(want)))
+
+    hdus = {hdu.name: hdu for hdu in read_hdulist(output)}
+    check(np.array_equal(hdus["FLUX"].data, flux), "phase 12: the FITS "
+          "output does not hold the flux bit for bit")
+    back = MAPDeconvolverResult.read(output)
+    check(back.components["flux"].flux_upsampled.device == device,
+          "phase 12: the read result is not on the card")
+    reads = {"fits_flux_ulp": within_ulp(
+        back.components["flux"].flux_upsampled_numpy, flux),
+        "fits_config": back.config == _config_from_hdu(
+            _config_to_hdu(result.config)),
+        "fits_trace": back.trace_loss.to_dict() == trace.to_dict()}
+    if has_yaml:
+        from jolideco_torch.utils.io.asdf_lite import read_asdf
+
+        result.write(folder / "result.asdf")
+        tree = read_asdf(folder / "result.asdf")["components"]["flux"]
+        reads["asdf_file_bits"] = bool(
+            np.array_equal(tree["flux_upsampled"], flux)
+            and np.array_equal(tree["flux_upsampled_error"], error))
+        back = MAPDeconvolverResult.read(folder / "result.asdf")
+        reads["asdf_flux_ulp"] = within_ulp(
+            back.components["flux"].flux_upsampled_numpy, flux)
+        reads["asdf_error_bits"] = bool(np.array_equal(
+            back.components["flux"].flux_upsampled_error_numpy, error))
+        reads["asdf_config"] = back.config == result.config
+        reads["asdf_trace"] = back.trace_loss.to_dict() == trace.to_dict()
+        last = read_asdf(checkpoints / names[-1])["components"]["flux"]
+        reads["checkpoint_file_bits"] = bool(np.array_equal(
+            last["flux_upsampled"], flux))
+        last = result.read_checkpoint(IO_EPOCHS - 1)
+        reads["checkpoint_flux_ulp"] = within_ulp(
+            last.components["flux"].flux_upsampled_numpy, flux)
+        reads["checkpoint_trace_rows"] = len(last.trace_loss) == (
+            IO_EPOCHS - 1)
+    failed = [name for name, ok in reads.items() if not ok]
+    check(not failed, f"phase 12: read-back checks failed: {failed}")
+    out["reads"] = reads
+
+    # the command itself, in process, on a YAML configuration
+    if has_yaml and has_click:
+        from jolideco_torch.cli import cli
+        from jolideco_torch.utils.io.yaml import write_yaml
+
+        config_path = folder / "run.yaml"
+        write_yaml(config_path, io_run_config(
+            folder, specs, component_config, checkpoints_at("cli")),
+            overwrite=True)
+        t0 = time.perf_counter()
+        cli.main(["--log-level", "warning", "run", str(config_path),
+                  "--output", str(folder / "cli.fits")],
+                 standalone_mode=False)
+        out["cli_seconds"] = time.perf_counter() - t0
+        cli_flux = read_hdulist(folder / "cli.fits")[1].data
+        out["cli_flux_share"] = flux_share(cli_flux, flux)
+        check(out["cli_flux_share"] <= SMALL_FLUX_RTOL, f"phase 12: the "
+              f"command's flux against run_config's "
+              f"{out['cli_flux_share']:.3g} of the max-abs")
+
+    # 4. rates with and without checkpoints
+    seconds = {"with": [], "without": []}
+    for i in range(IO_REPEATS):
+        for tag in ("without", "with") if i % 2 else ("with", "without"):
+            path = checkpoints_at(f"{tag}-{i}") if tag == "with" else None
+            if tag == "with" and path is None:
+                continue
+            timed = run_config(io_run_config(folder, specs,
+                                             component_config, path))
+            seconds[tag].append(timed.train_seconds)
+    rates = {tag: [IO_EPOCHS / s for s in values]
+             for tag, values in seconds.items() if values}
+    out["epochs_per_s"] = {tag: float(np.median(r))
+                           for tag, r in rates.items()}
+    out["epochs_per_s_repeats"] = rates
+    if "with" in rates:
+        out["write_ms_per_epoch"] = 1e3 * (
+            float(np.median(seconds["with"]))
+            - float(np.median(seconds["without"]))) / IO_EPOCHS
+    print(f"phase 12 jolideco-torch run (run_config) {N_OBS}x{FIELD}^2 "
+          f"K=200 joint, {IO_EPOCHS} epochs, trace_every=1, "
+          f"compute_error on {card}: launches {nonzero(launches)}; plain "
+          f"calls {plain_calls}; {len(names)} checkpoints; read-backs "
+          f"{reads}; epochs/s " + ", ".join(
+              f"{tag} checkpoints {out['epochs_per_s'][tag]:.3f} (runs "
+              + ", ".join(f"{r:.3f}" for r in rates[tag]) + ")"
+              for tag in rates)
+          + (f"; the write {out['write_ms_per_epoch']:.3f} ms an epoch"
+             if "write_ms_per_epoch" in out else "")
+          + (f"; the click command's flux against run_config's "
+             f"{out['cli_flux_share']:.3g} of the max-abs"
+             if "cli_flux_share" in out else "")
+          + (f"; left out: {'; '.join(left_out)}" if left_out else ""))
+    return out
+
+
 def main():
     try:
         import torch
@@ -4481,6 +4726,7 @@ def main():
     upsampled = phase_upsampled(torch, device, card)
     priors = phase_priors(torch, device, card)
     forward_model = phase_forward_model(torch, device, card)
+    io = phase_io(torch, device, card)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -4780,10 +5026,12 @@ def main():
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))
     print(json.dumps({"forward_model": forward_model}))
+    print(json.dumps({"io": io}))
     # launches_phase9: each kernel's launches in phase 9's three runs at
     # the 2048^2 flux (the joint run, the probe run, the quick start);
     # launches_phase10: in phase 10's runs; launches_phase11: in phase
-    # 11's (the last of each timed reading's repeats)
+    # 11's (the last of each timed reading's repeats); launches_phase12:
+    # in phase 12's counted run of the command line's body
     phase9 = {run: upsampled[run]["launches"]
               for run in ("joint", "probe", "sequential")}
     phase10 = {run: priors[run]["launches"] for run in (
@@ -4801,7 +5049,8 @@ def main():
          "library_ms": library[name], **extra.get(name, {}),
          "launches_phase9": {run: n[name] for run, n in phase9.items()},
          "launches_phase10": {run: n[name] for run, n in phase10.items()},
-         "launches_phase11": {run: n[name] for run, n in phase11.items()}}
+         "launches_phase11": {run: n[name] for run, n in phase11.items()},
+         "launches_phase12": io["launches"][name]}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -58,6 +58,15 @@ directory written by ``MAPDeconvolverResult.save_state`` with the
 optimiser's moments and the generator's state, so ``n`` epochs and then
 ``m`` more give the bits of ``n + m`` epochs in one run.
 
+With ``checkpoint_path`` every epoch ends with a result file,
+``checkpoint-epoch-{epoch}.asdf`` in that directory, written after the
+epoch's steps and before its trace row, whose ``filename`` names it: the
+configuration, the trace so far and the components and calibrations at the
+epoch's parameters, as the JAX package writes them. The write copies the
+parameters to the host (one synchronisation an epoch) and changes nothing
+the run goes on from. ``MAPDeconvolverResult.write`` and ``read`` keep a
+result in FITS or ASDF, in the JAX package's layout.
+
 With ``compute_error=True`` the run ends with one Hessian probe at the
 trained fluxes (``TotalLoss.fluxes_error``): flux errors
 ``sqrt(1 / (H · 1))`` per component, on the patch-level GMM scorer's
@@ -72,15 +81,15 @@ keeps the values the run received). The optimiser's leaves are those
 of the JAX package's params pytree ``{"components": ..., "calibrations":
 ...}``, in its order (keys sorted at every level).
 
-Not ported, raising ``NotImplementedError``: ``checkpoint_path`` (the
-per-epoch result files), a device ``mesh`` and ``conv_mode`` values
-other than ``"auto"``, ``"fft"`` and ``"pfft"``.
+Not ported, raising ``NotImplementedError``: a device ``mesh`` and
+``conv_mode`` values other than ``"auto"``, ``"fft"`` and ``"pfft"``.
 Every keyword of the JAX package's signatures is accepted, so that a
 call written for it fails only on what is not ported.
 """
 
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -99,6 +108,7 @@ from .utils.checkpoint import (
     restore_train_state,
     save_train_state,
 )
+from .utils.misc import format_class_str
 from .utils.table import Table
 
 log = logging.getLogger(__name__)
@@ -314,8 +324,9 @@ class MAPDeconvolver:
     optimizer_kwargs : dict, optional
         Torch-style keys: ``lr``, ``betas``, ``eps``, ``momentum``,
         ``nesterov``.
-    checkpoint_path : str, optional
-        Not ported: anything but ``None`` raises ``NotImplementedError``.
+    checkpoint_path : str or Path, optional
+        Directory (made if missing) for a result file each epoch,
+        ``checkpoint-epoch-{epoch}.asdf`` (needs pyyaml).
     update_strategy : {"sequential", "joint"}
         ``"sequential"``: one optimiser step per dataset per epoch;
         ``"joint"``: one step per epoch on the summed loss.
@@ -347,6 +358,7 @@ class MAPDeconvolver:
     """
 
     _default_flux_component = "flux"
+    _default_checkpoint_filename = "checkpoint-epoch-{epoch}.asdf"
 
     def __init__(self, n_epochs=1_000, beta=1, learning_rate=0.1,
                  compute_error=False, stop_early=False,
@@ -357,7 +369,6 @@ class MAPDeconvolver:
                  device=None, mesh=None, conv_mode="auto", fft_shape=None,
                  shard_prior=True):
         unported = {
-            "checkpoint_path": checkpoint_path is not None,
             "mesh": mesh is not None,
             f"conv_mode={conv_mode!r}":
                 conv_mode not in ("auto", "fft", "pfft"),
@@ -387,7 +398,10 @@ class MAPDeconvolver:
         self.scan_epochs = scan_epochs
         self.scan_chunk = None if scan_chunk is None else int(scan_chunk)
         self.mesh = None
-        self.checkpoint_path = None
+        if checkpoint_path is not None:
+            checkpoint_path = Path(checkpoint_path)
+            checkpoint_path.mkdir(exist_ok=True, parents=True)
+        self.checkpoint_path = checkpoint_path
         self.shard_prior = bool(shard_prior)
         self.optimizer_type = optimizer_type
         optimizer_kwargs = dict(optimizer_kwargs or {})
@@ -430,8 +444,12 @@ class MAPDeconvolver:
             else list(self.fft_shape),
             "mesh": None,
             "shard_prior": self.shard_prior,
-            "checkpoint_path": None,
+            "checkpoint_path": None if self.checkpoint_path is None
+            else str(self.checkpoint_path),
         }
+
+    def __str__(self):
+        return format_class_str(instance=self)
 
     def _flux_components(self, components):
         if isinstance(components, (SpatialFluxComponent,
@@ -520,6 +538,23 @@ class MAPDeconvolver:
             log.warning(f"Cannot stack observations ({exc}); falling back "
                         "to per-dataset forward models")
             return None
+
+    def _write_checkpoint(self, trainer, calibrations, filename):
+        """Write the epoch's result file: the components and calibrations
+        at the trainer's parameters (copies: the optimiser's tensors stay
+        as they are), the trace so far and the configuration."""
+        trainer.components.set_parameters(trainer.params)
+        if calibrations and trainer.calibration_params:
+            calibrations.set_parameters(trainer.calibration_params)
+        checkpoint = MAPDeconvolverResult(
+            config=self.to_dict(),
+            trace_loss=trainer.total_loss.trace,
+            components=trainer.components,
+            calibrations=calibrations,
+        )
+        path = self.checkpoint_path / filename
+        log.info(f"Writing checkpoint to {path}")
+        checkpoint.write(filename=path)
 
     def make_trainer(self, datasets, components, datasets_validation=None,
                      total_loss=None, resume_from=None, calibrations=None):
@@ -649,7 +684,17 @@ class MAPDeconvolver:
             step_losses, row = trainer.epoch(epoch)
             losses += step_losses
             n_epochs += 1
-            if row is not None and trainer.records_row(epoch):
+            recorded = row is not None and trainer.records_row(epoch)
+            if self.checkpoint_path is not None:
+                filename = self._default_checkpoint_filename.format(
+                    epoch=epoch)
+                self._write_checkpoint(trainer, calibrations, filename)
+                # the checkpoint holds the rows before this epoch's, so
+                # the rows go to the host as they come
+                if recorded:
+                    total_loss.append_trace_device_row(row,
+                                                       filename=filename)
+            elif recorded:
                 rows.append(torch.stack(list(row.values())))
             if self.stop_early:
                 val_hist.append(float(row["datasets-validation-total"]))
@@ -717,8 +762,9 @@ class MAPDeconvolverResult:
     ----------
     config : dict
     components : `FluxComponents`
-    trace_loss : `Table`, optional
-        The loss trace, one row per recorded epoch.
+    trace_loss : `Table` or dict, optional
+        The loss trace, one row per recorded epoch (a dict of columns, as
+        a file holds it, becomes a `Table`).
     components_init : `FluxComponents`, optional
         The components as the run received them.
     calibrations, calibrations_init : `NPredCalibrations`, optional
@@ -741,6 +787,10 @@ class MAPDeconvolverResult:
     error_seconds : float
         Host wall time of the flux-error probe, ending with a device
         synchronisation (0 without ``compute_error``).
+
+    A result read from a file (:meth:`read`) holds what the file holds:
+    the configuration, the trace, the components and calibrations, not
+    the optimiser's or the generator's state.
     """
 
     def __init__(self, config, components, trace_loss=None,
@@ -750,6 +800,8 @@ class MAPDeconvolverResult:
                  calibrations_init=None):
         self.config = config
         self.components = components
+        if isinstance(trace_loss, dict):
+            trace_loss = Table.from_dict(trace_loss)
         self.trace_loss = trace_loss if trace_loss is not None else Table()
         self.components_init = components_init
         self.calibrations = calibrations
@@ -789,3 +841,84 @@ class MAPDeconvolverResult:
         """World-coordinate object of the reconstruction (the
         components')."""
         return self.components.wcs
+
+    @property
+    def checkpoint_path(self):
+        """The run's checkpoint directory (``None`` for a run without)."""
+        path = self.config.get("checkpoint_path", None)
+        if path is None or path == "None":
+            return None
+        return Path(path)
+
+    def read_checkpoint(self, epoch, device=None):
+        """Read the checkpoint written at ``epoch`` onto ``device`` (its
+        file name made from the epoch number: every epoch writes one,
+        whatever ``trace_every`` records)."""
+        if self.checkpoint_path is None:
+            raise ValueError(
+                "This run was configured without checkpoint_path; there "
+                "are no per-epoch checkpoints to read."
+            )
+        filename = self.checkpoint_path / (
+            MAPDeconvolver._default_checkpoint_filename.format(epoch=epoch)
+        )
+        if not filename.exists():
+            raise FileNotFoundError(
+                f"No checkpoint for epoch {epoch}: {filename}"
+            )
+        return self.__class__.read(filename=filename, device=device)
+
+    @property
+    def config_table(self):
+        """The configuration as a one-row `Table` of strings."""
+        config = Table(names=list(self.config),
+                       dtype=[str] * len(self.config))
+        config.add_row({k: str(v) for k, v in self.config.items()})
+        return config
+
+    def plot_trace_loss(self, ax=None, which=None, **kwargs):
+        """Plot the loss trace (matplotlib)."""
+        import matplotlib.pyplot as plt
+
+        from .utils.plot import plot_trace_loss
+
+        ax = plt.gca() if ax is None else ax
+        plot_trace_loss(ax=ax, trace_loss=self.trace_loss, which=which,
+                        **kwargs)
+        return ax
+
+    def peek(self, figsize=(12, 5), kwargs_norm=None):
+        """Plot the loss trace and the total flux (matplotlib)."""
+        import matplotlib.pyplot as plt
+
+        from .utils.plot import add_cbar, simple_norm
+
+        fig, axes = plt.subplots(nrows=1, ncols=2, figsize=figsize)
+        self.plot_trace_loss(ax=axes[0])
+
+        kwargs_norm = kwargs_norm or {"vmin": 0, "stretch": "asinh",
+                                      "asinh_a": 0.01}
+        flux = self.components.flux_total_numpy
+        norm = simple_norm(flux, **kwargs_norm)
+        im = axes[1].imshow(flux, origin="lower", norm=norm,
+                            interpolation="None")
+        add_cbar(im=im, ax=axes[1], fig=fig)
+
+    def write(self, filename, overwrite=False, format=None):
+        """Write the result to a file (FITS or ASDF; the format from the
+        suffix unless given), in the JAX package's layout."""
+        from .utils.io import IO_FORMATS_MAP_RESULT_WRITE, get_writer
+
+        writer = get_writer(filename=filename, format=format,
+                            registry=IO_FORMATS_MAP_RESULT_WRITE)
+        writer(result=self, filename=filename, overwrite=overwrite)
+
+    @classmethod
+    def read(cls, filename, format=None, device=None):
+        """Read a result from a file (FITS or ASDF) onto ``device``, by
+        default the first CUDA card."""
+        from .utils.io import IO_FORMATS_MAP_RESULT_READ, get_reader
+
+        reader = get_reader(filename=filename, format=format,
+                            registry=IO_FORMATS_MAP_RESULT_READ)
+        return reader(filename=filename, device=resolve_device(device))

@@ -10,18 +10,80 @@ data's; its flux at data resolution is the sum over each block
 (:attr:`SpatialFluxComponent.flux`). A `SparseSpatialFluxComponent` is a
 list of point sources whose fluxes and sub-pixel positions train, splatted
 onto its grid.
+
+Components serialise as the JAX package's do (``to_dict``, ``from_dict``,
+``read``, ``write``; ``utils/io``): a file one package writes reads in the
+other. Reading takes ``device=``, by default the first CUDA card (and an
+error without one, as ``config.resolve_device(None)``).
 """
 
 import copy
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..ops.image import sum_pool, upsample_bilinear
-from ..priors.core import Priors, UniformPrior
+from ..priors.core import Prior, Priors, UniformPrior
+from ..utils.misc import format_class_str
 
 __all__ = ["FluxComponents", "SparseSpatialFluxComponent",
            "SpatialFluxComponent"]
+
+
+def parse_flux_array(value, cls, device):
+    """A flux given as a file name (read on ``device``), an array or a
+    nested list, as a ``(1, 1, H, W)`` numpy array (a 2-D image, the
+    ``to_dict`` payload or a YAML list, gains the two leading axes)."""
+    if isinstance(value, (str, Path)):
+        flux = cls.read(Path(value), device=device).flux_upsampled
+        return flux.detach().cpu().numpy()
+    flux = np.asarray(value, np.float32)
+    if flux.ndim == 2:
+        flux = flux[np.newaxis, np.newaxis]
+    return flux
+
+
+def _wcs_from(data):
+    """A serialised WCS (a dict of FITS cards) as a `SimpleWCS`; any
+    other object as it is."""
+    if isinstance(data, dict):
+        from ..utils.wcs import wcs_from_header
+
+        return wcs_from_header(data)
+    return data
+
+
+def _plot_image(ax, flux, kwargs_norm, **kwargs):
+    """``imshow`` of a 2-D flux under an asinh stretch, with a colour
+    bar (matplotlib imported here)."""
+    import matplotlib.pyplot as plt
+
+    from ..utils.plot import add_cbar, simple_norm
+
+    if ax is None:
+        ax = plt.gca()
+    kwargs_norm = kwargs_norm or {"vmin": 0, "stretch": "asinh",
+                                  "asinh_a": 0.01}
+    kwargs.setdefault("norm", simple_norm(flux, **kwargs_norm))
+    kwargs.setdefault("interpolation", "None")
+    im = ax.imshow(flux, origin="lower", **kwargs)
+    add_cbar(im=im, ax=ax, fig=ax.figure)
+    return ax
+
+
+def _reader(registry, filename, format, device):
+    from ..utils.io import get_reader
+
+    reader = get_reader(filename=filename, format=format, registry=registry)
+    return reader(filename, device=resolve_device(device))
+
+
+def _writer(registry, filename, format):
+    from ..utils.io import get_writer
+
+    return get_writer(filename=filename, format=format, registry=registry)
 
 
 class SpatialFluxComponent:
@@ -217,6 +279,74 @@ class SpatialFluxComponent:
             flux_init = np.clip(flux_init, floor, None)
         return cls.from_numpy(flux=flux_init, **kwargs)
 
+    def to_dict(self, include_data=None):
+        """Configuration with simple data types; with ``include_data=
+        "numpy"`` also the flux, its error and the mask as 2-D numpy
+        arrays."""
+        from ..utils.wcs import wcs_to_header
+
+        data = {}
+        data["use_log_flux"] = bool(self.use_log_flux)
+        data["upsampling_factor"] = int(self.upsampling_factor)
+        data["frozen"] = bool(self.frozen)
+        data["prior"] = self.prior.to_dict()
+        if self._wcs is not None:
+            data["wcs"] = wcs_to_header(self._wcs)
+
+        if include_data == "numpy":
+            data["flux_upsampled"] = self.flux_upsampled_numpy
+            if self._flux_upsampled_error is not None:
+                data["flux_upsampled_error"] = self.flux_upsampled_error_numpy
+            if self.mask is not None:
+                data["mask"] = self.mask.detach().cpu().numpy()[0, 0]
+        return data
+
+    @classmethod
+    def from_dict(cls, data, device=None):
+        """Build from :meth:`to_dict`'s output (``flux_upsampled`` an
+        array, a nested list or the name of a file to read) on
+        ``device``."""
+        device = resolve_device(device)
+        kwargs = data.copy()
+        prior_data = kwargs.pop("prior", None)
+        if prior_data:
+            kwargs["prior"] = Prior.from_dict(data=prior_data)
+        kwargs["wcs"] = _wcs_from(kwargs.get("wcs"))
+        kwargs["flux_upsampled"] = parse_flux_array(
+            kwargs["flux_upsampled"], cls, device)
+        if kwargs.get("flux_upsampled_error") is not None:
+            kwargs["flux_upsampled_error"] = parse_flux_array(
+                kwargs["flux_upsampled_error"], cls, device)
+        if kwargs.get("mask") is not None:
+            kwargs["mask"] = np.asarray(kwargs["mask"]).astype(bool)[
+                np.newaxis, np.newaxis]
+        return cls(device=device, **kwargs).to(device)
+
+    def __str__(self):
+        return format_class_str(instance=self)
+
+    @classmethod
+    def read(cls, filename, format=None, device=None):
+        """Read a flux component from a file (FITS, YAML or ASDF; the
+        format from the suffix unless given) onto ``device``."""
+        from ..utils.io import IO_FORMATS_FLUX_COMPONENT_READ
+
+        return _reader(IO_FORMATS_FLUX_COMPONENT_READ, filename, format,
+                       device)
+
+    def write(self, filename, format=None, overwrite=False, **kwargs):
+        """Write the flux component to a file (FITS, YAML or ASDF)."""
+        from ..utils.io import IO_FORMATS_FLUX_COMPONENT_WRITE
+
+        writer = _writer(IO_FORMATS_FLUX_COMPONENT_WRITE, filename, format)
+        return writer(flux_component=self, filename=filename,
+                      overwrite=overwrite, **kwargs)
+
+    def plot(self, ax=None, kwargs_norm=None, **kwargs):
+        """Plot the upsampled flux (matplotlib)."""
+        return _plot_image(ax, self.flux_upsampled_numpy, kwargs_norm,
+                           **kwargs)
+
 
 class SparseSpatialFluxComponent:
     """Point sources at trainable sub-pixel positions, splatted onto an
@@ -246,11 +376,6 @@ class SparseSpatialFluxComponent:
     device : str or torch.device, optional
         Where the values live (default CPU; the deconvolver moves them
         to its own device).
-
-    ``to_dict``, ``from_dict``, ``read``, ``write``, ``plot``,
-    ``from_sky_coord`` and ``sky_coord`` wait for the port's I/O and
-    world coordinates (``utils/io``, ``utils/wcs``) and raise
-    ``NotImplementedError``.
     """
 
     is_sparse = True
@@ -425,39 +550,76 @@ class SparseSpatialFluxComponent:
 
     @classmethod
     def from_sky_coord(cls, skycoord, wcs, **kwargs):
-        """Not ported (M16, ``utils/wcs``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("from_sky_coord"))
+        """Build from sky coordinates: ``skycoord.to_pixel(wcs=wcs)``
+        gives ``(x, y)`` (an astropy ``SkyCoord``, or any object with
+        that method)."""
+        x_pos, y_pos = skycoord.to_pixel(wcs=wcs)
+        return cls.from_numpy(x_pos=x_pos, y_pos=y_pos, wcs=wcs, **kwargs)
 
     @property
     def sky_coord(self):
-        """Not ported (M16, ``utils/wcs``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("sky_coord"))
+        """The positions as an astropy ``SkyCoord`` (needs astropy)."""
+        from astropy.coordinates import SkyCoord
+
+        return SkyCoord.from_pixel(xp=self.x_pos_numpy, yp=self.y_pos_numpy,
+                                   wcs=self.wcs)
 
     def to_dict(self, **kwargs):
-        """Not ported (M16, ``utils/io``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("to_dict"))
+        """Configuration and source lists (numpy arrays)."""
+        data = {}
+        data["use_log_flux"] = bool(self.use_log_flux)
+        data["frozen"] = bool(self.frozen)
+        data["shape"] = self.shape
+        data["flux"] = self.flux_values_numpy
+        data["x_pos"] = self.x_pos_numpy
+        data["y_pos"] = self.y_pos_numpy
+        data["prior"] = self.prior.to_dict()
+        if self._wcs is not None:
+            from ..utils.wcs import wcs_to_header
+
+            data["wcs"] = wcs_to_header(self._wcs)
+        return data
 
     @classmethod
-    def from_dict(cls, data):
-        """Not ported (M16, ``utils/io``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("from_dict"))
+    def from_dict(cls, data, device=None):
+        """Build from :meth:`to_dict`'s output on ``device``."""
+        device = resolve_device(device)
+        kwargs = data.copy()
+        prior_data = kwargs.pop("prior", None)
+        if prior_data:
+            kwargs["prior"] = Prior.from_dict(data=prior_data)
+        kwargs["wcs"] = _wcs_from(kwargs.get("wcs"))
+        kwargs["shape"] = tuple(kwargs.pop("shape"))[-2:]
+        return cls(
+            flux=np.atleast_1d(np.asarray(kwargs.pop("flux"), np.float32)),
+            x_pos=np.atleast_1d(np.asarray(kwargs.pop("x_pos"), np.float32)),
+            y_pos=np.atleast_1d(np.asarray(kwargs.pop("y_pos"), np.float32)),
+            device=device, **kwargs,
+        ).to(device)
+
+    def __str__(self):
+        return format_class_str(instance=self)
 
     @classmethod
-    def read(cls, filename, format=None):
-        """Not ported (M16, ``utils/io``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("read"))
+    def read(cls, filename, format=None, device=None):
+        """Read a sparse component from a FITS file onto ``device``."""
+        from ..utils.io import IO_FORMATS_SPARSE_FLUX_COMPONENT_READ
+
+        return _reader(IO_FORMATS_SPARSE_FLUX_COMPONENT_READ, filename,
+                       format, device)
 
     def write(self, filename, format=None, overwrite=False, **kwargs):
-        """Not ported (M16, ``utils/io``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("write"))
+        """Write the sparse component to a FITS file (a binary table)."""
+        from ..utils.io import IO_FORMATS_SPARSE_FLUX_COMPONENT_WRITE
+
+        writer = _writer(IO_FORMATS_SPARSE_FLUX_COMPONENT_WRITE, filename,
+                         format)
+        return writer(flux_component=self, filename=filename,
+                      overwrite=overwrite, **kwargs)
 
     def plot(self, ax=None, kwargs_norm=None, **kwargs):
-        """Not ported (M16, ``utils/plot``): raises ``NotImplementedError``."""
-        raise NotImplementedError(_SPARSE_M16.format("plot"))
-
-
-_SPARSE_M16 = ("SparseSpatialFluxComponent.{} waits for M16: the port's "
-               "I/O, world coordinates and plotting are not ported yet")
+        """Plot the splatted flux (matplotlib)."""
+        return _plot_image(ax, self.flux_numpy, kwargs_norm, **kwargs)
 
 
 class FluxComponents(dict):
@@ -560,3 +722,66 @@ class FluxComponents(dict):
             name: np.squeeze(component.flux_upsampled.detach().cpu().numpy())
             for name, component in self.items()
         }
+
+    def to_dict(self, include_data=None):
+        """Every component's ``to_dict``, keyed by name."""
+        return {name: component.to_dict(include_data=include_data)
+                for name, component in self.items()}
+
+    @classmethod
+    def from_dict(cls, data, device=None):
+        """Build from :meth:`to_dict`'s output on ``device`` (an entry with
+        ``x_pos`` is a sparse component)."""
+        device = resolve_device(device)
+        components = cls()
+        for name, component_data in data.items():
+            kind = (SparseSpatialFluxComponent if "x_pos" in component_data
+                    else SpatialFluxComponent)
+            components[name] = kind.from_dict(component_data, device=device)
+        return components
+
+    @classmethod
+    def read(cls, filename, format=None, device=None):
+        """Read flux components from a file (FITS, ASDF or YAML) onto
+        ``device``."""
+        from ..utils.io import IO_FORMATS_FLUX_COMPONENTS_READ
+
+        return _reader(IO_FORMATS_FLUX_COMPONENTS_READ, filename, format,
+                       device)
+
+    def write(self, filename, overwrite=False, format=None, **kwargs):
+        """Write the flux components to a file (FITS, ASDF or YAML)."""
+        from ..utils.io import IO_FORMATS_FLUX_COMPONENTS_WRITE
+
+        writer = _writer(IO_FORMATS_FLUX_COMPONENTS_WRITE, filename, format)
+        return writer(flux_components=self, filename=filename,
+                      overwrite=overwrite, **kwargs)
+
+    def plot(self, figsize=None, kwargs_norm=None, **kwargs):
+        """Plot the total flux and each component (matplotlib)."""
+        import matplotlib.pyplot as plt
+
+        from ..utils.plot import add_cbar, simple_norm
+
+        ncols = len(self) + 1
+        if figsize is None:
+            figsize = (ncols * 5, 5)
+        fig, axes = plt.subplots(nrows=1, ncols=ncols, figsize=figsize)
+        axes = np.atleast_1d(axes)
+
+        kwargs_norm = kwargs_norm or {"vmin": 0, "stretch": "asinh",
+                                      "asinh_a": 0.01}
+        flux = self.flux_total_numpy
+        norm = simple_norm(flux, **kwargs_norm)
+        im = axes[0].imshow(flux, origin="lower", norm=norm, **kwargs)
+        axes[0].set_title("Total")
+
+        for ax, name in zip(axes[1:], self.fluxes_numpy):
+            self[name].plot(ax=ax, kwargs_norm=kwargs_norm, **kwargs)
+            ax.set_title(name.title())
+
+        add_cbar(im=im, ax=axes[-1], fig=fig)
+        return axes
+
+    def __str__(self):
+        return format_class_str(instance=self)

@@ -26,16 +26,15 @@ pixels (bilinear, ``ops.image.shift_image`` at ``scale=factor``) before
 the exposure, scales the background by ``exp(log_background_norm)``,
 zooms the PSF by its static ``psf_scale`` and weights the dataset's
 likelihood by its static ``weight``. The shift and the log norm are
-trainable leaves (``parameters()``) unless frozen.
+trainable leaves (``parameters()``) unless frozen. `NPredCalibrations`
+read and write FITS (one table row a dataset) and YAML, as the JAX
+package's.
 
 Data may be band stacks: a 3-D ``(C, H, W)`` exposure, PSF, background
 or counts array is taken as ``(1, C, H, W)`` (a 2-D one as ``(1, 1, H,
 W)``), a single-channel PSF broadcasts over the bands, and an ``rmf``
 ``(C, K)`` folds the ``C`` bands of the pooled counts into ``K``
 (``einsum("bchw,ck->bkhw")``) before the clip.
-
-Not ported, raising ``NotImplementedError``: reading or writing
-calibrations.
 """
 
 import copy
@@ -51,6 +50,7 @@ from ..ops.image import (
     sum_pool,
     upsample_bilinear,
 )
+from ..utils.misc import format_class_str
 
 __all__ = ["NPredCalibration", "NPredCalibrations", "NPredModel",
            "NPredModels", "as_bchw", "as_image"]
@@ -402,9 +402,13 @@ class NPredCalibration:
         }
 
     @classmethod
-    def from_dict(cls, data):
-        """Build from :meth:`to_dict`'s output."""
-        return cls(**data)
+    def from_dict(cls, data, device=None):
+        """Build from :meth:`to_dict`'s output (on ``device``, default
+        CPU)."""
+        return cls(**data, device=device)
+
+    def __str__(self):
+        return format_class_str(instance=self)
 
 
 class NPredCalibrations(dict):
@@ -446,18 +450,32 @@ class NPredCalibrations(dict):
         return {name: model.to_dict() for name, model in self.items()}
 
     @classmethod
-    def from_dict(cls, data):
-        """Build from :meth:`to_dict`'s output."""
-        return cls({name: NPredCalibration.from_dict(data=value)
+    def from_dict(cls, data, device=None):
+        """Build from :meth:`to_dict`'s output (on ``device``, default
+        CPU)."""
+        return cls({name: NPredCalibration.from_dict(data=value,
+                                                     device=device)
                     for name, value in data.items()})
 
     @classmethod
-    def read(cls, filename, format=None):
-        """Not ported: raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "NPredCalibrations.read is not ported yet")
+    def read(cls, filename, format=None, device=None):
+        """Read calibrations from a file (FITS or YAML; the format from
+        the suffix unless given) onto ``device``, by default the first
+        CUDA card."""
+        from ..utils.io import IO_FORMATS_NPRED_CALIBRATIONS_READ, get_reader
+
+        reader = get_reader(filename=filename, format=format,
+                            registry=IO_FORMATS_NPRED_CALIBRATIONS_READ)
+        return reader(filename, device=resolve_device(device))
 
     def write(self, filename, format=None, overwrite=False, **kwargs):
-        """Not ported: raises ``NotImplementedError``."""
-        raise NotImplementedError(
-            "NPredCalibrations.write is not ported yet")
+        """Write the calibrations to a file (FITS or YAML)."""
+        from ..utils.io import IO_FORMATS_NPRED_CALIBRATIONS_WRITE, get_writer
+
+        writer = get_writer(filename=filename, format=format,
+                            registry=IO_FORMATS_NPRED_CALIBRATIONS_WRITE)
+        return writer(npred_calibrations=self, filename=filename,
+                      overwrite=overwrite, **kwargs)
+
+    def __str__(self):
+        return format_class_str(instance=self)

@@ -21,6 +21,7 @@ import torch
 from ..ops.fft import convolve_fft, fft_conv_shape, kernel_fft
 from ..ops.image import cycle_spin_subpixel, draw_subpixel
 from ..utils.kernels import gaussian_kernel_2d
+from ..utils.misc import format_class_str
 
 __all__ = [
     "Prior",
@@ -90,6 +91,9 @@ class Prior:
             cls = PRIOR_REGISTRY[kwargs.pop("type")]
             return cls.from_dict(data=kwargs)
         return cls(**kwargs)
+
+    def __str__(self):
+        return format_class_str(instance=self)
 
 
 class Priors(dict):

@@ -8,10 +8,14 @@ in ``jolideco_torch/assets/`` (byte-for-byte copies of the JAX
 package's), read with ``np.load``. The names of the reference's external
 GMM library (``zoran-weiss`` and three more) resolve to the shipped
 ``astro-snr-v1`` with a warning, as in the JAX package when that library
-is not installed.
+is not installed. A GMM reads the JAX package's formats (``npz``, the
+EPLL matlab files, astropy tables) and writes ``npz``; its diagnostics
+(log-probabilities, KL divergences, eigen and mean images) are the JAX
+package's, on the host in numpy or, for ``estimate_log_prob``, in torch.
 """
 
 import logging
+import os
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +27,7 @@ from ...ops.gmm_pallas import gmm_score_patches
 from ...ops.gmm_pack import pack_gmm_buffers
 from ...ops.linalg import compute_precision_cholesky
 from ...ops.patches import get_pixel_weights
+from ...utils.misc import format_class_str
 from ...utils.norms import PatchNorm, SubtractMeanPatchNorm
 
 __all__ = ["GMM_REGISTRY", "GaussianMixtureModel", "GaussianMixtureModelMeta",
@@ -82,6 +87,8 @@ class GaussianMixtureModel:
         self.means = np.asarray(means, np.float32)
         self.covariances = np.asarray(covariances, np.float32)
         self.weights = np.asarray(weights, np.float32)
+        self.precisions_cholesky = np.asarray(precisions_cholesky,
+                                              np.float32)
         self.meta = meta or GaussianMixtureModelMeta()
 
         # the JAX package rounds these to float32 before packing; do
@@ -101,6 +108,9 @@ class GaussianMixtureModel:
         pixel_weights = np.asarray(pixel_weights, np.float32).reshape(-1)
         self.packed = pack_gmm_buffers(means_prec, prec64, log_det,
                                        log_weights, pixel_weights)
+        # the JAX package's scoring arrays, for estimate_log_prob
+        self._score_arrays = (means_prec, log_det, log_weights,
+                              pixel_weights)
         self._buffers = {}
 
     @property
@@ -149,10 +159,50 @@ class GaussianMixtureModel:
             meta=meta,
         )
 
+    def estimate_log_prob(self, x):
+        """The full ``(N, K)`` weighted log-probability matrix of the
+        normalised patches ``x`` ``(N, d)`` (a tensor; float32 torch on
+        its device, the JAX package's ``estimate_log_prob``). The
+        training loop uses :meth:`score`, which never forms it."""
+        means_prec, log_det, log_weights, pixel_weights = (
+            torch.as_tensor(a, device=x.device) for a in self._score_arrays)
+        prec = torch.as_tensor(self.precisions_cholesky, device=x.device)
+        y = torch.einsum("nd,kdj->knj", x, prec) - means_prec[:, None, :]
+        q = torch.einsum("knj,j->kn", torch.square(y), pixel_weights)
+        const = -0.5 * self.n_features * np.log(2 * np.pi) + log_det
+        return -0.5 * q.T + (const + log_weights)
+
+    def estimate_log_prob_numpy(self, x):
+        """:meth:`estimate_log_prob` in float64 numpy."""
+        x = np.asarray(x, np.float64)
+        means = np.asarray(self.means, np.float64)
+        prec = np.asarray(self.precisions_cholesky, np.float64)
+        pw = np.asarray(self._score_arrays[3], np.float64)
+
+        log_prob = np.empty((x.shape[0], self.n_components))
+        for k, (mu, prec_chol) in enumerate(zip(means, prec)):
+            y = np.dot(x, prec_chol) - np.dot(mu, prec_chol)
+            log_prob[:, k] = np.sum(np.square(y) * pw, axis=1)
+
+        log_det = np.sum(np.log(np.einsum("kii->ki", prec)), axis=1)
+        return (
+            -0.5 * (x.shape[1] * np.log(2 * np.pi) + log_prob)
+            + log_det
+            + np.log(np.asarray(self.weights, np.float64))
+        )
+
     @classmethod
-    def from_registry(cls, name):
-        """Build ``builtin-8x8-v1`` or ``astro-snr-v1`` from its asset;
-        a name of :data:`REFERENCE_LIBRARY_ALIASES` builds
+    def from_sklearn_gmm(cls, gmm):
+        """Build from a fitted ``sklearn.mixture.GaussianMixture``."""
+        return cls.from_numpy(means=gmm.means_,
+                              covariances=gmm.covariances_,
+                              weights=gmm.weights_)
+
+    @classmethod
+    def from_registry(cls, name, **kwargs):
+        """Build ``builtin-8x8-v1`` or ``astro-snr-v1`` from its asset
+        (``kwargs`` go to :meth:`read` over the entry's ``filename`` and
+        ``format``); a name of :data:`REFERENCE_LIBRARY_ALIASES` builds
         ``astro-snr-v1`` and logs a warning."""
         if name in REFERENCE_LIBRARY_ALIASES:
             log.warning(
@@ -171,19 +221,93 @@ class GaussianMixtureModel:
                 f"GMM {name!r} is not available in the port; choose from "
                 f"{list(GMM_REGISTRY) + list(REFERENCE_LIBRARY_ALIASES)}"
             )
-        with np.load(path, allow_pickle=False) as data:
-            means = data["means"]
-            covariances = data["covariances"]
-            weights = data["weights"]
-            stride = int(data["stride"]) if "stride" in data else None
-            norm = str(data["patch_norm"]) if "patch_norm" in data else (
-                "subtract-mean"
-            )
-        meta = GaussianMixtureModelMeta(
-            stride=stride, patch_norm=PatchNorm.from_dict({"type": norm}))
-        gmm = cls.from_numpy(means, covariances, weights, meta=meta)
+        gmm = cls.read(**{"filename": path, "format": "npz", **kwargs})
         gmm._registry_name = name
         return gmm
+
+    @classmethod
+    def read(cls, filename, format="npz", **kwargs):
+        """Read a GMM from a file.
+
+        ``format`` is ``"npz"`` (the native format: ``means``,
+        ``covariances``, ``weights`` and optionally ``stride`` and
+        ``patch_norm``), ``"epll-matlab"`` or ``"epll-matlab-16x16"``
+        (the EPLL matlab files, through ``scipy.io``) or ``"table"`` (an
+        astropy table; needs astropy). ``$VARIABLES`` in ``filename``
+        expand.
+        """
+        filename = Path(os.path.expandvars(str(filename)))
+
+        if format == "npz":
+            with np.load(filename, allow_pickle=False) as data:
+                means = data["means"]
+                covariances = data["covariances"]
+                weights = data["weights"]
+                stride = int(data["stride"]) if "stride" in data else None
+                patch_norm_type = (str(data["patch_norm"])
+                                   if "patch_norm" in data
+                                   else "subtract-mean")
+            meta = GaussianMixtureModelMeta(
+                stride=stride,
+                patch_norm=PatchNorm.from_dict({"type": patch_norm_type}))
+        elif format == "epll-matlab":
+            import scipy.io as sio
+
+            gmm_data = sio.loadmat(str(filename))["GS"]
+            means = gmm_data["means"][0][0].T
+            covariances = gmm_data["covs"][0][0].T
+            weights = gmm_data["mixweights"][0][0][:, 0]
+            meta = GaussianMixtureModelMeta(
+                stride=4, patch_norm=SubtractMeanPatchNorm())
+        elif format == "epll-matlab-16x16":
+            import scipy.io as sio
+
+            gmm_data = sio.loadmat(str(filename))["GMM"]
+            covariances = gmm_data["covs"][0][0].T
+            weights = gmm_data["mixweights"][0][0][:, 0]
+            # zero means sized from the data
+            means = np.zeros(covariances.shape[:2])
+            meta = GaussianMixtureModelMeta(
+                stride=8, patch_norm=SubtractMeanPatchNorm())
+        elif format == "table":
+            try:
+                from astropy.table import Table
+            except ImportError as exc:
+                raise ImportError(
+                    "Reading 'table'-format GMMs requires astropy, which "
+                    "is not installed. Convert to 'npz' instead."
+                ) from exc
+            table = Table.read(str(filename))
+            means = table["means"].data
+            weights = table["weights"].data
+            covariances = table["covariances"].data
+            patch_norm_type = table.meta.get("PNPTYPE", "subtract-mean")
+            npix = int((table["means"].shape[-1]) ** 0.5)
+            meta = GaussianMixtureModelMeta(
+                stride=npix // 2,
+                patch_norm=PatchNorm.from_dict({"type": patch_norm_type}))
+        else:
+            raise ValueError(f"Not a supported format {format}")
+
+        return cls.from_numpy(means=means, covariances=covariances,
+                              weights=weights, meta=meta, **kwargs)
+
+    def write(self, filename):
+        """Write in the native ``npz`` format."""
+        data = {"means": self.means, "covariances": self.covariances,
+                "weights": self.weights}
+        if self.meta.stride is not None:
+            data["stride"] = np.int64(self.meta.stride)
+        data["patch_norm"] = np.str_(
+            self.meta.patch_norm.to_dict().get("type", "subtract-mean"))
+        np.savez_compressed(filename, **data)
+
+    def reduce_to_topk(self, k):
+        """The GMM of the ``k`` components of highest weight."""
+        idx = np.argsort(self.weights)[::-1][:k]
+        return self.__class__.from_numpy(
+            means=self.means[idx], covariances=self.covariances[idx],
+            weights=self.weights[idx], meta=self.meta)
 
     @property
     def eigen_images(self):
@@ -196,6 +320,61 @@ class GaussianMixtureModel:
             w, v = linalg.eigh(covariance)
             images.append((v @ w).reshape(self.patch_shape))
         return np.stack(images)
+
+    def _plot_images(self, images, ncols, figsize):
+        import matplotlib.pyplot as plt
+
+        nrows = -(-self.n_components // ncols)
+        if figsize is None:
+            width = 12
+            figsize = (width, width * nrows / ncols)
+        _, axes = plt.subplots(ncols=ncols, nrows=nrows, figsize=figsize)
+        for idx, ax in enumerate(np.atleast_1d(axes).flat):
+            if idx >= self.n_components:
+                ax.set_visible(False)
+                continue
+            ax.imshow(images[idx])
+            ax.set_axis_off()
+            ax.set_title(f"{idx}")
+
+    def plot_eigen_images(self, ncols=20, figsize=None):
+        """Plot the eigen images (matplotlib)."""
+        self._plot_images(self.eigen_images, ncols, figsize)
+
+    def plot_mean_images(self, ncols=20, figsize=None):
+        """Plot the mean images (matplotlib)."""
+        self._plot_images(self.means.reshape((-1,) + self.patch_shape),
+                          ncols, figsize)
+
+    @property
+    def covariance_det(self):
+        """Determinant of the first covariance matrix."""
+        return np.linalg.det(self.covariances[0])
+
+    def kl_divergence(self, other):
+        """KL divergence from another single-component GMM."""
+        if not (self.n_components == 1 and other.n_components == 1):
+            raise ValueError(
+                "KL divergence can only be computed for single component GMM"
+            )
+        k = self.means.shape[1]
+        precision_other = np.linalg.inv(other.covariances[0])
+        diff = self.means[0] - other.means[0]
+        term_mean = diff.T @ precision_other @ diff
+        term_trace = np.trace(precision_other @ self.covariances[0])
+        term_log = np.log(other.covariance_det / self.covariance_det)
+        return 0.5 * (term_log - k + term_mean + term_trace)
+
+    def symmetric_kl_divergence(self, other):
+        """The KL divergence both ways, summed."""
+        return other.kl_divergence(other=self) + self.kl_divergence(
+            other=other)
+
+    def is_equal(self, other):
+        """Covariances of the same shape and ``np.allclose``."""
+        if not self.covariances.shape == other.covariances.shape:
+            return False
+        return np.allclose(self.covariances, other.covariances)
 
     def to_dict(self):
         """A registry model as its name, any other inline (its arrays,
@@ -222,3 +401,6 @@ class GaussianMixtureModel:
         return cls.from_numpy(np.asarray(data["means"]),
                               np.asarray(data["covariances"]),
                               np.asarray(data["weights"]), meta=meta)
+
+    def __str__(self):
+        return format_class_str(instance=self)

@@ -18,6 +18,8 @@ import abc
 import numpy as np
 import torch
 
+from .misc import format_class_str
+
 __all__ = [
     "ImageNorm",
     "IdentityImageNorm",
@@ -80,6 +82,9 @@ class PatchNorm(abc.ABC):
             cls = NORMS_PATCH_REGISTRY[kwargs.pop("type")]
             return cls.from_dict(kwargs)
         return cls(**kwargs)
+
+    def __str__(self):
+        return format_class_str(instance=self)
 
 
 class SubtractMeanPatchNorm(PatchNorm):
@@ -193,6 +198,31 @@ class ImageNorm:
             cls = NORMS_REGISTRY[kwargs.pop("type")]
             return cls.from_dict(kwargs)
         return cls(**kwargs)
+
+    def __str__(self):
+        return format_class_str(instance=self)
+
+    def plot(self, ax=None, xrange=None, **kwargs):
+        """Plot the transfer function (matplotlib)."""
+        import matplotlib.pyplot as plt
+
+        if xrange is None:
+            if isinstance(self, InverseCDFImageNorm):
+                xrange = float(self.x[0]), float(self.x[-2])
+            else:
+                xrange = 0, 1
+
+        ax = plt.gca() if ax is None else ax
+        kwargs.setdefault("label", self.__class__.__name__)
+
+        x = np.linspace(xrange[0], xrange[1], 1000)
+        y = self.evaluate_numpy(image=x)
+        ax.plot(x, y, **kwargs)
+        ax.set_xlabel("Pixel value")
+        ax.set_ylabel("Scaled pixel value / A.U.")
+        ax.set_ylim(0, 1)
+        plt.legend()
+        return ax
 
 
 class IdentityImageNorm(ImageNorm):

@@ -85,17 +85,30 @@ def _datasets():
     {"checkpoint_path": "checkpoints"},
 ], ids=lambda kw: next(iter(kw)))
 def test_deconvolver_raises_on_unported_options(kwargs, tmp_path):
-    """``mesh`` and ``checkpoint_path`` are not ported and raise
-    ``NotImplementedError``. ``stop_early`` is ported: the deconvolver
-    takes it, and its ``run`` without validation data raises the JAX
-    package's ``ValueError``."""
-    if "stop_early" not in kwargs:
-        with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
+    """``mesh`` is not ported and raises ``NotImplementedError``.
+    ``stop_early`` is ported: the deconvolver takes it, and its ``run``
+    without validation data raises the JAX package's ``ValueError``.
+    ``checkpoint_path`` is ported: the directory is made, the
+    configuration records it, and each epoch writes the JAX package's
+    file name."""
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match="mesh"):
             jt.MAPDeconvolver(**kwargs)
+        return
+    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
+    if "checkpoint_path" in kwargs:
+        path = tmp_path / kwargs["checkpoint_path"]
+        deco = jt.MAPDeconvolver(n_epochs=2, device="cpu",
+                                 checkpoint_path=path)
+        assert deco.to_dict()["checkpoint_path"] == str(path)
+        result = deco.run(_datasets(), components=component)
+        names = [jj.MAPDeconvolver._default_checkpoint_filename.format(
+            epoch=epoch) for epoch in range(2)]
+        assert sorted(p.name for p in path.iterdir()) == names
+        assert list(result.trace_loss["filename"]) == names
         return
     deco = jt.MAPDeconvolver(n_epochs=1, device="cpu", **kwargs)
     assert deco.to_dict()["stop_early"] is True
-    component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
     with pytest.raises(ValueError, match="requires providing test datasets"):
         deco.run(_datasets(), components=component)
 

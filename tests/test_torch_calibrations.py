@@ -430,17 +430,25 @@ def test_interop_carries_a_jax_run_with_calibrations(datasets, jax_runs):
     assert_calibrations_close(result.calibrations, want.calibrations)
 
 
-def test_remaining_forward_model_options_raise():
-    """What the forward model still refuses: the calibrations' file I/O
-    (M16). The energy redistribution, band stacks, sparse components and
-    the joint strategy's per-dataset fallback are ported
-    (``tests/test_torch_multiband.py``, ``tests/test_torch_sparse.py``,
-    ``tests/test_torch_fallback.py``)."""
-    cals = jt.NPredCalibrations({"a": jt.NPredCalibration()})
-    with pytest.raises(NotImplementedError, match="read"):
-        jt.NPredCalibrations.read("calibrations.yaml")
-    with pytest.raises(NotImplementedError, match="write"):
-        cals.write("calibrations.yaml")
+def test_remaining_forward_model_options_raise(tmp_path):
+    """The calibrations' file I/O (once a raise, now ported):
+    ``NPredCalibrations.write`` and ``read`` in YAML and FITS give the
+    values back, on the CPU when asked; without a ``device`` the read
+    goes to the card and raises without one. The energy redistribution,
+    band stacks, sparse components and the joint strategy's per-dataset
+    fallback are ported (``tests/test_torch_multiband.py``,
+    ``tests/test_torch_sparse.py``, ``tests/test_torch_fallback.py``);
+    the cross-package files are held in ``tests/test_torch_io.py``."""
+    cals = e0102_calibrations(jt)
+    for suffix in ("yaml", "fits"):
+        path = tmp_path / f"calibrations.{suffix}"
+        cals.write(path)
+        back = jt.NPredCalibrations.read(path, device="cpu")
+        assert back.to_dict() == cals.to_dict()
+        assert back["obs-1"].shift_xy.device.type == "cpu"
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError):
+                jt.NPredCalibrations.read(path)
 
 
 def test_copies_leave_the_originals_alone():

@@ -183,19 +183,23 @@ def test_sgd_steps_match_optax(momentum, nesterov):
     assert_allclose(p_t.detach().numpy(), np.asarray(p_j), rtol=1e-6)
 
 
-def test_unported_options_raise():
-    """The sequential strategy, the loss trace and early stopping are
-    ported: the deconvolver takes them. ``conv_mode="ct"``, a checkpoint
-    path and a mesh still raise ``NotImplementedError``; an unknown
-    strategy raises the JAX package's ``ValueError``."""
+def test_unported_options_raise(tmp_path):
+    """The sequential strategy, the loss trace, early stopping and
+    checkpoints are ported: the deconvolver takes them (a checkpoint path
+    is made and recorded). ``conv_mode="ct"`` and a mesh still raise
+    ``NotImplementedError``; an unknown strategy raises the JAX package's
+    ``ValueError``."""
+    checkpoints = str(tmp_path / "checkpoints")
     for kwargs in ({"update_strategy": "sequential", "trace_every": 0},
                    {"update_strategy": "joint", "trace_every": 1},
                    {"update_strategy": "joint", "trace_every": 0,
-                    "stop_early": True}):
+                    "stop_early": True},
+                   {"update_strategy": "joint", "trace_every": 0,
+                    "checkpoint_path": checkpoints}):
         config = jt.MAPDeconvolver(**kwargs).to_dict()
         assert {k: config[k] for k in kwargs} == kwargs
-    for kwargs in ({"conv_mode": "ct"}, {"checkpoint_path": "checkpoints"},
-                   {"mesh": object()}):
+    assert (tmp_path / "checkpoints").is_dir()
+    for kwargs in ({"conv_mode": "ct"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
                               **kwargs)

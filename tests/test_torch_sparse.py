@@ -129,9 +129,12 @@ def test_splat_and_its_gradients_match_jax(case):
                         atol=1e-5 * float(np.abs(want).max()), err_msg=key)
 
 
-def test_sparse_component_surface():
+def test_sparse_component_surface(tmp_path):
     """The JAX package's attributes and leaves; ``frozen``; copies and
-    moves; the prior's leaves; what waits for the I/O raises."""
+    moves; the prior's leaves; serialisation (``to_dict``, ``from_dict``,
+    FITS ``write`` and ``read``, ``plot``) and sky coordinates through
+    duck-typed stand-ins (neither package needs astropy for them;
+    ``sky_coord`` itself builds an astropy ``SkyCoord``)."""
     comp = jt.SparseSpatialFluxComponent.from_numpy(
         flux=[4.0, 9.0], x_pos=[1.5, 2.0], y_pos=[3.0, 0.25], shape=(6, 5),
         prior=jt.MultiScalePrior(jt.UniformPrior(), n_levels=2))
@@ -152,17 +155,34 @@ def test_sparse_component_surface():
     frozen = jt.SparseSpatialFluxComponent.from_numpy(
         flux=1.0, x_pos=1.0, y_pos=1.0, shape=(3, 3), frozen=True)
     assert frozen.parameters() == {} and frozen.x_pos.shape == (1,)
-    for call in (comp.to_dict, lambda: comp.write("points.fits"),
-                 comp.plot):
-        with pytest.raises(NotImplementedError, match="M16"):
-            call()
-    for name in ("from_dict", "read"):
-        with pytest.raises(NotImplementedError, match="M16"):
-            getattr(jt.SparseSpatialFluxComponent, name)("x")
-    with pytest.raises(NotImplementedError, match="M16"):
-        jt.SparseSpatialFluxComponent.from_sky_coord(None, None)
-    with pytest.raises(NotImplementedError, match="M16"):
-        comp.sky_coord
+    data = comp.to_dict()
+    assert data["shape"] == (1, 1, 6, 5)
+    assert data["prior"] == comp.prior.to_dict()
+    back = jt.SparseSpatialFluxComponent.from_dict(data, device="cpu")
+    assert_array_equal(back.x_pos_numpy, comp.x_pos_numpy)
+    assert_array_equal(back.flux_values_numpy, comp.flux_values_numpy)
+    assert type(back.prior) is jt.MultiScalePrior
+    # FITS header keywords carry a prior's own settings, not a prior
+    # nested in it (in the JAX package too): the file gets the default
+    plain = jt.SparseSpatialFluxComponent.from_dict(
+        {**data, "prior": {"type": "uniform"}}, device="cpu")
+    plain.write(tmp_path / "points.fits")
+    read = jt.SparseSpatialFluxComponent.read(tmp_path / "points.fits",
+                                              device="cpu")
+    assert_array_equal(read.y_pos_numpy, comp.y_pos_numpy)
+    assert read.shape == comp.shape and read.use_log_flux
+    pytest.importorskip("matplotlib").use("Agg")
+    ax = comp.plot()
+    assert_array_equal(ax.images[0].get_array(), comp.flux_numpy)
+
+    class FakeSkyCoord:
+        def to_pixel(self, wcs):
+            return np.array([10.0, 3.0]), np.array([40.0, 7.0])
+
+    placed = jt.SparseSpatialFluxComponent.from_sky_coord(
+        FakeSkyCoord(), wcs=None, flux=np.array([1.0, 2.0]), shape=(64, 64))
+    assert_array_equal(placed.x_pos_numpy, [10.0, 3.0])
+    assert_array_equal(placed.y_pos_numpy, [40.0, 7.0])
 
 
 def integer_source_components(pkg):
