@@ -160,7 +160,26 @@ Phases, each printing one or more lines:
    named in the trace, the FITS and ASDF outputs and the last checkpoint
    holding the flux (and the error) bit for bit and reading back within
    one unit in the last place, the click command in process on a YAML
-   configuration, and epochs/s with and without checkpoints.
+   configuration, and epochs/s with and without checkpoints;
+13. several ranks on the one card (``MAPDeconvolver(mesh=...)``, ranks
+   spawned by ``jolideco_torch.parallel.launch.run_ranks`` after the
+   build, so that no rank runs ``nvcc``), at the main path under the
+   default dial, each rank's launches exact (K1 split and K2 once a step
+   on its strip block of the prior, the plain versions never) and every
+   rank's parameters the same bits: (a) one rank on NCCL, 20 steps,
+   against phase 3's run, bit for bit or not, printed; (b) two ranks on
+   gloo (NCCL refuses two ranks on one device), an obs mesh, 20 steps;
+   (c) four ranks, a 2 x 2 obs-row mesh through the pencil FFT, 10
+   steps; (d) the pfft path on the two-rank mesh with 8 of the 10
+   observations (two K3 pairs a rank); (e) the probe after 5 of (b)'s
+   steps (K5 split, K6, K7 once on rank 0), its errors against phase
+   4's; each run's flux within ``P13_FLUX_SHARE`` of its max-abs and its
+   losses within ``SMALL_FLUX_RTOL`` of the unsharded run's, its steps/s
+   per rank beside the card's name and power limit (ranks sharing one
+   card: not a scaling figure); (f) in one process, the strip blocks'
+   partial sums over 2, 4 and 3 shards (K1 split and K2 once a shard)
+   against one whole-image call at phase 3's trained flux and on phase
+   2's ragged image, within phase 2's bars.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -204,9 +223,11 @@ kernels' checks and phase 7's paths, a ``{"default_entry": ...}`` JSON
 line with phase 8's numbers, an ``{"upsampled": ...}`` JSON line with
 phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a
 ``{"forward_model": ...}`` JSON line with phase 11's, an ``{"io": ...}``
-JSON line with phase 12's, a JSON line with each kernel's numbers
+JSON line with phase 12's, a ``{"mesh": ...}`` JSON line with phase 13's,
+a JSON line with each kernel's numbers
 (thirty-three, each with its launches in phase 9's three runs at the
-2048² flux and in phase 10's, 11's and 12's runs) and,
+2048² flux, in phase 10's, 11's and 12's runs and, a list by rank, in
+each of phase 13's runs) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -2454,7 +2475,8 @@ def expect(**nonzero):
 
 
 def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
-              compute_error=False, marginalize=False, conv_mode="fft"):
+              compute_error=False, marginalize=False, conv_mode="fft",
+              mesh=None):
     from jolideco_torch import (
         GMMPatchPrior,
         MAPDeconvolver,
@@ -2470,7 +2492,7 @@ def run_slice(datasets, gmm, device, cycle_spin, n_steps=STEPS,
     deco = MAPDeconvolver(
         n_epochs=n_steps, learning_rate=0.1, update_strategy="joint",
         conv_mode=conv_mode, trace_every=0, seed=0, device=device,
-        compute_error=compute_error,
+        compute_error=compute_error, mesh=mesh,
     )
     return deco.run(datasets, components=component)
 
@@ -4695,6 +4717,256 @@ def phase_io(torch, device, card):
           + (f"; left out: {'; '.join(left_out)}" if left_out else ""))
     return out
 
+# ----------------------------------------------------------------------
+# phase 13: the main path on a mesh of ranks sharing the one card
+#
+# (a) one rank on NCCL, (b) two ranks on gloo with an obs mesh, (c) four
+# ranks on gloo with a 2 x 2 (obs, row) mesh through the pencil FFT, (d)
+# the matrix-DFT path on the two-rank obs mesh with 8 observations (two
+# K3 pairs a rank), (e) the MAP probe after (b)'s training; each run's
+# launches counted on each rank. NCCL refuses two ranks on one device,
+# so (b)-(e) run on gloo, whose collectives carry CUDA tensors. Their
+# steps/s say how fast ranks that share one card run, not how a mesh of
+# cards scales.
+P13_ROW_STEPS = 10
+P13_PFFT_OBS = 8
+P13_RUNS = {
+    "a": {"backend": "nccl", "mesh": (1,), "steps": STEPS},
+    "b": {"backend": "gloo", "mesh": (2,), "steps": STEPS},
+    "c": {"backend": "gloo", "mesh": (2, 2), "steps": P13_ROW_STEPS},
+    "d": {"backend": "gloo", "mesh": (2,), "steps": STEPS,
+          "conv_mode": "pfft", "n_obs": P13_PFFT_OBS},
+    "e": {"backend": "gloo", "mesh": (2,), "steps": ERROR_STEPS,
+          "compute_error": True},
+}
+# the runs of one spawned group (one process group each)
+P13_GROUPS = (("a",), ("b", "d", "e"), ("c",))
+# the sharded runs against the unsharded ones: the losses within
+# SMALL_FLUX_RTOL, the flux within phase 6's share of its max-abs, for
+# phase 6's reason: the ranks' gradients are summed in another order,
+# and Adam's first step, -lr g / (|g| + eps), turns that rounding into a
+# different step wherever a pixel's gradient is near zero (6.1e-4
+# elementwise at the main path on an H100 with two ranks)
+P13_FLUX_SHARE = PFFT_FLUX_SHARE
+
+
+def phase13_rank(rank, world, names, device, field=FIELD, n_obs=N_OBS):
+    """One rank of phase 13's runs ``names`` (one mesh) on ``device``, at
+    ``n_obs`` observations of ``field``² (the main path's by default):
+    each run a warm-up of 2 steps, then the counted run, counts set to
+    zero just before and read just after. Returns per run the rank's
+    launches, plain calls, steps/s, loss, a digest of its parameters and,
+    on rank 0, the flux and errors."""
+    import hashlib
+
+    import torch
+
+    from jolideco_torch.parallel import make_obs_mesh, make_obs_row_mesh
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    shape = P13_RUNS[names[0]]["mesh"]
+    mesh = (make_obs_mesh(world) if len(shape) == 1
+            else make_obs_row_mesh(*shape))
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=n_obs, size=field, psf_size=33, seed=0)
+    out = {}
+    for name in names:
+        run = P13_RUNS[name]
+        data = dict(list(datasets.items())[:run.get("n_obs", n_obs)])
+        kwargs = dict(cycle_spin=True, mesh=mesh,
+                      conv_mode=run.get("conv_mode", "fft"),
+                      compute_error=run.get("compute_error", False))
+        run_slice(data, astro, device, n_steps=2, **kwargs)  # warm-up
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        reset_counts()
+        result = run_slice(data, astro, device, n_steps=run["steps"],
+                           **kwargs)
+        launches, plain_calls = counts()
+        log_flux = result.components["flux"].parameters()["flux"]
+        out[name] = {
+            "launches": launches, "plain_calls": plain_calls,
+            "steps_per_s": run["steps"] / result.train_seconds,
+            "loss": result.loss_per_step,
+            "params_sha256": hashlib.sha256(
+                log_flux.detach().cpu().numpy().tobytes()).hexdigest(),
+        }
+        if rank == 0:
+            out[name]["flux"] = result.flux_upsampled_total
+            if run.get("compute_error"):
+                out[name]["errors"] = result.components[
+                    "flux"].flux_upsampled_error_numpy
+    return out
+
+
+def p13_expected(name, rank, k1="gmm_fused_fwd_tc", k3=K3_KERNELS["split"]):
+    """Run ``name``'s launches on ``rank``: K1 split and K2 once a step
+    on the rank's strip block, K3's split passes twice a step (forward
+    and adjoint) on the rank's pairs, the probe's K5 split, K6 and K7
+    once on rank 0 (which adds the prior's Hessian term)."""
+    run = P13_RUNS[name]
+    steps = run["steps"]
+    nonzero = {k1: steps, "gmm_fused_bwd": steps}
+    if run.get("conv_mode") == "pfft":
+        nonzero.update({kernel: 2 * steps for kernel in k3})
+    if run.get("compute_error") and rank == 0:
+        nonzero.update({"gmm_score_rows_tc": 1, "gmm_unit_map": 1,
+                        "gmm_hvp_map": 1})
+    return expect(**nonzero)
+
+
+def p13_partial_sums(torch, device, flux):
+    """(f) ``gmm_score_fused_partial_sum`` in one process: 2, 4 and 3
+    shards, each a launch of K1 split and K2 on its strip block, against
+    one whole-image call, at the trained 1024^2 flux of phase 3 and on
+    the ragged 1000 x 904 image of phase 2 (a block of zero-flux
+    sentinels): the summed values within phase 2's rtol 1e-5, the image
+    gradient within its 1e-4 of the max-abs."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    bufs = GaussianMixtureModel.from_registry("astro-snr-v1").kernel_buffers(
+        device)
+    rs = np.random.RandomState(0)
+    ragged = rs.uniform(0.1, 2.0, RAGGED).astype(np.float32)
+    ragged[96:160, 200:260] = 2.0 * ZERO_FLUX_SENTINEL
+    out = {}
+    for label, img in ((MAIN, flux), ("{}x{}".format(*RAGGED), ragged)):
+        image = torch.as_tensor(np.ascontiguousarray(img), device=device)
+        x = image.clone().requires_grad_(True)
+        values, _, valid = gf.gmm_score_fused_image(
+            x, (8, 8), 4, bufs, ZERO_FLUX_SENTINEL, mode="split")
+        whole = torch.where(valid, values, torch.zeros_like(values)).sum()
+        whole.backward()
+        for n_shards in (2, 4, 3):
+            reset_counts()
+            xs = image.clone().requires_grad_(True)
+            total = sum(gf.gmm_score_fused_partial_sum(
+                xs, (8, 8), 4, bufs, ZERO_FLUX_SENTINEL, n_shards, index,
+                mode="split") for index in range(n_shards))
+            total.backward()
+            torch.cuda.synchronize()
+            launches, plain_calls = counts()
+            tag = f"phase 13 (f) {label}, {n_shards} shards"
+            check(launches == expect(gmm_fused_fwd_tc=n_shards,
+                                     gmm_fused_bwd=n_shards),
+                  f"{tag}: launches {launches}")
+            check(plain_calls == 0, f"{tag}: plain versions ran")
+            value_rel = float(abs(total - whole) / abs(whole))
+            grad_rel = float((xs.grad - x.grad).abs().max()
+                             / x.grad.abs().max())
+            check(value_rel <= 1e-5 and grad_rel <= 1e-4,
+                  f"{tag}: summed values {value_rel:.3g} (limit 1e-5), "
+                  f"gradient {grad_rel:.3g} of the max-abs (limit 1e-4)")
+            out[f"{label} {n_shards}"] = {"value_rel_err": value_rel,
+                                          "grad_err_share": grad_rel}
+            print(f"{tag}: K1 split and K2 {n_shards} launches each; summed "
+                  f"values rel err {value_rel:.3g} (limit 1e-5), gradient "
+                  f"{grad_rel:.3g} of the max-abs (limit 1e-4)")
+    return out
+
+
+def phase_mesh(torch, device, card, slice_, errors):
+    """Phase 13: the main path on a mesh of ranks sharing the card; the
+    runs of ``P13_RUNS``, each rank's launches exact and its parameters
+    the same bits as every other rank's; (f) the strip blocks in one
+    process."""
+    from jolideco_torch.parallel.launch import run_ranks
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    ranks = {}
+    for names in P13_GROUPS:
+        run = P13_RUNS[names[0]]
+        world = int(np.prod(run["mesh"]))
+        t0 = time.perf_counter()
+        results = run_ranks(phase13_rank, world, args=(names, str(device)),
+                            backend=run["backend"], timeout=400,
+                            collective_timeout=300)
+        print(f"phase 13 group {'+'.join(names)}: {world} rank(s) on "
+              f"{run['backend']} in {time.perf_counter() - t0:.1f} s")
+        for name in names:
+            ranks[name] = [r[name] for r in results]
+
+    # the unsharded references: phase 3's and phase 4's runs, and runs of
+    # (c)'s 10 steps and (d)'s 8 observations on the pfft path
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    eight = dict(list(datasets.items())[:P13_PFFT_OBS])
+    reference = {
+        "a": (slice_["high"]["flux"], slice_["high"]["loss"]),
+        "b": (slice_["high"]["flux"], slice_["high"]["loss"]),
+    }
+    for name, data, conv_mode in (("c", datasets, "fft"),
+                                  ("d", eight, "pfft")):
+        result = run_slice(data, astro, device, cycle_spin=True,
+                           n_steps=P13_RUNS[name]["steps"],
+                           conv_mode=conv_mode)
+        reference[name] = (result.flux_upsampled_total, result.loss_per_step)
+
+    out = {}
+    for name, per_rank in ranks.items():
+        run = P13_RUNS[name]
+        mesh = "x".join(str(n) for n in run["mesh"])
+        tag = f"phase 13 ({name}) {len(per_rank)} rank(s) on {run['backend']}"
+        for rank, got in enumerate(per_rank):
+            want = p13_expected(name, rank)
+            check(got["launches"] == want, f"{tag} rank {rank}: launches "
+                  f"{got['launches']}, not {want}")
+            check(got["plain_calls"] == 0, f"{tag} rank {rank}: plain "
+                  f"versions ran {got['plain_calls']} times")
+        digests = {got["params_sha256"] for got in per_rank}
+        check(len(digests) == 1, f"{tag}: ranks' parameters differ")
+        first = per_rank[0]
+        check(bool(np.isfinite(first["loss"]).all()), f"{tag}: loss not "
+              "finite")
+        line = {"mesh": mesh, "backend": run["backend"],
+                "steps": run["steps"],
+                "steps_per_s": [got["steps_per_s"] for got in per_rank],
+                "launches": [got["launches"] for got in per_rank],
+                "parameters_bitwise_equal": True}
+        if name == "e":
+            err, want = first["errors"], errors["high"]["errors"]
+            rel = float(np.max(np.abs(err - want) / np.abs(want)))
+            check(rel <= SMALL_ERROR_RTOL, f"{tag}: errors against phase "
+                  f"4's max rel {rel:.3g} (limit {SMALL_ERROR_RTOL})")
+            line["errors_rel"] = rel
+            compared = f"errors against phase 4's max rel {rel:.3g}"
+        else:
+            flux_want, loss_want = reference[name]
+            diff = np.abs(first["flux"] - flux_want)
+            flux_share = float(diff.max() / np.abs(flux_want).max())
+            flux_rel = float(np.max(diff / np.abs(flux_want)))
+            loss_rel = float(np.max(np.abs(first["loss"] - loss_want)
+                                    / np.abs(loss_want)))
+            bitwise = bool(np.array_equal(first["flux"], flux_want)
+                           and np.array_equal(first["loss"], loss_want))
+            check(flux_share <= P13_FLUX_SHARE
+                  and loss_rel <= SMALL_FLUX_RTOL,
+                  f"{tag}: flux {flux_share:.3g} of the max-abs (limit "
+                  f"{P13_FLUX_SHARE}; max rel {flux_rel:.3g}), loss max rel "
+                  f"{loss_rel:.3g} (limit {SMALL_FLUX_RTOL}) against the "
+                  "unsharded run")
+            line.update(flux_share=flux_share, flux_rel=flux_rel,
+                        loss_rel=loss_rel, bitwise_equal_unsharded=bitwise)
+            compared = (f"against the unsharded run: flux {flux_share:.3g} "
+                        f"of the max-abs (limit {P13_FLUX_SHARE}; max rel "
+                        f"{flux_rel:.3g}), loss max rel {loss_rel:.3g} (limit "
+                        f"{SMALL_FLUX_RTOL}); bit for bit: {bitwise}")
+        rates = ", ".join(f"{r:.3f}" for r in line["steps_per_s"])
+        print(f"{tag}, mesh {mesh}, {run['steps']} steps: {compared}; "
+              f"launches exact on every rank; parameters the same bits on "
+              f"every rank; steps/s per rank {rates} ({card}; ranks sharing "
+              f"one card: not a scaling figure)")
+        out[name] = line
+    out["f"] = p13_partial_sums(torch, device, slice_["high"]["flux"])
+    return out
+
 
 def main():
     try:
@@ -4727,6 +4999,7 @@ def main():
     priors = phase_priors(torch, device, card)
     forward_model = phase_forward_model(torch, device, card)
     io = phase_io(torch, device, card)
+    mesh = phase_mesh(torch, device, card, slice_, errors)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -5027,6 +5300,9 @@ def main():
     print(json.dumps({"priors": priors}))
     print(json.dumps({"forward_model": forward_model}))
     print(json.dumps({"io": io}))
+    print(json.dumps({"mesh": {name: {k: v for k, v in run.items()
+                                      if k != "launches"}
+                               for name, run in mesh.items()}}))
     # launches_phase9: each kernel's launches in phase 9's three runs at
     # the 2048^2 flux (the joint run, the probe run, the quick start);
     # launches_phase10: in phase 10's runs; launches_phase11: in phase
@@ -5050,7 +5326,9 @@ def main():
          "launches_phase9": {run: n[name] for run, n in phase9.items()},
          "launches_phase10": {run: n[name] for run, n in phase10.items()},
          "launches_phase11": {run: n[name] for run, n in phase11.items()},
-         "launches_phase12": io["launches"][name]}
+         "launches_phase12": io["launches"][name],
+         "launches_phase13": {run: [n[name] for n in mesh[run]["launches"]]
+                              for run in P13_RUNS}}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table
     ]}))
     print(json.dumps({"ok": True, "device": {

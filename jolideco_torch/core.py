@@ -81,10 +81,26 @@ keeps the values the run received). The optimiser's leaves are those
 of the JAX package's params pytree ``{"components": ..., "calibrations":
 ...}``, in its order (keys sorted at every level).
 
-Not ported, raising ``NotImplementedError``: a device ``mesh`` and
-``conv_mode`` values other than ``"auto"``, ``"fft"`` and ``"pfft"``.
-Every keyword of the JAX package's signatures is accepted, so that a
-call written for it fails only on what is not ported.
+On several devices (``mesh=``, ``parallel.mesh``) every rank of the
+process group runs the same program on the same datasets. The joint
+strategy's stacked losses are sharded: a rank keeps its block of the
+observations (``"obs"``) and, on a 2-D mesh, its block of their image
+rows (``"row"``, through the pencil FFT of ``ops.dist_fft``). The
+parameters are replicated, broadcast from rank 0 when the run starts;
+each step a rank differentiates its part of the loss, and one
+``all_reduce`` sums the gradients and the data terms, so that every rank
+takes the same optimiser step. With ``shard_prior`` (the default) the
+prior's patches are split over the ranks as well (``parallel.prior``).
+The trace rows, the validation totals early stopping reads and the
+probe's Hessian diagonals are summed over the ranks, so that every rank
+decides alike; only rank 0 writes checkpoints. The result equals the
+unsharded run's up to float32 summation order. The sequential strategy
+runs unsharded on every rank, as in the JAX package.
+
+Not ported, raising ``NotImplementedError``: ``conv_mode`` values other
+than ``"auto"``, ``"fft"`` and ``"pfft"``. Every keyword of the JAX
+package's signatures is accepted, so that a call written for it fails
+only on what is not ported.
 """
 
 import logging
@@ -93,6 +109,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import resolve_device
 from .loss import PriorLoss, TotalLoss
@@ -102,6 +119,14 @@ from .models import (
     SparseSpatialFluxComponent,
     SpatialFluxComponent,
 )
+from .parallel.mesh import (
+    all_reduce_sum,
+    broadcast_tensors,
+    mesh_size,
+    mesh_topology,
+)
+from .parallel.prior import sharded_prior_fn
+from .parallel.spatial import shard_stacked_spatial
 from .parallel.stacked import DataValidationError, StackedPoissonLoss
 from .utils.checkpoint import (
     restore_calibration_params,
@@ -212,11 +237,14 @@ class Trainer:
     one epoch in place and returns ``(losses, row)``: the device scalar
     losses of its steps (each at the parameters its step started from)
     and its trace row (a dict of device scalars), ``None`` on an epoch
-    that computes none.
+    that computes none. With a sharded stacked loss (its ``mesh``) the
+    joint step is the mesh's (:meth:`_step_mesh`), ``prior_fn`` the
+    prior split over the ranks (``parallel.prior``) or ``None``.
     """
 
     def __init__(self, deconvolver, components, total_loss, params,
-                 optimizer, generator, calibration_params=None):
+                 optimizer, generator, calibration_params=None,
+                 prior_fn=None):
         self.components = components
         self.total_loss = total_loss
         self.params = params
@@ -235,6 +263,11 @@ class Trainer:
         self.weights = total_loss.poisson_loss.weights
         # the fluxes' shapes, at which the priors draw (jitter, subsets)
         self.shapes = tuple(c.shape for c in components.values())
+        self.mesh = getattr(total_loss.poisson_loss, "mesh", None)
+        self.prior_fn = prior_fn
+        if self.mesh is not None:
+            # every rank starts from rank 0's parameters
+            broadcast_tensors(self.optimizer.param_groups[0]["params"])
 
     def _step(self, loss_fn):
         self.optimizer.zero_grad(set_to_none=True)
@@ -248,6 +281,42 @@ class Trainer:
                 leaf.grad = torch.zeros_like(leaf)
         self.optimizer.step()
         return loss.detach()
+
+    def _step_mesh(self, shifts):
+        """One joint step on a rank of the mesh: the rank's part of the
+        loss, its gradient, then one ``all_reduce`` of the gradients and
+        the data term together. Returns the total loss, the same on every
+        rank."""
+        self.optimizer.zero_grad(set_to_none=True)
+        fluxes = self.components.fluxes_from(self.params)
+        poisson = self.total_loss.poisson_loss
+        data = torch.sum(poisson.evaluate(fluxes, self.calibration_params)
+                         * poisson.weights)
+        prior_loss = self.total_loss.prior_loss
+        if self.prior_fn is not None:
+            # the whole log-prior; each rank's gradient is its part's
+            prior = self.prior_fn(prior_loss, fluxes, params=self.params,
+                                  shifts=shifts)
+            objective = data - self.beta * prior
+        else:
+            # every rank computes the whole prior: each takes 1/n of it
+            prior = prior_loss(fluxes, params=self.params, shifts=shifts)
+            objective = data - self.beta * prior / dist.get_world_size()
+        objective.backward()
+        # a leaf this rank does not reach (another rank's calibration)
+        # takes a zero gradient, so that every rank reduces every leaf
+        leaves = self.optimizer.param_groups[0]["params"]
+        flat = torch.cat(
+            [(leaf.grad if leaf.grad is not None
+              else torch.zeros_like(leaf)).reshape(-1) for leaf in leaves]
+            + [data.detach().reshape(1)])
+        all_reduce_sum(flat)
+        offset = 0
+        for leaf in leaves:
+            leaf.grad = flat[offset:offset + leaf.numel()].view_as(leaf)
+            offset += leaf.numel()
+        self.optimizer.step()
+        return flat[-1] - self.beta * prior.detach()
 
     def _loss_for_dataset(self, idx, shifts):
         fluxes = self.components.fluxes_from(self.params)
@@ -284,6 +353,8 @@ class Trainer:
                 shifts = self._draw()
                 losses.append(self._step(
                     lambda: self._loss_for_dataset(idx, shifts)))
+        elif self.mesh is not None:
+            losses = [self._step_mesh(self._draw())]
         else:
             shifts = self._draw()
             losses = [self._step(lambda: self._loss_joint(shifts))]
@@ -341,8 +412,15 @@ class MAPDeconvolver:
     device : str or torch.device, optional
         Where the run happens; default the first CUDA card (and an error
         without one). ``"cpu"`` runs the plain versions of the kernels.
-    mesh :
-        Not ported: anything but ``None`` raises ``NotImplementedError``.
+    mesh : DeviceMesh, optional
+        ``parallel.make_obs_mesh()`` (observations split over the ranks)
+        or ``parallel.make_obs_row_mesh(n_obs, n_row)`` (observations and
+        image rows) over every rank of the initialised process group,
+        which all run this program on the same data: the joint strategy
+        then runs sharded (see the module's docstring). A mesh pins the
+        stacked path (data that cannot stack raises), and
+        ``conv_mode="pfft"`` on a mesh with a ``"row"`` dimension falls
+        back to ``"fft"`` with a warning.
     conv_mode : {"auto", "fft", "pfft"}
         PSF convolution backend of the joint strategy: ``"fft"`` a
         batched ``rfft2`` (cuFFT on the card), ``"pfft"`` the pair-packed
@@ -353,8 +431,9 @@ class MAPDeconvolver:
     fft_shape : tuple of int, optional
         Padded FFT shape (at least image + kernel - 1 per axis).
     shard_prior : bool
-        Accepted and stored: without a mesh it has no effect, in the JAX
-        package too.
+        On a mesh with the joint strategy, split the prior's patches over
+        every rank (``parallel.prior``) instead of scoring all of them on
+        each; no effect without a mesh.
     """
 
     _default_flux_component = "flux"
@@ -368,16 +447,10 @@ class MAPDeconvolver:
                  scan_epochs=None, scan_chunk=None, trace_every=1, seed=0,
                  device=None, mesh=None, conv_mode="auto", fft_shape=None,
                  shard_prior=True):
-        unported = {
-            "mesh": mesh is not None,
-            f"conv_mode={conv_mode!r}":
-                conv_mode not in ("auto", "fft", "pfft"),
-        }
-        for name, requested in unported.items():
-            if requested:
-                raise NotImplementedError(
-                    f"MAPDeconvolver({name}) is not ported yet"
-                )
+        if conv_mode not in ("auto", "fft", "pfft"):
+            raise NotImplementedError(
+                f"MAPDeconvolver(conv_mode={conv_mode!r}) is not ported yet"
+            )
         if optimizer_type not in OPTIMIZER:
             raise ValueError(
                 f"Unknown optimizer: {optimizer_type}, must be one of "
@@ -397,7 +470,13 @@ class MAPDeconvolver:
         self.display_progress = bool(display_progress)
         self.scan_epochs = scan_epochs
         self.scan_chunk = None if scan_chunk is None else int(scan_chunk)
-        self.mesh = None
+        self.mesh = mesh
+        if mesh is not None and update_strategy != "joint":
+            log.warning(
+                "mesh is only used by the joint update strategy; the "
+                "sequential per-dataset loop runs unsharded. Pass "
+                "update_strategy='joint' to shard over the mesh."
+            )
         if checkpoint_path is not None:
             checkpoint_path = Path(checkpoint_path)
             checkpoint_path.mkdir(exist_ok=True, parents=True)
@@ -442,7 +521,7 @@ class MAPDeconvolver:
             "conv_mode": self.conv_mode,
             "fft_shape": None if self.fft_shape is None
             else list(self.fft_shape),
-            "mesh": None,
+            "mesh": None if self.mesh is None else mesh_topology(self.mesh),
             "shard_prior": self.shard_prior,
             "checkpoint_path": None if self.checkpoint_path is None
             else str(self.checkpoint_path),
@@ -511,7 +590,8 @@ class MAPDeconvolver:
         without a common FFT shape): the JAX package's fallback to
         per-dataset models, decided from the data before anything runs.
         A `DataValidationError` (data neither path takes) and any error
-        under an explicit ``fft_shape`` propagate."""
+        under an explicit ``fft_shape`` or a mesh propagate. On a mesh the
+        losses are this rank's shards."""
         # "auto" is the rfft2 (cuFFT): at the main path's 5 pairs of
         # 1024^2 (n = 1152) the matrix DFT took 1.94 ms per direction
         # under the default dial ("split": passes 2 and 3 on the tensor
@@ -519,30 +599,49 @@ class MAPDeconvolver:
         # pair 0.58 ms and the batched rfft2 of the same 10 images 0.45 ms
         # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
+        mesh = self.mesh
+        row_shards = (mesh_size(mesh, "row") if mesh is not None
+                      and "row" in mesh.mesh_dim_names else None)
+        if conv_mode == "pfft" and row_shards:
+            log.warning(
+                "conv_mode='pfft' does not partition over a row (spatial) "
+                "mesh; using conv_mode='fft' for this sharded run"
+            )
+            conv_mode = "fft"
 
         def stacked(data):
             return StackedPoissonLoss.from_datasets(
                 datasets=data, components=components,
                 calibrations=calibrations, fft_shape=self.fft_shape,
-                conv_mode=conv_mode, device=device,
+                conv_mode=conv_mode, row_shards=row_shards, device=device,
             )
 
         try:
-            return (stacked(datasets), stacked(datasets_validation)
-                    if datasets_validation else None)
+            losses = (stacked(datasets), stacked(datasets_validation)
+                      if datasets_validation else None)
         except DataValidationError:
             raise
         except ValueError as exc:
-            if self.fft_shape is not None:
+            # an explicit fft_shape or a mesh pins the stacked path
+            if self.fft_shape is not None or mesh is not None:
                 raise
             log.warning(f"Cannot stack observations ({exc}); falling back "
                         "to per-dataset forward models")
             return None
+        if mesh is None:
+            return losses
+        shard = (shard_stacked_spatial if row_shards
+                 else StackedPoissonLoss.shard)
+        return tuple(None if loss is None else shard(loss, mesh)
+                     for loss in losses)
 
     def _write_checkpoint(self, trainer, calibrations, filename):
         """Write the epoch's result file: the components and calibrations
         at the trainer's parameters (copies: the optimiser's tensors stay
-        as they are), the trace so far and the configuration."""
+        as they are), the trace so far and the configuration. On a mesh,
+        rank 0 writes it."""
+        if self.mesh is not None and dist.get_rank() != 0:
+            return
         trainer.components.set_parameters(trainer.params)
         if calibrations and trainer.calibration_params:
             calibrations.set_parameters(trainer.calibration_params)
@@ -618,8 +717,12 @@ class MAPDeconvolver:
         )
         if opt_state is not None:
             _load_opt_state(optimizer, opt_state)
+        prior_fn = None
+        if (self.mesh is not None and self.shard_prior
+                and self.update_strategy == "joint"):
+            prior_fn = sharded_prior_fn(self.mesh)
         return Trainer(self, components, total_loss, params, optimizer,
-                       generator, calibration_params)
+                       generator, calibration_params, prior_fn=prior_fn)
 
     def run(self, datasets, datasets_validation=None, components=None,
             calibrations=None, resume_from=None, total_loss=None):

@@ -14,6 +14,7 @@ import math
 from contextlib import nullcontext
 
 import torch
+import torch.distributed as dist
 
 from .config import force_fused, resolve_device
 from .models.npred import NPredModels, as_image
@@ -53,6 +54,14 @@ def poisson_nll(npred, counts, eps=1e-25, full=True, stirling=None):
             stirling = stirling_term_mean(counts)
         loss = loss + stirling
     return loss
+
+
+def _all_losses(poisson_loss, fluxes, calibration_params):
+    """Every dataset's loss: a sharded stacked loss's gathered from the
+    ranks (``StackedPoissonLoss.gather``)."""
+    losses = poisson_loss.evaluate(fluxes, calibration_params)
+    gather = getattr(poisson_loss, "gather", None)
+    return losses if gather is None else gather(losses)
 
 
 class PoissonLoss:
@@ -163,6 +172,22 @@ class PriorLoss:
                                 shifts=(shifts or {}).get(name)))
         return values
 
+    def evaluate_sharded(self, fluxes, params=None, generator=None,
+                         shifts=None, n_shards=1, shard_index=0):
+        """Per-component shard parts of the log-prior
+        (``Prior.shard_partial``): summed over the shards, each called
+        with the same draws, they equal :meth:`evaluate`'s values."""
+        values = []
+        for flux, (name, prior) in zip(fluxes, self.priors.items()):
+            prior_params = None
+            if params is not None and name in params:
+                prior_params = params[name].get("prior")
+            values.append(prior.shard_partial(
+                flux, params=prior_params, generator=generator,
+                shifts=(shifts or {}).get(name), n_shards=n_shards,
+                shard_index=shard_index))
+        return values
+
     def __call__(self, fluxes, params=None, generator=None, shifts=None):
         """Summed log-prior."""
         return sum(self.evaluate(fluxes, params=params, generator=generator,
@@ -220,9 +245,11 @@ class TotalLoss:
     def trace_row_values(self, fluxes, params=None, generator=None,
                          shifts=None, calibration_params=None):
         """One trace row as a dict of device scalars, in the trace's
-        column order (without ``filename``). Raw, unweighted NLLs."""
-        loss_datasets = self.poisson_loss.evaluate(fluxes,
-                                                   calibration_params)
+        column order (without ``filename``). Raw, unweighted NLLs; on a
+        mesh every dataset's, the same on every rank (the priors are
+        computed whole on each)."""
+        loss_datasets = _all_losses(self.poisson_loss, fluxes,
+                                    calibration_params)
         loss_priors = self.prior_loss.evaluate(
             fluxes, params=params, generator=generator, shifts=shifts
         )
@@ -238,10 +265,8 @@ class TotalLoss:
         for name, value in zip(self.poisson_loss.names_all, loss_datasets):
             row[f"dataset-{name}"] = value
         if self.poisson_loss_validation:
-            row["datasets-validation-total"] = torch.sum(
-                self.poisson_loss_validation.evaluate(fluxes,
-                                                      calibration_params)
-            )
+            row["datasets-validation-total"] = torch.sum(_all_losses(
+                self.poisson_loss_validation, fluxes, calibration_params))
         return row
 
     def append_trace_device_row(self, row, filename=""):
@@ -299,6 +324,11 @@ class TotalLoss:
         priors as in :meth:`__call__`. The Hessian is taken with respect
         to the fluxes, the calibrations held at ``calibration_params``
         (their trained values).
+
+        With a sharded stacked loss (on a mesh) each rank takes the
+        Hessian of its data terms, rank 0 adds the prior's once, and the
+        diagonals are summed over the ranks: every rank returns the
+        whole.
         """
         if calibration_params is not None:
             calibration_params = {
@@ -309,13 +339,31 @@ class TotalLoss:
             prior.second_order_ok(tuple(flux.shape))
             for prior, flux in zip(self.prior_loss.priors.values(), fluxes)
         )
+        sharded = getattr(self.poisson_loss, "mesh", None) is not None
+        if sharded and shifts is None:
+            # every rank draws, so that the priors' generators stay alike
+            shifts = self.prior_loss.draw_shifts(
+                generator, [tuple(f.shape) for f in fluxes])
         with nullcontext() if second_order else force_fused("off"):
-            loss = self(fluxes, generator=generator, shifts=shifts,
-                        calibration_params=calibration_params)
+            if not sharded:
+                loss = self(fluxes, generator=generator, shifts=shifts,
+                            calibration_params=calibration_params)
+            else:
+                loss = torch.sum(self.poisson_loss.evaluate(
+                    fluxes, calibration_params) * self.poisson_loss.weights)
+                if dist.get_rank() == 0:
+                    loss = loss - self.beta * self.prior_loss(fluxes,
+                                                              shifts=shifts)
             grads = torch.autograd.grad(loss, fluxes, create_graph=True)
-            return torch.autograd.grad(
+            hessians = torch.autograd.grad(
                 grads, fluxes, grad_outputs=[torch.ones_like(f) for f in fluxes]
             )
+        if not sharded:
+            return hessians
+        flat = torch.cat([h.reshape(-1) for h in hessians])
+        dist.all_reduce(flat)
+        return tuple(part.view_as(h) for part, h in zip(
+            flat.split([h.numel() for h in hessians]), hessians))
 
     def fluxes_error(self, fluxes, generator=None, shifts=None,
                      calibration_params=None):

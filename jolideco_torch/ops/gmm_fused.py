@@ -82,6 +82,7 @@ __all__ = [
     "fused_backward_plain",
     "fused_forward_plain",
     "gmm_score_fused_image",
+    "gmm_score_fused_partial_sum",
     "kernel_buffers",
     "logit_chunks",
     "marg_unit_bf16_plain",
@@ -1014,3 +1015,51 @@ def gmm_score_fused_image(normed, patch_shape, stride, bufs, sentinel,
     values, argmax, valid = _FusedScore.apply(
         image, bufs, int(stride), float(sentinel), bool(marginalize), mode)
     return values, argmax, valid > 0.5
+
+
+def gmm_score_fused_partial_sum(normed, patch_shape, stride, bufs, sentinel,
+                                n_shards, shard_index, marginalize=False,
+                                mode="f32"):
+    """Partial ``sum(values[valid])`` over one shard's strip block.
+
+    The enumeration's ``H // 8`` grid rows split into ``n_shards``
+    contiguous blocks whose sizes differ by at most one
+    (``parallel.mesh.block``) and only block
+    ``shard_index`` is scored: the kernels (or their plain versions) of
+    :func:`gmm_score_fused_image` run on the image rows of the block and
+    the 8 rows below it, and the extra grid row that those 8 rows add is
+    dropped from the sum (it is the next block's). Every patch of the
+    block lies inside those rows, and a patch runs out of the image in
+    the block exactly where it does in the whole image, so the edge mask
+    marks the same patches. Summed over the shards, values and gradients
+    equal those of the whole image up to float32 summation order: each
+    patch belongs to exactly one shard, and a shard with no grid row
+    (more shards than rows) gives zero without a launch.
+
+    Counterpart of the JAX package's
+    ``ops.gmm_fused.gmm_score_fused_partial_sum``, which splits its
+    folded virtual strips instead and pads their count to a multiple of
+    the shards; blocks of grid rows are the port's own layout.
+    """
+    h, w = normed.shape[-2:]
+    if not fused_supported(normed.shape, patch_shape, stride, D):
+        raise ValueError("fused scorer does not support this shape")
+    n_shards, shard_index = int(n_shards), int(shard_index)
+    if n_shards < 1 or not 0 <= shard_index < n_shards:
+        raise ValueError(
+            f"shard_index {shard_index} is not one of {n_shards} shards")
+    from ..parallel.mesh import block
+
+    image = normed.reshape(h, w)
+    rows = block(h // PATCH, n_shards, shard_index)
+    i0, i1 = rows.start, rows.stop
+    if i1 == i0:
+        return image.sum() * 0.0
+    strips = image[PATCH * i0:min(h, PATCH * (i1 + 1))]
+    values, _, valid = gmm_score_fused_image(
+        strips, patch_shape, stride, bufs, sentinel, marginalize=marginalize,
+        mode=mode)
+    values = torch.where(valid, values, torch.zeros_like(values))
+    grid = values.reshape(len(_offsets(stride)), strips.shape[0] // PATCH,
+                          -1)
+    return grid[:, :i1 - i0].sum()

@@ -37,9 +37,25 @@ the pair-packed matrix DFT (``ops/pallas_fft.py``): even and odd
 observations go pairwise through one complex transform, at a size that
 is a multiple of 128, with the images padded to multiples of 128, the
 bands of each pair flattened into the kernels' batch; an odd last
-observation takes the ``rfft2`` path. Not ported: the other convolution
-backends and the mesh paths.
+observation takes the ``rfft2`` path. The JAX package's other
+convolution backends (``"ct"``, ``"mxu"``, ``"direct"``) are not ported.
+
+On a mesh (``parallel.mesh``) a rank keeps a copy of the loss with its
+contiguous block of the observations (:meth:`StackedPoissonLoss.shard`):
+``evaluate`` then gives this rank's per-observation losses and
+:meth:`StackedPoissonLoss.gather` all of them, on every rank. Under
+``"pfft"`` the pairs stay on their rank, and K3 runs on them, when every
+rank holds the same even count; otherwise the rank convolves its
+observations one by one through the ``rfft2``, as in the JAX package. On
+a 2-D ``(obs, row)`` mesh (``parallel.spatial.shard_stacked_spatial``)
+the rank also keeps its block of the image rows and its block of the
+spectra's columns, and convolves through the pencil FFT
+(``ops.dist_fft``); its losses are then its rows' parts of each
+observation's: their share of the pixel mean and ``1 / R`` of the
+Stirling term.
 """
+
+import copy
 
 import numpy as np
 import torch
@@ -59,6 +75,7 @@ from ..ops.pallas_fft import (
     pfft_pair_spectra_device,
     pfft_size,
 )
+from .mesh import all_reduce_sum, mesh_size, obs_block, shard_stacked
 
 __all__ = ["DataValidationError", "StackedPoissonLoss"]
 
@@ -93,6 +110,12 @@ class StackedPoissonLoss:
     static_shifts, static_log_norms : ``(N, 1, 2)`` and ``(N, 1)``, or None
         The calibrations' values at build time, used for the leaves a
         (partly) frozen calibration does not train.
+    mesh : DeviceMesh or None
+        Set on a rank's copy by :meth:`shard` (and
+        ``parallel.spatial.shard_stacked_spatial``); the per-observation
+        arrays above then hold the observations ``obs_slice`` of
+        ``names_all`` (``local_names``) and, with ``row_slice``, the image
+        rows of ``row_slice`` at data resolution.
     """
 
     def __init__(self, counts, background, exposures, psf_ffts, names_all,
@@ -124,6 +147,13 @@ class StackedPoissonLoss:
         self.static_shifts = static_shifts
         self.static_log_norms = static_log_norms
         self.rmfs = dict(rmfs) if rmfs else None
+        # the whole loss until shard() takes a rank's block of it
+        self.mesh = None
+        self.obs_slice = slice(0, len(self.names_all))
+        self.local_names = self.names_all
+        self.row_slice = None
+        self.row_shards = 1
+        self.n_pixels = counts[0].numel()
 
     @property
     def n_datasets(self):
@@ -147,12 +177,12 @@ class StackedPoissonLoss:
         falls back to per-dataset models), and for invalid RMFs
         `DataValidationError`.
         ``device`` as in ``config.resolve_device``: the first CUDA card
-        by default, the CPU only when asked. ``row_shards`` (the JAX
-        package's pencil-FFT mesh) is accepted for signature parity;
-        anything but ``None`` raises.
+        by default, the CPU only when asked. ``row_shards``, the row
+        dimension of a mesh the loss will be sharded over
+        (``parallel.spatial.shard_stacked_spatial``), grows the default
+        FFT width until ``Fw // 2 + 1`` divides over it
+        (``ops.dist_fft.spatial_fft_shape``) under ``"fft"``.
         """
-        if row_shards is not None:
-            raise NotImplementedError("row_shards is not ported yet")
         device = resolve_device(device)
         if conv_mode not in ("fft", "pfft"):
             raise NotImplementedError(
@@ -212,7 +242,11 @@ class StackedPoissonLoss:
             min_shape = (image_shape[0] + kmax[0] - 1,
                          image_shape[1] + kmax[1] - 1)
             if common_fft_shape is None:
-                common_fft_shape = min_shape
+                fw = min_shape[1]
+                while row_shards and conv_mode == "fft" and (
+                        (fw // 2 + 1) % row_shards):
+                    fw += 1
+                common_fft_shape = (min_shape[0], fw)
             if (common_fft_shape[0] < min_shape[0]
                     or common_fft_shape[1] < min_shape[1]):
                 raise ValueError(
@@ -305,7 +339,7 @@ class StackedPoissonLoss:
         calibration does not train contributes its static value, not
         zero."""
         shifts, log_norms = [], []
-        for idx, name in enumerate(self.names_all):
+        for idx, name in enumerate(self.local_names):
             cal = (calibration_params or {}).get(name) or {}
             shifts.append(cal.get("shift_xy", self.static_shifts[idx]))
             log_norms.append(cal.get("log_background_norm",
@@ -331,6 +365,9 @@ class StackedPoissonLoss:
                 x = fluxes[idx][None]
             else:
                 x = shift_images(fluxes[idx], shifts, scale=factor)
+            if self.row_slice is not None:
+                x = x[..., factor * self.row_slice.start:
+                      factor * self.row_slice.stop, :]
             x = x * self.exposures[name][sel]
             y = sum_pool(conv_fn(name, x), factor)
             if self.rmfs is not None:
@@ -342,17 +379,68 @@ class StackedPoissonLoss:
         else:
             npred = npred + background * torch.exp(log_norms).reshape(
                 (-1,) + (1,) * (background.ndim - 1))
-        return torch.vmap(
-            lambda n, c, s: poisson_nll(n, c, stirling=s)
-        )(npred, self.counts[sel], self.stirling[sel])
+        counts, stirling = self.counts[sel], self.stirling[sel]
+        if self.row_slice is None:
+            return torch.vmap(
+                lambda n, c, s: poisson_nll(n, c, stirling=s)
+            )(npred, counts, stirling)
+        # this rank's rows: their share of each image's pixel mean, and
+        # 1/R of its Stirling term (computed on the whole image)
+        terms = npred - counts * torch.log(npred + 1e-25)
+        return (terms.flatten(1).sum(1) / self.n_pixels
+                + stirling / self.row_shards)
 
     def evaluate(self, fluxes, calibration_params=None):
-        """Per-observation mean Poisson NLL: ``(N,)`` tensor."""
-        if self.conv_mode == "pfft" and self.pfft_pairs is not None:
+        """Per-observation mean Poisson NLL: ``(N,)`` tensor (on a rank of
+        a mesh, of its observations and, on a 2-D mesh, its rows' parts
+        of them)."""
+        if self.row_slice is not None:
+            conv_fn = self._conv_dist
+        elif self.conv_mode == "pfft" and self.pfft_pairs is not None:
             conv_fn = self._conv_packed_pfft
         else:
             conv_fn = self._conv_fft
         return self._evaluate_batched(fluxes, calibration_params, conv_fn)
+
+    def gather(self, losses):
+        """Every observation's loss ``(N,)`` from each rank's
+        :meth:`evaluate` (its parts summed over the row ranks), the same
+        on every rank; ``losses`` itself without a mesh. Not
+        differentiable."""
+        if self.mesh is None:
+            return losses
+        full = torch.zeros(self.n_datasets, dtype=losses.dtype,
+                           device=losses.device)
+        full[self.obs_slice] = losses.detach()
+        return all_reduce_sum(full)
+
+    def shard(self, mesh):
+        """This rank's copy of the loss on ``mesh``: its contiguous block
+        of the observations (``parallel.mesh.obs_block``) and their
+        per-observation arrays (counts, background, exposures, spectra,
+        Stirling terms, weights, static calibration values, RMFs).
+
+        The observation pairs of ``"pfft"`` stay on their rank when every
+        rank holds the same even count of observations; otherwise the
+        pair spectra are dropped and ``evaluate`` convolves the rank's
+        observations one by one through the ``rfft2`` (the JAX package's
+        rule).
+        """
+        n_obs, n_ranks = self.n_datasets, mesh_size(mesh, "obs")
+        new = copy.copy(self)
+        new.mesh, new.obs_slice = mesh, obs_block(n_obs, mesh)
+        new.local_names = self.names_all[new.obs_slice]
+        for attr in ("counts", "background", "exposures", "psf_ffts",
+                     "stirling", "weights", "static_shifts",
+                     "static_log_norms", "rmfs"):
+            setattr(new, attr, shard_stacked(getattr(self, attr), mesh))
+        # with the same even count on every rank, the rank's block of the
+        # pairs is the pairs of its block of observations
+        per_rank = n_obs // n_ranks if n_obs % n_ranks == 0 else 0
+        pairs_local = per_rank and per_rank % 2 == 0
+        new.pfft_pairs = (shard_stacked(self.pfft_pairs, mesh) if pairs_local
+                          else None)
+        return new
 
     def evaluate_dataset(self, idx, fluxes, calibration_params=None):
         """Mean Poisson NLL of observation ``idx`` alone (its ``rfft2``
@@ -369,6 +457,12 @@ class StackedPoissonLoss:
     def _conv_fft(self, name, x):
         return convolve_fft_precomputed(x, self.psf_ffts[name],
                                         self.fft_shape)
+
+    def _conv_dist(self, name, x):
+        from ..ops.dist_fft import dist_convolve_fft
+
+        return dist_convolve_fft(x, self.psf_ffts[name], self.fft_shape,
+                                 self.mesh)
 
     def _conv_packed_pfft(self, name, x):
         """Observation pairs through the matrix DFT, an odd last one
@@ -403,7 +497,8 @@ class StackedPoissonLoss:
                 y1[:, :h, :w].reshape(lead + (h, w)))
 
     def __call__(self, fluxes, calibration_params=None):
-        """Weighted sum of per-observation losses."""
+        """Weighted sum of per-observation losses (on a rank of a mesh,
+        of its own losses)."""
         return torch.sum(self.evaluate(fluxes, calibration_params)
                          * self.weights)
 

@@ -70,6 +70,17 @@ class Prior:
         under the current dispatch (default: yes)."""
         return True
 
+    def shard_partial(self, flux, params=None, generator=None, shifts=None,
+                      n_shards=1, shard_index=0):
+        """This shard's additive part of :meth:`__call__`: summed over
+        ``shard_index = 0 .. n_shards - 1``, each called with the same
+        draws (``shifts``), the parts give the log-prior. By default the
+        whole value over ``n_shards`` (every shard computes it); a prior
+        that can split its work overrides this (``GMMPatchPrior`` scores
+        one strip block of its patches per shard)."""
+        return self(flux, params=params, generator=generator,
+                    shifts=shifts) / n_shards
+
     def to_dict(self):
         """Serialise; the registry name goes in ``type``."""
         from . import PRIOR_REGISTRY

@@ -38,7 +38,11 @@ import torch
 
 from ...config import gmm_mode, use_fused
 from ...ops.fft import convolve_fft, fft_conv_shape, kernel_fft
-from ...ops.gmm_fused import fused_supported, gmm_score_fused_image
+from ...ops.gmm_fused import (
+    fused_supported,
+    gmm_score_fused_image,
+    gmm_score_fused_partial_sum,
+)
 from ...ops.image import (
     avg_pool,
     cycle_spin,
@@ -249,6 +253,19 @@ class GMMPatchPrior(Prior):
         """
         return not self._fused_ok(tuple(flux_shape))
 
+    def _normed_spun(self, flux, params, draws):
+        """The flux under the image norm and the draws' spins, and the
+        integer cycle spin applied."""
+        norm_params = None if params is None else params.get("norm")
+        normed = self.norm(flux, params=norm_params)
+        applied = (0, 0)
+        if self.cycle_spin:
+            normed, applied = cycle_spin(normed, self.patch_shape,
+                                         shifts=draws["spin"])
+        if self.cycle_spin_subpix:
+            normed = cycle_spin_subpixel(normed, *draws["subpix"])
+        return normed, applied
+
     def _evaluate_log_like(self, flux, params=None, generator=None,
                            shifts=None, fused=None):
         """Per-patch ``(values, argmax, valid, patch_means, shifts,
@@ -257,16 +274,7 @@ class GMMPatchPrior(Prior):
         branch); ``fused=None`` takes the fused branch where it
         applies."""
         draws = self._draws(flux.shape, generator, shifts)
-        norm_params = None if params is None else params.get("norm")
-        normed = self.norm(flux, params=norm_params)
-
-        applied = (0, 0)
-        if self.cycle_spin:
-            normed, applied = cycle_spin(normed, self.patch_shape,
-                                         shifts=draws["spin"])
-        if self.cycle_spin_subpix:
-            normed = cycle_spin_subpixel(normed, *draws["subpix"])
-
+        normed, applied = self._normed_spun(flux, params, draws)
         if fused is None:
             fused = self._fused_ok(normed.shape)
         if fused:
@@ -320,6 +328,35 @@ class GMMPatchPrior(Prior):
         )
         values = torch.where(valid, values, torch.zeros_like(values))
         return values.sum() * scale * self.log_like_weight / flux.numel()
+
+    def shard_partial(self, flux, params=None, generator=None, shifts=None,
+                      n_shards=1, shard_index=0):
+        """One shard's additive part of :meth:`__call__`.
+
+        Where the fused scorer applies, the shard scores only its
+        contiguous strip block of the patches
+        (``ops.gmm_fused.gmm_score_fused_partial_sum``), so that the
+        prior's work splits over a mesh (``parallel.prior``). The draws
+        must be the same on every shard: the cycle spin rolls every
+        shard's view of the image alike. Summed over the shards the parts
+        equal :meth:`__call__` up to float32 summation order, values and
+        gradients. Elsewhere (jitter, patch subsets, another patch norm,
+        the fused switch off) the whole value over ``n_shards``.
+        """
+        if n_shards == 1 or not self._fused_ok(tuple(flux.shape)):
+            return super().shard_partial(flux, params=params,
+                                         generator=generator, shifts=shifts,
+                                         n_shards=n_shards,
+                                         shard_index=shard_index)
+        normed, _ = self._normed_spun(
+            flux, params, self._draws(flux.shape, generator, shifts))
+        partial = gmm_score_fused_partial_sum(
+            normed, self.patch_shape, self.stride,
+            self.gmm.kernel_buffers(normed.device), ZERO_FLUX_SENTINEL,
+            n_shards, shard_index, marginalize=self.marginalize,
+            mode=gmm_mode(),
+        )
+        return partial * self.log_like_weight / flux.numel()
 
     def prior_image(self, flux, generator=None, shifts=None):
         """Patch image from the eigen-images of the best-fit components,
@@ -486,6 +523,23 @@ class MultiScalePrior(Prior):
                                fft_conv_shape(flux.shape, kernel.shape)))
 
     def __call__(self, flux, params=None, generator=None, shifts=None):
+        return self._evaluate_levels(
+            flux, params, generator, shifts,
+            lambda level, prior_params, draws: self.prior(
+                level, params=prior_params, shifts=draws))
+
+    def shard_partial(self, flux, params=None, generator=None, shifts=None,
+                      n_shards=1, shard_index=0):
+        """One shard's part: each level's wrapped prior through its own
+        ``shard_partial`` (the smoothing and pooling of the levels are
+        computed on every shard), with the draws of :meth:`__call__`."""
+        return self._evaluate_levels(
+            flux, params, generator, shifts,
+            lambda level, prior_params, draws: self.prior.shard_partial(
+                level, params=prior_params, shifts=draws, n_shards=n_shards,
+                shard_index=shard_index))
+
+    def _evaluate_levels(self, flux, params, generator, shifts, evaluate):
         if shifts is None:
             shifts = self.draw_shifts(generator, tuple(flux.shape))
         if params is not None and "log_weights" in params:
@@ -508,8 +562,8 @@ class MultiScalePrior(Prior):
             h, w = flux.shape[-2:]
             level = flux[..., :(h // factor) * factor,
                          :(w // factor) * factor]
-            value = self.prior(avg_pool(level, factor), params=prior_params,
-                               shifts=shifts["levels"][idx])
+            value = evaluate(avg_pool(level, factor), prior_params,
+                             shifts["levels"][idx])
             log_like = log_like + factor**2 * weights[idx] * value
         return log_like
 

@@ -12,6 +12,7 @@ warning.
 
 import inspect
 import logging
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import jolideco_tpu as jj
 import jolideco_tpu.utils.norms as jn
 from jolideco_torch.parallel.stacked import StackedPoissonLoss as TStacked
 from jolideco_torch.priors.patches.gmm import REFERENCE_LIBRARY_ALIASES
+from jolideco_tpu.ops.dist_fft import spatial_fft_shape
 from jolideco_tpu.parallel.stacked import StackedPoissonLoss as JStacked
 
 torch.set_num_threads(1)
@@ -80,20 +82,25 @@ def _datasets():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()},
+    {"mesh": SimpleNamespace(mesh_dim_names=("obs",), shape=(4,))},
     {"stop_early": True},
     {"checkpoint_path": "checkpoints"},
 ], ids=lambda kw: next(iter(kw)))
-def test_deconvolver_raises_on_unported_options(kwargs, tmp_path):
-    """``mesh`` is not ported and raises ``NotImplementedError``.
+def test_deconvolver_raises_on_unported_options(kwargs, tmp_path, caplog):
+    """``mesh`` is ported: the deconvolver takes it, its configuration
+    records the topology as the JAX package writes it, and with the
+    default sequential strategy it logs the JAX package's warning (the
+    meshes themselves: ``tests/test_torch_mesh.py``).
     ``stop_early`` is ported: the deconvolver takes it, and its ``run``
     without validation data raises the JAX package's ``ValueError``.
     ``checkpoint_path`` is ported: the directory is made, the
     configuration records it, and each epoch writes the JAX package's
     file name."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="mesh"):
-            jt.MAPDeconvolver(**kwargs)
+        with caplog.at_level(logging.WARNING, logger="jolideco_torch.core"):
+            deco = jt.MAPDeconvolver(**kwargs)
+        assert deco.to_dict()["mesh"] == "obs:4"
+        assert "runs unsharded" in caplog.text
         return
     component = jt.SpatialFluxComponent.from_numpy(np.ones((16, 16)))
     if "checkpoint_path" in kwargs:
@@ -214,8 +221,11 @@ def test_prior_and_loss_raise_on_unported_options():
     assert type(prior.patch_norm) is SubtractMeanPatchNorm
     comps = jt.FluxComponents({"flux": jt.SpatialFluxComponent.from_numpy(
         np.ones((16, 16)))})
-    with pytest.raises(NotImplementedError, match="row_shards"):
-        TStacked.from_datasets(_datasets(), comps, row_shards=2, device="cpu")
+    # row_shards is ported: the FFT width grows until its half-spectrum
+    # divides over the row shards, as the JAX package's does
+    loss = TStacked.from_datasets(_datasets(), comps, row_shards=4,
+                                  device="cpu")
+    assert loss.fft_shape == spatial_fft_shape((16, 16), (3, 3), 4)
 
 
 @pytest.mark.parametrize("alias", REFERENCE_LIBRARY_ALIASES)

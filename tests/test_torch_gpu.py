@@ -1448,3 +1448,42 @@ def test_every_prior_holds_its_tensors_on_the_flux_device(device):
         assert value.device == device and bool(torch.isfinite(value)), name
         tensors = chip_smoke.device_tensors(prior)
         assert all(t.device == device for t in tensors), name
+
+
+@pytest.mark.parametrize("marginalize", [False, True])
+@pytest.mark.parametrize("shape", [(72, 136), (61, 45)])
+def test_strip_block_partial_sums_on_the_card(device, gmm, shape,
+                                              marginalize):
+    """``gmm_score_fused_partial_sum`` over 2, 4 and 3 shards, each a
+    launch of K1 split and of K2 (K4 split, marginalised) on its strip
+    block, against one whole-image call: the summed values rtol 1e-6 and
+    the image gradient 1e-6 of its max-abs (the same patches, summed in
+    another order); no plain version runs."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    bufs = gmm.kernel_buffers(device)
+    image = torch.as_tensor(make_image(shape), device=device)
+    x = image.clone().requires_grad_(True)
+    values, _, valid = gf.gmm_score_fused_image(
+        x, (8, 8), 4, bufs, SENTINEL, marginalize=marginalize, mode="split")
+    whole = torch.where(valid, values, torch.zeros_like(values)).sum()
+    whole.backward()
+    backward = (gf.gmm_fused_bwd_marg_tc_cuda if marginalize
+                else gf.gmm_fused_bwd_cuda)
+    forward = (gf.gmm_fused_fwd_marg_tc_cuda if marginalize
+               else gf.gmm_fused_fwd_tc_cuda)
+    for n_shards in (2, 4, 3):
+        gf.reset_counters()
+        xs = image.clone().requires_grad_(True)
+        total = sum(gf.gmm_score_fused_partial_sum(
+            xs, (8, 8), 4, bufs, SENTINEL, n_shards, index,
+            marginalize=marginalize, mode="split")
+            for index in range(n_shards))
+        total.backward()
+        torch.cuda.synchronize()
+        assert forward.launches == n_shards
+        assert backward.launches == n_shards
+        assert gf.fused_forward_plain.calls == 0
+        torch.testing.assert_close(total, whole, rtol=1e-6, atol=0)
+        torch.testing.assert_close(xs.grad, x.grad, rtol=0,
+                                   atol=1e-6 * float(x.grad.abs().max()))

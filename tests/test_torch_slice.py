@@ -17,6 +17,8 @@ halo and point sources) and the test asserts that every pixel's step-0
 gradient is at least 1e-3 of the largest.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -184,9 +186,10 @@ def test_sgd_steps_match_optax(momentum, nesterov):
 
 
 def test_unported_options_raise(tmp_path):
-    """The sequential strategy, the loss trace, early stopping and
-    checkpoints are ported: the deconvolver takes them (a checkpoint path
-    is made and recorded). ``conv_mode="ct"`` and a mesh still raise
+    """The sequential strategy, the loss trace, early stopping,
+    checkpoints and meshes are ported: the deconvolver takes them (a
+    checkpoint path is made and recorded, a mesh's topology recorded as
+    the JAX package writes it). ``conv_mode="ct"`` still raises
     ``NotImplementedError``; an unknown strategy raises the JAX package's
     ``ValueError``."""
     checkpoints = str(tmp_path / "checkpoints")
@@ -199,9 +202,12 @@ def test_unported_options_raise(tmp_path):
         config = jt.MAPDeconvolver(**kwargs).to_dict()
         assert {k: config[k] for k in kwargs} == kwargs
     assert (tmp_path / "checkpoints").is_dir()
-    for kwargs in ({"conv_mode": "ct"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
-                              **kwargs)
+    mesh = SimpleNamespace(mesh_dim_names=("obs", "row"), shape=(2, 2))
+    config = jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
+                               mesh=mesh).to_dict()
+    assert config["mesh"] == "obs:2xrow:2"
+    with pytest.raises(NotImplementedError):
+        jt.MAPDeconvolver(update_strategy="joint", trace_every=0,
+                          conv_mode="ct")
     with pytest.raises(ValueError, match="update strategy"):
         jt.MAPDeconvolver(update_strategy="one at a time")
