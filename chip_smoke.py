@@ -173,13 +173,31 @@ Phases, each printing one or more lines:
    steps; (d) the pfft path on the two-rank mesh with 8 of the 10
    observations (two K3 pairs a rank); (e) the probe after 5 of (b)'s
    steps (K5 split, K6, K7 once on rank 0), its errors against phase
-   4's; each run's flux within ``P13_FLUX_SHARE`` of its max-abs and its
-   losses within ``SMALL_FLUX_RTOL`` of the unsharded run's, its steps/s
-   per rank beside the card's name and power limit (ranks sharing one
-   card: not a scaling figure); (f) in one process, the strip blocks'
-   partial sums over 2, 4 and 3 shards (K1 split and K2 once a shard)
-   against one whole-image call at phase 3's trained flux and on phase
-   2's ragged image, within phase 2's bars.
+   4's; (g) ``conv_mode="ct"`` on (b)'s mesh with 8 of the 10
+   observations (two pairs a rank, kept on the rank); (h) ``"ct"`` and
+   (i) ``"mxu"`` on (c)'s 2 x 2 mesh, 10 steps each (a rank gathers its
+   row group's rows); each run's flux within ``P13_FLUX_SHARE`` of its
+   max-abs and its losses within ``SMALL_FLUX_RTOL`` of the unsharded
+   run's, its steps/s per rank beside the card's name and power limit
+   (ranks sharing one card: not a scaling figure); (f) in one process,
+   the strip blocks' partial sums over 2, 4 and 3 shards (K1 split and
+   K2 once a shard) against one whole-image call at phase 3's trained
+   flux and on phase 2's ragged image, within phase 2's bars.
+14. the joint path's other convolution backends, ``conv_mode`` ``"ct"``
+   (the pair-packed Cooley-Tukey matrix DFT), ``"mxu"`` (the
+   per-observation 4-step matrix DFT) and ``"direct"`` (a grouped
+   ``conv2d``), at the main path under the default dial, each: (a) the
+   convolution of ten 1024² images and its adjoint against the float64
+   FFT convolution of the same inputs (``P14_ERR_SHARE``), with cuFFT's
+   error and ms a direction beside its own, measured in the same call;
+   (b) 20 joint steps three times, each with exact counts (K1 split and
+   K2 20, nothing else, the plain versions never), the flux within
+   ``PFFT_FLUX_SHARE`` of phase 3's, steps/s (median of the three, with
+   the spread) and peak memory; (c) under ``"ct"`` the probe after 5
+   steps (K5 split, K6, K7 once), its errors against phase 4's within
+   ``PFFT_ERROR_RTOL``; (d) phase 9's small run (4 x 128², the x2 flux
+   and calibrations, the probe) on the card against the CPU's path by
+   phase 9's bars; every line beside the card's name and power limit.
 
 Phase 2 also holds the marginalise kernels (K1 logsumexp, K4, K8, K9a,
 K9b) against their plain versions. Their softmax weights of logits of
@@ -224,10 +242,11 @@ line with phase 8's numbers, an ``{"upsampled": ...}`` JSON line with
 phase 9's, a ``{"priors": ...}`` JSON line with phase 10's, a
 ``{"forward_model": ...}`` JSON line with phase 11's, an ``{"io": ...}``
 JSON line with phase 12's, a ``{"mesh": ...}`` JSON line with phase 13's,
-a JSON line with each kernel's numbers
+a ``{"conv_modes": ...}`` JSON line with phase 14's, a JSON line with
+each kernel's numbers
 (thirty-three, each with its launches in phase 9's three runs at the
-2048² flux, in phase 10's, 11's and 12's runs and, a list by rank, in
-each of phase 13's runs) and,
+2048² flux, in phase 10's, 11's and 12's runs, a list by rank in each
+of phase 13's runs, and in phase 14's timed runs and ``"ct"`` probe) and,
 last, the
 device line ``{"ok": true, "device": {...}}``. Any failed check raises,
 so the script exits non-zero without the last line; it also exits
@@ -4723,9 +4742,12 @@ def phase_io(torch, device, card):
 # (a) one rank on NCCL, (b) two ranks on gloo with an obs mesh, (c) four
 # ranks on gloo with a 2 x 2 (obs, row) mesh through the pencil FFT, (d)
 # the matrix-DFT path on the two-rank obs mesh with 8 observations (two
-# K3 pairs a rank), (e) the MAP probe after (b)'s training; each run's
+# K3 pairs a rank), (e) the MAP probe after (b)'s training, (g) the "ct"
+# path on the two-rank obs mesh with 8 observations (its pairs stay on
+# their rank), (h) and (i) "ct" and "mxu" on (c)'s 2 x 2 mesh (a rank
+# gathers its row group's rows, parallel.mesh.all_gather); each run's
 # launches counted on each rank. NCCL refuses two ranks on one device,
-# so (b)-(e) run on gloo, whose collectives carry CUDA tensors. Their
+# so (b)-(i) run on gloo, whose collectives carry CUDA tensors. Their
 # steps/s say how fast ranks that share one card run, not how a mesh of
 # cards scales.
 P13_ROW_STEPS = 10
@@ -4738,9 +4760,15 @@ P13_RUNS = {
           "conv_mode": "pfft", "n_obs": P13_PFFT_OBS},
     "e": {"backend": "gloo", "mesh": (2,), "steps": ERROR_STEPS,
           "compute_error": True},
+    "g": {"backend": "gloo", "mesh": (2,), "steps": STEPS,
+          "conv_mode": "ct", "n_obs": P13_PFFT_OBS},
+    "h": {"backend": "gloo", "mesh": (2, 2), "steps": P13_ROW_STEPS,
+          "conv_mode": "ct"},
+    "i": {"backend": "gloo", "mesh": (2, 2), "steps": P13_ROW_STEPS,
+          "conv_mode": "mxu"},
 }
 # the runs of one spawned group (one process group each)
-P13_GROUPS = (("a",), ("b", "d", "e"), ("c",))
+P13_GROUPS = (("a",), ("b", "d", "e", "g"), ("c", "h", "i"))
 # the sharded runs against the unsharded ones: the losses within
 # SMALL_FLUX_RTOL, the flux within phase 6's share of its max-abs, for
 # phase 6's reason: the ranks' gradients are summed in another order,
@@ -4894,19 +4922,19 @@ def phase_mesh(torch, device, card, slice_, errors):
             ranks[name] = [r[name] for r in results]
 
     # the unsharded references: phase 3's and phase 4's runs, and runs of
-    # (c)'s 10 steps and (d)'s 8 observations on the pfft path
+    # the other runs' steps, observations and conv modes
     astro = GaussianMixtureModel.from_registry("astro-snr-v1")
     datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
-    eight = dict(list(datasets.items())[:P13_PFFT_OBS])
     reference = {
         "a": (slice_["high"]["flux"], slice_["high"]["loss"]),
         "b": (slice_["high"]["flux"], slice_["high"]["loss"]),
     }
-    for name, data, conv_mode in (("c", datasets, "fft"),
-                                  ("d", eight, "pfft")):
+    for name in ("c", "d", "g", "h", "i"):
+        run = P13_RUNS[name]
+        data = dict(list(datasets.items())[:run.get("n_obs", N_OBS)])
         result = run_slice(data, astro, device, cycle_spin=True,
-                           n_steps=P13_RUNS[name]["steps"],
-                           conv_mode=conv_mode)
+                           n_steps=run["steps"],
+                           conv_mode=run.get("conv_mode", "fft"))
         reference[name] = (result.flux_upsampled_total, result.loss_per_step)
 
     out = {}
@@ -4968,6 +4996,236 @@ def phase_mesh(torch, device, card, slice_, errors):
     return out
 
 
+# Phase 14: the joint path's other convolution backends at the main path
+# (jolideco_torch/ops/ct_conv.py, ops/fft_mxu.py, parallel/stacked.py's
+# "direct"): no kernel of their own, float32 products on the CUDA cores
+P14_MODES = ("ct", "mxu", "direct")
+# (a) against the float64 FFT convolution of the same inputs, the share of
+# the result's max-abs. "direct" takes float32 products: the float32
+# pipeline's bar PFFT_ERR_SHARE. "ct" and "mxu" multiply bf16 hi/lo parts
+# ("split3"), so their bar is the split modes', PFFT_SPLIT_SHARE: at this
+# shape the JAX package's own "ct" pair convolution lies 8.21e-5 of the
+# max-abs from float64 (its second image; the port's 8.25e-5), its "mxu"
+# 7.0e-6, on the CPU (scripts/torch_conv_mode_errors.py)
+P14_ERR_SHARE = {"ct": PFFT_SPLIT_SHARE, "mxu": PFFT_SPLIT_SHARE,
+                 "direct": PFFT_ERR_SHARE}
+# (b) is timed P14_REPEATS times: steps/s is their median
+P14_REPEATS = 3
+P14_TIMING_REPS = 5
+
+
+def p14_convolution(torch, device, loss, mode, kernels64, seed=3):
+    """(a) one convolution of the ten images of the main path's shape
+    (``loss.convolve``) and its adjoint (autograd), against the float64
+    FFT convolution of the same inputs, beside the float32 cuFFT
+    convolution's error (the ``"fft"`` loss's); the ms of each direction
+    beside cuFFT's, measured here."""
+    from jolideco_torch.ops.fft import (
+        _origin_centered,
+        convolve_fft_precomputed,
+    )
+
+    rs = np.random.RandomState(seed)
+    shape = tuple(loss.counts.shape[:2]) + (1, FIELD, FIELD)
+    x = torch.as_tensor(rs.uniform(0.0, 2.0, shape).astype(np.float32),
+                        device=device)
+    g = torch.as_tensor(rs.standard_normal(shape).astype(np.float32),
+                        device=device)
+    fft_shape = loss.fft_shape
+    k64 = torch.fft.rfft2(_origin_centered(kernels64, fft_shape),
+                          s=fft_shape)
+
+    def exact(v, spectrum):
+        out = torch.fft.irfft2(torch.fft.rfft2(v.double(), s=fft_shape)
+                               * spectrum, s=fft_shape)
+        return out[..., :FIELD, :FIELD]
+
+    y64, dx64 = exact(x, k64), exact(g, k64.conj())
+
+    def run(conv):
+        xr = x.clone().requires_grad_(True)
+        y = conv(xr)
+        (dx,) = torch.autograd.grad(y, xr, g)
+        return y.detach(), dx
+
+    def cufft(v):
+        return convolve_fft_precomputed(v, loss.psf_ffts["flux"], fft_shape)
+
+    def share(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    out = {}
+    for label, conv in ((mode, lambda v: loss.convolve("flux", v)),
+                        ("cufft", cufft)):
+        y, dx = run(conv)
+        fwd = cuda_ms(torch, lambda: conv(x), P14_TIMING_REPS)
+        xr = x.clone().requires_grad_(True)
+        both = cuda_ms(torch, lambda: torch.autograd.grad(conv(xr), xr, g),
+                       P14_TIMING_REPS)
+        out[label] = {"forward_err": share(y, y64),
+                      "adjoint_err": share(dx, dx64),
+                      "forward_ms": fwd, "adjoint_ms": both - fwd}
+    err = max(out[mode]["forward_err"], out[mode]["adjoint_err"])
+    check(err <= P14_ERR_SHARE[mode], f"phase 14 (a) {mode}: error against "
+          f"float64 {err:.3g} of the max-abs (limit {P14_ERR_SHARE[mode]})")
+    return out
+
+
+def p14_training(torch, device, datasets, gmm, mode, flux_fft):
+    """(b) 20 joint steps P14_REPEATS times, counts set to zero just before
+    and read just after each: K1 split and K2 20 times, every other kernel
+    and the plain versions never; the flux against phase 3's fft run."""
+    run = dict(cycle_spin=True, conv_mode=mode)
+    run_slice(datasets, gmm, device, n_steps=2, **run)  # warm-up
+    rates, peaks = [], []
+    for _ in range(P14_REPEATS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        result = run_slice(datasets, gmm, device, **run)
+        launches, plain_calls = counts()
+        peaks.append(torch.cuda.max_memory_allocated())
+        expected = expect(gmm_fused_fwd_tc=STEPS, gmm_fused_bwd=STEPS)
+        check(launches == expected, f"phase 14 (b) {mode}: launches "
+              f"{launches}, not {expected}")
+        check(plain_calls == 0, f"phase 14 (b) {mode}: plain versions ran "
+              f"{plain_calls} times")
+        rates.append(STEPS / result.train_seconds)
+    loss, flux = result.loss_per_step, result.flux_upsampled_total
+    check(loss.shape == (STEPS,) and bool(np.isfinite(loss).all())
+          and bool(np.isfinite(flux).all() and (flux > 0).all()),
+          f"phase 14 (b) {mode}: loss or flux not finite and positive")
+    diff = np.abs(flux - flux_fft)
+    flux_diff = float(diff.max() / np.abs(flux_fft).max())
+    flux_rel = float(np.max(diff / np.abs(flux_fft)))
+    check(flux_diff <= PFFT_FLUX_SHARE, f"phase 14 (b) {mode}: flux against "
+          f"phase 3's fft run {flux_diff:.3g} of the max-abs (limit "
+          f"{PFFT_FLUX_SHARE}; elementwise {flux_rel:.3g})")
+    return {"launches": launches, "steps_per_s": float(np.median(rates)),
+            "steps_per_s_runs": rates, "peak_bytes": max(peaks),
+            "loss": [float(loss[0]), float(loss[-1])],
+            "flux_diff": flux_diff, "flux_rel": flux_rel}
+
+
+def p14_probe(torch, device, datasets, gmm, errors_fft):
+    """(c) under ``"ct"``: 5 joint steps, then the probe; K1 split and K2
+    5 times, K5 split, K6 and K7 once; the errors against phase 4's."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    result = run_slice(datasets, gmm, device, n_steps=ERROR_STEPS,
+                       compute_error=True, cycle_spin=True, conv_mode="ct")
+    launches, plain_calls = counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = expect(gmm_fused_fwd_tc=ERROR_STEPS,
+                      gmm_fused_bwd=ERROR_STEPS, gmm_score_rows_tc=1,
+                      gmm_unit_map=1, gmm_hvp_map=1)
+    check(launches == expected, f"phase 14 (c) ct probe: launches "
+          f"{launches}, not {expected}")
+    check(plain_calls == 0, "phase 14 (c) ct probe: plain versions ran")
+    errors = result.components["flux"].flux_upsampled_error_numpy
+    check(errors.shape == (FIELD, FIELD)
+          and bool(np.isfinite(errors).all() and (errors > 0).all()),
+          "phase 14 (c) ct probe: errors not finite and positive")
+    error_rel = float(np.max(np.abs(errors - errors_fft) / errors_fft))
+    check(error_rel <= PFFT_ERROR_RTOL, f"phase 14 (c) ct errors against "
+          f"phase 4's: max rel {error_rel:.3g} (limit {PFFT_ERROR_RTOL})")
+    return {"launches": launches, "error_seconds": result.error_seconds,
+            "peak_bytes": peak, "errors_rel": error_rel}
+
+
+def p14_small(torch, device, mode):
+    """(d) phase 9's small run (4 x 128^2 seen at sub-pixel offsets, the
+    x2 component and calibrations, 20 joint steps and the probe) under
+    ``mode``, card against the CPU's path, by phase 9's bars."""
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_shifted_datasets
+
+    builtin = GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    small = make_shifted_datasets(size=UPS_SMALL, psf_size=9, seed=1)
+    a, b = (upsampled_run(small, builtin, dev, STEPS, compute_error=True,
+                          conv_mode=mode) for dev in (device, "cpu"))
+    flux_a, flux_b = a.flux_upsampled_total, b.flux_upsampled_total
+    err_a, err_b = (r.components["flux"].flux_upsampled_error_numpy
+                    for r in (a, b))
+    cal_a, cal_b = calibration_arrays(a), calibration_arrays(b)
+    res = {"flux_share": flux_share(flux_a, flux_b),
+           "flux_rel": max_rel(flux_a, flux_b),
+           "errors_rel": max_rel(err_a, err_b),
+           "shift_abs": float(np.abs(cal_a[0] - cal_b[0]).max()),
+           "log_norm_abs": float(np.abs(cal_a[1] - cal_b[1]).max())}
+    check(res["flux_share"] <= SEQ_FLUX_SHARE
+          and res["errors_rel"] <= SMALL_ERROR_RTOL
+          and max(res["shift_abs"], res["log_norm_abs"]) <= UPS_CAL_ATOL,
+          f"phase 14 (d) {mode} small: {res} (limits {SEQ_FLUX_SHARE} of "
+          f"the max, {SMALL_ERROR_RTOL}, {UPS_CAL_ATOL})")
+    return res
+
+
+def phase_conv_modes(torch, device, card, slice_, errors):
+    """Phase 14: ``conv_mode`` ``"ct"``, ``"mxu"`` and ``"direct"`` at the
+    main path under the default dial: (a) the convolution and its adjoint
+    against float64 with ms a direction beside cuFFT's, (b) 20 joint
+    steps three times with exact counts, (c) the ``"ct"`` probe, (d) a
+    small run, card against the CPU."""
+    from jolideco_torch import FluxComponents, SpatialFluxComponent
+    from jolideco_torch.parallel.stacked import StackedPoissonLoss
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.utils.bench_data import make_datasets
+
+    astro = GaussianMixtureModel.from_registry("astro-snr-v1")
+    datasets = make_datasets(n_obs=N_OBS, size=FIELD, psf_size=33, seed=0)
+    kernels64 = torch.as_tensor(np.stack([d["psf"] for d in datasets.values()])
+                                [:, None, None], dtype=torch.float64,
+                                device=device)
+    components = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+        np.ones((FIELD, FIELD), np.float32), device=device)})
+    out = {}
+    for mode in P14_MODES:
+        t0 = time.perf_counter()
+        loss = StackedPoissonLoss.from_datasets(datasets, components,
+                                                conv_mode=mode, device=device)
+        shape = {"ct": loss.ct_fft_shape, "mxu": loss.mxu_fft_shape,
+                 "direct": tuple(loss.psfs["flux"].shape[-2:])
+                 if loss.psfs else None}[mode]
+        conv = p14_convolution(torch, device, loss, mode, kernels64)
+        del loss
+        train = p14_training(torch, device, datasets, astro, mode,
+                             slice_["high"]["flux"])
+        probe = (p14_probe(torch, device, datasets, astro,
+                           errors["high"]["errors"]) if mode == "ct"
+                 else None)
+        small = p14_small(torch, device, mode)
+        out[mode] = {"shape": shape, "convolution": conv, "training": train,
+                     "probe": probe, "small": small,
+                     "seconds": time.perf_counter() - t0}
+        c, f = conv[mode], conv["cufft"]
+        what = "kernel" if mode == "direct" else "transform"
+        print(f"phase 14 {mode} ({what} {shape}) {N_OBS}x{FIELD}^2: (a) "
+              f"error against float64 "
+              f"forward {c['forward_err']:.3g}, adjoint {c['adjoint_err']:.3g}"
+              f" of the max-abs (limit {P14_ERR_SHARE[mode]}; cuFFT "
+              f"{f['forward_err']:.3g}, {f['adjoint_err']:.3g}); ms forward "
+              f"{c['forward_ms']:.3f}, adjoint {c['adjoint_ms']:.3f} (cuFFT "
+              f"{f['forward_ms']:.3f}, {f['adjoint_ms']:.3f}); (b) {STEPS} "
+              f"steps at {train['steps_per_s']:.3f} steps/s (median of "
+              f"{P14_REPEATS}: " + ", ".join(
+                  f"{r:.3f}" for r in train["steps_per_s_runs"])
+              + f"; fft {slice_['high']['steps_per_s']:.3f}), flux against "
+              f"phase 3 {train['flux_diff']:.3g} of the max (limit "
+              f"{PFFT_FLUX_SHARE}, elementwise {train['flux_rel']:.3g}), "
+              f"launches exact, peak memory {train['peak_bytes']} B"
+              + (f"; (c) probe {probe['error_seconds']:.4f} s, errors "
+                 f"against phase 4 max rel {probe['errors_rel']:.3g} (limit "
+                 f"{PFFT_ERROR_RTOL}), peak memory {probe['peak_bytes']} B"
+                 if probe else "")
+              + f"; (d) small 4x{UPS_SMALL}^2 x{UPS_FACTOR} calibrated card "
+              f"vs CPU flux {small['flux_share']:.3g} of the max, errors "
+              f"{small['errors_rel']:.3g}, shifts {small['shift_abs']:.3g} px,"
+              f" log norms {small['log_norm_abs']:.3g}; {card}")
+    return out
+
+
 def main():
     try:
         import torch
@@ -5000,6 +5258,7 @@ def main():
     forward_model = phase_forward_model(torch, device, card)
     io = phase_io(torch, device, card)
     mesh = phase_mesh(torch, device, card, slice_, errors)
+    conv_modes = phase_conv_modes(torch, device, card, slice_, errors)
 
     timing, patch = kernels["timing"], kernels["patch"]
     rows = patch[MAIN]
@@ -5303,6 +5562,15 @@ def main():
     print(json.dumps({"mesh": {name: {k: v for k, v in run.items()
                                       if k != "launches"}
                                for name, run in mesh.items()}}))
+    print(json.dumps({"conv_modes": {
+        "card": card, **{mode: {
+            "shape": run["shape"], "convolution": run["convolution"],
+            "training": {k: v for k, v in run["training"].items()
+                         if k != "launches"},
+            "probe": run["probe"] and {k: v for k, v in run["probe"].items()
+                                       if k != "launches"},
+            "small": run["small"], "seconds": run["seconds"]}
+            for mode, run in conv_modes.items()}}}))
     # launches_phase9: each kernel's launches in phase 9's three runs at
     # the 2048^2 flux (the joint run, the probe run, the quick start);
     # launches_phase10: in phase 10's runs; launches_phase11: in phase
@@ -5318,6 +5586,11 @@ def main():
         "multiband_fft", "multiband_pfft", "multiband_probe",
         "multiband_sequential", "fallback", "sparse", "sparse_probe",
         "gmm16")}
+    # launches_phase14: in the last of each mode's timed runs and in the
+    # "ct" probe
+    phase14 = {mode: run["training"]["launches"]
+               for mode, run in conv_modes.items()}
+    phase14["ct_probe"] = conv_modes["ct"]["probe"]["launches"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": path["launches"][name],
@@ -5327,6 +5600,7 @@ def main():
          "launches_phase10": {run: n[name] for run, n in phase10.items()},
          "launches_phase11": {run: n[name] for run, n in phase11.items()},
          "launches_phase12": io["launches"][name],
+         "launches_phase14": {run: n[name] for run, n in phase14.items()},
          "launches_phase13": {run: [n[name] for n in mesh[run]["launches"]]
                               for run in P13_RUNS}}
         for name, source, replaces, path, err, ms, plain_ms, bnd in table

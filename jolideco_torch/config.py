@@ -12,9 +12,10 @@ Counterpart of the JAX package's ``config.py``. Four things live here:
   kernel's plain PyTorch version. Nothing falls back: a kernel that
   cannot build or launch raises.
 - The fused-scorer switch (``"auto" | "off"``, :func:`use_fused`,
-  :func:`force_fused`): ``"off"`` sends the GMM patch prior to its
-  patch-level scorer, which the Hessian probe needs because the fused
-  scorer has no second derivative.
+  :func:`set_use_fused`, :func:`force_fused`, :func:`fused_enabled`):
+  ``"off"`` sends the GMM patch prior to its patch-level scorer, which
+  the Hessian probe needs because the fused scorer has no second
+  derivative.
 - The precision dial (``"highest" | "high" | "default"``, the names of
   the JAX package's ``config.set_gmm_precision``), and the modes it
   names: the matmul-DFT convolution's (:func:`pfft_mode`) and the GMM
@@ -41,11 +42,13 @@ import torch
 __all__ = [
     "dispatch",
     "force_fused",
+    "fused_enabled",
     "gmm_mode",
     "gmm_precision",
     "pfft_mode",
     "resolve_device",
     "set_gmm_precision",
+    "set_use_fused",
     "use_fused",
 ]
 
@@ -114,6 +117,22 @@ def use_fused():
     return _USE_FUSED
 
 
+def set_use_fused(mode):
+    """Set the fused-scorer switch: ``"auto"`` or ``"off"``."""
+    global _USE_FUSED
+    if mode not in ("auto", "off"):
+        raise ValueError(f"invalid fused mode {mode!r}")
+    _USE_FUSED = mode
+
+
+def fused_enabled():
+    """Whether the GMM patch prior may take the fused scorer (shapes it
+    takes are checked where it is called). The JAX package also needs its
+    Pallas switch on; the port dispatches by the tensor's device
+    (:func:`dispatch`), so only the fused switch decides."""
+    return _USE_FUSED != "off"
+
+
 @contextmanager
 def force_fused(mode):
     """Set the fused-scorer switch for the duration of a ``with`` block.
@@ -122,9 +141,8 @@ def force_fused(mode):
     thread-safe.
     """
     global _USE_FUSED
-    if mode not in ("auto", "off"):
-        raise ValueError(f"invalid fused mode {mode!r}")
-    saved, _USE_FUSED = _USE_FUSED, mode
+    saved = _USE_FUSED
+    set_use_fused(mode)
     try:
         yield
     finally:

@@ -9,7 +9,7 @@ Two update strategies, as in the JAX package:
   (``models/npred.py``, FFT convolution);
 - ``"joint"``: one step per epoch on the weighted sum of every
   dataset's NLL minus ``β · log_prior``, the observations stacked
-  (``parallel/stacked.py``; ``conv_mode`` ``"fft"`` or ``"pfft"``).
+  (``parallel/stacked.py``; ``conv_mode`` any of the JAX package's six).
   Observations that cannot stack (image shapes or band counts that
   differ, an ``rmf`` on some datasets only, components without a common
   FFT shape) fall back to the per-dataset models with a warning, as in
@@ -97,10 +97,8 @@ decides alike; only rank 0 writes checkpoints. The result equals the
 unsharded run's up to float32 summation order. The sequential strategy
 runs unsharded on every rank, as in the JAX package.
 
-Not ported, raising ``NotImplementedError``: ``conv_mode`` values other
-than ``"auto"``, ``"fft"`` and ``"pfft"``. Every keyword of the JAX
-package's signatures is accepted, so that a call written for it fails
-only on what is not ported.
+Every keyword of the JAX package's signatures is accepted, with every
+value the JAX package documents for it.
 """
 
 import logging
@@ -127,7 +125,11 @@ from .parallel.mesh import (
 )
 from .parallel.prior import sharded_prior_fn
 from .parallel.spatial import shard_stacked_spatial
-from .parallel.stacked import DataValidationError, StackedPoissonLoss
+from .parallel.stacked import (
+    CONV_MODES,
+    DataValidationError,
+    StackedPoissonLoss,
+)
 from .utils.checkpoint import (
     restore_calibration_params,
     restore_train_state,
@@ -418,16 +420,20 @@ class MAPDeconvolver:
         image rows) over every rank of the initialised process group,
         which all run this program on the same data: the joint strategy
         then runs sharded (see the module's docstring). A mesh pins the
-        stacked path (data that cannot stack raises), and
+        stacked path (data that cannot stack raises);
         ``conv_mode="pfft"`` on a mesh with a ``"row"`` dimension falls
-        back to ``"fft"`` with a warning.
-    conv_mode : {"auto", "fft", "pfft"}
+        back to ``"fft"`` with a warning, and ``"direct"`` there raises
+        ``ValueError`` (``parallel.spatial``).
+    conv_mode : {"auto", "fft", "pfft", "ct", "mxu", "direct"}
         PSF convolution backend of the joint strategy: ``"fft"`` a
         batched ``rfft2`` (cuFFT on the card), ``"pfft"`` the pair-packed
-        matrix DFT (``ops/pallas_fft.py``). ``"auto"`` takes the one that
-        was faster on the card at the main path's shape (see
+        matrix DFT (``ops/pallas_fft.py``), ``"ct"`` the pair-packed
+        Cooley-Tukey matrix DFT (``ops/ct_conv.py``), ``"mxu"`` the
+        per-observation 4-step matrix DFT (``ops/fft_mxu.py``),
+        ``"direct"`` a grouped ``conv2d``. ``"auto"`` is ``"fft"``, the
+        fastest on the card at the main path's shape (see
         ``build_loss``). The sequential strategy's per-dataset models
-        always use the FFT.
+        always use the FFT. Another value raises ``ValueError``.
     fft_shape : tuple of int, optional
         Padded FFT shape (at least image + kernel - 1 per axis).
     shard_prior : bool
@@ -447,9 +453,10 @@ class MAPDeconvolver:
                  scan_epochs=None, scan_chunk=None, trace_every=1, seed=0,
                  device=None, mesh=None, conv_mode="auto", fft_shape=None,
                  shard_prior=True):
-        if conv_mode not in ("auto", "fft", "pfft"):
-            raise NotImplementedError(
-                f"MAPDeconvolver(conv_mode={conv_mode!r}) is not ported yet"
+        if conv_mode != "auto" and conv_mode not in CONV_MODES:
+            raise ValueError(
+                f"Unknown conv_mode {conv_mode!r}, choose from "
+                f"{('auto',) + CONV_MODES}"
             )
         if optimizer_type not in OPTIMIZER:
             raise ValueError(
@@ -597,7 +604,9 @@ class MAPDeconvolver:
         # under the default dial ("split": passes 2 and 3 on the tensor
         # cores) and 3.94 ms under "highest" (float32), cuFFT's packed
         # pair 0.58 ms and the batched rfft2 of the same 10 images 0.45 ms
-        # (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W limit)
+        # (chip_smoke.py phase 2); "ct" 11.1 ms forward, "mxu" 21.0,
+        # "direct" 3.5, the rfft2 0.44 in the same call (phase 14); NVIDIA
+        # H100 80GB HBM3, 700 W limit
         conv_mode = "fft" if self.conv_mode == "auto" else self.conv_mode
         mesh = self.mesh
         row_shards = (mesh_size(mesh, "row") if mesh is not None

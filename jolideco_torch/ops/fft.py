@@ -15,6 +15,7 @@ yardstick of the packed matrix-DFT convolution (``ops/pallas_fft.py``);
 which has the same semantics.
 """
 
+import numpy as np
 import torch
 
 from .image import rescale_image, upsample_bilinear
@@ -22,10 +23,13 @@ from .image import rescale_image, upsample_bilinear
 __all__ = [
     "build_kernel_stack",
     "convolve_fft",
+    "convolve_fft_numpy",
     "convolve_fft_packed_pair",
     "convolve_fft_precomputed",
     "fft_conv_shape",
+    "good_fft_size",
     "kernel_fft",
+    "kernel_fft_numpy",
     "kernel_fft_pair",
     "upsample_center_pad_kernels",
 ]
@@ -48,6 +52,59 @@ def _origin_centered(kernel, fft_shape):
     return torch.roll(
         padded, shifts=(-((kh - 1) // 2), -((kw - 1) // 2)), dims=(-2, -1)
     )
+
+
+def _origin_centered_numpy(kernel, fft_shape):
+    """:func:`_origin_centered` of a numpy array, in float64."""
+    kernel = np.asarray(kernel, np.float64)
+    kh, kw = kernel.shape[-2], kernel.shape[-1]
+    pad = [(0, 0)] * (kernel.ndim - 2) + [(0, fft_shape[0] - kh),
+                                          (0, fft_shape[1] - kw)]
+    return np.roll(np.pad(kernel, pad),
+                   shift=(-((kh - 1) // 2), -((kw - 1) // 2)), axis=(-2, -1))
+
+
+def kernel_fft_numpy(kernel, image_shape, fft_shape):
+    """:func:`kernel_fft` in float64 numpy: ``(re, im)`` float32 arrays."""
+    min_shape = fft_conv_shape(image_shape, np.shape(kernel))
+    if fft_shape[0] < min_shape[0] or fft_shape[1] < min_shape[1]:
+        raise ValueError(
+            f"fft_shape {fft_shape} too small for linear convolution, "
+            f"need at least {min_shape}"
+        )
+    kft = np.fft.rfft2(_origin_centered_numpy(kernel, fft_shape), s=fft_shape)
+    return np.asarray(kft.real, np.float32), np.asarray(kft.imag, np.float32)
+
+
+def convolve_fft_numpy(image, kernel):
+    """:func:`convolve_fft` in float64 numpy."""
+    image = np.asarray(image, np.float64)
+    fft_shape = fft_conv_shape(image.shape, np.shape(kernel))
+    kft = np.fft.rfft2(_origin_centered_numpy(kernel, fft_shape), s=fft_shape)
+    h, w = image.shape[-2], image.shape[-1]
+    out = np.fft.irfft2(np.fft.rfft2(image, s=fft_shape) * kft, s=fft_shape)
+    return out[..., :h, :w]
+
+
+def good_fft_size(n):
+    """Smallest 5-smooth size (a product of 2, 3 and 5) of at least ``n``.
+    The port convolves at the minimal linear-convolution shape; this is a
+    helper for trying others."""
+    n = int(n)
+    if n <= 2:
+        return max(n, 1)
+    best = 1 << (n - 1).bit_length()
+    p5 = 1
+    while p5 < best:
+        p35 = p5
+        while p35 < best:
+            m = p35
+            while m < n:
+                m *= 2
+            best = min(best, m)
+            p35 *= 3
+        p5 *= 5
+    return best
 
 
 def kernel_fft(kernel, image_shape, fft_shape=None):

@@ -3,15 +3,10 @@ package's ``ops/linalg.py``), the bf16 rounding of the precision dial's
 ``"bf16"`` mode and the bf16 hi/lo split of its ``"split"`` mode."""
 
 import numpy as np
-import torch
+
+from .splitfp import bf16_round
 
 __all__ = ["bf16_round", "bf16_split", "compute_precision_cholesky"]
-
-
-def bf16_round(x):
-    """``bf16(x)`` of a float32 tensor, bf16-valued in float32 (round to
-    nearest even): what the TPU's ``Precision.DEFAULT`` feeds its MXU."""
-    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def bf16_split(x):

@@ -18,10 +18,12 @@ __all__ = [
     "count_overlapping_patches",
     "count_random_patches",
     "draw_patch_jitter",
+    "evaluate_trapez",
     "extract_patches_at",
     "get_pixel_weights",
     "grouped_patch_corners",
     "random_patch_indices",
+    "reconstruct_from_overlapping_patches",
     "reconstruct_from_overlapping_patches_at",
     "view_as_overlapping_patches",
     "view_as_overlapping_patches_grouped",
@@ -226,7 +228,7 @@ def view_as_random_overlapping_patches(image, shape, stride, jitter_y,
         n_y * n_x, ph * pw)
 
 
-def _evaluate_trapez(x, width, slope):
+def evaluate_trapez(x, width, slope):
     """One-dimensional trapezoid profile."""
     x = np.asarray(x, dtype=np.float64)
     x2 = min(-width / 2.0, 0)
@@ -256,7 +258,24 @@ def get_pixel_weights(patch_shape, stride):
     value = (width - 1.0) / 2
     x = np.linspace(-value, value, width)
 
-    values = _evaluate_trapez(x=x, width=(stride - overlap), slope=1.0 / overlap)
+    values = evaluate_trapez(x=x, width=(stride - overlap), slope=1.0 / overlap)
     weights = values * values[:, np.newaxis]
     weights = weights / weights.sum() * stride**2
     return weights
+
+
+def reconstruct_from_overlapping_patches(patches, image_shape, stride=None):
+    """Overlap-add of weighted patches ``(n, ph, pw)`` (numpy, row-major
+    over the grid of stride ``stride``, default half a patch) into an image
+    of ``image_shape``: a host-side diagnostic (numpy in, numpy out)."""
+    patches = np.asarray(patches)
+    if stride is None:
+        stride = patches.shape[-1] // 2
+    ph, pw = patches.shape[1:]
+    image = np.zeros(image_shape)
+    weights = get_pixel_weights(patch_shape=(ph, pw), stride=stride)
+    corners = ((i, j) for i in range(0, image_shape[0] - ph + 1, stride)
+               for j in range(0, image_shape[1] - pw + 1, stride))
+    for patch, (i, j) in zip(patches, corners):
+        image[i:i + ph, j:j + pw] += weights * patch
+    return image

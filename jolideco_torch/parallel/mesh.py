@@ -14,7 +14,7 @@ with one ``all_reduce`` of the gradients, so that every rank takes the
 same optimiser step.
 
 The collectives take CUDA tensors under NCCL and under gloo (several
-ranks on one card), CPU tensors under gloo. Two of them are
+ranks on one card), CPU tensors under gloo. Three of them are
 ``torch.autograd.Function`` s, for the modules that differentiate
 through a collective:
 
@@ -22,13 +22,18 @@ through a collective:
   the identity, so that each rank's gradient is that of its own term
   and the gradient reduction adds them up (``parallel.prior``);
 - :func:`all_to_all`: the tiled all-to-all over a group, whose backward
-  is the inverse all-to-all (``ops.dist_fft``).
+  is the inverse all-to-all (``ops.dist_fft``);
+- :func:`all_gather`: the group's blocks concatenated, whose backward is
+  the reduce-scatter, itself differentiable (the row-sharded matrix DFTs
+  of ``parallel.stacked``, which the flux-error probe differentiates
+  twice).
 """
 
 import torch
 import torch.distributed as dist
 
 __all__ = [
+    "all_gather",
     "all_reduce_identity",
     "all_reduce_sum",
     "all_to_all",
@@ -40,6 +45,7 @@ __all__ = [
     "mesh_size",
     "mesh_topology",
     "obs_block",
+    "replicate",
     "shard_index",
     "shard_stacked",
 ]
@@ -133,18 +139,36 @@ def obs_block(n_obs, mesh):
                  int(mesh.get_local_rank("obs")))
 
 
+def _map_tensors(fn, tree):
+    """``fn`` of every tensor in a nest of dicts and tuples (``None``
+    stays ``None``), in the nest's shape."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {key: _map_tensors(fn, value) for key, value in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_map_tensors(fn, value) for value in tree)
+    return fn(tree)
+
+
 def shard_stacked(tree, mesh):
     """This rank's block of the leading (obs) axis of every tensor in a
     nest of dicts and tuples (``None`` stays ``None``), copied, so that
     the whole stack can be freed: the counterpart of the JAX package's
     placement sharded on that axis."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {key: shard_stacked(value, mesh) for key, value in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(shard_stacked(value, mesh) for value in tree)
-    return tree[obs_block(tree.shape[0], mesh)].clone()
+    return _map_tensors(
+        lambda t: t[obs_block(t.shape[0], mesh)].clone(), tree)
+
+
+def replicate(tree, mesh):
+    """Copies of every tensor in a nest of dicts and tuples holding rank
+    0's values on every rank of ``mesh`` (which spans the process group):
+    the counterpart of the JAX package's replicated placement."""
+    copies = _map_tensors(torch.clone, tree)
+    leaves = []
+    _map_tensors(leaves.append, copies)
+    broadcast_tensors(leaves)
+    return copies
 
 
 def all_reduce_sum(tensor, group=None):
@@ -214,6 +238,59 @@ class _AllToAll(torch.autograd.Function):
         split_dim, concat_dim = ctx.dims
         return (_AllToAll.apply(grad.contiguous(), concat_dim, split_dim,
                                 ctx.group), None, None, None)
+
+
+def _gather(x, dim, group):
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    # the rank's block sent to every rank; each receives the blocks in
+    # rank order
+    return _all_to_all(torch.cat([x] * n, dim=dim), dim, dim, group)
+
+
+def _reduce_scatter(y, dim, group):
+    n = dist.get_world_size(group)
+    if n == 1:
+        return y
+    parts = torch.stack(torch.chunk(y, n, dim=dim)).contiguous()
+    out = torch.empty_like(parts)
+    dist.all_to_all_single(out, parts, group=group)
+    return out.sum(0)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, group)
+        return _gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceScatter.apply(grad.contiguous(), *ctx.args), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, dim, group):
+        ctx.args = (dim, group)
+        return _reduce_scatter(y, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllGather.apply(grad.contiguous(), *ctx.args), None, None
+
+
+def all_gather(x, dim, group):
+    """The blocks ``x`` of every rank of ``group`` (of one shape)
+    concatenated along ``dim`` (counted from the front) in rank order, on
+    every rank. The backward is the reduce-scatter: each rank's
+    gradient of the whole summed over the ranks, and this rank's block
+    of the sum kept; it is itself differentiable. Both run on
+    ``all_to_all_single``, which gloo takes for CUDA tensors too."""
+    if dim < 0:
+        raise ValueError("all_gather takes a dimension counted from the front")
+    return _AllGather.apply(x.contiguous(), dim, group)
 
 
 def all_to_all(x, split_dim, concat_dim, group):

@@ -31,28 +31,42 @@ strategy falls back to per-dataset models; data that neither path can
 take (an RMF whose channels do not match the data) raises
 `DataValidationError`.
 
-Two convolution backends are ported: ``conv_mode="fft"``, a batched
-per-observation ``rfft2`` (cuFFT on the card), and ``conv_mode="pfft"``,
-the pair-packed matrix DFT (``ops/pallas_fft.py``): even and odd
-observations go pairwise through one complex transform, at a size that
-is a multiple of 128, with the images padded to multiples of 128, the
-bands of each pair flattened into the kernels' batch; an odd last
-observation takes the ``rfft2`` path. The JAX package's other
-convolution backends (``"ct"``, ``"mxu"``, ``"direct"``) are not ported.
+The convolution backends (``conv_mode``), all of the JAX package's:
+
+- ``"fft"``: a batched per-observation ``rfft2`` (cuFFT on the card);
+- ``"pfft"``: the pair-packed matrix DFT (``ops/pallas_fft.py``): even
+  and odd observations go pairwise through one complex transform, at a
+  size that is a multiple of 128, with the images padded to multiples of
+  128, the bands of each pair flattened into the kernels' batch;
+- ``"ct"``: the pair-packed Cooley-Tukey matrix DFT (``ops/ct_conv.py``)
+  at ``ct_conv_shape`` of the linear convolution's size, its pair
+  spectra and each observation's own spectra built at build time;
+- ``"mxu"``: the per-observation 4-step matrix DFT (``ops/fft_mxu.py``)
+  at ``mxu_conv_shape``;
+- ``"direct"``: one grouped ``conv2d`` over the PSFs, padded to a common
+  odd size with their centre pixel ``(k - 1) // 2`` in the middle and
+  flipped (``conv2d``, like ``lax.conv``, correlates).
+
+Under ``"pfft"`` and ``"ct"`` an odd last observation takes the ``rfft2``
+path, and ``"ct"`` convolves each observation alone where there are no
+pairs (one observation, or a rank's block that splits them).
 
 On a mesh (``parallel.mesh``) a rank keeps a copy of the loss with its
 contiguous block of the observations (:meth:`StackedPoissonLoss.shard`):
 ``evaluate`` then gives this rank's per-observation losses and
 :meth:`StackedPoissonLoss.gather` all of them, on every rank. Under
-``"pfft"`` the pairs stay on their rank, and K3 runs on them, when every
-rank holds the same even count; otherwise the rank convolves its
-observations one by one through the ``rfft2``, as in the JAX package. On
+``"pfft"`` and ``"ct"`` the pairs stay on their rank, and are convolved
+pairwise, when every rank holds the same even count; otherwise the rank
+convolves its observations one by one (``"pfft"`` through the ``rfft2``,
+``"ct"`` through its single-image transform), as in the JAX package. On
 a 2-D ``(obs, row)`` mesh (``parallel.spatial.shard_stacked_spatial``)
-the rank also keeps its block of the image rows and its block of the
-spectra's columns, and convolves through the pencil FFT
-(``ops.dist_fft``); its losses are then its rows' parts of each
-observation's: their share of the pixel mean and ``1 / R`` of the
-Stirling term.
+the rank also keeps its block of the image rows; under ``"fft"`` its
+block of the spectra's columns too, and it convolves through the pencil
+FFT (``ops.dist_fft``); under ``"ct"`` and ``"mxu"`` it gathers the
+row group's rows of its observations, convolves them one by one, and
+keeps its own rows of the result (``parallel.mesh.all_gather``). Its
+losses are then its rows' parts of each observation's: their share of
+the pixel mean and ``1 / R`` of the Stirling term.
 """
 
 import copy
@@ -63,10 +77,25 @@ import torch
 from ..config import resolve_device
 from ..loss import poisson_nll, stirling_term_mean
 from ..models.npred import as_bchw
+from ..ops.ct_conv import (
+    ct_build_pair_spectra,
+    ct_conv_shape,
+    ct_convolve_pair,
+    ct_convolve_single,
+    ct_kernel_spectra,
+    make_ct_tables,
+)
 from ..ops.fft import (
+    _origin_centered,
     build_kernel_stack,
     convolve_fft_precomputed,
     upsample_center_pad_kernels,
+)
+from ..ops.fft_mxu import (
+    make_dft_tables,
+    mxu_conv_shape,
+    mxu_convolve,
+    mxu_kernel_spectrum,
 )
 from ..ops.image import shift_images, sum_pool
 from ..ops.pallas_fft import (
@@ -75,9 +104,17 @@ from ..ops.pallas_fft import (
     pfft_pair_spectra_device,
     pfft_size,
 )
-from .mesh import all_reduce_sum, mesh_size, obs_block, shard_stacked
+from .mesh import (
+    all_gather,
+    all_reduce_sum,
+    mesh_size,
+    obs_block,
+    shard_stacked,
+)
 
-__all__ = ["DataValidationError", "StackedPoissonLoss"]
+__all__ = ["CONV_MODES", "DataValidationError", "StackedPoissonLoss"]
+
+CONV_MODES = ("fft", "pfft", "ct", "mxu", "direct")
 
 
 class DataValidationError(ValueError):
@@ -102,11 +139,21 @@ class StackedPoissonLoss:
         (or one channel, broadcast over the bands)
     rmfs : dict of component name -> ``(N, C, K)``, or None
     stirling : ``(N,)`` precomputed Stirling terms
-    conv_mode : ``"fft"`` or ``"pfft"``
+    conv_mode : one of :data:`CONV_MODES`
     pfft_pairs : dict of component name -> the four float32 spectrum
         planes ``(N // 2, 1, C, n, n)`` of the observation pairs, or None
-        (``"fft"``, or fewer than two observations)
+        (another mode, or fewer than two observations)
     pfft_ns : dict of component name -> transform size ``n``
+    ct_tables, ct_fft_shape : ``"ct"``'s tables (``ops.ct_conv
+        .make_ct_tables``) and transform shape, or None
+    ct_pairs : dict of component name -> the four float32 pair spectra
+        ``(N // 2, 1, C, fh, fw)`` in the CT layout, or None
+    ct_singles : dict of component name -> each observation's CT
+        spectrum ``(re, im)``, each ``(N, 1, C, fh, fw)``, or None
+    dft_tables, mxu_fft_shape : ``"mxu"``'s tables (``ops.fft_mxu
+        .make_dft_tables``) and transform shape, or None
+    psfs : dict of component name -> ``"mxu"``'s permuted complex spectra
+        or ``"direct"``'s flipped kernels ``(N, 1, C, k, k')``, or None
     static_shifts, static_log_norms : ``(N, 1, 2)`` and ``(N, 1)``, or None
         The calibrations' values at build time, used for the leaves a
         (partly) frozen calibration does not train.
@@ -122,7 +169,9 @@ class StackedPoissonLoss:
                  component_factors, fft_shape, component_names=None,
                  conv_mode="fft", pfft_pairs=None, pfft_ns=None,
                  weights=None, psf_scales=None, static_shifts=None,
-                 static_log_norms=None, rmfs=None):
+                 static_log_norms=None, rmfs=None, ct_tables=None,
+                 ct_fft_shape=None, ct_pairs=None, ct_singles=None,
+                 dft_tables=None, mxu_fft_shape=None, psfs=None):
         self.counts = counts
         self.background = background
         self.exposures = dict(exposures)
@@ -138,6 +187,15 @@ class StackedPoissonLoss:
         self.conv_mode = conv_mode
         self.pfft_pairs = pfft_pairs
         self.pfft_ns = pfft_ns
+        self.ct_tables = ct_tables
+        self.ct_fft_shape = (None if ct_fft_shape is None
+                             else tuple(ct_fft_shape))
+        self.ct_pairs = ct_pairs
+        self.ct_singles = ct_singles
+        self.dft_tables = dft_tables
+        self.mxu_fft_shape = (None if mxu_fft_shape is None
+                              else tuple(mxu_fft_shape))
+        self.psfs = psfs
         self.has_calibration = static_shifts is not None
         # per-dataset likelihood weights (1 without calibrations)
         self.weights = torch.tensor(
@@ -182,12 +240,14 @@ class StackedPoissonLoss:
         (``parallel.spatial.shard_stacked_spatial``), grows the default
         FFT width until ``Fw // 2 + 1`` divides over it
         (``ops.dist_fft.spatial_fft_shape``) under ``"fft"``.
+        ``conv_mode`` is one of :data:`CONV_MODES` (anything else raises
+        ``ValueError``); ``"ct"`` and ``"mxu"`` need one transform shape
+        for every component (``ValueError`` otherwise).
         """
         device = resolve_device(device)
-        if conv_mode not in ("fft", "pfft"):
-            raise NotImplementedError(
-                f"conv_mode={conv_mode!r} is not ported yet; use 'fft' or "
-                "'pfft'"
+        if conv_mode not in CONV_MODES:
+            raise ValueError(
+                f"conv_mode must be one of {CONV_MODES}, got {conv_mode!r}"
             )
         shapes = {np.asarray(d["counts"]).shape for d in datasets.values()}
         if len(shapes) != 1:
@@ -224,6 +284,8 @@ class StackedPoissonLoss:
 
         exposures, psf_ffts, factors = {}, {}, []
         pfft_pairs, pfft_ns = {}, {}
+        ct_pairs, ct_singles, psfs = {}, {}, {}
+        ct_shape = ct_tables = mxu_shape = dft_tables = None
         n_obs = len(datasets)
         common_fft_shape = None if fft_shape is None else tuple(fft_shape)
         for name, component in components.items():
@@ -288,6 +350,7 @@ class StackedPoissonLoss:
             exposures[name] = exp_stack
             psf_ffts[name] = kft
 
+            kstack = kernels if conv_kernels is None else conv_kernels
             if conv_mode == "pfft" and n_obs >= 2:
                 # spectra of the observation pairs at the 128-aligned
                 # transform size of the image padded to 128 multiples
@@ -295,11 +358,43 @@ class StackedPoissonLoss:
                 n = pfft_size(max(padded[0] + kmax[0] - 1,
                                   padded[1] + kmax[1] - 1))
                 n_even = 2 * (n_obs // 2)
-                kstack = kernels if conv_kernels is None else conv_kernels
                 pfft_pairs[name] = pfft_pair_spectra_device(
                     kstack[0:n_even:2], kstack[1:n_even:2], padded, n
                 )
                 pfft_ns[name] = n
+            elif conv_mode == "ct":
+                # spectra in the permuted CT layout at "highest": the
+                # pairs' for the joint path, each observation's for the
+                # per-observation paths
+                shape = tuple(ct_conv_shape(s) for s in min_shape)
+                if ct_shape is None:
+                    ct_shape = shape
+                    ct_tables = make_ct_tables(shape, device=device)
+                elif shape != ct_shape:
+                    raise ValueError(
+                        "conv_mode='ct' needs one common transform shape "
+                        f"across components, got {shape} vs {ct_shape}"
+                    )
+                embedded = _origin_centered(kstack, ct_shape)
+                if n_obs >= 2:
+                    ct_pairs[name] = ct_build_pair_spectra(embedded,
+                                                           ct_tables)
+                ct_singles[name] = ct_kernel_spectra(embedded, ct_tables)
+            elif conv_mode == "mxu":
+                # permuted spectra at a size of balanced factors
+                shape = tuple(mxu_conv_shape(s) for s in min_shape)
+                if mxu_shape is None:
+                    mxu_shape = shape
+                    dft_tables = make_dft_tables(shape, device=device)
+                elif shape != mxu_shape:
+                    raise ValueError(
+                        "conv_mode='mxu' needs one common transform shape "
+                        f"across components, got {shape} vs {mxu_shape}"
+                    )
+                psfs[name] = mxu_kernel_spectrum(kstack, mxu_shape,
+                                                 dft_tables)
+            elif conv_mode == "direct":
+                psfs[name] = _direct_kernels(kstack)
 
         if rmfs is not None:
             # the input channels must match the exposure stack's bands
@@ -326,6 +421,13 @@ class StackedPoissonLoss:
             conv_mode=conv_mode,
             pfft_pairs=pfft_pairs or None,
             pfft_ns=pfft_ns or None,
+            ct_tables=ct_tables,
+            ct_fft_shape=ct_shape,
+            ct_pairs=ct_pairs or None,
+            ct_singles=ct_singles or None,
+            dft_tables=dft_tables,
+            mxu_fft_shape=mxu_shape,
+            psfs=psfs or None,
             weights=weights,
             psf_scales=psf_scales,
             static_shifts=static_shifts,
@@ -394,13 +496,23 @@ class StackedPoissonLoss:
         """Per-observation mean Poisson NLL: ``(N,)`` tensor (on a rank of
         a mesh, of its observations and, on a 2-D mesh, its rows' parts
         of them)."""
+        return self._evaluate_batched(fluxes, calibration_params,
+                                      self.convolve)
+
+    def convolve(self, name, x):
+        """The stack ``x`` ``(N, 1, C, H, W)`` of this loss's observations
+        (on a 2-D mesh, this rank's rows of them) convolved with component
+        ``name``'s PSFs by the loss's backend: pairs where it has them,
+        each observation alone otherwise. Differentiable twice."""
         if self.row_slice is not None:
-            conv_fn = self._conv_dist
-        elif self.conv_mode == "pfft" and self.pfft_pairs is not None:
-            conv_fn = self._conv_packed_pfft
-        else:
-            conv_fn = self._conv_fft
-        return self._evaluate_batched(fluxes, calibration_params, conv_fn)
+            if self.conv_mode == "fft":
+                return self._conv_dist(name, x)
+            return self._conv_gathered_rows(name, x)
+        if self.conv_mode == "pfft" and self.pfft_pairs is not None:
+            return self._conv_packed(name, x, self._conv_pfft_pair)
+        if self.conv_mode == "ct" and self.ct_pairs is not None:
+            return self._conv_packed(name, x, self._conv_ct_pair)
+        return self._conv_single(name, x)
 
     def gather(self, losses):
         """Every observation's loss ``(N,)`` from each rank's
@@ -420,11 +532,11 @@ class StackedPoissonLoss:
         per-observation arrays (counts, background, exposures, spectra,
         Stirling terms, weights, static calibration values, RMFs).
 
-        The observation pairs of ``"pfft"`` stay on their rank when every
-        rank holds the same even count of observations; otherwise the
-        pair spectra are dropped and ``evaluate`` convolves the rank's
-        observations one by one through the ``rfft2`` (the JAX package's
-        rule).
+        The observation pairs of ``"pfft"`` and ``"ct"`` stay on their
+        rank when every rank holds the same even count of observations;
+        otherwise the pair spectra are dropped and ``evaluate`` convolves
+        the rank's observations one by one (the JAX package's rule). The
+        transform tables are shared.
         """
         n_obs, n_ranks = self.n_datasets, mesh_size(mesh, "obs")
         new = copy.copy(self)
@@ -432,7 +544,7 @@ class StackedPoissonLoss:
         new.local_names = self.names_all[new.obs_slice]
         for attr in ("counts", "background", "exposures", "psf_ffts",
                      "stirling", "weights", "static_shifts",
-                     "static_log_norms", "rmfs"):
+                     "static_log_norms", "rmfs", "ct_singles", "psfs"):
             setattr(new, attr, shard_stacked(getattr(self, attr), mesh))
         # with the same even count on every rank, the rank's block of the
         # pairs is the pairs of its block of observations
@@ -440,23 +552,44 @@ class StackedPoissonLoss:
         pairs_local = per_rank and per_rank % 2 == 0
         new.pfft_pairs = (shard_stacked(self.pfft_pairs, mesh) if pairs_local
                           else None)
+        new.ct_pairs = (shard_stacked(self.ct_pairs, mesh) if pairs_local
+                        else None)
         return new
 
     def evaluate_dataset(self, idx, fluxes, calibration_params=None):
-        """Mean Poisson NLL of observation ``idx`` alone (its ``rfft2``
-        convolution): the work of one observation."""
+        """Mean Poisson NLL of observation ``idx`` alone (its convolution
+        of the mode, one observation's: ``"pfft"``'s is the ``rfft2``,
+        ``"ct"``'s its single-image transform): the work of one
+        observation."""
         index = slice(idx, idx + 1)
+        return self._evaluate_batched(
+            fluxes, calibration_params,
+            lambda name, x: self._conv_single(name, x, index),
+            index=index)[0]
 
-        def conv_fn(name, x):
-            return convolve_fft_precomputed(x, self.psf_ffts[name][index],
-                                            self.fft_shape)
-
-        return self._evaluate_batched(fluxes, calibration_params, conv_fn,
-                                      index=index)[0]
-
-    def _conv_fft(self, name, x):
-        return convolve_fft_precomputed(x, self.psf_ffts[name],
+    def _conv_single(self, name, x, index=slice(None)):
+        """Each observation of ``x`` alone, with the spectra (kernels) of
+        the observations ``index``."""
+        if self.conv_mode == "ct":
+            fr, fi = self.ct_singles[name]
+            return ct_convolve_single(x, fr[index], fi[index],
+                                      self.ct_tables, self.ct_fft_shape)
+        if self.conv_mode == "mxu":
+            return mxu_convolve(x, self.psfs[name][index], self.dft_tables,
+                                self.mxu_fft_shape)
+        if self.conv_mode == "direct":
+            return _conv_direct(x, self.psfs[name][index])
+        return convolve_fft_precomputed(x, self.psf_ffts[name][index],
                                         self.fft_shape)
+
+    def _conv_gathered_rows(self, name, x):
+        """On a 2-D mesh: this rank's rows of its observations gathered
+        over the row group, convolved one by one, and its rows kept."""
+        group = self.mesh.get_group("row")
+        n_local = x.shape[-2]
+        index = int(self.mesh.get_local_rank("row"))
+        y = self._conv_single(name, all_gather(x, x.ndim - 2, group))
+        return y[..., index * n_local:(index + 1) * n_local, :]
 
     def _conv_dist(self, name, x):
         from ..ops.dist_fft import dist_convolve_fft
@@ -464,13 +597,12 @@ class StackedPoissonLoss:
         return dist_convolve_fft(x, self.psf_ffts[name], self.fft_shape,
                                  self.mesh)
 
-    def _conv_packed_pfft(self, name, x):
-        """Observation pairs through the matrix DFT, an odd last one
-        through the ``rfft2``."""
+    def _conv_packed(self, name, x, pair_fn):
+        """Observation pairs through ``pair_fn(name, even, odd)``, an odd
+        last one through the ``rfft2``."""
         n = x.shape[0]
         n_pairs = n // 2
-        y0, y1 = self._conv_pfft_pair(name, x[0:2 * n_pairs:2],
-                                      x[1:2 * n_pairs:2])
+        y0, y1 = pair_fn(name, x[0:2 * n_pairs:2], x[1:2 * n_pairs:2])
         y = torch.stack([y0, y1], dim=1).reshape((2 * n_pairs,)
                                                  + y0.shape[1:])
         if n % 2:
@@ -478,6 +610,10 @@ class StackedPoissonLoss:
                                             self.fft_shape)
             y = torch.cat([y, tail[None]])
         return y
+
+    def _conv_ct_pair(self, name, xe, xo):
+        return ct_convolve_pair(xe, xo, *self.ct_pairs[name],
+                                self.ct_tables, self.ct_fft_shape)
 
     def _conv_pfft_pair(self, name, xe, xo):
         """``xe``, ``xo`` ``(P, ..., H, W)`` padded to 128 multiples, the
@@ -501,6 +637,29 @@ class StackedPoissonLoss:
         of its own losses)."""
         return torch.sum(self.evaluate(fluxes, calibration_params)
                          * self.weights)
+
+
+def _direct_kernels(kernels):
+    """``"direct"``'s kernels: the center-aligned stack ``(N, 1, C, k,
+    k')`` grown to odd sizes (a row or column before the kernel keeps its
+    centre pixel ``(k - 1) // 2`` in the middle) and flipped, so that
+    ``conv2d``'s correlation is the convolution."""
+    kh, kw = kernels.shape[-2], kernels.shape[-1]
+    kernels = torch.nn.functional.pad(kernels, (1 - kw % 2, 0, 1 - kh % 2, 0))
+    return torch.flip(kernels, dims=(-2, -1))
+
+
+def _conv_direct(x, kernels):
+    """``x (N, 1, C, H, W)`` convolved with flipped odd kernels ``(N, 1,
+    C or 1, k, k')`` (one channel broadcasts over the bands) by one grouped
+    ``conv2d``, a group for each (observation, band), zero-padded to the
+    same size (``lax.conv``'s ``"SAME"``)."""
+    kernels = kernels.expand(x.shape[:-2] + kernels.shape[-2:])
+    out = torch.nn.functional.conv2d(
+        x.reshape((1, -1) + x.shape[-2:]),
+        kernels.reshape((-1, 1) + kernels.shape[-2:]),
+        padding="same", groups=x.shape[:-2].numel())
+    return out.reshape(x.shape)
 
 
 def _stack_rmfs(datasets, components, counts_shape):

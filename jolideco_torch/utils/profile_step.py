@@ -4,7 +4,10 @@ Builds the port's main path (joint MAP deconvolution of 10 observations
 of 1024² counts with 33² PSFs under the ``astro-snr-v1`` GMM patch
 prior, stride 4, cycle spin; with ``--marginalize`` the prior scores
 each patch by the logsumexp over its components; ``--conv-mode pfft``
-convolves through the matrix-DFT kernels instead of cuFFT; ``--precision``
+convolves through the matrix-DFT kernels instead of cuFFT, ``ct``
+through the pair-packed Cooley-Tukey matrix DFT, ``mxu`` through the
+per-observation 4-step matrix DFT and ``direct`` through a grouped
+``conv2d``; ``--precision``
 sets the precision dial, whose default ``"high"`` runs the fused
 scorer (its MAP and logsumexp forwards and its marginalise backward),
 the probe's patch-level scorer and marginalise kernels (K5, K8, K9a) and
@@ -25,7 +28,7 @@ training). For each it reports:
 
 Run on a machine with a CUDA card:
 
-    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--prior {gmm,multiscale,jitter,group,fraction,smooth}] [--bands N [--fallback]] [--sparse] [--out DIR]
+    python -m jolideco_torch.utils.profile_step [--steps 10] [--marginalize] [--conv-mode {fft,pfft,ct,mxu,direct}] [--precision {highest,high,default}] [--update-strategy {joint,sequential}] [--upsampling N] [--calibrations] [--prior {gmm,multiscale,jitter,group,fraction,smooth}] [--bands N [--fallback]] [--sparse] [--out DIR]
 
 ``--bands N`` swaps the main path's data for four event classes of
 ``N``-band stacks at 1024² with the energy redistribution
@@ -57,9 +60,9 @@ observation an ``NPredCalibration`` (the first one's shift frozen); with
 either, the flux starts from the data's mean estimate
 (``SpatialFluxComponent.from_flux_init_datasets``), as ``chip_smoke.py``
 phase 9 runs it. The full tables and Chrome traces go to ``--out``,
-their names tagged ``marg`` under ``--marginalize``, ``pfft`` under
-``--conv-mode pfft``, ``upN`` and ``cal`` under the last two flags, and
-with the dial's name when it is not ``"high"``.
+their names tagged ``marg`` under ``--marginalize``, the mode under
+``--conv-mode`` other than ``fft``, ``upN`` and ``cal`` under the last
+two flags, and with the dial's name when it is not ``"high"``.
 """
 
 import argparse
@@ -70,6 +73,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..parallel.stacked import CONV_MODES
 
 PRIORS = ("gmm", "multiscale", "jitter", "group", "fraction", "smooth")
 
@@ -289,8 +293,7 @@ def main():
     parser.add_argument("--n-obs", type=int, default=10)
     parser.add_argument("--size", type=int, default=1024)
     parser.add_argument("--marginalize", action="store_true")
-    parser.add_argument("--conv-mode", choices=("fft", "pfft"),
-                        default="fft")
+    parser.add_argument("--conv-mode", choices=CONV_MODES, default="fft")
     parser.add_argument("--precision", choices=("highest", "high", "default"),
                         default="high")
     parser.add_argument("--update-strategy", choices=("joint", "sequential"),
@@ -320,7 +323,7 @@ def main():
         "_fallback" if args.fallback else "") + (
         "_sparse" if args.sparse else "") + (
         "_marg" if args.marginalize else "") + (
-        "_pfft" if args.conv_mode == "pfft" else "") + (
+        "" if args.conv_mode == "fft" else f"_{args.conv_mode}") + (
         f"_up{args.upsampling}" if args.upsampling > 1 else "") + (
         "_cal" if args.calibrations else "") + (
         "" if args.prior == "gmm" else f"_{args.prior}") + (

@@ -1,16 +1,21 @@
-"""The port's public signatures against the JAX package's.
+"""The port's public signatures and names against the JAX package's.
 
 Every keyword that the JAX package's deconvolver, its ``run``, the flux
 component, the GMM patch prior and the stacked loss accept is accepted
-by the port (``inspect.signature``). A keyword whose option is not
-ported raises ``NotImplementedError`` for anything but its default; the
-harmless ones are honoured, and the ported options raise the JAX
-package's errors where it does. The names of the reference's external GMM
-library resolve to the shipped ``astro-snr-v1`` with the JAX package's
-warning.
+by the port (``inspect.signature``), every option is ported (the conv
+modes: ``tests/test_torch_conv_modes.py``), the harmless ones are
+honoured, and the ported options raise the JAX package's errors where it
+does. Every name in the ``__all__`` of a JAX module is found in the
+port's module of the same path, but for the few kept elsewhere or under
+their own name and those that exist only for JAX, each listed with its
+reason in :data:`ELSEWHERE` and :data:`JAX_ONLY`. The names of the
+reference's external GMM library resolve to the shipped ``astro-snr-v1``
+with the JAX package's warning.
 """
 
+import importlib
 import inspect
+import pkgutil
 import logging
 from types import SimpleNamespace
 
@@ -59,6 +64,77 @@ CALLABLES["InverseCDFImageNorm.from_image"] = (
 
 def _params(fn):
     return inspect.signature(fn).parameters
+
+
+# (JAX module, name) -> (port module, name) of a name the port keeps
+# elsewhere or under its own name
+ELSEWHERE = {
+    ("jolideco_tpu.ops.gmm_pallas", "pack_gmm_buffers"):
+        ("jolideco_torch.ops.gmm_pack", "pack_gmm_buffers"),
+    ("jolideco_tpu.ops.gmm_pallas", "gmm_score_pallas"):
+        ("jolideco_torch.ops.gmm_pallas", "gmm_score_rows_cuda"),
+}
+# (JAX module, name) -> why the port has no counterpart
+_PALLAS = ("the Pallas dispatch switch: the port routes each kernel by its "
+           "tensor's device (config.dispatch), a CUDA kernel on the card and "
+           "its plain version on the CPU")
+JAX_ONLY = {
+    ("jolideco_tpu.utils.pytree", "register_pytree"):
+        "registers a class as a JAX pytree; torch modules hold plain "
+        "tensors",
+    ("jolideco_tpu.config", "enable_persistent_cache"):
+        "XLA's compilation cache; the port compiles nothing per shape (its "
+        "CUDA libraries are built once, keyed by their sources)",
+    ("jolideco_tpu.config", "set_use_pallas"): _PALLAS,
+    ("jolideco_tpu.config", "use_pallas"): _PALLAS,
+    ("jolideco_tpu.config", "force_pallas"): _PALLAS,
+    ("jolideco_tpu.config", "pallas_mode"): _PALLAS,
+    ("jolideco_tpu.ops.gmm_pallas", "pallas_supported"):
+        "whether a GMM fits the Pallas kernels' tiles; the port's kernels "
+        "take any K, and other patch sizes take the plain scorer "
+        "(ops.gmm_pallas.route)",
+    ("jolideco_tpu.ops.gmm_pallas", "TILE_N"):
+        "the Pallas kernels' row tile; the CUDA kernels' tiles are their "
+        "own (csrc/)",
+}
+
+
+def _jax_modules_with_all():
+    for info in pkgutil.walk_packages(jj.__path__, "jolideco_tpu."):
+        module = importlib.import_module(info.name)
+        if hasattr(module, "__all__"):
+            yield info.name, module
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    missing, used = [], set()
+    for name, module in _jax_modules_with_all():
+        for attr in module.__all__:
+            key = (name, attr)
+            if key in JAX_ONLY:
+                used.add(key)
+                continue
+            port_module, port_attr = ELSEWHERE.get(key, (
+                name.replace("jolideco_tpu", "jolideco_torch", 1), attr))
+            used.add(key)
+            try:
+                found = hasattr(importlib.import_module(port_module),
+                                port_attr)
+            except ImportError:
+                found = False
+            if not found:
+                missing.append(f"{name}.{attr} -> {port_module}.{port_attr}")
+    assert not missing, missing
+    # every exemption names a JAX public name that exists
+    assert set(ELSEWHERE) | set(JAX_ONLY) <= used
+    assert all(reason for reason in JAX_ONLY.values())
+    # the ops package re-exports the JAX package's ops
+    import jolideco_torch.ops as t_ops
+    import jolideco_tpu.ops as j_ops
+
+    for attr in vars(j_ops):
+        if not attr.startswith("_") and callable(getattr(j_ops, attr)):
+            assert hasattr(t_ops, attr), attr
 
 
 @pytest.mark.parametrize("name", list(CALLABLES))
@@ -338,3 +414,123 @@ def test_trained_prior_leaves_reach_the_result():
     prior = result.components["flux"].prior
     assert prior.norm is norm and (norm.alpha, norm.beta) == (
         float(leaves["alpha"]), float(leaves["beta"]))
+
+
+@pytest.mark.parametrize("name", ["gmm_log_prob_matrix", "gmm_score_map",
+                                  "gmm_score_marginalize"])
+def test_gmm_score_functions_match_jax(name):
+    """``ops.gmm_score`` over the port's scorer against the JAX package's
+    XLA reference: values rtol 1e-5 (float32 quadratic forms in another
+    order), the argmax equal, the patch gradient within 1e-4 of its
+    max-abs. The marginalised gradient is held against JAX's autodiff of
+    the logsumexp of ``gmm_log_prob_matrix``: the XLA scan's own backward
+    does not renormalise its weights (``ROADMAP.md`` section 3, faults on
+    the reference side)."""
+    import jax
+    import jax.numpy as jnp
+
+    import jolideco_torch.ops as t_ops
+    import jolideco_tpu.ops as j_ops
+    from jolideco_tpu.ops.patches import get_pixel_weights
+
+    gmm = jj.GaussianMixtureModel.from_registry("builtin-8x8-v1")
+    prec = np.asarray(gmm.precisions_cholesky, np.float32)
+    means = np.asarray(gmm.means, np.float32)
+    arrays = (np.einsum("kd,kdj->kj", means, prec),
+              prec,
+              np.sum(np.log(np.einsum("kii->ki", prec)), axis=1),
+              np.log(np.asarray(gmm.weights, np.float32)),
+              get_pixel_weights((8, 8), 4).astype(np.float32).reshape(-1))
+    patches = np.random.RandomState(3).normal(0, 0.3, (50, 64)).astype(
+        np.float32)
+    j_arrays = j_ops.GMMArrays(*arrays)
+    t_arrays = t_ops.GMMArrays(*arrays)
+    assert t_arrays.n_components == j_arrays.n_components
+    assert t_arrays.n_features == j_arrays.n_features
+    if name == "gmm_log_prob_matrix":
+        want = np.asarray(j_ops.gmm_log_prob_matrix(jnp.asarray(patches),
+                                                    *j_arrays.astuple()))
+        got = t_ops.gmm_log_prob_matrix(torch.as_tensor(patches),
+                                        *t_arrays.astuple()).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        return
+    marginalize = name.endswith("marginalize")
+    values_j, argmax_j = j_ops.gmm_score(jnp.asarray(patches),
+                                         *j_arrays.astuple(), marginalize)
+    if marginalize:
+        grad_j = jax.grad(lambda x: jnp.sum(jax.nn.logsumexp(
+            j_ops.gmm_log_prob_matrix(x, *j_arrays.astuple()), axis=1)))(
+            jnp.asarray(patches))
+    else:
+        grad_j = jax.grad(lambda x: jnp.sum(j_ops.gmm_score(
+            x, *j_arrays.astuple())[0]))(jnp.asarray(patches))
+    grad_j = np.asarray(grad_j)
+    x = torch.as_tensor(patches).requires_grad_(True)
+    values_t, argmax_t = t_ops.gmm_score(x, *t_arrays.astuple(),
+                                         marginalize=marginalize)
+    values_t.sum().backward()
+    np.testing.assert_allclose(values_t.detach().numpy(),
+                               np.asarray(values_j), rtol=1e-5)
+    np.testing.assert_array_equal(argmax_t.numpy(), np.asarray(argmax_j))
+    np.testing.assert_allclose(x.grad.numpy(), grad_j, rtol=0,
+                               atol=1e-4 * float(np.abs(grad_j).max()))
+
+
+def test_host_helpers_match_jax():
+    """The numpy helpers the port copies: equal to the JAX package's."""
+    import jolideco_torch.ops as t_ops
+    import jolideco_tpu.ops as j_ops
+    from jolideco_torch.ops import fft as t_fft
+    from jolideco_tpu.ops import fft as j_fft
+
+    for n in list(range(1, 300)) + [1056, 1089, 2080]:
+        assert t_ops.good_fft_size(n) == j_ops.good_fft_size(n), n
+    x = np.linspace(-4, 4, 33)
+    np.testing.assert_array_equal(t_ops.evaluate_trapez(x, 3.0, 0.5),
+                                  j_ops.evaluate_trapez(x, 3.0, 0.5))
+    rs = np.random.RandomState(0)
+    patches = rs.rand(49, 8, 8)
+    np.testing.assert_array_equal(
+        t_ops.reconstruct_from_overlapping_patches(patches, (32, 32), 4),
+        j_ops.reconstruct_from_overlapping_patches(patches, (32, 32), 4))
+    image, kernel = rs.rand(20, 24), rs.rand(5, 7)
+    np.testing.assert_array_equal(t_fft.convolve_fft_numpy(image, kernel),
+                                  j_fft.convolve_fft_numpy(image, kernel))
+    for got, want in zip(t_fft.kernel_fft_numpy(kernel, (20, 24), (26, 32)),
+                         j_fft.kernel_fft_numpy(kernel, (20, 24), (26, 32))):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_switches_registries_and_markers():
+    from jolideco_torch import config
+    from jolideco_torch.priors.patches import GMM_REGISTRY
+    from jolideco_torch.utils import (
+        NORMS_PATCH_REGISTRY,
+        NORMS_REGISTRY,
+        split_datasets_validation,
+    )
+    from jolideco_torch.utils.testing import requires_device
+
+    from jolideco_torch.priors.patches.gmm import REFERENCE_LIBRARY_ALIASES
+
+    # the JAX registry also names the reference's library, which the port
+    # resolves to a shipped model (test_reference_library_aliases_...)
+    assert set(GMM_REGISTRY) | set(REFERENCE_LIBRARY_ALIASES) == set(
+        jj.priors.patches.GMM_REGISTRY)
+    assert set(NORMS_REGISTRY) == set(jj.utils.NORMS_REGISTRY)
+    assert set(NORMS_PATCH_REGISTRY) == set(jj.utils.NORMS_PATCH_REGISTRY)
+    assert split_datasets_validation is \
+        jt.utils.datasets.split_datasets_validation
+    assert config.fused_enabled() and config.use_fused() == "auto"
+    try:
+        config.set_use_fused("off")
+        assert not config.fused_enabled()
+        with config.force_fused("auto"):
+            assert config.fused_enabled()
+        assert config.use_fused() == "off"
+    finally:
+        config.set_use_fused("auto")
+    with pytest.raises(ValueError, match="fused mode"):
+        config.set_use_fused("on")
+    assert not requires_device("cpu").args[0]
+    assert requires_device("gpu").args[0] == (not torch.cuda.is_available())

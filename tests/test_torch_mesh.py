@@ -51,6 +51,7 @@ from jolideco_tpu.parallel import StackedPoissonLoss as JStacked
 from jolideco_tpu.parallel import make_obs_mesh as j_make_obs_mesh
 from torch_mesh_workers import (
     EPOCHS_JAX,
+    MESH_CONV_CASES,
     deconvolve,
     dying_rank_worker,
     loss_and_gradient,
@@ -89,7 +90,16 @@ def unsharded():
         out[label] = {mode: loss_and_gradient(stacked(data, conv_mode=mode),
                                               flux)
                       for mode in ("fft", "pfft")}
+    for label, (mode, per_rank) in MESH_CONV_CASES.items():
+        loss = stacked(make_datasets(per_rank * RANKS), conv_mode=mode)
+        out[label] = {"whole": loss_and_gradient(loss, flux)}
+        if loss.ct_pairs is not None:
+            # the same loss, each observation alone
+            loss.ct_pairs = None
+            out[label]["single"] = loss_and_gradient(loss, flux)
     out["joint"] = run_summary(deconvolve(datasets, n_epochs=EPOCHS_JAX)[1])
+    out["ct_joint"] = run_summary(deconvolve(datasets, n_epochs=EPOCHS_JAX,
+                                             conv_mode="ct")[1])
     result = deconvolve(datasets, cycle_spin=True, trace_every=5,
                         compute_error=True)[1]
     out["spin"] = run_summary(result)
@@ -155,6 +165,46 @@ def test_sharded_pfft_loss(ranks, unsharded, label, pairs_local):
         assert out[label][2] is pairs_local
         close(out[label][:2], same, 1e-6)
         close(out[label][:2], unsharded[label]["fft"], 1e-4)
+
+
+@pytest.mark.parametrize("label", list(MESH_CONV_CASES))
+def test_sharded_ct_mxu_direct_losses(ranks, unsharded, label):
+    """``"ct"`` keeps its pairs on a rank holding an even count of
+    observations and convolves each alone otherwise (the JAX package's
+    rule, ``tests/test_ct_conv.py:272-296``); ``"mxu"`` and ``"direct"``
+    shard by observation. Against the unsharded loss doing the same
+    arithmetic, 1e-6 (the gathers add zeros; the ranks' gradients summed
+    in another order); ``"ct"``'s single transforms against its pairs,
+    1e-5 (split-float products in other sums)."""
+    mode, per_rank = MESH_CONV_CASES[label]
+    pairs_local = mode == "ct" and per_rank % 2 == 0
+    want = unsharded[label]
+    for out in ranks:
+        assert out[label][2] is pairs_local
+        same = want["whole"] if pairs_local or mode != "ct" else \
+            want["single"]
+        close(out[label][:2], same, 1e-6)
+        close(out[label][:2], want["whole"], 1e-5)
+
+
+def test_replicate_gives_every_rank_rank_zeros_values(ranks):
+    """``parallel.mesh.replicate``: copies of a nest of tensors holding
+    rank 0's values on every rank, the rank's own tensors untouched."""
+    for rank, out in enumerate(ranks):
+        a, b, none, own = out["replicate"]
+        assert_array_equal(a, [1.0, 1.0])
+        assert_array_equal(b, -np.ones((1, 3)))
+        assert none is None and own == rank + 1
+
+
+def test_joint_ct_run_matches_unsharded(ranks, unsharded):
+    want = unsharded["ct_joint"]
+    for out in ranks:
+        assert_allclose(out["ct_joint"]["flux"], want["flux"], rtol=1e-4)
+        assert_allclose(out["ct_joint"]["loss"], want["loss"], rtol=1e-4)
+    for out in ranks[1:]:
+        assert_array_equal(out["ct_joint"]["flux"],
+                           ranks[0]["ct_joint"]["flux"])
 
 
 def test_joint_run_matches_jax_and_unsharded(ranks, unsharded, jax_joint):

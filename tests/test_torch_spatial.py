@@ -181,6 +181,72 @@ def test_row_sharded_loss_with_calibrations_and_upsampling(ranks):
         close(out["calibrated"], want, 1e-5)
 
 
+@pytest.mark.parametrize("mode", ["ct", "mxu"])
+def test_row_sharded_matrix_dft_losses_match_unsharded(ranks, mode):
+    """``"ct"`` and ``"mxu"`` on the row mesh: each rank gathers the row
+    group's rows, convolves each observation alone and keeps its rows
+    (the JAX package lets GSPMD partition their products). Against the
+    port's unsharded loss (``"ct"``'s pairs there): values rtol 1e-5 and
+    the gradient 1e-5 of its max-abs, as ``"fft"``'s; with calibrations
+    and a x2 component too."""
+    from jolideco_torch import (
+        FluxComponents,
+        NPredCalibration,
+        NPredCalibrations,
+        SpatialFluxComponent,
+    )
+    from jolideco_torch.parallel import StackedPoissonLoss
+
+    datasets = make_datasets(8)
+    want = loss_and_gradient(stacked(datasets, conv_mode=mode),
+                             sample_flux())
+    calibrations = NPredCalibrations({
+        name: NPredCalibration(shift_x=0.3 - 0.1 * i, shift_y=-0.2 + 0.05 * i,
+                               background_norm=1.0 + 0.05 * i,
+                               weight=1.0 + 0.1 * i)
+        for i, name in enumerate(datasets)})
+    components = FluxComponents({"flux": SpatialFluxComponent.from_numpy(
+        np.ones((SIZE, SIZE), np.float32), upsampling_factor=2)})
+    loss = StackedPoissonLoss.from_datasets(
+        datasets, components, calibrations=calibrations, conv_mode=mode,
+        device="cpu")
+    want_cal = loss_and_gradient(
+        loss, np.repeat(np.repeat(sample_flux(), 2, 0), 2, 1) / 4)
+    for out in ranks:
+        close(out[f"stacked_{mode}"], want, 1e-5)
+        close(out[f"calibrated_{mode}"], want_cal, 1e-5)
+
+
+@pytest.mark.parametrize("mode", ["ct", "mxu"])
+def test_row_sharded_matrix_dft_run_and_probe_match_unsharded(ranks, mode):
+    """10 joint epochs and the probe, which differentiates twice through
+    the gather (its backward, the reduce-scatter, and that one's): flux
+    and errors rtol 1e-4, the ranks' flux the same bits."""
+    result = deconvolve(make_datasets(8), conv_mode=mode, compute_error=True,
+                        trace_every=0, n_epochs=EPOCHS_JAX)[1]
+    want = run_summary(result)
+    error = result.components["flux"].flux_upsampled_error_numpy
+    for out in ranks:
+        got = out[f"run_{mode}"]
+        assert_allclose(got["flux"], want["flux"], rtol=1e-4)
+        assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+        assert_allclose(got["error"], error, rtol=1e-4)
+        assert_array_equal(got["flux"], ranks[0][f"run_{mode}"]["flux"])
+
+
+def test_direct_is_refused_on_a_row_mesh(ranks):
+    """The JAX package fails there (its odd kernels' rows split over the
+    row dimension, ``ROADMAP.md`` section 3); the port says so."""
+    loss = JStacked.from_datasets(
+        make_datasets(8), jj.FluxComponents({
+            "flux": jj.SpatialFluxComponent.from_numpy(
+                np.ones((SIZE, SIZE), np.float32))}), conv_mode="direct")
+    with pytest.raises(ValueError):
+        j_shard_spatial(loss, j_make_obs_row_mesh(*MESH))
+    for out in ranks:
+        assert "conv_mode='direct'" in out["direct"]
+
+
 def test_indivisible_spectrum_is_refused(ranks):
     loss = JStacked.from_datasets(
         make_datasets(8), jj.FluxComponents({

@@ -72,10 +72,17 @@ def test_losses_and_flux_gradient(n_obs):
 
 
 def test_unported_conv_modes_raise():
+    """Every conv mode of the JAX package is ported (values against it:
+    ``tests/test_torch_conv_modes.py``); the loss records it, and a mode
+    the JAX package does not document raises ``ValueError``."""
     datasets = make_datasets(2)
     comps = TFluxComponents(
         {"flux": TComponent.from_numpy(np.ones((SIZE, SIZE), np.float32))}
     )
-    with pytest.raises(NotImplementedError):
-        TStacked.from_datasets(datasets, comps, conv_mode="ct",
+    for mode in ("ct", "mxu", "direct"):
+        loss = TStacked.from_datasets(datasets, comps, conv_mode=mode,
+                                      device="cpu")
+        assert loss.conv_mode == mode
+    with pytest.raises(ValueError, match="conv_mode"):
+        TStacked.from_datasets(datasets, comps, conv_mode="cufft",
                                device="cpu")

@@ -146,11 +146,18 @@ def capture_warnings():
 # tests/test_torch_mesh.py
 
 
+# the obs mesh's cases of the other conv modes: label -> (mode,
+# observations a rank): "ct" with an even count a rank (the pairs stay) and
+# an odd one (each observation alone), "mxu" and "direct"
+MESH_CONV_CASES = {"ct_even": ("ct", 2), "ct_odd": ("ct", 3),
+                   "mxu": ("mxu", 2), "direct": ("direct", 2)}
+
+
 def obs_mesh_worker(rank, world, folder):
     """The obs mesh of every rank: sharded stacked losses (fft, pfft with
-    an even and an odd count per rank), joint runs, the probe, early
-    stopping, checkpoints, the sequential strategy's warning and the
-    refused fallback."""
+    an even and an odd count per rank, ct likewise, mxu, direct), joint
+    runs (one under ct), the probe, early stopping, checkpoints, the
+    sequential strategy's warning and the refused fallback."""
     from jolideco_torch import MAPDeconvolverResult
     from jolideco_torch.parallel import make_obs_mesh
 
@@ -163,6 +170,20 @@ def obs_mesh_worker(rank, world, folder):
         loss = stacked(make_datasets(n_obs), conv_mode="pfft").shard(mesh)
         out[label] = loss_and_gradient(loss, flux) + (
             loss.pfft_pairs is not None,)
+    for label, (mode, per_rank) in MESH_CONV_CASES.items():
+        loss = stacked(make_datasets(per_rank * world),
+                       conv_mode=mode).shard(mesh)
+        out[label] = loss_and_gradient(loss, flux) + (
+            loss.ct_pairs is not None,)
+    out["ct_joint"] = run_summary(deconvolve(
+        datasets, mesh=mesh, n_epochs=EPOCHS_JAX, conv_mode="ct")[1])
+    from jolideco_torch.parallel.mesh import replicate
+
+    mine = {"a": torch.full((2,), float(rank + 1)),
+            "b": (torch.full((1, 3), -float(rank + 1)), None)}
+    copies = replicate(mine, mesh)
+    out["replicate"] = (copies["a"].numpy(), copies["b"][0].numpy(),
+                        copies["b"][1], float(mine["a"][0]))
 
     deco, result = deconvolve(datasets, mesh=mesh, n_epochs=EPOCHS_JAX)
     out["topology"] = deco.to_dict()["mesh"]
@@ -255,8 +276,9 @@ def raising_rank_worker(rank, world):
 
 def spatial_worker(rank, world, n_obs_shards, n_row_shards, conv_inputs):
     """The ``(obs, row)`` mesh: the pencil FFT and its adjoint, sharded
-    stacked losses (with and without calibrations and upsampling), the
-    divisibility error, joint runs and the probe."""
+    stacked losses (with and without calibrations and upsampling; under
+    fft, ct and mxu), the divisibility error, direct's refusal, joint runs
+    and the probe (under fft, ct and mxu)."""
     from jolideco_torch import NPredCalibration, NPredCalibrations
     from jolideco_torch import FluxComponents, SpatialFluxComponent
     from jolideco_torch.ops.dist_fft import dist_convolve_fft
@@ -311,6 +333,28 @@ def spatial_worker(rank, world, n_obs_shards, n_row_shards, conv_inputs):
         out["indivisible"] = None
     except ValueError as exc:
         out["indivisible"] = str(exc)
+
+    # the matrix DFTs gather the row group's rows
+    for mode in ("ct", "mxu"):
+        out[f"stacked_{mode}"] = loss_and_gradient(
+            shard_stacked_spatial(stacked(datasets, conv_mode=mode), mesh),
+            flux)
+        loss = StackedPoissonLoss.from_datasets(
+            datasets, components, calibrations=calibrations,
+            conv_mode=mode, device="cpu")
+        out[f"calibrated_{mode}"] = loss_and_gradient(
+            shard_stacked_spatial(loss, mesh), flux2)
+        _, result = deconvolve(datasets, mesh=mesh, conv_mode=mode,
+                               compute_error=True, trace_every=0,
+                               n_epochs=EPOCHS_JAX)
+        out[f"run_{mode}"] = run_summary(result)
+        out[f"run_{mode}"]["error"] = result.components[
+            "flux"].flux_upsampled_error_numpy
+    try:
+        shard_stacked_spatial(stacked(datasets, conv_mode="direct"), mesh)
+        out["direct"] = None
+    except ValueError as exc:
+        out["direct"] = str(exc)
 
     handler = capture_warnings()
     deco, result = deconvolve(datasets, mesh=mesh, trace_every=1,
