@@ -11,16 +11,19 @@ Phases, each printing one or more lines:
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
    compiler per source, all at once (the fused scorer, its forwards and
-   marginalise backward on the tensor cores, the patch-level scorer, the
-   matrix-DFT convolution in float32 and its passes 2 and 3 on the
-   tensor cores),
+   marginalise backward on the tensor cores, the MAP scorers on the
+   warpgroup instructions, the patch-level scorer, the matrix-DFT
+   convolution in float32 and its passes on the tensor cores),
    each kernel's registers, spills and shared memory as ``ptxas``
-   reports them;
+   reports them, and the count of ``HGMMA`` instructions in the MAP
+   scorers' machine code (``cuobjdump -sass``; it must not be 0);
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
    1000x904 image with a block of zero-flux sentinel pixels, then K1's
-   ``"split"`` kernel on the tensor cores on the same two images against
+   ``"split"`` kernel on the tensor cores (``wgmma``, timed beside the
+   parent's ``mma.sync`` instance on the same inputs, in turns) on the
+   same two images against
    the split plain version and, with the float32 kernel beside it,
    against the logits in float64, and on the ragged image under two
    GMMs of 256 components (two of the kernel's tiles of 208), the
@@ -255,7 +258,9 @@ beside it. It imports nothing of JAX.
 """
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -384,6 +389,14 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def in_turns(torch, parent, new, reps=10):
+    """Milliseconds per call of ``new`` and of ``parent`` (the kernel it
+    replaces, on the same inputs), timed in turns (parent, new, new,
+    parent): the two means and the four readings."""
+    ms = [cuda_ms(torch, fn, reps) for fn in (parent, new, new, parent)]
+    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2, ms
+
+
 def device_ms(torch, fn, reps, *kernels):
     """Mean device milliseconds per call of ``fn``: every kernel, memset
     and copy it runs on the card (torch.profiler), so that a call whose
@@ -456,6 +469,25 @@ def phase_build():
         print(f"phase 1 build: {name} in {BUILD_INFO[name]['seconds']:.2f} s "
               f"(all in {seconds:.2f} s); "
               + " | ".join(ptxas_summary(BUILD_INFO[name]["ptxas"])))
+    # the warpgroup kernels must be wgmma in the machine code (HGMMA)
+    hgmma = sass_count(BUILD_INFO["gmm_score_wg"]["path"], "HGMMA")
+    warnings = [line.strip() for line in
+                BUILD_INFO["gmm_score_wg"]["ptxas"].splitlines()
+                if "warning" in line]
+    print(f"phase 1 sass: gmm_score_wg HGMMA {hgmma}; ptxas warnings "
+          f"{warnings or 'none'}")
+    check(hgmma > 0, "gmm_score_wg has no HGMMA instruction")
+
+
+def sass_count(path, opcode):
+    """Instructions of ``opcode`` in a library's machine code
+    (``cuobjdump -sass``)."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or str(Path(cuda_home) / "bin" /
+                                            "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    return sum(f" {opcode}" in line for line in sass.splitlines())
 
 
 def ptxas_summary(text):
@@ -863,8 +895,12 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     line += f"; xtn {xtn_err:.3g}"
     if label == MAIN or timed:
         n, k = vs.numel(), bufs["rec"].shape[0]
-        out["ms"] = cuda_ms(torch, lambda: kernel(
-            image, bufs, stride, sentinel), 10)
+        # beside the parent's kernel: gmm_fused_tc.cu's mma.sync instance
+        # of the mode, which no wrapper launches
+        out["ms"], out["parent_ms"], out["turns_ms"] = in_turns(
+            torch, lambda: gf._launch_forward_tc(image, bufs, stride,
+                                                 sentinel, False, mode),
+            lambda: kernel(image, bufs, stride, sentinel))
         out["plain_ms"] = cuda_ms(torch, lambda: gf.fused_forward_plain(
             image, bufs, stride, sentinel, mode=mode), 3)
         # three bf16 products (one under "bf16") of every patch against
@@ -873,10 +909,11 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
         # values, argmax, valid and xtn
         out["bound"] = split_bound(
             2.0 * n * k * (2080 + 64),
-            4 * (image.numel() + n * (3 + 64) + bufs["bc"].numel())
-            + pair_bytes(bufs, mode), products(mode))
-        out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_fused_tc"]["ptxas"])
-        line += (f"; {out['ms']:.3f} ms per call ({mode} plain "
+            4 * (image.numel() + n * (3 + 64)) + wg_bytes(bufs, mode),
+            products(mode))
+        out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_score_wg"]["ptxas"])
+        line += (f"; {out['ms']:.3f} ms per call (parent's mma.sync "
+                 f"{out['parent_ms']:.3f}; {mode} plain "
                  f"{out['plain_ms']:.3f} ms), {mode} bound "
                  f"{out['bound']['bound_ms']:.4f} ms "
                  f"({out['bound']['bound_by']}, "
@@ -884,6 +921,17 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
                  + " | ".join(out["ptxas"]))
     print(line)
     return out
+
+
+def wg_bytes(bufs, mode):
+    """Bytes of ``pair_wg`` and ``lin_wg`` that the MAP kernels of
+    ``mode`` read: both bf16 planes of each chunk under ``"split"``, the
+    hi plane under ``"bf16"``, and the linear terms."""
+    from jolideco_torch.ops.gmm_fused import WG_PLANE
+
+    tiles, chunks, record = bufs["pair_wg"].shape
+    return (tiles * chunks * (record - (WG_PLANE if mode == "bf16" else 0))
+            + bufs["lin_wg"].numel())
 
 
 def pair_bytes(bufs, mode):
@@ -1043,21 +1091,27 @@ def phase_patch_kernels(torch, device, bufs, cases):
         out["many"] = row_map_case(torch, x, every, bufs)
         print(f"phase 2 K6/K7 {label}, argmax = row index mod K: "
               + row_map_line(out["many"]))
+        # K5 split and bf16 beside the parent's kernels: gmm_fused_tc.cu's
+        # mma.sync instances, which no wrapper launches
+        turns = {}
+        for mode in ("split", "bf16"):
+            (turns[f"{mode}_ms"], turns[f"{mode}_parent_ms"],
+             turns[f"{mode}_turns_ms"]) = in_turns(
+                torch, lambda m=mode: gp._score_rows_tc(x, bufs, False, m,
+                                                        "parent"),
+                lambda m=mode: gp._SCORES_TC[m, False](x, bufs))
         out["timing"] = {
             "score_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_cuda(
                 x, bufs), 10),
             "score_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
                 x, bufs), 3),
-            "split_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_tc_cuda(
-                x, bufs), 10),
+            **turns,
             "split_lse_ms": cuda_ms(
                 torch, lambda: gp.gmm_score_rows_marg_tc_cuda(x, bufs), 10),
             "split_plain_ms": cuda_ms(torch, lambda: gf.score_split_plain(
                 x, bufs), 3),
             "split_lse_plain_ms": cuda_ms(
                 torch, lambda: gf.score_split_marg_plain(x, bufs), 3),
-            "bf16_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_bf16_cuda(
-                x, bufs), 10),
             "bf16_lse_ms": cuda_ms(
                 torch, lambda: gp.gmm_score_rows_marg_bf16_cuda(x, bufs), 10),
             "bf16_plain_ms": cuda_ms(torch, lambda: gf.score_bf16_plain(
@@ -1076,12 +1130,10 @@ def phase_patch_kernels(torch, device, bufs, cases):
             # the same in three bf16 products; reads rows, the split
             # pairs, b and c
             "score_split": split_bound(
-                work[0], 4 * (n * 64 + 2 * n + bufs["bc"].numel())
-                + 2 * bufs["pair_tc"].numel()),
+                work[0], 4 * (n * 64 + 2 * n) + wg_bytes(bufs, "split")),
             # one product under "bf16", reading the hi planes
             "score_bf16": split_bound(
-                work[0], 4 * (n * 64 + 2 * n + bufs["bc"].numel())
-                + pair_bytes(bufs, "bf16"), 1),
+                work[0], 4 * (n * 64 + 2 * n) + wg_bytes(bufs, "bf16"), 1),
             "unit": {key: case["unit"][key]
                      for key in ("bound_ms", "bound_by")},
             "hvp": {key: case["hvp"][key]
@@ -1091,11 +1143,13 @@ def phase_patch_kernels(torch, device, bufs, cases):
         bb = out["bounds"]["score_bf16"]
         print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
               f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
-              f"K5 split {tm['split_ms']:.3f} ms, logsumexp "
+              f"K5 split {tm['split_ms']:.3f} ms (parent's mma.sync "
+              f"{tm['split_parent_ms']:.3f}), logsumexp "
               f"{tm['split_lse_ms']:.3f} (split plain "
               f"{tm['split_plain_ms']:.3f}; split bound "
               f"{sb['bound_ms']:.4f} ms, {sb['bound_ms'] / tm['split_ms']:.1%})"
-              f"; K5 bf16 {tm['bf16_ms']:.3f} ms, logsumexp "
+              f"; K5 bf16 {tm['bf16_ms']:.3f} ms (parent's "
+              f"{tm['bf16_parent_ms']:.3f}), logsumexp "
               f"{tm['bf16_lse_ms']:.3f} (bf16 plain "
               f"{tm['bf16_plain_ms']:.3f}, {tm['bf16_lse_plain_ms']:.3f}; "
               f"one-product bound {bb['bound_ms']:.4f} ms, "
@@ -5273,6 +5327,7 @@ def main():
     psbounds = msplit["probe_bounds_astro"]
     fused_src = "jolideco_torch/csrc/gmm_fused.cu"
     patch_src = "jolideco_torch/csrc/gmm_patch.cu"
+    wg_src = "jolideco_torch/csrc/gmm_score_wg.cu"
     pfft = kernels["pfft"]
     pmain, ptiming, pbound = pfft[MAIN], pfft["timing"], pfft["bounds"]
     split = kernels[MAIN]["split"]
@@ -5282,7 +5337,7 @@ def main():
         ("gmm_fused_fwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:309",
          slice_["highest"], kernels[MAIN]["value_max_abs_err"],
          timing["fwd_ms"], timing["fwd_plain_ms"], kernels["fwd_bound"]),
-        ("gmm_fused_fwd_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_fused_fwd_tc", wg_src,
          "jolideco_tpu/ops/gmm_fused.py:309", slice_["high"],
          split["value_max_abs_err"], split["ms"], split["plain_ms"],
          split["bound"]),
@@ -5292,7 +5347,7 @@ def main():
         ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
          errors["highest"], rows["score_marg0"][0], rtiming["score_ms"],
          rtiming["score_plain_ms"], rbounds["score"]),
-        ("gmm_score_rows_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_score_rows_tc", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:237", errors["high"],
          rows["split"]["map"]["value_max_abs_err"], rtiming["split_ms"],
          rtiming["split_plain_ms"], rbounds["score_split"]),
@@ -5348,7 +5403,7 @@ def main():
     mbmain, pbmain = mb[f"{MAIN} astro"], mb[f"{MAIN} astro probe"]
     pbe = pbmain["errors_against_float64"]
     table += [
-        ("gmm_fused_fwd_bf16", tc_src, "jolideco_tpu/ops/gmm_fused.py:309",
+        ("gmm_fused_fwd_bf16", wg_src, "jolideco_tpu/ops/gmm_fused.py:309",
          default["map"], k1b["value_max_abs_err"], k1b["ms"], k1b["plain_ms"],
          k1b["bound"]),
         ("gmm_fused_fwd_marg_bf16", tc_src,
@@ -5359,7 +5414,7 @@ def main():
          "jolideco_tpu/ops/gmm_fused.py:420", default["marginalised"],
          mbmain["bwd_against_float64"]["tc"], mb["timing_astro"]["bwd_ms"],
          mb["timing_astro"]["bwd_plain_ms"], mb["bounds_astro"]["bwd"]),
-        ("gmm_score_rows_bf16", tc_src, "jolideco_tpu/ops/gmm_pallas.py:237",
+        ("gmm_score_rows_bf16", wg_src, "jolideco_tpu/ops/gmm_pallas.py:237",
          default["map_probe"], rows["bf16"]["map"]["value_max_abs_err"],
          rtiming["bf16_ms"], rtiming["bf16_plain_ms"], rbounds["score_bf16"]),
         ("gmm_score_rows_marg_bf16", tc_src,
@@ -5553,7 +5608,13 @@ def main():
                  "device_ms"]},
              "gmm_hvp_map": {"device_ms": rows["row_map"]["hvp"][
                  "device_ms"]},
-             "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
+             "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]},
+             # the MAP kernels on wgmma beside the parent's mma.sync
+             # instances, timed in turns in the same run (phase 2)
+             "gmm_fused_fwd_tc": {"parent_ms": split["parent_ms"]},
+             "gmm_fused_fwd_bf16": {"parent_ms": k1b["parent_ms"]},
+             "gmm_score_rows_tc": {"parent_ms": rtiming["split_parent_ms"]},
+             "gmm_score_rows_bf16": {"parent_ms": rtiming["bf16_parent_ms"]}}
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

@@ -15,6 +15,18 @@
 // gmm_fused.cu's, whose header states the patch enumeration, and
 // gmm_patch.cu's.
 //
+// The MAP scoring moved: gmm_score_wg.cu's kernel (wgmma, bulk copies
+// into a ring of stages, a persistent grid of clusters) computes the MAP
+// instances' function for every wrapper, and the <false, kProd>
+// instances of gmm_fwd_tc_kernel and gmm_score_rows_tc_kernel below are
+// launched by nothing but chip_smoke.py's timing beside it. The
+// logsumexp instances stay here: K4 split, K8 split and K9a split take
+// their lse as the stabiliser of exp(logit - lse) and recompute the
+// logits by tile_logits in the same block geometry and order, bit for
+// bit; over logits of 1e5 to 1e8 an lse summed in another order would
+// move those weights by whole units of the exponent, so the four move to
+// a new core together or not at all.
+//
 // gmm_fwd_tc_kernel replaces the JAX package's ops/gmm_fused.py::
 // _fwd_kernel under precision HIGH ("split3"): per patch, load, mask,
 // subtract the mean (gmm_patches.cuh's load_patch, as the float32

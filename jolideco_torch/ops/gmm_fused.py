@@ -15,8 +15,9 @@ and back to image layout per offset group.
 
 Each direction has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu`` and
-  ``csrc/gmm_fused_tc.cu``, whose headers say what bounds them and how
+- a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu``,
+  ``csrc/gmm_fused_tc.cu`` and, for the MAP forward of the bf16 modes,
+  ``csrc/gmm_score_wg.cu``, whose headers say what bounds them and how
   they are built), run for a tensor on a CUDA card;
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
@@ -31,8 +32,10 @@ parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
 (what the TPU's matrix unit does with float32 operands): the same
 operands rounded to bf16, one product hi.hi summed in float32, ``b . x``
 in float32. The two bf16 modes' kernels run on the tensor cores
-(``csrc/gmm_fused_tc.cu``, one code with three products or one), their
-plain versions as float32 matmuls of the bf16-valued parts. The mode
+(``csrc/gmm_score_wg.cu`` for the MAP forward, on the warpgroup
+instructions, ``csrc/gmm_fused_tc.cu`` for the logsumexp forward and
+the marginalise backward; each one code with three products or one),
+their plain versions as float32 matmuls of the bf16-valued parts. The mode
 reaches both forwards (maximum and
 logsumexp) and the marginalise backward, which recomputes the logits
 in the mode of the forward that saved their logsumexp: with logits of
@@ -116,6 +119,17 @@ PAIRS = len(PAIR_A)
 # KP_TC (the last padded), pairs in chunks of TC_CHUNK
 KP_TC = 208
 TC_CHUNK = 32
+# the MAP kernels on the warpgroup instructions (csrc/gmm_score_wg.cu):
+# components in tiles of KP_WG, the pairs in chunks of TC_CHUNK; a chunk's
+# record is the image of a shared-memory stage, the hi and lo planes of
+# WG_PLANE bytes each (:func:`_wg_buffers`); a tile's linear terms, the
+# three bf16 parts of -2 b (WG_LIN_PART bytes each) and c, are WG_LIN
+# bytes
+KP_WG = 200
+WG_CHUNKS = PAIRS // TC_CHUNK
+WG_PLANE = 2 * KP_WG * TC_CHUNK
+WG_LIN_PART = 2 * KP_WG * D
+WG_LIN = 3 * WG_LIN_PART + 4 * 4 * 52
 MODES = ("f32", "split", "bf16")
 # bf16 products per k16 step of the tensor-core kernels, by mode
 TC_PRODUCTS = {"split": 3, "bf16": 1}
@@ -213,7 +227,74 @@ def _split_buffers(a_quad, bq, const2):
     bc[:d, :k] = torch.as_tensor(bq)
     bc[d, :k] = torch.as_tensor(const2)
     bc = bc.reshape(d + 1, tiles, KP_TC).permute(1, 0, 2).contiguous()
-    return {"pair_hi": hi, "pair_lo": lo, "pair_tc": pair_tc, "bc": bc}
+    pair_wg, lin_wg = _wg_buffers(hi, lo, bq, const2)
+    return {"pair_hi": hi, "pair_lo": lo, "pair_tc": pair_tc, "bc": bc,
+            "pair_wg": pair_wg, "lin_wg": lin_wg}
+
+
+def wg_plane_index(n, k, width=TC_CHUNK):
+    """Offset (in bf16 elements) of component ``n`` and entry ``k`` of a
+    K-major plane of ``csrc/gmm_score_wg.cu``'s descriptors, ``width``
+    entries a component (a chunk's 32 pairs, or b's 64 features): 8 x 8
+    core matrices, ``width / 8`` along K (128 bytes apart), then the next
+    eight components."""
+    return ((n // 8) * (width // 8) + k // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+def _placed(values, width):
+    """``(..., KP_WG, width)`` values as planes in
+    :func:`wg_plane_index`'s order: bf16 bits ``(..., KP_WG * width)``
+    uint16 (the values are bf16-valued float32)."""
+    bits = (np.ascontiguousarray(values, np.float32).view(np.uint32)
+            >> 16).astype(np.uint16)
+    n, k = np.meshgrid(np.arange(KP_WG), np.arange(width), indexing="ij")
+    order = np.empty(KP_WG * width, np.int64)
+    order[wg_plane_index(n, k, width).reshape(-1)] = (n * width
+                                                      + k).reshape(-1)
+    return bits.reshape(*bits.shape[:-2], -1)[..., order]
+
+
+def _wg_buffers(hi, lo, bq, const2):
+    """The MAP kernels' copies of ``A``, ``b`` and ``c``, uint8, in
+    ``T = ceil(K / KP_WG)`` tiles of components (the last padded with
+    zero components): ``pair_wg (T, WG_CHUNKS, 2 WG_PLANE)``, record ``c``
+    of a tile the hi and lo planes of pairs ``32 c .. 32 c + 31`` (at
+    :func:`wg_plane_index`), what ``csrc/gmm_score_wg.cu`` copies into a
+    stage; and ``lin_wg (T, WG_LIN)``: ``-2 b`` split into three bf16
+    parts (each the rounding of what the earlier leave: float32's 24
+    bits), planes of 64 features, then ``c`` float32 in the order the
+    threads read it (thread ``t`` of a quad: components ``8 j + 2 t`` and
+    ``+ 1``, ``j < 25``, then two zeros). ``hi`` and ``lo`` are
+    :func:`_split_buffers`' ``(PAIRS, K)`` parts, so ``pair_wg`` holds
+    ``pair_tc``'s entries, placed otherwise."""
+    d, k = bq.shape
+    tiles = -(-k // KP_WG)
+    planes = np.zeros((2, tiles * KP_WG, PAIRS), np.float32)
+    planes[0, :k] = hi.T.numpy()
+    planes[1, :k] = lo.T.numpy()
+    chunks = (planes.reshape(2, tiles, KP_WG, WG_CHUNKS, TC_CHUNK)
+              .transpose(1, 3, 0, 2, 4))
+    pair_wg = _placed(chunks, TC_CHUNK).reshape(tiles, WG_CHUNKS, -1)
+
+    minus2b = torch.zeros((tiles * KP_WG, d))
+    minus2b[:k] = -2.0 * torch.as_tensor(bq).T
+    rest, parts = minus2b, []
+    for _ in range(3):
+        parts.append(bf16_round(rest))
+        rest = rest - parts[-1]
+    parts = torch.stack(parts).reshape(3, tiles, KP_WG, d).transpose(0, 1)
+    linear = _placed(parts.numpy(), d).reshape(tiles, -1)
+    c = np.zeros((tiles * KP_WG,), np.float32)
+    c[:k] = const2
+    c_rows = np.zeros((tiles, 4, 52), np.float32)
+    c_rows[..., :50] = (c.reshape(tiles, KP_WG // 8, 4, 2)
+                        .transpose(0, 2, 1, 3).reshape(tiles, 4, 50))
+    lin_wg = np.concatenate([linear.view(np.uint8),
+                             c_rows.reshape(tiles, -1).view(np.uint8)],
+                            axis=1)
+    assert lin_wg.shape[1] == WG_LIN
+    return (torch.from_numpy(np.ascontiguousarray(pair_wg.view(np.uint8))),
+            torch.from_numpy(np.ascontiguousarray(lin_wg)))
 
 
 def kernel_buffers(packed, device):
@@ -563,6 +644,24 @@ def _tc_library():
     return lib
 
 
+def _wg_library():
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("gmm_score_wg")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.gmm_score_wg_image.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp,
+                                           vp, ci, ci, vp, vp, vp, vp, vp]
+        lib.gmm_score_wg_image.restype = ci
+        lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
+                                          vp]
+        lib.gmm_score_wg_rows.restype = ci
+        lib.gmm_score_wg_error_string.argtypes = [ci]
+        lib.gmm_score_wg_error_string.restype = ctypes.c_char_p
+        lib._argtypes_set = True
+    return lib
+
+
 def _library():
     from ..utils.cuda_build import load_library
 
@@ -631,10 +730,10 @@ def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
 
 def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
     """Launch the MAP forward kernel of the ``"split"`` mode on the
-    tensor cores (``csrc/gmm_fused_tc.cu``); same outputs as
+    tensor cores (``csrc/gmm_score_wg.cu``, ``wgmma``); same outputs as
     :func:`fused_forward_plain` with ``mode="split"``. Any number of
-    components, in tiles of ``KP_TC``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, False, "split")
+    components, in tiles of ``KP_WG``."""
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "split")
     gmm_fused_fwd_tc_cuda.launches += 1
     return out
 
@@ -650,9 +749,9 @@ def gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel):
 
 def gmm_fused_fwd_bf16_cuda(image, bufs, stride, sentinel):
     """Launch the MAP forward kernel of the ``"bf16"`` mode on the tensor
-    cores (``csrc/gmm_fused_tc.cu``, one product a k16 step); same
+    cores (``csrc/gmm_score_wg.cu``, one product a k16 step); same
     outputs as :func:`fused_forward_plain` with ``mode="bf16"``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, False, "bf16")
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "bf16")
     gmm_fused_fwd_bf16_cuda.launches += 1
     return out
 
@@ -675,6 +774,37 @@ def _split_tiles(bufs, device):
            (tiles, PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
     _check(bufs["bc"], "bc", torch.float32, (tiles, D + 1, KP_TC), device)
     return k
+
+
+def wg_tiles(bufs, device):
+    """Checks the MAP kernels' buffers (``pair_wg``, ``lin_wg``); the
+    component count."""
+    k = bufs["rec"].shape[0]
+    tiles = -(-k // KP_WG)
+    _check(bufs["pair_wg"], "pair_wg", torch.uint8,
+           (tiles, WG_CHUNKS, 2 * WG_PLANE), device)
+    _check(bufs["lin_wg"], "lin_wg", torch.uint8, (tiles, WG_LIN), device)
+    return k
+
+
+def _launch_forward_wg(image, bufs, stride, sentinel, mode):
+    values, argmax, valid, xtn = _forward_outputs(image, stride)
+    device = image.device
+    h, w = image.shape
+    k = wg_tiles(bufs, device)
+    lib = _wg_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.gmm_score_wg_image(
+            image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
+            float(sentinel), bufs["pair_wg"].data_ptr(),
+            bufs["lin_wg"].data_ptr(), k, TC_PRODUCTS[mode],
+            values.data_ptr(), argmax.data_ptr(),
+            valid.data_ptr(), xtn.data_ptr(), stream,
+        )
+    _raise_on_error(lib.gmm_score_wg_error_string, code,
+                    "gmm_score_wg_image")
+    return values, argmax, valid, xtn
 
 
 def _launch_forward_tc(image, bufs, stride, sentinel, marginalize, mode):

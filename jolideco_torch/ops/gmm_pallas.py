@@ -41,10 +41,11 @@ argmax.
 
 Each has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``, and
-  ``csrc/gmm_fused_tc.cu`` for the scorer, unit gradient and first
-  Hessian stage of the ``"split"`` and ``"bf16"`` modes on the tensor
-  cores, whose headers
+- a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``,
+  ``csrc/gmm_score_wg.cu`` for the MAP scorer of the ``"split"`` and
+  ``"bf16"`` modes on the tensor cores (``wgmma``), and
+  ``csrc/gmm_fused_tc.cu`` for their logsumexp scorer, unit gradient and
+  first Hessian stage, whose headers
   say what bounds each kernel and how it is built), run
   for a tensor on a CUDA card, for d = 64 (8x8 patches, both shipped
   GMMs; the JAX package's ``pallas_supported`` rule);
@@ -89,6 +90,8 @@ from .gmm_fused import (
     PLAIN_UNITS,
     TC_PRODUCTS,
     _tc_library,
+    _wg_library,
+    wg_tiles,
     logit_chunks,
     marg_unit_rows,
     mix_rows,
@@ -325,13 +328,34 @@ def _score_rows_tc(x, bufs, marginalize, mode, name):
     return values, argmax, bool(n)
 
 
+def _score_rows_wg(x, bufs, mode, name):
+    """The launch of the MAP scorer of ``mode`` on the warpgroup
+    instructions (``csrc/gmm_score_wg.cu``, when there are rows); values,
+    argmax and whether it launched."""
+    device, n = _check_rows(x, name)
+    k = wg_tiles(bufs, device)
+    values = torch.empty(n, dtype=torch.float32, device=device)
+    argmax = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = _wg_library()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.gmm_score_wg_rows(
+                x.data_ptr(), n, bufs["pair_wg"].data_ptr(),
+                bufs["lin_wg"].data_ptr(), k, TC_PRODUCTS[mode],
+                values.data_ptr(), argmax.data_ptr(), stream)
+        _raise_on_error(lib.gmm_score_wg_error_string, code,
+                        "gmm_score_wg_rows")
+    return values, argmax, bool(n)
+
+
 def gmm_score_rows_tc_cuda(x, bufs):
     """Launch the MAP scorer of the ``"split"`` mode on the tensor cores
-    (``csrc/gmm_fused_tc.cu``, K1 split's logits) on rows ``x (N, 64)``
+    (``csrc/gmm_score_wg.cu``, K1 split's logits) on rows ``x (N, 64)``
     float32 on a card; any number of components, in tiles of
-    ``KP_TC``. Same outputs as ``score_split_plain``; the buffers are the
-    ``"split"`` ones of ``kernel_buffers`` (``pair_tc``, ``bc``)."""
-    values, argmax, launched = _score_rows_tc(x, bufs, False, "split",
+    ``KP_WG``. Same outputs as ``score_split_plain``; the buffers are
+    ``kernel_buffers``' ``pair_wg`` and ``lin_wg``."""
+    values, argmax, launched = _score_rows_wg(x, bufs, "split",
                                               "gmm_score_rows_tc_cuda")
     gmm_score_rows_tc_cuda.launches += launched
     return values, argmax
@@ -354,9 +378,10 @@ def gmm_score_rows_marg_tc_cuda(x, bufs):
 
 def gmm_score_rows_bf16_cuda(x, bufs):
     """Launch the MAP scorer of the ``"bf16"`` mode on the tensor cores
-    (K5 bf16: K1 bf16's logits, one product a k16 step) on rows ``x (N,
-    64)`` float32 on a card. Same outputs as ``score_bf16_plain``."""
-    values, argmax, launched = _score_rows_tc(x, bufs, False, "bf16",
+    (K5 bf16, ``csrc/gmm_score_wg.cu``: K1 bf16's logits, one product a
+    k16 step) on rows ``x (N, 64)`` float32 on a card. Same outputs as
+    ``score_bf16_plain``."""
+    values, argmax, launched = _score_rows_wg(x, bufs, "bf16",
                                               "gmm_score_rows_bf16_cuda")
     gmm_score_rows_bf16_cuda.launches += launched
     return values, argmax

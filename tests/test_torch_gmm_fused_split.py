@@ -6,8 +6,11 @@ CPU at ``precision=HIGH``, as ``tests/test_gmm_fused.py`` runs it: its
 into bf16 hi and lo parts, three products hi.hi + hi.lo + lo.hi summed
 in float32, ``b . x`` at HIGHEST. The port runs the split plain version
 (a CPU tensor), which forms the same products from the symmetric pair
-layout and is the reference of the card's tensor-core kernel
-(``csrc/gmm_fused_tc.cu``). Both are held against float64 logits of the
+layout and is the reference of the card's tensor-core kernels
+(``csrc/gmm_score_wg.cu`` for the MAP forward, ``csrc/gmm_fused_tc.cu``
+for the logsumexp one); the layout of their buffers and the routing to
+them are checked here through a Python copy of the MAP kernel's
+address map and recorded stand-ins of the libraries. Both are held against float64 logits of the
 same normalised patches. Tolerances:
 
 - ``valid`` identical to the JAX package's; ``xtn`` the float32 path's
@@ -35,6 +38,9 @@ runs that differ only in the dial train alike until an argmax flips:
 in both packages on ``chip_smoke.py``'s small run (none: no flip), and
 ``chip_smoke.py`` phase 3 prints the card's beside it.
 """
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -233,6 +239,167 @@ def test_split_buffers_tile_the_components():
     assert torch.equal(full[:64, :256], bufs["bq"])
     assert torch.equal(full[64, :256], bufs["const2"])
     assert not full[:, 256:].any()
+
+
+def kernel_address(n, k, width=32):
+    """Byte offset of component ``n``, entry ``k`` in a plane of
+    ``csrc/gmm_score_wg.cu``'s stage (a chunk's 32 pairs) or linear terms
+    (b's 64 features), as its descriptors walk it: 8 x 8 core matrices of
+    eight 16-byte rows, the next along K 128 bytes on (the leading byte
+    offset), the next eight components ``16 width`` bytes on (the stride
+    byte offset: 512 and 1024)."""
+    return (n // 8) * 16 * width + (k // 8) * 128 + (n % 8) * 16 + (k % 8) * 2
+
+
+def read_planes(data, width):
+    """bf16 planes ``(..., 200 * width * 2)`` uint8 read back through
+    :func:`kernel_address`: float32 ``(..., 200, width)``."""
+    n, k = np.meshgrid(np.arange(tfused.KP_WG), np.arange(width),
+                       indexing="ij")
+    bits = np.ascontiguousarray(data).view(np.uint16)[
+        ..., kernel_address(n, k, width) // 2]
+    return (bits.astype(np.uint32) << 16).view(np.float32)
+
+
+def wg_parts(bufs):
+    """``pair_wg`` and ``lin_wg`` read back through :func:`kernel_address`:
+    the hi and lo parts ``(2, T * 200, 2080)``, the three parts of -2 b
+    ``(3, T * 200, 64)`` and c ``(T * 200,)``, float32."""
+    wg, lin = bufs["pair_wg"].numpy(), bufs["lin_wg"].numpy()
+    tiles = wg.shape[0]
+    planes = read_planes(wg.reshape(tiles, 65, 2, -1), 32)
+    parts = planes.transpose(2, 0, 3, 1, 4).reshape(2, tiles * 200, 2080)
+    b3 = read_planes(lin[:, :3 * tfused.WG_LIN_PART].reshape(tiles, 3, -1),
+                     64).transpose(1, 0, 2, 3).reshape(3, tiles * 200, 64)
+    # c: thread t of a quad reads components 8 j + 2 t and + 1 as 13
+    # float4s, its 50 entries then two zeros
+    quads = np.ascontiguousarray(lin[:, 3 * tfused.WG_LIN_PART:]).view(
+        np.float32).reshape(tiles, 4, 52)
+    assert not quads[..., 50:].any()
+    c = quads[..., :50].reshape(tiles, 4, 25, 2).transpose(0, 2, 1, 3)
+    return parts, b3, c.reshape(-1)
+
+
+@pytest.mark.parametrize("name,tiles", [("astro-snr-v1", 1),
+                                        ("wide-256", 2)])
+def test_wg_buffer_places_the_split_parts(name, tiles):
+    """The MAP kernels' copies (``pair_wg``, ``lin_wg``) hold exactly
+    ``pair_tc``'s entries, placed as the kernel's descriptors read them
+    (:func:`kernel_address`, which ``wg_plane_index`` must agree with),
+    -2 b as three bf16 parts whose sum is it exactly, and c in the order
+    the threads read it; zero past K, in tiles of 200."""
+    from chip_smoke import wide_gmm
+
+    gmm = (wide_gmm() if name == "wide-256"
+           else jt.GaussianMixtureModel.from_registry(name))
+    bufs = gmm.kernel_buffers("cpu")
+    k = gmm.n_components
+    assert bufs["pair_wg"].dtype == bufs["lin_wg"].dtype == torch.uint8
+    assert tuple(bufs["pair_wg"].shape) == (tiles, 65, 2 * 2 * 200 * 32)
+    assert tuple(bufs["lin_wg"].shape) == (tiles, 3 * 2 * 200 * 64
+                                           + 4 * 4 * 52)
+    for width in (32, 64):
+        n, kk = np.meshgrid(np.arange(200), np.arange(width), indexing="ij")
+        assert_array_equal(2 * tfused.wg_plane_index(n, kk, width),
+                           kernel_address(n, kk, width))
+        assert sorted(kernel_address(n, kk, width).reshape(-1)) == list(
+            range(0, 2 * 200 * width, 2))
+    parts, b3, c = wg_parts(bufs)
+    assert_array_equal(parts[0, :k], bufs["pair_hi"].T.numpy())
+    assert_array_equal(parts[1, :k], bufs["pair_lo"].T.numpy())
+    assert not parts[:, k:].any()
+    # a permutation of pair_tc's entries: the same values, as many times
+    tc = bufs["pair_tc"].float().numpy()
+    assert_array_equal(np.sort(tc[tc != 0]), np.sort(parts[parts != 0]))
+    b = bufs["bq"].numpy().T.astype(np.float64)
+    assert_array_equal(b3.astype(np.float64).sum(axis=0)[:k], -2.0 * b)
+    for part in b3:
+        assert_array_equal(part, part.astype(jnp.bfloat16).astype(np.float32))
+    assert not b3[:, k:].any()
+    assert_array_equal(c[:k], bufs["const2"].numpy())
+    assert not c[k:].any()
+
+
+class FakeLibrary:
+    """A kernel library whose C entries record their calls and succeed."""
+
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __getattr__(self, entry):
+        if entry.endswith("error_string"):
+            return lambda code: b"fake"
+
+        def call(*args):
+            self.calls.append((self.name, entry, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+def test_dial_routes_the_map_forward_to_the_warpgroup_kernels(monkeypatch,
+                                                              mode):
+    """On a card the MAP instances of K1 and K5 (the wrappers
+    ``gmm_fused_fwd_tc_cuda``, ``gmm_fused_fwd_bf16_cuda``,
+    ``gmm_score_rows_tc_cuda``, ``gmm_score_rows_bf16_cuda``) launch
+    ``gmm_score_wg``'s entries with the mode's products, ``pair_wg``
+    and ``lin_wg``; the logsumexp instances ``gmm_fused_tc``'s with
+    ``pair_tc``. The
+    libraries are recorded stand-ins and the wrappers' CUDA checks are
+    lifted, so that a CPU tensor stands for a card's."""
+    from jolideco_torch.ops import gmm_pallas as tpallas
+
+    calls = []
+    libs = {name: FakeLibrary(name, calls)
+            for name in ("gmm_score_wg", "gmm_fused_tc")}
+    for module in (tfused, tpallas):
+        monkeypatch.setattr(module, "_wg_library",
+                            lambda: libs["gmm_score_wg"])
+        monkeypatch.setattr(module, "_tc_library",
+                            lambda: libs["gmm_fused_tc"])
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *device: types.SimpleNamespace(cuda_stream=0))
+    def outputs(image, stride):
+        n = tfused.fused_patch_count(image.shape, stride)
+        return (torch.empty(n), torch.empty(n, dtype=torch.int32),
+                torch.empty(n), torch.empty((n, 64)))
+
+    def rows(x, name, argmax=None):
+        return x.device, x.shape[0]
+
+    monkeypatch.setattr(tfused, "_forward_outputs", outputs)
+    monkeypatch.setattr(tpallas, "_check_rows", rows)
+    bufs = jt.GaussianMixtureModel.from_registry(
+        "astro-snr-v1").kernel_buffers("cpu")
+    image = torch.as_tensor(make_image((16, 128)))
+    x = torch.zeros((300, 64))
+    products = tfused.TC_PRODUCTS[mode]
+    for marginalize in (False, True):
+        calls.clear()
+        tfused._FORWARDS[marginalize, mode](image, bufs, STRIDE,
+                                            ZERO_FLUX_SENTINEL)
+        tpallas._SCORES_TC[mode, marginalize](x, bufs)
+        if marginalize:
+            assert [c[:2] for c in calls] == [
+                ("gmm_fused_tc", "gmm_fused_fwd_tc"),
+                ("gmm_fused_tc", "gmm_score_rows_tc")]
+            assert calls[0][2][7] == bufs["pair_tc"].data_ptr()
+            assert calls[0][2][10:12] == (1, products)
+            assert calls[1][2][5:7] == (1, products)
+        else:
+            assert [c[:2] for c in calls] == [
+                ("gmm_score_wg", "gmm_score_wg_image"),
+                ("gmm_score_wg", "gmm_score_wg_rows")]
+            image_args, row_args = calls[0][2], calls[1][2]
+            assert image_args[7:9] == (bufs["pair_wg"].data_ptr(),
+                                       bufs["lin_wg"].data_ptr())
+            assert image_args[9:11] == (200, products)
+            assert row_args[1] == 300
+            assert row_args[2:4] == (bufs["pair_wg"].data_ptr(),
+                                     bufs["lin_wg"].data_ptr())
+            assert row_args[4:6] == (200, products)
 
 
 @pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),

@@ -45,7 +45,12 @@ product a step) are held to the same bars against the bf16 plain
 versions, the probe's and the marginalise backward's against the float64
 sums of the same bf16-rounded operands (``chip_smoke.bf16_reference``),
 K3's within the anchored bar and at least half the bf16 plain version's
-error against float64 (``chip_smoke.bf16_anchored``).
+error against float64 (``chip_smoke.bf16_anchored``). The MAP scorers
+on the warpgroup instructions (``csrc/gmm_score_wg.cu``, K1 and K5 in
+both modes) are also held to ``chip_smoke.py`` phase 2's bars at the
+main path's 1024², on a ragged 1000 x 904 image with sentinels and there
+under 256 components, and two launches on the same inputs must give
+the same bits.
 """
 
 import numpy as np
@@ -309,6 +314,63 @@ def test_tensor_core_row_scorer_matches_split_plain(device, name, n):
         assert torch.equal(ak, ap)
     if gmm.n_components > gf.KP_TC:
         assert 0 < int((ap >= gf.KP_TC).sum()) < n
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("name,shape", [
+    ("astro-snr-v1", (1024, 1024)), ("astro-snr-v1", (1000, 904)),
+    ("wide-256", (1000, 904)),
+])
+def test_warpgroup_map_kernels_at_full_size(device, mode, name, shape):
+    """K1 and K5 on the warpgroup instructions (``csrc/gmm_score_wg.cu``,
+    both modes) at the main path's 1024², on a ragged 1000 x 904 image
+    with a block of sentinels, and there under the 256 components of
+    ``chip_smoke.wide_gmm`` (two tiles of 200): ``chip_smoke.py`` phase
+    2's bars against the plain version of the mode
+    (``k1_split_checks``, ``k5_split_checks``: rtol 7e-5, argmax flips,
+    the mean signed and largest differences from the exact sums of the
+    same bf16 products, the float64 bar)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors import GaussianMixtureModel
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    import chip_smoke
+
+    gmm = (chip_smoke.wide_gmm() if name == "wide-256"
+           else GaussianMixtureModel.from_registry(name))
+    bufs = gmm.kernel_buffers(device)
+    img = np.random.RandomState(0).uniform(0.1, 2.0, shape).astype(
+        np.float32)
+    img[96:160, 200:260] = 2.0 * ZERO_FLUX_SENTINEL
+    image = torch.as_tensor(img, device=device)
+    label = f"{shape[0]}x{shape[1]} {name}"
+    fp32 = gf.gmm_fused_fwd_cuda(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    fp32_plain = gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    out = chip_smoke.k1_split_checks(torch, label, image, bufs, fp32,
+                                     fp32_plain, mode=mode)
+    assert out["n_valid"] > 0
+    rows = chip_smoke.normalised_rows(torch, image, ZERO_FLUX_SENTINEL)
+    chip_smoke.k5_split_checks(torch, label, rows, bufs, mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+def test_warpgroup_map_kernels_repeat_bitwise(device, gmm, mode):
+    """Two launches of K1 and of K5 on the warpgroup instructions on the
+    same inputs give the same bits (no atomics; every sum in a fixed
+    order)."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    bufs = gmm.kernel_buffers(device)
+    image = torch.as_tensor(make_image((1000, 904)), device=device)
+    k1 = gf._FORWARDS[False, mode]
+    first, again = (k1(image, bufs, 4, SENTINEL) for _ in range(2))
+    x = torch.as_tensor(make_rows(4097), device=device)
+    k5 = gp._SCORES_TC[mode, False]
+    rows_first, rows_again = k5(x, bufs), k5(x, bufs)
+    torch.cuda.synchronize()
+    for a, b in zip(first + rows_first, again + rows_again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("period", [1, 7, 200])
