@@ -13,10 +13,12 @@ Phases, each printing one or more lines:
    compiler per source, all at once (the fused scorer, its forwards and
    marginalise backward on the tensor cores, the MAP scorers on the
    warpgroup instructions, the patch-level scorer, the matrix-DFT
-   convolution in float32 and its passes on the tensor cores),
+   convolution in float32, its pass 1 on the tensor cores and its
+   passes 2 and 3 on the warpgroup instructions),
    each kernel's registers, spills and shared memory as ``ptxas``
    reports them, and the count of ``HGMMA`` instructions in the MAP
-   scorers' machine code (``cuobjdump -sass``; it must not be 0);
+   scorers' and K3's passes 2 and 3's machine code (``cuobjdump -sass``;
+   neither may be 0);
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
@@ -39,10 +41,12 @@ Phases, each printing one or more lines:
    pass and the whole pipeline against the plain version run in
    float64, beside cuFFT's packed pair (the yardstick, timed with the
    per-observation ``rfft2`` of the same 10 images; pass 1 also beside
-   the one ``torch.fft.fft`` that computes its function); the same for
-   the tensor-core kernels of the three passes and the ``"split"``
-   pipeline, held to the split plain version's error and to 1e-4 of the
-   max-abs; K2, K6 and K7 twice on the same inputs, bitwise equal;
+   the one ``torch.fft.fft`` that computes its function, pass 3 beside
+   the one ``torch.fft.ifft`` that computes its); the same for the
+   tensor-core kernels of the three passes and the ``"split"`` pipeline,
+   held to the split plain version's error and to 1e-4 of the max-abs,
+   passes 2 and 3 (on ``wgmma``) timed beside the parent's ``mma.sync``
+   kernels on the same inputs, in turns; K2, K6 and K7 twice on the same inputs, bitwise equal;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
@@ -470,13 +474,14 @@ def phase_build():
               f"(all in {seconds:.2f} s); "
               + " | ".join(ptxas_summary(BUILD_INFO[name]["ptxas"])))
     # the warpgroup kernels must be wgmma in the machine code (HGMMA)
-    hgmma = sass_count(BUILD_INFO["gmm_score_wg"]["path"], "HGMMA")
-    warnings = [line.strip() for line in
-                BUILD_INFO["gmm_score_wg"]["ptxas"].splitlines()
-                if "warning" in line]
-    print(f"phase 1 sass: gmm_score_wg HGMMA {hgmma}; ptxas warnings "
-          f"{warnings or 'none'}")
-    check(hgmma > 0, "gmm_score_wg has no HGMMA instruction")
+    for name in ("gmm_score_wg", "pfft_conv_wg"):
+        hgmma = sass_count(BUILD_INFO[name]["path"], "HGMMA")
+        warnings = [line.strip() for line in
+                    BUILD_INFO[name]["ptxas"].splitlines()
+                    if "warning" in line]
+        print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
+              f"{warnings or 'none'}")
+        check(hgmma > 0, f"{name} has no HGMMA instruction")
 
 
 def sass_count(path, opcode):
@@ -2390,6 +2395,7 @@ def pfft_timing(torch, s):
     x0, x1, planes, n, u, v, vt, vb = (
         s[k] for k in ("x0", "x1", "planes", "n", "u", "v", "vt", "vb"))
     h, w = x0.shape[1:]
+    vpm = torch.stack((vt[0] + vt[1].conj(), vt[0] - vt[1].conj()))
     fs, a, b = s["fs"], s["a"], s["b"]
     images = torch.stack([x0, x1], dim=1).reshape(N_OBS, h, w)
     kft = kernel_fft(s["psfs"], (h, w), fs)
@@ -2401,15 +2407,11 @@ def pfft_timing(torch, s):
         "pipeline_adjoint": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
                                                       True),
         "cols_fwd_split": lambda: pf.pfft_cols_fwd_tc_cuda(x0, x1, n),
-        "rows_split": lambda: pf.pfft_rows_combine_tc_cuda(u, *planes),
-        "cols_inv_split": lambda: pf.pfft_cols_inv_tc_cuda(*vt, h),
         "pipeline_split": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
                                                     False, "split"),
         "pipeline_split_adjoint": lambda: pf.pfft_conv_cuda(
             x0, x1, *planes, n, True, "split"),
         "cols_fwd_bf16": lambda: pf.pfft_cols_fwd_bf16_cuda(x0, x1, n),
-        "rows_bf16": lambda: pf.pfft_rows_combine_bf16_cuda(u, *planes),
-        "cols_inv_bf16": lambda: pf.pfft_cols_inv_bf16_cuda(*vb, h),
         "pipeline_bf16": lambda: pf.pfft_conv_cuda(x0, x1, *planes, n,
                                                    False, "bf16"),
         "pipeline_bf16_adjoint": lambda: pf.pfft_conv_cuda(
@@ -2422,8 +2424,23 @@ def pfft_timing(torch, s):
         # zero-padded to n (in natural, not permuted, row order)
         "torch_fft_cols": lambda: torch.fft.fft(torch.complex(x0, x1), n=n,
                                                 dim=1),
+        # pass 3's function in one call: the axis-0 inverse DFT of V1 +
+        # conj V2 and V1 - conj V2 (in natural, not permuted, row order)
+        "torch_ifft_cols": lambda: torch.fft.ifft(vpm, dim=-2),
     }
     timing = {name: cuda_ms(torch, fn, 10) for name, fn in calls.items()}
+    # passes 2 and 3 on wgmma beside the parent's mma.sync kernels on the
+    # same inputs, in turns (parent, new, new, parent)
+    for mode, vm in (("split", vt), ("bf16", vb)):
+        rows, cols = pf.PASSES[mode][1:]
+        for key, parent, new in (
+                ("rows", lambda: pf._rows_tc_mma(u, planes, False, mode),
+                 lambda: rows(u, *planes)),
+                ("cols_inv", lambda: pf._cols_inv_tc_mma(*vm, h, mode),
+                 lambda: cols(*vm, h))):
+            name = f"{key}_{mode}"
+            timing[name], timing[name + "_parent"], timing[
+                name + "_turns"] = in_turns(torch, parent, new)
     plain = {
         "cols_fwd": lambda: pf.cols_fwd_plain(x0, x1, n),
         "rows": lambda: pf.rows_combine_plain(u, *planes),
@@ -2472,7 +2489,13 @@ def phase_pfft_kernels(torch, device):
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
           f"{tm['cufft_rfft2']:.3f} ms; pass 1 as one torch.fft.fft "
-          f"{tm['torch_fft_cols']:.3f} ms")
+          f"{tm['torch_fft_cols']:.3f} ms, pass 3 as one torch.fft.ifft "
+          f"{tm['torch_ifft_cols']:.3f} ms; passes 2 and 3 on wgmma beside "
+          "the parent's mma.sync kernels in turns: "
+          + "; ".join(f"{name} {tm[name]:.3f} ms (parent "
+                      f"{tm[name + '_parent']:.3f})"
+                      for name in ("rows_split", "cols_inv_split",
+                                   "rows_bf16", "cols_inv_bf16")))
     return out
 
 
@@ -5436,12 +5459,16 @@ def main():
     library = {name: None for name, *_ in table}
     # K3's passes, forward direction at the main path's batch; their
     # errors against float64, the larger of the two directions; library:
-    # cuFFT's packed pair computing the whole convolution that the
-    # kernels compute together. The float32 kernels' launches are those
-    # of the "highest" run, the tensor-core kernels' (and the split
-    # bound) those of the default dial's "split" run.
+    # pass 1's and pass 3's functions are one torch.fft.fft and one
+    # torch.fft.ifft, pass 2's (a lane transform, the spectrum combine
+    # and two inverse ones) no one call (null; cufft_pair_ms: cuFFT's
+    # packed pair, the whole convolution that the passes compute
+    # together). The float32 kernels' launches are those of the
+    # "highest" run, the tensor-core kernels' (and the split bound)
+    # those of the default dial's "split" run.
     pfft_src = "jolideco_torch/csrc/pfft_conv.cu"
     tc_src = "jolideco_torch/csrc/pfft_conv_tc.cu"
+    wg_pfft_src = "jolideco_torch/csrc/pfft_conv_wg.cu"
     for name, source, key, line, err, path in (
             ("pfft_cols_fwd", pfft_src, "cols_fwd", 379,
              pmain["cols_fwd"][0], pfft_train["highest"]),
@@ -5453,27 +5480,26 @@ def main():
                  pmain["cols_inv_adjoint"][0]), pfft_train["highest"]),
             ("pfft_cols_fwd_tc", tc_src, "cols_fwd_split", 379,
              pmain["cols_fwd_tc"][0], pfft_train["high"]),
-            ("pfft_rows_combine_tc", tc_src, "rows_split", 398,
+            ("pfft_rows_combine_tc", wg_pfft_src, "rows_split", 398,
              max(pmain["rows_tc_forward"][0], pmain["rows_tc_adjoint"][0]),
              pfft_train["high"]),
-            ("pfft_cols_inv_tc", tc_src, "cols_inv_split", 460,
+            ("pfft_cols_inv_tc", wg_pfft_src, "cols_inv_split", 460,
              max(pmain["cols_inv_tc_forward"][0],
                  pmain["cols_inv_tc_adjoint"][0]), pfft_train["high"]),
             ("pfft_cols_fwd_bf16", tc_src, "cols_fwd_bf16", 379,
              pmain["cols_fwd_bf16"][0], default["pfft"]),
-            ("pfft_rows_combine_bf16", tc_src, "rows_bf16", 398,
+            ("pfft_rows_combine_bf16", wg_pfft_src, "rows_bf16", 398,
              max(pmain["rows_bf16_forward"][0],
                  pmain["rows_bf16_adjoint"][0]), default["pfft"]),
-            ("pfft_cols_inv_bf16", tc_src, "cols_inv_bf16", 460,
+            ("pfft_cols_inv_bf16", wg_pfft_src, "cols_inv_bf16", 460,
              max(pmain["cols_inv_bf16_forward"][0],
                  pmain["cols_inv_bf16_adjoint"][0]), default["pfft"])):
         table.append((name, source, f"jolideco_tpu/ops/pallas_fft.py:{line}",
                       path, err, ptiming[key], ptiming[key + "_plain"],
                       pbound[key]))
-        library[name] = ptiming["cufft_pair"]
-    # pass 1 on the tensor cores: its own function is one torch.fft.fft
-    library["pfft_cols_fwd_tc"] = ptiming["torch_fft_cols"]
-    library["pfft_cols_fwd_bf16"] = ptiming["torch_fft_cols"]
+        library[name] = {"cols_fwd": ptiming["torch_fft_cols"], "rows": None,
+                         "cols_inv": ptiming["torch_ifft_cols"]}[
+                             key.split("_split")[0].split("_bf16")[0]]
     print(json.dumps({"pfft": {
         "batch": "5 pairs of 1024^2, n = 1152",
         "errors_against_float64": {
@@ -5615,6 +5641,17 @@ def main():
              "gmm_fused_fwd_bf16": {"parent_ms": k1b["parent_ms"]},
              "gmm_score_rows_tc": {"parent_ms": rtiming["split_parent_ms"]},
              "gmm_score_rows_bf16": {"parent_ms": rtiming["bf16_parent_ms"]}}
+    # K3's pass 2 beside cuFFT's packed pair (the whole convolution), and
+    # passes 2 and 3 on wgmma beside the parent's mma.sync kernels, in
+    # turns (phase 2)
+    for suffix, mode in (("", None), ("_tc", "split"), ("_bf16", "bf16")):
+        extra["pfft_rows_combine" + suffix] = {
+            "cufft_pair_ms": ptiming["cufft_pair"]}
+        if mode:
+            extra["pfft_rows_combine" + suffix]["parent_ms"] = ptiming[
+                f"rows_{mode}_parent"]
+            extra["pfft_cols_inv" + suffix] = {
+                "parent_ms": ptiming[f"cols_inv_{mode}_parent"]}
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

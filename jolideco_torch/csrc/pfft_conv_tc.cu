@@ -30,7 +30,11 @@
 // package's (1.3e-2 of the result's max-abs, documented).
 //
 // ---------------------------------------------------------------------
-// Three kernels, one per pass over device memory:
+// Three kernels, one per pass over device memory. Passes 2 and 3 run on
+// pfft_conv_wg.cu's wgmma kernels, which keep the sums over k2 on chip;
+// no wrapper launches this file's pfft_rows_tc_kernel and
+// pfft_cols_inv_tc_kernel any more (pallas_fft._rows_tc_mma and
+// _cols_inv_tc_mma, which chip_smoke.py times beside their successors):
 //
 // pfft_cols_fwd_tc_kernel replaces _k1_body (jolideco_tpu/ops/
 //     pallas_fft.py) under "split": per column, stage A S_k2 = sum_n2
@@ -91,7 +95,8 @@
 //   (133 and 116 KB of shared memory; 171 and 130 registers, no spills):
 //   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
 //   traffic holds it, not the block count); two blocks per SM made pass
-//   3 slower (0.72 ms; python -m jolideco_torch.utils.pfft_tc_variants).
+//   3 slower (0.72 ms; a block-size variant tool, since removed). What
+//   bounds them: scripts/torch_k3_variants.py --source mma.
 // - pass 1 keeps its block's input in registers (244 of them, no spills;
 //   128 KB of shared memory would leave no room for its operand rows)
 //   for images of up to 1024 rows: 0.157 ms at 5 pairs of 1024², where
@@ -105,8 +110,10 @@
 // ms; 17%, 7% and 9% of the split bound. The "bf16" instances: pass 1
 // 0.12 ms, pass 2 1.00 ms, pass 3 0.65 ms: pass 3 is slower with one
 // product than with three, although the SASS of both instances has the
-// same global loads and stores in the same order (cuobjdump); why is not
-// known (PERF.md section 7).
+// same global loads and stores in the same order (cuobjdump): each k2's
+// epilogue loads the sums its previous epilogue just stored, and after a
+// short product those loads wait on the stores still in flight
+// (scripts/torch_k3_variants.py --source mma).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) primitives of the warpgroup kernels (gmm_score_wg.cu):
-// mbarriers, the bulk copy from device memory into shared memory that
-// completes on one, named barriers, setmaxnreg, shared-memory matrix
-// descriptors and the wgmma product with A from registers (its fence,
-// commit and wait; the instruction itself is wg_mma_n200.cuh's). Each is
-// one PTX instruction or a loop around one; the PTX ISA names them.
+// Hopper (sm_90a) primitives of the warpgroup kernels (gmm_score_wg.cu,
+// pfft_conv_wg.cu): mbarriers, the bulk copy from device memory into
+// shared memory that completes on one, the proxy fence, named barriers,
+// setmaxnreg, shared-memory matrix descriptors and the wgmma product
+// with A from registers (its fence, commit and wait; the instruction
+// itself is wg_mma_n200.cuh's). Each is one PTX instruction or a loop
+// around one; the PTX ISA names them.
 
 #pragma once
 
@@ -78,6 +79,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// makes this thread's writes to shared memory visible to the async proxy
+// (a later wgmma reading them through a descriptor)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------- named barriers

@@ -1,0 +1,70 @@
+// The two wgmma shapes of pfft_conv_wg.cu: m64n8k16 and m64n16k16, bf16
+// operands, float32 accumulators, A and B both K-major descriptors of
+// shared memory (no transpose), A scaled by kSignA = +1 or -1 (the
+// instruction's imm-scale-a; exact). Accumulator d[4 j + q] holds row 16
+// warp + lane / 4 + 8 (q / 2), column 8 j + 2 (lane % 4) + q % 2, as
+// wg_mma_n200.cuh's. d points at consecutive registers of an array whose
+// index the caller's unrolled loops fix. Included by pfft_conv_wg.cu
+// after wg_hopper.cuh.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace wg {
+
+// d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n8k16
+template <int kSignA>
+__device__ __forceinline__ void wgmma_ss_n8(float* d, uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  if constexpr (kSignA > 0)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, -1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n16k16
+template <int kSignA>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  if constexpr (kSignA > 0)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, -1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+}  // namespace wg

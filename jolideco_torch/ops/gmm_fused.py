@@ -693,6 +693,9 @@ def _check(t, name, dtype, shape, device):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.is_conj():
+        # a lazy conjugate: its memory holds the unconjugated values
+        raise ValueError(f"{name} is a conjugate view; resolve it first")
 
 
 def _raise_on_error(error_string, code, kernel):

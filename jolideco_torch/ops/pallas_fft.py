@@ -29,8 +29,9 @@ with one contract:
   ``csrc/pfft_conv.cu``: :func:`pfft_cols_fwd_cuda`,
   :func:`pfft_rows_combine_cuda`, :func:`pfft_cols_inv_cuda`. In
   ``"split"`` mode (the default dial's) the three passes run on the
-  tensor cores (``csrc/pfft_conv_tc.cu``): :func:`pfft_cols_fwd_tc_cuda`,
-  :func:`pfft_rows_combine_tc_cuda`, :func:`pfft_cols_inv_tc_cuda`; in
+  tensor cores: :func:`pfft_cols_fwd_tc_cuda` (``csrc/pfft_conv_tc.cu``,
+  ``mma.sync``), :func:`pfft_rows_combine_tc_cuda` and
+  :func:`pfft_cols_inv_tc_cuda` (``csrc/pfft_conv_wg.cu``, ``wgmma``); in
   ``"bf16"`` mode (the ``"default"`` setting's) the same kernels with one
   product a step: :func:`pfft_cols_fwd_bf16_cuda`,
   :func:`pfft_rows_combine_bf16_cuda`, :func:`pfft_cols_inv_bf16_cuda`.
@@ -99,6 +100,7 @@ __all__ = [
     "reset_counters",
     "rows_combine_plain",
     "tensor_core_tables",
+    "wg_stage_tables",
 ]
 
 PFFT_LANE = 128  # stage-B block; transform sizes are multiples of this
@@ -428,10 +430,12 @@ def _check_images(x0, x1, n):
 
 
 def _library(name="pfft_conv"):
-    """``csrc/<name>.cu`` (``pfft_conv`` or ``pfft_conv_tc``) loaded, with
-    its C functions' argument types; the tensor-core entry points take
-    the same arguments as the float32 ones of their pass, and the number
-    of bf16 products a step before the stream."""
+    """``csrc/<name>.cu`` (``pfft_conv``, ``pfft_conv_tc`` or
+    ``pfft_conv_wg``) loaded, with its C functions' argument types; the
+    ``mma.sync`` entry points take the same arguments as the float32 ones
+    of their pass, and the number of bf16 products a step before the
+    stream; the ``wgmma`` ones the tables of :func:`wg_stage_tables` in
+    place of the stage tables."""
     from ..utils.cuda_build import load_library
 
     lib = load_library(name)
@@ -443,6 +447,10 @@ def _library(name="pfft_conv"):
         if name == "pfft_conv":
             signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
                           "pfft_cols_inv": cols_inv}
+        elif name == "pfft_conv_wg":
+            signatures = {
+                "pfft_rows_wg": rows[:9] + [vp] * 5 + [ci, vp],
+                "pfft_cols_inv_wg": cols_inv[:6] + [vp] * 4 + [ci, vp]}
         else:
             # pass 1 also takes the twiddles; each takes the products
             signatures = {
@@ -479,6 +487,35 @@ def tensor_core_tables(m):
     return out
 
 
+WG_CHUNK = 32  # inputs k1 of a stage matrix a pipeline stage (wgmma)
+
+
+def wg_stage_tables(m):
+    """The ``wgmma`` kernels' stage matrices (``csrc/pfft_conv_wg.cu``):
+    bfloat16 ``(2, m, 4, 16384)``, for ``mf[k2]`` then ``mi[k2]``
+    (:func:`_stage_tables`, ``M[k1, b]``), per ``k2`` and per chunk of 32
+    inputs ``k1`` one pipeline stage: the hi then the lo plane, each the
+    real then the imaginary part of ``M^T`` (the products' A operand,
+    ``[b][k1]``), in 8 x 8 core matrices of 16-byte rows, ``[row
+    group][k8 block][row][k]`` (512 bytes between row groups, 128 between
+    k8 blocks). The planes are :func:`bf16_split` of the entries of
+    :func:`interleaved_stage_matrices`, which the plain version takes."""
+    t = _stage_tables(m)
+    out = []
+    for name in ("mf", "mi"):
+        mat = np.swapaxes(t[name], -1, -2)  # [k2][b][k1]
+        parts = torch.stack([torch.as_tensor(mat.real.astype(np.float32)),
+                             torch.as_tensor(mat.imag.astype(np.float32))],
+                            dim=1)  # [k2][part][b][k1]
+        planes = torch.stack(bf16_split(parts), dim=1).to(torch.bfloat16)
+        # [k2][hl][part][8 rg + ri][32 c + 8 kb + ki]
+        # -> [k2][c][hl][part][rg][kb][ri][ki]
+        x = planes.reshape(m, 2, 2, 16, 8, PFFT_LANE // WG_CHUNK, 4, 8)
+        out.append(x.permute(0, 5, 1, 2, 3, 6, 4, 7).reshape(
+            m, PFFT_LANE // WG_CHUNK, -1))
+    return torch.stack(out).contiguous()
+
+
 _DEVICE_TABLES = {}
 
 
@@ -486,7 +523,8 @@ def _device_tables(m, device):
     """The stage tables on ``device``: ``wf``, ``wi``, ``mf``, ``mi`` and
     the twiddles ``tw[k2][n1] = mf[k2][n1, 0]`` (pass 1 on the tensor
     cores) as interleaved complex float32, ``mf_tc``, ``mi_tc`` as
-    :func:`tensor_core_tables` (built once per size and device)."""
+    :func:`tensor_core_tables`, ``wg`` as :func:`wg_stage_tables` (built
+    once per size and device)."""
     key = (m, str(device))
     if key not in _DEVICE_TABLES:
         stage = dict(_stage_tables(m))
@@ -498,6 +536,7 @@ def _device_tables(m, device):
         }
         tables.update({f"{name}_tc": t.to(device)
                        for name, t in tensor_core_tables(m).items()})
+        tables["wg"] = wg_stage_tables(m).to(device)
         _DEVICE_TABLES[key] = tables
     return _DEVICE_TABLES[key]
 
@@ -621,8 +660,9 @@ def pfft_cols_inv_cuda(v1, v2, h):
 
 
 def pfft_rows_combine_tc_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
-    """Launch pass 2 on the tensor cores (``"split"``): same arguments
-    and results as :func:`pfft_rows_combine_cuda`, computed as
+    """Launch pass 2 on the tensor cores (``"split"``,
+    ``csrc/pfft_conv_wg.cu``): same arguments and results as
+    :func:`pfft_rows_combine_cuda`, computed as
     :func:`rows_combine_plain` with ``mode="split"``."""
     out = _rows_tc(u, (a_re, a_im, b2_re, b2_im), conj_spec, "split",
                    "pfft_rows_combine_tc_cuda")
@@ -645,6 +685,22 @@ def _rows_tc(u, planes, conj_spec, mode, name):
     tab = _device_tables(m, device)
     v1 = torch.empty_like(u)
     v2 = torch.empty_like(u)
+    _launch("pfft_rows_wg", "pfft_rows_wg_kernel", device, u.data_ptr(),
+            *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
+            tab["wg"].data_ptr(), tab["wf"].data_ptr(), tab["wi"].data_ptr(),
+            v1.data_ptr(), v2.data_ptr(), TC_PRODUCTS[mode],
+            library="pfft_conv_wg")
+    return v1, v2
+
+
+def _rows_tc_mma(u, planes, conj_spec, mode):
+    """Pass 2 on ``csrc/pfft_conv_tc.cu``'s ``mma.sync`` kernel, which no
+    wrapper launches: ``chip_smoke.py`` times it beside the ``wgmma``
+    kernel that replaced it. Both compute :func:`rows_combine_plain`."""
+    device, p_, n, w, m = _rows_args(u, planes, "_rows_tc_mma")
+    tab = _device_tables(m, device)
+    v1 = torch.empty_like(u)
+    v2 = torch.empty_like(u)
     _launch("pfft_rows_tc", "pfft_rows_tc_kernel", device, u.data_ptr(),
             *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
             tab["mf_tc"].data_ptr(), tab["mi_tc"].data_ptr(),
@@ -654,9 +710,10 @@ def _rows_tc(u, planes, conj_spec, mode, name):
 
 
 def pfft_cols_inv_tc_cuda(v1, v2, h):
-    """Launch pass 3 on the tensor cores (``"split"``): same arguments
-    and results as :func:`pfft_cols_inv_cuda`, computed as
-    :func:`cols_inv_plain` with ``mode="split"``."""
+    """Launch pass 3 on the tensor cores (``"split"``,
+    ``csrc/pfft_conv_wg.cu``): same arguments and results as
+    :func:`pfft_cols_inv_cuda`, computed as :func:`cols_inv_plain`
+    with ``mode="split"``."""
     out = _cols_inv_tc(v1, v2, h, "split", "pfft_cols_inv_tc_cuda")
     pfft_cols_inv_tc_cuda.launches += 1
     return out
@@ -672,6 +729,21 @@ def pfft_cols_inv_bf16_cuda(v1, v2, h):
 
 def _cols_inv_tc(v1, v2, h, mode, name):
     device, p_, n, w, m = _cols_inv_args(v1, v2, h, name)
+    tab = _device_tables(m, device)
+    y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
+    y1 = torch.empty_like(y0)
+    _launch("pfft_cols_inv_wg", "pfft_cols_inv_wg_kernel", device,
+            v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
+            tab["wg"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
+            y1.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_wg")
+    return y0, y1
+
+
+def _cols_inv_tc_mma(v1, v2, h, mode):
+    """Pass 3 on ``csrc/pfft_conv_tc.cu``'s ``mma.sync`` kernel, which no
+    wrapper launches (timed by ``chip_smoke.py`` beside its successor;
+    both compute :func:`cols_inv_plain`)."""
+    device, p_, n, w, m = _cols_inv_args(v1, v2, h, "_cols_inv_tc_mma")
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)

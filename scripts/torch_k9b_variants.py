@@ -6,8 +6,8 @@ threads, ``kMixBlocks`` blocks an SM (``__launch_bounds__``), the
 components in chunks of ``kMixChunk``, ``kMixLoads`` slab entries of a
 thread in flight, and unrolls ``kMixUnroll`` four-column steps of a
 product. This script builds copies of the source with other
-values (``build/kernels/variants/``; nothing of the package changes),
-one ``nvcc`` each, all at once, loads each with the wrapper's ``ctypes``
+values (``build/kernels/variants/``, ``kernel_variants.py``; nothing of
+the package changes), one ``nvcc`` each, all at once, loads each with the wrapper's ``ctypes``
 signature and, on the cases of ``scripts/torch_k9b_times.py`` (made
 there, or here if ``--cases`` does not exist yet), checks that each
 variant gives the bits of the package's kernel and times them in turns
@@ -32,6 +32,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch_k9b_times as times  # noqa: E402  (this script's directory)
+import kernel_variants as kv  # noqa: E402
 
 # name -> (kMixTile, kMixBlocks, kMixThreads, kMixChunk, kMixLoads,
 # kMixUnroll)
@@ -60,23 +61,12 @@ def variant_source(text, values):
 def build(names, summary):
     from jolideco_torch.utils import cuda_build as cb
 
-    out = cb.BUILD_DIR / "variants"
-    out.mkdir(parents=True, exist_ok=True)
-    text = (cb.CSRC_DIR / "gmm_patch.cu").read_text()
-    procs = {}
-    for name in names:
-        src = out / f"k9b_{name}.cu"
-        src.write_text(variant_source(text, VARIANTS[name]))
-        procs[name] = subprocess.Popen(
-            [cb._nvcc(), *cb.NVCC_FLAGS, f"-I{cb.CSRC_DIR}", "-o",
-             str(out / f"libk9b_{name}.so"), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    text = kv.patched_source("gmm_patch")
+    built = kv.build({f"k9b_{name}": variant_source(text, VARIANTS[name])
+                      for name in names}, cb.BUILD_DIR / "variants")
     libs, ptxas = {}, {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{err}")
-        lib = ctypes.CDLL(str(out / f"libk9b_{name}.so"))
+    for name in names:
+        lib, err = built[f"k9b_{name}"]
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gmm_hvp_marg_mix.argtypes = [vp] * 6 + [ci, ci, vp, vp]
         lib.gmm_hvp_marg_mix.restype = ci

@@ -3,7 +3,8 @@
 
 Each variant is the source with a few lines replaced (``VARIANTS``),
 built by ``nvcc`` like the package's libraries (all at once, into
-``build/wg_variants/``) and loaded with ``ctypes``; each runs K5's entry
+``build/wg_variants/``, ``kernel_variants.py``) and loaded with
+``ctypes``; each runs K5's entry
 point (``gmm_score_wg_rows``) on the rows of ``chip_smoke.py`` phase 2's
 random 1024² image (65,025 rows) under ``astro-snr-v1`` (K = 200), in
 both modes, ``--reps`` calls after one (CUDA events):
@@ -32,8 +33,9 @@ from pathlib import Path
 
 import numpy as np
 
+import kernel_variants as kv  # this script's directory
+
 ROOT = Path(__file__).resolve().parents[1]
-CSRC = ROOT / "jolideco_torch" / "csrc"
 OUT = ROOT / "build" / "wg_variants"
 
 TURN_WAIT = ("  __device__ __forceinline__ void wait() const "
@@ -62,39 +64,14 @@ VARIANTS = {
 }
 
 
-def source(patches):
-    """The kernel's source with its local headers inlined, patched."""
-    text = (CSRC / "gmm_score_wg.cu").read_text()
-    hopper = (CSRC / "wg_hopper.cuh").read_text().replace(
-        '#include "wg_mma_n200.cuh"', (CSRC / "wg_mma_n200.cuh").read_text())
-    text = text.replace('#include "wg_hopper.cuh"', hopper)
-    for old, new in patches:
-        if old not in text:
-            raise ValueError(f"variant text not found: {old[:60]!r}")
-        text = text.replace(old, new)
-    return text
-
-
 def build(names):
-    from jolideco_torch.utils.cuda_build import NVCC_FLAGS, _nvcc
-
-    procs = {}
-    for name in names:
-        folder = OUT / name
-        folder.mkdir(parents=True, exist_ok=True)
-        (folder / "k.cu").write_text(source(VARIANTS[name]))
-        procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-             str(folder / "k.so"), str(folder / "k.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    """The variants ``names`` built and loaded, and their spill lines."""
+    built = kv.build({name: kv.patched_source("gmm_score_wg", VARIANTS[name])
+                      for name in names}, OUT)
     libs, spills = {}, {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
+    for name, (lib, err) in built.items():
         spills[name] = [line.strip() for line in err.splitlines()
                         if "spill" in line]
-        lib = ctypes.CDLL(str(OUT / name / "k.so"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
                                           vp]

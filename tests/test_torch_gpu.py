@@ -50,8 +50,16 @@ on the warpgroup instructions (``csrc/gmm_score_wg.cu``, K1 and K5 in
 both modes) are also held to ``chip_smoke.py`` phase 2's bars at the
 main path's 1024², on a ragged 1000 x 904 image with sentinels and there
 under 256 components, and two launches on the same inputs must give
-the same bits.
+the same bits. Passes 2 and 3 of K3 on the warpgroup instructions
+(``csrc/pfft_conv_wg.cu``) are also held at every strip count and round
+count (m from 1 to 37), both directions, bitwise repeatable, and the
+default dial's Hessian action along ones on the card against the JAX
+package's, recorded in ``tests/data/pfft_split_hvp_jax.npy``, with the
+CPU test's bar (``tests/test_torch_pfft_split.py``: twice split's
+documented 3.1e-5 of the max-abs).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1148,6 +1156,110 @@ def test_pfft_bf16_kernels_match_float64(device, p_, h, w, conj_spec):
                                       conj_spec, f64)):
         chip_smoke.bf16_anchored("card test", "pipeline bf16", got, want32,
                                  want64, chip_smoke.PFFT_BF16_SHARE)
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("p_,w,m", [(2, 128, 1), (5, 1024, 9),
+                                    (1, 512, 12), (1, 2048, 17),
+                                    (1, 256, 20), (1, 128, 37)])
+def test_pfft_wg_kernels_take_every_m(device, mode, p_, w, m):
+    """Passes 2 and 3 on ``wgmma`` in one round of k2 (m <= 9) and in
+    several (the later rounds add to the sums the first stored), on
+    random U and spectra, both directions, against the plain version of
+    the mode (``split_anchored`` or ``chip_smoke.bf16_anchored``) and
+    float64; each twice, bitwise equal (no atomics)."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    import chip_smoke
+
+    n = 128 * m
+    gen = torch.Generator(device=device).manual_seed(m)
+    u = torch.randn((p_, n, w), generator=gen, device=device,
+                    dtype=torch.complex64)
+    spectra = [torch.randn((p_, n, n), generator=gen, device=device)
+               for _ in range(4)]
+    rows, cols = pf.PASSES[mode][1:]
+    c128, f64 = torch.complex128, torch.float64
+
+    def anchored(name, got, want32, want64):
+        if mode == "split":
+            split_anchored(got, want32, want64)
+        else:
+            chip_smoke.bf16_anchored("card test", name, got, want32, want64)
+
+    for conj_spec in (False, True):
+        v = rows(u, *spectra, conj_spec)
+        assert all(torch.equal(a, b) for a, b in zip(
+            v, rows(u, *spectra, conj_spec)))
+        for got, want32, want64 in zip(
+                v, pf.rows_combine_plain(u, *spectra, conj_spec, mode=mode),
+                pf.rows_combine_plain(u.to(c128), *spectra, conj_spec, f64)):
+            anchored("rows", got, want32, want64)
+    h = min(w, n)
+    y = cols(*v, h)
+    assert all(torch.equal(a, b) for a, b in zip(y, cols(*v, h)))
+    for got, want32, want64 in zip(
+            y, pf.cols_inv_plain(*v, h, mode=mode),
+            pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)):
+        anchored("cols_inv", got, want32, want64)
+
+
+PFFT_HVP_JAX = Path(__file__).resolve().parent / "data" / \
+    "pfft_split_hvp_jax.npy"
+
+
+def pfft_hvp_case():
+    """The inputs of ``tests/test_torch_pfft_split.py``'s
+    ``test_split_second_derivative_matches_jax``: one pair of 128²
+    images, 9² kernels (n = 256), and the loss's weights ``c``."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    rng = np.random.default_rng(4)
+    x0 = rng.standard_normal((1, 128, 128)).astype(np.float32)
+    x1 = rng.standard_normal((1, 128, 128)).astype(np.float32)
+    n = pf.pfft_size(128 + 9 - 1)
+    planes = pf.pfft_pair_spectra(rng.random((9, 9)), rng.random((9, 9)),
+                                  (128, 128), n)
+    spectra = [p[None] for p in planes]
+    c = np.random.default_rng(5).random((1, 128, 128)).astype(np.float32)
+    return x0, x1, n, spectra, c
+
+
+def pfft_hvp_port(device):
+    """The port's ``"split"`` Hessian action along ones of
+    ``mean(c sin y0) + mean(y1^2)`` (reverse over reverse) on
+    ``device``: the kernels on a card, the plain version on the CPU."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    x0, x1, n, spectra, c = pfft_hvp_case()
+    x = torch.as_tensor(x0, device=device).requires_grad_(True)
+    y0, y1 = pf.conv_packed_pfft(
+        x, torch.as_tensor(x1, device=device),
+        *(torch.as_tensor(s, device=device) for s in spectra), n,
+        mode="split")
+    c = torch.as_tensor(c, device=device)
+    loss = (c * torch.sin(y0)).mean() + (y1 * y1).mean()
+    (grad,) = torch.autograd.grad(loss, x, create_graph=True)
+    (hvp,) = torch.autograd.grad(grad, x, grad_outputs=torch.ones_like(x))
+    return hvp.detach().cpu().numpy()
+
+
+def test_pfft_split_hessian_action_against_jax(device):
+    """The Hessian action of the pfft probe's default dial on the card
+    (passes 2 and 3 on ``wgmma``, four launches each) against the JAX
+    package's on the same inputs, recorded (``tests/test_torch_pfft_wg.py``
+    holds the record to the JAX package), with the CPU test's bar: twice
+    split's documented error, 3.1e-5 of the max-abs."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    recorded = np.load(PFFT_HVP_JAX)
+    pf.reset_counters()
+    got = pfft_hvp_port(device)
+    assert pf.pfft_rows_combine_tc_cuda.launches == 4
+    assert pf.pfft_cols_inv_tc_cuda.launches == 4
+    assert pf.conv_packed_pfft_plain.calls == 0
+    bar = 2 * 3.1e-5 * float(np.abs(recorded).max())
+    np.testing.assert_allclose(got, recorded, rtol=0, atol=bar)
 
 
 def test_pfft_path_on_card_matches_cpu(device):

@@ -25,11 +25,11 @@ The libraries it emulates are :data:`EMULATED`. The others are
 :data:`CARD_ONLY`: ``pfft_conv_tc`` and ``gmm_fused_tc`` are built from
 warp-level tensor-core instructions (``mma.sync``, ``ldmatrix``,
 ``cp.async``) and bf16 types whose operands are spread over the 32
-threads of a warp, and ``gmm_score_wg`` from warpgroup ones (``wgmma``,
-whose operands are spread over the 128 threads of four warps, bulk
-copies completing on ``mbarrier``\ s, a cluster of two blocks and
-``setmaxnreg``), so a block of one thread cannot run them; the card
-holds them instead
+threads of a warp, and ``gmm_score_wg`` and ``pfft_conv_wg`` from
+warpgroup ones (``wgmma``, whose operands are spread over the 128
+threads of four warps, bulk copies completing on ``mbarrier``\ s, named
+barriers and ``setmaxnreg``), so a block of one thread cannot run them;
+the card holds them instead
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
 their plain version (``mode="split"``) is held against the JAX package.
 
@@ -129,7 +129,8 @@ def emulated_source(source):
 
 # the libraries this file compiles for the CPU, and those it cannot
 EMULATED = ("gmm_fused", "gmm_patch", "pfft_conv")
-CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_tc")
+CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_tc",
+             "pfft_conv_wg")
 
 
 def test_every_library_is_emulated_or_card_only():
