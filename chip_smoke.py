@@ -13,12 +13,14 @@ Phases, each printing one or more lines:
    compiler per source, all at once (the fused scorer, its forwards and
    marginalise backward on the tensor cores, the MAP scorers on the
    warpgroup instructions, the patch-level scorer, the matrix-DFT
-   convolution in float32, its pass 1 on the tensor cores and its
-   passes 2 and 3 on the warpgroup instructions),
+   convolution's pass 2 in float32, its pass 1 on the tensor cores
+   (``mma.sync``) and its passes on the warpgroup instructions: 2 and 3
+   of the ``"split"`` and ``"bf16"`` modes, 1 and 3 of ``"f32"``),
    each kernel's registers, spills and shared memory as ``ptxas``
    reports them, and the count of ``HGMMA`` instructions in the MAP
-   scorers' and K3's passes 2 and 3's machine code (``cuobjdump -sass``;
-   neither may be 0);
+   scorers' and K3's warpgroup kernels' machine code (``cuobjdump
+   -sass``; neither may be 0), also in each of the float32 passes 1 and
+   3, which must spill nothing;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
@@ -42,11 +44,11 @@ Phases, each printing one or more lines:
    float64, beside cuFFT's packed pair (the yardstick, timed with the
    per-observation ``rfft2`` of the same 10 images; pass 1 also beside
    the one ``torch.fft.fft`` that computes its function, pass 3 beside
-   the one ``torch.fft.ifft`` that computes its); the same for the
-   tensor-core kernels of the three passes and the ``"split"`` pipeline,
-   held to the split plain version's error and to 1e-4 of the max-abs,
-   passes 2 and 3 (on ``wgmma``) timed beside the parent's ``mma.sync``
-   kernels on the same inputs, in turns; K2, K6 and K7 twice on the same inputs, bitwise equal;
+   the one ``torch.fft.ifft`` that computes its, each with its float32
+   and its six-product bound); the same for the tensor-core kernels of
+   the three passes and the ``"split"`` pipeline, held to the split
+   plain version's error and to 1e-4 of the max-abs; K2, K6 and K7
+   twice on the same inputs, bitwise equal;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
@@ -80,7 +82,8 @@ Phases, each printing one or more lines:
    path;
 6. the matrix-DFT path: phase 3 again with ``conv_mode="pfft"`` under
    the default dial (``"split"``: the three passes on the tensor cores)
-   and under ``"highest"`` (``"f32"``: the three float32 kernels), each
+   and under ``"highest"`` (``"f32"``: the float32 kernels, passes 1
+   and 3 on ``wgmma``), each
    with its own exact counts; phase 4 again
    under the default dial (in the probe, the adjoint's adjoint too);
    flux and errors held against phases 3 and 4; then a small run's flux
@@ -440,6 +443,8 @@ def device_ms(torch, fn, reps, *kernels):
     return us / 1e3
 
 
+# K3's float32 passes 1 and 3 on the warpgroup instructions
+F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_cols_inv_f32_kernel")
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
 # K9b's kernel, by the name the profiler gives it
@@ -482,17 +487,40 @@ def phase_build():
         print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
               f"{warnings or 'none'}")
         check(hgmma > 0, f"{name} has no HGMMA instruction")
+    # K3's float32 passes 1 and 3: wgmma each, no spills, no warning, and
+    # no wait that ptxas had to inject between products (its C7517)
+    info = BUILD_INFO["pfft_conv_wg"]
+    check(not any("warning" in line or "C7517" in line
+                  for line in info["ptxas"].splitlines()),
+          "ptxas warned on pfft_conv_wg or injected a wgmma wait")
+    summary = ptxas_summary(info["ptxas"])
+    for kernel in F32_KERNELS:
+        hgmma = sass_count(info["path"], "HGMMA", kernel)
+        spills = [line for line in summary if line.startswith(kernel + ":")
+                  and "spill" in line]
+        print(f"phase 1 sass: {kernel} HGMMA {hgmma}; {'; '.join(spills)}")
+        check(hgmma > 0, f"{kernel} has no HGMMA instruction")
+        check(spills and all(re.search(r"\b0 bytes spill stores, 0 bytes "
+                                       r"spill loads", line)
+                             for line in spills), f"{kernel} spills")
 
 
-def sass_count(path, opcode):
+def sass_count(path, opcode, kernel=None):
     """Instructions of ``opcode`` in a library's machine code
-    (``cuobjdump -sass``)."""
+    (``cuobjdump -sass``), or in its functions whose (mangled) names hold
+    ``kernel``."""
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     tool = shutil.which("cuobjdump") or str(Path(cuda_home) / "bin" /
                                             "cuobjdump")
     sass = subprocess.run([tool, "-sass", path], capture_output=True,
                           text=True, check=True).stdout
-    return sum(f" {opcode}" in line for line in sass.splitlines())
+    count, inside = 0, kernel is None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel is None or kernel in line
+        elif inside and f" {opcode}" in line:
+            count += 1
+    return count
 
 
 def ptxas_summary(text):
@@ -2195,9 +2223,10 @@ def worst(errs):
 def pfft_checks(torch, device, label, shape, seed):
     """K3's kernels, and the pipeline in each mode, against the plain
     version in float64 on one batch, forward and adjoint; cuFFT's packed
-    pair beside them. The float32 kernels are held to the float32 plain
-    version's error, the tensor-core kernels of ``"split"`` to the split
-    plain version's. Returns the errors (kernel, float32 plain, max-abs)
+    pair beside them. The float32 kernels (passes 1 and 3 on ``wgmma``,
+    six bf16 products of three-way splits a step) are held to the float32
+    plain version's error, the tensor-core kernels of ``"split"`` to the
+    split plain version's. Returns the errors (kernel, float32 plain, max-abs)
     and the inputs."""
     from jolideco_torch.ops import pallas_fft as pf
     from jolideco_torch.ops.fft import (
@@ -2346,7 +2375,13 @@ def pfft_bounds(p_, h, w, n):
     The ``"split"`` rows (``*_split``) count the same operations three
     times (three bf16 products each) at the bf16 tensor-core peak, and
     the same bytes, the stage tables as their bf16 hi and lo planes;
-    the three passes make their pipeline's. The operations are
+    the three passes make their pipeline's. ``cols_fwd`` and
+    ``cols_inv`` count passes 1 and 3 six times at the bf16 peak, as the
+    float32 kernels compute them (six bf16 products of three-way splits
+    on the tensor cores); ``cols_fwd_fp32`` and ``cols_inv_fp32`` are the
+    float32 CUDA cores' bound of the same work, and ``pipeline`` takes
+    passes 1 and 3 at the first and pass 2 at the float32 peak. The
+    operations are
     counted as the TPU kernel does them, not as the kernels do (4 real
     products per complex one), so that the yardstick does not move with
     the design."""
@@ -2360,8 +2395,15 @@ def pfft_bounds(p_, h, w, n):
               + 2 * tables,
               "cols_inv": 16 * p_ * n * w + 8 * p_ * h * w + tables}
     out = {name: bound(flop[name], nbytes[name]) for name in flop}
-    out["pipeline"] = bound(sum(flop.values()),
-                            16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
+    for name in ("cols_fwd", "cols_inv"):
+        out[name + "_fp32"] = out[name]
+        out[name] = bound(6 * flop[name], nbytes[name], PEAK_BF16_FLOPS)
+    # pass 2's operations at the float32 peak, passes 1 and 3's at the
+    # bf16 one (six products each), as float32 operations at that peak
+    out["pipeline"] = bound(
+        flop["rows"] + 6 * (flop["cols_fwd"] + flop["cols_inv"])
+        * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS,
+        16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
     for name in ("cols_fwd", "rows", "cols_inv"):
         out[name + "_split"] = bound(3 * flop[name], nbytes[name],
                                      PEAK_BF16_FLOPS)
@@ -2428,19 +2470,11 @@ def pfft_timing(torch, s):
         # conj V2 and V1 - conj V2 (in natural, not permuted, row order)
         "torch_ifft_cols": lambda: torch.fft.ifft(vpm, dim=-2),
     }
-    timing = {name: cuda_ms(torch, fn, 10) for name, fn in calls.items()}
-    # passes 2 and 3 on wgmma beside the parent's mma.sync kernels on the
-    # same inputs, in turns (parent, new, new, parent)
     for mode, vm in (("split", vt), ("bf16", vb)):
         rows, cols = pf.PASSES[mode][1:]
-        for key, parent, new in (
-                ("rows", lambda: pf._rows_tc_mma(u, planes, False, mode),
-                 lambda: rows(u, *planes)),
-                ("cols_inv", lambda: pf._cols_inv_tc_mma(*vm, h, mode),
-                 lambda: cols(*vm, h))):
-            name = f"{key}_{mode}"
-            timing[name], timing[name + "_parent"], timing[
-                name + "_turns"] = in_turns(torch, parent, new)
+        calls[f"rows_{mode}"] = lambda rows=rows: rows(u, *planes)
+        calls[f"cols_inv_{mode}"] = lambda cols=cols, vm=vm: cols(*vm, h)
+    timing = {name: cuda_ms(torch, fn, 10) for name, fn in calls.items()}
     plain = {
         "cols_fwd": lambda: pf.cols_fwd_plain(x0, x1, n),
         "rows": lambda: pf.rows_combine_plain(u, *planes),
@@ -2488,14 +2522,17 @@ def phase_pfft_kernels(torch, device):
           + f"; adjoint {tm['pipeline_adjoint']:.3f} ms; cuFFT packed pair "
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
-          f"{tm['cufft_rfft2']:.3f} ms; pass 1 as one torch.fft.fft "
-          f"{tm['torch_fft_cols']:.3f} ms, pass 3 as one torch.fft.ifft "
-          f"{tm['torch_ifft_cols']:.3f} ms; passes 2 and 3 on wgmma beside "
-          "the parent's mma.sync kernels in turns: "
-          + "; ".join(f"{name} {tm[name]:.3f} ms (parent "
-                      f"{tm[name + '_parent']:.3f})"
-                      for name in ("rows_split", "cols_inv_split",
-                                   "rows_bf16", "cols_inv_bf16")))
+          f"{tm['cufft_rfft2']:.3f} ms")
+    # the float32 passes 1 and 3 on wgmma beside the one torch.fft call
+    # that computes each function, with both bounds and both shares
+    print(f"phase 2 timing K3 f32 on wgmma {MAIN}: " + "; ".join(
+        f"{name} {tm[name]:.3f} ms against one torch.fft.{call} "
+        f"{tm['torch_' + call + '_cols']:.3f} ms; bound (six bf16 "
+        f"products) {bd[name]['bound_ms']:.4f} ms "
+        f"({bd[name]['bound_ms'] / tm[name]:.1%}), float32 CUDA-core "
+        f"bound {bd[name + '_fp32']['bound_ms']:.4f} ms "
+        f"({bd[name + '_fp32']['bound_ms'] / tm[name]:.1%})"
+        for name, call in (("cols_fwd", "fft"), ("cols_inv", "ifft"))))
     return out
 
 
@@ -3103,8 +3140,8 @@ def phase_pfft(torch, device, slice_, errors_fft):
     probe the forward, the adjoint, then the adjoint's adjoint and the
     adjoint again. Training runs twice: under the default dial
     (``"high"``, the ``"split"`` mode: the three passes on the tensor
-    cores) and under ``"highest"`` (``"f32"``:
-    the three float32 kernels). The probe and the small run, card
+    cores) and under ``"highest"`` (``"f32"``: the float32 kernels,
+    passes 1 and 3 on ``wgmma``). The probe and the small run, card
     against the CPU's plain path, run under the default dial."""
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
@@ -5464,18 +5501,21 @@ def main():
     # and two inverse ones) no one call (null; cufft_pair_ms: cuFFT's
     # packed pair, the whole convolution that the passes compute
     # together). The float32 kernels' launches are those of the
-    # "highest" run, the tensor-core kernels' (and the split bound)
-    # those of the default dial's "split" run.
+    # "highest" run (passes 1 and 3 on wgmma, their bound that of six
+    # bf16 products, the float32 CUDA cores' beside it as
+    # bound_fp32_ms), the
+    # tensor-core kernels' (and the split bound) those of the default
+    # dial's "split" run.
     pfft_src = "jolideco_torch/csrc/pfft_conv.cu"
     tc_src = "jolideco_torch/csrc/pfft_conv_tc.cu"
     wg_pfft_src = "jolideco_torch/csrc/pfft_conv_wg.cu"
     for name, source, key, line, err, path in (
-            ("pfft_cols_fwd", pfft_src, "cols_fwd", 379,
+            ("pfft_cols_fwd", wg_pfft_src, "cols_fwd", 379,
              pmain["cols_fwd"][0], pfft_train["highest"]),
             ("pfft_rows_combine", pfft_src, "rows", 398,
              max(pmain["rows_forward"][0], pmain["rows_adjoint"][0]),
              pfft_train["highest"]),
-            ("pfft_cols_inv", pfft_src, "cols_inv", 460,
+            ("pfft_cols_inv", wg_pfft_src, "cols_inv", 460,
              max(pmain["cols_inv_forward"][0],
                  pmain["cols_inv_adjoint"][0]), pfft_train["highest"]),
             ("pfft_cols_fwd_tc", tc_src, "cols_fwd_split", 379,
@@ -5642,16 +5682,14 @@ def main():
              "gmm_score_rows_tc": {"parent_ms": rtiming["split_parent_ms"]},
              "gmm_score_rows_bf16": {"parent_ms": rtiming["bf16_parent_ms"]}}
     # K3's pass 2 beside cuFFT's packed pair (the whole convolution), and
-    # passes 2 and 3 on wgmma beside the parent's mma.sync kernels, in
-    # turns (phase 2)
-    for suffix, mode in (("", None), ("_tc", "split"), ("_bf16", "bf16")):
+    # the float32 passes 1 and 3 with their float32 CUDA-core bound
+    # (phase 2)
+    for suffix in ("", "_tc", "_bf16"):
         extra["pfft_rows_combine" + suffix] = {
             "cufft_pair_ms": ptiming["cufft_pair"]}
-        if mode:
-            extra["pfft_rows_combine" + suffix]["parent_ms"] = ptiming[
-                f"rows_{mode}_parent"]
-            extra["pfft_cols_inv" + suffix] = {
-                "parent_ms": ptiming[f"cols_inv_{mode}_parent"]}
+    for name in ("cols_fwd", "cols_inv"):
+        extra["pfft_" + name] = {
+            "bound_fp32_ms": pbound[name + "_fp32"]["bound_ms"]}
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

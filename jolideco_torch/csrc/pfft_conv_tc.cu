@@ -1,12 +1,13 @@
-// The three passes of the pair-packed matrix-DFT convolution on Hopper's
-// tensor cores (sm_90a), in the precision dial's "split" and "bf16"
-// modes. Built by nvcc into a shared library with a plain C interface
-// and loaded with ctypes (jolideco_torch/utils/cuda_build.py); the
-// wrappers, the dispatch by mode and the plain PyTorch version
-// (mode="split", mode="bf16") are in jolideco_torch/ops/pallas_fft.py.
-// The "f32" mode is the float32 kernels of pfft_conv.cu, whose header
-// states the algorithm. Every kernel is a template over kProd, the bf16
-// products a k16 step: 3 for "split", 1 for "bf16".
+// Pass 1 of the pair-packed matrix-DFT convolution on Hopper's tensor
+// cores (sm_90a), in the precision dial's "split" and "bf16" modes. Built
+// by nvcc into a shared library with a plain C interface and loaded with
+// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers, the
+// dispatch by mode and the plain PyTorch version (mode="split",
+// mode="bf16") are in jolideco_torch/ops/pallas_fft.py, whose docstring
+// and pfft_conv.cu's header state the algorithm. Passes 2 and 3 of these
+// modes, and passes 1 and 3 of the "f32" mode, run on pfft_conv_wg.cu's
+// wgmma kernels. The kernel is a template over kProd, the bf16 products
+// a k16 step: 3 for "split", 1 for "bf16".
 //
 // "split" is the JAX package's _dot in split mode: both operands of each
 // stage-B product split into bf16 high and low parts (hi = bf16(x), lo =
@@ -16,8 +17,8 @@
 // row as it lies in memory, (re, im, re, im, ...), with the interleaved
 // real form R (256 x 256) of M: R[2k][2j] = Re M, R[2k][2j+1] = Im M,
 // R[2k+1][2j] = -Im M, R[2k+1][2j+1] = Re M. Then each accumulator pair
-// (c0, c1) of an m16n8k16 mma is one complex output, and the epilogues
-// work on whole complex values. That is 4 real products per complex one
+// (c0, c1) of an m16n8k16 mma is one complex output, and the epilogue
+// works on whole complex values. That is 4 real products per complex one
 // where the TPU uses Karatsuba's 3; it rounds no re + im sums.
 //
 // "bf16" is the JAX package's _dot in bf16 mode (the dial's "default"):
@@ -30,90 +31,49 @@
 // package's (1.3e-2 of the result's max-abs, documented).
 //
 // ---------------------------------------------------------------------
-// Three kernels, one per pass over device memory. Passes 2 and 3 run on
-// pfft_conv_wg.cu's wgmma kernels, which keep the sums over k2 on chip;
-// no wrapper launches this file's pfft_rows_tc_kernel and
-// pfft_cols_inv_tc_kernel any more (pallas_fft._rows_tc_mma and
-// _cols_inv_tc_mma, which chip_smoke.py times beside their successors):
-//
 // pfft_cols_fwd_tc_kernel replaces _k1_body (jolideco_tpu/ops/
-//     pallas_fft.py) under "split": per column, stage A S_k2 = sum_n2
-//     wf[n2][k2] z[128 n2 + ., c] (z = x0 + i x1) in float32, then U[128
-//     k2 : 128 (k2 + 1), c] = mf[k2]^T S_k2, run from the right as in
-//     pass 3: the columns of S_k2 are the operand rows. Since mf[k2] is
-//     the 128-point DFT F = mf[0] after the twiddle Wn^(n1 k2) on its
-//     rows, stage A ends with that twiddle and every k2 multiplies R(F):
-//     three k2 share each streamed tile. One block per (pair, 16
-//     columns), a loop over the k2 inside; the block's columns of x0 and
-//     x1 are read from device memory once, into registers.
-// pfft_rows_tc_kernel replaces _k2_body (jolideco_tpu/ops/pallas_fft.py)
-//     under "split": per row of U, the lane forward Z = S . mf[k2] (stage
-//     A, S = sum_n2 wf U, folded into the operand load), the combine A . Z
-//     and conj(B2) . Z in that product's epilogue, then both rows times
-//     mi[k2] in one product of twice the rows, whose epilogue adds w G
-//     into V1 and conj(w G) into V2 for the output blocks a < W / 128.
-//     One block per (pair, 16 rows), a loop over k2 inside; V1 and V2 are
-//     read, added to and written once per k2 by the thread that owns each
-//     element, as in pfft_rows_kernel.
-// pfft_cols_inv_tc_kernel replaces _k3_body under "split": per column,
-//     y0 = Re(sum_k2 w_a,k2 mi[k2]^T (V1 + conj V2)) and y1 = Im(sum_k2
-//     w_a,k2 mi[k2]^T (V1 - conj V2)). The product from the left is run
-//     from the right: the columns of V1 +- conj V2 are loaded as operand
-//     rows (transposed into shared memory), times the same R(mi[k2]). One
-//     block per (pair, 16 columns), a loop over k2 inside.
+//     pallas_fft.py) under "split" and "bf16": per column, stage A S_k2 =
+//     sum_n2 wf[n2][k2] z[128 n2 + ., c] (z = x0 + i x1) in float32, then
+//     U[128 k2 : 128 (k2 + 1), c] = mf[k2]^T S_k2, run from the right:
+//     the columns of S_k2 are the operand rows. Since mf[k2] is the
+//     128-point DFT F = mf[0] after the twiddle Wn^(n1 k2) on its rows,
+//     stage A ends with that twiddle and every k2 multiplies R(F): three
+//     k2 share each streamed tile. One block per (pair, 16 columns), a
+//     loop over the k2 inside; the block's columns of x0 and x1 are read
+//     from device memory once, into registers.
 //
-// What bounds them on the H100: bytes. Counted as the TPU kernel counts
+// What bounds it on the H100: bytes. Counted as the TPU kernel counts
 // its work (3 real products per complex one, 3 bf16 products each), pass
 // 1 at 5 pairs of 1024^2, n = 1152 is 13.6 GFLOP (0.014 ms at 989
-// TFLOP/s bf16) against 90 MB of traffic (0.027 ms at 3.35 TB/s); pass
-// 2 46 GFLOP against 250 MB (0.075 ms); pass 3 27 GFLOP against 137.5
-// MB (0.041 ms). The design:
+// TFLOP/s bf16) against 90 MB of traffic (0.027 ms at 3.35 TB/s). The
+// design:
 // - the products run as warp-level mma.sync m16n8k16 (bf16 in, float32
 //   accumulate), 8 warps of a block each owning 32 of R's 256 columns;
 // - R is streamed in tiles of 32 of its rows (hi and lo, 32 KB) through
-//   two shared-memory stages with cp.async, the next tile (of the same
-//   product, of the next product or of the next k2) loading while the
-//   current one is multiplied; the tables are stored on the device tile
-//   by tile (pallas_fft.tensor_core_tables), so a stage is one contiguous
-//   copy, and transposed ([n][k]), the mma's column-major B;
-// - the operand is split once, as it is formed (stage A of pass 1 or 2,
-//   the combine, or V1 +- conj V2), into bf16 hi and lo planes in shared memory, from the
-//   same float32 values that the plain version splits;
+//   two shared-memory stages with cp.async, the next tile loading while
+//   the current one is multiplied; the tables are stored on the device
+//   tile by tile (pallas_fft.tensor_core_tables), so a stage is one
+//   contiguous copy, and transposed ([n][k]), the mma's column-major B;
+// - the operand is split once, as it is formed by stage A, into bf16 hi
+//   and lo planes in shared memory, from the same float32 values that
+//   the plain version splits;
 // - fragments come from shared memory with ldmatrix; rows are padded
 //   (264 and 40 bf16) so that its eight 16-byte rows fall on distinct
 //   banks;
-// - the spectra, V1/V2 and y are read and written on the CUDA cores in
-//   float32, as in the float32 kernels: that read-add-write per k2 (and
-//   the re-read of U per k2), about 2 GB a call in pass 2, is what stays
-//   between these kernels and their bound;
-// - each epilogue's read-add-writes are batched: per output block a, a
-//   thread loads all the elements it owns, then stores them. One by one
-//   (each load waiting for the store before it) the passes took 1.60 and
-//   1.62 ms, batched 1.17 and 0.53 (32 rows or columns a block;
-//   chip_smoke.py);
-// - 16 rows (pass 2) or 16 columns (pass 3) per block, one block per SM
-//   (133 and 116 KB of shared memory; 171 and 130 registers, no spills):
-//   against 32, pass 3 is about 8% faster and pass 2 about 3% (its
-//   traffic holds it, not the block count); two blocks per SM made pass
-//   3 slower (0.72 ms; a block-size variant tool, since removed). What
-//   bounds them: scripts/torch_k3_variants.py --source mma.
-// - pass 1 keeps its block's input in registers (244 of them, no spills;
-//   128 KB of shared memory would leave no room for its operand rows)
-//   for images of up to 1024 rows: 0.157 ms at 5 pairs of 1024², where
-//   the variant that re-reads it from L2 per k2 (taller images) takes
-//   0.196 (scripts/torch_k2_pass1_times.py).
-//   With R(mf[k2]) streamed for each k2, every block of 16 columns read
+// - the block keeps its input in registers (244 of them, no spills; 128
+//   KB of shared memory would leave no room for its operand rows) for
+//   images of up to 1024 rows: 0.157 ms at 5 pairs of 1024², where the
+//   variant that re-reads it from L2 per k2 (taller images) takes 0.196
+//   (scripts/torch_k2_pass1_times.py);
+// - with R(mf[k2]) streamed for each k2, every block of 16 columns read
 //   2.4 MB of tables from L2, 755 MB a call, and took 0.28 ms; one R(F)
 //   for three k2 at a time reads a third of that.
 // On an NVIDIA H100 80GB HBM3 (700 W limit), 5 pairs of 1024^2, n = 1152
-// (chip_smoke.py phase 2): pass 1 0.16 ms, pass 2 1.13 ms, pass 3 0.48
-// ms; 17%, 7% and 9% of the split bound. The "bf16" instances: pass 1
-// 0.12 ms, pass 2 1.00 ms, pass 3 0.65 ms: pass 3 is slower with one
-// product than with three, although the SASS of both instances has the
-// same global loads and stores in the same order (cuobjdump): each k2's
-// epilogue loads the sums its previous epilogue just stored, and after a
-// short product those loads wait on the stores still in flight
-// (scripts/torch_k3_variants.py --source mma).
+// (chip_smoke.py phase 2): 0.16 ms, 17% of the split bound; the "bf16"
+// instance 0.12 ms.
+//
+// The mma.sync kernels of passes 2 and 3 lived here until the wgmma ones
+// replaced them; their times stay in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,22 +89,14 @@ constexpr int kLane = 128;                  // stage-B block
 constexpr int kK = 2 * kLane;               // R is kK x kK
 constexpr int kThreads = 256;               // 8 warps
 constexpr int kWarpCols = kK / 8;           // R's columns per warp: 32
-constexpr int kRows = 16;                   // pass 2: rows per block
-constexpr int kCols = 16;                   // pass 3: columns per block
+constexpr int kCols = 16;                   // columns per block
 constexpr int kKTile = 32;                  // R's rows per stage
 constexpr int kTiles = kK / kKTile;         // stages per product
 constexpr int kLdB = kKTile + 8;            // padded stage row (80 B)
 constexpr int kLdA = kK + 8;                // padded operand row (528 B)
 constexpr int kTileElems = 2 * kK * kKTile; // hi and lo of one tile
 constexpr int kStageElems = 2 * kK * kLdB;  // the same, padded
-constexpr int kMtRows = kRows / 16;        // pass 2: m-tiles of S
-constexpr int kMtCols = kCols / 16;        // pass 3: m-tiles of V1 +- conj V2
-static_assert(kRows % 16 == 0 && kCols % 16 == 0, "whole m16 tiles");
-
-// pass 2: the stages, S (kRows rows) and [A.Z; conj(B2).Z] (2 kRows);
-// pass 3: the stages and [V1 + conj V2; V1 - conj V2]^T (2 kCols)
-constexpr int kSmemRows = (2 * kStageElems + 3 * 2 * kRows * kLdA) * 2;
-constexpr int kSmemColsInv = (2 * kStageElems + 2 * 2 * kCols * kLdA) * 2;
+static_assert(kCols % 16 == 0, "whole m16 tiles");
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
@@ -245,257 +197,6 @@ __device__ __forceinline__ void product(float (&acc)[MT][4][4],
     const bf16* b = stages + (t & 1) * kStageElems;
     mma_tile<MT, kProd>(acc, a_hi, a_lo, kt * kKTile, b, b + kK * kLdB);
     __syncthreads();  // stage t & 1 is free for tile t + 2
-  }
-}
-
-// ---------------------------------------------------------------------
-// pass 2: lane forward, spectrum combine, lane inverse and permuted
-// forward, columns cropped to W
-
-template <int kProd>
-__global__ void __launch_bounds__(kThreads, 1)
-pfft_rows_tc_kernel(const float2* __restrict__ u,
-                    const float* __restrict__ a_re,
-                    const float* __restrict__ a_im,
-                    const float* __restrict__ b_re,
-                    const float* __restrict__ b_im, int P, int W, int m,
-                    float asign, const bf16* __restrict__ rf,
-                    const bf16* __restrict__ ri,
-                    const float2* __restrict__ wf,
-                    const float2* __restrict__ wi, float2* __restrict__ v1,
-                    float2* __restrict__ v2) {
-  const int n = kLane * m;
-  const int strips = n / kRows;
-  const int bid = blockIdx.x;
-  if (bid >= P * strips) return;
-  const int r0 = (bid % strips) * kRows;
-  const int p = bid / strips;
-  const int wb = W / kLane;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-  bf16* f_hi = stages + 2 * kStageElems;  // S: kRows rows
-  bf16* f_lo = f_hi + kRows * kLdA;
-  bf16* i_hi = f_lo + kRows * kLdA;       // [A.Z; conj(B2).Z]: 2 kRows
-  bf16* i_lo = i_hi + 2 * kRows * kLdA;
-
-  const size_t row0 = (size_t)p * n + r0;
-  const float2* urow = u + row0 * W;
-  float2* v1row = v1 + row0 * W;
-  float2* v2row = v2 + row0 * W;
-  // the stream: per k2, the 8 tiles of R(mf[k2]), then those of R(mi[k2])
-  const int T = 2 * kTiles * m;
-  auto src = [&](int t) {
-    const int k2 = t / (2 * kTiles), kt = t % kTiles;
-    const bf16* tab = (t / kTiles) % 2 ? ri : rf;
-    return tab + ((size_t)k2 * kTiles + kt) * kTileElems;
-  };
-  load_stage<kProd>(stages, src(0));
-  cp_async_commit();
-
-  for (int k2 = 0; k2 < m; ++k2) {
-    // stage A of the lane forward, split into the operand: a thread's
-    // kStageA elements e = threadIdx.x + i kThreads, each block n2 of
-    // them loaded together
-    constexpr int kStageA = kRows * kLane / kThreads;
-    {
-      float2 s[kStageA];
-#pragma unroll
-      for (int i = 0; i < kStageA; ++i) s[i] = make_float2(0.f, 0.f);
-      for (int n2 = 0; n2 < wb; ++n2) {
-        const float2 w = wf[n2 * m + k2];
-        float2 x[kStageA];
-#pragma unroll
-        for (int i = 0; i < kStageA; ++i) {
-          const int e = threadIdx.x + i * kThreads;
-          x[i] = urow[(size_t)(e / kLane) * W + kLane * n2 + e % kLane];
-        }
-#pragma unroll
-        for (int i = 0; i < kStageA; ++i) {
-          s[i].x = fmaf(w.x, x[i].x, fmaf(-w.y, x[i].y, s[i].x));
-          s[i].y = fmaf(w.x, x[i].y, fmaf(w.y, x[i].x, s[i].y));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kStageA; ++i) {
-        const int e = threadIdx.x + i * kThreads;
-        put_operand<kProd>(f_hi, f_lo, (e / kLane) * kLdA + 2 * (e % kLane),
-                           s[i]);
-      }
-    }
-
-    // Z = S mf[k2]; then A . Z and conj(B2) . Z into the next operand
-    {
-      float acc[kMtRows][4][4];
-      product<kMtRows, kProd>(acc, f_hi, f_lo, stages, 2 * kTiles * k2, T,
-                              src);
-#pragma unroll
-      for (int mt = 0; mt < kMtRows; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = mt * 16 + g + 8 * half;
-            const int j = warp * (kWarpCols / 2) + nt * 4 + tig;
-            const float2 z =
-                make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-            const size_t spec = (row0 + r) * n + kLane * k2 + j;
-            const float2 a = make_float2(a_re[spec], asign * a_im[spec]);
-            const float2 bc = make_float2(b_re[spec], -asign * b_im[spec]);
-            put_operand<kProd>(i_hi, i_lo, r * kLdA + 2 * j, cmul(a, z));
-            put_operand<kProd>(i_hi, i_lo, (kRows + r) * kLdA + 2 * j,
-                               cmul(bc, z));
-          }
-    }
-
-    // G = [A.Z; conj(B2).Z] mi[k2]; V1 += w G, V2 += conj(w G). Per
-    // output block a, a thread first loads all the elements it owns, then
-    // stores them, so that their loads are in flight together.
-    {
-      constexpr int MT = 2 * kMtRows;
-      float acc[MT][4][4];
-      product<MT, kProd>(acc, i_hi, i_lo, stages, 2 * kTiles * k2 + kTiles,
-                         T, src);
-      float2* dst[MT][2];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = mt * 16 + g + 8 * half;
-          dst[mt][half] = (mt >= kMtRows ? v2row + (size_t)(r - kRows) * W
-                                         : v1row + (size_t)r * W) +
-                          warp * (kWarpCols / 2) + tig;
-        }
-      for (int a = 0; a < wb; ++a) {
-        const float2 w = wi[a * m + k2];
-        float2 old[MT][4][2];
-        if (k2 > 0) {
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-              for (int half = 0; half < 2; ++half)
-                old[mt][nt][half] = dst[mt][half][kLane * a + nt * 4];
-        }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              float2 val = cmul(w, make_float2(acc[mt][nt][2 * half],
-                                               acc[mt][nt][2 * half + 1]));
-              if (mt >= kMtRows) val.y = -val.y;
-              if (k2 > 0) {
-                val.x += old[mt][nt][half].x;
-                val.y += old[mt][nt][half].y;
-              }
-              dst[mt][half][kLane * a + nt * 4] = val;
-            }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// pass 3: axis-0 inverse (V1) plus permuted forward (V2), rows cropped
-// to H
-
-template <int kProd>
-__global__ void __launch_bounds__(kThreads, 1)
-pfft_cols_inv_tc_kernel(const float2* __restrict__ v1,
-                        const float2* __restrict__ v2, int P, int H, int W,
-                        int m, const bf16* __restrict__ ri,
-                        const float2* __restrict__ wi,
-                        float* __restrict__ y0, float* __restrict__ y1) {
-  const int tiles = W / kCols;
-  const int bid = blockIdx.x;
-  if (bid >= P * tiles) return;
-  const int c0 = (bid % tiles) * kCols;
-  const int p = bid / tiles;
-  const int n = kLane * m;
-  const int hb = H / kLane;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-  bf16* o_hi = stages + 2 * kStageElems;  // [V1 + conj V2; V1 - conj V2]^T
-  bf16* o_lo = o_hi + 2 * kCols * kLdA;
-
-  const int T = kTiles * m;
-  auto src = [&](int t) { return ri + (size_t)t * kTileElems; };
-  load_stage<kProd>(stages, src(0));
-  cp_async_commit();
-  const size_t out0 = (size_t)p * H * W + c0;
-
-  for (int k2 = 0; k2 < m; ++k2) {
-    const size_t in0 = ((size_t)p * n + kLane * k2) * W + c0;
-    // a thread's elements e = threadIdx.x + i kThreads, loaded together
-    constexpr int kLoads = kLane * kCols / kThreads;
-    float2 va[kLoads], vb[kLoads];
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const size_t at = in0 + (size_t)(e / kCols) * W + e % kCols;
-      va[i] = v1[at];
-      vb[i] = v2[at];
-    }
-#pragma unroll
-    for (int i = 0; i < kLoads; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const int k1 = e / kCols, c = e % kCols;
-      const float2 a = va[i], b = vb[i];
-      put_operand<kProd>(o_hi, o_lo, c * kLdA + 2 * k1,
-                         make_float2(a.x + b.x, a.y - b.y));
-      put_operand<kProd>(o_hi, o_lo, (kCols + c) * kLdA + 2 * k1,
-                         make_float2(a.x - b.x, a.y + b.y));
-    }
-
-    constexpr int MT = 2 * kMtCols;
-    float acc[MT][4][4];
-    product<MT, kProd>(acc, o_hi, o_lo, stages, kTiles * k2, T, src);
-    // y0 += Re(w G+), y1 += Im(w G-); per output block a, all the loads
-    // of a thread first, then its stores, as in pfft_rows_tc_kernel
-    float* dst[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = (mt % kMtCols) * 16 + g + 8 * half;
-        dst[mt][half] = (mt >= kMtCols ? y1 : y0) + out0 +
-                        (size_t)(warp * (kWarpCols / 2) + tig) * W + c;
-      }
-    for (int a = 0; a < hb; ++a) {
-      const float2 w = wi[a * m + k2];
-      const size_t row_a = (size_t)kLane * a * W;
-      float old[MT][4][2];
-      if (k2 > 0) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              old[mt][nt][half] =
-                  dst[mt][half][row_a + (size_t)nt * 4 * W];
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const float2 val = cmul(w, make_float2(acc[mt][nt][2 * half],
-                                                   acc[mt][nt][2 * half + 1]));
-            float part = mt >= kMtCols ? val.y : val.x;
-            if (k2 > 0) part += old[mt][nt][half];
-            dst[mt][half][row_a + (size_t)nt * 4 * W] = part;
-          }
-    }
   }
 }
 
@@ -639,7 +340,7 @@ bool valid_products(int products) { return products == 1 || products == 3; }
 
 extern "C" {
 
-// Each pass takes products, 3 ("split") or 1 ("bf16"), and returns the
+// Pass 1 takes products, 3 ("split") or 1 ("bf16"), and returns the
 // first CUDA error of setting the shared-memory size and the launch (0 =
 // cudaSuccess); 1 (cudaErrorInvalidValue) for another number of
 // products.
@@ -658,39 +359,6 @@ int pfft_cols_fwd_tc(const float* x0, const float* x1, int P, int H,
   const int blocks = P * (W / kCols);
   kernel<<<blocks, kThreads, kSmemColsFwd, stream>>>(
       x0, x1, P, H, W, m, static_cast<const bf16*>(rf), wf, tw, u);
-  return finish(attr);
-}
-
-int pfft_rows_tc(const float2* u, const float* a_re, const float* a_im,
-                 const float* b_re, const float* b_im, int P, int W, int m,
-                 int conj_spec, const void* rf, const void* ri,
-                 const float2* wf, const float2* wi, float2* v1, float2* v2,
-                 int products, cudaStream_t stream) {
-  if (!valid_products(products)) return (int)cudaErrorInvalidValue;
-  auto kernel =
-      products == 3 ? pfft_rows_tc_kernel<3> : pfft_rows_tc_kernel<1>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemRows);
-  const int blocks = P * (kLane * m / kRows);
-  const float asign = conj_spec ? -1.f : 1.f;
-  kernel<<<blocks, kThreads, kSmemRows, stream>>>(
-      u, a_re, a_im, b_re, b_im, P, W, m, asign,
-      static_cast<const bf16*>(rf), static_cast<const bf16*>(ri), wf, wi, v1,
-      v2);
-  return finish(attr);
-}
-
-int pfft_cols_inv_tc(const float2* v1, const float2* v2, int P, int H, int W,
-                     int m, const void* ri, const float2* wi, float* y0,
-                     float* y1, int products, cudaStream_t stream) {
-  if (!valid_products(products)) return (int)cudaErrorInvalidValue;
-  auto kernel =
-      products == 3 ? pfft_cols_inv_tc_kernel<3> : pfft_cols_inv_tc_kernel<1>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemColsInv);
-  const int blocks = P * (W / kCols);
-  kernel<<<blocks, kThreads, kSmemColsInv, stream>>>(
-      v1, v2, P, H, W, m, static_cast<const bf16*>(ri), wi, y0, y1);
   return finish(attr);
 }
 

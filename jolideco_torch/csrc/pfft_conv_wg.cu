@@ -1,22 +1,27 @@
-// Passes 2 and 3 of the pair-packed matrix-DFT convolution on Hopper's
-// warpgroup instructions (sm_90a), in the precision dial's "split" and
-// "bf16" modes. Built by nvcc into a shared library with a plain C
-// interface and loaded with ctypes (jolideco_torch/utils/cuda_build.py);
-// the wrappers (pfft_rows_combine_tc_cuda, pfft_rows_combine_bf16_cuda,
-// pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda) and their plain
-// versions (rows_combine_plain, cols_inv_plain with mode="split" or
-// "bf16", the CPU path's own) are in jolideco_torch/ops/pallas_fft.py.
-// Pass 1 stays on pfft_conv_tc.cu. The modes: kProd bf16 products a k16
-// step, 3 for "split" (hi.hi + hi.lo + lo.hi of the operands' bf16 hi
-// and lo parts), 1 for "bf16" (hi.hi).
+// K3's matrix-DFT passes on Hopper's warpgroup instructions (sm_90a):
+// passes 2 and 3 of the precision dial's "split" and "bf16" modes, and
+// passes 1 and 3 of its "f32" mode (the "highest" setting). Built by
+// nvcc into a shared library with a plain C interface and loaded with
+// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers
+// (pfft_rows_combine_tc_cuda, pfft_rows_combine_bf16_cuda,
+// pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda; pfft_cols_fwd_cuda,
+// pfft_cols_inv_cuda) and their plain versions (rows_combine_plain,
+// cols_inv_plain with mode="split" or "bf16"; cols_fwd_plain and
+// cols_inv_plain in float32, the CPU path's own) are in
+// jolideco_torch/ops/pallas_fft.py. Pass 1 of the bf16 modes stays on
+// pfft_conv_tc.cu, pass 2 of "f32" on pfft_conv.cu. The bf16 modes:
+// kProd bf16 products a k16 step, 3 for "split" (hi.hi + hi.lo + lo.hi
+// of the operands' bf16 hi and lo parts), 1 for "bf16" (hi.hi). The
+// float32 passes are described after pass 3 of the bf16 modes, below.
 //
 // What it replaces: the JAX package's ops/pallas_fft.py::_k2_body (pass
 // 2: per row the lane forward, the spectrum combine, the lane inverse and
 // the permuted forward, cropped to W columns) and ::_k3_body (pass 3: the
 // axis-0 inverse plus permuted forward, cropped to H rows) under
-// precision HIGH and DEFAULT, and in this port pfft_conv_tc.cu's
-// pfft_rows_tc_kernel and pfft_cols_inv_tc_kernel (mma.sync), which no
-// wrapper launches any more.
+// precision HIGH and DEFAULT; ::_k1_body (pass 1: the axis-0 forward
+// into permuted rows) and _k3_body under HIGHEST. In this port they
+// replace pfft_conv_tc.cu's mma.sync passes 2 and 3 and pfft_conv.cu's
+// float32 passes 1 and 3 (FFMA on the CUDA cores), which are gone.
 //
 // The roundings are the plain version's, and the JAX package's: each
 // product rounds its data operand (S_k2, A . Z or conj(B2) . Z,
@@ -142,23 +147,34 @@ constexpr int kSmemMax = 232448;                  // 227 KB a CTA
 constexpr int kRegK2 = 5;
 constexpr int kStoreBytes = (kRound - kRegK2) * kConsumers * 64;  // 64 KB
 
-// Shared memory: the ring, then kGroups groups of eight operand rows in
-// each bf16 plane (hi, then lo for "split"; pass 2: X, then [Y1; Y2];
-// pass 3: [X+; X-] twice, a buffer for each parity of the k2 count), the
-// products kept in shared memory, then the barriers; the ring takes as
-// many stages as fit.
-template <int kProd, int kGroups>
-struct Layout {
-  static constexpr int kStage = kProd == 3 ? 2 * kPlane : kPlane;
-  static constexpr int kOperandPlane = kGroups * kGroupBytes;
-  static constexpr int kOperands = (kProd == 3 ? 2 : 1) * kOperandPlane;
+// Shared memory: the ring of kStageBytes stages, the operand rows
+// (kOperandBytes), kExtraBytes of the kernel's own, then the barriers;
+// the ring takes as many stages as fit. A table is kTableStages stages,
+// kStrideBytes apart in device memory.
+template <int kStageBytes, int kTableStagesN, int kStrideBytes,
+          int kOperandBytes, int kExtraBytes>
+struct RingLayout {
+  static constexpr int kStage = kStageBytes;
+  static constexpr int kTableStages = kTableStagesN;
+  static constexpr int kStride = kStrideBytes;
   static constexpr int kDepth =
-      (kSmemMax - kOperands - kStoreBytes - 1024) / kStage;
+      (kSmemMax - kOperandBytes - kExtraBytes - 1024) / kStage;
   static constexpr int kOperandOffset = kDepth * kStage;
-  static constexpr int kStoreOffset = kOperandOffset + kOperands;
-  static constexpr int kBarOffset = kStoreOffset + kStoreBytes;
+  static constexpr int kExtraOffset = kOperandOffset + kOperandBytes;
+  static constexpr int kBarOffset = kExtraOffset + kExtraBytes;
   static constexpr int kSmem = kBarOffset + 2 * kDepth * 8;
   static_assert(kSmem <= kSmemMax, "shared memory of a CTA");
+};
+
+// The bf16 modes' passes 2 and 3: a stage the hi plane (then the lo plane
+// for "split") of 32 inputs; kGroups groups of eight operand rows in each
+// plane (pass 2: X, then [Y1; Y2]; pass 3: [X+; X-] twice, a buffer for
+// each parity of the k2 count); then the products kept in shared memory.
+template <int kProd, int kGroups>
+struct Layout
+    : RingLayout<kProd == 3 ? 2 * kPlane : kPlane, kChunks, 2 * kPlane,
+                 (kProd == 3 ? 2 : 1) * kGroups * kGroupBytes, kStoreBytes> {
+  static constexpr int kOperandPlane = kGroups * kGroupBytes;
 };
 constexpr int kRowsGroups = 3;  // pass 2
 constexpr int kColsGroups = 4;  // pass 3
@@ -267,6 +283,45 @@ struct Ring {
   }
 };
 
+// The consumers' walk over the next table in the ring: for each of its
+// L::kTableStages stages, wait for it to be full, issue its products
+// (step(c, stage) fences, issues them and returns; the walk commits
+// them) and free it once they are done. kPending groups of products
+// stay in flight past a commit: 1 where both operands are in shared
+// memory, 0 where A is in registers that the next step loads anew. The
+// loop is unrolled kUnroll stages at a time: 1 for the bf16 modes'
+// products (fully unrolled, the "split" instances spill; ptxas' own
+// choice ran "split" pass 2 at 0.697 ms against 0.487 with 1), fully for
+// the float32 ones (pass 3 0.2175 ms against 0.2294 with 1); an NVIDIA
+// H100 80GB HBM3 at 700 W, scripts/torch_k3_variants.py's walk_*
+// variants.
+template <class L, int kPending, int kUnroll, class Step>
+__device__ __forceinline__ void walk_table(const unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           Ring& ring_pos, Step&& step) {
+  static_assert(kPending == 0 || kPending == 1, "groups in flight");
+  int prev = -1;
+#pragma unroll(kUnroll)
+  for (int c = 0; c < L::kTableStages; ++c) {
+    wg::mbar_wait(full + ring_pos.stage, ring_pos.phase);
+    step(c, ring + ring_pos.stage * L::kStage);
+    wg::wgmma_commit();
+    wg::wgmma_wait<kPending>();
+    // the products of this stage (kPending 0) or the one before are done
+    if constexpr (kPending == 0) {
+      release(empty, ring_pos.stage);
+    } else {
+      if (prev >= 0) release(empty, prev);
+      prev = ring_pos.stage;
+    }
+    ring_pos.template next<L::kDepth>();
+  }
+  if constexpr (kPending > 0) {
+    wg::wgmma_wait<0>();
+    release(empty, prev);
+  }
+}
+
 // One k2's product: re[0 .. kN / 2) and im[0 .. kN / 2), the real and
 // imaginary parts of the warpgroup's 64 outputs, = the kN operand rows at
 // b_hi, b_lo times the next table in the ring, over its kChunks stages,
@@ -284,10 +339,8 @@ __device__ __forceinline__ void product(float* re, float* im,
     re[i] = 0.f;
     im[i] = 0.f;
   }
-  int prev = -1;
-  for (int c = 0; c < kChunks; ++c) {
-    wg::mbar_wait(full + ring_pos.stage, ring_pos.phase);
-    const unsigned char* st = ring + ring_pos.stage * L::kStage;
+  walk_table<L, 1, 1>(ring, full, empty, ring_pos,
+                   [&](int c, const unsigned char* st) {
     wg::wgmma_fence();
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
@@ -299,15 +352,7 @@ __device__ __forceinline__ void product(float* re, float* im,
       mac<kN, 1, kProd>(im, st, 1, wgi, s, b_hi, b_lo, ks, scale);
       mac<kN, 1, kProd>(im, st, 0, wgi, s, b_hi, b_lo, 8 + ks, 1);
     }
-    wg::wgmma_commit();
-    // the products of the stage before are done: free it
-    wg::wgmma_wait<1>();
-    if (prev >= 0) release(empty, prev);
-    prev = ring_pos.stage;
-    ring_pos.template next<L::kDepth>();
-  }
-  wg::wgmma_wait<0>();
-  release(empty, prev);
+  });
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     wg::fence_operand(re[i]);
@@ -349,31 +394,37 @@ __device__ __forceinline__ void slot_values(int j, const float* pr,
   }
 }
 
-// The producer: for each of the CTA's strips and each k2, the chunks of
-// the tables t0 .. 1 (0: mf[k2], 1: mi[k2]) into the ring, in the order
-// the products take them. Table (t, k2) is kChunks stages of 2 kPlane
-// bytes (hi, then lo) from tables + (t m + k2) 4 x 32 KB.
+// The producer: for each of the CTA's items, each of its k2 and each of
+// the tables t0 .. t1 - 1 (0: mf[k2], 1: mi[k2]), table (t, k2)'s stages
+// into the ring, in the order the products take them: stage c is L::kStage
+// bytes from tables + ((t m + k2) L::kTableStages + c) L::kStride (the
+// bf16 modes: hi, then lo for "split"; the float32 passes: a chunk's three
+// parts). An item takes every k2 in turn, or (one_k2) k2 = item % m alone.
 template <class L>
 __device__ __forceinline__ void produce(unsigned char* ring,
                                         const unsigned char* tables,
-                                        int strips, int m, int t0,
-                                        uint64_t* full, uint64_t* empty) {
+                                        int items, int m, int t0, int t1,
+                                        bool one_k2, uint64_t* full,
+                                        uint64_t* empty) {
   int stage = 0, phase = 0, uses = 0;
-  for (int st = blockIdx.x; st < strips; st += gridDim.x)
-    for (int k2 = 0; k2 < m; ++k2)
-      for (int t = t0; t < 2; ++t)
-        for (int c = 0; c < kChunks; ++c, ++uses) {
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int k_first = one_k2 ? it % m : 0;
+    const int k_end = one_k2 ? k_first + 1 : m;
+    for (int k2 = k_first; k2 < k_end; ++k2)
+      for (int t = t0; t < t1; ++t)
+        for (int c = 0; c < L::kTableStages; ++c, ++uses) {
           if (uses >= L::kDepth) wg::mbar_wait(empty + stage, phase ^ 1);
           wg::mbar_arrive_expect_tx(full + stage, L::kStage);
-          wg::bulk_load(
-              ring + stage * L::kStage,
-              tables + (((size_t)t * m + k2) * kChunks + c) * 2 * kPlane,
-              L::kStage, full + stage);
+          wg::bulk_load(ring + stage * L::kStage,
+                        tables + (((size_t)t * m + k2) * L::kTableStages +
+                                  c) * L::kStride,
+                        L::kStage, full + stage);
           if (++stage == L::kDepth) {
             stage = 0;
             phase ^= 1;
           }
         }
+  }
 }
 
 template <class L>
@@ -411,7 +462,7 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
   unsigned char* x_lo = x_hi + L::kOperandPlane;  // "split" only
   unsigned char* y_hi = x_hi + kGroupBytes;
   unsigned char* y_lo = x_lo + kGroupBytes;
-  float4* kept = reinterpret_cast<float4*>(smem + L::kStoreOffset);
+  float4* kept = reinterpret_cast<float4*>(smem + L::kExtraOffset);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* empty = full + L::kDepth;
 
@@ -425,7 +476,7 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
   if (warp >= kConsumerWarps) {
     wg::setmaxnreg_dec<40>();
     if (warp == kConsumerWarps && lane == 0)
-      produce<L>(ring, tables, strips, m, 0, full, empty);
+      produce<L>(ring, tables, strips, m, 0, 2, false, full, empty);
     return;
   }
   wg::setmaxnreg_inc<232>();
@@ -572,7 +623,7 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
   unsigned char* ring = smem;
   unsigned char* op_hi = smem + L::kOperandOffset;
   unsigned char* op_lo = op_hi + L::kOperandPlane;
-  float4* kept = reinterpret_cast<float4*>(smem + L::kStoreOffset);
+  float4* kept = reinterpret_cast<float4*>(smem + L::kExtraOffset);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* empty = full + L::kDepth;
 
@@ -586,7 +637,7 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
   if (warp >= kConsumerWarps) {
     wg::setmaxnreg_dec<40>();
     if (warp == kConsumerWarps && lane == 0)
-      produce<L>(ring, tables, strips, m, 1, full, empty);
+      produce<L>(ring, tables, strips, m, 1, 2, false, full, empty);
     return;
   }
   wg::setmaxnreg_inc<232>();
@@ -689,6 +740,498 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
 }
 
 // ---------------------------------------------------------------------
+// the float32 ("highest") passes 1 and 3: six bf16 products a step
+//
+// The rounding is the TPU's Precision.HIGHEST (the JAX package's "f32"
+// mode): both operands of each stage-B product split three ways, hi =
+// bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), and the six
+// products whose orders sum below three (lo.hi, mid.mid, hi.lo, mid.hi,
+// hi.mid, hi.hi) summed in float32, 2^-24 of each operand left out. The
+// operands are those of the bf16 modes: each k2's own table, mf[k2] or
+// mi[k2] (ops/pallas_fft.py::wg_f32_tables: the three planes of Re M^T
+// and Im M^T, per chunk of 16 inputs k1 one 24 KB stage), and the data
+// operand, S_k2 (pass 1) or V1 +- conj V2 (pass 3), formed in float32
+// and split once as it is written.
+//
+// pfft_cols_fwd_f32_kernel, an item per (pair, 32 columns, k2), no sum
+// over k2 (1440 items at 5 pairs of 1024^2, n = 1152: 11 a CTA at most,
+// 10.9 on average):
+//   stage A  S[k1][c] = sum_n2 wf[n2][k2] z[128 n2 + k1][c] (z = x0 +
+//            i x1), a warp reading a row of 32 columns per load from L2,
+//            kInFlight = 2 row blocks in flight;
+//   product  U[128 k2 + k1][c] = (S^T mf[k2])[c][k1], N = 32 columns;
+//   stores   U written once.
+// pfft_cols_inv_f32_kernel, an item per (pair, 8 columns, group of up
+// to kYBlocks = 8 output blocks a) (640 items: 5 a CTA at most, 4.85 on
+// average; 16 columns made 320, 3 against 2.42), k2 by k2:
+//   stage A  X+- = (V1 +- conj V2)[128 k2 + ., c] into operand rows c and
+//            8 + c (N = 16), V copied into shared memory by cp.async a
+//            k2 ahead (two staging buffers);
+//   product  P = [X+; X-] mi[k2];
+//   sums     y0_a += Re(wi[a][k2] P+), y1_a += Im(wi[a][k2] P-): one
+//            float32 chain an output over every k2, all eight blocks in
+//            the thread's registers;
+//   stores   y written once an item, never read. Taller images (H > 1024:
+//            more than eight blocks a) take one item per group, each
+//            running the products again.
+//
+// The products: wgmma m64n32k16 (pass 1) or m64n16k16 (pass 3) with A
+// from registers (the table, the warpgroup's 64 outputs, ldmatrix from
+// the stage) and B the operand rows (a descriptor), 24 instructions a
+// k16 step (six products, four real ones each). The tensor cores'
+// float32 sums truncate: hi.hi keeps its own accumulators, so an
+// output's large sum takes 16 instructions and the five small products'
+// 80 at 2^-8 of its size (Acc6); in one set pass 3 reached 5x the
+// float32 plain version's error from float64 on random V (an NVIDIA H100
+// 80GB HBM3 at 700 W). The CTA is the bf16 modes' passes': one
+// persistent CTA an SM, the producer thread streaming each item's tables
+// through a ring of stages, two warpgroups multiplying and forming the
+// operands; the operand rows are single-buffered (a barrier before their
+// writes, one after).
+//
+// What bounds them on the H100 (chip_smoke.py::pfft_bounds, 5 pairs of
+// 1024^2, n = 1152): counted as the TPU counts the work (3 real
+// products per complex one) at six bf16 products, pass 1 0.0275 ms of
+// operations (its bytes 0.027), pass 3 0.055 of operations (bytes
+// 0.041); in float32 on the CUDA cores 0.068 and 0.135. These kernels
+// do four real products per complex one and read each k2's 192 KB table
+// from L2 once an item: 276 MB a call in pass 1, 1.1 GB in pass 3, and
+// x from L2 once an item in pass 1 (377 MB). On an NVIDIA H100 80GB HBM3
+// (700 W limit; scripts/torch_k3_variants.py --source f32): pass 1
+// 0.138 ms, 0.097 without x's loads, 0.114 without products; pass 3
+// 0.211 ms, 0.114 without products (its tables' stream then), 0.207
+// without the tables' copies. PERF.md section 6 has their times
+// (chip_smoke.py phase 2) beside the parent's.
+//
+// Budgets (a CTA): shared memory, the ring (pass 1 seven 24 KB stages,
+// pass 3 seven), the operand rows (pass 1 48 KB, pass 3 24 KB), pass
+// 3's staging (32 KB); registers 168 (ptxas' limit at 384 threads), no
+// spills.
+
+constexpr int kParts = 3;                          // hi, mid, lo
+constexpr int kChunk3 = 16;                        // inputs k1 a stage
+constexpr int kChunks3 = kLane / kChunk3;          // 8 stages a table
+constexpr int kPlane3 = kLane * kChunk3 * 2;       // 4 KB: Re or Im of a part
+constexpr int kStage3 = kParts * 2 * kPlane3;      // 24 KB
+constexpr int kCols1 = 32;  // pass 1: columns a tile, the operand rows
+constexpr int kCols3 = 8;   // pass 3: columns a strip (16 rows: X+, X-)
+// pass 3's sums y_a of a strip, all in registers (8 floats a thread
+// each); an item takes up to kYBlocks output blocks a
+constexpr int kYBlocks = 8;
+
+// pass 1: the 128-row blocks of x a thread's loads keep in flight
+constexpr int kInFlight = 2;
+// the staging buffers of pass 3's stage A (two, copied a k2 ahead by
+// cp.async): the 128 rows of a k2 of 8 columns of V1 and of V2
+constexpr int kStaging3 = 2 * kLane * kCols3 * 8;  // 16 KB
+
+// The float32 passes: a stage a chunk's three parts; the operand rows,
+// three parts of kN rows; then two staging buffers of kStaging bytes.
+template <int kN, int kStaging>
+struct Layout3 : RingLayout<kStage3, kChunks3, kStage3,
+                            kParts * (kN / 8 * kGroupBytes), 2 * kStaging> {
+  static constexpr int kOpPart = kN / 8 * kGroupBytes;  // a part
+};
+using Layout1 = Layout3<kCols1, 0>;
+using Layout3i = Layout3<2 * kCols3, kStaging3>;
+
+// x in three bf16 parts, round to nearest even (ops/linalg.py::
+// bf16_split3): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
+// both differences are exact in float32
+__device__ __forceinline__ void split3(float x, bf16 (&part)[kParts]) {
+  part[0] = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(part[0]);
+  part[1] = __float2bfloat16_rn(r);
+  part[2] = __float2bfloat16_rn(r - __bfloat162float(part[1]));
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// The complex inputs k0 .. k0 + 7 (k0 a multiple of 8) of operand row n,
+// split three ways: per part (op_part bytes apart), one 16-byte row of a
+// core matrix for the real parts and one for the imaginary parts (eight
+// threads of consecutive rows n write 128 bytes on distinct banks).
+__device__ __forceinline__ void put_row8(unsigned char* op, int op_part,
+                                         int n, int k0,
+                                         const float2 (&z)[8]) {
+  const int off = (n >> 3) * kGroupBytes + (k0 >> 3) * 128 + (n & 7) * 16;
+  uint32_t re[kParts][4], im[kParts][4];
+#pragma unroll
+  for (int r = 0; r < 8; r += 2) {
+    bf16 a[kParts], b[kParts], c[kParts], d[kParts];
+    split3(z[r].x, a);
+    split3(z[r + 1].x, b);
+    split3(z[r].y, c);
+    split3(z[r + 1].y, d);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      re[q][r / 2] = pack2(a[q], b[q]);
+      im[q][r / 2] = pack2(c[q], d[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) {
+    unsigned char* at = op + q * op_part + off;
+    *reinterpret_cast<uint4*>(at) =
+        make_uint4(re[q][0], re[q][1], re[q][2], re[q][3]);
+    *reinterpret_cast<uint4*>(at + kImK) =
+        make_uint4(im[q][0], im[q][1], im[q][2], im[q][3]);
+  }
+}
+
+// The A fragments of this warp's 16 rows (outputs b) of its
+// warpgroup's 64, for each part and plane (0 Re M^T, 1 Im M^T) of a
+// stage: ldmatrix of the core matrices (rows 0-7, k 0-7), (8-15, 0-7),
+// (0-7, 8-15), (8-15, 8-15), 256 bytes between row groups.
+__device__ __forceinline__ void load_a(uint32_t (&a)[kParts][2][4],
+                                       const unsigned char* stage, int wgi) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  const int off = (8 * wgi + 2 * ((threadIdx.x >> 5) & 3) + (i & 1)) * 256 +
+                  (i >> 1) * 128 + (lane & 7) * 16;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      tc::ldsm_x4(a[p][r], reinterpret_cast<const bf16*>(
+                               stage + (2 * p + r) * kPlane3 + off));
+}
+
+// Keeps a step's fragments in their registers until the products that
+// read them are done (called after the wait that covers them): an
+// asynchronous product reads its A registers after the instruction.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[kParts][2][4]) {
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][r][i])::"memory");
+}
+
+// The accumulators of a k2's product over kN operand rows (kN / 2 a
+// thread in each): hi.hi, and the five smaller products, apart. The
+// tensor cores' float32 sums truncate, so each instruction may lose up
+// to a unit of the last place of its accumulator; hi.hi alone takes 16
+// instructions an output, the others 80 at 2^-8 of its size (in one set:
+// 96 at the full size, 1.7e-6 of the max-abs of random data, where the
+// float32 plain version reaches 3.6e-7 on an H100).
+template <int kN>
+struct Acc6 {
+  float re[kN / 2], im[kN / 2];      // hi.hi
+  float re_s[kN / 2], im_s[kN / 2];  // the other five
+};
+
+template <int kSign>
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wg::wgmma_rs_n32<kSign>(d, a, b, 1);
+}
+
+template <int kSign>
+__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wg::wgmma_rs_n16<kSign>(d, a, b, 1);
+}
+
+// One product of k16 step t: A part a (its Re M^T and Im M^T fragments)
+// by operand part b, B the operand rows' real parts at k16 step t and
+// imaginary ones at 8 + t:
+//     Re z += x_re Re M - x_im Im M,   Im z += x_re Im M + x_im Re M.
+template <int kAcc>
+__device__ __forceinline__ void mac(float (&re)[kAcc], float (&im)[kAcc],
+                                    const uint32_t (&a)[2][4],
+                                    const unsigned char* b, int t) {
+  const uint64_t br = wg::smem_desc(b + 256 * t, 128, kGroupBytes);
+  const uint64_t bi = wg::smem_desc(b + 256 * (8 + t), 128, kGroupBytes);
+  mma_rs<1>(re, a[0], br);
+  mma_rs<-1>(re, a[1], bi);
+  mma_rs<1>(im, a[1], br);
+  mma_rs<1>(im, a[0], bi);
+}
+
+// k16 step t of a k2's product: the six products (A part, B part) whose
+// orders sum below three, the small ones first.
+template <int kN>
+__device__ __forceinline__ void mac6(Acc6<kN>& d,
+                                     const uint32_t (&a)[kParts][2][4],
+                                     const unsigned char* op, int t) {
+  constexpr int kPart = kN / 8 * kGroupBytes;
+  mac(d.re_s, d.im_s, a[2], op, t);              // lo . hi
+  mac(d.re_s, d.im_s, a[1], op + kPart, t);      // mid . mid
+  mac(d.re_s, d.im_s, a[0], op + 2 * kPart, t);  // hi . lo
+  mac(d.re_s, d.im_s, a[1], op, t);              // mid . hi
+  mac(d.re_s, d.im_s, a[0], op + kPart, t);      // hi . mid
+  mac(d.re, d.im, a[0], op, t);                  // hi . hi
+}
+
+// One k2's product: re, im (the warpgroup's 64 outputs b by the kN
+// operand rows) = the operand rows times the next table in the ring,
+// over its kChunks3 stages, into accumulators started at zero, the two
+// sets of Acc6 added at the end. A step's fragments are loaded once the
+// step before is done (loading them while it multiplies, in a second
+// set, was no faster).
+template <class L, int kN>
+__device__ __forceinline__ void product6(float (&re)[kN / 2],
+                                         float (&im)[kN / 2],
+                                         const unsigned char* ring,
+                                         const unsigned char* op, int wgi,
+                                         uint64_t* full, uint64_t* empty,
+                                         Ring& ring_pos) {
+  constexpr int kAcc = kN / 2;
+  // the zeros are written before the first product (left to itself, the
+  // compiler writes each set's between products, and ptxas then waits
+  // for those in flight: its C7517)
+  Acc6<kN> d;
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    d.re[i] = 0.f;
+    d.im[i] = 0.f;
+    d.re_s[i] = 0.f;
+    d.im_s[i] = 0.f;
+    wg::fence_operand(d.re[i]);
+    wg::fence_operand(d.im[i]);
+    wg::fence_operand(d.re_s[i]);
+    wg::fence_operand(d.im_s[i]);
+  }
+  uint32_t a[kParts][2][4];
+  walk_table<L, 0, L::kTableStages>(ring, full, empty, ring_pos,
+                   [&](int t, const unsigned char* stage) {
+    // the step before is done: its fragments are free
+    if (t > 0) fence_a(a);
+    load_a(a, stage, wgi);
+    wg::wgmma_fence();
+    mac6(d, a, op, t);
+  });
+  fence_a(a);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    wg::fence_operand(d.re[i]);
+    wg::fence_operand(d.im[i]);
+    wg::fence_operand(d.re_s[i]);
+    wg::fence_operand(d.im_s[i]);
+    re[i] = d.re_s[i] + d.re[i];
+    im[i] = d.im_s[i] + d.im[i];
+  }
+}
+
+// pass 1 in float32: an item per (pair, 32 columns, k2)
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_cols_fwd_f32_kernel(const float* __restrict__ x0,
+                         const float* __restrict__ x1, int P, int H, int W,
+                         int m, const unsigned char* __restrict__ tables,
+                         const float2* __restrict__ wf,
+                         float2* __restrict__ u) {
+  using L = Layout1;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* op = smem + L::kOperandOffset;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + L::kDepth;
+
+  const int n = kLane * m;
+  const int tiles = W / kCols1;
+  const int items = P * tiles * m;
+  const int hb = H / kLane;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  init_barriers<L>(full, empty);
+
+  if (warp >= kConsumerWarps) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == kConsumerWarps && lane == 0)
+      produce<L>(ring, tables, items, m, 0, 1, true, full, empty);
+    return;
+  }
+  wg::setmaxnreg_inc<232>();
+  const int wgi = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int b0 = 64 * wgi + 16 * (warp & 3) + g;  // this thread's k1
+  const int k1s = 16 * warp;  // stage A: inputs k1s .. k1s + 15, column lane
+  Ring ring_pos;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int k2 = it % m, tile = (it / m) % tiles, p = it / (m * tiles);
+    const int c0 = tile * kCols1;
+    // stage A: S[k1][c] = sum_n2 wf[n2][k2] z[128 n2 + k1][c], a warp a
+    // row of 32 columns per load, kInFlight blocks' loads at a time
+    const size_t col = (size_t)p * H * W + c0 + lane;
+    float2 s[2][8];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) s[r / 8][r % 8] = make_float2(0.f, 0.f);
+    for (int n0 = 0; n0 < hb; n0 += kInFlight) {
+      float xr[kInFlight][16], xi[kInFlight][16];
+#pragma unroll
+      for (int b = 0; b < kInFlight; ++b) {
+        if (n0 + b >= hb) break;
+        const size_t row = col + (size_t)(kLane * (n0 + b) + k1s) * W;
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          xr[b][r] = __ldg(x0 + row + (size_t)r * W);
+          xi[b][r] = __ldg(x1 + row + (size_t)r * W);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kInFlight; ++b) {
+        if (n0 + b >= hb) break;
+        const float2 w = __ldg(wf + (n0 + b) * m + k2);
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          float2& a = s[r / 8][r % 8];
+          a.x = fmaf(w.x, xr[b][r], fmaf(-w.y, xi[b][r], a.x));
+          a.y = fmaf(w.x, xi[b][r], fmaf(w.y, xr[b][r], a.y));
+        }
+      }
+    }
+    // the operand rows are free once both warpgroups' products are done
+    wg::bar_sync(1, kConsumers);
+    put_row8(op, L::kOpPart, lane, k1s, s[0]);
+    put_row8(op, L::kOpPart, lane, k1s + 8, s[1]);
+    wg::fence_proxy_async();
+    wg::bar_sync(1, kConsumers);
+
+    // U[128 k2 + k1][c0 + c] = (S^T mf[k2])[c][k1]: accumulator 4 j + 2 h
+    // + e is k1 = b0 + 8 h, column c = 8 j + 2 q + e
+    float re[16], im[16];
+    product6<L, kCols1>(re, im, ring, op, wgi, full, empty, ring_pos);
+    float2* out = u + ((size_t)p * n + kLane * k2 + b0) * W + c0 + 2 * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * j + 2 * h;
+        *reinterpret_cast<float4*>(out + (size_t)8 * h * W + 8 * j) =
+            make_float4(re[i], im[i], re[i + 1], im[i + 1]);
+      }
+  }
+}
+
+// pass 3 in float32: an item per (pair, 8 columns, group of kYBlocks
+// output blocks a)
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_cols_inv_f32_kernel(const float2* __restrict__ v1,
+                         const float2* __restrict__ v2, int P, int H, int W,
+                         int m, const unsigned char* __restrict__ tables,
+                         const float2* __restrict__ wi,
+                         float* __restrict__ y0, float* __restrict__ y1) {
+  using L = Layout3i;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem;
+  unsigned char* op = smem + L::kOperandOffset;
+  unsigned char* staging = smem + L::kExtraOffset;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + L::kDepth;
+
+  const int n = kLane * m;
+  const int strips = W / kCols3;
+  const int hb = H / kLane;
+  const int groups = (hb + kYBlocks - 1) / kYBlocks;
+  const int items = P * strips * groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  init_barriers<L>(full, empty);
+
+  if (warp >= kConsumerWarps) {
+    wg::setmaxnreg_dec<40>();
+    if (warp == kConsumerWarps && lane == 0)
+      produce<L>(ring, tables, items, m, 1, 2, false, full, empty);
+    return;
+  }
+  wg::setmaxnreg_inc<232>();
+  const int wgi = warp >> 2, g = lane >> 2, q = lane & 3;
+  const int b0 = 64 * wgi + 16 * (warp & 3) + g;
+  // stage A: warpgroup 0 forms X+, 1 X-, each thread column cs of the
+  // strip, inputs k1s .. k1s + 7 of each k2
+  const int cs = tid & 7, k1s = 8 * ((tid >> 3) & 15);
+  const float xsign = wgi == 0 ? 1.f : -1.f;
+  // the staging copies, 16 bytes each: copy tid + 256 i (i < 4) is row
+  // (copy / 4) % 128 of V1 (copies below 512) or V2, its 16 bytes copy % 4
+  // (a warp eight whole rows)
+  auto stage = [&](int item, int k2, int buf) {
+    const int st = item / groups;
+    const int p = st / strips, c0 = (st % strips) * kCols3;
+#pragma unroll
+    for (int i = 0; i < 2 * kLane * kCols3 / 2 / kConsumers; ++i) {
+      const int c = tid + kConsumers * i, row = (c >> 2) & (kLane - 1);
+      const float2* from = (c < kLane * 4 ? v1 : v2) +
+                           ((size_t)p * n + kLane * k2 + row) * W + c0 +
+                           2 * (c & 3);
+      tc::cp_async16(staging + buf * kStaging3 + 16 * c, from);
+    }
+    tc::cp_async_commit();
+  };
+  int kv = 0;  // the CTA's k2 blocks so far: the staging buffer's parity
+  if (blockIdx.x < items) stage(blockIdx.x, 0, 0);
+  Ring ring_pos;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int a0 = (it % groups) * kYBlocks, st = it / groups;
+    const int na = hb - a0 < kYBlocks ? hb - a0 : kYBlocks;
+    const int p = st / strips, c0 = (st % strips) * kCols3;
+    // y_a, a = a0 + j: accumulator 4 e + 2 h + f of the product is row b0
+    // + 8 h, column 2 q + f of X+ (e = 0: y0) or X- (e = 1: y1)
+    float y[kYBlocks][8];
+#pragma unroll
+    for (int j = 0; j < kYBlocks; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) y[j][i] = 0.f;
+
+    for (int k2 = 0; k2 < m; ++k2, ++kv) {
+      // V of this k2 is in; both warpgroups' products on the operand rows
+      // are done, and every thread with the buffer of the k2 before
+      tc::cp_async_wait<0>();
+      wg::bar_sync(1, kConsumers);
+      if (k2 + 1 < m)
+        stage(it, k2 + 1, (kv + 1) & 1);
+      else if (it + gridDim.x < items)
+        stage(it + gridDim.x, 0, (kv + 1) & 1);
+      // X+- = V1 +- conj V2 into operand row 8 wgi + cs
+      const float2* vs =
+          reinterpret_cast<const float2*>(staging + (kv & 1) * kStaging3);
+      float2 z[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const float2 a = vs[(k1s + r) * kCols3 + cs];
+        const float2 b = vs[kLane * kCols3 + (k1s + r) * kCols3 + cs];
+        z[r] = make_float2(a.x + xsign * b.x, a.y - xsign * b.y);
+      }
+      put_row8(op, L::kOpPart, 8 * wgi + cs, k1s, z);
+      wg::fence_proxy_async();
+      wg::bar_sync(1, kConsumers);
+      float re[8], im[8];
+      product6<L, 2 * kCols3>(re, im, ring, op, wgi, full, empty,
+                              ring_pos);
+      // y_a += wi[a][k2] P: y0 the real parts of the X+ columns
+      // (accumulators 0-3), y1 the imaginary parts of the X- ones (4-7)
+      float2 w[kYBlocks];
+#pragma unroll
+      for (int j = 0; j < kYBlocks; ++j)
+        w[j] = __ldg(wi + (a0 + (j < na ? j : 0)) * m + k2);
+#pragma unroll
+      for (int j = 0; j < kYBlocks; ++j) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          y[j][i] += i < 4 ? fmaf(w[j].x, re[i], -w[j].y * im[i])
+                           : fmaf(w[j].x, im[i], w[j].y * re[i]);
+      }
+    }
+
+    // y written once: row b0 + 8 h of block a, columns 2 q, 2 q + 1
+#pragma unroll
+    for (int j = 0; j < kYBlocks; ++j) {
+      if (j >= na) break;
+      const size_t row0 = (size_t)p * H + kLane * (a0 + j) + b0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* out = e == 0 ? y0 : y1;
+          const size_t at = (row0 + 8 * h) * W + c0 + 2 * q;
+          *reinterpret_cast<float2*>(out + at) =
+              make_float2(y[j][4 * e + 2 * h], y[j][4 * e + 2 * h + 1]);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // launches
 
 int sms_per_device() {
@@ -740,6 +1283,23 @@ int cols_inv_wg(const float2* v1, const float2* v2, int P, int H, int W,
                 static_cast<const unsigned char*>(tables), wi, y0, y1);
 }
 
+int cols_fwd_f32(const float* x0, const float* x1, int P, int H, int W,
+                 int m, const void* tables, const float2* wf, float2* u,
+                 cudaStream_t stream) {
+  return launch(pfft_cols_fwd_f32_kernel, Layout1::kSmem,
+                P * (W / kCols1) * m, stream, x0, x1, P, H, W, m,
+                static_cast<const unsigned char*>(tables), wf, u);
+}
+
+int cols_inv_f32(const float2* v1, const float2* v2, int P, int H, int W,
+                 int m, const void* tables, const float2* wi, float* y0,
+                 float* y1, cudaStream_t stream) {
+  const int groups = (H / kLane + kYBlocks - 1) / kYBlocks;
+  return launch(pfft_cols_inv_f32_kernel, Layout3i::kSmem,
+                P * (W / kCols3) * groups, stream, v1, v2, P, H, W, m,
+                static_cast<const unsigned char*>(tables), wi, y0, y1);
+}
+
 bool valid(int m, int products) {
   return m >= 1 && (products == 1 || products == 3);
 }
@@ -778,6 +1338,27 @@ int pfft_cols_inv_wg(const float2* v1, const float2* v2, int P, int H,
   if (products == 3)
     return cols_inv_wg<3>(v1, v2, P, H, W, m, tables, wi, y0, y1, stream);
   return cols_inv_wg<1>(v1, v2, P, H, W, m, tables, wi, y0, y1, stream);
+}
+
+// Pass 1 in float32 ("highest") on x0, x1 (P, H, W) into U (P, 128 m,
+// W) complex; tables are ops/pallas_fft.py::wg_f32_tables(m) on the
+// device, wf (m, m) complex. Returns the first CUDA error of setting the
+// shared-memory size and the launch (0 = cudaSuccess); 1
+// (cudaErrorInvalidValue) for m < 1.
+int pfft_cols_fwd_f32(const float* x0, const float* x1, int P, int H,
+                      int W, int m, const void* tables, const float2* wf,
+                      float2* u, cudaStream_t stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return cols_fwd_f32(x0, x1, P, H, W, m, tables, wf, u, stream);
+}
+
+// Pass 3 in float32 on V1, V2 (P, 128 m, W) complex into y0, y1 (P, H,
+// W); tables as pfft_cols_fwd_f32, wi (m, m) complex; the same errors.
+int pfft_cols_inv_f32(const float2* v1, const float2* v2, int P, int H,
+                      int W, int m, const void* tables, const float2* wi,
+                      float* y0, float* y1, cudaStream_t stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return cols_inv_f32(v1, v2, P, H, W, m, tables, wi, y0, y1, stream);
 }
 
 const char* pfft_conv_wg_error_string(int code) {

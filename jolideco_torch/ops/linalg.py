@@ -1,12 +1,14 @@
 """Linear-algebra helpers: the GMM's precision factors (the JAX
 package's ``ops/linalg.py``), the bf16 rounding of the precision dial's
-``"bf16"`` mode and the bf16 hi/lo split of its ``"split"`` mode."""
+``"bf16"`` mode, the bf16 hi/lo split of its ``"split"`` mode and the
+three-way split of the float32 matrix-DFT kernels (``"highest"``)."""
 
 import numpy as np
 
 from .splitfp import bf16_round
 
-__all__ = ["bf16_round", "bf16_split", "compute_precision_cholesky"]
+__all__ = ["bf16_round", "bf16_split", "bf16_split3",
+           "compute_precision_cholesky"]
 
 
 def bf16_split(x):
@@ -14,6 +16,16 @@ def bf16_split(x):
     ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (round to nearest even)."""
     hi = bf16_round(x)
     return hi, bf16_round(x - hi)
+
+
+def bf16_split3(x):
+    """``(hi, mid, lo)`` of a float32 tensor, each bf16-valued in
+    float32: ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi
+    - mid)`` (round to nearest even; both differences are exact)."""
+    hi = bf16_round(x)
+    rest = x - hi
+    mid = bf16_round(rest)
+    return hi, mid, bf16_round(rest - mid)
 
 
 def compute_precision_cholesky(covariances):

@@ -25,11 +25,14 @@ axis-0 inverse, cropped to ``(H, W)``. Each pass has two implementations
 with one contract:
 
 - a CUDA kernel written by hand for Hopper, run for a tensor on a CUDA
-  card. In ``"f32"`` mode the three float32 kernels of
-  ``csrc/pfft_conv.cu``: :func:`pfft_cols_fwd_cuda`,
-  :func:`pfft_rows_combine_cuda`, :func:`pfft_cols_inv_cuda`. In
-  ``"split"`` mode (the default dial's) the three passes run on the
-  tensor cores: :func:`pfft_cols_fwd_tc_cuda` (``csrc/pfft_conv_tc.cu``,
+  card. In ``"f32"`` mode (the ``"highest"`` setting's)
+  :func:`pfft_cols_fwd_cuda` and :func:`pfft_cols_inv_cuda` on the
+  tensor cores (``csrc/pfft_conv_wg.cu``, ``wgmma``: six bf16 products
+  of three-way splits, :func:`bf16_split3`, summed in float32, the
+  TPU's ``Precision.HIGHEST``) and :func:`pfft_rows_combine_cuda` on the
+  CUDA cores (``csrc/pfft_conv.cu``, float32). In ``"split"`` mode (the
+  default dial's) the three passes run on the tensor cores:
+  :func:`pfft_cols_fwd_tc_cuda` (``csrc/pfft_conv_tc.cu``,
   ``mma.sync``), :func:`pfft_rows_combine_tc_cuda` and
   :func:`pfft_cols_inv_tc_cuda` (``csrc/pfft_conv_wg.cu``, ``wgmma``); in
   ``"bf16"`` mode (the ``"default"`` setting's) the same kernels with one
@@ -73,11 +76,12 @@ import torch
 from ..config import dispatch, pfft_mode
 from .fft import _origin_centered, fft_conv_shape
 from .gmm_fused import TC_PRODUCTS, _check, _raise_on_error
-from .linalg import bf16_round, bf16_split
+from .linalg import bf16_round, bf16_split, bf16_split3
 
 __all__ = [
     "PFFT_LANE",
     "bf16_split",
+    "bf16_split3",
     "cols_fwd_plain",
     "cols_inv_plain",
     "conv_packed_pfft",
@@ -100,6 +104,7 @@ __all__ = [
     "reset_counters",
     "rows_combine_plain",
     "tensor_core_tables",
+    "wg_f32_tables",
     "wg_stage_tables",
 ]
 
@@ -431,11 +436,14 @@ def _check_images(x0, x1, n):
 
 def _library(name="pfft_conv"):
     """``csrc/<name>.cu`` (``pfft_conv``, ``pfft_conv_tc`` or
-    ``pfft_conv_wg``) loaded, with its C functions' argument types; the
-    ``mma.sync`` entry points take the same arguments as the float32 ones
-    of their pass, and the number of bf16 products a step before the
-    stream; the ``wgmma`` ones the tables of :func:`wg_stage_tables` in
-    place of the stage tables."""
+    ``pfft_conv_wg``) loaded, with its C functions' argument types:
+    ``pfft_conv`` pass 2 in float32 (``pfft_rows``); ``pfft_conv_tc``
+    pass 1 on ``mma.sync`` (``pfft_cols_fwd_tc``: the images, the tiles
+    of :func:`tensor_core_tables`, the twiddles and the number of bf16
+    products a step); ``pfft_conv_wg`` passes 2 and 3 of the bf16 modes
+    (the tables of :func:`wg_stage_tables` and the products) and passes
+    1 and 3 in float32 (``pfft_cols_fwd_f32``, ``pfft_cols_inv_f32``: the
+    tables of :func:`wg_f32_tables`)."""
     from ..utils.cuda_build import load_library
 
     lib = load_library(name)
@@ -445,18 +453,16 @@ def _library(name="pfft_conv"):
         cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
         cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
         if name == "pfft_conv":
-            signatures = {"pfft_cols_fwd": cols_fwd, "pfft_rows": rows,
-                          "pfft_cols_inv": cols_inv}
+            signatures = {"pfft_rows": rows}
         elif name == "pfft_conv_wg":
             signatures = {
                 "pfft_rows_wg": rows[:9] + [vp] * 5 + [ci, vp],
-                "pfft_cols_inv_wg": cols_inv[:6] + [vp] * 4 + [ci, vp]}
+                "pfft_cols_inv_wg": cols_inv[:6] + [vp] * 4 + [ci, vp],
+                "pfft_cols_fwd_f32": cols_fwd,
+                "pfft_cols_inv_f32": cols_inv}
         else:
-            # pass 1 also takes the twiddles; each takes the products
-            signatures = {
-                "pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, ci, vp],
-                "pfft_rows_tc": rows[:-1] + [ci, vp],
-                "pfft_cols_inv_tc": cols_inv[:-1] + [ci, vp]}
+            # pass 1 also takes the twiddles and the products
+            signatures = {"pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, ci, vp]}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
@@ -471,73 +477,105 @@ TC_KTILE = 32  # rows of R per pipeline stage of the tensor-core kernels
 
 
 def tensor_core_tables(m):
-    """The tensor-core kernels' stage matrices, bfloat16 ``(m, 8, 2, 256,
-    32)`` for ``mf`` and for ``mi``: per ``k2`` and per tile of 32 rows of
-    ``R`` (:func:`interleaved_stage_matrices`), the hi and lo planes of
-    ``R``'s transpose (``[n][k]``, the mma's column-major B), so that one
-    pipeline stage is one contiguous 32 KB block. The ``"bf16"`` kernels
-    read each tile's hi plane, ``bf16(R)``."""
-    out = {}
-    for name, r in interleaved_stage_matrices(m).items():
-        rt = torch.as_tensor(r).transpose(-1, -2)  # [k2][n][k]
-        planes = torch.stack([p.to(torch.bfloat16) for p in bf16_split(rt)],
-                             dim=1)  # [k2][hl][n][k]
-        tiles = planes.reshape(m, 2, 2 * PFFT_LANE, -1, TC_KTILE)
-        out[name] = tiles.permute(0, 3, 1, 2, 4).contiguous()
-    return out
+    """The ``mma.sync`` layout of ``mf``, bfloat16 ``(m, 8, 2, 256, 32)``:
+    per ``k2`` and per tile of 32 rows of ``R``
+    (:func:`interleaved_stage_matrices`), the hi and lo planes of ``R``'s
+    transpose (``[n][k]``, the mma's column-major B), so that one
+    pipeline stage is one contiguous 32 KB block. Pass 1's ``"split"``
+    and ``"bf16"`` kernel (``csrc/pfft_conv_tc.cu``) reads ``mf[0]``'s
+    tiles (the ``"bf16"`` instance each tile's hi plane, ``bf16(R)``)."""
+    rt = torch.as_tensor(interleaved_stage_matrices(m)["mf"]).transpose(-1,
+                                                                        -2)
+    planes = torch.stack([p.to(torch.bfloat16) for p in bf16_split(rt)],
+                         dim=1)  # [k2][hl][n][k]
+    tiles = planes.reshape(m, 2, 2 * PFFT_LANE, -1, TC_KTILE)
+    return tiles.permute(0, 3, 1, 2, 4).contiguous()
 
 
 WG_CHUNK = 32  # inputs k1 of a stage matrix a pipeline stage (wgmma)
+WG_F32_CHUNK = 16  # the same, the float32 kernels
 
 
-def wg_stage_tables(m):
-    """The ``wgmma`` kernels' stage matrices (``csrc/pfft_conv_wg.cu``):
-    bfloat16 ``(2, m, 4, 16384)``, for ``mf[k2]`` then ``mi[k2]``
-    (:func:`_stage_tables`, ``M[k1, b]``), per ``k2`` and per chunk of 32
-    inputs ``k1`` one pipeline stage: the hi then the lo plane, each the
-    real then the imaginary part of ``M^T`` (the products' A operand,
-    ``[b][k1]``), in 8 x 8 core matrices of 16-byte rows, ``[row
-    group][k8 block][row][k]`` (512 bytes between row groups, 128 between
-    k8 blocks). The planes are :func:`bf16_split` of the entries of
-    :func:`interleaved_stage_matrices`, which the plain version takes."""
+def _wg_tables(m, split, chunk):
+    """``mf[k2]`` then ``mi[k2]`` (:func:`_stage_tables`, ``M[k1, b]``) as
+    the ``wgmma`` kernels stream them, bfloat16 ``(2, m, 128 / chunk,
+    -1)``: per ``k2`` and per chunk of ``chunk`` inputs ``k1`` one
+    pipeline stage, the planes of ``split`` (the parts of the float32
+    entries), each the real then the imaginary part of ``M^T`` (the
+    products' A operand, ``[b][k1]``), in 8 x 8 core matrices of 16-byte
+    rows, ``[row group][k8 block][row][k]`` (``2 chunk`` bytes between
+    row groups, 128 between k8 blocks)."""
     t = _stage_tables(m)
+    chunks = PFFT_LANE // chunk
     out = []
     for name in ("mf", "mi"):
         mat = np.swapaxes(t[name], -1, -2)  # [k2][b][k1]
         parts = torch.stack([torch.as_tensor(mat.real.astype(np.float32)),
                              torch.as_tensor(mat.imag.astype(np.float32))],
                             dim=1)  # [k2][part][b][k1]
-        planes = torch.stack(bf16_split(parts), dim=1).to(torch.bfloat16)
-        # [k2][hl][part][8 rg + ri][32 c + 8 kb + ki]
-        # -> [k2][c][hl][part][rg][kb][ri][ki]
-        x = planes.reshape(m, 2, 2, 16, 8, PFFT_LANE // WG_CHUNK, 4, 8)
-        out.append(x.permute(0, 5, 1, 2, 3, 6, 4, 7).reshape(
-            m, PFFT_LANE // WG_CHUNK, -1))
+        planes = torch.stack(split(parts), dim=1).to(torch.bfloat16)
+        # [k2][s][part][8 rg + ri][chunk c + 8 kb + ki]
+        # -> [k2][c][s][part][rg][kb][ri][ki]
+        x = planes.reshape(m, -1, 2, 16, 8, chunks, chunk // 8, 8)
+        out.append(x.permute(0, 5, 1, 2, 3, 6, 4, 7).reshape(m, chunks, -1))
     return torch.stack(out).contiguous()
+
+
+def wg_stage_tables(m):
+    """The ``"split"`` and ``"bf16"`` ``wgmma`` kernels' stage matrices
+    (``csrc/pfft_conv_wg.cu``, passes 2 and 3): :func:`_wg_tables`,
+    bfloat16 ``(2, m, 4, 16384)``, chunks of 32 inputs, the hi then the
+    lo plane of :func:`bf16_split`, which the plain version takes from
+    :func:`interleaved_stage_matrices`."""
+    return _wg_tables(m, bf16_split, WG_CHUNK)
+
+
+def wg_f32_tables(m):
+    """The float32 ``wgmma`` kernels' stage matrices
+    (``csrc/pfft_conv_wg.cu``, passes 1 and 3 under ``"highest"``):
+    :func:`_wg_tables`, bfloat16 ``(2, m, 8, 12288)``, chunks of 16
+    inputs (24 KB stages), the hi, mid and lo planes of
+    :func:`bf16_split3`."""
+    return _wg_tables(m, bf16_split3, WG_F32_CHUNK)
+
+
+class _DeviceTables(dict):
+    """The stage tables of one size on one device, each built at its
+    first use: ``wf``, ``wi``, ``mf``, ``mi`` and the twiddles
+    ``tw[k2][n1] = mf[k2][n1, 0]`` (pass 1 on ``mma.sync``) as
+    interleaved complex float32, ``mf_tc`` as
+    :func:`tensor_core_tables`, ``wg`` as :func:`wg_stage_tables` and
+    ``wg3`` as :func:`wg_f32_tables`; a mode builds only those its
+    kernels read."""
+
+    _BUILDERS = {"mf_tc": tensor_core_tables, "wg": wg_stage_tables,
+                 "wg3": wg_f32_tables}
+
+    def __init__(self, m, device):
+        super().__init__()
+        self.m, self.device = m, device
+
+    def __missing__(self, name):
+        if name in self._BUILDERS:
+            table = self._BUILDERS[name](self.m).to(self.device)
+        else:
+            stage = _stage_tables(self.m)
+            t = stage["mf"][:, :, 0] if name == "tw" else stage[name]
+            table = torch.view_as_real(torch.as_tensor(
+                t.astype(np.complex64), device=self.device)).contiguous()
+        self[name] = table
+        return table
 
 
 _DEVICE_TABLES = {}
 
 
 def _device_tables(m, device):
-    """The stage tables on ``device``: ``wf``, ``wi``, ``mf``, ``mi`` and
-    the twiddles ``tw[k2][n1] = mf[k2][n1, 0]`` (pass 1 on the tensor
-    cores) as interleaved complex float32, ``mf_tc``, ``mi_tc`` as
-    :func:`tensor_core_tables`, ``wg`` as :func:`wg_stage_tables` (built
-    once per size and device)."""
+    """The :class:`_DeviceTables` of size ``m`` on ``device`` (one per
+    size and device)."""
     key = (m, str(device))
     if key not in _DEVICE_TABLES:
-        stage = dict(_stage_tables(m))
-        stage["tw"] = stage["mf"][:, :, 0]
-        tables = {
-            name: torch.view_as_real(torch.as_tensor(
-                t.astype(np.complex64), device=device)).contiguous()
-            for name, t in stage.items()
-        }
-        tables.update({f"{name}_tc": t.to(device)
-                       for name, t in tensor_core_tables(m).items()})
-        tables["wg"] = wg_stage_tables(m).to(device)
-        _DEVICE_TABLES[key] = tables
+        _DEVICE_TABLES[key] = _DeviceTables(m, device)
     return _DEVICE_TABLES[key]
 
 
@@ -567,13 +605,15 @@ def _cols_fwd_args(x0, x1, n, name):
 
 
 def pfft_cols_fwd_cuda(x0, x1, n):
-    """Launch pass 1 on ``x0``, ``x1`` ``(P, H, W)`` float32; returns
-    ``U`` ``(P, n, W)`` complex64 (:func:`cols_fwd_plain`)."""
+    """Launch pass 1 in float32 (``"f32"``, ``csrc/pfft_conv_wg.cu``: six
+    bf16 products of three-way splits a step) on ``x0``, ``x1`` ``(P, H,
+    W)`` float32; returns ``U`` ``(P, n, W)`` complex64
+    (:func:`cols_fwd_plain`)."""
     device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, "pfft_cols_fwd_cuda")
     tab = _device_tables(m, device)
-    _launch("pfft_cols_fwd", "pfft_cols_fwd_kernel", device,
-            x0.data_ptr(), x1.data_ptr(), p_, h, w, m, tab["mf"].data_ptr(),
-            tab["wf"].data_ptr(), u.data_ptr())
+    _launch("pfft_cols_fwd_f32", "pfft_cols_fwd_f32_kernel", device,
+            x0.data_ptr(), x1.data_ptr(), p_, h, w, m, tab["wg3"].data_ptr(),
+            tab["wf"].data_ptr(), u.data_ptr(), library="pfft_conv_wg")
     pfft_cols_fwd_cuda.launches += 1
     return u
 
@@ -646,15 +686,18 @@ def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
 
 
 def pfft_cols_inv_cuda(v1, v2, h):
-    """Launch pass 3 on ``V1``, ``V2`` ``(P, n, W)`` complex64; returns
-    ``(y0, y1)`` ``(P, h, W)`` float32 (:func:`cols_inv_plain`)."""
+    """Launch pass 3 in float32 (``"f32"``, ``csrc/pfft_conv_wg.cu``, as
+    :func:`pfft_cols_fwd_cuda`) on ``V1``, ``V2`` ``(P, n, W)``
+    complex64; returns ``(y0, y1)`` ``(P, h, W)`` float32
+    (:func:`cols_inv_plain`)."""
     device, p_, n, w, m = _cols_inv_args(v1, v2, h, "pfft_cols_inv_cuda")
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)
-    _launch("pfft_cols_inv", "pfft_cols_inv_kernel", device, v1.data_ptr(),
-            v2.data_ptr(), p_, h, w, m, tab["mi"].data_ptr(),
-            tab["wi"].data_ptr(), y0.data_ptr(), y1.data_ptr())
+    _launch("pfft_cols_inv_f32", "pfft_cols_inv_f32_kernel", device,
+            v1.data_ptr(), v2.data_ptr(), p_, h, w, m, tab["wg3"].data_ptr(),
+            tab["wi"].data_ptr(), y0.data_ptr(), y1.data_ptr(),
+            library="pfft_conv_wg")
     pfft_cols_inv_cuda.launches += 1
     return y0, y1
 
@@ -693,22 +736,6 @@ def _rows_tc(u, planes, conj_spec, mode, name):
     return v1, v2
 
 
-def _rows_tc_mma(u, planes, conj_spec, mode):
-    """Pass 2 on ``csrc/pfft_conv_tc.cu``'s ``mma.sync`` kernel, which no
-    wrapper launches: ``chip_smoke.py`` times it beside the ``wgmma``
-    kernel that replaced it. Both compute :func:`rows_combine_plain`."""
-    device, p_, n, w, m = _rows_args(u, planes, "_rows_tc_mma")
-    tab = _device_tables(m, device)
-    v1 = torch.empty_like(u)
-    v2 = torch.empty_like(u)
-    _launch("pfft_rows_tc", "pfft_rows_tc_kernel", device, u.data_ptr(),
-            *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
-            tab["mf_tc"].data_ptr(), tab["mi_tc"].data_ptr(),
-            tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
-            v2.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_tc")
-    return v1, v2
-
-
 def pfft_cols_inv_tc_cuda(v1, v2, h):
     """Launch pass 3 on the tensor cores (``"split"``,
     ``csrc/pfft_conv_wg.cu``): same arguments and results as
@@ -739,21 +766,6 @@ def _cols_inv_tc(v1, v2, h, mode, name):
     return y0, y1
 
 
-def _cols_inv_tc_mma(v1, v2, h, mode):
-    """Pass 3 on ``csrc/pfft_conv_tc.cu``'s ``mma.sync`` kernel, which no
-    wrapper launches (timed by ``chip_smoke.py`` beside its successor;
-    both compute :func:`cols_inv_plain`)."""
-    device, p_, n, w, m = _cols_inv_args(v1, v2, h, "_cols_inv_tc_mma")
-    tab = _device_tables(m, device)
-    y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
-    y1 = torch.empty_like(y0)
-    _launch("pfft_cols_inv_tc", "pfft_cols_inv_tc_kernel", device,
-            v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
-            tab["mi_tc"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
-            y1.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_tc")
-    return y0, y1
-
-
 # the three passes' kernels by mode
 PASSES = {
     "f32": (pfft_cols_fwd_cuda, pfft_rows_combine_cuda, pfft_cols_inv_cuda),
@@ -769,7 +781,9 @@ def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
     """The kernels of ``mode`` in turn; same contract as
     :func:`conv_packed_pfft_plain` in float32 and ``mode``: the three
     passes on the tensor cores under ``"split"`` (three products a step)
-    and ``"bf16"`` (one), on the float32 kernels under ``"f32"``."""
+    and ``"bf16"`` (one); under ``"f32"`` passes 1 and 3 on the tensor
+    cores (six products of three-way splits) and pass 2 on the CUDA
+    cores, in float32."""
     cols_fwd, rows, cols_inv = PASSES[_tc_mode(mode, torch.float32) or "f32"]
     u = cols_fwd(x0, x1, n)
     v1, v2 = rows(u, a_re, a_im, b2_re, b2_im, conj_spec)

@@ -5,8 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 build happens at first use, into ``build/kernels/`` at the root of the
 checkout (listed in ``.gitignore``), under a name keyed by a hash of the
 sources and flags, so a changed source rebuilds and an unchanged one
-loads at once. A missing ``nvcc`` or a failed build raises: there is no
-fallback to the plain PyTorch versions.
+loads at once; ``ptxas``' report of a build (registers, spills) is kept
+beside it and read back when it is reused. A missing ``nvcc`` or a
+failed build raises: there is no fallback to the plain PyTorch
+versions.
 """
 
 import ctypes
@@ -38,7 +40,8 @@ NVCC_FLAGS = (
 )
 
 # name -> {"path", "seconds", "ptxas"} of libraries this process built
-# or loaded (seconds is 0.0 when an existing build was reused)
+# or loaded (seconds is 0.0 when an existing build was reused; ptxas is
+# then the output its build kept beside it)
 BUILD_INFO = {}
 _LOADED = {}
 
@@ -65,6 +68,11 @@ def _target(name):
     return source, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def _ptxas_log(target):
+    """Where a build keeps ``nvcc``'s ``-Xptxas -v`` output."""
+    return target.with_name(target.name + ".ptxas")
+
+
 def load_libraries(*names):
     """Build (if needed) and load ``csrc/<name>.cu`` for each name.
 
@@ -88,7 +96,10 @@ def load_libraries(*names):
 
     for name, (target, tmp, proc, t0) in builds.items():
         seconds, ptxas = 0.0, ""
-        if proc is not None:
+        if proc is None:
+            log = _ptxas_log(target)
+            ptxas = log.read_text() if log.exists() else ""
+        else:
             stdout, stderr = proc.communicate()
             seconds = time.perf_counter() - t0
             if proc.returncode != 0:
@@ -97,6 +108,7 @@ def load_libraries(*names):
                     f"{proc.returncode}):\n{stdout}\n{stderr}"
                 )
             ptxas = stderr
+            _ptxas_log(target).write_text(ptxas)
             os.replace(tmp, target)
         BUILD_INFO[name] = {"path": str(target), "seconds": seconds,
                             "ptxas": ptxas}

@@ -1,45 +1,50 @@
-"""Text variants of K3's tensor-core passes 2 and 3, timed on a CUDA card.
+"""Text variants of K3's tensor-core kernels, timed on a CUDA card.
 
 Each variant is a kernel source with a few lines replaced (``VARIANTS``),
 built by ``nvcc`` like the package's libraries (all at once, into
 ``build/k3_variants/``, ``kernel_variants.py``) and loaded with
-``ctypes``. Each runs its pass 2
-and pass 3 entry points in both modes ("split": three bf16 products a
-step, "bf16": one) at the main path's batch (5 pairs of 1024², n = 1152,
-``chip_smoke.py``'s inputs), ``--reps`` calls after one (CUDA events),
-the variants in turns (in order, then in reverse order; the two
-readings' mean).
+``ctypes``. Each runs at the main path's batch (5 pairs of 1024², n =
+1152, ``chip_smoke.py``'s inputs), ``--reps`` calls after one (CUDA
+events), the variants in turns (in order, then in reverse order; the
+two readings' mean).
 
-``--source mma`` takes ``csrc/pfft_conv_tc.cu``'s ``mma.sync`` kernels
-(``pfft_rows_tc_kernel``, ``pfft_cols_inv_tc_kernel``), whose output
-sums are read, added to and written once per k2:
-
-- ``base``: the source as it is;
-- ``no_rereads``: the epilogues store without reading the earlier sums
-  back (the results are wrong): what the re-reads cost;
-- ``write_last``: no re-reads, and the epilogues store at the last k2
-  only: what the output traffic of the k2 sums costs;
-- ``no_products``: no ``mma`` at all (every copy, load and store as in
-  ``base``);
-- ``no_tables``: no copy of the stage matrices into shared memory;
-- ``u_once``: pass 2 reads its rows of U at the first k2 only.
-
-``--source wg`` takes ``csrc/pfft_conv_wg.cu``'s kernels:
+``--source wg`` (the default) takes ``csrc/pfft_conv_wg.cu``'s passes 2
+and 3 in both bf16 modes ("split": three bf16 products a step, "bf16":
+one):
 
 - ``base``; ``no_products``: no ``wgmma``; ``no_tables``: the producer
   issues no bulk copy and the consumers do not wait for one;
   ``no_epilogue``: the k2 sums are not stored; ``no_loads``: U, the
-  spectra and V are not read (constants in their place).
+  spectra and V are not read (constants in their place); ``walk_own``,
+  ``walk_full``: the consumers' walk over a table's stages unrolled by
+  ptxas' own choice or fully, not one stage at a time.
+
+``--source f32`` takes the same file's float32 passes 1 and 3
+(``"highest"``: six bf16 products of three-way splits a step):
+
+- ``base``; ``no_products``, ``no_tables`` as above; ``no_stores``: U
+  and y are not stored (ptxas then drops the products whose sums nobody
+  reads, so this is ``no_products`` without the epilogues); ``no_sums``:
+  pass 3 keeps its last k2's terms in its sums y_a, adding none;
+  ``no_loads``: x0, x1 (pass 1) are not read and V (pass 3) is not
+  copied into its staging; ``no_wi``: pass 3's weights wi are
+  constants, not loads; ``four_blocks``: pass 1 keeps four row
+  blocks' loads in flight, not two; ``y0_only``: pass 3 stores y0
+  alone; ``y_stcs``: its stores streaming (evict-first); ``y_dense``:
+  the same bytes to a dense layout, each item's rows of 8 columns back
+  to back (wrong values, whole lines); ``walk_by_1``: the walk over a
+  table's stages one stage at a time, not fully unrolled.
 
 Prints one JSON line (ms by variant, pass and mode, each variant's
 largest difference from the plain version of its mode over its max-abs
-(``rows_combine_plain``, ``cols_inv_plain``), which only ``base``
-must keep small, ``ptxas``' register and spill lines, the
-card's name and power limit) and writes it to
-``chiprun_out/k3_variants_<source>.json``. Run from the root of a
-checkout:
+(``rows_combine_plain``, ``cols_inv_plain``, ``cols_fwd_plain``), which
+only ``base`` and the variants that keep the arithmetic must keep
+small, ``ptxas``' register and spill lines, the card's name and power
+limit) and writes it to ``k3_variants_<source>.json`` in the checkout's
+output folder (beside ``build/``, listed in ``.gitignore``). Run from
+the root of a checkout:
 
-    python3 scripts/torch_k3_variants.py --source mma
+    python3 scripts/torch_k3_variants.py --source f32
 """
 
 import argparse
@@ -54,23 +59,6 @@ import kernel_variants as kv  # this script's directory
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "k3_variants"
 
-STORE2 = "dst[mt][half][kLane * a + nt * 4] = val;"
-STORE3 = "dst[mt][half][row_a + (size_t)nt * 4 * W] = part;"
-MMA = ("mma(acc[mt][nt], al, bhp);", "mma(acc[mt][nt], ah, blp);",
-       "mma(acc[mt][nt], ah, bhp);")
-ULOAD = "x[i] = urow[(size_t)(e / kLane) * W + kLane * n2 + e % kLane];"
-MMA_VARIANTS = {
-    "base": [],
-    "no_rereads": [("k2 > 0", "false")],
-    "write_last": [("k2 > 0", "false"),
-                   (STORE2, "if (k2 == m - 1) " + STORE2),
-                   (STORE3, "if (k2 == m - 1) " + STORE3)],
-    "no_products": [(line, "") for line in MMA],
-    "no_tables": [("cp_async16(dst + (c >> 2) * kLdB + (c & 3) * 8, "
-                   "src + c * 8);", "(void)dst;")],
-    "u_once": [(ULOAD, ULOAD.replace("x[i] = ", "x[i] = k2 > 0 ? "
-                                     "make_float2(0.f, 0.f) : "))],
-}
 WG_VARIANTS = {
     "base": [],
     "no_products": [("wg::wgmma_ss_n8<kSign>(", "(void)("),
@@ -91,47 +79,98 @@ WG_VARIANTS = {
          "sp[h][e] = make_float4(1.f, (float)at, 1.f, 0.f);"),
         ("a[it] = in1[at];", "a[it] = make_float2((float)at, 1.f);"),
         ("b[it] = in2[at];", "b[it] = make_float2(1.f, 0.f);")],
+    # the walk over a table's stages unrolled by ptxas' own choice, or
+    # fully, instead of one stage at a time
+    "walk_own": [("#pragma unroll(kUnroll)\n", "")],
+    "walk_full": [("walk_table<L, 1, 1>(", "walk_table<L, 1, 4>(")],
 }
-SOURCES = {"mma": ("pfft_conv_tc", MMA_VARIANTS),
-           "wg": ("pfft_conv_wg", WG_VARIANTS)}
+F32_VARIANTS = {
+    "base": [],
+    "no_products": [("wg::wgmma_rs_n32<kSign>(", "(void)("),
+                    ("wg::wgmma_rs_n16<kSign>(", "(void)(")],
+    "no_tables": WG_VARIANTS["no_tables"],
+    "no_stores": [
+        ("*reinterpret_cast<float4*>(out + (size_t)8 * h * W + 8 * j) =\n"
+         "            make_float4(re[i], im[i], re[i + 1], im[i + 1]);",
+         "(void)out;"),
+        ("*reinterpret_cast<float2*>(out + at) =\n"
+         "              make_float2(y[j][4 * e + 2 * h], "
+         "y[j][4 * e + 2 * h + 1]);", "(void)(out + at);")],
+    "no_sums": [("          y[j][i] += i < 4 ?",
+                 "          y[j][i] = i < 4 ?")],
+    "no_loads": [
+        ("xr[b][r] = __ldg(x0 + row + (size_t)r * W);",
+         "xr[b][r] = (float)(row + r);"),
+        ("xi[b][r] = __ldg(x1 + row + (size_t)r * W);", "xi[b][r] = 1.f;"),
+        ("tc::cp_async16(staging + buf * kStaging3 + 16 * c, from);",
+         "(void)from;")],
+    "four_blocks": [("constexpr int kInFlight = 2;",
+                     "constexpr int kInFlight = 4;")],
+    "no_wi": [("w[j] = __ldg(wi + (a0 + (j < na ? j : 0)) * m + k2);",
+               "w[j] = make_float2(1.f, 0.25f * j);")],
+    # pass 3's stores: only y0's; streaming (evict-first) stores; the same
+    # bytes to a dense layout (each item's rows of 8 columns back to back:
+    # wrong values, whole lines)
+    "y0_only": [("          float* out = e == 0 ? y0 : y1;",
+                 "          if (e == 1) continue;\n"
+                 "          float* out = y0;")],
+    "y_stcs": [("          *reinterpret_cast<float2*>(out + at) =\n"
+                "              make_float2(y[j][4 * e + 2 * h], "
+                "y[j][4 * e + 2 * h + 1]);",
+                "          __stcs(reinterpret_cast<float2*>(out + at),\n"
+                "              make_float2(y[j][4 * e + 2 * h], "
+                "y[j][4 * e + 2 * h + 1]));")],
+    # the walk over a table's stages one stage at a time, not fully
+    # unrolled
+    "walk_by_1": [("walk_table<L, 0, L::kTableStages>(",
+                   "walk_table<L, 0, 1>(")],
+    "y_dense": [("          const size_t at = (row0 + 8 * h) * W + c0 + "
+                 "2 * q;",
+                 "          const size_t at = ((size_t)it * H + kLane * "
+                 "(a0 + j) + b0 + 8 * h) * 8 % ((size_t)P * H * W) + "
+                 "2 * q;")],
+}
+SOURCES = {"wg": ("pfft_conv_wg", WG_VARIANTS, ("split", "bf16")),
+           "f32": ("pfft_conv_wg", F32_VARIANTS, ("f32",))}
 
 
 def calls(torch, pf, kind, lib, s, mode):
-    """The pass 2 and pass 3 calls of one variant library on the inputs
-    ``s``: outputs allocated once, each call one launch."""
+    """The two passes of one variant library on the inputs ``s`` (``wg``:
+    passes 2 and 3 of ``mode``; ``f32``: passes 1 and 3): outputs
+    allocated once, each call one launch."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     p_, n, w = s["u"].shape
     h, m = s["h"], n // 128
     tab = s["tables"]
-    prods = 3 if mode == "split" else 1
     stream = torch.cuda.current_stream().cuda_stream
     v1, v2 = torch.empty_like(s["u"]), torch.empty_like(s["u"])
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=s["u"].device)
     y1 = torch.empty_like(y0)
     planes = [t.data_ptr() for t in s["planes"]]
-    if kind == "mma":
-        lib.pfft_rows_tc.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 6 + [ci, vp]
-        lib.pfft_cols_inv_tc.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4 + [
-            ci, vp]
+    if kind == "f32":
+        lib.pfft_cols_fwd_f32.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4
+        lib.pfft_cols_inv_f32.argtypes = [vp, vp] + [ci] * 4 + [vp] * 5
+        u = torch.empty_like(s["u"])
 
-        def rows():
-            return lib.pfft_rows_tc(
-                s["u"].data_ptr(), *planes, p_, w, m, 0,
-                tab["mf_tc"].data_ptr(), tab["mi_tc"].data_ptr(),
-                tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
-                v2.data_ptr(), prods, stream)
+        def first():
+            return lib.pfft_cols_fwd_f32(
+                s["x0"].data_ptr(), s["x1"].data_ptr(), p_, h, w, m,
+                tab["wg3"].data_ptr(), tab["wf"].data_ptr(), u.data_ptr(),
+                stream)
 
         def cols():
-            return lib.pfft_cols_inv_tc(
+            return lib.pfft_cols_inv_f32(
                 s["v"][0].data_ptr(), s["v"][1].data_ptr(), p_, h, w, m,
-                tab["mi_tc"].data_ptr(), tab["wi"].data_ptr(),
-                y0.data_ptr(), y1.data_ptr(), prods, stream)
+                tab["wg3"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
+                y1.data_ptr(), stream)
+        outputs = (u,)
     else:
+        prods = 3 if mode == "split" else 1
         lib.pfft_rows_wg.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 5 + [ci, vp]
         lib.pfft_cols_inv_wg.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4 + [
             ci, vp]
 
-        def rows():
+        def first():
             return lib.pfft_rows_wg(
                 s["u"].data_ptr(), *planes, p_, w, m, 0, tab["wg"].data_ptr(),
                 tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
@@ -142,6 +181,7 @@ def calls(torch, pf, kind, lib, s, mode):
                 s["v"][0].data_ptr(), s["v"][1].data_ptr(), p_, h, w, m,
                 tab["wg"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
                 y1.data_ptr(), prods, stream)
+        outputs = (v1, v2)
 
     def checked(fn):
         def run():
@@ -150,12 +190,12 @@ def calls(torch, pf, kind, lib, s, mode):
                 raise RuntimeError(f"launch failed: CUDA error {code}")
         return run
 
-    return checked(rows), checked(cols), (v1, v2), (y0, y1)
+    return checked(first), checked(cols), outputs, (y0, y1)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--source", choices=sorted(SOURCES), default="mma")
+    parser.add_argument("--source", choices=sorted(SOURCES), default="wg")
     parser.add_argument("--reps", type=int, default=20)
     args = parser.parse_args()
 
@@ -169,7 +209,7 @@ def main():
         raise SystemExit("needs a CUDA card")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    lib_name, variants = SOURCES[args.source]
+    lib_name, variants, modes = SOURCES[args.source]
     built = kv.build({name: kv.patched_source(lib_name, patches)
                       for name, patches in variants.items()}, OUT)
     libs = {name: lib for name, (lib, _) in built.items()}
@@ -180,13 +220,16 @@ def main():
     x0, x1, planes, _, n = cs.pfft_inputs(torch, device, (1024, 1024), 4)
     u = pf.pfft_cols_fwd_cuda(x0, x1, n)
     v = pf.pfft_rows_combine_cuda(u, *planes)
-    s = {"u": u, "v": v, "h": 1024, "planes": planes,
+    s = {"x0": x0, "x1": x1, "u": u, "v": v, "h": 1024, "planes": planes,
          "tables": pf._device_tables(n // 128, device)}
     ref = {mode: (pf.rows_combine_plain(u, *planes, mode=mode),
                   pf.cols_inv_plain(*v, 1024, mode=mode))
            for mode in ("split", "bf16")}
+    ref["f32"] = ((pf.cols_fwd_plain(x0, x1, n),),
+                  pf.cols_inv_plain(*v, 1024))
+    first_pass = "cols_fwd" if args.source == "f32" else "rows"
     runs = {(name, mode): calls(torch, pf, args.source, lib, s, mode)
-            for name, lib in libs.items() for mode in ("split", "bf16")}
+            for name, lib in libs.items() for mode in modes}
     errors = {}
     for (name, mode), (rows, cols, vk, yk) in runs.items():
         rows()
@@ -195,13 +238,13 @@ def main():
         errors[f"{name} {mode}"] = max(
             float((a - b).abs().max() / b.abs().max())
             for a, b in zip((*vk, *yk), (*ref[mode][0], *ref[mode][1])))
-    ms = {f"{name} {mode}": {"rows": [], "cols_inv": []}
+    ms = {f"{name} {mode}": {first_pass: [], "cols_inv": []}
           for name, mode in runs}
     order = list(runs)
     for keys in (order, order[::-1]):
         for key in keys:
             rows, cols, _, _ = runs[key]
-            ms[" ".join(key)]["rows"].append(
+            ms[" ".join(key)][first_pass].append(
                 cs.cuda_ms(torch, rows, args.reps))
             ms[" ".join(key)]["cols_inv"].append(
                 cs.cuda_ms(torch, cols, args.reps))
@@ -211,7 +254,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     for key in mean:
-        print(f"{key}: rows {mean[key]['rows']:.4f} ms, cols_inv "
+        print(f"{key}: {first_pass} {mean[key][first_pass]:.4f} ms, cols_inv "
               f"{mean[key]['cols_inv']:.4f} ms (from the plain version "
               f"{errors[key]:.3g} of its max-abs)")
     line = json.dumps({"k3_variants": {

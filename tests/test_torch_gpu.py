@@ -33,9 +33,13 @@ split's logsumexp, against the float64 plain versions within
 error, plus 1e-6 of the max-abs, dp also within its own float32
 rounding (``chip_smoke.probe_split_compare``). The
 matrix-DFT convolution's
-three float32 kernels (K3) are held the same way against their plain
-version in float64, and the whole pipeline also within 1e-5 of its
-max-abs; the tensor-core kernels of its ``"split"`` mode against the
+three float32 kernels (K3; passes 1 and 3 on the warpgroup
+instructions, six bf16 products of three-way splits a step, pass 2 on
+the CUDA cores) are held the same way against their plain version in
+float64, and the whole pipeline also within 1e-5 of its max-abs;
+passes 1 and 3 also at every m from 1 to 37 and at 1024 x 896, pass 3
+over more than eight output blocks (its groups), each twice, bitwise
+equal; the tensor-core kernels of its ``"split"`` mode against the
 float64 plain version within twice the float32 split plain version's
 error plus 1e-6 of the max-abs, and within 1e-4 of it (split's own
 error is about 3e-5); the pfft path's loss, gradient and flux errors,
@@ -1202,6 +1206,40 @@ def test_pfft_wg_kernels_take_every_m(device, mode, p_, w, m):
             y, pf.cols_inv_plain(*v, h, mode=mode),
             pf.cols_inv_plain(*(t.to(c128) for t in v), h, f64)):
         anchored("cols_inv", got, want32, want64)
+
+
+@pytest.mark.parametrize("p_,w,m", [(2, 128, 1), (5, 1024, 9),
+                                    (5, 896, 9), (1, 512, 12),
+                                    (1, 2048, 17), (1, 256, 20),
+                                    (1, 128, 37)])
+def test_pfft_f32_kernels_take_every_m(device, p_, w, m):
+    """Passes 1 and 3 of ``"f32"`` on ``wgmma`` at every m (an item per
+    k2 in pass 1; pass 3's sums over k2 on chip) and H up to 2048 (pass 3
+    in groups of eight output blocks beyond 1024), on random images and
+    V, against the float32 plain version's error from float64 (phase 2's
+    bar); each twice, bitwise equal (no atomics)."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    n = 128 * m
+    h = min(n, max(w, 1280))
+    gen = torch.Generator(device=device).manual_seed(m + w)
+    x0, x1 = (torch.rand((p_, h, w), generator=gen, device=device)
+              for _ in range(2))
+    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    assert torch.equal(u, pf.pfft_cols_fwd_cuda(x0, x1, n))
+    pfft_anchored(u, pf.cols_fwd_plain(x0, x1, n),
+                  pf.cols_fwd_plain(x0.double(), x1.double(), n,
+                                    torch.float64))
+    v = [torch.randn((p_, n, w), generator=gen, device=device,
+                     dtype=torch.complex64) for _ in range(2)]
+    y = pf.pfft_cols_inv_cuda(*v, h)
+    assert all(torch.equal(a, b)
+               for a, b in zip(y, pf.pfft_cols_inv_cuda(*v, h)))
+    for got, want32, want64 in zip(
+            y, pf.cols_inv_plain(*v, h),
+            pf.cols_inv_plain(*(t.to(torch.complex128) for t in v), h,
+                              torch.float64)):
+        pfft_anchored(got, want32, want64)
 
 
 PFFT_HVP_JAX = Path(__file__).resolve().parent / "data" / \

@@ -74,20 +74,19 @@ def test_interleaved_matrices_reproduce_the_complex_product(m):
 
 @pytest.mark.parametrize("m", [2, 9])
 def test_tensor_core_tables_are_the_split_planes_tile_by_tile(m):
-    """Tile ``kt`` of ``k2`` holds ``R[k2][32 kt : 32 kt + 32, :]``
-    transposed (``[n][k]``), hi plane then lo plane, as the kernels read
-    it; hi + lo is R to bf16's split error."""
-    tables = pf.tensor_core_tables(m)
-    for name, r in pf.interleaved_stage_matrices(m).items():
-        tab = tables[name]
-        assert tab.dtype == torch.bfloat16
-        assert tuple(tab.shape) == (m, 8, 2, 256, 32) and tab.is_contiguous()
-        rt = torch.as_tensor(r).transpose(-1, -2)
-        hi, lo = pf.bf16_split(rt)
-        back = tab.float().permute(0, 2, 3, 1, 4).reshape(m, 2, 256, 256)
-        assert torch.equal(back[:, 0], hi) and torch.equal(back[:, 1], lo)
-        err = float((hi + lo - rt).abs().max())
-        assert err <= 2.0 ** -16 * float(rt.abs().max())
+    """Tile ``kt`` of ``k2`` holds ``R(mf)[k2][32 kt : 32 kt + 32, :]``
+    transposed (``[n][k]``), hi plane then lo plane, as pass 1's kernel
+    reads it; hi + lo is R to bf16's split error."""
+    tab = pf.tensor_core_tables(m)
+    assert tab.dtype == torch.bfloat16
+    assert tuple(tab.shape) == (m, 8, 2, 256, 32) and tab.is_contiguous()
+    r = pf.interleaved_stage_matrices(m)["mf"]
+    rt = torch.as_tensor(r).transpose(-1, -2)
+    hi, lo = pf.bf16_split(rt)
+    back = tab.float().permute(0, 2, 3, 1, 4).reshape(m, 2, 256, 256)
+    assert torch.equal(back[:, 0], hi) and torch.equal(back[:, 1], lo)
+    err = float((hi + lo - rt).abs().max())
+    assert err <= 2.0 ** -16 * float(rt.abs().max())
 
 
 def test_bf16_split():
