@@ -13,14 +13,13 @@ Phases, each printing one or more lines:
    compiler per source, all at once (the fused scorer, its forwards and
    marginalise backward on the tensor cores, the MAP scorers on the
    warpgroup instructions, the patch-level scorer, the matrix-DFT
-   convolution's pass 2 in float32, its pass 1 on the tensor cores
-   (``mma.sync``) and its passes on the warpgroup instructions: 2 and 3
-   of the ``"split"`` and ``"bf16"`` modes, 1 and 3 of ``"f32"``),
-   each kernel's registers, spills and shared memory as ``ptxas``
-   reports them, and the count of ``HGMMA`` instructions in the MAP
-   scorers' and K3's warpgroup kernels' machine code (``cuobjdump
-   -sass``; neither may be 0), also in each of the float32 passes 1 and
-   3, which must spill nothing;
+   convolution's pass 1 on the tensor cores (``mma.sync``) and its
+   passes on the warpgroup instructions: 2 and 3 of the ``"split"`` and
+   ``"bf16"`` modes, all three of ``"f32"``), each kernel's registers,
+   spills and shared memory as ``ptxas`` reports them, and the count of
+   ``HGMMA`` instructions in the MAP scorers' and K3's warpgroup
+   kernels' machine code (``cuobjdump -sass``; neither may be 0), also
+   in each of the three float32 passes, which must spill nothing;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
@@ -44,8 +43,9 @@ Phases, each printing one or more lines:
    float64, beside cuFFT's packed pair (the yardstick, timed with the
    per-observation ``rfft2`` of the same 10 images; pass 1 also beside
    the one ``torch.fft.fft`` that computes its function, pass 3 beside
-   the one ``torch.fft.ifft`` that computes its, each with its float32
-   and its six-product bound); the same for the tensor-core kernels of
+   the one ``torch.fft.ifft`` that computes its, pass 2 beside the
+   packed pair, each with its float32 and its six-product bound); the
+   same for the tensor-core kernels of
    the three passes and the ``"split"`` pipeline, held to the split
    plain version's error and to 1e-4 of the max-abs; K2, K6 and K7
    twice on the same inputs, bitwise equal;
@@ -443,8 +443,9 @@ def device_ms(torch, fn, reps, *kernels):
     return us / 1e3
 
 
-# K3's float32 passes 1 and 3 on the warpgroup instructions
-F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_cols_inv_f32_kernel")
+# K3's float32 passes on the warpgroup instructions
+F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_rows_f32_kernel",
+               "pfft_cols_inv_f32_kernel")
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
 # K9b's kernel, by the name the profiler gives it
@@ -487,7 +488,7 @@ def phase_build():
         print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
               f"{warnings or 'none'}")
         check(hgmma > 0, f"{name} has no HGMMA instruction")
-    # K3's float32 passes 1 and 3: wgmma each, no spills, no warning, and
+    # K3's float32 passes: wgmma each, no spills, no warning, and
     # no wait that ptxas had to inject between products (its C7517)
     info = BUILD_INFO["pfft_conv_wg"]
     check(not any("warning" in line or "C7517" in line
@@ -2223,7 +2224,7 @@ def worst(errs):
 def pfft_checks(torch, device, label, shape, seed):
     """K3's kernels, and the pipeline in each mode, against the plain
     version in float64 on one batch, forward and adjoint; cuFFT's packed
-    pair beside them. The float32 kernels (passes 1 and 3 on ``wgmma``,
+    pair beside them. The float32 kernels (the three passes on ``wgmma``,
     six bf16 products of three-way splits a step) are held to the float32
     plain version's error, the tensor-core kernels of ``"split"`` to the
     split plain version's. Returns the errors (kernel, float32 plain, max-abs)
@@ -2375,16 +2376,14 @@ def pfft_bounds(p_, h, w, n):
     The ``"split"`` rows (``*_split``) count the same operations three
     times (three bf16 products each) at the bf16 tensor-core peak, and
     the same bytes, the stage tables as their bf16 hi and lo planes;
-    the three passes make their pipeline's. ``cols_fwd`` and
-    ``cols_inv`` count passes 1 and 3 six times at the bf16 peak, as the
-    float32 kernels compute them (six bf16 products of three-way splits
-    on the tensor cores); ``cols_fwd_fp32`` and ``cols_inv_fp32`` are the
-    float32 CUDA cores' bound of the same work, and ``pipeline`` takes
-    passes 1 and 3 at the first and pass 2 at the float32 peak. The
-    operations are
-    counted as the TPU kernel does them, not as the kernels do (4 real
-    products per complex one), so that the yardstick does not move with
-    the design."""
+    the three passes make their pipeline's. ``cols_fwd``, ``rows``,
+    ``cols_inv`` and ``pipeline`` count the operations six times at the
+    bf16 peak, as the float32 kernels compute them (six bf16 products of
+    three-way splits on the tensor cores); ``cols_fwd_fp32``,
+    ``rows_fp32`` and ``cols_inv_fp32`` are the float32 CUDA cores' bound
+    of the same work. The operations are counted as the TPU kernel does
+    them, not as the kernels do (4 real products per complex one), so
+    that the yardstick does not move with the design."""
     m = n // 128
     vec = 98_304
     tables = 8 * m * 128 * 128
@@ -2394,16 +2393,13 @@ def pfft_bounds(p_, h, w, n):
               "rows": 8 * p_ * n * w + 16 * p_ * n * n + 16 * p_ * n * w
               + 2 * tables,
               "cols_inv": 16 * p_ * n * w + 8 * p_ * h * w + tables}
-    out = {name: bound(flop[name], nbytes[name]) for name in flop}
-    for name in ("cols_fwd", "cols_inv"):
-        out[name + "_fp32"] = out[name]
+    out = {}
+    for name in flop:
+        out[name + "_fp32"] = bound(flop[name], nbytes[name])
         out[name] = bound(6 * flop[name], nbytes[name], PEAK_BF16_FLOPS)
-    # pass 2's operations at the float32 peak, passes 1 and 3's at the
-    # bf16 one (six products each), as float32 operations at that peak
-    out["pipeline"] = bound(
-        flop["rows"] + 6 * (flop["cols_fwd"] + flop["cols_inv"])
-        * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS,
-        16 * p_ * h * w + 16 * p_ * n * n + 2 * tables)
+    out["pipeline"] = bound(6 * sum(flop.values()),
+                            16 * p_ * h * w + 16 * p_ * n * n + 2 * tables,
+                            PEAK_BF16_FLOPS)
     for name in ("cols_fwd", "rows", "cols_inv"):
         out[name + "_split"] = bound(3 * flop[name], nbytes[name],
                                      PEAK_BF16_FLOPS)
@@ -2523,16 +2519,22 @@ def phase_pfft_kernels(torch, device):
           f"{tm['cufft_pair']:.3f} ms (adjoint "
           f"{tm['cufft_pair_adjoint']:.3f}), per-observation rfft2 "
           f"{tm['cufft_rfft2']:.3f} ms")
-    # the float32 passes 1 and 3 on wgmma beside the one torch.fft call
-    # that computes each function, with both bounds and both shares
+    # the float32 passes on wgmma beside the one torch.fft call that
+    # computes the function of passes 1 and 3 (pass 2's has none), with
+    # both bounds and both shares
+    against = {"cols_fwd": "one torch.fft.fft {:.3f} ms".format(
+                   tm["torch_fft_cols"]),
+               "rows": "no one torch call (cuFFT's packed pair, the whole "
+                       "convolution, {:.3f} ms)".format(tm["cufft_pair"]),
+               "cols_inv": "one torch.fft.ifft {:.3f} ms".format(
+                   tm["torch_ifft_cols"])}
     print(f"phase 2 timing K3 f32 on wgmma {MAIN}: " + "; ".join(
-        f"{name} {tm[name]:.3f} ms against one torch.fft.{call} "
-        f"{tm['torch_' + call + '_cols']:.3f} ms; bound (six bf16 "
+        f"{name} {tm[name]:.3f} ms against {call}; bound (six bf16 "
         f"products) {bd[name]['bound_ms']:.4f} ms "
         f"({bd[name]['bound_ms'] / tm[name]:.1%}), float32 CUDA-core "
         f"bound {bd[name + '_fp32']['bound_ms']:.4f} ms "
         f"({bd[name + '_fp32']['bound_ms'] / tm[name]:.1%})"
-        for name, call in (("cols_fwd", "fft"), ("cols_inv", "ifft"))))
+        for name, call in against.items()))
     return out
 
 
@@ -3141,7 +3143,7 @@ def phase_pfft(torch, device, slice_, errors_fft):
     adjoint again. Training runs twice: under the default dial
     (``"high"``, the ``"split"`` mode: the three passes on the tensor
     cores) and under ``"highest"`` (``"f32"``: the float32 kernels,
-    passes 1 and 3 on ``wgmma``). The probe and the small run, card
+    the three passes on ``wgmma``). The probe and the small run, card
     against the CPU's plain path, run under the default dial."""
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils.bench_data import make_datasets
@@ -5501,18 +5503,17 @@ def main():
     # and two inverse ones) no one call (null; cufft_pair_ms: cuFFT's
     # packed pair, the whole convolution that the passes compute
     # together). The float32 kernels' launches are those of the
-    # "highest" run (passes 1 and 3 on wgmma, their bound that of six
+    # "highest" run (the three passes on wgmma, their bound that of six
     # bf16 products, the float32 CUDA cores' beside it as
     # bound_fp32_ms), the
     # tensor-core kernels' (and the split bound) those of the default
     # dial's "split" run.
-    pfft_src = "jolideco_torch/csrc/pfft_conv.cu"
     tc_src = "jolideco_torch/csrc/pfft_conv_tc.cu"
     wg_pfft_src = "jolideco_torch/csrc/pfft_conv_wg.cu"
     for name, source, key, line, err, path in (
             ("pfft_cols_fwd", wg_pfft_src, "cols_fwd", 379,
              pmain["cols_fwd"][0], pfft_train["highest"]),
-            ("pfft_rows_combine", pfft_src, "rows", 398,
+            ("pfft_rows_combine", wg_pfft_src, "rows", 398,
              max(pmain["rows_forward"][0], pmain["rows_adjoint"][0]),
              pfft_train["highest"]),
             ("pfft_cols_inv", wg_pfft_src, "cols_inv", 460,
@@ -5682,14 +5683,15 @@ def main():
              "gmm_score_rows_tc": {"parent_ms": rtiming["split_parent_ms"]},
              "gmm_score_rows_bf16": {"parent_ms": rtiming["bf16_parent_ms"]}}
     # K3's pass 2 beside cuFFT's packed pair (the whole convolution), and
-    # the float32 passes 1 and 3 with their float32 CUDA-core bound
-    # (phase 2)
+    # the float32 passes with their float32 CUDA-core bound (phase 2)
     for suffix in ("", "_tc", "_bf16"):
         extra["pfft_rows_combine" + suffix] = {
             "cufft_pair_ms": ptiming["cufft_pair"]}
-    for name in ("cols_fwd", "cols_inv"):
-        extra["pfft_" + name] = {
-            "bound_fp32_ms": pbound[name + "_fp32"]["bound_ms"]}
+    for name, key in (("pfft_cols_fwd", "cols_fwd"),
+                      ("pfft_rows_combine", "rows"),
+                      ("pfft_cols_inv", "cols_inv")):
+        extra.setdefault(name, {})["bound_fp32_ms"] = pbound[
+            key + "_fp32"]["bound_ms"]
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

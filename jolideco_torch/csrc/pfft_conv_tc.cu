@@ -4,10 +4,10 @@
 // ctypes (jolideco_torch/utils/cuda_build.py); the wrappers, the
 // dispatch by mode and the plain PyTorch version (mode="split",
 // mode="bf16") are in jolideco_torch/ops/pallas_fft.py, whose docstring
-// and pfft_conv.cu's header state the algorithm. Passes 2 and 3 of these
-// modes, and passes 1 and 3 of the "f32" mode, run on pfft_conv_wg.cu's
-// wgmma kernels. The kernel is a template over kProd, the bf16 products
-// a k16 step: 3 for "split", 1 for "bf16".
+// and pfft_conv_wg.cu's header state the algorithm. Passes 2 and 3 of
+// these modes, and the three passes of the "f32" mode, run on
+// pfft_conv_wg.cu's wgmma kernels. The kernel is a template over kProd,
+// the bf16 products a k16 step: 3 for "split", 1 for "bf16".
 //
 // "split" is the JAX package's _dot in split mode: both operands of each
 // stage-B product split into bf16 high and low parts (hi = bf16(x), lo =

@@ -1,27 +1,43 @@
 // K3's matrix-DFT passes on Hopper's warpgroup instructions (sm_90a):
-// passes 2 and 3 of the precision dial's "split" and "bf16" modes, and
-// passes 1 and 3 of its "f32" mode (the "highest" setting). Built by
-// nvcc into a shared library with a plain C interface and loaded with
-// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers
-// (pfft_rows_combine_tc_cuda, pfft_rows_combine_bf16_cuda,
-// pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda; pfft_cols_fwd_cuda,
-// pfft_cols_inv_cuda) and their plain versions (rows_combine_plain,
-// cols_inv_plain with mode="split" or "bf16"; cols_fwd_plain and
-// cols_inv_plain in float32, the CPU path's own) are in
-// jolideco_torch/ops/pallas_fft.py. Pass 1 of the bf16 modes stays on
-// pfft_conv_tc.cu, pass 2 of "f32" on pfft_conv.cu. The bf16 modes:
+// passes 2 and 3 in every mode of the precision dial ("f32", the
+// "highest" setting; "split", the default; "bf16", the "default"
+// setting) and pass 1 of "f32". Built by nvcc into a shared library with
+// a plain C interface and loaded with ctypes (jolideco_torch/utils/
+// cuda_build.py); the wrappers (pfft_rows_combine_cuda,
+// pfft_rows_combine_tc_cuda, pfft_rows_combine_bf16_cuda;
+// pfft_cols_inv_cuda, pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda;
+// pfft_cols_fwd_cuda) and their plain versions (rows_combine_plain,
+// cols_inv_plain, cols_fwd_plain with mode "f32", "split" or "bf16"; in
+// "f32" the CPU path's own) are in jolideco_torch/ops/pallas_fft.py. Pass
+// 1 of the bf16 modes stays on pfft_conv_tc.cu (mma.sync). The modes:
 // kProd bf16 products a k16 step, 3 for "split" (hi.hi + hi.lo + lo.hi
-// of the operands' bf16 hi and lo parts), 1 for "bf16" (hi.hi). The
-// float32 passes are described after pass 3 of the bf16 modes, below.
+// of the operands' bf16 hi and lo parts), 1 for "bf16" (hi.hi), and kF32
+// for "f32", six products of three-way splits (described after pass 3 of
+// the bf16 modes, below).
+//
+// The algorithm: for P pairs of real (H, W) images (H, W multiples of
+// 128) and a transform size n = 128 m, the three passes compute y0 = x0 *
+// k0 and y1 = x1 * k1, cropped to (H, W), through one complex transform
+// of z = x0 + i x1:
+//     y0 + i y1 = IFFT2(A . Z) + FWDP2(B2 . conj(Z)),   Z = FFT2(z),
+// with the spectra A = (K0 + K1)/2 and B2 (the frequency-reversed
+// (K0 - K1)/2) given in the permuted order: storage position 128 k2 + k1
+// holds frequency m k1 + k2. Each 1-D transform factors into stage A, an
+// m-point DFT over the 128-strided blocks (n2 -> k2), and stage B, m
+// complex products with 128 x 128 matrices that carry the size-n
+// twiddles (mf, mi; mi holds the 1/n). The inverse runs stage B first and
+// stage A on its outputs. FWDP is the inverse with conjugate matrices and
+// conjugate stage-A weights. With conj_spec the imaginary parts of A and
+// B2 change sign: that is the adjoint (a correlation).
 //
 // What it replaces: the JAX package's ops/pallas_fft.py::_k2_body (pass
 // 2: per row the lane forward, the spectrum combine, the lane inverse and
 // the permuted forward, cropped to W columns) and ::_k3_body (pass 3: the
-// axis-0 inverse plus permuted forward, cropped to H rows) under
-// precision HIGH and DEFAULT; ::_k1_body (pass 1: the axis-0 forward
-// into permuted rows) and _k3_body under HIGHEST. In this port they
-// replace pfft_conv_tc.cu's mma.sync passes 2 and 3 and pfft_conv.cu's
-// float32 passes 1 and 3 (FFMA on the CUDA cores), which are gone.
+// axis-0 inverse plus permuted forward, cropped to H rows) under every
+// precision; ::_k1_body (pass 1: the axis-0 forward into permuted rows)
+// under HIGHEST. In this port they replace pfft_conv_tc.cu's mma.sync
+// passes 2 and 3 and pfft_conv.cu's float32 passes (FFMA on the CUDA
+// cores), which are gone.
 //
 // The roundings are the plain version's, and the JAX package's: each
 // product rounds its data operand (S_k2, A . Z or conj(B2) . Z,
@@ -42,8 +58,9 @@
 // accumulator rows lane / 4 and lane / 4 + 8 of both tiles are outputs b
 // and b + 8, complete.
 //
-// pfft_rows_wg_kernel, per strip of kR = 8 rows of U (of one pair), per
-// round of up to kRound = 9 k2 (one round for m <= 9), k2 by k2:
+// pfft_rows_wg_kernel (the bf16 modes) and pfft_rows_f32_kernel ("f32"),
+// one body, per strip of kR = 8 rows of U (of one pair), per round of up
+// to kRound = 9 k2 (one round for m <= 9), k2 by k2:
 //   stage A  X = sum_n2 wf[n2][k2] U[r, 128 n2 + .], U read from device
 //            memory for the first k2 and from L2 for the others;
 //   product  Z_k2 = X mf[k2] (N = 8, the strip's rows);
@@ -64,57 +81,61 @@
 // A thread's accumulator columns 2 (lane % 4) + e of each k2 are rows
 // (columns) 2 (lane % 4) + e of the strip, so the k2 sum of an output is
 // one thread's: the first kRegK2 = 5 products of a round stay in its
-// registers, the other four in its slots of shared memory (all nine in
-// registers spill). For m <= 9, V1, V2, y0 and y1 are written once a
-// call and never read; a larger m takes ceil(m / 9) rounds, each after
-// the first adding to the sums the one before stored (the same thread's
-// addresses). The strip is 8 rows: every k2's table is read once a
-// strip, so fewer rows would read the tables more often, and more would
-// not fit a round's sums on chip.
+// registers, the others in its slots of shared memory (all nine in
+// registers spill). For m <= 9, V1,
+// V2, y0 and y1 are written once a call and never read; a larger m takes
+// ceil(m / 9) rounds, each after the first adding to the sums the one
+// before stored (the same thread's addresses). The strip is 8 rows:
+// every k2's table is read once a strip, so fewer rows would read the
+// tables more often, and more would not fit a round's sums on chip.
 //
 // The design:
 // - one persistent CTA of three warpgroups on each SM, walking over the
 //   strips (blockIdx.x, + gridDim.x, ...);
 // - warpgroups 0 and 1 multiply by wgmma.mma_async (bf16 in, float32
-//   out), both operands shared-memory descriptors: A is a 64-row tile of
-//   a table plane, the warpgroup's outputs; B is the operand rows, K-major
-//   8 x 8 core matrices (no swizzle; 128 B between the two of a k16
-//   step, 4 KB between groups of eight rows), written by the CUDA cores
-//   in bf16 (hi and lo planes for "split") and made visible to the
-//   tensor cores by a proxy fence;
-// - each product's K sum of 256 runs in one accumulator set started
-//   fresh (scale-d 0), as the plain version's one matmul; the sums over
-//   k2 run in float32 on the CUDA cores;
+//   out), B the operand rows, K-major 8 x 8 core matrices (no swizzle;
+//   128 B between the two of a k16 step, 4 KB between groups of eight
+//   rows), written by the CUDA cores in bf16 (the mode's planes: hi; hi
+//   and lo; hi, mid and lo) and made visible to the tensor cores by a
+//   proxy fence; A is a 64-row tile of a table plane, the warpgroup's
+//   outputs, a shared-memory descriptor in the bf16 modes, from
+//   registers in "f32" (below);
+// - each product's K sum of 256 runs in accumulators started fresh, as
+//   the plain version's one matmul; the sums over k2 run in float32 on
+//   the CUDA cores;
 // - warpgroup 2 is cut to 40 registers by setmaxnreg (the multiplying
-//   warpgroups get 232): one thread keeps the tables' chunks of 32
-//   inputs k1 in flight in a ring of shared-memory stages (32 KB for
-//   "split", hi and lo; 16 KB for "bf16", hi), each a bulk copy
-//   completing on the stage's mbarrier; a stage is freed by its eight
-//   consumer warps once their products on it are done;
+//   warpgroups get 232): one thread keeps the tables' chunks in flight
+//   in a ring of shared-memory stages (the bf16 modes: 32 inputs k1 a
+//   stage, 32 KB for "split", hi and lo, 16 KB for "bf16", hi; "f32": 16
+//   inputs, 24 KB, three parts), each a bulk copy completing on the
+//   stage's mbarrier; a stage is freed by its eight consumer warps once
+//   their products on it are done;
 // - stage A, the combine and the epilogues run on the two multiplying
 //   warpgroups between their products (one named barrier of 256 threads
 //   orders the operand rows' writes and reads: two a k2 in pass 2; pass
 //   3 alternates two operand buffers, so one a k2 does).
 //
-// What bounds it on the H100: device-memory bytes set the bound
-// (chip_smoke.py::pfft_bounds: at 5 pairs of 1024^2, n = 1152, pass 2
-// moves 250 MB, 0.075 ms at 3.35 TB/s, pass 3 137.5 MB, 0.041 ms). The
-// kernels also read every k2's table once a strip from L2 (pass 2 m x
-// 256 KB a strip of 8 rows under "split", 1.66 GB a call at m = 9, half
-// under "bf16"; pass 3 half of pass 2's), issue nine times the wgmma
-// instructions one table for all k2 would (N = 8 and 16), each reading
-// its 2 KB A tile from shared memory, and run a strip's loads, combines
-// and epilogue between them with nothing to overlap them; PERF.md
-// section 6 has the times (chip_smoke.py phase 2) and what the
-// variants of scripts/torch_k3_variants.py --source wg take off them.
+// What bounds it on the H100: device-memory bytes set the bound of the
+// bf16 modes, operations that of "f32" (chip_smoke.py::pfft_bounds: at
+// 5 pairs of 1024^2, n = 1152, pass 2 moves 250 MB, 0.075 ms at 3.35
+// TB/s, pass 3 137.5 MB, 0.041 ms; pass 2 in "f32" 0.093 ms of six bf16
+// products). The kernels also read every k2's table once a strip from
+// L2 (pass 2 m x 256 KB a strip of 8 rows under "split", 1.66 GB a call
+// at m = 9, half under "bf16", 384 KB and 2.49 GB under "f32"; pass 3
+// half of pass 2's), issue nine times the wgmma instructions one table
+// for all k2 would (N = 8 and 16), and run a strip's loads, combines and
+// epilogue between them with nothing to overlap them; PERF.md section 6
+// has the times (chip_smoke.py phase 2) and what the variants of
+// scripts/torch_k3_variants.py take off them.
 //
 // Budgets (a CTA): shared memory, the operand rows (pass 2: 3 groups of
-// eight rows of 512 B in each bf16 plane, 24 KB "split", 12 KB "bf16";
-// pass 3: 4 groups, 32 and 16 KB), four products' slots (64 KB), then as
-// many ring stages as fit the 227 KB (4 of 32 KB "split", 9 of 16 KB
-// "bf16"); registers: 168 at entry, 232 in the multiplying warpgroups
-// after setmaxnreg, 40 in the producer's, no spills; a multiplying
-// thread holds 2 x 40 accumulators of a round's first five N = 16
+// eight rows of 512 B in each bf16 plane, 24 KB "split", 12 KB "bf16",
+// 36 KB "f32"; pass 3: 4 groups, 32 and 16 KB), the products kept in
+// shared memory (16 KB each: 64 KB in the bf16 modes), then as many ring
+// stages as fit the 227 KB (4 of 32 KB "split", 9 of 16 KB "bf16");
+// registers: 168 at entry, 232 in the multiplying warpgroups after
+// setmaxnreg, 40 in the producer's, no spills; a multiplying thread
+// holds 2 x 8 accumulators of each of a round's first five N = 16
 // products.
 
 #include <cuda_bf16.h>
@@ -143,9 +164,20 @@ constexpr int kGroupBytes = 2 * kLane / 8 * 128;  // 4 KB: eight rows
 constexpr int kImK = kLane / 8 * 128;             // the imaginary parts
 constexpr int kSmemMax = 232448;                  // 227 KB a CTA
 // A round's N = 16 products: slots 0 .. kRegK2 - 1 stay in registers,
-// the others in shared memory (registers for all nine spill)
+// the others in shared memory (registers for all nine spill; in pass 2
+// of "f32" 3, 4, 6 or 7 in registers ran slower, scripts/
+// torch_k3_variants.py --source f32, rows_reg*)
 constexpr int kRegK2 = 5;
 constexpr int kStoreBytes = (kRound - kRegK2) * kConsumers * 64;  // 64 KB
+
+// "f32": six bf16 products of three-way splits (kF32 in place of kProd);
+// its tables' stages, a chunk of 16 inputs k1 in three parts
+constexpr int kF32 = 6;
+constexpr int kParts = 3;                          // hi, mid, lo
+constexpr int kChunk3 = 16;                        // inputs k1 a stage
+constexpr int kChunks3 = kLane / kChunk3;          // 8 stages a table
+constexpr int kPlane3 = kLane * kChunk3 * 2;       // 4 KB: Re or Im of a part
+constexpr int kStage3 = kParts * 2 * kPlane3;      // 24 KB
 
 // Shared memory: the ring of kStageBytes stages, the operand rows
 // (kOperandBytes), kExtraBytes of the kernel's own, then the barriers;
@@ -179,6 +211,17 @@ struct Layout
 constexpr int kRowsGroups = 3;  // pass 2
 constexpr int kColsGroups = 4;  // pass 3
 
+// Pass 2 of mode kProd: Layout<kProd, kRowsGroups>; in "f32" (kF32) a
+// stage a chunk's three parts, and three operand planes of its groups
+template <int kProd>
+struct RowsLayout : Layout<kProd, kRowsGroups> {};
+template <>
+struct RowsLayout<kF32>
+    : RingLayout<kStage3, kChunks3, kStage3,
+                 kParts * kRowsGroups * kGroupBytes, kStoreBytes> {
+  static constexpr int kOperandPlane = kRowsGroups * kGroupBytes;
+};
+
 // A thread's 16 accumulators of slot j >= kRegK2 as four float4,
 // [slot][quarter][thread] (consecutive threads, consecutive 16 bytes).
 __device__ __forceinline__ void store_product(float4* kept, int j,
@@ -211,6 +254,13 @@ __device__ __forceinline__ void cfma(float2& s, float2 a, float2 b) {
   s.y = fmaf(a.x, b.y, fmaf(a.y, b.x, s.y));
 }
 
+// The byte of operand row n, input k (its real part; the imaginary part
+// is kImK further) in a bf16 plane of 8 x 8 core matrices.
+__device__ __forceinline__ int operand_offset(int n, int k) {
+  return (n >> 3) * kGroupBytes + (k >> 3) * 128 + (n & 7) * 16 +
+         (k & 7) * 2;
+}
+
 // The complex value z into operand row n, input k (real part at K = k,
 // imaginary part at K = 128 + k) of the bf16 planes: split into hi =
 // bf16(x) and lo = bf16(x - hi), or rounded into hi alone (round to
@@ -218,8 +268,7 @@ __device__ __forceinline__ void cfma(float2& s, float2 a, float2 b) {
 template <int kProd>
 __device__ __forceinline__ void put(unsigned char* hi, unsigned char* lo,
                                     int n, int k, float2 z) {
-  const int off = (n >> 3) * kGroupBytes + (k >> 3) * 128 + (n & 7) * 16 +
-                  (k & 7) * 2;
+  const int off = operand_offset(n, k);
   const bf16 hr = __float2bfloat16_rn(z.x), hm = __float2bfloat16_rn(z.y);
   *reinterpret_cast<bf16*>(hi + off) = hr;
   *reinterpret_cast<bf16*>(hi + off + kImK) = hm;
@@ -229,6 +278,79 @@ __device__ __forceinline__ void put(unsigned char* hi, unsigned char* lo,
     *reinterpret_cast<bf16*>(lo + off + kImK) =
         __float2bfloat16_rn(z.y - __bfloat162float(hm));
   }
+}
+
+// x in three bf16 parts, round to nearest even (ops/linalg.py::
+// bf16_split3): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
+// both differences are exact in float32
+__device__ __forceinline__ void split3(float x, bf16 (&part)[kParts]) {
+  part[0] = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(part[0]);
+  part[1] = __float2bfloat16_rn(r);
+  part[2] = __float2bfloat16_rn(r - __bfloat162float(part[1]));
+}
+
+// The complex value z into operand row n, input k of the three parts'
+// planes (`plane` bytes apart), split three ways.
+__device__ __forceinline__ void put3(unsigned char* op, int plane, int n,
+                                     int k, float2 z) {
+  const int off = operand_offset(n, k);
+  bf16 re[kParts], im[kParts];
+  split3(z.x, re);
+  split3(z.y, im);
+#pragma unroll
+  for (int p = 0; p < kParts; ++p) {
+    *reinterpret_cast<bf16*>(op + p * plane + off) = re[p];
+    *reinterpret_cast<bf16*>(op + p * plane + off + kImK) = im[p];
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// The complex inputs k0 .. k0 + 7 (k0 a multiple of 8) of operand row n,
+// split three ways: per part (op_part bytes apart), one 16-byte row of a
+// core matrix for the real parts and one for the imaginary parts (eight
+// threads of consecutive rows n write 128 bytes on distinct banks).
+__device__ __forceinline__ void put_row8(unsigned char* op, int op_part,
+                                         int n, int k0,
+                                         const float2 (&z)[8]) {
+  const int off = operand_offset(n, k0);
+  uint32_t re[kParts][4], im[kParts][4];
+#pragma unroll
+  for (int r = 0; r < 8; r += 2) {
+    bf16 a[kParts], b[kParts], c[kParts], d[kParts];
+    split3(z[r].x, a);
+    split3(z[r + 1].x, b);
+    split3(z[r].y, c);
+    split3(z[r + 1].y, d);
+#pragma unroll
+    for (int q = 0; q < kParts; ++q) {
+      re[q][r / 2] = pack2(a[q], b[q]);
+      im[q][r / 2] = pack2(c[q], d[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) {
+    unsigned char* at = op + q * op_part + off;
+    *reinterpret_cast<uint4*>(at) =
+        make_uint4(re[q][0], re[q][1], re[q][2], re[q][3]);
+    *reinterpret_cast<uint4*>(at + kImK) =
+        make_uint4(im[q][0], im[q][1], im[q][2], im[q][3]);
+  }
+}
+
+// The complex value z into operand row n, input k of the planes of mode
+// kProd (L::kOperandPlane bytes apart).
+template <int kProd, class L>
+__device__ __forceinline__ void put_op(unsigned char* op, int n, int k,
+                                       float2 z) {
+  if constexpr (kProd == kF32)
+    put3(op, L::kOperandPlane, n, k, z);
+  else
+    put<kProd>(op, op + L::kOperandPlane, n, k, z);
 }
 
 template <int kN, int kSign>
@@ -291,10 +413,9 @@ struct Ring {
 // memory, 0 where A is in registers that the next step loads anew. The
 // loop is unrolled kUnroll stages at a time: 1 for the bf16 modes'
 // products (fully unrolled, the "split" instances spill; ptxas' own
-// choice ran "split" pass 2 at 0.697 ms against 0.487 with 1), fully for
-// the float32 ones (pass 3 0.2175 ms against 0.2294 with 1); an NVIDIA
-// H100 80GB HBM3 at 700 W, scripts/torch_k3_variants.py's walk_*
-// variants.
+// choice ran "split" pass 2 at 0.697 ms against 0.487 with 1); for the
+// float32 ones kColsUnroll and kRowsUnroll say (an NVIDIA H100 80GB HBM3
+// at 700 W, scripts/torch_k3_variants.py's walk_* variants).
 template <class L, int kPending, int kUnroll, class Step>
 __device__ __forceinline__ void walk_table(const unsigned char* ring,
                                            uint64_t* full, uint64_t* empty,
@@ -322,10 +443,10 @@ __device__ __forceinline__ void walk_table(const unsigned char* ring,
   }
 }
 
-// One k2's product: re[0 .. kN / 2) and im[0 .. kN / 2), the real and
-// imaginary parts of the warpgroup's 64 outputs, = the kN operand rows at
-// b_hi, b_lo times the next table in the ring, over its kChunks stages,
-// into accumulators started fresh.
+// One k2's product in a bf16 mode: re[0 .. kN / 2) and im[0 .. kN / 2),
+// the real and imaginary parts of the warpgroup's 64 outputs, = the kN
+// operand rows at b_hi, b_lo times the next table in the ring, over its
+// kChunks stages, into accumulators started fresh.
 template <int kN, class L, int kProd>
 __device__ __forceinline__ void product(float* re, float* im,
                                         const unsigned char* ring,
@@ -360,20 +481,158 @@ __device__ __forceinline__ void product(float* re, float* im,
   }
 }
 
-// One k2 slot's N = 16 product (slot j of the round): into pr, pi + 8 j
-// for j < kRegK2, else into the shared-memory store.
-template <class L, int kProd>
-__device__ __forceinline__ void kept_product(
-    int j, float* pr, float* pi, float4* kept, const unsigned char* ring,
-    const unsigned char* b_hi, const unsigned char* b_lo, int wgi,
-    uint64_t* full, uint64_t* empty, Ring& ring_pos) {
+// The A fragments of this warp's 16 rows (outputs b) of its
+// warpgroup's 64, for each part and plane (0 Re M^T, 1 Im M^T) of a
+// float32 stage: ldmatrix of the core matrices (rows 0-7, k 0-7), (8-15,
+// 0-7), (0-7, 8-15), (8-15, 8-15), 256 bytes between row groups.
+__device__ __forceinline__ void load_a(uint32_t (&a)[kParts][2][4],
+                                       const unsigned char* stage, int wgi) {
+  const int lane = threadIdx.x & 31, i = lane >> 3;
+  const int off = (8 * wgi + 2 * ((threadIdx.x >> 5) & 3) + (i & 1)) * 256 +
+                  (i >> 1) * 128 + (lane & 7) * 16;
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      tc::ldsm_x4(a[p][r], reinterpret_cast<const bf16*>(
+                               stage + (2 * p + r) * kPlane3 + off));
+}
+
+// Keeps a step's fragments in their registers until the products that
+// read them are done (called after the wait that covers them): an
+// asynchronous product reads its A registers after the instruction.
+__device__ __forceinline__ void fence_a(uint32_t (&a)[kParts][2][4]) {
+#pragma unroll
+  for (int p = 0; p < kParts; ++p)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][r][i])::"memory");
+}
+
+// The accumulators of a k2's product over kN operand rows (kN / 2 a
+// thread in each): hi.hi, and the five smaller products, apart. The
+// tensor cores' float32 sums truncate, so each instruction may lose up
+// to a unit of the last place of its accumulator; hi.hi alone takes 16
+// instructions an output, the others 80 at 2^-8 of its size (in one set:
+// 96 at the full size, 1.7e-6 of the max-abs of random data, where the
+// float32 plain version reaches 3.6e-7 on an H100).
+template <int kN>
+struct Acc6 {
+  float re[kN / 2], im[kN / 2];      // hi.hi
+  float re_s[kN / 2], im_s[kN / 2];  // the other five
+};
+
+template <int kSign>
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wg::wgmma_rs_n32<kSign>(d, a, b, 1);
+}
+
+template <int kSign>
+__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wg::wgmma_rs_n16<kSign>(d, a, b, 1);
+}
+
+template <int kSign>
+__device__ __forceinline__ void mma_rs(float (&d)[4], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  wg::wgmma_rs_n8<kSign>(d, a, b, 1);
+}
+
+// One product of k16 step t: A part a (its Re M^T and Im M^T fragments)
+// by operand part b, B the operand rows' real parts at k16 step t and
+// imaginary ones at 8 + t:
+//     Re z += x_re Re M - x_im Im M,   Im z += x_re Im M + x_im Re M.
+template <int kAcc>
+__device__ __forceinline__ void mac(float (&re)[kAcc], float (&im)[kAcc],
+                                    const uint32_t (&a)[2][4],
+                                    const unsigned char* b, int t) {
+  const uint64_t br = wg::smem_desc(b + 256 * t, 128, kGroupBytes);
+  const uint64_t bi = wg::smem_desc(b + 256 * (8 + t), 128, kGroupBytes);
+  mma_rs<1>(re, a[0], br);
+  mma_rs<-1>(re, a[1], bi);
+  mma_rs<1>(im, a[1], br);
+  mma_rs<1>(im, a[0], bi);
+}
+
+// k16 step t of a k2's product: the six products (A part, B part) whose
+// orders sum below three, the small ones first; the operand's parts are
+// `part` bytes apart.
+template <int kN>
+__device__ __forceinline__ void mac6(Acc6<kN>& d,
+                                     const uint32_t (&a)[kParts][2][4],
+                                     const unsigned char* op, int part,
+                                     int t) {
+  mac(d.re_s, d.im_s, a[2], op, t);             // lo . hi
+  mac(d.re_s, d.im_s, a[1], op + part, t);      // mid . mid
+  mac(d.re_s, d.im_s, a[0], op + 2 * part, t);  // hi . lo
+  mac(d.re_s, d.im_s, a[1], op, t);             // mid . hi
+  mac(d.re_s, d.im_s, a[0], op + part, t);      // hi . mid
+  mac(d.re, d.im, a[0], op, t);                 // hi . hi
+}
+
+// One k2's product in "f32": re, im (the warpgroup's 64 outputs b by the
+// kN operand rows) = the operand rows (three parts, `part` bytes apart)
+// times the next table in the ring, over its kChunks3 stages (the walk
+// unrolled kUnroll at a time), into accumulators started at zero, the
+// two sets of Acc6 added at the end. A step's fragments are loaded once
+// the step before is done (loading them while it multiplies, in a second
+// set, was no faster).
+template <class L, int kN, int kUnroll>
+__device__ __forceinline__ void product6(float* re, float* im,
+                                         const unsigned char* ring,
+                                         const unsigned char* op, int part,
+                                         int wgi, uint64_t* full,
+                                         uint64_t* empty, Ring& ring_pos) {
+  constexpr int kAcc = kN / 2;
+  // the zeros are written before the first product (left to itself, the
+  // compiler writes each set's between products, and ptxas then waits
+  // for those in flight: its C7517)
+  Acc6<kN> d;
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    d.re[i] = 0.f;
+    d.im[i] = 0.f;
+    d.re_s[i] = 0.f;
+    d.im_s[i] = 0.f;
+    wg::fence_operand(d.re[i]);
+    wg::fence_operand(d.im[i]);
+    wg::fence_operand(d.re_s[i]);
+    wg::fence_operand(d.im_s[i]);
+  }
+  uint32_t a[kParts][2][4];
+  walk_table<L, 0, kUnroll>(ring, full, empty, ring_pos,
+                            [&](int t, const unsigned char* stage) {
+    // the step before is done: its fragments are free
+    if (t > 0) fence_a(a);
+    load_a(a, stage, wgi);
+    wg::wgmma_fence();
+    mac6(d, a, op, part, t);
+  });
+  fence_a(a);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    wg::fence_operand(d.re[i]);
+    wg::fence_operand(d.im[i]);
+    wg::fence_operand(d.re_s[i]);
+    wg::fence_operand(d.im_s[i]);
+    re[i] = d.re_s[i] + d.re[i];
+    im[i] = d.im_s[i] + d.im[i];
+  }
+}
+
+// One k2 slot's N = 16 product (slot j of the round): prod(re, im) into
+// pr, pi + 8 j for j < kRegK2, else into the shared-memory store.
+template <class Prod>
+__device__ __forceinline__ void kept_product(int j, float* pr, float* pi,
+                                             float4* kept, Prod&& prod) {
   if (j < kRegK2) {
-    product<16, L, kProd>(pr + 8 * j, pi + 8 * j, ring, b_hi, b_lo, wgi,
-                          full, empty, ring_pos);
+    prod(pr + 8 * j, pi + 8 * j);
   } else {
     float tr[8], ti[8];
-    product<16, L, kProd>(tr, ti, ring, b_hi, b_lo, wgi, full, empty,
-                          ring_pos);
+    prod(tr, ti);
     store_product(kept, j, tr, ti);
   }
 }
@@ -443,25 +702,41 @@ __device__ __forceinline__ void init_barriers(uint64_t* full,
 // ---------------------------------------------------------------------
 // pass 2
 
+// the float32 pass 2's walk over a table's stages: one stage at a time
+// (scripts/torch_k3_variants.py --source f32, rows_walk_full)
+constexpr int kRowsUnroll = 1;
+
+// One k2's product of pass 2 in mode kProd: the kN operand rows at op
+// (the mode's planes L::kOperandPlane bytes apart) times the next table.
+template <int kN, class L, int kProd>
+__device__ __forceinline__ void rows_product(float* re, float* im,
+                                             const unsigned char* ring,
+                                             const unsigned char* op,
+                                             int wgi, uint64_t* full,
+                                             uint64_t* empty,
+                                             Ring& ring_pos) {
+  if constexpr (kProd == kF32)
+    product6<L, kN, kRowsUnroll>(re, im, ring, op, L::kOperandPlane, wgi,
+                                 full, empty, ring_pos);
+  else
+    product<kN, L, kProd>(re, im, ring, op, op + L::kOperandPlane, wgi,
+                          full, empty, ring_pos);
+}
+
+// Pass 2 in mode kProd (1, 3 or kF32), the body of its kernels
 template <int kProd>
-__global__ void __launch_bounds__(kThreads, 1)
-pfft_rows_wg_kernel(const float2* __restrict__ u,
-                    const float* __restrict__ a_re,
-                    const float* __restrict__ a_im,
-                    const float* __restrict__ b_re,
-                    const float* __restrict__ b_im, int P, int W, int m,
-                    float asign, const unsigned char* __restrict__ tables,
-                    const float2* __restrict__ wf,
-                    const float2* __restrict__ wi, float2* __restrict__ v1,
-                    float2* __restrict__ v2) {
-  using L = Layout<kProd, kRowsGroups>;
-  extern __shared__ __align__(1024) unsigned char smem[];
+__device__ __forceinline__ void rows_body(
+    unsigned char* smem, const float2* __restrict__ u,
+    const float* __restrict__ a_re, const float* __restrict__ a_im,
+    const float* __restrict__ b_re, const float* __restrict__ b_im, int P,
+    int W, int m, float asign, const unsigned char* __restrict__ tables,
+    const float2* __restrict__ wf, const float2* __restrict__ wi,
+    float2* __restrict__ v1, float2* __restrict__ v2) {
+  using L = RowsLayout<kProd>;
   unsigned char* ring = smem;
-  // X in row group 0, [Y1; Y2] in groups 1 and 2
-  unsigned char* x_hi = smem + L::kOperandOffset;
-  unsigned char* x_lo = x_hi + L::kOperandPlane;  // "split" only
-  unsigned char* y_hi = x_hi + kGroupBytes;
-  unsigned char* y_lo = x_lo + kGroupBytes;
+  // X in row group 0, [Y1; Y2] in groups 1 and 2 of each plane
+  unsigned char* x_op = smem + L::kOperandOffset;
+  unsigned char* y_op = x_op + kGroupBytes;
   float4* kept = reinterpret_cast<float4*>(smem + L::kExtraOffset);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
   uint64_t* empty = full + L::kDepth;
@@ -525,7 +800,7 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
           }
 #pragma unroll
           for (int it = 0; it < 4; ++it)
-            put<kProd>(x_hi, x_lo, g, 4 * (warp + 8 * it) + q, s[it]);
+            put_op<kProd, L>(x_op, g, 4 * (warp + 8 * it) + q, s[it]);
         }
         wg::fence_proxy_async();
         wg::bar_sync(1, kConsumers);
@@ -542,8 +817,8 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
                                    __ldg(b_re + at), __ldg(b_im + at));
           }
         float zr[4], zi[4];
-        product<8, L, kProd>(zr, zi, ring, x_hi, x_lo, wgi, full, empty,
-                             ring_pos);
+        rows_product<8, L, kProd>(zr, zi, ring, x_op, wgi, full, empty,
+                                  ring_pos);
         // Y is free: both warpgroups passed this k2's barrier after their
         // products of the k2 before
 #pragma unroll
@@ -554,13 +829,15 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
             const float4 c = sp[h][e];
             const float2 y1 = cmul(make_float2(c.x, asign * c.y), zz);
             const float2 y2 = cmul(make_float2(c.z, -asign * c.w), zz);
-            put<kProd>(y_hi, y_lo, 2 * q + e, b0 + 8 * h, y1);
-            put<kProd>(y_hi, y_lo, 8 + 2 * q + e, b0 + 8 * h, y2);
+            put_op<kProd, L>(y_op, 2 * q + e, b0 + 8 * h, y1);
+            put_op<kProd, L>(y_op, 8 + 2 * q + e, b0 + 8 * h, y2);
           }
         wg::fence_proxy_async();
         wg::bar_sync(1, kConsumers);
-        kept_product<L, kProd>(j, pr, pi, kept, ring, y_hi, y_lo, wgi, full,
-                               empty, ring_pos);
+        kept_product(j, pr, pi, kept, [&](float* re, float* im) {
+          rows_product<16, L, kProd>(re, im, ring, y_op, wgi, full, empty,
+                                     ring_pos);
+        });
       }
 
       // V1 = sum_k2 wi P1, V2 = conj(sum_k2 wi P2)
@@ -606,6 +883,39 @@ pfft_rows_wg_kernel(const float2* __restrict__ u,
       }
     }
   }
+}
+
+// the bf16 modes' pass 2 (kProd 3 or 1)
+template <int kProd>
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_rows_wg_kernel(const float2* __restrict__ u,
+                    const float* __restrict__ a_re,
+                    const float* __restrict__ a_im,
+                    const float* __restrict__ b_re,
+                    const float* __restrict__ b_im, int P, int W, int m,
+                    float asign, const unsigned char* __restrict__ tables,
+                    const float2* __restrict__ wf,
+                    const float2* __restrict__ wi, float2* __restrict__ v1,
+                    float2* __restrict__ v2) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  rows_body<kProd>(smem, u, a_re, a_im, b_re, b_im, P, W, m, asign, tables,
+                   wf, wi, v1, v2);
+}
+
+// "f32"'s pass 2: the same body, six products a step (below)
+__global__ void __launch_bounds__(kThreads, 1)
+pfft_rows_f32_kernel(const float2* __restrict__ u,
+                     const float* __restrict__ a_re,
+                     const float* __restrict__ a_im,
+                     const float* __restrict__ b_re,
+                     const float* __restrict__ b_im, int P, int W, int m,
+                     float asign, const unsigned char* __restrict__ tables,
+                     const float2* __restrict__ wf,
+                     const float2* __restrict__ wi, float2* __restrict__ v1,
+                     float2* __restrict__ v2) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  rows_body<kF32>(smem, u, a_re, a_im, b_re, b_im, P, W, m, asign, tables,
+                  wf, wi, v1, v2);
 }
 
 // ---------------------------------------------------------------------
@@ -688,8 +998,10 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
             b[it] = in2[at];
           }
         }
-        kept_product<L, kProd>(j, pr, pi, kept, ring, b_hi, b_lo, wgi, full,
-                               empty, ring_pos);
+        kept_product(j, pr, pi, kept, [&](float* re, float* im) {
+          product<16, L, kProd>(re, im, ring, b_hi, b_lo, wgi, full, empty,
+                                ring_pos);
+        });
         parity ^= 1;
       }
 
@@ -740,7 +1052,7 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
 }
 
 // ---------------------------------------------------------------------
-// the float32 ("highest") passes 1 and 3: six bf16 products a step
+// the float32 ("highest") passes: six bf16 products a step
 //
 // The rounding is the TPU's Precision.HIGHEST (the JAX package's "f32"
 // mode): both operands of each stage-B product split three ways, hi =
@@ -750,8 +1062,8 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
 // operands are those of the bf16 modes: each k2's own table, mf[k2] or
 // mi[k2] (ops/pallas_fft.py::wg_f32_tables: the three planes of Re M^T
 // and Im M^T, per chunk of 16 inputs k1 one 24 KB stage), and the data
-// operand, S_k2 (pass 1) or V1 +- conj V2 (pass 3), formed in float32
-// and split once as it is written.
+// operand, S_k2 (pass 1), X, A . Z and conj(B2) . Z (pass 2) or V1 +-
+// conj V2 (pass 3), formed in float32 and split once as it is written.
 //
 // pfft_cols_fwd_f32_kernel, an item per (pair, 32 columns, k2), no sum
 // over k2 (1440 items at 5 pairs of 1024^2, n = 1152: 11 a CTA at most,
@@ -761,6 +1073,9 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
 //            kInFlight = 2 row blocks in flight;
 //   product  U[128 k2 + k1][c] = (S^T mf[k2])[c][k1], N = 32 columns;
 //   stores   U written once.
+// pfft_rows_f32_kernel, pass 2's body above (a strip of 8 rows, a round
+//   of up to 9 k2, the products N = 8 and 16), its operand rows in three
+//   planes.
 // pfft_cols_inv_f32_kernel, an item per (pair, 8 columns, group of up
 // to kYBlocks = 8 output blocks a) (640 items: 5 a CTA at most, 4.85 on
 // average; 16 columns made 320, 3 against 2.42), k2 by k2:
@@ -775,49 +1090,49 @@ pfft_cols_inv_wg_kernel(const float2* __restrict__ v1,
 //            more than eight blocks a) take one item per group, each
 //            running the products again.
 //
-// The products: wgmma m64n32k16 (pass 1) or m64n16k16 (pass 3) with A
-// from registers (the table, the warpgroup's 64 outputs, ldmatrix from
-// the stage) and B the operand rows (a descriptor), 24 instructions a
-// k16 step (six products, four real ones each). The tensor cores'
-// float32 sums truncate: hi.hi keeps its own accumulators, so an
-// output's large sum takes 16 instructions and the five small products'
-// 80 at 2^-8 of its size (Acc6); in one set pass 3 reached 5x the
-// float32 plain version's error from float64 on random V (an NVIDIA H100
-// 80GB HBM3 at 700 W). The CTA is the bf16 modes' passes': one
-// persistent CTA an SM, the producer thread streaming each item's tables
-// through a ring of stages, two warpgroups multiplying and forming the
-// operands; the operand rows are single-buffered (a barrier before their
-// writes, one after).
+// The products: wgmma m64n32k16 (pass 1), m64n8k16 and m64n16k16 (pass
+// 2) or m64n16k16 (pass 3) with A from registers (the table, the
+// warpgroup's 64 outputs, ldmatrix from the stage) and B the operand
+// rows (a descriptor), 24 instructions a k16 step (six products, four
+// real ones each). The tensor cores' float32 sums truncate: hi.hi keeps
+// its own accumulators, so an output's large sum takes 16 instructions
+// and the five small products' 80 at 2^-8 of its size (Acc6); in one set
+// pass 3 reached 5x the float32 plain version's error from float64 on
+// random V (an NVIDIA H100 80GB HBM3 at 700 W). The CTA is the bf16
+// modes' passes': one persistent CTA an SM, the producer thread streaming
+// each item's tables through a ring of stages, two warpgroups
+// multiplying and forming the operands; the operand rows are
+// single-buffered (a barrier before their writes, one after).
 //
 // What bounds them on the H100 (chip_smoke.py::pfft_bounds, 5 pairs of
 // 1024^2, n = 1152): counted as the TPU counts the work (3 real
 // products per complex one) at six bf16 products, pass 1 0.0275 ms of
-// operations (its bytes 0.027), pass 3 0.055 of operations (bytes
-// 0.041); in float32 on the CUDA cores 0.068 and 0.135. These kernels
-// do four real products per complex one and read each k2's 192 KB table
-// from L2 once an item: 276 MB a call in pass 1, 1.1 GB in pass 3, and
-// x from L2 once an item in pass 1 (377 MB). On an NVIDIA H100 80GB HBM3
-// (700 W limit; scripts/torch_k3_variants.py --source f32): pass 1
-// 0.138 ms, 0.097 without x's loads, 0.114 without products; pass 3
-// 0.211 ms, 0.114 without products (its tables' stream then), 0.207
-// without the tables' copies. PERF.md section 6 has their times
-// (chip_smoke.py phase 2) beside the parent's.
+// operations (its bytes 0.027), pass 2 0.093 of operations (bytes
+// 0.075), pass 3 0.055 of operations (bytes 0.041); in float32 on the
+// CUDA cores 0.068, 0.228 and 0.135. These kernels do four real products
+// per complex one and read each k2's 192 KB table from L2 once an item
+// (pass 2: both tables a strip): 276 MB a call in pass 1, 2.49 GB in
+// pass 2, 1.1 GB in pass 3, and x from L2 once an item in pass 1 (377
+// MB). On an NVIDIA H100 80GB HBM3 (700 W limit; scripts/
+// torch_k3_variants.py --source f32): pass 1 0.138 ms, 0.097 without x's
+// loads, 0.114 without products; pass 3 0.211 ms, 0.114 without products
+// (its tables' stream then), 0.207 without the tables' copies. PERF.md
+// section 6 has their times (chip_smoke.py phase 2) beside the parent's.
 //
 // Budgets (a CTA): shared memory, the ring (pass 1 seven 24 KB stages,
-// pass 3 seven), the operand rows (pass 1 48 KB, pass 3 24 KB), pass
-// 3's staging (32 KB); registers 168 (ptxas' limit at 384 threads), no
-// spills.
+// pass 2 five, pass 3 seven), the operand rows (pass 1 48 KB, pass 2 36
+// KB, pass 3 24 KB), pass 2's kept products (64 KB), pass 3's staging
+// (32 KB); registers 168 at entry (ptxas' limit at 384 threads), 232 in
+// the multiplying warpgroups after setmaxnreg, no spills.
 
-constexpr int kParts = 3;                          // hi, mid, lo
-constexpr int kChunk3 = 16;                        // inputs k1 a stage
-constexpr int kChunks3 = kLane / kChunk3;          // 8 stages a table
-constexpr int kPlane3 = kLane * kChunk3 * 2;       // 4 KB: Re or Im of a part
-constexpr int kStage3 = kParts * 2 * kPlane3;      // 24 KB
 constexpr int kCols1 = 32;  // pass 1: columns a tile, the operand rows
 constexpr int kCols3 = 8;   // pass 3: columns a strip (16 rows: X+, X-)
 // pass 3's sums y_a of a strip, all in registers (8 floats a thread
 // each); an item takes up to kYBlocks output blocks a
 constexpr int kYBlocks = 8;
+// passes 1 and 3: the walk over a table's stages fully unrolled (pass 3
+// 0.2175 ms against 0.2294 one stage at a time; walk_by_1)
+constexpr int kColsUnroll = kChunks3;
 
 // pass 1: the 128-row blocks of x a thread's loads keep in flight
 constexpr int kInFlight = 2;
@@ -825,8 +1140,9 @@ constexpr int kInFlight = 2;
 // cp.async): the 128 rows of a k2 of 8 columns of V1 and of V2
 constexpr int kStaging3 = 2 * kLane * kCols3 * 8;  // 16 KB
 
-// The float32 passes: a stage a chunk's three parts; the operand rows,
-// three parts of kN rows; then two staging buffers of kStaging bytes.
+// The float32 passes 1 and 3: a stage a chunk's three parts; the operand
+// rows, three parts of kN rows; then two staging buffers of kStaging
+// bytes.
 template <int kN, int kStaging>
 struct Layout3 : RingLayout<kStage3, kChunks3, kStage3,
                             kParts * (kN / 8 * kGroupBytes), 2 * kStaging> {
@@ -834,188 +1150,6 @@ struct Layout3 : RingLayout<kStage3, kChunks3, kStage3,
 };
 using Layout1 = Layout3<kCols1, 0>;
 using Layout3i = Layout3<2 * kCols3, kStaging3>;
-
-// x in three bf16 parts, round to nearest even (ops/linalg.py::
-// bf16_split3): hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid);
-// both differences are exact in float32
-__device__ __forceinline__ void split3(float x, bf16 (&part)[kParts]) {
-  part[0] = __float2bfloat16_rn(x);
-  const float r = x - __bfloat162float(part[0]);
-  part[1] = __float2bfloat16_rn(r);
-  part[2] = __float2bfloat16_rn(r - __bfloat162float(part[1]));
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// The complex inputs k0 .. k0 + 7 (k0 a multiple of 8) of operand row n,
-// split three ways: per part (op_part bytes apart), one 16-byte row of a
-// core matrix for the real parts and one for the imaginary parts (eight
-// threads of consecutive rows n write 128 bytes on distinct banks).
-__device__ __forceinline__ void put_row8(unsigned char* op, int op_part,
-                                         int n, int k0,
-                                         const float2 (&z)[8]) {
-  const int off = (n >> 3) * kGroupBytes + (k0 >> 3) * 128 + (n & 7) * 16;
-  uint32_t re[kParts][4], im[kParts][4];
-#pragma unroll
-  for (int r = 0; r < 8; r += 2) {
-    bf16 a[kParts], b[kParts], c[kParts], d[kParts];
-    split3(z[r].x, a);
-    split3(z[r + 1].x, b);
-    split3(z[r].y, c);
-    split3(z[r + 1].y, d);
-#pragma unroll
-    for (int q = 0; q < kParts; ++q) {
-      re[q][r / 2] = pack2(a[q], b[q]);
-      im[q][r / 2] = pack2(c[q], d[q]);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kParts; ++q) {
-    unsigned char* at = op + q * op_part + off;
-    *reinterpret_cast<uint4*>(at) =
-        make_uint4(re[q][0], re[q][1], re[q][2], re[q][3]);
-    *reinterpret_cast<uint4*>(at + kImK) =
-        make_uint4(im[q][0], im[q][1], im[q][2], im[q][3]);
-  }
-}
-
-// The A fragments of this warp's 16 rows (outputs b) of its
-// warpgroup's 64, for each part and plane (0 Re M^T, 1 Im M^T) of a
-// stage: ldmatrix of the core matrices (rows 0-7, k 0-7), (8-15, 0-7),
-// (0-7, 8-15), (8-15, 8-15), 256 bytes between row groups.
-__device__ __forceinline__ void load_a(uint32_t (&a)[kParts][2][4],
-                                       const unsigned char* stage, int wgi) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  const int off = (8 * wgi + 2 * ((threadIdx.x >> 5) & 3) + (i & 1)) * 256 +
-                  (i >> 1) * 128 + (lane & 7) * 16;
-#pragma unroll
-  for (int p = 0; p < kParts; ++p)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      tc::ldsm_x4(a[p][r], reinterpret_cast<const bf16*>(
-                               stage + (2 * p + r) * kPlane3 + off));
-}
-
-// Keeps a step's fragments in their registers until the products that
-// read them are done (called after the wait that covers them): an
-// asynchronous product reads its A registers after the instruction.
-__device__ __forceinline__ void fence_a(uint32_t (&a)[kParts][2][4]) {
-#pragma unroll
-  for (int p = 0; p < kParts; ++p)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][r][i])::"memory");
-}
-
-// The accumulators of a k2's product over kN operand rows (kN / 2 a
-// thread in each): hi.hi, and the five smaller products, apart. The
-// tensor cores' float32 sums truncate, so each instruction may lose up
-// to a unit of the last place of its accumulator; hi.hi alone takes 16
-// instructions an output, the others 80 at 2^-8 of its size (in one set:
-// 96 at the full size, 1.7e-6 of the max-abs of random data, where the
-// float32 plain version reaches 3.6e-7 on an H100).
-template <int kN>
-struct Acc6 {
-  float re[kN / 2], im[kN / 2];      // hi.hi
-  float re_s[kN / 2], im_s[kN / 2];  // the other five
-};
-
-template <int kSign>
-__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
-                                       uint64_t b) {
-  wg::wgmma_rs_n32<kSign>(d, a, b, 1);
-}
-
-template <int kSign>
-__device__ __forceinline__ void mma_rs(float (&d)[8], const uint32_t (&a)[4],
-                                       uint64_t b) {
-  wg::wgmma_rs_n16<kSign>(d, a, b, 1);
-}
-
-// One product of k16 step t: A part a (its Re M^T and Im M^T fragments)
-// by operand part b, B the operand rows' real parts at k16 step t and
-// imaginary ones at 8 + t:
-//     Re z += x_re Re M - x_im Im M,   Im z += x_re Im M + x_im Re M.
-template <int kAcc>
-__device__ __forceinline__ void mac(float (&re)[kAcc], float (&im)[kAcc],
-                                    const uint32_t (&a)[2][4],
-                                    const unsigned char* b, int t) {
-  const uint64_t br = wg::smem_desc(b + 256 * t, 128, kGroupBytes);
-  const uint64_t bi = wg::smem_desc(b + 256 * (8 + t), 128, kGroupBytes);
-  mma_rs<1>(re, a[0], br);
-  mma_rs<-1>(re, a[1], bi);
-  mma_rs<1>(im, a[1], br);
-  mma_rs<1>(im, a[0], bi);
-}
-
-// k16 step t of a k2's product: the six products (A part, B part) whose
-// orders sum below three, the small ones first.
-template <int kN>
-__device__ __forceinline__ void mac6(Acc6<kN>& d,
-                                     const uint32_t (&a)[kParts][2][4],
-                                     const unsigned char* op, int t) {
-  constexpr int kPart = kN / 8 * kGroupBytes;
-  mac(d.re_s, d.im_s, a[2], op, t);              // lo . hi
-  mac(d.re_s, d.im_s, a[1], op + kPart, t);      // mid . mid
-  mac(d.re_s, d.im_s, a[0], op + 2 * kPart, t);  // hi . lo
-  mac(d.re_s, d.im_s, a[1], op, t);              // mid . hi
-  mac(d.re_s, d.im_s, a[0], op + kPart, t);      // hi . mid
-  mac(d.re, d.im, a[0], op, t);                  // hi . hi
-}
-
-// One k2's product: re, im (the warpgroup's 64 outputs b by the kN
-// operand rows) = the operand rows times the next table in the ring,
-// over its kChunks3 stages, into accumulators started at zero, the two
-// sets of Acc6 added at the end. A step's fragments are loaded once the
-// step before is done (loading them while it multiplies, in a second
-// set, was no faster).
-template <class L, int kN>
-__device__ __forceinline__ void product6(float (&re)[kN / 2],
-                                         float (&im)[kN / 2],
-                                         const unsigned char* ring,
-                                         const unsigned char* op, int wgi,
-                                         uint64_t* full, uint64_t* empty,
-                                         Ring& ring_pos) {
-  constexpr int kAcc = kN / 2;
-  // the zeros are written before the first product (left to itself, the
-  // compiler writes each set's between products, and ptxas then waits
-  // for those in flight: its C7517)
-  Acc6<kN> d;
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    d.re[i] = 0.f;
-    d.im[i] = 0.f;
-    d.re_s[i] = 0.f;
-    d.im_s[i] = 0.f;
-    wg::fence_operand(d.re[i]);
-    wg::fence_operand(d.im[i]);
-    wg::fence_operand(d.re_s[i]);
-    wg::fence_operand(d.im_s[i]);
-  }
-  uint32_t a[kParts][2][4];
-  walk_table<L, 0, L::kTableStages>(ring, full, empty, ring_pos,
-                   [&](int t, const unsigned char* stage) {
-    // the step before is done: its fragments are free
-    if (t > 0) fence_a(a);
-    load_a(a, stage, wgi);
-    wg::wgmma_fence();
-    mac6(d, a, op, t);
-  });
-  fence_a(a);
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    wg::fence_operand(d.re[i]);
-    wg::fence_operand(d.im[i]);
-    wg::fence_operand(d.re_s[i]);
-    wg::fence_operand(d.im_s[i]);
-    re[i] = d.re_s[i] + d.re[i];
-    im[i] = d.im_s[i] + d.im[i];
-  }
-}
 
 // pass 1 in float32: an item per (pair, 32 columns, k2)
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1092,7 +1226,8 @@ pfft_cols_fwd_f32_kernel(const float* __restrict__ x0,
     // U[128 k2 + k1][c0 + c] = (S^T mf[k2])[c][k1]: accumulator 4 j + 2 h
     // + e is k1 = b0 + 8 h, column c = 8 j + 2 q + e
     float re[16], im[16];
-    product6<L, kCols1>(re, im, ring, op, wgi, full, empty, ring_pos);
+    product6<L, kCols1, kColsUnroll>(re, im, ring, op, L::kOpPart, wgi,
+                                     full, empty, ring_pos);
     float2* out = u + ((size_t)p * n + kLane * k2 + b0) * W + c0 + 2 * q;
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -1196,8 +1331,8 @@ pfft_cols_inv_f32_kernel(const float2* __restrict__ v1,
       wg::fence_proxy_async();
       wg::bar_sync(1, kConsumers);
       float re[8], im[8];
-      product6<L, 2 * kCols3>(re, im, ring, op, wgi, full, empty,
-                              ring_pos);
+      product6<L, 2 * kCols3, kColsUnroll>(re, im, ring, op, L::kOpPart,
+                                           wgi, full, empty, ring_pos);
       // y_a += wi[a][k2] P: y0 the real parts of the X+ columns
       // (accumulators 0-3), y1 the imaginary parts of the X- ones (4-7)
       float2 w[kYBlocks];
@@ -1261,16 +1396,17 @@ int launch(Kernel kernel, int smem, int strips, cudaStream_t stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kProd>
-int rows_wg(const float2* u, const float* a_re, const float* a_im,
-            const float* b_re, const float* b_im, int P, int W, int m,
-            float asign, const void* tables, const float2* wf,
-            const float2* wi, float2* v1, float2* v2, cudaStream_t stream) {
-  return launch(pfft_rows_wg_kernel<kProd>,
-                Layout<kProd, kRowsGroups>::kSmem,
-                P * (kLane * m / kR), stream, u, a_re, a_im, b_re, b_im, P,
-                W, m, asign, static_cast<const unsigned char*>(tables), wf,
-                wi, v1, v2);
+// pass 2 of mode kProd by its kernel
+template <int kProd, class Kernel>
+int launch_rows(Kernel kernel, const float2* u, const float* a_re,
+                const float* a_im, const float* b_re, const float* b_im,
+                int P, int W, int m, int conj_spec, const void* tables,
+                const float2* wf, const float2* wi, float2* v1, float2* v2,
+                cudaStream_t stream) {
+  return launch(kernel, RowsLayout<kProd>::kSmem, P * (kLane * m / kR),
+                stream, u, a_re, a_im, b_re, b_im, P, W, m,
+                conj_spec ? -1.f : 1.f,
+                static_cast<const unsigned char*>(tables), wf, wi, v1, v2);
 }
 
 template <int kProd>
@@ -1320,12 +1456,11 @@ int pfft_rows_wg(const float2* u, const float* a_re, const float* a_im,
                  const float2* wi, float2* v1, float2* v2, int products,
                  cudaStream_t stream) {
   if (!valid(m, products)) return static_cast<int>(cudaErrorInvalidValue);
-  const float asign = conj_spec ? -1.f : 1.f;
   if (products == 3)
-    return rows_wg<3>(u, a_re, a_im, b_re, b_im, P, W, m, asign, tables, wf,
-                      wi, v1, v2, stream);
-  return rows_wg<1>(u, a_re, a_im, b_re, b_im, P, W, m, asign, tables, wf,
-                    wi, v1, v2, stream);
+    return launch_rows<3>(pfft_rows_wg_kernel<3>, u, a_re, a_im, b_re, b_im,
+                          P, W, m, conj_spec, tables, wf, wi, v1, v2, stream);
+  return launch_rows<1>(pfft_rows_wg_kernel<1>, u, a_re, a_im, b_re, b_im, P,
+                        W, m, conj_spec, tables, wf, wi, v1, v2, stream);
 }
 
 // Pass 3 on V1, V2 (P, 128 m, W) complex into y0, y1 (P, H, W); tables,
@@ -1350,6 +1485,19 @@ int pfft_cols_fwd_f32(const float* x0, const float* x1, int P, int H,
                       float2* u, cudaStream_t stream) {
   if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
   return cols_fwd_f32(x0, x1, P, H, W, m, tables, wf, u, stream);
+}
+
+// Pass 2 in float32 on U and the spectra as pfft_rows_wg; tables as
+// pfft_cols_fwd_f32, wf, wi (m, m) complex; the same errors.
+int pfft_rows_f32(const float2* u, const float* a_re, const float* a_im,
+                  const float* b_re, const float* b_im, int P, int W, int m,
+                  int conj_spec, const void* tables, const float2* wf,
+                  const float2* wi, float2* v1, float2* v2,
+                  cudaStream_t stream) {
+  if (m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows<kF32>(pfft_rows_f32_kernel, u, a_re, a_im, b_re, b_im,
+                           P, W, m, conj_spec, tables, wf, wi, v1, v2,
+                           stream);
 }
 
 // Pass 3 in float32 on V1, V2 (P, 128 m, W) complex into y0, y1 (P, H,

@@ -1,9 +1,9 @@
 // The wgmma shapes of pfft_conv_wg.cu, bf16 operands, float32
 // accumulators, B a K-major descriptor of shared memory (no transpose):
-// m64n8k16 and m64n16k16 with A a K-major descriptor too, and m64n16k16
-// and m64n32k16 with A from registers (the m16n8k16 A fragment of each
-// warp's 16 rows: rows lane / 4 and lane / 4 + 8, k 2 (lane % 4) (+1)
-// and + 8, as wg_mma_n200.cuh's). A is scaled by kSignA = +1 or -1 (the
+// m64n8k16 and m64n16k16 with A a K-major descriptor too, and m64n8k16,
+// m64n16k16 and m64n32k16 with A from registers (the m16n8k16 A fragment
+// of each warp's 16 rows: rows lane / 4 and lane / 4 + 8, k 2 (lane % 4)
+// (+1) and + 8, as wg_mma_n200.cuh's). A is scaled by kSignA = +1 or -1 (the
 // instruction's imm-scale-a; exact). Accumulator d[4 j + q] holds row 16
 // warp + lane / 4 + 8 (q / 2), column 8 j + 2 (lane % 4) + q % 2, as
 // wg_mma_n200.cuh's. d points at consecutive registers of an array whose
@@ -68,6 +68,24 @@ __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t desc_a,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n8k16,
+// A from registers
+template <int kSignA>
+__device__ __forceinline__ void wgmma_rs_n8(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, %10, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(kSignA));
 }
 
 // d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n16k16,

@@ -26,11 +26,11 @@ with one contract:
 
 - a CUDA kernel written by hand for Hopper, run for a tensor on a CUDA
   card. In ``"f32"`` mode (the ``"highest"`` setting's)
-  :func:`pfft_cols_fwd_cuda` and :func:`pfft_cols_inv_cuda` on the
-  tensor cores (``csrc/pfft_conv_wg.cu``, ``wgmma``: six bf16 products
-  of three-way splits, :func:`bf16_split3`, summed in float32, the
-  TPU's ``Precision.HIGHEST``) and :func:`pfft_rows_combine_cuda` on the
-  CUDA cores (``csrc/pfft_conv.cu``, float32). In ``"split"`` mode (the
+  :func:`pfft_cols_fwd_cuda`, :func:`pfft_rows_combine_cuda` and
+  :func:`pfft_cols_inv_cuda` on the tensor cores
+  (``csrc/pfft_conv_wg.cu``, ``wgmma``: six bf16 products of three-way
+  splits, :func:`bf16_split3`, summed in float32, the TPU's
+  ``Precision.HIGHEST``). In ``"split"`` mode (the
   default dial's) the three passes run on the tensor cores:
   :func:`pfft_cols_fwd_tc_cuda` (``csrc/pfft_conv_tc.cu``,
   ``mma.sync``), :func:`pfft_rows_combine_tc_cuda` and
@@ -434,35 +434,38 @@ def _check_images(x0, x1, n):
 # CUDA kernels
 
 
-def _library(name="pfft_conv"):
-    """``csrc/<name>.cu`` (``pfft_conv``, ``pfft_conv_tc`` or
-    ``pfft_conv_wg``) loaded, with its C functions' argument types:
-    ``pfft_conv`` pass 2 in float32 (``pfft_rows``); ``pfft_conv_tc``
-    pass 1 on ``mma.sync`` (``pfft_cols_fwd_tc``: the images, the tiles
-    of :func:`tensor_core_tables`, the twiddles and the number of bf16
+def _library(name):
+    """``csrc/<name>.cu`` (``pfft_conv_tc`` or ``pfft_conv_wg``) loaded,
+    with its C functions' argument types: ``pfft_conv_tc`` pass 1 on
+    ``mma.sync`` (``pfft_cols_fwd_tc``: the images, the tiles of
+    :func:`tensor_core_tables`, the twiddles and the number of bf16
     products a step); ``pfft_conv_wg`` passes 2 and 3 of the bf16 modes
-    (the tables of :func:`wg_stage_tables` and the products) and passes
-    1 and 3 in float32 (``pfft_cols_fwd_f32``, ``pfft_cols_inv_f32``: the
-    tables of :func:`wg_f32_tables`)."""
+    (the tables of :func:`wg_stage_tables` and the products) and the
+    three passes in float32 (``pfft_cols_fwd_f32``, ``pfft_rows_f32``,
+    ``pfft_cols_inv_f32``: the tables of :func:`wg_f32_tables`). Each
+    function ends with the stream."""
     from ..utils.cuda_build import load_library
 
     lib = load_library(name)
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        rows = [vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
-        cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp, vp]
-        cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-        if name == "pfft_conv":
-            signatures = {"pfft_rows": rows}
-        elif name == "pfft_conv_wg":
+        # U, the four spectra, P, W, m, conj_spec, the tables, wf, wi, V1,
+        # V2; the images, P, H, W, m, the tables, wf, U; V1, V2, P, H, W,
+        # m, the tables, wi, y0, y1
+        rows = [vp] * 5 + [ci] * 4 + [vp] * 5
+        cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
+        cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        if name == "pfft_conv_wg":
             signatures = {
-                "pfft_rows_wg": rows[:9] + [vp] * 5 + [ci, vp],
-                "pfft_cols_inv_wg": cols_inv[:6] + [vp] * 4 + [ci, vp],
-                "pfft_cols_fwd_f32": cols_fwd,
-                "pfft_cols_inv_f32": cols_inv}
+                "pfft_rows_wg": rows + [ci, vp],
+                "pfft_cols_inv_wg": cols_inv + [ci, vp],
+                "pfft_cols_fwd_f32": cols_fwd + [vp],
+                "pfft_rows_f32": rows + [vp],
+                "pfft_cols_inv_f32": cols_inv + [vp]}
         else:
-            # pass 1 also takes the twiddles and the products
-            signatures = {"pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, ci, vp]}
+            # pass 1 also takes the twiddles (before U) and the products
+            signatures = {"pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, vp, ci,
+                                                              vp]}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
@@ -541,9 +544,9 @@ def wg_f32_tables(m):
 
 class _DeviceTables(dict):
     """The stage tables of one size on one device, each built at its
-    first use: ``wf``, ``wi``, ``mf``, ``mi`` and the twiddles
-    ``tw[k2][n1] = mf[k2][n1, 0]`` (pass 1 on ``mma.sync``) as
-    interleaved complex float32, ``mf_tc`` as
+    first use: ``wf``, ``wi`` and the twiddles ``tw[k2][n1] =
+    mf[k2][n1, 0]`` (pass 1 on ``mma.sync``) as interleaved complex
+    float32, ``mf_tc`` as
     :func:`tensor_core_tables`, ``wg`` as :func:`wg_stage_tables` and
     ``wg3`` as :func:`wg_f32_tables`; a mode builds only those its
     kernels read."""
@@ -585,7 +588,7 @@ def _cuda_device(t, name):
     return t.device
 
 
-def _launch(fn, kernel, device, *args, library="pfft_conv"):
+def _launch(library, fn, kernel, device, *args):
     lib = _library(library)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -611,9 +614,9 @@ def pfft_cols_fwd_cuda(x0, x1, n):
     (:func:`cols_fwd_plain`)."""
     device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, "pfft_cols_fwd_cuda")
     tab = _device_tables(m, device)
-    _launch("pfft_cols_fwd_f32", "pfft_cols_fwd_f32_kernel", device,
-            x0.data_ptr(), x1.data_ptr(), p_, h, w, m, tab["wg3"].data_ptr(),
-            tab["wf"].data_ptr(), u.data_ptr(), library="pfft_conv_wg")
+    _launch("pfft_conv_wg", "pfft_cols_fwd_f32", "pfft_cols_fwd_f32_kernel",
+            device, x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
+            tab["wg3"].data_ptr(), tab["wf"].data_ptr(), u.data_ptr())
     pfft_cols_fwd_cuda.launches += 1
     return u
 
@@ -638,11 +641,10 @@ def pfft_cols_fwd_bf16_cuda(x0, x1, n):
 def _cols_fwd_tc(x0, x1, n, mode, name):
     device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, name)
     tab = _device_tables(m, device)
-    _launch("pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel", device,
-            x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
+    _launch("pfft_conv_tc", "pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel",
+            device, x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
             tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(),
-            tab["tw"].data_ptr(), u.data_ptr(), TC_PRODUCTS[mode],
-            library="pfft_conv_tc")
+            tab["tw"].data_ptr(), u.data_ptr(), TC_PRODUCTS[mode])
     return u
 
 
@@ -669,18 +671,20 @@ def _cols_inv_args(v1, v2, h, name):
 
 
 def pfft_rows_combine_cuda(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
-    """Launch pass 2 on ``U`` ``(P, n, W)`` complex64 and the spectra
-    ``(P, n, n)`` float32; returns ``(V1, V2)``
+    """Launch pass 2 in float32 (``"f32"``, ``csrc/pfft_conv_wg.cu``, as
+    :func:`pfft_cols_fwd_cuda`) on ``U`` ``(P, n, W)`` complex64 and the
+    spectra ``(P, n, n)`` float32; returns ``(V1, V2)``
     (:func:`rows_combine_plain`)."""
     planes = (a_re, a_im, b2_re, b2_im)
     device, p_, n, w, m = _rows_args(u, planes, "pfft_rows_combine_cuda")
     tab = _device_tables(m, device)
     v1 = torch.empty_like(u)
     v2 = torch.empty_like(u)
-    _launch("pfft_rows", "pfft_rows_kernel", device, u.data_ptr(),
-            *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
-            tab["mf"].data_ptr(), tab["mi"].data_ptr(), tab["wf"].data_ptr(),
-            tab["wi"].data_ptr(), v1.data_ptr(), v2.data_ptr())
+    _launch("pfft_conv_wg", "pfft_rows_f32", "pfft_rows_f32_kernel", device,
+            u.data_ptr(), *(t.data_ptr() for t in planes), p_, w, m,
+            int(bool(conj_spec)), tab["wg3"].data_ptr(),
+            tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
+            v2.data_ptr())
     pfft_rows_combine_cuda.launches += 1
     return v1, v2
 
@@ -694,10 +698,10 @@ def pfft_cols_inv_cuda(v1, v2, h):
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)
-    _launch("pfft_cols_inv_f32", "pfft_cols_inv_f32_kernel", device,
-            v1.data_ptr(), v2.data_ptr(), p_, h, w, m, tab["wg3"].data_ptr(),
-            tab["wi"].data_ptr(), y0.data_ptr(), y1.data_ptr(),
-            library="pfft_conv_wg")
+    _launch("pfft_conv_wg", "pfft_cols_inv_f32", "pfft_cols_inv_f32_kernel",
+            device, v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
+            tab["wg3"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
+            y1.data_ptr())
     pfft_cols_inv_cuda.launches += 1
     return y0, y1
 
@@ -728,11 +732,11 @@ def _rows_tc(u, planes, conj_spec, mode, name):
     tab = _device_tables(m, device)
     v1 = torch.empty_like(u)
     v2 = torch.empty_like(u)
-    _launch("pfft_rows_wg", "pfft_rows_wg_kernel", device, u.data_ptr(),
-            *(t.data_ptr() for t in planes), p_, w, m, int(bool(conj_spec)),
-            tab["wg"].data_ptr(), tab["wf"].data_ptr(), tab["wi"].data_ptr(),
-            v1.data_ptr(), v2.data_ptr(), TC_PRODUCTS[mode],
-            library="pfft_conv_wg")
+    _launch("pfft_conv_wg", "pfft_rows_wg", "pfft_rows_wg_kernel", device,
+            u.data_ptr(), *(t.data_ptr() for t in planes), p_, w, m,
+            int(bool(conj_spec)), tab["wg"].data_ptr(), tab["wf"].data_ptr(),
+            tab["wi"].data_ptr(), v1.data_ptr(), v2.data_ptr(),
+            TC_PRODUCTS[mode])
     return v1, v2
 
 
@@ -759,10 +763,10 @@ def _cols_inv_tc(v1, v2, h, mode, name):
     tab = _device_tables(m, device)
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=device)
     y1 = torch.empty_like(y0)
-    _launch("pfft_cols_inv_wg", "pfft_cols_inv_wg_kernel", device,
-            v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
+    _launch("pfft_conv_wg", "pfft_cols_inv_wg", "pfft_cols_inv_wg_kernel",
+            device, v1.data_ptr(), v2.data_ptr(), p_, h, w, m,
             tab["wg"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
-            y1.data_ptr(), TC_PRODUCTS[mode], library="pfft_conv_wg")
+            y1.data_ptr(), TC_PRODUCTS[mode])
     return y0, y1
 
 
@@ -780,10 +784,9 @@ def pfft_conv_cuda(x0, x1, a_re, a_im, b2_re, b2_im, n, conj_spec=False,
                    mode="f32"):
     """The kernels of ``mode`` in turn; same contract as
     :func:`conv_packed_pfft_plain` in float32 and ``mode``: the three
-    passes on the tensor cores under ``"split"`` (three products a step)
-    and ``"bf16"`` (one); under ``"f32"`` passes 1 and 3 on the tensor
-    cores (six products of three-way splits) and pass 2 on the CUDA
-    cores, in float32."""
+    passes on the tensor cores, three bf16 products a step under
+    ``"split"``, one under ``"bf16"``, six of three-way splits under
+    ``"f32"``."""
     cols_fwd, rows, cols_inv = PASSES[_tc_mode(mode, torch.float32) or "f32"]
     u = cols_fwd(x0, x1, n)
     v1, v2 = rows(u, a_re, a_im, b2_re, b2_im, conj_spec)

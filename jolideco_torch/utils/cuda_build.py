@@ -26,11 +26,11 @@ __all__ = ["BUILD_DIR", "BUILD_INFO", "LIBRARIES", "load_libraries",
 # GMM logits' kernels on the tensor cores ("split" and "bf16" modes: K1's
 # and K5's logsumexp, K4, K8, K9a), the MAP scorers of those modes on
 # the warpgroup instructions (K1, K5), the patch-level scorer (K5-K9),
-# the matrix-DFT convolution (K3) in float32, its pass 1 on the tensor
-# cores ("split" and "bf16" modes) and its passes 2 and 3 on the
-# warpgroup instructions (the same modes)
+# the matrix-DFT convolution's (K3) pass 1 on the tensor cores ("split"
+# and "bf16" modes) and its passes on the warpgroup instructions (passes
+# 2 and 3 of those modes, the three passes in float32)
 LIBRARIES = ("gmm_fused", "gmm_fused_tc", "gmm_score_wg", "gmm_patch",
-             "pfft_conv", "pfft_conv_tc", "pfft_conv_wg")
+             "pfft_conv_tc", "pfft_conv_wg")
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -19,7 +19,7 @@ one):
   ``walk_full``: the consumers' walk over a table's stages unrolled by
   ptxas' own choice or fully, not one stage at a time.
 
-``--source f32`` takes the same file's float32 passes 1 and 3
+``--source f32`` takes the same file's three float32 passes
 (``"highest"``: six bf16 products of three-way splits a step):
 
 - ``base``; ``no_products``, ``no_tables`` as above; ``no_stores``: U
@@ -32,19 +32,33 @@ one):
   blocks' loads in flight, not two; ``y0_only``: pass 3 stores y0
   alone; ``y_stcs``: its stores streaming (evict-first); ``y_dense``:
   the same bytes to a dense layout, each item's rows of 8 columns back
-  to back (wrong values, whole lines); ``walk_by_1``: the walk over a
-  table's stages one stage at a time, not fully unrolled.
+  to back (wrong values, whole lines); ``walk_by_1``: passes 1 and 3
+  walk a table's stages one at a time, not fully unrolled;
+- pass 2: ``rows_walk_full``: its walk fully unrolled, not one stage at
+  a time; ``rows_no_u``: U is not read (constants in its place);
+  ``rows_no_spectra``: nor are the spectra; ``rows_no_epilogue``: V1
+  and V2 are not stored; ``rows_reg<k>``: the first k products of a
+  round in registers (``kRegK2``), the others in shared memory.
 
-Prints one JSON line (ms by variant, pass and mode, each variant's
-largest difference from the plain version of its mode over its max-abs
-(``rows_combine_plain``, ``cols_inv_plain``, ``cols_fwd_plain``), which
-only ``base`` and the variants that keep the arithmetic must keep
-small, ``ptxas``' register and spill lines, the card's name and power
-limit) and writes it to ``k3_variants_<source>.json`` in the checkout's
-output folder (beside ``build/``, listed in ``.gitignore``). Run from
-the root of a checkout:
+``--variants`` builds and times only the variants named (``base`` is
+always among them). Prints one JSON line (ms by variant, pass and mode,
+each variant's largest difference from the plain version of its mode
+over its max-abs (``rows_combine_plain``, ``cols_inv_plain``,
+``cols_fwd_plain``), which only ``base`` and the variants that keep the
+arithmetic must keep small, ``ptxas``' register and spill lines, the
+card's name and power limit) and writes it to
+``k3_variants_<source>.json`` in the checkout's output folder (beside
+``build/``, listed in ``.gitignore``). Run from the root of a checkout:
 
     python3 scripts/torch_k3_variants.py --source f32
+
+``--sweep`` builds no variant: it holds the package's float32 pass 2
+(``pallas_fft.pfft_rows_combine_cuda``) at every m from 1 to 37 (one
+round of k2 up to 9, then several), one pair of random U (W = 256, 128
+at m = 1) and spectra, both directions, to ``chip_smoke.py`` phase 2's
+bar (at most twice the float32 plain version's error from float64,
+plus 1e-6 of the max-abs), and prints each m's error as a share of the
+bar in one JSON line (``k3_sweep_f32.json`` in the same folder).
 """
 
 import argparse
@@ -87,7 +101,8 @@ WG_VARIANTS = {
 F32_VARIANTS = {
     "base": [],
     "no_products": [("wg::wgmma_rs_n32<kSign>(", "(void)("),
-                    ("wg::wgmma_rs_n16<kSign>(", "(void)(")],
+                    ("wg::wgmma_rs_n16<kSign>(", "(void)("),
+                    ("wg::wgmma_rs_n8<kSign>(", "(void)(")],
     "no_tables": WG_VARIANTS["no_tables"],
     "no_stores": [
         ("*reinterpret_cast<float4*>(out + (size_t)8 * h * W + 8 * j) =\n"
@@ -120,10 +135,20 @@ F32_VARIANTS = {
                 "          __stcs(reinterpret_cast<float2*>(out + at),\n"
                 "              make_float2(y[j][4 * e + 2 * h], "
                 "y[j][4 * e + 2 * h + 1]));")],
-    # the walk over a table's stages one stage at a time, not fully
+    # passes 1 and 3 walk a table's stages one stage at a time, not fully
     # unrolled
-    "walk_by_1": [("walk_table<L, 0, L::kTableStages>(",
-                   "walk_table<L, 0, 1>(")],
+    "walk_by_1": [("constexpr int kColsUnroll = kChunks3;",
+                   "constexpr int kColsUnroll = 1;")],
+    # pass 2: the walk fully unrolled; U, the spectra not read; V1, V2
+    # not stored; k products of a round in registers
+    "rows_walk_full": [("constexpr int kRowsUnroll = 1;",
+                        "constexpr int kRowsUnroll = kChunks3;")],
+    "rows_no_u": WG_VARIANTS["no_loads"][:1],
+    "rows_no_spectra": WG_VARIANTS["no_loads"][1:2],
+    "rows_no_epilogue": WG_VARIANTS["no_epilogue"][:1],
+    **{f"rows_reg{k}": [("constexpr int kRegK2 = 5;",
+                         f"constexpr int kRegK2 = {k};")]
+       for k in (3, 4, 6, 7)},
     "y_dense": [("          const size_t at = (row0 + 8 * h) * W + c0 + "
                  "2 * q;",
                  "          const size_t at = ((size_t)it * H + kLane * "
@@ -134,10 +159,10 @@ SOURCES = {"wg": ("pfft_conv_wg", WG_VARIANTS, ("split", "bf16")),
            "f32": ("pfft_conv_wg", F32_VARIANTS, ("f32",))}
 
 
-def calls(torch, pf, kind, lib, s, mode):
-    """The two passes of one variant library on the inputs ``s`` (``wg``:
-    passes 2 and 3 of ``mode``; ``f32``: passes 1 and 3): outputs
-    allocated once, each call one launch."""
+def calls(torch, kind, lib, s, mode):
+    """The passes of one variant library on the inputs ``s`` (``wg``:
+    passes 2 and 3 of ``mode``; ``f32``: the three passes), outputs
+    allocated once, each call one launch: ``{pass: (call, outputs)}``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     p_, n, w = s["u"].shape
     h, m = s["h"], n // 128
@@ -147,41 +172,39 @@ def calls(torch, pf, kind, lib, s, mode):
     y0 = torch.empty((p_, h, w), dtype=torch.float32, device=s["u"].device)
     y1 = torch.empty_like(y0)
     planes = [t.data_ptr() for t in s["planes"]]
+    rows_args = (s["u"].data_ptr(), *planes, p_, w, m, 0)
+    cols_args = (s["v"][0].data_ptr(), s["v"][1].data_ptr(), p_, h, w, m)
     if kind == "f32":
         lib.pfft_cols_fwd_f32.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4
+        lib.pfft_rows_f32.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 6
         lib.pfft_cols_inv_f32.argtypes = [vp, vp] + [ci] * 4 + [vp] * 5
         u = torch.empty_like(s["u"])
-
-        def first():
-            return lib.pfft_cols_fwd_f32(
-                s["x0"].data_ptr(), s["x1"].data_ptr(), p_, h, w, m,
-                tab["wg3"].data_ptr(), tab["wf"].data_ptr(), u.data_ptr(),
-                stream)
-
-        def cols():
-            return lib.pfft_cols_inv_f32(
-                s["v"][0].data_ptr(), s["v"][1].data_ptr(), p_, h, w, m,
-                tab["wg3"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
-                y1.data_ptr(), stream)
-        outputs = (u,)
+        tables = tab["wg3"].data_ptr()
+        passes = {
+            "cols_fwd": (lambda: lib.pfft_cols_fwd_f32(
+                s["x0"].data_ptr(), s["x1"].data_ptr(), p_, h, w, m, tables,
+                tab["wf"].data_ptr(), u.data_ptr(), stream), (u,)),
+            "rows": (lambda: lib.pfft_rows_f32(
+                *rows_args, tables, tab["wf"].data_ptr(),
+                tab["wi"].data_ptr(), v1.data_ptr(), v2.data_ptr(), stream),
+                (v1, v2)),
+            "cols_inv": (lambda: lib.pfft_cols_inv_f32(
+                *cols_args, tables, tab["wi"].data_ptr(), y0.data_ptr(),
+                y1.data_ptr(), stream), (y0, y1))}
     else:
         prods = 3 if mode == "split" else 1
         lib.pfft_rows_wg.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 5 + [ci, vp]
         lib.pfft_cols_inv_wg.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4 + [
             ci, vp]
-
-        def first():
-            return lib.pfft_rows_wg(
-                s["u"].data_ptr(), *planes, p_, w, m, 0, tab["wg"].data_ptr(),
-                tab["wf"].data_ptr(), tab["wi"].data_ptr(), v1.data_ptr(),
-                v2.data_ptr(), prods, stream)
-
-        def cols():
-            return lib.pfft_cols_inv_wg(
-                s["v"][0].data_ptr(), s["v"][1].data_ptr(), p_, h, w, m,
-                tab["wg"].data_ptr(), tab["wi"].data_ptr(), y0.data_ptr(),
-                y1.data_ptr(), prods, stream)
-        outputs = (v1, v2)
+        tables = tab["wg"].data_ptr()
+        passes = {
+            "rows": (lambda: lib.pfft_rows_wg(
+                *rows_args, tables, tab["wf"].data_ptr(),
+                tab["wi"].data_ptr(), v1.data_ptr(), v2.data_ptr(), prods,
+                stream), (v1, v2)),
+            "cols_inv": (lambda: lib.pfft_cols_inv_wg(
+                *cols_args, tables, tab["wi"].data_ptr(), y0.data_ptr(),
+                y1.data_ptr(), prods, stream), (y0, y1))}
 
     def checked(fn):
         def run():
@@ -190,13 +213,106 @@ def calls(torch, pf, kind, lib, s, mode):
                 raise RuntimeError(f"launch failed: CUDA error {code}")
         return run
 
-    return checked(first), checked(cols), outputs, (y0, y1)
+    return {name: (checked(fn), out) for name, (fn, out) in passes.items()}
+
+
+def card_name():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def sweep(torch, cs, pf, device):
+    """The package's float32 pass 2 at m = 1 .. 37 against phase 2's bar;
+    returns one JSON line of each m's error as a share of the bar (both
+    directions, V1 and V2, the largest)."""
+    shares = {}
+    for m in range(1, 38):
+        n, w = 128 * m, 128 if m == 1 else 256
+        gen = torch.Generator(device=device).manual_seed(m)
+        u = torch.randn((1, n, w), generator=gen, device=device,
+                        dtype=torch.complex64)
+        spectra = [torch.randn((1, n, n), generator=gen, device=device)
+                   for _ in range(4)]
+        worst = 0.0
+        for conj in (False, True):
+            v = pf.pfft_rows_combine_cuda(u, *spectra, conj)
+            v32 = pf.rows_combine_plain(u, *spectra, conj)
+            v64 = pf.rows_combine_plain(u.to(torch.complex128), *spectra,
+                                        conj, torch.float64)
+            for got, want32, want64 in zip(v, v32, v64):
+                err = float((got.to(want64.dtype) - want64).abs().max())
+                err32 = float((want32.to(want64.dtype) - want64).abs().max())
+                scale = float(want64.abs().max())
+                worst = max(worst, err / (cs.MARG_ERR_FACTOR * err32
+                                          + cs.MARG_ERR_FLOOR * scale))
+        shares[m] = worst
+        print(f"m = {m}: pass 2 f32 error {worst:.3f} of the bar")
+    return json.dumps({"k3_sweep_f32": {
+        "bar_share": shares, "within": max(shares.values()) <= 1.0,
+        "card": card_name()}})
+
+
+def timed_variants(torch, cs, pf, device, args):
+    """The variants of ``args.source`` built, checked and timed in turns;
+    returns one JSON line."""
+    lib_name, variants, modes = SOURCES[args.source]
+    names = ["base"] + [v for v in args.variants or variants if v != "base"]
+    built = kv.build({name: kv.patched_source(lib_name, variants[name])
+                      for name in names}, OUT)
+    libs = {name: lib for name, (lib, _) in built.items()}
+    ptxas = {name: [line.strip() for line in err.splitlines()
+                    if "registers" in line or "spill" in line
+                    or "Function properties" in line]
+             for name, (_, err) in built.items()}
+    x0, x1, planes, _, n = cs.pfft_inputs(torch, device, (1024, 1024), 4)
+    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
+    v = pf.pfft_rows_combine_cuda(u, *planes)
+    s = {"x0": x0, "x1": x1, "u": u, "v": v, "h": 1024, "planes": planes,
+         "tables": pf._device_tables(n // 128, device)}
+    ref = {mode: {"rows": pf.rows_combine_plain(u, *planes, mode=mode),
+                  "cols_inv": pf.cols_inv_plain(*v, 1024, mode=mode)}
+           for mode in modes}
+    if "f32" in ref:
+        ref["f32"]["cols_fwd"] = (pf.cols_fwd_plain(x0, x1, n),)
+    runs = {(name, mode): calls(torch, args.source, lib, s, mode)
+            for name, lib in libs.items() for mode in modes}
+    errors = {}
+    for (name, mode), passes in runs.items():
+        for run, _ in passes.values():
+            run()
+        torch.cuda.synchronize()
+        errors[f"{name} {mode}"] = max(
+            float((a - b).abs().max() / b.abs().max())
+            for key, (_, out) in passes.items()
+            for a, b in zip(out, ref[mode][key]))
+    ms = {f"{name} {mode}": {key: [] for key in passes}
+          for (name, mode), passes in runs.items()}
+    order = list(runs)
+    for keys in (order, order[::-1]):
+        for key in keys:
+            for pass_, (run, _) in runs[key].items():
+                ms[" ".join(key)][pass_].append(
+                    cs.cuda_ms(torch, run, args.reps))
+    mean = {key: {p: sum(t) / len(t) for p, t in val.items()}
+            for key, val in ms.items()}
+    for key in mean:
+        print(f"{key}: " + ", ".join(f"{p} {t:.4f} ms"
+                                     for p, t in mean[key].items())
+              + f" (from the plain version {errors[key]:.3g} of its "
+              "max-abs)")
+    return json.dumps({"k3_variants": {
+        "source": f"jolideco_torch/csrc/{lib_name}.cu",
+        "batch": "5 pairs of 1024^2, n = 1152", "ms": mean, "readings": ms,
+        "error_share": errors, "ptxas": ptxas, "card": card_name()}})
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--source", choices=sorted(SOURCES), default="wg")
     parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--variants", nargs="*")
+    parser.add_argument("--sweep", action="store_true")
     args = parser.parse_args()
 
     import torch
@@ -209,62 +325,16 @@ def main():
         raise SystemExit("needs a CUDA card")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
-    lib_name, variants, modes = SOURCES[args.source]
-    built = kv.build({name: kv.patched_source(lib_name, patches)
-                      for name, patches in variants.items()}, OUT)
-    libs = {name: lib for name, (lib, _) in built.items()}
-    ptxas = {name: [line.strip() for line in err.splitlines()
-                    if "registers" in line or "spill" in line
-                    or "Function properties" in line]
-             for name, (_, err) in built.items()}
-    x0, x1, planes, _, n = cs.pfft_inputs(torch, device, (1024, 1024), 4)
-    u = pf.pfft_cols_fwd_cuda(x0, x1, n)
-    v = pf.pfft_rows_combine_cuda(u, *planes)
-    s = {"x0": x0, "x1": x1, "u": u, "v": v, "h": 1024, "planes": planes,
-         "tables": pf._device_tables(n // 128, device)}
-    ref = {mode: (pf.rows_combine_plain(u, *planes, mode=mode),
-                  pf.cols_inv_plain(*v, 1024, mode=mode))
-           for mode in ("split", "bf16")}
-    ref["f32"] = ((pf.cols_fwd_plain(x0, x1, n),),
-                  pf.cols_inv_plain(*v, 1024))
-    first_pass = "cols_fwd" if args.source == "f32" else "rows"
-    runs = {(name, mode): calls(torch, pf, args.source, lib, s, mode)
-            for name, lib in libs.items() for mode in modes}
-    errors = {}
-    for (name, mode), (rows, cols, vk, yk) in runs.items():
-        rows()
-        cols()
-        torch.cuda.synchronize()
-        errors[f"{name} {mode}"] = max(
-            float((a - b).abs().max() / b.abs().max())
-            for a, b in zip((*vk, *yk), (*ref[mode][0], *ref[mode][1])))
-    ms = {f"{name} {mode}": {first_pass: [], "cols_inv": []}
-          for name, mode in runs}
-    order = list(runs)
-    for keys in (order, order[::-1]):
-        for key in keys:
-            rows, cols, _, _ = runs[key]
-            ms[" ".join(key)][first_pass].append(
-                cs.cuda_ms(torch, rows, args.reps))
-            ms[" ".join(key)]["cols_inv"].append(
-                cs.cuda_ms(torch, cols, args.reps))
-    mean = {key: {p: sum(t) / len(t) for p, t in val.items()}
-            for key, val in ms.items()}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    for key in mean:
-        print(f"{key}: {first_pass} {mean[key][first_pass]:.4f} ms, cols_inv "
-              f"{mean[key]['cols_inv']:.4f} ms (from the plain version "
-              f"{errors[key]:.3g} of its max-abs)")
-    line = json.dumps({"k3_variants": {
-        "source": f"jolideco_torch/csrc/{lib_name}.cu",
-        "batch": "5 pairs of 1024^2, n = 1152", "ms": mean, "readings": ms,
-        "error_share": errors, "ptxas": ptxas, "card": card}})
+    if args.sweep:
+        line = sweep(torch, cs, pf, device)
+        name = "k3_sweep_f32.json"
+    else:
+        line = timed_variants(torch, cs, pf, device, args)
+        name = f"k3_variants_{args.source}.json"
     print(line)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"k3_variants_{args.source}.json").write_text(line + "\n")
+    (out / name).write_text(line + "\n")
 
 
 if __name__ == "__main__":

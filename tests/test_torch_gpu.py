@@ -33,11 +33,11 @@ split's logsumexp, against the float64 plain versions within
 error, plus 1e-6 of the max-abs, dp also within its own float32
 rounding (``chip_smoke.probe_split_compare``). The
 matrix-DFT convolution's
-three float32 kernels (K3; passes 1 and 3 on the warpgroup
-instructions, six bf16 products of three-way splits a step, pass 2 on
-the CUDA cores) are held the same way against their plain version in
-float64, and the whole pipeline also within 1e-5 of its max-abs;
-passes 1 and 3 also at every m from 1 to 37 and at 1024 x 896, pass 3
+three float32 kernels (K3 on the warpgroup instructions, six bf16
+products of three-way splits a step) are held the same way against
+their plain version in float64, and the whole pipeline also within 1e-5
+of its max-abs; the three passes also at m from 1 to 37 (pass 2 in one
+round of k2 and in several, both directions) and at 1024 x 896, pass 3
 over more than eight output blocks (its groups), each twice, bitwise
 equal; the tensor-core kernels of its ``"split"`` mode against the
 float64 plain version within twice the float32 split plain version's
@@ -1213,11 +1213,12 @@ def test_pfft_wg_kernels_take_every_m(device, mode, p_, w, m):
                                     (1, 2048, 17), (1, 256, 20),
                                     (1, 128, 37)])
 def test_pfft_f32_kernels_take_every_m(device, p_, w, m):
-    """Passes 1 and 3 of ``"f32"`` on ``wgmma`` at every m (an item per
-    k2 in pass 1; pass 3's sums over k2 on chip) and H up to 2048 (pass 3
-    in groups of eight output blocks beyond 1024), on random images and
-    V, against the float32 plain version's error from float64 (phase 2's
-    bar); each twice, bitwise equal (no atomics)."""
+    """The three passes of ``"f32"`` on ``wgmma`` at every m (an item per
+    k2 in pass 1; the sums over k2 on chip in passes 2 and 3, pass 2 in
+    rounds of nine k2) and H up to 2048 (pass 3 in groups of eight output
+    blocks beyond 1024), on random images, U, spectra and V, pass 2 in
+    both directions, against the float32 plain version's error from
+    float64 (phase 2's bar); each twice, bitwise equal (no atomics)."""
     from jolideco_torch.ops import pallas_fft as pf
 
     n = 128 * m
@@ -1230,6 +1231,19 @@ def test_pfft_f32_kernels_take_every_m(device, p_, w, m):
     pfft_anchored(u, pf.cols_fwd_plain(x0, x1, n),
                   pf.cols_fwd_plain(x0.double(), x1.double(), n,
                                     torch.float64))
+    u = torch.randn((p_, n, w), generator=gen, device=device,
+                    dtype=torch.complex64)
+    spectra = [torch.randn((p_, n, n), generator=gen, device=device)
+               for _ in range(4)]
+    for conj_spec in (False, True):
+        v = pf.pfft_rows_combine_cuda(u, *spectra, conj_spec)
+        assert all(torch.equal(a, b) for a, b in zip(
+            v, pf.pfft_rows_combine_cuda(u, *spectra, conj_spec)))
+        for got, want32, want64 in zip(
+                v, pf.rows_combine_plain(u, *spectra, conj_spec),
+                pf.rows_combine_plain(u.to(torch.complex128), *spectra,
+                                      conj_spec, torch.float64)):
+            pfft_anchored(got, want32, want64)
     v = [torch.randn((p_, n, w), generator=gen, device=device,
                      dtype=torch.complex64) for _ in range(2)]
     y = pf.pfft_cols_inv_cuda(*v, h)

@@ -31,13 +31,14 @@ threads of four warps, bulk copies completing on ``mbarrier``\ s, named
 barriers and ``setmaxnreg``), so a block of one thread cannot run them;
 the card holds them instead
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
-their plain version (``mode="split"``) is held against the JAX package.
+their plain versions (``mode="split"``, ``"bf16"``) and their arithmetic
+written out in PyTorch (``tests/test_torch_pfft_f32.py``, the matrix-DFT
+convolution in float32) are held against the JAX package.
 
 Tolerances are the card's (``chip_smoke.py`` phase 2): values rtol 1e-5,
 argmax identical, the MAP gradients within 1e-4 of their max-abs, the
-marginalise kernels and the matrix-DFT convolution's passes within
-twice the float32 plain version's error against float64 plus 1e-6 of
-the max-abs (the convolution's whole pipeline also within 1e-5 of it).
+marginalise kernels within twice the float32 plain version's error
+against float64 plus 1e-6 of the max-abs.
 """
 
 import ctypes
@@ -51,7 +52,6 @@ import torch
 
 from jolideco_torch.ops import gmm_fused as gf
 from jolideco_torch.ops import gmm_pallas as gp
-from jolideco_torch.ops import pallas_fft as pf
 from jolideco_torch.priors import GaussianMixtureModel
 from jolideco_torch.utils import cuda_build
 from jolideco_torch.utils.interop import gmm_from_arrays
@@ -128,7 +128,7 @@ def emulated_source(source):
 
 
 # the libraries this file compiles for the CPU, and those it cannot
-EMULATED = ("gmm_fused", "gmm_patch", "pfft_conv")
+EMULATED = ("gmm_fused", "gmm_patch")
 CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_tc",
              "pfft_conv_wg")
 
@@ -190,13 +190,6 @@ def libs(emulated, monkeypatch):
     """The wrappers' ctypes libraries, built for the CPU."""
     monkeypatch.setattr(cuda_build, "load_library", emulated)
     return gf._library(), gp._library()
-
-
-@pytest.fixture
-def pfft_lib(emulated, monkeypatch):
-    """The matrix-DFT convolution's ctypes library, built for the CPU."""
-    monkeypatch.setattr(cuda_build, "load_library", emulated)
-    return pf._library()
 
 
 def ptr(t):
@@ -480,53 +473,3 @@ def test_hvp_marg_mix_cases(libs, case):
              gp.hvp_marg_mix_plain(x.double(), t.double(), p.double(),
                                    dp.double(), b64))
     assert torch.equal(got, mix())
-
-
-def pfft_case(p_, h, w, k, n, seed):
-    """Images, spectra and tables of one convolution case."""
-    rs = np.random.RandomState(seed)
-    x0 = torch.as_tensor(rs.randn(p_, h, w).astype(np.float32))
-    x1 = torch.as_tensor(rs.randn(p_, h, w).astype(np.float32))
-    planes = [pf.pfft_pair_spectra(rs.rand(k, k), rs.rand(k, k), (h, w), n)
-              for _ in range(p_)]
-    spectra = [torch.as_tensor(np.stack([q[j] for q in planes]))
-               for j in range(4)]
-    tables = {name: torch.view_as_real(torch.as_tensor(
-        t.astype(np.complex64))).contiguous()
-        for name, t in pf._stage_tables(n // pf.PFFT_LANE).items()}
-    return x0, x1, spectra, tables
-
-
-@pytest.mark.parametrize("conj_spec", [False, True])
-@pytest.mark.parametrize("p_,h,w,k,n", [
-    (1, 128, 128, 9, 256),        # the smallest transform
-    (2, 128, 256, 9, 384),        # rectangular, n above its minimum
-])
-def test_pfft_kernels_match_plain(pfft_lib, p_, h, w, k, n, conj_spec):
-    """``csrc/pfft_conv.cu`` holds pass 2 in float32 (passes 1 and 3 of
-    the mode run on ``pfft_conv_wg``, card-only): it runs here between
-    the plain passes 1 and 3 in float32, each of its outputs and the
-    pipeline held to the card's bars."""
-    x0, x1, spectra, tab = pfft_case(p_, h, w, k, n, seed=n + w)
-    m = n // pf.PFFT_LANE
-    u = pf.cols_fwd_plain(x0, x1, n).contiguous()
-    x64 = (x0.double(), x1.double())
-
-    v1, v2 = torch.empty_like(u), torch.empty_like(u)
-    assert pfft_lib.pfft_rows(
-        ptr(u), *map(ptr, spectra), p_, w, m, int(conj_spec),
-        ptr(tab["mf"]), ptr(tab["mi"]), ptr(tab["wf"]), ptr(tab["wi"]),
-        ptr(v1), ptr(v2), None) == 0
-    v32 = pf.rows_combine_plain(u, *spectra, conj_spec)
-    v64 = pf.rows_combine_plain(u.to(torch.complex128), *spectra, conj_spec,
-                                torch.float64)
-    for got, want32, want64 in zip((v1, v2), v32, v64):
-        anchored(got, want32, want64)
-
-    y0, y1 = pf.cols_inv_plain(v1, v2, h)
-    # the whole pipeline against float64: within 1e-5 of its max-abs
-    ref = pf.conv_packed_pfft_plain(*x64, *spectra, n, conj_spec,
-                                    torch.float64)
-    scale = max(float(r.abs().max()) for r in ref)
-    for got, want in zip((y0, y1), ref):
-        assert float((got.double() - want).abs().max()) <= 1e-5 * scale

@@ -1,14 +1,16 @@
-"""K3's float32 passes 1 and 3 as the ``wgmma`` kernels compute them.
+"""K3's three float32 passes as the ``wgmma`` kernels compute them.
 
 Under ``"highest"`` (the ``"f32"`` mode) ``csrc/pfft_conv_wg.cu``'s
-``pfft_cols_fwd_f32_kernel`` and ``pfft_cols_inv_f32_kernel`` run each
-stage-B product as the TPU's ``Precision.HIGHEST`` does: both operands
-split three ways into bf16 parts (``bf16_split3``: hi, mid, lo), the six
-products whose orders sum below three summed in float32. The table is
-each ``k2``'s own ``mf[k2]`` or ``mi[k2]`` (``wg_f32_tables``: three
-planes, each the real and the imaginary part of ``M^T``), the data
-operand ``S_k2`` (pass 1) or ``V1 +- conj V2`` (pass 3); pass 3 sums
-over ``k2`` into each output block ``a``, one float32 chain an output.
+``pfft_cols_fwd_f32_kernel``, ``pfft_rows_f32_kernel`` and
+``pfft_cols_inv_f32_kernel`` run each stage-B product as the TPU's
+``Precision.HIGHEST`` does: both operands split three ways into bf16
+parts (``bf16_split3``: hi, mid, lo), the six products whose orders sum
+below three summed in float32. The table is each ``k2``'s own
+``mf[k2]`` or ``mi[k2]`` (``wg_f32_tables``: three planes, each the real
+and the imaginary part of ``M^T``), the data operand ``S_k2`` (passes 1
+and 2), ``A . Z`` and ``conj(B2) . Z`` (pass 2) or ``V1 +- conj V2``
+(pass 3); passes 2 and 3 sum over ``k2`` into each output block ``a``,
+one float32 chain an output.
 This file holds that arithmetic, written out in PyTorch, against the
 plain version in float64; the tables' layout, read back through the
 descriptors' address map; the wrappers' routing; and the pipeline
@@ -182,18 +184,66 @@ def test_f32_passes_as_the_kernels_compute_them(m, h):
         anchored(got, want32, want64)
 
 
+def rows_as_the_kernel(u, a_re, a_im, b2_re, b2_im, conj_spec=False):
+    """Pass 2 as ``pfft_rows_f32_kernel`` computes it: per ``k2``, stage
+    A ``S_k2`` in float32, ``Z = S_k2 mf[k2]``, the combine ``Y1 = A .
+    Z`` and ``Y2 = conj(B2) . Z`` in float32, ``[Y1; Y2] mi[k2]``, then
+    ``V1 += wi[a][k2] P1`` and ``V2 += wi[a][k2] P2`` in float32, ``k2``
+    by ``k2``, and ``V2`` conjugated at the end."""
+    p_, n, w = u.shape
+    m, wb = n // 128, w // 128
+    t = pf._plain_tables(m, torch.float32, u.device)
+    tab = unpack3(m)
+    sign = -1.0 if conj_spec else 1.0
+    a = torch.complex(a_re, sign * a_im).reshape(p_, n, m, 128)
+    b2c = torch.complex(b2_re, -sign * b2_im).reshape(p_, n, m, 128)
+    s = torch.einsum("qk,prqi->prki", t["wf"][:wb],
+                     u.reshape(p_, n, wb, 128))  # (P, n, m, k1)
+    v1 = torch.zeros((p_, n, wb, 128), dtype=torch.complex64)
+    v2 = torch.zeros_like(v1)
+    for k2 in range(m):
+        z = product6(s[:, :, k2], tab[0, k2])
+        g1 = product6(a[:, :, k2] * z, tab[1, k2])[:, :, None]
+        g2 = product6(b2c[:, :, k2] * z, tab[1, k2])[:, :, None]
+        w_ = t["wi"][:wb, k2][:, None]
+        v1 = v1 + w_ * g1
+        v2 = v2 + w_ * g2
+    return v1.reshape(p_, n, w), v2.conj().reshape(p_, n, w)
+
+
+@pytest.mark.parametrize("conj_spec", [False, True])
+@pytest.mark.parametrize("m", [1, 3, 12])
+def test_f32_rows_as_the_kernel_computes_it(m, conj_spec):
+    """Pass 2 written out as the kernel computes it against the float64
+    plain version, by phase 2's bar on ``V1`` and ``V2``, forward and
+    adjoint; at m = 12 the kernel takes two rounds of k2."""
+    n = 128 * m
+    rng = np.random.default_rng(m + 7 * conj_spec)
+    u = torch.complex(*(torch.as_tensor(rng.standard_normal((1, n, 128))
+                                        .astype(np.float32))
+                        for _ in range(2)))
+    spectra = [torch.as_tensor(rng.standard_normal((1, n, n))
+                               .astype(np.float32)) for _ in range(4)]
+    v = rows_as_the_kernel(u, *spectra, conj_spec)
+    v32 = pf.rows_combine_plain(u, *spectra, conj_spec)
+    v64 = pf.rows_combine_plain(u.to(torch.complex128), *spectra, conj_spec,
+                                torch.float64)
+    for got, want32, want64 in zip(v, v32, v64):
+        anchored(got, want32, want64)
+
+
 def pipeline(x0, x1, spectra, n, conj_spec):
-    """Passes 1 and 3 as the kernels compute them around the plain pass
-    2 in float32 (the ``"f32"`` pipeline of the card)."""
+    """The three passes as the kernels compute them (the ``"f32"``
+    pipeline of the card)."""
     u = cols_fwd_as_the_kernel(x0, x1, n)
-    v = pf.rows_combine_plain(u, *spectra, conj_spec)
+    v = rows_as_the_kernel(u, *spectra, conj_spec)
     return cols_inv_as_the_kernel(*v, x0.shape[1])
 
 
 @pytest.mark.parametrize("conj_spec", [False, True])
 @pytest.mark.parametrize("p_,h,w,k", [(1, 128, 128, 9), (2, 256, 128, 33)])
 def test_f32_pipeline_against_float64_and_jax(p_, h, w, k, conj_spec):
-    """The ``"f32"`` pipeline with passes 1 and 3 as the kernels compute
+    """The ``"f32"`` pipeline with its passes as the kernels compute
     them, forward and adjoint: within phase 2's bar of the float64 plain
     version and 1e-5 of its max-abs, and within 2e-5 of the JAX
     package's ``"f32"`` kernels (interpreted)."""
@@ -244,7 +294,7 @@ def fake_card(monkeypatch):
     list the calls go to."""
     calls = []
     monkeypatch.setattr(pf, "_library",
-                        lambda name="pfft_conv": FakeLibrary(name, calls))
+                        lambda name: FakeLibrary(name, calls))
     monkeypatch.setattr(pf, "_cuda_device", lambda t, name: t.device)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
@@ -256,23 +306,28 @@ def fake_card(monkeypatch):
 def test_highest_routes_passes_1_and_3_to_the_warpgroup_kernels(
         monkeypatch):
     """On a card, ``"f32"`` launches ``pfft_conv_wg``'s float32 entries
-    for passes 1 and 3 with the tables of ``wg_f32_tables``, and pass 2
-    on ``pfft_conv``; each wrapper counts its launch (:func:`fake_card`)."""
+    for its three passes with the tables of ``wg_f32_tables``; each
+    wrapper counts its launch (:func:`fake_card`)."""
     calls = fake_card(monkeypatch)
     x = torch.zeros((2, 128, 256))
     planes = [torch.zeros((2, 384, 384)) for _ in range(4)]
     pf.reset_counters()
-    pf.pfft_conv_cuda(x, x, *planes, 384, False, "f32")
+    pf.pfft_conv_cuda(x, x, *planes, 384, True, "f32")
     assert [c[:2] for c in calls] == [
-        ("pfft_conv_wg", "pfft_cols_fwd_f32"), ("pfft_conv", "pfft_rows"),
+        ("pfft_conv_wg", "pfft_cols_fwd_f32"),
+        ("pfft_conv_wg", "pfft_rows_f32"),
         ("pfft_conv_wg", "pfft_cols_inv_f32")]
     tab = pf._device_tables(3, x.device)
-    fwd, inv = calls[0][2], calls[2][2]
+    fwd, rows, inv = (c[2] for c in calls)
     assert fwd[2:9] == (2, 128, 256, 3, tab["wg3"].data_ptr(),
                         tab["wf"].data_ptr(), fwd[8])
+    assert rows[1:5] == tuple(t.data_ptr() for t in planes)
+    assert rows[5:12] == (2, 256, 3, 1, tab["wg3"].data_ptr(),
+                          tab["wf"].data_ptr(), tab["wi"].data_ptr())
+    assert rows[0] == fwd[8] and rows[12:14] == inv[:2]
     assert inv[2:8] == (2, 128, 256, 3, tab["wg3"].data_ptr(),
                         tab["wi"].data_ptr())
-    assert fwd[-1] == inv[-1] == 0  # the stream
+    assert fwd[-1] == rows[-1] == inv[-1] == 0  # the stream
     assert "mi_tc" not in tab
     assert [fn.launches for fn in pf.PASSES["f32"]] == [1, 1, 1]
     assert all(fn.launches == 0 for mode in ("split", "bf16")
@@ -280,7 +335,7 @@ def test_highest_routes_passes_1_and_3_to_the_warpgroup_kernels(
 
 
 @pytest.mark.parametrize("mode, built", [
-    ("f32", {"wf", "wi", "mf", "mi", "wg3"}),
+    ("f32", {"wf", "wi", "wg3"}),
     ("split", {"wf", "wi", "tw", "mf_tc", "wg"}),
     ("bf16", {"wf", "wi", "tw", "mf_tc", "wg"})])
 def test_a_mode_builds_only_the_tables_its_kernels_read(monkeypatch, mode,

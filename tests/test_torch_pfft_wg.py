@@ -216,7 +216,7 @@ def test_dial_routes_passes_2_and_3_to_the_warpgroup_kernels(monkeypatch,
     card's."""
     calls = []
     monkeypatch.setattr(pf, "_library",
-                        lambda name="pfft_conv": FakeLibrary(name, calls))
+                        lambda name: FakeLibrary(name, calls))
     monkeypatch.setattr(pf, "_cuda_device", lambda t, name: t.device)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
