@@ -11,15 +11,18 @@ Phases, each printing one or more lines:
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
    compiler per source, all at once (the fused scorer, its forwards and
-   marginalise backward on the tensor cores, the MAP scorers on the
-   warpgroup instructions, the patch-level scorer, the matrix-DFT
+   marginalise backward on the tensor cores, the MAP scorers and the
+   float32 marginalised pair (K1 lse, K4) on the warpgroup
+   instructions, the patch-level scorer, the matrix-DFT
    convolution's pass 1 on the tensor cores (``mma.sync``) and its
    passes on the warpgroup instructions: 2 and 3 of the ``"split"`` and
    ``"bf16"`` modes, all three of ``"f32"``), each kernel's registers,
    spills and shared memory as ``ptxas`` reports them, and the count of
    ``HGMMA`` instructions in the MAP scorers' and K3's warpgroup
    kernels' machine code (``cuobjdump -sass``; neither may be 0), also
-   in each of the three float32 passes, which must spill nothing;
+   in each of the three float32 passes, which must spill nothing, and
+   in K1 lse's and K4's float32 instances, with their registers and
+   spills; ptxas may inject no wgmma wait (C7517) in either library;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
@@ -69,7 +72,8 @@ Phases, each printing one or more lines:
    ``GMMPatchPrior(marginalize=True)``: training under the default dial
    on the logsumexp forward and the marginalise backward on the tensor
    cores (K1 lse split, K4 split) and under ``"highest"`` on their
-   float32 kernels (K1 in its marginalise mode, K4), each with exact
+   float32 kernels (K1 lse and K4 on ``wgmma``, six bf16 products of
+   three-way splits), each with exact
    counts, the two runs' flux difference and the argmax of K1 lse's two
    kernels at the final flux (at most 1e-4 of the patches differ); then
    the probe under both dials: under the default dial (training on K1
@@ -214,8 +218,13 @@ K9b) against their plain versions. Their softmax weights of logits of
 order 1e5 to 1e8 are ill-conditioned in float32, so K4, K8 and K9 are
 held against the plain version run in float64 on the same inputs: the
 kernel's max-abs error must be at most twice the float32 plain
-version's, plus 1e-6 of the result's max-abs; K9b also gives the same
-bits on two calls, and is timed by its device time too. Under
+version's, plus 1e-6 of the result's max-abs; K4 and K9b also give the
+same bits on two calls, K9b is timed by its device time too, and K4 is
+held once more fed K1 lse's own patches and logsumexp (the pipeline
+training runs), against the float64 pipeline. K1 lse's and K4's times
+come with two bounds, of six bf16 products on the tensor cores and of
+the float32 CUDA cores, and the share of each; the same checks run on
+the ragged image under ``wide_gmm()`` (two tiles of components). Under
 ``astro-snr-v1`` the weights are one-hot (dp is then exactly zero), so
 the same checks run once more on the 1024² image and its rows under a
 random SPD GMM with K = 200 whose weights are mixed; the run fails
@@ -240,7 +249,9 @@ weights are mixed; K3's bf16 passes and pipeline by
 :func:`bf16_anchored`, with the split pipeline as a control refused.
 
 It then prints a JSON line with K3's errors and times, a JSON line with
-the mixed case's errors, times and bounds, a JSON line with the
+the mixed case's errors, times and bounds, a ``{"marg_f32": ...}`` JSON
+line with the float32 K1 lse's and K4's errors, times and both bounds,
+a JSON line with the
 marginalise split kernels' errors, times and bounds and the two dials'
 marginalised training and probe, a JSON line with K1's split kernel's
 errors,
@@ -446,6 +457,11 @@ def device_ms(torch, fn, reps, *kernels):
 # K3's float32 passes on the warpgroup instructions
 F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_rows_f32_kernel",
                "pfft_cols_inv_f32_kernel")
+# K1 lse and K4 of "highest" on the warpgroup instructions: their names in
+# ptxas_summary and in the machine code (mangled template arguments)
+MARG_F32_KERNELS = (
+    ("gmm_score_wg_kernel<true, 6, 1>", "gmm_score_wg_kernelILb1ELi6ELi1E"),
+    ("gmm_score_wg_kernel<false, 6, 2>", "gmm_score_wg_kernelILb0ELi6ELi2E"))
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
 # K9b's kernel, by the name the profiler gives it
@@ -488,6 +504,17 @@ def phase_build():
         print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
               f"{warnings or 'none'}")
         check(hgmma > 0, f"{name} has no HGMMA instruction")
+    # K1 lse and K4 of "highest" (gmm_score_wg's six-product instances):
+    # wgmma each, and no wait that ptxas had to inject between products
+    info = BUILD_INFO["gmm_score_wg"]
+    check(not any("C7517" in line for line in info["ptxas"].splitlines()),
+          "ptxas injected a wgmma wait in gmm_score_wg")
+    summary = ptxas_summary(info["ptxas"])
+    for kernel, mangled in MARG_F32_KERNELS:
+        hgmma = sass_count(info["path"], "HGMMA", mangled)
+        lines = [line for line in summary if line.startswith(kernel + ":")]
+        print(f"phase 1 sass: {kernel} HGMMA {hgmma}; {'; '.join(lines)}")
+        check(hgmma > 0, f"{kernel} has no HGMMA instruction")
     # K3's float32 passes: wgmma each, no spills, no warning, and
     # no wait that ptxas had to inject between products (its C7517)
     info = BUILD_INFO["pfft_conv_wg"]
@@ -526,8 +553,9 @@ def sass_count(path, opcode, kernel=None):
 
 def ptxas_summary(text):
     """Per kernel of ``nvcc -Xptxas -v`` output: its registers, shared
-    memory and spills, under a readable name (``gmm_fwd_kernel<true>``,
-    ``gmm_fwd_tc_kernel<false, 1>``)."""
+    memory and spills, under a readable name
+    (``gmm_score_wg_kernel<true, 6, 1>``, ``gmm_fwd_tc_kernel<false,
+    1>``)."""
     out, kernel = [], None
     for line in text.splitlines():
         if "Function properties for" in line:
@@ -1335,6 +1363,18 @@ def marg_checks(torch, device, label, img, bufs):
                                        img.shape, stride)
     torch.cuda.synchronize()
     errs["bwd"] = anchored(label, "K4", gk, g32, g64)
+    check(torch.equal(gk, gf.gmm_fused_bwd_marg_cuda(*args, bufs, img.shape,
+                                                     stride)),
+          f"{label}: K4 differs between two calls on the same inputs")
+    # K4 as the prior runs it: fed K1 lse's own patches and logsumexp,
+    # whose logits it recomputes bit for bit, against float64
+    own = (xk, vk, valk, dv)
+    errs["bwd_pipeline"] = anchored(
+        label, "K1 lse -> K4", gf.gmm_fused_bwd_marg_cuda(
+            *own, bufs, img.shape, stride),
+        gf.fused_backward_marg_plain(*own, bufs, img.shape, stride),
+        gf.fused_backward_marg_plain(*(a.double() for a in own), b64,
+                                     img.shape, stride))
 
     # K5 (logsumexp), K8, K9a, K9b on the rows of the image, random
     # tangents
@@ -1372,7 +1412,8 @@ def marg_checks(torch, device, label, img, bufs):
         gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs), h64)
     print(f"phase 2 marginalise kernels {label}: K1 logsumexp values max "
           f"rel err {rel:.3g}, argmax flips {flips}/{n_valid}; K5 logsumexp "
-          f"{rel_rows:.3g}; against float64 (kernel, plain float32, max): "
+          f"{rel_rows:.3g}; K4 twice bitwise equal; against float64 "
+          f"(kernel, plain float32, max): "
           + "; ".join(f"{name} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}"
                       for name, e in errs.items() if name != "fwd"))
     nnz_fused, used_fused = support(torch, xp[m], vp[m], bufs)
@@ -1450,8 +1491,11 @@ def marg_timing(torch, bufs, img, s, plain=True):
                 4 * (3 * n * 64 + 2 * k * n) + a_bytes),
     }
     bounds = {name: bound(*w) for name, w in work.items()}
-    # the same work under "split", for the ranking by the dial's bound
+    # the same work under "split", for the ranking by the dial's bound,
+    # and as six bf16 products, the bound of K1 lse and K4 on wgmma
     bounds.update({name + "_split": split_bound(*w)
+                   for name, w in work.items()})
+    bounds.update({name + "_six": split_bound(*w, products=6)
                    for name, w in work.items()})
     return timing, bounds
 
@@ -1470,7 +1514,15 @@ def phase_marg_kernels(torch, device, bufs, cases):
         out["support"] = {"fused": s["nnz_fused"], "rows": s["nnz_rows"],
                           "mix": s["nnz_mix"], "n_valid": s["n_valid"],
                           "n_rows": s["x"].shape[0]}
-        tm = out["timing"]
+        tm, bd = out["timing"], out["bounds"]
+        print(f"phase 2 timing K1 lse and K4 on wgmma {MAIN} K={k}: "
+              + "; ".join(
+                  f"{name} {tm[key + '_ms']:.3f} ms, bound "
+                  f"{bd[key + '_six']['bound_ms']:.4f} ms as six bf16 "
+                  f"products ({bd[key + '_six']['bound_ms'] / tm[key + '_ms']:.1%}"
+                  f"), {bd[key]['bound_ms']:.4f} ms on the float32 CUDA "
+                  f"cores ({bd[key]['bound_ms'] / tm[key + '_ms']:.1%})"
+                  for name, key in (("K1 lse", "fwd"), ("K4", "bwd"))))
         print(f"phase 2 timing marginalise kernels {MAIN} K={k}: "
               + "; ".join(f"{name} {tm[name + '_ms']:.3f} ms (plain "
                           f"{tm[name + '_plain_ms']:.3f})"
@@ -1507,6 +1559,12 @@ def phase_marg_kernels(torch, device, bufs, cases):
           f"{mbufs['rec'].shape[0]} patches, {s['nnz_rows']} of {n} rows; "
           f"median largest weight {s['median_p_max']:.3g}; max |dp| "
           f"{s['max_dp']:.3g}")
+    # past one tile of components (K = 256): K1 lse's merge across tiles,
+    # K4's sums carried from one tile to the next
+    ragged = "{}x{}".format(*RAGGED)
+    out["wide"], _ = marg_checks(torch, device, f"{ragged} K=256 wide",
+                                 cases[ragged],
+                                 wide_gmm().kernel_buffers(device))
     return out
 
 
@@ -5419,16 +5477,16 @@ def main():
         ("gmm_hvp_map", patch_src, "jolideco_tpu/ops/gmm_pallas.py:376",
          errors["high"], rows["hvp"][0], rtiming["hvp_ms"],
          rtiming["hvp_plain_ms"], rbounds["hvp"]),
-        ("gmm_fused_fwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:341",
+        ("gmm_fused_fwd_marg", wg_src, "jolideco_tpu/ops/gmm_fused.py:341",
          marg_train["highest"], mrows["fwd"][0], mtiming["fwd_ms"],
-         mtiming["fwd_plain_ms"], mbounds["fwd"]),
+         mtiming["fwd_plain_ms"], mbounds["fwd_six"]),
         ("gmm_fused_fwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_fused.py:341", marg_train["high"],
          msmain["value_max_abs_err"], mstiming["fwd_ms"],
          mstiming["fwd_plain_ms"], msbounds["fwd"]),
-        ("gmm_fused_bwd_marg", fused_src, "jolideco_tpu/ops/gmm_fused.py:420",
+        ("gmm_fused_bwd_marg", wg_src, "jolideco_tpu/ops/gmm_fused.py:420",
          marg_train["highest"], mrows["bwd"][0], mtiming["bwd_ms"],
-         mtiming["bwd_plain_ms"], mbounds["bwd"]),
+         mtiming["bwd_plain_ms"], mbounds["bwd_six"]),
         ("gmm_fused_bwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_fused.py:420", marg_train["high"],
          msmain["bwd_against_float64"]["tc"], mstiming["bwd_ms"],
@@ -5587,6 +5645,20 @@ def main():
             "argmax_flips": mixed["errors"]["fwd"][2],
             "ms": mixed["timing"]["fwd_ms"], **mixed["bounds"]["fwd"]},
     }}))
+    # K1 lse and K4 of "highest" on wgmma (phase 2): errors against the
+    # plain versions and float64 at both images and past one tile of
+    # components, times and bounds at 1024^2
+    print(json.dumps({"marg_f32": {
+        **{label: marg[label] for label in (MAIN, "{}x{}".format(*RAGGED))},
+        "K=256 wide": marg["wide"],
+        "ms": {key: mtiming[key + "_ms"] for key in ("fwd", "bwd")},
+        "bound_six_ms": {key: mbounds[key + "_six"]["bound_ms"]
+                         for key in ("fwd", "bwd")},
+        "bound_fp32_ms": {key: mbounds[key]["bound_ms"]
+                          for key in ("fwd", "bwd")},
+        "mixed_ms": {key: mixed["timing"][key + "_ms"]
+                     for key in ("fwd", "bwd")},
+    }}))
     # the marginalised prior's kernels on the tensor cores (phase 2), the
     # two dials' marginalised training and probe (phase 5)
     print(json.dumps({"marg_split": {
@@ -5692,6 +5764,11 @@ def main():
                       ("pfft_cols_inv", "cols_inv")):
         extra.setdefault(name, {})["bound_fp32_ms"] = pbound[
             key + "_fp32"]["bound_ms"]
+    # K1 lse and K4 on wgmma likewise: bound_ms is that of six bf16
+    # products on the tensor cores (phase 2)
+    for name, key in (("gmm_fused_fwd_marg", "fwd"),
+                      ("gmm_fused_bwd_marg", "bwd")):
+        extra[name] = {"bound_fp32_ms": mbounds[key]["bound_ms"]}
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

@@ -1,9 +1,10 @@
-// Fused patch extraction + GMM scoring on Hopper (sm_90a), forward (MAP
-// and marginalise) and both backwards, in full float32: the precision
-// dial's "f32" mode ("highest"), and the MAP backward, which reads no
-// logit, under every dial (the "split" mode's forwards and marginalise
-// backward are gmm_fused_tc.cu's). Built by nvcc into a shared library
-// with a plain C interface and loaded with ctypes
+// Fused patch extraction + GMM scoring on Hopper (sm_90a): the MAP
+// forward in full float32, the precision dial's "f32" mode ("highest"),
+// and the MAP backward, which reads no logit, under every dial. The
+// marginalise kernels are elsewhere: "f32" on the warpgroup instructions
+// in gmm_score_wg.cu, "split" and "bf16" in gmm_fused_tc.cu; so are the
+// MAP forwards of "split" and "bf16" (gmm_score_wg.cu). Built by nvcc
+// into a shared library with a plain C interface and loaded with ctypes
 // (jolideco_torch/utils/cuda_build.py); the Python wrappers and the plain
 // PyTorch versions of the kernels are in jolideco_torch/ops/gmm_fused.py.
 //
@@ -23,9 +24,8 @@
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k
 // over all K components, keeping the running maximum and the LOWEST
 // index among equal maxima (the TPU kernel's min-index argmax); values is
-// that maximum (MAP, gmm_fwd_kernel<false>) or the logsumexp
-// (marginalise, <true>: an online max-and-rescale sum, as the patch-level
-// scorer gmm_patch.cu::gmm_score_rows_kernel<true> takes it).
+// that maximum (the MAP branch; the logsumexp branch is gmm_score_wg.cu's
+// gmm_score_wg_kernel<true, 6, kLse>).
 //
 // What bounds it on the H100: the quadratic form, 64·64 multiply-adds per
 // patch and component (1.1e11 flop for 65,536 patches and K = 200, half
@@ -50,7 +50,8 @@
 // patch-level scorer (gmm_patch.cu). At 1024², K = 200 on
 // an NVIDIA H100 80GB HBM3 (700 W limit) one patch per thread took 2.41
 // ms, two 1.62-1.65 ms, three (254 registers) 2.39 ms. No tensor cores
-// (wgmma) yet: this is the plain fp32 kernel that later PRs make fast.
+// (wgmma) yet: gmm_score_wg.cu's six-product core could take it, as it
+// took the logsumexp branch.
 //
 // ---------------------------------------------------------------------
 // gmm_bwd_kernel and gmm_bwd_add_kernel replace the JAX package's
@@ -97,32 +98,10 @@
 // 8 places costs it a second pass, so a random image (1.09 components a
 // tile) takes 0.060 ms.
 
-// ---------------------------------------------------------------------
-// gmm_bwd_marg_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel, the
-// marginalise backward. Per valid patch with the forward's logsumexp lse
-// and cotangent dv:
-//     w_k = exp(logit_k - lse),  u = dv · sum_k w_k (b_k - A_k x) / sum_k w_k
-// with the logits recomputed from the saved patches (as the TPU kernel
-// does: no (N, K) residual), then K2's epilogue.
-//
-// What bounds it: operations, the recomputed logits (5.6e10 flop at
-// 1024², K = 200, 0.84 ms at the fp32 peak); the A_k x terms run only for
-// components with w_k > 0 in some lane of the warp, about one per patch
-// for the shipped GMMs (gmm_marg.cuh, whose per-row step it shares with
-// gmm_patch.cu::gmm_unit_marg_kernel). Design: K1's component loop at one
-// patch per thread (the gradient accumulator takes the registers of K1's
-// second patch), triangle records double-buffered in shared memory,
-// A_k read through the read-only path when the warp needs it. Invalid
-// patches take no A_k x pass and store nothing. On an NVIDIA H100 80GB
-// HBM3 (700 W limit) at 1024², K = 200: 2.58-2.61 ms (32% of its bound),
-// 255 registers with 44 bytes spilled; gmm_fwd_kernel<true> 1.73-1.74 ms
-// (168 registers, 8 bytes spilled) against 1.64 ms for <false>.
-
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "gmm_logits.cuh"
-#include "gmm_marg.cuh"
 #include "gmm_patches.cuh"
 
 namespace {
@@ -131,11 +110,7 @@ using gmm::kD;
 using gmm::kRec;
 using gmm::load_record;
 using gmm::load_patch;
-using gmm::load_row;
 using gmm::kP;
-using gmm::patch_pos;
-using gmm::PatchPos;
-using gmm::store_patch_gradient;
 
 constexpr int kFwdThreads = 128;
 constexpr int kPPT = 2;               // patches per forward thread
@@ -147,12 +122,10 @@ constexpr int kSeg = kBwdTile / (kBwdThreads / 16);
 constexpr int kLdX = kBwdTile + kSeg + 1;  // x^T row: odd, room past the last place
 constexpr int kAddThreads = 256;
 static_assert(kSeg == 8 && kD == 64, "a half-warp's 16 threads cover a u row");
-constexpr int kBwdMargThreads = 128;
 
 // Each thread scores kPPT patches, n = (blockIdx.x * kPPT + p) *
 // blockDim.x + threadIdx.x, so that every float4 of A read from shared
 // memory feeds kPPT * 4 multiply-adds.
-template <bool kMarginalize>
 __global__ void __launch_bounds__(kFwdThreads)
 gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
                int ny, int nx, int n_total, float sentinel,
@@ -174,12 +147,11 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
   load_record(smem[0], rec, 0);
   __syncthreads();
 
-  float best[kPPT], sum[kPPT];
+  float best[kPPT];
   int best_k[kPPT];
 #pragma unroll
   for (int p = 0; p < kPPT; ++p) {
     best[p] = -CUDART_INF_F;
-    sum[p] = 0.f;
     best_k[p] = 0;
   }
   for (int k = 0; k < K; ++k) {
@@ -191,12 +163,8 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
 #pragma unroll
     for (int p = 0; p < kPPT; ++p) {
       if (logit[p] > best[p]) {
-        // sum of exp(logit - best) so far, rescaled to the new maximum
-        if (kMarginalize) sum[p] = fmaf(sum[p], expf(best[p] - logit[p]), 1.f);
         best[p] = logit[p];
         best_k[p] = k;
-      } else if (kMarginalize) {
-        sum[p] += expf(logit[p] - best[p]);
       }
     }
     __syncthreads();
@@ -205,7 +173,7 @@ gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
 #pragma unroll
   for (int p = 0; p < kPPT; ++p) {
     if (n[p] < n_total) {
-      values[n[p]] = kMarginalize ? best[p] + logf(sum[p]) : best[p];
+      values[n[p]] = best[p];
       argmax[n[p]] = best_k[p];
       valid_out[n[p]] = valid[p];
     }
@@ -335,63 +303,14 @@ gmm_bwd_kernel(const float* __restrict__ xtn, const int* __restrict__ argmax,
   }
 }
 
-// One thread per pixel: the sum over the offset groups, in order, of the
-// u entry of the group's patch that covers it (the patches of one group
-// do not overlap).
+// One thread per pixel (gmm_patches.cuh's patch_units_at).
 __global__ void __launch_bounds__(kAddThreads)
 gmm_bwd_add_kernel(const float* __restrict__ units, int H, int W, int stride,
                    int ny, int nx, float* __restrict__ grad) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= H * W) return;
-  const int y = pix / W, x = pix - (pix / W) * W;
-  float sum = 0.f;
-  int g = 0;  // group (a / stride) (8 / stride) + b / stride
-  for (int a = 0; a < kP; a += stride) {
-    for (int b = 0; b < kP; b += stride, ++g) {
-      const int dy = y - a, dx = x - b;
-      if (dy < 0 || dx < 0 || dy >= kP * ny || dx >= kP * nx) continue;
-      const size_t n = ((size_t)g * ny + dy / kP) * nx + dx / kP;
-      sum += __ldg(units + n * kD + (dy % kP) * kP + dx % kP);
-    }
-  }
-  grad[pix] = sum;
-}
-
-// One patch per thread; every thread of the block runs the component loop
-// (shared records, warp votes), valid or not.
-__global__ void __launch_bounds__(kBwdMargThreads)
-gmm_bwd_marg_kernel(const float* __restrict__ xtn, const float* __restrict__ lse,
-                    const float* __restrict__ valid,
-                    const float* __restrict__ dvalues,
-                    const float* __restrict__ rec, const float* __restrict__ a_full,
-                    int H, int W, int stride, int ny, int nx, int n_total, int K,
-                    float* __restrict__ planes) {
-  __shared__ __align__(16) float smem[2][kRec];
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = n < n_total && valid[n] != 0.f;
-  float x[1][kD];
-  load_row(xtn, live ? n : n_total, n_total, x[0]);
-  const float l = live ? __ldg(lse + n) : CUDART_INF_F;
-  float acc[kD];
-#pragma unroll
-  for (int c = 0; c < kD; ++c) acc[c] = 0.f;
-  float wsum = 0.f;
-
-  load_record(smem[0], rec, 0);
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    const float* cur = smem[k & 1];
-    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
-    gmm::marg_unit_step(cur, a_full + (size_t)k * kD * kD, x, l, wsum, acc);
-    __syncthreads();
-  }
-
-  if (!live) return;
-  const float scale = dvalues[n] / wsum;
-#pragma unroll
-  for (int c = 0; c < kD; ++c) acc[c] *= scale;
-  store_patch_gradient(acc, n, H, W, stride, ny, nx, planes);
+  const int y = pix / W;
+  grad[pix] = gmm::patch_units_at(units, y, pix - y * W, stride, ny, nx);
 }
 
 }  // namespace
@@ -400,14 +319,13 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 int gmm_fused_fwd(const void* img, int H, int W, int stride, int ny, int nx,
-                  float sentinel, const void* rec, int K, int marginalize,
-                  void* values, void* argmax, void* valid, void* xtn,
-                  void* stream) {
+                  float sentinel, const void* rec, int K, void* values,
+                  void* argmax, void* valid, void* xtn, void* stream) {
   const int groups = (kP / stride) * (kP / stride);
   const int n_total = groups * ny * nx;
   const int blocks = (n_total + kFwdThreads * kPPT - 1) / (kFwdThreads * kPPT);
-  auto kernel = marginalize ? gmm_fwd_kernel<true> : gmm_fwd_kernel<false>;
-  kernel<<<blocks, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gmm_fwd_kernel<<<blocks, kFwdThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(img), H, W, stride, ny, nx, n_total, sentinel,
       static_cast<const float*>(rec), K, static_cast<float*>(values),
       static_cast<int*>(argmax), static_cast<float*>(valid),
@@ -434,22 +352,6 @@ int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(units), H, W, stride, ny, nx,
       static_cast<float*>(grad));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int gmm_fused_bwd_marg(const void* xtn, const void* lse, const void* valid,
-                       const void* dvalues, const void* rec, const void* a_full,
-                       int H, int W, int stride, int ny, int nx, int K,
-                       void* planes, void* stream) {
-  const int groups = (kP / stride) * (kP / stride);
-  const int n_total = groups * ny * nx;
-  const int blocks = (n_total + kBwdMargThreads - 1) / kBwdMargThreads;
-  gmm_bwd_marg_kernel<<<blocks, kBwdMargThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xtn), static_cast<const float*>(lse),
-      static_cast<const float*>(valid), static_cast<const float*>(dvalues),
-      static_cast<const float*>(rec), static_cast<const float*>(a_full), H, W,
-      stride, ny, nx, n_total, K, static_cast<float*>(planes));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,9 @@
 // described below), 1 for "bf16" (precision DEFAULT, at the end of this
 // header). The float32 kernels ("f32" mode,
 // the "highest" dial) and the MAP backward, which reads no logit, are
-// gmm_fused.cu's, whose header states the patch enumeration, and
-// gmm_patch.cu's.
+// gmm_fused.cu's, whose header states the patch enumeration,
+// gmm_patch.cu's and, for the marginalised prior's K1 lse and K4 (six
+// bf16 products of three-way splits on wgmma), gmm_score_wg.cu's.
 //
 // The MAP scoring moved: gmm_score_wg.cu's kernel (wgmma, bulk copies
 // into a ring of stages, a persistent grid of clusters) computes the MAP

@@ -1,6 +1,7 @@
-// Per-row steps of the marginalised GMM score's derivatives, shared by the
-// fused marginalise backward (gmm_fused.cu::gmm_bwd_marg_kernel, K4) and the
-// patch-level unit gradient and Hessian action (gmm_patch.cu, K8 and K9).
+// Per-row steps of the marginalised GMM score's derivatives: the
+// patch-level unit gradient and Hessian action in float32 (gmm_patch.cu,
+// K8 and K9; the fused marginalise backward, K4, left them for
+// gmm_score_wg.cu's six-product core).
 //
 // With logit_k = -1/2 x^T A_k x + b_k . x + c_k and the forward's
 // logsumexp lse, a component's softmax weight is w_k = exp(logit_k - lse).

@@ -1,7 +1,8 @@
 // Offset-group patches of an image, as the fused image-level scorers
 // read them and their backwards write them back: gmm_fused.cu (the
-// float32 kernels) and gmm_fused_tc.cu (the "split" mode's on the
-// tensor cores). The enumeration is stated at the top of gmm_fused.cu.
+// float32 MAP kernels), gmm_fused_tc.cu (the logsumexp kernels of the
+// "split" and "bf16" modes) and gmm_score_wg.cu (the warpgroup kernels).
+// The enumeration is stated at the top of gmm_fused.cu.
 
 #pragma once
 
@@ -99,6 +100,29 @@ __device__ __forceinline__ void store_patch_gradient(float (&u)[kD], int n,
     for (int dx = 0; dx < kP; ++dx)
       dst[(size_t)dy * W + dx] = u[dy * kP + dx] - mean;
   }
+}
+
+// The gradient at pixel (y, x) of the (H, W) image from the patches' u
+// rows (N, 64), already less their means: the sum over the offset
+// groups, in order, of the u entry of the group's patch that covers it
+// (the patches of one group do not overlap). The overlap-add of the
+// backwards that write u rows to a scratch (K2 in gmm_fused.cu, K4 in
+// gmm_score_wg.cu), one thread a pixel: no zero-fill, no float atomics,
+// the same bits every run.
+__device__ __forceinline__ float patch_units_at(const float* __restrict__ units,
+                                                int y, int x, int stride,
+                                                int ny, int nx) {
+  float sum = 0.f;
+  int g = 0;  // group (a / stride) (8 / stride) + b / stride
+  for (int a = 0; a < kP; a += stride) {
+    for (int b = 0; b < kP; b += stride, ++g) {
+      const int dy = y - a, dx = x - b;
+      if (dy < 0 || dx < 0 || dy >= kP * ny || dx >= kP * nx) continue;
+      const size_t n = ((size_t)g * ny + dy / kP) * nx + dx / kP;
+      sum += __ldg(units + n * kD + (dy % kP) * kP + dx % kP);
+    }
+  }
+  return sum;
 }
 
 }  // namespace gmm

@@ -1,35 +1,49 @@
-// The GMM MAP scorer on Hopper's warpgroup instructions (sm_90a), in the
-// precision dial's "split" and "bf16" modes: K1's MAP forward on an image
-// (gmm_score_wg_image) and K5's MAP scorer on rows (gmm_score_wg_rows).
-// Built by nvcc into a shared library with a plain C interface and loaded
-// with ctypes (jolideco_torch/utils/cuda_build.py); the wrappers are
-// gmm_fused_fwd_tc_cuda and gmm_fused_fwd_bf16_cuda in
-// jolideco_torch/ops/gmm_fused.py, gmm_score_rows_tc_cuda and
-// gmm_score_rows_bf16_cuda in jolideco_torch/ops/gmm_pallas.py, whose
-// plain versions (score_split_plain, score_bf16_plain) the card holds
-// them to.
+// The GMM scorer on Hopper's warpgroup instructions (sm_90a): K1's MAP
+// forward on an image (gmm_score_wg_image) and K5's MAP scorer on rows
+// (gmm_score_wg_rows) in the precision dial's "split" and "bf16" modes,
+// and the marginalised prior's pair in its "f32" mode ("highest"): K1's
+// logsumexp forward (gmm_score_wg_image_lse) and K4, the marginalise
+// backward (gmm_score_wg_mix). Built by nvcc into a shared library with
+// a plain C interface and loaded with ctypes
+// (jolideco_torch/utils/cuda_build.py); the wrappers are
+// gmm_fused_fwd_tc_cuda, gmm_fused_fwd_bf16_cuda, gmm_fused_fwd_marg_cuda
+// and gmm_fused_bwd_marg_cuda in jolideco_torch/ops/gmm_fused.py,
+// gmm_score_rows_tc_cuda and gmm_score_rows_bf16_cuda in
+// jolideco_torch/ops/gmm_pallas.py, whose plain versions
+// (score_split_plain, score_bf16_plain, fused_forward_plain,
+// fused_backward_marg_plain) the card holds them to.
 //
 // What it replaces: the JAX package's ops/gmm_fused.py::_fwd_kernel (MAP
 // branch) and ops/gmm_pallas.py::_score_kernel (MAP) under precision HIGH
 // ("split3", kProd = 3: hi.hi + hi.lo + lo.hi of the bf16 hi/lo parts)
-// and DEFAULT (kProd = 1: hi.hi), and in this port gmm_fused_tc.cu's
-// <false, kProd> instances of gmm_fwd_tc_kernel and
+// and DEFAULT (kProd = 1: hi.hi); ops/gmm_fused.py::_fwd_kernel
+// (logsumexp branch) and ::_bwd_marg_kernel under HIGHEST (kProd = 6, the
+// six products of three-way splits below); and in this port
+// gmm_fused_tc.cu's <false, kProd> instances of gmm_fwd_tc_kernel and
 // gmm_score_rows_tc_kernel (mma.sync), which no wrapper launches any
-// more. Per row x (a masked, mean-subtracted 8x8 patch),
+// more, and gmm_fused.cu's float32 gmm_fwd_kernel<true> and
+// gmm_bwd_marg_kernel (FFMA; deleted). Per row x (a masked,
+// mean-subtracted 8x8 patch),
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k,
 // the quadratic form as the product of the 2,080 pair products u = x_a
 // x_b (a <= b) with the pair-major A (off-diagonals doubled), then the
-// maximum and the lowest index among equal maxima. The logsumexp
-// instances stay on gmm_fused_tc.cu's tile_logits, whose logits K4, K8
-// and K9a recompute bit for bit (its header says why).
+// maximum and the lowest index among equal maxima (kMax), or beside them
+// the logsumexp (kLse), or K4's mixture (kMix):
+//     w_k = exp(logit_k - lse),  u = dv sum_k w_k (b_k - A_k x) / sum_k w_k,
+// less its mean, then the overlap-add into the image gradient. The
+// other logsumexp instances stay on gmm_fused_tc.cu's tile_logits, whose
+// logits K4, K8 and K9a of those modes recompute bit for bit (its
+// header says why); K4 here recomputes K1 lse's logits by the very same
+// instance of the core, for the same reason.
 //
 // What bounds it on the H100: operations. At 1024^2 (65,536 patches),
 // K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16 peak
-// of 989 TFLOP/s (one product: 0.057 ms); bytes are 4 MB in and 17 MB out
-// (0.006 ms). Beside the products, the CUDA cores form u, add each group
-// of products to the running sums and reduce, and A's 1.7 MB a tile of
-// components flows from L2 into every CTA once for each of its tiles of
-// rows (0.89 GB at 1024^2).
+// of 989 TFLOP/s (one product: 0.057 ms; six: 0.341 ms, K4 with the
+// mixture's float32 terms about the same); bytes are 4 MB in and 17 MB
+// out (0.006 ms). Beside the products, the CUDA cores form u, add each
+// group of products to the running sums and reduce, and A's 1.7 MB a
+// tile of components (2.5 MB in three planes) flows from L2 into every
+// CTA once for each of its tiles of rows (0.89 GB at 1024^2; 1.28 GB).
 //
 // The design:
 // - one CTA of three warpgroups on each SM, persistent, walking over tiles
@@ -38,46 +52,82 @@
 //   m64n200k16 (bf16 in, float32 out): A is u, formed by each thread from
 //   the rows in shared memory (stored transposed, [feature][row], so that
 //   the fragment loads fall on distinct banks) straight into the m16n8k16
-//   fragment registers and split into bf16 hi and lo (tc_frag.cuh's
-//   put_operand); B is A's chunk of 32 pairs x 200 components in shared
-//   memory, K-major 8 x 8 core matrices (no swizzle);
-// - a chunk's two k16 steps, kProd products each, go into fresh
-//   accumulators (the first with scale-d = 0), which after
-//   wgmma.wait_group are added to the running float32 sums on the CUDA
-//   cores: the tensor cores carry no sum across chunks (gmm_fused_tc.cu's
-//   add_split records the bias of sums they carry across all 130 steps;
-//   chip_smoke.py phase 2 holds this one to the same bars). The two
-//   warpgroups take turns to issue (two named barriers), so that one's
-//   adds and fragments run while the other's products do;
-// - b . x + c off the CUDA cores' loop: the accumulators start at -2 c,
-//   then -2 b . x runs as four k16 steps of six products, x and -2 b each
-//   split into three bf16 parts (float32's 24 bits) and the products of
-//   parts i + j <= 4 summed, as the JAX package's HIGHEST, into fresh
-//   accumulators added as the pairs' are; -2 b's parts (77 KB with c)
-//   stay in shared memory while the tile of components does (for K <= 200
-//   the whole run);
+//   fragment registers and split into bf16 parts (hi and lo for "split",
+//   tc_frag.cuh's put_operand; hi alone for "bf16"; hi, mid and lo for
+//   "f32", put_parts3); B is A's chunk of components in shared memory,
+//   K-major 8 x 8 core matrices (no swizzle): 32 pairs a stage in one or
+//   two planes, or, in "f32", one k16 step of 16 pairs in three (hi, mid,
+//   lo: 19,200 bytes);
+// - each group of products goes into fresh accumulators (the first with
+//   scale-d = 0), which after wgmma.wait_group are added to the running
+//   float32 sums on the CUDA cores: the tensor cores carry no sum across
+//   groups (gmm_fused_tc.cu's add_split records the bias of sums they
+//   carry across all 130 steps; chip_smoke.py phase 2 holds these to the
+//   same bars). A group is a chunk's two k16 steps in the bf16 modes, one
+//   k16 step's six products in "f32" (the products of parts i + j <= 2,
+//   the small ones first, as the JAX package's HIGHEST): the tensor cores'
+//   float32 sums truncate, and hi.hi, one instruction a group, meets at
+//   most five smaller products there. The two warpgroups take turns to
+//   issue (two named barriers), so that one's adds and fragments run
+//   while the other's products do;
+// - b . x + c off the CUDA cores' loop: the accumulators start at -2 c
+//   (in "f32" at zero, -2 c added after the pairs: minus_2c), then -2 b .
+//   x runs as four k16 steps of the six products, x and -2 b each split
+//   into three bf16 parts (float32's 24 bits), into fresh accumulators
+//   added as the pairs' are; -2 b's parts (77 KB with c) stay in shared
+//   memory while the tile of components does (for K <= 200 the whole
+//   run);
 // - warpgroup 2 is cut to 40 registers by setmaxnreg (the multiplying
 //   warpgroups get 232): one thread keeps A's chunks in flight in a ring
-//   of shared-memory stages (3 for "split", 6 for "bf16"), each a bulk
-//   copy of the chunk's image (ops/gmm_fused.py::_wg_buffers lays the
-//   device buffer out as the stages' bytes) completing on the stage's
-//   mbarrier; its other three warps load the next tile's rows (K1: the
-//   patches, masked and mean-subtracted as gmm_patches.cuh's load_patch,
-//   also written to xtn and valid) into the second of two row buffers
-//   while the current tile is multiplied;
-// - the maximum over each thread's 50 components, then over the four
-//   threads of a quad (shuffles), then over the tiles of components (in
-//   registers), ties to the lower index.
+//   of shared-memory stages (3 for "split", 6 for "bf16", 4 for "f32"),
+//   each a bulk copy of the chunk's image (ops/gmm_fused.py::_wg_buffers
+//   and _wg3_buffer lay the device buffers out as the stages' bytes)
+//   completing on the stage's mbarrier; its other three warps load the
+//   next tile's rows (K1: the patches, masked and mean-subtracted as
+//   gmm_patches.cuh's load_patch, also written to xtn and valid) into the
+//   second of two row buffers while the current tile is multiplied;
+// - kMax and kLse: the maximum (and the sum of exp(logit - maximum),
+//   rescaled whenever the maximum grows) over each thread's 50
+//   components, then over the four threads of a quad (shuffles), then
+//   over the tiles of components (in registers), ties to the lower index,
+//   in one fixed order;
+// - kMix (K4, the rows from xtn: the very floats K1 lse wrote into its
+//   row buffer, so that the same core gives K1 lse's logits bit for bit):
+//   each thread writes its weights w = exp(logit - lse) to the CTA's
+//   slice of a scratch in L2 (kRows x kKP floats); then each warp takes
+//   its 16 rows 32 components at a time, a ballot a row finding the
+//   nonzero weights, and runs each weighed component's terms w (b_k - A_k
+//   x) in float32 with the whole warp, lane l taking entries 2l and 2l +
+//   1 of A_k x while the warp reads A_k row by row, components in
+//   ascending order (mix_rows): for one row alone (row_ax) or, where
+//   several rows weigh the component, for all 16 at once (rows_ax). For
+//   the shipped GMMs about one weight a row is nonzero (their logits'
+//   gaps exceed the ~104 at which exp underflows) and skipping a zero
+//   term is exact; a GMM of mixed weights runs all of them, A_k read once
+//   a warp. The rows' sums carry across tiles of components through the
+//   output rows and a scratch of weight sums; after the last, dv / sum w,
+//   less the row's mean, into the u rows (N, 64), and a second launch
+//   adds them into the image (gmm_patches.cuh's patch_units_at, K2's
+//   epilogue). No atomics: the same bits every call.
 // Any K: tiles of 200 components one after another (the last padded with
-// zero components, masked out of the maximum).
+// zero components, masked out of the reductions).
 //
 // A first version, with a k16 step a flush, b . x by FMAs interleaved
 // with the chunks (its loads waited one at a time on the few registers
 // left) and a cluster of two CTAs sharing each chunk by a multicast bulk
 // copy (whose handshake a chunk cost more than the halved L2 reads saved),
 // was no faster than the mma.sync kernel on the H100; those three went.
-// chip_smoke.py phase 2 times this kernel beside the mma.sync instances
-// it replaces, scripts/torch_wg_variants.py variants of it.
+// chip_smoke.py phase 2 times the MAP kernel beside the mma.sync
+// instances it replaces, scripts/torch_wg_variants.py variants of it,
+// scripts/torch_marg_f32_times.py the "f32" instances: on an NVIDIA H100
+// 80GB HBM3 (700 W limit) at 1024^2, K = 200, astro-snr-v1, K1 lse 0.50-0.51
+// ms (gmm_fused.cu's FFMA kernel 1.73 in turns, 67% of the six-product
+// bound) and K4 0.61 ms (2.58; 56%); under mixed weights (200 a row) K4
+// 5.87 ms (11.8), where a warp a (row, component) term took 20.0 and
+// rows_ax with two of A_k's rows in flight 8.3. The "f32" instances use
+// 232 registers in the multiplying warpgroups; K4 spills nothing, K1 lse
+// 56 bytes, as the bf16 MAP image instance (every image instance spills
+// 56-64 bytes, no row instance any).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -98,25 +148,40 @@ constexpr int kKP = wg::kMmaN;             // components a tile: 200
 constexpr int kRegs = wg::kMmaRegs;        // accumulators a thread: 100
 constexpr int kKC = 32;                    // pairs a chunk
 constexpr int kChunks = kPairs / kKC;      // 65
+constexpr int kStep3 = 16;                 // pairs a stage of "f32"
 constexpr int kRows = 128;                 // rows a CTA tile
 constexpr int kThreads = 384;              // three warpgroups
 constexpr int kXLd = kRows + 4;            // transposed row buffer stride
 constexpr int kXFloats = kD * kXLd;
 constexpr int kPlaneBytes = kKP * kKC * 2;  // 12,800: a bf16 plane
+constexpr int kPlane3 = kKP * kStep3 * 2;   // 6,400: a plane of "f32"
 constexpr int kLinPart = kKP * kD * 2;      // 25,600: a bf16 part of -2 b
 constexpr int kCQuads = 13;                 // float4s of c a thread
 constexpr int kLinBytes = 3 * kLinPart + 4 * 16 * kCQuads;  // 77,632
 constexpr int kLoaders = 96;                // warps 9-11
 constexpr int kConsumerWarps = 8;
+constexpr int kAddThreads = 256;
 static_assert(kPairs % kKC == 0 && kKC == 32, "two k16 steps a chunk");
+static_assert(kPairs % kStep3 == 0 && kStep3 == 16, "a k16 step a stage");
 
-// Shared memory: the ring of A's chunks (kProd bf16 planes a stage), the
-// linear terms (b's three parts, c), two row buffers, the pair table and
-// the barriers.
+// the epilogues: the maximum (K1, K5 MAP), the logsumexp (K1 lse), the
+// marginalise backward's mixture (K4)
+constexpr int kMax = 0;
+constexpr int kLse = 1;
+constexpr int kMix = 2;
+
+// Shared memory: the ring of A's chunks (kStage bytes a stage, the first
+// kStage of each kRecord-byte record of the device buffer: kStages
+// records a tile of components), the linear terms (b's three parts, c),
+// two row buffers, the pair table and the barriers.
 template <int kProd>
 struct Layout {
-  static constexpr int kStage = kProd == 3 ? 2 * kPlaneBytes : kPlaneBytes;
-  static constexpr int kDepth = kProd == 3 ? 3 : 6;
+  static constexpr bool kF32 = kProd == 6;
+  static constexpr int kStage =
+      kF32 ? 3 * kPlane3 : kProd == 3 ? 2 * kPlaneBytes : kPlaneBytes;
+  static constexpr int kRecord = kF32 ? kStage : 2 * kPlaneBytes;
+  static constexpr int kStages = kF32 ? kPairs / kStep3 : kChunks;
+  static constexpr int kDepth = kF32 ? 4 : kProd == 3 ? 3 : 6;
   static constexpr int kLinOffset = kDepth * kStage;
   static constexpr int kXOffset = kLinOffset + kLinBytes;
   static constexpr int kPairOffset = kXOffset + 2 * kXFloats * 4;
@@ -127,7 +192,7 @@ struct Layout {
   static_assert(kSmem <= 232448, "shared memory of a CTA");
 };
 
-// Where a CTA reads its rows: an image's patches (K1) or rows (K5).
+// Where a CTA reads its rows: an image's patches (K1) or rows (K5, K4).
 struct Source {
   const float* img;
   int H, W, stride, ny, nx;
@@ -138,10 +203,28 @@ struct Source {
   int n_total;
 };
 
+// What a CTA writes. kMax, kLse: the values (maximum or logsumexp) and
+// argmax of the rows. kMix (K4): from the forward's logsumexp, valid and
+// cotangents of the rows, the components' A_k (row-major) and b_k, the u
+// rows (N, 64); scratch: the weights of each CTA's tile (kRows x kKP
+// floats a CTA) and the rows' weight sums.
+struct Out {
+  float* values;
+  int* argmax;
+  const float* lse;
+  const float* valid;
+  const float* dv;
+  const float* a_full;
+  const float* b_rows;
+  float* wts;
+  float* wsum;
+  float* units;
+};
+
 // Row r of a CTA's tile (row n of the whole) into the transposed buffer
 // xs. K1: patch n, masked and mean-subtracted as load_patch (the same
 // sums in the same order), written to xtn and valid too, read twice to
-// spare registers; K5: row n. Past the end: zeros, nothing written.
+// spare registers; K5, K4: row n. Past the end: zeros, nothing written.
 template <bool kImage>
 __device__ __forceinline__ void load_row(float* xs, int r, int n,
                                          const Source& s) {
@@ -209,13 +292,26 @@ __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return u;
 }
 
+// The pair v into register q of three bf16 parts p[0] + p[1] + p[2] (each
+// the rounding of what the earlier ones leave, as put_split's hi and lo):
+// float32's 24 bits.
+__device__ __forceinline__ void put_parts3(uint32_t (&p)[3][4], int q,
+                                           float2 v) {
+#pragma unroll
+  for (int part = 0; part < 3; ++part) {
+    const __nv_bfloat162 b = __float22bfloat162_rn(v);
+    const float2 f = __bfloat1622float2(b);
+    p[part][q] = bits(b);
+    v = make_float2(v.x - f.x, v.y - f.y);
+  }
+}
+
 // u's fragment of k16 step `step` for rows r0 and r0 + 8 of the tile:
 // registers q = 0..3 hold (row r0 + 8 (q & 1), pairs 16 step + 2t + 8
 // (q >> 1) and + 1), split into bf16 hi and lo (hi alone for one
-// product) by put_operand.
-template <int kProd>
-__device__ __forceinline__ void form_fragment(uint32_t (&hi)[4],
-                                              uint32_t (&lo)[4],
+// product) by put_operand, or into three parts (kProd = 6, hi in hi[0]).
+template <int kProd, int kParts>
+__device__ __forceinline__ void form_fragment(uint32_t (&p)[kParts][4],
                                               const float* xs,
                                               const uint16_t* pairs, int step,
                                               int r0, int t) {
@@ -230,19 +326,21 @@ __device__ __forceinline__ void form_fragment(uint32_t (&hi)[4],
       const int r = r0 + 8 * h;
       const float2 v = make_float2(xs[a0 * kXLd + r] * xs[b0 * kXLd + r],
                                    xs[a1 * kXLd + r] * xs[b1 * kXLd + r]);
-      __nv_bfloat162 vh, vl;
-      tc::put_operand<kProd>(reinterpret_cast<bf16*>(&vh),
-                             reinterpret_cast<bf16*>(&vl), 0, v);
-      hi[2 * half + h] = bits(vh);
-      if constexpr (kProd == 3) lo[2 * half + h] = bits(vl);
+      if constexpr (kProd == 6) {
+        put_parts3(p, 2 * half + h, v);
+      } else {
+        __nv_bfloat162 vh, vl;
+        tc::put_operand<kProd>(reinterpret_cast<bf16*>(&vh),
+                               reinterpret_cast<bf16*>(&vl), 0, v);
+        p[0][2 * half + h] = bits(vh);
+        if constexpr (kProd == 3) p[1][2 * half + h] = bits(vl);
+      }
     }
   }
 }
 
 // x's fragment of k16 step `step` of b . x (features 16 step ..) for rows
-// r0 and r0 + 8, split into three bf16 parts p[0] + p[1] + p[2] (each the
-// rounding of what the earlier ones leave, as put_split's hi and lo):
-// float32's 24 bits.
+// r0 and r0 + 8, in three bf16 parts (put_parts3).
 __device__ __forceinline__ void form_x_parts(uint32_t (&p)[3][4],
                                              const float* xs, int step,
                                              int r0, int t) {
@@ -251,15 +349,20 @@ __device__ __forceinline__ void form_x_parts(uint32_t (&p)[3][4],
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int d = 16 * step + 2 * t + 8 * half, r = r0 + 8 * h;
-      float2 v = make_float2(xs[d * kXLd + r], xs[(d + 1) * kXLd + r]);
-#pragma unroll
-      for (int part = 0; part < 3; ++part) {
-        const __nv_bfloat162 b = __float22bfloat162_rn(v);
-        const float2 f = __bfloat1622float2(b);
-        p[part][2 * half + h] = bits(b);
-        v = make_float2(v.x - f.x, v.y - f.y);
-      }
+      put_parts3(p, 2 * half + h,
+                 make_float2(xs[d * kXLd + r], xs[(d + 1) * kXLd + r]));
     }
+}
+
+// Keeps a group's fragments in their registers until the products that
+// read them are done (called after the wait that covers them): an
+// asynchronous product reads its A registers after the instruction.
+template <int kParts>
+__device__ __forceinline__ void fence_fragment(uint32_t (&p)[kParts][4]) {
+#pragma unroll
+  for (int part = 0; part < kParts; ++part)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) asm volatile("" : "+r"(p[part][q])::"memory");
 }
 
 // B's descriptor: 8 x 8 core matrices, 128 bytes apart along K, `sbo`
@@ -292,22 +395,20 @@ __device__ __forceinline__ void issue_step(float (&t)[kRegs],
   }
 }
 
-// One k16 step of -2 b . x in six products of the parts, x_i (-2 b)_j
-// for i + j <= 4 (parts from 0), the smallest first, into fresh
-// accumulators: float32's accuracy, as the JAX package's HIGHEST.
-__device__ __forceinline__ void issue_linear(float (&t)[kRegs],
-                                             const uint32_t (&x)[3][4],
-                                             const unsigned char* lin,
-                                             int s) {
-  auto part = [&](int j) {
-    return b_desc(lin + j * kLinPart + 256 * s, 1024);
-  };
-  wg::wgmma_n200_zero(t, x[2], part(0));
-  wg::wgmma_n200_acc(t, x[1], part(1));
-  wg::wgmma_n200_acc(t, x[0], part(2));
-  wg::wgmma_n200_acc(t, x[1], part(0));
-  wg::wgmma_n200_acc(t, x[0], part(1));
-  wg::wgmma_n200_acc(t, x[0], part(0));
+// One k16 step in six products of the parts, a_i b_j for i + j <= 2
+// (parts from 0), the smallest first, into fresh accumulators: float32's
+// accuracy, as the JAX package's HIGHEST. `b(j)` is the descriptor of
+// B's part j: -2 b's (b . x) or A's (u . A, "f32").
+template <class Desc>
+__device__ __forceinline__ void issue_six(float (&t)[kRegs],
+                                          const uint32_t (&a)[3][4],
+                                          Desc&& b) {
+  wg::wgmma_n200_zero(t, a[2], b(0));
+  wg::wgmma_n200_acc(t, a[1], b(1));
+  wg::wgmma_n200_acc(t, a[0], b(2));
+  wg::wgmma_n200_acc(t, a[1], b(0));
+  wg::wgmma_n200_acc(t, a[0], b(1));
+  wg::wgmma_n200_acc(t, a[0], b(0));
 }
 
 // acc += t once the group's products are done: the float32 sums of the
@@ -321,11 +422,204 @@ __device__ __forceinline__ void flush(float (&acc)[kRegs], float (&t)[kRegs]) {
   }
 }
 
+// acc = -2 c (kInit) or acc += -2 c, c from the linear terms in shared
+// memory (thread t of a quad: components 8 j + 2 t and + 1). The bf16
+// modes start their sums at -2 c; "f32" adds it after the pairs: c is
+// about the size of the logits (80 for the random GMMs of the CPU tests,
+// the quadratic form's sums a third of that), and every flush onto a sum
+// started at -2 c rounds at that size (ten times the float32 plain
+// version's error in the logits there, where this order keeps 1.3
+// times).
+template <bool kInit>
+__device__ __forceinline__ void minus_2c(float (&acc)[kRegs],
+                                         const unsigned char* lin, int t) {
+  const float4* c4 =
+      reinterpret_cast<const float4*>(lin + 3 * kLinPart) + kCQuads * t;
+#pragma unroll
+  for (int q = 0; q < kCQuads; ++q) {
+    const float4 c = c4[q];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n8 = 2 * q + h;
+      if (n8 < kKP / 8) {
+        const float c0 = -2.f * (h ? c.z : c.x), c1 = -2.f * (h ? c.w : c.y);
+        if constexpr (kInit) {
+          acc[4 * n8] = acc[4 * n8 + 2] = c0;
+          acc[4 * n8 + 1] = acc[4 * n8 + 3] = c1;
+        } else {
+          acc[4 * n8] += c0;
+          acc[4 * n8 + 2] += c0;
+          acc[4 * n8 + 1] += c1;
+          acc[4 * n8 + 3] += c1;
+        }
+      }
+    }
+  }
+}
+
 // The larger of (v, k) and (ov, ok), ties to the lower index.
 __device__ __forceinline__ void take_max(float& v, int& k, float ov, int ok) {
   if (ov > v || (ov == v && ok < k)) {
     v = ov;
     k = ok;
+  }
+}
+
+// Merges the running logsumexp (v, s: the maximum and the sum of
+// exp(logit - v)) and argmax k with another's; ties to the lower index.
+// A part that has seen no component is (-inf, 0).
+__device__ __forceinline__ void take_lse(float& v, float& s, int& k, float ov,
+                                         float os, int ok) {
+  const float m = fmaxf(v, ov);
+  if (m > -CUDART_INF_F) s = fmaf(s, expf(v - m), os * expf(ov - m));
+  take_max(v, k, ov, ok);
+}
+
+// (A_k x) entries 2 lane and 2 lane + 1 of the row whose feature r is
+// x[r kXLd] (the transposed row buffer). A_k is symmetric (the packing,
+// ops/gmm_pack.py, forms it as P diag(w) P^T), so (A_k x)_c = sum_r
+// A_k[r][c] x_r: the warp reads row r of A_k (256 bytes, from L2 or L1)
+// coalesced, and each x_r is a shared-memory broadcast.
+__device__ __forceinline__ float2 row_ax(const float* x,
+                                         const float* __restrict__ a,
+                                         int lane) {
+  const float2* A = reinterpret_cast<const float2*>(a) + lane;
+  float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < kD; r += 2) {
+    const float2 a0 = __ldg(A + r * (kD / 2));
+    const float2 a1 = __ldg(A + (r + 1) * (kD / 2));
+    const float x0 = x[r * kXLd], x1 = x[(r + 1) * kXLd];
+    t0 = fmaf(a0.x, x0, t0);
+    t1 = fmaf(a0.y, x0, t1);
+    t2 = fmaf(a1.x, x1, t2);
+    t3 = fmaf(a1.y, x1, t3);
+  }
+  return make_float2(t0 + t2, t1 + t3);
+}
+
+// (A_k x_i) entries 2 lane and 2 lane + 1 of the 16 rows whose feature r
+// is x[r kXLd + i] (16 neighbours of the transposed row buffer): A_k read
+// once for all of them, row r by the warp, coalesced, and x_r of the 16
+// rows as four shared-memory broadcasts.
+__device__ __forceinline__ void rows_ax(float2 (&ax)[16], const float* x,
+                                        const float* __restrict__ a,
+                                        int lane) {
+  const float2* A = reinterpret_cast<const float2*>(a) + lane;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ax[i] = make_float2(0.f, 0.f);
+#pragma unroll 4
+  for (int r = 0; r < kD; ++r) {
+    const float2 av = __ldg(A + r * (kD / 2));
+    const float4* xr = reinterpret_cast<const float4*>(x + r * kXLd);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 v = xr[q];
+      const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ax[4 * q + e].x = fmaf(av.x, xv[e], ax[4 * q + e].x);
+        ax[4 * q + e].y = fmaf(av.y, xv[e], ax[4 * q + e].y);
+      }
+    }
+  }
+}
+
+// K4's mixture of a warp's 16 rows n0 .. n0 + 15 (the first `rows` of
+// them before the end; their features x[r kXLd + i], their weights of a
+// tile of components k0 .. k0 + kKP - 1 at w_rows, kKP a row) by the
+// whole warp: lane l keeps entries 2l and 2l + 1 of g_i = sum_k w_ik (b_k
+// - A_k x_i) for the 16 rows, components in ascending order, 32 at a
+// time, one ballot a row finding the nonzero weights. A component that
+// one row weighs runs that row's term alone (row_ax: the shipped GMMs,
+// about one a row); one that several rows weigh runs all 16 (rows_ax: A_k
+// read once for them, and a zero weight adds exactly nothing), as under a
+// GMM of mixed weights, where nearly every row weighs every component.
+// The first tile starts g and the weight sums at zero, a later one from
+// the u rows and wsum where the one before left them; after the last, u
+// = dv g / sum w less its mean (0 for an invalid patch) into the u rows.
+__device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
+                                         int n0, int rows, int k0, bool first,
+                                         bool last, const Out& out,
+                                         int lane) {
+  float2* u2 = reinterpret_cast<float2*>(out.units + (size_t)n0 * kD) + lane;
+  float2 g[16];
+  float part[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    g[i] = first || i >= rows ? make_float2(0.f, 0.f) : u2[i * (kD / 2)];
+    part[i] = 0.f;
+  }
+  for (int j = 0; j < kKP; j += 32) {
+    float w[16];
+    uint32_t nz[16], any = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      w[i] = j + lane < kKP ? w_rows[i * kKP + j + lane] : 0.f;
+      part[i] += w[i];
+      nz[i] = __ballot_sync(0xffffffffu, w[i] > 0.f);
+      any |= nz[i];
+    }
+    while (any) {
+      const int bit = __ffs(any) - 1;
+      any &= any - 1;
+      uint32_t on = 0;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) on |= ((nz[i] >> bit) & 1u) << i;
+      const int k = k0 + j + bit;
+      const float* a = out.a_full + (size_t)k * kD * kD;
+      const float2 b = __ldg(
+          reinterpret_cast<const float2*>(out.b_rows + (size_t)k * kD) +
+          lane);
+      if (__popc(on) == 1) {
+        const int r = __ffs(on) - 1;
+        float wr = 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) wr = i == r ? w[i] : wr;
+        const float wk = __shfl_sync(0xffffffffu, wr, bit);
+        const float2 ax = row_ax(x + r, a, lane);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (i == r) {
+            g[i].x = fmaf(wk, b.x - ax.x, g[i].x);
+            g[i].y = fmaf(wk, b.y - ax.y, g[i].y);
+          }
+      } else {
+        float2 ax[16];
+        rows_ax(ax, x, a, lane);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const float wk = __shfl_sync(0xffffffffu, w[i], bit);
+          g[i].x = fmaf(wk, b.x - ax[i].x, g[i].x);
+          g[i].y = fmaf(wk, b.y - ax[i].y, g[i].y);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    if (i >= rows) break;
+    const int n = n0 + i;
+    float s = part[i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    const float wsum = first ? s : out.wsum[n] + s;
+    if (!last) {
+      u2[i * (kD / 2)] = g[i];
+      if (lane == 0) out.wsum[n] = wsum;
+      continue;
+    }
+    float2 u = make_float2(0.f, 0.f);
+    if (__ldg(out.valid + n) != 0.f) {
+      const float scale = __ldg(out.dv + n) / wsum;
+      u = make_float2(g[i].x * scale, g[i].y * scale);
+      float m = u.x + u.y;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m += __shfl_xor_sync(0xffffffffu, m, o);
+      const float mean = m * (1.f / kD);
+      u = make_float2(u.x - mean, u.y - mean);
+    }
+    u2[i * (kD / 2)] = u;
   }
 }
 
@@ -340,12 +634,13 @@ struct Turns {
   }
 };
 
-template <bool kImage, int kProd>
+template <bool kImage, int kProd, int kEpi>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
-                    const unsigned char* __restrict__ lin_wg, int K,
-                    float* __restrict__ values, int* __restrict__ argmax) {
+                    const unsigned char* __restrict__ lin_wg, int K, Out out) {
   using L = Layout<kProd>;
+  static_assert(kEpi == kMax || kProd == 6, "the marginalise epilogues are "
+                "the \"f32\" instances'");
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* lin = smem + L::kLinOffset;
   float* xbuf = reinterpret_cast<float*>(smem + L::kXOffset);
@@ -400,11 +695,11 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
                           lin_full);
             ++lin_loads;
           }
-          for (int c = 0; c < kChunks; ++c, ++uses) {
+          for (int c = 0; c < L::kStages; ++c, ++uses) {
             if (uses >= L::kDepth) wg::mbar_wait(empty + stage, phase ^ 1);
             wg::mbar_arrive_expect_tx(full + stage, L::kStage);
             wg::bulk_load(smem + stage * L::kStage,
-                          a_wg + ((size_t)ct * kChunks + c) * 2 * kPlaneBytes,
+                          a_wg + ((size_t)ct * L::kStages + c) * L::kRecord,
                           L::kStage, full + stage);
             if (++stage == L::kDepth) {
               stage = 0;
@@ -439,57 +734,70 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
       const float* xs = xbuf + (j & 1) * kXFloats;
       if (j >= 1) wg::mbar_wait(x_full + (j & 1), ((j - 1) >> 1) & 1);
       float best[2] = {-CUDART_INF_F, -CUDART_INF_F};
+      float best_sum[2] = {0.f, 0.f};
       int best_k[2] = {K, K};
       for (int ct = 0; ct < n_tiles; ++ct) {
         if (lin_loads == 0 || n_tiles > 1)
           wg::mbar_wait(lin_full, lin_loads++ & 1);
         float acc[kRegs], tmp[kRegs];
-        // -2 c, then -2 b . x in four k16 steps (features 0-63)
-        {
-          const float4* c4 =
-              reinterpret_cast<const float4*>(lin + 3 * kLinPart) +
-              kCQuads * t;
+        // -2 c (in "f32" after the pairs, minus_2c says why), then -2 b .
+        // x in four k16 steps (features 0-63)
+        if constexpr (L::kF32) {
 #pragma unroll
-          for (int q = 0; q < kCQuads; ++q) {
-            const float4 c = c4[q];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int n8 = 2 * q + h;
-              if (n8 < kKP / 8) {
-                acc[4 * n8] = acc[4 * n8 + 2] = -2.f * (h ? c.z : c.x);
-                acc[4 * n8 + 1] = acc[4 * n8 + 3] = -2.f * (h ? c.w : c.y);
-              }
-            }
-          }
+          for (int i = 0; i < kRegs; ++i) acc[i] = 0.f;
+        } else {
+          minus_2c<true>(acc, lin, t);
         }
         for (int s = 0; s < kD / 16; ++s) {
           uint32_t xp[3][4];
           form_x_parts(xp, xs, s, r0, t);
           turns.wait();
           wg::wgmma_fence();
-          issue_linear(tmp, xp, lin, s);
+          issue_six(tmp, xp, [&](int part) {
+            return b_desc(lin + part * kLinPart + 256 * s, 1024);
+          });
           wg::wgmma_commit();
           turns.pass();
           flush(acc, tmp);
         }
-        if (n_tiles > 1) {
-          __syncwarp();
-          if (lane == 0) wg::mbar_arrive(lin_empty);
-        }
-        for (int c = 0; c < kChunks; ++c) {
+        // the linear terms are free for the next tile of components once
+        // every warp is done with them
+        auto release_lin = [&] {
+          if (n_tiles > 1) {
+            __syncwarp();
+            if (lane == 0) wg::mbar_arrive(lin_empty);
+          }
+        };
+        if constexpr (!L::kF32) release_lin();
+        for (int c = 0; c < L::kStages; ++c) {
           wg::mbar_wait(full + stage, phase);
           const unsigned char* st = smem + stage * L::kStage;
-          // the chunk's two k16 steps into fresh accumulators
-          uint32_t hi0[4], lo0[4], hi1[4], lo1[4];
-          form_fragment<kProd>(hi0, lo0, xs, pairs, 2 * c, r0, t);
-          form_fragment<kProd>(hi1, lo1, xs, pairs, 2 * c + 1, r0, t);
-          turns.wait();
-          wg::wgmma_fence();
-          issue_step<kProd, true>(tmp, hi0, lo0, st, 0);
-          issue_step<kProd, false>(tmp, hi1, lo1, st, 1);
-          wg::wgmma_commit();
-          turns.pass();
-          flush(acc, tmp);
+          if constexpr (kProd == 6) {
+            // the step's six products into fresh accumulators
+            uint32_t up[3][4];
+            form_fragment<6>(up, xs, pairs, c, r0, t);
+            turns.wait();
+            wg::wgmma_fence();
+            issue_six(tmp, up, [&](int part) {
+              return b_desc(st + part * kPlane3, 256);
+            });
+            wg::wgmma_commit();
+            turns.pass();
+            flush(acc, tmp);
+            fence_fragment(up);
+          } else {
+            // the chunk's two k16 steps into fresh accumulators
+            uint32_t p0[2][4], p1[2][4];
+            form_fragment<kProd>(p0, xs, pairs, 2 * c, r0, t);
+            form_fragment<kProd>(p1, xs, pairs, 2 * c + 1, r0, t);
+            turns.wait();
+            wg::wgmma_fence();
+            issue_step<kProd, true>(tmp, p0[0], p0[1], st, 0);
+            issue_step<kProd, false>(tmp, p1[0], p1[1], st, 1);
+            wg::wgmma_commit();
+            turns.pass();
+            flush(acc, tmp);
+          }
           // the stage is free once every warp is done
           __syncwarp();
           if (lane == 0) wg::mbar_arrive(empty + stage);
@@ -498,38 +806,92 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
             phase ^= 1;
           }
         }
-        // the tile's maximum and argmax: the thread's components, the
-        // quad, then the earlier tiles
+        if constexpr (L::kF32) {
+          minus_2c<false>(acc, lin, t);
+          release_lin();
+        }
         const int k0 = ct * kKP;
+        if constexpr (kEpi == kMix) {
+          // the thread's weights into the CTA's scratch, then the warp's
+          // 16 rows' mixture
+          float* wts = out.wts + (size_t)blockIdx.x * kRows * kKP;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v = -CUDART_INF_F;
-          int k = K;
+          for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h, n = n0 + r;
+            const float l = n < src.n_total && __ldg(out.valid + n) != 0.f
+                                ? __ldg(out.lse + n)
+                                : CUDART_INF_F;
+            float2* w2 = reinterpret_cast<float2*>(wts + (size_t)r * kKP) + t;
 #pragma unroll
-          for (int n8 = 0; n8 < kKP / 8; ++n8)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int kk = k0 + 8 * n8 + 2 * t + e;
-              const float logit = -0.5f * acc[4 * n8 + 2 * h + e];
-              if (kk < K && logit > v) {
-                v = logit;
-                k = kk;
-              }
+            for (int n8 = 0; n8 < kKP / 8; ++n8) {
+              const int kk = k0 + 8 * n8 + 2 * t;
+              w2[4 * n8] = make_float2(
+                  kk < K ? expf(-0.5f * acc[4 * n8 + 2 * h] - l) : 0.f,
+                  kk + 1 < K ? expf(-0.5f * acc[4 * n8 + 2 * h + 1] - l)
+                             : 0.f);
             }
+          }
+          __syncwarp();
+          const int rw = r0 - g, rows = src.n_total - (n0 + rw);
+          if (rows > 0)
+            mix_rows(xs + rw, wts + (size_t)rw * kKP, n0 + rw,
+                     rows < 16 ? rows : 16, k0, ct == 0, ct + 1 == n_tiles,
+                     out, lane);
+          __syncwarp();
+        } else {
+          // the tile's maximum and argmax (and, for kLse, the sum of
+          // exp(logit - maximum), rescaled whenever the maximum grows):
+          // the thread's components, the quad, then the earlier tiles
 #pragma unroll
-          for (int m = 1; m < 4; m <<= 1)
-            take_max(v, k, __shfl_xor_sync(0xffffffffu, v, m),
-                     __shfl_xor_sync(0xffffffffu, k, m));
-          take_max(best[h], best_k[h], v, k);
+          for (int h = 0; h < 2; ++h) {
+            float v = -CUDART_INF_F, sum = 0.f;
+            int k = K;
+#pragma unroll
+            for (int n8 = 0; n8 < kKP / 8; ++n8)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int kk = k0 + 8 * n8 + 2 * t + e;
+                const float logit = -0.5f * acc[4 * n8 + 2 * h + e];
+                if constexpr (kEpi == kLse) {
+                  if (kk < K) {
+                    if (logit > v) {
+                      sum = fmaf(sum, expf(v - logit), 1.f);
+                      v = logit;
+                      k = kk;
+                    } else {
+                      sum += expf(logit - v);
+                    }
+                  }
+                } else if (kk < K && logit > v) {
+                  v = logit;
+                  k = kk;
+                }
+              }
+#pragma unroll
+            for (int m = 1; m < 4; m <<= 1) {
+              const float ov = __shfl_xor_sync(0xffffffffu, v, m);
+              const int ok = __shfl_xor_sync(0xffffffffu, k, m);
+              if constexpr (kEpi == kLse)
+                take_lse(v, sum, k, ov, __shfl_xor_sync(0xffffffffu, sum, m),
+                         ok);
+              else
+                take_max(v, k, ov, ok);
+            }
+            if constexpr (kEpi == kLse)
+              take_lse(best[h], best_sum[h], best_k[h], v, sum, k);
+            else
+              take_max(best[h], best_k[h], v, k);
+          }
         }
       }
-      if (t == 0) {
+      if (kEpi != kMix && t == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + r0 + 8 * h;
           if (n < src.n_total) {
-            values[n] = best[h];
-            argmax[n] = best_k[h] >= K ? 0 : best_k[h];
+            out.values[n] =
+                kEpi == kLse ? best[h] + logf(best_sum[h]) : best[h];
+            out.argmax[n] = best_k[h] >= K ? 0 : best_k[h];
           }
         }
       }
@@ -541,12 +903,24 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
   }
 }
 
+// K4's second launch: one thread per pixel of the image gradient
+// (gmm_patches.cuh's patch_units_at).
+__global__ void __launch_bounds__(kAddThreads)
+gmm_units_add_kernel(const float* __restrict__ units, int H, int W,
+                     int stride, int ny, int nx, float* __restrict__ grad) {
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= H * W) return;
+  const int y = pix / W;
+  grad[pix] = gmm::patch_units_at(units, y, pix - y * W, stride, ny, nx);
+}
+
 // The persistent launch of an instance: one CTA an SM (as many as fit),
-// at most one a tile of rows.
-template <bool kImage, int kProd>
+// at most one a tile of rows and at most max_ctas (> 0: the CTAs the
+// caller's scratch holds).
+template <bool kImage, int kProd, int kEpi>
 int launch(const Source& src, const void* a_wg, const void* lin_wg, int K,
-           float* values, int* argmax, cudaStream_t stream) {
-  auto kernel = gmm_score_wg_kernel<kImage, kProd>;
+           const Out& out, int max_ctas, cudaStream_t stream) {
+  auto kernel = gmm_score_wg_kernel<kImage, kProd, kEpi>;
   constexpr int smem = Layout<kProd>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -566,11 +940,32 @@ int launch(const Source& src, const void* a_wg, const void* lin_wg, int K,
     max_blocks = sms * per_sm;
   }
   const int row_tiles = (src.n_total + kRows - 1) / kRows;
-  const int blocks = row_tiles < max_blocks ? row_tiles : max_blocks;
+  int blocks = row_tiles < max_blocks ? row_tiles : max_blocks;
+  if (max_ctas > 0 && blocks > max_ctas) blocks = max_ctas;
   kernel<<<blocks, kThreads, smem, stream>>>(
       src, static_cast<const unsigned char*>(a_wg),
-      static_cast<const unsigned char*>(lin_wg), K, values, argmax);
+      static_cast<const unsigned char*>(lin_wg), K, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+Source image_source(const void* img, int H, int W, int stride, int ny,
+                    int nx, float sentinel, void* valid, void* xtn) {
+  const int groups = (kP / stride) * (kP / stride);
+  return Source{static_cast<const float*>(img), H, W, stride, ny, nx,
+                sentinel, static_cast<float*>(valid),
+                static_cast<float*>(xtn), nullptr, groups * ny * nx};
+}
+
+Source row_source(const void* rows, int n) {
+  return Source{nullptr, 0, 0, 1, 0, 0, 0.f, nullptr, nullptr,
+                static_cast<const float*>(rows), n};
+}
+
+Out score_out(void* values, void* argmax) {
+  Out out{};
+  out.values = static_cast<float*>(values);
+  out.argmax = static_cast<int*>(argmax);
+  return out;
 }
 
 }  // namespace
@@ -590,15 +985,13 @@ int gmm_score_wg_image(const void* img, int H, int W, int stride, int ny,
                        void* argmax, void* valid, void* xtn, void* stream) {
   if (K < 1 || (products != 1 && products != 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = (gmm::kP / stride) * (gmm::kP / stride);
-  Source src{static_cast<const float*>(img), H, W, stride, ny, nx, sentinel,
-             static_cast<float*>(valid), static_cast<float*>(xtn), nullptr,
-             groups * ny * nx};
+  const Source src =
+      image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn);
+  const Out out = score_out(values, argmax);
   auto s = static_cast<cudaStream_t>(stream);
-  auto v = static_cast<float*>(values);
-  auto k = static_cast<int*>(argmax);
-  return products == 3 ? launch<true, 3>(src, a_wg, lin_wg, K, v, k, s)
-                       : launch<true, 1>(src, a_wg, lin_wg, K, v, k, s);
+  return products == 3
+             ? launch<true, 3, kMax>(src, a_wg, lin_wg, K, out, 0, s)
+             : launch<true, 1, kMax>(src, a_wg, lin_wg, K, out, 0, s);
 }
 
 // K5's MAP scorer on rows (n, 64) float32, already masked and
@@ -610,13 +1003,62 @@ int gmm_score_wg_rows(const void* rows, int n, const void* a_wg,
                       void* argmax, void* stream) {
   if (K < 1 || (products != 1 && products != 3))
     return static_cast<int>(cudaErrorInvalidValue);
-  Source src{nullptr, 0, 0, 1, 0, 0, 0.f, nullptr, nullptr,
-             static_cast<const float*>(rows), n};
+  const Source src = row_source(rows, n);
+  const Out out = score_out(values, argmax);
   auto s = static_cast<cudaStream_t>(stream);
-  auto v = static_cast<float*>(values);
-  auto k = static_cast<int*>(argmax);
-  return products == 3 ? launch<false, 3>(src, a_wg, lin_wg, K, v, k, s)
-                       : launch<false, 1>(src, a_wg, lin_wg, K, v, k, s);
+  return products == 3
+             ? launch<false, 3, kMax>(src, a_wg, lin_wg, K, out, 0, s)
+             : launch<false, 1, kMax>(src, a_wg, lin_wg, K, out, 0, s);
+}
+
+// K1's logsumexp forward in "f32" on image (H, W) float32: values (the
+// logsumexp), argmax (the lowest index among equal maxima), valid and
+// xtn; a_wg3 holds ceil(K / 200) tiles of 130 step images in three
+// planes (ops/gmm_fused.py::_wg3_buffer), lin_wg the linear terms.
+// Errors as gmm_score_wg_image (1 for K < 1).
+int gmm_score_wg_image_lse(const void* img, int H, int W, int stride, int ny,
+                           int nx, float sentinel, const void* a_wg3,
+                           const void* lin_wg, int K, void* values,
+                           void* argmax, void* valid, void* xtn,
+                           void* stream) {
+  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true, 6, kLse>(
+      image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn), a_wg3,
+      lin_wg, K, score_out(values, argmax), 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+// K4 in "f32": the image gradient grad (H, W) from the saved patches xtn
+// (N, 64), the logsumexp lse of gmm_score_wg_image_lse on them, valid and
+// the cotangents dvalues (N,); the buffers of gmm_score_wg_image_lse and
+// a_full (K, 64, 64), b_rows (K, 64). Scratch: wts (ctas x 128 x 200
+// floats: the kernel runs at most ctas CTAs), wsum (N,) and the u rows
+// units (N, 64). Errors as gmm_score_wg_image_lse (1 also for ctas < 1).
+int gmm_score_wg_mix(const void* xtn, const void* lse, const void* valid,
+                     const void* dvalues, const void* a_wg3,
+                     const void* lin_wg, const void* a_full,
+                     const void* b_rows, int H, int W, int stride, int ny,
+                     int nx, int K, void* wts, int ctas, void* wsum,
+                     void* units, void* grad, void* stream) {
+  if (K < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (kP / stride) * (kP / stride);
+  Out out{};
+  out.lse = static_cast<const float*>(lse);
+  out.valid = static_cast<const float*>(valid);
+  out.dv = static_cast<const float*>(dvalues);
+  out.a_full = static_cast<const float*>(a_full);
+  out.b_rows = static_cast<const float*>(b_rows);
+  out.wts = static_cast<float*>(wts);
+  out.wsum = static_cast<float*>(wsum);
+  out.units = static_cast<float*>(units);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int err = launch<false, 6, kMix>(row_source(xtn, groups * ny * nx),
+                                         a_wg3, lin_wg, K, out, ctas, s);
+  if (err != 0) return err;
+  const int pixel_blocks = (H * W + kAddThreads - 1) / kAddThreads;
+  gmm_units_add_kernel<<<pixel_blocks, kAddThreads, 0, s>>>(
+      out.units, H, W, stride, ny, nx, static_cast<float*>(grad));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gmm_score_wg_error_string(int code) {

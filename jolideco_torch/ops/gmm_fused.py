@@ -16,9 +16,10 @@ and back to image layout per offset group.
 Each direction has two implementations with one contract:
 
 - a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu``,
-  ``csrc/gmm_fused_tc.cu`` and, for the MAP forward of the bf16 modes,
-  ``csrc/gmm_score_wg.cu``, whose headers say what bounds them and how
-  they are built), run for a tensor on a CUDA card;
+  ``csrc/gmm_fused_tc.cu`` and, for the MAP forward of the bf16 modes
+  and the marginalise pair of the ``"f32"`` mode, ``csrc/gmm_score_wg.cu``,
+  whose headers say what bounds them and how they are built), run for a
+  tensor on a CUDA card;
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
 
@@ -31,7 +32,11 @@ parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
 ``b . x`` in float32; and ``"bf16"``, its logits at precision DEFAULT
 (what the TPU's matrix unit does with float32 operands): the same
 operands rounded to bf16, one product hi.hi summed in float32, ``b . x``
-in float32. The two bf16 modes' kernels run on the tensor cores
+in float32. The ``"f32"`` mode's marginalise kernels compute their
+logits as the TPU's HIGHEST does, on the tensor cores: both operands
+split three ways into bf16 parts, six products summed in float32
+(:func:`_wg3_buffer`); its plain versions and its MAP forward in float32
+on the CUDA cores. The two bf16 modes' kernels run on the tensor cores
 (``csrc/gmm_score_wg.cu`` for the MAP forward, on the warpgroup
 instructions, ``csrc/gmm_fused_tc.cu`` for the logsumexp forward and
 the marginalise backward; each one code with three products or one),
@@ -65,7 +70,7 @@ import numpy as np
 import torch
 
 from ..config import dispatch
-from .linalg import bf16_round, bf16_split
+from .linalg import bf16_round, bf16_split, bf16_split3
 
 __all__ = [
     "fused_patch_count",
@@ -130,6 +135,15 @@ WG_CHUNKS = PAIRS // TC_CHUNK
 WG_PLANE = 2 * KP_WG * TC_CHUNK
 WG_LIN_PART = 2 * KP_WG * D
 WG_LIN = 3 * WG_LIN_PART + 4 * 4 * 52
+# the "f32" mode's marginalise kernels on the warpgroup instructions
+# (csrc/gmm_score_wg.cu, kProd = 6): the pairs in steps of WG3_STEP, a
+# step's record the hi, mid and lo planes of WG3_PLANE bytes each
+# (:func:`_wg3_buffer`)
+WG3_STEP = 16
+WG3_STEPS = PAIRS // WG3_STEP
+WG3_PLANE = 2 * KP_WG * WG3_STEP
+# rows a CTA of csrc/gmm_score_wg.cu takes at a time
+WG_ROWS = 128
 MODES = ("f32", "split", "bf16")
 # bf16 products per k16 step of the tensor-core kernels, by mode
 TC_PRODUCTS = {"split": 3, "bf16": 1}
@@ -204,6 +218,8 @@ def _split_buffers(a_quad, bq, const2):
     versions; ``pair_hi`` alone is the ``"bf16"`` mode's operand, bf16
     of the JAX package's float32 ``A`` (doubled off the diagonal, which
     bf16 does exactly).
+    ``pair_wg3``: the ``"f32"`` marginalise kernels' three-way split
+    (:func:`_wg3_buffer`).
     For the tensor-core kernels, whose blocks take the components in
     ``T = ceil(K / KP_TC)`` tiles: ``pair_tc`` bf16 ``(T, PAIRS /
     TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same parts tile by tile and
@@ -229,7 +245,8 @@ def _split_buffers(a_quad, bq, const2):
     bc = bc.reshape(d + 1, tiles, KP_TC).permute(1, 0, 2).contiguous()
     pair_wg, lin_wg = _wg_buffers(hi, lo, bq, const2)
     return {"pair_hi": hi, "pair_lo": lo, "pair_tc": pair_tc, "bc": bc,
-            "pair_wg": pair_wg, "lin_wg": lin_wg}
+            "pair_wg": pair_wg, "lin_wg": lin_wg,
+            "pair_wg3": _wg3_buffer(pair)}
 
 
 def wg_plane_index(n, k, width=TC_CHUNK):
@@ -295,6 +312,25 @@ def _wg_buffers(hi, lo, bq, const2):
     assert lin_wg.shape[1] == WG_LIN
     return (torch.from_numpy(np.ascontiguousarray(pair_wg.view(np.uint8))),
             torch.from_numpy(np.ascontiguousarray(lin_wg)))
+
+
+def _wg3_buffer(pair):
+    """The ``"f32"`` marginalise kernels' copy of the pair-major ``A``
+    ``(PAIRS, K)`` float32 (:func:`_pair_rows`), uint8 ``(T, WG3_STEPS, 3
+    WG3_PLANE)`` in ``T = ceil(K / KP_WG)`` tiles of components (the last
+    padded with zero components): record ``s`` of a tile the hi, mid and
+    lo planes (``bf16_split3``: their sum is the float32 entry) of pairs
+    ``16 s .. 16 s + 15`` at :func:`wg_plane_index` of width 16, what
+    ``csrc/gmm_score_wg.cu``'s ``"f32"`` instances copy into a stage."""
+    k = pair.shape[1]
+    tiles = -(-k // KP_WG)
+    planes = np.zeros((3, tiles * KP_WG, PAIRS), np.float32)
+    for part, values in enumerate(bf16_split3(pair)):
+        planes[part, :k] = values.T.numpy()
+    steps = (planes.reshape(3, tiles, KP_WG, WG3_STEPS, WG3_STEP)
+             .transpose(1, 3, 0, 2, 4))
+    placed = _placed(steps, WG3_STEP).reshape(tiles, WG3_STEPS, -1)
+    return torch.from_numpy(np.ascontiguousarray(placed.view(np.uint8)))
 
 
 def kernel_buffers(packed, device):
@@ -656,6 +692,14 @@ def _wg_library():
         lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
                                           vp]
         lib.gmm_score_wg_rows.restype = ci
+        lib.gmm_score_wg_image_lse.argtypes = [vp, ci, ci, ci, ci, ci, cf,
+                                               vp, vp, ci, vp, vp, vp, vp,
+                                               vp]
+        lib.gmm_score_wg_image_lse.restype = ci
+        lib.gmm_score_wg_mix.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                         ci, ci, ci, ci, ci, vp, ci, vp, vp,
+                                         vp, vp]
+        lib.gmm_score_wg_mix.restype = ci
         lib.gmm_score_wg_error_string.argtypes = [ci]
         lib.gmm_score_wg_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -669,14 +713,11 @@ def _library():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gmm_fused_fwd.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, ci,
-                                      ci, vp, vp, vp, vp, vp]
+                                      vp, vp, vp, vp, vp]
         lib.gmm_fused_fwd.restype = ci
         lib.gmm_fused_bwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                       ci, ci, vp, vp, vp]
         lib.gmm_fused_bwd.restype = ci
-        lib.gmm_fused_bwd_marg.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, ci, ci, vp, vp]
-        lib.gmm_fused_bwd_marg.restype = ci
         lib.gmm_fused_error_string.argtypes = [ci]
         lib.gmm_fused_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -718,17 +759,33 @@ def gmm_fused_fwd_cuda(image, bufs, stride, sentinel):
 
     Same outputs as :func:`fused_forward_plain`.
     """
-    out = _launch_forward(image, bufs, stride, sentinel, False)
+    out = _launch_forward(image, bufs, stride, sentinel)
     gmm_fused_fwd_cuda.launches += 1
     return out
 
 
 def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
-    """Launch the marginalise (logsumexp) forward kernel; same outputs as
-    :func:`fused_forward_plain` with ``marginalize=True``."""
-    out = _launch_forward(image, bufs, stride, sentinel, True)
+    """Launch the marginalise (logsumexp) forward kernel of the ``"f32"``
+    mode (``csrc/gmm_score_wg.cu``'s ``"f32"`` core on ``wgmma``: six
+    products of three-way bf16 splits); same outputs as
+    :func:`fused_forward_plain` with ``marginalize=True``. Any number of
+    components, in tiles of ``KP_WG``."""
+    values, argmax, valid, xtn = _forward_outputs(image, stride)
+    h, w = image.shape
+    k = _wg3_tiles(bufs, image.device)
+    lib = _wg_library()
+    with torch.cuda.device(image.device):
+        stream = torch.cuda.current_stream(image.device).cuda_stream
+        code = lib.gmm_score_wg_image_lse(
+            image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
+            float(sentinel), bufs["pair_wg3"].data_ptr(),
+            bufs["lin_wg"].data_ptr(), k, values.data_ptr(),
+            argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
+        )
+    _raise_on_error(lib.gmm_score_wg_error_string, code,
+                    "gmm_score_wg_image_lse")
     gmm_fused_fwd_marg_cuda.launches += 1
-    return out
+    return values, argmax, valid, xtn
 
 
 def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
@@ -790,6 +847,15 @@ def wg_tiles(bufs, device):
     return k
 
 
+def _wg3_tiles(bufs, device):
+    """Checks the ``"f32"`` marginalise kernels' buffers (``pair_wg3``,
+    ``lin_wg``); the component count."""
+    k = wg_tiles(bufs, device)
+    _check(bufs["pair_wg3"], "pair_wg3", torch.uint8,
+           (-(-k // KP_WG), WG3_STEPS, 3 * WG3_PLANE), device)
+    return k
+
+
 def _launch_forward_wg(image, bufs, stride, sentinel, mode):
     values, argmax, valid, xtn = _forward_outputs(image, stride)
     device = image.device
@@ -829,11 +895,16 @@ def _launch_forward_tc(image, bufs, stride, sentinel, marginalize, mode):
     return values, argmax, valid, xtn
 
 
+def _cuda_device(t, kernel):
+    """The device of ``t``, which must be a card's."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} needs a CUDA tensor, got {t.device}")
+    return t.device
+
+
 def _forward_outputs(image, stride):
     """Checks a forward kernel's image; its four empty outputs."""
-    device = image.device
-    if device.type != "cuda":
-        raise ValueError(f"the forward kernel needs a CUDA tensor, got {device}")
+    device = _cuda_device(image, "the forward kernel")
     _check_geometry(image, stride)
     h, w = image.shape
     n = fused_patch_count((h, w), stride)
@@ -844,7 +915,7 @@ def _forward_outputs(image, stride):
             torch.empty((n, D), dtype=torch.float32, device=device))
 
 
-def _launch_forward(image, bufs, stride, sentinel, marginalize):
+def _launch_forward(image, bufs, stride, sentinel):
     values, argmax, valid, xtn = _forward_outputs(image, stride)
     device = image.device
     h, w = image.shape
@@ -857,8 +928,7 @@ def _launch_forward(image, bufs, stride, sentinel, marginalize):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_fused_fwd(
             image.data_ptr(), h, w, int(stride), ny, nx,
-            float(sentinel), rec.data_ptr(), k, int(bool(marginalize)),
-            values.data_ptr(),
+            float(sentinel), rec.data_ptr(), k, values.data_ptr(),
             argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_fwd")
@@ -909,47 +979,60 @@ def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
 
 def _backward_marg_inputs(xtn, lse, valid, dvalues, bufs, image_shape,
                           stride, kernel):
-    """Checks a marginalise backward kernel's inputs; its zero-filled
-    planes, one per offset group, and the component count."""
-    device = xtn.device
-    if device.type != "cuda":
-        raise ValueError(f"{kernel} needs a CUDA tensor, got {device}")
+    """Checks a marginalise backward kernel's inputs; the patch count
+    and the component count."""
+    device = _cuda_device(xtn, kernel)
     h, w = image_shape
-    n_groups = len(_offsets(stride))
-    n = n_groups * (h // PATCH) * (w // PATCH)
+    n = len(_offsets(stride)) * (h // PATCH) * (w // PATCH)
     k = bufs["a_full"].shape[0]
     _check(xtn, "xtn", torch.float32, (n, D), device)
     for name, t in (("lse", lse), ("valid", valid), ("dvalues", dvalues)):
         _check(t, name, torch.float32, (n,), device)
     _check(bufs["a_full"], "a_full", torch.float32, (k, D, D), device)
-    planes = torch.zeros((n_groups, h, w), dtype=torch.float32, device=device)
-    return planes, k
+    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
+    return n, k
+
 
 
 def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
                             stride):
-    """Launch the marginalise backward kernel; returns the image gradient
-    ``(H, W)``. Same contract as :func:`fused_backward_marg_plain`; the
-    planes are those of :func:`gmm_fused_bwd_cuda`."""
-    planes, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
-                                      image_shape, stride,
-                                      "gmm_fused_bwd_marg_cuda")
+    """Launch the marginalise backward kernel of the ``"f32"`` mode
+    (``csrc/gmm_score_wg.cu``): its logits by the core of
+    :func:`gmm_fused_fwd_marg_cuda`, whose logsumexp ``lse`` must be, the
+    mixture in float32, the patches' ``u`` rows into a scratch ``(N,
+    64)`` and, in a second launch, their overlap-add into the image
+    gradient ``(H, W)``, which it returns. Same contract as
+    :func:`fused_backward_marg_plain`; the same bits every call."""
+    n, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
+                                 image_shape, stride,
+                                 "gmm_fused_bwd_marg_cuda")
     device = xtn.device
     h, w = image_shape
-    rec, a_full = bufs["rec"], bufs["a_full"]
-    _check(rec, "rec", torch.float32, (k, REC), device)
-    lib = _library()
+    _wg3_tiles(bufs, device)
+    # the persistent kernel's CTAs (one an SM, at most one a tile of
+    # rows), each with its slice of the weights' scratch
+    ctas = min(-(-n // WG_ROWS),
+               torch.cuda.get_device_properties(device).multi_processor_count)
+    wts = torch.empty((ctas, WG_ROWS, KP_WG), dtype=torch.float32,
+                      device=device)
+    buf = torch.empty(n * (D + 1) + h * w, dtype=torch.float32,
+                      device=device)
+    units, wsum = buf[:n * D], buf[n * D:n * (D + 1)]
+    grad = buf[n * (D + 1):].view(h, w)
+    lib = _wg_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.gmm_fused_bwd_marg(
+        code = lib.gmm_score_wg_mix(
             xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
-            dvalues.data_ptr(), rec.data_ptr(), a_full.data_ptr(),
-            h, w, int(stride), h // PATCH, w // PATCH, k, planes.data_ptr(),
-            stream,
+            dvalues.data_ptr(), bufs["pair_wg3"].data_ptr(),
+            bufs["lin_wg"].data_ptr(), bufs["a_full"].data_ptr(),
+            bufs["b_rows"].data_ptr(), h, w, int(stride), h // PATCH,
+            w // PATCH, k, wts.data_ptr(), ctas, wsum.data_ptr(),
+            units.data_ptr(), grad.data_ptr(), stream,
         )
-    _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_bwd_marg")
+    _raise_on_error(lib.gmm_score_wg_error_string, code, "gmm_score_wg_mix")
     gmm_fused_bwd_marg_cuda.launches += 1
-    return planes.sum(dim=0)
+    return grad
 
 
 def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
@@ -981,12 +1064,13 @@ def gmm_fused_bwd_marg_bf16_cuda(xtn, lse, valid, dvalues, bufs,
 
 def _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs, image_shape,
                              stride, mode, name):
-    planes, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
-                                      image_shape, stride, name)
+    _, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs, image_shape,
+                                 stride, name)
     device = xtn.device
     h, w = image_shape
     _split_tiles(bufs, device)
-    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
+    planes = torch.zeros((len(_offsets(stride)), h, w), dtype=torch.float32,
+                         device=device)
     lib = _tc_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

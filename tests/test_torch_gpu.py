@@ -699,6 +699,96 @@ def test_marginalise_fused_kernels_match_plain(device, marg_gmm, shape):
                                           shape, 4))
 
 
+def marg_f32_gmm(name):
+    """``astro-snr-v1``, ``chip_smoke.wide_gmm()`` (K = 256, two tiles of
+    200 components) or ``chip_smoke.mixed_gmm()`` (K = 200, mixed
+    weights)."""
+    import chip_smoke
+    from jolideco_torch.priors import GaussianMixtureModel
+
+    if name == "wide-256":
+        return chip_smoke.wide_gmm()
+    if name == "mixed-200":
+        return chip_smoke.mixed_gmm()
+    return GaussianMixtureModel.from_registry(name)
+
+
+@pytest.mark.parametrize("name", ["astro-snr-v1", "wide-256", "mixed-200"])
+def test_marginalise_f32_pair_on_wgmma(device, name):
+    """K1 lse and K4 of ``"highest"`` (``csrc/gmm_score_wg.cu``'s
+    six-product core) at K = 200, K = 256 and under mixed weights: K1
+    lse against its plain version (values rtol 1e-5, argmax, patches),
+    K4 fed K1 lse's own outputs against the float64 pipeline (the
+    anchored bar), each called twice for the same bits."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    bufs = marg_f32_gmm(name).kernel_buffers(device)
+    b64 = {k: v.double() for k, v in bufs.items()}
+    shape = (200, 264)
+    image = torch.as_tensor(make_image(shape, seed=4), device=device)
+    first = gf.gmm_fused_fwd_marg_cuda(image, bufs, 4, SENTINEL)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_marg_cuda(image, bufs, 4, SENTINEL)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, 4, SENTINEL, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, (vk, ak, valk, xk)))
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vk[m], vp[m], rtol=1e-5, atol=0)
+    assert torch.equal(ak[m], ap[m])
+
+    dv = torch.randn(vp.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(0))
+    args = (xk, vk, valk, dv * valk)
+    grad = gf.gmm_fused_bwd_marg_cuda(*args, bufs, shape, 4)
+    assert torch.equal(grad, gf.gmm_fused_bwd_marg_cuda(*args, bufs, shape,
+                                                        4))
+    anchored(grad, gf.fused_backward_marg_plain(*args, bufs, shape, 4),
+             gf.fused_backward_marg_plain(*(a.double() for a in args), b64,
+                                          shape, 4))
+
+
+def test_marginalise_f32_weights_of_one_hot_rows_are_one(device, gmm):
+    """Under ``astro-snr-v1``, whose softmax weights are one-hot (at
+    least 90% of the patches here), K4 fed K1 lse's own logsumexp weighs
+    a one-hot patch's component by exactly 1 (``exp(0)``: the same core
+    gives it K1 lse's logits bit for bit), its argmax, and an invalid
+    patch's by 0: the weights' scratch of a launch with a CTA a tile of
+    128 rows, read back."""
+    from jolideco_torch.ops import gmm_fused as gf
+
+    bufs = gmm.kernel_buffers(device)
+    shape = (64, 64)  # 256 patches: two tiles of rows, two CTAs
+    image = torch.as_tensor(make_image(shape, seed=5), device=device)
+    lse, argmax, valid, xtn = gf.gmm_fused_fwd_marg_cuda(image, bufs, 4,
+                                                         SENTINEL)
+    n, k = lse.numel(), bufs["b_rows"].shape[0]
+    wts = torch.full((2, 128, gf.KP_WG), float("nan"), device=device)
+    units = torch.empty((n, 64), device=device)
+    wsum = torch.empty(n, device=device)
+    grad = torch.empty(shape, device=device)
+    lib = gf._wg_library()
+    code = lib.gmm_score_wg_mix(
+        xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
+        valid.data_ptr(), bufs["pair_wg3"].data_ptr(),
+        bufs["lin_wg"].data_ptr(), bufs["a_full"].data_ptr(),
+        bufs["b_rows"].data_ptr(), shape[0], shape[1], 4, 8, 8, k,
+        wts.data_ptr(), 2, wsum.data_ptr(), units.data_ptr(),
+        grad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    assert code == 0
+    torch.cuda.synchronize()
+    w = wts.reshape(n, gf.KP_WG)[:, :k]
+    m = valid > 0.5
+    one_hot = m & ((w > 0).sum(dim=1) == 1)
+    assert 0 < int(m.sum()) < n
+    assert int(one_hot.sum()) >= 0.9 * int(m.sum())
+    assert torch.equal(w[one_hot].max(dim=1).values,
+                       torch.ones_like(lse[one_hot]))
+    assert torch.equal(w[one_hot].argmax(dim=1).to(torch.int32),
+                       argmax[one_hot])
+    assert not w[~m].any()
+
+
 @pytest.mark.parametrize("name,shape", [
     ("astro-snr-v1", (96, 160)), ("astro-snr-v1", (37, 203)),
     ("wide-256", (96, 160)), ("mixed-200", (96, 160)),
