@@ -10,9 +10,9 @@ Phases, each printing one or more lines:
 0. the device: ``torch.cuda.get_device_name(0)`` and the card's name and
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
-   compiler per source, all at once (the fused scorer, its forwards and
-   marginalise backward on the tensor cores, the MAP scorers and the
-   float32 marginalised pair (K1 lse, K4) on the warpgroup
+   compiler per source, all at once (the fused scorer's MAP backward,
+   the probe's marginalised row kernels on the tensor cores, K1 and K4
+   of every mode and the bf16 modes' MAP row scorers on the warpgroup
    instructions, the patch-level scorer, the matrix-DFT
    convolution's pass 1 on the tensor cores (``mma.sync``) and its
    passes on the warpgroup instructions: 2 and 3 of the ``"split"`` and
@@ -21,19 +21,21 @@ Phases, each printing one or more lines:
    ``HGMMA`` instructions in the MAP scorers' and K3's warpgroup
    kernels' machine code (``cuobjdump -sass``; neither may be 0), also
    in each of the three float32 passes, which must spill nothing, and
-   in K1 lse's and K4's float32 instances, with their registers and
-   spills; ptxas may inject no wgmma wait (C7517) in either library;
+   in the instances of K1 (``"highest"``'s MAP) and of K1 lse and K4 of
+   every mode, with their registers and spills; ptxas may inject no
+   wgmma wait (C7517) in either library;
 2. each kernel against its plain PyTorch version on the card, with the
    time per call of both: the fused scorer (K1, K2) at the main path's
    shape (1024², the ``astro-snr-v1`` GMM, K = 200) and on a ragged
-   1000x904 image with a block of zero-flux sentinel pixels, then K1's
-   ``"split"`` kernel on the tensor cores (``wgmma``, timed beside the
-   parent's ``mma.sync`` instance on the same inputs, in turns) on the
-   same two images against
-   the split plain version and, with the float32 kernel beside it,
-   against the logits in float64, and on the ragged image under two
-   GMMs of 256 components (two of the kernel's tiles of 208), the
-   logits of one of them much cancelled sums; the
+   1000x904 image with a block of zero-flux sentinel pixels (K1 of
+   ``"highest"``: the six-product core on ``wgmma``, its time beside
+   both bounds), then K1's ``"split"`` kernel on the tensor cores
+   (``wgmma``) on the same two images against the split plain version
+   and, with the float32 plain version beside it, against the logits in
+   float64, and on the ragged image under two GMMs of 256 components
+   (two of the kernel's tiles of 200), the logits of one of them much
+   cancelled sums, there also K1 of ``"highest"`` against the float32
+   plain version and float64; the
    patch-level scorer, unit gradient and Hessian action (K5, K6, K7) on
    the rows of those two images (65,025 rows, the flux-error probe's
    shape, and a ragged 56,025), K5's ``"split"`` kernel on the tensor
@@ -55,8 +57,8 @@ Phases, each printing one or more lines:
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
    (stride 4, cycle spin), 20 Adam steps through ``MAPDeconvolver``
-   under the default dial (K1 on the tensor cores) and 20 under
-   ``"highest"`` (the float32 K1), their flux held together, and how
+   under the default dial (K1 split) and 20 under ``"highest"`` (K1's
+   six-product instance), their flux held together, and how
    many distinct components the patches of one of K2's tiles select at
    the final flux, with K2's, K6's and K7's times there. The
    kernels' launch counts are set to zero just before and read just
@@ -70,10 +72,10 @@ Phases, each printing one or more lines:
    small run on the card against the CPU's plain path;
 5. the marginalised path: phases 3 and 4 again under
    ``GMMPatchPrior(marginalize=True)``: training under the default dial
-   on the logsumexp forward and the marginalise backward on the tensor
-   cores (K1 lse split, K4 split) and under ``"highest"`` on their
-   float32 kernels (K1 lse and K4 on ``wgmma``, six bf16 products of
-   three-way splits), each with exact
+   on the logsumexp forward and the marginalise backward (K1 lse split,
+   K4 split: the warpgroup core's three-product instances) and under
+   ``"highest"`` on its six-product ones (K1 lse and K4, six bf16
+   products of three-way splits), each with exact
    counts, the two runs' flux difference and the argmax of K1 lse's two
    kernels at the final flux (at most 1e-4 of the patches differ); then
    the probe under both dials: under the default dial (training on K1
@@ -228,12 +230,16 @@ the ragged image under ``wide_gmm()`` (two tiles of components). Under
 ``astro-snr-v1`` the weights are one-hot (dp is then exactly zero), so
 the same checks run once more on the 1024² image and its rows under a
 random SPD GMM with K = 200 whose weights are mixed; the run fails
-unless they are.
+unless they are. K4 of every mode is also launched on a 256² crop of
+the 1024² image with a CTA a tile of rows, its weights' scratch read
+back: every one-hot patch weighed exactly 1 at K1 lse's argmax
+(:func:`k4_weight_checks`).
 Then the marginalise kernels of the ``"split"`` mode on the tensor
 cores, on both images under ``astro-snr-v1``, ``wide_gmm()`` and
 ``mixed_gmm()``: K1 lse split against the split plain version (K1
 split's bars) and float64, K4 split as training runs it (fed K1 lse
-split's logsumexp) against the float64 pipeline, and on the images'
+split's logsumexp) against the float64 pipeline, twice bitwise equal,
+and on the images'
 rows K8 split and K9a split as the probe runs them (fed K5 lse split's
 logsumexp; K9a split's dp exactly 0 on every row whose weight is
 one-hot), with
@@ -371,6 +377,16 @@ K1_SPLIT_SUM_ERR = 2e-6
 # are held within K1_SPLIT_SUM_ERR_FLUX, a fixed factor above the
 # largest reading.
 K1_SPLIT_SUM_ERR_FLUX = 1e-5
+# K1 of "highest" (the six-product core) is held to rtol 1e-5 of the
+# float32 plain version, but not under cancelled_gmm(): there the
+# winning logits are sums of terms thousands of times their value, and
+# the float32 plain version's own values lie further than 1e-5 (relative)
+# from float64 (k1_f32_checks prints both), so no float32 evaluation
+# meets rtol 1e-5 against another. A float32 sum's rounding scales with
+# its terms: there k1_f32_checks holds the kernel to the anchored bar
+# against float64 and, under every GMM, to K1_F32_SUM_ERR of the terms'
+# magnitudes, the bar of K1 split's own sums.
+K1_F32_SUM_ERR = K1_SPLIT_SUM_ERR
 # The MAP gradient reads the logits only through the argmax, so the
 # default dial ("split") and "highest" train alike until an argmax flips.
 # The JAX package's own HIGH and HIGHEST runs (its fused kernel in the
@@ -405,14 +421,6 @@ def cuda_ms(torch, fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def in_turns(torch, parent, new, reps=10):
-    """Milliseconds per call of ``new`` and of ``parent`` (the kernel it
-    replaces, on the same inputs), timed in turns (parent, new, new,
-    parent): the two means and the four readings."""
-    ms = [cuda_ms(torch, fn, reps) for fn in (parent, new, new, parent)]
-    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2, ms
 
 
 def device_ms(torch, fn, reps, *kernels):
@@ -457,11 +465,16 @@ def device_ms(torch, fn, reps, *kernels):
 # K3's float32 passes on the warpgroup instructions
 F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_rows_f32_kernel",
                "pfft_cols_inv_f32_kernel")
-# K1 lse and K4 of "highest" on the warpgroup instructions: their names in
-# ptxas_summary and in the machine code (mangled template arguments)
-MARG_F32_KERNELS = (
-    ("gmm_score_wg_kernel<true, 6, 1>", "gmm_score_wg_kernelILb1ELi6ELi1E"),
-    ("gmm_score_wg_kernel<false, 6, 2>", "gmm_score_wg_kernelILb0ELi6ELi2E"))
+# the fused branch's instances of gmm_score_wg_kernel<image, products,
+# epilogue> beside the bf16 modes' MAP ones: K1 MAP of "highest" and K1
+# lse and K4 of every mode; their names in ptxas_summary and in the
+# machine code (mangled template arguments)
+WG_FUSED_KERNELS = tuple(
+    (f"gmm_score_wg_kernel<{str(image).lower()}, {prod}, {epi}>",
+     f"gmm_score_wg_kernelILb{int(image)}ELi{prod}ELi{epi}E")
+    for image, prod, epi in ((True, 6, 0), (True, 6, 1), (False, 6, 2),
+                             (True, 3, 1), (False, 3, 2), (True, 1, 1),
+                             (False, 1, 2)))
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
 # K9b's kernel, by the name the profiler gives it
@@ -504,13 +517,14 @@ def phase_build():
         print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
               f"{warnings or 'none'}")
         check(hgmma > 0, f"{name} has no HGMMA instruction")
-    # K1 lse and K4 of "highest" (gmm_score_wg's six-product instances):
-    # wgmma each, and no wait that ptxas had to inject between products
+    # K1 and K4 of every mode (gmm_score_wg's instances beside the bf16
+    # modes' MAP ones): wgmma each, and no wait that ptxas had to inject
+    # between products
     info = BUILD_INFO["gmm_score_wg"]
     check(not any("C7517" in line for line in info["ptxas"].splitlines()),
           "ptxas injected a wgmma wait in gmm_score_wg")
     summary = ptxas_summary(info["ptxas"])
-    for kernel, mangled in MARG_F32_KERNELS:
+    for kernel, mangled in WG_FUSED_KERNELS:
         hgmma = sass_count(info["path"], "HGMMA", mangled)
         lines = [line for line in summary if line.startswith(kernel + ":")]
         print(f"phase 1 sass: {kernel} HGMMA {hgmma}; {'; '.join(lines)}")
@@ -554,8 +568,7 @@ def sass_count(path, opcode, kernel=None):
 def ptxas_summary(text):
     """Per kernel of ``nvcc -Xptxas -v`` output: its registers, shared
     memory and spills, under a readable name
-    (``gmm_score_wg_kernel<true, 6, 1>``, ``gmm_fwd_tc_kernel<false,
-    1>``)."""
+    (``gmm_score_wg_kernel<true, 6, 1>``, ``gmm_score_rows_tc_kernel<1>``)."""
     out, kernel = [], None
     for line in text.splitlines():
         if "Function properties for" in line:
@@ -624,8 +637,9 @@ def phase_kernels(torch, device):
         check(torch.equal(valk, valp), f"{label}: valid differs")
         m = valp > 0.5
         check(bool(m.any()), f"{label}: no valid patch")
-        # values: rtol 1e-5 elementwise on valid patches (float32 sums
-        # in different orders in the kernel and the matmul)
+        # K1 of "highest" (the six-product core on wgmma): values rtol
+        # 1e-5 elementwise on valid patches (float32 sums in different
+        # orders on the tensor cores and in the matmul)
         value_err = (vk - vp).abs()[m]
         check(bool((value_err <= 1e-5 * vp.abs()[m]).all()),
               f"{label}: values beyond rtol 1e-5 "
@@ -681,13 +695,16 @@ def phase_kernels(torch, device):
                                      img.shape)
             print(f"phase 2 K2 {label}, argmax = patch index mod K: "
                   f"{k2_case_line(out['k2_many'])}")
-            # K1: every patch against every component (the symmetric
-            # quadratic form and b . x); reads the image and the records,
-            # writes values, argmax, valid and the normalised patches
+            # K1: every patch against every component (the pair form and
+            # b . x) as six bf16 products at the bf16 peak, and beside it
+            # on the float32 CUDA cores; reads the image, the three planes
+            # of the pairs and the linear terms, writes values, argmax,
+            # valid and the normalised patches
             n, k = vp.numel(), bufs["rec"].shape[0]
-            out["fwd_bound"] = bound(
-                2.0 * n * k * (2080 + 64),
-                4 * (img.size + bufs["rec"].numel() + n * (3 + 64)))
+            work = (2.0 * n * k * (2080 + 64),
+                    4 * (img.size + n * (3 + 64)) + wg_bytes(bufs, "f32"))
+            out["fwd_bound"] = split_bound(*work, products=6)
+            out["fwd_bound_fp32"] = bound(*work)
             # K2: A_{k*} x for each valid patch; reads the valid patches,
             # argmax, valid, dv and the components they select, writes
             # the image gradient
@@ -703,25 +720,29 @@ def phase_kernels(torch, device):
               "two K2 calls bitwise equal")
         for mode in ("split", "bf16"):
             out[label][mode] = k1_split_checks(
-                torch, label, image, bufs, (vk, ak, valk, xk),
-                (vp, ap, valp, xp), mode=mode)
-    # K1's "split" kernel past one tile of components: K = 256 on the
-    # ragged image, and under a GMM whose logits are much cancelled sums
-    # (no relative bar)
+                torch, label, image, bufs, (vp, ap, valp, xp), mode=mode)
+    # K1's kernels past one tile of components: K = 256 on the ragged
+    # image, and under a GMM whose logits are much cancelled sums (no
+    # relative bar)
     label = "{}x{}".format(*RAGGED)
     image = torch.as_tensor(cases[label], device=device)
     for key, gmm, relative in (("wide", wide_gmm(), True),
                                ("cancelled", cancelled_gmm(), False)):
         wbufs = gmm.kernel_buffers(device)
-        fp32 = (gf.gmm_fused_fwd_cuda(image, wbufs, stride, sentinel),
-                gf.fused_forward_plain(image, wbufs, stride, sentinel))
+        fp32_plain = gf.fused_forward_plain(image, wbufs, stride, sentinel)
+        out[f"{key}_f32"] = k1_f32_checks(torch, f"{label} K=256 {key}",
+                                          image, wbufs, fp32_plain, relative)
         out[key] = k1_split_checks(torch, f"{label} K=256 {key}", image,
-                                   wbufs, *fp32, relative)
+                                   wbufs, fp32_plain, relative)
         out[f"{key}_bf16"] = k1_split_checks(
-            torch, f"{label} K=256 {key}", image, wbufs, *fp32, relative,
-            mode="bf16")
-    t = out["timing"]
-    print(f"phase 2 timing {MAIN} K=200: fwd kernel {t['fwd_ms']:.3f} ms, "
+            torch, f"{label} K=256 {key}", image, wbufs, fp32_plain,
+            relative, mode="bf16")
+    t, fb, fb32 = out["timing"], out["fwd_bound"], out["fwd_bound_fp32"]
+    print(f"phase 2 timing {MAIN} K=200: fwd kernel (K1 of \"highest\" on "
+          f"wgmma) {t['fwd_ms']:.3f} ms, bound {fb['bound_ms']:.4f} ms as "
+          f"six bf16 products ({fb['bound_ms'] / t['fwd_ms']:.1%}), "
+          f"{fb32['bound_ms']:.4f} ms on the float32 CUDA cores "
+          f"({fb32['bound_ms'] / t['fwd_ms']:.1%}); "
           f"plain {t['fwd_plain_ms']:.3f} ms; bwd {t['bwd_ms']:.4f} ms a "
           f"call ({t['bwd_device_ms']:.4f} ms of device time), plain "
           f"{t['bwd_plain_ms']:.3f} ms")
@@ -816,12 +837,14 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
     bars relative to the values are printed, not held. Past one tile of
     components (208), both tiles must hold winning rows. ``control``, the
     ``(values, argmax)`` of another mode's plain version (the split ones
-    where the kernel is ``"bf16"``'s), must fail those bars. Returns the
-    numbers and the line to print."""
+    where the kernel is ``"bf16"``'s), must fail those bars. ``fp32``,
+    the float32 kernel's ``(values, argmax)``, is printed beside them,
+    or left out when None. Returns the numbers and the line to print."""
     from jolideco_torch.ops import gmm_fused as gf
 
     (vt, at), (vs, as_) = tc, split_plain
-    (vk, ak), (vp, _) = fp32, fp32_plain
+    vp = fp32_plain[0]
+    kernels32 = () if fp32 is None else (("fp32", fp32[0]),)
     n_rows = rows.shape[0]
     rel = float(((vt - vs).abs() / vs.abs()).max())
     check(not relative or rel <= K1_SPLIT_RTOL, f"{tag}: values beyond "
@@ -852,11 +875,11 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
     v64, a64 = max_logits64(torch, rows, bufs, marginalize)
     scale = float(v64.abs().max())
     errs = {name: float((v.double() - v64).abs().max())
-            for name, v in (("tc", vt), ("split_plain", vs), ("fp32", vk),
+            for name, v in (("tc", vt), ("split_plain", vs), *kernels32,
                             ("fp32_plain", vp))}
     flips64 = {name: int((a != a64).sum())
                for name, a in (("tc", at), ("split_plain", as_),
-                               ("fp32", ak))}
+                               *(() if fp32 is None else (("fp32", fp32[1]),)))}
     limit = MARG_ERR_FACTOR * errs["split_plain"] + MARG_ERR_FLOOR * scale
     check(errs["tc"] <= limit, f"{tag}: error against float64 "
           f"{errs['tc']:.3g} above {limit:.3g}")
@@ -898,10 +921,14 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
             f"{sum_err['split_plain']:.3g} (magnitudes up to "
             f"{cancel:.3g} x the value); against float64 "
             f"(max-abs {scale:.6g}): tc {errs['tc']:.3g}, {mode} plain "
-            f"{errs['split_plain']:.3g}, fp32 kernel {errs['fp32']:.3g}, "
-            f"fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
+            f"{errs['split_plain']:.3g}"
+            + (f", fp32 kernel {errs['fp32']:.3g}" if fp32 is not None
+               else "")
+            + f", fp32 plain {errs['fp32_plain']:.3g}; argmax flips against "
             f"float64: tc {flips64['tc']}, {mode} plain "
-            f"{flips64['split_plain']}, fp32 kernel {flips64['fp32']}")
+            f"{flips64['split_plain']}"
+            + (f", fp32 kernel {flips64['fp32']}" if fp32 is not None
+               else ""))
     if control is not None:
         line += (f"; control (split plain values) refused: max rel "
                  f"{ctrl['value_max_rel_err']:.3g}, mean rel diff "
@@ -910,15 +937,15 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
     return out, line
 
 
-def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
-                    relative=True, mode="split", timed=False,
-                    sum_err_limit=K1_SPLIT_SUM_ERR):
+def k1_split_checks(torch, label, image, bufs, fp32_plain, relative=True,
+                    mode="split", timed=False, sum_err_limit=K1_SPLIT_SUM_ERR):
     """K1's ``"split"`` kernel (tensor cores), or its ``"bf16"`` kernel
     with ``mode``, on one image: ``valid`` and the normalised patches
     against the plain version's of the mode, then
     :func:`split_value_checks` at the valid patches (under ``"bf16"`` with
-    the split plain values as the control); at the main path's shape
-    (or with ``timed``), times and bound."""
+    the split plain values as the control; the float32 plain version's
+    ``fp32_plain`` beside them); at the main path's shape (or with
+    ``timed``), times and bound."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
     from jolideco_torch.utils.cuda_build import BUILD_INFO
@@ -928,7 +955,6 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     vt, at, valt, xt = kernel(image, bufs, stride, sentinel)
     vs, as_, vals, xs = gf.fused_forward_plain(image, bufs, stride, sentinel,
                                                mode=mode)
-    vk, ak, valk, _ = fp32
     vp, ap, valp, xp = fp32_plain
     torch.cuda.synchronize()
     tag = f"{label} K1 {mode}"
@@ -950,19 +976,14 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
         plain = gf.score_bf16_plain(rows, bufs)
         control = gf.score_split_plain(rows, bufs)
     out, line = split_value_checks(
-        torch, tag, rows, bufs, (vt[m], at[m]), plain, (vk[m], ak[m]),
-        (vp[m], ap[m]), relative, mode=mode, control=control,
-        sum_err_limit=sum_err_limit)
+        torch, tag, rows, bufs, (vt[m], at[m]), plain, None, (vp[m], ap[m]),
+        relative, mode=mode, control=control, sum_err_limit=sum_err_limit)
     out["xtn_max_abs_err"] = xtn_err
     line += f"; xtn {xtn_err:.3g}"
     if label == MAIN or timed:
         n, k = vs.numel(), bufs["rec"].shape[0]
-        # beside the parent's kernel: gmm_fused_tc.cu's mma.sync instance
-        # of the mode, which no wrapper launches
-        out["ms"], out["parent_ms"], out["turns_ms"] = in_turns(
-            torch, lambda: gf._launch_forward_tc(image, bufs, stride,
-                                                 sentinel, False, mode),
-            lambda: kernel(image, bufs, stride, sentinel))
+        out["ms"] = cuda_ms(torch, lambda: kernel(image, bufs, stride,
+                                                  sentinel), 10)
         out["plain_ms"] = cuda_ms(torch, lambda: gf.fused_forward_plain(
             image, bufs, stride, sentinel, mode=mode), 3)
         # three bf16 products (one under "bf16") of every patch against
@@ -974,8 +995,7 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
             4 * (image.numel() + n * (3 + 64)) + wg_bytes(bufs, mode),
             products(mode))
         out["ptxas"] = ptxas_summary(BUILD_INFO["gmm_score_wg"]["ptxas"])
-        line += (f"; {out['ms']:.3f} ms per call (parent's mma.sync "
-                 f"{out['parent_ms']:.3f}; {mode} plain "
+        line += (f"; {out['ms']:.3f} ms per call ({mode} plain "
                  f"{out['plain_ms']:.3f} ms), {mode} bound "
                  f"{out['bound']['bound_ms']:.4f} ms "
                  f"({out['bound']['bound_by']}, "
@@ -985,12 +1005,92 @@ def k1_split_checks(torch, label, image, bufs, fp32, fp32_plain,
     return out
 
 
+def f32_sum_err(torch, x, bufs, values, argmax):
+    """The largest difference of float32 MAP ``values`` from the float64
+    logit of rows ``x`` at ``argmax`` (the float32 buffers), over the sum
+    of that logit's terms' magnitudes (what a float32 sum's rounding
+    scales with), and the largest ratio of the magnitudes to the value."""
+    aq, bq, c2 = (bufs[name].double() for name in ("aq", "bq", "const2"))
+    errs, ratios = [], []
+    for start in range(0, x.shape[0], 4096):
+        sl = slice(start, start + 4096)
+        x64 = x[sl].double()
+        u = (x64[:, :, None] * x64[:, None, :]).reshape(x64.shape[0], -1)
+        k = argmax[sl].long()[:, None]
+        exact = (-0.5 * (u @ aq) + x64 @ bq + c2).gather(1, k)[:, 0]
+        mag = (0.5 * (u.abs() @ aq.abs()) + x64.abs() @ bq.abs()
+               + c2.abs()).gather(1, k)[:, 0]
+        errs.append(((values[sl].double() - exact).abs() / mag).max())
+        ratios.append((mag / exact.abs()).max())
+    return float(torch.stack(errs).max()), float(torch.stack(ratios).max())
+
+
+def k1_f32_checks(torch, label, image, bufs, fp32_plain, relative=True):
+    """K1 of ``"highest"`` (``gmm_fused_fwd_cuda``, the six-product core
+    on ``wgmma``) on one image against the float32 plain version
+    ``fp32_plain``: ``valid`` identical, the patches within 1e-5, argmax
+    flips at most ``K1_SPLIT_FLIPS`` of the valid patches, values rtol
+    1e-5 (without ``relative`` printed, not held: ``K1_F32_SUM_ERR``
+    says why), within ``K1_F32_SUM_ERR`` of their terms' magnitudes from
+    the float64 sum; against float64 the anchored bar. Returns the
+    numbers."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    vk, ak, valk, xk = gf.gmm_fused_fwd_cuda(image, bufs, 4,
+                                             ZERO_FLUX_SENTINEL)
+    vp, ap, valp, xp = fp32_plain
+    torch.cuda.synchronize()
+    tag = f"{label} K1 f32"
+    check(torch.equal(valk, valp), f"{tag}: valid differs")
+    m = valp > 0.5
+    n_valid = int(m.sum())
+    xtn_err = float((xk - xp).abs().max())
+    check(xtn_err <= 1e-5, f"{tag}: normalised patches differ by "
+          f"{xtn_err:.3g}")
+    rel = float(((vk - vp).abs() / vp.abs())[m].max())
+    check(not relative or rel <= 1e-5, f"{tag}: values beyond rtol 1e-5 "
+          f"(max rel {rel:.3g})")
+    flips = int((ak != ap)[m].sum())
+    check(flips <= K1_SPLIT_FLIPS * n_valid,
+          f"{tag}: argmax flips {flips} of {n_valid}")
+    v64, a64 = max_logits64(torch, xp[m], bufs)
+    err, err32, scale = anchored(tag, "values", vk[m], vp[m], v64)
+    rel64 = {name: float(((v.double() - v64).abs() / v64.abs()).max())
+             for name, v in (("kernel", vk[m]), ("fp32_plain", vp[m]))}
+    sum_err = {name: f32_sum_err(torch, xp[m], bufs, v, a64)
+               for name, v in (("kernel", vk[m]), ("plain", vp[m]))}
+    check(sum_err["kernel"][0] <= K1_F32_SUM_ERR, f"{tag}: difference "
+          f"from the exact sum {sum_err['kernel'][0]:.3g} of the terms' "
+          f"magnitudes, beyond {K1_F32_SUM_ERR}")
+    out = {"value_max_rel_err": rel, "argmax_flips": flips,
+           "n_valid": n_valid, "xtn_max_abs_err": xtn_err,
+           "errors_against_float64": {"kernel": err, "fp32_plain": err32},
+           "max_rel_errors_against_float64": rel64, "max_abs": scale,
+           "max_diff_from_exact_over_magnitudes": {
+               name: e[0] for name, e in sum_err.items()},
+           "max_magnitudes_over_value": sum_err["kernel"][1]}
+    print(f"phase 2 {tag}: against the float32 plain version values max "
+          f"rel {rel:.3g} (limit {1e-5 if relative else None}), argmax "
+          f"flips {flips}/{n_valid}, xtn {xtn_err:.3g}; against float64 "
+          f"(max-abs {scale:.6g}) kernel {err:.3g}, float32 plain "
+          f"{err32:.3g} (max rel {rel64['kernel']:.3g}, "
+          f"{rel64['fp32_plain']:.3g}); largest difference from the exact sum over its "
+          f"terms' magnitudes kernel {sum_err['kernel'][0]:.3g} (limit "
+          f"{K1_F32_SUM_ERR}), float32 plain {sum_err['plain'][0]:.3g} "
+          f"(magnitudes up to {sum_err['kernel'][1]:.3g} x the value)")
+    return out
+
+
 def wg_bytes(bufs, mode):
-    """Bytes of ``pair_wg`` and ``lin_wg`` that the MAP kernels of
-    ``mode`` read: both bf16 planes of each chunk under ``"split"``, the
-    hi plane under ``"bf16"``, and the linear terms."""
+    """Bytes of the pairs' planes and ``lin_wg`` that the warpgroup
+    kernels of ``mode`` read: both bf16 planes of each chunk of
+    ``pair_wg`` under ``"split"``, the hi plane under ``"bf16"``, the
+    three of ``pair_wg3`` under ``"f32"``, and the linear terms."""
     from jolideco_torch.ops.gmm_fused import WG_PLANE
 
+    if mode == "f32":
+        return bufs["pair_wg3"].numel() + bufs["lin_wg"].numel()
     tiles, chunks, record = bufs["pair_wg"].shape
     return (tiles * chunks * (record - (WG_PLANE if mode == "bf16" else 0))
             + bufs["lin_wg"].numel())
@@ -1153,21 +1253,14 @@ def phase_patch_kernels(torch, device, bufs, cases):
         out["many"] = row_map_case(torch, x, every, bufs)
         print(f"phase 2 K6/K7 {label}, argmax = row index mod K: "
               + row_map_line(out["many"]))
-        # K5 split and bf16 beside the parent's kernels: gmm_fused_tc.cu's
-        # mma.sync instances, which no wrapper launches
-        turns = {}
-        for mode in ("split", "bf16"):
-            (turns[f"{mode}_ms"], turns[f"{mode}_parent_ms"],
-             turns[f"{mode}_turns_ms"]) = in_turns(
-                torch, lambda m=mode: gp._score_rows_tc(x, bufs, False, m,
-                                                        "parent"),
-                lambda m=mode: gp._SCORES_TC[m, False](x, bufs))
         out["timing"] = {
             "score_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_cuda(
                 x, bufs), 10),
             "score_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
                 x, bufs), 3),
-            **turns,
+            **{f"{mode}_ms": cuda_ms(
+                torch, lambda m=mode: gp._SCORES_TC[m, False](x, bufs), 10)
+               for mode in ("split", "bf16")},
             "split_lse_ms": cuda_ms(
                 torch, lambda: gp.gmm_score_rows_marg_tc_cuda(x, bufs), 10),
             "split_plain_ms": cuda_ms(torch, lambda: gf.score_split_plain(
@@ -1187,8 +1280,10 @@ def phase_patch_kernels(torch, device, bufs, cases):
                 4 * (n * 64 + bufs["rec"].numel() + 2 * n))
         out["bounds"] = {
             # every row against every component; reads rows and records,
-            # writes values and argmax
+            # writes values and argmax; and the same as six bf16 products,
+            # the least time of the "highest" logits on the tensor cores
             "score": bound(*work),
+            "score_six": split_bound(*work, products=6),
             # the same in three bf16 products; reads rows, the split
             # pairs, b and c
             "score_split": split_bound(
@@ -1205,13 +1300,11 @@ def phase_patch_kernels(torch, device, bufs, cases):
         bb = out["bounds"]["score_bf16"]
         print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
               f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
-              f"K5 split {tm['split_ms']:.3f} ms (parent's mma.sync "
-              f"{tm['split_parent_ms']:.3f}), logsumexp "
+              f"K5 split {tm['split_ms']:.3f} ms, logsumexp "
               f"{tm['split_lse_ms']:.3f} (split plain "
               f"{tm['split_plain_ms']:.3f}; split bound "
               f"{sb['bound_ms']:.4f} ms, {sb['bound_ms'] / tm['split_ms']:.1%})"
-              f"; K5 bf16 {tm['bf16_ms']:.3f} ms (parent's "
-              f"{tm['bf16_parent_ms']:.3f}), logsumexp "
+              f"; K5 bf16 {tm['bf16_ms']:.3f} ms, logsumexp "
               f"{tm['bf16_lse_ms']:.3f} (bf16 plain "
               f"{tm['bf16_plain_ms']:.3f}, {tm['bf16_lse_plain_ms']:.3f}; "
               f"one-product bound {bb['bound_ms']:.4f} ms, "
@@ -1511,6 +1604,10 @@ def phase_marg_kernels(torch, device, bufs, cases):
         if label != MAIN:
             continue
         out["timing"], out["bounds"] = marg_timing(torch, bufs, img, s)
+        out["k4_weights"] = k4_weight_checks(
+            torch, f"{MAIN}[:256, :256]",
+            torch.as_tensor(np.ascontiguousarray(img[:256, :256]),
+                            device=device), bufs, "f32")
         out["support"] = {"fused": s["nnz_fused"], "rows": s["nnz_rows"],
                           "mix": s["nnz_mix"], "n_valid": s["n_valid"],
                           "n_rows": s["x"].shape[0]}
@@ -1728,10 +1825,13 @@ def marg_split_checks(torch, device, label, img, bufs, mode="split"):
     dv = torch.randn(n, generator=gen, device=device)
     tc, g_tc, sp, g_sp, (lse64, a64, g64) = marg_split_pipelines(
         torch, image, bufs, dv, mode)
-    torch.cuda.synchronize()
     vt, at, valt, xt = tc
     vs, as_, vals, xs = sp
     tag = f"{label} marginalise {mode}"
+    g_again = launcher(gf, MARG_KERNELS[mode][1])(
+        xt, vt, valt, dv, bufs, tuple(image.shape), 4)
+    torch.cuda.synchronize()
+    check(torch.equal(g_tc, g_again), f"{tag}: two K4 calls differ")
     check(torch.equal(valt, vals), f"{tag}: valid differs")
     m = vals > 0.5
     n_valid = int(m.sum())
@@ -1775,7 +1875,8 @@ def marg_split_checks(torch, device, label, img, bufs, mode="split"):
           f"{scale:.6g}): tc {errs['tc']:.3g}, {mode} plain "
           f"{errs['split_plain']:.3g} (limit {limit:.3g}); argmax flips "
           f"against float64: tc {flips64['tc']}, {mode} plain "
-          f"{flips64['split_plain']}; K4 {mode} pipeline against float64 "
+          f"{flips64['split_plain']}; K4 {mode} twice bitwise equal, "
+          f"pipeline against float64 "
           f"{bwd[0]:.3g}, {mode} plain {bwd[1]:.3g} (limit {factor:.3g} x "
           f"it + {MARG_ERR_FLOOR} x max), max {bwd[2]:.3g}{control}; "
           f"nonzero weights {nnz} of {n_valid} x {bufs['rec'].shape[0]}")
@@ -1793,14 +1894,72 @@ def marg_split_checks(torch, device, label, img, bufs, mode="split"):
     return out, inputs
 
 
+def k4_weight_checks(torch, label, image, bufs, mode):
+    """K4 of ``mode`` fed K1 lse's own outputs on ``image``, launched
+    through its C entry with a CTA a tile of 128 rows, so that the
+    weights' scratch ends holding every row's: the gradient the bits of
+    the wrapper's launch (whose CTAs take several tiles), and, read back,
+    every valid patch whose weights are one-hot weighed exactly 1 (the
+    same instance of the core gives K4 K1 lse's logits bit for bit) at K1
+    lse's argmax, an invalid patch 0. Returns the counts."""
+    from jolideco_torch.ops import gmm_fused as gf
+    from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
+
+    fwd, bwd = (launcher(gf, name) for name in MARG_KERNELS[mode])
+    lse, argmax, valid, xtn = fwd(image, bufs, 4, ZERO_FLUX_SENTINEL)
+    n, k = lse.numel(), bufs["b_rows"].shape[0]
+    h, w = image.shape
+    gen = torch.Generator(device=image.device).manual_seed(4)
+    dv = torch.randn(n, generator=gen, device=image.device) * valid
+    ctas = -(-n // gf.WG_ROWS)
+    wts = torch.full((ctas, gf.WG_ROWS, gf.KP_WG), float("nan"),
+                     device=image.device)
+    units = torch.empty((n, 64), device=image.device)
+    wsum = torch.empty(n, device=image.device)
+    grad = torch.empty((h, w), device=image.device)
+    pairs = bufs["pair_wg3" if mode == "f32" else "pair_wg"]
+    lib = gf._wg_library()
+    code = lib.gmm_score_wg_mix(
+        xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(), dv.data_ptr(),
+        pairs.data_ptr(), bufs["lin_wg"].data_ptr(),
+        bufs["a_full"].data_ptr(), bufs["b_rows"].data_ptr(), h, w, 4,
+        h // 8, w // 8, k, gf.WG_PRODUCTS[mode], wts.data_ptr(), ctas,
+        wsum.data_ptr(), units.data_ptr(), grad.data_ptr(),
+        torch.cuda.current_stream(image.device).cuda_stream)
+    check(code == 0, f"{label}: K4 {mode} launch failed ({code})")
+    want = bwd(xtn, lse, valid, dv, bufs, (h, w), 4)
+    torch.cuda.synchronize()
+    tag = f"{label} K4 {mode} weights"
+    check(torch.equal(grad, want), f"{tag}: a CTA a tile of rows and the "
+          f"wrapper's launch differ")
+    wk = wts.reshape(-1, gf.KP_WG)[:n, :k]
+    m = valid > 0.5
+    one_hot = m & ((wk > 0).sum(dim=1) == 1)
+    n_valid, n_one_hot = int(m.sum()), int(one_hot.sum())
+    check(n_one_hot >= 0.9 * n_valid, f"{tag}: {n_one_hot} of {n_valid} "
+          f"valid patches one-hot")
+    check(torch.equal(wk[one_hot].max(dim=1).values,
+                      torch.ones_like(lse[one_hot]))
+          and torch.equal(wk[one_hot].argmax(dim=1).to(torch.int32),
+                          argmax[one_hot]),
+          f"{tag}: a one-hot patch's weight is not exactly 1 at its argmax")
+    check(not wk[~m].any(), f"{tag}: an invalid patch has a weight")
+    print(f"phase 2 {tag} ({h}x{w}, {ctas} CTAs): {n_one_hot} of {n_valid} "
+          f"valid patches one-hot, each weighed exactly 1 at K1 lse's "
+          f"argmax; invalid patches 0; the gradient the bits of the "
+          f"wrapper's launch")
+    return {"n_valid": n_valid, "one_hot": n_one_hot}
+
+
 def marg_split_timing(torch, bufs, s, plain=True, mode="split"):
     """Milliseconds per call of K1 lse split and K4 split, or their
     ``"bf16"`` kernels with ``mode`` (and of their plain versions) on a
     case's inputs, and their bounds: the logits' three bf16 products (one
     under ``"bf16"``) at the bf16 peak (``split_bound``), K4's float32
     A_k x terms of the nonzero weights at the fp32 peak on top. Bytes:
-    each input read once, each output written once, of the A_k only
-    those that some weight selects."""
+    each input read once (the pairs' planes and linear terms that the
+    warpgroup core reads, ``wg_bytes``), each output written once, of the
+    A_k only those that some weight selects."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.priors.patches import ZERO_FLUX_SENTINEL
 
@@ -1825,7 +1984,7 @@ def marg_split_timing(torch, bufs, s, plain=True, mode="split"):
     k = bufs["rec"].shape[0]
     n, n_valid = xt.shape[0], s["n_valid"]
     logit_flop = 2.0 * (2080 + 64) * k
-    split_bytes = 4 * bufs["bc"].numel() + pair_bytes(bufs, mode)
+    split_bytes = wg_bytes(bufs, mode)
     ax_flop = 2.0 * (4096 + 64) * s["nnz"]
     bwd_bytes = (4 * (n_valid * 64 + 3 * n + image.numel())
                  + split_bytes + 4 * s["used"] * (64 * 64 + 64))
@@ -2179,6 +2338,11 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
             probe, rows = probe_split_checks(
                 torch, device, f"{label} K={k} {key}", img, gmm_bufs, mode)
             out[f"{label} {key} probe"] = probe
+            if label == MAIN and key == "astro":
+                out["k4_weights"] = k4_weight_checks(
+                    torch, f"{MAIN}[:256, :256]",
+                    torch.as_tensor(np.ascontiguousarray(img[:256, :256]),
+                                    device=device), gmm_bufs, mode)
             if key == "mixed":
                 check(res["nonzero_weights"] >= 10 * res["n_valid"]
                       and probe["nonzero_weights"] >= 10 * probe["n_rows"],
@@ -2213,6 +2377,9 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
                          f"{pbounds[name]['bound_ms'] / ptiming[name + '_ms']:.1%})"
                          for name in ("unit", "weights")))
             if key == "astro":
+                instances = tuple(
+                    f"gmm_score_wg_kernel<{image}, {products(mode)}, {epi}>:"
+                    for image, epi in (("true", 1), ("false", 2)))
                 line += (f"; {mode} plain {timing['fwd_plain_ms']:.3f}, "
                          f"{timing['bwd_plain_ms']:.3f}, "
                          f"{ptiming['unit_plain_ms']:.3f}, "
@@ -2220,8 +2387,12 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
                          f"kernels (this call) K1 lse {tm['fwd_ms']:.3f}, K4 "
                          f"{tm['bwd_ms']:.3f}, K8 {tm['unit_ms']:.3f}, K9a "
                          f"{tm['weights_ms']:.3f} ms; "
-                         + " | ".join(ptxas_summary(
-                             BUILD_INFO["gmm_fused_tc"]["ptxas"])))
+                         + " | ".join(
+                             [entry for entry in ptxas_summary(
+                                 BUILD_INFO["gmm_score_wg"]["ptxas"])
+                              if entry.startswith(instances)]
+                             + ptxas_summary(
+                                 BUILD_INFO["gmm_fused_tc"]["ptxas"])))
             else:
                 line += (f"; float32 kernels (this call) K1 lse "
                          f"{tm['fwd_ms']:.3f}, K4 {tm['bwd_ms']:.3f}, K8 "
@@ -3740,15 +3911,14 @@ def phase_upsampled(torch, device, card):
     image = torch.as_tensor(np.ascontiguousarray(flux, np.float32),
                             device=device)
     bufs = astro.kernel_buffers(device)
-    fp32 = (gf.gmm_fused_fwd_cuda(image, bufs, 4, ZERO_FLUX_SENTINEL),
-            gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL))
+    fp32_plain = gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL)
     # At the trained flux some patches' best logits are much cancelled
     # sums (their magnitudes many times their value: printed), so the
     # values are held as phase 2 holds cancelled_gmm(): against the exact
     # sum over the products' magnitudes (K1_SPLIT_SUM_ERR_FLUX), and
     # against float64
     out["k1_split"] = k1_split_checks(
-        torch, f"{up}x{up} trained (phase 9)", image, bufs, *fp32,
+        torch, f"{up}x{up} trained (phase 9)", image, bufs, fp32_plain,
         relative=False, timed=True, sum_err_limit=K1_SPLIT_SUM_ERR_FLUX)
     out["k2"] = k2_tile_components(torch, device, flux, astro)
     print(f"phase 9 K2 at the trained {up}^2 flux: "
@@ -5454,7 +5624,7 @@ def main():
     # K1: the float32 kernel's launches are those of the "highest" run of
     # phase 3, the tensor-core kernel's (and K2's) the default dial's
     table = [
-        ("gmm_fused_fwd", fused_src, "jolideco_tpu/ops/gmm_fused.py:309",
+        ("gmm_fused_fwd", wg_src, "jolideco_tpu/ops/gmm_fused.py:309",
          slice_["highest"], kernels[MAIN]["value_max_abs_err"],
          timing["fwd_ms"], timing["fwd_plain_ms"], kernels["fwd_bound"]),
         ("gmm_fused_fwd_tc", wg_src,
@@ -5466,7 +5636,7 @@ def main():
          timing["bwd_ms"], timing["bwd_plain_ms"], kernels["bwd_bound"]),
         ("gmm_score_rows", patch_src, "jolideco_tpu/ops/gmm_pallas.py:237",
          errors["highest"], rows["score_marg0"][0], rtiming["score_ms"],
-         rtiming["score_plain_ms"], rbounds["score"]),
+         rtiming["score_plain_ms"], rbounds["score_six"]),
         ("gmm_score_rows_tc", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:237", errors["high"],
          rows["split"]["map"]["value_max_abs_err"], rtiming["split_ms"],
@@ -5480,14 +5650,14 @@ def main():
         ("gmm_fused_fwd_marg", wg_src, "jolideco_tpu/ops/gmm_fused.py:341",
          marg_train["highest"], mrows["fwd"][0], mtiming["fwd_ms"],
          mtiming["fwd_plain_ms"], mbounds["fwd_six"]),
-        ("gmm_fused_fwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_fused_fwd_marg_tc", wg_src,
          "jolideco_tpu/ops/gmm_fused.py:341", marg_train["high"],
          msmain["value_max_abs_err"], mstiming["fwd_ms"],
          mstiming["fwd_plain_ms"], msbounds["fwd"]),
         ("gmm_fused_bwd_marg", wg_src, "jolideco_tpu/ops/gmm_fused.py:420",
          marg_train["highest"], mrows["bwd"][0], mtiming["bwd_ms"],
          mtiming["bwd_plain_ms"], mbounds["bwd_six"]),
-        ("gmm_fused_bwd_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_fused_bwd_marg_tc", wg_src,
          "jolideco_tpu/ops/gmm_fused.py:420", marg_train["high"],
          msmain["bwd_against_float64"]["tc"], mstiming["bwd_ms"],
          mstiming["bwd_plain_ms"], msbounds["bwd"]),
@@ -5497,7 +5667,7 @@ def main():
          rtiming["split_lse_plain_ms"], rbounds["score_split"]),
         ("gmm_unit_marg", patch_src, "jolideco_tpu/ops/gmm_pallas.py:384",
          marg_probe["highest"], mrows["unit"][0], mtiming["unit_ms"],
-         mtiming["unit_plain_ms"], mbounds["unit"]),
+         mtiming["unit_plain_ms"], mbounds["unit_six"]),
         ("gmm_unit_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_pallas.py:384", marg_probe["high"],
          psmain["unit"]["err"], pstiming["unit_ms"],
@@ -5506,7 +5676,7 @@ def main():
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["highest"],
          max(mrows["weights_p"][0], mrows["weights_dp"][0]),
          mtiming["weights_ms"], mtiming["weights_plain_ms"],
-         mbounds["weights"]),
+         mbounds["weights_six"]),
         ("gmm_hvp_marg_weights_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["high"],
          max(psmain["weights_p"]["err"], psmain["weights_dp"]["err"]),
@@ -5526,11 +5696,11 @@ def main():
         ("gmm_fused_fwd_bf16", wg_src, "jolideco_tpu/ops/gmm_fused.py:309",
          default["map"], k1b["value_max_abs_err"], k1b["ms"], k1b["plain_ms"],
          k1b["bound"]),
-        ("gmm_fused_fwd_marg_bf16", tc_src,
+        ("gmm_fused_fwd_marg_bf16", wg_src,
          "jolideco_tpu/ops/gmm_fused.py:341", default["marginalised"],
          mbmain["value_max_abs_err"], mb["timing_astro"]["fwd_ms"],
          mb["timing_astro"]["fwd_plain_ms"], mb["bounds_astro"]["fwd"]),
-        ("gmm_fused_bwd_marg_bf16", tc_src,
+        ("gmm_fused_bwd_marg_bf16", wg_src,
          "jolideco_tpu/ops/gmm_fused.py:420", default["marginalised"],
          mbmain["bwd_against_float64"]["tc"], mb["timing_astro"]["bwd_ms"],
          mb["timing_astro"]["bwd_plain_ms"], mb["bounds_astro"]["bwd"]),
@@ -5679,6 +5849,8 @@ def main():
             *RAGGED))},
         **{"{}x{} K=256 {}".format(*RAGGED, key): kernels[key]
            for key in ("wide", "cancelled")},
+        **{"{}x{} K=256 {} f32".format(*RAGGED, key): kernels[f"{key}_f32"]
+           for key in ("wide", "cancelled")},
         "dial_flux_diff": slice_["dial_flux_diff"],
         "dial_flips_limit": K1_SPLIT_FLIPS,
         "final_argmax_flips": slice_["final_flips"],
@@ -5747,13 +5919,18 @@ def main():
                  "device_ms"]},
              "gmm_hvp_map": {"device_ms": rows["row_map"]["hvp"][
                  "device_ms"]},
-             "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]},
-             # the MAP kernels on wgmma beside the parent's mma.sync
-             # instances, timed in turns in the same run (phase 2)
-             "gmm_fused_fwd_tc": {"parent_ms": split["parent_ms"]},
-             "gmm_fused_fwd_bf16": {"parent_ms": k1b["parent_ms"]},
-             "gmm_score_rows_tc": {"parent_ms": rtiming["split_parent_ms"]},
-             "gmm_score_rows_bf16": {"parent_ms": rtiming["bf16_parent_ms"]}}
+             "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
+    # the instance of csrc/gmm_score_wg.cu's kernel behind each of its
+    # wrappers: gmm_score_wg_kernel<image, products, epilogue> (epilogue 0
+    # the maximum, 1 the logsumexp, 2 K4's mixture)
+    for name, image, epi in (("fwd", "true", 0), ("fwd_marg", "true", 1),
+                             ("bwd_marg", "false", 2)):
+        for suffix, prod in (("", 6), ("_tc", 3), ("_bf16", 1)):
+            extra.setdefault(f"gmm_fused_{name}{suffix}", {})["instance"] = (
+                f"gmm_score_wg_kernel<{image}, {prod}, {epi}>")
+    for suffix, prod in (("_tc", 3), ("_bf16", 1)):
+        extra.setdefault(f"gmm_score_rows{suffix}", {})["instance"] = (
+            f"gmm_score_wg_kernel<false, {prod}, 0>")
     # K3's pass 2 beside cuFFT's packed pair (the whole convolution), and
     # the float32 passes with their float32 CUDA-core bound (phase 2)
     for suffix in ("", "_tc", "_bf16"):
@@ -5764,11 +5941,20 @@ def main():
                       ("pfft_cols_inv", "cols_inv")):
         extra.setdefault(name, {})["bound_fp32_ms"] = pbound[
             key + "_fp32"]["bound_ms"]
-    # K1 lse and K4 on wgmma likewise: bound_ms is that of six bf16
-    # products on the tensor cores (phase 2)
+    # every "highest" GMM kernel likewise: bound_ms is that of six bf16
+    # products on the tensor cores, the least time of its logits
+    # (phase 2), whether it runs there (K1, K1 lse, K4) or on the CUDA
+    # cores (K5, K8, K9a)
     for name, key in (("gmm_fused_fwd_marg", "fwd"),
-                      ("gmm_fused_bwd_marg", "bwd")):
-        extra[name] = {"bound_fp32_ms": mbounds[key]["bound_ms"]}
+                      ("gmm_fused_bwd_marg", "bwd"),
+                      ("gmm_unit_marg", "unit"),
+                      ("gmm_hvp_marg_weights", "weights")):
+        extra.setdefault(name, {})["bound_fp32_ms"] = mbounds[key][
+            "bound_ms"]
+    extra["gmm_score_rows"] = {"bound_fp32_ms": rbounds["score"][
+        "bound_ms"]}
+    extra["gmm_fused_fwd"]["bound_fp32_ms"] = kernels["fwd_bound_fp32"][
+        "bound_ms"]
     print(json.dumps({"default_entry": entry}))
     print(json.dumps({"upsampled": upsampled}))
     print(json.dumps({"priors": priors}))

@@ -1,14 +1,12 @@
-// Fused patch extraction + GMM scoring on Hopper (sm_90a): the MAP
-// forward in full float32, the precision dial's "f32" mode ("highest"),
-// and the MAP backward, which reads no logit, under every dial. The
-// marginalise kernels are elsewhere: "f32" on the warpgroup instructions
-// in gmm_score_wg.cu, "split" and "bf16" in gmm_fused_tc.cu; so are the
-// MAP forwards of "split" and "bf16" (gmm_score_wg.cu). Built by nvcc
-// into a shared library with a plain C interface and loaded with ctypes
-// (jolideco_torch/utils/cuda_build.py); the Python wrappers and the plain
-// PyTorch versions of the kernels are in jolideco_torch/ops/gmm_fused.py.
+// The MAP backward of the fused GMM scorer on Hopper (sm_90a), K2, which
+// reads no logit and so serves every mode of the precision dial. The
+// forwards and the marginalise backward of every mode are
+// gmm_score_wg.cu's (wgmma). Built by nvcc into a shared library with a
+// plain C interface and loaded with ctypes
+// (jolideco_torch/utils/cuda_build.py); the Python wrapper and the plain
+// PyTorch version are in jolideco_torch/ops/gmm_fused.py.
 //
-// Patch enumeration (both kernels). For stride s the patches fall into
+// Patch enumeration (every fused kernel). For stride s the patches fall into
 // G = (8/s)^2 offset groups (a, b), a, b in {0, s, 2s, ...} < 8, group
 // index g = (a/s)·(8/s) + b/s. Each group is a non-overlapping tiling of
 // 8x8 patches on a common ny x nx grid, ny = H/8, nx = W/8: patch (i, j)
@@ -17,41 +15,6 @@
 // valid when it lies inside the image (i < (H-a)/8 and j < (W-b)/8) and
 // every one of its pixels is above the zero-flux sentinel; an invalid
 // patch is zeroed before the mean subtraction.
-//
-// ---------------------------------------------------------------------
-// gmm_fwd_kernel replaces the JAX package's ops/gmm_fused.py::_fwd_kernel.
-// Per patch: load, mask, subtract the mean, then
-//     logit_k = -1/2 x^T A_k x + b_k . x + c_k
-// over all K components, keeping the running maximum and the LOWEST
-// index among equal maxima (the TPU kernel's min-index argmax); values is
-// that maximum (the MAP branch; the logsumexp branch is gmm_score_wg.cu's
-// gmm_score_wg_kernel<true, 6, kLse>).
-//
-// What bounds it on the H100: the quadratic form, 64·64 multiply-adds per
-// patch and component (1.1e11 flop for 65,536 patches and K = 200, half
-// of it with the symmetric triangle below) on the fp32 CUDA cores, and
-// the shared-memory reads that feed them. Bytes are small: the image
-// is read once per group and the (N, 64) normalised patches are written
-// once (16 MB at 1024²).
-//
-// Design: each thread scores two patches, their 2 x 64 values held in
-// registers (all indices are compile-time after unrolling). A_k is
-// symmetric, so only its upper triangle is read, with the off-diagonal
-// entries doubled on the host: 2,176 multiply-adds instead of 4,096.
-// Each row of that triangle starts at a multiple of four columns
-// (entries left of the diagonal are stored as zeros) so that it is read
-// as float4s, and every thread of a warp reads the same address: a
-// shared-memory broadcast, no bank conflicts; each float4 feeds eight
-// multiply-adds (two patches). Component records (A_sym, b, c) are
-// staged through shared memory one at a time, double-buffered so that
-// one __syncthreads per component suffices. Four partial sums per row
-// and patch give the FMA pipe independent chains. The record layout and
-// the per-component logit loop live in gmm_logits.cuh, shared with the
-// patch-level scorer (gmm_patch.cu). At 1024², K = 200 on
-// an NVIDIA H100 80GB HBM3 (700 W limit) one patch per thread took 2.41
-// ms, two 1.62-1.65 ms, three (254 registers) 2.39 ms. No tensor cores
-// (wgmma) yet: gmm_score_wg.cu's six-product core could take it, as it
-// took the logsumexp branch.
 //
 // ---------------------------------------------------------------------
 // gmm_bwd_kernel and gmm_bwd_add_kernel replace the JAX package's
@@ -101,19 +64,13 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "gmm_logits.cuh"
 #include "gmm_patches.cuh"
 
 namespace {
 
 using gmm::kD;
-using gmm::kRec;
-using gmm::load_record;
-using gmm::load_patch;
 using gmm::kP;
 
-constexpr int kFwdThreads = 128;
-constexpr int kPPT = 2;               // patches per forward thread
 constexpr int kBwdThreads = 256;
 constexpr int kBwdTile = 128;  // patches per backward block
 // half-warp h of the block takes places [kSeg h, kSeg (h + 1)) of the
@@ -122,63 +79,6 @@ constexpr int kSeg = kBwdTile / (kBwdThreads / 16);
 constexpr int kLdX = kBwdTile + kSeg + 1;  // x^T row: odd, room past the last place
 constexpr int kAddThreads = 256;
 static_assert(kSeg == 8 && kD == 64, "a half-warp's 16 threads cover a u row");
-
-// Each thread scores kPPT patches, n = (blockIdx.x * kPPT + p) *
-// blockDim.x + threadIdx.x, so that every float4 of A read from shared
-// memory feeds kPPT * 4 multiply-adds.
-__global__ void __launch_bounds__(kFwdThreads)
-gmm_fwd_kernel(const float* __restrict__ img, int H, int W, int stride,
-               int ny, int nx, int n_total, float sentinel,
-               const float* __restrict__ rec, int K,
-               float* __restrict__ values, int* __restrict__ argmax,
-               float* __restrict__ valid_out, float* __restrict__ xtn) {
-  __shared__ __align__(16) float smem[2][kRec];
-
-  int n[kPPT];
-  float x[kPPT][kD];
-  float valid[kPPT];
-#pragma unroll
-  for (int p = 0; p < kPPT; ++p) {
-    n[p] = (blockIdx.x * kPPT + p) * blockDim.x + threadIdx.x;
-    valid[p] = load_patch(img, H, W, stride, ny, nx, n[p], n_total, sentinel,
-                          xtn, x[p]);
-  }
-
-  load_record(smem[0], rec, 0);
-  __syncthreads();
-
-  float best[kPPT];
-  int best_k[kPPT];
-#pragma unroll
-  for (int p = 0; p < kPPT; ++p) {
-    best[p] = -CUDART_INF_F;
-    best_k[p] = 0;
-  }
-  for (int k = 0; k < K; ++k) {
-    const float* cur = smem[k & 1];
-    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
-
-    float logit[kPPT];
-    gmm::component_logits<kPPT>(cur, x, logit);
-#pragma unroll
-    for (int p = 0; p < kPPT; ++p) {
-      if (logit[p] > best[p]) {
-        best[p] = logit[p];
-        best_k[p] = k;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int p = 0; p < kPPT; ++p) {
-    if (n[p] < n_total) {
-      values[n[p]] = best[p];
-      argmax[n[p]] = best_k[p];
-      valid_out[n[p]] = valid[p];
-    }
-  }
-}
 
 // a_bwd (K, 64, 64): A_k less its column means, transposed ([c][r]);
 // b_bwd (K, 64): b_k less its mean. Then dv (b_bwd - a_bwd^T x) is
@@ -317,23 +217,8 @@ gmm_bwd_add_kernel(const float* __restrict__ units, int H, int W, int stride,
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-int gmm_fused_fwd(const void* img, int H, int W, int stride, int ny, int nx,
-                  float sentinel, const void* rec, int K, void* values,
-                  void* argmax, void* valid, void* xtn, void* stream) {
-  const int groups = (kP / stride) * (kP / stride);
-  const int n_total = groups * ny * nx;
-  const int blocks = (n_total + kFwdThreads * kPPT - 1) / (kFwdThreads * kPPT);
-  gmm_fwd_kernel<<<blocks, kFwdThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), H, W, stride, ny, nx, n_total, sentinel,
-      static_cast<const float*>(rec), K, static_cast<float*>(values),
-      static_cast<int*>(argmax), static_cast<float*>(valid),
-      static_cast<float*>(xtn));
-  return static_cast<int>(cudaGetLastError());
-}
-
 // units: scratch (N, 64) float32; grad: the (H, W) image gradient.
+// Returns cudaGetLastError() after the launches (0 = cudaSuccess).
 int gmm_fused_bwd(const void* xtn, const void* argmax, const void* valid,
                   const void* dvalues, const void* a_bwd, const void* b_bwd,
                   int H, int W, int stride, int ny, int nx, void* units,

@@ -1,41 +1,29 @@
-// The fused GMM scorer on Hopper's tensor cores (sm_90a), in the
-// precision dial's "split" and "bf16" modes: the forward, MAP (maximum) and
-// marginalise (logsumexp), and the marginalise backward; and on rows,
-// the flux-error probe's patch-level scorer and its marginalise unit
-// gradient and Hessian weights. Built by nvcc into a shared library with
-// a plain C interface and loaded with ctypes
-// (jolideco_torch/utils/cuda_build.py); the wrappers, the dispatch by
-// mode and the plain PyTorch versions (mode="split") are in
-// jolideco_torch/ops/gmm_fused.py, the row kernels' wrappers in
-// jolideco_torch/ops/gmm_pallas.py. Every kernel is a template over
-// kProd, the bf16 products a k16 step: 3 for "split" (precision HIGH,
-// described below), 1 for "bf16" (precision DEFAULT, at the end of this
-// header). The float32 kernels ("f32" mode,
-// the "highest" dial) and the MAP backward, which reads no logit, are
-// gmm_fused.cu's, whose header states the patch enumeration,
-// gmm_patch.cu's and, for the marginalised prior's K1 lse and K4 (six
-// bf16 products of three-way splits on wgmma), gmm_score_wg.cu's.
+// The flux-error probe's marginalised row kernels on Hopper's tensor
+// cores (sm_90a, mma.sync), in the precision dial's "split" and "bf16"
+// modes: K5 lse (the logsumexp of rows), K8 (the marginalise unit
+// gradient) and K9a (the first stage of its Hessian action). Built by
+// nvcc into a shared library with a plain C interface and loaded with
+// ctypes (jolideco_torch/utils/cuda_build.py); the wrappers and the plain
+// PyTorch versions are in jolideco_torch/ops/gmm_pallas.py and
+// jolideco_torch/ops/gmm_fused.py. Every kernel is a template over kProd,
+// the bf16 products a k16 step: 3 for "split" (precision HIGH, described
+// below), 1 for "bf16" (precision DEFAULT, at the end of this header).
+// Their "f32" kernels are gmm_patch.cu's; the fused branch's kernels (K1
+// MAP and logsumexp, K4) and the MAP row scorer (K5) of every mode are
+// gmm_score_wg.cu's (wgmma), and K2 is gmm_fused.cu's.
 //
-// The MAP scoring moved: gmm_score_wg.cu's kernel (wgmma, bulk copies
-// into a ring of stages, a persistent grid of clusters) computes the MAP
-// instances' function for every wrapper, and the <false, kProd>
-// instances of gmm_fwd_tc_kernel and gmm_score_rows_tc_kernel below are
-// launched by nothing but chip_smoke.py's timing beside it. The
-// logsumexp instances stay here: K4 split, K8 split and K9a split take
-// their lse as the stabiliser of exp(logit - lse) and recompute the
-// logits by tile_logits in the same block geometry and order, bit for
-// bit; over logits of 1e5 to 1e8 an lse summed in another order would
-// move those weights by whole units of the exponent, so the four move to
-// a new core together or not at all.
+// K8 split and K9a split take K5 lse split's lse as the stabiliser of
+// exp(logit - lse) and recompute the logits by tile_logits in the same
+// block geometry and order, bit for bit: over logits of 1e5 to 1e8 an
+// lse summed in another order would move those weights by whole units of
+// the exponent, so the three move to a new core together or not at all.
 //
-// gmm_fwd_tc_kernel replaces the JAX package's ops/gmm_fused.py::
-// _fwd_kernel under precision HIGH ("split3"): per patch, load, mask,
-// subtract the mean (gmm_patches.cuh's load_patch, as the float32
-// kernel), write xtn and valid, then
+// gmm_score_rows_tc_kernel (K5 lse split) replaces ops/gmm_pallas.py::
+// _score_kernel (logsumexp) under precision HIGH ("split3"): per row x
+// (N, 64) float32, already masked and mean-subtracted,
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k
-// and the maximum with the LOWEST index among equal maxima (MAP,
-// <false>) or the logsumexp and that argmax (marginalise, <true>). As in
-// the JAX kernel, the quadratic form is a matrix product of the pair
+// and the logsumexp with the LOWEST index among equal maxima. As in the
+// JAX kernel, the quadratic form is a matrix product of the pair
 // products u = x (x) x with A, both operands split into bf16 high and
 // low parts (hi = bf16(v), lo = bf16(v - hi), round to nearest even),
 // three products hi.hi + hi.lo + lo.hi summed in float32, and b . x in
@@ -44,22 +32,24 @@
 // (doubling is exact, so the products are the JAX kernel's, summed in
 // another order).
 //
-// What bounds it on the H100: operations. At 1024^2 (65,536 patches),
-// K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16
-// peak of 989 TFLOP/s; bytes are 4 MB in and 17 MB out (0.006 ms).
-// The design (tile_logits, the one code of the logits in both kernels):
-// - one block of 8 warps owns 128 patches and a tile of kKP = 208
+// What bounds it on the H100: operations. At 65,025 rows, K = 200: 3 x
+// 2 x 65,025 x 200 x 2,144 flop = 0.169 ms at the bf16 peak of 989
+// TFLOP/s; bytes are 17 MB in (0.005 ms). The design (tile_logits, the
+// one code of the logits in all three kernels):
+// - one block of 8 warps owns 128 rows and a tile of kKP = 208
 //   components (K = 200 padded; the padding is masked out of the
-//   reductions); a warp owns 32 patches x 104 components: 2 x 13 m16n8
+//   reductions); a warp owns 32 rows x 104 components: 2 x 13 m16n8
 //   tiles, 104 float32 accumulators a thread. A GMM of more components
 //   runs its tiles one after another in the same block, each tile's
 //   reduction merged into the rows' running one in shared memory;
+// - the block's 128 rows come in by coalesced float4 reads (load_rows);
+//   a row past the end is zero and is not written;
 // - the pair dimension runs in 65 chunks of 32 pairs. Per chunk the
-//   block forms u for its 128 patches in float32 from the patches in
-//   shared memory and splits it into bf16 hi and lo planes (double
-//   buffered), while A's chunk (hi and lo, pair-major, 26 KB, stored on
-//   the device chunk by chunk by ops/gmm_fused.py::kernel_buffers)
-//   streams in through two cp.async stages; one __syncthreads a chunk;
+//   block forms u for its 128 rows in float32 from the rows in shared
+//   memory and splits it into bf16 hi and lo planes (double buffered),
+//   while A's chunk (hi and lo, pair-major, 26 KB, stored on the device
+//   chunk by chunk by ops/gmm_fused.py::kernel_buffers) streams in
+//   through two cp.async stages; one __syncthreads a chunk;
 // - fragments come from shared memory with ldmatrix (rows padded to 40
 //   bf16, so that ldmatrix's eight rows fall on distinct banks) into
 //   mma.sync m16n8k16, bf16 in, float32 accumulate, the small products
@@ -68,65 +58,41 @@
 // - b . x + c in float32 on the CUDA cores before the main loop: the
 //   accumulators start at -2 (b . x + c), so that -1/2 of the sum is the
 //   logit (scaling by powers of two is exact);
-// - the maximum over each thread's 26 components, then over the four
-//   threads of a quad (shuffles), then over the two warps of a row and
-//   the earlier tiles (shared memory), ties to the lower index; the
-//   logsumexp keeps beside it the sum of exp(logit - maximum), rescaled
-//   whenever the maximum grows (gmm_fused.cu's rule), and merges the
-//   (maximum, sum) pairs in the same fixed order.
-// A's 1.7 MB a tile is read from L2 once per block (512 blocks at
-// 1024^2, 0.89 GB); mma.sync, not wgmma, and no TMA: a first version
-// that is right, as the port's other tensor-core kernels.
-//
-// gmm_score_rows_tc_kernel (K5 split) replaces ops/gmm_pallas.py::
-// _score_kernel under precision HIGH: the same logits and reductions
-// (score_block, shared with gmm_fwd_tc_kernel: tile_logits and its
-// reduction are one code) for rows (N, 64) float32 that are already
-// masked and mean-subtracted. The block's 128 rows come in by coalesced
-// float4 reads into the padded patch tile; a row past the end is zero
-// and is not written. Operations bound it as K1 split: 0.169 ms at
-// 65,025 rows, K = 200. The flux-error probe launches the MAP instance
-// under the default dial, the marginalised probe the logsumexp
-// instance, whose lse K8 split and K9a split take as the stabiliser of
-// exp(logit - lse): they recompute the logits by the same code in the
-// same block geometry (128 rows a block from row 128 blockIdx.x, loaded
-// by load_rows), so they are, bit for bit, the logits that lse summed.
-//
-// gmm_bwd_marg_tc_kernel replaces ops/gmm_fused.py::_bwd_marg_kernel
-// under precision HIGH: per valid patch with the forward's logsumexp
-// lse and cotangent dv,
-//     w_k = exp(logit_k - lse),  u = dv sum_k w_k (b_k - A_k x) / sum_k w_k
-// with the logits recomputed from the saved patches (xtn; no (N, K)
-// residual) by tile_logits in the forward's block geometry, chunk order
-// and add_split order: bit for bit the logits the forward's lse summed.
-// That matters: the shipped GMMs' logits are 1e5 to 1e8, and the split
-// logits differ from float32 ones by up to 6.4e-5 of their value,
-// hundreds of units in the exponent (gmm_marg.cuh). Then K2's epilogue
-// (gmm_patches.cuh's store_patch_gradient).
-//
-// What bounds it: the recomputed logits (the forward's 0.17 ms), plus
-// the A_k x terms of the nonzero weights in float32 (4,096
-// multiply-adds and 16 KB of A_k each). For the shipped GMMs nearly
-// every weight underflows to exactly 0 (about one nonzero a patch), and
-// skipping a zero term is exact. The design (marg_rows, with K8 split
-// and K9a split):
-// after a tile's main loop its weights go to shared memory (over the
-// stages and u, 104 KB); each warp owns 16 rows, finds their nonzero
-// weights 32 components at a time with one ballot per row, and runs
-// each component's term for those rows in turn, one warp per (row,
-// component): lane l accumulates entries 2l, 2l + 1 of A_k x while the
-// warp reads A_k row by row, coalesced, through the read-only path (A_k
-// stays in L1 across the rows that share it). The gradient rows (33 KB)
-// stay in shared memory across the tiles; each row is summed by its one
-// warp, components in ascending order, so the result is deterministic
-// without atomics, for any K and any number of nonzero weights.
+// - the maximum and the sum of exp(logit - maximum), rescaled whenever
+//   the maximum grows, over each thread's 26 components, then over the
+//   four threads of a quad (shuffles), then over the two warps of a row
+//   and the earlier tiles (shared memory), ties to the lower index, in
+//   one fixed order.
+// A's 1.7 MB a tile is read from L2 once per block (509 blocks, 0.88
+// GB); mma.sync, not wgmma, and no TMA: a first version that is right.
 //
 // gmm_unit_marg_tc_kernel (K8 split) replaces ops/gmm_pallas.py::
-// _unit_marg_kernel under precision HIGH: the same mixture (marg_rows,
-// the one code of both) for rows (N, 64) with K5 lse split's logsumexp,
-// u = sum_k w_k (b_k - A_k x) / sum_k w_k written to (N, 64). The JAX
+// _unit_marg_kernel under precision HIGH: per row with K5 lse split's
+// logsumexp lse,
+//     w_k = exp(logit_k - lse),  u = sum_k w_k (b_k - A_k x) / sum_k w_k
+// written to (N, 64), the logits recomputed by tile_logits in K5 lse's
+// block geometry, chunk order and add_split order: bit for bit the
+// logits lse summed. That matters: the shipped GMMs' logits are 1e5 to
+// 1e8, and the split logits differ from float32 ones by up to 6.4e-5 of
+// their value, hundreds of units in the exponent (gmm_marg.cuh). The JAX
 // kernel mixes with p and A split into bf16 hi and lo; this one in
-// float32, as K4 split. Bound and design as K4 split's.
+// float32.
+//
+// What bounds it: the recomputed logits (K5's 0.17 ms), plus the A_k x
+// terms of the nonzero weights in float32 (4,096 multiply-adds and 16 KB
+// of A_k each). For the shipped GMMs nearly every weight underflows to
+// exactly 0 (about one nonzero a row), and skipping a zero term is exact.
+// The design (marg_rows, with K9a split): after a tile's main loop its
+// weights go to shared memory (over the stages and u, 104 KB); each warp
+// owns 16 rows, finds their nonzero weights 32 components at a time with
+// one ballot per row, and runs each component's term for those rows in
+// turn, one warp per (row, component): lane l accumulates entries 2l, 2l
+// + 1 of A_k x while the warp reads A_k row by row, coalesced, through
+// the read-only path (A_k stays in L1 across the rows that share it).
+// The gradient rows (33 KB) stay in shared memory across the tiles; each
+// row is summed by its one warp, components in ascending order, so the
+// result is deterministic without atomics, for any K and any number of
+// nonzero weights.
 //
 // gmm_hvp_marg_weights_tc_kernel (K9a split) replaces ops/gmm_pallas.py::
 // _hvp_marg_weights_kernel under precision HIGH: with the same weights,
@@ -134,7 +100,7 @@
 // A_k x), out (K, N) as gmm_patch.cu's K9a. The JAX kernel computes g by
 // a second split product, the cross form u(t, x) . A, for every (row,
 // component); this one computes g in float32 for the nonzero weights
-// only (marg_dot, one warp a term, as K4's A_k x), since g_k drops out
+// only (marg_dot, one warp a term, as K8's A_k x), since g_k drops out
 // of dp where p_k = 0: for the shipped GMMs about one term a row. dp is
 // taken against the heaviest component's g, so that a row whose weight
 // sits on one component gets dp = 0 exactly. The normalisation needs
@@ -145,25 +111,14 @@
 // place of the mixture, and p and dp written (104 MB at 65,025 rows, K
 // = 200, 0.031 ms).
 //
-// On an NVIDIA H100 80GB HBM3 (700 W limit) at 1024^2, K = 200,
-// astro-snr-v1 (chip_smoke.py phase 2): <false> 0.723 ms, <true> 0.769
-// ms (gmm_fused.cu's gmm_fwd_kernel<true> 1.762), gmm_bwd_marg_tc_kernel
-// 0.863 ms (gmm_bwd_marg_kernel 2.571), 22% and 20% of their split
-// bounds; 255 registers each, 32, 16 and 0 bytes spilled. Under a GMM
-// whose weights are mixed (about 200 nonzero a patch) the backward's
-// A_k x terms take it to 14.37 ms (the float32 kernel 11.76).
-// gmm_score_rows_tc_kernel at 65,025 rows: <false> 0.701 ms, <true>
-// 0.747 ms (gmm_patch.cu's float32 K5 1.673), 24% of the split bound;
-// 255 registers, 16 bytes spilled each; the forward kernels' ptxas lines
-// did not change when score_block was factored out of gmm_fwd_tc_kernel.
-// gmm_unit_marg_tc_kernel 0.832-0.845 ms, gmm_hvp_marg_weights_tc_kernel
-// 0.943 (gmm_patch.cu's float32 K8 2.51-2.52, K9a 2.89-2.90), 21% and 19%
-// of their split bounds; 255 registers, 32 and 204 bytes spilled; mixed
-// weights 14.28 and 17.01 ms (float32 10.71-10.77, 15.27-15.30). K9a
-// split's first version, which sent the last tile's weights through p
-// too, took 1.066 ms. gmm_bwd_marg_tc_kernel's ptxas line (0 bytes
-// spilled) and time (0.860-0.871 ms) held when marg_rows was factored
-// out of it; a factoring with a separate per-tile function made it spill.
+// On an NVIDIA H100 80GB HBM3 (700 W limit) at 65,025 rows, K = 200,
+// astro-snr-v1 (chip_smoke.py phase 2): gmm_score_rows_tc_kernel 0.747
+// ms, 23% of the split bound; gmm_unit_marg_tc_kernel 0.832-0.845 ms,
+// gmm_hvp_marg_weights_tc_kernel 0.943 (gmm_patch.cu's float32 K8
+// 2.51-2.52, K9a 2.89-2.90), 21% and 19% of their split bounds; 255
+// registers, 32 and 204 bytes spilled; mixed weights 14.28 and 17.01 ms
+// (float32 10.71-10.77, 15.27-15.30). K9a split's first version, which
+// sent the last tile's weights through p too, took 1.066 ms.
 //
 // The "bf16" instances (kProd = 1) replace the same JAX bodies under
 // precision DEFAULT, the dial's "default" setting, whose matrix unit
@@ -175,19 +130,17 @@
 // symmetric bit for bit and bf16 doubles exactly, so u_ab (2 A_ab) is
 // the JAX form's u_ab A_ab + u_ba A_ba), and each k16 step issues one
 // mma into fresh accumulators (add_single), a third of the split's
-// tensor-core work: 0.057 ms at 1024^2, K = 200. b . x + c, the
+// tensor-core work: 0.056 ms at 65,025 rows, K = 200. b . x + c, the
 // reductions, the mixtures and K9a's float32 g are the split instances'
 // code. The JAX kernel's K9a computes g by the cross form at DEFAULT;
 // this one keeps g in float32, as under "split". On the H100 (700 W) at
-// 1024^2 (65,536 patches, 65,025 rows), K = 200: <false, 1> 0.418-0.420
-// ms, <true, 1> 0.446-0.455, gmm_bwd_marg_tc_kernel<1> 0.558-0.569,
-// gmm_score_rows_tc_kernel<false, 1> 0.397-0.400, <true, 1> 0.423-0.428,
+// 65,025 rows, K = 200: gmm_score_rows_tc_kernel<1> 0.423-0.428 ms,
 // gmm_unit_marg_tc_kernel<1> 0.512-0.515, gmm_hvp_marg_weights_tc_kernel
-// <1> 0.587-0.592 (chip_smoke.py phase 2), 11-14% of their one-product
-// bounds (0.056-0.064 ms); 252-255 registers, 0 bytes spilled; the split
-// instances kept their ptxas lines. Outside the mma (b . x, forming u,
-// the reductions, the mixtures) the two modes do the same work, which is
-// why one product takes 56-66% of three's time, not a third.
+// <1> 0.587-0.592 (chip_smoke.py phase 2), 11-13% of their one-product
+// bounds (0.056-0.064 ms); 252-255 registers, 0 bytes spilled. Outside
+// the mma (b . x, forming u, the reductions, the mixtures) the two modes
+// do the same work, which is why one product takes 56-66% of three's
+// time, not a third.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -198,8 +151,6 @@
 namespace {
 
 using gmm::kD;
-using gmm::load_patch;
-using gmm::store_patch_gradient;
 using tc::bf16;
 using tc::cp_async16;
 using tc::cp_async_commit;
@@ -211,7 +162,7 @@ using tc::put_operand;
 
 constexpr int kPairs = kD * (kD + 1) / 2;    // 2,080 pairs a <= b
 constexpr int kKP = 208;                     // components a tile
-constexpr int kBlockRows = 128;              // patches per block
+constexpr int kBlockRows = 128;              // rows per block
 constexpr int kThreads = 256;                // 8 warps: 4 (rows) x 2 (cols)
 constexpr int kWarpCols = kKP / 2;           // components per warp: 104
 constexpr int kMT = 2;                       // m16 tiles per warp
@@ -219,21 +170,20 @@ constexpr int kNT = kWarpCols / 8;           // n8 tiles per warp: 13
 constexpr int kKC = 32;                      // pairs per chunk
 constexpr int kChunks = kPairs / kKC;        // 65
 constexpr int kLd = kKC + 8;                 // padded bf16 row (80 B)
-constexpr int kXLd = kD + 1;                 // padded float patch row
+constexpr int kXLd = kD + 1;                 // padded float row
 constexpr int kTileElems = 2 * kKP * kKC;    // A's chunk, hi and lo
 constexpr int kStageElems = 2 * kKP * kLd;   // the same, padded
 constexpr int kUElems = 2 * kBlockRows * kLd;  // u's chunk, hi and lo
 static_assert(kPairs % kKC == 0 && kKC % 16 == 0, "whole k16 steps");
 static_assert(kNT % 2 == 1, "pairs of n8 tiles and one more");
 
-// shared memory: the patches (float, padded rows), the pair table, A's
-// two stages (which hold b and c before the main loop), u's two
-// buffers; the forward's reductions (maximum, argmax and the sum of
-// exponentials of the two warp columns and the rows' running ones), or
-// the mixture kernels' logsumexp and weight sums of the rows, then
-// their gradient or tangent rows (float, padded: MargSmem). Their
-// weights of a tile overlay the stages and u once the tile's main loop
-// is done.
+// shared memory: the rows (float, padded), the pair table, A's two
+// stages (which hold b and c before the main loop), u's two buffers; K5
+// lse's reductions (maximum, argmax and the sum of exponentials of the
+// two warp columns and the rows' running ones), or the mixture kernels'
+// logsumexp and weight sums of the rows, then their gradient or tangent
+// rows (float, padded: MargSmem). Their weights of a tile overlay the
+// stages and u once the tile's main loop is done.
 constexpr int kXBytes = kBlockRows * kXLd * 4;
 constexpr int kPairBytes = kPairs * 2;
 constexpr int kStageBytes = 2 * kStageElems * 2;
@@ -269,7 +219,7 @@ __device__ __forceinline__ void load_stage(bf16* dst,
     cp_async16(dst + (i >> 2) * kLd + (i & 3) * 8, src + i * 8);
 }
 
-// u's chunk c for the block's patches into the hi and lo planes (hi
+// u's chunk c for the block's rows into the hi and lo planes (hi
 // alone for one product): thread t forms pairs (2j, 2j + 1), j = t % 16,
 // of rows t / 16 + 16 i.
 template <int kProd>
@@ -406,11 +356,11 @@ __device__ __forceinline__ void build_pairs(uint16_t* pairs) {
   }
 }
 
-// One tile's logits, times -2, for the block's patches in xs: acc holds
+// One tile's logits, times -2, for the block's rows in xs: acc holds
 // rows wm*32 + mt*16 + lane/4 (+ 8) and components wn*104 + nt*8 +
-// 2 (lane % 4) (+ 1) of the tile. The one code of both kernels, so that
-// the backward recomputes, bit for bit, the logits whose logsumexp the
-// forward saved; kProd products a k16 step (3 "split", 1 "bf16"). Starts
+// 2 (lane % 4) (+ 1) of the tile. The one code of the three kernels, so
+// that K8 and K9a recompute, bit for bit, the logits whose logsumexp K5
+// lse computed; kProd products a k16 step (3 "split", 1 "bf16"). Starts
 // with a __syncthreads (xs and the pair table written; the previous
 // tile's readers of the stages done); ends with the last chunk
 // multiplied, the stages and u's buffers still in use.
@@ -504,8 +454,8 @@ __device__ __forceinline__ void take_lse(float& v, float& s, int& k, float ov,
   take_max(v, k, ov, ok);
 }
 
-// The forward's shared memory: the patches (float, padded rows), the
-// pair table, A's two stages, u's two buffers and the reductions.
+// K5 lse's shared memory: the rows (float, padded), the pair table, A's
+// two stages, u's two buffers and the reductions.
 struct FwdSmem {
   float* xs;
   uint16_t* pairs;
@@ -529,12 +479,11 @@ __device__ __forceinline__ FwdSmem fwd_smem(unsigned char* raw) {
   return s;
 }
 
-// The scores of the block's rows n0 .. n0 + 127 (their patches in s.xs,
-// the pair table built), over every tile of components: the maximum
-// (MAP, <false>) or the logsumexp (<true>) and the lowest index among
-// equal maxima, written for the rows below n_total. The one code of K1's
-// and K5's reductions on the tensor cores, kProd products a k16 step.
-template <bool kMarginalize, int kProd>
+// The logsumexp of the block's rows n0 .. n0 + 127 (in s.xs, the pair
+// table built) over every tile of components, and the lowest index
+// among equal maxima, written for the rows below n_total; kProd products
+// a k16 step.
+template <int kProd>
 __device__ __forceinline__ void score_block(const FwdSmem& s,
                                             const bf16* __restrict__ a_pairs,
                                             const float* __restrict__ bc,
@@ -556,10 +505,9 @@ __device__ __forceinline__ void score_block(const FwdSmem& s,
                 a_pairs + (size_t)tile * kChunks * kTileElems,
                 bc + (size_t)tile * (kD + 1) * kKP, wm, wn, lane);
 
-    // the tile's maximum and argmax (and, marginalising, the sum of
-    // exp(logit - maximum), rescaled whenever the maximum grows): over
-    // the thread's components, the quad, then the two warp columns and
-    // the earlier tiles
+    // the tile's maximum, argmax and sum of exp(logit - maximum),
+    // rescaled whenever the maximum grows: over the thread's components,
+    // the quad, then the two warp columns and the earlier tiles
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
@@ -572,12 +520,7 @@ __device__ __forceinline__ void score_block(const FwdSmem& s,
           for (int e = 0; e < 2; ++e) {
             const int k = k0 + wn * kWarpCols + nt * 8 + 2 * tq + e;
             const float logit = -0.5f * acc[mt][nt][2 * h + e];
-            if (!kMarginalize) {
-              if (k < K && logit > best) {
-                best = logit;
-                best_k = k;
-              }
-            } else if (k < K) {
+            if (k < K) {
               if (logit > best) {
                 sum = fmaf(sum, expf(best - logit), 1.f);
                 best = logit;
@@ -591,78 +534,37 @@ __device__ __forceinline__ void score_block(const FwdSmem& s,
         for (int m = 1; m < 4; m <<= 1) {
           const float ov = __shfl_xor_sync(0xffffffffu, best, m);
           const int ok = __shfl_xor_sync(0xffffffffu, best_k, m);
-          if (kMarginalize)
-            take_lse(best, sum, best_k, ov,
-                     __shfl_xor_sync(0xffffffffu, sum, m), ok);
-          else
-            take_max(best, best_k, ov, ok);
+          take_lse(best, sum, best_k, ov,
+                   __shfl_xor_sync(0xffffffffu, sum, m), ok);
         }
         if (tq == 0) {
           const int r = wm * 32 + mt * 16 + g + 8 * h;
           red_v[wn * kBlockRows + r] = best;
           red_k[wn * kBlockRows + r] = best_k;
-          if (kMarginalize) red_s[wn * kBlockRows + r] = sum;
+          red_s[wn * kBlockRows + r] = sum;
         }
       }
     __syncthreads();
     if (tid < kBlockRows) {
-      float best = red_v[tid];
+      float best = red_v[tid], sum = red_s[tid];
       int best_k = red_k[tid];
-      if (kMarginalize) {
-        float sum = red_s[tid];
-        take_lse(best, sum, best_k, red_v[kBlockRows + tid],
-                 red_s[kBlockRows + tid], red_k[kBlockRows + tid]);
-        if (tile > 0)
-          take_lse(best, sum, best_k, red_v[2 * kBlockRows + tid],
-                   red_s[2 * kBlockRows + tid], red_k[2 * kBlockRows + tid]);
-        red_s[2 * kBlockRows + tid] = sum;
-      } else {
-        take_max(best, best_k, red_v[kBlockRows + tid],
-                 red_k[kBlockRows + tid]);
-        if (tile > 0)
-          take_max(best, best_k, red_v[2 * kBlockRows + tid],
-                   red_k[2 * kBlockRows + tid]);
-      }
+      take_lse(best, sum, best_k, red_v[kBlockRows + tid],
+               red_s[kBlockRows + tid], red_k[kBlockRows + tid]);
+      if (tile > 0)
+        take_lse(best, sum, best_k, red_v[2 * kBlockRows + tid],
+                 red_s[2 * kBlockRows + tid], red_k[2 * kBlockRows + tid]);
+      red_s[2 * kBlockRows + tid] = sum;
       red_v[2 * kBlockRows + tid] = best;
       red_k[2 * kBlockRows + tid] = best_k;
     }
   }
-  // the rows' maxima were merged by the threads that write them
+  // the rows' sums were merged by the threads that write them
   if (tid < kBlockRows && n0 + tid < n_total) {
     const int best_k = red_k[2 * kBlockRows + tid];
-    const float best = red_v[2 * kBlockRows + tid];
-    values[n0 + tid] =
-        kMarginalize ? best + logf(red_s[2 * kBlockRows + tid]) : best;
+    values[n0 + tid] = red_v[2 * kBlockRows + tid] +
+                       logf(red_s[2 * kBlockRows + tid]);
     argmax[n0 + tid] = best_k >= K ? 0 : best_k;
   }
-}
-
-template <bool kMarginalize, int kProd>
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_fwd_tc_kernel(const float* __restrict__ img, int H, int W, int stride,
-                  int ny, int nx, int n_total, float sentinel,
-                  const bf16* __restrict__ a_pairs,
-                  const float* __restrict__ bc, int K,
-                  float* __restrict__ values, int* __restrict__ argmax,
-                  float* __restrict__ valid_out, float* __restrict__ xtn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FwdSmem s = fwd_smem(smem_raw);
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kBlockRows;
-
-  build_pairs(s.pairs);
-  // the block's patches: xtn and valid to device memory, x to shared
-  if (tid < kBlockRows) {
-    float x[kD];
-    const int n = n0 + tid;
-    const float v = load_patch(img, H, W, stride, ny, nx, n, n_total,
-                               sentinel, xtn, x);
-    if (n < n_total) valid_out[n] = v;
-#pragma unroll
-    for (int c = 0; c < kD; ++c) s.xs[tid * kXLd + c] = x[c];
-  }
-  score_block<kMarginalize, kProd>(s, a_pairs, bc, K, n0, n_total, values,
-                                   argmax);
 }
 
 // The block's rows n0 .. n0 + 127 of a (n_total, 64) float32 array into
@@ -685,10 +587,10 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// K5 split (K5 bf16 for kProd = 1): the scores of rows (n_total, 64)
-// float32, already masked and mean-subtracted, their patch tile loaded
-// by load_rows.
-template <bool kMarginalize, int kProd>
+// K5 lse split (K5 lse bf16 for kProd = 1): the logsumexp of rows
+// (n_total, 64) float32, already masked and mean-subtracted, their patch
+// tile loaded by load_rows.
+template <int kProd>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
                          const bf16* __restrict__ a_pairs,
@@ -701,8 +603,7 @@ gmm_score_rows_tc_kernel(const float* __restrict__ rows, int n_total,
 
   build_pairs(s.pairs);
   load_rows(s.xs, kXLd, rows, n0, n_total);
-  score_block<kMarginalize, kProd>(s, a_pairs, bc, K, n0, n_total, values,
-                                   argmax);
+  score_block<kProd>(s, a_pairs, bc, K, n0, n_total, values, argmax);
 }
 
 // (A_k x) entries 2 lane and 2 lane + 1 of row x (shared memory). A_k is
@@ -758,11 +659,11 @@ __device__ __forceinline__ float marg_dot(const float* t, const float* x,
   return s;
 }
 
-// The mixture kernels' shared memory: the patches or rows (float, padded
-// rows), the pair table, A's two stages, u's two buffers (a tile's
-// weights overlay both once its main loop is done), the rows' logsumexp,
-// weight sums and one more float each, then 128 float rows of kGLd:
-// the gradient rows (K4 split, K8 split) or the tangents (K9a split).
+// The mixture kernels' shared memory: the rows (float, padded), the pair
+// table, A's two stages, u's two buffers (a tile's weights overlay both
+// once its main loop is done), the rows' logsumexp, weight sums and one
+// more float each, then 128 float rows of kGLd: the gradient rows (K8
+// split) or the tangents (K9a split).
 struct MargSmem {
   float* xs;
   uint16_t* pairs;
@@ -800,7 +701,7 @@ __device__ __forceinline__ void load_lse(float* lse_s,
   }
 }
 
-// marg_rows' entry of K4 split and K8 split: row r's gradient row +=
+// marg_rows' entry of K8 split: row r's gradient row +=
 // w (b_k - A_k x); nothing at the end of a tile.
 struct MixEntry {
   float* grad;
@@ -868,8 +769,8 @@ struct DotEntry {
 };
 
 // The mixture phase of the block's rows (xs, their logsumexp in lse_s)
-// over every tile of components, the one code of K4 split, K8 split and
-// K9a split. Per tile: its logits (tile_logits), then the weights w =
+// over every tile of components, the one code of K8 split and K9a
+// split. Per tile: its logits (tile_logits), then the weights w =
 // exp(logit - lse) into wts over the stages and u (0 for the padding
 // components); then each warp over its 16 rows, 32 components at a
 // time: a ballot per row finds the nonzero weights, and entry(r, k, w)
@@ -961,57 +862,6 @@ __device__ __forceinline__ void marg_rows(
   }
   if (lane < kRowsPerWarp) wsum_s[r0 + lane] = wsum;
   __syncthreads();
-}
-
-template <int kProd>
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_bwd_marg_tc_kernel(const float* __restrict__ xtn,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ valid,
-                       const float* __restrict__ dvalues,
-                       const bf16* __restrict__ a_pairs,
-                       const float* __restrict__ bc,
-                       const float* __restrict__ a_full,
-                       const float* __restrict__ b_rows, int H, int W,
-                       int stride, int ny, int nx, int n_total, int K,
-                       float* __restrict__ planes) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const MargSmem s = marg_smem(smem_raw);
-  float* xs = s.xs;
-  float* lse_s = s.lse;
-  float* grad = s.rows2;
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kBlockRows;
-
-  build_pairs(s.pairs);
-  // the block's saved patches (a row past the end is zero, as in the
-  // forward), their logsumexp (+inf for an invalid patch or a row past
-  // the end: its weights are 0) and the gradient rows
-  for (int i = tid; i < kBlockRows * kD; i += kThreads) {
-    const int r = i / kD, n = n0 + r;
-    xs[r * kXLd + i % kD] = n < n_total ? __ldg(xtn + (size_t)n * kD + i % kD)
-                                        : 0.f;
-  }
-  if (tid < kBlockRows) {
-    const int n = n0 + tid;
-    lse_s[tid] = n < n_total && __ldg(valid + n) != 0.f ? __ldg(lse + n)
-                                                        : CUDART_INF_F;
-  }
-  for (int i = tid; i < kBlockRows * kGLd; i += kThreads) grad[i] = 0.f;
-  marg_rows<kProd>(xs, s.pairs, s.stages, s.us, lse_s, s.wsum, a_pairs, bc, K,
-                   MixEntry{grad, xs, a_full, b_rows, tid & 31});
-
-  // u = dv (sum_k w_k (b_k - A_k x)) / sum_k w_k, then K2's epilogue
-  if (tid < kBlockRows) {
-    const int n = n0 + tid;
-    if (n < n_total && __ldg(valid + n) != 0.f) {
-      const float scale = __ldg(dvalues + n) / s.wsum[tid];
-      float u[kD];
-#pragma unroll
-      for (int c = 0; c < kD; ++c) u[c] = grad[tid * kGLd + c] * scale;
-      store_patch_gradient(u, n, H, W, stride, ny, nx, planes);
-    }
-  }
 }
 
 // K8 split (K8 bf16 for kProd = 1): the marginalise unit gradient of
@@ -1131,7 +981,7 @@ gmm_hvp_marg_weights_tc_kernel(const float* __restrict__ rows,
 }
 
 // Launches a mixture kernel on rows (n, 64) with the shared memory of
-// the marginalise backward. Errors as gmm_fused_fwd_tc.
+// the mixture kernels (MargSmem).
 template <typename Kernel, typename... Args>
 int launch_rows(Kernel kernel, int n, void* stream, Args... args) {
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -1151,50 +1001,21 @@ bool valid_products(int products) { return products == 1 || products == 3; }
 extern "C" {
 
 // a_pairs holds ceil(K / 208) tiles of A's chunks, bc as many tiles of b
-// and c (ops/gmm_fused.py::kernel_buffers); values are the maxima (MAP)
-// or, with marginalize, the logsumexp; products is 3 ("split") or 1
-// ("bf16"). Returns the first CUDA error of setting the shared-memory
-// size and the launch (0 = cudaSuccess); 1 (cudaErrorInvalidValue) for
-// K < 1 or another number of products.
-int gmm_fused_fwd_tc(const void* img, int H, int W, int stride, int ny,
-                     int nx, float sentinel, const void* a_pairs,
-                     const void* bc, int K, int marginalize, int products,
-                     void* values, void* argmax, void* valid, void* xtn,
-                     void* stream) {
-  if (K < 1 || !valid_products(products))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = products == 3 ? (marginalize ? gmm_fwd_tc_kernel<true, 3>
-                                             : gmm_fwd_tc_kernel<false, 3>)
-                              : (marginalize ? gmm_fwd_tc_kernel<true, 1>
-                                             : gmm_fwd_tc_kernel<false, 1>);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
-  const int groups = (gmm::kP / stride) * (gmm::kP / stride);
-  const int n_total = groups * ny * nx;
-  const int blocks = (n_total + kBlockRows - 1) / kBlockRows;
-  kernel<<<blocks, kThreads, kSmemFwd, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), H, W, stride, ny, nx, n_total, sentinel,
-      static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc), K,
-      static_cast<float*>(values), static_cast<int*>(argmax),
-      static_cast<float*>(valid), static_cast<float*>(xtn));
-  const cudaError_t launch = cudaGetLastError();
-  return static_cast<int>(attr != cudaSuccess ? attr : launch);
-}
-
-// K5 split or bf16 on rows (n, 64) float32: the buffers and products of
-// gmm_fused_fwd_tc; values are the maxima or, with marginalize, the
-// logsumexp. Errors as gmm_fused_fwd_tc; the wrapper never calls it with
-// n = 0.
+// and c (ops/gmm_fused.py::kernel_buffers); products is 3 ("split") or 1
+// ("bf16"). Each entry returns the first CUDA error of setting the
+// shared-memory size and the launch (0 = cudaSuccess); 1
+// (cudaErrorInvalidValue) for K < 1 or another number of products. The
+// wrappers never call them with n = 0.
+//
+// K5 lse split or bf16 on rows (n, 64) float32: values (the logsumexp)
+// and argmax (the lowest index among equal maxima).
 int gmm_score_rows_tc(const void* rows, int n, const void* a_pairs,
-                      const void* bc, int K, int marginalize, int products,
-                      void* values, void* argmax, void* stream) {
+                      const void* bc, int K, int products, void* values,
+                      void* argmax, void* stream) {
   if (K < 1 || !valid_products(products))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel =
-      products == 3 ? (marginalize ? gmm_score_rows_tc_kernel<true, 3>
-                                   : gmm_score_rows_tc_kernel<false, 3>)
-                    : (marginalize ? gmm_score_rows_tc_kernel<true, 1>
-                                   : gmm_score_rows_tc_kernel<false, 1>);
+  auto kernel = products == 3 ? gmm_score_rows_tc_kernel<3>
+                              : gmm_score_rows_tc_kernel<1>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemFwd);
   const int blocks = (n + kBlockRows - 1) / kBlockRows;
@@ -1206,41 +1027,10 @@ int gmm_score_rows_tc(const void* rows, int n, const void* a_pairs,
   return static_cast<int>(attr != cudaSuccess ? attr : launch);
 }
 
-// The marginalise backward into the zero-filled (G, H, W) planes, from
-// the forward's xtn and logsumexp (which gmm_fused_fwd_tc with
-// marginalize must have computed: the weights are exp(logit - lse) of
-// the same logits), the buffers of gmm_fused_fwd_tc and A (K, 64, 64),
-// b (K, 64), with the forward's products. Errors as gmm_fused_fwd_tc.
-int gmm_fused_bwd_marg_tc(const void* xtn, const void* lse, const void* valid,
-                          const void* dvalues, const void* a_pairs,
-                          const void* bc, const void* a_full,
-                          const void* b_rows, int H, int W, int stride,
-                          int ny, int nx, int K, int products, void* planes,
-                          void* stream) {
-  if (K < 1 || !valid_products(products))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = products == 3 ? gmm_bwd_marg_tc_kernel<3>
-                              : gmm_bwd_marg_tc_kernel<1>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBwd);
-  const int groups = (gmm::kP / stride) * (gmm::kP / stride);
-  const int n_total = groups * ny * nx;
-  const int blocks = (n_total + kBlockRows - 1) / kBlockRows;
-  kernel<<<blocks, kThreads, kSmemBwd, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xtn), static_cast<const float*>(lse),
-      static_cast<const float*>(valid), static_cast<const float*>(dvalues),
-      static_cast<const bf16*>(a_pairs), static_cast<const float*>(bc),
-      static_cast<const float*>(a_full), static_cast<const float*>(b_rows), H,
-      W, stride, ny, nx, n_total, K, static_cast<float*>(planes));
-  const cudaError_t launch = cudaGetLastError();
-  return static_cast<int>(attr != cudaSuccess ? attr : launch);
-}
-
 // K8 split on rows (n, 64) float32 with lse (n,), the logsumexp that
-// gmm_score_rows_tc with marginalize computed for them (the weights are
-// exp(logit - lse) of the same logits); the buffers of gmm_fused_fwd_tc
-// and A (K, 64, 64), b (K, 64); out (n, 64); products as K5's. Errors as
-// gmm_fused_fwd_tc; the wrapper never calls it with n = 0.
+// gmm_score_rows_tc computed for them with the same products (the weights
+// are exp(logit - lse) of the same logits), A (K, 64, 64) and b (K, 64);
+// out (n, 64).
 int gmm_unit_marg_tc(const void* rows, const void* lse, int n,
                      const void* a_pairs, const void* bc, const void* a_full,
                      const void* b_rows, int K, int products, void* out,
@@ -1260,7 +1050,7 @@ int gmm_unit_marg_tc(const void* rows, const void* lse, int n,
 }
 
 // K9a split on rows and tangents (n, 64) float32 with lse as
-// gmm_unit_marg_tc; p and dp (K, n). Errors as gmm_fused_fwd_tc.
+// gmm_unit_marg_tc; p and dp (K, n).
 int gmm_hvp_marg_weights_tc(const void* rows, const void* tangents,
                             const void* lse, int n, const void* a_pairs,
                             const void* bc, const void* a_full,

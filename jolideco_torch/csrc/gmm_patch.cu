@@ -19,16 +19,15 @@
 // symmetric triangle is 2,080 + 64 multiply-adds per row and component,
 // 5.6e10 flop for 65,025 rows and K = 200, about 0.83 ms at the 67
 // TFLOP/s fp32 (non-tensor) peak; the bytes (17 MB) take 5 µs. Design:
-// K1's (gmm_fused.cu::gmm_fwd_kernel) without the patch extraction —
 // two rows per thread in registers, the row-padded triangle of A_k read
 // as float4 shared-memory broadcasts (gmm_logits.cuh), component records
 // double-buffered through shared memory, one __syncthreads per
 // component. The TPU kernel's one-hot MXU tricks, bf16 hi/lo splits and
 // K padding to 128 are not carried over. At 65,025 rows, K = 200 on an
-// NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms, K1's loop 2-4%
-// slower than K1 itself. Under the default dial ("split") the probe
-// scores on the tensor cores instead (gmm_fused_tc.cu's
-// gmm_score_rows_tc_kernel, 0.70-0.76 ms), and so do its marginalise
+// NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms. Under the default
+// dial ("split") the probe scores on the tensor cores instead
+// (gmm_score_wg.cu's MAP instance, gmm_fused_tc.cu's logsumexp
+// gmm_score_rows_tc_kernel), and so do its marginalise
 // unit gradient and first Hessian stage (gmm_unit_marg_tc_kernel,
 // gmm_hvp_marg_weights_tc_kernel); this kernel, K8 and K9a below score
 // and differentiate under "highest" (K8 and K9a need the lse of their

@@ -1,40 +1,38 @@
-// The GMM scorer on Hopper's warpgroup instructions (sm_90a): K1's MAP
-// forward on an image (gmm_score_wg_image) and K5's MAP scorer on rows
-// (gmm_score_wg_rows) in the precision dial's "split" and "bf16" modes,
-// and the marginalised prior's pair in its "f32" mode ("highest"): K1's
-// logsumexp forward (gmm_score_wg_image_lse) and K4, the marginalise
-// backward (gmm_score_wg_mix). Built by nvcc into a shared library with
-// a plain C interface and loaded with ctypes
-// (jolideco_torch/utils/cuda_build.py); the wrappers are
-// gmm_fused_fwd_tc_cuda, gmm_fused_fwd_bf16_cuda, gmm_fused_fwd_marg_cuda
-// and gmm_fused_bwd_marg_cuda in jolideco_torch/ops/gmm_fused.py,
-// gmm_score_rows_tc_cuda and gmm_score_rows_bf16_cuda in
-// jolideco_torch/ops/gmm_pallas.py, whose plain versions
-// (score_split_plain, score_bf16_plain, fused_forward_plain,
-// fused_backward_marg_plain) the card holds them to.
+// The GMM scorer on Hopper's warpgroup instructions (sm_90a), one core
+// for every mode of the precision dial: K1's forward on an image, MAP
+// (gmm_score_wg_image) and logsumexp (gmm_score_wg_image_lse), and K4,
+// the marginalise backward (gmm_score_wg_mix), in "f32" ("highest"),
+// "split" (the default dial) and "bf16" ("default"); and K5's MAP scorer
+// on rows (gmm_score_wg_rows) in "split" and "bf16". Built by nvcc into a
+// shared library with a plain C interface and loaded with ctypes
+// (jolideco_torch/utils/cuda_build.py); the wrappers are gmm_fused_fwd*,
+// gmm_fused_fwd_marg* and gmm_fused_bwd_marg* in
+// jolideco_torch/ops/gmm_fused.py, gmm_score_rows_tc_cuda and
+// gmm_score_rows_bf16_cuda in jolideco_torch/ops/gmm_pallas.py, whose
+// plain versions (fused_forward_plain, fused_backward_marg_plain,
+// score_split_plain, score_bf16_plain) the card holds them to.
 //
-// What it replaces: the JAX package's ops/gmm_fused.py::_fwd_kernel (MAP
-// branch) and ops/gmm_pallas.py::_score_kernel (MAP) under precision HIGH
-// ("split3", kProd = 3: hi.hi + hi.lo + lo.hi of the bf16 hi/lo parts)
-// and DEFAULT (kProd = 1: hi.hi); ops/gmm_fused.py::_fwd_kernel
-// (logsumexp branch) and ::_bwd_marg_kernel under HIGHEST (kProd = 6, the
-// six products of three-way splits below); and in this port
-// gmm_fused_tc.cu's <false, kProd> instances of gmm_fwd_tc_kernel and
-// gmm_score_rows_tc_kernel (mma.sync), which no wrapper launches any
-// more, and gmm_fused.cu's float32 gmm_fwd_kernel<true> and
-// gmm_bwd_marg_kernel (FFMA; deleted). Per row x (a masked,
-// mean-subtracted 8x8 patch),
+// What it replaces: the JAX package's ops/gmm_fused.py::_fwd_kernel (both
+// branches), ::_bwd_marg_kernel and ops/gmm_pallas.py::_score_kernel
+// (MAP) under precision HIGHEST (kProd = 6, the six products of
+// three-way splits below), HIGH ("split3", kProd = 3: hi.hi + hi.lo +
+// lo.hi of the bf16 hi/lo parts) and DEFAULT (kProd = 1: hi.hi); and in
+// this port gmm_fused.cu's FFMA forward and marginalise kernels and
+// gmm_fused_tc.cu's mma.sync forwards and marginalise backward (all
+// deleted). Per row x (a masked, mean-subtracted 8x8 patch),
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k,
 // the quadratic form as the product of the 2,080 pair products u = x_a
 // x_b (a <= b) with the pair-major A (off-diagonals doubled), then the
 // maximum and the lowest index among equal maxima (kMax), or beside them
 // the logsumexp (kLse), or K4's mixture (kMix):
 //     w_k = exp(logit_k - lse),  u = dv sum_k w_k (b_k - A_k x) / sum_k w_k,
-// less its mean, then the overlap-add into the image gradient. The
-// other logsumexp instances stay on gmm_fused_tc.cu's tile_logits, whose
-// logits K4, K8 and K9a of those modes recompute bit for bit (its
-// header says why); K4 here recomputes K1 lse's logits by the very same
-// instance of the core, for the same reason.
+// less its mean, then the overlap-add into the image gradient. K4
+// recomputes K1 lse's logits by the very same instance of the core on the
+// very floats K1 lse scored: over logits of 1e5 to 1e8 an lse summed in
+// another order would move exp(logit - lse) by whole units of the
+// exponent. The probe's logsumexp row scorer (K5 lse) and the mixtures
+// that take its lse (K8, K9a) are another such triple, on gmm_fused_tc.cu
+// ("split", "bf16") and gmm_patch.cu ("f32").
 //
 // What bounds it on the H100: operations. At 1024^2 (65,536 patches),
 // K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16 peak
@@ -83,8 +81,8 @@
 //   each a bulk copy of the chunk's image (ops/gmm_fused.py::_wg_buffers
 //   and _wg3_buffer lay the device buffers out as the stages' bytes)
 //   completing on the stage's mbarrier; its other three warps load the
-//   next tile's rows (K1: the patches, masked and mean-subtracted as
-//   gmm_patches.cuh's load_patch, also written to xtn and valid) into the
+//   next tile's rows (K1: the patches, masked and mean-subtracted, also
+//   written to xtn and valid) into the
 //   second of two row buffers while the current tile is multiplied;
 // - kMax and kLse: the maximum (and the sum of exp(logit - maximum),
 //   rescaled whenever the maximum grows) over each thread's 50
@@ -116,18 +114,16 @@
 // with the chunks (its loads waited one at a time on the few registers
 // left) and a cluster of two CTAs sharing each chunk by a multicast bulk
 // copy (whose handshake a chunk cost more than the halved L2 reads saved),
-// was no faster than the mma.sync kernel on the H100; those three went.
-// chip_smoke.py phase 2 times the MAP kernel beside the mma.sync
-// instances it replaces, scripts/torch_wg_variants.py variants of it,
-// scripts/torch_marg_f32_times.py the "f32" instances: on an NVIDIA H100
-// 80GB HBM3 (700 W limit) at 1024^2, K = 200, astro-snr-v1, K1 lse 0.50-0.51
-// ms (gmm_fused.cu's FFMA kernel 1.73 in turns, 67% of the six-product
-// bound) and K4 0.61 ms (2.58; 56%); under mixed weights (200 a row) K4
-// 5.87 ms (11.8), where a warp a (row, component) term took 20.0 and
-// rows_ax with two of A_k's rows in flight 8.3. The "f32" instances use
-// 232 registers in the multiplying warpgroups; K4 spills nothing, K1 lse
-// 56 bytes, as the bf16 MAP image instance (every image instance spills
-// 56-64 bytes, no row instance any).
+// was no faster than the mma.sync kernel it replaced; those three went.
+// On an NVIDIA H100 80GB HBM3 (700 W limit) at 1024^2, K = 200,
+// astro-snr-v1 (scripts/torch_marg_f32_times.py, in turns with the
+// kernels each instance replaced): K1 MAP 0.46 ms in "f32" (the FFMA
+// kernel 1.63), 0.28 in "split", 0.20 in "bf16"; K1 lse 0.50, 0.31 (the
+// mma.sync kernel 0.76), 0.24 (0.44); K4 0.61, 0.39 (0.86), 0.31 (0.56);
+// under mixed weights (200 a row) K4 5.9, 5.6 (14.4), 5.5 (14.2), its
+// float32 mixture the same code in every mode. The multiplying
+// warpgroups have 232 registers; the image instances spill 56-84 bytes
+// (the split logsumexp the most), the row and K4 instances 0-8.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -222,9 +218,9 @@ struct Out {
 };
 
 // Row r of a CTA's tile (row n of the whole) into the transposed buffer
-// xs. K1: patch n, masked and mean-subtracted as load_patch (the same
-// sums in the same order), written to xtn and valid too, read twice to
-// spare registers; K5, K4: row n. Past the end: zeros, nothing written.
+// xs. K1: patch n, masked and mean-subtracted (its mean summed in feature
+// order), written to xtn and valid too, read twice to spare registers;
+// K5, K4: row n. Past the end: zeros, nothing written.
 template <bool kImage>
 __device__ __forceinline__ void load_row(float* xs, int r, int n,
                                          const Source& s) {
@@ -639,8 +635,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
                     const unsigned char* __restrict__ lin_wg, int K, Out out) {
   using L = Layout<kProd>;
-  static_assert(kEpi == kMax || kProd == 6, "the marginalise epilogues are "
-                "the \"f32\" instances'");
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* lin = smem + L::kLinOffset;
   float* xbuf = reinterpret_cast<float*>(smem + L::kXOffset);
@@ -961,6 +955,25 @@ Source row_source(const void* rows, int n) {
                 static_cast<const float*>(rows), n};
 }
 
+// The instance of `products` (6, 3 or 1) of the image or K4 kernels.
+template <bool kImage, int kEpi>
+int launch_products(int products, const Source& src, const void* a_wg,
+                    const void* lin_wg, int K, const Out& out, int max_ctas,
+                    cudaStream_t stream) {
+  if (products == 6)
+    return launch<kImage, 6, kEpi>(src, a_wg, lin_wg, K, out, max_ctas,
+                                   stream);
+  if (products == 3)
+    return launch<kImage, 3, kEpi>(src, a_wg, lin_wg, K, out, max_ctas,
+                                   stream);
+  return launch<kImage, 1, kEpi>(src, a_wg, lin_wg, K, out, max_ctas,
+                                 stream);
+}
+
+bool valid_products(int products) {
+  return products == 6 || products == 3 || products == 1;
+}
+
 Out score_out(void* values, void* argmax) {
   Out out{};
   out.values = static_cast<float*>(values);
@@ -974,30 +987,28 @@ extern "C" {
 
 // K1's MAP forward on image (H, W) float32: values (the maxima), argmax,
 // valid and xtn for the G * ny * nx patches (gmm_patches.cuh's
-// enumeration); a_wg holds ceil(K / 200) tiles of 65 chunk images, lin_wg
-// as many tiles of the linear terms (ops/gmm_fused.py::_wg_buffers);
-// products is 3 ("split") or 1 ("bf16"). Returns the first CUDA error of
-// the launch (0 = cudaSuccess); 1 (cudaErrorInvalidValue) for K < 1 or
-// another number of products.
+// enumeration); products is 6 ("f32"), 3 ("split") or 1 ("bf16"), and
+// a_wg holds ceil(K / 200) tiles of the mode's records: 130 step images
+// in three planes for 6 (ops/gmm_fused.py::_wg3_buffer), 65 chunk images
+// otherwise (_wg_buffers); lin_wg as many tiles of the linear terms.
+// Returns the first CUDA error of the launch (0 = cudaSuccess); 1
+// (cudaErrorInvalidValue) for K < 1 or another number of products.
 int gmm_score_wg_image(const void* img, int H, int W, int stride, int ny,
                        int nx, float sentinel, const void* a_wg,
                        const void* lin_wg, int K, int products, void* values,
                        void* argmax, void* valid, void* xtn, void* stream) {
-  if (K < 1 || (products != 1 && products != 3))
+  if (K < 1 || !valid_products(products))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Source src =
-      image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn);
-  const Out out = score_out(values, argmax);
-  auto s = static_cast<cudaStream_t>(stream);
-  return products == 3
-             ? launch<true, 3, kMax>(src, a_wg, lin_wg, K, out, 0, s)
-             : launch<true, 1, kMax>(src, a_wg, lin_wg, K, out, 0, s);
+  return launch_products<true, kMax>(
+      products, image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn),
+      a_wg, lin_wg, K, score_out(values, argmax), 0,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K5's MAP scorer on rows (n, 64) float32, already masked and
-// mean-subtracted: values and argmax; the buffers and products of
-// gmm_score_wg_image. Errors as gmm_score_wg_image; the wrapper never
-// calls it with n = 0.
+// mean-subtracted: values and argmax; the buffers of gmm_score_wg_image,
+// products 3 ("split") or 1 ("bf16"; the "f32" K5 is gmm_patch.cu's).
+// Errors as gmm_score_wg_image; the wrapper never calls it with n = 0.
 int gmm_score_wg_rows(const void* rows, int n, const void* a_wg,
                       const void* lin_wg, int K, int products, void* values,
                       void* argmax, void* stream) {
@@ -1011,36 +1022,38 @@ int gmm_score_wg_rows(const void* rows, int n, const void* a_wg,
              : launch<false, 1, kMax>(src, a_wg, lin_wg, K, out, 0, s);
 }
 
-// K1's logsumexp forward in "f32" on image (H, W) float32: values (the
+// K1's logsumexp forward on image (H, W) float32: values (the
 // logsumexp), argmax (the lowest index among equal maxima), valid and
-// xtn; a_wg3 holds ceil(K / 200) tiles of 130 step images in three
-// planes (ops/gmm_fused.py::_wg3_buffer), lin_wg the linear terms.
-// Errors as gmm_score_wg_image (1 for K < 1).
+// xtn; the buffers and products of gmm_score_wg_image. Errors as
+// gmm_score_wg_image.
 int gmm_score_wg_image_lse(const void* img, int H, int W, int stride, int ny,
-                           int nx, float sentinel, const void* a_wg3,
-                           const void* lin_wg, int K, void* values,
-                           void* argmax, void* valid, void* xtn,
+                           int nx, float sentinel, const void* a_wg,
+                           const void* lin_wg, int K, int products,
+                           void* values, void* argmax, void* valid, void* xtn,
                            void* stream) {
-  if (K < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<true, 6, kLse>(
-      image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn), a_wg3,
-      lin_wg, K, score_out(values, argmax), 0,
+  if (K < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_products<true, kLse>(
+      products, image_source(img, H, W, stride, ny, nx, sentinel, valid, xtn),
+      a_wg, lin_wg, K, score_out(values, argmax), 0,
       static_cast<cudaStream_t>(stream));
 }
 
-// K4 in "f32": the image gradient grad (H, W) from the saved patches xtn
-// (N, 64), the logsumexp lse of gmm_score_wg_image_lse on them, valid and
-// the cotangents dvalues (N,); the buffers of gmm_score_wg_image_lse and
-// a_full (K, 64, 64), b_rows (K, 64). Scratch: wts (ctas x 128 x 200
-// floats: the kernel runs at most ctas CTAs), wsum (N,) and the u rows
-// units (N, 64). Errors as gmm_score_wg_image_lse (1 also for ctas < 1).
+// K4: the image gradient grad (H, W) from the saved patches xtn (N, 64),
+// the logsumexp lse that gmm_score_wg_image_lse computed on them with
+// the same buffers and products (the weights are exp(logit - lse) of the
+// same logits), valid and the cotangents dvalues (N,); a_full (K, 64,
+// 64), b_rows (K, 64). Scratch: wts (ctas x 128 x 200 floats: the kernel
+// runs at most ctas CTAs), wsum (N,) and the u rows units (N, 64).
+// Errors as gmm_score_wg_image (1 also for ctas < 1).
 int gmm_score_wg_mix(const void* xtn, const void* lse, const void* valid,
-                     const void* dvalues, const void* a_wg3,
+                     const void* dvalues, const void* a_wg,
                      const void* lin_wg, const void* a_full,
                      const void* b_rows, int H, int W, int stride, int ny,
-                     int nx, int K, void* wts, int ctas, void* wsum,
-                     void* units, void* grad, void* stream) {
-  if (K < 1 || ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+                     int nx, int K, int products, void* wts, int ctas,
+                     void* wsum, void* units, void* grad, void* stream) {
+  if (K < 1 || ctas < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (kP / stride) * (kP / stride);
   Out out{};
   out.lse = static_cast<const float*>(lse);
@@ -1052,8 +1065,9 @@ int gmm_score_wg_mix(const void* xtn, const void* lse, const void* valid,
   out.wsum = static_cast<float*>(wsum);
   out.units = static_cast<float*>(units);
   auto s = static_cast<cudaStream_t>(stream);
-  const int err = launch<false, 6, kMix>(row_source(xtn, groups * ny * nx),
-                                         a_wg3, lin_wg, K, out, ctas, s);
+  const int err = launch_products<false, kMix>(
+      products, row_source(xtn, groups * ny * nx), a_wg, lin_wg, K, out,
+      ctas, s);
   if (err != 0) return err;
   const int pixel_blocks = (H * W + kAddThreads - 1) / kAddThreads;
   gmm_units_add_kernel<<<pixel_blocks, kAddThreads, 0, s>>>(

@@ -15,11 +15,10 @@ and back to image layout per offset group.
 
 Each direction has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_fused.cu``,
-  ``csrc/gmm_fused_tc.cu`` and, for the MAP forward of the bf16 modes
-  and the marginalise pair of the ``"f32"`` mode, ``csrc/gmm_score_wg.cu``,
-  whose headers say what bounds them and how they are built), run for a
-  tensor on a CUDA card;
+- a CUDA kernel written by hand for Hopper (``csrc/gmm_score_wg.cu`` for
+  the forwards and the marginalise backward of every mode,
+  ``csrc/gmm_fused.cu`` for the MAP backward, whose headers say what
+  bounds them and how they are built), run for a tensor on a CUDA card;
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU,
   and the reference the kernel is checked against on the card.
 
@@ -32,16 +31,13 @@ parts, three products hi.hi + hi.lo + lo.hi summed in float32, and
 ``b . x`` in float32; and ``"bf16"``, its logits at precision DEFAULT
 (what the TPU's matrix unit does with float32 operands): the same
 operands rounded to bf16, one product hi.hi summed in float32, ``b . x``
-in float32. The ``"f32"`` mode's marginalise kernels compute their
-logits as the TPU's HIGHEST does, on the tensor cores: both operands
-split three ways into bf16 parts, six products summed in float32
-(:func:`_wg3_buffer`); its plain versions and its MAP forward in float32
-on the CUDA cores. The two bf16 modes' kernels run on the tensor cores
-(``csrc/gmm_score_wg.cu`` for the MAP forward, on the warpgroup
-instructions, ``csrc/gmm_fused_tc.cu`` for the logsumexp forward and
-the marginalise backward; each one code with three products or one),
-their plain versions as float32 matmuls of the bf16-valued parts. The mode
-reaches both forwards (maximum and
+in float32. Every mode's kernels are one code on the tensor cores'
+warpgroup instructions (``csrc/gmm_score_wg.cu``) with six, three or one
+bf16 products a step (:data:`WG_PRODUCTS`): the ``"f32"`` mode computes
+its logits as the TPU's HIGHEST does, both operands split three ways into
+bf16 parts, six products summed in float32 (:func:`_wg3_buffer`). Its
+plain versions are float32 matmuls, the bf16 modes' float32 matmuls of
+the bf16-valued parts. The mode reaches both forwards (maximum and
 logsumexp) and the marginalise backward, which recomputes the logits
 in the mode of the forward that saved their logsumexp: with logits of
 1e5 to 1e8, the softmax weights are only right against an lse of the
@@ -110,8 +106,9 @@ __all__ = [
 
 PATCH = 8
 D = PATCH * PATCH
-# float32s per component record of the forward kernel: the row-padded
-# upper triangle of A_k (see csrc/gmm_fused.cu), b_k, c_k and padding
+# float32s per component record of the float32 row kernels: the
+# row-padded upper triangle of A_k (see csrc/gmm_logits.cuh), b_k, c_k and
+# padding
 SYM = 2176
 REC = SYM + D + 4
 # patch rows per chunk of the plain versions' (n, 4096) outer products:
@@ -120,11 +117,11 @@ PLAIN_CHUNK = 4096
 # the "split" mode's pair products x_a x_b, a <= b, row-major over a
 PAIR_A, PAIR_B = np.triu_indices(D)
 PAIRS = len(PAIR_A)
-# the tensor-core kernel (csrc/gmm_fused_tc.cu): components in tiles of
+# the mma.sync row kernels (csrc/gmm_fused_tc.cu): components in tiles of
 # KP_TC (the last padded), pairs in chunks of TC_CHUNK
 KP_TC = 208
 TC_CHUNK = 32
-# the MAP kernels on the warpgroup instructions (csrc/gmm_score_wg.cu):
+# the warpgroup kernels of "split" and "bf16" (csrc/gmm_score_wg.cu):
 # components in tiles of KP_WG, the pairs in chunks of TC_CHUNK; a chunk's
 # record is the image of a shared-memory stage, the hi and lo planes of
 # WG_PLANE bytes each (:func:`_wg_buffers`); a tile's linear terms, the
@@ -135,8 +132,8 @@ WG_CHUNKS = PAIRS // TC_CHUNK
 WG_PLANE = 2 * KP_WG * TC_CHUNK
 WG_LIN_PART = 2 * KP_WG * D
 WG_LIN = 3 * WG_LIN_PART + 4 * 4 * 52
-# the "f32" mode's marginalise kernels on the warpgroup instructions
-# (csrc/gmm_score_wg.cu, kProd = 6): the pairs in steps of WG3_STEP, a
+# the "f32" mode's warpgroup kernels (csrc/gmm_score_wg.cu, kProd = 6):
+# the pairs in steps of WG3_STEP, a
 # step's record the hi, mid and lo planes of WG3_PLANE bytes each
 # (:func:`_wg3_buffer`)
 WG3_STEP = 16
@@ -145,8 +142,11 @@ WG3_PLANE = 2 * KP_WG * WG3_STEP
 # rows a CTA of csrc/gmm_score_wg.cu takes at a time
 WG_ROWS = 128
 MODES = ("f32", "split", "bf16")
-# bf16 products per k16 step of the tensor-core kernels, by mode
+# bf16 products per k16 step of the tensor-core kernels, by mode: the
+# mma.sync row kernels (csrc/gmm_fused_tc.cu) and the warpgroup kernels
+# (csrc/gmm_score_wg.cu), which also take "f32"
 TC_PRODUCTS = {"split": 3, "bf16": 1}
+WG_PRODUCTS = {"f32": 6, **TC_PRODUCTS}
 
 
 def fused_supported(image_shape, patch_shape, stride, n_features):
@@ -218,9 +218,10 @@ def _split_buffers(a_quad, bq, const2):
     versions; ``pair_hi`` alone is the ``"bf16"`` mode's operand, bf16
     of the JAX package's float32 ``A`` (doubled off the diagonal, which
     bf16 does exactly).
-    ``pair_wg3``: the ``"f32"`` marginalise kernels' three-way split
-    (:func:`_wg3_buffer`).
-    For the tensor-core kernels, whose blocks take the components in
+    ``pair_wg`` and ``lin_wg``: the warpgroup kernels' copies
+    (:func:`_wg_buffers`); ``pair_wg3``: the ``"f32"`` mode's three-way
+    split (:func:`_wg3_buffer`).
+    For the ``mma.sync`` row kernels, whose blocks take the components in
     ``T = ceil(K / KP_TC)`` tiles: ``pair_tc`` bf16 ``(T, PAIRS /
     TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same parts tile by tile and
     chunk by chunk (hi then lo, each component's pairs of the chunk
@@ -272,7 +273,7 @@ def _placed(values, width):
 
 
 def _wg_buffers(hi, lo, bq, const2):
-    """The MAP kernels' copies of ``A``, ``b`` and ``c``, uint8, in
+    """The warpgroup kernels' copies of ``A``, ``b`` and ``c``, uint8, in
     ``T = ceil(K / KP_WG)`` tiles of components (the last padded with
     zero components): ``pair_wg (T, WG_CHUNKS, 2 WG_PLANE)``, record ``c``
     of a tile the hi and lo planes of pairs ``32 c .. 32 c + 31`` (at
@@ -315,7 +316,7 @@ def _wg_buffers(hi, lo, bq, const2):
 
 
 def _wg3_buffer(pair):
-    """The ``"f32"`` marginalise kernels' copy of the pair-major ``A``
+    """The ``"f32"`` warpgroup kernels' copy of the pair-major ``A``
     ``(PAIRS, K)`` float32 (:func:`_pair_rows`), uint8 ``(T, WG3_STEPS, 3
     WG3_PLANE)`` in ``T = ceil(K / KP_WG)`` tiles of components (the last
     padded with zero components): record ``s`` of a tile the hi, mid and
@@ -339,7 +340,7 @@ def kernel_buffers(packed, device):
     ``aq (d*d, K)``, ``bq (d, K)``, ``const2 (K,)`` feed the plain
     scorers; ``a_full (K, d, d)``, ``b_rows (K, d)`` the backwards and
     Hessian actions, plain and CUDA. For 8x8 patches also ``rec (K, REC)``
-    for the CUDA scorers (``csrc/gmm_logits.cuh``), ``a_bwd (K, d, d)``
+    for the float32 row kernels (``csrc/gmm_logits.cuh``), ``a_bwd (K, d, d)``
     and ``b_bwd (K, d)`` for the MAP backward kernel: ``A`` less its
     column means, transposed (``[c][r]``), and ``b`` less its mean, so
     that ``dv (b_bwd - a_bwd^T x)`` is ``u - mean(u)``, and the
@@ -657,16 +658,8 @@ def _tc_library():
 
     lib = load_library("gmm_fused_tc")
     if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gmm_fused_fwd_tc.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, vp,
-                                         ci, ci, ci, vp, vp, vp, vp, vp]
-        lib.gmm_fused_fwd_tc.restype = ci
-        lib.gmm_fused_bwd_marg_tc.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                              ci, ci, ci, ci, ci, ci, ci, vp,
-                                              vp]
-        lib.gmm_fused_bwd_marg_tc.restype = ci
-        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp, vp,
-                                          vp]
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp]
         lib.gmm_score_rows_tc.restype = ci
         lib.gmm_unit_marg_tc.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
                                          vp, vp]
@@ -692,13 +685,11 @@ def _wg_library():
         lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
                                           vp]
         lib.gmm_score_wg_rows.restype = ci
-        lib.gmm_score_wg_image_lse.argtypes = [vp, ci, ci, ci, ci, ci, cf,
-                                               vp, vp, ci, vp, vp, vp, vp,
-                                               vp]
+        lib.gmm_score_wg_image_lse.argtypes = lib.gmm_score_wg_image.argtypes
         lib.gmm_score_wg_image_lse.restype = ci
         lib.gmm_score_wg_mix.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                         ci, ci, ci, ci, ci, vp, ci, vp, vp,
-                                         vp, vp]
+                                         ci, ci, ci, ci, ci, ci, vp, ci, vp,
+                                         vp, vp, vp]
         lib.gmm_score_wg_mix.restype = ci
         lib.gmm_score_wg_error_string.argtypes = [ci]
         lib.gmm_score_wg_error_string.restype = ctypes.c_char_p
@@ -711,10 +702,7 @@ def _library():
 
     lib = load_library("gmm_fused")
     if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gmm_fused_fwd.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp, ci,
-                                      vp, vp, vp, vp, vp]
-        lib.gmm_fused_fwd.restype = ci
+        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gmm_fused_bwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                       ci, ci, vp, vp, vp]
         lib.gmm_fused_bwd.restype = ci
@@ -755,37 +743,23 @@ def _check_geometry(image, stride):
 
 
 def gmm_fused_fwd_cuda(image, bufs, stride, sentinel):
-    """Launch the MAP forward kernel on ``image (H, W)`` float32 on a card.
-
-    Same outputs as :func:`fused_forward_plain`.
-    """
-    out = _launch_forward(image, bufs, stride, sentinel)
+    """Launch the MAP forward kernel of the ``"f32"`` mode
+    (``csrc/gmm_score_wg.cu``'s six-product core on ``wgmma``: three-way
+    bf16 splits, as the TPU's HIGHEST) on ``image (H, W)`` float32 on a
+    card; same outputs as :func:`fused_forward_plain`. Any number of
+    components, in tiles of ``KP_WG``."""
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "f32")
     gmm_fused_fwd_cuda.launches += 1
     return out
 
 
 def gmm_fused_fwd_marg_cuda(image, bufs, stride, sentinel):
     """Launch the marginalise (logsumexp) forward kernel of the ``"f32"``
-    mode (``csrc/gmm_score_wg.cu``'s ``"f32"`` core on ``wgmma``: six
-    products of three-way bf16 splits); same outputs as
-    :func:`fused_forward_plain` with ``marginalize=True``. Any number of
-    components, in tiles of ``KP_WG``."""
-    values, argmax, valid, xtn = _forward_outputs(image, stride)
-    h, w = image.shape
-    k = _wg3_tiles(bufs, image.device)
-    lib = _wg_library()
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        code = lib.gmm_score_wg_image_lse(
-            image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
-            float(sentinel), bufs["pair_wg3"].data_ptr(),
-            bufs["lin_wg"].data_ptr(), k, values.data_ptr(),
-            argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
-        )
-    _raise_on_error(lib.gmm_score_wg_error_string, code,
-                    "gmm_score_wg_image_lse")
+    mode (the core of :func:`gmm_fused_fwd_cuda`); same outputs as
+    :func:`fused_forward_plain` with ``marginalize=True``."""
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "f32", True)
     gmm_fused_fwd_marg_cuda.launches += 1
-    return values, argmax, valid, xtn
+    return out
 
 
 def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
@@ -800,9 +774,10 @@ def gmm_fused_fwd_tc_cuda(image, bufs, stride, sentinel):
 
 def gmm_fused_fwd_marg_tc_cuda(image, bufs, stride, sentinel):
     """Launch the marginalise (logsumexp) forward kernel of the
-    ``"split"`` mode on the tensor cores; same outputs as
-    :func:`fused_forward_plain` with ``marginalize=True, mode="split"``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, True, "split")
+    ``"split"`` mode (the core of :func:`gmm_fused_fwd_tc_cuda`); same
+    outputs as :func:`fused_forward_plain` with ``marginalize=True,
+    mode="split"``."""
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "split", True)
     gmm_fused_fwd_marg_tc_cuda.launches += 1
     return out
 
@@ -818,15 +793,16 @@ def gmm_fused_fwd_bf16_cuda(image, bufs, stride, sentinel):
 
 def gmm_fused_fwd_marg_bf16_cuda(image, bufs, stride, sentinel):
     """Launch the marginalise (logsumexp) forward kernel of the
-    ``"bf16"`` mode on the tensor cores; same outputs as
-    :func:`fused_forward_plain` with ``marginalize=True, mode="bf16"``."""
-    out = _launch_forward_tc(image, bufs, stride, sentinel, True, "bf16")
+    ``"bf16"`` mode (the core of :func:`gmm_fused_fwd_bf16_cuda`); same
+    outputs as :func:`fused_forward_plain` with ``marginalize=True,
+    mode="bf16"``."""
+    out = _launch_forward_wg(image, bufs, stride, sentinel, "bf16", True)
     gmm_fused_fwd_marg_bf16_cuda.launches += 1
     return out
 
 
 def _split_tiles(bufs, device):
-    """Checks the tensor-core kernels' buffers (both modes read
+    """Checks the ``mma.sync`` row kernels' buffers (both modes read
     ``pair_tc``: ``"bf16"`` its hi planes); the component count."""
     k = bufs["rec"].shape[0]
     tiles = -(-k // KP_TC)
@@ -837,7 +813,7 @@ def _split_tiles(bufs, device):
 
 
 def wg_tiles(bufs, device):
-    """Checks the MAP kernels' buffers (``pair_wg``, ``lin_wg``); the
+    """Checks the warpgroup kernels' ``pair_wg`` and ``lin_wg``; the
     component count."""
     k = bufs["rec"].shape[0]
     tiles = -(-k // KP_WG)
@@ -847,51 +823,37 @@ def wg_tiles(bufs, device):
     return k
 
 
-def _wg3_tiles(bufs, device):
-    """Checks the ``"f32"`` marginalise kernels' buffers (``pair_wg3``,
-    ``lin_wg``); the component count."""
+def _wg_pairs(bufs, mode, device):
+    """Checks the warpgroup kernels' buffers of ``mode``: ``pair_wg3``
+    (``"f32"``) or ``pair_wg``, and ``lin_wg``; the pair buffer and the
+    component count."""
     k = wg_tiles(bufs, device)
+    if mode != "f32":
+        return bufs["pair_wg"], k
     _check(bufs["pair_wg3"], "pair_wg3", torch.uint8,
            (-(-k // KP_WG), WG3_STEPS, 3 * WG3_PLANE), device)
-    return k
+    return bufs["pair_wg3"], k
 
 
-def _launch_forward_wg(image, bufs, stride, sentinel, mode):
+def _launch_forward_wg(image, bufs, stride, sentinel, mode,
+                       marginalize=False):
+    """K1 of ``mode`` on ``csrc/gmm_score_wg.cu``: the MAP entry or, with
+    ``marginalize``, the logsumexp one."""
     values, argmax, valid, xtn = _forward_outputs(image, stride)
     device = image.device
     h, w = image.shape
-    k = wg_tiles(bufs, device)
+    pairs, k = _wg_pairs(bufs, mode, device)
     lib = _wg_library()
+    entry = "gmm_score_wg_image_lse" if marginalize else "gmm_score_wg_image"
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.gmm_score_wg_image(
+        code = getattr(lib, entry)(
             image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
-            float(sentinel), bufs["pair_wg"].data_ptr(),
-            bufs["lin_wg"].data_ptr(), k, TC_PRODUCTS[mode],
-            values.data_ptr(), argmax.data_ptr(),
+            float(sentinel), pairs.data_ptr(), bufs["lin_wg"].data_ptr(), k,
+            WG_PRODUCTS[mode], values.data_ptr(), argmax.data_ptr(),
             valid.data_ptr(), xtn.data_ptr(), stream,
         )
-    _raise_on_error(lib.gmm_score_wg_error_string, code,
-                    "gmm_score_wg_image")
-    return values, argmax, valid, xtn
-
-
-def _launch_forward_tc(image, bufs, stride, sentinel, marginalize, mode):
-    values, argmax, valid, xtn = _forward_outputs(image, stride)
-    device = image.device
-    h, w = image.shape
-    k = _split_tiles(bufs, device)
-    lib = _tc_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.gmm_fused_fwd_tc(
-            image.data_ptr(), h, w, int(stride), h // PATCH, w // PATCH,
-            float(sentinel), bufs["pair_tc"].data_ptr(),
-            bufs["bc"].data_ptr(), k, int(bool(marginalize)),
-            TC_PRODUCTS[mode], values.data_ptr(), argmax.data_ptr(),
-            valid.data_ptr(), xtn.data_ptr(), stream,
-        )
-    _raise_on_error(lib.gmm_fused_tc_error_string, code, "gmm_fused_fwd_tc")
+    _raise_on_error(lib.gmm_score_wg_error_string, code, entry)
     return values, argmax, valid, xtn
 
 
@@ -913,26 +875,6 @@ def _forward_outputs(image, stride):
             torch.empty(n, dtype=torch.int32, device=device),
             torch.empty(n, dtype=torch.float32, device=device),
             torch.empty((n, D), dtype=torch.float32, device=device))
-
-
-def _launch_forward(image, bufs, stride, sentinel):
-    values, argmax, valid, xtn = _forward_outputs(image, stride)
-    device = image.device
-    h, w = image.shape
-    ny, nx = h // PATCH, w // PATCH
-    rec = bufs["rec"]
-    k = rec.shape[0]
-    _check(rec, "rec", torch.float32, (k, REC), device)
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.gmm_fused_fwd(
-            image.data_ptr(), h, w, int(stride), ny, nx,
-            float(sentinel), rec.data_ptr(), k, values.data_ptr(),
-            argmax.data_ptr(), valid.data_ptr(), xtn.data_ptr(), stream,
-        )
-    _raise_on_error(lib.gmm_fused_error_string, code, "gmm_fused_fwd")
-    return values, argmax, valid, xtn
 
 
 def gmm_fused_bwd_cuda(xtn, argmax, valid, dvalues, bufs, image_shape,
@@ -1003,12 +945,48 @@ def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
     64)`` and, in a second launch, their overlap-add into the image
     gradient ``(H, W)``, which it returns. Same contract as
     :func:`fused_backward_marg_plain`; the same bits every call."""
+    grad = _launch_backward_marg_wg(xtn, lse, valid, dvalues, bufs,
+                                    image_shape, stride, "f32",
+                                    "gmm_fused_bwd_marg_cuda")
+    gmm_fused_bwd_marg_cuda.launches += 1
+    return grad
+
+
+def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
+                               stride):
+    """Launch the marginalise backward kernel of the ``"split"`` mode: as
+    :func:`gmm_fused_bwd_marg_cuda`, its logits by the core of
+    :func:`gmm_fused_fwd_marg_tc_cuda`, whose logsumexp ``lse`` must be.
+    Same contract as :func:`fused_backward_marg_plain` with
+    ``mode="split"``."""
+    grad = _launch_backward_marg_wg(xtn, lse, valid, dvalues, bufs,
+                                    image_shape, stride, "split",
+                                    "gmm_fused_bwd_marg_tc_cuda")
+    gmm_fused_bwd_marg_tc_cuda.launches += 1
+    return grad
+
+
+def gmm_fused_bwd_marg_bf16_cuda(xtn, lse, valid, dvalues, bufs,
+                                 image_shape, stride):
+    """Launch the marginalise backward kernel of the ``"bf16"`` mode: its
+    logits by the core of :func:`gmm_fused_fwd_marg_bf16_cuda`, whose
+    logsumexp ``lse`` must be. Same contract as
+    :func:`fused_backward_marg_plain` with ``mode="bf16"``."""
+    grad = _launch_backward_marg_wg(xtn, lse, valid, dvalues, bufs,
+                                    image_shape, stride, "bf16",
+                                    "gmm_fused_bwd_marg_bf16_cuda")
+    gmm_fused_bwd_marg_bf16_cuda.launches += 1
+    return grad
+
+
+def _launch_backward_marg_wg(xtn, lse, valid, dvalues, bufs, image_shape,
+                             stride, mode, name):
+    """K4 of ``mode`` on ``csrc/gmm_score_wg.cu``."""
     n, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs,
-                                 image_shape, stride,
-                                 "gmm_fused_bwd_marg_cuda")
+                                 image_shape, stride, name)
     device = xtn.device
     h, w = image_shape
-    _wg3_tiles(bufs, device)
+    pairs, _ = _wg_pairs(bufs, mode, device)
     # the persistent kernel's CTAs (one an SM, at most one a tile of
     # rows), each with its slice of the weights' scratch
     ctas = min(-(-n // WG_ROWS),
@@ -1024,66 +1002,14 @@ def gmm_fused_bwd_marg_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.gmm_score_wg_mix(
             xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
-            dvalues.data_ptr(), bufs["pair_wg3"].data_ptr(),
-            bufs["lin_wg"].data_ptr(), bufs["a_full"].data_ptr(),
-            bufs["b_rows"].data_ptr(), h, w, int(stride), h // PATCH,
-            w // PATCH, k, wts.data_ptr(), ctas, wsum.data_ptr(),
-            units.data_ptr(), grad.data_ptr(), stream,
+            dvalues.data_ptr(), pairs.data_ptr(), bufs["lin_wg"].data_ptr(),
+            bufs["a_full"].data_ptr(), bufs["b_rows"].data_ptr(), h, w,
+            int(stride), h // PATCH, w // PATCH, k, WG_PRODUCTS[mode],
+            wts.data_ptr(), ctas, wsum.data_ptr(), units.data_ptr(),
+            grad.data_ptr(), stream,
         )
     _raise_on_error(lib.gmm_score_wg_error_string, code, "gmm_score_wg_mix")
-    gmm_fused_bwd_marg_cuda.launches += 1
     return grad
-
-
-def gmm_fused_bwd_marg_tc_cuda(xtn, lse, valid, dvalues, bufs, image_shape,
-                               stride):
-    """Launch the marginalise backward kernel of the ``"split"`` mode
-    (``csrc/gmm_fused_tc.cu``): its logits on the tensor cores, by the
-    code of :func:`gmm_fused_fwd_marg_tc_cuda`, whose logsumexp ``lse``
-    must be; returns the image gradient ``(H, W)``. Same contract as
-    :func:`fused_backward_marg_plain` with ``mode="split"``."""
-    grad = _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs,
-                                    image_shape, stride, "split",
-                                    "gmm_fused_bwd_marg_tc_cuda")
-    gmm_fused_bwd_marg_tc_cuda.launches += 1
-    return grad
-
-
-def gmm_fused_bwd_marg_bf16_cuda(xtn, lse, valid, dvalues, bufs,
-                                 image_shape, stride):
-    """Launch the marginalise backward kernel of the ``"bf16"`` mode: its
-    logits by the code of :func:`gmm_fused_fwd_marg_bf16_cuda`, whose
-    logsumexp ``lse`` must be. Same contract as
-    :func:`fused_backward_marg_plain` with ``mode="bf16"``."""
-    grad = _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs,
-                                    image_shape, stride, "bf16",
-                                    "gmm_fused_bwd_marg_bf16_cuda")
-    gmm_fused_bwd_marg_bf16_cuda.launches += 1
-    return grad
-
-
-def _launch_backward_marg_tc(xtn, lse, valid, dvalues, bufs, image_shape,
-                             stride, mode, name):
-    _, k = _backward_marg_inputs(xtn, lse, valid, dvalues, bufs, image_shape,
-                                 stride, name)
-    device = xtn.device
-    h, w = image_shape
-    _split_tiles(bufs, device)
-    planes = torch.zeros((len(_offsets(stride)), h, w), dtype=torch.float32,
-                         device=device)
-    lib = _tc_library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.gmm_fused_bwd_marg_tc(
-            xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
-            dvalues.data_ptr(), bufs["pair_tc"].data_ptr(),
-            bufs["bc"].data_ptr(), bufs["a_full"].data_ptr(),
-            bufs["b_rows"].data_ptr(), h, w, int(stride), h // PATCH,
-            w // PATCH, k, TC_PRODUCTS[mode], planes.data_ptr(), stream,
-        )
-    _raise_on_error(lib.gmm_fused_tc_error_string, code,
-                    "gmm_fused_bwd_marg_tc")
-    return planes.sum(dim=0)
 
 
 def reset_counters():

@@ -314,17 +314,16 @@ def gmm_score_rows_cuda(x, bufs, marginalize=False):
     return values, argmax
 
 
-def _score_rows_tc(x, bufs, marginalize, mode, name):
-    """The launch of K5 split or K5 bf16 (when there are rows); values,
-    argmax and whether it launched."""
+def _score_rows_tc(x, bufs, mode, name):
+    """The launch of K5 lse split or K5 lse bf16 (when there are rows);
+    values, argmax and whether it launched."""
     device, n = _check_rows(x, name)
     k = _split_tiles(bufs, device)
     values = torch.empty(n, dtype=torch.float32, device=device)
     argmax = torch.empty(n, dtype=torch.int32, device=device)
     if n:
         _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
-                int(bool(marginalize)), TC_PRODUCTS[mode], values, argmax,
-                tc=True)
+                TC_PRODUCTS[mode], values, argmax, tc=True)
     return values, argmax, bool(n)
 
 
@@ -371,7 +370,7 @@ def gmm_score_rows_marg_tc_cuda(x, bufs):
     float32 ones, so an lse of another arithmetic would overflow or
     underflow every weight."""
     values, argmax, launched = _score_rows_tc(
-        x, bufs, True, "split", "gmm_score_rows_marg_tc_cuda")
+        x, bufs, "split", "gmm_score_rows_marg_tc_cuda")
     gmm_score_rows_marg_tc_cuda.launches += launched
     return values, argmax
 
@@ -393,7 +392,7 @@ def gmm_score_rows_marg_bf16_cuda(x, bufs):
     what :func:`gmm_unit_marg_bf16_cuda` and
     :func:`gmm_hvp_marg_weights_bf16_cuda` take, as under ``"split"``."""
     values, argmax, launched = _score_rows_tc(
-        x, bufs, True, "bf16", "gmm_score_rows_marg_bf16_cuda")
+        x, bufs, "bf16", "gmm_score_rows_marg_bf16_cuda")
     gmm_score_rows_marg_bf16_cuda.launches += launched
     return values, argmax
 

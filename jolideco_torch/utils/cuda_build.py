@@ -22,11 +22,11 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "BUILD_INFO", "LIBRARIES", "load_libraries",
            "load_library"]
 
-# the package's kernel libraries: the fused GMM scorer (K1 MAP in float32,
-# K2), the GMM logits' kernels on the tensor cores ("split" and "bf16"
-# modes: K1's and K5's logsumexp, K4, K8, K9a), the GMM scorers on the
-# warpgroup instructions (K1 and K5 MAP of those modes; K1 lse and K4 in
-# float32), the patch-level scorer (K5-K9),
+# the package's kernel libraries: the fused GMM scorer's MAP backward
+# (K2), the probe's marginalised row kernels on the tensor cores ("split"
+# and "bf16" modes: K5's logsumexp, K8, K9a), the GMM scorers on the
+# warpgroup instructions (K1 MAP and logsumexp and K4 of every mode, K5
+# MAP of the bf16 modes), the patch-level scorer (K5-K9),
 # the matrix-DFT convolution's (K3) pass 1 on the tensor cores ("split"
 # and "bf16" modes) and its passes on the warpgroup instructions (passes
 # 2 and 3 of those modes, the three passes in float32)

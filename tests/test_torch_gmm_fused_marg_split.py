@@ -9,7 +9,7 @@ marginalise backward recomputes. The port runs the split plain versions
 (``score_split_marg_plain``) and the marginalise backward whose softmax
 runs over those logits against that logsumexp
 (``marg_unit_split_plain``), the references of the card's tensor-core
-kernels (``csrc/gmm_fused_tc.cu``). Tolerances, the bars of
+kernels (``csrc/gmm_score_wg.cu``). Tolerances, the bars of
 ``tests/test_torch_gmm_fused_split.py``:
 
 - ``valid`` identical to the JAX package's;

@@ -7,8 +7,7 @@ into bf16 hi and lo parts, three products hi.hi + hi.lo + lo.hi summed
 in float32, ``b . x`` at HIGHEST. The port runs the split plain version
 (a CPU tensor), which forms the same products from the symmetric pair
 layout and is the reference of the card's tensor-core kernels
-(``csrc/gmm_score_wg.cu`` for the MAP forward, ``csrc/gmm_fused_tc.cu``
-for the logsumexp one); the layout of their buffers and the routing to
+(``csrc/gmm_score_wg.cu`` for both forwards); the layout of their buffers and the routing to
 them are checked here through a Python copy of the MAP kernel's
 address map and recorded stand-ins of the libraries. Both are held against float64 logits of the
 same normalised patches. Tolerances:
@@ -339,14 +338,14 @@ class FakeLibrary:
 @pytest.mark.parametrize("mode", ["split", "bf16"])
 def test_dial_routes_the_map_forward_to_the_warpgroup_kernels(monkeypatch,
                                                               mode):
-    """On a card the MAP instances of K1 and K5 (the wrappers
-    ``gmm_fused_fwd_tc_cuda``, ``gmm_fused_fwd_bf16_cuda``,
-    ``gmm_score_rows_tc_cuda``, ``gmm_score_rows_bf16_cuda``) launch
-    ``gmm_score_wg``'s entries with the mode's products, ``pair_wg``
-    and ``lin_wg``; the logsumexp instances ``gmm_fused_tc``'s with
-    ``pair_tc``. The
-    libraries are recorded stand-ins and the wrappers' CUDA checks are
-    lifted, so that a CPU tensor stands for a card's."""
+    """On a card K1 (the wrappers ``gmm_fused_fwd_tc_cuda``,
+    ``gmm_fused_fwd_bf16_cuda`` and their logsumexp ``_marg_``
+    counterparts) and K5's MAP instances (``gmm_score_rows_tc_cuda``,
+    ``gmm_score_rows_bf16_cuda``) launch ``gmm_score_wg``'s entries with
+    the mode's products, ``pair_wg`` and ``lin_wg``; K5's logsumexp
+    instances ``gmm_fused_tc``'s with ``pair_tc``. The libraries are
+    recorded stand-ins and the wrappers' CUDA checks are lifted, so that
+    a CPU tensor stands for a card's."""
     from jolideco_torch.ops import gmm_pallas as tpallas
 
     calls = []
@@ -381,21 +380,20 @@ def test_dial_routes_the_map_forward_to_the_warpgroup_kernels(monkeypatch,
         tfused._FORWARDS[marginalize, mode](image, bufs, STRIDE,
                                             ZERO_FLUX_SENTINEL)
         tpallas._SCORES_TC[mode, marginalize](x, bufs)
+        image_args, row_args = calls[0][2], calls[1][2]
+        assert image_args[7:9] == (bufs["pair_wg"].data_ptr(),
+                                   bufs["lin_wg"].data_ptr())
+        assert image_args[9:11] == (200, products)
         if marginalize:
             assert [c[:2] for c in calls] == [
-                ("gmm_fused_tc", "gmm_fused_fwd_tc"),
+                ("gmm_score_wg", "gmm_score_wg_image_lse"),
                 ("gmm_fused_tc", "gmm_score_rows_tc")]
-            assert calls[0][2][7] == bufs["pair_tc"].data_ptr()
-            assert calls[0][2][10:12] == (1, products)
-            assert calls[1][2][5:7] == (1, products)
+            assert row_args[2] == bufs["pair_tc"].data_ptr()
+            assert row_args[4:6] == (200, products)
         else:
             assert [c[:2] for c in calls] == [
                 ("gmm_score_wg", "gmm_score_wg_image"),
                 ("gmm_score_wg", "gmm_score_wg_rows")]
-            image_args, row_args = calls[0][2], calls[1][2]
-            assert image_args[7:9] == (bufs["pair_wg"].data_ptr(),
-                                       bufs["lin_wg"].data_ptr())
-            assert image_args[9:11] == (200, products)
             assert row_args[1] == 300
             assert row_args[2:4] == (bufs["pair_wg"].data_ptr(),
                                      bufs["lin_wg"].data_ptr())

@@ -313,7 +313,7 @@ def marginalised_score(image, bufs, stride):
 
 def test_highest_marginalise_routes_to_the_warpgroup_kernels(monkeypatch):
     """On a card, ``"f32"`` marginalises through ``gmm_score_wg``'s
-    float32 entries: K1 lse on the image with ``pair_wg3`` and
+    entries with six products: K1 lse on the image with ``pair_wg3`` and
     ``lin_wg``, then K4 on K1's patches, logsumexp and validity, one CTA
     a tile of 128 rows up to the SMs, each wrapper counting its launch
     (:func:`fake_card`)."""
@@ -325,15 +325,15 @@ def test_highest_marginalise_routes_to_the_warpgroup_kernels(monkeypatch):
         ("gmm_score_wg", "gmm_score_wg_image_lse"),
         ("gmm_score_wg", "gmm_score_wg_mix")]
     fwd, bwd = (c[2] for c in calls)
-    assert fwd[1:10] == (24, 40, 8, 3, 5, SENTINEL,
+    assert fwd[1:11] == (24, 40, 8, 3, 5, SENTINEL,
                          bufs["pair_wg3"].data_ptr(),
-                         bufs["lin_wg"].data_ptr(), 200)
+                         bufs["lin_wg"].data_ptr(), 200, 6)
     # xtn, lse (the forward's values), valid: the forward's outputs
-    assert (bwd[0], bwd[1], bwd[2]) == (fwd[13], fwd[10], fwd[12])
+    assert (bwd[0], bwd[1], bwd[2]) == (fwd[14], fwd[11], fwd[13])
     assert bwd[4:8] == tuple(bufs[name].data_ptr() for name in (
         "pair_wg3", "lin_wg", "a_full", "b_rows"))
-    assert bwd[8:14] == (24, 40, 8, 3, 5, 200)
-    assert bwd[15] == 1  # 15 patches: one tile of rows
+    assert bwd[8:15] == (24, 40, 8, 3, 5, 200, 6)
+    assert bwd[16] == 1  # 15 patches: one tile of rows
     assert fwd[-1] == bwd[-1] == 0  # the stream
     assert (gf.gmm_fused_fwd_marg_cuda.launches,
             gf.gmm_fused_bwd_marg_cuda.launches) == (1, 1)

@@ -7,7 +7,8 @@ parts, three products hi.hi + hi.lo + lo.hi summed in float32). The
 JAX side runs that kernel in the Pallas interpreter on the CPU; the port
 runs the split plain versions (``score_split_plain``,
 ``score_split_marg_plain``: a CPU tensor), the reference of the card's
-K5 split kernel (``csrc/gmm_fused_tc.cu::gmm_score_rows_tc_kernel``),
+K5 split kernels (``csrc/gmm_score_wg.cu`` and, for the logsumexp,
+``csrc/gmm_fused_tc.cu::gmm_score_rows_tc_kernel``),
 which form the same bf16 products from the symmetric pair layout and
 sum them in another order. Rows: the masked, mean-subtracted patches of
 a random image (the probe's rows), a few of them zero (masked patches);

@@ -51,7 +51,8 @@ sums of the same bf16-rounded operands (``chip_smoke.bf16_reference``),
 K3's within the anchored bar and at least half the bf16 plain version's
 error against float64 (``chip_smoke.bf16_anchored``). The MAP scorers
 on the warpgroup instructions (``csrc/gmm_score_wg.cu``, K1 and K5 in
-both modes) are also held to ``chip_smoke.py`` phase 2's bars at the
+both modes; K1 of ``"highest"`` and the marginalise pair of every mode
+run there too) are also held to ``chip_smoke.py`` phase 2's bars at the
 main path's 1024², on a ragged 1000 x 904 image with sentinels and there
 under 256 components, and two launches on the same inputs must give
 the same bits. Passes 2 and 3 of K3 on the warpgroup instructions
@@ -356,10 +357,9 @@ def test_warpgroup_map_kernels_at_full_size(device, mode, name, shape):
     img[96:160, 200:260] = 2.0 * ZERO_FLUX_SENTINEL
     image = torch.as_tensor(img, device=device)
     label = f"{shape[0]}x{shape[1]} {name}"
-    fp32 = gf.gmm_fused_fwd_cuda(image, bufs, 4, ZERO_FLUX_SENTINEL)
     fp32_plain = gf.fused_forward_plain(image, bufs, 4, ZERO_FLUX_SENTINEL)
-    out = chip_smoke.k1_split_checks(torch, label, image, bufs, fp32,
-                                     fp32_plain, mode=mode)
+    out = chip_smoke.k1_split_checks(torch, label, image, bufs, fp32_plain,
+                                     mode=mode)
     assert out["n_valid"] > 0
     rows = chip_smoke.normalised_rows(torch, image, ZERO_FLUX_SENTINEL)
     chip_smoke.k5_split_checks(torch, label, rows, bufs, mode=mode)
@@ -748,45 +748,56 @@ def test_marginalise_f32_pair_on_wgmma(device, name):
                                           shape, 4))
 
 
-def test_marginalise_f32_weights_of_one_hot_rows_are_one(device, gmm):
-    """Under ``astro-snr-v1``, whose softmax weights are one-hot (at
-    least 90% of the patches here), K4 fed K1 lse's own logsumexp weighs
-    a one-hot patch's component by exactly 1 (``exp(0)``: the same core
+@pytest.mark.parametrize("mode", ["f32", "split", "bf16"])
+def test_marginalise_f32_weights_of_one_hot_rows_are_one(device, gmm, mode):
+    """Under ``astro-snr-v1``, whose softmax weights are one-hot, K4 of
+    each mode fed K1 lse's own logsumexp weighs a one-hot patch's
+    component by exactly 1 (``exp(0)``: the same instance of the core
     gives it K1 lse's logits bit for bit), its argmax, and an invalid
-    patch's by 0: the weights' scratch of a launch with a CTA a tile of
-    128 rows, read back."""
+    patch's by 0, and gives the bits of the wrapper's launch: the weights'
+    scratch of a launch with a CTA a tile of 128 rows, read back
+    (``chip_smoke.k4_weight_checks``; 256 patches, two CTAs)."""
+    import chip_smoke
+
+    image = torch.as_tensor(make_image((64, 64), seed=5), device=device)
+    out = chip_smoke.k4_weight_checks(torch, "64x64", image,
+                                      gmm.kernel_buffers(device), mode)
+    assert 0 < out["n_valid"] < 256
+
+
+@pytest.mark.parametrize("name", ["astro-snr-v1", "wide-256", "mixed-200",
+                                  "cancelled-256"])
+def test_highest_map_forward_on_wgmma(device, name):
+    """K1 MAP of ``"highest"`` (``csrc/gmm_score_wg.cu``'s six-product
+    core) at K = 200, K = 256 (two tiles of components), under mixed
+    weights and under ``chip_smoke.cancelled_gmm()``: against the float32
+    plain version, values rtol 1e-5 (float32 sums in other orders), or,
+    under ``cancelled_gmm()``, whose winning logits are sums of terms
+    thousands of times their value, the anchored bar against float64
+    (``chip_smoke.K1_F32_SUM_ERR`` says why); argmax identical, the
+    patches to 1e-5, two calls bitwise equal."""
     from jolideco_torch.ops import gmm_fused as gf
 
+    import chip_smoke
+
+    gmm = (chip_smoke.cancelled_gmm() if name == "cancelled-256"
+           else marg_f32_gmm(name))
     bufs = gmm.kernel_buffers(device)
-    shape = (64, 64)  # 256 patches: two tiles of rows, two CTAs
-    image = torch.as_tensor(make_image(shape, seed=5), device=device)
-    lse, argmax, valid, xtn = gf.gmm_fused_fwd_marg_cuda(image, bufs, 4,
-                                                         SENTINEL)
-    n, k = lse.numel(), bufs["b_rows"].shape[0]
-    wts = torch.full((2, 128, gf.KP_WG), float("nan"), device=device)
-    units = torch.empty((n, 64), device=device)
-    wsum = torch.empty(n, device=device)
-    grad = torch.empty(shape, device=device)
-    lib = gf._wg_library()
-    code = lib.gmm_score_wg_mix(
-        xtn.data_ptr(), lse.data_ptr(), valid.data_ptr(),
-        valid.data_ptr(), bufs["pair_wg3"].data_ptr(),
-        bufs["lin_wg"].data_ptr(), bufs["a_full"].data_ptr(),
-        bufs["b_rows"].data_ptr(), shape[0], shape[1], 4, 8, 8, k,
-        wts.data_ptr(), 2, wsum.data_ptr(), units.data_ptr(),
-        grad.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    assert code == 0
+    image = torch.as_tensor(make_image((200, 264), seed=4), device=device)
+    first = gf.gmm_fused_fwd_cuda(image, bufs, 4, SENTINEL)
+    vk, ak, valk, xk = gf.gmm_fused_fwd_cuda(image, bufs, 4, SENTINEL)
+    vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, 4, SENTINEL)
     torch.cuda.synchronize()
-    w = wts.reshape(n, gf.KP_WG)[:, :k]
-    m = valid > 0.5
-    one_hot = m & ((w > 0).sum(dim=1) == 1)
-    assert 0 < int(m.sum()) < n
-    assert int(one_hot.sum()) >= 0.9 * int(m.sum())
-    assert torch.equal(w[one_hot].max(dim=1).values,
-                       torch.ones_like(lse[one_hot]))
-    assert torch.equal(w[one_hot].argmax(dim=1).to(torch.int32),
-                       argmax[one_hot])
-    assert not w[~m].any()
+    assert all(torch.equal(a, b) for a, b in zip(first, (vk, ak, valk, xk)))
+    assert torch.equal(valk, valp)
+    m = valp > 0.5
+    torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
+    assert torch.equal(ak[m], ap[m])
+    if name != "cancelled-256":
+        torch.testing.assert_close(vk[m], vp[m], rtol=1e-5, atol=0)
+    else:
+        v64, _ = chip_smoke.max_logits64(torch, xp[m], bufs)
+        anchored(vk[m], vp[m], v64)
 
 
 @pytest.mark.parametrize("name,shape", [

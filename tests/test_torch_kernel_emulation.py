@@ -25,8 +25,8 @@ The libraries it emulates are :data:`EMULATED`. The others are
 :data:`CARD_ONLY`: ``pfft_conv_tc`` and ``gmm_fused_tc`` are built from
 warp-level tensor-core instructions (``mma.sync``, ``ldmatrix``,
 ``cp.async``) and bf16 types whose operands are spread over the 32
-threads of a warp, and ``gmm_score_wg`` (the MAP scorers of the bf16
-modes, K1 lse and K4 of ``"f32"``) and ``pfft_conv_wg`` from
+threads of a warp, and ``gmm_score_wg`` (K1 and K4 of every mode, K5's
+MAP scorers of the bf16 modes) and ``pfft_conv_wg`` from
 warpgroup ones (``wgmma``, whose operands are spread over the 128
 threads of four warps, bulk copies completing on ``mbarrier``\ s, named
 barriers and ``setmaxnreg``), so a block of one thread cannot run them;
@@ -34,8 +34,9 @@ the card holds them instead
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
 their plain versions (``mode="split"``, ``"bf16"``) and their arithmetic
 written out in PyTorch (``tests/test_torch_pfft_f32.py``, the matrix-DFT
-convolution in float32; ``tests/test_torch_gmm_marg_f32.py``, the
-marginalised prior's pair in float32) are held against the JAX package.
+convolution in float32; ``tests/test_torch_gmm_marg_f32.py`` and
+``tests/test_torch_gmm_marg_wg.py``, K1 and K4 of every mode) are held
+against the JAX package.
 
 Tolerances are the card's (``chip_smoke.py`` phase 2): values rtol 1e-5,
 argmax identical, the MAP gradients within 1e-4 of their max-abs, the
@@ -215,30 +216,18 @@ def make_image(shape, seed=0):
 @pytest.mark.parametrize("marginalize", [0])
 @pytest.mark.parametrize("shape,stride", [((37, 45), 4), ((24, 40), 8)])
 def test_fused_kernels_match_plain(libs, bufs, marginalize, shape, stride):
-    """K1 MAP and K2. ``marginalize`` is 0 alone: the marginalise pair of
-    the "f32" mode runs on the warpgroup instructions (``gmm_score_wg``,
-    card-only; its arithmetic written out in
-    ``tests/test_torch_gmm_marg_f32.py``)."""
+    """K2 on the plain forward's patches and argmax. ``marginalize`` is 0
+    alone: the forwards and the marginalise backward of every mode run on
+    the warpgroup instructions (``gmm_score_wg``, card-only; their
+    arithmetic written out in ``tests/test_torch_gmm_marg_f32.py`` and
+    ``tests/test_torch_gmm_marg_wg.py``)."""
     assert not marginalize
     fused, _ = libs
     image = make_image(shape)
-    h, w = shape
-    ny, nx = h // 8, w // 8
     n = gf.fused_patch_count(shape, stride)
-    k = bufs["rec"].shape[0]
-    values, valid, xtn = torch.empty(n), torch.empty(n), torch.empty(n, 64)
-    argmax = torch.empty(n, dtype=torch.int32)
-    assert fused.gmm_fused_fwd(
-        ptr(image), h, w, stride, ny, nx, SENTINEL, ptr(bufs["rec"]), k,
-        ptr(values), ptr(argmax), ptr(valid), ptr(xtn), None) == 0
     vp, ap, valp, xp = gf.fused_forward_plain(image, bufs, stride, SENTINEL)
-    assert torch.equal(valid, valp)
     m = valp > 0.5
     assert 0 < int(m.sum()) < n
-    torch.testing.assert_close(xtn, xp, rtol=0, atol=1e-5)
-    torch.testing.assert_close(values[m], vp[m], rtol=1e-5, atol=0)
-    assert torch.equal(argmax[m], ap[m])
-
     dv = torch.as_tensor(np.random.RandomState(2).randn(n),
                          dtype=torch.float32) * valp
     grad = map_backward(fused, xp, ap, valp, dv, bufs, shape, stride)
