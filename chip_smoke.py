@@ -14,13 +14,14 @@ Phases, each printing one or more lines:
    the probe's marginalised row kernels on the tensor cores, K1 and K4
    of every mode and the bf16 modes' MAP row scorers on the warpgroup
    instructions, the patch-level scorer, the matrix-DFT
-   convolution's pass 1 on the tensor cores (``mma.sync``) and its
-   passes on the warpgroup instructions: 2 and 3 of the ``"split"`` and
-   ``"bf16"`` modes, all three of ``"f32"``), each kernel's registers,
-   spills and shared memory as ``ptxas`` reports them, and the count of
-   ``HGMMA`` instructions in the MAP scorers' and K3's warpgroup
-   kernels' machine code (``cuobjdump -sass``; neither may be 0), also
-   in each of the three float32 passes, which must spill nothing, and
+   convolution's three passes on the warpgroup instructions in every
+   mode), each kernel's registers, spills and shared memory as
+   ``ptxas`` reports them, and the count of ``HGMMA`` instructions in
+   the MAP scorers' and K3's warpgroup kernels' machine code
+   (``cuobjdump -sass``; neither may be 0), also in each of the three
+   float32 passes and the four instances of the bf16 modes' pass 1
+   (``pfft_cols_fwd_wg_kernel<products, columns>``), which must spill
+   nothing, and
    in the instances of K1 (``"highest"``'s MAP) and of K1 lse and K4 of
    every mode, with their registers and spills; ptxas may inject no
    wgmma wait (C7517) in either library;
@@ -52,7 +53,9 @@ Phases, each printing one or more lines:
    packed pair, each with its float32 and its six-product bound); the
    same for the tensor-core kernels of
    the three passes and the ``"split"`` pipeline, held to the split
-   plain version's error and to 1e-4 of the max-abs; K2, K6 and K7
+   plain version's error and to 1e-4 of the max-abs; pass 1 of
+   ``"split"`` and ``"bf16"`` also at the x2 path's batch (5 pairs of
+   2048², n = 2176), with its time and bound; K2, K6 and K7
    twice on the same inputs, bitwise equal;
 3. the main path: joint MAP deconvolution of 10 observations of 1024²
    Poisson counts (33² Gaussian PSFs) under the GMM patch prior
@@ -321,6 +324,8 @@ MAIN = f"{FIELD}x{FIELD}"
 # K3's rectangular batch: what an image of up to 1024 x 896 pads to, at
 # the main path's transform size
 PFFT_RECT = (1024, 896)
+# K3's tall batch: the x2 path's 2048² flux (phase 9), n = 2176, m = 17
+PFFT_TALL = (2048, 2048)
 # the tensor-core kernels of K3's "split" mode against the float64 plain
 # version: the anchored bar above (against the float32 split plain
 # version), and also within this share of the max-abs (split's own error
@@ -465,6 +470,13 @@ def device_ms(torch, fn, reps, *kernels):
 # K3's float32 passes on the warpgroup instructions
 F32_KERNELS = ("pfft_cols_fwd_f32_kernel", "pfft_rows_f32_kernel",
                "pfft_cols_inv_f32_kernel")
+# K3's pass 1 of the bf16 modes: the instances of pfft_cols_fwd_wg_kernel<
+# products, columns an item>, their names in ptxas_summary and in the
+# machine code (mangled template arguments)
+FWD_WG_KERNELS = tuple(
+    (f"pfft_cols_fwd_wg_kernel<{prod}, {cols}>",
+     f"pfft_cols_fwd_wg_kernelILi{prod}ELi{cols}E")
+    for prod in (3, 1) for cols in (16, 8))
 # the fused branch's instances of gmm_score_wg_kernel<image, products,
 # epilogue> beside the bf16 modes' MAP ones: K1 MAP of "highest" and K1
 # lse and K4 of every mode; their names in ptxas_summary and in the
@@ -529,15 +541,17 @@ def phase_build():
         lines = [line for line in summary if line.startswith(kernel + ":")]
         print(f"phase 1 sass: {kernel} HGMMA {hgmma}; {'; '.join(lines)}")
         check(hgmma > 0, f"{kernel} has no HGMMA instruction")
-    # K3's float32 passes: wgmma each, no spills, no warning, and
-    # no wait that ptxas had to inject between products (its C7517)
+    # K3's float32 passes and the bf16 modes' pass 1: wgmma each, no
+    # spills, no warning, and no wait that ptxas had to inject between
+    # products (its C7517)
     info = BUILD_INFO["pfft_conv_wg"]
     check(not any("warning" in line or "C7517" in line
                   for line in info["ptxas"].splitlines()),
           "ptxas warned on pfft_conv_wg or injected a wgmma wait")
     summary = ptxas_summary(info["ptxas"])
-    for kernel in F32_KERNELS:
-        hgmma = sass_count(info["path"], "HGMMA", kernel)
+    for kernel, mangled in ([(k, k) for k in F32_KERNELS]
+                            + list(FWD_WG_KERNELS)):
+        hgmma = sass_count(info["path"], "HGMMA", mangled)
         spills = [line for line in summary if line.startswith(kernel + ":")
                   and "spill" in line]
         print(f"phase 1 sass: {kernel} HGMMA {hgmma}; {'; '.join(spills)}")
@@ -2722,9 +2736,46 @@ def pfft_timing(torch, s):
     return timing
 
 
+def pfft_tall_checks(torch, device):
+    """Pass 1 of ``"split"`` and ``"bf16"`` at the x2 path's batch (5
+    pairs of 2048², n = 2176: items of 8 columns, 16 row blocks of x in
+    registers) against the plain version of each mode and float64, with
+    phase 2's bars; its ms beside one ``torch.fft.fft`` and its bound."""
+    from jolideco_torch.ops import pallas_fft as pf
+
+    rs = np.random.RandomState(6)
+    x0, x1 = (torch.as_tensor(rs.uniform(0.0, 2.0, (N_OBS // 2,) + PFFT_TALL)
+                              .astype(np.float32), device=device)
+              for _ in range(2))
+    n = pf.pfft_size(max(PFFT_TALL) + 32)
+    label = "{}x{}".format(*PFFT_TALL)
+    u64 = pf.cols_fwd_plain(x0.double(), x1.double(), n, torch.float64)
+    bounds = pfft_bounds(N_OBS // 2, *PFFT_TALL, n)
+    out = {"batch": f"5 pairs of {label}, n = {n}"}
+    for mode, fn, anchor in (
+            ("split", pf.pfft_cols_fwd_tc_cuda, split_anchored),
+            ("bf16", pf.pfft_cols_fwd_bf16_cuda, bf16_anchored)):
+        err = anchor(label, f"K3 cols_fwd {mode}", fn(x0, x1, n),
+                     pf.cols_fwd_plain(x0, x1, n, mode=mode), u64)
+        out[mode] = {"err": err,
+                     "ms": cuda_ms(torch, lambda fn=fn: fn(x0, x1, n), 10),
+                     "bound": bounds[f"cols_fwd_{mode}"]}
+    out["torch_fft_cols_ms"] = cuda_ms(
+        torch, lambda: torch.fft.fft(torch.complex(x0, x1), n=n, dim=1), 10)
+    print(f"phase 2 K3 {label} (5 pairs, n = {n}): pass 1 against float64 "
+          "(kernel, plain, max-abs), ms, bound: " + "; ".join(
+              f"{mode} {e[0]:.3g}, {e[1]:.3g}, {e[2]:.3g}, {o['ms']:.3f} ms, "
+              f"{o['bound']['bound_ms']:.4f} ({o['bound']['bound_by']})"
+              for mode in ("split", "bf16")
+              for o in (out[mode],) for e in (o["err"],))
+          + f"; one torch.fft.fft {out['torch_fft_cols_ms']:.3f} ms")
+    return out
+
+
 def phase_pfft_kernels(torch, device):
     """K3 at the main path's batch and at a rectangular one, with the main
-    batch's times and bounds."""
+    batch's times and bounds, and pass 1 of the bf16 modes at the x2
+    path's batch."""
     out = {}
     for label, shape, seed in ((MAIN, (FIELD, FIELD), 4),
                                ("{}x{}".format(*PFFT_RECT), PFFT_RECT, 5)):
@@ -2732,6 +2783,7 @@ def phase_pfft_kernels(torch, device):
         if label == MAIN:
             out["timing"] = pfft_timing(torch, s)
             out["bounds"] = pfft_bounds(N_OBS // 2, FIELD, FIELD, s["n"])
+    out["tall"] = pfft_tall_checks(torch, device)
     tm, bd = out["timing"], out["bounds"]
     print(f"phase 2 timing K3 {MAIN} (5 pairs, n = 1152): "
           + "; ".join(f"{name} {tm[name]:.3f} ms (plain "
@@ -5736,7 +5788,6 @@ def main():
     # bound_fp32_ms), the
     # tensor-core kernels' (and the split bound) those of the default
     # dial's "split" run.
-    tc_src = "jolideco_torch/csrc/pfft_conv_tc.cu"
     wg_pfft_src = "jolideco_torch/csrc/pfft_conv_wg.cu"
     for name, source, key, line, err, path in (
             ("pfft_cols_fwd", wg_pfft_src, "cols_fwd", 379,
@@ -5747,7 +5798,7 @@ def main():
             ("pfft_cols_inv", wg_pfft_src, "cols_inv", 460,
              max(pmain["cols_inv_forward"][0],
                  pmain["cols_inv_adjoint"][0]), pfft_train["highest"]),
-            ("pfft_cols_fwd_tc", tc_src, "cols_fwd_split", 379,
+            ("pfft_cols_fwd_tc", wg_pfft_src, "cols_fwd_split", 379,
              pmain["cols_fwd_tc"][0], pfft_train["high"]),
             ("pfft_rows_combine_tc", wg_pfft_src, "rows_split", 398,
              max(pmain["rows_tc_forward"][0], pmain["rows_tc_adjoint"][0]),
@@ -5755,7 +5806,7 @@ def main():
             ("pfft_cols_inv_tc", wg_pfft_src, "cols_inv_split", 460,
              max(pmain["cols_inv_tc_forward"][0],
                  pmain["cols_inv_tc_adjoint"][0]), pfft_train["high"]),
-            ("pfft_cols_fwd_bf16", tc_src, "cols_fwd_bf16", 379,
+            ("pfft_cols_fwd_bf16", wg_pfft_src, "cols_fwd_bf16", 379,
              pmain["cols_fwd_bf16"][0], default["pfft"]),
             ("pfft_rows_combine_bf16", wg_pfft_src, "rows_bf16", 398,
              max(pmain["rows_bf16_forward"][0],
@@ -5775,7 +5826,8 @@ def main():
             label: {name: dict(zip(("kernel", "plain_float32", "max_abs",
                                     "cufft_pair"), e))
                     for name, e in pfft[label].items()}
-            for label in pfft if label not in ("timing", "bounds")},
+            for label in pfft if label not in ("timing", "bounds", "tall")},
+        "tall_pass1": pfft["tall"],
         "ms": ptiming, "bounds": pbound,
         "path": {**{f"{key}_{dial}": pfft_train[dial][key]
                     for dial in ("high", "highest")

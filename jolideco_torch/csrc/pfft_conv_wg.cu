@@ -1,19 +1,19 @@
 // K3's matrix-DFT passes on Hopper's warpgroup instructions (sm_90a):
-// passes 2 and 3 in every mode of the precision dial ("f32", the
+// the three passes in every mode of the precision dial ("f32", the
 // "highest" setting; "split", the default; "bf16", the "default"
-// setting) and pass 1 of "f32". Built by nvcc into a shared library with
-// a plain C interface and loaded with ctypes (jolideco_torch/utils/
-// cuda_build.py); the wrappers (pfft_rows_combine_cuda,
+// setting). Built by nvcc into a shared library with a plain C interface
+// and loaded with ctypes (jolideco_torch/utils/cuda_build.py); the
+// wrappers (pfft_cols_fwd_cuda, pfft_cols_fwd_tc_cuda,
+// pfft_cols_fwd_bf16_cuda; pfft_rows_combine_cuda,
 // pfft_rows_combine_tc_cuda, pfft_rows_combine_bf16_cuda;
-// pfft_cols_inv_cuda, pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda;
-// pfft_cols_fwd_cuda) and their plain versions (rows_combine_plain,
-// cols_inv_plain, cols_fwd_plain with mode "f32", "split" or "bf16"; in
-// "f32" the CPU path's own) are in jolideco_torch/ops/pallas_fft.py. Pass
-// 1 of the bf16 modes stays on pfft_conv_tc.cu (mma.sync). The modes:
-// kProd bf16 products a k16 step, 3 for "split" (hi.hi + hi.lo + lo.hi
-// of the operands' bf16 hi and lo parts), 1 for "bf16" (hi.hi), and kF32
-// for "f32", six products of three-way splits (described after pass 3 of
-// the bf16 modes, below).
+// pfft_cols_inv_cuda, pfft_cols_inv_tc_cuda, pfft_cols_inv_bf16_cuda)
+// and their plain versions (cols_fwd_plain, rows_combine_plain,
+// cols_inv_plain with mode "f32", "split" or "bf16"; in "f32" the CPU
+// path's own) are in jolideco_torch/ops/pallas_fft.py. The modes: kProd
+// bf16 products a k16 step, 3 for "split" (hi.hi + hi.lo + lo.hi of the
+// operands' bf16 hi and lo parts), 1 for "bf16" (hi.hi), and kF32 for
+// "f32", six products of three-way splits (described after pass 3 of the
+// bf16 modes, below).
 //
 // The algorithm: for P pairs of real (H, W) images (H, W multiples of
 // 128) and a transform size n = 128 m, the three passes compute y0 = x0 *
@@ -30,21 +30,23 @@
 // conjugate stage-A weights. With conj_spec the imaginary parts of A and
 // B2 change sign: that is the adjoint (a correlation).
 //
-// What it replaces: the JAX package's ops/pallas_fft.py::_k2_body (pass
-// 2: per row the lane forward, the spectrum combine, the lane inverse and
-// the permuted forward, cropped to W columns) and ::_k3_body (pass 3: the
+// What it replaces: the JAX package's ops/pallas_fft.py::_k1_body (pass
+// 1: the axis-0 forward into permuted rows), ::_k2_body (pass 2: per row
+// the lane forward, the spectrum combine, the lane inverse and the
+// permuted forward, cropped to W columns) and ::_k3_body (pass 3: the
 // axis-0 inverse plus permuted forward, cropped to H rows) under every
-// precision; ::_k1_body (pass 1: the axis-0 forward into permuted rows)
-// under HIGHEST. In this port they replace pfft_conv_tc.cu's mma.sync
-// passes 2 and 3 and pfft_conv.cu's float32 passes (FFMA on the CUDA
-// cores), which are gone.
+// precision. In this port they replace the earlier mma.sync kernels of
+// the bf16 modes and the float32 FFMA kernels of the CUDA cores, which
+// are gone.
 //
-// The roundings are the plain version's, and the JAX package's: each
-// product rounds its data operand (S_k2, A . Z or conj(B2) . Z,
-// V1 +- conj V2) and the stage matrix of its k2, mf[k2] or mi[k2], whose
-// entries carry the twiddles. So the k2 of a strip each take their own
-// table; the products of a k2 are m64n8k16 (pass 2's lane forward, the
-// strip's eight rows) and m64n16k16 (the two signs' eight rows each).
+// Pass 1 of the bf16 modes has its own section below (one table for
+// every k2). In passes 2 and 3, and in pass 1 of "f32", the roundings
+// are the plain version's, and the JAX package's: each product rounds
+// its data operand (S_k2, A . Z or conj(B2) . Z, V1 +- conj V2) and the
+// stage matrix of its k2, mf[k2] or mi[k2], whose entries carry the
+// twiddles. So the k2 of a strip each take their own table; the
+// products of a k2 are m64n8k16 (pass 2's lane forward, the strip's
+// eight rows) and m64n16k16 (the two signs' eight rows each).
 //
 // A table is a complex 128 x 128 matrix M[k1][b] (input k1, output b),
 // held as its real and imaginary planes, transposed: the products' A
@@ -54,7 +56,8 @@
 // are the real and the imaginary parts of its 64 outputs b:
 //     Re z = x_re Re M - x_im Im M,   Im z = x_re Im M + x_im Re M,
 // four products a k16 step and a table plane read once, half the bytes
-// of the interleaved real form (pfft_conv_tc.cu's header). Each thread's
+// of the interleaved real form (R, 256 x 256: the plain version's,
+// ops/pallas_fft.py::interleaved_stage_matrices). Each thread's
 // accumulator rows lane / 4 and lane / 4 + 8 of both tiles are outputs b
 // and b + 8, complete.
 //
@@ -356,10 +359,15 @@ __device__ __forceinline__ void put_op(unsigned char* op, int n, int k,
 template <int kN, int kSign>
 __device__ __forceinline__ void issue(float* d, uint64_t a, uint64_t b,
                                       int scale_d) {
+  static_assert(kN == 8 || kN == 16 || kN == 32 || kN == 48, "wgmma N");
   if constexpr (kN == 8)
     wg::wgmma_ss_n8<kSign>(d, a, b, scale_d);
-  else
+  else if constexpr (kN == 16)
     wg::wgmma_ss_n16<kSign>(d, a, b, scale_d);
+  else if constexpr (kN == 32)
+    wg::wgmma_ss_n32<kSign>(d, a, b, scale_d);
+  else
+    wg::wgmma_ss_n48<kSign>(d, a, b, scale_d);
 }
 
 // d (+)= kSign A B for one k16 step: A the warpgroup's 64 rows of plane
@@ -697,6 +705,372 @@ __device__ __forceinline__ void init_barriers(uint64_t* full,
     wg::mbar_fence_init();
   }
   __syncthreads();
+}
+
+// ---------------------------------------------------------------------
+// pass 1 of the bf16 modes
+//
+// pfft_cols_fwd_wg_kernel<kProd, kCols> computes the plain version's
+// pass 1 (ops/pallas_fft.py::cols_fwd_plain, mode "split" or "bf16"):
+// since mf[k2][n1][k1] = W128^(n1 k1) Wn^(n1 k2), stage A ends with the
+// twiddle tw[k2][n1] = Wn^(n1 k2) in float32,
+//     S'[n1][c] = tw[k2][n1] sum_n2 wf[n2][k2] z[128 n2 + n1][c]
+// (z = x0 + i x1), and every k2 multiplies the one matrix F = mf[0]:
+//     U[128 k2 + k1][c] = (S'^T F)[c][k1].
+// The roundings are the plain version's: the operand S' split (or
+// rounded) once as it is written, F's bf16 planes (wg_stage_tables(m)[0,
+// 0], the table of passes 2 and 3, its first k2). The JAX package's
+// _k1_body rounds mf[k2] itself for each k2 instead; both lie within
+// split's error of float64 (tests/test_torch_pfft_split.py).
+//
+// An item is (pair, kCols columns), a unit an item's kG = kN1 / kCols
+// consecutive k2 (kN1 = 32 operand rows; the last unit of an item may
+// run past m: zero rows, nothing stored). Items of 16 columns where the
+// image has up to 1024 rows, of 8 up to 2048 (the x2 path's m = 17);
+// taller images read the blocks past the 16th from L2 each unit. The CTA
+// (one an SM) walks its units (UnitWalk: in rounds of neighbouring
+// items, so that the CTAs read and write the same rows at about the
+// same time; at 5 pairs of 1024^2, n = 1152, 1600 units: two rounds of
+// 132 items, then the last 56 items' 280 units, 12 or 13 a CTA) with its
+// three warpgroups in two roles:
+//   warpgroup 0 (setmaxnreg 120): copies F into shared memory once (4
+//            bulk copies on an mbarrier: chunks of 32 inputs n1, the hi
+//            and lo planes of Re F^T and Im F^T under "split", 128 KB,
+//            the hi planes under "bf16", 64 KB); then, unit by unit, waits
+//            for a full operand buffer, multiplies both tiles of 64
+//            outputs k1 (A = F's planes by descriptor, B = the operand
+//            rows, m64n32k16, four real products a k16 step with wgmma's
+//            sign on A, kProd bf16 products each), frees the buffer and
+//            stores U[128 k2 + k1][c] from its accumulators (16 bytes a
+//            thread, 64 contiguous bytes a row of four threads);
+//   warpgroups 1 and 2 (setmaxnreg 192): stage A into the other
+//            buffer. A thread's points are column c = tid % kCols and
+//            kPts = kCols / 2 consecutive n1; their x of the item's row
+//            blocks (up to 128 / kCols) is read from device memory once
+//            an item into its registers (128 of them); the sums of a
+//            unit's k2 run in one pass over the blocks, in float32, then
+//            the twiddle, then the split into the mode's planes as the
+//            operand rows are written (16- or 8-byte pieces of core-matrix
+//            rows), fenced to the async proxy, the buffer marked full.
+// Two operand buffers (full and empty mbarriers each) let stage A run a
+// unit ahead of the products.
+//
+// What bounds it on the H100: bytes, x read once and U written once (at
+// 5 pairs of 1024^2, n = 1152: 90 MB, 0.027 ms at 3.35 TB/s;
+// chip_smoke.py::pfft_bounds). The tensor cores' work is 4 real products
+// a complex one (9.1 G bf16 multiply-adds in "split", 0.018 ms at the
+// bf16 peak), their A tile read from shared memory by each instruction.
+// What holds it above that is the stage-A warpgroups' path, x's loads at
+// each new item and the float32 sums on eight warps (scripts/
+// torch_k3_variants.py, fwd_*); PERF.md section 6 has the times
+// (chip_smoke.py phase 2, scripts/torch_k3_times.py in turns with the
+// earlier kernel).
+//
+// Budgets (a CTA): shared memory F (128 or 64 KB) and two operand
+// buffers (32 rows in each plane: 32 or 16 KB each); registers 168 at
+// entry, 120 in warpgroup 0 (64 accumulators), 192 in warpgroups 1 and
+// 2 (128 of x), no spills (ptxas, chip_smoke.py phase 1).
+
+constexpr int kFwdThreads = 384;    // three warpgroups
+constexpr int kStageThreads = 256;  // warpgroups 1 and 2: stage A
+constexpr int kN1 = 32;             // operand rows of a product
+constexpr int kFwdBufs = 2;         // operand buffers
+// registers a thread after setmaxnreg: the multiplying warpgroup's (two
+// tiles of accumulators) and the stage-A warpgroups' (x's rows)
+constexpr int kMmaRegs = 120, kStageRegs = 192;
+static_assert(128 * kMmaRegs + kStageThreads * kStageRegs <= 65536,
+              "the SM's registers");
+
+template <int kProd>
+struct FwdLayout {
+  static constexpr int kFChunk = (kProd == 3 ? 2 : 1) * kPlane;
+  static constexpr int kF = kChunks * kFChunk;
+  static constexpr int kOpPlane = kN1 / 8 * kGroupBytes;
+  static constexpr int kBuf = (kProd == 3 ? 2 : 1) * kOpPlane;
+  static constexpr int kBarOffset = kF + kFwdBufs * kBuf;
+  // F's barrier, then full and empty of each operand buffer
+  static constexpr int kSmem = kBarOffset + (1 + 2 * kFwdBufs) * 8;
+  static_assert(kSmem <= kSmemMax, "shared memory of a CTA");
+};
+
+// kW 32-bit words at `at` (16- or 8-byte aligned)
+template <int kW>
+__device__ __forceinline__ void store_words(unsigned char* at,
+                                            const uint32_t (&w)[kW]) {
+  if constexpr (kW == 4)
+    *reinterpret_cast<uint4*>(at) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(at) = make_uint2(w[0], w[1]);
+}
+
+// The complex values s[0 .. kPts) into operand row n, inputs k0 .. k0 +
+// kPts - 1 (k0 a multiple of kPts, kPts 8 or 4) of the planes of mode
+// kProd (`plane` bytes apart): hi = bf16(x), and for "split" lo = bf16(x
+// - hi), round to nearest even; the real parts, then the imaginary ones
+// kImK further.
+template <int kProd, int kPts>
+__device__ __forceinline__ void put_rows(unsigned char* op, int plane, int n,
+                                         int k0, const float2 (&s)[kPts]) {
+  constexpr int kW = kPts / 2;
+  uint32_t hr[kW], hm[kW], lr[kW], lm[kW];
+#pragma unroll
+  for (int r = 0; r < kW; ++r) {
+    const float2 a = s[2 * r], b = s[2 * r + 1];
+    const bf16 ar = __float2bfloat16_rn(a.x), br = __float2bfloat16_rn(b.x);
+    const bf16 am = __float2bfloat16_rn(a.y), bm = __float2bfloat16_rn(b.y);
+    hr[r] = pack2(ar, br);
+    hm[r] = pack2(am, bm);
+    if constexpr (kProd == 3) {
+      lr[r] = pack2(__float2bfloat16_rn(a.x - __bfloat162float(ar)),
+                    __float2bfloat16_rn(b.x - __bfloat162float(br)));
+      lm[r] = pack2(__float2bfloat16_rn(a.y - __bfloat162float(am)),
+                    __float2bfloat16_rn(b.y - __bfloat162float(bm)));
+    }
+  }
+  unsigned char* at = op + operand_offset(n, k0);
+  store_words(at, hr);
+  store_words(at + kImK, hm);
+  if constexpr (kProd == 3) {
+    store_words(at + plane, lr);
+    store_words(at + plane + kImK, lm);
+  }
+}
+
+// Chunk c of a product: re, im (the 64 outputs k1 of tile t by the kN1
+// operand rows at b_hi, b_lo) += the rows' inputs 32 c .. 32 c + 31 times
+// F's (its chunk resident at st), issued, not waited for; chunk 0 starts
+// the sums.
+template <int kProd>
+__device__ __forceinline__ void fwd_chunk(float* re, float* im,
+                                          const unsigned char* st,
+                                          const unsigned char* b_hi,
+                                          const unsigned char* b_lo, int t,
+                                          int c) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int ks = 2 * c + s;
+    const int scale = (c > 0 || s > 0) ? 1 : 0;
+    // Re U = s_re Re F - s_im Im F;  Im U = s_re Im F + s_im Re F
+    mac<kN1, 1, kProd>(re, st, 0, t, s, b_hi, b_lo, ks, scale);
+    mac<kN1, -1, kProd>(re, st, 1, t, s, b_hi, b_lo, 8 + ks, 1);
+    mac<kN1, 1, kProd>(im, st, 1, t, s, b_hi, b_lo, ks, scale);
+    mac<kN1, 1, kProd>(im, st, 0, t, s, b_hi, b_lo, 8 + ks, 1);
+  }
+}
+
+// A CTA's units: in round r (while every CTA has a whole item) item r
+// gridDim.x + blockIdx.x, all its units; then the units of the items
+// left, a contiguous run a CTA. So the CTAs work on neighbouring items,
+// the same rows of x and of U, at about the same time, and no CTA has
+// more than one unit above the mean.
+struct UnitWalk {
+  int groups, rounds, rem0, rem1;
+  __device__ UnitWalk(int items, int groups_) : groups(groups_) {
+    rounds = items / gridDim.x;
+    const long long rem = (long long)(items - rounds * gridDim.x) * groups;
+    rem0 = (int)(rem * blockIdx.x / gridDim.x);
+    rem1 = (int)(rem * (blockIdx.x + 1) / gridDim.x);
+  }
+  __device__ int count() const { return rounds * groups + rem1 - rem0; }
+  // the CTA's unit s: its item and its group of k2
+  __device__ void at(int s, int& item, int& group) const {
+    if (s < rounds * groups) {
+      item = s / groups * gridDim.x + blockIdx.x;
+      group = s % groups;
+    } else {
+      const int r = rem0 + s - rounds * groups;
+      item = rounds * gridDim.x + r / groups;
+      group = r % groups;
+    }
+  }
+};
+
+template <int kProd, int kCols>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+pfft_cols_fwd_wg_kernel(const float* __restrict__ x0,
+                        const float* __restrict__ x1, int P, int H, int W,
+                        int m, const unsigned char* __restrict__ tables,
+                        const float2* __restrict__ wf,
+                        const float2* __restrict__ tw,
+                        float2* __restrict__ u) {
+  using L = FwdLayout<kProd>;
+  constexpr int kG = kN1 / kCols;                      // k2 a unit
+  constexpr int kPts = kLane * kCols / kStageThreads;  // n1 a thread
+  constexpr int kRes = kLane / kCols;                  // row blocks kept
+  static_assert(kN1 % kCols == 0 && (kPts == 8 || kPts == 4), "shapes");
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* f = smem;
+  unsigned char* op = smem + L::kF;
+  uint64_t* fbar = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* full = fbar + 1;
+  uint64_t* empty = full + kFwdBufs;
+
+  const int n = kLane * m, hb = H / kLane;
+  const int tiles = W / kCols, groups = (m + kG - 1) / kG;
+  const UnitWalk walk(P * tiles, groups);
+  const int units = walk.count();
+  if (units == 0) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    wg::mbar_init(fbar, 1);
+    for (int b = 0; b < kFwdBufs; ++b) {
+      wg::mbar_init(full + b, kStageThreads);
+      wg::mbar_init(empty + b, 4);
+    }
+    wg::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4) {
+    // stage A: S' of each unit's k2 into operand rows j kCols + c of
+    // buffer i % kFwdBufs (i the unit's place in the CTA's walk), once
+    // the products of unit i - kFwdBufs are done with it
+    wg::setmaxnreg_inc<kStageRegs>();
+    const int ta = tid - 128;
+    const int cs = ta % kCols, n1s = (ta / kCols) * kPts;
+    float2 z[kRes][kPts];
+    int item = -1;
+    for (int i = 0; i < units; ++i) {
+      const int b = i % kFwdBufs;
+      unsigned char* buf = op + b * L::kBuf;
+      int it, group;
+      walk.at(i, it, group);
+      const int k2_0 = group * kG;
+      // this thread's x of the item: rows 128 n2 + n1s + r, column cs
+      const size_t base =
+          ((size_t)(it / tiles) * H + n1s) * W + (it % tiles) * kCols + cs;
+      if (it != item) {
+        item = it;
+#pragma unroll
+        for (int n2 = 0; n2 < kRes; ++n2) {
+          if (n2 >= hb) break;
+#pragma unroll
+          for (int r = 0; r < kPts; ++r) {
+            const size_t at = base + ((size_t)kLane * n2 + r) * W;
+            z[n2][r] = make_float2(__ldg(x0 + at), __ldg(x1 + at));
+          }
+        }
+      }
+      if (i >= kFwdBufs)
+        wg::mbar_wait(empty + b, ((i / kFwdBufs) & 1) ^ 1);
+      // the sums over n2 of the unit's k2 at once (a k2 past m weighs 0)
+      float2 s[kG][kPts];
+#pragma unroll
+      for (int j = 0; j < kG; ++j)
+#pragma unroll
+        for (int r = 0; r < kPts; ++r) s[j][r] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int n2 = 0; n2 < kRes; ++n2) {
+        if (n2 >= hb) break;
+#pragma unroll
+        for (int j = 0; j < kG; ++j) {
+          const float2 w = k2_0 + j < m ? __ldg(wf + n2 * m + k2_0 + j)
+                                        : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int r = 0; r < kPts; ++r) cfma(s[j][r], w, z[n2][r]);
+        }
+      }
+      for (int n2 = kRes; n2 < hb; ++n2) {
+        float2 x[kPts];
+#pragma unroll
+        for (int r = 0; r < kPts; ++r) {
+          const size_t at = base + ((size_t)kLane * n2 + r) * W;
+          x[r] = make_float2(__ldg(x0 + at), __ldg(x1 + at));
+        }
+#pragma unroll
+        for (int j = 0; j < kG; ++j) {
+          const float2 w = k2_0 + j < m ? __ldg(wf + n2 * m + k2_0 + j)
+                                        : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int r = 0; r < kPts; ++r) cfma(s[j][r], w, x[r]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kG; ++j) {
+        const int k2 = k2_0 + j;
+        if (k2 < m) {
+          // the twiddle tw[k2][n1]
+          const float4* t4 =
+              reinterpret_cast<const float4*>(tw + k2 * kLane + n1s);
+#pragma unroll
+          for (int r = 0; r < kPts; r += 2) {
+            const float4 w = __ldg(t4 + r / 2);
+            s[j][r] = cmul(make_float2(w.x, w.y), s[j][r]);
+            s[j][r + 1] = cmul(make_float2(w.z, w.w), s[j][r + 1]);
+          }
+        }
+        put_rows<kProd>(buf, L::kOpPlane, j * kCols + cs, n1s, s[j]);
+      }
+      wg::fence_proxy_async();
+      wg::mbar_arrive(full + b);
+    }
+    return;
+  }
+
+  // warpgroup 0: F into shared memory, then each unit's products, both
+  // tiles of 64 outputs k1, and U's stores
+  wg::setmaxnreg_dec<kMmaRegs>();
+  if (tid == 0) {
+    wg::mbar_arrive_expect_tx(fbar, L::kF);
+    for (int c = 0; c < kChunks; ++c)
+      wg::bulk_load(f + c * L::kFChunk, tables + c * 2 * kPlane, L::kFChunk,
+                    fbar);
+  }
+  wg::mbar_wait(fbar, 0);
+  const int g = lane >> 2, q = lane & 3;
+  for (int i = 0; i < units; ++i) {
+    const int b = i % kFwdBufs;
+    wg::mbar_wait(full + b, (i / kFwdBufs) & 1);
+    const unsigned char* buf = op + b * L::kBuf;
+    float re[2][kN1 / 2], im[2][kN1 / 2];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < kN1 / 2; ++r) {
+        re[t][r] = 0.f;
+        im[t][r] = 0.f;
+      }
+    wg::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll 1
+      for (int c = 0; c < kChunks; ++c)
+        fwd_chunk<kProd>(re[t], im[t], f + c * L::kFChunk, buf,
+                         buf + L::kOpPlane, t, c);
+    wg::wgmma_commit();
+    wg::wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int r = 0; r < kN1 / 2; ++r) {
+        wg::fence_operand(re[t][r]);
+        wg::fence_operand(im[t][r]);
+      }
+    release(empty, b);  // the buffer is free for stage A
+    // U[128 k2 + k1][c0 + c]: accumulator 4 j + 2 h + e of tile t is k1 =
+    // 64 t + 16 warp + g + 8 h, operand row 8 j + 2 q + e, so k2 = k2_0 +
+    // 8 j / kCols, c = 8 j % kCols + 2 q + e
+    int it, group;
+    walk.at(i, it, group);
+    const int k2_0 = group * kG;
+    float2* out = u + ((size_t)(it / tiles) * n + 16 * warp + g) * W +
+                  (it % tiles) * kCols + 2 * q;
+#pragma unroll
+    for (int j = 0; j < kN1 / 8; ++j) {
+      const int k2 = k2_0 + 8 * j / kCols;
+      if (k2 >= m) break;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 4 * j + 2 * h;
+          *reinterpret_cast<float4*>(
+              out + ((size_t)kLane * k2 + 64 * t + 8 * h) * W +
+              8 * j % kCols) =
+              make_float4(re[t][r], im[t][r], re[t][r + 1], im[t][r + 1]);
+        }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1381,9 +1755,9 @@ int sms_per_device() {
   return sms;
 }
 
-// One CTA an SM (at most one a strip); the first CUDA error of setting
-// the shared-memory size and the launch.
-template <class Kernel, class... Args>
+// One CTA of kBlock threads an SM (at most one a strip); the first CUDA
+// error of setting the shared-memory size and the launch.
+template <int kBlock = kThreads, class Kernel, class... Args>
 int launch(Kernel kernel, int smem, int strips, cudaStream_t stream,
            Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -1392,8 +1766,35 @@ int launch(Kernel kernel, int smem, int strips, cudaStream_t stream,
   const int sms = sms_per_device();
   if (sms < 1) return static_cast<int>(cudaErrorInvalidDevice);
   const int blocks = strips < sms ? strips : sms;
-  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  kernel<<<blocks, kBlock, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// pass 1 of mode kProd, items of kCols columns
+template <int kProd, int kCols>
+int cols_fwd_items(const float* x0, const float* x1, int P, int H, int W,
+                   int m, const void* tables, const float2* wf,
+                   const float2* tw, float2* u, cudaStream_t stream) {
+  constexpr int kG = kN1 / kCols;
+  return launch<kFwdThreads>(pfft_cols_fwd_wg_kernel<kProd, kCols>,
+                             FwdLayout<kProd>::kSmem,
+                             P * (W / kCols) * ((m + kG - 1) / kG), stream,
+                             x0, x1, P, H, W, m,
+                             static_cast<const unsigned char*>(tables), wf,
+                             tw, u);
+}
+
+// Items of 16 columns keep up to 8 row blocks of x in registers, items of
+// 8 columns up to 16: the wider where the image's rows all fit.
+template <int kProd>
+int cols_fwd_wg(const float* x0, const float* x1, int P, int H, int W,
+                int m, const void* tables, const float2* wf,
+                const float2* tw, float2* u, cudaStream_t stream) {
+  if (H <= kLane * (kLane / 16))
+    return cols_fwd_items<kProd, 16>(x0, x1, P, H, W, m, tables, wf, tw, u,
+                                     stream);
+  return cols_fwd_items<kProd, 8>(x0, x1, P, H, W, m, tables, wf, tw, u,
+                                  stream);
 }
 
 // pass 2 of mode kProd by its kernel
@@ -1443,6 +1844,23 @@ bool valid(int m, int products) {
 }  // namespace
 
 extern "C" {
+
+// Pass 1 on x0, x1 (P, H, W) into U (P, 128 m, W) complex; tables are
+// ops/pallas_fft.py::wg_stage_tables(m) on the device (the kernel reads
+// its first k2's mf, F = mf[0]), wf (m, m) complex, tw (m, 128) complex,
+// tw[k2][n1] = mf[k2][n1][0]. products is 3 ("split") or 1 ("bf16").
+// Returns the first CUDA error of setting the shared-memory size and the
+// launch (0 = cudaSuccess); 1 (cudaErrorInvalidValue) for m < 1 or
+// another number of products.
+int pfft_cols_fwd_wg(const float* x0, const float* x1, int P, int H, int W,
+                     int m, const void* tables, const float2* wf,
+                     const float2* tw, float2* u, int products,
+                     cudaStream_t stream) {
+  if (!valid(m, products)) return static_cast<int>(cudaErrorInvalidValue);
+  if (products == 3)
+    return cols_fwd_wg<3>(x0, x1, P, H, W, m, tables, wf, tw, u, stream);
+  return cols_fwd_wg<1>(x0, x1, P, H, W, m, tables, wf, tw, u, stream);
+}
 
 // Pass 2 on U (P, 128 m, W) complex and the spectra (P, 128 m, 128 m);
 // tables are ops/pallas_fft.py::wg_stage_tables(m) on the device; wf, wi

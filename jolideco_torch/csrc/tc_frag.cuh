@@ -1,7 +1,7 @@
-// Warp-level tensor-core helpers for Hopper (sm_90a), shared by the
-// kernels of the precision dial's "split" and "bf16" modes:
-// pfft_conv_tc.cu (K3's three passes) and gmm_fused_tc.cu (the GMM
-// logits). Copies into shared memory with cp.async, fragments from
+// Warp-level tensor-core helpers for Hopper (sm_90a), shared by
+// gmm_fused_tc.cu (the GMM logits of the precision dial's "split" and
+// "bf16" modes) and pfft_conv_wg.cu (K3: the bf16 type, cp.async and
+// ldmatrix). Copies into shared memory with cp.async, fragments from
 // shared memory with ldmatrix, the mma.sync m16n8k16 product (bf16
 // operands, float32 accumulators) and an operand pair put into the bf16
 // planes of either mode: its hi/lo split (three products) or its bf16

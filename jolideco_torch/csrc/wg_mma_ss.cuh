@@ -1,6 +1,7 @@
 // The wgmma shapes of pfft_conv_wg.cu, bf16 operands, float32
 // accumulators, B a K-major descriptor of shared memory (no transpose):
-// m64n8k16 and m64n16k16 with A a K-major descriptor too, and m64n8k16,
+// m64n8k16, m64n16k16, m64n32k16 and m64n48k16 with A a K-major
+// descriptor too, and m64n8k16,
 // m64n16k16 and m64n32k16 with A from registers (the m16n8k16 A fragment
 // of each warp's 16 rows: rows lane / 4 and lane / 4 + 8, k 2 (lane % 4)
 // (+1) and + 8, as wg_mma_n200.cuh's). A is scaled by kSignA = +1 or -1 (the
@@ -68,6 +69,47 @@ __device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t desc_a,
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n32k16
+template <int kSignA>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, %19, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kSignA));
+}
+
+// d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n48k16
+template <int kSignA>
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, %27, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kSignA));
 }
 
 // d = kSignA A B (scale_d 0) or d += kSignA A B (scale_d 1), m64n8k16,

@@ -31,14 +31,14 @@ with one contract:
   (``csrc/pfft_conv_wg.cu``, ``wgmma``: six bf16 products of three-way
   splits, :func:`bf16_split3`, summed in float32, the TPU's
   ``Precision.HIGHEST``). In ``"split"`` mode (the
-  default dial's) the three passes run on the tensor cores:
-  :func:`pfft_cols_fwd_tc_cuda` (``csrc/pfft_conv_tc.cu``,
-  ``mma.sync``), :func:`pfft_rows_combine_tc_cuda` and
-  :func:`pfft_cols_inv_tc_cuda` (``csrc/pfft_conv_wg.cu``, ``wgmma``); in
-  ``"bf16"`` mode (the ``"default"`` setting's) the same kernels with one
-  product a step: :func:`pfft_cols_fwd_bf16_cuda`,
-  :func:`pfft_rows_combine_bf16_cuda`, :func:`pfft_cols_inv_bf16_cuda`.
-  Each header says what bounds the kernel and how it is built;
+  default dial's) the three passes run on the tensor cores too, three
+  bf16 products a step (``csrc/pfft_conv_wg.cu``, ``wgmma``):
+  :func:`pfft_cols_fwd_tc_cuda`, :func:`pfft_rows_combine_tc_cuda` and
+  :func:`pfft_cols_inv_tc_cuda`; in ``"bf16"`` mode (the ``"default"``
+  setting's) the same kernels with one product a step:
+  :func:`pfft_cols_fwd_bf16_cuda`, :func:`pfft_rows_combine_bf16_cuda`,
+  :func:`pfft_cols_inv_bf16_cuda`. The file's header says what bounds
+  each kernel and how it is built;
 - a plain PyTorch version (einsums on the stage tables), run for a
   tensor on the CPU and the reference of the kernels on the card:
   :func:`conv_packed_pfft_plain`, in float32 or float64.
@@ -50,14 +50,16 @@ The rule is ``config.dispatch``. Each wrapper counts its launches
 JAX package's ``_dot`` does: both operands split into bf16 high and low
 parts, three products ``hi.hi + hi.lo + lo.hi`` summed in float32.
 ``"bf16"`` likewise: both operands rounded to bf16, one product summed
-in float32. The complex product ``x . M`` runs as a real product of the
-interleaved row ``(re, im, re, im, ...)`` with the interleaved real
-``(256, 256)`` form of ``M`` (:func:`interleaved_stage_matrices`), 4
-real products per complex one where the TPU takes Karatsuba's 3 (and,
-in ``"bf16"``, also rounds their ``re + im`` sums to bf16). The plain
-version in float32 computes the same products, so on the CPU the
-``"pfft"`` path matches the card's kernels of either mode to summation
-order. In float64 the mode is ignored: that is the anchor.
+in float32. The plain version's complex product ``x . M`` runs as a
+real product of the interleaved row ``(re, im, re, im, ...)`` with the
+interleaved real ``(256, 256)`` form of ``M``
+(:func:`interleaved_stage_matrices`), 4 real products per complex one
+where the TPU takes Karatsuba's 3 (and, in ``"bf16"``, also rounds their
+``re + im`` sums to bf16); the kernels take the same bf16 products from
+the planes of ``M``'s real and imaginary parts (:func:`wg_stage_tables`),
+so on the CPU the ``"pfft"`` path matches the card's kernels of either
+mode to summation order. In float64 the mode is ignored: that is the
+anchor.
 
 The adjoint of the convolution is the correlation: the same pipeline
 with the imaginary parts of both spectra negated (``conj_spec``). The
@@ -103,7 +105,6 @@ __all__ = [
     "pfft_size",
     "reset_counters",
     "rows_combine_plain",
-    "tensor_core_tables",
     "wg_f32_tables",
     "wg_stage_tables",
 ]
@@ -435,15 +436,13 @@ def _check_images(x0, x1, n):
 
 
 def _library(name):
-    """``csrc/<name>.cu`` (``pfft_conv_tc`` or ``pfft_conv_wg``) loaded,
-    with its C functions' argument types: ``pfft_conv_tc`` pass 1 on
-    ``mma.sync`` (``pfft_cols_fwd_tc``: the images, the tiles of
-    :func:`tensor_core_tables`, the twiddles and the number of bf16
-    products a step); ``pfft_conv_wg`` passes 2 and 3 of the bf16 modes
-    (the tables of :func:`wg_stage_tables` and the products) and the
-    three passes in float32 (``pfft_cols_fwd_f32``, ``pfft_rows_f32``,
-    ``pfft_cols_inv_f32``: the tables of :func:`wg_f32_tables`). Each
-    function ends with the stream."""
+    """``csrc/<name>.cu`` (``pfft_conv_wg``) loaded, with its C functions'
+    argument types: the three passes of the bf16 modes
+    (``pfft_cols_fwd_wg``, ``pfft_rows_wg``, ``pfft_cols_inv_wg``: the
+    tables of :func:`wg_stage_tables`, pass 1 also the twiddles, and the
+    number of bf16 products a step) and in float32 (``pfft_cols_fwd_f32``,
+    ``pfft_rows_f32``, ``pfft_cols_inv_f32``: the tables of
+    :func:`wg_f32_tables`). Each function ends with the stream."""
     from ..utils.cuda_build import load_library
 
     lib = load_library(name)
@@ -455,17 +454,14 @@ def _library(name):
         rows = [vp] * 5 + [ci] * 4 + [vp] * 5
         cols_fwd = [vp, vp, ci, ci, ci, ci, vp, vp, vp]
         cols_inv = [vp, vp, ci, ci, ci, ci, vp, vp, vp, vp]
-        if name == "pfft_conv_wg":
-            signatures = {
-                "pfft_rows_wg": rows + [ci, vp],
-                "pfft_cols_inv_wg": cols_inv + [ci, vp],
-                "pfft_cols_fwd_f32": cols_fwd + [vp],
-                "pfft_rows_f32": rows + [vp],
-                "pfft_cols_inv_f32": cols_inv + [vp]}
-        else:
-            # pass 1 also takes the twiddles (before U) and the products
-            signatures = {"pfft_cols_fwd_tc": cols_fwd[:-1] + [vp, vp, ci,
-                                                              vp]}
+        signatures = {
+            # pass 1 of the bf16 modes also takes the twiddles (before U)
+            "pfft_cols_fwd_wg": cols_fwd[:-1] + [vp, vp, ci, vp],
+            "pfft_rows_wg": rows + [ci, vp],
+            "pfft_cols_inv_wg": cols_inv + [ci, vp],
+            "pfft_cols_fwd_f32": cols_fwd + [vp],
+            "pfft_rows_f32": rows + [vp],
+            "pfft_cols_inv_f32": cols_inv + [vp]}
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ci
@@ -474,25 +470,6 @@ def _library(name):
         errors.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
-
-
-TC_KTILE = 32  # rows of R per pipeline stage of the tensor-core kernels
-
-
-def tensor_core_tables(m):
-    """The ``mma.sync`` layout of ``mf``, bfloat16 ``(m, 8, 2, 256, 32)``:
-    per ``k2`` and per tile of 32 rows of ``R``
-    (:func:`interleaved_stage_matrices`), the hi and lo planes of ``R``'s
-    transpose (``[n][k]``, the mma's column-major B), so that one
-    pipeline stage is one contiguous 32 KB block. Pass 1's ``"split"``
-    and ``"bf16"`` kernel (``csrc/pfft_conv_tc.cu``) reads ``mf[0]``'s
-    tiles (the ``"bf16"`` instance each tile's hi plane, ``bf16(R)``)."""
-    rt = torch.as_tensor(interleaved_stage_matrices(m)["mf"]).transpose(-1,
-                                                                        -2)
-    planes = torch.stack([p.to(torch.bfloat16) for p in bf16_split(rt)],
-                         dim=1)  # [k2][hl][n][k]
-    tiles = planes.reshape(m, 2, 2 * PFFT_LANE, -1, TC_KTILE)
-    return tiles.permute(0, 3, 1, 2, 4).contiguous()
 
 
 WG_CHUNK = 32  # inputs k1 of a stage matrix a pipeline stage (wgmma)
@@ -526,10 +503,12 @@ def _wg_tables(m, split, chunk):
 
 def wg_stage_tables(m):
     """The ``"split"`` and ``"bf16"`` ``wgmma`` kernels' stage matrices
-    (``csrc/pfft_conv_wg.cu``, passes 2 and 3): :func:`_wg_tables`,
-    bfloat16 ``(2, m, 4, 16384)``, chunks of 32 inputs, the hi then the
-    lo plane of :func:`bf16_split`, which the plain version takes from
-    :func:`interleaved_stage_matrices`."""
+    (``csrc/pfft_conv_wg.cu``): :func:`_wg_tables`, bfloat16 ``(2, m, 4,
+    16384)``, chunks of 32 inputs, the hi then the lo plane of
+    :func:`bf16_split`, which the plain version takes from
+    :func:`interleaved_stage_matrices`. Passes 2 and 3 stream each
+    ``k2``'s table; pass 1 keeps ``mf[0]`` (``[0, 0]``, the 128-point
+    DFT) in shared memory for every ``k2``."""
     return _wg_tables(m, bf16_split, WG_CHUNK)
 
 
@@ -545,14 +524,11 @@ def wg_f32_tables(m):
 class _DeviceTables(dict):
     """The stage tables of one size on one device, each built at its
     first use: ``wf``, ``wi`` and the twiddles ``tw[k2][n1] =
-    mf[k2][n1, 0]`` (pass 1 on ``mma.sync``) as interleaved complex
-    float32, ``mf_tc`` as
-    :func:`tensor_core_tables`, ``wg`` as :func:`wg_stage_tables` and
-    ``wg3`` as :func:`wg_f32_tables`; a mode builds only those its
-    kernels read."""
+    mf[k2][n1, 0]`` (pass 1 of the bf16 modes) as interleaved complex
+    float32, ``wg`` as :func:`wg_stage_tables` and ``wg3`` as
+    :func:`wg_f32_tables`; a mode builds only those its kernels read."""
 
-    _BUILDERS = {"mf_tc": tensor_core_tables, "wg": wg_stage_tables,
-                 "wg3": wg_f32_tables}
+    _BUILDERS = {"wg": wg_stage_tables, "wg3": wg_f32_tables}
 
     def __init__(self, m, device):
         super().__init__()
@@ -622,9 +598,10 @@ def pfft_cols_fwd_cuda(x0, x1, n):
 
 
 def pfft_cols_fwd_tc_cuda(x0, x1, n):
-    """Launch pass 1 on the tensor cores (``"split"``): same arguments
-    and results as :func:`pfft_cols_fwd_cuda`, computed as
-    :func:`cols_fwd_plain` with ``mode="split"``."""
+    """Launch pass 1 on the tensor cores (``"split"``,
+    ``csrc/pfft_conv_wg.cu``): same arguments and results as
+    :func:`pfft_cols_fwd_cuda`, computed as :func:`cols_fwd_plain` with
+    ``mode="split"``."""
     u = _cols_fwd_tc(x0, x1, n, "split", "pfft_cols_fwd_tc_cuda")
     pfft_cols_fwd_tc_cuda.launches += 1
     return u
@@ -641,9 +618,9 @@ def pfft_cols_fwd_bf16_cuda(x0, x1, n):
 def _cols_fwd_tc(x0, x1, n, mode, name):
     device, p_, h, w, m, u = _cols_fwd_args(x0, x1, n, name)
     tab = _device_tables(m, device)
-    _launch("pfft_conv_tc", "pfft_cols_fwd_tc", "pfft_cols_fwd_tc_kernel",
+    _launch("pfft_conv_wg", "pfft_cols_fwd_wg", "pfft_cols_fwd_wg_kernel",
             device, x0.data_ptr(), x1.data_ptr(), p_, h, w, m,
-            tab["mf_tc"].data_ptr(), tab["wf"].data_ptr(),
+            tab["wg"].data_ptr(), tab["wf"].data_ptr(),
             tab["tw"].data_ptr(), u.data_ptr(), TC_PRODUCTS[mode])
     return u
 

@@ -1,9 +1,8 @@
-"""K2 (the MAP backward) and K3's pass 1 under ``"split"``, timed on a
-CUDA card in the port (``jolideco_torch``) of the checkout it runs from.
+"""K2 (the MAP backward), timed on a CUDA card in the port
+(``jolideco_torch``) of the checkout it runs from.
 
-The wrappers ``gmm_fused_bwd_cuda`` and ``pfft_cols_fwd_tc_cuda`` keep
-their signatures from commit to commit, so two commits are compared on
-one card in one run: unpack each into a directory of its own (``git
+The wrapper ``gmm_fused_bwd_cuda`` keeps its signature from commit to
+commit, so two commits are compared on one card in one run: unpack each into a directory of its own (``git
 archive``), then run this script from each checkout's root in turns
 (parent, change, change, parent). Each checkout builds its own kernels.
 
@@ -23,11 +22,10 @@ the first run (its K1 split, its ``MAPDeconvolver``) and saved to
 
 Each case gives the distinct components per tile of 128 patches, K2's ms
 a call (CUDA events) and of device time (``torch.profiler``: every kernel
-and fill of the call), and its error against the float32 plain version.
-Pass 1 (where the checkout has it): ``pfft_cols_fwd_tc_cuda`` at 5 pairs
-of 1024² and of 1024 x 896, n = 1152, by CUDA events. The timing and
-case helpers are this repository's ``chip_smoke.py``. Prints one JSON
-line, with the card's name and power limit.
+and fill of the call), and its error against the float32 plain version. The timing and case
+helpers are this repository's ``chip_smoke.py``. Prints one JSON line,
+with the card's name and power limit. (K3's passes, pass 1 among them,
+are timed in turns by ``scripts/torch_k3_times.py``.)
 """
 
 import argparse
@@ -89,29 +87,6 @@ def make_cases(torch, cs, device, gmm):
             for name, case in cases.items()}
 
 
-def pass1_times(torch, cs, device):
-    """Pass 1 under ``"split"`` at the main path's batches: ms (CUDA
-    events) and its error against the split plain version over that
-    version's max-abs."""
-    from jolideco_torch.ops import pallas_fft as pf
-
-    out = {}
-    for shape in ((1024, 1024), (1024, 896)):
-        rs = np.random.RandomState(4)
-        x0, x1 = (torch.as_tensor(rs.uniform(0.0, 2.0, (5,) + shape)
-                                  .astype(np.float32), device=device)
-                  for _ in range(2))
-        n = pf.pfft_size(max(shape) + 32)
-        got = pf.pfft_cols_fwd_tc_cuda(x0, x1, n)
-        want = pf.cols_fwd_plain(x0, x1, n, mode="split")
-        out["{}x{}".format(*shape)] = {
-            "ms": cs.cuda_ms(torch, lambda: pf.pfft_cols_fwd_tc_cuda(
-                x0, x1, n), 50),
-            "err": float((got - want).abs().max() / want.abs().max()),
-        }
-    return out
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--tag", required=True)
@@ -124,7 +99,6 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs = smoke()
-    from jolideco_torch.ops import pallas_fft as pf
     from jolideco_torch.priors import GaussianMixtureModel
     from jolideco_torch.utils import cuda_build
 
@@ -133,7 +107,7 @@ def main():
     # registers and spills, where this process built the library
     registers = {name: cs.ptxas_summary(
         cuda_build.BUILD_INFO.get(name, {}).get("ptxas", ""))
-        for name in ("gmm_fused", "pfft_conv_tc")}
+        for name in ("gmm_fused",)}
     gmm = GaussianMixtureModel.from_registry("astro-snr-v1")
     if not args.cases.exists():
         torch.save(make_cases(torch, cs, device, gmm), args.cases)
@@ -146,14 +120,12 @@ def main():
         k2[name] = cs.k2_case(torch, xtn, argmax, valid, dv, bufs,
                               (cs.FIELD, cs.FIELD), names=cs.K2_KERNELS[:1])
         print(f"{args.tag} K2 {name}: {cs.k2_case_line(k2[name])}")
-    pass1 = (pass1_times(torch, cs, device)
-             if hasattr(pf, "pfft_cols_fwd_tc_cuda") else None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(json.dumps({"tag": args.tag, "card": card, "k2": k2,
-                      "pass1": pass1, "registers": registers}))
+                      "registers": registers}))
 
 
 if __name__ == "__main__":

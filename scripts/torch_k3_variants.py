@@ -8,16 +8,27 @@ built by ``nvcc`` like the package's libraries (all at once, into
 events), the variants in turns (in order, then in reverse order; the
 two readings' mean).
 
-``--source wg`` (the default) takes ``csrc/pfft_conv_wg.cu``'s passes 2
-and 3 in both bf16 modes ("split": three bf16 products a step, "bf16":
+``--source wg`` (the default) takes ``csrc/pfft_conv_wg.cu``'s three
+passes in both bf16 modes ("split": three bf16 products a step, "bf16":
 one):
 
-- ``base``; ``no_products``: no ``wgmma``; ``no_tables``: the producer
-  issues no bulk copy and the consumers do not wait for one;
-  ``no_epilogue``: the k2 sums are not stored; ``no_loads``: U, the
-  spectra and V are not read (constants in their place); ``walk_own``,
-  ``walk_full``: the consumers' walk over a table's stages unrolled by
-  ptxas' own choice or fully, not one stage at a time.
+- ``base``; ``no_products``: no ``wgmma`` in passes 2 and 3;
+  ``no_tables``: the producer issues no bulk copy and the consumers do
+  not wait for one; ``no_epilogue``: the k2 sums are not stored;
+  ``no_loads``: U, the spectra and V are not read (constants in their
+  place); ``walk_own``, ``walk_full``: the consumers' walk over a
+  table's stages unrolled by ptxas' own choice or fully, not one stage
+  at a time;
+- pass 1 (``pfft_cols_fwd_wg_kernel``): ``fwd_regs``: 136 registers
+  for the multiplying warpgroup and 184 for the stage-A ones, not 120
+  and 192; ``fwd_runs``: each CTA a contiguous run of units, not rounds
+  of neighbouring items; ``fwd_3buf``: three operand buffers, not two;
+  ``fwd_n48``: 48 operand rows a product (m64n48k16: 3 k2 of 16
+  columns, 6 of 8), not 32; ``fwd_no_products``: no ``wgmma``;
+  ``fwd_no_x``: x not read (constants in its place); ``fwd_no_sums``: no
+  stage-A sums over the row blocks kept in registers and no twiddles;
+  ``fwd_no_stores``: U not stored (ptxas then drops the products too);
+  ``fwd_stcs``: U's stores streaming (evict-first).
 
 ``--source f32`` takes the same file's three float32 passes
 (``"highest"``: six bf16 products of three-way splits a step):
@@ -41,12 +52,16 @@ one):
   round in registers (``kRegK2``), the others in shared memory.
 
 ``--variants`` builds and times only the variants named (``base`` is
-always among them). Prints one JSON line (ms by variant, pass and mode,
+always among them), ``--passes`` only the passes named (``cols_fwd``,
+``rows``, ``cols_inv``), ``--size`` at 5 pairs of that square size (1024
+by default; 2048 is the x2 path's batch, n = 2176). Prints one JSON line
+(ms by variant, pass and mode,
 each variant's largest difference from the plain version of its mode
 over its max-abs (``rows_combine_plain``, ``cols_inv_plain``,
 ``cols_fwd_plain``), which only ``base`` and the variants that keep the
 arithmetic must keep small, ``ptxas``' register and spill lines, the
-card's name and power limit) and writes it to
+card's name and power limit; ptxas' C7517 lines, where it injected a
+``wgmma`` wait) and writes it to
 ``k3_variants_<source>.json`` in the checkout's output folder (beside
 ``build/``, listed in ``.gitignore``). Run from the root of a checkout:
 
@@ -97,6 +112,43 @@ WG_VARIANTS = {
     # fully, instead of one stage at a time
     "walk_own": [("#pragma unroll(kUnroll)\n", "")],
     "walk_full": [("walk_table<L, 1, 1>(", "walk_table<L, 1, 4>(")],
+    # pass 1
+    "fwd_regs": [("constexpr int kMmaRegs = 120, kStageRegs = 192;",
+                  "constexpr int kMmaRegs = 136, kStageRegs = 184;")],
+    "fwd_runs": [("    rounds = items / gridDim.x;", "    rounds = 0;")],
+    "fwd_3buf": [("constexpr int kFwdBufs = 2;",
+                  "constexpr int kFwdBufs = 3;")],
+    "fwd_n48": [("constexpr int kN1 = 32;", "constexpr int kN1 = 48;")],
+    "fwd_no_products": [("wg::wgmma_ss_n32<kSign>(", "(void)(")],
+    "fwd_no_x": [
+        ("z[n2][r] = make_float2(__ldg(x0 + at), __ldg(x1 + at));",
+         "z[n2][r] = make_float2((float)at, 1.f);"),
+        ("x[r] = make_float2(__ldg(x0 + at), __ldg(x1 + at));",
+         "x[r] = make_float2((float)at, 1.f);")],
+    "fwd_no_sums": [("      for (int n2 = 0; n2 < kRes; ++n2) {\n"
+                     "        if (n2 >= hb)",
+                     "      for (int n2 = 0; n2 < 0; ++n2) {\n"
+                     "        if (n2 >= hb)"),
+                    ("        if (k2 < m) {\n          // the twiddle",
+                     "        if (k2 < 0) {\n          // the twiddle")],
+    "fwd_no_stores": [
+        ("          *reinterpret_cast<float4*>(\n"
+         "              out + ((size_t)kLane * k2 + 64 * t + 8 * h) * W +\n"
+         "              8 * j % kCols) =\n"
+         "              make_float4(re[t][r], im[t][r], re[t][r + 1], "
+         "im[t][r + 1]);",
+         "          (void)out;")],
+    "fwd_stcs": [
+        ("          *reinterpret_cast<float4*>(\n"
+         "              out + ((size_t)kLane * k2 + 64 * t + 8 * h) * W +\n"
+         "              8 * j % kCols) =\n"
+         "              make_float4(re[t][r], im[t][r], re[t][r + 1], "
+         "im[t][r + 1]);",
+         "          __stcs(reinterpret_cast<float4*>(\n"
+         "              out + ((size_t)kLane * k2 + 64 * t + 8 * h) * W +\n"
+         "              8 * j % kCols),\n"
+         "              make_float4(re[t][r], im[t][r], re[t][r + 1], "
+         "im[t][r + 1]));")],
 }
 F32_VARIANTS = {
     "base": [],
@@ -160,8 +212,8 @@ SOURCES = {"wg": ("pfft_conv_wg", WG_VARIANTS, ("split", "bf16")),
 
 
 def calls(torch, kind, lib, s, mode):
-    """The passes of one variant library on the inputs ``s`` (``wg``:
-    passes 2 and 3 of ``mode``; ``f32``: the three passes), outputs
+    """The passes of one variant library on the inputs ``s`` (the three
+    passes: ``wg`` of ``mode``, ``f32`` in float32), outputs
     allocated once, each call one launch: ``{pass: (call, outputs)}``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     p_, n, w = s["u"].shape
@@ -193,11 +245,18 @@ def calls(torch, kind, lib, s, mode):
                 y1.data_ptr(), stream), (y0, y1))}
     else:
         prods = 3 if mode == "split" else 1
+        lib.pfft_cols_fwd_wg.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4 + [
+            ci, vp]
         lib.pfft_rows_wg.argtypes = [vp] * 5 + [ci] * 4 + [vp] * 5 + [ci, vp]
         lib.pfft_cols_inv_wg.argtypes = [vp, vp] + [ci] * 4 + [vp] * 4 + [
             ci, vp]
         tables = tab["wg"].data_ptr()
+        u = torch.empty_like(s["u"])
         passes = {
+            "cols_fwd": (lambda: lib.pfft_cols_fwd_wg(
+                s["x0"].data_ptr(), s["x1"].data_ptr(), p_, h, w, m, tables,
+                tab["wf"].data_ptr(), tab["tw"].data_ptr(), u.data_ptr(),
+                prods, stream), (u,)),
             "rows": (lambda: lib.pfft_rows_wg(
                 *rows_args, tables, tab["wf"].data_ptr(),
                 tab["wi"].data_ptr(), v1.data_ptr(), v2.data_ptr(), prods,
@@ -213,7 +272,8 @@ def calls(torch, kind, lib, s, mode):
                 raise RuntimeError(f"launch failed: CUDA error {code}")
         return run
 
-    return {name: (checked(fn), out) for name, (fn, out) in passes.items()}
+    return {name: (checked(fn), out) for name, (fn, out) in passes.items()
+            if name in s["passes"]}
 
 
 def card_name():
@@ -263,18 +323,19 @@ def timed_variants(torch, cs, pf, device, args):
     libs = {name: lib for name, (lib, _) in built.items()}
     ptxas = {name: [line.strip() for line in err.splitlines()
                     if "registers" in line or "spill" in line
-                    or "Function properties" in line]
+                    or "Function properties" in line or "C7517" in line]
              for name, (_, err) in built.items()}
-    x0, x1, planes, _, n = cs.pfft_inputs(torch, device, (1024, 1024), 4)
+    size = args.size
+    x0, x1, planes, _, n = cs.pfft_inputs(torch, device, (size, size), 4)
     u = pf.pfft_cols_fwd_cuda(x0, x1, n)
     v = pf.pfft_rows_combine_cuda(u, *planes)
-    s = {"x0": x0, "x1": x1, "u": u, "v": v, "h": 1024, "planes": planes,
-         "tables": pf._device_tables(n // 128, device)}
+    s = {"x0": x0, "x1": x1, "u": u, "v": v, "h": size, "planes": planes,
+         "tables": pf._device_tables(n // 128, device),
+         "passes": args.passes or ("cols_fwd", "rows", "cols_inv")}
     ref = {mode: {"rows": pf.rows_combine_plain(u, *planes, mode=mode),
-                  "cols_inv": pf.cols_inv_plain(*v, 1024, mode=mode)}
+                  "cols_inv": pf.cols_inv_plain(*v, size, mode=mode),
+                  "cols_fwd": (pf.cols_fwd_plain(x0, x1, n, mode=mode),)}
            for mode in modes}
-    if "f32" in ref:
-        ref["f32"]["cols_fwd"] = (pf.cols_fwd_plain(x0, x1, n),)
     runs = {(name, mode): calls(torch, args.source, lib, s, mode)
             for name, lib in libs.items() for mode in modes}
     errors = {}
@@ -303,7 +364,7 @@ def timed_variants(torch, cs, pf, device, args):
               "max-abs)")
     return json.dumps({"k3_variants": {
         "source": f"jolideco_torch/csrc/{lib_name}.cu",
-        "batch": "5 pairs of 1024^2, n = 1152", "ms": mean, "readings": ms,
+        "batch": f"5 pairs of {size}^2, n = {n}", "ms": mean, "readings": ms,
         "error_share": errors, "ptxas": ptxas, "card": card_name()}})
 
 
@@ -312,6 +373,9 @@ def main():
     parser.add_argument("--source", choices=sorted(SOURCES), default="wg")
     parser.add_argument("--reps", type=int, default=20)
     parser.add_argument("--variants", nargs="*")
+    parser.add_argument("--passes", nargs="*",
+                        choices=("cols_fwd", "rows", "cols_inv"))
+    parser.add_argument("--size", type=int, default=1024)
     parser.add_argument("--sweep", action="store_true")
     args = parser.parse_args()
 

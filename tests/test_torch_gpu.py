@@ -1154,12 +1154,15 @@ def test_pfft_tensor_core_kernels_match_float64(device, p_, h, w,
 
 @pytest.mark.parametrize("conj_spec", [False, True])
 @pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (1, 384, 256),
-                                    (5, 1024, 896), (1, 1152, 128)])
+                                    (5, 1024, 896), (1, 1152, 128),
+                                    (1, 2048, 256), (1, 2304, 128)])
 def test_pfft_tensor_core_pass1_matches_float64(device, p_, h, w, conj_spec):
     """Pass 1 on the tensor cores (``"split"``) against the split plain
-    version and float64, beside the float32 kernel; 1152 rows exceed
-    what a block keeps in shared memory (1024), so that image takes the
-    kernel's variant that re-reads its columns per k2."""
+    version and float64, beside the float32 kernel. Up to 1024 rows a
+    thread keeps its x in registers with items of 16 columns; 1152 and
+    2048 rows (the x2 path's m = 17) take items of 8 columns, up to 16
+    row blocks in registers; 2304 rows read the blocks past 16 from L2
+    for each k2."""
     from jolideco_torch.ops import pallas_fft as pf
 
     x0, x1, n, spectra = pfft_batch(device, p_, h, w, 33, h + w + p_)
@@ -1223,7 +1226,8 @@ def test_pfft_launches_by_mode(device, mode):
 
 
 @pytest.mark.parametrize("conj_spec", [False, True])
-@pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (2, 256, 128)])
+@pytest.mark.parametrize("p_,h,w", [(2, 128, 128), (2, 256, 128),
+                                    (1, 2048, 256)])
 def test_pfft_bf16_kernels_match_float64(device, p_, h, w, conj_spec):
     """K3's three passes in ``"bf16"`` mode and their pipeline against
     the plain version in float64 on the same inputs

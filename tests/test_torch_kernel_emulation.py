@@ -22,19 +22,20 @@ Dynamic shared memory (``extern __shared__``) becomes a static buffer of
 the card's 227 KB per block.
 
 The libraries it emulates are :data:`EMULATED`. The others are
-:data:`CARD_ONLY`: ``pfft_conv_tc`` and ``gmm_fused_tc`` are built from
-warp-level tensor-core instructions (``mma.sync``, ``ldmatrix``,
-``cp.async``) and bf16 types whose operands are spread over the 32
-threads of a warp, and ``gmm_score_wg`` (K1 and K4 of every mode, K5's
-MAP scorers of the bf16 modes) and ``pfft_conv_wg`` from
+:data:`CARD_ONLY`: ``gmm_fused_tc`` is built from warp-level
+tensor-core instructions (``mma.sync``, ``ldmatrix``, ``cp.async``) and
+bf16 types whose operands are spread over the 32 threads of a warp, and
+``gmm_score_wg`` (K1 and K4 of every mode, K5's MAP scorers of the bf16
+modes) and ``pfft_conv_wg`` (K3's three passes in every mode) from
 warpgroup ones (``wgmma``, whose operands are spread over the 128
 threads of four warps, bulk copies completing on ``mbarrier``\ s, named
 barriers and ``setmaxnreg``), so a block of one thread cannot run them;
 the card holds them instead
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
 their plain versions (``mode="split"``, ``"bf16"``) and their arithmetic
-written out in PyTorch (``tests/test_torch_pfft_f32.py``, the matrix-DFT
-convolution in float32; ``tests/test_torch_gmm_marg_f32.py`` and
+written out in PyTorch (``tests/test_torch_pfft_f32.py`` and
+``tests/test_torch_pfft_wg.py``, the matrix-DFT convolution in float32
+and in the bf16 modes; ``tests/test_torch_gmm_marg_f32.py`` and
 ``tests/test_torch_gmm_marg_wg.py``, K1 and K4 of every mode) are held
 against the JAX package.
 
@@ -132,8 +133,7 @@ def emulated_source(source):
 
 # the libraries this file compiles for the CPU, and those it cannot
 EMULATED = ("gmm_fused", "gmm_patch")
-CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_tc",
-             "pfft_conv_wg")
+CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_wg")
 
 
 def test_every_library_is_emulated_or_card_only():

@@ -336,8 +336,8 @@ def test_highest_routes_passes_1_and_3_to_the_warpgroup_kernels(
 
 @pytest.mark.parametrize("mode, built", [
     ("f32", {"wf", "wi", "wg3"}),
-    ("split", {"wf", "wi", "tw", "mf_tc", "wg"}),
-    ("bf16", {"wf", "wi", "tw", "mf_tc", "wg"})])
+    ("split", {"wf", "wi", "tw", "wg"}),
+    ("bf16", {"wf", "wi", "tw", "wg"})])
 def test_a_mode_builds_only_the_tables_its_kernels_read(monkeypatch, mode,
                                                         built):
     """The device tables are built at first use: a mode's three passes

@@ -8,8 +8,9 @@ form ``R`` of each stage matrix; the JAX package runs its Pallas kernels
 in the interpreter, in its ``"split"`` mode (Karatsuba's 3 complex
 products). Tolerances, each with its reason:
 
-- ``R`` reproduces the complex product to float64 rounding (1e-12), and
-  the tensor-core tables are ``R``'s bf16 hi and lo planes exactly;
+- ``R`` reproduces the complex product to float64 rounding (1e-12) (the
+  kernels' tables, the planes of ``R``'s bf16 hi and lo parts, are held in
+  ``tests/test_torch_pfft_wg.py``);
 - the convolution and its gradient within ``3.1e-5 x`` their max-abs of
   the JAX package's: split's documented error at the benchmark shape
   (``jolideco_tpu/ops/pallas_fft.py:86-102``), split against split
@@ -70,23 +71,6 @@ def test_interleaved_matrices_reproduce_the_complex_product(m):
         xi = x.view(np.float64).reshape(m, 5, 256)
         got = (xi @ rr).view(np.complex128).reshape(m, 5, 128)
         assert_allclose(got, want, rtol=0, atol=1e-12 * np.abs(want).max())
-
-
-@pytest.mark.parametrize("m", [2, 9])
-def test_tensor_core_tables_are_the_split_planes_tile_by_tile(m):
-    """Tile ``kt`` of ``k2`` holds ``R(mf)[k2][32 kt : 32 kt + 32, :]``
-    transposed (``[n][k]``), hi plane then lo plane, as pass 1's kernel
-    reads it; hi + lo is R to bf16's split error."""
-    tab = pf.tensor_core_tables(m)
-    assert tab.dtype == torch.bfloat16
-    assert tuple(tab.shape) == (m, 8, 2, 256, 32) and tab.is_contiguous()
-    r = pf.interleaved_stage_matrices(m)["mf"]
-    rt = torch.as_tensor(r).transpose(-1, -2)
-    hi, lo = pf.bf16_split(rt)
-    back = tab.float().permute(0, 2, 3, 1, 4).reshape(m, 2, 256, 256)
-    assert torch.equal(back[:, 0], hi) and torch.equal(back[:, 1], lo)
-    err = float((hi + lo - rt).abs().max())
-    assert err <= 2.0 ** -16 * float(rt.abs().max())
 
 
 def test_bf16_split():
@@ -239,20 +223,24 @@ def test_split_adjoint_identity():
 
 
 def test_tensor_core_wrappers_need_the_card():
+    """The bf16 modes' wrappers (the three passes of ``pfft_conv_wg``)
+    launch a kernel or raise: a CPU tensor takes the plain version only
+    through ``conv_packed_pfft``, never through a wrapper."""
     v = torch.zeros((1, 256, 128), dtype=torch.complex64)
     s = torch.zeros((1, 256, 256))
     x = torch.zeros((1, 128, 128))
     for launch in (lambda: pf.pfft_cols_fwd_tc_cuda(x, x, 256),
+                   lambda: pf.pfft_cols_fwd_bf16_cuda(x, x, 256),
                    lambda: pf.pfft_rows_combine_tc_cuda(v, s, s, s, s),
                    lambda: pf.pfft_cols_inv_tc_cuda(v, v, 128)):
         with pytest.raises(ValueError, match="CUDA tensor"):
             launch()
 
 
-def jax_cols_fwd_split(x0, x1, n):
-    """The JAX package's pass 1 (``_k1_body``) in ``"split"`` mode, through
-    ``pl.pallas_call`` in the interpreter, called as its
-    ``_pfft_conv_impl`` calls it; returns ``(u_re, u_im)``."""
+def jax_cols_fwd_split(x0, x1, n, mode="split"):
+    """The JAX package's pass 1 (``_k1_body``) in ``"split"`` mode (or
+    ``mode``), through ``pl.pallas_call`` in the interpreter, called as
+    its ``_pfft_conv_impl`` calls it; returns ``(u_re, u_im)``."""
     from functools import partial
 
     from jax.experimental import pallas as pl
@@ -268,7 +256,7 @@ def jax_cols_fwd_split(x0, x1, n):
     out = pl.BlockSpec((1, n, cc), lambda p, i: (p, 0, i),
                        memory_space=pltpu.VMEM)
     u_re, u_im = pl.pallas_call(
-        partial(jpf._k1_body, m=m, h=h, wf=t["wf"], mode="split"),
+        partial(jpf._k1_body, m=m, h=h, wf=t["wf"], mode=mode),
         grid=(p_, w // cc),
         in_specs=[cols, cols, *[jpf._const_spec(x) for x in mf_t]],
         out_specs=[out, out],

@@ -1,16 +1,22 @@
-"""K3's passes 2 and 3 as the ``wgmma`` kernels compute them.
+"""K3's three passes in the bf16 modes as the ``wgmma`` kernels compute them.
 
-``csrc/pfft_conv_wg.cu`` rounds what the plain version
+``csrc/pfft_conv_wg.cu``'s passes 2 and 3 round what the plain version
 (``rows_combine_plain``, ``cols_inv_plain``) and the JAX package round:
 each product's data operand and the stage matrix ``mf[k2]`` or
-``mi[k2]`` of its ``k2``. It takes each table as its real and imaginary
-planes (``wg_stage_tables``), a complex row as its real then its
-imaginary parts, and the sign of ``wgmma``'s A operand, and it sums over
-``k2`` in rounds of 9. This file holds that arithmetic, written out in
-PyTorch, against the plain version; the tables' layout against the
-plain version's split planes; the wrappers' routing; and the JAX
-package's Hessian action that ``tests/test_torch_gpu.py`` holds the
-card's against. Tolerances, each with its reason:
+``mi[k2]`` of its ``k2``. They take each table as its real and
+imaginary planes (``wg_stage_tables``), a complex row as its real then
+its imaginary parts, and the sign of ``wgmma``'s A operand, and they sum
+over ``k2`` in rounds of 9. Pass 1 rounds what the plain version
+(``cols_fwd_plain``) rounds: stage A in float32 ends with the twiddle
+``tw[k2][n1] = mf[k2][n1, 0]``, and every ``k2`` multiplies the one
+128-point DFT ``F = mf[0]``, whose planes the kernel keeps in shared
+memory (``wg_stage_tables(m)[0, 0]``), where the JAX package's
+``_k1_body`` rounds each ``mf[k2]``. This file holds that arithmetic,
+written out in PyTorch, against the plain version, float64 and (pass 1)
+the JAX package's kernel; the tables' layout against the plain
+version's split planes; the wrappers' routing; and the JAX package's
+Hessian action that ``tests/test_torch_gpu.py`` holds the card's
+against. Tolerances, each with its reason:
 
 - the tables are the split planes exactly, and the planar product of
   one ``k2`` is the interleaved one to float32 summation order (1e-6 of
@@ -20,6 +26,14 @@ card's against. Tolerances, each with its reason:
   of the mode's documented error (``3.1e-5`` and ``1.3e-2`` of the
   max-abs, ``tests/test_torch_pfft_split.py`` and
   ``tests/test_torch_default_dial.py``);
+- pass 1 so written against float64 as ``chip_smoke.py`` phase 2 holds
+  the card's kernel (``split_anchored``, ``bf16_anchored``: within twice
+  the mode's plain version's error plus 1e-6 of the max-abs, under
+  ``"split"`` also within 1e-4 of it, under ``"bf16"`` at least half the
+  plain version's error), and against the JAX package's ``_k1_body`` in
+  the interpreter within the mode's documented error (the two round
+  other operands: one ``F`` and a twiddled ``S`` here, each ``mf[k2]``
+  and Karatsuba's sums there);
 - the recorded Hessian action is the JAX package's to a thousandth of
   its bar.
 """
@@ -35,9 +49,11 @@ from numpy.testing import assert_allclose
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from jolideco_torch.ops import pallas_fft as pf
 from jolideco_tpu.ops import pallas_fft as jpf
 from test_torch_gpu import PFFT_HVP_JAX, pfft_hvp_case, pfft_hvp_port
+from test_torch_pfft_split import jax_cols_fwd_split
 
 torch.set_num_threads(1)
 SPLIT_BAR = 3.1e-5
@@ -130,6 +146,44 @@ def cols_inv_as_the_kernel(v1, v2, h, mode):
     return y0.reshape(p_, h, w), y1.reshape(p_, h, w)
 
 
+def cols_fwd_as_the_kernel(x0, x1, n, mode):
+    """Pass 1 as ``pfft_cols_fwd_wg_kernel`` computes it: stage A in
+    float32 (the sum over ``n2`` in order, then the twiddle ``tw[k2][n1]
+    = mf[k2][n1, 0]``), then for every ``k2`` the rows ``S'^T`` times
+    ``F = mf[0]``, its planes read back from the table the kernel keeps
+    (:func:`unpack`, ``[0, 0]``), with ``wgmma``'s sign on A, k16 step by
+    k16 step in the order the kernel issues its products."""
+    p_, h, w = x0.shape
+    m, hb = n // 128, h // 128
+    t = pf._plain_tables(m, torch.float32, x0.device)
+    f = unpack(m)[0, 0]  # (hl, part, k1, n1)
+    z = torch.complex(x0, x1).reshape(p_, hb, 1, 128, w)
+    s = 0
+    for n2 in range(hb):
+        s = s + t["wf"][n2][:, None, None] * z[:, n2]
+    s = s * t["mf"][:, :, :1]  # (P, m, 128 n1, W)
+    x = s.transpose(-1, -2)  # the operand rows (P, m, W, 128 n1)
+    if mode == "split":
+        xr, xi = pf.bf16_split(x.real.contiguous()), pf.bf16_split(
+            x.imag.contiguous())
+        pairs = ((1, 0), (0, 1), (0, 0))  # (A's plane, B's part)
+    else:
+        xr, xi = (pf.bf16_round(x.real.contiguous()),), (
+            pf.bf16_round(x.imag.contiguous()),)
+        pairs = ((0, 0),)
+    re = torch.zeros(x.shape)
+    im = torch.zeros(x.shape)
+    for k in range(0, 128, 16):
+        ks = slice(k, k + 16)
+        # Re U = s_re Re F - s_im Im F;  Im U = s_re Im F + s_im Re F
+        for acc, sign, part, xs in ((re, 1.0, 0, xr), (re, -1.0, 1, xi),
+                                    (im, 1.0, 1, xr), (im, 1.0, 0, xi)):
+            for a, b in pairs:
+                acc += sign * (xs[b][..., ks] @ f[a, part][:, ks].T)
+    u = torch.complex(re, im).transpose(-1, -2)
+    return u.reshape(p_, n, w)
+
+
 @pytest.mark.parametrize("m", [1, 2, 9])
 def test_wg_stage_tables_are_the_split_planes(m):
     """Each table is the hi and lo planes of the plain version's
@@ -189,6 +243,78 @@ def test_passes_as_the_kernels_compute_them(mode, m, conj_spec):
         assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=bar * scale)
 
 
+# pass 1's cases: m = 2, 9 (the main path's n = 1152) and 17 (the x2
+# path's n = 2176), each image smaller than its transform
+PASS1_CASES = {2: (2, 128, 128), 9: (1, 256, 128), 17: (1, 256, 128)}
+
+
+@pytest.fixture(scope="module")
+def pass1_jax():
+    """Per ``m`` of :data:`PASS1_CASES`: the images and the JAX package's
+    pass 1 (``_k1_body`` in the interpreter) of each bf16 mode."""
+    out = {}
+    for m, (p_, h, w) in PASS1_CASES.items():
+        rng = np.random.default_rng(100 + m)
+        x0, x1 = (rng.uniform(0.0, 2.0, (p_, h, w)).astype(np.float32)
+                  for _ in range(2))
+        out[m] = (x0, x1, {mode: jax_cols_fwd_split(x0, x1, 128 * m, mode)
+                           for mode in ("split", "bf16")})
+    return out
+
+
+@pytest.mark.parametrize("mode", ["split", "bf16"])
+@pytest.mark.parametrize("m", sorted(PASS1_CASES))
+def test_pass1_as_the_kernel_computes_it(pass1_jax, mode, m):
+    """Pass 1 written out as the kernel computes it against the plain
+    version of its mode, against float64 with phase 2's bar, and against
+    the JAX package's ``_k1_body`` of the mode."""
+    x0, x1, jax_u = pass1_jax[m]
+    n = 128 * m
+    xs = [torch.as_tensor(v) for v in (x0, x1)]
+    u = cols_fwd_as_the_kernel(*xs, n, mode)
+    assert u.dtype == torch.complex64 and tuple(u.shape) == (
+        x0.shape[0], n, x0.shape[2])
+    plain = pf.cols_fwd_plain(*xs, n, mode=mode)
+    bar = SPLIT_BAR if mode == "split" else BF16_BAR
+    scale = float(plain.abs().max())
+    assert_allclose(u.numpy(), plain.numpy(), rtol=0, atol=0.1 * bar * scale)
+    u64 = pf.cols_fwd_plain(*(v.double() for v in xs), n, torch.float64)
+    anchored = (chip_smoke.split_anchored if mode == "split"
+                else chip_smoke.bf16_anchored)
+    anchored(f"m = {m}", f"pass 1 {mode}", u, plain, u64)
+    j_re, j_im = jax_u[mode]
+    scale = max(float(np.abs(j_re).max()), float(np.abs(j_im).max()))
+    assert_allclose(u.real.numpy(), j_re, rtol=0, atol=bar * scale)
+    assert_allclose(u.imag.numpy(), j_im, rtol=0, atol=bar * scale)
+
+
+@pytest.mark.parametrize("m", [2, 9])
+def test_pass1_resident_table_is_the_dfts_split_planes(m):
+    """The bytes pass 1's kernel copies into shared memory, chunk ``c`` of
+    32 inputs ``n1`` each (``wg_stage_tables(m)[0, 0]``: the hi plane, then
+    the lo plane of ``"split"``, the real part then the imaginary part of
+    ``F^T``), read at the addresses its descriptors give (output ``k1``:
+    512 bytes a group of eight rows, 16 a row; input: 128 bytes a group of
+    eight, 2 each), are the bf16 split planes of ``F = mf[0]`` exactly,
+    and ``F`` is the 128-point DFT ``F[n1, k1] = exp(-2 pi i n1 k1 / 128)``
+    to float64 rounding."""
+    tab = pf.wg_stage_tables(m)[0, 0].view(-1)  # bf16, 4 x 32 KB
+    k1 = torch.arange(128)[:, None]
+    n1 = torch.arange(128)[None, :]
+    c, kc = n1 // 32, n1 % 32
+    within = (k1 // 8) * 512 + (kc // 8) * 128 + (k1 % 8) * 16 + (kc % 8) * 2
+    dft = pf._stage_tables(m)["mf"][0]  # [n1, k1]
+    assert_allclose(dft, np.exp(-2j * np.pi * np.outer(
+        np.arange(128), np.arange(128)) / 128), rtol=0, atol=1e-12)
+    for part, plane in enumerate((dft.real, dft.imag)):
+        ft = torch.as_tensor(plane.T.astype(np.float32))  # [k1][n1]
+        for hl, want in enumerate(pf.bf16_split(ft)):
+            at = (c * 32768 + hl * 16384 + part * 8192 + within) // 2
+            assert torch.equal(tab[at].float(), want)
+    # the "bf16" instance copies the hi planes alone: bf16(F)
+    assert torch.equal(pf.bf16_split(ft)[0], pf.bf16_round(ft))
+
+
 class FakeLibrary:
     """A kernel library whose C entries record their calls and succeed."""
 
@@ -209,10 +335,10 @@ class FakeLibrary:
 def test_dial_routes_passes_2_and_3_to_the_warpgroup_kernels(monkeypatch,
                                                              mode):
     """On a card, ``"split"`` and ``"bf16"`` launch ``pfft_conv_wg``'s
-    entries for passes 2 and 3 with the mode's products and the tables
-    of ``wg_stage_tables``, and pass 1 on ``pfft_conv_tc``; each wrapper
-    counts its launch. The libraries are recorded stand-ins and the
-    wrappers' CUDA check is lifted, so that a CPU tensor stands for a
+    entries for the three passes with the mode's products and the tables
+    of ``wg_stage_tables`` (pass 1 also the twiddles ``tw``); each
+    wrapper counts its launch. The libraries are recorded stand-ins and
+    the wrappers' CUDA check is lifted, so that a CPU tensor stands for a
     card's."""
     calls = []
     monkeypatch.setattr(pf, "_library",
@@ -227,18 +353,22 @@ def test_dial_routes_passes_2_and_3_to_the_warpgroup_kernels(monkeypatch,
     pf.reset_counters()
     pf.pfft_conv_cuda(x, x, *planes, 256, False, mode)
     assert [c[:2] for c in calls] == [
-        ("pfft_conv_tc", "pfft_cols_fwd_tc"), ("pfft_conv_wg", "pfft_rows_wg"),
+        ("pfft_conv_wg", "pfft_cols_fwd_wg"),
+        ("pfft_conv_wg", "pfft_rows_wg"),
         ("pfft_conv_wg", "pfft_cols_inv_wg")]
-    tables = pf._device_tables(2, x.device)["wg"].data_ptr()
+    tab = pf._device_tables(2, x.device)
+    tables = tab["wg"].data_ptr()
     products = pf.TC_PRODUCTS[mode]
-    rows, cols = calls[1][2], calls[2][2]
-    assert rows[5:11] == (2, 128, 2, 0, tables,
-                          pf._device_tables(2, x.device)["wf"].data_ptr())
+    fwd, rows, cols = (c[2] for c in calls)
+    assert fwd[2:10] == (2, 128, 128, 2, tables, tab["wf"].data_ptr(),
+                         tab["tw"].data_ptr(), rows[0])
+    assert fwd[-2:] == (products, 0)
+    assert rows[5:11] == (2, 128, 2, 0, tables, tab["wf"].data_ptr())
     assert rows[-2:] == (products, 0)
     assert cols[2:7] == (2, 128, 128, 2, tables)
     assert cols[-2:] == (products, 0)
     tag = "tc" if mode == "split" else "bf16"
-    for name in ("rows_combine", "cols_inv"):
+    for name in ("cols_fwd", "rows_combine", "cols_inv"):
         for t in ("tc", "bf16"):
             launches = getattr(pf, f"pfft_{name}_{t}_cuda").launches
             assert launches == int(t == tag)
