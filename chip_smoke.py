@@ -11,9 +11,9 @@ Phases, each printing one or more lines:
    power limit as ``nvidia-smi`` reports them;
 1. build the CUDA kernels from ``jolideco_torch/csrc`` with ``nvcc``, one
    compiler per source, all at once (the fused scorer's MAP backward,
-   the probe's marginalised row kernels on the tensor cores, K1 and K4
-   of every mode and the bf16 modes' MAP row scorers on the warpgroup
-   instructions, the patch-level scorer, the matrix-DFT
+   K1 and K4 of every mode, the bf16 modes' MAP row scorers and the
+   probe's marginalised row kernels of every mode on the warpgroup
+   instructions, the patch-level float32 kernels, the matrix-DFT
    convolution's three passes on the warpgroup instructions in every
    mode), each kernel's registers, spills and shared memory as
    ``ptxas`` reports them, and the count of ``HGMMA`` instructions in
@@ -83,9 +83,10 @@ Phases, each printing one or more lines:
    kernels at the final flux (at most 1e-4 of the patches differ); then
    the probe under both dials: under the default dial (training on K1
    lse split and K4 split) K5's logsumexp, the marginalise unit gradient
-   (K8) and the first stage of its Hessian action (K9a) on the tensor
-   cores (K5 lse split, K8 split, K9a split), under ``"highest"`` their
-   float32 kernels, the second stage (K9b) under both, each with its
+   (K8) and the first stage of its Hessian action (K9a) on the
+   warpgroup core's three-product instances (K5 lse split, K8 split,
+   K9a split), under ``"highest"`` its six-product ones, the second
+   stage (K9b) under both, each with its
    own counts, and the two runs' errors against each other; then a
    small run's flux and errors on the card against the CPU's plain
    path;
@@ -284,6 +285,7 @@ non-zero when there is no CUDA device or no ``jolideco_torch`` package
 beside it. It imports nothing of JAX.
 """
 
+import functools
 import json
 import os
 import re
@@ -477,16 +479,18 @@ FWD_WG_KERNELS = tuple(
     (f"pfft_cols_fwd_wg_kernel<{prod}, {cols}>",
      f"pfft_cols_fwd_wg_kernelILi{prod}ELi{cols}E")
     for prod in (3, 1) for cols in (16, 8))
-# the fused branch's instances of gmm_score_wg_kernel<image, products,
-# epilogue> beside the bf16 modes' MAP ones: K1 MAP of "highest" and K1
-# lse and K4 of every mode; their names in ptxas_summary and in the
-# machine code (mangled template arguments)
+# the instances of gmm_score_wg_kernel<image, products, epilogue> beside
+# the bf16 modes' MAP ones: K1 MAP of "highest", K1 lse and K4 of every
+# mode, and the probe's K5 lse, K8 and K9a of every mode (epilogues 1, 3
+# and 4 on rows); their names in ptxas_summary and in the machine code
+# (mangled template arguments)
 WG_FUSED_KERNELS = tuple(
     (f"gmm_score_wg_kernel<{str(image).lower()}, {prod}, {epi}>",
      f"gmm_score_wg_kernelILb{int(image)}ELi{prod}ELi{epi}E")
     for image, prod, epi in ((True, 6, 0), (True, 6, 1), (False, 6, 2),
                              (True, 3, 1), (False, 3, 2), (True, 1, 1),
-                             (False, 1, 2)))
+                             (False, 1, 2))
+    + tuple((False, prod, epi) for prod in (6, 3, 1) for epi in (1, 3, 4)))
 # K2's two kernels, by the names the profiler gives them
 K2_KERNELS = ("::gmm_bwd_kernel(", "::gmm_bwd_add_kernel(")
 # K9b's kernel, by the name the profiler gives it
@@ -529,9 +533,9 @@ def phase_build():
         print(f"phase 1 sass: {name} HGMMA {hgmma}; ptxas warnings "
               f"{warnings or 'none'}")
         check(hgmma > 0, f"{name} has no HGMMA instruction")
-    # K1 and K4 of every mode (gmm_score_wg's instances beside the bf16
-    # modes' MAP ones): wgmma each, and no wait that ptxas had to inject
-    # between products
+    # K1, K4 and the probe's K5 lse, K8 and K9a of every mode
+    # (gmm_score_wg's instances beside the bf16 modes' MAP ones): wgmma
+    # each, and no wait that ptxas had to inject between products
     info = BUILD_INFO["gmm_score_wg"]
     check(not any("C7517" in line for line in info["ptxas"].splitlines()),
           "ptxas injected a wgmma wait in gmm_score_wg")
@@ -561,15 +565,21 @@ def phase_build():
                              for line in spills), f"{kernel} spills")
 
 
+@functools.lru_cache(maxsize=None)
+def sass_text(path):
+    """A library's machine code (``cuobjdump -sass``), dumped once."""
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or str(Path(cuda_home) / "bin" /
+                                            "cuobjdump")
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def sass_count(path, opcode, kernel=None):
     """Instructions of ``opcode`` in a library's machine code
     (``cuobjdump -sass``), or in its functions whose (mangled) names hold
     ``kernel``."""
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    tool = shutil.which("cuobjdump") or str(Path(cuda_home) / "bin" /
-                                            "cuobjdump")
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
+    sass = sass_text(path)
     count, inside = 0, kernel is None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -582,7 +592,7 @@ def sass_count(path, opcode, kernel=None):
 def ptxas_summary(text):
     """Per kernel of ``nvcc -Xptxas -v`` output: its registers, shared
     memory and spills, under a readable name
-    (``gmm_score_wg_kernel<true, 6, 1>``, ``gmm_score_rows_tc_kernel<1>``)."""
+    (``gmm_score_wg_kernel<true, 6, 1>``, ``pfft_cols_fwd_wg_kernel<1, 8>``)."""
     out, kernel = [], None
     for line in text.splitlines():
         if "Function properties for" in line:
@@ -866,8 +876,8 @@ def split_value_checks(torch, tag, rows, bufs, tc, split_plain, fp32,
     flips = int((at != as_).sum())
     check(flips <= K1_SPLIT_FLIPS * n_rows,
           f"{tag}: argmax flips {flips} of {n_rows}")
-    if bufs["rec"].shape[0] > gf.KP_TC:
-        tile1 = int((at >= gf.KP_TC).sum())
+    if bufs["rec"].shape[0] > gf.KP_WG:
+        tile1 = int((at >= gf.KP_WG).sum())
         check(0 < tile1 < n_rows, f"{tag}: {tile1} of {n_rows} rows won in "
               f"the second tile of components")
         tag += f" ({tile1} of {n_rows} rows won in the second tile)"
@@ -1110,12 +1120,6 @@ def wg_bytes(bufs, mode):
             + bufs["lin_wg"].numel())
 
 
-def pair_bytes(bufs, mode):
-    """Bytes of ``A``'s bf16 planes that a tensor-core kernel of ``mode``
-    reads: hi and lo under ``"split"``, hi under ``"bf16"``."""
-    return 2 * bufs["pair_tc"].numel() // (2 if mode == "bf16" else 1)
-
-
 def normalised_rows(torch, image, sentinel):
     """The probe's rows of an image: grouped patches, masked, mean-free."""
     from jolideco_torch.ops.patches import view_as_overlapping_patches_grouped
@@ -1272,6 +1276,10 @@ def phase_patch_kernels(torch, device, bufs, cases):
                 x, bufs), 10),
             "score_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
                 x, bufs), 3),
+            "lse_ms": cuda_ms(torch, lambda: gp.gmm_score_rows_marg_cuda(
+                x, bufs), 10),
+            "lse_plain_ms": cuda_ms(torch, lambda: gp.score_rows_plain(
+                x, bufs, True), 3),
             **{f"{mode}_ms": cuda_ms(
                 torch, lambda m=mode: gp._SCORES_TC[m, False](x, bufs), 10)
                for mode in ("split", "bf16")},
@@ -1313,7 +1321,11 @@ def phase_patch_kernels(torch, device, bufs, cases):
         tm, sb = out["timing"], out["bounds"]["score_split"]
         bb = out["bounds"]["score_bf16"]
         print(f"phase 2 timing patch kernels {n} rows K={k}: K5 "
-              f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}); "
+              f"{tm['score_ms']:.3f} ms (plain {tm['score_plain_ms']:.3f}), "
+              f"logsumexp on wgmma {tm['lse_ms']:.3f} (plain "
+              f"{tm['lse_plain_ms']:.3f}; six-product bound "
+              f"{out['bounds']['score_six']['bound_ms']:.4f} ms, "
+              f"{out['bounds']['score_six']['bound_ms'] / tm['lse_ms']:.1%}); "
               f"K5 split {tm['split_ms']:.3f} ms, logsumexp "
               f"{tm['split_lse_ms']:.3f} (split plain "
               f"{tm['split_plain_ms']:.3f}; split bound "
@@ -2295,8 +2307,9 @@ def probe_split_timing(torch, bufs, s, plain=True, mode="split"):
     peak, the float32 A_k x terms of the nonzero weights (and their dot
     products with b_k or t) at the fp32 peak on top. Bytes: rows (and
     tangents) and the logsumexp read once, the output written once (K9a:
-    p and dp, (K, N)), the bf16 planes read, and of the A_k and b_k those
-    that some weight selects."""
+    p and dp, (K, N)), the warpgroup core's planes and linear terms read
+    (``wg_bytes``), and of the A_k and b_k those that some weight
+    selects."""
     from jolideco_torch.ops import gmm_fused as gf
     from jolideco_torch.ops import gmm_pallas as gp
 
@@ -2317,8 +2330,7 @@ def probe_split_timing(torch, bufs, s, plain=True, mode="split"):
     k, n = bufs["rec"].shape[0], x.shape[0]
     t_ops = (products(mode) * 2.0 * (2080 + 64) * k * n / PEAK_BF16_FLOPS
              + 2.0 * (4096 + 64) * s["nnz"] / PEAK_FP32_FLOPS)
-    fixed = (4 * bufs["bc"].numel() + pair_bytes(bufs, mode)
-             + 4 * s["used"] * (64 * 64 + 64))
+    fixed = wg_bytes(bufs, mode) + 4 * s["used"] * (64 * 64 + 64)
     bounds = {}
     for name, nbytes in (("unit", 4 * (2 * n * 64 + n)),
                          ("weights", 4 * (2 * n * 64 + n + 2 * k * n))):
@@ -2393,7 +2405,9 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
             if key == "astro":
                 instances = tuple(
                     f"gmm_score_wg_kernel<{image}, {products(mode)}, {epi}>:"
-                    for image, epi in (("true", 1), ("false", 2)))
+                    for image, epi in (("true", 1), ("false", 2),
+                                       ("false", 1), ("false", 3),
+                                       ("false", 4)))
                 line += (f"; {mode} plain {timing['fwd_plain_ms']:.3f}, "
                          f"{timing['bwd_plain_ms']:.3f}, "
                          f"{ptiming['unit_plain_ms']:.3f}, "
@@ -2402,11 +2416,9 @@ def phase_marg_split_kernels(torch, device, bufs, cases, marg, mode="split"):
                          f"{tm['bwd_ms']:.3f}, K8 {tm['unit_ms']:.3f}, K9a "
                          f"{tm['weights_ms']:.3f} ms; "
                          + " | ".join(
-                             [entry for entry in ptxas_summary(
+                             entry for entry in ptxas_summary(
                                  BUILD_INFO["gmm_score_wg"]["ptxas"])
-                              if entry.startswith(instances)]
-                             + ptxas_summary(
-                                 BUILD_INFO["gmm_fused_tc"]["ptxas"])))
+                             if entry.startswith(instances)))
             else:
                 line += (f"; float32 kernels (this call) K1 lse "
                          f"{tm['fwd_ms']:.3f}, K4 {tm['bwd_ms']:.3f}, K8 "
@@ -2847,6 +2859,7 @@ def counts():
         "gmm_fused_bwd_marg_tc": gf.gmm_fused_bwd_marg_tc_cuda.launches,
         "gmm_fused_bwd_marg_bf16": gf.gmm_fused_bwd_marg_bf16_cuda.launches,
         "gmm_score_rows": gp.gmm_score_rows_cuda.launches,
+        "gmm_score_rows_marg": gp.gmm_score_rows_marg_cuda.launches,
         "gmm_score_rows_tc": gp.gmm_score_rows_tc_cuda.launches,
         "gmm_score_rows_marg_tc": gp.gmm_score_rows_marg_tc_cuda.launches,
         "gmm_score_rows_bf16": gp.gmm_score_rows_bf16_cuda.launches,
@@ -3282,7 +3295,7 @@ MARG_PROBE_KERNELS = {
               "gmm_hvp_marg_weights_tc"),
     "bf16": ("gmm_score_rows_marg_bf16", "gmm_unit_marg_bf16",
              "gmm_hvp_marg_weights_bf16"),
-    "f32": ("gmm_score_rows", "gmm_unit_marg", "gmm_hvp_marg_weights"),
+    "f32": ("gmm_score_rows_marg", "gmm_unit_marg", "gmm_hvp_marg_weights"),
 }
 
 
@@ -5713,23 +5726,27 @@ def main():
          "jolideco_tpu/ops/gmm_fused.py:420", marg_train["high"],
          msmain["bwd_against_float64"]["tc"], mstiming["bwd_ms"],
          mstiming["bwd_plain_ms"], msbounds["bwd"]),
-        ("gmm_score_rows_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_score_rows_marg", wg_src,
+         "jolideco_tpu/ops/gmm_pallas.py:237", marg_probe["highest"],
+         rows["score_marg1"][0], rtiming["lse_ms"], rtiming["lse_plain_ms"],
+         rbounds["score_six"]),
+        ("gmm_score_rows_marg_tc", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:237", marg_probe["high"],
          rows["split"]["lse"]["value_max_abs_err"], rtiming["split_lse_ms"],
          rtiming["split_lse_plain_ms"], rbounds["score_split"]),
-        ("gmm_unit_marg", patch_src, "jolideco_tpu/ops/gmm_pallas.py:384",
+        ("gmm_unit_marg", wg_src, "jolideco_tpu/ops/gmm_pallas.py:384",
          marg_probe["highest"], mrows["unit"][0], mtiming["unit_ms"],
          mtiming["unit_plain_ms"], mbounds["unit_six"]),
-        ("gmm_unit_marg_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_unit_marg_tc", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:384", marg_probe["high"],
          psmain["unit"]["err"], pstiming["unit_ms"],
          pstiming["unit_plain_ms"], psbounds["unit"]),
-        ("gmm_hvp_marg_weights", patch_src,
+        ("gmm_hvp_marg_weights", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["highest"],
          max(mrows["weights_p"][0], mrows["weights_dp"][0]),
          mtiming["weights_ms"], mtiming["weights_plain_ms"],
          mbounds["weights_six"]),
-        ("gmm_hvp_marg_weights_tc", "jolideco_torch/csrc/gmm_fused_tc.cu",
+        ("gmm_hvp_marg_weights_tc", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:406", marg_probe["high"],
          max(psmain["weights_p"]["err"], psmain["weights_dp"]["err"]),
          pstiming["weights_ms"], pstiming["weights_plain_ms"],
@@ -5739,7 +5756,6 @@ def main():
          mtiming["mix_plain_ms"], mbounds["mix"]),
     ]
     # the "bf16" kernels (the "default" setting), launched by phase 7
-    tc_src = "jolideco_torch/csrc/gmm_fused_tc.cu"
     k1b = kernels[MAIN]["bf16"]
     mb = kernels["marg_bf16"]
     mbmain, pbmain = mb[f"{MAIN} astro"], mb[f"{MAIN} astro probe"]
@@ -5759,16 +5775,16 @@ def main():
         ("gmm_score_rows_bf16", wg_src, "jolideco_tpu/ops/gmm_pallas.py:237",
          default["map_probe"], rows["bf16"]["map"]["value_max_abs_err"],
          rtiming["bf16_ms"], rtiming["bf16_plain_ms"], rbounds["score_bf16"]),
-        ("gmm_score_rows_marg_bf16", tc_src,
+        ("gmm_score_rows_marg_bf16", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:237", default["marginalised_probe"],
          rows["bf16"]["lse"]["value_max_abs_err"], rtiming["bf16_lse_ms"],
          rtiming["bf16_lse_plain_ms"], rbounds["score_bf16"]),
-        ("gmm_unit_marg_bf16", tc_src, "jolideco_tpu/ops/gmm_pallas.py:384",
+        ("gmm_unit_marg_bf16", wg_src, "jolideco_tpu/ops/gmm_pallas.py:384",
          default["marginalised_probe"], pbe["unit"]["err"],
          mb["probe_timing_astro"]["unit_ms"],
          mb["probe_timing_astro"]["unit_plain_ms"],
          mb["probe_bounds_astro"]["unit"]),
-        ("gmm_hvp_marg_weights_bf16", tc_src,
+        ("gmm_hvp_marg_weights_bf16", wg_src,
          "jolideco_tpu/ops/gmm_pallas.py:406", default["marginalised_probe"],
          max(pbe["weights_p"]["err"], pbe["weights_dp"]["err"]),
          mb["probe_timing_astro"]["weights_ms"],
@@ -5974,11 +5990,16 @@ def main():
              "gmm_hvp_marg_mix": {"device_ms": mtiming["mix_device_ms"]}}
     # the instance of csrc/gmm_score_wg.cu's kernel behind each of its
     # wrappers: gmm_score_wg_kernel<image, products, epilogue> (epilogue 0
-    # the maximum, 1 the logsumexp, 2 K4's mixture)
-    for name, image, epi in (("fwd", "true", 0), ("fwd_marg", "true", 1),
-                             ("bwd_marg", "false", 2)):
+    # the maximum, 1 the logsumexp, 2 K4's mixture, 3 K8's, 4 K9a's
+    # weights)
+    for name, image, epi in (("gmm_fused_fwd", "true", 0),
+                             ("gmm_fused_fwd_marg", "true", 1),
+                             ("gmm_fused_bwd_marg", "false", 2),
+                             ("gmm_score_rows_marg", "false", 1),
+                             ("gmm_unit_marg", "false", 3),
+                             ("gmm_hvp_marg_weights", "false", 4)):
         for suffix, prod in (("", 6), ("_tc", 3), ("_bf16", 1)):
-            extra.setdefault(f"gmm_fused_{name}{suffix}", {})["instance"] = (
+            extra.setdefault(f"{name}{suffix}", {})["instance"] = (
                 f"gmm_score_wg_kernel<{image}, {prod}, {epi}>")
     for suffix, prod in (("_tc", 3), ("_bf16", 1)):
         extra.setdefault(f"gmm_score_rows{suffix}", {})["instance"] = (
@@ -5995,8 +6016,8 @@ def main():
             key + "_fp32"]["bound_ms"]
     # every "highest" GMM kernel likewise: bound_ms is that of six bf16
     # products on the tensor cores, the least time of its logits
-    # (phase 2), whether it runs there (K1, K1 lse, K4) or on the CUDA
-    # cores (K5, K8, K9a)
+    # (phase 2), whether it runs there (K1, K1 lse, K4, K5 lse, K8, K9a)
+    # or on the CUDA cores (K5 MAP)
     for name, key in (("gmm_fused_fwd_marg", "fwd"),
                       ("gmm_fused_bwd_marg", "bwd"),
                       ("gmm_unit_marg", "unit"),
@@ -6005,6 +6026,8 @@ def main():
             "bound_ms"]
     extra["gmm_score_rows"] = {"bound_fp32_ms": rbounds["score"][
         "bound_ms"]}
+    extra["gmm_score_rows_marg"]["bound_fp32_ms"] = rbounds["score"][
+        "bound_ms"]
     extra["gmm_fused_fwd"]["bound_fp32_ms"] = kernels["fwd_bound_fp32"][
         "bound_ms"]
     print(json.dumps({"default_entry": entry}))

@@ -1,6 +1,5 @@
-// GMM logits of 8x8 patches held in registers, shared by the float32
-// patch-level scorer (gmm_patch.cu::gmm_score_rows_kernel) and the
-// marginalise derivatives (gmm_marg.cuh).
+// GMM logits of 8x8 patches held in registers, for the float32
+// patch-level MAP scorer (gmm_patch.cu::gmm_score_rows_kernel).
 //
 // A component record is the row-padded upper triangle of the symmetric
 // A_k (kSym floats), then b_k (kD floats), then c_k and three pad floats.

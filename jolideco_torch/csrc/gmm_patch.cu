@@ -1,19 +1,24 @@
-// Patch-level GMM scoring on Hopper (sm_90a): the scorer, its unit
-// gradient and its Hessian action, MAP and marginalise, in full float32.
-// Built by nvcc into a shared library with a plain C interface and loaded
-// with ctypes (jolideco_torch/utils/cuda_build.py); the Python wrappers
-// and the plain PyTorch versions are in jolideco_torch/ops/gmm_pallas.py.
-// Rows are contiguous (N, 64) float32 arrays of already masked,
+// Patch-level GMM scoring on Hopper (sm_90a), in full float32: the MAP
+// scorer of the precision dial's "highest" setting (K5), the MAP unit
+// gradient and Hessian action (K6, K7) and the second stage of the
+// marginalise Hessian action (K9b). Built by nvcc into a shared library
+// with a plain C interface and loaded with ctypes
+// (jolideco_torch/utils/cuda_build.py); the Python wrappers and the
+// plain PyTorch versions are in jolideco_torch/ops/gmm_pallas.py. Rows
+// are contiguous (N, 64) float32 arrays of already masked,
 // mean-subtracted 8x8 patches; the ragged tail of N is masked in each
-// kernel.
+// kernel. The probe's other row kernels are gmm_score_wg.cu's instances
+// on the warpgroup core: K5's MAP scorer of the bf16 modes, and, in
+// every mode, K5's logsumexp with the marginalise unit gradient (K8) and
+// the first stage of its Hessian action (K9a), which recompute its
+// logits bit for bit.
 //
 // ---------------------------------------------------------------------
 // gmm_score_rows_kernel replaces the JAX package's
-// ops/gmm_pallas.py::_score_kernel. Per row x:
+// ops/gmm_pallas.py::_score_kernel (MAP). Per row x:
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k
-// over all K components; values = max_k logit_k (MAP) or
-// logsumexp_k logit_k (marginalise, an online max-and-rescale sum), and
-// argmax = the LOWEST index among equal maxima in both modes.
+// over all K components; values = max_k logit_k, argmax = the LOWEST
+// index among equal maxima.
 //
 // What bounds it on the H100: operations. The quadratic form over the
 // symmetric triangle is 2,080 + 64 multiply-adds per row and component,
@@ -24,14 +29,7 @@
 // double-buffered through shared memory, one __syncthreads per
 // component. The TPU kernel's one-hot MXU tricks, bf16 hi/lo splits and
 // K padding to 128 are not carried over. At 65,025 rows, K = 200 on an
-// NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms. Under the default
-// dial ("split") the probe scores on the tensor cores instead
-// (gmm_score_wg.cu's MAP instance, gmm_fused_tc.cu's logsumexp
-// gmm_score_rows_tc_kernel), and so do its marginalise
-// unit gradient and first Hessian stage (gmm_unit_marg_tc_kernel,
-// gmm_hvp_marg_weights_tc_kernel); this kernel, K8 and K9a below score
-// and differentiate under "highest" (K8 and K9a need the lse of their
-// own float32 logits).
+// NVIDIA H100 80GB HBM3 (700 W limit): 1.67-1.70 ms.
 //
 // ---------------------------------------------------------------------
 // gmm_row_map_kernel<true> (C entry gmm_unit_map) replaces
@@ -76,42 +74,16 @@
 
 //
 // ---------------------------------------------------------------------
-// gmm_unit_marg_kernel (C entry gmm_unit_marg) replaces
-// ops/gmm_pallas.py::_unit_marg_kernel. Per row x with the forward's
-// logsumexp lse:
-//     w_k = exp(logit_k - lse),  unit = sum_k w_k (b_k - A_k x) / sum_k w_k
-// (the softmax renormalised against the recomputed logits, as the TPU
-// kernel does, so the result does not depend on the lse's rounding).
-// gmm_hvp_marg_weights_kernel (gmm_hvp_marg_weights) and
-// gmm_hvp_marg_mix_kernel (gmm_hvp_marg_mix) replace
-// ops/gmm_pallas.py::_hvp_marg_weights_kernel and ::_hvp_marg_mix_kernel,
-// the Hessian action of the marginalised score along a tangent t:
-//     p_k = w_k / sum_j w_j,   g_k = (b_k - A_k x) . t,
-//     dp_k = p_k (g_k - sum_j p_j g_j)                  (stage 1)
-//     H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)]     (stage 2)
-// p and dp are (K, N), component-major, so that a warp's stores and
-// loads for one component are contiguous.
+// gmm_hvp_marg_mix_kernel (C entry gmm_hvp_marg_mix) replaces
+// ops/gmm_pallas.py::_hvp_marg_mix_kernel, the second stage of the
+// Hessian action of the marginalised score along a tangent t:
+//     H t = sum_k [dp_k b_k - A_k (p_k t + dp_k x)]
+// from the first stage's p_k = w_k / sum_j w_j and dp_k = p_k (g_k -
+// sum_j p_j g_j), g_k = (b_k - A_k x) . t (K9a, gmm_score_wg.cu). p and
+// dp are (K, N), component-major, so that a warp's loads for one
+// component are contiguous.
 //
-// What bounds them on the H100: operations. The logits, 2,144
-// multiply-adds per row and component over the symmetric triangle, are
-// dense: 5.6e10 flop at 65,025 rows and K = 200, 0.83 ms at the fp32
-// peak. The A_k x and A_k t terms (4,096 multiply-adds each) are needed
-// only where w_k > 0, which for the shipped GMMs is about one component
-// per row (gmm_marg.cuh), so they add little. Design: K8 and stage 1 are
-// K5's loop at one row per thread (the row's gradient accumulator, or its
-// tangent, takes the registers of K5's second row), voting per warp on
-// the A_k x pass (gmm_marg.cuh). The TPU split into two stages (for its
-// 16 MB VMEM) is kept because one pass would need the weights before the
-// A_k x and A_k t terms they scale: 256 live floats per row. On an NVIDIA
-// H100 80GB HBM3 (700 W limit), 65,025 rows, K = 200, exactly one
-// nonzero weight per row: K8 2.50-2.53 ms and stage 1 2.88-2.91 ms
-// (29-34% of the 0.84 ms bound; K5's loop at one row per thread, as K1
-// ran in 2.41 ms). With all 200 weights nonzero (a random SPD GMM,
-// chip_smoke.py's mixed case): K8 10.7 ms, stage 1 15.3 ms, the A_k x
-// passes at about 17% of the fp32 peak. ptxas: K8 255 registers with 44
-// bytes spilled, stage 1 255 without spills.
-//
-// Stage 2 (K9b) needs no logits. What bounds it: bytes where the weights
+// K9b needs no logits. What bounds it: bytes where the weights
 // are one-hot (p and dp, 104 MB of the 154 MB read and written at 65,025
 // rows and K = 200: 0.046 ms at 3.35 TB/s), operations where they are
 // mixed (4,288 multiply-adds a nonzero entry: 1.66 ms with all 200
@@ -130,13 +102,11 @@
 #include <math_constants.h>
 
 #include "gmm_logits.cuh"
-#include "gmm_marg.cuh"
 
 namespace {
 
 using gmm::kD;
 using gmm::kRec;
-using gmm::kSym;
 using gmm::load_record;
 using gmm::load_row;
 
@@ -150,11 +120,9 @@ constexpr int kMapThreads = 256;
 constexpr int kMapSeg = kMapTile / (kMapThreads / 16);
 constexpr int kMapLd = kD + 4;  // a row in shared memory: float4-aligned
 static_assert(kMapSeg == 8 && kD == 64, "a half-warp's 16 threads cover a row");
-constexpr int kMargThreads = 128;
 
 // Each thread scores kRPT rows, n = (blockIdx.x * kRPT + p) * blockDim.x +
 // threadIdx.x.
-template <bool kMarginalize>
 __global__ void __launch_bounds__(kScoreThreads)
 gmm_score_rows_kernel(const float* __restrict__ rows, int n_total,
                       const float* __restrict__ rec, int K,
@@ -172,12 +140,11 @@ gmm_score_rows_kernel(const float* __restrict__ rows, int n_total,
   load_record(smem[0], rec, 0);
   __syncthreads();
 
-  float best[kRPT], sum[kRPT];
+  float best[kRPT];
   int best_k[kRPT];
 #pragma unroll
   for (int p = 0; p < kRPT; ++p) {
     best[p] = -CUDART_INF_F;
-    sum[p] = 0.f;
     best_k[p] = 0;
   }
   for (int k = 0; k < K; ++k) {
@@ -189,12 +156,8 @@ gmm_score_rows_kernel(const float* __restrict__ rows, int n_total,
 #pragma unroll
     for (int p = 0; p < kRPT; ++p) {
       if (logit[p] > best[p]) {
-        // sum of exp(logit - best) so far, rescaled to the new maximum
-        if (kMarginalize) sum[p] = fmaf(sum[p], expf(best[p] - logit[p]), 1.f);
         best[p] = logit[p];
         best_k[p] = k;
-      } else if (kMarginalize) {
-        sum[p] += expf(logit[p] - best[p]);
       }
     }
     __syncthreads();
@@ -203,7 +166,7 @@ gmm_score_rows_kernel(const float* __restrict__ rows, int n_total,
 #pragma unroll
   for (int p = 0; p < kRPT; ++p) {
     if (n[p] < n_total) {
-      values[n[p]] = kMarginalize ? best[p] + logf(sum[p]) : best[p];
+      values[n[p]] = best[p];
       argmax[n[p]] = best_k[p];
     }
   }
@@ -306,106 +269,6 @@ gmm_row_map_kernel(const float* __restrict__ rows, const int* __restrict__ argma
                         b.w - acc[i][3]);
       }
     }
-  }
-}
-
-// unit = sum_k w_k (b_k - A_k x) / sum_k w_k, one row per thread.
-__global__ void __launch_bounds__(kMargThreads)
-gmm_unit_marg_kernel(const float* __restrict__ rows, const float* __restrict__ lse,
-                     const float* __restrict__ rec, const float* __restrict__ a_full,
-                     int n_total, int K, float* __restrict__ out) {
-  __shared__ __align__(16) float smem[2][kRec];
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  float x[1][kD];
-  load_row(rows, n, n_total, x[0]);
-  const float l = n < n_total ? __ldg(lse + n) : CUDART_INF_F;
-  float acc[kD];
-#pragma unroll
-  for (int c = 0; c < kD; ++c) acc[c] = 0.f;
-  float wsum = 0.f;
-
-  load_record(smem[0], rec, 0);
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    const float* cur = smem[k & 1];
-    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
-    gmm::marg_unit_step(cur, a_full + (size_t)k * kD * kD, x, l, wsum, acc);
-    __syncthreads();
-  }
-
-  if (n >= n_total) return;
-  const float inv = 1.f / wsum;
-  float4* dst = reinterpret_cast<float4*>(out + (size_t)n * kD);
-#pragma unroll
-  for (int c = 0; c < kD; c += 4)
-    dst[c / 4] = make_float4(acc[c] * inv, acc[c + 1] * inv, acc[c + 2] * inv,
-                             acc[c + 3] * inv);
-}
-
-// Stage 1 of the marginalise Hessian action: p and dp, (K, N).
-__global__ void __launch_bounds__(kMargThreads)
-gmm_hvp_marg_weights_kernel(const float* __restrict__ rows,
-                            const float* __restrict__ tangents,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ rec,
-                            const float* __restrict__ a_full, int n_total, int K,
-                            float* __restrict__ p, float* __restrict__ dp) {
-  __shared__ __align__(16) float smem[2][kRec];
-
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = n < n_total;
-  float x[1][kD], t[kD];
-  load_row(rows, n, n_total, x[0]);
-  load_row(tangents, n, n_total, t);
-  const float l = live ? __ldg(lse + n) : CUDART_INF_F;
-  // g of the heaviest component so far: the deviations g_k - gbar are
-  // taken against it, so that a row whose weight sits on one component
-  // (p_k* = 1, the rest 0) gets dp = 0 exactly, not the rounding of
-  // g_k* - (w g_k*) / w
-  float w_ref = -1.f, g_ref = 0.f;
-
-  load_record(smem[0], rec, 0);
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    const float* cur = smem[k & 1];
-    if (k + 1 < K) load_record(smem[(k + 1) & 1], rec, k + 1);
-    const float w = gmm::component_weight(cur, x, l);
-    float g = 0.f;
-    if (__any_sync(gmm::kFullMask, w > 0.f)) {
-      const float* b = cur + kSym;
-      gmm::for_each_ax(a_full + (size_t)k * kD * kD, x[0], [&](int r, float ax) {
-        g = fmaf(t[r], b[r] - ax, g);
-      });
-    }
-    if (w > w_ref) {
-      w_ref = w;
-      g_ref = g;
-    }
-    if (live) {
-      // w and g for now; the loops below turn this row's entries into
-      // p and dp
-      p[(size_t)k * n_total + n] = w;
-      dp[(size_t)k * n_total + n] = g;
-    }
-    __syncthreads();
-  }
-
-  if (!live) return;
-  float wsum = 0.f, gsum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const size_t i = (size_t)k * n_total + n;
-    const float w = p[i];
-    wsum += w;
-    gsum = fmaf(w, dp[i] - g_ref, gsum);
-  }
-  const float inv = 1.f / wsum;
-  const float gbar = gsum * inv;  // sum_k p_k g_k - g_ref
-  for (int k = 0; k < K; ++k) {
-    const size_t i = (size_t)k * n_total + n;
-    const float pk = p[i] * inv;
-    p[i] = pk;
-    dp[i] = pk * ((dp[i] - g_ref) - gbar);
   }
 }
 
@@ -703,17 +566,11 @@ extern "C" {
 // Each returns cudaGetLastError() after the launch (0 = cudaSuccess); the
 // wrappers never call them with n = 0.
 int gmm_score_rows(const void* rows, int n, const void* rec, int K,
-                   int marginalize, void* values, void* argmax, void* stream) {
-  const int blocks = blocks_for(n, kScoreThreads * kRPT);
-  auto s = static_cast<cudaStream_t>(stream);
-  auto x = static_cast<const float*>(rows);
-  auto r = static_cast<const float*>(rec);
-  auto v = static_cast<float*>(values);
-  auto a = static_cast<int*>(argmax);
-  if (marginalize)
-    gmm_score_rows_kernel<true><<<blocks, kScoreThreads, 0, s>>>(x, n, r, K, v, a);
-  else
-    gmm_score_rows_kernel<false><<<blocks, kScoreThreads, 0, s>>>(x, n, r, K, v, a);
+                   void* values, void* argmax, void* stream) {
+  gmm_score_rows_kernel<<<blocks_for(n, kScoreThreads * kRPT), kScoreThreads,
+                          0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), n, static_cast<const float*>(rec), K,
+      static_cast<float*>(values), static_cast<int*>(argmax));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -733,28 +590,6 @@ int gmm_hvp_map(const void* tangents, const void* argmax, const void* a_full,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tangents), static_cast<const int*>(argmax),
       static_cast<const float*>(a_full), nullptr, n, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int gmm_unit_marg(const void* rows, const void* lse, const void* rec,
-                  const void* a_full, int n, int K, void* out, void* stream) {
-  gmm_unit_marg_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<const float*>(lse),
-      static_cast<const float*>(rec), static_cast<const float*>(a_full), n, K,
-      static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-int gmm_hvp_marg_weights(const void* rows, const void* tangents,
-                         const void* lse, const void* rec, const void* a_full,
-                         int n, int K, void* p, void* dp, void* stream) {
-  gmm_hvp_marg_weights_kernel<<<blocks_for(n, kMargThreads), kMargThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rows), static_cast<const float*>(tangents),
-      static_cast<const float*>(lse), static_cast<const float*>(rec),
-      static_cast<const float*>(a_full), n, K, static_cast<float*>(p),
-      static_cast<float*>(dp));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,38 +1,45 @@
 // The GMM scorer on Hopper's warpgroup instructions (sm_90a), one core
 // for every mode of the precision dial: K1's forward on an image, MAP
 // (gmm_score_wg_image) and logsumexp (gmm_score_wg_image_lse), and K4,
-// the marginalise backward (gmm_score_wg_mix), in "f32" ("highest"),
-// "split" (the default dial) and "bf16" ("default"); and K5's MAP scorer
-// on rows (gmm_score_wg_rows) in "split" and "bf16". Built by nvcc into a
+// the marginalise backward (gmm_score_wg_mix); K5 on rows
+// (gmm_score_wg_rows): its MAP scorer in "split" and "bf16", its
+// logsumexp in every mode; and the marginalised probe's K8, the unit
+// gradient (gmm_score_wg_unit), and K9a, the first stage of the Hessian
+// action (gmm_score_wg_weights), in every mode: "f32" ("highest"),
+// "split" (the default dial) and "bf16" ("default"). Built by nvcc into a
 // shared library with a plain C interface and loaded with ctypes
 // (jolideco_torch/utils/cuda_build.py); the wrappers are gmm_fused_fwd*,
 // gmm_fused_fwd_marg* and gmm_fused_bwd_marg* in
-// jolideco_torch/ops/gmm_fused.py, gmm_score_rows_tc_cuda and
-// gmm_score_rows_bf16_cuda in jolideco_torch/ops/gmm_pallas.py, whose
+// jolideco_torch/ops/gmm_fused.py and gmm_score_rows*, gmm_unit_marg*
+// and gmm_hvp_marg_weights* in jolideco_torch/ops/gmm_pallas.py, whose
 // plain versions (fused_forward_plain, fused_backward_marg_plain,
-// score_split_plain, score_bf16_plain) the card holds them to.
+// score_*_plain, unit_marg_plain, marg_unit_*_plain,
+// hvp_marg_weights*_plain) the card holds them to.
 //
 // What it replaces: the JAX package's ops/gmm_fused.py::_fwd_kernel (both
-// branches), ::_bwd_marg_kernel and ops/gmm_pallas.py::_score_kernel
-// (MAP) under precision HIGHEST (kProd = 6, the six products of
-// three-way splits below), HIGH ("split3", kProd = 3: hi.hi + hi.lo +
-// lo.hi of the bf16 hi/lo parts) and DEFAULT (kProd = 1: hi.hi); and in
-// this port gmm_fused.cu's FFMA forward and marginalise kernels and
-// gmm_fused_tc.cu's mma.sync forwards and marginalise backward (all
-// deleted). Per row x (a masked, mean-subtracted 8x8 patch),
+// branches), ::_bwd_marg_kernel, ops/gmm_pallas.py::_score_kernel (both
+// reductions), ::_unit_marg_kernel and ::_hvp_marg_weights_kernel under
+// precision HIGHEST (kProd = 6, the six products of three-way splits
+// below), HIGH ("split3", kProd = 3: hi.hi + hi.lo + lo.hi of the bf16
+// hi/lo parts) and DEFAULT (kProd = 1: hi.hi); and in this port the
+// FFMA kernels of gmm_fused.cu and gmm_patch.cu (K1, K1 lse, K4, K5 lse,
+// K8, K9a) and the mma.sync kernels of gmm_fused_tc.cu (all deleted). Per
+// row x (a masked, mean-subtracted 8x8 patch),
 //     logit_k = -1/2 x^T A_k x + b_k . x + c_k,
 // the quadratic form as the product of the 2,080 pair products u = x_a
 // x_b (a <= b) with the pair-major A (off-diagonals doubled), then the
 // maximum and the lowest index among equal maxima (kMax), or beside them
-// the logsumexp (kLse), or K4's mixture (kMix):
-//     w_k = exp(logit_k - lse),  u = dv sum_k w_k (b_k - A_k x) / sum_k w_k,
-// less its mean, then the overlap-add into the image gradient. K4
-// recomputes K1 lse's logits by the very same instance of the core on the
-// very floats K1 lse scored: over logits of 1e5 to 1e8 an lse summed in
-// another order would move exp(logit - lse) by whole units of the
-// exponent. The probe's logsumexp row scorer (K5 lse) and the mixtures
-// that take its lse (K8, K9a) are another such triple, on gmm_fused_tc.cu
-// ("split", "bf16") and gmm_patch.cu ("f32").
+// the logsumexp (kLse), or from the forward's logsumexp a mixture of the
+// weights w_k = exp(logit_k - lse): K4's (kMix)
+//     u = dv sum_k w_k (b_k - A_k x) / sum_k w_k,
+// less its mean, then the overlap-add into the image gradient; K8's
+// (kUnit), the same without dv and the mean, into the u rows; or K9a's
+// (kWeights) p = w / sum w and dp_k = p_k (g_k - sum_j p_j g_j), g_k = t
+// . (b_k - A_k x). K4 recomputes K1 lse's logits, and K8 and K9a K5 lse's,
+// by the very same instance of the core's main loop (kProd, the tile and
+// flush order) on the very floats the logsumexp scored: over logits of
+// 1e5 to 1e8 an lse summed in another order would move exp(logit - lse)
+// by whole units of the exponent. Only the epilogue differs.
 //
 // What bounds it on the H100: operations. At 1024^2 (65,536 patches),
 // K = 200: 3 x 2 x 65,536 x 200 x 2,144 flop = 0.17 ms at the bf16 peak
@@ -59,9 +66,9 @@
 // - each group of products goes into fresh accumulators (the first with
 //   scale-d = 0), which after wgmma.wait_group are added to the running
 //   float32 sums on the CUDA cores: the tensor cores carry no sum across
-//   groups (gmm_fused_tc.cu's add_split records the bias of sums they
-//   carry across all 130 steps; chip_smoke.py phase 2 holds these to the
-//   same bars). A group is a chunk's two k16 steps in the bf16 modes, one
+//   groups (sums they carried across all 130 steps lay 4.5e-6, relative,
+//   above the exact sums on an H100; chip_smoke.py phase 2 holds these to
+//   the bars of that finding). A group is a chunk's two k16 steps in the bf16 modes, one
 //   k16 step's six products in "f32" (the products of parts i + j <= 2,
 //   the small ones first, as the JAX package's HIGHEST): the tensor cores'
 //   float32 sums truncate, and hi.hi, one instruction a group, meets at
@@ -97,16 +104,28 @@
 //   nonzero weights, and runs each weighed component's terms w (b_k - A_k
 //   x) in float32 with the whole warp, lane l taking entries 2l and 2l +
 //   1 of A_k x while the warp reads A_k row by row, components in
-//   ascending order (mix_rows): for one row alone (row_ax) or, where
-//   several rows weigh the component, for all 16 at once (rows_ax). For
-//   the shipped GMMs about one weight a row is nonzero (their logits'
-//   gaps exceed the ~104 at which exp underflows) and skipping a zero
-//   term is exact; a GMM of mixed weights runs all of them, A_k read once
-//   a warp. The rows' sums carry across tiles of components through the
-//   output rows and a scratch of weight sums; after the last, dv / sum w,
-//   less the row's mean, into the u rows (N, 64), and a second launch
-//   adds them into the image (gmm_patches.cuh's patch_units_at, K2's
-//   epilogue). No atomics: the same bits every call.
+//   ascending order (each_weighted, mix_rows): for one row alone (row_ax)
+//   or, where several rows weigh the component, for all 16 at once
+//   (rows_ax). For the shipped GMMs about one weight a row is nonzero
+//   (their logits' gaps exceed the ~104 at which exp underflows) and
+//   skipping a zero term is exact; a GMM of mixed weights runs all of
+//   them, A_k read once a warp. The rows' sums carry across tiles of
+//   components through the output rows and a scratch of weight sums;
+//   after the last, dv / sum w, less the row's mean, into the u rows (N,
+//   64), and a second launch adds them into the image (gmm_patches.cuh's
+//   patch_units_at, K2's epilogue). No atomics: the same bits every call;
+// - kUnit (K8, the probe's rows with K5 lse's logsumexp): kMix's weights
+//   and mixture, u = g / sum w straight into the (N, 64) output, one
+//   launch;
+// - kWeights (K9a): the same weights; for each nonzero one g_k = t . (b_k
+//   - A_k x) in float32 (A_k x as kMix's, lane l reading t's entries 2l
+//   and 2l + 1 from the tangent rows in device memory, a warp sum) into
+//   dp at (k, n), the heaviest weight's g kept a row (ties to the lower
+//   index); after the last tile a pass over the warp's rows turns w and g
+//   into p and dp (K, N), g taken against the heaviest component's, so
+//   that a row whose weight sits on one component gets p = 1 and dp = 0
+//   exactly (weigh_rows); past one tile of components the weights go to
+//   p tile by tile and the heaviest weight and its g to a scratch.
 // Any K: tiles of 200 components one after another (the last padded with
 // zero components, masked out of the reductions).
 //
@@ -121,9 +140,11 @@
 // kernel 1.63), 0.28 in "split", 0.20 in "bf16"; K1 lse 0.50, 0.31 (the
 // mma.sync kernel 0.76), 0.24 (0.44); K4 0.61, 0.39 (0.86), 0.31 (0.56);
 // under mixed weights (200 a row) K4 5.9, 5.6 (14.4), 5.5 (14.2), its
-// float32 mixture the same code in every mode. The multiplying
-// warpgroups have 232 registers; the image instances spill 56-84 bytes
-// (the split logsumexp the most), the row and K4 instances 0-8.
+// float32 mixture the same code in every mode. The probe's K5 lse, K8
+// and K9a at 65,025 rows: see PERF.md (scripts/torch_marg_f32_times.py
+// --probe). The multiplying warpgroups have 232 registers; the image
+// instances spill 56-84 bytes (the split logsumexp the most), the row,
+// K4, K8 and K9a instances 0-16.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -160,11 +181,14 @@ constexpr int kAddThreads = 256;
 static_assert(kPairs % kKC == 0 && kKC == 32, "two k16 steps a chunk");
 static_assert(kPairs % kStep3 == 0 && kStep3 == 16, "a k16 step a stage");
 
-// the epilogues: the maximum (K1, K5 MAP), the logsumexp (K1 lse), the
-// marginalise backward's mixture (K4)
+// the epilogues: the maximum (K1, K5 MAP), the logsumexp (K1 lse, K5
+// lse), the marginalise backward's mixture (K4), the marginalise unit
+// gradient (K8) and the first stage of its Hessian action (K9a)
 constexpr int kMax = 0;
 constexpr int kLse = 1;
 constexpr int kMix = 2;
+constexpr int kUnit = 3;
+constexpr int kWeights = 4;
 
 // Shared memory: the ring of A's chunks (kStage bytes a stage, the first
 // kStage of each kRecord-byte record of the device buffer: kStages
@@ -203,7 +227,10 @@ struct Source {
 // argmax of the rows. kMix (K4): from the forward's logsumexp, valid and
 // cotangents of the rows, the components' A_k (row-major) and b_k, the u
 // rows (N, 64); scratch: the weights of each CTA's tile (kRows x kKP
-// floats a CTA) and the rows' weight sums.
+// floats a CTA) and the rows' weight sums. kUnit (K8): the same from the
+// logsumexp alone (no valid, no cotangents). kWeights (K9a): from the
+// logsumexp and the tangents (N, 64), p and dp (K, N); scratch: the
+// weights and the rows' heaviest weight and its g (ref, 2N).
 struct Out {
   float* values;
   int* argmax;
@@ -215,6 +242,10 @@ struct Out {
   float* wts;
   float* wsum;
   float* units;
+  const float* tangents;
+  float* ref;
+  float* p;
+  float* dp;
 };
 
 // Row r of a CTA's tile (row n of the whole) into the transposed buffer
@@ -521,31 +552,23 @@ __device__ __forceinline__ void rows_ax(float2 (&ax)[16], const float* x,
   }
 }
 
-// K4's mixture of a warp's 16 rows n0 .. n0 + 15 (the first `rows` of
-// them before the end; their features x[r kXLd + i], their weights of a
-// tile of components k0 .. k0 + kKP - 1 at w_rows, kKP a row) by the
-// whole warp: lane l keeps entries 2l and 2l + 1 of g_i = sum_k w_ik (b_k
-// - A_k x_i) for the 16 rows, components in ascending order, 32 at a
-// time, one ballot a row finding the nonzero weights. A component that
-// one row weighs runs that row's term alone (row_ax: the shipped GMMs,
-// about one a row); one that several rows weigh runs all 16 (rows_ax: A_k
-// read once for them, and a zero weight adds exactly nothing), as under a
-// GMM of mixed weights, where nearly every row weighs every component.
-// The first tile starts g and the weight sums at zero, a later one from
-// the u rows and wsum where the one before left them; after the last, u
-// = dv g / sum w less its mean (0 for an invalid patch) into the u rows.
-__device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
-                                         int n0, int rows, int k0, bool first,
-                                         bool last, const Out& out,
-                                         int lane) {
-  float2* u2 = reinterpret_cast<float2*>(out.units + (size_t)n0 * kD) + lane;
-  float2 g[16];
-  float part[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    g[i] = first || i >= rows ? make_float2(0.f, 0.f) : u2[i * (kD / 2)];
-    part[i] = 0.f;
-  }
+// Calls term(i, k, w, ax, b) for each component k of a tile (k0 .. k0 +
+// kKP - 1) that some of a warp's 16 rows weigh (their features x[r kXLd +
+// i], their weights at w_rows, kKP a row), components in ascending
+// order, 32 at a time, one ballot a row finding the nonzero weights; w is
+// row i's weight of k, ax and b lane l's entries 2l and 2l + 1 of A_k x_i
+// and b_k. A component that one row weighs runs that row alone (row_ax:
+// the shipped GMMs, about one a row), term(r, ...) with r that row; one
+// that several rows weigh runs all 16 (rows_ax: A_k read once for them),
+// term(i, ...) for each row i in order, of which the rows whose weight is
+// 0 add exactly nothing (K4, K8) or are skipped (K9a). part[i] gathers
+// the lane's share of row i's weight sum.
+template <class Term>
+__device__ __forceinline__ void each_weighted(const float* x,
+                                              const float* w_rows, int k0,
+                                              const Out& out,
+                                              float (&part)[16], int lane,
+                                              Term&& term) {
   for (int j = 0; j < kKP; j += 32) {
     float w[16];
     uint32_t nz[16], any = 0;
@@ -572,26 +595,51 @@ __device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
         float wr = 0.f;
 #pragma unroll
         for (int i = 0; i < 16; ++i) wr = i == r ? w[i] : wr;
-        const float wk = __shfl_sync(0xffffffffu, wr, bit);
-        const float2 ax = row_ax(x + r, a, lane);
-#pragma unroll
-        for (int i = 0; i < 16; ++i)
-          if (i == r) {
-            g[i].x = fmaf(wk, b.x - ax.x, g[i].x);
-            g[i].y = fmaf(wk, b.y - ax.y, g[i].y);
-          }
+        term(r, k, __shfl_sync(0xffffffffu, wr, bit), row_ax(x + r, a, lane),
+             b);
       } else {
         float2 ax[16];
         rows_ax(ax, x, a, lane);
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float wk = __shfl_sync(0xffffffffu, w[i], bit);
-          g[i].x = fmaf(wk, b.x - ax[i].x, g[i].x);
-          g[i].y = fmaf(wk, b.y - ax[i].y, g[i].y);
-        }
+        for (int i = 0; i < 16; ++i)
+          term(i, k, __shfl_sync(0xffffffffu, w[i], bit), ax[i], b);
       }
     }
   }
+}
+
+// The marginalise mixture of a warp's 16 rows n0 .. n0 + 15 (the first
+// `rows` of them before the end; their features x[r kXLd + i], their
+// weights of a tile of components k0 .. k0 + kKP - 1 at w_rows, kKP a
+// row) by the whole warp: lane l keeps entries 2l and 2l + 1 of g_i =
+// sum_k w_ik (b_k - A_k x_i) for the 16 rows (each_weighted), a zero
+// weight adding exactly nothing. The first tile starts g and the weight
+// sums at zero, a later one from the u rows and wsum where the one before
+// left them; after the last, u = g / sum w into the u rows, times dv and
+// less its mean (0 for an invalid patch) for K4 (kMix), as it is for K8
+// (kUnit).
+template <int kEpi>
+__device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
+                                         int n0, int rows, int k0, bool first,
+                                         bool last, const Out& out,
+                                         int lane) {
+  float2* u2 = reinterpret_cast<float2*>(out.units + (size_t)n0 * kD) + lane;
+  float2 g[16];
+  float part[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    g[i] = first || i >= rows ? make_float2(0.f, 0.f) : u2[i * (kD / 2)];
+    part[i] = 0.f;
+  }
+  each_weighted(x, w_rows, k0, out, part, lane,
+                [&](int r, int, float wk, float2 ax, float2 b) {
+#pragma unroll
+                  for (int i = 0; i < 16; ++i)
+                    if (i == r) {
+                      g[i].x = fmaf(wk, b.x - ax.x, g[i].x);
+                      g[i].y = fmaf(wk, b.y - ax.y, g[i].y);
+                    }
+                });
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     if (i >= rows) break;
@@ -606,7 +654,10 @@ __device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
       continue;
     }
     float2 u = make_float2(0.f, 0.f);
-    if (__ldg(out.valid + n) != 0.f) {
+    if constexpr (kEpi == kUnit) {
+      const float scale = 1.f / wsum;
+      u = make_float2(g[i].x * scale, g[i].y * scale);
+    } else if (__ldg(out.valid + n) != 0.f) {
       const float scale = __ldg(out.dv + n) / wsum;
       u = make_float2(g[i].x * scale, g[i].y * scale);
       float m = u.x + u.y;
@@ -616,6 +667,89 @@ __device__ __forceinline__ void mix_rows(const float* x, const float* w_rows,
       u = make_float2(u.x - mean, u.y - mean);
     }
     u2[i * (kD / 2)] = u;
+  }
+}
+
+// K9a's part of a tile for a warp's 16 rows (as mix_rows'; n_total rows
+// in all, K components): for each nonzero weight (each_weighted), g_k = t
+// . (b_k - A_k x) in float32, lane l taking t's entries 2l and 2l + 1
+// from the tangent rows in device memory and the warp summing, into dp
+// at (k, n) by lane 0; lane i < 16 keeps row i's heaviest weight and its
+// g (components come in ascending order and only a larger weight
+// replaces it: ties to the lower index), carried from one tile to the
+// next in out.ref. A tile before the last writes its weights to p, lane
+// (i, h) row i's components of parity h; after the last, a pass over the
+// rows by the same lanes turns w and g into p = w / sum w and dp = p (g -
+// g_ref - gbar), gbar = sum_k p_k (g_k - g_ref): a row whose weight sits
+// on one component gets p = 1 and dp = 0 exactly. The weights of the
+// tiles before the last come from p, the last's from w_rows; g is read
+// only where w is nonzero, and every entry of p and dp is written (0
+// where w is 0).
+__device__ __forceinline__ void weigh_rows(const float* x,
+                                           const float* w_rows, int n0,
+                                           int rows, int k0, int K,
+                                           int n_total, bool first,
+                                           bool last, const Out& out,
+                                           int lane) {
+  float w_ref = -1.f, g_ref = 0.f;
+  if (!first && lane < rows) {
+    w_ref = out.ref[2 * (n0 + lane)];
+    g_ref = out.ref[2 * (n0 + lane) + 1];
+  }
+  const float2* t2 =
+      reinterpret_cast<const float2*>(out.tangents + (size_t)n0 * kD) + lane;
+  float part[16] = {};
+  each_weighted(x, w_rows, k0, out, part, lane,
+                [&](int r, int k, float wk, float2 ax, float2 b) {
+                  if (wk == 0.f) return;
+                  const float2 tv = __ldg(t2 + (size_t)r * (kD / 2));
+                  float s = fmaf(tv.x, b.x - ax.x, tv.y * (b.y - ax.y));
+#pragma unroll
+                  for (int m = 16; m > 0; m >>= 1)
+                    s += __shfl_xor_sync(0xffffffffu, s, m);
+                  if (lane == 0) out.dp[(size_t)k * n_total + n0 + r] = s;
+                  if (lane == r && wk > w_ref) {
+                    w_ref = wk;
+                    g_ref = s;
+                  }
+                });
+  const int i = lane & 15, half = lane >> 4;
+  const bool live = i < rows;
+  const size_t n = n0 + i;
+  if (!last) {
+    if (live)
+      for (int c = half; c < kKP && k0 + c < K; c += 2)
+        out.p[(size_t)(k0 + c) * n_total + n] = w_rows[i * kKP + c];
+    if (lane < rows) {
+      out.ref[2 * (n0 + lane)] = w_ref;
+      out.ref[2 * (n0 + lane) + 1] = g_ref;
+    }
+    return;
+  }
+  __syncwarp();  // lane 0's g in dp
+  const float gr = __shfl_sync(0xffffffffu, g_ref, i);
+  float w_total = 0.f, gsum = 0.f;
+  if (live) {
+#pragma unroll 4
+    for (int k = half; k < K; k += 2) {
+      const size_t e = (size_t)k * n_total + n;
+      const float w = k >= k0 ? w_rows[i * kKP + k - k0] : out.p[e];
+      w_total += w;
+      if (w != 0.f) gsum = fmaf(w, out.dp[e] - gr, gsum);
+    }
+  }
+  w_total += __shfl_xor_sync(0xffffffffu, w_total, 16);
+  gsum += __shfl_xor_sync(0xffffffffu, gsum, 16);
+  if (!live) return;
+  const float inv = 1.f / w_total;
+  const float gbar = gsum * inv;  // sum_k p_k g_k - g_ref
+#pragma unroll 4
+  for (int k = half; k < K; k += 2) {
+    const size_t e = (size_t)k * n_total + n;
+    const float w = k >= k0 ? w_rows[i * kKP + k - k0] : out.p[e];
+    const float pk = w * inv;
+    out.p[e] = pk;
+    out.dp[e] = w != 0.f ? pk * ((out.dp[e] - gr) - gbar) : 0.f;
   }
 }
 
@@ -805,16 +939,17 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
           release_lin();
         }
         const int k0 = ct * kKP;
-        if constexpr (kEpi == kMix) {
-          // the thread's weights into the CTA's scratch, then the warp's
-          // 16 rows' mixture
+        if constexpr (kEpi >= kMix) {
+          // the thread's weights into the CTA's scratch (0 for a row past
+          // the end and, for K4, an invalid patch), then the warp's 16
+          // rows' mixture (K4, K8) or g (K9a)
           float* wts = out.wts + (size_t)blockIdx.x * kRows * kKP;
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = r0 + 8 * h, n = n0 + r;
-            const float l = n < src.n_total && __ldg(out.valid + n) != 0.f
-                                ? __ldg(out.lse + n)
-                                : CUDART_INF_F;
+            const bool live = n < src.n_total &&
+                              (kEpi != kMix || __ldg(out.valid + n) != 0.f);
+            const float l = live ? __ldg(out.lse + n) : CUDART_INF_F;
             float2* w2 = reinterpret_cast<float2*>(wts + (size_t)r * kKP) + t;
 #pragma unroll
             for (int n8 = 0; n8 < kKP / 8; ++n8) {
@@ -827,10 +962,17 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
           }
           __syncwarp();
           const int rw = r0 - g, rows = src.n_total - (n0 + rw);
-          if (rows > 0)
-            mix_rows(xs + rw, wts + (size_t)rw * kKP, n0 + rw,
-                     rows < 16 ? rows : 16, k0, ct == 0, ct + 1 == n_tiles,
-                     out, lane);
+          if (rows > 0) {
+            const bool first = ct == 0, last = ct + 1 == n_tiles;
+            if constexpr (kEpi == kWeights)
+              weigh_rows(xs + rw, wts + (size_t)rw * kKP, n0 + rw,
+                         rows < 16 ? rows : 16, k0, K, src.n_total, first,
+                         last, out, lane);
+            else
+              mix_rows<kEpi>(xs + rw, wts + (size_t)rw * kKP, n0 + rw,
+                             rows < 16 ? rows : 16, k0, first, last, out,
+                             lane);
+          }
           __syncwarp();
         } else {
           // the tile's maximum and argmax (and, for kLse, the sum of
@@ -878,7 +1020,7 @@ gmm_score_wg_kernel(Source src, const unsigned char* __restrict__ a_wg,
           }
         }
       }
-      if (kEpi != kMix && t == 0) {
+      if (kEpi <= kLse && t == 0) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + r0 + 8 * h;
@@ -981,6 +1123,19 @@ Out score_out(void* values, void* argmax) {
   return out;
 }
 
+// The mixture instances' scratch and model: the weights (ctas x 128 x
+// 200 floats: the kernel runs at most ctas CTAs), a_full (K, 64, 64) and
+// b_rows (K, 64).
+Out mix_out(const void* lse, const void* a_full, const void* b_rows,
+            void* wts) {
+  Out out{};
+  out.lse = static_cast<const float*>(lse);
+  out.a_full = static_cast<const float*>(a_full);
+  out.b_rows = static_cast<const float*>(b_rows);
+  out.wts = static_cast<float*>(wts);
+  return out;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1005,18 +1160,23 @@ int gmm_score_wg_image(const void* img, int H, int W, int stride, int ny,
       static_cast<cudaStream_t>(stream));
 }
 
-// K5's MAP scorer on rows (n, 64) float32, already masked and
-// mean-subtracted: values and argmax; the buffers of gmm_score_wg_image,
-// products 3 ("split") or 1 ("bf16"; the "f32" K5 is gmm_patch.cu's).
-// Errors as gmm_score_wg_image; the wrapper never calls it with n = 0.
+// K5 on rows (n, 64) float32, already masked and mean-subtracted: values
+// (the maxima, or with lse the logsumexp) and argmax (the lowest index
+// among equal maxima); the buffers of gmm_score_wg_image, products 3
+// ("split") or 1 ("bf16") for the maxima (the "f32" K5 MAP is
+// gmm_patch.cu's), 6, 3 or 1 for the logsumexp. Errors as
+// gmm_score_wg_image; the wrapper never calls it with n = 0.
 int gmm_score_wg_rows(const void* rows, int n, const void* a_wg,
-                      const void* lin_wg, int K, int products, void* values,
-                      void* argmax, void* stream) {
-  if (K < 1 || (products != 1 && products != 3))
+                      const void* lin_wg, int K, int products, int lse,
+                      void* values, void* argmax, void* stream) {
+  if (K < 1 || !valid_products(products) || (!lse && products == 6))
     return static_cast<int>(cudaErrorInvalidValue);
   const Source src = row_source(rows, n);
   const Out out = score_out(values, argmax);
   auto s = static_cast<cudaStream_t>(stream);
+  if (lse)
+    return launch_products<false, kLse>(products, src, a_wg, lin_wg, K, out,
+                                        0, s);
   return products == 3
              ? launch<false, 3, kMax>(src, a_wg, lin_wg, K, out, 0, s)
              : launch<false, 1, kMax>(src, a_wg, lin_wg, K, out, 0, s);
@@ -1055,13 +1215,9 @@ int gmm_score_wg_mix(const void* xtn, const void* lse, const void* valid,
   if (K < 1 || ctas < 1 || !valid_products(products))
     return static_cast<int>(cudaErrorInvalidValue);
   const int groups = (kP / stride) * (kP / stride);
-  Out out{};
-  out.lse = static_cast<const float*>(lse);
+  Out out = mix_out(lse, a_full, b_rows, wts);
   out.valid = static_cast<const float*>(valid);
   out.dv = static_cast<const float*>(dvalues);
-  out.a_full = static_cast<const float*>(a_full);
-  out.b_rows = static_cast<const float*>(b_rows);
-  out.wts = static_cast<float*>(wts);
   out.wsum = static_cast<float*>(wsum);
   out.units = static_cast<float*>(units);
   auto s = static_cast<cudaStream_t>(stream);
@@ -1073,6 +1229,49 @@ int gmm_score_wg_mix(const void* xtn, const void* lse, const void* valid,
   gmm_units_add_kernel<<<pixel_blocks, kAddThreads, 0, s>>>(
       out.units, H, W, stride, ny, nx, static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K8: the marginalise unit gradient units (n, 64) = sum_k w_k (b_k - A_k
+// x) / sum_k w_k, w_k = exp(logit_k - lse), of rows (n, 64) with the
+// logsumexp lse that gmm_score_wg_rows computed on them with the same
+// buffers and products (the weights of the same logits); scratch wts
+// (mix_out) and wsum (n,). Errors as gmm_score_wg_mix.
+int gmm_score_wg_unit(const void* rows, const void* lse, int n,
+                      const void* a_wg, const void* lin_wg,
+                      const void* a_full, const void* b_rows, int K,
+                      int products, void* wts, int ctas, void* wsum,
+                      void* units, void* stream) {
+  if (K < 1 || ctas < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Out out = mix_out(lse, a_full, b_rows, wts);
+  out.wsum = static_cast<float*>(wsum);
+  out.units = static_cast<float*>(units);
+  return launch_products<false, kUnit>(products, row_source(rows, n), a_wg,
+                                       lin_wg, K, out, ctas,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// K9a: the first stage of the marginalise Hessian action of rows (n, 64)
+// along tangents (n, 64), with lse as gmm_score_wg_unit: p and dp (K, n),
+// p = w / sum w, dp_k = p_k (g_k - sum_j p_j g_j), g_k = t . (b_k - A_k
+// x); scratch wts (mix_out) and ref (2n floats). Errors as
+// gmm_score_wg_mix.
+int gmm_score_wg_weights(const void* rows, const void* tangents,
+                         const void* lse, int n, const void* a_wg,
+                         const void* lin_wg, const void* a_full,
+                         const void* b_rows, int K, int products, void* wts,
+                         int ctas, void* ref, void* p, void* dp,
+                         void* stream) {
+  if (K < 1 || ctas < 1 || !valid_products(products))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Out out = mix_out(lse, a_full, b_rows, wts);
+  out.tangents = static_cast<const float*>(tangents);
+  out.ref = static_cast<float*>(ref);
+  out.p = static_cast<float*>(p);
+  out.dp = static_cast<float*>(dp);
+  return launch_products<false, kWeights>(products, row_source(rows, n),
+                                          a_wg, lin_wg, K, out, ctas,
+                                          static_cast<cudaStream_t>(stream));
 }
 
 const char* gmm_score_wg_error_string(int code) {

@@ -1,11 +1,9 @@
-// Warp-level tensor-core helpers for Hopper (sm_90a), shared by
-// gmm_fused_tc.cu (the GMM logits of the precision dial's "split" and
-// "bf16" modes) and pfft_conv_wg.cu (K3: the bf16 type, cp.async and
-// ldmatrix). Copies into shared memory with cp.async, fragments from
-// shared memory with ldmatrix, the mma.sync m16n8k16 product (bf16
-// operands, float32 accumulators) and an operand pair put into the bf16
-// planes of either mode: its hi/lo split (three products) or its bf16
-// rounding (one product).
+// Tensor-core operand helpers for Hopper (sm_90a), shared by
+// gmm_score_wg.cu (the bf16 type and an operand pair put into the bf16
+// planes of the precision dial's "split" or "bf16" mode: its hi/lo split
+// for three products, or its bf16 rounding for one) and pfft_conv_wg.cu
+// (K3: the bf16 type, copies into shared memory with cp.async and
+// fragments from shared memory with ldmatrix).
 
 #pragma once
 
@@ -41,25 +39,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-// Two 8x8 matrices: lanes 0-7 give the rows of the first, 8-15 those of
-// the second (the addresses of lanes 16-31 are not read).
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(smem_addr(p)));
-}
-
-// c += a b for one m16n8k16 tile, bf16 operands, float32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The pair v into operand columns (idx, idx + 1) of the hi and lo

@@ -117,10 +117,6 @@ PLAIN_CHUNK = 4096
 # the "split" mode's pair products x_a x_b, a <= b, row-major over a
 PAIR_A, PAIR_B = np.triu_indices(D)
 PAIRS = len(PAIR_A)
-# the mma.sync row kernels (csrc/gmm_fused_tc.cu): components in tiles of
-# KP_TC (the last padded), pairs in chunks of TC_CHUNK
-KP_TC = 208
-TC_CHUNK = 32
 # the warpgroup kernels of "split" and "bf16" (csrc/gmm_score_wg.cu):
 # components in tiles of KP_WG, the pairs in chunks of TC_CHUNK; a chunk's
 # record is the image of a shared-memory stage, the hi and lo planes of
@@ -128,6 +124,7 @@ TC_CHUNK = 32
 # three bf16 parts of -2 b (WG_LIN_PART bytes each) and c, are WG_LIN
 # bytes
 KP_WG = 200
+TC_CHUNK = 32
 WG_CHUNKS = PAIRS // TC_CHUNK
 WG_PLANE = 2 * KP_WG * TC_CHUNK
 WG_LIN_PART = 2 * KP_WG * D
@@ -142,9 +139,8 @@ WG3_PLANE = 2 * KP_WG * WG3_STEP
 # rows a CTA of csrc/gmm_score_wg.cu takes at a time
 WG_ROWS = 128
 MODES = ("f32", "split", "bf16")
-# bf16 products per k16 step of the tensor-core kernels, by mode: the
-# mma.sync row kernels (csrc/gmm_fused_tc.cu) and the warpgroup kernels
-# (csrc/gmm_score_wg.cu), which also take "f32"
+# bf16 products per k16 step of the warpgroup kernels
+# (csrc/gmm_score_wg.cu) by mode: the bf16 modes', then with "f32"
 TC_PRODUCTS = {"split": 3, "bf16": 1}
 WG_PRODUCTS = {"f32": 6, **TC_PRODUCTS}
 
@@ -221,33 +217,12 @@ def _split_buffers(a_quad, bq, const2):
     ``pair_wg`` and ``lin_wg``: the warpgroup kernels' copies
     (:func:`_wg_buffers`); ``pair_wg3``: the ``"f32"`` mode's three-way
     split (:func:`_wg3_buffer`).
-    For the ``mma.sync`` row kernels, whose blocks take the components in
-    ``T = ceil(K / KP_TC)`` tiles: ``pair_tc`` bf16 ``(T, PAIRS /
-    TC_CHUNK, 2, KP_TC, TC_CHUNK)``, the same parts tile by tile and
-    chunk by chunk (hi then lo, each component's pairs of the chunk
-    contiguous, the last tile padded with zero components; the
-    ``"bf16"`` kernels read the hi half of each chunk), and ``bc (T,
-    d + 1, KP_TC)`` float32, ``b`` component-minor with ``c`` as its
-    last row.
     """
     pair = torch.as_tensor(_pair_rows(a_quad).astype(np.float32))
     hi, lo = bf16_split(pair)
-    d, k = bq.shape
-    tiles = -(-k // KP_TC)
-    parts = torch.zeros((2, tiles * KP_TC, PAIRS))
-    parts[0, :k], parts[1, :k] = hi.T, lo.T
-    pair_tc = (
-        parts.reshape(2, tiles, KP_TC, PAIRS // TC_CHUNK, TC_CHUNK)
-        .permute(1, 3, 0, 2, 4).contiguous().to(torch.bfloat16)
-    )
-    bc = torch.zeros((d + 1, tiles * KP_TC))
-    bc[:d, :k] = torch.as_tensor(bq)
-    bc[d, :k] = torch.as_tensor(const2)
-    bc = bc.reshape(d + 1, tiles, KP_TC).permute(1, 0, 2).contiguous()
     pair_wg, lin_wg = _wg_buffers(hi, lo, bq, const2)
-    return {"pair_hi": hi, "pair_lo": lo, "pair_tc": pair_tc, "bc": bc,
-            "pair_wg": pair_wg, "lin_wg": lin_wg,
-            "pair_wg3": _wg3_buffer(pair)}
+    return {"pair_hi": hi, "pair_lo": lo, "pair_wg": pair_wg,
+            "lin_wg": lin_wg, "pair_wg3": _wg3_buffer(pair)}
 
 
 def wg_plane_index(n, k, width=TC_CHUNK):
@@ -283,8 +258,7 @@ def _wg_buffers(hi, lo, bq, const2):
     bits), planes of 64 features, then ``c`` float32 in the order the
     threads read it (thread ``t`` of a quad: components ``8 j + 2 t`` and
     ``+ 1``, ``j < 25``, then two zeros). ``hi`` and ``lo`` are
-    :func:`_split_buffers`' ``(PAIRS, K)`` parts, so ``pair_wg`` holds
-    ``pair_tc``'s entries, placed otherwise."""
+    :func:`_split_buffers`' ``(PAIRS, K)`` parts."""
     d, k = bq.shape
     tiles = -(-k // KP_WG)
     planes = np.zeros((2, tiles * KP_WG, PAIRS), np.float32)
@@ -653,26 +627,6 @@ def _check_mode(mode):
         raise ValueError(f"invalid fused-scorer mode {mode!r}")
 
 
-def _tc_library():
-    from ..utils.cuda_build import load_library
-
-    lib = load_library("gmm_fused_tc")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_score_rows_tc.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp, vp]
-        lib.gmm_score_rows_tc.restype = ci
-        lib.gmm_unit_marg_tc.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci, ci,
-                                         vp, vp]
-        lib.gmm_unit_marg_tc.restype = ci
-        lib.gmm_hvp_marg_weights_tc.argtypes = [vp, vp, vp, ci, vp, vp, vp,
-                                                vp, ci, ci, vp, vp, vp]
-        lib.gmm_hvp_marg_weights_tc.restype = ci
-        lib.gmm_fused_tc_error_string.argtypes = [ci]
-        lib.gmm_fused_tc_error_string.restype = ctypes.c_char_p
-        lib._argtypes_set = True
-    return lib
-
-
 def _wg_library():
     from ..utils.cuda_build import load_library
 
@@ -682,8 +636,8 @@ def _wg_library():
         lib.gmm_score_wg_image.argtypes = [vp, ci, ci, ci, ci, ci, cf, vp,
                                            vp, ci, ci, vp, vp, vp, vp, vp]
         lib.gmm_score_wg_image.restype = ci
-        lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, vp, vp,
-                                          vp]
+        lib.gmm_score_wg_rows.argtypes = [vp, ci, vp, vp, ci, ci, ci, vp,
+                                          vp, vp]
         lib.gmm_score_wg_rows.restype = ci
         lib.gmm_score_wg_image_lse.argtypes = lib.gmm_score_wg_image.argtypes
         lib.gmm_score_wg_image_lse.restype = ci
@@ -691,6 +645,12 @@ def _wg_library():
                                          ci, ci, ci, ci, ci, ci, vp, ci, vp,
                                          vp, vp, vp]
         lib.gmm_score_wg_mix.restype = ci
+        lib.gmm_score_wg_unit.argtypes = [vp, vp, ci, vp, vp, vp, vp, ci,
+                                          ci, vp, ci, vp, vp, vp]
+        lib.gmm_score_wg_unit.restype = ci
+        lib.gmm_score_wg_weights.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp,
+                                             ci, ci, vp, ci, vp, vp, vp, vp]
+        lib.gmm_score_wg_weights.restype = ci
         lib.gmm_score_wg_error_string.argtypes = [ci]
         lib.gmm_score_wg_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -799,17 +759,6 @@ def gmm_fused_fwd_marg_bf16_cuda(image, bufs, stride, sentinel):
     out = _launch_forward_wg(image, bufs, stride, sentinel, "bf16", True)
     gmm_fused_fwd_marg_bf16_cuda.launches += 1
     return out
-
-
-def _split_tiles(bufs, device):
-    """Checks the ``mma.sync`` row kernels' buffers (both modes read
-    ``pair_tc``: ``"bf16"`` its hi planes); the component count."""
-    k = bufs["rec"].shape[0]
-    tiles = -(-k // KP_TC)
-    _check(bufs["pair_tc"], "pair_tc", torch.bfloat16,
-           (tiles, PAIRS // TC_CHUNK, 2, KP_TC, TC_CHUNK), device)
-    _check(bufs["bc"], "bc", torch.float32, (tiles, D + 1, KP_TC), device)
-    return k
 
 
 def wg_tiles(bufs, device):

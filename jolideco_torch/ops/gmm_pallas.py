@@ -41,14 +41,17 @@ argmax.
 
 Each has two implementations with one contract:
 
-- a CUDA kernel written by hand for Hopper (``csrc/gmm_patch.cu``,
-  ``csrc/gmm_score_wg.cu`` for the MAP scorer of the ``"split"`` and
-  ``"bf16"`` modes on the tensor cores (``wgmma``), and
-  ``csrc/gmm_fused_tc.cu`` for their logsumexp scorer, unit gradient and
-  first Hessian stage, whose headers
-  say what bounds each kernel and how it is built), run
-  for a tensor on a CUDA card, for d = 64 (8x8 patches, both shipped
-  GMMs; the JAX package's ``pallas_supported`` rule);
+- a CUDA kernel written by hand for Hopper, run for a tensor on a CUDA
+  card, for d = 64 (8x8 patches, both shipped GMMs; the JAX package's
+  ``pallas_supported`` rule): ``csrc/gmm_score_wg.cu``'s warpgroup core
+  (``wgmma``) for the MAP scorer of the ``"split"`` and ``"bf16"``
+  modes and, in every mode, the logsumexp scorer, the marginalise unit
+  gradient and the first stage of its Hessian action, which recompute
+  the scorer's logits by the same instance of the core;
+  ``csrc/gmm_patch.cu`` for the float32 MAP scorer, the MAP unit
+  gradient and Hessian action and the second stage of the marginalise
+  Hessian action (the headers say what bounds each kernel and how it
+  is built);
 - a plain PyTorch version (``*_plain``), run for a tensor on the CPU
   for any d and in float32 or float64, and the reference the kernel is
   checked against on the card.
@@ -79,19 +82,19 @@ import torch
 from ..config import dispatch
 from .gmm_fused import (
     D,
+    KP_WG,
     PLAIN_CHUNK,
     REC,
     _check,
     _check_mode,
     _raise_on_error,
     _scores,
-    _split_tiles,
+    _wg_library,
+    _wg_pairs,
     PLAIN_SCORES,
     PLAIN_UNITS,
-    TC_PRODUCTS,
-    _tc_library,
-    _wg_library,
-    wg_tiles,
+    WG_PRODUCTS,
+    WG_ROWS,
     logit_chunks,
     marg_unit_rows,
     mix_rows,
@@ -108,6 +111,7 @@ __all__ = [
     "gmm_score_rows_bf16_cuda",
     "gmm_score_rows_cuda",
     "gmm_score_rows_marg_bf16_cuda",
+    "gmm_score_rows_marg_cuda",
     "gmm_score_rows_marg_tc_cuda",
     "gmm_score_rows_tc_cuda",
     "gmm_unit_map_cuda",
@@ -249,17 +253,12 @@ def _library():
     lib = load_library("gmm_patch")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gmm_score_rows.argtypes = [vp, ci, vp, ci, ci, vp, vp, vp]
+        lib.gmm_score_rows.argtypes = [vp, ci, vp, ci, vp, vp, vp]
         lib.gmm_score_rows.restype = ci
         lib.gmm_unit_map.argtypes = [vp, vp, vp, vp, ci, vp, vp]
         lib.gmm_unit_map.restype = ci
         lib.gmm_hvp_map.argtypes = [vp, vp, vp, ci, vp, vp]
         lib.gmm_hvp_map.restype = ci
-        lib.gmm_unit_marg.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
-        lib.gmm_unit_marg.restype = ci
-        lib.gmm_hvp_marg_weights.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp,
-                                             vp, vp]
-        lib.gmm_hvp_marg_weights.restype = ci
         lib.gmm_hvp_marg_mix.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp,
                                          vp]
         lib.gmm_hvp_marg_mix.restype = ci
@@ -280,11 +279,11 @@ def _check_rows(x, name, argmax=None):
     return device, n
 
 
-def _launch(kernel, *args, tc=False):
+def _launch(kernel, *args, wg=False):
     """The C entry ``kernel`` of ``csrc/gmm_patch.cu`` (of
-    ``csrc/gmm_fused_tc.cu`` with ``tc``) on tensors' pointers and ints,
+    ``csrc/gmm_score_wg.cu`` with ``wg``) on tensors' pointers and ints,
     on the current stream of the first argument's card."""
-    lib = _tc_library() if tc else _library()
+    lib = _wg_library() if wg else _library()
     with torch.cuda.device(args[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, kernel)(
@@ -292,15 +291,34 @@ def _launch(kernel, *args, tc=False):
               for a in args],
             stream,
         )
-    _raise_on_error(lib.gmm_fused_tc_error_string if tc
+    _raise_on_error(lib.gmm_score_wg_error_string if wg
                     else lib.gmm_patch_error_string, code, kernel)
 
 
+def _score_rows_wg(x, bufs, mode, name, marginalize=False):
+    """The launch of K5 of ``mode`` on the warpgroup core
+    (``csrc/gmm_score_wg.cu``, when there are rows): its MAP instance, or
+    with ``marginalize`` its logsumexp one; values, argmax and whether it
+    launched."""
+    device, n = _check_rows(x, name)
+    pairs, k = _wg_pairs(bufs, mode, device)
+    values = torch.empty(n, dtype=torch.float32, device=device)
+    argmax = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        _launch("gmm_score_wg_rows", x, n, pairs, bufs["lin_wg"], k,
+                WG_PRODUCTS[mode], int(marginalize), values, argmax, wg=True)
+    return values, argmax, bool(n)
+
+
 def gmm_score_rows_cuda(x, bufs, marginalize=False):
-    """Launch the scorer on rows ``x (N, 64)`` float32 on a card.
+    """Launch the ``"f32"`` scorer on rows ``x (N, 64)`` float32 on a
+    card: the MAP scorer of ``csrc/gmm_patch.cu`` (counted here) or, with
+    ``marginalize``, :func:`gmm_score_rows_marg_cuda`.
 
     Same outputs as :func:`score_rows_plain`.
     """
+    if marginalize:
+        return gmm_score_rows_marg_cuda(x, bufs)
     device, n = _check_rows(x, "gmm_score_rows_cuda")
     rec = bufs["rec"]
     k = rec.shape[0]
@@ -308,44 +326,22 @@ def gmm_score_rows_cuda(x, bufs, marginalize=False):
     values = torch.empty(n, dtype=torch.float32, device=device)
     argmax = torch.empty(n, dtype=torch.int32, device=device)
     if n:
-        _launch("gmm_score_rows", x, n, rec, k, int(bool(marginalize)),
-                values, argmax)
+        _launch("gmm_score_rows", x, n, rec, k, values, argmax)
         gmm_score_rows_cuda.launches += 1
     return values, argmax
 
 
-def _score_rows_tc(x, bufs, mode, name):
-    """The launch of K5 lse split or K5 lse bf16 (when there are rows);
-    values, argmax and whether it launched."""
-    device, n = _check_rows(x, name)
-    k = _split_tiles(bufs, device)
-    values = torch.empty(n, dtype=torch.float32, device=device)
-    argmax = torch.empty(n, dtype=torch.int32, device=device)
-    if n:
-        _launch("gmm_score_rows_tc", x, n, bufs["pair_tc"], bufs["bc"], k,
-                TC_PRODUCTS[mode], values, argmax, tc=True)
-    return values, argmax, bool(n)
-
-
-def _score_rows_wg(x, bufs, mode, name):
-    """The launch of the MAP scorer of ``mode`` on the warpgroup
-    instructions (``csrc/gmm_score_wg.cu``, when there are rows); values,
-    argmax and whether it launched."""
-    device, n = _check_rows(x, name)
-    k = wg_tiles(bufs, device)
-    values = torch.empty(n, dtype=torch.float32, device=device)
-    argmax = torch.empty(n, dtype=torch.int32, device=device)
-    if n:
-        lib = _wg_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.gmm_score_wg_rows(
-                x.data_ptr(), n, bufs["pair_wg"].data_ptr(),
-                bufs["lin_wg"].data_ptr(), k, TC_PRODUCTS[mode],
-                values.data_ptr(), argmax.data_ptr(), stream)
-        _raise_on_error(lib.gmm_score_wg_error_string, code,
-                        "gmm_score_wg_rows")
-    return values, argmax, bool(n)
+def gmm_score_rows_marg_cuda(x, bufs):
+    """Launch the logsumexp instance of the ``"f32"`` scorer (K5 lse, the
+    warpgroup core's six products of ``csrc/gmm_score_wg.cu``: K1 lse's
+    logits under ``"highest"``) on rows ``x (N, 64)`` float32 on a card;
+    same outputs as ``score_rows_plain(x, bufs, True)``. Its logsumexp is
+    what :func:`gmm_unit_marg_cuda` and :func:`gmm_hvp_marg_weights_cuda`
+    take: they recompute its logits bit for bit."""
+    values, argmax, launched = _score_rows_wg(
+        x, bufs, "f32", "gmm_score_rows_marg_cuda", True)
+    gmm_score_rows_marg_cuda.launches += launched
+    return values, argmax
 
 
 def gmm_score_rows_tc_cuda(x, bufs):
@@ -362,15 +358,17 @@ def gmm_score_rows_tc_cuda(x, bufs):
 
 def gmm_score_rows_marg_tc_cuda(x, bufs):
     """Launch the logsumexp instance of the ``"split"`` scorer (K5 lse
-    split); same outputs as ``score_split_marg_plain``. Its logsumexp is
-    what :func:`gmm_unit_marg_tc_cuda` and
+    split, ``csrc/gmm_score_wg.cu``); same outputs as
+    ``score_split_marg_plain``. Its logsumexp is what
+    :func:`gmm_unit_marg_tc_cuda` and
     :func:`gmm_hvp_marg_weights_tc_cuda` take: they recompute the same
-    logits bit for bit, and the split logits lie up to 6.4e-5 of their
-    value (hundreds of units at the shipped GMMs' 1e5 to 1e8) from the
-    float32 ones, so an lse of another arithmetic would overflow or
-    underflow every weight."""
-    values, argmax, launched = _score_rows_tc(
-        x, bufs, "split", "gmm_score_rows_marg_tc_cuda")
+    logits bit for bit, by the same instance of the core's main loop,
+    and the split logits lie up to 6.4e-5 of their value (hundreds of
+    units at the shipped GMMs' 1e5 to 1e8) from the float32 ones, so an
+    lse of another arithmetic would overflow or underflow every
+    weight."""
+    values, argmax, launched = _score_rows_wg(
+        x, bufs, "split", "gmm_score_rows_marg_tc_cuda", True)
     gmm_score_rows_marg_tc_cuda.launches += launched
     return values, argmax
 
@@ -391,8 +389,8 @@ def gmm_score_rows_marg_bf16_cuda(x, bufs):
     bf16); same outputs as ``score_bf16_marg_plain``. Its logsumexp is
     what :func:`gmm_unit_marg_bf16_cuda` and
     :func:`gmm_hvp_marg_weights_bf16_cuda` take, as under ``"split"``."""
-    values, argmax, launched = _score_rows_tc(
-        x, bufs, "bf16", "gmm_score_rows_marg_bf16_cuda")
+    values, argmax, launched = _score_rows_wg(
+        x, bufs, "bf16", "gmm_score_rows_marg_bf16_cuda", True)
     gmm_score_rows_marg_bf16_cuda.launches += launched
     return values, argmax
 
@@ -424,47 +422,72 @@ def gmm_hvp_map_cuda(t, argmax, bufs):
     return out
 
 
-def _check_marg(device, n, lse, bufs):
-    rec, a_full = bufs["rec"], bufs["a_full"]
-    k = rec.shape[0]
+def _check_marg(x, lse, bufs, mode, name):
+    """Checks a marginalise row kernel's rows, logsumexp and buffers of
+    ``mode``; the device, the row count, the pair buffer, the component
+    count, and the CTAs of the persistent launch (one an SM, at most one
+    a tile of rows) with their slice each of the weights' scratch."""
+    device, n = _check_rows(x, name)
+    pairs, k = _wg_pairs(bufs, mode, device)
     _check(lse, "lse", torch.float32, (n,), device)
-    _check(rec, "rec", torch.float32, (k, REC), device)
-    _check(a_full, "a_full", torch.float32, (k, D, D), device)
-    return rec, a_full, k
+    _check(bufs["a_full"], "a_full", torch.float32, (k, D, D), device)
+    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
+    ctas = min(-(-n // WG_ROWS),
+               torch.cuda.get_device_properties(device).multi_processor_count)
+    wts = torch.empty((max(ctas, 1), WG_ROWS, KP_WG), dtype=torch.float32,
+                      device=device)
+    return device, n, pairs, k, ctas, wts
+
+
+def _unit_marg_wg(x, lse, bufs, mode, name):
+    """K8 of ``mode`` on the warpgroup core: the unit rows and whether it
+    launched."""
+    device, n, pairs, k, ctas, wts = _check_marg(x, lse, bufs, mode, name)
+    buf = torch.empty(n * (D + 1), dtype=torch.float32, device=device)
+    out, wsum = buf[:n * D].view(n, D), buf[n * D:]
+    if n:
+        _launch("gmm_score_wg_unit", x, lse, n, pairs, bufs["lin_wg"],
+                bufs["a_full"], bufs["b_rows"], k, WG_PRODUCTS[mode], wts,
+                ctas, wsum, out, wg=True)
+    return out, bool(n)
+
+
+def _hvp_marg_weights_wg(x, t, lse, bufs, mode, name):
+    """K9a of ``mode`` on the warpgroup core: p, dp and whether it
+    launched."""
+    device, n, pairs, k, ctas, wts = _check_marg(x, lse, bufs, mode, name)
+    _check(t, "tangents", torch.float32, (n, D), device)
+    p = torch.empty((k, n), dtype=torch.float32, device=device)
+    dp = torch.empty((k, n), dtype=torch.float32, device=device)
+    ref = torch.empty(2 * n, dtype=torch.float32, device=device)
+    if n:
+        _launch("gmm_score_wg_weights", x, t, lse, n, pairs, bufs["lin_wg"],
+                bufs["a_full"], bufs["b_rows"], k, WG_PRODUCTS[mode], wts,
+                ctas, ref, p, dp, wg=True)
+    return p, dp, bool(n)
 
 
 def gmm_unit_marg_cuda(x, lse, bufs):
-    """Launch the marginalise unit gradient on rows ``x (N, 64)`` with the
-    forward's logsumexp ``lse (N,)``; ``(N, 64)``."""
-    device, n = _check_rows(x, "gmm_unit_marg_cuda")
-    rec, a_full, k = _check_marg(device, n, lse, bufs)
-    out = torch.empty((n, D), dtype=torch.float32, device=device)
-    if n:
-        _launch("gmm_unit_marg", x, lse, rec, a_full, n, k, out)
-        gmm_unit_marg_cuda.launches += 1
+    """Launch the marginalise unit gradient of the ``"f32"`` mode (K8:
+    the six-product core of ``csrc/gmm_score_wg.cu``, the mixture in
+    float32) on rows ``x (N, 64)`` with the logsumexp ``lse (N,)`` of
+    :func:`gmm_score_rows_marg_cuda`, whose logits it recomputes bit for
+    bit; ``(N, 64)``. Same contract as :func:`unit_marg_plain`."""
+    out, launched = _unit_marg_wg(x, lse, bufs, "f32", "gmm_unit_marg_cuda")
+    gmm_unit_marg_cuda.launches += launched
     return out
 
 
 def gmm_hvp_marg_weights_cuda(x, t, lse, bufs):
-    """Launch the first stage of the marginalise Hessian action:
-    ``(p, dp)``, each ``(K, N)``."""
-    device, n = _check_rows(x, "gmm_hvp_marg_weights_cuda")
-    _check(t, "tangents", torch.float32, (n, D), device)
-    rec, a_full, k = _check_marg(device, n, lse, bufs)
-    p = torch.empty((k, n), dtype=torch.float32, device=device)
-    dp = torch.empty((k, n), dtype=torch.float32, device=device)
-    if n:
-        _launch("gmm_hvp_marg_weights", x, t, lse, rec, a_full, n, k, p, dp)
-        gmm_hvp_marg_weights_cuda.launches += 1
+    """Launch the first stage of the marginalise Hessian action of the
+    ``"f32"`` mode (K9a, the core of :func:`gmm_unit_marg_cuda`, ``g`` in
+    float32) with the logsumexp of :func:`gmm_score_rows_marg_cuda`:
+    ``(p, dp)``, each ``(K, N)``. Same contract as
+    :func:`hvp_marg_weights_plain`."""
+    p, dp, launched = _hvp_marg_weights_wg(x, t, lse, bufs, "f32",
+                                           "gmm_hvp_marg_weights_cuda")
+    gmm_hvp_marg_weights_cuda.launches += launched
     return p, dp
-
-
-def _check_marg_tc(device, n, lse, bufs):
-    k = _split_tiles(bufs, device)
-    _check(lse, "lse", torch.float32, (n,), device)
-    _check(bufs["a_full"], "a_full", torch.float32, (k, D, D), device)
-    _check(bufs["b_rows"], "b_rows", torch.float32, (k, D), device)
-    return k
 
 
 def gmm_unit_marg_tc_cuda(x, lse, bufs):
@@ -473,7 +496,7 @@ def gmm_unit_marg_tc_cuda(x, lse, bufs):
     rows ``x (N, 64)`` with the logsumexp ``lse (N,)`` of
     :func:`gmm_score_rows_marg_tc_cuda`; ``(N, 64)``. Same contract as
     ``marg_unit_split_plain``."""
-    out, launched = _unit_marg_tc(x, lse, bufs, "split",
+    out, launched = _unit_marg_wg(x, lse, bufs, "split",
                                   "gmm_unit_marg_tc_cuda")
     gmm_unit_marg_tc_cuda.launches += launched
     return out
@@ -483,21 +506,10 @@ def gmm_unit_marg_bf16_cuda(x, lse, bufs):
     """Launch the marginalise unit gradient of the ``"bf16"`` mode (K8
     bf16) with the logsumexp of :func:`gmm_score_rows_marg_bf16_cuda`;
     ``(N, 64)``. Same contract as ``marg_unit_bf16_plain``."""
-    out, launched = _unit_marg_tc(x, lse, bufs, "bf16",
+    out, launched = _unit_marg_wg(x, lse, bufs, "bf16",
                                   "gmm_unit_marg_bf16_cuda")
     gmm_unit_marg_bf16_cuda.launches += launched
     return out
-
-
-def _unit_marg_tc(x, lse, bufs, mode, name):
-    device, n = _check_rows(x, name)
-    k = _check_marg_tc(device, n, lse, bufs)
-    out = torch.empty((n, D), dtype=torch.float32, device=device)
-    if n:
-        _launch("gmm_unit_marg_tc", x, lse, n, bufs["pair_tc"], bufs["bc"],
-                bufs["a_full"], bufs["b_rows"], k, TC_PRODUCTS[mode], out,
-                tc=True)
-    return out, bool(n)
 
 
 def gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs):
@@ -505,7 +517,7 @@ def gmm_hvp_marg_weights_tc_cuda(x, t, lse, bufs):
     ``"split"`` mode (K9a split) with the logsumexp of
     :func:`gmm_score_rows_marg_tc_cuda`: ``(p, dp)``, each ``(K, N)``.
     Same contract as :func:`hvp_marg_weights_split_plain`."""
-    p, dp, launched = _hvp_marg_weights_tc(x, t, lse, bufs, "split",
+    p, dp, launched = _hvp_marg_weights_wg(x, t, lse, bufs, "split",
                                            "gmm_hvp_marg_weights_tc_cuda")
     gmm_hvp_marg_weights_tc_cuda.launches += launched
     return p, dp
@@ -517,23 +529,10 @@ def gmm_hvp_marg_weights_bf16_cuda(x, t, lse, bufs):
     the logsumexp of :func:`gmm_score_rows_marg_bf16_cuda`: ``(p, dp)``,
     each ``(K, N)``. Same contract as
     :func:`hvp_marg_weights_bf16_plain`."""
-    p, dp, launched = _hvp_marg_weights_tc(x, t, lse, bufs, "bf16",
+    p, dp, launched = _hvp_marg_weights_wg(x, t, lse, bufs, "bf16",
                                            "gmm_hvp_marg_weights_bf16_cuda")
     gmm_hvp_marg_weights_bf16_cuda.launches += launched
     return p, dp
-
-
-def _hvp_marg_weights_tc(x, t, lse, bufs, mode, name):
-    device, n = _check_rows(x, name)
-    _check(t, "tangents", torch.float32, (n, D), device)
-    k = _check_marg_tc(device, n, lse, bufs)
-    p = torch.empty((k, n), dtype=torch.float32, device=device)
-    dp = torch.empty((k, n), dtype=torch.float32, device=device)
-    if n:
-        _launch("gmm_hvp_marg_weights_tc", x, t, lse, n, bufs["pair_tc"],
-                bufs["bc"], bufs["a_full"], bufs["b_rows"], k,
-                TC_PRODUCTS[mode], p, dp, tc=True)
-    return p, dp, bool(n)
 
 
 def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
@@ -555,7 +554,8 @@ def gmm_hvp_marg_mix_cuda(x, t, p, dp, bufs):
 
 def reset_counters():
     """Set every launch and call count of this module to zero."""
-    for fn in (gmm_score_rows_cuda, gmm_score_rows_tc_cuda,
+    for fn in (gmm_score_rows_cuda, gmm_score_rows_marg_cuda,
+               gmm_score_rows_tc_cuda,
                gmm_score_rows_marg_tc_cuda, gmm_score_rows_bf16_cuda,
                gmm_score_rows_marg_bf16_cuda, gmm_unit_map_cuda,
                gmm_hvp_map_cuda, gmm_unit_marg_cuda, gmm_unit_marg_tc_cuda,

@@ -23,14 +23,12 @@ __all__ = ["BUILD_DIR", "BUILD_INFO", "LIBRARIES", "load_libraries",
            "load_library"]
 
 # the package's kernel libraries: the fused GMM scorer's MAP backward
-# (K2), the probe's marginalised row kernels on the tensor cores ("split"
-# and "bf16" modes: K5's logsumexp, K8, K9a), the GMM scorers on the
-# warpgroup instructions (K1 MAP and logsumexp and K4 of every mode, K5
-# MAP of the bf16 modes), the patch-level scorer (K5-K9) and the
-# matrix-DFT convolution's (K3) three passes on the warpgroup
-# instructions in every mode
-LIBRARIES = ("gmm_fused", "gmm_fused_tc", "gmm_score_wg", "gmm_patch",
-             "pfft_conv_wg")
+# (K2), the GMM scorers on the warpgroup instructions (K1 MAP and
+# logsumexp and K4 of every mode, K5 MAP of the bf16 modes, and K5's
+# logsumexp, K8 and K9a of every mode), the patch-level float32 kernels
+# (K5 MAP, K6, K7, K9b) and the matrix-DFT convolution's (K3) three
+# passes on the warpgroup instructions in every mode
+LIBRARIES = ("gmm_fused", "gmm_score_wg", "gmm_patch", "pfft_conv_wg")
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -133,7 +133,7 @@ def main():
     cuda_build.load_libraries(*cuda_build.LIBRARIES)
     registers = {name: cs.ptxas_summary(
         cuda_build.BUILD_INFO.get(name, {}).get("ptxas", ""))
-        for name in ("gmm_patch", "gmm_fused_tc")}
+        for name in ("gmm_patch", "gmm_score_wg")}
     gmm = GaussianMixtureModel.from_registry("astro-snr-v1")
     if not args.cases.exists():
         torch.save(make_cases(torch, cs, device, gmm), args.cases)

@@ -563,9 +563,9 @@ def test_kernel_buffers_a_is_symmetric_and_bf16_planes_exact(name):
     a_pair = a_full[:, tf.PAIR_A, tf.PAIR_B].T
     want = torch.where(diag, bf16_round(a_pair), 2.0 * bf16_round(a_pair))
     assert torch.equal(bufs["pair_hi"], want)
-    tiles = bufs["pair_tc"].shape[0]
-    hi = (bufs["pair_tc"][:, :, 0].float().permute(0, 2, 1, 3)
-          .reshape(tiles * tf.KP_TC, tf.PAIRS))
+    from test_torch_gmm_fused_split import wg_parts
+
+    hi = torch.as_tensor(wg_parts(bufs)[0][0])
     assert torch.equal(hi[:k], bufs["pair_hi"].T)
     assert not hi[k:].any()
 

@@ -184,8 +184,9 @@ def test_split_image_gradient_matches_jax_high(gmms, shape):
 
 def test_split_buffers_reproduce_the_quadratic_form():
     """The pair-major ``A`` gives ``x^T A x`` (float64); its bf16 parts
-    hold it to bf16's rounding of the low part; the kernel's chunked
-    copy holds exactly those parts, its ``bc`` the linear terms."""
+    hold it to bf16's rounding of the low part; the kernels' copy
+    (``pair_wg``) holds exactly those parts, its ``lin_wg`` the linear
+    terms."""
     gmm_t = jt.GaussianMixtureModel.from_registry("builtin-8x8-v1")
     packed = gmm_t.packed
     a_quad = packed["a_quad"][:3]
@@ -205,39 +206,37 @@ def test_split_buffers_reproduce_the_quadratic_form():
         assert torch.equal(part, part.to(torch.bfloat16).float())
     assert bool(((pair32 - hi - lo).abs() <= 2.0**-17 * pair32.abs()).all())
 
-    tc = bufs["pair_tc"].float()
-    assert tc.shape == (1, 2080 // 32, 2, 208, 32)
-    parts = tc[0].permute(1, 2, 0, 3).reshape(2, 208, 2080)
-    assert torch.equal(parts[0, :k], hi.T)
-    assert torch.equal(parts[1, :k], lo.T)
+    parts, b3, c = wg_parts(bufs)
+    assert parts.shape == (2, 200, 2080)
+    assert_array_equal(parts[0, :k], hi.T.numpy())
+    assert_array_equal(parts[1, :k], lo.T.numpy())
     assert not parts[:, k:].any()
-    bc = bufs["bc"]
-    assert bc.shape == (1, 65, 208)
-    assert torch.equal(bc[0, :64, :k], bufs["bq"])
-    assert torch.equal(bc[0, 64, :k], bufs["const2"])
-    assert not bc[0, :, k:].any()
+    assert_array_equal(b3.astype(np.float64).sum(axis=0)[:k],
+                       -2.0 * bufs["bq"].numpy().T.astype(np.float64))
+    assert_array_equal(c[:k], bufs["const2"].numpy())
+    assert not b3[:, k:].any() and not c[k:].any()
 
 
 def test_split_buffers_tile_the_components():
-    """Past 208 components the kernel's copy holds tiles of 208, the
+    """Past 200 components the kernels' copies hold tiles of 200, the
     last padded with zero components: 256 take two."""
     from chip_smoke import wide_gmm
 
     bufs = wide_gmm().kernel_buffers("cpu")
     hi, lo = bufs["pair_hi"], bufs["pair_lo"]
     assert hi.shape == (2080, 256)
-    tc = bufs["pair_tc"].float()
-    assert tc.shape == (2, 2080 // 32, 2, 208, 32)
-    parts = tc.permute(2, 0, 3, 1, 4).reshape(2, 416, 2080)
-    assert torch.equal(parts[0, :256], hi.T)
-    assert torch.equal(parts[1, :256], lo.T)
+    assert tuple(bufs["pair_wg"].shape)[:2] == (2, 65)
+    assert tuple(bufs["pair_wg3"].shape)[:2] == (2, 130)
+    assert bufs["lin_wg"].shape[0] == 2
+    parts, b3, c = wg_parts(bufs)
+    assert parts.shape == (2, 400, 2080)
+    assert_array_equal(parts[0, :256], hi.T.numpy())
+    assert_array_equal(parts[1, :256], lo.T.numpy())
     assert not parts[:, 256:].any()
-    bc = bufs["bc"]
-    assert bc.shape == (2, 65, 208)
-    full = bc.permute(1, 0, 2).reshape(65, 416)
-    assert torch.equal(full[:64, :256], bufs["bq"])
-    assert torch.equal(full[64, :256], bufs["const2"])
-    assert not full[:, 256:].any()
+    assert_array_equal(b3.astype(np.float64).sum(axis=0)[:256],
+                       -2.0 * bufs["bq"].numpy().T.astype(np.float64))
+    assert_array_equal(c[:256], bufs["const2"].numpy())
+    assert not b3[:, 256:].any() and not c[256:].any()
 
 
 def kernel_address(n, k, width=32):
@@ -282,8 +281,9 @@ def wg_parts(bufs):
 @pytest.mark.parametrize("name,tiles", [("astro-snr-v1", 1),
                                         ("wide-256", 2)])
 def test_wg_buffer_places_the_split_parts(name, tiles):
-    """The MAP kernels' copies (``pair_wg``, ``lin_wg``) hold exactly
-    ``pair_tc``'s entries, placed as the kernel's descriptors read them
+    """The kernels' copies (``pair_wg``, ``lin_wg``) hold exactly the
+    split parts ``pair_hi`` and ``pair_lo``, placed as the kernel's
+    descriptors read them
     (:func:`kernel_address`, which ``wg_plane_index`` must agree with),
     -2 b as three bf16 parts whose sum is it exactly, and c in the order
     the threads read it; zero past K, in tiles of 200."""
@@ -307,9 +307,6 @@ def test_wg_buffer_places_the_split_parts(name, tiles):
     assert_array_equal(parts[0, :k], bufs["pair_hi"].T.numpy())
     assert_array_equal(parts[1, :k], bufs["pair_lo"].T.numpy())
     assert not parts[:, k:].any()
-    # a permutation of pair_tc's entries: the same values, as many times
-    tc = bufs["pair_tc"].float().numpy()
-    assert_array_equal(np.sort(tc[tc != 0]), np.sort(parts[parts != 0]))
     b = bufs["bq"].numpy().T.astype(np.float64)
     assert_array_equal(b3.astype(np.float64).sum(axis=0)[:k], -2.0 * b)
     for part in b3:
@@ -340,22 +337,18 @@ def test_dial_routes_the_map_forward_to_the_warpgroup_kernels(monkeypatch,
                                                               mode):
     """On a card K1 (the wrappers ``gmm_fused_fwd_tc_cuda``,
     ``gmm_fused_fwd_bf16_cuda`` and their logsumexp ``_marg_``
-    counterparts) and K5's MAP instances (``gmm_score_rows_tc_cuda``,
-    ``gmm_score_rows_bf16_cuda``) launch ``gmm_score_wg``'s entries with
-    the mode's products, ``pair_wg`` and ``lin_wg``; K5's logsumexp
-    instances ``gmm_fused_tc``'s with ``pair_tc``. The libraries are
-    recorded stand-ins and the wrappers' CUDA checks are lifted, so that
-    a CPU tensor stands for a card's."""
+    counterparts) and K5 (``gmm_score_rows_tc_cuda``,
+    ``gmm_score_rows_bf16_cuda`` and their logsumexp ``_marg_``
+    counterparts) launch ``gmm_score_wg``'s entries with the mode's
+    products, ``pair_wg`` and ``lin_wg``, K5 with its epilogue flag. The
+    library is a recorded stand-in and the wrappers' CUDA checks are
+    lifted, so that a CPU tensor stands for a card's."""
     from jolideco_torch.ops import gmm_pallas as tpallas
 
     calls = []
-    libs = {name: FakeLibrary(name, calls)
-            for name in ("gmm_score_wg", "gmm_fused_tc")}
+    lib = FakeLibrary("gmm_score_wg", calls)
     for module in (tfused, tpallas):
-        monkeypatch.setattr(module, "_wg_library",
-                            lambda: libs["gmm_score_wg"])
-        monkeypatch.setattr(module, "_tc_library",
-                            lambda: libs["gmm_fused_tc"])
+        monkeypatch.setattr(module, "_wg_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
@@ -384,20 +377,15 @@ def test_dial_routes_the_map_forward_to_the_warpgroup_kernels(monkeypatch,
         assert image_args[7:9] == (bufs["pair_wg"].data_ptr(),
                                    bufs["lin_wg"].data_ptr())
         assert image_args[9:11] == (200, products)
-        if marginalize:
-            assert [c[:2] for c in calls] == [
-                ("gmm_score_wg", "gmm_score_wg_image_lse"),
-                ("gmm_fused_tc", "gmm_score_rows_tc")]
-            assert row_args[2] == bufs["pair_tc"].data_ptr()
-            assert row_args[4:6] == (200, products)
-        else:
-            assert [c[:2] for c in calls] == [
-                ("gmm_score_wg", "gmm_score_wg_image"),
-                ("gmm_score_wg", "gmm_score_wg_rows")]
-            assert row_args[1] == 300
-            assert row_args[2:4] == (bufs["pair_wg"].data_ptr(),
-                                     bufs["lin_wg"].data_ptr())
-            assert row_args[4:6] == (200, products)
+        image_entry = ("gmm_score_wg_image_lse" if marginalize
+                       else "gmm_score_wg_image")
+        assert [c[:2] for c in calls] == [
+            ("gmm_score_wg", image_entry),
+            ("gmm_score_wg", "gmm_score_wg_rows")]
+        assert row_args[1] == 300
+        assert row_args[2:4] == (bufs["pair_wg"].data_ptr(),
+                                 bufs["lin_wg"].data_ptr())
+        assert row_args[4:7] == (200, products, int(marginalize))
 
 
 @pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),

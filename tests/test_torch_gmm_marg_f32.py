@@ -285,7 +285,6 @@ def fake_card(monkeypatch, code=0):
     card's (132 SMs); returns the list the calls go to."""
     calls = []
     for name, lib in (("_library", "gmm_fused"),
-                      ("_tc_library", "gmm_fused_tc"),
                       ("_wg_library", "gmm_score_wg")):
         monkeypatch.setattr(gf, name,
                             lambda lib=lib: FakeLibrary(lib, calls, code))

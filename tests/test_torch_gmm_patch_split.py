@@ -7,13 +7,13 @@ parts, three products hi.hi + hi.lo + lo.hi summed in float32). The
 JAX side runs that kernel in the Pallas interpreter on the CPU; the port
 runs the split plain versions (``score_split_plain``,
 ``score_split_marg_plain``: a CPU tensor), the reference of the card's
-K5 split kernels (``csrc/gmm_score_wg.cu`` and, for the logsumexp,
-``csrc/gmm_fused_tc.cu::gmm_score_rows_tc_kernel``),
-which form the same bf16 products from the symmetric pair layout and
-sum them in another order. Rows: the masked, mean-subtracted patches of
-a random image (the probe's rows), a few of them zero (masked patches);
-GMMs: the two of the registry and ``chip_smoke.wide_gmm``, 256
-components, two of the kernel's tiles of 208. Tolerances:
+K5 split kernels (``csrc/gmm_score_wg.cu``'s MAP and logsumexp
+instances), which form the same bf16 products from the symmetric pair
+layout and sum them in another order. Rows: the masked, mean-subtracted
+patches of a random image (the probe's rows), a few of them zero
+(masked patches); GMMs: the two of the registry and
+``chip_smoke.wide_gmm``, 256 components, two of the kernel's tiles of
+200. Tolerances:
 
 - values, the maximum and the logsumexp: rtol 1e-5 (float32 sums of the
   same products in other orders; the split itself lies about 1e-5 from
@@ -101,9 +101,9 @@ def test_split_plain_matches_jax_high(gmms, rows, marginalize):
     assert v_t.shape == (len(rows),) and a_t.dtype == torch.int32
     assert_allclose(v_t.numpy(), v_j, rtol=1e-5)
     assert_array_equal(a_t.numpy(), a_j)
-    if gmm_t.n_components > tf.KP_TC:
+    if gmm_t.n_components > tf.KP_WG:
         # both of the kernel's tiles hold winning components
-        assert 0 < int((a_t >= tf.KP_TC).sum()) < len(rows)
+        assert 0 < int((a_t >= tf.KP_WG).sum()) < len(rows)
 
 
 @pytest.mark.parametrize("marginalize", [False, True])

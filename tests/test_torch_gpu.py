@@ -162,8 +162,8 @@ def test_tensor_core_forward_matches_split_plain(device, name, shape,
     torch.testing.assert_close(xk, xp, rtol=0, atol=1e-5)
     torch.testing.assert_close(vk[m], vp[m], rtol=7e-5, atol=0)
     assert torch.equal(ak[m], ap[m])
-    if gmm.n_components > gf.KP_TC:
-        assert 0 < int((ap[m] >= gf.KP_TC).sum()) < int(m.sum())
+    if gmm.n_components > gf.KP_WG:
+        assert 0 < int((ap[m] >= gf.KP_WG).sum()) < int(m.sum())
 
 
 @pytest.mark.parametrize("name,shape,stride", [
@@ -300,8 +300,8 @@ def test_patch_kernels_match_plain(device, gmm, n):
     ("builtin-8x8-v1", 1000), ("wide-256", 4097),
 ])
 def test_tensor_core_row_scorer_matches_split_plain(device, name, n):
-    """K5 split (``gmm_score_rows_tc_kernel``, both instances) against the
-    split plain versions on rows: values to rtol 7e-5
+    """K5 split (``gmm_score_wg_kernel<false, 3, 0>`` and ``<false, 3,
+    1>``) against the split plain versions on rows: values to rtol 7e-5
     (``chip_smoke.K1_SPLIT_RTOL``: K1 split's logits), argmax identical,
     the ragged tail of a block masked; the 256 components of
     ``chip_smoke.wide_gmm`` take two of the kernel's tiles, each winning
@@ -325,8 +325,8 @@ def test_tensor_core_row_scorer_matches_split_plain(device, name, n):
         torch.testing.assert_close(vk, vp, rtol=chip_smoke.K1_SPLIT_RTOL,
                                    atol=0)
         assert torch.equal(ak, ap)
-    if gmm.n_components > gf.KP_TC:
-        assert 0 < int((ap >= gf.KP_TC).sum()) < n
+    if gmm.n_components > gf.KP_WG:
+        assert 0 < int((ap >= gf.KP_WG).sum()) < n
 
 
 @pytest.mark.parametrize("mode", ["split", "bf16"])
@@ -513,6 +513,12 @@ def marg_gmm(request):
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 1000, 4097])
 def test_marginalise_patch_kernels_match_float64(device, marg_gmm, n):
+    """The ``"highest"`` probe's K5 lse (the warpgroup core's six
+    products) against the float32 plain version (rtol 1e-5, argmax
+    identical), K8 and K9a (the same instance's logits, fed the float32
+    plain logsumexp: the weights are renormalised) and K9b against the
+    float64 plain versions (the anchored bar), and K8 fed K5 lse's own
+    logsumexp, as the probe runs it, the same."""
     from jolideco_torch.ops import gmm_pallas as gp
 
     bufs = marg_gmm.kernel_buffers(device)
@@ -520,8 +526,14 @@ def test_marginalise_patch_kernels_match_float64(device, marg_gmm, n):
     x = torch.as_tensor(make_rows(n), device=device)
     t = torch.randn(x.shape, device=device,
                     generator=torch.Generator(device=device).manual_seed(1))
-    lse, _ = gp.score_rows_plain(x, bufs, True)
+    lse, ap = gp.score_rows_plain(x, bufs, True)
+    lse_k, ak = gp.gmm_score_rows_marg_cuda(x, bufs)
+    torch.testing.assert_close(lse_k, lse, rtol=1e-5, atol=0)
+    assert torch.equal(ak, ap)
     x64, t64, lse64 = x.double(), t.double(), lse.double()
+    anchored(gp.gmm_unit_marg_cuda(x, lse_k, bufs),
+             gp.unit_marg_plain(x, lse, bufs),
+             gp.unit_marg_plain(x64, lse64, b64))
     anchored(gp.gmm_unit_marg_cuda(x, lse, bufs),
              gp.unit_marg_plain(x, lse, bufs),
              gp.unit_marg_plain(x64, lse64, b64))
@@ -756,13 +768,28 @@ def test_marginalise_f32_weights_of_one_hot_rows_are_one(device, gmm, mode):
     gives it K1 lse's logits bit for bit), its argmax, and an invalid
     patch's by 0, and gives the bits of the wrapper's launch: the weights'
     scratch of a launch with a CTA a tile of 128 rows, read back
-    (``chip_smoke.k4_weight_checks``; 256 patches, two CTAs)."""
+    (``chip_smoke.k4_weight_checks``; 256 patches, two CTAs). Likewise
+    K9a of the mode fed K5 lse's own logsumexp: p exactly 1 at K5's argmax
+    and 0 elsewhere, dp exactly 0, on every one-hot row."""
     import chip_smoke
+    from jolideco_torch.ops import gmm_pallas as gp
 
+    bufs = gmm.kernel_buffers(device)
     image = torch.as_tensor(make_image((64, 64), seed=5), device=device)
-    out = chip_smoke.k4_weight_checks(torch, "64x64", image,
-                                      gmm.kernel_buffers(device), mode)
+    out = chip_smoke.k4_weight_checks(torch, "64x64", image, bufs, mode)
     assert 0 < out["n_valid"] < 256
+    score, _, weights = (chip_smoke.launcher(gp, name) for name in
+                         chip_smoke.MARG_PROBE_KERNELS[mode])
+    x = torch.as_tensor(make_rows(1000), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(2))
+    lse, argmax = score(x, bufs)
+    p, dp = weights(x, t, lse, bufs)
+    one_hot = (p != 0).sum(dim=0) == 1
+    assert int(one_hot.sum()) >= 800
+    rows = one_hot.nonzero()[:, 0]
+    assert bool((p[argmax[rows].long(), rows] == 1.0).all())
+    assert bool((dp[:, one_hot] == 0).all())
 
 
 @pytest.mark.parametrize("name", ["astro-snr-v1", "wide-256", "mixed-200",
@@ -930,6 +957,32 @@ def test_marginalise_tensor_core_backward_is_repeatable(device):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("mode", ["f32", "split", "bf16"])
+def test_marginalise_probe_row_kernels_are_repeatable(device, mode):
+    """Two launches of K8 and of K9a of each mode on the same rows give
+    the same bits (no float atomics), where the weights are mixed
+    (``chip_smoke.mixed_gmm``) and past one tile of components
+    (``chip_smoke.wide_gmm``, K = 256)."""
+    from jolideco_torch.ops import gmm_pallas as gp
+
+    import chip_smoke
+
+    score, unit, weights = (chip_smoke.launcher(gp, name) for name in
+                            chip_smoke.MARG_PROBE_KERNELS[mode])
+    x = torch.as_tensor(make_rows(1000), device=device)
+    t = torch.randn(x.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    for gmm in (chip_smoke.mixed_gmm(), chip_smoke.wide_gmm()):
+        bufs = gmm.kernel_buffers(device)
+        lse, _ = score(x, bufs)
+        first, second = (unit(x, lse, bufs) for _ in range(2))
+        assert bool(torch.isfinite(first).all())
+        assert torch.equal(first, second)
+        (p1, dp1), (p2, dp2) = (weights(x, t, lse, bufs) for _ in range(2))
+        assert bool(torch.isfinite(p1).all() and torch.isfinite(dp1).all())
+        assert torch.equal(p1, p2) and torch.equal(dp1, dp2)
+
+
 @pytest.mark.parametrize("dial,mode", [("highest", "f32"), ("high", "split"),
                                        ("default", "bf16")])
 def test_marginalised_launches_by_dial(device, gmm, dial, mode):
@@ -1032,11 +1085,12 @@ def test_marginalised_probe_on_card_matches_cpu(device, gmm, dial, mode):
                     "bf16": (gp.gmm_score_rows_marg_bf16_cuda.launches,
                              gp.gmm_unit_marg_bf16_cuda.launches,
                              gp.gmm_hvp_marg_weights_bf16_cuda.launches),
-                    "f32": (gp.gmm_score_rows_cuda.launches,
+                    "f32": (gp.gmm_score_rows_marg_cuda.launches,
                             gp.gmm_unit_marg_cuda.launches,
                             gp.gmm_hvp_marg_weights_cuda.launches)}
                 assert launches == {m: (int(m == mode),) * 3
                                     for m in launches}
+                assert gp.gmm_score_rows_cuda.launches == 0
                 assert gp.gmm_hvp_marg_mix_cuda.launches == 1
     finally:
         config.set_gmm_precision(saved)

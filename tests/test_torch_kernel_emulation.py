@@ -22,22 +22,21 @@ Dynamic shared memory (``extern __shared__``) becomes a static buffer of
 the card's 227 KB per block.
 
 The libraries it emulates are :data:`EMULATED`. The others are
-:data:`CARD_ONLY`: ``gmm_fused_tc`` is built from warp-level
-tensor-core instructions (``mma.sync``, ``ldmatrix``, ``cp.async``) and
-bf16 types whose operands are spread over the 32 threads of a warp, and
-``gmm_score_wg`` (K1 and K4 of every mode, K5's MAP scorers of the bf16
-modes) and ``pfft_conv_wg`` (K3's three passes in every mode) from
-warpgroup ones (``wgmma``, whose operands are spread over the 128
-threads of four warps, bulk copies completing on ``mbarrier``\ s, named
-barriers and ``setmaxnreg``), so a block of one thread cannot run them;
-the card holds them instead
+:data:`CARD_ONLY`: ``gmm_score_wg`` (K1 and K4 of every mode, K5's MAP
+scorers of the bf16 modes, K5's logsumexp, K8 and K9a of every mode) and
+``pfft_conv_wg`` (K3's three passes in every mode) are built from
+warpgroup tensor-core instructions (``wgmma``, whose operands are spread
+over the 128 threads of four warps, bulk copies completing on
+``mbarrier``\ s, named barriers and ``setmaxnreg``), so a block of one
+thread cannot run them; the card holds them instead
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 2), and on the CPU
 their plain versions (``mode="split"``, ``"bf16"``) and their arithmetic
 written out in PyTorch (``tests/test_torch_pfft_f32.py`` and
 ``tests/test_torch_pfft_wg.py``, the matrix-DFT convolution in float32
 and in the bf16 modes; ``tests/test_torch_gmm_marg_f32.py`` and
-``tests/test_torch_gmm_marg_wg.py``, K1 and K4 of every mode) are held
-against the JAX package.
+``tests/test_torch_gmm_marg_wg.py``, K1 and K4 of every mode;
+``tests/test_torch_marg_probe_wg.py``, K5 lse, K8 and K9a of every
+mode) are held against the JAX package.
 
 Tolerances are the card's (``chip_smoke.py`` phase 2): values rtol 1e-5,
 argmax identical, the MAP gradients within 1e-4 of their max-abs, the
@@ -133,7 +132,7 @@ def emulated_source(source):
 
 # the libraries this file compiles for the CPU, and those it cannot
 EMULATED = ("gmm_fused", "gmm_patch")
-CARD_ONLY = ("gmm_fused_tc", "gmm_score_wg", "pfft_conv_wg")
+CARD_ONLY = ("gmm_score_wg", "pfft_conv_wg")
 
 
 def test_every_library_is_emulated_or_card_only():
@@ -300,16 +299,13 @@ def test_patch_kernels_match_plain(libs, bufs, n):
     k = bufs["rec"].shape[0]
     b64 = {name: v.double() for name, v in bufs.items()}
 
-    for marginalize in (0, 1):
-        values, argmax = torch.empty(n), torch.empty(n, dtype=torch.int32)
-        assert patch.gmm_score_rows(ptr(x), n, ptr(bufs["rec"]), k,
-                                    marginalize, ptr(values), ptr(argmax),
-                                    None) == 0
-        vp, ap = gp.score_rows_plain(x, bufs, bool(marginalize))
-        torch.testing.assert_close(values, vp, rtol=1e-5, atol=0)
-        assert torch.equal(argmax, ap)
+    values, argmax = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    assert patch.gmm_score_rows(ptr(x), n, ptr(bufs["rec"]), k, ptr(values),
+                                ptr(argmax), None) == 0
+    vp, ap = gp.score_rows_plain(x, bufs)
+    torch.testing.assert_close(values, vp, rtol=1e-5, atol=0)
+    assert torch.equal(argmax, ap)
 
-    _, ap = gp.score_rows_plain(x, bufs)
     unit, hvp = torch.empty(n, 64), torch.empty(n, 64)
     assert patch.gmm_unit_map(ptr(x), ptr(ap), ptr(bufs["a_full"]),
                               ptr(bufs["b_rows"]), n, ptr(unit), None) == 0
@@ -320,23 +316,14 @@ def test_patch_kernels_match_plain(libs, bufs, n):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
 
+    # K9b on the plain first stage's weights (K5 lse, K8 and K9a are
+    # gmm_score_wg's, card-only)
     lse, _ = gp.score_rows_plain(x, bufs, True)
     x64, t64, lse64 = x.double(), t.double(), lse.double()
-    assert patch.gmm_unit_marg(ptr(x), ptr(lse), ptr(bufs["rec"]),
-                               ptr(bufs["a_full"]), n, k, ptr(unit),
-                               None) == 0
-    anchored(unit, gp.unit_marg_plain(x, lse, bufs),
-             gp.unit_marg_plain(x64, lse64, b64))
-    p, dp = torch.empty(k, n), torch.empty(k, n)
-    assert patch.gmm_hvp_marg_weights(
-        ptr(x), ptr(t), ptr(lse), ptr(bufs["rec"]), ptr(bufs["a_full"]), n,
-        k, ptr(p), ptr(dp), None) == 0
     p32, dp32 = gp.hvp_marg_weights_plain(x, t, lse, bufs)
     p64, dp64 = gp.hvp_marg_weights_plain(x64, t64, lse64, b64)
-    anchored(p, p32, p64)
-    anchored(dp, dp32, dp64)
     assert patch.gmm_hvp_marg_mix(
-        ptr(x), ptr(t), ptr(p), ptr(dp), ptr(bufs["a_full"]),
+        ptr(x), ptr(t), ptr(p32), ptr(dp32), ptr(bufs["a_full"]),
         ptr(bufs["b_rows"]), n, k, ptr(hvp), None) == 0
     anchored(hvp, gp.hvp_marg_mix_plain(x, t, p32, dp32, bufs),
              gp.hvp_marg_mix_plain(x64, t64, p64, dp64, b64))

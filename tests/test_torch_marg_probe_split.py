@@ -8,8 +8,8 @@ logits. The JAX side runs those kernels in the Pallas interpreter on the
 CPU; the port runs the split plain versions (``score_split_marg_plain``,
 ``marg_unit_split_plain``, ``hvp_marg_weights_split_plain``, then the
 float32 ``hvp_marg_mix_plain``: a CPU tensor), the references of the
-card's K5 lse split, K8 split and K9a split
-(``csrc/gmm_fused_tc.cu``), which form the same bf16 products of the
+card's K5 lse split, K8 split and K9a split (``csrc/gmm_score_wg.cu``'s
+three-product instances), which form the same bf16 products of the
 logits. The port mixes in float32 where the JAX kernels split ``p`` and
 ``A`` into bf16 hi and lo, and computes ``g_k = t . (b_k - A_k x)`` in
 float32 where the JAX kernel takes a split cross form (``ROADMAP.md``
@@ -19,7 +19,7 @@ Rows: the probe's rows of a random image (its grouped patches,
 mean-subtracted, two of them zero as masked patches). GMMs: a random SPD
 GMM whose weights are mixed, ``builtin-8x8-v1`` (about one nonzero
 weight a row) and ``chip_smoke.wide_gmm`` (256 components, two of the
-kernels' tiles of 208). Tolerances:
+kernels' tiles of 200). Tolerances:
 
 - the gradient of ``sum(values)`` and its Hessian action along a random
   tangent: 1e-4 of their max-abs, the bar of
@@ -136,7 +136,7 @@ def test_patch_gradient_and_hvp_match_jax_high(rows, name):
         assert float(p.max(dim=0).values.min()) < 0.99
     if name == "wide-256":
         # both tiles hold the heaviest components of some rows
-        assert 0 < int((argmax >= tf.KP_TC).sum()) < len(rows)
+        assert 0 < int((argmax >= tf.KP_WG).sum()) < len(rows)
 
     assert_allclose(grad_t, grad_j, rtol=0,
                     atol=1e-4 * float(np.abs(grad_j).max()))
